@@ -2,11 +2,11 @@
 """Drive the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of the serving run
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving run and a training step
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
-2. build: nvcc builds every CUDA kernel of the serving path from csrc/;
+2. build: nvcc builds every CUDA kernel of the serving and training paths from csrc/;
 3. kernels: each kernel's wrapper at the llama3_8b shapes of the fused serving
    path, in bf16 and fp32, against its plain PyTorch version (errors,
    tolerance, kernel/plain/library times from CUDA events, and the bound:
@@ -21,6 +21,21 @@ Phases, each fatal on failure:
    256-token prefix with the first, so the prefix cache is hit). The kernel
    launch counters are zeroed just before and read just after; every kernel
    must have launched.
+6. training kernels: flash attention forward, dq and dk/dv (kernels A, B, C)
+   at the gpt2_1_3b shape and at GQA, Sq < Sk, window and ALiBi shapes, and
+   fused AdamW (kernel D) over the ``wte`` leaf and over all 388 leaves of
+   gpt2_1_3b, against their plain versions, each with its bound and a
+   library yardstick (SDPA forward and backward; ``torch.optim.AdamW(fused=
+   True)``), timed here only;
+7. train parity: gpt2_1_3b at full width and 2 layers, fp32 and bf16, one
+   engine step with the kernels and one with their plain versions from the
+   same weights and batch: loss, per-leaf gradients, parameters after it;
+8. train: ``initialize`` + ``train_batch`` on gpt2_1_3b at full width and
+   depth in bf16 (micro-batch 8 x 1024, FusedAdam, WarmupLR, clip 1.0) for
+   12 steps on one seeded batch; losses finite and falling; tokens/s, step
+   time, MFU and peak memory over steps 3-12, with the launch counters
+   zeroed before those steps and read after (A, B, C: 24 per step; D: one
+   per leaf). ``--profile`` adds a torch.profiler breakdown of one step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -84,10 +99,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def errors(got, want) -> dict:
-    """Max abs error and max per-row relative error (rows = the last dim)."""
+def errors(got, want, floor: float = 1e-30) -> dict:
+    """Max abs error and max per-row relative error (rows = the last dim), each
+    row's scale taken as at least ``floor``."""
     diff = (got.float() - want.float()).flatten(0, -2).abs().amax(-1)
-    scale = want.float().flatten(0, -2).abs().amax(-1).clamp_min(1e-30)
+    scale = want.float().flatten(0, -2).abs().amax(-1).clamp_min(floor)
     return dict(max_abs_err=diff.max().item(), max_rel_err=(diff / scale).max().item())
 
 
@@ -233,6 +249,199 @@ def run_kernel_phases(torch, dev, quick: bool):
                 raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['shape']}: {what} {rec[what]} > {tol}")
             records.append(rec)
             torch.cuda.empty_cache()
+    return records
+
+
+# ---------------------------------------------------------------- training kernels
+# gpt2_1_3b attention: 32 heads of 64, sequence 1024, micro-batch 8
+FLASH_CASES = {
+    "gpt2_1_3b": dict(B=8, Sq=1024, Sk=1024, H=32, KVH=32, D=64, causal=True),
+    "gqa": dict(B=1, Sq=2048, Sk=2048, H=32, KVH=8, D=128, causal=True),
+    "sq_lt_sk": dict(B=4, Sq=512, Sk=1024, H=32, KVH=32, D=64, causal=True),
+    "window": dict(B=4, Sq=1024, Sk=1024, H=32, KVH=32, D=64, causal=True, window=256),
+    "alibi": dict(B=4, Sq=1024, Sk=1024, H=32, KVH=32, D=64, causal=True, alibi=True),
+}
+
+
+def visible_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the mask lets through, per batch row and head."""
+    if not causal:
+        return Sq * Sk
+    rows = [(Sk - Sq) + r for r in range(Sq)]
+    return sum(max(0, min(r, Sk - 1) - (max(r - window + 1, 0) if window else 0) + 1) for r in rows)
+
+
+def phase_flash(torch, dev, dtype, name, iters):
+    """Kernels A, B, C at one shape against their plain versions; SDPA forward
+    and backward through autograd as the library yardsticks."""
+    from deepspeed_tpu_torch.models import alibi_slopes
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    c = FLASH_CASES[name]
+    B, Sq, Sk, H, KVH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KVH", "D"))
+    causal, window = c["causal"], c.get("window", 0)
+    g = torch.Generator(device=dev).manual_seed(Sq + H)
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KVH, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KVH, D), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    slopes = torch.from_numpy(alibi_slopes(H)).to(dev) if c.get("alibi") else None
+    scale = D**-0.5
+    args = (slopes, scale, causal, window)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+    delta = fa.flash_delta(o_ref, do)
+    bwd = (q, k, v, do, lse_ref, delta, *args)
+    dq = fa.flash_bwd_dq(*bwd)
+    dk, dv = fa.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_bwd_dq_ref(*bwd)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bwd)
+
+    def err(a, b):
+        # bf16: a row's scale is at least the tensor's mean magnitude (the first
+        # causal row's dq is exactly 0 in the plain version: p = 1, dp = delta).
+        # fp32: the abs error over max(1, max |want|), since dk/dv sum n_rep heads
+        # of 2048 rows (values ~4) in another order than the plain version
+        e = errors(a, b, b.float().abs().mean().item())
+        e["max_abs_err_scaled"] = e["max_abs_err"] / max(1.0, b.float().abs().max().item())
+        return e
+
+    e_fwd = err(o, o_ref)
+    e_fwd["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+    e_dq = err(dq, dq_ref)
+    e_dk, e_dv = err(dk, dk_ref), err(dv, dv_ref)
+    e_dkv = {key: max(e_dk[key], e_dv[key]) for key in e_dk}
+    tol = ("max_abs_err_scaled", 1e-5) if dtype == torch.float32 else TOL[str(dtype)]
+    del o_ref, dq_ref, dk_ref, dv_ref
+    item = q.element_size()
+    pairs = visible_pairs(Sq, Sk, causal, window) * B * H
+    nq, nk = q.numel() * item, k.numel() * item
+    stats = B * H * Sq * 4  # lse or delta
+    recs = {}
+    few = max(2, iters // 10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    mask = None
+    if window or slopes is not None or Sq != Sk:
+        # SDPA's is_causal aligns queries to the start of the keys; give it the mask instead
+        rows = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+        cols = torch.arange(Sk, device=dev)[None, :]
+        allowed = (cols <= rows) & ((cols > rows - window) if window else True)
+        mask = torch.zeros((Sq, Sk), device=dev).masked_fill(~allowed, float("-inf"))
+        if slopes is not None:
+            mask = mask[None] + slopes[:, None, None] * cols.float()
+        mask = mask.to(dtype)
+    lib = lambda qq, kk, vv: sdpa(qq, kk, vv, attn_mask=mask, is_causal=mask is None and causal, scale=scale,
+                                  enable_gqa=KVH != H)
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    out = lib(*leaves)
+    doh = do.permute(0, 2, 1, 3).contiguous()
+    lib_fwd = time_ms(lambda: lib(qh, kh, vh), iters)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, leaves, doh, retain_graph=True), max(3, iters // 2))
+    for kernel, e, fn, ref, n_prod, nbytes in (
+            ("flash_fwd", e_fwd, lambda: fa.flash_fwd(q, k, v, *args), lambda: fa.flash_fwd_ref(q, k, v, *args), 2,
+             2 * nq + 2 * nk + stats),
+            ("flash_bwd_dq", e_dq, lambda: fa.flash_bwd_dq(*bwd), lambda: fa.flash_bwd_dq_ref(*bwd), 3,
+             3 * nq + 2 * nk + 2 * stats),
+            ("flash_bwd_dkv", e_dkv, lambda: fa.flash_bwd_dkv(*bwd), lambda: fa.flash_bwd_dkv_ref(*bwd), 4,
+             2 * nq + 4 * nk + 2 * stats)):
+        b_ms, b_by = bound(nbytes, 2 * n_prod * D * pairs, dtype)
+        recs[kernel] = dict(kernel=kernel, case=name, dtype=str(dtype), shape=f"q({B},{Sq},{H},{D}) kv({B},{Sk},"
+                            f"{KVH},{D}) causal={causal} window={window} alibi={slopes is not None}", **e,
+                            tol=tol, kernel_ms=time_ms(fn, iters), plain_ms=time_ms(ref, few),
+                            library_ms=lib_fwd if kernel == "flash_fwd" else lib_bwd,
+                            library="SDPA forward" if kernel == "flash_fwd" else "SDPA backward (dq, dk, dv)",
+                            bound_bytes=nbytes, bound_flops=2 * n_prod * D * pairs, bound_ms=b_ms, bound_by=b_by)
+    del out, leaves
+    return list(recs.values())
+
+
+def flatten(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, in sorted-key order (the engine's)."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [pair for k in sorted(tree) for pair in flatten(tree[k], f"{prefix}/{k}" if prefix else k)]
+
+
+def gpt2_leaf_shapes():
+    """The 388 parameter shapes of gpt2_1_3b, in the engine's order."""
+    from deepspeed_tpu_torch.models import gpt2_1_3b, param_shapes
+
+    return [(path, spec[0]) for path, spec in flatten(param_shapes(gpt2_1_3b()))]
+
+
+def phase_adam(torch, dev, which, iters):
+    """Kernel D over the wte leaf or over every gpt2_1_3b leaf (one launch per
+    leaf), against its plain version; torch.optim.AdamW(fused=True) over the
+    same leaves as the yardstick."""
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    shapes = gpt2_leaf_shapes()
+    if which == "wte":
+        shapes = [(p, s) for p, s in shapes if p == "wte"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    leaves = []
+    for _, shape in shapes:
+        p = torch.randn(shape, generator=g, device=dev)
+        grad = torch.randn(shape, generator=g, device=dev)
+        m = torch.randn(shape, generator=g, device=dev) * 1e-3
+        v = torch.rand(shape, generator=g, device=dev) * 1e-6
+        leaves.append((p, grad, m, v))
+    n = sum(p.numel() for p, _, _, _ in leaves)
+    scal = fad.adam_scalars(1e-4, 10, 0.9, 0.999, grad_mult=0.7, device=dev)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    ref = [(p.clone(), grad, m.clone(), v.clone()) for p, grad, m, v in leaves]
+    for p, grad, m, v in leaves:
+        fad.fused_adam(p, grad, m, v, scal, **hyper)
+    for p, grad, m, v in ref:
+        fad.fused_adam_ref(p, grad, m, v, scal, **hyper)
+    torch.cuda.synchronize()
+    # relative to each updated tensor's largest value
+    pairs = [(a, b) for got, want in zip(leaves, ref) for a, b in zip(got[:1] + got[2:], want[:1] + want[2:])]
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
+    abs_err = max((a - b).abs().max().item() for a, b in pairs)
+    del ref, pairs
+    step = lambda: [fad.fused_adam(p, grad, m, v, scal, **hyper) for p, grad, m, v in leaves]
+    plain = lambda: [fad.fused_adam_ref(p, grad, m, v, scal, **hyper) for p, grad, m, v in leaves]
+    k_ms = time_ms(step, iters)
+    p_ms = time_ms(plain, max(2, iters // 5))
+    params = [p for p, _, _, _ in leaves]
+    for p, grad, _, _ in leaves:
+        p.grad = grad
+    opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
+    l_ms = time_ms(opt.step, iters)
+    del opt
+    nbytes = 28 * n
+    b_ms, b_by = bound(nbytes, 15 * n, torch.float32)
+    return dict(kernel="fused_adam", case=which, dtype="torch.float32", shape=f"{len(leaves)} leaves, {n} elements",
+                max_rel_err=rel, max_abs_err=abs_err, tol=("max_rel_err", 1e-6), launches_per_step=len(leaves),
+                kernel_ms=k_ms,
+                plain_ms=p_ms, library_ms=l_ms, library="torch.optim.AdamW(fused=True)", bound_bytes=nbytes,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def run_train_kernel_phases(torch, dev, quick: bool):
+    records = []
+    iters = 5 if quick else 20
+    names = ["gpt2_1_3b"] if quick else list(FLASH_CASES)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in names:
+            for rec in phase_flash(torch, dev, dtype, name, iters):
+                log(rec)
+                what, tol = rec["tol"]
+                if not (rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4):
+                    raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > {tol}"
+                                         f" or lse error {rec.get('lse_max_abs_err')} > 1e-4")
+                records.append(rec)
+            torch.cuda.empty_cache()
+    for which in (["wte"] if quick else ["wte", "all"]):
+        rec = phase_adam(torch, dev, which, iters)
+        log(rec)
+        if not rec["max_rel_err"] <= 1e-6:
+            raise AssertionError(f"fused_adam {which}: max_rel_err {rec['max_rel_err']} > 1e-6")
+        records.append(rec)
+        torch.cuda.empty_cache()
     return records
 
 
@@ -422,9 +631,224 @@ def phase_serve(torch, dev, counters, profile=False):
     return rec
 
 
+# ---------------------------------------------------------------- training run
+MICRO, SEQ, TRAIN_STEPS, TIMED_FROM = 8, 1024, 12, 2  # steps 3-12 are timed
+
+
+def gpt2_cfg(**kw):
+    """gpt2_1_3b with fields replaced (the presets fix n_layers)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import gpt2_1_3b
+
+    return dataclasses.replace(gpt2_1_3b(), **kw)
+
+
+def train_config(torch, optimizer: str, dtype) -> dict:
+    return {"train_micro_batch_size_per_gpu": MICRO, "gradient_accumulation_steps": 1, "steps_per_print": 1000,
+            "optimizer": {"type": optimizer, "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 1e-4,
+                                                         "warmup_num_steps": 5}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": dtype == torch.bfloat16}}
+
+
+def train_batch_data(np, vocab: int, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(0, vocab, (MICRO, SEQ)).astype(np.int32)}
+
+
+class PlainKernels:
+    """Bind the plain versions of kernels A, B and C in place of their wrappers
+    on the card, for a parity run (the autograd function calls them by name)."""
+
+    NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+
+        self.fa, self.saved = fa, {n: getattr(fa, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(fa, n, getattr(fa, n + "_ref"))
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.fa, n, fn)
+
+
+def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
+    """One engine step of gpt2_1_3b at full width with the kernels (flash
+    attention, FusedAdam) and one with their plain versions (the flash plain
+    versions under the same autograd function, plain AdamW), from the same
+    weights and batch."""
+    import contextlib
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    cfg = gpt2_cfg(n_layers=n_layers, dtype=dtype)
+    model = CausalLM(cfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = train_batch_data(np, cfg.vocab_size)
+    ids = torch.from_numpy(batch["input_ids"]).to(dev)
+    res = {}
+    for variant, optimizer in (("kernel", "FusedAdam"), ("plain", "AdamW")):
+        for fn in counters:
+            fn.launches = 0
+        with PlainKernels() if variant == "plain" else contextlib.nullcontext():
+            # the loss and the gradients of the compute-dtype weights, as the engine takes them
+            leaves = [(path, t.detach().clone().requires_grad_(True)) for path, t in flatten(params)]
+            tree = {}
+            for path, t in leaves:
+                node = tree
+                *parents, name = path.split("/")
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[name] = t.to(dtype)
+            loss = model.loss_fn(tree, {"input_ids": ids})
+            loss.backward()
+            grads = [t.grad for _, t in leaves]
+            engine, _, _, _ = dst.initialize(model=model, model_parameters=params,
+                                             config=train_config(torch, optimizer, dtype), device=dev)
+            step_loss = engine.train_batch(iter([batch]))
+            after = [t.detach() for _, t in flatten(engine.module_state_dict())]
+            torch.cuda.synchronize()
+        res[variant] = dict(loss=loss.item(), step_loss=step_loss.item(), grads=grads, after=after,
+                            launches={fn.__name__: fn.launches for fn in counters})
+        del engine, leaves, tree
+    k, p = res["kernel"], res["plain"]
+    lr = 1e-4  # the first step runs at the optimizer's lr (the schedule's consume-then-step clock)
+    before = [t for _, t in flatten(params)]
+    moved = [(a - b).abs() for a, b in zip(k["after"], p["after"])]
+    n = sum(m.numel() for m in moved)
+    rec = dict(phase="train_parity", model="gpt2_1_3b", layers=n_layers, dtype=str(dtype),
+               loss=p["loss"], loss_abs_err=abs(k["loss"] - p["loss"]),
+               step_loss_abs_err=abs(k["step_loss"] - p["step_loss"]),
+               # k_proj's bias has a zero true gradient (softmax ignores a per-row
+               # constant): its fp32 noise is held on the abs error instead
+               grad_max_rel_err=max(((a - b).abs().max() / b.abs().max()).item()
+                                    for (path, _), a, b in zip(flatten(params), k["grads"], p["grads"])
+                                    if not path.endswith("k_proj/bias")),
+               k_bias_grad_max_abs=max(max(a.abs().max().item(), b.abs().max().item())
+                                       for (path, _), a, b in zip(flatten(params), k["grads"], p["grads"])
+                                       if path.endswith("k_proj/bias")),
+               param_max_diff_over_lr=max(m.max().item() for m in moved) / lr,
+               param_share_off_by_lr_over_10=sum((m > lr / 10).sum().item() for m in moved) / n,
+               kernel_launches=k["launches"], plain_launches=p["launches"],
+               moved_from_init=max((a - b).abs().max().item() for a, b in zip(k["after"], before)) / lr)
+    # about twice the errors measured on an H100 at these seeded inputs (fp32:
+    # loss equal, gradients 4.2e-6, one parameter element in 2e8 off by more
+    # than lr/10; bf16: loss 2.6e-5, gradients 1.7e-2, 0.20 % of the elements:
+    # Adam's first step is lr * sign(g), so a gradient that flips sign moves
+    # its element by 2 lr)
+    tol = {"torch.float32": dict(loss_abs_err=1e-5, grad_max_rel_err=1e-5, param_share_off_by_lr_over_10=1e-8),
+           "torch.bfloat16": dict(loss_abs_err=5e-5, grad_max_rel_err=0.035,
+                                  param_share_off_by_lr_over_10=0.005)}[str(dtype)]
+    rec["tol"] = tol
+    log(rec)
+    del res, params
+    torch.cuda.empty_cache()
+    kernel_launched = all(n > 0 for name, n in k["launches"].items() if name.startswith(("flash", "fused")))
+    plain_clean = all(n == 0 for n in p["launches"].values())
+    if not (all(rec[key] <= t for key, t in tol.items()) and kernel_launched and plain_clean
+            and np.isfinite(rec["loss"])):
+        raise AssertionError(f"train parity failed: {rec}")
+    return rec
+
+
+def profile_train(torch, engine, data) -> None:
+    """Device-time breakdown of one training step under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(data)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd_dq": ("flash_dq_kernel",),
+            "flash_bwd_dkv": ("flash_dkv_kernel",), "fused_adam": ("adam_kernel",),
+            "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"), "copy": ("Memcpy", "Memset")}
+    by_cat, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = (getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)) / 1e3
+        if ms <= 0:
+            continue
+        cat = next((c for c, keys in cats.items() if any(k in e.key for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        top.append((ms, e.count, e.key[:100]))
+    busy = sum(by_cat.values())
+    top.sort(reverse=True)
+    log(dict(phase="profile_train", wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
+             busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
+             top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
+
+
+def phase_train(torch, dev, counters, profile=False):
+    """gpt2_1_3b at full width and depth in bf16 through ``initialize`` and
+    ``train_batch``: 12 steps on one seeded batch."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    cfg = gpt2_cfg(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params,
+                                     config=train_config(torch, "FusedAdam", torch.bfloat16), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in engine.parameters())
+    data = itertools.repeat(train_batch_data(np, cfg.vocab_size))
+    losses = [engine.train_batch(data) for _ in range(TIMED_FROM)]  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(data) for _ in range(TRAIN_STEPS - TIMED_FROM)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = [float(x) for x in losses]
+    steps = TRAIN_STEPS - TIMED_FROM
+    tokens = MICRO * SEQ
+    pairs = visible_pairs(SEQ, SEQ, True, 0)
+    # model FLOPs per step: 6 N T for the weights (the tied head included in N),
+    # plus attention's two products, forward and backward (3x), over the causal pairs
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * MICRO * cfg.n_heads * cfg.head_dim * pairs
+    step_s = wall / steps
+    rec = dict(phase="train", model="gpt2_1_3b", layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+               leaves=len(engine.parameters()), dtype="bfloat16", micro_batch=MICRO, seq=SEQ, steps=TRAIN_STEPS,
+               timed_steps=f"{TIMED_FROM + 1}-{TRAIN_STEPS}", losses=losses, step_ms=step_s * 1e3,
+               tokens_per_s=tokens / step_s, model_flops_per_step=flops, mfu=flops / step_s / PEAK_FLOPS[
+                   "torch.bfloat16"], max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+               weights_init_s=init_s, grad_norm=engine.get_global_grad_norm(), skipped_steps=engine.skipped_steps,
+               launches=launches, launches_per_step={k: v / steps for k, v in launches.items()})
+    log(rec)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses not finite or not falling: {losses}")
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+            "fused_adam": rec["leaves"]}
+    bad = {name: launches[name] / steps for name in want if launches[name] != want[name] * steps}
+    if bad:
+        raise AssertionError(f"train: launches per step {bad}, expected {want}")
+    if profile:
+        profile_train(torch, engine, data)
+    return rec
+
+
 def main(argv) -> int:
     quick = "--quick" in argv  # build + one case per kernel, then stop
-    profile = "--profile" in argv  # add a torch.profiler pass over the serving waves
+    profile = "--profile" in argv  # add torch.profiler passes over the serving waves and a training step
     try:
         import torch
     except ImportError:
@@ -438,7 +862,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, HERE)
-    from deepspeed_tpu_torch.ops import _build, norms, paged_attention as pa
+    from deepspeed_tpu_torch.ops import _build, flash_attention as fa, fused_adam as fad, norms
+    from deepspeed_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -457,6 +882,7 @@ def main(argv) -> int:
              ptxas=dict(entries=len(regs), max_registers=max(regs, default=0), spill_store_bytes=sum(spills))))
 
     records = run_kernel_phases(torch, dev, quick)
+    records += run_train_kernel_phases(torch, dev, quick)
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
@@ -464,6 +890,10 @@ def main(argv) -> int:
         phase_step_parity(torch, dev, dtype)
     counters = [pa.paged_attention_decode, pa.paged_attention_prefill, norms.rms_norm]
     serve = phase_serve(torch, dev, counters, profile)
+    train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
+    for dtype in (torch.float32, torch.bfloat16):
+        phase_train_parity(torch, dev, dtype, train_counters)
+    train = phase_train(torch, dev, counters + train_counters, profile)
 
     rep = {"paged_attention_decode": ("q(64,32,128)", "deepspeed_tpu_torch/csrc/paged_attention.cu",
                                       "deepspeed_tpu/ops/pallas/paged_attention.py:386"),
@@ -480,6 +910,22 @@ def main(argv) -> int:
                         "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"], "dtype": "bfloat16"})
+    flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    rep = {"flash_fwd": ("gpt2_1_3b", "torch.bfloat16", flash_src,
+                         "deepspeed_tpu/ops/pallas/flash_attention.py:185"),
+           "flash_bwd_dq": ("gpt2_1_3b", "torch.bfloat16", flash_src,
+                            "deepspeed_tpu/ops/pallas/flash_attention.py:417"),
+           "flash_bwd_dkv": ("gpt2_1_3b", "torch.bfloat16", flash_src,
+                             "deepspeed_tpu/ops/pallas/flash_attention.py:518"),
+           "fused_adam": ("all", "torch.float32", "deepspeed_tpu_torch/csrc/fused_adam.cu",
+                          "deepspeed_tpu/ops/pallas/fused_adam.py:51")}
+    for name, (case, dtype, source, replaces) in rep.items():
+        r = next(x for x in records if x["kernel"] == name and x["case"] == case and x["dtype"] == dtype)
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": train["launches"][name], "max_abs_err": r["max_abs_err"],
+                        "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"], "dtype": dtype.split(".")[1]})
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

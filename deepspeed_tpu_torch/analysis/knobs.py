@@ -1,7 +1,7 @@
 """``DS_TPU_*`` environment knobs read by the port.
 
 A copy of the part of the reference registry (``deepspeed_tpu/analysis/
-knobs.py``) that the serving slice reads: same names, defaults and types,
+knobs.py``) that the port reads: same names, defaults and types,
 so a tuned environment means the same thing to either package. Stdlib only.
 """
 
@@ -91,3 +91,10 @@ declare("DS_TPU_PROGRAM_CACHE", "8", "int",
 declare("DS_TPU_PREFIX_CACHE", "1", "bool",
         "Enable the radix prefix cache: retiring prompts donate KV blocks for reuse.",
         "inference/v2/ragged/manager.py")
+# Fused cross-entropy (ops/fused_ce.py)
+declare("DS_TPU_CE_CHUNK", "0", "int",
+        "Fused cross-entropy vocab-chunk size (0 = derive from budget).",
+        "ops/fused_ce.py")
+declare("DS_TPU_CE_BUDGET_MB", "4096", "int",
+        "Memory budget (MB) used to derive the fused cross-entropy chunk size.",
+        "ops/fused_ce.py")

@@ -1,12 +1,15 @@
-"""Decoder-only transformer family: configuration, presets, rope, init.
+"""Decoder-only transformer family: configuration, presets, rope, init, and
+the training forward.
 
-Port of ``deepspeed_tpu/models/transformer.py`` for serving. The
-parameter tree keeps the flax layout and keys of the reference
-(``wte``, ``layer_{i}/attn/q_proj/kernel`` of shape (d, H, Dh), ...), so
-weights convert by copy (``convert.params_from_numpy``) and the serving
-runner contracts them with the same einsum specs. The flax training
-modules (``Attention``, ``Block``, ``Transformer``, ``CausalLM.loss_fn``)
-come with the training slice.
+Port of ``deepspeed_tpu/models/transformer.py``. The parameter tree keeps
+the flax layout and keys of the reference (``wte``,
+``layer_{i}/attn/q_proj/kernel`` of shape (d, H, Dh), ...), so weights
+convert by copy (``convert.params_from_numpy``), the serving runner
+contracts them with the same einsum specs, and the training forward
+(``transformer_forward``, ``CausalLM.apply``/``loss_fn``: the reference's
+flax ``Attention``/``MLP``/``Block``/``Transformer``) runs as plain
+functions over the same dict. MoE blocks, ``scan_layers``, progressive
+layer drop and the BERT heads are not ported (they raise).
 """
 
 import functools
@@ -251,13 +254,15 @@ def _is_moe_layer(cfg: TransformerConfig, i: int) -> bool:
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     """Nested dict of parameter shapes under the flax keys of the reference
-    ``CausalLM`` for the serving families (pre-norm decoders without MoE).
+    ``CausalLM`` (decoders and post-LN blocks, without MoE).
     Leaves are ``(shape, init)`` with init "kernel" (lecun-normal, fan-in
     over the contracted dims), "embed" (normal 0.02), "ones" or "zeros"."""
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE layers are served by a later port slice")
-    if cfg.norm_scheme != "pre" or cfg.mlm_head or cfg.type_vocab_size > 0:
-        raise NotImplementedError("encoder (BERT) models are not part of the serving slice")
+        raise NotImplementedError("MoE layers are not ported yet")
+    if cfg.scan_layers:
+        raise NotImplementedError("scan_layers (a stacked 'layers' tree) is not ported; use scan_layers=False")
+    if cfg.mlm_head or cfg.type_vocab_size > 0:
+        raise NotImplementedError("the BERT heads (mlm_head, type embeddings) are not ported yet")
     d, H, KVH, Dh, f = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.ffn_dim
 
     def norm():
@@ -304,7 +309,7 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
             for j in range(n_block_norms):
                 layer[f"{norm_key}_{j}"] = norm()
         out[f"layer_{i}"] = layer
-    if norm() is not None:
+    if norm() is not None and cfg.norm_scheme != "post":  # post-LN blocks end normalized
         out[f"{norm_key}_{n_norm}"] = norm()
     if not cfg.tie_embeddings:
         out["lm_head"] = dense((d, cfg.vocab_size), d, (cfg.vocab_size,) if cfg.lm_head_bias else None)
@@ -344,6 +349,196 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda
         return _init_leaf(tree, generator, device, dtype)
 
     return build(param_shapes(cfg))
+
+
+# -------------------- training forward --------------------
+# Plain functions over the parameter dict, one per flax module of the
+# reference. Dense layers compute in ``cfg.dtype`` (the reference's
+# ``dtype=cfg.dtype, param_dtype=float32``); norms keep fp32 statistics.
+def _dense(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype) -> torch.Tensor:
+    y = torch.einsum(spec, x.to(dtype), p["kernel"].to(dtype))
+    return y + p["bias"].to(dtype) if "bias" in p else y
+
+
+def rms_norm_fwd(x: torch.Tensor, p: Dict[str, Any], eps: float, dtype: torch.dtype,
+                 offset: bool = False) -> torch.Tensor:
+    """The reference ``RMSNorm``: fp32 statistics, ``(1 + w)`` when ``offset``."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    w = 1.0 + p["scale"] if offset else p["scale"]
+    return (y * w).to(dtype)
+
+
+def layer_norm_fwd(x: torch.Tensor, p: Optional[Dict[str, Any]], eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """The reference ``LayerNorm`` (``p`` holds scale and bias) and
+    ``LayerNormNP`` (``p`` is None): fp32 statistics."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if p is not None:
+        y = y * p["scale"] + p["bias"]
+    return y.to(dtype)
+
+
+def _norm(cfg: TransformerConfig, x: torch.Tensor, p) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rms_norm_fwd(x, p, cfg.norm_eps, cfg.dtype, cfg.rms_offset)
+    return layer_norm_fwd(x, p, cfg.norm_eps, cfg.dtype)
+
+
+def _norm_key(cfg: TransformerConfig, j: int) -> str:
+    return f"{'RMSNorm' if cfg.norm == 'rmsnorm' else 'LayerNorm'}_{j}"
+
+
+def _norm_params(cfg: TransformerConfig, tree: Dict[str, Any], j: int):
+    return None if cfg.norm == "layernorm_np" else tree[_norm_key(cfg, j)]
+
+
+def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
+                  layer_idx: int) -> torch.Tensor:
+    """The reference ``Attention`` without a KV cache: projections, clip,
+    qk-norm, rope, then ``ops.attention`` (the flash kernels on CUDA)."""
+    from ..ops.attention import attention
+
+    dt = cfg.dtype
+    q = _dense(x, p["q_proj"], "bsd,dhk->bshk", dt)
+    k = _dense(x, p["k_proj"], "bsd,dhk->bshk", dt)
+    v = _dense(x, p["v_proj"], "bsd,dhk->bshk", dt)
+    if cfg.clip_qkv is not None:
+        c = cfg.clip_qkv
+        q, k, v = (torch.clamp(t, -c, c) for t in (q, k, v))
+    if cfg.qk_norm:
+        q = rms_norm_fwd(q, p["q_norm"], cfg.norm_eps, dt)
+        k = rms_norm_fwd(k, p["k_norm"], cfg.norm_eps, dt)
+    if cfg.pos_emb == "rope":
+        rd = cfg.rotary_dim
+        cos, sin = scaled_rope_frequencies(cfg, rd, device=x.device)
+        q = apply_rope(q, cos, sin, positions, rotary_dim=rd, style=cfg.rope_style)
+        k = apply_rope(k, cos, sin, positions, rotary_dim=rd, style=cfg.rope_style)
+    slopes = alibi_slopes(cfg.n_heads) if cfg.pos_emb == "alibi" else None
+    out = attention(q, k, v, causal=cfg.causal, alibi_slopes=slopes, window=cfg.window_for(layer_idx),
+                    scale=cfg.attn_scale)
+    return _dense(out, p["o_proj"], "bshk,hkd->bsd", dt)
+
+
+def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The reference ``MLP``: gated (swiglu, geglu) or not (gelu tanh, exact gelu, relu)."""
+    dt = cfg.dtype
+    if cfg.activation in ("swiglu", "geglu"):
+        gate = _dense(x, p["gate_proj"], "bsd,df->bsf", dt)
+        up = _dense(x, p["up_proj"], "bsd,df->bsf", dt)
+        act = torch.nn.functional.gelu(gate, approximate="tanh") if cfg.activation == "geglu" \
+            else torch.nn.functional.silu(gate)
+        h = act * up
+    else:
+        h = _dense(x, p["up_proj"], "bsd,df->bsf", dt)
+        if cfg.activation == "relu":
+            h = torch.relu(h)
+        else:
+            h = torch.nn.functional.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
+    return _dense(h, p["down_proj"], "bsf,fd->bsd", dt)
+
+
+def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
+              layer_idx: int) -> torch.Tensor:
+    """The reference ``Block``: sequential pre-norm, ``parallel`` (gpt-neox),
+    ``parallel_shared`` (one norm feeds both branches) or post-LN."""
+    norm = lambda h, j: _norm(cfg, h, _norm_params(cfg, p, j))
+    attn = lambda h: attention_fwd(cfg, p["attn"], h, positions, layer_idx)
+    mlp = lambda h: mlp_fwd(cfg, p["mlp"], h)
+    if cfg.block_type == "parallel_shared":
+        h = norm(x, 0)
+        return x + attn(h) + mlp(h)
+    if cfg.block_type == "parallel":
+        return x + attn(norm(x, 0)) + mlp(norm(x, 1))
+    if cfg.norm_scheme == "post":
+        x = norm(x + attn(x), 0)
+        return norm(x + mlp(x), 1)
+    x = x + attn(norm(x, 0))
+    return x + mlp(norm(x, 1))
+
+
+def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
+                        positions: Optional[torch.Tensor] = None, return_hidden: bool = False) -> torch.Tensor:
+    """The reference ``Transformer.__call__`` for training: embeddings
+    (learned, rope, ALiBi or no positions; ``embed_scale``,
+    ``embedding_norm``), the blocks (``torch.utils.checkpoint`` per block when
+    ``cfg.remat``), the final norm, then fp32 logits through the tied or
+    untied head, or the hidden states with ``return_hidden``."""
+    if cfg.moe_num_experts > 0 or cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
+        raise NotImplementedError("MoE, scan_layers and the BERT heads are not ported yet")
+    dt = cfg.dtype
+    B, S = input_ids.shape
+    ids = input_ids.long()
+    if positions is None:
+        positions = torch.arange(S, device=ids.device).expand(B, S)
+    x = torch.nn.functional.embedding(ids, params["wte"]).to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=dt)
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][positions.long()].to(dt)
+    n_norm = 0
+    if cfg.embedding_norm and cfg.norm != "layernorm_np":
+        x = _norm(cfg, x, params[_norm_key(cfg, 0)])
+        n_norm = 1
+    elif cfg.embedding_norm:
+        x = _norm(cfg, x, None)
+    for i in range(cfg.n_layers):
+        fn = functools.partial(block_fwd, cfg, params[f"layer_{i}"], layer_idx=i)
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(fn, x, positions, use_reentrant=False)
+        else:
+            x = fn(x, positions)
+    if cfg.norm_scheme != "post":
+        x = _norm(cfg, x, _norm_params(cfg, params, n_norm))
+    if return_hidden:
+        return x
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(dt))
+    else:
+        logits = _dense(x, params["lm_head"], "bsd,dv->bsv", dt)
+    return logits.float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """Mean CE over non-ignored positions; logits fp32 (B, S, V), labels (B, S)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    return torch.sum((logz - gold) * valid) / torch.clamp(valid.sum(), min=1)
+
+
+class CausalLM:
+    """Binds the transformer to the engine's ``loss_fn(params, batch, rng)``
+    contract. A batch is a dict with ``input_ids`` (B, S) and optional
+    ``labels`` (shifted internally when absent)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        self.cfg = cfg
+
+    def apply(self, params, input_ids, **kwargs):
+        return transformer_forward(self.cfg, params, input_ids, **kwargs)
+
+    def loss_fn(self, params, batch, rng=None) -> torch.Tensor:
+        from ..ops.fused_ce import fused_cross_entropy
+
+        cfg = self.cfg
+        input_ids = batch["input_ids"]
+        hidden = self.apply(params, input_ids, return_hidden=True)
+        if cfg.tie_embeddings:
+            w, vd, head_b = params["wte"].to(cfg.dtype), True, None
+        else:
+            w, vd = params["lm_head"]["kernel"].to(cfg.dtype), False
+            head_b = params["lm_head"]["bias"] if cfg.lm_head_bias else None
+        if "labels" in batch:
+            labels = batch["labels"]
+        else:
+            # shift left; keep S intact (last position ignored) so the
+            # sequence chunking of the fused CE stays aligned
+            labels = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], -100)], dim=1)
+        return fused_cross_entropy(hidden, w, labels, vd_layout=vd, bias=head_b)
 
 
 # -------------------- presets --------------------

@@ -2,8 +2,10 @@
 
 Port of ``deepspeed_tpu/ops/pallas/norms.py`` (``rms_norm`` and the body of
 ``rms_norm_xla``). The kernel (``csrc/rms_norm.cu``) replaces the Pallas
-``_rms_kernel``; see its source note for the design. ``layer_norm`` and the
-backward passes come with later slices.
+``_rms_kernel``; see its source note for the design. Serving calls it; the
+training forward normalises in plain PyTorch (``models/transformer.py``), as
+the reference's flax modules do. The Pallas ``layer_norm`` and the backward
+passes are not ported yet.
 """
 
 import torch

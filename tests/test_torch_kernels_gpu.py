@@ -9,7 +9,10 @@ Tolerances: 1e-5 on the max abs error in float32 (same fp32 math, other
 summation order); 1e-2 on the per-row relative error in bfloat16, that is
 max |got - want| / max |want| over each row's last dim (both sides compute
 in fp32 from the same bf16 inputs and round the output to bf16, where one
-rounding step is at most 2**-7 = 7.8e-3 of a value).
+rounding step is at most 2**-7 = 7.8e-3 of a value); the flash gradients
+floor each row's scale at the tensor's mean magnitude. fused Adam: 1e-6 of
+the largest value of each updated tensor; fp32 flash outputs on max abs
+error over max(1, max |want|).
 """
 
 import pytest
@@ -21,12 +24,13 @@ pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def _err(got, want):
-    """fp32: max abs error; bf16: max per-row relative error (rows = last dim)."""
+def _err(got, want, floor=1e-30):
+    """fp32: max abs error; bf16: max per-row relative error (rows = last dim),
+    each row's scale taken as at least ``floor``."""
     diff = (got.float() - want.float()).flatten(0, -2).abs().amax(-1)
     if got.dtype == torch.float32:
         return diff.max().item()
-    return (diff / want.float().flatten(0, -2).abs().amax(-1).clamp_min(1e-30)).max().item()
+    return (diff / want.float().flatten(0, -2).abs().amax(-1).clamp_min(floor)).max().item()
 
 
 @pytest.fixture
@@ -135,4 +139,120 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     counters = (norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill)
     before = [fn.launches for fn in counters]
     assert serve("cuda") == serve("cpu")
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+
+
+# ---------------------------------------------------------------- training kernels (flash A/B/C, fused Adam D)
+def _flash_inputs(dev, dtype, B, Sq, Sk, H, KVH, D, seed=0):
+    g = _gen(dev, seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KVH, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KVH, D), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(B=2, Sq=256, Sk=256, H=4, KVH=4, D=64, causal=True),
+    dict(B=1, Sq=200, Sk=200, H=8, KVH=2, D=128, causal=True),      # GQA, ragged tail
+    dict(B=2, Sq=96, Sk=160, H=4, KVH=1, D=32, causal=True),        # Sq < Sk, MQA
+    dict(B=1, Sq=130, Sk=130, H=4, KVH=2, D=64, causal=False),
+    dict(B=1, Sq=256, Sk=256, H=4, KVH=4, D=64, causal=True, window=48),
+    dict(B=1, Sq=128, Sk=128, H=4, KVH=4, D=64, causal=True, alibi=True),
+    dict(B=1, Sq=160, Sk=96, H=4, KVH=2, D=64, causal=True),         # Sq > Sk: leading rows see no key
+    dict(B=1, Sq=64, Sk=200, H=8, KVH=2, D=32, causal=False, alibi=True),
+])
+def test_flash_kernels(cuda, dtype, case):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    case = dict(case)
+    causal, window, alibi = case.pop("causal"), case.pop("window", 0), case.pop("alibi", False)
+    q, k, v, do = _flash_inputs(cuda, dtype, **case)
+    slopes = torch.tensor([0.5 ** (i + 1) for i in range(case["H"])], device=cuda) if alibi else None
+    scale = case["D"] ** -0.5
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, slopes, scale, causal, window)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, slopes, scale, causal, window)
+    delta = fa.flash_delta(o_ref, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, slopes, scale, causal, window)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, slopes, scale, causal, window)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, slopes, scale, causal, window)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, slopes, scale, causal, window)
+    # a row's scale is at least the tensor's mean magnitude: the first causal
+    # row's dq is exactly 0 in the plain version (p = 1, dp = delta)
+    # fp32: relative to max(1, max |want|), since dk/dv sum the group's heads in another order
+    errs = {name: _err(got, want, want.float().abs().mean().item())
+            / (max(1.0, want.float().abs().max().item()) if dtype == torch.float32 else 1.0)
+            for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+    errs["lse"] = (lse - lse_ref).abs().max().item()
+    assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv")), errs
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    """Gradients through the autograd function equal those through the plain path."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.attention import attention_xla
+
+    q, k, v, do = _flash_inputs(cuda, torch.float32, 2, 128, 128, 8, 2, 64)
+    grads = []
+    for fn in (fa.flash_attention, attention_xla):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        out.backward(do)
+        grads.append([out] + [t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= 1e-4
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, k, v, bias=torch.zeros((1, 1, 128, 128), device=cuda))
+
+
+@pytest.mark.parametrize("n", [1000, 4096 * 3 + 1])
+@pytest.mark.parametrize("finite", [True, False])
+def test_fused_adam_kernel(cuda, n, finite):
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    g = _gen(cuda)
+    state = [torch.randn(n, generator=g, device=cuda) for _ in range(3)]
+    state[2] = state[2].abs()
+    grad = torch.randn(n, generator=g, device=cuda)
+    scal = fad.adam_scalars(1e-3, 3, 0.9, 0.999, grad_mult=0.5, finite=finite, device=cuda)
+    ref = [t.clone() for t in state]
+    n0 = fad.fused_adam.launches
+    fad.fused_adam(*state[:1], grad, *state[1:], scal, weight_decay=0.01)
+    fad.fused_adam_ref(ref[0], grad, ref[1], ref[2], scal, weight_decay=0.01)
+    torch.cuda.synchronize()
+    assert fad.fused_adam.launches == n0 + 1
+    for got, want in zip(state, ref):  # relative to the tensor's largest value
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6
+
+
+def test_training_on_the_card_matches_the_cpu(cuda):
+    """Three engine steps of a small gpt2 (head dim 64) in fp32 on the card
+    (flash kernels, FusedAdam) give the CPU engine's losses (plain versions),
+    and every training kernel launched."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, init_params
+    from deepspeed_tpu_torch.ops import flash_attention as fa, fused_adam as fad
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=256, max_seq_len=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {"input_ids": np.random.default_rng(0).integers(0, 512, (2, 128)).astype(np.int32)}
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-3}}}
+
+    def run(device):
+        engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=device)
+        return [float(engine.train_batch(itertools.repeat(batch))) for _ in range(3)]
+
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam)
+    before = [fn.launches for fn in counters]
+    got, want = run("cuda"), run("cpu")
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4, (got, want)
     assert all(fn.launches > n for fn, n in zip(counters, before))
