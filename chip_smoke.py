@@ -2,7 +2,7 @@
 """Drive the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
-    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving run and a training step
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs and a training step
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -11,16 +11,30 @@ Phases, each fatal on failure:
    path, in bf16 and fp32, against its plain PyTorch version (errors,
    tolerance, kernel/plain/library times from CUDA events, and the bound:
    the larger of bytes over 3.35 TB/s and operations over the peak rate of
-   the input type, 989 TFLOP/s bf16 / 67 TFLOP/s fp32);
+   the input type, 989 TFLOP/s bf16 / 67 TFLOP/s fp32); then the kernels of
+   quantised serving the same way: ``layer_norm`` at gpt2_1_3b's width,
+   ``quantized_matmul`` with int8 codes over gpt2_1_3b's three weight shapes
+   and with packed int4 over llama3_8b's two MLP shapes at 8, 64 and 1024
+   tokens, and paged decode and prefill on int8 pools at both models' heads;
 4. step parity: one prefill quantum and one mixed decode + prefill quantum
    of llama3_8b at full width and 4 layers, run with the kernels and with
-   their plain versions; logits and KV pools (garbage block 0 excluded) agree;
+   their plain versions; logits and KV pools (garbage block 0 excluded)
+   agree; then the same two quanta of gpt2_1_3b at full width and 4 layers
+   with int8 weights and int8 KV pools (pools compared dequantised);
 5. serve: InferenceEngineV2 over llama3_8b at full width and depth (random
    bf16 weights from seed 0), greedy generate of 32 tokens for a dozen
    seeded prompts of 16-1500 tokens in two waves (the second wave shares a
    256-token prefix with the first, so the prefix cache is hit). The kernel
    launch counters are zeroed just before and read just after; every kernel
-   must have launched.
+   must have launched. Then the quantised main paths the same way, each
+   with its counters zeroed before and read after: gpt2_1_3b at full width
+   and depth with ``quant_bits=8`` and ``kv_quant_bits=8`` (prompts of 16-960
+   tokens, max_context 1024), and llama3_8b at full width and depth with
+   ``quant_bits=4`` (packed int4) on a bf16 pool; the launch counts must fit
+   the models' structure (gpt2_1_3b: 49 ``layer_norm`` and 144
+   ``quantized_matmul`` launches per forward; llama3_8b: 65 ``rms_norm`` and
+   225 ``quantized_matmul``), and the weights' and one KV block's bytes are
+   printed beside their bf16 sizes.
 6. training kernels: flash attention forward, dq and dk/dv (kernels A, B, C)
    at the gpt2_1_3b shape and at GQA, Sq < Sk, window and ALiBi shapes, and
    fused AdamW (kernel D) over the ``wte`` leaf and over all 388 leaves of
@@ -42,6 +56,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 beside this script, it exits non-zero and prints no result.
 """
 
+import gc
 import json
 import os
 import re
@@ -60,6 +75,8 @@ TOL = {"torch.float32": ("max_abs_err", 1e-5), "torch.bfloat16": ("max_rel_err",
 # llama3_8b serving geometry: heads, KV heads, head dim, KV block size,
 # block-table width (max_context 8192 / 128) and model width
 GEOM = dict(H=32, KVH=8, D=128, bs=128, P=64, d=4096)
+# gpt2_1_3b serving geometry: MHA, head dim 64, max_context 1024 / 128
+GPT2_GEOM = dict(H=32, KVH=32, D=64, bs=128, P=8, d=2048)
 
 
 def model_cfg(**kw):
@@ -143,47 +160,72 @@ def dense_kv(torch, kp, vp, bt, ctx):
     return k, v, L
 
 
-def phase_decode(torch, dev, dtype, B, iters):
+def int8_pools(kp, vp):
+    """The same pages as int8 ``(codes, scales)`` pools; block 0, the garbage
+    page, is left as never written (codes 0, scale 0)."""
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
-    H, KVH, D, bs, P = (GEOM[k] for k in ("H", "KVH", "D", "bs", "P"))
+    pools = []
+    for pages in (kp, vp):
+        codes, scales = pa.quantize_kv(pages)
+        codes[0], scales[0] = 0, 0.0
+        pools.append((codes, scales))
+    return pools
+
+
+def kv_bytes(slots, KVH, D, item, int8):
+    """Bytes of ``slots`` K and V entries: int8 codes carry one fp32 scale per slot and head."""
+    return slots * KVH * 2 * ((D + 4) if int8 else D * item)
+
+
+def phase_decode(torch, dev, dtype, B, iters, geom=GEOM, int8=False):
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    H, KVH, D, bs, P = (geom[k] for k in ("H", "KVH", "D", "bs", "P"))
     base = [1, 127, 128, 129, 4096, 513, 2000, 8192]
-    ctx = [base[i % len(base)] for i in range(B)]
+    ctx = [min(base[i % len(base)], P * bs) for i in range(B)]
     ctx[-1] = 1  # a padded row: ctx 1 on the garbage page
-    kp, vp, bt, cl, g = paged_case(torch, dev, dtype, ctx, H, KVH, D, bs, P, seed=B, garbage_rows=(B - 1,))
+    kd, vd, bt, cl, g = paged_case(torch, dev, dtype, ctx, H, KVH, D, bs, P, seed=B, garbage_rows=(B - 1,))
+    kp, vp = int8_pools(kd, vd) if int8 else (kd, vd)
+    if int8:  # the library yardstick reads the dequantised pages in q's type
+        kd, vd = pa.dequantize_kv(kp).to(dtype), pa.dequantize_kv(vp).to(dtype)
     q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
     scale = D**-0.5
     got = pa.paged_attention_decode(q, kp, vp, bt, cl, scale)
     torch.cuda.synchronize()
     want = pa.paged_attention_decode_ref(q, kp, vp, bt, cl, scale)
     err = errors(got, want)
-    item = kp.element_size()
+    item = q.element_size()
     live = sum(ctx)
-    nbytes = live * KVH * D * 2 * item + 2 * q.numel() * item + bt.numel() * 4 + cl.numel() * 4
+    nbytes = kv_bytes(live, KVH, D, item, int8) + 2 * q.numel() * item + bt.numel() * 4 + cl.numel() * 4
     flops = 4 * live * H * D
     b_ms, b_by = bound(nbytes, flops, dtype)
     k_ms = time_ms(lambda: pa.paged_attention_decode(q, kp, vp, bt, cl, scale), iters)
     p_ms = time_ms(lambda: pa.paged_attention_decode_ref(q, kp, vp, bt, cl, scale), max(3, iters // 20))
-    k, v, L = dense_kv(torch, kp, vp, bt, cl)
+    k, v, L = dense_kv(torch, kd, vd, bt, cl)
     mask = (torch.arange(L, device=dev)[None, :] < cl[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     l_ms = time_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask, scale=scale, enable_gqa=True),
                    max(3, iters // 4))
     l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel()
     del k, v
-    return dict(kernel="paged_attention_decode", dtype=str(dtype), shape=f"q({B},{H},{D}) pool({kp.shape[0]},{bs},"
+    return dict(kernel="paged_attention_decode", pool="int8" if int8 else str(dtype), dtype=str(dtype),
+                shape=f"q({B},{H},{D}) pool({kd.shape[0]},{bs},"
                 f"{KVH},{D}) bt({B},{P})", ctx=sorted(set(ctx)), **err, tol=TOL[str(dtype)], kernel_ms=k_ms,
                 plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes, bound_bytes=nbytes, bound_ms=b_ms,
                 bound_by=b_by)
 
 
-def phase_prefill(torch, dev, dtype, S, iters):
+def phase_prefill(torch, dev, dtype, S, iters, geom=GEOM, int8=False):
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
-    H, KVH, D, bs, P = (GEOM[k] for k in ("H", "KVH", "D", "bs", "P"))
-    q0 = [0, 1000]  # row 1 continues a context: its chunk starts at position 1000
+    H, KVH, D, bs, P = (geom[k] for k in ("H", "KVH", "D", "bs", "P"))
+    q0 = [0, min(1000, P * bs - 512)]  # row 1 continues a context: its chunk starts at this position
     ctx = [p + S for p in q0]
-    kp, vp, bt, cl, g = paged_case(torch, dev, dtype, ctx, H, KVH, D, bs, P, seed=S)
+    kd, vd, bt, cl, g = paged_case(torch, dev, dtype, ctx, H, KVH, D, bs, P, seed=S)
+    kp, vp = int8_pools(kd, vd) if int8 else (kd, vd)
+    if int8:
+        kd, vd = pa.dequantize_kv(kp).to(dtype), pa.dequantize_kv(vp).to(dtype)
     q = torch.randn((2, S, H, D), generator=g, device=dev).to(dtype)
     pos = (torch.tensor(q0, dtype=torch.int32)[:, None] + torch.arange(S, dtype=torch.int32)[None]).to(dev)
     scale = D**-0.5
@@ -191,14 +233,14 @@ def phase_prefill(torch, dev, dtype, S, iters):
     torch.cuda.synchronize()
     want = pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale)
     err = errors(got, want)
-    item = kp.element_size()
+    item = q.element_size()
     visible = sum(min(c, p0 + s + 1) for c, p0 in zip(ctx, q0) for s in range(S))
-    nbytes = sum(ctx) * KVH * D * 2 * item + 2 * q.numel() * item + bt.numel() * 4 + 2 * 4 + pos.numel() * 4
+    nbytes = kv_bytes(sum(ctx), KVH, D, item, int8) + 2 * q.numel() * item + bt.numel() * 4 + 2 * 4 + pos.numel() * 4
     flops = 4 * visible * H * D
     b_ms, b_by = bound(nbytes, flops, dtype)
     k_ms = time_ms(lambda: pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale), iters)
     p_ms = time_ms(lambda: pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale), max(3, iters // 20))
-    k, v, L = dense_kv(torch, kp, vp, bt, cl)
+    k, v, L = dense_kv(torch, kd, vd, bt, cl)
     kpos = torch.arange(L, device=dev)
     mask = ((kpos[None, None, :] < cl[:, None, None]) & (kpos[None, None, :] <= pos[:, :, None]))[:, None]
     qh = q.permute(0, 2, 1, 3).contiguous()
@@ -206,7 +248,8 @@ def phase_prefill(torch, dev, dtype, S, iters):
     l_ms = time_ms(lambda: sdpa(qh, k, v, attn_mask=mask, scale=scale, enable_gqa=True), max(3, iters // 4))
     l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel()
     del k, v
-    return dict(kernel="paged_attention_prefill", dtype=str(dtype), shape=f"q(2,{S},{H},{D}) qpos0={q0} ctx={ctx}",
+    return dict(kernel="paged_attention_prefill", pool="int8" if int8 else str(dtype), dtype=str(dtype),
+                shape=f"q(2,{S},{H},{D}) kv_heads={KVH} qpos0={q0} ctx={ctx}",
                 **err, tol=TOL[str(dtype)], kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes,
                 bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
@@ -233,16 +276,79 @@ def phase_rms(torch, dev, dtype, T, iters):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def run_kernel_phases(torch, dev, quick: bool):
-    """Every case in bf16 and fp32; returns the per-case records."""
-    cases = [(phase_decode, 8), (phase_decode, 64), (phase_prefill, 16), (phase_prefill, 256),
-             (phase_prefill, 512), (phase_rms, 8), (phase_rms, 768), (phase_rms, 2048)]
-    if quick:
-        cases = [(phase_decode, 64), (phase_prefill, 512), (phase_rms, 768)]
+def phase_layer_norm(torch, dev, dtype, T, iters):
+    from deepspeed_tpu_torch.ops import norms
+
+    d = GPT2_GEOM["d"]
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = (torch.randn((1, T, d), generator=g, device=dev) * 2.0 + 0.5).to(dtype)
+    w = torch.randn((d,), generator=g, device=dev).to(dtype)
+    b = torch.randn((d,), generator=g, device=dev).to(dtype)
+    got = norms.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    err = errors(got, norms.layer_norm_ref(x, w, b, 1e-5))
+    item = x.element_size()
+    nbytes = 2 * T * d * item + 2 * d * w.element_size()
+    b_ms, b_by = bound(nbytes, 8 * T * d, dtype)
+    k_ms = time_ms(lambda: norms.layer_norm(x, w, b, 1e-5), iters)
+    p_ms = time_ms(lambda: norms.layer_norm_ref(x, w, b, 1e-5), iters)
+    l_ms = time_ms(lambda: torch.nn.functional.layer_norm(x, (d,), w, b, 1e-5), iters)
+    return dict(kernel="layer_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d}) b({d})", **err,
+                tol=TOL[str(dtype)], kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library="F.layer_norm",
+                library_bytes=nbytes, bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+
+
+# (K, N) of the quantised projections: gpt2_1_3b's q/k/v/o, up and down (int8);
+# llama3_8b's gate/up and down (packed int4), group size 128
+QMM_INT8 = [(2048, 2048), (2048, 8192), (8192, 2048)]
+QMM_INT4 = [(4096, 14336), (14336, 4096)]
+
+
+def phase_qmm(torch, dev, dtype, M, K, N, bits, iters):
+    """``quantized_matmul`` against its plain version (dequantise to fp32,
+    multiply in fp32). Yardsticks, timed only: ``torch.matmul`` of x with the
+    weight dequantised to x's type beforehand (what a dense engine pays, and
+    the ``library_ms``), and dequantise + ``torch.matmul`` in one call."""
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    w = torch.randn((K, N), generator=g, device=dev) * 0.02
+    q, scales = qm.quantize_weight_kgroups(w, group_size=128, bits=bits, pack=bits == 4)
+    packed = q.shape[0] != K
+    del w
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    got = qm.quantized_matmul(x, q, scales, packed=packed)
+    torch.cuda.synchronize()
+    want = qm.quantized_matmul_ref(x, q, scales, packed=packed)
+    err = errors(got, want)
+    # fp32: sums of K products in another order than the plain version's, held on max(1, max |plain|)
+    err["max_abs_err_scaled"] = err["max_abs_err"] / max(1.0, want.float().abs().max().item())
+    tol = ("max_abs_err_scaled", 1e-5) if dtype == torch.float32 else TOL[str(dtype)]
+    del want
+    item = x.element_size()
+    nbytes = x.numel() * item + q.numel() + scales.numel() * 4 + M * N * item
+    flops = 2 * M * K * N
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    few = max(3, iters // 4)
+    k_ms = time_ms(lambda: qm.quantized_matmul(x, q, scales, packed=packed), iters)
+    p_ms = time_ms(lambda: qm.quantized_matmul_ref(x, q, scales, packed=packed), few)
+    dense = qm._dequantize_kgroups(q, scales, packed).to(dtype)
+    l_ms = time_ms(lambda: torch.matmul(x, dense), iters)
+    del dense
+    dq_ms = time_ms(lambda: torch.matmul(x, qm._dequantize_kgroups(q, scales, packed).to(dtype)), few)
+    return dict(kernel="quantized_matmul", codes="packed int4" if packed else "int8", dtype=str(dtype),
+                shape=f"x({M},{K}) codes({q.shape[0]},{N}) scales({scales.shape[0]},{N})", **err, tol=tol,
+                kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library="torch.matmul, weight dequantised beforehand",
+                dequant_matmul_ms=dq_ms, bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
+
+
+def run_cases(torch, cases):
+    """Each case (a function of the dtype) in bf16 and fp32, held to its own
+    tolerance; returns the per-case records."""
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for fn, size in cases:
-            rec = fn(torch, dev, dtype, size, iters=5 if quick else 50)
+        for case in cases:
+            rec = case(dtype)
             log(rec)
             what, tol = rec["tol"]
             if not rec[what] <= tol:
@@ -250,6 +356,34 @@ def run_kernel_phases(torch, dev, quick: bool):
             records.append(rec)
             torch.cuda.empty_cache()
     return records
+
+
+def run_kernel_phases(torch, dev, quick: bool):
+    """The three kernels of unquantised serving at llama3_8b's shapes."""
+    iters = 5 if quick else 50
+    sizes = [(phase_decode, 64), (phase_prefill, 512), (phase_rms, 768)] if quick else [
+        (phase_decode, 8), (phase_decode, 64), (phase_prefill, 16), (phase_prefill, 256), (phase_prefill, 512),
+        (phase_rms, 8), (phase_rms, 768), (phase_rms, 2048)]
+    return run_cases(torch, [lambda dt, fn=fn, n=n: fn(torch, dev, dt, n, iters) for fn, n in sizes])
+
+
+def run_quant_kernel_phases(torch, dev, quick: bool):
+    """The kernels of quantised serving: ``layer_norm``, ``quantized_matmul`` with
+    int8 and packed-int4 codes, decode and prefill on int8 pools at both models' heads."""
+    iters = 5 if quick else 30
+    norm = lambda T: lambda dt: phase_layer_norm(torch, dev, dt, T, iters)
+    qmm = lambda M, K, N, bits: lambda dt: phase_qmm(torch, dev, dt, M, K, N, bits, iters)
+    decode = lambda B, geom: lambda dt: phase_decode(torch, dev, dt, B, iters, geom, int8=True)
+    prefill = lambda S, geom: lambda dt: phase_prefill(torch, dev, dt, S, iters, geom, int8=True)
+    if quick:
+        return run_cases(torch, [norm(768), qmm(64, 2048, 8192, 8), qmm(64, 4096, 14336, 4), decode(64, GPT2_GEOM),
+                                 prefill(512, GPT2_GEOM)])
+    cases = [norm(T) for T in (8, 768, 2048)]
+    cases += [qmm(M, K, N, bits) for bits, shapes in ((8, QMM_INT8), (4, QMM_INT4)) for K, N in shapes
+              for M in (8, 64, 1024)]
+    for geom in (GPT2_GEOM, GEOM):
+        cases += [decode(B, geom) for B in (8, 64)] + [prefill(S, geom) for S in (16, 256, 512)]
+    return run_cases(torch, cases)
 
 
 # ---------------------------------------------------------------- training kernels
@@ -470,16 +604,43 @@ def quantum_inputs(np, rows, n_dec, chunk, bs, P):
     return ids, pos, bt, ctx, slots, last
 
 
-def phase_step_parity(torch, dev, dtype, n_layers=4):
+# step-parity tolerances, at about twice the errors measured on an H100 at these
+# seeded inputs, which repeat exactly from run to run.
+# llama3_8b, dense bf16/fp32 weights and pools: fp32 1.3e-5 on logits and pools;
+# bf16 6.3e-2 on logits of size ~5, 4.7e-2 on the pools.
+# gpt2_1_3b, int8 weights and int8 pools. The pools are compared dequantised, in
+# units of one code step (the largest scale, 0.041); `codes` is the share of pool
+# codes that differ. A K/V value that differs in its last bits between the two
+# bundles can round to the neighbouring code, and later layers inherit the
+# difference. Measured, fp32: logits 1.7e-3 of size ~4.4, pools 1.0007 steps,
+# 0.80 % of the codes; bf16 (one bf16 rounding step of a K/V value of size 4 is
+# 0.75 of a code step): logits 4.7e-2, pools 1.81 steps, 29.7 % of the codes.
+STEP_TOL = {
+    ("llama3_8b", "torch.float32"): dict(logits=1e-4, pools=1e-4),
+    ("llama3_8b", "torch.bfloat16"): dict(logits=0.125, pools=0.1),
+    ("gpt2_1_3b", "torch.float32"): dict(logits=3.5e-3, pools_steps=2.0, codes=0.016),
+    ("gpt2_1_3b", "torch.bfloat16"): dict(logits=0.1, pools_steps=3.6, codes=0.6),
+}
+
+
+def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
+    """The kernel bundle against ``build_modules(plain=True)`` over two quanta:
+    llama3_8b dense, or gpt2_1_3b with int8 weights and int8 KV pools."""
     import numpy as np
 
+    from deepspeed_tpu_torch.inference.quantization import quantize_for_serving
     from deepspeed_tpu_torch.inference.v2.model_runner import fused_forward
     from deepspeed_tpu_torch.inference.v2.modules import build_modules
     from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops import paged_attention as pa
 
-    cfg = model_cfg(n_layers=n_layers, dtype=dtype)
+    quant = model == "gpt2_1_3b"
+    geom = GPT2_GEOM if quant else GEOM
+    cfg = (gpt2_cfg if quant else model_cfg)(n_layers=n_layers, dtype=dtype)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=dtype)
-    bs, P = GEOM["bs"], GEOM["P"]
+    if quant:
+        params = quantize_for_serving(params, num_bits=8)
+    bs, P = geom["bs"], geom["P"]
     rng = np.random.default_rng(0)
     tok = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()
     a, b, c, d = tok(512), tok(300), tok(200), tok(500)
@@ -496,14 +657,12 @@ def phase_step_parity(torch, dev, dtype, n_layers=4):
          + [(c, 0, blocks["c"]), (d[400:], 400, blocks["d"])]),
     ]
     shape = (cfg.n_layers, n_blocks, bs, cfg.kv_heads, cfg.head_dim)
-    pools = {v: (torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
+    kvq = 8 if quant else 0
+    pools = {v: (pa.make_kv_pool(shape, dtype, dev, kvq), pa.make_kv_pool(shape, dtype, dev, kvq))
              for v in ("kernel", "plain")}
     mods = {"kernel": build_modules(), "plain": build_modules(plain=True)}
-    # about twice the errors measured on an H100 at these seeded inputs (fp32:
-    # 1.3e-5 on logits and pools; bf16: 6.3e-2 on logits of size ~5, 4.7e-2
-    # on the pools), which repeat exactly from run to run
-    tol = {"torch.float32": dict(logits=1e-4, pools=1e-4),
-           "torch.bfloat16": dict(logits=0.125, pools=0.1)}[str(dtype)]
+    tol = STEP_TOL[(model, str(dtype))]
+    live = lambda pool: tuple(t[:, 1:] for t in pool) if quant else pool[:, 1:].float()  # without the garbage page
     out = []
     for n_dec, chunk, rows in quanta:
         args = [torch.from_numpy(x).to(dev) for x in quantum_inputs(np, rows, n_dec, chunk, bs, P)]
@@ -517,13 +676,24 @@ def phase_step_parity(torch, dev, dtype, n_layers=4):
         real = [r for r, (_, _, blk) in enumerate(rows) if blk]
         l_err = (logits["kernel"][real] - logits["plain"][real]).abs().max().item()
         agree = (logits["kernel"][real].argmax(-1) == logits["plain"][real].argmax(-1)).float().mean().item()
-        p_err = max((pools["kernel"][i][:, 1:].float() - pools["plain"][i][:, 1:].float()).abs().max().item()
-                    for i in (0, 1))
-        rec = dict(phase="step_parity", dtype=str(dtype), n_layers=n_layers, n_dec=n_dec, chunk=chunk,
-                   rows=len(rows), logits_max_abs_err=l_err, logits_max_abs=logits["plain"][real].abs().max().item(),
-                   argmax_agree=agree, pools_max_abs_err=p_err, tol=tol)
+        rec = dict(phase="step_parity", model=model, weights="int8" if quant else str(dtype),
+                   kv_pool="int8" if quant else str(dtype), dtype=str(dtype), n_layers=n_layers, n_dec=n_dec,
+                   chunk=chunk, rows=len(rows), logits_max_abs_err=l_err,
+                   logits_max_abs=logits["plain"][real].abs().max().item(), argmax_agree=agree, tol=tol)
+        if quant:
+            got, want = ([live(pools[v][i]) for i in (0, 1)] for v in ("kernel", "plain"))
+            rec["pools_max_abs_err"] = max((pa.dequantize_kv(a) - pa.dequantize_kv(b)).abs().max().item()
+                                           for a, b in zip(got, want))
+            rec["pools_step"] = max(b[1].max().item() for b in want)  # the largest scale: one code step
+            rec["codes_differ_share"] = max((a[0] != b[0]).float().mean().item() for a, b in zip(got, want))
+            pools_ok = (rec["pools_max_abs_err"] <= tol["pools_steps"] * rec["pools_step"]
+                        and rec["codes_differ_share"] <= tol["codes"])
+        else:
+            rec["pools_max_abs_err"] = max((live(pools["kernel"][i]) - live(pools["plain"][i])).abs().max().item()
+                                           for i in (0, 1))
+            pools_ok = rec["pools_max_abs_err"] <= tol["pools"]
         log(rec)
-        if not (l_err <= tol["logits"] and p_err <= tol["pools"] and torch.isfinite(logits["kernel"]).all()):
+        if not (l_err <= tol["logits"] and pools_ok and torch.isfinite(logits["kernel"]).all()):
             raise AssertionError(f"step parity failed: {rec}")
         out.append(rec)
     del params, pools
@@ -532,17 +702,21 @@ def phase_step_parity(torch, dev, dtype, n_layers=4):
 
 
 # ---------------------------------------------------------------- serving run
-def serving_prompts(np, vocab):
+def serving_prompts(np, vocab, longest=1500):
+    """Twelve seeded prompts in two waves; three share a 256-token prefix.
+    ``longest`` scales the lengths to a model's context (960 for gpt2_1_3b)."""
     rng = np.random.default_rng(0)
     shared = rng.integers(0, vocab, 256).tolist()
     lens = [16, 1500, 300, 64, 700, 1100, 40, 900, 128, 1300, 512, 200]
+    if longest != 1500:
+        lens = [n if n <= 300 else n * longest // 1500 for n in lens]
     prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
     for i in (2, 7, 10):  # share a 256-token prefix (two full 128-token blocks)
         prompts[i] = shared + prompts[i][256:]
     return prompts[:6], prompts[6:]
 
 
-def profile_serve(torch, engine, waves) -> None:
+def profile_serve(torch, engine, waves, model) -> None:
     """Device-time breakdown of the serving waves under torch.profiler: a
     separate pass after the timed one, with the prefix cache reset first so
     that it repeats the same admissions. Profiling slows the host, so only
@@ -558,7 +732,8 @@ def profile_serve(torch, engine, waves) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats = {"paged_attention_decode": ("decode_kernel",), "paged_attention_prefill": ("prefill_kernel",),
-            "rms_norm": ("rms_norm",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
+            "rms_norm": ("rms_norm",), "layer_norm": ("layer_norm_vec", "layer_norm_plain"),
+            "quantized_matmul": ("qmm_kernel",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
             "copy": ("Memcpy", "Memset")}
     by_cat, top = {}, []
     for e in prof.key_averages():
@@ -572,25 +747,57 @@ def profile_serve(torch, engine, waves) -> None:
         top.append((ms, e.count, e.key[:100]))
     busy = sum(by_cat.values())
     top.sort(reverse=True)
-    log(dict(phase="profile", wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
+    log(dict(phase="profile", model=model, wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
              busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
              top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
 
 
-def phase_serve(torch, dev, counters, profile=False):
+# The serving runs: the longest prompt, max_context, the engine's quantisation fields, and the kernel
+# launches per forward that the model's structure fixes
+SERVE_RUNS = {
+    "llama3_8b": dict(longest=1500, max_context=8192, quant={}, per_forward={"rms_norm": 65}),
+    # 24 layers x (2 norms; q, k, v, o, up, down) + the final norm; the tied head stays a dense product
+    "gpt2_1_3b_w8_kv8": dict(longest=960, max_context=1024, quant=dict(quant_bits=8, kv_quant_bits=8),
+                             per_forward={"layer_norm": 49, "quantized_matmul": 144}),
+    # 32 layers x (2 norms; q, k, v, o, gate, up, down) + the final norm and the untied head
+    "llama3_8b_w4": dict(longest=1500, max_context=8192, quant=dict(quant_bits=4),
+                         per_forward={"rms_norm": 65, "quantized_matmul": 225}),
+}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes the parameter tree holds on the device (quantised leaves: codes + scales)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if hasattr(tree, "nbytes_quantized"):
+        return tree.nbytes_quantized
+    return tree.numel() * tree.element_size()
+
+
+def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
+    """One serving run through ``InferenceEngineV2.generate``: the counters in
+    ``counters`` are zeroed just before the two waves and read just after."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops.paged_attention import kv_pool_is_quantized
 
-    cfg = model_cfg()
+    spec = SERVE_RUNS[run]
+    cfg = gpt2_cfg() if run.startswith("gpt2") else model_cfg()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    bf16_weight_bytes = tree_bytes(params)
+    t0 = time.perf_counter()
     engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
-        state_manager=RaggedBatchConfig(max_context=8192, kv_block_size=128, memory_gb=8.0), dtype="bfloat16",
-        device=str(dev)))
+        state_manager=RaggedBatchConfig(max_context=spec["max_context"], kv_block_size=128, memory_gb=8.0),
+        dtype="bfloat16", device=str(dev), **spec["quant"]))
+    del params  # a quantised engine holds codes and scales only: let the bf16 kernels go
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    engine_s = time.perf_counter() - t0
     hits = []
     admit = engine.state.admit_sequence
 
@@ -600,7 +807,7 @@ def phase_serve(torch, dev, counters, profile=False):
         return seq
 
     engine.state.admit_sequence = admit_spy
-    wave1, wave2 = serving_prompts(np, cfg.vocab_size)
+    wave1, wave2 = serving_prompts(np, cfg.vocab_size, spec["longest"])
     engine.generate([wave1[0][:32]], max_new_tokens=4)  # warm-up: cuBLAS handles, allocator (not counted)
     torch.cuda.synchronize()
     hits.clear()
@@ -613,21 +820,41 @@ def phase_serve(torch, dev, counters, profile=False):
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     n_out = sum(len(o) for o in out)
-    rec = dict(phase="serve", model="llama3_8b", layers=cfg.n_layers, d_model=cfg.d_model, dtype="bfloat16",
-               prompts=len(out), prompt_tokens=sum(len(p) for p in wave1 + wave2), new_tokens=n_out,
-               wall_s=wall, tokens_per_s=n_out / wall, weights_init_s=init_s, kv_blocks=engine._n_kv_blocks,
+    slot_heads = 2 * cfg.n_layers * 128 * cfg.kv_heads  # K and V entries of one block, all layers
+    int8_pool = kv_pool_is_quantized(engine.k_pages)
+    rec = dict(phase="serve", run=run, model=run.split("_w")[0], layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype="bfloat16", quant_bits=spec["quant"].get("quant_bits", 0),
+               kv_quant_bits=8 if int8_pool else 0, prompts=len(out),
+               prompt_tokens=sum(len(p) for p in wave1 + wave2), new_tokens=n_out,
+               wall_s=wall, tokens_per_s=n_out / wall, weights_init_s=init_s, engine_init_s=engine_s,
+               kv_blocks=engine._n_kv_blocks, weight_bytes=tree_bytes(engine.params),
+               weight_bytes_bf16=bf16_weight_bytes,
+               kv_block_bytes=slot_heads * ((cfg.head_dim + 4) if int8_pool else cfg.head_dim * 2),
+               kv_block_bytes_bf16=slot_heads * cfg.head_dim * 2,
                prefix_hit_tokens=sum(hits), max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches)
+               launches=launches, forwards=launches[next(iter(spec["per_forward"]))] / next(iter(
+                   spec["per_forward"].values())))
     log(rec)
     if not all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o) for o in out):
-        raise AssertionError("serve: a request did not get 32 in-vocab tokens")
+        raise AssertionError(f"serve {run}: a request did not get 32 in-vocab tokens")
     if sum(hits) == 0:
-        raise AssertionError("serve: the prefix cache was never hit")
+        raise AssertionError(f"serve {run}: the prefix cache was never hit")
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
-        raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
+        raise AssertionError(f"serve {run}: kernels never launched on the main path: {missing}")
+    # the model's structure fixes the launches of each forward: every such counter gives the same number
+    # of forwards, and each forward launches the decode kernel, the prefill kernel or both in each layer
+    n_fwd = rec["forwards"]
+    paged = launches["paged_attention_decode"] + launches["paged_attention_prefill"]
+    if (n_fwd != int(n_fwd) or any(launches[name] != n * n_fwd for name, n in spec["per_forward"].items())
+            or not cfg.n_layers * n_fwd <= paged <= 2 * cfg.n_layers * n_fwd):
+        raise AssertionError(f"serve {run}: launches {launches} do not fit {spec['per_forward']} per forward "
+                             f"and {cfg.n_layers} layers")
     if profile:
-        profile_serve(torch, engine, (wave1, wave2))
+        profile_serve(torch, engine, (wave1, wave2), run)
+    del engine
+    gc.collect()  # the engine's closures form cycles: free its pools and weights before the next phase
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -846,6 +1073,53 @@ def phase_train(torch, dev, counters, profile=False):
     return rec
 
 
+CSRC, PALLAS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/pallas/"
+# The kernels line: name, the run whose launches are read, the wrapper counted, the dtype and the
+# fields (matched by their start) of the record that represents the kernel, its source, the TPU kernel.
+KERNEL_ROWS = [
+    ("paged_attention_decode", "llama3_8b", "paged_attention_decode", "bfloat16",
+     dict(kernel="paged_attention_decode", pool="torch", shape="q(64,32,128)"), "paged_attention.cu",
+     "paged_attention.py:386"),
+    ("paged_attention_prefill", "llama3_8b", "paged_attention_prefill", "bfloat16",
+     dict(kernel="paged_attention_prefill", pool="torch", shape="q(2,512,32,128)"), "paged_attention.cu",
+     "paged_attention.py:531"),
+    ("rms_norm", "llama3_8b", "rms_norm", "bfloat16", dict(kernel="rms_norm", shape="x(1,768,4096)"), "rms_norm.cu",
+     "norms.py:45"),
+    ("layer_norm", "gpt2_1_3b_w8_kv8", "layer_norm", "bfloat16", dict(kernel="layer_norm", shape="x(1,768,2048)"),
+     "layer_norm.cu", "norms.py:91"),
+    ("quantized_matmul (int8 codes)", "gpt2_1_3b_w8_kv8", "quantized_matmul", "bfloat16",
+     dict(kernel="quantized_matmul", shape="x(64,2048) codes(2048,8192)"), "quantized_matmul.cu",
+     "quantized_matmul.py:140"),
+    ("quantized_matmul (packed int4 codes)", "llama3_8b_w4", "quantized_matmul", "bfloat16",
+     dict(kernel="quantized_matmul", shape="x(64,4096) codes(2048,14336)"), "quantized_matmul.cu",
+     "quantized_matmul.py:140"),
+    ("paged_attention_decode (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_decode", "bfloat16",
+     dict(kernel="paged_attention_decode", pool="int8", shape="q(64,32,64)"), "paged_attention.cu",
+     "paged_attention.py:386"),
+    ("paged_attention_prefill (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_prefill", "bfloat16",
+     dict(kernel="paged_attention_prefill", pool="int8", shape="q(2,512,32,64)"), "paged_attention.cu",
+     "paged_attention.py:531"),
+    ("flash_fwd", "train", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="gpt2_1_3b"), "flash_attention.cu",
+     "flash_attention.py:185"),
+    ("flash_bwd_dq", "train", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq", case="gpt2_1_3b"),
+     "flash_attention.cu", "flash_attention.py:417"),
+    ("flash_bwd_dkv", "train", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv", case="gpt2_1_3b"),
+     "flash_attention.cu", "flash_attention.py:518"),
+    ("fused_adam", "train", "fused_adam", "float32", dict(kernel="fused_adam", case="all"), "fused_adam.cu",
+     "fused_adam.py:51"),
+]
+
+
+def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces) -> dict:
+    r = next(x for x in records if x["dtype"] == f"torch.{dtype}"
+             and all(str(x.get(k, "")).startswith(v) for k, v in want.items()))
+    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,
+            "launches": runs[run]["launches"][counter], "max_abs_err": r["max_abs_err"],
+            "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], "dtype": dtype, "launches_read_from": run}
+
+
 def main(argv) -> int:
     quick = "--quick" in argv  # build + one case per kernel, then stop
     profile = "--profile" in argv  # add torch.profiler passes over the serving waves and a training step
@@ -863,7 +1137,7 @@ def main(argv) -> int:
         return 3
     sys.path.insert(0, HERE)
     from deepspeed_tpu_torch.ops import _build, flash_attention as fa, fused_adam as fad, norms
-    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import paged_attention as pa, quantized_matmul as qm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -882,50 +1156,26 @@ def main(argv) -> int:
              ptxas=dict(entries=len(regs), max_registers=max(regs, default=0), spill_store_bytes=sum(spills))))
 
     records = run_kernel_phases(torch, dev, quick)
+    quant_records = run_quant_kernel_phases(torch, dev, quick)
     records += run_train_kernel_phases(torch, dev, quick)
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
-    for dtype in (torch.float32, torch.bfloat16):
-        phase_step_parity(torch, dev, dtype)
-    counters = [pa.paged_attention_decode, pa.paged_attention_prefill, norms.rms_norm]
-    serve = phase_serve(torch, dev, counters, profile)
+    for model in ("llama3_8b", "gpt2_1_3b"):
+        for dtype in (torch.float32, torch.bfloat16):
+            phase_step_parity(torch, dev, dtype, model)
+    paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
+    counters = paged + [norms.rms_norm]
+    serve = phase_serve(torch, dev, counters, "llama3_8b", profile)
+    serve_w8 = phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
+    serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4")
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_parity(torch, dev, dtype, train_counters)
     train = phase_train(torch, dev, counters + train_counters, profile)
 
-    rep = {"paged_attention_decode": ("q(64,32,128)", "deepspeed_tpu_torch/csrc/paged_attention.cu",
-                                      "deepspeed_tpu/ops/pallas/paged_attention.py:386"),
-           "paged_attention_prefill": ("q(2,512,32,128)", "deepspeed_tpu_torch/csrc/paged_attention.cu",
-                                       "deepspeed_tpu/ops/pallas/paged_attention.py:531"),
-           "rms_norm": ("x(1,768,4096)", "deepspeed_tpu_torch/csrc/rms_norm.cu",
-                        "deepspeed_tpu/ops/pallas/norms.py:45")}
-    kernels = []
-    for name, (shape, source, replaces) in rep.items():
-        r = next(x for x in records if x["kernel"] == name and x["dtype"] == "torch.bfloat16"
-                 and x["shape"].startswith(shape))
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": serve["launches"][name], "max_abs_err": r["max_abs_err"],
-                        "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"], "dtype": "bfloat16"})
-    flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
-    rep = {"flash_fwd": ("gpt2_1_3b", "torch.bfloat16", flash_src,
-                         "deepspeed_tpu/ops/pallas/flash_attention.py:185"),
-           "flash_bwd_dq": ("gpt2_1_3b", "torch.bfloat16", flash_src,
-                            "deepspeed_tpu/ops/pallas/flash_attention.py:417"),
-           "flash_bwd_dkv": ("gpt2_1_3b", "torch.bfloat16", flash_src,
-                             "deepspeed_tpu/ops/pallas/flash_attention.py:518"),
-           "fused_adam": ("all", "torch.float32", "deepspeed_tpu_torch/csrc/fused_adam.cu",
-                          "deepspeed_tpu/ops/pallas/fused_adam.py:51")}
-    for name, (case, dtype, source, replaces) in rep.items():
-        r = next(x for x in records if x["kernel"] == name and x["case"] == case and x["dtype"] == dtype)
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": train["launches"][name], "max_abs_err": r["max_abs_err"],
-                        "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"], "dtype": dtype.split(".")[1]})
+    runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4, "train": train}
+    kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

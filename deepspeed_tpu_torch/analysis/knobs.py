@@ -91,6 +91,12 @@ declare("DS_TPU_PROGRAM_CACHE", "8", "int",
 declare("DS_TPU_PREFIX_CACHE", "1", "bool",
         "Enable the radix prefix cache: retiring prompts donate KV blocks for reuse.",
         "inference/v2/ragged/manager.py")
+# Tiered KV economy
+declare("DS_TPU_KV_QUANT", "0", "int",
+        "KV-cache quantization bits: 8 stores K/V pages as int8 with per-block "
+        "per-head scales (fused dequant in the paged-attention kernels); 0 keeps "
+        "the engine dtype.",
+        "inference/v2/engine_v2.py")
 # Fused cross-entropy (ops/fused_ce.py)
 declare("DS_TPU_CE_CHUNK", "0", "int",
         "Fused cross-entropy vocab-chunk size (0 = derive from budget).",

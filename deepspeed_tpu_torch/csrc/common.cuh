@@ -23,6 +23,7 @@ constexpr float kNegInf = -1e30f;  // the reference kernels' NEG_INF mask value
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -33,6 +34,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) { re
 
 // N consecutive elements (16-byte aligned for N*sizeof(T) >= 16, 8-byte for
 // 4 bf16) -> N floats, with vector loads. Works on global and shared memory.
+// int8 elements are quantisation codes and convert to their integer values.
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
   static_assert(N % 4 == 0, "float vectors come in 4s");
@@ -70,6 +72,18 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* o) {
       o[2 * j] = f.x;
       o[2 * j + 1] = f.y;
     }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* p, float* o) {
+  static_assert(N % 16 == 0, "int8 vectors come in 16s");
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i) {
+    uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) o[16 * i + j] = static_cast<float>(b[j]);
   }
 }
 

@@ -16,6 +16,16 @@
 // row-strided reads of the score loop hit distinct banks. Softmax state and
 // accumulators stay in fp32 registers. Plain FMA loops; no tensor cores, TMA
 // or warp specialisation yet.
+//
+// int8 pools (the reference's quantized=True bodies): pages hold int8 codes
+// (N, bs, KVH, D) with one fp32 scale per slot and KV head in planes
+// (N, bs, KVH). The kernels are templated on the pool's element type: codes are
+// staged as they are (half the shared memory of bf16 pages), and the scales go
+// next to the products: a key's score is its K scale times the dot product of q
+// with the integer codes, and its V scale folds into its softmax weight before
+// the PV product (the normaliser keeps the unscaled weight). That is exact in
+// fp32, whatever q's type. A slot that was never written has scale 0 and codes
+// 0 and contributes nothing.
 #include "common.cuh"
 
 namespace dstorch {
@@ -47,28 +57,52 @@ __device__ __forceinline__ void stage_kv(T* sK, T* sV, const T* __restrict__ kpo
   }
 }
 
+// The same tile's per-key scales of an int8 pool; 0 at or past ctx.
+__device__ __forceinline__ void stage_scales(float* sKs, float* sVs, const float* __restrict__ kscale,
+                                             const float* __restrict__ vscale, const int* __restrict__ bt, int t0,
+                                             int rows, int ctx, int bs, int KVH, int h) {
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const int kpos = t0 + r;
+    float ks = 0.f, vs = 0.f;
+    if (kpos < ctx) {
+      const size_t off = (static_cast<size_t>(bt[kpos / bs]) * bs + kpos % bs) * KVH + h;
+      ks = kscale[off];
+      vs = vscale[off];
+    }
+    sKs[r] = ks;
+    sVs[r] = vs;
+  }
+}
+
+template <typename KT>
+constexpr bool kIsInt8 = sizeof(KT) == 1;
+
 // ---------------------------------------------------------------- decode
 // Grid (KVH, B), 128 threads. One block serves the G query heads that share
 // KV head h of row b, so each K/V page is read from memory once per group.
 // Per key tile of 128 positions: thread t scores key t against all G queries,
 // the block reduces max and sum per query, and thread t accumulates output
 // column t (and t + 128) for all G queries.
-template <typename T, int D, int MAXG>
+template <typename T, typename KT, int D, int MAXG>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
+decode_kernel(const T* __restrict__ q, const KT* __restrict__ kpool, const KT* __restrict__ vpool,
+              const float* __restrict__ kscale, const float* __restrict__ vscale,
               const int* __restrict__ block_tables, const int* __restrict__ ctx_lens, T* __restrict__ out, int H,
               int KVH, int G, int bs, int P, float scale) {
   constexpr int NT = kThreads;
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr bool Q8 = kIsInt8<KT>;
+  constexpr int VEC = 16 / sizeof(KT);
   constexpr int KS = D + VEC;
   constexpr int CPT = (D + NT - 1) / NT;  // output columns per thread
   constexpr int NWARP = NT / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + NT * KS;
+  KT* sK = reinterpret_cast<KT*>(smem);
+  KT* sV = sK + NT * KS;
   float* sQ = reinterpret_cast<float*>(sV + NT * KS);  // [MAXG][D], pre-scaled
   float* sP = sQ + MAXG * D;                           // [MAXG][NT]
   float* sRed = sP + MAXG * NT;                        // [NWARP][MAXG]
+  float* sKs = sRed + NWARP * MAXG;                    // [NT] K scales of the tile (int8 pools only)
+  float* sVs = sKs + NT;                               // [NT] V scales
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -90,7 +124,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __r
 
   for (int t0 = 0; t0 < ctx; t0 += NT) {
     __syncthreads();  // the previous tile's readers are done (and sQ is written)
-    stage_kv<T, D, KS>(sK, sV, kpool, vpool, bt, t0, NT, ctx, bs, KVH, h);
+    stage_kv<KT, D, KS>(sK, sV, kpool, vpool, bt, t0, NT, ctx, bs, KVH, h);
+    if constexpr (Q8) stage_scales(sKs, sVs, kscale, vscale, bt, t0, NT, ctx, bs, KVH, h);
     __syncthreads();
 
     const bool live = t0 + tid < ctx;
@@ -109,6 +144,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __r
     }
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
+      if constexpr (Q8) s[g] *= sKs[tid];
       if (!live) s[g] = kNegInf;
       const float v = warp_max(s[g]);
       if (lane == 0) sRed[warp * MAXG + g] = v;
@@ -127,7 +163,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __r
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       const float p = live ? expf(s[g] - mnew[g]) : 0.f;
-      sP[g * NT + tid] = p;
+      sP[g * NT + tid] = Q8 ? p * sVs[tid] : p;  // the V scale rides on the weight; l sums the bare weight
       const float ps = warp_sum(p);
       if (lane == 0) sRed[warp * MAXG + g] = ps;
     }
@@ -168,31 +204,46 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __r
   }
 }
 
-template <typename T, int D, int MAXG>
-int launch_decode(const void* q, const void* kp, const void* vp, const int* bt, const int* ctx, void* out, int B,
-                  int H, int KVH, int bs, int P, float scale, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr size_t smem = 2 * kThreads * (D + VEC) * sizeof(T) +
-                          (MAXG * D + MAXG * kThreads + (kThreads / 32) * MAXG) * sizeof(float);
-  auto kernel = decode_kernel<T, D, MAXG>;
+// The pools of one call: pages (of q's type, or int8 codes) and, for int8, their scale planes.
+struct Pools {
+  const void* k;
+  const void* v;
+  const float* kscale;
+  const float* vscale;
+};
+
+template <typename T, typename KT, int D, int MAXG>
+int launch_decode(const void* q, Pools pools, const int* bt, const int* ctx, void* out, int B, int H, int KVH, int bs,
+                  int P, float scale, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(KT);
+  constexpr size_t smem = 2 * kThreads * (D + VEC) * sizeof(KT) +
+                          (MAXG * D + MAXG * kThreads + (kThreads / 32) * MAXG + 2 * kThreads) * sizeof(float);
+  auto kernel = decode_kernel<T, KT, D, MAXG>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid(KVH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(kp),
-                                           static_cast<const T*>(vp), bt, ctx, static_cast<T*>(out), H, KVH,
-                                           H / KVH, bs, P, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const KT*>(pools.k),
+                                           static_cast<const KT*>(pools.v), pools.kscale, pools.vscale, bt, ctx,
+                                           static_cast<T*>(out), H, KVH, H / KVH, bs, P, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int decode_by_group(const void* q, const void* kp, const void* vp, const int* bt, const int* ctx, void* out, int B,
-                    int H, int KVH, int bs, int P, float scale, cudaStream_t s) {
+template <typename T, typename KT, int D>
+int decode_by_group(const void* q, Pools pools, const int* bt, const int* ctx, void* out, int B, int H, int KVH,
+                    int bs, int P, float scale, cudaStream_t s) {
   const int G = H / KVH;
-  if (G <= 1) return launch_decode<T, D, 1>(q, kp, vp, bt, ctx, out, B, H, KVH, bs, P, scale, s);
-  if (G <= 2) return launch_decode<T, D, 2>(q, kp, vp, bt, ctx, out, B, H, KVH, bs, P, scale, s);
-  if (G <= 4) return launch_decode<T, D, 4>(q, kp, vp, bt, ctx, out, B, H, KVH, bs, P, scale, s);
-  if (G <= 8) return launch_decode<T, D, 8>(q, kp, vp, bt, ctx, out, B, H, KVH, bs, P, scale, s);
+  if (G <= 1) return launch_decode<T, KT, D, 1>(q, pools, bt, ctx, out, B, H, KVH, bs, P, scale, s);
+  if (G <= 2) return launch_decode<T, KT, D, 2>(q, pools, bt, ctx, out, B, H, KVH, bs, P, scale, s);
+  if (G <= 4) return launch_decode<T, KT, D, 4>(q, pools, bt, ctx, out, B, H, KVH, bs, P, scale, s);
+  if (G <= 8) return launch_decode<T, KT, D, 8>(q, pools, bt, ctx, out, B, H, KVH, bs, P, scale, s);
   return kUnsupported;
+}
+
+template <typename T, int D>
+int decode_by_pool(const void* q, Pools pools, const int* bt, const int* ctx, void* out, int B, int H, int KVH,
+                   int bs, int P, float scale, cudaStream_t s) {
+  if (pools.kscale != nullptr) return decode_by_group<T, int8_t, D>(q, pools, bt, ctx, out, B, H, KVH, bs, P, scale, s);
+  return decode_by_group<T, T, D>(q, pools, bt, ctx, out, B, H, KVH, bs, P, scale, s);
 }
 
 // ---------------------------------------------------------------- prefill
@@ -207,22 +258,26 @@ int decode_by_group(const void* q, const void* kp, const void* vp, const int* bt
 constexpr int kRows = 64;
 constexpr int kKeyTile = 64;
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(kThreads)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
+prefill_kernel(const T* __restrict__ q, const KT* __restrict__ kpool, const KT* __restrict__ vpool,
+               const float* __restrict__ kscale, const float* __restrict__ vscale,
                const int* __restrict__ block_tables, const int* __restrict__ ctx_lens,
                const int* __restrict__ qpos0, T* __restrict__ out, int S, int H, int KVH, int G, int bs, int P,
                float scale) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr bool Q8 = kIsInt8<KT>;
+  constexpr int VEC = 16 / sizeof(KT);
   constexpr int KS = D + VEC;
   constexpr int QS = D + 1;
   constexpr int PS = kKeyTile + 1;
   constexpr int CPT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kKeyTile * KS;
+  KT* sK = reinterpret_cast<KT*>(smem);
+  KT* sV = sK + kKeyTile * KS;
   float* sQ = reinterpret_cast<float*>(sV + kKeyTile * KS);  // [kRows][QS], pre-scaled
   float* sP = sQ + kRows * QS;                               // [kRows][PS]
+  float* sKs = sP + kRows * PS;                              // [kKeyTile] K scales of the tile (int8 pools only)
+  float* sVs = sKs + kKeyTile;                               // [kKeyTile] V scales
 
   const int QT = kRows / G;  // query positions per block
   const int h = blockIdx.y, b = blockIdx.z;
@@ -255,7 +310,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __
   const int kend = min(ctx, q0 + s_end);  // one past the last key any row of this block sees
   for (int t0 = 0; t0 < kend; t0 += kKeyTile) {
     __syncthreads();  // the previous tile's readers are done (and sQ is written)
-    stage_kv<T, D, KS>(sK, sV, kpool, vpool, bt, t0, kKeyTile, ctx, bs, KVH, h);
+    stage_kv<KT, D, KS>(sK, sV, kpool, vpool, bt, t0, kKeyTile, ctx, bs, KVH, h);
+    if constexpr (Q8) stage_scales(sKs, sVs, kscale, vscale, bt, t0, kKeyTile, ctx, bs, KVH, h);
     __syncthreads();
 
     float s[4][8];
@@ -274,6 +330,17 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+    float vs[8];  // V scales of this thread's keys: they ride on the weights below
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      vs[j] = 1.f;
+      if constexpr (Q8) {
+        const float ks = sKs[tx + 8 * j];
+        vs[j] = sVs[tx + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] *= ks;
+      }
     }
 
 #pragma unroll
@@ -295,7 +362,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float p = s[i][j] <= kNegInf ? 0.f : expf(s[i][j] - mnew);  // no visible key yet: no weight
-        sP[(ty * 4 + i) * PS + tx + 8 * j] = p;
+        sP[(ty * 4 + i) * PS + tx + 8 * j] = p * vs[j];
         ps += p;
       }
       ps += __shfl_xor_sync(0xffffffffu, ps, 1);
@@ -335,62 +402,77 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kpool, const T* __
   }
 }
 
-template <typename T, int D>
-int launch_prefill(const void* q, const void* kp, const void* vp, const int* bt, const int* ctx, const int* qpos0,
-                   void* out, int B, int S, int H, int KVH, int bs, int P, float scale, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr size_t smem = 2 * kKeyTile * (D + VEC) * sizeof(T) +
-                          (kRows * (D + 1) + kRows * (kKeyTile + 1)) * sizeof(float);
+template <typename T, typename KT, int D>
+int launch_prefill(const void* q, Pools pools, const int* bt, const int* ctx, const int* qpos0, void* out, int B,
+                   int S, int H, int KVH, int bs, int P, float scale, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(KT);
+  constexpr size_t smem = 2 * kKeyTile * (D + VEC) * sizeof(KT) +
+                          (kRows * (D + 1) + kRows * (kKeyTile + 1) + 2 * kKeyTile) * sizeof(float);
   const int G = H / KVH;
   if (G > kRows) return kUnsupported;
-  auto kernel = prefill_kernel<T, D>;
+  auto kernel = prefill_kernel<T, KT, D>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int QT = kRows / G;
   dim3 grid((S + QT - 1) / QT, KVH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(kp),
-                                           static_cast<const T*>(vp), bt, ctx, qpos0, static_cast<T*>(out), S, H,
-                                           KVH, G, bs, P, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const KT*>(pools.k),
+                                           static_cast<const KT*>(pools.v), pools.kscale, pools.vscale, bt, ctx,
+                                           qpos0, static_cast<T*>(out), S, H, KVH, G, bs, P, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int prefill_by_pool(const void* q, Pools pools, const int* bt, const int* ctx, const int* qpos0, void* out, int B,
+                    int S, int H, int KVH, int bs, int P, float scale, cudaStream_t s) {
+  if (pools.kscale != nullptr) return launch_prefill<T, int8_t, D>(q, pools, bt, ctx, qpos0, out, B, S, H, KVH, bs, P, scale, s);
+  return launch_prefill<T, T, D>(q, pools, bt, ctx, qpos0, out, B, S, H, KVH, bs, P, scale, s);
 }
 
 }  // namespace
 }  // namespace dstorch
 
-// q (B, H, D); pools (N, bs, KVH, D) of q's dtype, 16-byte aligned; block_tables (B, P) and
-// ctx_lens (B,) int32; out (B, H, D). D in {64, 128}; H / KVH <= 8.
+// q (B, H, D); pools (N, bs, KVH, D), 16-byte aligned: of q's dtype with k_scales = v_scales = null, or
+// int8 codes with fp32 scale planes (N, bs, KVH); block_tables (B, P) and ctx_lens (B,) int32; out
+// (B, H, D). D in {64, 128}; H / KVH <= 8.
 extern "C" int ds_paged_attention_decode(const void* q, const void* k_pages, const void* v_pages,
-                                         const void* block_tables, const void* ctx_lens, void* out, int B, int H,
-                                         int KVH, int D, int bs, int P, float scale, int dtype, void* stream) {
+                                         const void* k_scales, const void* v_scales, const void* block_tables,
+                                         const void* ctx_lens, void* out, int B, int H, int KVH, int D, int bs,
+                                         int P, float scale, int dtype, void* stream) {
   using namespace dstorch;
   if (B <= 0) return 0;
-  if (KVH <= 0 || H % KVH || B > 65535 || !aligned16(k_pages) || !aligned16(v_pages)) return kUnsupported;
+  if (KVH <= 0 || H % KVH || B > 65535 || !aligned16(k_pages) || !aligned16(v_pages) ||
+      (k_scales == nullptr) != (v_scales == nullptr))
+    return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Pools pools{k_pages, v_pages, static_cast<const float*>(k_scales), static_cast<const float*>(v_scales)};
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
-  if (dtype == kBFloat16 && D == 128) return decode_by_group<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, cl, out, B, H, KVH, bs, P, scale, s);
-  if (dtype == kBFloat16 && D == 64) return decode_by_group<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, cl, out, B, H, KVH, bs, P, scale, s);
-  if (dtype == kFloat32 && D == 128) return decode_by_group<float, 128>(q, k_pages, v_pages, bt, cl, out, B, H, KVH, bs, P, scale, s);
-  if (dtype == kFloat32 && D == 64) return decode_by_group<float, 64>(q, k_pages, v_pages, bt, cl, out, B, H, KVH, bs, P, scale, s);
+  if (dtype == kBFloat16 && D == 128) return decode_by_pool<__nv_bfloat16, 128>(q, pools, bt, cl, out, B, H, KVH, bs, P, scale, s);
+  if (dtype == kBFloat16 && D == 64) return decode_by_pool<__nv_bfloat16, 64>(q, pools, bt, cl, out, B, H, KVH, bs, P, scale, s);
+  if (dtype == kFloat32 && D == 128) return decode_by_pool<float, 128>(q, pools, bt, cl, out, B, H, KVH, bs, P, scale, s);
+  if (dtype == kFloat32 && D == 64) return decode_by_pool<float, 64>(q, pools, bt, cl, out, B, H, KVH, bs, P, scale, s);
   return kUnsupported;
 }
 
 // q (B, S, H, D); pools as above; qpos0 (B,) int32 = absolute position of each row's query 0
 // (positions are consecutive); out (B, S, H, D). D in {64, 128}; H / KVH <= 64.
 extern "C" int ds_paged_attention_prefill(const void* q, const void* k_pages, const void* v_pages,
-                                          const void* block_tables, const void* ctx_lens, const void* qpos0,
-                                          void* out, int B, int S, int H, int KVH, int D, int bs, int P, float scale,
-                                          int dtype, void* stream) {
+                                          const void* k_scales, const void* v_scales, const void* block_tables,
+                                          const void* ctx_lens, const void* qpos0, void* out, int B, int S, int H,
+                                          int KVH, int D, int bs, int P, float scale, int dtype, void* stream) {
   using namespace dstorch;
   if (B <= 0 || S <= 0) return 0;
-  if (KVH <= 0 || H % KVH || B > 65535 || KVH > 65535 || !aligned16(k_pages) || !aligned16(v_pages)) return kUnsupported;
+  if (KVH <= 0 || H % KVH || B > 65535 || KVH > 65535 || !aligned16(k_pages) || !aligned16(v_pages) ||
+      (k_scales == nullptr) != (v_scales == nullptr))
+    return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Pools pools{k_pages, v_pages, static_cast<const float*>(k_scales), static_cast<const float*>(v_scales)};
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
   const int* qp = static_cast<const int*>(qpos0);
-  if (dtype == kBFloat16 && D == 128) return launch_prefill<__nv_bfloat16, 128>(q, k_pages, v_pages, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
-  if (dtype == kBFloat16 && D == 64) return launch_prefill<__nv_bfloat16, 64>(q, k_pages, v_pages, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
-  if (dtype == kFloat32 && D == 128) return launch_prefill<float, 128>(q, k_pages, v_pages, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
-  if (dtype == kFloat32 && D == 64) return launch_prefill<float, 64>(q, k_pages, v_pages, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
+  if (dtype == kBFloat16 && D == 128) return prefill_by_pool<__nv_bfloat16, 128>(q, pools, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
+  if (dtype == kBFloat16 && D == 64) return prefill_by_pool<__nv_bfloat16, 64>(q, pools, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
+  if (dtype == kFloat32 && D == 128) return prefill_by_pool<float, 128>(q, pools, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
+  if (dtype == kFloat32 && D == 64) return prefill_by_pool<float, 64>(q, pools, bt, cl, qp, out, B, S, H, KVH, bs, P, scale, s);
   return kUnsupported;
 }

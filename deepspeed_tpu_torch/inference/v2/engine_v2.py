@@ -6,6 +6,11 @@ schedule_fused`` -> ``_run_fused`` -> the step of ``make_fused_step_fn``.
 
 - The KV cache is a stacked page pool ``(layers, blocks, block_size, KVH,
   D)`` pair on the device, updated in place (the JAX engine donates it).
+  With ``kv_quant_bits=8`` each pool is int8 codes plus fp32 scale planes
+  ``(layers, blocks, block_size, KVH)``, quantised on append.
+- With ``quant_bits`` 8 or 4 the matmul weights are quantised after they are
+  placed on the device (``quantize_for_serving``) and every projection goes
+  through the fused dequantise-matmul.
 - Block 0 of the pool is a garbage page: padded tokens of a bucket write
   their KV there, so padding never corrupts live sequences.
 - Quanta pad to the (decode rows, prefill rows, chunk) bucket ladder of the
@@ -17,8 +22,8 @@ schedule_fused`` -> ``_run_fused`` -> the step of ``make_fused_step_fn``.
 
 The engine runs on ``config.device`` (default ``"cuda"``, which raises
 without a GPU). The unfused loop, ``put``, telemetry, journal, tensor
-parallelism, speculative decoding, int8 KV, host spill and weight
-quantization come with later slices.
+parallelism, speculative decoding and the host spill tier come with later
+slices.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ from ...analysis import knobs
 from ...device import resolve_device
 from ...models.transformer import TransformerConfig
 from ...ops.paged_attention import make_kv_pool
+from ..quantization import QuantizedParam, quantize_for_serving
 from .model_runner import make_fused_step_fn
 from .modules import build_modules
 from .ragged.manager import DSStateManager, RaggedBatchConfig
@@ -54,6 +60,11 @@ class RaggedInferenceEngineConfig:
     decode_burst: Optional[int] = None  # max fused decode steps per quantum; None: DS_TPU_DECODE_BURST
     enable_prefix_cache: Optional[bool] = None  # None: DS_TPU_PREFIX_CACHE
     min_decode_bucket: Optional[int] = None  # padded decode batch floor; None: DS_TPU_MIN_DECODE_BUCKET
+    # weight-only quantisation: matmul kernels stored as int8 codes, dequantised in the matmul kernel
+    quant_bits: int = 0  # 0 = off; 8, or 4 (packed int4 storage, 2 codes per byte)
+    quant_group_size: int = 128
+    quant_min_size: int = 4096  # leave smaller weights dense
+    kv_quant_bits: Optional[int] = None  # 8 = int8 K/V pages + per-slot-per-head scales; None: DS_TPU_KV_QUANT
 
     @classmethod
     def from_dict(cls, d: Dict) -> "RaggedInferenceEngineConfig":
@@ -70,7 +81,8 @@ class InferenceEngineV2:
         """``model`` is a ``TransformerConfig`` or anything exposing ``.cfg``;
         ``params`` the nested parameter dict (``init_params`` or
         ``params_from_numpy``). Floating parameters are cast to the engine
-        dtype and placed on the engine device."""
+        dtype and placed on the engine device, then quantised there when
+        ``config.quant_bits`` is set."""
         if config is None:
             config = RaggedInferenceEngineConfig()
         elif isinstance(config, dict):
@@ -106,10 +118,19 @@ class InferenceEngineV2:
             run_cfg = dataclasses.replace(run_cfg, sliding_window=None, window_layers=None)
         self._run_cfg = run_cfg
 
+        kvq = config.kv_quant_bits
+        if kvq is None:
+            kvq = knobs.get_int("DS_TPU_KV_QUANT")
+        if kvq not in (0, 8):
+            raise ValueError(f"kv_quant_bits must be 0 or 8, got {kvq}")
+        self._kv_quant_bits = int(kvq)
         n_blocks = smc.num_kv_blocks
         if n_blocks is None:
-            itemsize = torch.empty((), dtype=self.dtype).element_size()
-            bytes_per_block = 2 * cfg.n_layers * smc.kv_block_size * cfg.kv_heads * cfg.head_dim * itemsize
+            # int8 pages: one byte per element plus a 4-byte fp32 scale per
+            # (slot, kv head), so head_dim + 4 bytes per slot-head
+            slot_head_bytes = (cfg.head_dim + 4) if self._kv_quant_bits == 8 else \
+                cfg.head_dim * torch.empty((), dtype=self.dtype).element_size()
+            bytes_per_block = 2 * cfg.n_layers * smc.kv_block_size * cfg.kv_heads * slot_head_bytes
             n_blocks = max(8, int(smc.memory_gb * (1 << 30) // bytes_per_block))
         self.state = DSStateManager(smc, n_blocks, enable_prefix_cache=config.enable_prefix_cache)
         self._n_kv_blocks = int(n_blocks)
@@ -124,17 +145,22 @@ class InferenceEngineV2:
 
         L, bs = cfg.n_layers, smc.kv_block_size
         pool_shape = (L, n_blocks, bs, cfg.kv_heads, cfg.head_dim)
-        self.k_pages = make_kv_pool(pool_shape, self.dtype, self.device)
-        self.v_pages = make_kv_pool(pool_shape, self.dtype, self.device)
+        self.k_pages = make_kv_pool(pool_shape, self.dtype, self.device, self._kv_quant_bits)
+        self.v_pages = make_kv_pool(pool_shape, self.dtype, self.device, self._kv_quant_bits)
         self._max_blocks_per_seq = -(-smc.max_context // bs)
 
         def place(tree):
             if isinstance(tree, dict):
                 return {k: place(v) for k, v in tree.items()}
+            if isinstance(tree, QuantizedParam):  # quantised beforehand: codes and scales move as they are
+                return dataclasses.replace(tree, q=tree.q.to(self.device), scales=tree.scales.to(self.device))
             t = torch.as_tensor(tree)
             return t.to(self.device, self.dtype) if t.is_floating_point() else t.to(self.device)
 
         self.params = place(params)
+        if config.quant_bits:
+            self.params = quantize_for_serving(self.params, num_bits=config.quant_bits,
+                                               group_size=config.quant_group_size, min_size=config.quant_min_size)
         self._mods = build_modules()
         self._max_program_variants = max(1, knobs.get_int("DS_TPU_PROGRAM_CACHE"))
         self._fused_fns: Dict[tuple, object] = {}  # (bucket shape, sampling) -> step function
@@ -174,10 +200,12 @@ class InferenceEngineV2:
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write page copy: duplicate block ``src`` into ``dst`` across
-        every layer's K/V pool, in place."""
+        every layer's K/V pool, in place. An int8 pool copies the block's scale
+        plane with its codes, so the copy dequantises to the same values."""
         idx = torch.tensor([dst], dtype=torch.long, device=self.device)
         for pool in (self.k_pages, self.v_pages):
-            pool.index_copy_(1, idx, pool[:, src:src + 1].clone())
+            for t in (pool if isinstance(pool, tuple) else (pool,)):
+                t.index_copy_(1, idx, t[:, src:src + 1].clone())
 
     def _cow_ready(self, seq, start_pos: int) -> None:
         self.state.ensure_writable(seq, start_pos, self._copy_block)

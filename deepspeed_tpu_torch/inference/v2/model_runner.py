@@ -8,9 +8,10 @@ decode steps of the burst). PyTorch runs eagerly, so ``jit`` has no
 counterpart and the reference's ``lax.scan`` over burst steps is a Python
 loop. The KV pools are updated in place where the JAX programs donate them.
 
-The attention and norm kernels come from a ``V2Modules`` bundle
-(``modules.build_modules``); passing ``build_modules(plain=True)`` runs
-the same step on the kernels' plain PyTorch versions. Tensor parallelism,
+The attention, norm and quantised-matmul kernels come from a ``V2Modules``
+bundle (``modules.build_modules``); passing ``build_modules(plain=True)``
+runs the same step on the kernels' plain PyTorch versions. The KV pools are
+plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism,
 speculative verify and the unfused step/burst programs come with later
 slices.
 """
@@ -21,7 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ...models.transformer import TransformerConfig, _is_moe_layer, alibi_slopes, apply_rope, scaled_rope_frequencies
-from ...ops.paged_attention import kv_layer, paged_attention_mixed, update_kv_pages
+from ...ops.paged_attention import KVPool, kv_layer, paged_attention_mixed, update_kv_pages
 from ..generation import sample_logits
 from .modules import V2Modules, _norm_p, _proj, build_modules
 
@@ -51,8 +52,8 @@ def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules) -> Callable:
     return attn_fns
 
 
-def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_pages_i: torch.Tensor,
-                       v_pages_i: torch.Tensor, slot_mapping: torch.Tensor, cos, sin, positions: torch.Tensor,
+def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_pages_i: KVPool,
+                       v_pages_i: KVPool, slot_mapping: torch.Tensor, cos, sin, positions: torch.Tensor,
                        attn_apply: Callable, mods: V2Modules):
     """One transformer block over (B, S) tokens against this layer's page
     pool: qkv + rope + KV page write (in place) + ``attn_apply(q, kp, vp)`` +
@@ -60,9 +61,10 @@ def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_page
     B, S = x.shape[:2]
     dtype = cfg.dtype
     h = mods.norm(cfg, _norm_p(cfg, lp, 0), x)
-    q = _proj(h, lp["attn"]["q_proj"], "bsd,dhk->bshk", dtype)
-    k = _proj(h, lp["attn"]["k_proj"], "bsd,dhk->bshk", dtype)
-    v = _proj(h, lp["attn"]["v_proj"], "bsd,dhk->bshk", dtype)
+    qmm = mods.quantized_matmul
+    q = _proj(h, lp["attn"]["q_proj"], "bsd,dhk->bshk", dtype, qmm)
+    k = _proj(h, lp["attn"]["k_proj"], "bsd,dhk->bshk", dtype, qmm)
+    v = _proj(h, lp["attn"]["v_proj"], "bsd,dhk->bshk", dtype, qmm)
     if cfg.clip_qkv is not None:  # olmo: clamp projections before rope
         q, k, v = (t.clamp(-cfg.clip_qkv, cfg.clip_qkv) for t in (q, k, v))
     if cfg.qk_norm:  # qwen3: per-head rms before rope
@@ -76,7 +78,7 @@ def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_page
     update_kv_pages(k_pages_i, v_pages_i, k.reshape(B * S, KVH, D), v.reshape(B * S, KVH, D), slot_mapping)
 
     attn = attn_apply(q.contiguous(), k_pages_i, v_pages_i)
-    attn_out = _proj(attn, lp["attn"]["o_proj"], "bshk,hkd->bsd", dtype)
+    attn_out = _proj(attn, lp["attn"]["o_proj"], "bshk,hkd->bsd", dtype, qmm)
 
     if cfg.block_type == "parallel_shared":  # falcon-7b / phi / gpt-j
         ffn_in = h
@@ -128,12 +130,13 @@ def _run_stack(cfg: TransformerConfig, params: Dict, x, k_pages, v_pages, block_
 
 
 def ragged_forward(cfg: TransformerConfig, params: Dict, input_ids: torch.Tensor, positions: torch.Tensor,
-                   k_pages: torch.Tensor, v_pages: torch.Tensor, block_tables: torch.Tensor, ctx_lens: torch.Tensor,
+                   k_pages: KVPool, v_pages: KVPool, block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                    slot_mapping: torch.Tensor, last_token_idx: torch.Tensor, *, decode: bool,
                    mods: Optional[V2Modules] = None):
     """One engine step over the paged cache.
 
-    input_ids/positions: (B, S); k_pages/v_pages: (L, N, bs, KVH, D);
+    input_ids/positions: (B, S); k_pages/v_pages: (L, N, bs, KVH, D), plain
+    or int8 ``(codes, scales (L, N, bs, KVH))``;
     block_tables: (B, P) int32; ctx_lens: (B,) context length *including*
     the current tokens; slot_mapping: (B*S,) flat KV slots for the new
     tokens; last_token_idx: (B,) index of each row's last real token.
@@ -147,7 +150,7 @@ def ragged_forward(cfg: TransformerConfig, params: Dict, input_ids: torch.Tensor
 
 
 def fused_forward(cfg: TransformerConfig, params: Dict, input_ids: torch.Tensor, positions: torch.Tensor,
-                  k_pages: torch.Tensor, v_pages: torch.Tensor, block_tables: torch.Tensor, ctx_lens: torch.Tensor,
+                  k_pages: KVPool, v_pages: KVPool, block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                   slot_mapping: torch.Tensor, last_flat: torch.Tensor, *, n_dec: int, chunk: int,
                   mods: Optional[V2Modules] = None):
     """SplitFuse mixed step: decode rows AND chunked-prefill rows in ONE

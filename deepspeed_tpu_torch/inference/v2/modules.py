@@ -8,11 +8,12 @@ Port of ``deepspeed_tpu/inference/v2/modules.py`` (dense families):
 - unembed(cfg, params, x, last_token_idx) -> (B, V) fp32 logits
 
 ``build_modules`` resolves them into a ``V2Modules`` bundle together with
-the kernels they call (``rms_norm`` and the two paged-attention
-functions); ``build_modules(plain=True)`` binds the kernels' plain PyTorch
-versions instead, which is how a caller runs the same step without the
-kernels. MoE, weight-quantized projections and ``layer_norm`` as a kernel
-come with later slices.
+the kernels they call (``rms_norm``, ``layer_norm``, ``quantized_matmul``
+and the two paged-attention functions); ``build_modules(plain=True)`` binds
+the kernels' plain PyTorch versions instead, which is how a caller runs the
+same step without the kernels. A projection whose ``kernel`` is a
+``QuantizedParam`` (weight-only quantised serving) goes through the fused
+dequantise-matmul. MoE comes with a later slice.
 """
 
 import functools
@@ -22,9 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from ...models.transformer import TransformerConfig
-from ...ops.norms import rms_norm, rms_norm_ref
+from ...ops.norms import layer_norm, layer_norm_ref, rms_norm, rms_norm_ref
 from ...ops.paged_attention import (paged_attention_decode, paged_attention_decode_ref, paged_attention_prefill,
                                     paged_attention_prefill_ref)
+from ...ops.quantized_matmul import quantized_matmul, quantized_matmul_ref
+from ..quantization import QuantizedParam
 
 
 def _norm_key(cfg: TransformerConfig) -> str:
@@ -38,22 +41,38 @@ def _norm_p(cfg: TransformerConfig, container, idx: int):
     return container[f"{_norm_key(cfg)}_{idx}"]
 
 
-def _proj(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype) -> torch.Tensor:
-    """Dense projection with the reference's einsum spec (a cuBLAS product on the card)."""
-    y = torch.einsum(spec, x, p["kernel"].to(dtype))
+def _qproj(x: torch.Tensor, qp: QuantizedParam, dtype: torch.dtype, qmm: Callable) -> torch.Tensor:
+    """Apply a kgroups-quantised kernel through the fused dequantise-matmul:
+    flatten x's trailing dims to the contraction size (``o_proj`` contracts
+    H * Dh), restore the kernel's output dims after."""
+    packed = qp.layout.startswith("kgroups_p4")
+    K = qp.q.shape[0] * (2 if packed else 1)
+    t, i = 1, x.dim()
+    while t < K:
+        i -= 1
+        t *= x.shape[i]
+    if t != K:
+        raise ValueError(f"x {tuple(x.shape)} does not contract with quantised codes {tuple(qp.q.shape)}")
+    t, j = 1, 0
+    while t < K:
+        t *= qp.shape[j]
+        j += 1
+    out2 = qmm(x.reshape(-1, K).to(dtype).contiguous(), qp.q, qp.scales, packed=packed)
+    return out2.reshape(tuple(x.shape[:i]) + tuple(qp.shape[j:])).to(dtype)
+
+
+def _proj(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype,
+          qmm: Callable = quantized_matmul) -> torch.Tensor:
+    """Projection with the reference's einsum spec: a dense kernel is a cuBLAS
+    product on the card, a ``QuantizedParam`` kernel goes through ``qmm``."""
+    w = p["kernel"]
+    if isinstance(w, QuantizedParam):
+        y = _qproj(x, w, dtype, qmm)
+    else:
+        y = torch.einsum(spec, x, w.to(dtype))
     if "bias" in p:
         y = y + p["bias"].to(dtype)
     return y
-
-
-def _layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight.float() + bias.float()
-    return y.to(x.dtype)
 
 
 def embedding_tpu(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor, positions: torch.Tensor,
@@ -72,13 +91,17 @@ def embedding_tpu(cfg: TransformerConfig, params: Dict[str, Any], input_ids: tor
     return x
 
 
-def norm_tpu(cfg: TransformerConfig, p, x: torch.Tensor, rms: Callable = rms_norm) -> torch.Tensor:
+def norm_tpu(cfg: TransformerConfig, p, x: torch.Tensor, rms: Callable = rms_norm,
+             ln: Callable = layer_norm) -> torch.Tensor:
     """One norm serves the pre- and post-norm roles. ``p is None`` is the
-    non-parametric layernorm (olmo)."""
+    non-parametric layernorm (olmo), plain PyTorch as in the reference."""
     if p is None:
-        return _layer_norm(x, None, None, cfg.norm_eps).to(cfg.dtype)
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        return ((x32 - mean) * torch.rsqrt(var + cfg.norm_eps)).to(cfg.dtype)
     if "bias" in p:
-        return _layer_norm(x, p["scale"], p["bias"], cfg.norm_eps).to(cfg.dtype)
+        return ln(x.contiguous(), p["scale"], p["bias"], cfg.norm_eps).to(cfg.dtype)
     # the (1+w) offset must add in fp32: serving params may be bf16 and HF's
     # GemmaRMSNorm computes (1.0 + weight.float())
     w = 1.0 + p["scale"].float() if cfg.rms_offset else p["scale"]
@@ -107,25 +130,26 @@ def attention_tpu(cfg: TransformerConfig, q, kp, vp, block_tables, ctx_lens, pos
     return fn(q, kp, vp, block_tables, ctx_lens, positions)
 
 
-def mlp_tpu(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def mlp_tpu(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor,
+            qmm: Callable = quantized_matmul) -> torch.Tensor:
     """ref ``implementations/linear/*``: the dense FFN pair."""
     dtype = cfg.dtype
     if cfg.activation in ("swiglu", "geglu"):
-        g = _proj(x, p["gate_proj"], "bsd,df->bsf", dtype)
+        g = _proj(x, p["gate_proj"], "bsd,df->bsf", dtype, qmm)
         # jax.nn.gelu defaults to the tanh approximation
         g = F.gelu(g, approximate="tanh") if cfg.activation == "geglu" else F.silu(g)
-        h = g * _proj(x, p["up_proj"], "bsd,df->bsf", dtype)
+        h = g * _proj(x, p["up_proj"], "bsd,df->bsf", dtype, qmm)
     else:
-        h = _proj(x, p["up_proj"], "bsd,df->bsf", dtype)
+        h = _proj(x, p["up_proj"], "bsd,df->bsf", dtype, qmm)
         if cfg.activation == "relu":
             h = F.relu(h)
         else:
             h = F.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
-    return _proj(h, p["down_proj"], "bsf,fd->bsd", dtype)
+    return _proj(h, p["down_proj"], "bsf,fd->bsd", dtype, qmm)
 
 
 def unembed_tpu(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor, last_token_idx: torch.Tensor,
-                norm: Optional[Callable] = None) -> torch.Tensor:
+                norm: Optional[Callable] = None, qmm: Callable = quantized_matmul) -> torch.Tensor:
     """ref ``implementations/unembed/ragged_unembed.py``: final norm +
     last-real-token gather + head projection, fp32 logits."""
     top = 1 if cfg.embedding_norm else 0
@@ -134,7 +158,7 @@ def unembed_tpu(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor,
     if cfg.tie_embeddings:
         logits = torch.einsum("bd,vd->bv", last, params["wte"].to(cfg.dtype))
     else:
-        logits = _proj(last, params["lm_head"], "bd,dv->bv", cfg.dtype)
+        logits = _proj(last, params["lm_head"], "bd,dv->bv", cfg.dtype, qmm)
     return logits.float()
 
 
@@ -147,6 +171,8 @@ class V2Modules(NamedTuple):
     mlp: Callable
     unembed: Callable
     rms_norm: Callable
+    layer_norm: Callable
+    quantized_matmul: Callable
     decode_attn: Callable
     prefill_attn: Callable
 
@@ -155,8 +181,12 @@ def build_modules(plain: bool = False) -> V2Modules:
     """The serving modules bound to the kernels, or with ``plain=True`` to the
     kernels' plain PyTorch versions."""
     rms = rms_norm_ref if plain else rms_norm
-    norm = functools.partial(norm_tpu, rms=rms)
+    ln = layer_norm_ref if plain else layer_norm
+    qmm = quantized_matmul_ref if plain else quantized_matmul
+    norm = functools.partial(norm_tpu, rms=rms, ln=ln)
     return V2Modules(embedding=functools.partial(embedding_tpu, norm=norm), norm=norm, attention=attention_tpu,
-                     mlp=mlp_tpu, unembed=functools.partial(unembed_tpu, norm=norm), rms_norm=rms,
+                     mlp=functools.partial(mlp_tpu, qmm=qmm),
+                     unembed=functools.partial(unembed_tpu, norm=norm, qmm=qmm),
+                     rms_norm=rms, layer_norm=ln, quantized_matmul=qmm,
                      decode_attn=paged_attention_decode_ref if plain else paged_attention_decode,
                      prefill_attn=paged_attention_prefill_ref if plain else paged_attention_prefill)

@@ -12,6 +12,7 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from ..inference.quantization import QuantizedParam
 from .transformer import TransformerConfig, param_shapes
 
 
@@ -61,3 +62,16 @@ def params_from_numpy(tree: Mapping, device="cuda", dtype: Optional[torch.dtype]
             t = t.to(dtype)
         out[path] = t.to(device)
     return _unflatten(out)
+
+
+def quantized_from_numpy(q, scales, shape, dtype: torch.dtype, num_bits: int, layout: str,
+                         device="cuda") -> QuantizedParam:
+    """Carry a reference ``QuantizedParam`` across as it is: its int8 codes
+    and fp32 scales (numpy), original shape, the port's dtype for the
+    original dtype, bits and layout (a kgroups layout)."""
+    if not layout.startswith("kgroups") or "+" in layout:
+        raise NotImplementedError(f"layout {layout!r}: only the unsharded kgroups layouts are ported")
+    device = torch.device(device)
+    return QuantizedParam(q=torch.from_numpy(np.array(q, dtype=np.int8, copy=True)).to(device),
+                          scales=torch.from_numpy(np.array(scales, dtype=np.float32, copy=True)).to(device),
+                          shape=tuple(int(n) for n in shape), dtype=dtype, num_bits=int(num_bits), layout=layout)

@@ -32,8 +32,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES: Dict[str, List] = {
     "ds_rms_norm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
-    "ds_paged_attention_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "ds_paged_attention_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "ds_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "ds_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ds_paged_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "ds_paged_attention_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],

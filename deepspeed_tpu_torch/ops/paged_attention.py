@@ -14,13 +14,20 @@ slot mapping (token -> block * block_size + offset) for writes.
   ``paged_attention_mixed`` routes a fused quantum's decode and prefill
   rows exactly as the reference does.
 
+int8 paged KV (``kv_quant_bits=8``): a pool is the pair ``(codes int8
+(N, bs, KVH, D), scales fp32 (N, bs, KVH))``: one symmetric scale per slot
+and KV head. The scale is per *slot* rather than per block so that
+quantise-on-append stays local: writing a slot rewrites its own scale and
+never re-quantises its neighbours. Every function below takes either
+representation; the CUDA kernels multiply by the scales next to their
+products.
+
 The pools are updated in place (``update_kv_pages``) where the JAX code
-donates them. The int8 ``(codes, scales)`` pools and the TP sharding helpers
-come with later slices.
+donates them. The TP sharding helpers come with a later slice.
 """
 
 import functools
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -32,29 +39,79 @@ NEG_INF = -1e30
 # ------------------------------------------------------------------
 # pools
 # ------------------------------------------------------------------
-def make_kv_pool(shape: Sequence[int], dtype: torch.dtype, device) -> torch.Tensor:
-    """Zeroed KV page pool of ``shape`` = (..., bs, KVH, D)."""
-    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+KVPool = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]  # pages, or (int8 codes, fp32 scales)
 
 
-def kv_layer(pool: torch.Tensor, i: int) -> torch.Tensor:
-    """Per-layer slice of a stacked (L, ...) pool: a view, so writes land in
-    the pool and no write-back (the reference's ``kv_set_layer``) is needed."""
+def kv_pool_is_quantized(pool: KVPool) -> bool:
+    """True when ``pool`` is the int8 ``(codes, scales)`` pair."""
+    return isinstance(pool, tuple)
+
+
+def kv_pool_shape(pool: KVPool) -> Tuple[int, ...]:
+    """(..., bs, KVH, D) of a pool, plain tensor or ``(codes, scales)``."""
+    return tuple((pool[0] if isinstance(pool, tuple) else pool).shape)
+
+
+def make_kv_pool(shape: Sequence[int], dtype: torch.dtype, device, kv_quant_bits: int = 0) -> KVPool:
+    """Zeroed KV page pool of ``shape`` = (..., bs, KVH, D): a plain tensor,
+    or at ``kv_quant_bits=8`` the ``(int8 codes, fp32 scales)`` pair with
+    per-slot-per-head scale planes ``shape[:-1]``."""
+    shape = tuple(shape)
+    if kv_quant_bits == 8:
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    if kv_quant_bits:
+        raise ValueError(f"kv_quant_bits must be 0 or 8, got {kv_quant_bits}")
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(slot, kv-head) int8: (..., KVH, D) -> codes of the same
+    shape + fp32 scales (..., KVH). All-zero rows keep scale 1.0, so they
+    dequantise exactly too."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scales = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    codes = torch.clamp(torch.round(xf / scales[..., None]), -128, 127).to(torch.int8)
+    return codes, scales
+
+
+def dequantize_kv(pool: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """fp32 view of an int8 ``(codes, scales)`` pool (oracle and debug path)."""
+    codes, scales = pool
+    return codes.float() * scales[..., None]
+
+
+def kv_layer(pool: KVPool, i: int) -> KVPool:
+    """Per-layer slice of a stacked (L, ...) pool, plain or quantised: views,
+    so writes land in the pool and no write-back (the reference's
+    ``kv_set_layer``) is needed."""
+    if isinstance(pool, tuple):
+        return tuple(p[i] for p in pool)
     return pool[i]
 
 
-def update_kv_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+def update_kv_pages(k_pages: KVPool, v_pages: KVPool, k_new: torch.Tensor, v_new: torch.Tensor,
                     slot_mapping: torch.Tensor):
     """Scatter new KV entries into the page pools, in place (the reference
     scatters functionally into donated buffers).
 
-    k_pages/v_pages: (N, bs, KVH, D); k_new/v_new: (T, KVH, D);
-    slot_mapping: (T,) flat slot = block_id * bs + offset. Returns the pools.
+    k_pages/v_pages: (N, bs, KVH, D), or the ``(codes, scales)`` pair, in
+    which case the new entries are quantised on append and their codes and
+    scales are both written; k_new/v_new: (T, KVH, D); slot_mapping: (T,)
+    flat slot = block_id * bs + offset. Returns the pools.
     """
-    n, bs, kvh, d = k_pages.shape
     idx = slot_mapping.to(torch.long)
-    k_pages.view(n * bs, kvh, d).index_copy_(0, idx, k_new.to(k_pages.dtype))
-    v_pages.view(n * bs, kvh, d).index_copy_(0, idx, v_new.to(v_pages.dtype))
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        if isinstance(pages, tuple):
+            codes, scales = pages
+            n, bs, kvh, d = codes.shape
+            new_q, new_s = quantize_kv(new)
+            codes.view(n * bs, kvh, d).index_copy_(0, idx, new_q)
+            scales.view(n * bs, kvh).index_copy_(0, idx, new_s)
+        else:
+            n, bs, kvh, d = pages.shape
+            pages.view(n * bs, kvh, d).index_copy_(0, idx, new.to(pages.dtype))
     return k_pages, v_pages
 
 
@@ -64,14 +121,20 @@ def update_kv_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, k_new: torch.T
 def _gather_attention(q, k_pages, v_pages, block_tables, ctx_lens, q_positions, scale, alibi_slopes, window,
                       zero_empty_rows: bool):
     B, S, H, D = q.shape
-    _, bs, KVH, _ = k_pages.shape
+    _, bs, KVH, _ = kv_pool_shape(k_pages)
     P = block_tables.shape[1]
     G = H // KVH
     scale = scale if scale is not None else D**-0.5
     bt = block_tables.long()
     L = P * bs
-    k = k_pages[bt].reshape(B, L, KVH, D).float()
-    v = v_pages[bt].reshape(B, L, KVH, D).float()
+
+    def gather(pages):
+        if isinstance(pages, tuple):  # codes and scale planes of the live pages only, then dequantise
+            codes, scales = pages
+            return codes[bt].reshape(B, L, KVH, D).float() * scales[bt].reshape(B, L, KVH)[..., None]
+        return pages[bt].reshape(B, L, KVH, D).float()
+
+    k, v = gather(k_pages), gather(v_pages)
     qf = q.float().reshape(B, S, KVH, G, D) * scale
     s = torch.einsum("bskgd,blkd->bskgl", qf, k)
     key_pos = torch.arange(L, dtype=torch.int32, device=q.device)[None, None, None, None, :]
@@ -90,7 +153,7 @@ def _gather_attention(q, k_pages, v_pages, block_tables, ctx_lens, q_positions, 
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
-def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor, block_tables: torch.Tensor,
+def paged_attention_ref(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool, block_tables: torch.Tensor,
                         ctx_lens: torch.Tensor, q_positions: torch.Tensor, scale: Optional[float] = None,
                         alibi_slopes=None, window: Optional[int] = None) -> torch.Tensor:
     """Causal attention of q against paged context (the reference's gather path).
@@ -107,7 +170,7 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.T
 # ------------------------------------------------------------------
 # kernel A: decode
 # ------------------------------------------------------------------
-def paged_attention_decode_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+def paged_attention_decode_ref(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
                                block_tables: torch.Tensor, ctx_lens: torch.Tensor, scale: Optional[float] = None,
                                alibi_slopes=None, window: Optional[int] = None) -> torch.Tensor:
     """Plain version of the decode kernel: q (B, H, D) at position ctx - 1
@@ -117,29 +180,49 @@ def paged_attention_decode_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
 
 
 def _check_pools(name, q, k_pages, v_pages, block_tables, ctx_lens, B):
-    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"{name}: pools must both be (N, bs, KVH, D), got {tuple(k_pages.shape)} and "
-                         f"{tuple(v_pages.shape)}")
-    for t, what in ((k_pages, "k_pages"), (v_pages, "v_pages"), (block_tables, "block_tables"),
-                    (ctx_lens, "ctx_lens")):
+    """Validate the operands of a kernel launch; returns (k, v, k_scales, v_scales)
+    with the scale planes None for unquantised pools."""
+    if kv_pool_is_quantized(k_pages) != kv_pool_is_quantized(v_pages):
+        raise ValueError(f"{name}: one pool is int8 (codes, scales) and the other is not")
+    quantized = kv_pool_is_quantized(k_pages)
+    (k, ks), (v, vs) = (k_pages, v_pages) if quantized else ((k_pages, None), (v_pages, None))
+    if k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: pools must both be (N, bs, KVH, D), got {tuple(k.shape)} and {tuple(v.shape)}")
+    named = [(k, "k_pages"), (v, "v_pages"), (block_tables, "block_tables"), (ctx_lens, "ctx_lens")]
+    if quantized:
+        named += [(ks, "k scales"), (vs, "v scales")]
+    for t, what in named:
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name}: {what} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError(f"{name}: pools are {k_pages.dtype}/{v_pages.dtype}, q is {q.dtype}")
+    if quantized:
+        if k.dtype != torch.int8 or v.dtype != torch.int8 or ks.dtype != torch.float32 or vs.dtype != torch.float32:
+            raise ValueError(f"{name}: an int8 pool is (int8 codes, float32 scales), got {k.dtype}/{ks.dtype} and "
+                             f"{v.dtype}/{vs.dtype}")
+        if ks.shape != k.shape[:-1] or vs.shape != v.shape[:-1]:
+            raise ValueError(f"{name}: scale planes {tuple(ks.shape)}/{tuple(vs.shape)} do not fit codes "
+                             f"{tuple(k.shape)}")
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: pools are {k.dtype}/{v.dtype}, q is {q.dtype}")
     if block_tables.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
         raise ValueError(f"{name}: block_tables and ctx_lens must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(ctx_lens.shape) != (B,):
         raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)} / ctx_lens {tuple(ctx_lens.shape)} "
                          f"do not match {B} rows")
+    return k, v, ks, vs
 
 
-def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def paged_attention_decode(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
                            block_tables: torch.Tensor, ctx_lens: torch.Tensor, scale: Optional[float] = None,
                            alibi_slopes=None, window: Optional[int] = None) -> torch.Tensor:
-    """One-token-per-row paged attention. q: (B, H, D); pools (N, bs, KVH, D);
-    block_tables (B, P) int32; ctx_lens (B,) int32. Returns (B, H, D).
+    """One-token-per-row paged attention. q: (B, H, D); pools (N, bs, KVH, D)
+    of q's dtype, or int8 ``(codes, scales)`` pairs; block_tables (B, P)
+    int32; ctx_lens (B,) int32. Returns (B, H, D).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     (float32 or bfloat16, D in {64, 128}, H / KVH <= 8) or raises; ALiBi and
@@ -151,14 +234,14 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if q.dim() != 3 or not q.is_contiguous():
         raise ValueError(f"paged_attention_decode: q must be contiguous (B, H, D), got {tuple(q.shape)}")
     B, H, D = q.shape
-    _check_pools("paged_attention_decode", q, k_pages, v_pages, block_tables, ctx_lens, B)
-    _, bs, KVH, Dk = k_pages.shape
+    k, v, ks, vs = _check_pools("paged_attention_decode", q, k_pages, v_pages, block_tables, ctx_lens, B)
+    _, bs, KVH, Dk = k.shape
     if Dk != D or H % KVH:
-        raise ValueError(f"paged_attention_decode: q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+        raise ValueError(f"paged_attention_decode: q {tuple(q.shape)} does not fit pools {tuple(k.shape)}")
     scale = scale if scale is not None else D**-0.5
     out = torch.empty_like(q)
     rc = _build.lib().ds_paged_attention_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), block_tables.data_ptr(), ctx_lens.data_ptr(),
         out.data_ptr(), B, H, KVH, D, bs, block_tables.shape[1], float(scale), _build.dtype_code(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_attention_decode")
@@ -172,7 +255,7 @@ paged_attention_decode.launches = 0  # kernel launches since the last reset (CPU
 # ------------------------------------------------------------------
 # kernel B: chunked prefill
 # ------------------------------------------------------------------
-def paged_attention_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+def paged_attention_prefill_ref(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
                                 block_tables: torch.Tensor, ctx_lens: torch.Tensor, q_positions: torch.Tensor,
                                 scale: Optional[float] = None, alibi_slopes=None,
                                 window: Optional[int] = None) -> torch.Tensor:
@@ -182,7 +265,7 @@ def paged_attention_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages:
                              zero_empty_rows=True)
 
 
-def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+def paged_attention_prefill(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
                             block_tables: torch.Tensor, ctx_lens: torch.Tensor, q_positions: torch.Tensor,
                             scale: Optional[float] = None, alibi_slopes=None,
                             window: Optional[int] = None) -> torch.Tensor:
@@ -190,7 +273,8 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
 
     q: (B, S, H, D); q_positions: (B, S) absolute and consecutive per row
     (the kernel reads row 0's position); ctx_lens (B,) counts the new
-    tokens too. Returns (B, S, H, D). Any S: the kernel tiles the queries,
+    tokens too; the pools are of q's dtype or int8 ``(codes, scales)``
+    pairs. Returns (B, S, H, D). Any S: the kernel tiles the queries,
     so there is no size limit and no gather fallback on the card. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
     (float32 or bfloat16, D in {64, 128}) or raises."""
@@ -202,18 +286,18 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     if q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"paged_attention_prefill: q must be contiguous (B, S, H, D), got {tuple(q.shape)}")
     B, S, H, D = q.shape
-    _check_pools("paged_attention_prefill", q, k_pages, v_pages, block_tables, ctx_lens, B)
+    k, v, ks, vs = _check_pools("paged_attention_prefill", q, k_pages, v_pages, block_tables, ctx_lens, B)
     if tuple(q_positions.shape) != (B, S) or not q_positions.is_cuda:
         raise ValueError(f"paged_attention_prefill: q_positions {tuple(q_positions.shape)} on "
                          f"{q_positions.device} does not fit q {tuple(q.shape)}")
-    _, bs, KVH, Dk = k_pages.shape
+    _, bs, KVH, Dk = k.shape
     if Dk != D or H % KVH:
-        raise ValueError(f"paged_attention_prefill: q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+        raise ValueError(f"paged_attention_prefill: q {tuple(q.shape)} does not fit pools {tuple(k.shape)}")
     scale = scale if scale is not None else D**-0.5
     qpos0 = q_positions[:, 0].to(torch.int32).contiguous()
     out = torch.empty_like(q)
     rc = _build.lib().ds_paged_attention_prefill(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), block_tables.data_ptr(), ctx_lens.data_ptr(),
         qpos0.data_ptr(), out.data_ptr(), B, S, H, KVH, D, bs, block_tables.shape[1], float(scale),
         _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_attention_prefill")
@@ -227,7 +311,7 @@ paged_attention_prefill.launches = 0  # kernel launches since the last reset (CP
 # ------------------------------------------------------------------
 # mixed decode + prefill dispatch (SplitFuse fused step)
 # ------------------------------------------------------------------
-def paged_attention_mixed(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+def paged_attention_mixed(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
                           block_tables: torch.Tensor, ctx_lens: torch.Tensor, q_positions: torch.Tensor, *,
                           n_dec: int, chunk: int, scale: Optional[float] = None, alibi_slopes=None,
                           window: Optional[int] = None, decode_fn: Optional[Callable] = None,
@@ -237,6 +321,7 @@ def paged_attention_mixed(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     q: (T, H, D) flat query tokens: rows [0, n_dec) are single-token decode
     rows, the remainder is the (n_pre, chunk) prefill segment, row-major.
     block_tables/ctx_lens are per ROW (decode rows first); q_positions: (T,).
+    The pools pass through unchanged, plain or int8 ``(codes, scales)``.
     One decode launch covers everything when either segment is empty or
     when ``chunk == 1`` (a one-token chunk queries at ctx - 1, which is the
     decode contract); otherwise the decode and prefill functions run back

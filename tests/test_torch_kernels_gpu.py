@@ -11,8 +11,9 @@ max |got - want| / max |want| over each row's last dim (both sides compute
 in fp32 from the same bf16 inputs and round the output to bf16, where one
 rounding step is at most 2**-7 = 7.8e-3 of a value); the flash gradients
 floor each row's scale at the tensor's mean magnitude. fused Adam: 1e-6 of
-the largest value of each updated tensor; fp32 flash outputs on max abs
-error over max(1, max |want|).
+the largest value of each updated tensor; fp32 flash outputs and the fp32
+quantised matmul on max abs error over max(1, max |want|) (sums of thousands
+of products in another order than the plain version's).
 """
 
 import pytest
@@ -61,6 +62,82 @@ def test_rms_norm_kernel(cuda, dtype, shape, wdtype):
     assert err <= TOL[dtype], err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,wdtype", [((3, 2048), None), ((1, 7, 2048), torch.float32), ((5, 128), None),
+                                          ((2, 100), None), ((2, 4096), torch.bfloat16)])
+def test_layer_norm_kernel(cuda, dtype, shape, wdtype):
+    g = _gen(cuda)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2.0 + 3.0).to(dtype)
+    w = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype or dtype)
+    b = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype or dtype)
+    n0 = norms.layer_norm.launches
+    got = norms.layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    assert norms.layer_norm.launches == n0 + 1
+    err = _err(got, norms.layer_norm_ref(x, w, b))
+    assert err <= TOL[dtype], err
+
+
+def test_norm_gradients_on_the_card(cuda):
+    """The autograd functions' plain backward runs on CUDA tensors behind the forward kernels."""
+    g = _gen(cuda)
+    x = torch.randn((4, 6, 256), generator=g, device=cuda)
+    w, b, do = (torch.randn(s, generator=g, device=cuda) for s in ((256,), (256,), (4, 6, 256)))
+    for fn, ref, params in ((norms.layer_norm, norms.layer_norm_ref, (w, b)),
+                            (norms.rms_norm, norms.rms_norm_ref, (w,))):
+        grads = []
+        for f in (fn, ref):
+            leaves = [t.clone().requires_grad_(True) for t in (x, *params)]
+            (f(*leaves) * do).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+# (M, K, N, group_size, bits/pack): aligned shapes (the 16-byte-load path) and odd ones (element-wise staging)
+QMM_CASES = [(1, 2048, 2048, 128, 8), (64, 2048, 8192, 128, 8), (200, 8192, 2048, 128, 8), (5, 64, 128, 128, 8),
+             (8, 4096, 1024, 128, 4), (70, 14336, 4096, 128, 4), (3, 64, 64, 64, 4), (9, 192, 48, 128, 4),
+             (4, 75, 20, 128, 4), (130, 100, 37, 128, 8), (2, 16 * 70, 48, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,group,bits", QMM_CASES)
+def test_quantized_matmul_kernel(cuda, dtype, M, K, N, group, bits):
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    g = _gen(cuda, M + K)
+    w = torch.randn((K, N), generator=g, device=cuda) * 0.05
+    w[: K // 2, 0] = 0.0  # an all-zero group
+    q, scales = qm.quantize_weight_kgroups(w, group_size=group, bits=bits, pack=bits == 4)
+    packed = q.shape[0] != K
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    n0 = qm.quantized_matmul.launches
+    got = qm.quantized_matmul(x, q, scales, packed=packed)
+    torch.cuda.synchronize()
+    assert qm.quantized_matmul.launches == n0 + 1
+    want = qm.quantized_matmul_ref(x, q, scales, packed=packed)
+    err = _err(got, want)
+    if dtype == torch.float32:
+        err /= max(1.0, want.abs().max().item())
+    assert err <= TOL[dtype], err
+
+
+def test_quantized_matmul_raises_on_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    w = torch.randn((64, 32), device=cuda)
+    q, scales = qm.quantize_weight_kgroups(w, group_size=64)
+    x = torch.randn((2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        qm.quantized_matmul(x[:, :32], q, scales)
+    with pytest.raises(ValueError):
+        qm.quantized_matmul(x, q.float(), scales)
+    with pytest.raises(ValueError):
+        qm.quantized_matmul(x, q.cpu(), scales)
+    with pytest.raises(NotImplementedError):
+        qm.quantized_matmul(x.half(), q, scales)
+
+
 def _paged(dev, dtype, ctx, H=32, KVH=8, D=128, bs=128, P=64, seed=0):
     g = _gen(dev, seed)
     pages = [max(1, -(-c // bs)) for c in ctx]
@@ -105,6 +182,64 @@ def test_prefill_kernel(cuda, dtype, S):
     assert err <= TOL[dtype], err
 
 
+def _int8_pools(kp, vp):
+    """The same pages as int8 (codes, scales) pools; the first block stays never written (scale 0)."""
+    pools = []
+    for p in (kp, vp):
+        codes, scales = pa.quantize_kv(p)
+        codes[0], scales[0] = 0, 0.0
+        pools.append((codes, scales))
+    return pools
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(32, 8, 128), (32, 32, 64), (8, 8, 128), (12, 3, 64)])
+def test_decode_kernel_int8_pool(cuda, dtype, heads):
+    H, KVH, D = heads
+    ctx = [1, 127, 128, 129, 1000, 0, 1]
+    kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, H=H, KVH=KVH, D=D)
+    bt[-1] = 0  # a padded row reading the never-written garbage page
+    k8, v8 = _int8_pools(kp, vp)
+    q = torch.randn((len(ctx), H, D), generator=g, device=cuda).to(dtype)
+    n0 = pa.paged_attention_decode.launches
+    got = pa.paged_attention_decode(q, k8, v8, bt, cl)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == n0 + 1
+    want = pa.paged_attention_decode_ref(q, k8, v8, bt, cl)
+    assert torch.all(got[5] == 0) and torch.all(got[6] == 0) and torch.isfinite(got).all()
+    err = _err(got, want)
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(32, 8, 128), (32, 32, 64)])
+@pytest.mark.parametrize("S", [16, 100, 512])
+def test_prefill_kernel_int8_pool(cuda, dtype, heads, S):
+    H, KVH, D = heads
+    q0 = torch.tensor([0, 700], dtype=torch.int32)
+    ctx = (q0 + S).tolist()
+    kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, H=H, KVH=KVH, D=D)
+    k8, v8 = _int8_pools(kp, vp)
+    q = torch.randn((2, S, H, D), generator=g, device=cuda).to(dtype)
+    pos = (q0[:, None] + torch.arange(S, dtype=torch.int32)[None]).to(cuda)
+    got = pa.paged_attention_prefill(q, k8, v8, bt, cl, pos)
+    torch.cuda.synchronize()
+    err = _err(got, pa.paged_attention_prefill_ref(q, k8, v8, bt, cl, pos))
+    assert err <= TOL[dtype], err
+
+
+def test_int8_pool_wrappers_raise_on_a_bad_pool(cuda):
+    kp, vp, bt, cl, g = _paged(cuda, torch.bfloat16, [5])
+    k8, v8 = _int8_pools(kp, vp)
+    q = torch.randn((1, 32, 128), generator=g, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # one pool quantised, the other not
+        pa.paged_attention_decode(q, k8, vp, bt, cl)
+    with pytest.raises(ValueError):  # scale plane of the wrong shape
+        pa.paged_attention_decode(q, (k8[0], k8[1][..., :4].contiguous()), v8, bt, cl)
+    with pytest.raises(ValueError):  # scales must be fp32
+        pa.paged_attention_decode(q, (k8[0], k8[1].to(torch.bfloat16)), v8, bt, cl)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     kp, vp, bt, cl, g = _paged(cuda, torch.bfloat16, [5])
     q = torch.randn((1, 32, 128), generator=g, device=cuda).to(torch.bfloat16)
@@ -137,6 +272,33 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         return engine.generate(prompts, max_new_tokens=12)
 
     counters = (norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill)
+    before = [fn.launches for fn in counters]
+    assert serve("cuda") == serve("cpu")
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+
+
+@pytest.mark.parametrize("quant_bits,kv_quant_bits", [(8, 8), (4, 0)])
+def test_quantised_engine_on_the_card_matches_the_cpu(cuda, quant_bits, kv_quant_bits):
+    """A LayerNorm model served with quantised weights (and int8 KV pages) in
+    fp32, head dim 64: the card's greedy tokens (kernels) equal the CPU
+    engine's (plain versions), and every kernel of the path launched."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=256, max_seq_len=512)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[3, 17, 42], list(range(40)), [100, 2] * 30, [9] * 11]
+
+    def serve(device):
+        smc = RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=64)
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=smc, dtype="float32", device=device, decode_burst=8, quant_bits=quant_bits,
+            quant_min_size=256, kv_quant_bits=kv_quant_bits))
+        engine.scheduler.prefill_chunk = 32  # mixed quanta: chunked prefill rows beside decode rows
+        return engine.generate(prompts, max_new_tokens=12)
+
+    counters = (norms.layer_norm, qm.quantized_matmul, pa.paged_attention_decode, pa.paged_attention_prefill)
     before = [fn.launches for fn in counters]
     assert serve("cuda") == serve("cpu")
     assert all(fn.launches > n for fn, n in zip(counters, before))
