@@ -6,7 +6,7 @@
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
-2. build: nvcc builds every CUDA kernel of the serving and training paths from csrc/;
+2. build: nvcc builds every CUDA kernel of the serving, training and evoformer paths from csrc/;
 3. kernels: each kernel's wrapper at the llama3_8b shapes of the fused serving
    path, in bf16 and fp32, against its plain PyTorch version (errors,
    tolerance, kernel/plain/library times from CUDA events, and the bound:
@@ -50,6 +50,19 @@ Phases, each fatal on failure:
    time, MFU and peak memory over steps 3-12, with the launch counters
    zeroed before those steps and read after (A, B, C: 24 per step; D: one
    per leaf). ``--profile`` adds a torch.profiler breakdown of one step.
+9. evoformer kernels (run after phase 6): the flash kernels' additive-bias
+   bodies (forward with a bias, dq writing dbias per program, the collapsed
+   dq summing dbias over the programs that share a bias slice, dk/dv with a
+   bias) at AlphaFold2's widths (``EVO_SHAPES``: MSA row and column
+   attention, 8 heads of 32; triangle attention, 4 heads of 32; crops of
+   256 x 128 and 384 x 512) in bf16 and fp32 against their plain versions,
+   a collapsed dbias repeating bit for bit, with bounds and SDPA (float
+   ``attn_mask``) as the yardstick;
+10. evoformer: ``DS4Sci_EvoformerAttention`` forward and backward at those
+   shapes, the counters zeroed before each call and read after (forward,
+   dk/dv and the dq of each layout must launch), output and the gradients
+   of q, k, v and every bias against the same call on the plain versions,
+   ms per forward + backward and peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -579,6 +592,174 @@ def run_train_kernel_phases(torch, dev, quick: bool):
     return records
 
 
+# ---------------------------------------------------------------- evoformer (DS4Sci_EvoformerAttention)
+# AlphaFold2's attention widths (Jumper et al., Nature 2021, Supplementary Information): MSA row attention
+# with pair bias (Algorithm 7) and MSA column attention (Algorithm 8), 8 heads of 32; triangle attention
+# around the starting node (Algorithm 13), 4 heads of 32; a crop of 256 residues and 128 MSA clusters
+# (initial training, Table 4) and of 384 residues and 512 clusters (fine-tuning). q is (1, rows, S, H, D).
+EVO_SHAPES = {
+    # mask + pair: the summed bias keeps every (row, head): nothing collapses
+    "msa_row": dict(q=(1, 128, 256, 8, 32), biases=[(1, 128, 1, 1, 256), (1, 1, 8, 256, 256)]),
+    # the pair bias alone: 128 MSA rows share each head's slice (the collapsed dq, Sqb = Sq)
+    "msa_row_pair": dict(q=(1, 128, 256, 8, 32), biases=[(1, 1, 8, 256, 256)]),
+    # the mask alone: one bias row per column, shared by the 8 heads and every query row (Sqb = 1)
+    "msa_col": dict(q=(1, 256, 128, 8, 32), biases=[(1, 256, 1, 1, 128)]),
+    "tri_start": dict(q=(1, 256, 256, 4, 32), biases=[(1, 256, 1, 1, 256), (1, 1, 4, 256, 256)]),
+    "msa_row_finetune": dict(q=(1, 512, 384, 8, 32), biases=[(1, 512, 1, 1, 384), (1, 1, 8, 384, 384)],
+                             dtypes=("torch.bfloat16",)),
+}
+
+
+def evo_inputs(torch, dev, dtype, name):
+    """q, k, v, dO of EVO_SHAPES[name] and its biases, from a seeded generator:
+    a mask bias of 0 or -1e9 (a tenth of the keys masked, key 0 never) and a
+    pair bias of N(0, 1)."""
+    c = EVO_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(sum(c["q"]))
+    q, k, v, do = (torch.randn(c["q"], generator=g, device=dev).to(dtype) for _ in range(4))
+    biases = []
+    for shape in c["biases"]:
+        if shape[2:4] == (1, 1):
+            mask = torch.where(torch.rand(shape, generator=g, device=dev) < 0.1, -1e9, 0.0)
+            mask[..., 0] = 0.0
+            biases.append(mask.to(dtype))
+        else:
+            biases.append(torch.randn(shape, generator=g, device=dev).to(dtype))
+    return q, k, v, do, biases
+
+
+def evo_err(torch, got, want):
+    """As phase_flash: bf16 per-row relative error, each row's scale at least the
+    tensor's mean magnitude; fp32 abs error over max(1, max |want|)."""
+    e = errors(got, want, want.float().abs().mean().item())
+    e["max_abs_err_scaled"] = e["max_abs_err"] / max(1.0, want.float().abs().max().item())
+    return e
+
+
+def sdpa_yardstick(torch, q, k, v, mask, do, scale, iters):
+    """SDPA over (B, H, S, D) with the summed bias as a float ``attn_mask``,
+    forward and backward (dq, dk, dv and, where the backend gives one, dmask):
+    the first backend of memory-efficient, cuDNN, math that takes it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v, mask)]
+                out = sdpa(*leaves[:3], attn_mask=leaves[3], scale=scale)
+                grads = torch.autograd.grad(out, leaves, do, retain_graph=True, allow_unused=True)
+                fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), iters)
+                bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True, allow_unused=True),
+                              max(3, iters // 2))
+            return dict(backend=backend.name, mask_grad=grads[3] is not None, fwd_ms=fwd, bwd_ms=bwd)
+        except RuntimeError as exc:
+            last = str(exc).splitlines()[0][:200]
+    return dict(backend=None, error=last, fwd_ms=None, bwd_ms=None)
+
+
+def phase_evo_kernels(torch, dev, dtype, name, iters):
+    """Each bias kernel body at one AlphaFold2 shape against its plain version:
+    forward, the dq its layout selects (dbias per program, or summed over the
+    sharing programs, whose result must repeat bit for bit) and dk/dv."""
+    from deepspeed_tpu_torch.ops import evoformer as evo, flash_attention as fa
+
+    q5, k5, v5, do5, biases = evo_inputs(torch, dev, dtype, name)
+    lead, (Sq, H, D) = q5.shape[:-3], q5.shape[-3:]
+    B = q5.numel() // (Sq * H * D)
+    q, k, v, do = (t.reshape(B, Sq, H, D) for t in (q5, k5, v5, do5))
+    bias, meta = fa.flat_bias(*evo.fold_biases(biases, lead), B, H, Sq, Sq)
+    del biases
+    scale = D**-0.5
+    args = (None, scale, False, 0, bias, meta)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, do, lse_ref, fa.flash_delta(o_ref, do), *args)
+    collapsed = fa.bias_is_collapsed(meta, B, H)
+    if collapsed:
+        dq_fn, dq_ref_fn = (lambda: fa.flash_bwd_dq_collapsed(*bwd)), (lambda: fa.flash_bwd_dq_collapsed_ref(*bwd))
+        dq, dbias = dq_fn()
+        dbias_again = dq_fn()[1]
+        torch.cuda.synchronize()
+        repeats = torch.equal(dbias, dbias_again)
+        del dbias_again
+        dq_ref, dbias_ref = dq_ref_fn()
+    else:
+        dbias, dbias_ref = torch.empty_like(bias), torch.empty_like(bias)
+        dq_fn = lambda: fa.flash_bwd_dq(*bwd, dbias)
+        dq_ref_fn = lambda: fa.flash_bwd_dq_ref(*bwd, torch.empty_like(bias))
+        dq = dq_fn()
+        torch.cuda.synchronize()
+        repeats = None
+        dq_ref = fa.flash_bwd_dq_ref(*bwd, dbias_ref)
+    dk, dv = fa.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bwd)
+    e_fwd = evo_err(torch, o, o_ref)
+    e_fwd["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+    e_dq = evo_err(torch, dq, dq_ref)
+    e_db = evo_err(torch, dbias, dbias_ref)
+    e_dk, e_dv = evo_err(torch, dk, dk_ref), evo_err(torch, dv, dv_ref)
+    e_dkv = {key: max(e_dk[key], e_dv[key]) for key in e_dk}
+    del o_ref, dq_ref, dk_ref, dv_ref, dbias_ref
+    tol = ("max_abs_err_scaled", 1e-5) if dtype == torch.float32 else TOL[str(dtype)]
+    item = q.element_size()
+    nq, nk, nb = q.numel() * item, k.numel() * item, bias.numel() * 4
+    stats = B * H * Sq * 4
+    pairs = B * H * Sq * Sq
+    few = max(2, iters // 10)
+    # the library yardstick: SDPA with the expanded bias as a float mask in q's type
+    mask = fa.expand_bias(bias, meta, B, H, Sq).to(dtype)
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v, do))
+    lib = sdpa_yardstick(torch, qh, kh, vh, mask, doh, scale, iters)
+    del mask, qh, kh, vh, doh
+    shape = (f"q{tuple(q5.shape)} biases {[tuple(s) for s in EVO_SHAPES[name]['biases']]} -> flat bias "
+             f"{tuple(bias.shape)} meta {meta}")
+    dq_name = "flash_bwd_dq_collapsed" if collapsed else "flash_bwd_dq (bias)"
+    recs = []
+    for kernel, e, fn, ref, n_prod, nbytes in (
+            ("flash_fwd (bias)", e_fwd, lambda: fa.flash_fwd(q, k, v, *args), lambda: fa.flash_fwd_ref(q, k, v, *args),
+             2, 2 * nq + 2 * nk + stats + nb),
+            (dq_name, dict(e_dq, **{"dbias_" + key: val for key, val in e_db.items()}), dq_fn, dq_ref_fn, 3,
+             3 * nq + 2 * nk + 2 * stats + 2 * nb),
+            ("flash_bwd_dkv (bias)", e_dkv, lambda: fa.flash_bwd_dkv(*bwd), lambda: fa.flash_bwd_dkv_ref(*bwd), 4,
+             2 * nq + 4 * nk + 2 * stats + nb)):
+        flops = 2 * n_prod * D * pairs
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        rec = dict(kernel=kernel, case=name, dtype=str(dtype), shape=shape, **e, tol=tol, kernel_ms=time_ms(fn, iters),
+                   plain_ms=time_ms(ref, few), library_ms=lib["fwd_ms"] if kernel.startswith("flash_fwd") else
+                   lib["bwd_ms"], library=f"SDPA {'forward' if kernel.startswith('flash_fwd') else 'backward'}, "
+                   f"float attn_mask, backend {lib['backend']}, mask gradient {lib.get('mask_grad')}",
+                   bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
+        if kernel == dq_name and collapsed:
+            rec["dbias_repeats_bitwise"] = repeats
+        recs.append(rec)
+        torch.cuda.empty_cache()
+    return recs
+
+
+def run_evo_kernel_phases(torch, dev, quick: bool):
+    records = []
+    iters = 5 if quick else 20
+    names = ["msa_row"] if quick else list(EVO_SHAPES)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in names:
+            if str(dtype) not in EVO_SHAPES[name].get("dtypes", (str(dtype),)):
+                continue
+            for rec in phase_evo_kernels(torch, dev, dtype, name, iters):
+                log(rec)
+                what, tol = rec["tol"]
+                dbias_ok = "dbias_" + what not in rec or rec["dbias_" + what] <= tol
+                if not (rec[what] <= tol and dbias_ok and rec.get("lse_max_abs_err", 0.0) <= 1e-4
+                        and rec.get("dbias_repeats_bitwise", True)):
+                    raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} "
+                                         f"(dbias {rec.get('dbias_' + what)}) > {tol}, lse error "
+                                         f"{rec.get('lse_max_abs_err')} or dbias not repeatable")
+                records.append(rec)
+            torch.cuda.empty_cache()
+    return records
+
+
 # ---------------------------------------------------------------- step parity
 def quantum_inputs(np, rows, n_dec, chunk, bs, P):
     """Flat fused-step operands for rows of (tokens, start, blocks); decode rows
@@ -885,10 +1066,10 @@ def train_batch_data(np, vocab: int, seed: int = 0) -> dict:
 
 
 class PlainKernels:
-    """Bind the plain versions of kernels A, B and C in place of their wrappers
+    """Bind the plain versions of the flash kernels in place of their wrappers
     on the card, for a parity run (the autograd function calls them by name)."""
 
-    NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dq_collapsed", "flash_bwd_dkv")
 
     def __enter__(self):
         from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -1073,6 +1254,82 @@ def phase_train(torch, dev, counters, profile=False):
     return rec
 
 
+# kernel path vs plain path, forward and backward end to end. bf16: per-row relative error with each
+# row's scale at least the tensor's mean magnitude, at about twice the worst measured on an H100 (dq
+# 3.9e-2 at msa_row_pair; every other output and gradient at most 2.3e-2): each path's own bf16 o
+# enters delta = rowsum(o * dO), so the two backward passes start from deltas one bf16 rounding apart,
+# on top of the kernels' own 1e-2. fp32 (measured at most 8e-7): abs error over max(1, max |want|),
+# as the kernel checks.
+EVO_PATH_TOL = {"torch.bfloat16": ("max_rel_err", 0.08), "torch.float32": ("max_abs_err_scaled", 1e-5)}
+
+
+def phase_evoformer(torch, dev, counters):
+    """``DS4Sci_EvoformerAttention(q, k, v, biases)`` forward and backward
+    through autograd (gradients of q, k, v and every bias) at the AlphaFold2
+    shapes, bf16 and fp32 (the fine-tuning crop bf16): the counters are zeroed
+    just before each call and read just after; each route must launch the
+    forward, dk/dv and the dq its layout selects. The same call with the plain
+    versions bound in place gives the output and gradients to compare with;
+    ms per forward + backward and peak memory for both."""
+    from deepspeed_tpu_torch.ops import evoformer as evo, flash_attention as fa
+
+    def step(q, k, v, do, biases):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, *biases)]
+        out = evo.DS4Sci_EvoformerAttention(*leaves[:3], leaves[3:])
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    recs, total = [], {fn.__name__: 0 for fn in counters}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, c in EVO_SHAPES.items():
+            if str(dtype) not in c.get("dtypes", (str(dtype),)):
+                continue
+            q, k, v, do, biases = evo_inputs(torch, dev, dtype, name)
+            for fn in counters:
+                fn.launches = 0
+            got = step(q, k, v, do, biases)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+            with PlainKernels():
+                want = step(q, k, v, do, biases)
+                torch.cuda.synchronize()
+                plain_launches = sum(fn.launches for fn in counters) - sum(launches.values())
+                torch.cuda.reset_peak_memory_stats()
+                step(q, k, v, do, biases)
+                plain_peak = torch.cuda.max_memory_allocated() / 2**30
+                plain_ms = time_ms(lambda: step(q, k, v, do, biases), 3, warmup=1)
+            labels = ["out", "dq", "dk", "dv"] + [f"dbias{i}{tuple(b.shape)}" for i, b in enumerate(biases)]
+            errs = {lab: evo_err(torch, a, b) for lab, a, b in zip(labels, got, want)}
+            finite = all(torch.isfinite(t).all().item() for t in got)
+            del got, want
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step(q, k, v, do, biases)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            kernel_ms = time_ms(lambda: step(q, k, v, do, biases), 10)
+            what, tol = EVO_PATH_TOL[str(dtype)]
+            B, (Sq, H, _) = q.numel() // q.shape[-3:].numel(), q.shape[-3:]
+            meta = fa.flat_bias(*evo.fold_biases(biases, q.shape[:-3]), B, H, Sq, Sq)[1]
+            collapsed = fa.bias_is_collapsed(meta, B, H)
+            need = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq_collapsed" if collapsed else "flash_bwd_dq"]
+            rec = dict(phase="evoformer", case=name, dtype=str(dtype), q=tuple(q.shape),
+                       biases=[tuple(b.shape) for b in biases], dq_route=need[2], launches=launches,
+                       plain_launches=plain_launches, errors={lab: e[what] for lab, e in errs.items()},
+                       max_abs_err={lab: e["max_abs_err"] for lab, e in errs.items()}, tol=(what, tol),
+                       ms_per_fwd_bwd=kernel_ms, plain_ms_per_fwd_bwd=plain_ms, peak_memory_gb=peak,
+                       plain_peak_memory_gb=plain_peak, finite=finite)
+            log(rec)
+            for key in total:
+                total[key] += launches[key]
+            if not (finite and all(e[what] <= tol for e in errs.values()) and all(launches[n] > 0 for n in need)
+                    and plain_launches == 0):
+                raise AssertionError(f"evoformer {name} {dtype}: {rec}")
+            recs.append(rec)
+            del q, k, v, do, biases
+            torch.cuda.empty_cache()
+    return dict(phase="evoformer", launches=total, records=recs)
+
+
 CSRC, PALLAS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/pallas/"
 # The kernels line: name, the run whose launches are read, the wrapper counted, the dtype and the
 # fields (matched by their start) of the record that represents the kernel, its source, the TPU kernel.
@@ -1107,6 +1364,16 @@ KERNEL_ROWS = [
      "flash_attention.cu", "flash_attention.py:518"),
     ("fused_adam", "train", "fused_adam", "float32", dict(kernel="fused_adam", case="all"), "fused_adam.cu",
      "fused_adam.py:51"),
+    ("flash_fwd (bias)", "evoformer", "flash_fwd", "bfloat16", dict(kernel="flash_fwd (bias)", case="msa_row"),
+     "flash_attention.cu", "flash_attention.py:185"),
+    ("flash_bwd_dq (bias)", "evoformer", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq (bias)",
+                                                                          case="msa_row"),
+     "flash_attention.cu", "flash_attention.py:417"),
+    ("flash_bwd_dq_collapsed", "evoformer", "flash_bwd_dq_collapsed", "bfloat16",
+     dict(kernel="flash_bwd_dq_collapsed", case="msa_row_pair"), "flash_attention.cu", "flash_attention.py:456"),
+    ("flash_bwd_dkv (bias)", "evoformer", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv (bias)",
+                                                                            case="msa_row"),
+     "flash_attention.cu", "flash_attention.py:485"),
 ]
 
 
@@ -1158,6 +1425,7 @@ def main(argv) -> int:
     records = run_kernel_phases(torch, dev, quick)
     quant_records = run_quant_kernel_phases(torch, dev, quick)
     records += run_train_kernel_phases(torch, dev, quick)
+    records += run_evo_kernel_phases(torch, dev, quick)
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
@@ -1173,8 +1441,11 @@ def main(argv) -> int:
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_parity(torch, dev, dtype, train_counters)
     train = phase_train(torch, dev, counters + train_counters, profile)
+    evoformer = phase_evoformer(torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dq_collapsed,
+                                             fa.flash_bwd_dkv])
 
-    runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4, "train": train}
+    runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4, "train": train,
+            "evoformer": evoformer}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"kernels": kernels})

@@ -22,8 +22,10 @@ from typing import Dict, List, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "deepspeed_tpu_torch")
+# --split-compile=0: each nvcc runs its optimisation passes on as many threads as there are cores
+# (flash_attention.cu alone holds 36 kernel instantiations)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", "--split-compile=0"]
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -36,9 +38,11 @@ SIGNATURES: Dict[str, List] = {
     "ds_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ds_paged_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "ds_paged_attention_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "ds_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_P, _P] + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "ds_flash_dq_collapsed_parts": [_I] * 7,
+    "ds_flash_bwd_dq_collapsed": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
+    "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P, _P] + [_I] * 6 + [_F, _I, _I, _I, _P],
     "ds_fused_adam": [_P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
 }
 

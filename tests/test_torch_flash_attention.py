@@ -5,7 +5,8 @@ on the card, with each kernel wrapper taking its plain version. The same
 numpy inputs go through the JAX ``flash_attention(..., interpret=True)`` (the
 Pallas kernels in interpret mode) and ``jax.grad`` through it.
 Tolerance: 2e-5 abs on outputs and gradients, in fp32 (the same fp32 math
-in another summation order; values are O(1)).
+in another summation order; values are O(1)); 1e-5 for an additive bias and
+its gradient.
 """
 
 import jax
@@ -113,3 +114,47 @@ def test_plain_attention_matches_attention_xla(kw):
     np.testing.assert_allclose(got, want, atol=TOL)
     np.testing.assert_allclose(attention_xla(*(torch.from_numpy(x) for x in (q, k, v)), **kw).numpy(), want,
                                atol=TOL)
+
+
+# (B, Sq, Sk, H, KVH, D, 4-D bias shape, bias_repeat, extra keywords)
+BIAS_CASES = {
+    "gqa_bias_repeat": (4, 16, 16, 4, 2, 8, (2, 4, 16, 16), 2, dict(causal=False)),
+    "gqa_collapsed_causal": (2, 16, 24, 4, 1, 8, (1, 1, 16, 24), 1, dict(causal=True)),
+    "full_bias_causal": (2, 16, 16, 2, 2, 8, (2, 2, 16, 16), 1, dict(causal=True)),
+    "mask_row_window": (2, 20, 20, 2, 2, 8, (2, 1, 1, 20), 1, dict(causal=True, window=6)),
+    "routed_plain_with_repeat": (4, 16, 16, 2, 2, 8, (2, 1, 16, 16), 2, dict(causal=True, kv_len=12)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BIAS_CASES))
+def test_flash_attention_with_a_bias_matches_jax(name):
+    """``flash_attention(bias=..., bias_repeat=...)``: output and the gradients
+    of q, k, v (collapsed back to the KV heads under GQA) and of the bias, in
+    the bias's own shape; on CPU tensors through the kernels' plain versions."""
+    B, Sq, Sk, H, KVH, D, shape, repeat, kw = BIAS_CASES[name]
+    q, k, v, do = _inputs(B, Sq, Sk, H, KVH, D, seed=len(name))
+    bias = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    f = lambda q, k, v, b: jax_flash(q, k, v, bias=b, bias_repeat=repeat, interpret=True, **kw)
+    o, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, bias)))
+    want = [np.asarray(o)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, bias)]
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3], bias_repeat=repeat, **kw)
+    out.backward(torch.from_numpy(do))
+    got = [out.detach().numpy()] + [t.grad.numpy() for t in leaves]
+    for label, g, w in zip(("o", "dq", "dk", "dv", "dbias"), got, want):
+        assert g.shape == w.shape, label
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0, err_msg=label)
+
+
+@pytest.mark.parametrize("shape,repeat", [((3, 2, 32, 32), 1), ((4, 2, 32, 31), 1), ((4, 3, 32, 32), 1),
+                                          ((4, 2, 7, 32), 1), ((2, 2, 32, 32), 3)])
+def test_bad_bias_shape_raises_as_jax_does(shape, repeat):
+    q, k, v, _ = _inputs(4, 32, 32, 2, 2, 8, seed=9)
+    bias = np.zeros(shape, np.float32)
+    with pytest.raises(ValueError, match="broadcastable") as want:
+        jax_flash(*(jnp.asarray(x) for x in (q, k, v)), causal=False, bias=jnp.asarray(bias), bias_repeat=repeat,
+                  interpret=True)
+    with pytest.raises(ValueError, match="broadcastable") as got:
+        fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=False, bias=torch.from_numpy(bias),
+                           bias_repeat=repeat)
+    assert str(got.value) == str(want.value)

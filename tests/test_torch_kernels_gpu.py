@@ -367,8 +367,115 @@ def test_flash_attention_autograd_on_the_card(cuda):
         grads.append([out] + [t.grad for t in leaves])
     for got, want in zip(*grads):
         assert (got - want).abs().max().item() <= 1e-4
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, bias=torch.zeros((1, 1, 128, 128), device=cuda))
+    # an additive bias takes the kernels too, and its gradient comes back in its own shape
+    bias = torch.randn((1, 8, 128, 128), generator=_gen(cuda, 1), device=cuda)
+    n0 = fa.flash_bwd_dq_collapsed.launches
+    grads = []
+    for fn in (fa.flash_attention, attention_xla):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+        out = fn(*leaves[:3], causal=True, bias=leaves[3])
+        out.backward(do)
+        grads.append([out] + [t.grad for t in leaves])
+    assert fa.flash_bwd_dq_collapsed.launches == n0 + 1
+    for got, want in zip(*grads):
+        assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------- flash with an additive bias (evoformer)
+# (B, Sq, Sk, H, D, 4-D bias shape, repeat, causal): the four ways programs share a
+# bias slice (Bb = Hb = 1; Hb = 1; Bb = 1; neither), each with Sqb = Sq and Sqb = 1,
+# a bias that nothing collapses, odd Sq and Sk, D 32 / 64 / 128
+BIAS_CASES = [
+    (4, 64, 64, 2, 32, (1, 1, 64, 64), 1, False),
+    (4, 64, 64, 2, 32, (1, 1, 1, 64), 1, False),
+    (6, 48, 48, 2, 64, (2, 1, 48, 48), 3, False),
+    (6, 48, 48, 2, 64, (2, 1, 1, 48), 3, False),
+    (3, 70, 70, 4, 32, (1, 4, 70, 70), 1, False),
+    (3, 70, 70, 4, 32, (1, 4, 1, 70), 1, False),
+    (4, 40, 77, 2, 64, (2, 2, 40, 77), 2, False),
+    (4, 40, 77, 2, 64, (2, 2, 1, 77), 2, False),
+    (2, 96, 96, 2, 128, (2, 2, 96, 96), 1, False),
+    (2, 50, 77, 2, 32, (2, 2, 50, 77), 1, True),
+    (4, 64, 64, 2, 128, (1, 2, 64, 64), 1, True),
+    (4, 33, 33, 2, 32, (4, 1, 1, 33), 1, True),
+]
+
+
+def _bias_inputs(dev, dtype, B, Sq, Sk, H, D, shape, repeat, seed=0):
+    q, k, v, do = _flash_inputs(dev, dtype, B, Sq, Sk, H, H, D, seed)
+    g = _gen(dev, seed + 1)
+    bias = torch.randn(shape, generator=g, device=dev) * 0.5
+    bias = bias.masked_fill(torch.rand(shape, generator=g, device=dev) < 0.15, -1e9)  # a mask bias: finite
+    bias[..., 0] = 0.0  # every row keeps a key
+    Bb, Hb, Sqb, _ = shape
+    return q, k, v, do, bias.reshape(Bb * Hb, Sqb, Sk).contiguous(), (Bb, Hb, Sqb, repeat if Bb > 1 else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BIAS_CASES, ids=[f"{c[5]}x{c[6]}{'-causal' if c[7] else ''}-D{c[4]}"
+                                                  for c in BIAS_CASES])
+def test_flash_bias_kernels(cuda, dtype, case):
+    """Forward, dq (per program or collapsed, with dbias) and dk/dv with a bias
+    against their plain versions; a collapsed dbias repeats bit for bit."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, Sq, Sk, H, D, shape, repeat, causal = case
+    q, k, v, do, bias, meta = _bias_inputs(cuda, dtype, B, Sq, Sk, H, D, shape, repeat)
+    args = (None, D**-0.5, causal, 0)
+    o, lse = fa.flash_fwd(q, k, v, *args, bias, meta)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args, bias, meta)
+    bwd = (q, k, v, do, lse_ref, fa.flash_delta(o_ref, do), *args, bias, meta)
+    collapsed = fa.bias_is_collapsed(meta, B, H)
+    n0 = fa.flash_bwd_dq_collapsed.launches
+    if collapsed:
+        dq, dbias = fa.flash_bwd_dq_collapsed(*bwd)
+        dq2, dbias2 = fa.flash_bwd_dq_collapsed(*bwd)
+        dq_ref, dbias_ref = fa.flash_bwd_dq_collapsed_ref(*bwd)
+        assert fa.flash_bwd_dq_collapsed.launches == n0 + 2
+        assert torch.equal(dbias, dbias2) and torch.equal(dq, dq2)
+    else:
+        dbias, dbias_ref = torch.empty_like(bias), torch.empty_like(bias)
+        dq = fa.flash_bwd_dq(*bwd, dbias)
+        dq_ref = fa.flash_bwd_dq_ref(*bwd, dbias_ref)
+    dk, dv = fa.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bwd)
+    assert dbias.shape == bias.shape
+    # as test_flash_kernels: a row's scale at least the tensor's mean magnitude;
+    # fp32 over max(1, max |want|), since dbias sums up to B*H programs' rows
+    errs = {name: _err(got, want, want.float().abs().mean().item())
+            / (max(1.0, want.float().abs().max().item()) if dtype == torch.float32 else 1.0)
+            for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref),
+                                    ("dbias", dbias, dbias_ref))}
+    errs["lse"] = (lse - lse_ref).abs().max().item()
+    assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv", "dbias")), errs
+
+
+def test_evoformer_on_the_card_matches_the_cpu(cuda):
+    """DS4Sci_EvoformerAttention on CUDA tensors (the kernels) gives the CPU
+    route's output and the gradients of q, k, v and both biases, for the MSA
+    row shape (mask + pair: nothing collapsed), the pair bias alone (a
+    collapsed batch) and the mask alone (one row per slice)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.evoformer import DS4Sci_EvoformerAttention
+
+    g = torch.Generator().manual_seed(0)
+    B, N, L, H, D = 1, 6, 40, 4, 32
+    q, k, v, do = (torch.randn((B, N, L, H, D), generator=g) for _ in range(4))
+    mask = torch.where(torch.rand((B, N, 1, 1, L), generator=g) < 0.2, -1e9, 0.0)
+    mask[..., 0] = 0.0
+    pair = torch.randn((B, 1, H, L, L), generator=g)
+    for biases in ([mask, pair], [pair], [mask]):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [t.to(dev).detach().requires_grad_(True) for t in (q, k, v, *biases)]
+            out = DS4Sci_EvoformerAttention(*leaves[:3], leaves[3:])
+            out.backward(do.to(dev))
+            grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        for got, want in zip(*grads):
+            assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-4 * max(
+                1.0, want.abs().max().item())
+    assert fa.flash_bwd_dq_collapsed.launches > 0 and fa.flash_bwd_dq.launches > 0
 
 
 @pytest.mark.parametrize("n", [1000, 4096 * 3 + 1])
