@@ -6,7 +6,8 @@
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
-2. build: nvcc builds every CUDA kernel of the serving, training and evoformer paths from csrc/;
+2. build: nvcc builds every CUDA kernel of the serving, training, evoformer and sparse-attention
+   paths from csrc/;
 3. kernels: each kernel's wrapper at the llama3_8b shapes of the fused serving
    path, in bf16 and fp32, against its plain PyTorch version (errors,
    tolerance, kernel/plain/library times from CUDA events, and the bound:
@@ -62,7 +63,22 @@ Phases, each fatal on failure:
    shapes, the counters zeroed before each call and read after (forward,
    dk/dv and the dq of each layout must launch), output and the gradients
    of q, k, v and every bias against the same call on the plain versions,
-   ms per forward + backward and peak memory.
+   ms per forward + backward and peak memory;
+11. sparse kernels (run after phase 9): ``sparse_fwd``, ``sparse_bwd_dq`` and
+   ``sparse_bwd_dkv`` (block-sparse attention over active-block lists) at
+   every ``SPARSE_SHAPES`` case (fixed unidirectional layout at gpt2_1_3b's
+   heads and S 8192; fixed per-head layouts at BERT-base width; BigBird at
+   bigbird-roberta-base's; a causal Longformer layout at llama3_8b's GQA
+   heads and D 128; a dense layout at the flash kernels' gpt2_1_3b shape) in
+   bf16 and fp32 against their plain versions (at each case's check batch),
+   with bounds from the layout's active pairs and SDPA with the boolean token
+   mask as the yardstick; the dense layout is also held to, and timed
+   beside, the flash kernels;
+12. sparse: ``SparseSelfAttention`` forward and backward at those cases in
+   bf16, the counters zeroed before each call and read after (all three
+   kernels must launch), output and gradients against the same call on the
+   plain versions, ms per forward + backward and peak memory beside the
+   plain path and SDPA with the token mask.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -1071,9 +1087,14 @@ class PlainKernels:
 
     NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dq_collapsed", "flash_bwd_dkv")
 
-    def __enter__(self):
+    @staticmethod
+    def module():
         from deepspeed_tpu_torch.ops import flash_attention as fa
 
+        return fa
+
+    def __enter__(self):
+        fa = self.module()
         self.fa, self.saved = fa, {n: getattr(fa, n) for n in self.NAMES}
         for n in self.NAMES:
             setattr(fa, n, getattr(fa, n + "_ref"))
@@ -1330,57 +1351,393 @@ def phase_evoformer(torch, dev, counters):
     return dict(phase="evoformer", launches=total, records=recs)
 
 
-CSRC, PALLAS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/pallas/"
+# ---------------------------------------------------------------- block-sparse attention (SparseSelfAttention)
+# Attention widths of models the repository supports at the lengths sparse attention is used for, each
+# with a layout from a public source. q is (B, S, H, D); KV heads `kvh` are expanded to H before the
+# kernels, as the path does.
+SPARSE_SHAPES = {
+    # gpt2_1_3b's heads at a long context with the upstream FixedSparsityConfig defaults (Sparse Transformer)
+    "fixed_uni_gpt2_1_3b": dict(config="FixedSparsityConfig", fields=dict(
+        num_heads=32, block=16, num_local_blocks=4, num_global_blocks=1, attention="unidirectional"),
+        q=(2, 8192, 32, 64), kvh=32, causal=True),
+    # BERT-base / gpt2_125m width; the `fixed` example of DeepSpeed's sparse-attention tutorial
+    "fixed_bi_bert": dict(config="FixedSparsityConfig", fields=dict(
+        num_heads=12, block=16, different_layout_per_head=True, num_local_blocks=4, num_global_blocks=1,
+        num_different_global_patterns=4), q=(8, 4096, 12, 64), kvh=12, causal=False),
+    # google/bigbird-roberta-base: 12 heads of 64, block 64, 3 random blocks, 4096 positions
+    "bigbird_base": dict(config="BigBirdSparsityConfig", fields=dict(
+        num_heads=12, block=64, num_random_blocks=3, num_sliding_window_blocks=3, num_global_blocks=1),
+        q=(8, 4096, 12, 64), kvh=12, causal=False),
+    # llama3_8b's heads (32 query / 8 KV, D 128): GQA expansion, D 128, block 64
+    "longformer_gqa_llama3_8b": dict(config="BSLongformerSparsityConfig", fields=dict(
+        num_heads=32, block=64, num_sliding_window_blocks=3, global_block_indices=[0], attention="unidirectional"),
+        q=(1, 8192, 32, 128), kvh=8, causal=True),
+    # the port's flash kernels' gpt2_1_3b training shape (FLASH_CASES): a dense layout, held to flash
+    "dense_gpt2_1_3b": dict(config="DenseSparsityConfig", fields=dict(num_heads=32, block=64),
+                            q=(8, 1024, 32, 64), kvh=32, causal=True),
+}
+
+
+def sparse_config(name):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    c = SPARSE_SHAPES[name]
+    return getattr(sa, c["config"])(**c["fields"])
+
+
+def sparse_inputs(torch, dev, dtype, name):
+    """q, k, v, dO of SPARSE_SHAPES[name] from a seeded generator (k, v with
+    the case's KV heads), and the case's block lists on the card."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    c = SPARSE_SHAPES[name]
+    B, S, H, D = c["q"]
+    g = torch.Generator(device=dev).manual_seed(S + H + D)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, c["kvh"], D), generator=g, device=dev).to(dtype) for _ in range(2))
+    kidx, qidx = ss._device_lists(sparse_config(name), S, H, c["causal"], dev)
+    return q, k, v, do, kidx, qidx
+
+
+def sparse_pairs(np, name) -> tuple:
+    """(active (query, key) pairs per batch row over all heads, active blocks per
+    batch row, layout density): counted from the causal-trimmed layout, the
+    diagonal blocks of a causal run at blk (blk + 1) / 2 pairs each."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    c = SPARSE_SHAPES[name]
+    _, S, H, _ = c["q"]
+    cfg = sparse_config(name)
+    blk = cfg.block
+    layout = np.broadcast_to(cfg.make_layout(S), (H, S // blk, S // blk))
+    kidx, _ = ss._active_lists(layout, c["causal"])
+    blocks = int((kidx >= 0).sum())
+    pairs = blocks * blk * blk
+    full = H * S * S
+    if c["causal"]:
+        diag = H * (S // blk)  # the causal-trimmed layouts all keep their diagonal blocks
+        pairs -= diag * blk * (blk - 1) // 2
+        full = H * S * (S + 1) // 2
+    return pairs, blocks, pairs / full
+
+
+def sdpa_bool_yardstick(torch, q, k, v, mask, do, scale, iters):
+    """SDPA over (B, H, S, D) with the boolean token mask, forward and backward
+    (dq, dk, dv), on the cuDNN and the memory-efficient backends: the faster of
+    the two that take it (forward + backward), else the math backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    runs, last = [], None
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and runs:
+            break
+        try:
+            with sdpa_kernel(backend):
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = sdpa(*leaves, attn_mask=mask, scale=scale)
+                fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), iters)
+                bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), max(3, iters // 2))
+            runs.append(dict(backend=backend.name, fwd_ms=fwd, bwd_ms=bwd))
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+            last = str(exc).splitlines()[0][:200]
+        out = leaves = None
+        torch.cuda.empty_cache()
+    if not runs:
+        return dict(backend=None, error=last, fwd_ms=None, bwd_ms=None)
+    best = min(runs, key=lambda r: r["fwd_ms"] + r["bwd_ms"])
+    return dict(best, tried={r["backend"]: (r["fwd_ms"], r["bwd_ms"]) for r in runs})
+
+
+def phase_sparse_kernels(torch, dev, dtype, name, iters):
+    """sparse_fwd, sparse_bwd_dq and sparse_bwd_dkv at one SPARSE_SHAPES case
+    against their plain versions, with bounds, SDPA with the boolean token
+    mask as the library yardstick (bf16) and, at the dense layout, the flash
+    kernels on the same inputs."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    c = SPARSE_SHAPES[name]
+    B, S, H, D = c["q"]
+    blk, causal = sparse_config(name).block, c["causal"]
+    q, k, v, do, kidx, qidx = sparse_inputs(torch, dev, dtype, name)
+    k, v = ss._expand_kv(k, H // c["kvh"]), ss._expand_kv(v, H // c["kvh"])
+    scale = D**-0.5
+    args = (blk, scale, causal)
+    o, lse = ss.sparse_fwd(q, k, v, kidx, *args)
+    delta = ss.flash_delta(o, do)
+    bwd = (q, k, v, do, lse, delta)
+    dq = ss.sparse_bwd_dq(*bwd, kidx, *args)
+    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, *args)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = ss.sparse_fwd_ref(q, k, v, kidx, *args)
+    dq_ref = ss.sparse_bwd_dq_ref(*bwd, kidx, *args)
+    dk_ref, dv_ref = ss.sparse_bwd_dkv_ref(*bwd, qidx, *args)
+
+    def err(a, b):
+        # as phase_flash: bf16 per row with each row's scale at least the tensor's mean magnitude;
+        # fp32 abs error over max(1, max |want|)
+        e = errors(a, b, b.float().abs().mean().item())
+        e["max_abs_err_scaled"] = e["max_abs_err"] / max(1.0, b.float().abs().max().item())
+        return e
+
+    e_fwd = err(o, o_ref)
+    e_fwd["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+    e_dq = err(dq, dq_ref)
+    e_dk, e_dv = err(dk, dk_ref), err(dv, dv_ref)
+    e_dkv = {key: max(e_dk[key], e_dv[key]) for key in e_dk}
+    del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+    flash = {}
+    if c["config"] == "DenseSparsityConfig":  # the same work as the flash kernels: hold the two to each other
+        o_f, lse_f = fa.flash_fwd(q, k, v, None, scale, causal, 0)
+        dq_f = fa.flash_bwd_dq(*bwd, None, scale, causal, 0)
+        dk_f, dv_f = fa.flash_bwd_dkv(*bwd, None, scale, causal, 0)
+        e = {"sparse_fwd": err(o, o_f), "sparse_bwd_dq": err(dq, dq_f)}
+        e["sparse_fwd"]["lse_max_abs_err"] = (lse - lse_f).abs().max().item()
+        e_k, e_v = err(dk, dk_f), err(dv, dv_f)
+        e["sparse_bwd_dkv"] = {key: max(e_k[key], e_v[key]) for key in e_k}
+        fargs = (None, scale, causal, 0)
+        flash = {"sparse_fwd": (e["sparse_fwd"], time_ms(lambda: fa.flash_fwd(q, k, v, *fargs), iters)),
+                 "sparse_bwd_dq": (e["sparse_bwd_dq"], time_ms(lambda: fa.flash_bwd_dq(*bwd, *fargs), iters)),
+                 "sparse_bwd_dkv": (e["sparse_bwd_dkv"], time_ms(lambda: fa.flash_bwd_dkv(*bwd, *fargs), iters))}
+        del o_f, lse_f, dq_f, dk_f, dv_f
+    del o, dq, dk, dv
+    torch.cuda.empty_cache()
+    tol = ("max_abs_err_scaled", 1e-5) if dtype == torch.float32 else TOL[str(dtype)]
+    pairs, blocks, density = sparse_pairs(np, name)
+    pairs *= B
+    item = q.element_size()
+    nt = q.numel() * item  # one (B, S, H, D) tensor
+    stats = B * H * S * 4  # lse or delta
+    few = max(2, iters // 10)
+    # the library yardstick: SDPA with the (H, S, S) boolean token mask of the layout, in bf16, the type of
+    # the kernels line (the plain versions, which take a second a call at the largest cases, too)
+    lib = dict(backend=None, fwd_ms=None, bwd_ms=None)
+    if dtype == torch.bfloat16:
+        mask = torch.from_numpy(np.ascontiguousarray(ss.layout_to_token_mask(
+            np.broadcast_to(sparse_config(name).make_layout(S), (H, S // blk, S // blk)), blk, causal))).to(dev)
+        qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+        lib = sdpa_bool_yardstick(torch, qh, kh, vh, mask[None], doh, scale, iters)
+        del mask, qh, kh, vh, doh
+        torch.cuda.empty_cache()
+    shape = f"q({B},{S},{H},{D}) kv heads {c['kvh']} block {blk} causal={causal}"
+    recs = []
+    for kernel, e, fn, ref, idx, n_prod, nbytes in (
+            ("sparse_fwd", e_fwd, lambda: ss.sparse_fwd(q, k, v, kidx, *args),
+             lambda: ss.sparse_fwd_ref(q, k, v, kidx, *args), kidx, 2, 4 * nt + stats),
+            ("sparse_bwd_dq", e_dq, lambda: ss.sparse_bwd_dq(*bwd, kidx, *args),
+             lambda: ss.sparse_bwd_dq_ref(*bwd, kidx, *args), kidx, 3, 5 * nt + 2 * stats),
+            ("sparse_bwd_dkv", e_dkv, lambda: ss.sparse_bwd_dkv(*bwd, qidx, *args),
+             lambda: ss.sparse_bwd_dkv_ref(*bwd, qidx, *args), qidx, 4, 6 * nt + 2 * stats)):
+        nbytes += idx.numel() * 4
+        flops = 2 * n_prod * D * pairs
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        fwd = kernel == "sparse_fwd"
+        plain_ms = time_ms(ref, few, warmup=1) if dtype == torch.bfloat16 else None
+        rec = dict(kernel=kernel, case=name, dtype=str(dtype), shape=shape, **e, tol=tol,
+                   kernel_ms=time_ms(fn, iters), plain_ms=plain_ms,
+                   library_ms=lib["fwd_ms"] if fwd else lib["bwd_ms"],
+                   library=f"SDPA {'forward' if fwd else 'backward (dq, dk, dv together)'}, boolean token mask, "
+                           f"backend {lib['backend']}" if lib["backend"] else None, library_tried=lib.get("tried"),
+                   active_pairs=pairs,
+                   active_blocks=blocks * B,
+                   density=density, list_width=idx.shape[2], bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms,
+                   bound_by=b_by)
+        if kernel in flash:
+            fe, f_ms = flash[kernel]
+            rec.update(flash_ms=f_ms, vs_flash_max_rel_err=fe["max_rel_err"],
+                       vs_flash_max_abs_err_scaled=fe["max_abs_err_scaled"],
+                       vs_flash_lse_max_abs_err=fe.get("lse_max_abs_err", 0.0))
+        recs.append(rec)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def run_sparse_kernel_phases(torch, dev, quick: bool):
+    records = []
+    iters = 5 if quick else 10
+    names = ["fixed_uni_gpt2_1_3b"] if quick else list(SPARSE_SHAPES)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in names:
+            for rec in phase_sparse_kernels(torch, dev, dtype, name, iters):
+                log(rec)
+                what, tol = rec["tol"]
+                ok = rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4
+                if "flash_ms" in rec:  # the dense layout against the flash kernels, at the same tolerance
+                    flash_what = "vs_flash_max_abs_err_scaled" if what == "max_abs_err_scaled" else "vs_flash_" + what
+                    ok = ok and rec[flash_what] <= tol and rec["vs_flash_lse_max_abs_err"] <= 1e-4
+                if not ok:
+                    raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > "
+                                         f"{tol}, lse error {rec.get('lse_max_abs_err')} or the flash kernels "
+                                         f"disagree: {rec}")
+                records.append(rec)
+            torch.cuda.empty_cache()
+    return records
+
+
+class PlainSparseKernels(PlainKernels):
+    """The plain versions of the sparse kernels bound in place of their wrappers."""
+
+    NAMES = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+
+    @staticmethod
+    def module():
+        from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+        return ss
+
+
+# kernel path vs plain path, forward and backward end to end. bf16: per-row relative error with each
+# row's scale at least the tensor's mean magnitude (as the evoformer path: each path's own bf16 o enters
+# delta = rowsum(o * dO), so the backward passes start one bf16 rounding apart); fp32: abs error over
+# max(1, max |want|), as the kernel checks.
+SPARSE_PATH_TOL = {"torch.bfloat16": ("max_rel_err", 0.08), "torch.float32": ("max_abs_err_scaled", 1e-5)}
+
+
+def phase_sparse(torch, dev, counters):
+    """``SparseSelfAttention(cfg, causal)(q, k, v)`` forward and backward
+    through autograd (gradients of q, k and v) at each SPARSE_SHAPES case in
+    bf16: the counters are zeroed just before each call and read just after,
+    and each of the three kernels must launch. The same call with the plain
+    versions bound in place gives the output and gradients to compare with.
+    ms per forward + backward and peak memory beside the plain path and SDPA
+    with the token mask."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    recs, total = [], {fn.__name__: 0 for fn in counters}
+    dtype = torch.bfloat16
+    for name, c in SPARSE_SHAPES.items():
+        q, k, v, do, _, _ = sparse_inputs(torch, dev, dtype, name)
+        attn = sa.SparseSelfAttention(sparse_config(name), causal=c["causal"])
+
+        def step(q, k, v, do, fn=attn):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            return [out.detach()] + [t.grad for t in leaves]
+
+        for fn in counters:
+            fn.launches = 0
+        got = step(q, k, v, do)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        finite = all(torch.isfinite(t).all().item() for t in got)
+        before = sum(fn.launches for fn in counters)
+        with PlainSparseKernels():
+            want = step(q, k, v, do)
+            torch.cuda.synchronize()
+            plain_launches = sum(fn.launches for fn in counters) - before
+            torch.cuda.reset_peak_memory_stats()
+            step(q, k, v, do)
+            plain_peak = torch.cuda.max_memory_allocated() / 2**30
+            plain_ms = time_ms(lambda: step(q, k, v, do), 2, warmup=0)
+        errs = {lab: evo_err(torch, a, b) for lab, a, b in zip(["out", "dq", "dk", "dv"], got, want)}
+        del got, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(q, k, v, do)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kernel_ms = time_ms(lambda: step(q, k, v, do), 5, warmup=1)
+        # SDPA with the token mask, forward + backward through autograd, on the expanded K/V
+        B, S, H, D = c["q"]
+        blk = sparse_config(name).block
+        mask = torch.from_numpy(np.ascontiguousarray(ss.layout_to_token_mask(
+            np.broadcast_to(sparse_config(name).make_layout(S), (H, S // blk, S // blk)), blk, c["causal"]))).to(dev)
+        sdpa = lambda qq, kk, vv: torch.nn.functional.scaled_dot_product_attention(
+            qq.transpose(1, 2), ss._expand_kv(kk, H // c["kvh"]).transpose(1, 2),
+            ss._expand_kv(vv, H // c["kvh"]).transpose(1, 2), attn_mask=mask[None]).transpose(1, 2)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            step(q, k, v, do, sdpa)
+            sdpa_peak = torch.cuda.max_memory_allocated() / 2**30
+            sdpa_ms = time_ms(lambda: step(q, k, v, do, sdpa), 3, warmup=1)
+        except torch.cuda.OutOfMemoryError as exc:
+            sdpa_peak, sdpa_ms = None, f"out of memory: {str(exc).splitlines()[0][:120]}"
+        del mask
+        what, tol = SPARSE_PATH_TOL[str(dtype)]
+        rec = dict(phase="sparse", case=name, dtype=str(dtype), q=tuple(q.shape), kv_heads=c["kvh"],
+                   config=c["config"], block=blk, causal=c["causal"], launches=launches,
+                   plain_launches=plain_launches, errors={lab: e[what] for lab, e in errs.items()},
+                   max_abs_err={lab: e["max_abs_err"] for lab, e in errs.items()}, tol=(what, tol),
+                   ms_per_fwd_bwd=kernel_ms, peak_memory_gb=peak, plain_ms_per_fwd_bwd=plain_ms,
+                   plain_peak_memory_gb=plain_peak, sdpa_ms_per_fwd_bwd=sdpa_ms, sdpa_peak_memory_gb=sdpa_peak,
+                   sdpa_backend="default dispatch", finite=finite)
+        log(rec)
+        for key in total:
+            total[key] += launches[key]
+        if not (finite and all(e[what] <= tol for e in errs.values()) and all(n > 0 for n in launches.values())
+                and plain_launches == 0):
+            raise AssertionError(f"sparse {name} {dtype}: {rec}")
+        recs.append(rec)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return dict(phase="sparse", launches=total, records=recs)
+
+
+CSRC, TPU_OPS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/"
 # The kernels line: name, the run whose launches are read, the wrapper counted, the dtype and the
 # fields (matched by their start) of the record that represents the kernel, its source, the TPU kernel.
 KERNEL_ROWS = [
     ("paged_attention_decode", "llama3_8b", "paged_attention_decode", "bfloat16",
      dict(kernel="paged_attention_decode", pool="torch", shape="q(64,32,128)"), "paged_attention.cu",
-     "paged_attention.py:386"),
+     "pallas/paged_attention.py:386"),
     ("paged_attention_prefill", "llama3_8b", "paged_attention_prefill", "bfloat16",
      dict(kernel="paged_attention_prefill", pool="torch", shape="q(2,512,32,128)"), "paged_attention.cu",
-     "paged_attention.py:531"),
+     "pallas/paged_attention.py:531"),
     ("rms_norm", "llama3_8b", "rms_norm", "bfloat16", dict(kernel="rms_norm", shape="x(1,768,4096)"), "rms_norm.cu",
-     "norms.py:45"),
+     "pallas/norms.py:45"),
     ("layer_norm", "gpt2_1_3b_w8_kv8", "layer_norm", "bfloat16", dict(kernel="layer_norm", shape="x(1,768,2048)"),
-     "layer_norm.cu", "norms.py:91"),
+     "layer_norm.cu", "pallas/norms.py:91"),
     ("quantized_matmul (int8 codes)", "gpt2_1_3b_w8_kv8", "quantized_matmul", "bfloat16",
      dict(kernel="quantized_matmul", shape="x(64,2048) codes(2048,8192)"), "quantized_matmul.cu",
-     "quantized_matmul.py:140"),
+     "pallas/quantized_matmul.py:140"),
     ("quantized_matmul (packed int4 codes)", "llama3_8b_w4", "quantized_matmul", "bfloat16",
      dict(kernel="quantized_matmul", shape="x(64,4096) codes(2048,14336)"), "quantized_matmul.cu",
-     "quantized_matmul.py:140"),
+     "pallas/quantized_matmul.py:140"),
     ("paged_attention_decode (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_decode", "bfloat16",
      dict(kernel="paged_attention_decode", pool="int8", shape="q(64,32,64)"), "paged_attention.cu",
-     "paged_attention.py:386"),
+     "pallas/paged_attention.py:386"),
     ("paged_attention_prefill (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_prefill", "bfloat16",
      dict(kernel="paged_attention_prefill", pool="int8", shape="q(2,512,32,64)"), "paged_attention.cu",
-     "paged_attention.py:531"),
+     "pallas/paged_attention.py:531"),
     ("flash_fwd", "train", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="gpt2_1_3b"), "flash_attention.cu",
-     "flash_attention.py:185"),
+     "pallas/flash_attention.py:185"),
     ("flash_bwd_dq", "train", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq", case="gpt2_1_3b"),
-     "flash_attention.cu", "flash_attention.py:417"),
+     "flash_attention.cu", "pallas/flash_attention.py:417"),
     ("flash_bwd_dkv", "train", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv", case="gpt2_1_3b"),
-     "flash_attention.cu", "flash_attention.py:518"),
+     "flash_attention.cu", "pallas/flash_attention.py:518"),
     ("fused_adam", "train", "fused_adam", "float32", dict(kernel="fused_adam", case="all"), "fused_adam.cu",
-     "fused_adam.py:51"),
+     "pallas/fused_adam.py:51"),
     ("flash_fwd (bias)", "evoformer", "flash_fwd", "bfloat16", dict(kernel="flash_fwd (bias)", case="msa_row"),
-     "flash_attention.cu", "flash_attention.py:185"),
+     "flash_attention.cu", "pallas/flash_attention.py:185"),
     ("flash_bwd_dq (bias)", "evoformer", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq (bias)",
                                                                           case="msa_row"),
-     "flash_attention.cu", "flash_attention.py:417"),
+     "flash_attention.cu", "pallas/flash_attention.py:417"),
     ("flash_bwd_dq_collapsed", "evoformer", "flash_bwd_dq_collapsed", "bfloat16",
-     dict(kernel="flash_bwd_dq_collapsed", case="msa_row_pair"), "flash_attention.cu", "flash_attention.py:456"),
+     dict(kernel="flash_bwd_dq_collapsed", case="msa_row_pair"), "flash_attention.cu",
+     "pallas/flash_attention.py:456"),
     ("flash_bwd_dkv (bias)", "evoformer", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv (bias)",
                                                                             case="msa_row"),
-     "flash_attention.cu", "flash_attention.py:485"),
+     "flash_attention.cu", "pallas/flash_attention.py:485"),
+    ("sparse_fwd", "sparse", "sparse_fwd", "bfloat16", dict(kernel="sparse_fwd", case="fixed_uni_gpt2_1_3b"),
+     "sparse_attention.cu", "sparse_attention/sparse_self_attention.py:193"),
+    ("sparse_bwd_dq", "sparse", "sparse_bwd_dq", "bfloat16", dict(kernel="sparse_bwd_dq", case="fixed_uni_gpt2_1_3b"),
+     "sparse_attention.cu", "sparse_attention/sparse_self_attention.py:222"),
+    ("sparse_bwd_dkv", "sparse", "sparse_bwd_dkv", "bfloat16",
+     dict(kernel="sparse_bwd_dkv", case="fixed_uni_gpt2_1_3b"), "sparse_attention.cu",
+     "sparse_attention/sparse_self_attention.py:239"),
 ]
 
 
 def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces) -> dict:
     r = next(x for x in records if x["dtype"] == f"torch.{dtype}"
              and all(str(x.get(k, "")).startswith(v) for k, v in want.items()))
-    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,
+    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": TPU_OPS + replaces,
             "launches": runs[run]["launches"][counter], "max_abs_err": r["max_abs_err"],
             "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1405,6 +1762,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     from deepspeed_tpu_torch.ops import _build, flash_attention as fa, fused_adam as fad, norms
     from deepspeed_tpu_torch.ops import paged_attention as pa, quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1426,6 +1784,9 @@ def main(argv) -> int:
     quant_records = run_quant_kernel_phases(torch, dev, quick)
     records += run_train_kernel_phases(torch, dev, quick)
     records += run_evo_kernel_phases(torch, dev, quick)
+    t0 = time.perf_counter()
+    records += run_sparse_kernel_phases(torch, dev, quick)
+    log(dict(phase="sparse kernels", seconds=time.perf_counter() - t0))
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
@@ -1443,9 +1804,12 @@ def main(argv) -> int:
     train = phase_train(torch, dev, counters + train_counters, profile)
     evoformer = phase_evoformer(torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dq_collapsed,
                                              fa.flash_bwd_dkv])
+    t0 = time.perf_counter()
+    sparse = phase_sparse(torch, dev, [ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv])
+    log(dict(phase="sparse", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4, "train": train,
-            "evoformer": evoformer}
+            "evoformer": evoformer, "sparse": sparse}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"kernels": kernels})

@@ -4,10 +4,13 @@
 ``paged_attention.paged_attention_decode``,
 ``paged_attention.paged_attention_prefill``, ``flash_attention.flash_fwd``,
 ``flash_attention.flash_bwd_dq``, ``flash_attention.flash_bwd_dq_collapsed``,
-``flash_attention.flash_bwd_dkv`` and ``fused_adam.fused_adam`` each carry a
-``launches`` counter that rises by one per kernel launch.
-``evoformer.DS4Sci_EvoformerAttention`` is the DeepSpeed4Science entry point
-over the flash kernels' additive-bias variants.
+``flash_attention.flash_bwd_dkv``, ``fused_adam.fused_adam`` and
+``sparse_attention.sparse_self_attention.sparse_fwd`` / ``sparse_bwd_dq`` /
+``sparse_bwd_dkv`` each carry a ``launches`` counter that rises by one per
+kernel launch. ``evoformer.DS4Sci_EvoformerAttention`` is the
+DeepSpeed4Science entry point over the flash kernels' additive-bias
+variants; ``sparse_attention.SparseSelfAttention`` is DeepSpeed's
+block-sparse attention over the sparse kernels.
 """
 
 from . import evoformer

@@ -44,6 +44,9 @@ SIGNATURES: Dict[str, List] = {
     "ds_flash_bwd_dq_collapsed": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P, _P] + [_I] * 6 + [_F, _I, _I, _I, _P],
     "ds_fused_adam": [_P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
+    "ds_sparse_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    "ds_sparse_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    "ds_sparse_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -525,3 +525,138 @@ def test_training_on_the_card_matches_the_cpu(cuda):
     got, want = run("cuda"), run("cpu")
     assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4, (got, want)
     assert all(fn.launches > n for fn, n in zip(counters, before))
+
+
+# ---------------------------------------------------------------- block-sparse attention (SparseSelfAttention)
+def _sparse_configs():
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    return {
+        "fixed_uni_b16": lambda H: sa.FixedSparsityConfig(num_heads=H, block=16, attention="unidirectional"),
+        "fixed_bi_heads_b16": lambda H: sa.FixedSparsityConfig(num_heads=H, block=16, different_layout_per_head=True,
+                                                               num_different_global_patterns=4),
+        "bigbird_b64": lambda H: sa.BigBirdSparsityConfig(num_heads=H, block=64, num_random_blocks=3),
+        "longformer_uni_b32": lambda H: sa.BSLongformerSparsityConfig(num_heads=H, block=32,
+                                                                      attention="unidirectional"),
+        "variable_b128": lambda H: sa.VariableSparsityConfig(num_heads=H, block=128, num_random_blocks=1,
+                                                             local_window_blocks=[1, 2], global_block_indices=[1]),
+    }
+
+
+# (config, B, S, H, D, causal): small shapes over every block size and head dim (S 272
+# and 224 end in a partial CUDA block of the forward and dq), and the full gpt2_1_3b
+# shape of the main case at batch 1
+SPARSE_CASES = [
+    ("fixed_uni_b16", 2, 512, 4, 64, True),
+    ("fixed_uni_b16", 2, 272, 4, 64, True),
+    ("longformer_uni_b32", 1, 224, 2, 32, True),
+    ("fixed_bi_heads_b16", 1, 256, 4, 32, False),
+    ("bigbird_b64", 1, 1024, 2, 32, False),
+    ("longformer_uni_b32", 2, 512, 4, 128, True),
+    ("variable_b128", 1, 1024, 2, 64, False),
+    ("fixed_uni_b16", 1, 8192, 32, 64, True),
+]
+
+
+def _sparse_errs(dtype, pairs):
+    """As test_flash_kernels: a row's scale at least the tensor's mean magnitude;
+    fp32 over max(1, max |want|)."""
+    return {name: _err(got, want, want.float().abs().mean().item())
+            / (max(1.0, want.float().abs().max().item()) if dtype == torch.float32 else 1.0)
+            for name, got, want in pairs}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPARSE_CASES, ids=[f"{c[0]}-S{c[2]}-D{c[4]}" for c in SPARSE_CASES])
+def test_sparse_kernels(cuda, dtype, case):
+    """sparse_fwd, sparse_bwd_dq and sparse_bwd_dkv against their plain versions."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    name, B, S, H, D, causal = case
+    cfg = _sparse_configs()[name](H)
+    q, k, v, do = _flash_inputs(cuda, dtype, B, S, S, H, H, D)
+    kidx, qidx = ss._device_lists(cfg, S, H, causal, cuda)
+    args = (cfg.block, D**-0.5, causal)
+    counts = (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches, ss.sparse_bwd_dkv.launches)
+    o, lse = ss.sparse_fwd(q, k, v, kidx, *args)
+    o_ref, lse_ref = ss.sparse_fwd_ref(q, k, v, kidx, *args)
+    delta = ss.flash_delta(o_ref, do)
+    bwd = (q, k, v, do, lse_ref, delta)
+    dq = ss.sparse_bwd_dq(*bwd, kidx, *args)
+    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, *args)
+    torch.cuda.synchronize()
+    assert (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches, ss.sparse_bwd_dkv.launches) == tuple(
+        c + 1 for c in counts)
+    dq_ref = ss.sparse_bwd_dq_ref(*bwd, kidx, *args)
+    dk_ref, dv_ref = ss.sparse_bwd_dkv_ref(*bwd, qidx, *args)
+    errs = _sparse_errs(dtype, (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)))
+    errs["lse"] = (lse - lse_ref).abs().max().item()
+    assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv")), errs
+
+
+def test_sparse_dense_layout_matches_the_flash_kernels(cuda):
+    """A dense layout (block 64) through the sparse kernels gives the flash
+    kernels' o, lse, dq, dk and dv (bf16 per row within 1e-2)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa, sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    B, S, H, D = 2, 1024, 8, 64
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
+    kidx, qidx = ss._device_lists(sa.DenseSparsityConfig(num_heads=H, block=64), S, H, True, cuda)
+    o, lse = ss.sparse_fwd(q, k, v, kidx, 64, D**-0.5, True)
+    o_f, lse_f = fa.flash_fwd(q, k, v, None, D**-0.5, True, 0)
+    bwd = (q, k, v, do, lse_f, fa.flash_delta(o_f, do))
+    dq = ss.sparse_bwd_dq(*bwd, kidx, 64, D**-0.5, True)
+    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, 64, D**-0.5, True)
+    dq_f = fa.flash_bwd_dq(*bwd, None, D**-0.5, True, 0)
+    dk_f, dv_f = fa.flash_bwd_dkv(*bwd, None, D**-0.5, True, 0)
+    torch.cuda.synchronize()
+    errs = _sparse_errs(torch.bfloat16, (("o", o, o_f), ("dq", dq, dq_f), ("dk", dk, dk_f), ("dv", dv, dv_f)))
+    errs["lse"] = (lse - lse_f).abs().max().item()
+    assert errs["lse"] <= 1e-4 and all(errs[n] <= 1e-2 for n in ("o", "dq", "dk", "dv")), errs
+
+
+def test_sparse_attention_on_the_card_matches_the_cpu(cuda):
+    """SparseSelfAttention on CUDA tensors (the kernels) gives the CPU route's
+    output and gradients (fp32, GQA 4 / 2 heads, causal), and a layout with an
+    empty query row gives o = 0 there on both."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    class HoleConfig(sa.SparsityConfig):
+        def make_layout(self, seq_len):
+            lay = sa.FixedSparsityConfig(num_heads=self.num_heads, block=self.block).make_layout(seq_len)
+            lay[:, 2, :] = False  # query block 2 attends nothing
+            return lay
+
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn((2, 256, 4, 64), generator=g), torch.randn((2, 256, 4, 64), generator=g)
+    k, v = torch.randn((2, 256, 2, 64), generator=g), torch.randn((2, 256, 2, 64), generator=g)
+    n0 = [fn.launches for fn in (ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv)]
+    for cfg, causal in ((sa.BigBirdSparsityConfig(num_heads=4, block=32), True), (HoleConfig(num_heads=4), False)):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+            out = sa.SparseSelfAttention(cfg, causal=causal)(*leaves)
+            out.backward(do.to(dev))
+            grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        for got, want in zip(*grads):
+            assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-5 * max(
+                1.0, want.abs().max().item())
+        if isinstance(cfg, HoleConfig):
+            assert np.all(grads[0][0][:, 32:48].numpy() == 0.0)
+    assert all(fn.launches >= n + 2 for fn, n in zip((ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv), n0))
+
+
+def test_sparse_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    def call(block, D, dtype):
+        q = torch.randn((1, 256, 2, D), device=cuda).to(dtype)
+        return sa.sparse_attention(q, q, q, sa.FixedSparsityConfig(num_heads=2, block=block))
+
+    for block, D, dtype in ((8, 64, torch.bfloat16), (16, 80, torch.bfloat16), (16, 64, torch.float16)):
+        with pytest.raises(NotImplementedError):
+            call(block, D, dtype)
