@@ -2,12 +2,13 @@
 """Drive the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
-    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs and a training step
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step and v1
+    python3 chip_smoke.py --quick    # the build and one case of each kernel phase
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
-2. build: nvcc builds every CUDA kernel of the serving, training, evoformer and sparse-attention
-   paths from csrc/;
+2. build: nvcc builds every CUDA kernel of the serving, training, evoformer, sparse-attention,
+   quantisation and LAMB paths from csrc/;
 3. kernels: each kernel's wrapper at the llama3_8b shapes of the fused serving
    path, in bf16 and fp32, against its plain PyTorch version (errors,
    tolerance, kernel/plain/library times from CUDA events, and the bound:
@@ -87,6 +88,7 @@ beside this script, it exits non-zero and prints no result.
 
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1057,6 +1059,9 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
 
 # ---------------------------------------------------------------- training run
 MICRO, SEQ, TRAIN_STEPS, TIMED_FROM = 8, 1024, 12, 2  # steps 3-12 are timed
+# LAMB scales each leaf's step by ||p|| / ||u||, so its elements move by about lr * rms(p), not lr: it
+# takes a larger lr (BERT's LAMB runs used 1e-3 to 1e-2)
+TRAIN_LR = {"Lamb": 2e-3}
 
 
 def gpt2_cfg(**kw):
@@ -1069,9 +1074,10 @@ def gpt2_cfg(**kw):
 
 
 def train_config(torch, optimizer: str, dtype) -> dict:
+    lr = TRAIN_LR.get(optimizer, 1e-4)
     return {"train_micro_batch_size_per_gpu": MICRO, "gradient_accumulation_steps": 1, "steps_per_print": 1000,
-            "optimizer": {"type": optimizer, "params": {"lr": 1e-4, "weight_decay": 0.01}},
-            "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 1e-4,
+            "optimizer": {"type": optimizer, "params": {"lr": lr, "weight_decay": 0.01}},
+            "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0.0, "warmup_max_lr": lr,
                                                          "warmup_num_steps": 5}},
             "gradient_clipping": 1.0, "bf16": {"enabled": dtype == torch.bfloat16}}
 
@@ -1086,6 +1092,7 @@ class PlainKernels:
     on the card, for a parity run (the autograd function calls them by name)."""
 
     NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dq_collapsed", "flash_bwd_dkv")
+    PLAIN = "_ref"  # the plain version of wrapper ``n`` is ``n + PLAIN`` in the same module
 
     @staticmethod
     def module():
@@ -1097,17 +1104,34 @@ class PlainKernels:
         fa = self.module()
         self.fa, self.saved = fa, {n: getattr(fa, n) for n in self.NAMES}
         for n in self.NAMES:
-            setattr(fa, n, getattr(fa, n + "_ref"))
+            setattr(fa, n, getattr(fa, n + self.PLAIN))
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
             setattr(self.fa, n, fn)
 
 
-def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
+class PlainLambKernels(PlainKernels):
+    """The plain version of the LAMB direction kernel bound in place of its wrapper."""
+
+    NAMES = ("lamb_direction",)
+
+    @staticmethod
+    def module():
+        from deepspeed_tpu_torch.ops import fused_lamb as tfl
+
+        return tfl
+
+
+# the plain form of each optimizer of a parity run: (config name, contexts that bind plain versions)
+PLAIN_OPTIMIZER = {"FusedAdam": ("AdamW", (PlainKernels,)), "Lamb": ("Lamb", (PlainKernels, PlainLambKernels))}
+
+
+def phase_train_parity(torch, dev, dtype, counters, n_layers=2, optimizer="FusedAdam"):
     """One engine step of gpt2_1_3b at full width with the kernels (flash
-    attention, FusedAdam) and one with their plain versions (the flash plain
-    versions under the same autograd function, plain AdamW), from the same
+    attention, and FusedAdam or the LAMB direction) and one with their plain
+    versions (the flash plain versions under the same autograd function, and
+    plain AdamW or LAMB with the direction's plain version), from the same
     weights and batch."""
     import contextlib
 
@@ -1121,11 +1145,14 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     batch = train_batch_data(np, cfg.vocab_size)
     ids = torch.from_numpy(batch["input_ids"]).to(dev)
+    plain_name, plain_contexts = PLAIN_OPTIMIZER[optimizer]
     res = {}
-    for variant, optimizer in (("kernel", "FusedAdam"), ("plain", "AdamW")):
+    for variant, opt_name, contexts in (("kernel", optimizer, ()), ("plain", plain_name, plain_contexts)):
         for fn in counters:
             fn.launches = 0
-        with PlainKernels() if variant == "plain" else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            for ctx in contexts:
+                stack.enter_context(ctx())
             # the loss and the gradients of the compute-dtype weights, as the engine takes them
             leaves = [(path, t.detach().clone().requires_grad_(True)) for path, t in flatten(params)]
             tree = {}
@@ -1139,7 +1166,7 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
             loss.backward()
             grads = [t.grad for _, t in leaves]
             engine, _, _, _ = dst.initialize(model=model, model_parameters=params,
-                                             config=train_config(torch, optimizer, dtype), device=dev)
+                                             config=train_config(torch, opt_name, dtype), device=dev)
             step_loss = engine.train_batch(iter([batch]))
             after = [t.detach() for _, t in flatten(engine.module_state_dict())]
             torch.cuda.synchronize()
@@ -1147,11 +1174,16 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
                             launches={fn.__name__: fn.launches for fn in counters})
         del engine, leaves, tree
     k, p = res["kernel"], res["plain"]
-    lr = 1e-4  # the first step runs at the optimizer's lr (the schedule's consume-then-step clock)
+    lr = TRAIN_LR.get(optimizer, 1e-4)  # the first step runs at the optimizer's lr (consume-then-step clock)
     before = [t for _, t in flatten(params)]
     moved = [(a - b).abs() for a, b in zip(k["after"], p["after"])]
+    # each leaf's farthest step in the plain run; k_proj's bias is left out of the share: its true gradient is
+    # zero, so LAMB's step there is the engines' own fp32 noise over eps (u = g / (|g| + 1e-8)), and its
+    # travel is that noise
+    travel = [(a - b).abs().max() for a, b in zip(p["after"], before)]
+    kept = [not path.endswith("k_proj/bias") for path, _ in flatten(params)]
     n = sum(m.numel() for m in moved)
-    rec = dict(phase="train_parity", model="gpt2_1_3b", layers=n_layers, dtype=str(dtype),
+    rec = dict(phase="train_parity", model="gpt2_1_3b", optimizer=optimizer, layers=n_layers, dtype=str(dtype),
                loss=p["loss"], loss_abs_err=abs(k["loss"] - p["loss"]),
                step_loss_abs_err=abs(k["step_loss"] - p["step_loss"]),
                # k_proj's bias has a zero true gradient (softmax ignores a per-row
@@ -1164,21 +1196,26 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
                                        if path.endswith("k_proj/bias")),
                param_max_diff_over_lr=max(m.max().item() for m in moved) / lr,
                param_share_off_by_lr_over_10=sum((m > lr / 10).sum().item() for m in moved) / n,
+               param_share_off_by_travel_over_10=sum((m > t / 10).sum().item()
+                                                     for m, t, keep in zip(moved, travel, kept) if keep) / n,
                kernel_launches=k["launches"], plain_launches=p["launches"],
                moved_from_init=max((a - b).abs().max().item() for a, b in zip(k["after"], before)) / lr)
     # about twice the errors measured on an H100 at these seeded inputs (fp32:
     # loss equal, gradients 4.2e-6, one parameter element in 2e8 off by more
     # than lr/10; bf16: loss 2.6e-5, gradients 1.7e-2, 0.20 % of the elements:
     # Adam's first step is lr * sign(g), so a gradient that flips sign moves
-    # its element by 2 lr)
-    tol = {"torch.float32": dict(loss_abs_err=1e-5, grad_max_rel_err=1e-5, param_share_off_by_lr_over_10=1e-8),
-           "torch.bfloat16": dict(loss_abs_err=5e-5, grad_max_rel_err=0.035,
-                                  param_share_off_by_lr_over_10=0.005)}[str(dtype)]
+    # its element by 2 lr). LAMB's first direction is Adam's first step over lr, scaled per leaf by
+    # ||p|| / ||u||: its elements move by a leaf's own step, so the share is taken against each leaf's
+    # farthest step, with the same bounds
+    share = "param_share_off_by_lr_over_10" if optimizer == "FusedAdam" else "param_share_off_by_travel_over_10"
+    tol = {"torch.float32": {"loss_abs_err": 1e-5, "grad_max_rel_err": 1e-5, share: 1e-8},
+           "torch.bfloat16": {"loss_abs_err": 5e-5, "grad_max_rel_err": 0.035, share: 0.005}}[str(dtype)]
     rec["tol"] = tol
     log(rec)
     del res, params
     torch.cuda.empty_cache()
-    kernel_launched = all(n > 0 for name, n in k["launches"].items() if name.startswith(("flash", "fused")))
+    kernel_launched = all(n > 0 for name, n in k["launches"].items()
+                          if name.startswith(("flash", "fused" if optimizer == "FusedAdam" else "lamb")))
     plain_clean = all(n == 0 for n in p["launches"].values())
     if not (all(rec[key] <= t for key, t in tol.items()) and kernel_launched and plain_clean
             and np.isfinite(rec["loss"])):
@@ -1186,7 +1223,7 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2):
     return rec
 
 
-def profile_train(torch, engine, data) -> None:
+def profile_train(torch, engine, data, optimizer="FusedAdam") -> None:
     """Device-time breakdown of one training step under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1198,6 +1235,7 @@ def profile_train(torch, engine, data) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd_dq": ("flash_dq_kernel",),
             "flash_bwd_dkv": ("flash_dkv_kernel",), "fused_adam": ("adam_kernel",),
+            "lamb_direction": ("lamb_dir_kernel",),
             "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"), "copy": ("Memcpy", "Memset")}
     by_cat, top = {}, []
     for e in prof.key_averages():
@@ -1211,14 +1249,19 @@ def profile_train(torch, engine, data) -> None:
         top.append((ms, e.count, e.key[:100]))
     busy = sum(by_cat.values())
     top.sort(reverse=True)
-    log(dict(phase="profile_train", wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
+    log(dict(phase="profile_train", optimizer=optimizer, wall_ms_profiled=wall_ms,
+             device_busy_ms=busy if top else "not measured",
              busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
              top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
 
 
-def phase_train(torch, dev, counters, profile=False):
+# the optimizer's kernel and its launches per step: one per leaf
+OPT_COUNTER = {"FusedAdam": "fused_adam", "Lamb": "lamb_direction"}
+
+
+def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     """gpt2_1_3b at full width and depth in bf16 through ``initialize`` and
-    ``train_batch``: 12 steps on one seeded batch."""
+    ``train_batch``: 12 steps on one seeded batch with ``optimizer``."""
     import itertools
 
     import numpy as np
@@ -1232,7 +1275,7 @@ def phase_train(torch, dev, counters, profile=False):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params,
-                                     config=train_config(torch, "FusedAdam", torch.bfloat16), device=dev)
+                                     config=train_config(torch, optimizer, torch.bfloat16), device=dev)
     del params
     torch.cuda.empty_cache()
     n_params = sum(p.numel() for p in engine.parameters())
@@ -1255,7 +1298,8 @@ def phase_train(torch, dev, counters, profile=False):
     # plus attention's two products, forward and backward (3x), over the causal pairs
     flops = 6 * n_params * tokens + 12 * cfg.n_layers * MICRO * cfg.n_heads * cfg.head_dim * pairs
     step_s = wall / steps
-    rec = dict(phase="train", model="gpt2_1_3b", layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+    rec = dict(phase="train", model="gpt2_1_3b", optimizer=optimizer, layers=cfg.n_layers, d_model=cfg.d_model,
+               params=n_params,
                leaves=len(engine.parameters()), dtype="bfloat16", micro_batch=MICRO, seq=SEQ, steps=TRAIN_STEPS,
                timed_steps=f"{TIMED_FROM + 1}-{TRAIN_STEPS}", losses=losses, step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s, model_flops_per_step=flops, mfu=flops / step_s / PEAK_FLOPS[
@@ -1266,12 +1310,12 @@ def phase_train(torch, dev, counters, profile=False):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
-            "fused_adam": rec["leaves"]}
+            OPT_COUNTER[optimizer]: rec["leaves"]}
     bad = {name: launches[name] / steps for name in want if launches[name] != want[name] * steps}
     if bad:
         raise AssertionError(f"train: launches per step {bad}, expected {want}")
     if profile:
-        profile_train(torch, engine, data)
+        profile_train(torch, engine, data, optimizer)
     return rec
 
 
@@ -1679,6 +1723,331 @@ def phase_sparse(torch, dev, counters):
     return dict(phase="sparse", launches=total, records=recs)
 
 
+# ---------------------------------------------------------------- group-wise quantisation (the v1 engine's flat layout)
+QUANT_GROUP = 64  # the v1 engine's group size (the config's default)
+# odd sizes: (rows, group): a size of 3 g, a last CUDA block cut short, scalar loads (g 3), teams shorter
+# than a warp (g 16) and a team that loops over its group (g 4096)
+QUANT_ODD = [(3, 64), (1003, 64), (224, 3), (15, 16), (2, 4096)]
+
+
+def llama_flat_leaves():
+    """The 226 leaves of llama3_8b that ``quantize_model_params`` quantises
+    (>= 2-D and >= 1024 elements), as (path, shape)."""
+    from deepspeed_tpu_torch.models import param_shapes
+
+    return [(path, spec[0]) for path, spec in flatten(param_shapes(model_cfg()))
+            if len(spec[0]) >= 2 and math.prod(spec[0]) >= 1024]
+
+
+def each(fn, calls) -> None:
+    """``fn(*args)`` for each args in ``calls``, each result dropped at once (one output alive at a time)."""
+    for args in calls:
+        fn(*args)
+
+
+def quant_bytes(n: int, rows: int, item: int) -> int:
+    """Bytes of one quantise (read ``item``-byte values, write codes and scales) or dequantise (the reverse)."""
+    return n * item + n + rows * 4
+
+
+def codes_differ(torch, got, want) -> int:
+    """Elements of two (codes, scales) pairs that differ in any bit."""
+    return int((got[0] != want[0]).sum()) + int((got[1].view(torch.int32) != want[1].view(torch.int32)).sum())
+
+
+def phase_quant_odd(torch, dev, cases):
+    """Quantise and dequantise at odd sizes against the plain versions, bit for bit."""
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    bad = []
+    for rows, group in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((rows, group), generator=g, device=dev).to(dtype)
+            x[0] = 0.0  # an all-zero group
+            for bits in (8, 4):
+                got = tq.quantize_groupwise(x, group, bits)
+                want = tq.quantize_groupwise_xla(x, group, bits)
+                bad += [f"quantize {rows}x{group} {dtype} int{bits}"] if codes_differ(torch, got, want) else []
+                for out in (torch.bfloat16, torch.float32):
+                    if not torch.equal(tq.dequantize_groupwise(*got, out_dtype=out),
+                                       tq.dequantize_groupwise_xla(*got, out_dtype=out)):
+                        bad.append(f"dequantize {rows}x{group} int{bits} -> {out}")
+    torch.cuda.synchronize()
+    log(dict(phase="quant odd sizes", cases=[f"{r}x{g}" for r, g in cases], bit_equal=not bad))
+    if bad:
+        raise AssertionError(f"quant kernels differ from their plain versions at odd sizes: {bad}")
+
+
+def phase_quant_kernels(torch, dev, quick: bool):
+    """``quantize_groupwise`` and ``dequantize_groupwise`` over llama3_8b's 226
+    flat-quantised leaves (random bf16 weights, group 64) at int8 and int4:
+    codes, scales and the dequantised bf16 and fp32 weights bit-equal to the
+    plain versions, leaf by leaf; then times at ``wte`` and over all leaves."""
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    phase_quant_odd(torch, dev, QUANT_ODD[1:2] if quick else QUANT_ODD)
+    leaves = llama_flat_leaves()
+    if not quick and (len(leaves) != 226 or sum(math.prod(s) for _, s in leaves) != 8_029_995_008):
+        raise AssertionError(f"llama3_8b has {len(leaves)} flat-quantised leaves, not 226")
+    if quick:
+        leaves = [(p, s) for p, s in leaves if p == "wte"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    weights = [(torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16) for _, shape in leaves]
+    wte = weights[[p for p, _ in leaves].index("wte")]
+    iters = 3 if quick else 5
+    records = []
+    for bits in (8,) if quick else (8, 4):
+        codes, bad = [], 0
+        for w in weights:  # leaf by leaf: the plain versions' fp32 temporaries stay small
+            got = tq.quantize_groupwise(w, QUANT_GROUP, bits)
+            bad += codes_differ(torch, got, tq.quantize_groupwise_xla(w, QUANT_GROUP, bits))
+            for out in (torch.bfloat16, torch.float32):
+                bad += int((tq.dequantize_groupwise(*got, w.shape, out) !=
+                            tq.dequantize_groupwise_xla(*got, w.shape, out)).sum())
+            codes.append(got)
+        torch.cuda.synchronize()
+        if bad:
+            raise AssertionError(f"quant kernels int{bits}: {bad} codes, scales or dequantised values differ")
+        wte_codes = codes[[p for p, _ in leaves].index("wte")]
+        for case, ws, cs in (("wte", [wte], [wte_codes]), ("all", weights, codes)):
+            n = sum(w.numel() for w in ws)
+            rows = n // QUANT_GROUP
+            shape = f"{len(ws)} leaves, {n} elements, g {QUANT_GROUP}"
+            quant = lambda: each(tq.quantize_groupwise, [(w, QUANT_GROUP, bits) for w in ws])
+            quant_plain = lambda: each(tq.quantize_groupwise_xla, [(w, QUANT_GROUP, bits) for w in ws])
+            b_ms, b_by = bound(quant_bytes(n, rows, 2), 4 * n, torch.float32)  # |x|, max, divide, round
+            records.append(dict(kernel="quantize_groupwise", case=f"{case}-int{bits}", dtype="torch.bfloat16",
+                                shape=shape, bit_equal=True, max_abs_err=0.0, max_rel_err=0.0,
+                                kernel_ms=time_ms(quant, iters, 1), plain_ms=time_ms(quant_plain, 1, 1),
+                                library_ms=None, library="none: no single PyTorch call quantises group-wise",
+                                bound_bytes=quant_bytes(n, rows, 2), bound_ms=b_ms, bound_by=b_by))
+            for out in (torch.bfloat16, torch.float32) if case == "wte" else (torch.bfloat16,):
+                item = 2 if out == torch.bfloat16 else 4
+                deq = lambda: each(tq.dequantize_groupwise, [(q, s, None, out) for q, s in cs])
+                deq_plain = lambda: each(tq.dequantize_groupwise_xla, [(q, s, None, out) for q, s in cs])
+                # one PyTorch call of the same function: the fp32 product (and its bf16 cast)
+                lib = lambda: each(lambda q, s: torch.mul(q, s[:, None]).to(out), cs)
+                b_ms, b_by = bound(quant_bytes(n, rows, item), n, torch.float32)
+                records.append(dict(kernel="dequantize_groupwise", case=f"{case}-int{bits}", dtype=str(out),
+                                    shape=shape, bit_equal=True, max_abs_err=0.0, max_rel_err=0.0,
+                                    kernel_ms=time_ms(deq, iters, 1), plain_ms=time_ms(deq_plain, 1, 1),
+                                    library_ms=time_ms(lib, iters, 1),
+                                    library="torch.mul(q, scales[:, None])" + (".to(bf16)" if item == 2 else ""),
+                                    bound_bytes=quant_bytes(n, rows, item), bound_ms=b_ms, bound_by=b_by))
+        del codes, wte_codes
+        torch.cuda.empty_cache()
+    for rec in records:
+        log(rec)
+    del weights, wte
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_lamb(torch, dev, which, iters):
+    """The LAMB direction over the wte leaf or over every gpt2_1_3b leaf (one
+    launch per leaf) against its plain version. No PyTorch call computes the
+    direction; ``torch.optim.AdamW(fused=True)`` over the same leaves moves the
+    same bytes and is printed beside it, not as a library time."""
+    from deepspeed_tpu_torch.ops import fused_adam as fad, fused_lamb as tfl
+
+    shapes = gpt2_leaf_shapes()
+    if which == "wte":
+        shapes = [(p, s) for p, s in shapes if p == "wte"]
+    g = torch.Generator(device=dev).manual_seed(8)
+    leaves = []
+    for _, shape in shapes:
+        p = torch.randn(shape, generator=g, device=dev)
+        grad = torch.randn(shape, generator=g, device=dev)
+        m = torch.randn(shape, generator=g, device=dev) * 1e-3
+        v = torch.rand(shape, generator=g, device=dev) * 1e-6
+        leaves.append((p, grad, m, v))
+    n = sum(p.numel() for p, _, _, _ in leaves)
+    u = torch.empty(max(p.numel() for p, _, _, _ in leaves), device=dev)
+    scal = fad.adam_scalars(1e-3, 10, 0.9, 0.999, grad_mult=0.7, device=dev)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    rel = abs_err = 0.0
+    for p, grad, m, v in leaves:  # leaf by leaf: kernel and plain version from the same m and v
+        rm, rv = m.clone(), v.clone()
+        got = tfl.lamb_direction(p, grad, m, v, scal, u_out=u[:p.numel()].view_as(p), **hyper)
+        want = tfl.lamb_direction_ref(p, grad, rm, rv, scal, **hyper)
+        for a, b in ((got, want), (m, rm), (v, rv)):
+            diff = (a - b).abs().max()
+            rel, abs_err = max(rel, (diff / b.abs().max()).item()), max(abs_err, diff.item())
+    del rm, rv, got, want
+    step = lambda: each(lambda p, grad, m, v: tfl.lamb_direction(p, grad, m, v, scal, u_out=u[:p.numel()].view_as(p),
+                                                                 **hyper), leaves)
+    plain = lambda: each(lambda p, grad, m, v: tfl.lamb_direction_ref(p, grad, m, v, scal, **hyper), leaves)
+    k_ms = time_ms(step, iters)
+    p_ms = time_ms(plain, max(2, iters // 5))
+    params = [p for p, _, _, _ in leaves]
+    for p, grad, _, _ in leaves:
+        p.grad = grad
+    opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
+    adamw_ms = time_ms(opt.step, iters)
+    del opt
+    nbytes = 28 * n  # read p, g, m, v; write u, m, v
+    b_ms, b_by = bound(nbytes, 15 * n, torch.float32)
+    return dict(kernel="lamb_direction", case=which, dtype="torch.float32", shape=f"{len(leaves)} leaves, {n} elements",
+                max_rel_err=rel, max_abs_err=abs_err, tol=("max_rel_err", 1e-5), launches_per_step=len(leaves),
+                kernel_ms=k_ms, plain_ms=p_ms, library_ms=None, library="none: no PyTorch call computes it",
+                adamw_fused_ms_same_bytes_not_same_function=adamw_ms, bound_bytes=nbytes, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def run_lamb_kernel_phases(torch, dev, quick: bool):
+    records = []
+    for which in (["wte"] if quick else ["wte", "all"]):
+        rec = phase_lamb(torch, dev, which, 5 if quick else 20)
+        log(rec)
+        # nvcc contracts the moment updates to FMAs: fp32 within 1e-5 of each tensor's largest value
+        if not rec["max_rel_err"] <= 1e-5:
+            raise AssertionError(f"lamb_direction {which}: max_rel_err {rec['max_rel_err']} > 1e-5")
+        records.append(rec)
+        torch.cuda.empty_cache()
+    return records
+
+
+class PlainQuantKernels(PlainKernels):
+    """The plain versions of the group-wise quantisation kernels bound in place of their wrappers."""
+
+    NAMES = ("quantize_groupwise", "dequantize_groupwise")
+    PLAIN = "_xla"
+
+    @staticmethod
+    def module():
+        from deepspeed_tpu_torch.ops import quantization as tq
+
+        return tq
+
+
+# v1 serving: a batch of 4 seeded prompts at each length, greedy, V1_NEW new tokens
+V1_PROMPT_LENS, V1_BATCH, V1_NEW, V1_MAX_OUT = (16, 512), 4, 32, 1024
+V1_RUNS = {"v1": 0, "v1_w8": 8, "v1_w4": 4}  # run -> quant bits (0: off)
+
+
+def profile_v1(torch, engine, prompts, run) -> None:
+    """Device-time breakdown of one pass of the v1 generate calls under
+    torch.profiler (after the timed pass; only the shares are meant to be
+    read, since profiling slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in prompts:
+            engine.generate(p, max_new_tokens=V1_NEW)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats = {"dequantize_groupwise": ("dequant_kernel",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
+            "softmax": ("softmax",), "copy": ("Memcpy", "Memset", "copy_", "Copy")}
+    by_cat, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = (getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)) / 1e3
+        if ms <= 0:
+            continue
+        cat = next((c for c, keys in cats.items() if any(k in e.key for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        top.append((ms, e.count, e.key[:100]))
+    busy = sum(by_cat.values())
+    top.sort(reverse=True)
+    log(dict(phase="profile_v1", run=run, wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
+             busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
+             top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
+
+
+def phase_v1(torch, dev, counters, profile=False):
+    """``init_inference`` + ``generate`` on llama3_8b at full width and depth
+    (random bf16 weights from seed 0), quantisation off and on (flat int8
+    and int4, group 64). For each quantised run the counters are zeroed just
+    before ``init_inference`` (which quantises: one ``quantize_groupwise`` per
+    leaf) and read after the generate calls (one ``dequantize_groupwise`` per
+    leaf per forward); the same run with the plain versions must give the
+    same tokens."""
+    import contextlib
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    cfg = model_cfg(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_leaves = len(llama_flat_leaves())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (V1_BATCH, S)) for S in V1_PROMPT_LENS]
+    model = CausalLM(cfg)
+    forwards = V1_NEW * len(prompts)  # a prefill and V1_NEW - 1 decode steps per generate
+    base = {"dtype": "bfloat16", "max_out_tokens": V1_MAX_OUT, "device": str(dev)}
+    warm = dst.init_inference(model, base, params=params)
+    warm.generate(prompts[0][:, :8], max_new_tokens=2)  # warm-up: cuBLAS handles, allocator (not counted)
+    del warm
+    runs, tokens = {}, {}
+    for run, bits in V1_RUNS.items():
+        for variant in ("kernel", "plain") if bits else ("kernel",):
+            config = dict(base)
+            if bits:
+                config["quant"] = {"enabled": True, "bits": bits, "group_size": QUANT_GROUP}
+            with PlainQuantKernels() if variant == "plain" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for fn in counters:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                engine = dst.init_inference(model, config, params=params)
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+                setup_launches = {fn.__name__: fn.launches for fn in counters}
+                t0 = time.perf_counter()
+                outs = [engine.generate(p, max_new_tokens=V1_NEW) for p in prompts]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {fn.__name__: fn.launches for fn in counters}
+                weight_bytes = tree_bytes(engine.params)
+                if profile and variant == "kernel" and bits in (0, 8):
+                    profile_v1(torch, engine, prompts, run)
+                del engine
+                gc.collect()
+            new = [o[:, -V1_NEW:].cpu() for o in outs]
+            tokens[(run, variant)] = new
+            rec = dict(phase="v1", run=run, variant=variant, model="llama3_8b", layers=cfg.n_layers,
+                       d_model=cfg.d_model, dtype="bfloat16", quant_bits=bits, group_size=QUANT_GROUP if bits else 0,
+                       prompts=[list(p.shape) for p in prompts], new_tokens=V1_BATCH * V1_NEW * len(prompts),
+                       wall_s=wall, tokens_per_s=V1_BATCH * V1_NEW * len(prompts) / wall, setup_s=setup_s,
+                       weights_init_s=init_s, weight_bytes=weight_bytes, weight_bytes_bf16=tree_bytes(params),
+                       max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+                       setup_launches=setup_launches, launches=launches, forwards=forwards)
+            if bits and variant == "kernel":
+                rec["agree_with_unquantised"] = float(np.mean([(a == b).float().mean().item() for a, b in zip(
+                    new, tokens[("v1", "kernel")])]))
+                runs[run] = rec
+            if run == "v1":
+                runs[run] = rec
+            if bits and variant == "plain":
+                rec["tokens_equal_kernel_run"] = all(torch.equal(a, b) for a, b in zip(new, tokens[(run, "kernel")]))
+            log(rec)
+            torch.cuda.empty_cache()
+            if not all(o.shape == (V1_BATCH, p.shape[1] + V1_NEW) and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+                       for o, p in zip(outs, prompts)):
+                raise AssertionError(f"v1 {run} {variant}: a prompt did not get {V1_NEW} in-vocab tokens")
+            if variant == "plain" and not (rec["tokens_equal_kernel_run"] and not any(launches.values())):
+                raise AssertionError(f"v1 {run}: the plain versions' tokens differ from the kernels' (or a kernel "
+                                     f"launched): {rec}")
+            want = {"quantize_groupwise": n_leaves, "dequantize_groupwise": n_leaves * forwards} if bits else {}
+            if variant == "kernel" and (setup_launches.get("quantize_groupwise", 0) != want.get("quantize_groupwise", 0)
+                                        or any(launches[k] != v for k, v in want.items())):
+                raise AssertionError(f"v1 {run}: launches {launches} (set-up {setup_launches}), expected {want}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 CSRC, TPU_OPS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/"
 # The kernels line: name, the run whose launches are read, the wrapper counted, the dtype and the
 # fields (matched by their start) of the record that represents the kernel, its source, the TPU kernel.
@@ -1731,6 +2100,12 @@ KERNEL_ROWS = [
     ("sparse_bwd_dkv", "sparse", "sparse_bwd_dkv", "bfloat16",
      dict(kernel="sparse_bwd_dkv", case="fixed_uni_gpt2_1_3b"), "sparse_attention.cu",
      "sparse_attention/sparse_self_attention.py:239"),
+    ("lamb_direction", "train_lamb", "lamb_direction", "float32", dict(kernel="lamb_direction", case="all"),
+     "fused_lamb.cu", "pallas/fused_lamb.py:45"),
+    ("quantize_groupwise", "v1_w8", "quantize_groupwise", "bfloat16",
+     dict(kernel="quantize_groupwise", case="all-int8"), "quantization.cu", "pallas/quantization.py:49"),
+    ("dequantize_groupwise", "v1_w8", "dequantize_groupwise", "bfloat16",
+     dict(kernel="dequantize_groupwise", case="all-int8"), "quantization.cu", "pallas/quantization.py:64"),
 ]
 
 
@@ -1760,8 +2135,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, HERE)
-    from deepspeed_tpu_torch.ops import _build, flash_attention as fa, fused_adam as fad, norms
-    from deepspeed_tpu_torch.ops import paged_attention as pa, quantized_matmul as qm
+    from deepspeed_tpu_torch.ops import _build, flash_attention as fa, fused_adam as fad, fused_lamb as tfl, norms
+    from deepspeed_tpu_torch.ops import paged_attention as pa, quantization as tq, quantized_matmul as qm
     from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
@@ -1787,6 +2162,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     records += run_sparse_kernel_phases(torch, dev, quick)
     log(dict(phase="sparse kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    records += phase_quant_kernels(torch, dev, quick)
+    log(dict(phase="quant kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    records += run_lamb_kernel_phases(torch, dev, quick)
+    log(dict(phase="lamb kernel", seconds=time.perf_counter() - t0))
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
@@ -1807,9 +2188,18 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     sparse = phase_sparse(torch, dev, [ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv])
     log(dict(phase="sparse", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    v1 = phase_v1(torch, dev, [tq.quantize_groupwise, tq.dequantize_groupwise], profile)
+    log(dict(phase="v1", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    lamb_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, tfl.lamb_direction]
+    for dtype in (torch.float32, torch.bfloat16):
+        phase_train_parity(torch, dev, dtype, lamb_counters, optimizer="Lamb")
+    train_lamb = phase_train(torch, dev, lamb_counters, profile, optimizer="Lamb")
+    log(dict(phase="train lamb", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4, "train": train,
-            "evoformer": evoformer, "sparse": sparse}
+            "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"kernels": kernels})

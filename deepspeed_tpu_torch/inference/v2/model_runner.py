@@ -17,20 +17,14 @@ slices.
 """
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import torch
 
-from ...models.transformer import TransformerConfig, _is_moe_layer, alibi_slopes, apply_rope, scaled_rope_frequencies
+from ...models.transformer import TransformerConfig, _is_moe_layer, alibi_slopes, apply_rope, device_rope_tables
 from ...ops.paged_attention import KVPool, kv_layer, paged_attention_mixed, update_kv_pages
 from ..generation import sample_logits
 from .modules import V2Modules, _norm_p, _proj, build_modules
-
-
-@functools.lru_cache(maxsize=8)
-def _rope_tables(cfg: TransformerConfig, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables on ``device``, built once per (config, device)."""
-    return scaled_rope_frequencies(cfg, cfg.rotary_dim, device)
 
 
 def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules) -> Callable:
@@ -104,7 +98,7 @@ def _run_stack(cfg: TransformerConfig, params: Dict, x, k_pages, v_pages, block_
         raise NotImplementedError("MoE layers are served by a later port slice")
     cos = sin = None
     if cfg.pos_emb == "rope":
-        cos, sin = _rope_tables(cfg, x.device)
+        cos, sin = device_rope_tables(cfg, x.device)
     slopes = alibi_slopes(cfg.n_heads) if cfg.pos_emb == "alibi" else None
     attn_fns = _attn_fn_builder(cfg, mods)
     flat_pos = positions[0] if mixed else None

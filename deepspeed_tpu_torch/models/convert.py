@@ -68,9 +68,9 @@ def quantized_from_numpy(q, scales, shape, dtype: torch.dtype, num_bits: int, la
                          device="cuda") -> QuantizedParam:
     """Carry a reference ``QuantizedParam`` across as it is: its int8 codes
     and fp32 scales (numpy), original shape, the port's dtype for the
-    original dtype, bits and layout (a kgroups layout)."""
-    if not layout.startswith("kgroups") or "+" in layout:
-        raise NotImplementedError(f"layout {layout!r}: only the unsharded kgroups layouts are ported")
+    original dtype, bits and layout ("flat", "kgroups" or "kgroups_p4")."""
+    if not (layout == "flat" or layout.startswith("kgroups")) or "+" in layout:
+        raise NotImplementedError(f"layout {layout!r}: only the unsharded flat and kgroups layouts are ported")
     device = torch.device(device)
     return QuantizedParam(q=torch.from_numpy(np.array(q, dtype=np.int8, copy=True)).to(device),
                           scales=torch.from_numpy(np.array(scales, dtype=np.float32, copy=True)).to(device),

@@ -8,17 +8,22 @@ convert by copy (``convert.params_from_numpy``), the serving runner
 contracts them with the same einsum specs, and the training forward
 (``transformer_forward``, ``CausalLM.apply``/``loss_fn``: the reference's
 flax ``Attention``/``MLP``/``Block``/``Transformer``) runs as plain
-functions over the same dict. MoE blocks, ``scan_layers``, progressive
-layer drop and the BERT heads are not ported (they raise).
+functions over the same dict, with the reference's dense KV caches for the
+v1 engine (``CausalLM.init_kv_caches``, ``kv_caches=``). MoE blocks,
+``scan_layers``, progressive layer drop and the BERT heads are not ported
+(they raise).
 """
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+# a layer's dense KV cache: k and v (B, max_len, KVH, Dh) and the filled length (a host int)
+KVCache = Tuple[torch.Tensor, torch.Tensor, int]
 
 
 @dataclass(frozen=True)
@@ -206,6 +211,14 @@ def scaled_rope_frequencies(cfg: TransformerConfig, head_dim: int,
     numpy tables are cached per (config, dim)."""
     cos, sin = _rope_table_np(cfg, head_dim)
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def device_rope_tables(cfg: TransformerConfig, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``scaled_rope_frequencies`` at ``cfg.rotary_dim`` on ``device``, copied
+    there once per (config, device): llama3_8b's tables (131,072 positions)
+    are 67 MB, too much to copy in every layer of every step."""
+    return scaled_rope_frequencies(cfg, cfg.rotary_dim, device=device)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
@@ -396,9 +409,14 @@ def _norm_params(cfg: TransformerConfig, tree: Dict[str, Any], j: int):
 
 
 def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-                  layer_idx: int) -> torch.Tensor:
-    """The reference ``Attention`` without a KV cache: projections, clip,
-    qk-norm, rope, then ``ops.attention`` (the flash kernels on CUDA)."""
+                  layer_idx: int, kv_cache: Optional[KVCache] = None):
+    """The reference ``Attention``: projections, clip, qk-norm, rope, then
+    ``ops.attention`` (the flash kernels on CUDA). With a ``kv_cache``
+    ``(ck, cv, cache_len)`` (the v1 engine's dense cache), k and v are written
+    into the cache at ``[cache_len, cache_len + S)`` in place, attention runs
+    over the cache with ``kv_len = cache_len + S`` (``attention_xla``, on CUDA
+    too, as in the reference), and ``(out, (ck, cv, cache_len + S))`` is
+    returned."""
     from ..ops.attention import attention
 
     dt = cfg.dtype
@@ -413,13 +431,23 @@ def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, po
         k = rms_norm_fwd(k, p["k_norm"], cfg.norm_eps, dt)
     if cfg.pos_emb == "rope":
         rd = cfg.rotary_dim
-        cos, sin = scaled_rope_frequencies(cfg, rd, device=x.device)
+        cos, sin = device_rope_tables(cfg, x.device)
         q = apply_rope(q, cos, sin, positions, rotary_dim=rd, style=cfg.rope_style)
         k = apply_rope(k, cos, sin, positions, rotary_dim=rd, style=cfg.rope_style)
+    new_cache = kv_len = None
+    if kv_cache is not None:
+        ck, cv, cache_len = kv_cache
+        S = x.shape[1]
+        ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
+        cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+        k, v = ck, cv
+        kv_len = cache_len + S
+        new_cache = (ck, cv, kv_len)
     slopes = alibi_slopes(cfg.n_heads) if cfg.pos_emb == "alibi" else None
-    out = attention(q, k, v, causal=cfg.causal, alibi_slopes=slopes, window=cfg.window_for(layer_idx),
-                    scale=cfg.attn_scale)
-    return _dense(out, p["o_proj"], "bshk,hkd->bsd", dt)
+    out = attention(q, k, v, causal=cfg.causal, kv_len=kv_len, alibi_slopes=slopes,
+                    window=cfg.window_for(layer_idx), scale=cfg.attn_scale)
+    out = _dense(out, p["o_proj"], "bshk,hkd->bsd", dt)
+    return (out, new_cache) if kv_cache is not None else out
 
 
 def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -441,31 +469,46 @@ def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch
 
 
 def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-              layer_idx: int) -> torch.Tensor:
+              layer_idx: int, kv_cache: Optional[KVCache] = None):
     """The reference ``Block``: sequential pre-norm, ``parallel`` (gpt-neox),
-    ``parallel_shared`` (one norm feeds both branches) or post-LN."""
+    ``parallel_shared`` (one norm feeds both branches) or post-LN. With a
+    ``kv_cache``, returns ``(x, new_cache)``."""
     norm = lambda h, j: _norm(cfg, h, _norm_params(cfg, p, j))
-    attn = lambda h: attention_fwd(cfg, p["attn"], h, positions, layer_idx)
     mlp = lambda h: mlp_fwd(cfg, p["mlp"], h)
+    new_cache = None
+
+    def attn(h):
+        nonlocal new_cache
+        if kv_cache is None:
+            return attention_fwd(cfg, p["attn"], h, positions, layer_idx)
+        out, new_cache = attention_fwd(cfg, p["attn"], h, positions, layer_idx, kv_cache)
+        return out
+
     if cfg.block_type == "parallel_shared":
         h = norm(x, 0)
-        return x + attn(h) + mlp(h)
-    if cfg.block_type == "parallel":
-        return x + attn(norm(x, 0)) + mlp(norm(x, 1))
-    if cfg.norm_scheme == "post":
+        x = x + attn(h) + mlp(h)
+    elif cfg.block_type == "parallel":
+        x = x + attn(norm(x, 0)) + mlp(norm(x, 1))
+    elif cfg.norm_scheme == "post":
         x = norm(x + attn(x), 0)
-        return norm(x + mlp(x), 1)
-    x = x + attn(norm(x, 0))
-    return x + mlp(norm(x, 1))
+        x = norm(x + mlp(x), 1)
+    else:
+        x = x + attn(norm(x, 0))
+        x = x + mlp(norm(x, 1))
+    return (x, new_cache) if kv_cache is not None else x
 
 
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
-                        positions: Optional[torch.Tensor] = None, return_hidden: bool = False) -> torch.Tensor:
-    """The reference ``Transformer.__call__`` for training: embeddings
-    (learned, rope, ALiBi or no positions; ``embed_scale``,
-    ``embedding_norm``), the blocks (``torch.utils.checkpoint`` per block when
-    ``cfg.remat``), the final norm, then fp32 logits through the tied or
-    untied head, or the hidden states with ``return_hidden``."""
+                        positions: Optional[torch.Tensor] = None, return_hidden: bool = False,
+                        kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None):
+    """The reference ``Transformer.__call__``: embeddings (learned, rope,
+    ALiBi or no positions; ``embed_scale``, ``embedding_norm``), the blocks
+    (``torch.utils.checkpoint`` per block when ``cfg.remat`` and there are no
+    caches), the final norm, then fp32 logits through the tied or untied
+    head, or the hidden states with ``return_hidden``. With ``kv_caches``
+    (``CausalLM.init_kv_caches``), returns ``(logits or hidden, new_caches)``.
+    ``train`` is accepted for the reference's signature (it only gates MoE
+    capacity drops, and MoE is not ported)."""
     if cfg.moe_num_experts > 0 or cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
         raise NotImplementedError("MoE, scan_layers and the BERT heads are not ported yet")
     dt = cfg.dtype
@@ -484,21 +527,26 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
         n_norm = 1
     elif cfg.embedding_norm:
         x = _norm(cfg, x, None)
+    new_caches = [] if kv_caches is not None else None
     for i in range(cfg.n_layers):
         fn = functools.partial(block_fwd, cfg, params[f"layer_{i}"], layer_idx=i)
-        if cfg.remat:
+        if kv_caches is not None:
+            x, c = fn(x, positions, kv_cache=kv_caches[i])
+            new_caches.append(c)
+        elif cfg.remat:
             x = torch.utils.checkpoint.checkpoint(fn, x, positions, use_reentrant=False)
         else:
             x = fn(x, positions)
     if cfg.norm_scheme != "post":
         x = _norm(cfg, x, _norm_params(cfg, params, n_norm))
     if return_hidden:
-        return x
+        return (x, new_caches) if kv_caches is not None else x
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(dt))
     else:
         logits = _dense(x, params["lm_head"], "bsd,dv->bsv", dt)
-    return logits.float()
+    logits = logits.float()
+    return (logits, new_caches) if kv_caches is not None else logits
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
@@ -520,6 +568,20 @@ class CausalLM:
 
     def apply(self, params, input_ids, **kwargs):
         return transformer_forward(self.cfg, params, input_ids, **kwargs)
+
+    def init_kv_caches(self, batch_size: int, max_len: int, dtype: Optional[torch.dtype] = None,
+                       device="cuda") -> List[KVCache]:
+        """Preallocated per-layer dense KV caches for incremental decoding:
+        ``(k (B, max_len, KVH, Dh), v (same), cache_len 0)`` in ``dtype``
+        (default ``cfg.dtype``). The length is a host int, so a step reads
+        nothing back; the forward writes the tensors in place."""
+        from ..device import resolve_device
+
+        cfg = self.cfg
+        dev = resolve_device(device)
+        shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        zeros = lambda: torch.zeros(shape, dtype=dtype or cfg.dtype, device=dev)
+        return [(zeros(), zeros(), 0) for _ in range(cfg.n_layers)]
 
     def loss_fn(self, params, batch, rng=None) -> torch.Tensor:
         from ..ops.fused_ce import fused_cross_entropy

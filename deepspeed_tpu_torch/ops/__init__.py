@@ -4,7 +4,9 @@
 ``paged_attention.paged_attention_decode``,
 ``paged_attention.paged_attention_prefill``, ``flash_attention.flash_fwd``,
 ``flash_attention.flash_bwd_dq``, ``flash_attention.flash_bwd_dq_collapsed``,
-``flash_attention.flash_bwd_dkv``, ``fused_adam.fused_adam`` and
+``flash_attention.flash_bwd_dkv``, ``fused_adam.fused_adam``,
+``fused_lamb.lamb_direction``, ``quantization.quantize_groupwise``,
+``quantization.dequantize_groupwise`` and
 ``sparse_attention.sparse_self_attention.sparse_fwd`` / ``sparse_bwd_dq`` /
 ``sparse_bwd_dkv`` each carry a ``launches`` counter that rises by one per
 kernel launch. ``evoformer.DS4Sci_EvoformerAttention`` is the

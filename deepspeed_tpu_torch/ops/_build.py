@@ -23,7 +23,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "deepspeed_tpu_torch")
 # --split-compile=0: each nvcc runs its optimisation passes on as many threads as there are cores
-# (flash_attention.cu alone holds 36 kernel instantiations)
+# (flash_attention.cu alone holds 36 kernel instantiations). Never add --use_fast_math or
+# -prec-div=false: quantization.cu's codes and scales equal the plain version's only with IEEE division.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "--split-compile=0"]
 
@@ -44,6 +45,9 @@ SIGNATURES: Dict[str, List] = {
     "ds_flash_bwd_dq_collapsed": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P, _P] + [_I] * 6 + [_F, _I, _I, _I, _P],
     "ds_fused_adam": [_P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
+    "ds_lamb_direction": [_P, _P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
+    "ds_quantize_groupwise": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "ds_dequantize_groupwise": [_P, _P, _P, _LL, _I, _I, _P],
     "ds_sparse_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "ds_sparse_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "ds_sparse_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],

@@ -33,7 +33,7 @@ from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import create_lr_scheduler
-from .optimizers import Adam, create_optimizer
+from .optimizers import DeviceOptimizer, create_optimizer
 
 logger = logging.getLogger(__name__)
 
@@ -85,9 +85,9 @@ class DeepSpeedEngine:
         self._leaves = [torch.as_tensor(leaf).detach().to(self.device, torch.float32, copy=True).requires_grad_(True)
                         for _, leaf in pairs]
 
-        if optimizer is not None and not isinstance(optimizer, Adam):
-            raise TypeError("a client optimizer must be a deepspeed_tpu_torch Adam/FusedAdam built over "
-                            "engine.parameters()")
+        if optimizer is not None and not isinstance(optimizer, DeviceOptimizer):
+            raise TypeError("a client optimizer must be a deepspeed_tpu_torch optimizer (runtime/optimizers.py) "
+                            "built over engine.parameters()")
         self.optimizer = optimizer if optimizer is not None else create_optimizer(
             self.config.optimizer.type, self.config.optimizer.params, self._leaves)
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JaxEngine
 from deepspeed_tpu.inference.v2 import RaggedBatchConfig as JaxBatchConfig
 from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JaxEngineConfig

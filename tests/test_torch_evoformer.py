@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.attention import attention_chunked as jax_chunked
 from deepspeed_tpu.ops.evoformer import evoformer_attention as jax_evoformer
 from deepspeed_tpu.ops.pallas.flash_attention import _bh_slopes, _flash_bwd, _flash_fwd

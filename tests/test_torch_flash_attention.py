@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.attention import attention_xla as jax_attention_xla
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from deepspeed_tpu_torch.models import alibi_slopes

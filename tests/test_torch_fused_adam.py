@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.pallas.fused_adam import adam_xla, fused_adam_flat
 from deepspeed_tpu_torch.ops import fused_adam as fad
 from deepspeed_tpu_torch.runtime.optimizers import Adam, FusedAdam, create_optimizer

@@ -13,7 +13,10 @@ rounding step is at most 2**-7 = 7.8e-3 of a value); the flash gradients
 floor each row's scale at the tensor's mean magnitude. fused Adam: 1e-6 of
 the largest value of each updated tensor; fp32 flash outputs and the fp32
 quantised matmul on max abs error over max(1, max |want|) (sums of thousands
-of products in another order than the plain version's).
+of products in another order than the plain version's). The group-wise
+quantise and dequantise kernels: bit for bit (IEEE division, one rounding);
+the LAMB direction: 1e-5 of the largest value of each tensor (nvcc contracts
+the moment updates to FMAs).
 """
 
 import pytest
@@ -660,3 +663,144 @@ def test_sparse_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     for block, D, dtype in ((8, 64, torch.bfloat16), (16, 80, torch.bfloat16), (16, 64, torch.float16)):
         with pytest.raises(NotImplementedError):
             call(block, D, dtype)
+
+
+# ---------------------------------------------------------------- group-wise quantisation and the LAMB direction
+def _quant_input(dev, rows, group, dtype, seed=0):
+    """Random rows with one all-zero group and one group at exact half-way ties."""
+    g = _gen(dev, seed)
+    x = torch.randn((rows, group), generator=g, device=dev) * torch.rand((rows, 1), generator=g, device=dev) * 3
+    x[min(1, rows - 1)] = 0.0
+    if rows > 2:
+        x[2] = torch.arange(group, device=dev) % 15 - 7 + 0.5
+        x[2, 0] = 127.0
+    return x.to(dtype)
+
+
+# rows 3 (a size of 3 g) and 1003 (the last CUDA block partial at every team size)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("rows", [3, 1003])
+def test_quantize_groupwise_kernel_is_bit_equal(cuda, dtype, bits, group, rows):
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    x = _quant_input(cuda, rows, group, dtype)
+    n0 = tq.quantize_groupwise.launches
+    q, s = tq.quantize_groupwise(x, group_size=group, bits=bits)
+    wq, ws = tq.quantize_groupwise_xla(x, group_size=group, bits=bits)
+    torch.cuda.synchronize()
+    assert tq.quantize_groupwise.launches == n0 + 1
+    assert torch.equal(q, wq) and torch.equal(s.view(torch.int32), ws.view(torch.int32))
+    assert s[min(1, rows - 1)].item() == 1.0
+
+
+@pytest.mark.parametrize("shape,group", [((7, 96), 3), ((5, 48), 16), ((2, 4096), 4096)])
+def test_quantize_groupwise_kernel_odd_groups(cuda, shape, group):
+    """Groups that take the scalar loads (3), sub-warp teams (16) and a team
+    that loops (4096), over a 2-D weight."""
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=_gen(cuda), device=cuda).to(dtype)
+        q, s = tq.quantize_groupwise(x, group_size=group)
+        wq, ws = tq.quantize_groupwise_xla(x, group_size=group)
+        torch.cuda.synchronize()
+        assert torch.equal(q, wq) and torch.equal(s, ws)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [3, 64])
+def test_dequantize_groupwise_kernel_is_bit_equal(cuda, out_dtype, group):
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    x = _quant_input(cuda, 1003, group * 2, torch.float32)
+    q, s = tq.quantize_groupwise_xla(x, group_size=group, bits=8)
+    n0 = tq.dequantize_groupwise.launches
+    got = tq.dequantize_groupwise(q, s, out_shape=(1003, 2 * group), out_dtype=out_dtype)
+    want = tq.dequantize_groupwise_xla(q, s, out_shape=(1003, 2 * group), out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tq.dequantize_groupwise.launches == n0 + 1
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_quantisation_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    q, s = tq.quantize_groupwise(torch.randn(4, 64, device=cuda), group_size=64)
+    with pytest.raises(NotImplementedError):
+        tq.dequantize_groupwise(q, s, out_dtype=torch.float16)
+    with pytest.raises(NotImplementedError):
+        tq.quantize_groupwise(torch.randn(4, 64, device=cuda).half(), group_size=64)
+    with pytest.raises(NotImplementedError):
+        tq.quantize_groupwise(torch.randn(4, 64, device=cuda), group_size=64, bits=6)
+    with pytest.raises(ValueError):
+        tq.quantize_groupwise(torch.randn(4, 60, device=cuda), group_size=64)
+
+
+@pytest.mark.parametrize("n", [1000, 4096 * 3 + 1, 65536 + 7])
+@pytest.mark.parametrize("finite", [True, False])
+def test_lamb_direction_kernel(cuda, n, finite):
+    from deepspeed_tpu_torch.ops import fused_adam as fad, fused_lamb as tfl
+
+    g = _gen(cuda)
+    p, grad, m = (torch.randn(n, generator=g, device=cuda) for _ in range(3))
+    v = torch.rand(n, generator=g, device=cuda)
+    scal = fad.adam_scalars(1e-3, 3, 0.9, 0.999, grad_mult=0.5, finite=finite, device=cuda)
+    m0, v0 = m.clone(), v.clone()
+    rm, rv = m.clone(), v.clone()
+    n0 = tfl.lamb_direction.launches
+    u = tfl.lamb_direction(p, grad, m, v, scal, weight_decay=0.01)
+    want = tfl.lamb_direction_ref(p, grad, rm, rv, scal, weight_decay=0.01)
+    torch.cuda.synchronize()
+    assert tfl.lamb_direction.launches == n0 + 1
+    for got, ref in ((u, want), (m, rm), (v, rv)):  # relative to the tensor's largest value
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    if not finite:
+        assert torch.equal(m, m0) and torch.equal(v, v0)
+
+
+def test_v1_engine_on_the_card_matches_the_cpu(cuda):
+    """Greedy tokens of a quantised llama-shaped model in fp32 on the card
+    (quantise and dequantise kernels) equal the CPU engine's (plain versions)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params, llama_tiny
+    from deepspeed_tpu_torch.ops import quantization as tq
+
+    cfg = llama_tiny(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[5, 17, 3, 99, 4, 23, 7, 1], [7, 2, 8, 11, 40, 41, 42, 3]]
+    out = {}
+    for device in ("cuda", "cpu"):
+        n0 = tq.dequantize_groupwise.launches
+        engine = dst.init_inference(CausalLM(cfg), {"dtype": "float32", "max_out_tokens": 64, "device": device,
+                                                    "quant": {"enabled": True, "bits": 8}}, params=params)
+        out[device] = engine.generate(prompts, max_new_tokens=12).cpu()
+        if device == "cuda":
+            assert tq.dequantize_groupwise.launches > n0
+    assert torch.equal(out["cuda"], out["cpu"])
+
+
+def test_lamb_training_on_the_card_matches_the_cpu(cuda):
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, init_params
+    from deepspeed_tpu_torch.ops import fused_lamb as tfl
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=256, max_seq_len=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {"input_ids": np.random.default_rng(0).integers(0, 512, (2, 128)).astype(np.int32)}
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}}}
+
+    def run(device):
+        engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=device)
+        return [float(engine.train_batch(itertools.repeat(batch))) for _ in range(3)]
+
+    n0 = tfl.lamb_direction.launches
+    got, want = run("cuda"), run("cpu")
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4, (got, want)
+    assert tfl.lamb_direction.launches > n0

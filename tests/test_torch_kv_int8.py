@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.pallas import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 

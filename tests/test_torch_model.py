@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import convert, transformer as tt
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.pallas.norms import layer_norm as jax_layer_norm
 from deepspeed_tpu.ops.pallas.norms import layer_norm_xla
 from deepspeed_tpu.ops.pallas.norms import rms_norm as jax_rms_norm

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.models.transformer import alibi_slopes
 from deepspeed_tpu.ops.pallas import paged_attention as jpa
 from deepspeed_tpu_torch.inference.v2 import modules as v2_modules

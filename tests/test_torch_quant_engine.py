@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.inference.quantization import QuantizedParam as JaxQuantizedParam
 from deepspeed_tpu.inference.quantization import dequantize_param as jax_dequantize_param
 from deepspeed_tpu.inference.quantization import quantize_for_serving as jax_quantize_for_serving

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.pallas import quantized_matmul as jqm
 from deepspeed_tpu_torch.ops import quantized_matmul as tqm
 from deepspeed_tpu_torch.ops._utils import block_that_divides

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.ops.sparse_attention import sparse_self_attention as jss
 from deepspeed_tpu.ops.sparse_attention import sparsity_config as jsc
 from deepspeed_tpu_torch.ops import sparse_attention as sa

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import CausalLM as JaxCausalLM
@@ -179,7 +180,7 @@ def test_a_non_finite_gradient_skips_the_step_in_both_engines():
     {"random_ltd": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
     {"mesh": {"data": 2}},
-    {"optimizer": {"type": "Lamb"}},
+    {"optimizer": {"type": "OneBitLamb"}},
 ])
 def test_unported_config_sections_raise(section):
     with pytest.raises(NotImplementedError):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_test_threads  # noqa: F401  (caps torch's CPU threads)
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu.ops.fused_ce import fused_cross_entropy as jax_fused_ce
 from deepspeed_tpu_torch.models import CausalLM, params_from_numpy, transformer as tt
