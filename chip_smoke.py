@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step and v1
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
+    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul and bf16 flash forward beside this tree's
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -16,8 +17,11 @@ Phases, each fatal on failure:
    the input type, 989 TFLOP/s bf16 / 67 TFLOP/s fp32); then the kernels of
    quantised serving the same way: ``layer_norm`` at gpt2_1_3b's width,
    ``quantized_matmul`` with int8 codes over gpt2_1_3b's three weight shapes
-   and with packed int4 over llama3_8b's two MLP shapes at 8, 64 and 1024
-   tokens, and paged decode and prefill on int8 pools at both models' heads;
+   and with packed int4 over llama3_8b's two MLP shapes at 8, 64, 512 and
+   1024 tokens (at 8 and 64 also cold, in device time from a CUDA graph:
+   rotating over copies of the codes, and of the library's dense weight,
+   of over 100 MB, twice the L2), and
+   paged decode and prefill on int8 pools at both models' heads;
 4. step parity: one prefill quantum and one mixed decode + prefill quantum
    of llama3_8b at full width and 4 layers, run with the kernels and with
    their plain versions; logits and KV pools (garbage block 0 excluded)
@@ -80,6 +84,12 @@ Phases, each fatal on failure:
    kernels must launch), output and gradients against the same call on the
    plain versions, ms per forward + backward and peak memory beside the
    plain path and SDPA with the token mask.
+
+With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
+the parent commit unpacked under ``build/``), DIR's kernels are built from
+DIR and stand in for this tree's ``quantized_matmul`` and bf16 flash forward
+while each of their cases is timed again (``parent_ms``), and the two
+quantised serving runs and the training run are repeated on them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -145,6 +155,101 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms_rotating(fn, operands, iters: int) -> float:
+    """Device time per launch of ``fn``, launch i taking ``operands[i %
+    len(operands)]``: copies whose bytes together exceed the 50 MB L2 make
+    every launch read its operands from device memory, as a serving step
+    finds them. The launches are captured once in a CUDA graph and the graph
+    is replayed, so that the host's launch cost (larger than a decode-sized
+    product's device time, for the kernels' wrappers and for cuBLAS alike)
+    drops out: mean of 3 replays."""
+    import torch
+
+    n = max(iters, len(operands))
+    for i in range(min(3, len(operands))):
+        fn(*operands[i])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture wants
+        fn(*operands[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(*operands[i % len(operands)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * n)
+    del graph
+    return ms
+
+
+# --parent DIR: the kernels of another checkout (e.g. ``git archive`` of the parent commit, unpacked
+# under build/), built from DIR's own sources, stand in for this tree's quantized_matmul and bf16 flash
+# forward while a phase times them or runs a path with them ("parent" numbers, from the same run)
+PARENT = {"lib": None}
+
+
+class ParentKernels:
+    """This tree's kernel library with ``ds_quantized_matmul`` and
+    ``ds_flash_fwd`` taken from another build (whose qmm takes no plan)."""
+
+    def __init__(self, lib, other):
+        self._lib, self._other = lib, other
+
+    def ds_quantized_matmul(self, x, q, scales, out, M, K, N, n_groups, packed, dtype, cfg, splits, per, ws, counters,
+                            stream):
+        return self._other.ds_quantized_matmul(x, q, scales, out, M, K, N, n_groups, packed, dtype, stream)
+
+    def ds_flash_fwd(self, *args):
+        return self._other.ds_flash_fwd(*args)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def load_parent(path: str):
+    """Build DIR's kernels with DIR's own ``_build.py`` (into DIR/build/) and
+    return the stand-in library."""
+    import importlib.util
+
+    from deepspeed_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location("parent_build",
+                                                  os.path.join(path, "deepspeed_tpu_torch", "ops", "_build.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return ParentKernels(_build.lib(), mod.lib())
+
+
+class parent_kernels:
+    """``with parent_kernels():`` runs the port on the --parent kernels."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops import _build
+
+        self._saved, _build._lib = _build.lib(), PARENT["lib"]
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops import _build
+
+        _build._lib = self._saved
+
+
+def parent_time(fn, *args, **kw):
+    """``fn(*args)`` (a timer) on the --parent kernels, or None without --parent."""
+    if PARENT["lib"] is None:
+        return None
+    with parent_kernels():
+        return fn(*args, **kw)
 
 
 def errors(got, want, floor: float = 1e-30) -> dict:
@@ -339,7 +444,10 @@ def phase_qmm(torch, dev, dtype, M, K, N, bits, iters):
     """``quantized_matmul`` against its plain version (dequantise to fp32,
     multiply in fp32). Yardsticks, timed only: ``torch.matmul`` of x with the
     weight dequantised to x's type beforehand (what a dense engine pays, and
-    the ``library_ms``), and dequantise + ``torch.matmul`` in one call."""
+    the ``library_ms``), and dequantise + ``torch.matmul`` in one call. At M <=
+    64 both are also timed cold (``*_cold_ms``, device time from a CUDA
+    graph): rotating over copies of the codes and scales, and of the dense
+    weight, of over 100 MB each."""
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(M + K + N)
@@ -361,15 +469,30 @@ def phase_qmm(torch, dev, dtype, M, K, N, bits, iters):
     flops = 2 * M * K * N
     b_ms, b_by = bound(nbytes, flops, dtype)
     few = max(3, iters // 4)
-    k_ms = time_ms(lambda: qm.quantized_matmul(x, q, scales, packed=packed), iters)
+    run = lambda: qm.quantized_matmul(x, q, scales, packed=packed)
+    k_ms = time_ms(run, iters)
     p_ms = time_ms(lambda: qm.quantized_matmul_ref(x, q, scales, packed=packed), few)
     dense = qm._dequantize_kgroups(q, scales, packed).to(dtype)
     l_ms = time_ms(lambda: torch.matmul(x, dense), iters)
+    cold = {}
+    if M <= 64:
+        codes_bytes = q.numel() + scales.numel() * 4
+        copies = [(q.clone(), scales.clone()) for _ in range(max(2, 100_000_000 // codes_bytes + 1))]
+        kcold = lambda qq, ss: qm.quantized_matmul(x, qq, ss, packed=packed)
+        cold["kernel_cold_ms"] = time_ms_rotating(kcold, copies, iters)
+        cold["parent_cold_ms"] = parent_time(time_ms_rotating, kcold, copies, iters)
+        del copies
+        dense_copies = [(dense.clone(),) for _ in range(max(2, 100_000_000 // (dense.numel() * item) + 1))]
+        cold["library_cold_ms"] = time_ms_rotating(lambda d: torch.matmul(x, d), dense_copies, iters)
+        del dense_copies
     del dense
     dq_ms = time_ms(lambda: torch.matmul(x, qm._dequantize_kgroups(q, scales, packed).to(dtype)), few)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = qm._qmm_plan(M, K, N, scales.shape[0], packed, sms) if dtype == torch.bfloat16 else None
     return dict(kernel="quantized_matmul", codes="packed int4" if packed else "int8", dtype=str(dtype),
                 shape=f"x({M},{K}) codes({q.shape[0]},{N}) scales({scales.shape[0]},{N})", **err, tol=tol,
                 kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library="torch.matmul, weight dequantised beforehand",
+                parent_ms=parent_time(time_ms, run, iters), **cold, plan=plan,
                 dequant_matmul_ms=dq_ms, bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -411,7 +534,7 @@ def run_quant_kernel_phases(torch, dev, quick: bool):
                                  prefill(512, GPT2_GEOM)])
     cases = [norm(T) for T in (8, 768, 2048)]
     cases += [qmm(M, K, N, bits) for bits, shapes in ((8, QMM_INT8), (4, QMM_INT4)) for K, N in shapes
-              for M in (8, 64, 1024)]
+              for M in (8, 64, 512, 1024)]
     for geom in (GPT2_GEOM, GEOM):
         cases += [decode(B, geom) for B in (8, 64)] + [prefill(S, geom) for S in (16, 256, 512)]
     return run_cases(torch, cases)
@@ -515,6 +638,7 @@ def phase_flash(torch, dev, dtype, name, iters):
         recs[kernel] = dict(kernel=kernel, case=name, dtype=str(dtype), shape=f"q({B},{Sq},{H},{D}) kv({B},{Sk},"
                             f"{KVH},{D}) causal={causal} window={window} alibi={slopes is not None}", **e,
                             tol=tol, kernel_ms=time_ms(fn, iters), plain_ms=time_ms(ref, few),
+                            parent_ms=parent_time(time_ms, fn, iters) if kernel == "flash_fwd" else None,
                             library_ms=lib_fwd if kernel == "flash_fwd" else lib_bwd,
                             library="SDPA forward" if kernel == "flash_fwd" else "SDPA backward (dq, dk, dv)",
                             bound_bytes=nbytes, bound_flops=2 * n_prod * D * pairs, bound_ms=b_ms, bound_by=b_by)
@@ -745,7 +869,8 @@ def phase_evo_kernels(torch, dev, dtype, name, iters):
         flops = 2 * n_prod * D * pairs
         b_ms, b_by = bound(nbytes, flops, dtype)
         rec = dict(kernel=kernel, case=name, dtype=str(dtype), shape=shape, **e, tol=tol, kernel_ms=time_ms(fn, iters),
-                   plain_ms=time_ms(ref, few), library_ms=lib["fwd_ms"] if kernel.startswith("flash_fwd") else
+                   plain_ms=time_ms(ref, few), parent_ms=parent_time(time_ms, fn, iters) if kernel.startswith(
+                       "flash_fwd") else None, library_ms=lib["fwd_ms"] if kernel.startswith("flash_fwd") else
                    lib["bwd_ms"], library=f"SDPA {'forward' if kernel.startswith('flash_fwd') else 'backward'}, "
                    f"float attn_mask, backend {lib['backend']}, mask gradient {lib.get('mask_grad')}",
                    bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
@@ -932,7 +1057,7 @@ def profile_serve(torch, engine, waves, model) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats = {"paged_attention_decode": ("decode_kernel",), "paged_attention_prefill": ("prefill_kernel",),
             "rms_norm": ("rms_norm",), "layer_norm": ("layer_norm_vec", "layer_norm_plain"),
-            "quantized_matmul": ("qmm_kernel",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
+            "quantized_matmul": ("qmm_",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
             "copy": ("Memcpy", "Memset")}
     by_cat, top = {}, []
     for e in prof.key_averages():
@@ -1233,7 +1358,7 @@ def profile_train(torch, engine, data, optimizer="FusedAdam") -> None:
         engine.train_batch(data)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cats = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd_dq": ("flash_dq_kernel",),
+    cats = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_kernel",),
             "flash_bwd_dkv": ("flash_dkv_kernel",), "fused_adam": ("adam_kernel",),
             "lamb_direction": ("lamb_dir_kernel",),
             "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"), "copy": ("Memcpy", "Memset")}
@@ -2074,7 +2199,7 @@ KERNEL_ROWS = [
     ("paged_attention_prefill (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_prefill", "bfloat16",
      dict(kernel="paged_attention_prefill", pool="int8", shape="q(2,512,32,64)"), "paged_attention.cu",
      "pallas/paged_attention.py:531"),
-    ("flash_fwd", "train", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="gpt2_1_3b"), "flash_attention.cu",
+    ("flash_fwd", "train", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="gpt2_1_3b"), "flash_fwd.cu",
      "pallas/flash_attention.py:185"),
     ("flash_bwd_dq", "train", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq", case="gpt2_1_3b"),
      "flash_attention.cu", "pallas/flash_attention.py:417"),
@@ -2083,7 +2208,7 @@ KERNEL_ROWS = [
     ("fused_adam", "train", "fused_adam", "float32", dict(kernel="fused_adam", case="all"), "fused_adam.cu",
      "pallas/fused_adam.py:51"),
     ("flash_fwd (bias)", "evoformer", "flash_fwd", "bfloat16", dict(kernel="flash_fwd (bias)", case="msa_row"),
-     "flash_attention.cu", "pallas/flash_attention.py:185"),
+     "flash_fwd.cu", "pallas/flash_attention.py:185"),
     ("flash_bwd_dq (bias)", "evoformer", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq (bias)",
                                                                           case="msa_row"),
      "flash_attention.cu", "pallas/flash_attention.py:417"),
@@ -2116,12 +2241,16 @@ def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces)
             "launches": runs[run]["launches"][counter], "max_abs_err": r["max_abs_err"],
             "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "dtype": dtype, "launches_read_from": run}
+            "shape": r["shape"], "dtype": dtype, "launches_read_from": run,
+            **({"parent_ms": r["parent_ms"]} if r.get("parent_ms") is not None else {})}
 
 
 def main(argv) -> int:
     quick = "--quick" in argv  # build + one case per kernel, then stop
     profile = "--profile" in argv  # add torch.profiler passes over the serving waves and a training step
+    # --parent DIR: also time DIR's quantized_matmul and bf16 flash forward, and run the quantised serving
+    # runs and the training run once more on them (DIR: another checkout's sources, e.g. under build/)
+    parent_dir = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     try:
         import torch
     except ImportError:
@@ -2154,6 +2283,10 @@ def main(argv) -> int:
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", _build.build_log)]
     log(dict(phase="build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds,
              ptxas=dict(entries=len(regs), max_registers=max(regs, default=0), spill_store_bytes=sum(spills))))
+    if parent_dir is not None:
+        t0 = time.perf_counter()
+        PARENT["lib"] = load_parent(os.path.abspath(parent_dir))
+        log(dict(phase="parent build", dir=parent_dir, seconds=time.perf_counter() - t0))
 
     records = run_kernel_phases(torch, dev, quick)
     quant_records = run_quant_kernel_phases(torch, dev, quick)
@@ -2178,11 +2311,18 @@ def main(argv) -> int:
     counters = paged + [norms.rms_norm]
     serve = phase_serve(torch, dev, counters, "llama3_8b", profile)
     serve_w8 = phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
-    serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4")
+    serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_parity(torch, dev, dtype, train_counters)
     train = phase_train(torch, dev, counters + train_counters, profile)
+    if PARENT["lib"] is not None:  # the same paths on the parent's kernels, for comparison only
+        log(dict(phase="parent kernels", begin=True))
+        with parent_kernels():
+            phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
+            phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
+            phase_train(torch, dev, counters + train_counters, profile)
+        log(dict(phase="parent kernels", begin=False))
     evoformer = phase_evoformer(torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dq_collapsed,
                                              fa.flash_bwd_dkv])
     t0 = time.perf_counter()

@@ -1,5 +1,8 @@
 // Flash attention for Hopper: forward, dq and dk/dv over (B, S, H, D) tensors,
-// with an optional additive bias and its gradient.
+// with an optional additive bias and its gradient. The bfloat16 forward is
+// flash_fwd.cu's register-resident kernel (ds_flash_fwd routes to it); this
+// file holds the float32 forward and both dtypes' dq and dk/dv, whose design
+// follows. The mask, the bias and masked_score live in flash_common.cuh.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 // _fwd_kernel (pallas_call at :185, via _flash_fwd, with or without a bias
@@ -11,8 +14,8 @@
 // causal (and sliding-window) band, with queries aligned to the END of the keys
 // (offset = Sk - Sq). The bias is added before masking, so a masked entry is
 // exactly kNegInf whatever the bias (an evoformer mask bias of -1e9 is finite
-// and stays a score). masked_score below is the one definition every kernel
-// uses.
+// and stays a score). masked_score (flash_common.cuh) is the one definition
+// every kernel uses.
 //
 // What bounds it: at the training shapes (S 1024, D 64, causal) the forward
 // does 2 products of S*S/2*D per head, 4*S^2/2*D flops, against reading q, k, v
@@ -56,8 +59,9 @@
 //   warp's column sum over its 16 rows. The chunks exist to fill the card
 //   (few slices give a small grid); a second kernel sums the partials in a
 //   fixed order, so dbias repeats bit for bit from run to run.
-// Not yet: wgmma, TMA, double-buffered tiles, or splitting the key walk.
-#include "common.cuh"
+// Not yet, for dq and dk/dv: scores in registers (as flash_fwd.cu), wgmma,
+// TMA, double-buffered tiles, or splitting the key walk.
+#include "flash_common.cuh"
 
 #include <mma.h>
 
@@ -80,48 +84,6 @@ template <>
 struct Tiles<float> {
   static constexpr int NW = 2, BN = 32;
 };
-
-struct Mask {
-  int sq, sk, offset;  // offset = sk - sq: query row r sits at key position offset + r
-  int causal, window;  // window > 0 only with causal: row r sees keys (r - window, r]
-  float scale;
-};
-
-// The additive bias: fp32, flat (Bb*Hb, Sqb, Sk), null when there is none.
-struct Bias {
-  const float* p;
-  int Bb, Hb, Sqb, repeat;  // query batch b reads bias batch b / repeat (Bb > 1)
-
-  // The slice program (b, h) reads: the reference's _bias_bh_fn.
-  __device__ __forceinline__ const float* slice(int b, int h, int sk) const {
-    if (p == nullptr) return nullptr;
-    const int idx = (Bb == 1 ? 0 : b / repeat) * Hb + (Hb == 1 ? 0 : h);
-    return p + static_cast<size_t>(idx) * Sqb * sk;
-  }
-};
-
-// Bias of query row `row`, key `col` in slice `bs` (0 without a bias, and
-// outside the tensor, where the score is masked anyway).
-__device__ __forceinline__ float bias_at(const float* bs, int sqb, int row, int col, const Mask& m) {
-  if (bs == nullptr || row >= m.sq || col >= m.sk) return 0.f;
-  return bs[static_cast<size_t>(sqb == 1 ? 0 : row) * m.sk + col];
-}
-
-// THE masked score (the reference's _scores): raw q.k of query row `row` and
-// key `col` -> fp32 score, or kNegInf where the pair is masked or out of range.
-// The bias enters before the mask, so masked entries are exactly kNegInf.
-// HAS_BIAS is a template parameter so that the kernels without a bias carry
-// no bias code at all (the score loop is what sets their time).
-template <bool HAS_BIAS>
-__device__ __forceinline__ float masked_score(float qk, int row, int col, float slope, float bias, const Mask& m) {
-  if (row >= m.sq || col >= m.sk) return kNegInf;
-  if (m.causal) {
-    const int r = m.offset + row;
-    if (col > r || (m.window > 0 && col <= r - m.window)) return kNegInf;
-  }
-  const float s = qk * m.scale + slope * static_cast<float>(col);
-  return HAS_BIAS ? s + bias : s;
-}
 
 // ---------------------------------------------------------------- warp products
 // C[16 x N] = A[16 x K] . B[N x K]^T; A, B row-major in shared memory, C fp32.
@@ -700,11 +662,16 @@ int launch(Pass pass, const Args& a) {
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err;
   if (pass == kFwd) {
-    auto kernel = a.bias.p != nullptr ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
-    if ((err = allow_smem(kernel, G::fwd)) != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((a.Sq + G::BM - 1) / G::BM, a.H, a.B);
-    kernel<<<grid, G::NT, G::fwd, a.stream>>>(q, k, v, sl, a.bias, static_cast<T*>(a.o),
-                                              static_cast<float*>(a.out_lse), a.H, a.KVH, a.mk);
+    if constexpr (sizeof(T) == 2) {  // bf16: the register-resident body of flash_fwd.cu
+      return flash_fwd_bf16(q, k, v, sl, a.bias, static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.B, a.H,
+                            a.KVH, D, a.mk, a.stream);
+    } else {
+      auto kernel = a.bias.p != nullptr ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
+      if ((err = allow_smem(kernel, G::fwd)) != cudaSuccess) return static_cast<int>(err);
+      dim3 grid((a.Sq + G::BM - 1) / G::BM, a.H, a.B);
+      kernel<<<grid, G::NT, G::fwd, a.stream>>>(q, k, v, sl, a.bias, static_cast<T*>(a.o),
+                                                static_cast<float*>(a.out_lse), a.H, a.KVH, a.mk);
+    }
   } else if (pass == kDq) {
     dim3 grid((a.Sq + G::BM - 1) / G::BM, a.H, a.B);
     if (a.dbias != nullptr) {

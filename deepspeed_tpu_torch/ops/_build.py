@@ -23,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "deepspeed_tpu_torch")
 # --split-compile=0: each nvcc runs its optimisation passes on as many threads as there are cores
-# (flash_attention.cu alone holds 36 kernel instantiations). Never add --use_fast_math or
+# (flash_attention.cu holds the most kernel instantiations). Never add --use_fast_math or
 # -prec-div=false: quantization.cu's codes and scales equal the plain version's only with IEEE division.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "--split-compile=0"]
@@ -36,7 +36,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES: Dict[str, List] = {
     "ds_rms_norm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "ds_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
-    "ds_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ds_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "ds_paged_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "ds_paged_attention_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],

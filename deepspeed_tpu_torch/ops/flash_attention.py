@@ -1,9 +1,13 @@
 """Flash attention: hand-written CUDA kernels and their plain versions.
 
 Port of ``deepspeed_tpu/ops/pallas/flash_attention.py``. The kernels
-(``csrc/flash_attention.cu``) replace the Pallas ``_fwd_kernel``,
-``_dq_kernel``, ``_dq_kernel_collapsed``, ``_dkv_kernel`` and
-``_dkv_kernel_gqa``; see its source note for the design.
+replace the Pallas ``_fwd_kernel``, ``_dq_kernel``, ``_dq_kernel_collapsed``,
+``_dkv_kernel`` and ``_dkv_kernel_gqa``. The bf16 forward is
+``csrc/flash_fwd.cu`` (scores, probabilities and the output accumulator in
+registers on mma.sync, K/V through a cp.async ring, mask arithmetic only on
+the tiles a mask cuts, the longest causal tiles first); the fp32 forward and
+the dq and dk/dv kernels are ``csrc/flash_attention.cu``; see their source
+notes for the design.
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward saves ``o`` and ``lse``; the backward computes
 ``delta = rowsum(o * do)`` in fp32 and launches dq and dk/dv. GQA stays

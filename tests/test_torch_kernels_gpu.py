@@ -125,6 +125,54 @@ def test_quantized_matmul_kernel(cuda, dtype, M, K, N, group, bits):
     assert err <= TOL[dtype], err
 
 
+def _qmm_run(dev, dtype, M, K, N, group, bits, seed=0):
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    g = _gen(dev, seed + M + K)
+    w = torch.randn((K, N), generator=g, device=dev) * 0.05
+    q, scales = qm.quantize_weight_kgroups(w, group_size=group, bits=bits, pack=bits == 4)
+    packed = q.shape[0] != K
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    got = qm.quantized_matmul(x, q, scales, packed=packed)
+    torch.cuda.synchronize()
+    return got, qm.quantized_matmul_ref(x, q, scales, packed=packed), (x, q, scales, packed)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 128, 512, 1024])
+@pytest.mark.parametrize("K,N,bits", [(8192, 2048, 8), (14336, 4096, 4)])
+def test_quantized_matmul_kernel_across_the_plans(cuda, M, K, N, bits):
+    """bf16 at the serving shapes across every tile and split the plan picks."""
+    got, want, _ = _qmm_run(cuda, torch.bfloat16, M, K, N, 128, bits)
+    err = _err(got, want)
+    assert err <= TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("M", [8, 200])
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_kernel_group_sizes(cuda, M, group, bits):
+    got, want, _ = _qmm_run(cuda, torch.bfloat16, M, 4096, 1024, group, bits)
+    err = _err(got, want)
+    assert err <= TOL[torch.bfloat16], err
+
+
+def test_quantized_matmul_single_group_slices_repeat_bit_for_bit(cuda):
+    """A plan of one-group K slices (M 1), and a split launch that repeats bit
+    for bit: the partials are summed in slice order, not by atomics."""
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert qm._qmm_plan(1, 2048, 2048, 16, False, sms)[2] == 1
+    got, want, _ = _qmm_run(cuda, torch.bfloat16, 1, 2048, 2048, 128, 8)
+    assert _err(got, want) <= TOL[torch.bfloat16]
+    for M, K, N, bits in ((8, 8192, 2048, 8), (64, 14336, 4096, 4)):
+        got, want, (x, q, scales, packed) = _qmm_run(cuda, torch.bfloat16, M, K, N, 128, bits)
+        assert qm._qmm_plan(M, K, N, scales.shape[0], packed, sms)[1] > 1
+        for _ in range(3):
+            assert torch.equal(qm.quantized_matmul(x, q, scales, packed=packed), got)
+        assert _err(got, want) <= TOL[torch.bfloat16]
+
+
 def test_quantized_matmul_raises_on_what_it_does_not_take(cuda):
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
 
@@ -354,6 +402,56 @@ def test_flash_kernels(cuda, dtype, case):
             for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
     errs["lse"] = (lse - lse_ref).abs().max().item()
     assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv")), errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(B=2, Sq=300, Sk=300, H=4, KVH=2, D=64, causal=True),        # Sq, Sk not multiples of 128
+    dict(B=1, Sq=300, Sk=130, H=4, KVH=4, D=32, causal=True),        # Sq > Sk: leading rows see no key
+    dict(B=1, Sq=77, Sk=333, H=4, KVH=1, D=128, causal=True),        # Sq < Sk, one KV head
+    dict(B=1, Sq=200, Sk=260, H=2, KVH=2, D=32, causal=False),
+    dict(B=1, Sq=400, Sk=400, H=2, KVH=2, D=128, causal=True, window=100),  # a window across tiles
+    dict(B=1, Sq=256, Sk=256, H=4, KVH=2, D=64, causal=True, window=64, alibi=True),
+])
+def test_flash_fwd_kernel(cuda, dtype, case):
+    """The forward alone at ragged, empty-row, window and head-dim cases: o and lse against the plain version."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    case = dict(case)
+    causal, window, alibi = case.pop("causal"), case.pop("window", 0), case.pop("alibi", False)
+    q, k, v, _ = _flash_inputs(cuda, dtype, **case)
+    slopes = torch.tensor([0.5 ** (i + 1) for i in range(case["H"])], device=cuda) if alibi else None
+    args = (slopes, case["D"] ** -0.5, causal, window)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+    err = _err(o, o_ref, o_ref.float().abs().mean().item())
+    if dtype == torch.float32:
+        err /= max(1.0, o_ref.float().abs().max().item())
+    assert err <= TOL[dtype] and (lse - lse_ref).abs().max().item() <= 1e-4, (err, (lse - lse_ref).abs().max())
+    blind = case["Sq"] - case["Sk"]  # rows that see no key (Sq > Sk, causal): zeros and lse = -1e30
+    if causal and blind > 0:
+        assert torch.all(o[:, :blind] == 0) and torch.all(lse[..., :blind] == fa.NEG_INF)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sqb", ["1", "Sq"])
+@pytest.mark.parametrize("Hb", ["1", "H"])
+def test_flash_fwd_kernel_bias_layouts(cuda, dtype, Sqb, Hb):
+    """Each bias layout the forward reads (Sqb 1 or Sq, Hb 1 or H) at ragged Sq, Sk and an odd Sk."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    for B, Sq, Sk, H, D, causal in ((2, 150, 150, 4, 32, False), (1, 129, 257, 2, 64, True), (2, 70, 77, 2, 128, False)):
+        shape = (1, H if Hb == "H" else 1, Sq if Sqb == "Sq" else 1, Sk)
+        q, k, v, _, bias, meta = _bias_inputs(cuda, dtype, B, Sq, Sk, H, D, shape, 1)
+        args = (None, D ** -0.5, causal, 0, bias, meta)
+        o, lse = fa.flash_fwd(q, k, v, *args)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+        err = _err(o, o_ref, o_ref.float().abs().mean().item())
+        if dtype == torch.float32:
+            err /= max(1.0, o_ref.float().abs().max().item())
+        assert err <= TOL[dtype] and (lse - lse_ref).abs().max().item() <= 1e-4, (B, Sq, Sk, D, err)
 
 
 def test_flash_attention_autograd_on_the_card(cuda):

@@ -129,3 +129,35 @@ def test_shape_past_the_reference_group_limit():
     want = np.asarray(jqm.quantized_matmul_xla(jnp.asarray(x), jnp.asarray(jq), jnp.asarray(js)))
     got = tqm.quantized_matmul(torch.from_numpy(x), tq, ts).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+# the serving shapes of the quantised main paths: gpt2_1_3b's int8 (K, N) and llama3_8b's packed int4 MLP
+PLAN_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (8192, 2048, 8), (4096, 14336, 4), (14336, 4096, 4)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 128, 512, 1024])
+@pytest.mark.parametrize("K,N,bits", PLAN_SHAPES)
+def test_qmm_plan_covers_k_in_whole_groups_and_fills_the_card(K, N, bits, M):
+    """The bf16 kernel's launch plan on a 132-SM card: slices of whole groups
+    that cover K exactly, a grid of at least one block per SM at decode sizes,
+    and one slice at a prefill chunk of 1024 rows."""
+    packed = bits == 4
+    n_groups = K // 128
+    cfg, splits, per = tqm._qmm_plan(M, K, N, n_groups, packed, sms=132)
+    bm, bn = tqm.QMM_TILES[cfg]
+    assert M <= bm or cfg == len(tqm.QMM_TILES) - 1
+    slices = [(s * per, min(n_groups, (s + 1) * per)) for s in range(splits)]
+    assert slices[0][0] == 0 and slices[-1][1] == n_groups
+    assert all(lo < hi for lo, hi in slices) and all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    grid = -(-M // bm) * -(-N // bn) * splits
+    if M <= 64:
+        assert grid >= 132, (cfg, splits, per, grid)
+    if M == 1024:
+        assert splits == 1
+
+
+def test_qmm_plan_keeps_k_whole_for_groups_its_copies_cannot_slice():
+    """Groups of a code-row count that is not a multiple of 8 (g = 75, packed g = 12) are never split."""
+    assert tqm._qmm_plan(8, 75, 2048, 1, False, sms=132)[1] == 1
+    assert tqm._qmm_plan(8, 1200, 2048, 100, True, sms=132)[1] == 1
+    assert tqm._qmm_plan(1, 2048, 2048, 16, False, sms=132) == (0, 16, 1)  # a slice of a single group
