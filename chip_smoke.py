@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step and v1
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
-    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul and bf16 flash forward beside this tree's
+    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul and bf16 flash kernels beside this tree's
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -87,9 +87,11 @@ Phases, each fatal on failure:
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
-DIR and stand in for this tree's ``quantized_matmul`` and bf16 flash forward
-while each of their cases is timed again (``parent_ms``), and the two
-quantised serving runs and the training run are repeated on them.
+DIR and stand in for this tree's ``quantized_matmul`` and flash forward, dq
+and dk/dv while each of their cases is timed again (``parent_ms``; the bias
+cases of dq and dk/dv run the same body on both sides and are not timed
+again), and the two quantised serving runs and the training run are
+repeated on them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -193,27 +195,23 @@ def time_ms_rotating(fn, operands, iters: int) -> float:
 
 
 # --parent DIR: the kernels of another checkout (e.g. ``git archive`` of the parent commit, unpacked
-# under build/), built from DIR's own sources, stand in for this tree's quantized_matmul and bf16 flash
-# forward while a phase times them or runs a path with them ("parent" numbers, from the same run)
+# under build/), built from DIR's own sources, stand in for this tree's quantized_matmul and flash
+# forward, dq and dk/dv while a phase times them or runs a path with them ("parent" numbers, from the
+# same run)
 PARENT = {"lib": None}
 
 
 class ParentKernels:
-    """This tree's kernel library with ``ds_quantized_matmul`` and
-    ``ds_flash_fwd`` taken from another build (whose qmm takes no plan)."""
+    """This tree's kernel library with the entry points in ``STAND_IN``
+    taken from another build with the same C interface."""
+
+    STAND_IN = ("ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq", "ds_flash_bwd_dkv")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
 
-    def ds_quantized_matmul(self, x, q, scales, out, M, K, N, n_groups, packed, dtype, cfg, splits, per, ws, counters,
-                            stream):
-        return self._other.ds_quantized_matmul(x, q, scales, out, M, K, N, n_groups, packed, dtype, stream)
-
-    def ds_flash_fwd(self, *args):
-        return self._other.ds_flash_fwd(*args)
-
     def __getattr__(self, name):
-        return getattr(self._lib, name)
+        return getattr(self._other if name in self.STAND_IN else self._lib, name)
 
 
 def load_parent(path: str):
@@ -638,7 +636,7 @@ def phase_flash(torch, dev, dtype, name, iters):
         recs[kernel] = dict(kernel=kernel, case=name, dtype=str(dtype), shape=f"q({B},{Sq},{H},{D}) kv({B},{Sk},"
                             f"{KVH},{D}) causal={causal} window={window} alibi={slopes is not None}", **e,
                             tol=tol, kernel_ms=time_ms(fn, iters), plain_ms=time_ms(ref, few),
-                            parent_ms=parent_time(time_ms, fn, iters) if kernel == "flash_fwd" else None,
+                            parent_ms=parent_time(time_ms, fn, iters),
                             library_ms=lib_fwd if kernel == "flash_fwd" else lib_bwd,
                             library="SDPA forward" if kernel == "flash_fwd" else "SDPA backward (dq, dk, dv)",
                             bound_bytes=nbytes, bound_flops=2 * n_prod * D * pairs, bound_ms=b_ms, bound_by=b_by)
@@ -1358,8 +1356,8 @@ def profile_train(torch, engine, data, optimizer="FusedAdam") -> None:
         engine.train_batch(data)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cats = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_kernel",),
-            "flash_bwd_dkv": ("flash_dkv_kernel",), "fused_adam": ("adam_kernel",),
+    cats = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_kernel", "flash_dq_bf16_kernel"),
+            "flash_bwd_dkv": ("flash_dkv_kernel", "flash_dkv_bf16_kernel"), "fused_adam": ("adam_kernel",),
             "lamb_direction": ("lamb_dir_kernel",),
             "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"), "copy": ("Memcpy", "Memset")}
     by_cat, top = {}, []
@@ -2202,9 +2200,9 @@ KERNEL_ROWS = [
     ("flash_fwd", "train", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="gpt2_1_3b"), "flash_fwd.cu",
      "pallas/flash_attention.py:185"),
     ("flash_bwd_dq", "train", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq", case="gpt2_1_3b"),
-     "flash_attention.cu", "pallas/flash_attention.py:417"),
+     "flash_bwd.cu", "pallas/flash_attention.py:417"),
     ("flash_bwd_dkv", "train", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv", case="gpt2_1_3b"),
-     "flash_attention.cu", "pallas/flash_attention.py:518"),
+     "flash_bwd.cu", "pallas/flash_attention.py:518"),
     ("fused_adam", "train", "fused_adam", "float32", dict(kernel="fused_adam", case="all"), "fused_adam.cu",
      "pallas/fused_adam.py:51"),
     ("flash_fwd (bias)", "evoformer", "flash_fwd", "bfloat16", dict(kernel="flash_fwd (bias)", case="msa_row"),
@@ -2248,8 +2246,8 @@ def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces)
 def main(argv) -> int:
     quick = "--quick" in argv  # build + one case per kernel, then stop
     profile = "--profile" in argv  # add torch.profiler passes over the serving waves and a training step
-    # --parent DIR: also time DIR's quantized_matmul and bf16 flash forward, and run the quantised serving
-    # runs and the training run once more on them (DIR: another checkout's sources, e.g. under build/)
+    # --parent DIR: also time DIR's quantized_matmul and flash forward, dq and dk/dv, and run the quantised
+    # serving runs and the training run once more on them (DIR: another checkout's sources, e.g. under build/)
     parent_dir = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     try:
         import torch

@@ -1,15 +1,20 @@
 // Flash attention for Hopper: forward, dq and dk/dv over (B, S, H, D) tensors,
 // with an optional additive bias and its gradient. The bfloat16 forward is
-// flash_fwd.cu's register-resident kernel (ds_flash_fwd routes to it); this
-// file holds the float32 forward and both dtypes' dq and dk/dv, whose design
-// follows. The mask, the bias and masked_score live in flash_common.cuh.
+// flash_fwd.cu's register-resident kernel (ds_flash_fwd routes to it), and so
+// are the bfloat16 dq and dk/dv without a bias in flash_bwd.cu
+// (ds_flash_bwd_dq and ds_flash_bwd_dkv route to them). This file holds the
+// rest, whose design follows: the float32 forward, dq and dk/dv, and the bias
+// bodies of the backward in both dtypes (dq writing dbias per program, the
+// collapsed dq, dk/dv with a bias). The mask, the bias and masked_score live
+// in flash_common.cuh.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
-// _fwd_kernel (pallas_call at :185, via _flash_fwd, with or without a bias
-// tile), _dq_kernel (:417, via _flash_bwd; with a bias it writes dbias per
-// program), _dq_kernel_collapsed (:456: dq plus dbias summed over the programs
-// that share a bias slice), _dkv_kernel (:485: dk/dv with the bias tile) and
-// _dkv_kernel_gqa (:518). The masked score is the reference's _scores:
+// _fwd_kernel (pallas_call at :185, via _flash_fwd; here in fp32, with or
+// without a bias tile), _dq_kernel (:417, via _flash_bwd; here in fp32, and
+// with a bias in both dtypes, where it writes dbias per program),
+// _dq_kernel_collapsed (:456: dq plus dbias summed over the programs that
+// share a bias slice), _dkv_kernel (:485: dk/dv with the bias tile) and
+// _dkv_kernel_gqa (:518; here in fp32). The masked score is the reference's _scores:
 // s = (q.k) * scale + slope * key_pos + bias, masked to kNegInf outside the
 // causal (and sliding-window) band, with queries aligned to the END of the keys
 // (offset = Sk - Sq). The bias is added before masking, so a masked entry is
@@ -59,8 +64,8 @@
 //   warp's column sum over its 16 rows. The chunks exist to fill the card
 //   (few slices give a small grid); a second kernel sums the partials in a
 //   fixed order, so dbias repeats bit for bit from run to run.
-// Not yet, for dq and dk/dv: scores in registers (as flash_fwd.cu), wgmma,
-// TMA, double-buffered tiles, or splitting the key walk.
+// Not yet, for the bodies here: scores in registers, a cp.async ring and
+// compile-time mask bodies (as flash_fwd.cu and flash_bwd.cu), wgmma, TMA.
 #include "flash_common.cuh"
 
 #include <mma.h>
@@ -650,6 +655,21 @@ int plan_collapsed(const Args& a, CollapsedPlan* pl) {
   return 0;
 }
 
+template <typename T, int D, bool HAS_BIAS>
+int launch_dkv(const Args& a) {
+  using G = Geo<T, D>;
+  auto kernel = flash_dkv_kernel<T, D, HAS_BIAS>;
+  const size_t smem = G::dkv + (HAS_BIAS ? G::tileB : 0);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.Sk + G::BM - 1) / G::BM, a.KVH, a.B);
+  kernel<<<grid, G::NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.slopes), a.bias, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.KVH, a.mk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(Pass pass, const Args& a) {
   using G = Geo<T, D>;
@@ -678,6 +698,9 @@ int launch(Pass pass, const Args& a) {
       if ((err = allow_smem(flash_dq_kernel<T, D, kDbiasRows>, G::dq)) != cudaSuccess) return static_cast<int>(err);
       flash_dq_kernel<T, D, kDbiasRows><<<grid, G::NT, G::dq, a.stream>>>(
           q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), a.dbias, a.H, a.KVH, a.mk);
+    } else if constexpr (sizeof(T) == 2) {  // bf16 without a bias: the register-resident body of flash_bwd.cu
+      return flash_dq_bf16(q, k, v, dout, lse, delta, sl, static_cast<T*>(a.dq), a.B, a.H, a.KVH, D, a.mk,
+                           a.stream);
     } else {
       if ((err = allow_smem(flash_dq_kernel<T, D, kNoDbias>, G::dq)) != cudaSuccess) return static_cast<int>(err);
       flash_dq_kernel<T, D, kNoDbias><<<grid, G::NT, G::dq, a.stream>>>(
@@ -707,14 +730,13 @@ int launch(Pass pass, const Args& a) {
       const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
       dbias_reduce_kernel<<<blocks, 256, 0, a.stream>>>(a.parts, a.dbias, n, pl.n_parts);
     }
+  } else if (a.bias.p != nullptr) {
+    return launch_dkv<T, D, true>(a);
+  } else if constexpr (sizeof(T) == 2) {  // bf16 without a bias: the register-resident body of flash_bwd.cu
+    return flash_dkv_bf16(q, k, v, dout, lse, delta, sl, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.B, a.H,
+                          a.KVH, D, a.mk, a.stream);
   } else {
-    const bool has_bias = a.bias.p != nullptr;
-    auto kernel = has_bias ? flash_dkv_kernel<T, D, true> : flash_dkv_kernel<T, D, false>;
-    const size_t smem = G::dkv + (has_bias ? G::tileB : 0);
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((a.Sk + G::BM - 1) / G::BM, a.KVH, a.B);
-    kernel<<<grid, G::NT, smem, a.stream>>>(q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dk),
-                                            static_cast<T*>(a.dv), a.H, a.KVH, a.mk);
+    return launch_dkv<T, D, false>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,483 @@
+// The bfloat16 flash attention backward for Hopper, without a bias: dq, and
+// dk/dv, from q, k, v, dout and the forward's lse with delta = rowsum(o * dout),
+// with optional ALiBi slopes, a causal mask, a sliding window and GQA.
+//
+// Replaces, for bf16 without a bias, the TPU kernels of
+// deepspeed_tpu/ops/pallas/flash_attention.py: _dq_kernel (pallas_call at
+// :417, via _flash_bwd, the no-bias body) and _dkv_kernel_gqa (:518). The
+// float32 dq and dk/dv and the bias bodies (dq writing dbias, the collapsed
+// dq, dk/dv with a bias) stay in flash_attention.cu. Both kernels recompute
+// the score with masked_score's arithmetic and mask (`visible`,
+// flash_common.cuh) and p = exp(s - lse); dlogits = p (dp - delta) and
+// ds = dlogits * scale, rounded to bf16 where the plain version rounds it
+// (as the A operand of the next product), as is p in dk/dv.
+//
+// What bounds it: at gpt2_1_3b's training shape (B 8, S 1024, H 32, D 64,
+// causal) dq does 3 products of 17 GFLOP each (S = Q K^T, dP = dO V^T,
+// dQ = dS K) and dk/dv 4 (S^T, dP^T, dV = P^T dO, dK = dS^T Q), against
+// about 170 MB of operands: both are bound by the tensor cores (0.052 and
+// 0.070 ms at 989 TFLOP/s). So the products have to stay on the tensor
+// cores, fed from shared memory by ldmatrix, and nothing else may take their
+// time: no score, probability or accumulator goes through shared memory.
+//
+// The design (FlashAttention-2's backward on mma.sync, as two kernels
+// without atomics, so dq, dk and dv repeat bit for bit):
+// - dq: a block owns 128 query rows of one (batch, head), 8 warps of 16 rows,
+//   and walks the key tiles of the causal or window band. A warp's S and dP
+//   stripes are mma.sync m16n8k16 products (bf16 in, fp32 out) in registers:
+//   Q and dO fragments by ldmatrix, K and V by ldmatrix as the B operand.
+//   dS is formed on the fragments, and its C layout, rounded to bf16 pairs,
+//   is the A layout of dQ += dS K (K by the transposing ldmatrix). dQ is an
+//   fp32 register accumulator, written once.
+// - dk/dv: the transposed problem. A block owns 64 key rows of one (batch,
+//   KV head), 4 warps of 16 keys, and walks, for each of the H / KVH query
+//   heads of that KV head in order, the query tiles that see its keys. With
+//   64 keys a block, llama3_8b's heads at S 2048 (8 KV heads) give 256
+//   blocks, two for each of the 132 SMs. S^T = K Q^T and
+//   dP^T = V dO^T take Q and dO as the non-transposed B operand; P^T and
+//   dS^T go from their C fragments to dV += P^T dO and dK += dS^T Q, with
+//   dO and Q through the transposing ldmatrix. lse and delta of the tile's
+//   query columns come with the tile. dK and dV are fp32 register
+//   accumulators, summed over the group's heads in a fixed order.
+// - A warp takes its products over a sub-tile of KS keys (dq: 32, at D 128
+//   64) or QS queries (dk/dv: 32, at D 128 16) at a time, which keeps the S
+//   and dP fragments small beside the accumulators (at D 128, dK and dV alone
+//   hold 128 fp32 a lane). The choices are flash_bwd_probe.py's: on an H100,
+//   dk/dv with 8 warps a block spilled at D 64 within the 128 registers of
+//   two blocks an SM, and 4 warps at three blocks an SM ran as fast without
+//   spilling; dq at D 128 took 6 % less time with 64 keys a sub-tile.
+// - The streamed tiles (K and V for dq; Q, dO, lse and delta for dk/dv) come
+//   through a ring of 2 stages in shared memory, filled by cp.async (zero past
+//   the end) while the other stage multiplies, with one block barrier a tile.
+// - Mask arithmetic only where a mask can act: a warp takes the masked body
+//   for a sub-tile only if it crosses Sq, Sk or the causal or window edge for
+//   its 16 rows, skips a sub-tile that no row of it sees, and otherwise runs
+//   the unmasked body; the two bodies are compile-time copies.
+// - p = 2^x by one ex2.approx. Without ALiBi, x = q.k scale log2(e) - lse
+//   log2(e) is one FFMA; with it, x = (s - lse) log2(e). A row that sees no
+//   key has lse = kNegInf, so x is huge there; it only ever meets the masked
+//   body, which selects p = 0 for a masked pair before any product.
+// - Longest work first: dq's grid enumerates the last query tiles first,
+//   dk/dv's the first key tiles (a causal mask gives them the most queries).
+// Not yet: wgmma (a warpgroup's 64 rows with K, V or Q, dO as shared-memory
+// operands), TMA, warp specialisation, a persistent grid.
+#include "flash_common.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
+
+namespace dstorch {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// dq: 8 warps of 16 query rows; key tiles of BN through the ring, taken KS keys at a time.
+template <int D>
+struct DqGeo {
+  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 ? 32 : 64;
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  static constexpr int LD = D + 8;  // +16 bytes: ldmatrix rows on distinct banks
+  static constexpr size_t q_bytes = static_cast<size_t>(BM) * LD * 2;
+  static constexpr size_t kv_bytes = static_cast<size_t>(BN) * LD * 2;
+  static constexpr size_t smem = 2 * q_bytes + 4 * kv_bytes;  // Q, dO, then K and V of 2 stages
+};
+
+// dk/dv: NW warps of 16 key rows; query tiles of BN through the ring, taken QS queries at a time.
+template <int D>
+struct DkvGeo {
+  static constexpr int NW = 4, NT = 32 * NW, BM = 16 * NW, BN = 64, QS = D <= 64 ? 32 : 16;
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 2;
+  static constexpr int LD = D + 8;
+  static constexpr size_t kv_bytes = static_cast<size_t>(BM) * LD * 2;
+  static constexpr size_t q_bytes = static_cast<size_t>(BN) * LD * 2;
+  static constexpr size_t vec_bytes = static_cast<size_t>(BN) * 4;
+  static constexpr size_t stage_bytes = 2 * q_bytes + 2 * vec_bytes;  // Q, dO, lse, delta
+  static constexpr size_t smem = 2 * kv_bytes + 2 * stage_bytes;       // K, V, then 2 stages
+};
+
+// Rows [r0, r0 + ROWS) of head h of a (B, S, NH, D) bf16 tensor into shared memory (row stride LD) by
+// cp.async, zero-filled at or past S; NT threads.
+template <int D, int LD, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ x, int b, int S, int NH, int h, int r0) {
+  constexpr int VPR = D / 8;
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NT) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * LD + c, ok ? x + ((static_cast<size_t>(b) * S + r0 + r) * NH + h) * D + c : x, ok ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------- dq
+// Grid (n_qt * H, B): x = (n_qt - 1 - query tile) * H + head.
+template <int D, bool ALIBI>
+__global__ void __launch_bounds__(DqGeo<D>::NT, DqGeo<D>::MIN_BLOCKS)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ slopes, bf16* __restrict__ dq, int H, int KVH, Mask mk, int n_qt) {
+  using G = DqGeo<D>;
+  constexpr int LD = G::LD, BM = G::BM, BN = G::BN, KS = G::KS, NT = G::NT;
+  constexpr int KD = D / 16, NS = KS / 8, NO = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + G::q_bytes);
+  auto sK = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * G::q_bytes + (2 * s) * G::kv_bytes); };
+  auto sV = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * G::q_bytes + (2 * s + 1) * G::kv_bytes); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const int h = blockIdx.x % H, qt = n_qt - 1 - static_cast<int>(blockIdx.x) / H, b = blockIdx.y;
+  const int hk = h / (H / KVH);
+  const int q0 = qt * BM, wr = q0 + 16 * warp;  // the block's and the warp's first rows
+  const float slope = ALIBI ? slopes[h] : 0.f;
+  const float scale2 = mk.scale * kLog2e;
+
+  int kt_begin = 0, kt_end = (mk.sk + BN - 1) / BN;
+  if (mk.causal) {
+    const int last = mk.offset + min(q0 + BM, mk.sq) - 1;  // the last key any row of the block sees
+    kt_end = min(kt_end, last < 0 ? 0 : last / BN + 1);
+    if (mk.window > 0) kt_begin = max(mk.offset + q0 - mk.window + 1, 0) / BN;
+  }
+
+  load_rows<D, LD, BM, NT>(sQ, q, b, mk.sq, H, h, q0);
+  load_rows<D, LD, BM, NT>(sdO, dout, b, mk.sq, H, h, q0);
+  cp_async_commit();
+  auto load_kv = [&](int s, int kt) {
+    load_rows<D, LD, BN, NT>(sK(s), k, b, mk.sk, KVH, hk, kt * BN);
+    load_rows<D, LD, BN, NT>(sV(s), v, b, mk.sk, KVH, hk, kt * BN);
+  };
+  if (kt_begin < kt_end) load_kv(0, kt_begin);
+  cp_async_commit();
+
+  // this lane's rows wr + g + 8 r, r in {0, 1}: lse (times log2(e) without ALiBi) and delta
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr + g + 8 * r;
+    const size_t at = (static_cast<size_t>(b) * H + h) * mk.sq + row;
+    const float l = row < mk.sq ? lse[at] : 0.f;
+    lse_r[r] = ALIBI ? l : l * kLog2e;
+    dlt_r[r] = row < mk.sq ? delta[at] : 0.f;
+  }
+  float dqacc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqacc[j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int s = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt (and Q, dO) landed for every thread; every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) load_kv(s ^ 1, kt + 1);  // into tile kt - 1's stage, while tile kt multiplies
+    cp_async_commit();
+    const bf16* ks = sK(s);
+    const bf16* vs = sV(s);
+#pragma unroll
+    for (int sub = 0; sub < BN / KS; ++sub) {
+      const int c0 = kt * BN + sub * KS;  // the sub-tile's first key
+      // which keys of the sub-tile the warp's rows see: all, some, or none
+      bool none = wr >= mk.sq;
+      bool masked = c0 + KS > mk.sk;
+      if (mk.causal) {
+        const int diag_lo = mk.offset + wr, diag_hi = mk.offset + wr + 15;  // the first and last row's last key
+        none = none || c0 > diag_hi || (mk.window > 0 && c0 + KS - 1 <= diag_lo - mk.window);
+        masked = masked || c0 + KS - 1 > diag_lo || (mk.window > 0 && c0 <= diag_hi - mk.window);
+      }
+      if (none) continue;
+      float sacc[NS][4], pacc[NS][4];  // S = Q K^T and dP = dO V^T
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = pacc[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qa[4], da[4];
+        ldsm_x4(qa, sQ + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+        ldsm_x4(da, sdO + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          const int off = (sub * KS + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kd * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t r[4];
+          ldsm_x4(r, ks + off);
+          mma_bf16(sacc[2 * np], qa, r[0], r[1]);
+          mma_bf16(sacc[2 * np + 1], qa, r[2], r[3]);
+          ldsm_x4(r, vs + off);
+          mma_bf16(pacc[2 * np], da, r[0], r[1]);
+          mma_bf16(pacc[2 * np + 1], da, r[2], r[3]);
+        }
+      }
+      // dS = p (dp - delta) scale on the fragments, as dQ's A operand: 16 keys per k-step
+      uint32_t dsa[NS / 2][4];
+      auto form_ds = [&](auto masked_tag) {
+        constexpr bool MASKED = decltype(masked_tag)::value;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = wr + g + (e < 2 ? 0 : 8), col = c0 + j * 8 + t2 + (e & 1);
+            // ALiBi: the score first (masked_score's arithmetic); else the raw q.k folded into one FFMA
+            const float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(col)) : sacc[j][e];
+            const float x = ALIBI ? (sv - lse_r[e >> 1]) * kLog2e : fmaf(sv, scale2, -lse_r[e >> 1]);
+            float p = fast_exp2(x);
+            if (MASKED && !visible(row, col, mk)) p = 0.f;
+            ds[e] = p * (pacc[j][e] - dlt_r[e >> 1]) * mk.scale;
+          }
+          dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+          dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+      };
+      if (masked) {
+        form_ds(std::true_type{});
+      } else {
+        form_ds(std::false_type{});
+      }
+      // dQ += dS K
+#pragma unroll
+      for (int kb = 0; kb < NS / 2; ++kb)
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t r[4];
+          ldsm_x4_t(r, ks + (sub * KS + kb * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(dqacc[2 * dp], dsa[kb], r[0], r[1]);
+          mma_bf16(dqacc[2 * dp + 1], dsa[kb], r[2], r[3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr + g + 8 * r;
+    if (row >= mk.sq) continue;
+    bf16* drow = dq + ((static_cast<size_t>(b) * mk.sq + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(drow + j * 8 + t2) = pack_bf16(dqacc[j][2 * r], dqacc[j][2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- dk / dv
+// Grid (n_kt * KVH, B): x = key tile * KVH + KV head, so the first key tiles (a causal mask's longest) go
+// first. Block rows are keys; each block sums over the n_rep query heads of its KV head, in order, and
+// over the query tiles that see its keys.
+template <int D, bool ALIBI>
+__global__ void __launch_bounds__(DkvGeo<D>::NT, DkvGeo<D>::MIN_BLOCKS)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                      const float* __restrict__ slopes, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KVH,
+                      Mask mk) {
+  using G = DkvGeo<D>;
+  constexpr int LD = G::LD, BM = G::BM, BN = G::BN, QS = G::QS, NT = G::NT;
+  constexpr int KD = D / 16, NQ = QS / 8, NO = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = reinterpret_cast<bf16*>(smem + G::kv_bytes);
+  auto stage = [&](int s) { return smem + 2 * G::kv_bytes + s * G::stage_bytes; };
+  auto sQ = [&](int s) { return reinterpret_cast<bf16*>(stage(s)); };
+  auto sdO = [&](int s) { return reinterpret_cast<bf16*>(stage(s) + G::q_bytes); };
+  auto sL = [&](int s) { return reinterpret_cast<float*>(stage(s) + 2 * G::q_bytes); };
+  auto sDl = [&](int s) { return reinterpret_cast<float*>(stage(s) + 2 * G::q_bytes + G::vec_bytes); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const int hk = blockIdx.x % KVH, kt = static_cast<int>(blockIdx.x) / KVH, b = blockIdx.y;
+  const int n_rep = H / KVH;
+  const int k0 = kt * BM, kw = k0 + 16 * warp;  // the block's and the warp's first keys
+  const float scale2 = mk.scale * kLog2e;
+
+  // query tiles whose rows can see a key of this block
+  const int nq = (mk.sq + BN - 1) / BN;
+  int qt_begin = 0, qt_end = nq;
+  if (mk.causal) {
+    qt_begin = min(max(k0 - mk.offset, 0) / BN, nq);  // row offset + r sees key c iff c <= offset + r
+    if (mk.window > 0) {
+      const int last_key = min(k0 + BM, mk.sk) - 1;
+      const int last_row = last_key + mk.window - 1 - mk.offset;  // row <= key + window - 1 - offset
+      qt_end = last_row < 0 ? 0 : min(last_row / BN + 1, nq);
+    }
+  }
+  const int n_qt = max(qt_end - qt_begin, 0), n_it = n_rep * n_qt;
+
+  load_rows<D, LD, BM, NT>(sK, k, b, mk.sk, KVH, hk, k0);
+  load_rows<D, LD, BM, NT>(sV, v, b, mk.sk, KVH, hk, k0);
+  cp_async_commit();
+  // iteration it: query head hk * n_rep + it / n_qt, query tile qt_begin + it % n_qt
+  auto load_q = [&](int s, int it) {
+    const int h = hk * n_rep + it / n_qt, q0 = (qt_begin + it % n_qt) * BN;
+    load_rows<D, LD, BN, NT>(sQ(s), q, b, mk.sq, H, h, q0);
+    load_rows<D, LD, BN, NT>(sdO(s), dout, b, mk.sq, H, h, q0);
+    const size_t base = (static_cast<size_t>(b) * H + h) * mk.sq + q0;
+    for (int i = tid; i < BN; i += NT) {
+      const bool ok = q0 + i < mk.sq;
+      cp_async4(sL(s) + i, ok ? lse + base + i : lse, ok ? 4 : 0);
+      cp_async4(sDl(s) + i, ok ? delta + base + i : delta, ok ? 4 : 0);
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // this lane's keys: kw + g + 8 r for r in {0, 1}
+  float dkacc[NO][4], dvacc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1, h = hk * n_rep + it / n_qt, q0 = (qt_begin + it % n_qt) * BN;
+    cp_async_wait<0>();
+    __syncthreads();  // stage it (and K, V) landed for every thread; every warp is done with stage it - 1
+    if (it + 1 < n_it) load_q(s ^ 1, it + 1);
+    cp_async_commit();
+    const float slope = ALIBI ? slopes[h] : 0.f;
+    const bf16* qs = sQ(s);
+    const bf16* dos = sdO(s);
+    const float* ls = sL(s);
+    const float* dls = sDl(s);
+#pragma unroll
+    for (int sub = 0; sub < BN / QS; ++sub) {
+      const int r0 = q0 + sub * QS;  // the sub-tile's first query row
+      // which query rows of the sub-tile see the warp's keys: all, some, or none
+      bool none = kw >= mk.sk;
+      bool masked = r0 + QS > mk.sq || kw + 16 > mk.sk;
+      if (mk.causal) {
+        // the pair (row r, key c) is visible iff c <= offset + r and (no window or c > offset + r - window)
+        none = none || kw > mk.offset + r0 + QS - 1 || (mk.window > 0 && kw + 15 <= mk.offset + r0 - mk.window);
+        masked = masked || kw + 15 > mk.offset + r0 || (mk.window > 0 && kw <= mk.offset + r0 + QS - 1 - mk.window);
+      }
+      if (none) continue;
+      float sacc[NQ][4], pacc[NQ][4];  // S^T = K Q^T and dP^T = V dO^T
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = pacc[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, sK + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+        ldsm_x4(va, sV + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          const int off = (sub * QS + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kd * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t r[4];
+          ldsm_x4(r, qs + off);
+          mma_bf16(sacc[2 * np], ka, r[0], r[1]);
+          mma_bf16(sacc[2 * np + 1], ka, r[2], r[3]);
+          ldsm_x4(r, dos + off);
+          mma_bf16(pacc[2 * np], va, r[0], r[1]);
+          mma_bf16(pacc[2 * np + 1], va, r[2], r[3]);
+        }
+      }
+      // P^T and dS^T on the fragments, as the A operands of dV and dK: 16 query rows per k-step
+      uint32_t pa[NQ / 2][4], dsa[NQ / 2][4];
+      auto form_p_ds = [&](auto masked_tag) {
+        constexpr bool MASKED = decltype(masked_tag)::value;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int c = sub * QS + j * 8 + t2;  // this lane's two query rows in the stage
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(dls + c);
+          const float lq[2] = {ALIBI ? l2.x : l2.x * kLog2e, ALIBI ? l2.y : l2.y * kLog2e};
+          const float dl[2] = {d2.x, d2.y};
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw + g + (e < 2 ? 0 : 8), row = q0 + c + (e & 1);
+            const float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(key)) : sacc[j][e];
+            const float x = ALIBI ? (sv - lq[e & 1]) * kLog2e : fmaf(sv, scale2, -lq[e & 1]);
+            p[e] = fast_exp2(x);
+            if (MASKED && !visible(row, key, mk)) p[e] = 0.f;
+            ds[e] = p[e] * (pacc[j][e] - dl[e & 1]) * mk.scale;
+          }
+          pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+          pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+          dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+      };
+      if (masked) {
+        form_p_ds(std::true_type{});
+      } else {
+        form_p_ds(std::false_type{});
+      }
+      // dV += P^T dO and dK += dS^T Q
+#pragma unroll
+      for (int kb = 0; kb < NQ / 2; ++kb)
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          const int off = (sub * QS + kb * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8;
+          uint32_t r[4];
+          ldsm_x4_t(r, dos + off);
+          mma_bf16(dvacc[2 * dp], pa[kb], r[0], r[1]);
+          mma_bf16(dvacc[2 * dp + 1], pa[kb], r[2], r[3]);
+          ldsm_x4_t(r, qs + off);
+          mma_bf16(dkacc[2 * dp], dsa[kb], r[0], r[1]);
+          mma_bf16(dkacc[2 * dp + 1], dsa[kb], r[2], r[3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= mk.sk) continue;
+    const size_t base = ((static_cast<size_t>(b) * mk.sk + key) * KVH + hk) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + base + j * 8 + t2) = pack_bf16(dkacc[j][2 * r], dkacc[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + base + j * 8 + t2) = pack_bf16(dvacc[j][2 * r], dvacc[j][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse, const float* delta,
+              const float* slopes, bf16* dq, int B, int H, int KVH, Mask mk, cudaStream_t stream) {
+  using G = DqGeo<D>;
+  const int n_qt = (mk.sq + G::BM - 1) / G::BM;
+  if (static_cast<long long>(n_qt) * H > 0x7fffffffLL) return kUnsupported;
+  auto kernel = slopes != nullptr ? flash_dq_bf16_kernel<D, true> : flash_dq_bf16_kernel<D, false>;
+  const cudaError_t err = allow_smem(kernel, G::smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_qt * H, B), G::NT, G::smem, stream>>>(q, k, v, dout, lse, delta, slopes, dq, H, KVH, mk, n_qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse, const float* delta,
+               const float* slopes, bf16* dk, bf16* dv, int B, int H, int KVH, Mask mk, cudaStream_t stream) {
+  using G = DkvGeo<D>;
+  const int n_kt = (mk.sk + G::BM - 1) / G::BM;
+  if (static_cast<long long>(n_kt) * KVH > 0x7fffffffLL) return kUnsupported;
+  auto kernel = slopes != nullptr ? flash_dkv_bf16_kernel<D, true> : flash_dkv_bf16_kernel<D, false>;
+  const cudaError_t err = allow_smem(kernel, G::smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_kt * KVH, B), G::NT, G::smem, stream>>>(q, k, v, dout, lse, delta, slopes, dk, dv, H, KVH, mk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+int flash_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                  const float* delta, const float* slopes, bf16* dq, int B, int H, int KVH, int D, Mask mk,
+                  cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, slopes, dq, B, H, KVH, mk, stream);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, slopes, dq, B, H, KVH, mk, stream);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, slopes, dq, B, H, KVH, mk, stream);
+    default: return kUnsupported;
+  }
+}
+
+int flash_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                   const float* delta, const float* slopes, bf16* dk, bf16* dv, int B, int H, int KVH, int D, Mask mk,
+                   cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, slopes, dk, dv, B, H, KVH, mk, stream);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, slopes, dk, dv, B, H, KVH, mk, stream);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, slopes, dk, dv, B, H, KVH, mk, stream);
+    default: return kUnsupported;
+  }
+}
+
+}  // namespace dstorch

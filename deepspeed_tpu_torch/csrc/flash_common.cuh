@@ -1,6 +1,8 @@
 // Definitions shared by the flash attention kernels (flash_attention.cu: the
-// float32 forward, dq and dk/dv; flash_fwd.cu: the bfloat16 forward): the
-// mask, the additive bias and THE masked score every kernel uses.
+// float32 forward, dq and dk/dv, and the bias bodies of the backward;
+// flash_fwd.cu: the bfloat16 forward; flash_bwd.cu: the bfloat16 dq and dk/dv
+// without a bias): the mask, the additive bias and THE masked score every
+// kernel uses.
 #pragma once
 
 #include "common.cuh"
@@ -33,6 +35,17 @@ __device__ __forceinline__ float bias_at(const float* bs, int sqb, int row, int 
   return bs[static_cast<size_t>(sqb == 1 ? 0 : row) * m.sk + col];
 }
 
+// THE mask: query row `row` sees key `col` (both in range, and inside the
+// causal and window band; row r sits at key position offset + r).
+__device__ __forceinline__ bool visible(int row, int col, const Mask& m) {
+  bool vis = row < m.sq && col < m.sk;
+  if (m.causal) {
+    const int r = m.offset + row;
+    vis = vis && col <= r && !(m.window > 0 && col <= r - m.window);
+  }
+  return vis;
+}
+
 // THE masked score (the reference's _scores): raw q.k of query row `row` and
 // key `col` -> fp32 score, or kNegInf where the pair is masked or out of range.
 // The bias enters before the mask, so masked entries are exactly kNegInf.
@@ -40,13 +53,18 @@ __device__ __forceinline__ float bias_at(const float* bs, int sqb, int row, int 
 // no bias code at all (the score loop is what sets their time).
 template <bool HAS_BIAS>
 __device__ __forceinline__ float masked_score(float qk, int row, int col, float slope, float bias, const Mask& m) {
-  if (row >= m.sq || col >= m.sk) return kNegInf;
-  if (m.causal) {
-    const int r = m.offset + row;
-    if (col > r || (m.window > 0 && col <= r - m.window)) return kNegInf;
-  }
+  if (!visible(row, col, m)) return kNegInf;
   const float s = qk * m.scale + slope * static_cast<float>(col);
   return HAS_BIAS ? s + bias : s;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x in one MUFU instruction (ex2.approx, relative error about 2^-22; 2^-huge = +0, 2^0 = 1)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The bfloat16 forward (flash_fwd.cu): o (B, Sq, H, D) bf16 and lse (B, H, Sq)
@@ -54,6 +72,17 @@ __device__ __forceinline__ float masked_score(float qk, int row, int col, float 
 // 0, a cudaError_t, or kUnsupported.
 int flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const float* slopes,
                    Bias bias, __nv_bfloat16* o, float* lse, int B, int H, int KVH, int D, Mask mk,
+                   cudaStream_t stream);
+
+// The bfloat16 backward without a bias (flash_bwd.cu), from dout like q and
+// lse, delta (B, H, Sq) fp32: dq like q; dk, dv like k, each summed over the
+// H / KVH query heads of its KV head. Same returns.
+int flash_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                  const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
+                  __nv_bfloat16* dq, int B, int H, int KVH, int D, Mask mk, cudaStream_t stream);
+int flash_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
+                   __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int KVH, int D, Mask mk,
                    cudaStream_t stream);
 
 }  // namespace dstorch

@@ -3,11 +3,12 @@
 //
 // Replaces, for bf16, the TPU kernel deepspeed_tpu/ops/pallas/flash_attention.py
 // _fwd_kernel (pallas_call at :185, via _flash_fwd, with or without a bias
-// tile); the float32 forward, dq and dk/dv stay in flash_attention.cu. The
-// score is flash_common.cuh's masked_score: q.k * scale + slope * key_pos +
-// bias, kNegInf outside the causal (and window) band, queries aligned to the
-// end of the keys. lse is natural-log (the backward kernels read exp(s - lse));
-// a row that sees no key writes zeros and lse = kNegInf, as the plain version.
+// tile); the float32 forward stays in flash_attention.cu, and the bf16 dq
+// and dk/dv are flash_bwd.cu. The score is flash_common.cuh's masked_score:
+// q.k * scale + slope * key_pos + bias, kNegInf outside the causal (and
+// window) band, queries aligned to the end of the keys. lse is natural-log
+// (the backward kernels read exp(s - lse)); a row that sees no key writes
+// zeros and lse = kNegInf, as the plain version.
 //
 // What bounds it: at gpt2_1_3b's training shape (B 8, S 1024, H 32, D 64,
 // causal) 34 GFLOP of products against 135 MB of q, k, v and o: both bounds
@@ -60,7 +61,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kBM = 128;  // query rows a block
 constexpr int kBN = 64;   // keys a tile
 constexpr int kNT = 256;  // eight warps of 16 rows
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct FwdGeo {
@@ -69,13 +69,6 @@ struct FwdGeo {
   static constexpr size_t kv_bytes = static_cast<size_t>(kBN) * LD * 2;
   static constexpr size_t smem = q_bytes + 4 * kv_bytes;  // Q, then K and V of 2 stages
 };
-
-// 2^x in one MUFU instruction (ex2.approx, relative error about 2^-22; 2^-huge = +0, 2^0 = 1)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -224,15 +217,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
           if constexpr (!FOLD) sv *= mk.scale;
           if constexpr (ALIBI) sv += slope * static_cast<float>(col);
           if constexpr (HAS_BIAS) sv += bv[j][e];
-          if constexpr (MASKED) {
-            const int row = wr + g + (e < 2 ? 0 : 8);
-            bool vis = row < mk.sq && col < mk.sk;
-            if (mk.causal) {
-              const int r = mk.offset + row;
-              vis = vis && col <= r && !(mk.window > 0 && col <= r - mk.window);
-            }
-            sv = vis ? sv : kNegInf;
-          }
+          if constexpr (MASKED) sv = visible(wr + g + (e < 2 ? 0 : 8), col, mk) ? sv : kNegInf;
           sacc[j][e] = sv;
           mx[e >> 1] = fmaxf(mx[e >> 1], sv);
         }

@@ -1,10 +1,11 @@
 // Tensor-core and asynchronous-copy helpers (PTX) for the bf16 bodies of
-// quantized_matmul.cu and flash_fwd.cu: warp-level mma.sync and, for sm_90a,
-// the warpgroup wgmma.
+// quantized_matmul.cu, flash_fwd.cu and flash_bwd.cu: warp-level mma.sync
+// and, for sm_90a, the warpgroup wgmma.
 //
 // - cp_async16: a 16-byte global -> shared copy that bypasses the registers;
 //   src_bytes < 16 fills the rest of the 16 bytes with zeros (0: nothing is
 //   read), which masks a ragged edge without a branch around the copy.
+//   cp_async4 the same for 4 bytes (an fp32 that need not be 16-byte aligned).
 // - ldsm_x4 / ldsm_x4_t / ldsm_x2_t: ldmatrix of four (two) 8 x 8 matrices
 //   of 16-bit elements. Lane l gives the address of row l % 8 of matrix l / 8;
 //   the result's register i is matrix i's fragment (row lane / 4, columns
@@ -28,6 +29,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
                : "memory");
 }
 

@@ -1,0 +1,183 @@
+#!/usr/bin/env python3
+"""Tile choices of the bf16 flash backward (``csrc/flash_bwd.cu``) on one NVIDIA GPU.
+
+    python3 flash_bwd_probe.py            # from the repository root, on a machine with one CUDA GPU
+
+Builds ``flash_bwd.cu`` as it stands and in variants whose tile constants
+(``DqGeo``, ``DkvGeo``) are substituted, each linked with this tree's
+``flash_attention.cu`` and ``flash_fwd.cu`` into ``build/flash_bwd_probe/``,
+and prints one JSON line each:
+1. ``ptxas``: registers and spill-store bytes of every dq and dk/dv entry of
+   each variant;
+2. ``case``: at every ``FLASH_CASES`` case of ``chip_smoke.py`` in bf16,
+   each variant's dq and dk/dv against their plain versions (the per-row
+   relative error of ``chip_smoke.py``'s flash phase, held to 1e-2), whether
+   a second launch gives bit-equal results, and their times from CUDA events
+   beside their bounds.
+The card's name and power limit come first.
+"""
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "deepspeed_tpu_torch", "csrc")
+OUT = os.path.join(HERE, "build", "flash_bwd_probe")
+
+DQ = ("  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 ? 32 : 64;\n"
+      "  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;\n")
+DKV = ("  static constexpr int NW = 4, NT = 32 * NW, BM = 16 * NW, BN = 64, QS = D <= 64 ? 32 : 16;\n"
+       "  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 2;\n")
+# variant name -> (source text, replacement) pairs; each text must occur in flash_bwd.cu
+VARIANTS = {
+    "as_is": [],
+    "dq_ks32": [(DQ, DQ.replace("KS = D <= 64 ? 32 : 64", "KS = 32"))],
+    "dq_ks64_1blk": [(DQ, DQ.replace("KS = D <= 64 ? 32 : 64", "KS = 64").replace("D <= 64 ? 2 : 1", "1"))],
+    "dq_nw4": [(DQ, DQ.replace("NW = 8,", "NW = 4,").replace("D <= 64 ? 2 : 1", "3"))],
+    "dkv_nw8": [(DKV, DKV.replace("NW = 4,", "NW = D <= 64 ? 8 : 4,").replace("D <= 64 ? 3 : 2", "2"))],
+    "dkv_qs16": [(DKV, DKV.replace("QS = D <= 64 ? 32 : 16", "QS = 16"))],
+    "dkv_1blk": [(DKV, DKV.replace("D <= 64 ? 3 : 2", "1"))],
+}
+
+
+def log(obj) -> None:
+    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def build(names):
+    """One library per variant: the variant's flash_bwd.cu with this tree's flash_attention.cu and
+    flash_fwd.cu. Returns {name: (path, ptxas log of flash_bwd.cu)}."""
+    from deepspeed_tpu_torch.ops import _build
+
+    os.makedirs(OUT, exist_ok=True)
+    nvcc = _build._nvcc()
+    src = open(os.path.join(CSRC, "flash_bwd.cu")).read()
+    procs = {}
+    for base in ("flash_attention", "flash_fwd"):
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-c", os.path.join(CSRC, base + ".cu"), "-o",
+               os.path.join(OUT, base + ".o")]
+        procs[base] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name in names:
+        text = src
+        for old, new in VARIANTS[name]:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: text not found in flash_bwd.cu: {old!r}")
+            text = text.replace(old, new)
+        path = os.path.join(OUT, f"flash_bwd_{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-c", path, "-o", path[:-3] + ".o"]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {}
+    for key, proc in procs.items():
+        logs[key] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{logs[key]}")
+    libs = {}
+    for name in names:
+        lib = os.path.join(OUT, f"lib_{name}.so")
+        objs = [os.path.join(OUT, f"{b}.o") for b in ("flash_attention", "flash_fwd")]
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *objs, os.path.join(OUT, f"flash_bwd_{name}.o")],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"link failed for {name}:\n{res.stdout}")
+        libs[name] = (lib, logs[name])
+    return libs
+
+
+def ptxas_entries(text):
+    """(entry, registers, spill-store bytes) of each dq / dk/dv kernel in a ptxas -v log."""
+    out, entry, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and ("flash_dq_bf16_kernel" in entry or "flash_dkv_bf16_kernel" in entry):
+            kind = "dq" if "flash_dq" in entry else "dkv"
+            targs = re.search(r"ILi(\d+)ELb([01])E", entry)
+            out.append(dict(kernel=kind, D=int(targs.group(1)) if targs else None,
+                            alibi=targs.group(2) == "1" if targs else None, registers=int(m.group(1)),
+                            spill_store_bytes=spill))
+            entry = None
+    return out
+
+
+def load(path):
+    from deepspeed_tpu_torch.ops import _build
+
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.startswith("ds_flash"):
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return handle
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_bwd_probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from deepspeed_tpu_torch.models import alibi_slopes
+    from deepspeed_tpu_torch.ops import _build, flash_attention as fa
+
+    names = [n for n in argv if n in VARIANTS] or list(VARIANTS)
+    log(cs.card_line())
+    libs = build(names)
+    for name in names:
+        log(dict(phase="ptxas", variant=name, entries=ptxas_entries(libs[name][1])))
+    handles = {name: load(libs[name][0]) for name in names}
+    dev, dtype = torch.device("cuda", 0), torch.bfloat16
+    for case, c in cs.FLASH_CASES.items():
+        B, Sq, Sk, H, KVH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KVH", "D"))
+        causal, window = c["causal"], c.get("window", 0)
+        g = torch.Generator(device=dev).manual_seed(Sq + H)
+        q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                       for s in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D), (B, Sq, H, D)))
+        slopes = torch.from_numpy(alibi_slopes(H)).to(dev) if c.get("alibi") else None
+        args = (slopes, D**-0.5, causal, window)
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+        bwd = (q, k, v, do, lse_ref, fa.flash_delta(o_ref, do), *args)
+        dq_ref = fa.flash_bwd_dq_ref(*bwd)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bwd)
+        pairs = cs.visible_pairs(Sq, Sk, causal, window) * B * H
+        err = lambda a, b: cs.errors(a, b, b.float().abs().mean().item())["max_rel_err"]
+        saved = _build._lib
+        for name in names:
+            _build._lib = handles[name]
+            try:
+                dq = fa.flash_bwd_dq(*bwd)
+                dk, dv = fa.flash_bwd_dkv(*bwd)
+                torch.cuda.synchronize()
+                again = fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd)
+                torch.cuda.synchronize()
+                rec = dict(phase="case", variant=name, case=case,
+                           dq_err=err(dq, dq_ref), dkv_err=max(err(dk, dk_ref), err(dv, dv_ref)),
+                           repeats=all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+                           dq_ms=cs.time_ms(lambda: fa.flash_bwd_dq(*bwd), 20),
+                           dkv_ms=cs.time_ms(lambda: fa.flash_bwd_dkv(*bwd), 20),
+                           dq_bound_ms=cs.bound(0, 6 * D * pairs, dtype)[0],
+                           dkv_bound_ms=cs.bound(0, 8 * D * pairs, dtype)[0])
+            finally:
+                _build._lib = saved
+            rec["ok"] = rec["dq_err"] <= 1e-2 and rec["dkv_err"] <= 1e-2 and rec["repeats"]
+            log(rec)
+        del q, k, v, do, o_ref, dq_ref, dk_ref, dv_ref, bwd
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -70,21 +70,57 @@ def test_flash_attention_matches_jax(name):
         np.testing.assert_allclose(g, w, atol=TOL, rtol=0, err_msg=label)
 
 
-def test_each_plain_kernel_matches_the_reference_pieces():
-    """Kernel A's plain version gives JAX's (o, lse); B and C's give the dq and
-    (dk, dv) of JAX's vjp when fed the same lse and delta."""
-    q, k, v, do = _inputs(1, 64, 64, 4, 2, 16, seed=1)
+def _np_lse(q, k, scale, causal, window, slopes):
+    """(B, H, Sq) log-sum-exp of the masked scores in float64; NEG_INF for a row that sees no key."""
+    n_rep = q.shape[2] // k.shape[2]
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), np.repeat(k, n_rep, axis=2).astype(np.float64)) * scale
+    Sq, Sk = q.shape[1], k.shape[1]
+    cols = np.arange(Sk)
+    if slopes is not None:
+        s = s + slopes.astype(np.float64)[None, :, None, None] * cols
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        rows = np.arange(Sq)[:, None] + (Sk - Sq)
+        vis = (cols <= rows) & ((cols > rows - window) if window else True)
+    seen = vis.any(-1)
+    m = np.where(vis, s, -np.inf).max(-1, initial=-np.inf)
+    m = np.where(seen, m, 0.0)
+    lse = m + np.log(np.where(vis, np.exp(s - m[..., None]), 0.0).sum(-1) + ~seen)
+    return np.where(seen, lse, fa.NEG_INF)
+
+
+# (B, Sq, Sk, H, KVH, D), then the mask: ragged lengths one below and above the CUDA kernels' 64- and
+# 128-row tiles, a window whose edge crosses a tile, Sq > Sk with a window (leading rows see no key),
+# four query heads a KV head, ALiBi
+PIECE_CASES = {
+    "causal_rep2_d16": ((1, 64, 64, 4, 2, 16), dict(causal=True, scale=0.25)),
+    "ragged_63_65_d32": ((1, 63, 65, 4, 4, 32), dict(causal=True)),
+    "ragged_129_127_d64_noncausal": ((1, 129, 127, 2, 2, 64), dict(causal=False)),
+    "window_crossing_rep4_d32": ((1, 130, 130, 4, 1, 32), dict(causal=True, window=40)),
+    "sq_gt_sk_window_d32": ((1, 96, 65, 4, 2, 32), dict(causal=True, window=24)),
+    "alibi_rep4_d64": ((1, 127, 129, 8, 2, 64), dict(causal=True, alibi=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PIECE_CASES))
+def test_each_plain_kernel_matches_the_reference_pieces(name):
+    """Kernel A's plain version gives JAX's o and the masked log-sum-exp; B and
+    C's give the dq and (dk, dv) of JAX's vjp when fed the same lse and delta."""
+    (B, Sq, Sk, H, KVH, D), kw = PIECE_CASES[name]
+    causal, window = kw["causal"], kw.get("window", 0)
+    scale = kw.get("scale", D**-0.5)
+    slopes = alibi_slopes(H) if kw.get("alibi") else None
+    q, k, v, do = _inputs(B, Sq, Sk, H, KVH, D, seed=1)
     t = [torch.from_numpy(x) for x in (q, k, v, do)]
-    o, lse = fa.flash_fwd(t[0], t[1], t[2], None, 0.25, True, 0)
-    logits = np.einsum("bqhd,bkhd->bhqk", q, np.repeat(k, 2, axis=2)) * 0.25
-    logits = np.where(np.tril(np.ones((64, 64), bool)), logits, -np.inf)
-    np.testing.assert_allclose(lse.numpy(), np.log(np.exp(logits).sum(-1)), atol=1e-5)
+    args = (torch.from_numpy(slopes) if slopes is not None else None, scale, causal, window)
+    o, lse = fa.flash_fwd(t[0], t[1], t[2], *args)
+    np.testing.assert_allclose(lse.numpy(), _np_lse(q, k, scale, causal, window, slopes), atol=1e-5)
     delta = fa.flash_delta(o, t[3])
-    dq = fa.flash_bwd_dq(*t[:3], t[3], lse, delta, None, 0.25, True, 0)
-    dk, dv = fa.flash_bwd_dkv(*t[:3], t[3], lse, delta, None, 0.25, True, 0)
-    want = _jax_out_and_grads(q, k, v, do, causal=True, scale=0.25)
-    for g, w in zip((o, dq, dk, dv), want):
-        np.testing.assert_allclose(g.numpy(), w, atol=TOL)
+    dq = fa.flash_bwd_dq(*t[:3], t[3], lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(*t[:3], t[3], lse, delta, *args)
+    want = _jax_out_and_grads(q, k, v, do, causal=causal, scale=scale, window=window or None, alibi_slopes=slopes)
+    for label, g, w in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), want):
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, err_msg=label)
 
 
 @pytest.mark.parametrize("route", ["segment_ids", "kv_len"])

@@ -375,6 +375,16 @@ def _flash_inputs(dev, dtype, B, Sq, Sk, H, KVH, D, seed=0):
     dict(B=1, Sq=128, Sk=128, H=4, KVH=4, D=64, causal=True, alibi=True),
     dict(B=1, Sq=160, Sk=96, H=4, KVH=2, D=64, causal=True),         # Sq > Sk: leading rows see no key
     dict(B=1, Sq=64, Sk=200, H=8, KVH=2, D=32, causal=False, alibi=True),
+    # the bf16 backward's tile edges (dq: 128 query rows a block, 64 keys a stage, 32 or 64 a sub-tile; dk/dv:
+    # 64 keys a block, 64 queries a stage, 32 or 16 a sub-tile): one below and one above
+    dict(B=1, Sq=127, Sk=127, H=4, KVH=4, D=64, causal=True),
+    dict(B=1, Sq=129, Sk=129, H=4, KVH=1, D=64, causal=True),       # n_rep 4
+    dict(B=1, Sq=65, Sk=63, H=8, KVH=1, D=128, causal=True),        # n_rep 8, Sq > Sk
+    dict(B=2, Sq=191, Sk=193, H=4, KVH=4, D=32, causal=False),
+    dict(B=1, Sq=320, Sk=320, H=4, KVH=1, D=64, causal=True, window=100),   # the window's edge crosses tiles
+    dict(B=1, Sq=300, Sk=200, H=8, KVH=1, D=128, causal=True, window=70),   # Sq > Sk with a window
+    dict(B=1, Sq=257, Sk=257, H=4, KVH=4, D=128, causal=True, alibi=True),
+    dict(B=2, Sq=129, Sk=255, H=8, KVH=8, D=32, causal=True, window=33, alibi=True),
 ])
 def test_flash_kernels(cuda, dtype, case):
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -402,6 +412,29 @@ def test_flash_kernels(cuda, dtype, case):
             for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
     errs["lse"] = (lse - lse_ref).abs().max().item()
     assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv")), errs
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=2, Sq=1024, Sk=1024, H=8, KVH=8, D=64, causal=True),
+    dict(B=1, Sq=515, Sk=515, H=8, KVH=2, D=128, causal=True, window=200, alibi=True),
+    dict(B=1, Sq=300, Sk=200, H=8, KVH=1, D=32, causal=False),
+])
+def test_flash_backward_repeats_bit_for_bit(cuda, case):
+    """Two launches of the bf16 dq and dk/dv give bit-equal results: no atomics, a fixed order over the group."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    case = dict(case)
+    causal, window, alibi = case.pop("causal"), case.pop("window", 0), case.pop("alibi", False)
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, **case)
+    slopes = torch.tensor([0.5 ** (i + 1) for i in range(case["H"])], device=cuda) if alibi else None
+    args = (slopes, case["D"] ** -0.5, causal, window)
+    o, lse = fa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, do, lse, fa.flash_delta(o, do), *args)
+    first = (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))
+    second = (fa.flash_bwd_dq(*bwd), *fa.flash_bwd_dkv(*bwd))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.isfinite(t).all() for t in first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
