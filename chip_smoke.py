@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step and v1
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
-    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul and bf16 flash kernels beside this tree's
+    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash and paged kernels beside this tree's
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -21,7 +21,13 @@ Phases, each fatal on failure:
    1024 tokens (at 8 and 64 also cold, in device time from a CUDA graph:
    rotating over copies of the codes, and of the library's dense weight,
    of over 100 MB, twice the L2), and
-   paged decode and prefill on int8 pools at both models' heads;
+   paged decode and prefill on int8 pools at both models' heads and on bf16
+   pools at gpt2_1_3b's; decode at B 64 and prefill at 2 x 512 of each pool
+   and geometry also with ALiBi (``alibi_slopes(32)``) and with a window
+   (4,096, 512 at gpt2_1_3b's context of 1,024; the prefill's second row
+   then starts at 7,680 so that it cuts); decode at B 8 and prefill at
+   2 x 16 also cold, in device time from a CUDA graph rotating over copies of
+   the pools, and of SDPA's dense K/V, of over 100 MB;
 4. step parity: one prefill quantum and one mixed decode + prefill quantum
    of llama3_8b at full width and 4 layers, run with the kernels and with
    their plain versions; logits and KV pools (garbage block 0 excluded)
@@ -87,11 +93,12 @@ Phases, each fatal on failure:
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
-DIR and stand in for this tree's ``quantized_matmul`` and flash forward, dq
-and dk/dv while each of their cases is timed again (``parent_ms``; the bias
-cases of dq and dk/dv run the same body on both sides and are not timed
-again), and the two quantised serving runs and the training run are
-repeated on them.
+DIR and stand in for this tree's ``quantized_matmul``, flash forward, dq
+and dk/dv and paged decode and prefill while each of their cases is timed
+again (``parent_ms``; the bias cases of dq and dk/dv run the same body on
+both sides and are not timed again, and the ALiBi and window cases of the
+paged kernels are not in the parent's), and the three serving runs and the
+training run are repeated on them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -195,23 +202,52 @@ def time_ms_rotating(fn, operands, iters: int) -> float:
 
 
 # --parent DIR: the kernels of another checkout (e.g. ``git archive`` of the parent commit, unpacked
-# under build/), built from DIR's own sources, stand in for this tree's quantized_matmul and flash
-# forward, dq and dk/dv while a phase times them or runs a path with them ("parent" numbers, from the
-# same run)
+# under build/), built from DIR's own sources, stand in for this tree's quantized_matmul, flash
+# forward, dq and dk/dv and paged decode and prefill while a phase times them or runs a path with them
+# ("parent" numbers, from the same run)
 PARENT = {"lib": None}
+
+
+class OldPagedEntry:
+    """A paged decode or prefill entry point whose C interface predates the ALiBi slopes, the workspace,
+    the window and the split plan, called with this tree's arguments (the slopes null and the window 0:
+    the old kernels took neither; the workspace and the plan are dropped)."""
+
+    OLD_ARGS = {"ds_paged_attention_decode": 17, "ds_paged_attention_prefill": 19}
+
+    def __init__(self, name, fn):
+        self.name, self.fn = name, fn
+
+    def __call__(self, *args):
+        if self.name == "ds_paged_attention_decode":
+            q, kp, vp, ks, vs, bt, ctx, slopes, out, _ws, B, H, KVH, D, bs, P, window, _n, _keys, *rest = args
+            head, dims = (q, kp, vp, ks, vs, bt, ctx), (B, H, KVH, D, bs, P)
+        else:
+            q, kp, vp, ks, vs, bt, ctx, qpos0, slopes, out, _ws, B, S, H, KVH, D, bs, P, window, _n, *rest = args
+            head, dims = (q, kp, vp, ks, vs, bt, ctx, qpos0), (B, S, H, KVH, D, bs, P)
+        if slopes is not None or window:
+            raise NotImplementedError(f"{self.name}: the parent's kernel takes no ALiBi or window")
+        return self.fn(*head, out, *dims, *rest)
 
 
 class ParentKernels:
     """This tree's kernel library with the entry points in ``STAND_IN``
-    taken from another build with the same C interface."""
+    taken from another build (the paged ones through ``OldPagedEntry``
+    where that build has the old C interface)."""
 
-    STAND_IN = ("ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq", "ds_flash_bwd_dkv")
+    STAND_IN = ("ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq", "ds_flash_bwd_dkv",
+                "ds_paged_attention_decode", "ds_paged_attention_prefill")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
 
     def __getattr__(self, name):
-        return getattr(self._other if name in self.STAND_IN else self._lib, name)
+        if name not in self.STAND_IN:
+            return getattr(self._lib, name)
+        fn = getattr(self._other, name)
+        if len(fn.argtypes) == OldPagedEntry.OLD_ARGS.get(name):
+            return OldPagedEntry(name, fn)
+        return fn
 
 
 def load_parent(path: str):
@@ -312,7 +348,66 @@ def kv_bytes(slots, KVH, D, item, int8):
     return slots * KVH * 2 * ((D + 4) if int8 else D * item)
 
 
-def phase_decode(torch, dev, dtype, B, iters, geom=GEOM, int8=False):
+def paged_features(torch, dev, feature, geom):
+    """ALiBi slopes (fp32 (H,) on the device) and window (0: none) of a kernel case: ``alibi`` takes
+    ``alibi_slopes(H)`` (bloom's), ``window`` mistral's 4,096 (scaled to the geometry's context, 512 of
+    gpt2_1_3b's 1,024, so that it cuts there too)."""
+    from deepspeed_tpu_torch.models import alibi_slopes
+
+    slopes = torch.from_numpy(alibi_slopes(geom["H"])).to(dev) if feature == "alibi" else None
+    window = 4096 * geom["P"] * geom["bs"] // 8192 if feature == "window" else 0
+    return slopes, window
+
+
+def sdpa_mask(torch, slopes, window, L, qpos, cl, dtype):
+    """SDPA's mask for a paged case over the dense keys [0, L): query positions ``qpos`` (B, Sq) see the keys
+    before their row's ctx ``cl``, at or before themselves and inside the window; boolean (B, 1, Sq, L), or
+    with ALiBi slopes float (B, H, Sq, L) in ``dtype``: -inf outside, + slope * key position inside."""
+    kpos = torch.arange(L, device=qpos.device)
+    allowed = (kpos[None, None, :] <= qpos[:, :, None]) & (kpos[None, None, :] < cl[:, None, None])
+    if window:
+        allowed = allowed & (kpos[None, None, :] > qpos[:, :, None] - window)
+    allowed = allowed[:, None]
+    if slopes is None:
+        return allowed
+    bias = slopes[None, :, None, None] * kpos.float()
+    return bias.masked_fill(~allowed, float("-inf")).to(dtype)
+
+
+def paged_tol(torch, dtype, slopes, last_key, v_pages) -> tuple:
+    """TOL, and in fp32 with ALiBi the plain version's own rounding on top: a score of magnitude up to
+    S = max slope * the last key position rounds to fp32 with an error of up to 2**-24 S, which moves that
+    key's weight by as much relatively, on either side (scores reach 6,900 at llama3_8b's 8,192 keys)."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    what, tol = TOL[str(dtype)]
+    if dtype != torch.float32 or slopes is None:
+        return what, tol
+    v = pa.dequantize_kv(v_pages) if pa.kv_pool_is_quantized(v_pages) else v_pages
+    return what, tol + 2 * 2**-24 * slopes.abs().max().item() * last_key * v.abs().max().item()
+
+
+def cold_ms(torch, fn, tensors, iters):
+    """Device time of ``fn(*tensors)`` from a CUDA graph rotating over copies of ``tensors`` (nested tuples
+    of tensors, like an int8 pool) whose bytes together pass 100 MB, twice the L2: every launch finds them
+    in device memory, as a serving step finds its pools."""
+    def nbytes(t):
+        return sum(nbytes(x) for x in t) if isinstance(t, tuple) else t.numel() * t.element_size()
+
+    def clone(t):
+        return tuple(clone(x) for x in t) if isinstance(t, tuple) else t.clone()
+
+    copies = [clone(tuple(tensors)) for _ in range(max(2, 100_000_000 // nbytes(tuple(tensors)) + 1))]
+    ms = time_ms_rotating(fn, copies, iters)
+    del copies
+    return ms
+
+
+def phase_decode(torch, dev, dtype, B, iters, geom=GEOM, int8=False, feature="none"):
+    """Decode at ``geom``'s heads over B rows of seeded contexts (up to P bs, one padded row on the garbage
+    page) against its plain version; kernel, parent, plain and SDPA times, and at B = 8 without a feature
+    also cold device times of the kernel, the parent and SDPA."""
+    from deepspeed_tpu_torch.device import sm_count
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     H, KVH, D, bs, P = (geom[k] for k in ("H", "KVH", "D", "bs", "P"))
@@ -325,36 +420,52 @@ def phase_decode(torch, dev, dtype, B, iters, geom=GEOM, int8=False):
         kd, vd = pa.dequantize_kv(kp).to(dtype), pa.dequantize_kv(vp).to(dtype)
     q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
     scale = D**-0.5
-    got = pa.paged_attention_decode(q, kp, vp, bt, cl, scale)
+    slopes, window = paged_features(torch, dev, feature, geom)
+    kw = dict(alibi_slopes=slopes, window=window or None)
+    got = pa.paged_attention_decode(q, kp, vp, bt, cl, scale, **kw)
     torch.cuda.synchronize()
-    want = pa.paged_attention_decode_ref(q, kp, vp, bt, cl, scale)
+    want = pa.paged_attention_decode_ref(q, kp, vp, bt, cl, scale, **kw)
     err = errors(got, want)
     item = q.element_size()
-    live = sum(ctx)
+    live = sum(min(c, window) if window else c for c in ctx)
     nbytes = kv_bytes(live, KVH, D, item, int8) + 2 * q.numel() * item + bt.numel() * 4 + cl.numel() * 4
     flops = 4 * live * H * D
     b_ms, b_by = bound(nbytes, flops, dtype)
-    k_ms = time_ms(lambda: pa.paged_attention_decode(q, kp, vp, bt, cl, scale), iters)
-    p_ms = time_ms(lambda: pa.paged_attention_decode_ref(q, kp, vp, bt, cl, scale), max(3, iters // 20))
+    run = lambda: pa.paged_attention_decode(q, kp, vp, bt, cl, scale, **kw)
+    k_ms = time_ms(run, iters)
+    p_ms = time_ms(lambda: pa.paged_attention_decode_ref(q, kp, vp, bt, cl, scale, **kw), max(3, iters // 20))
     k, v, L = dense_kv(torch, kd, vd, bt, cl)
-    mask = (torch.arange(L, device=dev)[None, :] < cl[:, None])[:, None, None, :]
+    mask = sdpa_mask(torch, slopes, window, L, (cl - 1)[:, None], cl, dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    l_ms = time_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask, scale=scale, enable_gqa=True),
-                   max(3, iters // 4))
-    l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel()
+    lib = lambda kk, vv: sdpa(q[:, :, None], kk, vv, attn_mask=mask, scale=scale, enable_gqa=True)
+    l_ms = time_ms(lambda: lib(k, v), max(3, iters // 4))
+    l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel() * mask.element_size()
+    cold = {}
+    if B == 8 and feature == "none":
+        kcold = lambda kk, vv: pa.paged_attention_decode(q, kk, vv, bt, cl, scale)
+        cold = dict(kernel_cold_ms=cold_ms(torch, kcold, (kp, vp), iters),
+                    parent_cold_ms=parent_time(cold_ms, torch, kcold, (kp, vp), iters),
+                    library_cold_ms=cold_ms(torch, lib, (k, v), iters))
     del k, v
     return dict(kernel="paged_attention_decode", pool="int8" if int8 else str(dtype), dtype=str(dtype),
                 shape=f"q({B},{H},{D}) pool({kd.shape[0]},{bs},"
-                f"{KVH},{D}) bt({B},{P})", ctx=sorted(set(ctx)), **err, tol=TOL[str(dtype)], kernel_ms=k_ms,
-                plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes, bound_bytes=nbytes, bound_ms=b_ms,
-                bound_by=b_by)
+                f"{KVH},{D}) bt({B},{P})", features=feature, window=window, ctx=sorted(set(ctx)), **err,
+                tol=paged_tol(torch, dtype, slopes, max(ctx), vp), kernel_ms=k_ms, parent_ms=None if feature != "none" else parent_time(
+                    time_ms, run, iters), plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes, **cold,
+                plan=pa._decode_plan(B, KVH, P, bs, sm_count(dev)) if dtype == torch.bfloat16 else None,
+                bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_prefill(torch, dev, dtype, S, iters, geom=GEOM, int8=False):
+def phase_prefill(torch, dev, dtype, S, iters, geom=GEOM, int8=False, feature="none"):
+    """Prefill of 2 x S queries at ``geom``'s heads (row 0 from position 0, row 1 continuing a context of
+    1,000, or of 7,680 with a window, so that the window cuts) against its plain version; kernel, parent,
+    plain and SDPA times, and at S = 16 without a feature also cold device times."""
+    from deepspeed_tpu_torch.device import sm_count
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     H, KVH, D, bs, P = (geom[k] for k in ("H", "KVH", "D", "bs", "P"))
-    q0 = [0, min(1000, P * bs - 512)]  # row 1 continues a context: its chunk starts at this position
+    slopes, window = paged_features(torch, dev, feature, geom)
+    q0 = [0, min(7680 if window else 1000, P * bs - 512)]  # row 1 continues a context: its chunk starts here
     ctx = [p + S for p in q0]
     kd, vd, bt, cl, g = paged_case(torch, dev, dtype, ctx, H, KVH, D, bs, P, seed=S)
     kp, vp = int8_pools(kd, vd) if int8 else (kd, vd)
@@ -363,28 +474,41 @@ def phase_prefill(torch, dev, dtype, S, iters, geom=GEOM, int8=False):
     q = torch.randn((2, S, H, D), generator=g, device=dev).to(dtype)
     pos = (torch.tensor(q0, dtype=torch.int32)[:, None] + torch.arange(S, dtype=torch.int32)[None]).to(dev)
     scale = D**-0.5
-    got = pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale)
+    kw = dict(alibi_slopes=slopes, window=window or None)
+    got = pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale, **kw)
     torch.cuda.synchronize()
-    want = pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale)
+    want = pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale, **kw)
     err = errors(got, want)
     item = q.element_size()
-    visible = sum(min(c, p0 + s + 1) for c, p0 in zip(ctx, q0) for s in range(S))
-    nbytes = kv_bytes(sum(ctx), KVH, D, item, int8) + 2 * q.numel() * item + bt.numel() * 4 + 2 * 4 + pos.numel() * 4
+    lo = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
+    visible = sum(min(c, p0 + s + 1) - lo(p0 + s) for c, p0 in zip(ctx, q0) for s in range(S))
+    read = sum(c - lo(p0) for c, p0 in zip(ctx, q0))  # the keys some query of the row sees
+    nbytes = kv_bytes(read, KVH, D, item, int8) + 2 * q.numel() * item + bt.numel() * 4 + 2 * 4 + pos.numel() * 4
     flops = 4 * visible * H * D
     b_ms, b_by = bound(nbytes, flops, dtype)
-    k_ms = time_ms(lambda: pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale), iters)
-    p_ms = time_ms(lambda: pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale), max(3, iters // 20))
+    run = lambda: pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale, **kw)
+    k_ms = time_ms(run, iters)
+    p_ms = time_ms(lambda: pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale, **kw), max(3, iters // 20))
     k, v, L = dense_kv(torch, kd, vd, bt, cl)
-    kpos = torch.arange(L, device=dev)
-    mask = ((kpos[None, None, :] < cl[:, None, None]) & (kpos[None, None, :] <= pos[:, :, None]))[:, None]
+    mask = sdpa_mask(torch, slopes, window, L, pos, cl, dtype)
     qh = q.permute(0, 2, 1, 3).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    l_ms = time_ms(lambda: sdpa(qh, k, v, attn_mask=mask, scale=scale, enable_gqa=True), max(3, iters // 4))
-    l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel()
+    lib = lambda kk, vv: sdpa(qh, kk, vv, attn_mask=mask, scale=scale, enable_gqa=True)
+    l_ms = time_ms(lambda: lib(k, v), max(3, iters // 4))
+    l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel() * mask.element_size()
+    cold = {}
+    if S == 16 and feature == "none":
+        kcold = lambda kk, vv: pa.paged_attention_prefill(q, kk, vv, bt, cl, pos, scale)
+        cold = dict(kernel_cold_ms=cold_ms(torch, kcold, (kp, vp), iters),
+                    parent_cold_ms=parent_time(cold_ms, torch, kcold, (kp, vp), iters),
+                    library_cold_ms=cold_ms(torch, lib, (k, v), iters))
     del k, v
     return dict(kernel="paged_attention_prefill", pool="int8" if int8 else str(dtype), dtype=str(dtype),
-                shape=f"q(2,{S},{H},{D}) kv_heads={KVH} qpos0={q0} ctx={ctx}",
-                **err, tol=TOL[str(dtype)], kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes,
+                shape=f"q(2,{S},{H},{D}) kv_heads={KVH} qpos0={q0} ctx={ctx}", features=feature, window=window,
+                **err, tol=paged_tol(torch, dtype, slopes, max(ctx), vp), kernel_ms=k_ms,
+                parent_ms=None if feature != "none" else parent_time(
+                    time_ms, run, iters), plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes, **cold,
+                plan=pa._prefill_plan(2, S, H, KVH, P, bs, sm_count(dev)) if dtype == torch.bfloat16 else None,
                 bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -474,15 +598,10 @@ def phase_qmm(torch, dev, dtype, M, K, N, bits, iters):
     l_ms = time_ms(lambda: torch.matmul(x, dense), iters)
     cold = {}
     if M <= 64:
-        codes_bytes = q.numel() + scales.numel() * 4
-        copies = [(q.clone(), scales.clone()) for _ in range(max(2, 100_000_000 // codes_bytes + 1))]
         kcold = lambda qq, ss: qm.quantized_matmul(x, qq, ss, packed=packed)
-        cold["kernel_cold_ms"] = time_ms_rotating(kcold, copies, iters)
-        cold["parent_cold_ms"] = parent_time(time_ms_rotating, kcold, copies, iters)
-        del copies
-        dense_copies = [(dense.clone(),) for _ in range(max(2, 100_000_000 // (dense.numel() * item) + 1))]
-        cold["library_cold_ms"] = time_ms_rotating(lambda d: torch.matmul(x, d), dense_copies, iters)
-        del dense_copies
+        cold["kernel_cold_ms"] = cold_ms(torch, kcold, (q, scales), iters)
+        cold["parent_cold_ms"] = parent_time(cold_ms, torch, kcold, (q, scales), iters)
+        cold["library_cold_ms"] = cold_ms(torch, lambda d: torch.matmul(x, d), (dense,), iters)
     del dense
     dq_ms = time_ms(lambda: torch.matmul(x, qm._dequantize_kgroups(q, scales, packed).to(dtype)), few)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -511,12 +630,17 @@ def run_cases(torch, cases):
 
 
 def run_kernel_phases(torch, dev, quick: bool):
-    """The three kernels of unquantised serving at llama3_8b's shapes."""
+    """The three kernels of unquantised serving at llama3_8b's shapes; decode (B 64) and prefill (2 x 512)
+    also with ALiBi and with a window."""
     iters = 5 if quick else 50
     sizes = [(phase_decode, 64), (phase_prefill, 512), (phase_rms, 768)] if quick else [
         (phase_decode, 8), (phase_decode, 64), (phase_prefill, 16), (phase_prefill, 256), (phase_prefill, 512),
         (phase_rms, 8), (phase_rms, 768), (phase_rms, 2048)]
-    return run_cases(torch, [lambda dt, fn=fn, n=n: fn(torch, dev, dt, n, iters) for fn, n in sizes])
+    cases = [lambda dt, fn=fn, n=n: fn(torch, dev, dt, n, iters) for fn, n in sizes]
+    if not quick:
+        cases += [lambda dt, fn=fn, n=n, f=f: fn(torch, dev, dt, n, iters, feature=f)
+                  for f in ("alibi", "window") for fn, n in ((phase_decode, 64), (phase_prefill, 512))]
+    return run_cases(torch, cases)
 
 
 def run_quant_kernel_phases(torch, dev, quick: bool):
@@ -525,8 +649,8 @@ def run_quant_kernel_phases(torch, dev, quick: bool):
     iters = 5 if quick else 30
     norm = lambda T: lambda dt: phase_layer_norm(torch, dev, dt, T, iters)
     qmm = lambda M, K, N, bits: lambda dt: phase_qmm(torch, dev, dt, M, K, N, bits, iters)
-    decode = lambda B, geom: lambda dt: phase_decode(torch, dev, dt, B, iters, geom, int8=True)
-    prefill = lambda S, geom: lambda dt: phase_prefill(torch, dev, dt, S, iters, geom, int8=True)
+    decode = lambda B, geom, f="none": lambda dt: phase_decode(torch, dev, dt, B, iters, geom, int8=True, feature=f)
+    prefill = lambda S, geom, f="none": lambda dt: phase_prefill(torch, dev, dt, S, iters, geom, int8=True, feature=f)
     if quick:
         return run_cases(torch, [norm(768), qmm(64, 2048, 8192, 8), qmm(64, 4096, 14336, 4), decode(64, GPT2_GEOM),
                                  prefill(512, GPT2_GEOM)])
@@ -535,6 +659,11 @@ def run_quant_kernel_phases(torch, dev, quick: bool):
               for M in (8, 64, 512, 1024)]
     for geom in (GPT2_GEOM, GEOM):
         cases += [decode(B, geom) for B in (8, 64)] + [prefill(S, geom) for S in (16, 256, 512)]
+        cases += [case(n, geom, f) for f in ("alibi", "window") for case, n in ((decode, 64), (prefill, 512))]
+    # the bf16 pool at gpt2_1_3b's heads (MHA, D 64), with and without ALiBi and a window
+    plain = lambda fn, n, f: lambda dt: fn(torch, dev, dt, n, iters, GPT2_GEOM, feature=f)
+    cases += [plain(fn, n, f) for f in ("none", "alibi", "window") for fn, n in ((phase_decode, 64),
+                                                                                  (phase_prefill, 512))]
     return run_cases(torch, cases)
 
 
@@ -1053,7 +1182,9 @@ def profile_serve(torch, engine, waves, model) -> None:
             engine.generate(wave, max_new_tokens=32)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cats = {"paged_attention_decode": ("decode_kernel",), "paged_attention_prefill": ("prefill_kernel",),
+    # paged_decode_kernel (bf16) and decode_kernel (fp32); a combine of split partials counts as decode
+    cats = {"paged_attention_decode": ("decode_kernel", "paged_combine_kernel"),
+            "paged_attention_prefill": ("prefill_kernel",),
             "rms_norm": ("rms_norm",), "layer_norm": ("layer_norm_vec", "layer_norm_plain"),
             "quantized_matmul": ("qmm_",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
             "copy": ("Memcpy", "Memset")}
@@ -2176,11 +2307,11 @@ CSRC, TPU_OPS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/"
 # fields (matched by their start) of the record that represents the kernel, its source, the TPU kernel.
 KERNEL_ROWS = [
     ("paged_attention_decode", "llama3_8b", "paged_attention_decode", "bfloat16",
-     dict(kernel="paged_attention_decode", pool="torch", shape="q(64,32,128)"), "paged_attention.cu",
+     dict(kernel="paged_attention_decode", pool="torch", shape="q(64,32,128)", features="none"), "paged_decode.cu",
      "pallas/paged_attention.py:386"),
     ("paged_attention_prefill", "llama3_8b", "paged_attention_prefill", "bfloat16",
-     dict(kernel="paged_attention_prefill", pool="torch", shape="q(2,512,32,128)"), "paged_attention.cu",
-     "pallas/paged_attention.py:531"),
+     dict(kernel="paged_attention_prefill", pool="torch", shape="q(2,512,32,128)", features="none"),
+     "paged_prefill.cu", "pallas/paged_attention.py:531"),
     ("rms_norm", "llama3_8b", "rms_norm", "bfloat16", dict(kernel="rms_norm", shape="x(1,768,4096)"), "rms_norm.cu",
      "pallas/norms.py:45"),
     ("layer_norm", "gpt2_1_3b_w8_kv8", "layer_norm", "bfloat16", dict(kernel="layer_norm", shape="x(1,768,2048)"),
@@ -2192,11 +2323,11 @@ KERNEL_ROWS = [
      dict(kernel="quantized_matmul", shape="x(64,4096) codes(2048,14336)"), "quantized_matmul.cu",
      "pallas/quantized_matmul.py:140"),
     ("paged_attention_decode (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_decode", "bfloat16",
-     dict(kernel="paged_attention_decode", pool="int8", shape="q(64,32,64)"), "paged_attention.cu",
+     dict(kernel="paged_attention_decode", pool="int8", shape="q(64,32,64)", features="none"), "paged_decode.cu",
      "pallas/paged_attention.py:386"),
     ("paged_attention_prefill (int8 pool)", "gpt2_1_3b_w8_kv8", "paged_attention_prefill", "bfloat16",
-     dict(kernel="paged_attention_prefill", pool="int8", shape="q(2,512,32,64)"), "paged_attention.cu",
-     "pallas/paged_attention.py:531"),
+     dict(kernel="paged_attention_prefill", pool="int8", shape="q(2,512,32,64)", features="none"),
+     "paged_prefill.cu", "pallas/paged_attention.py:531"),
     ("flash_fwd", "train", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="gpt2_1_3b"), "flash_fwd.cu",
      "pallas/flash_attention.py:185"),
     ("flash_bwd_dq", "train", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq", case="gpt2_1_3b"),
@@ -2317,6 +2448,7 @@ def main(argv) -> int:
     if PARENT["lib"] is not None:  # the same paths on the parent's kernels, for comparison only
         log(dict(phase="parent kernels", begin=True))
         with parent_kernels():
+            phase_serve(torch, dev, counters, "llama3_8b", profile)
             phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
             phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
             phase_train(torch, dev, counters + train_counters, profile)

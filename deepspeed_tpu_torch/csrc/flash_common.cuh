@@ -67,6 +67,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The max and the sum over the 4 lanes of a quad: the lanes that hold one row of an mma.sync C fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // The bfloat16 forward (flash_fwd.cu): o (B, Sq, H, D) bf16 and lse (B, H, Sq)
 // fp32 from q (B, Sq, H, D), k, v (B, Sk, KVH, D); D in {32, 64, 128}. Returns
 // 0, a cudaError_t, or kUnsupported.

@@ -70,16 +70,6 @@ struct FwdGeo {
   static constexpr size_t smem = q_bytes + 4 * kv_bytes;  // Q, then K and V of 2 stages
 };
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Grid (n_qt * H, B): x = (n_qt - 1 - query tile) * H + head. Eight warps of
 // 16 rows: four warps of 32 rows (each K and V fragment serving two m16
 // tiles) were slower on an H100 at gpt2_1_3b's shape, their registers

@@ -4,6 +4,7 @@ There is no silent fallback: asking for ``"cuda"`` (the default) on a
 machine without a GPU raises, and the CPU runs only when named.
 """
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -23,3 +24,10 @@ def resolve_device(name: Optional[Union[str, torch.device]] = "cuda") -> torch.d
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, asked once: the bf16
+    kernels' launch plans read it on the host."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -37,8 +37,8 @@ SIGNATURES: Dict[str, List] = {
     "ds_rms_norm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "ds_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "ds_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "ds_paged_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "ds_paged_attention_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "ds_paged_attention_decode": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
+    "ds_paged_attention_prefill": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
     "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "ds_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_P, _P] + [_I] * 6 + [_F, _I, _I, _I, _P],
     "ds_flash_dq_collapsed_parts": [_I] * 7,

@@ -7,9 +7,16 @@ slot mapping (token -> block * block_size + offset) for writes.
 
 - ``paged_attention_decode`` (one query token per row) and
   ``paged_attention_prefill`` (a chunk of consecutive positions per row)
-  are hand-written CUDA kernels (``csrc/paged_attention.cu``) with plain
-  PyTorch versions beside them; a CPU tensor takes the plain version, a
-  CUDA tensor launches the kernel or raises.
+  are hand-written CUDA kernels with plain PyTorch versions beside them; a
+  CPU tensor takes the plain version, a CUDA tensor launches the kernel or
+  raises. ``csrc/paged_attention.cu`` holds the entry points and the
+  float32 bodies; a bf16 q goes to ``csrc/paged_decode.cu`` (the context
+  split across blocks, then a fixed-order combine) and
+  ``csrc/paged_prefill.cu`` (tensor-core tiles). Every body takes ALiBi
+  slopes and a sliding window.
+- ``_decode_plan`` and ``_prefill_plan`` give the bf16 launches their split
+  counts from shapes and the SM count alone, never from ``ctx_lens``: the
+  launches need no device-to-host sync.
 - ``paged_attention_ref`` is the gather-based reference, and
   ``paged_attention_mixed`` routes a fused quantum's decode and prefill
   rows exactly as the reference does.
@@ -27,10 +34,11 @@ donates them. The TP sharding helpers come with a later slice.
 """
 
 import functools
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..device import sm_count
 from . import _build
 
 NEG_INF = -1e30
@@ -217,6 +225,65 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# The bf16 launch plans (csrc/paged_decode.cu, csrc/paged_prefill.cu).
+# The constants are paged_probe.py's best on an H100 SXM (PERF.md).
+TILE_KEYS = 64                 # keys of a prefill tile; decode splits are whole multiples of it
+DECODE_BLOCKS_PER_SM = 32      # decode's grid aims at this many blocks an SM; splits past ctx exit at once
+DECODE_MIN_SPLIT_KEYS = 256    # a decode split walks at least this many keys
+PREFILL_ROWS = 64              # score rows (query positions x heads of a KV head) of a prefill block
+PREFILL_BLOCKS_PER_SM = 1      # a split prefill grid aims at about one block an SM
+
+
+def _decode_plan(B: int, KVH: int, P: int, bs: int, sms: int) -> Tuple[int, int]:
+    """The bf16 decode's ``(splits, split_keys)``: split j covers key
+    positions [j split_keys, (j + 1) split_keys) of a row's P bs slots, so
+    the splits cover them with no gap and no empty tail. From host-known
+    values only: the grid (splits, KVH, B) aims at ``DECODE_BLOCKS_PER_SM``
+    blocks an SM (the longest context is unknown, and a split past a row's
+    ctx exits at once), with at least ``DECODE_MIN_SPLIT_KEYS`` keys a split."""
+    L = P * bs
+    want = -(-DECODE_BLOCKS_PER_SM * sms // max(1, B * KVH))
+    splits = max(1, min(want, -(-L // DECODE_MIN_SPLIT_KEYS)))
+    per = -(-L // splits)
+    keys = -(-per // TILE_KEYS) * TILE_KEYS
+    return -(-L // keys), keys
+
+
+def _prefill_plan(B: int, S: int, H: int, KVH: int, P: int, bs: int, sms: int) -> int:
+    """The bf16 prefill's split count: 1 unless its blocks (``PREFILL_ROWS``
+    score rows of one KV head each) are fewer than the SMs; then each
+    block's key tiles are dealt round-robin to splits, toward
+    ``PREFILL_BLOCKS_PER_SM`` blocks an SM, never more splits than tiles."""
+    blocks = -(-S // (PREFILL_ROWS // (H // KVH))) * B * KVH
+    if blocks >= sms:
+        return 1
+    return max(1, min(-(-PREFILL_BLOCKS_PER_SM * sms // blocks), -(-P * bs // TILE_KEYS)))
+
+
+_SLOPES: Dict[tuple, torch.Tensor] = {}  # (device, slopes) -> the fp32 slopes on that device
+
+
+def _features(name: str, alibi_slopes, window, H: int, device: torch.device):
+    """The kernels' ALiBi slopes (an fp32 (H,) tensor on ``device``, or None;
+    copied there once per distinct set of slopes) and window (0: none)."""
+    win = int(window or 0)
+    if win < 0:
+        raise ValueError(f"{name}: the window must not be negative, got {window}")
+    if alibi_slopes is None:
+        return None, win
+    if isinstance(alibi_slopes, torch.Tensor) and alibi_slopes.device == device:
+        slopes = alibi_slopes.reshape(-1).to(torch.float32).contiguous()
+    else:
+        values = tuple(torch.as_tensor(alibi_slopes, dtype=torch.float32).reshape(-1).cpu().tolist())
+        key = (device, values)
+        if key not in _SLOPES:
+            _SLOPES[key] = torch.tensor(values, dtype=torch.float32, device=device)
+        slopes = _SLOPES[key]
+    if slopes.numel() != H:
+        raise ValueError(f"{name}: {slopes.numel()} ALiBi slopes for {H} heads")
+    return slopes, win
+
+
 def paged_attention_decode(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
                            block_tables: torch.Tensor, ctx_lens: torch.Tensor, scale: Optional[float] = None,
                            alibi_slopes=None, window: Optional[int] = None) -> torch.Tensor:
@@ -225,12 +292,11 @@ def paged_attention_decode(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     int32; ctx_lens (B,) int32. Returns (B, H, D).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (float32 or bfloat16, D in {64, 128}, H / KVH <= 8) or raises; ALiBi and
-    the sliding window are not in the kernel yet."""
+    (float32 or bfloat16, D in {64, 128}, H / KVH <= 8, with or without
+    ALiBi ``alibi_slopes`` (H,) and a sliding ``window``) or raises. bf16
+    splits each row's context as ``_decode_plan`` says."""
     if not q.is_cuda:
         return paged_attention_decode_ref(q, k_pages, v_pages, block_tables, ctx_lens, scale, alibi_slopes, window)
-    if alibi_slopes is not None or window is not None:
-        raise NotImplementedError("paged_attention_decode: ALiBi and sliding window are not in the CUDA kernel")
     if q.dim() != 3 or not q.is_contiguous():
         raise ValueError(f"paged_attention_decode: q must be contiguous (B, H, D), got {tuple(q.shape)}")
     B, H, D = q.shape
@@ -239,11 +305,15 @@ def paged_attention_decode(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     if Dk != D or H % KVH:
         raise ValueError(f"paged_attention_decode: q {tuple(q.shape)} does not fit pools {tuple(k.shape)}")
     scale = scale if scale is not None else D**-0.5
+    slopes, win = _features("paged_attention_decode", alibi_slopes, window, H, q.device)
+    P = block_tables.shape[1]
+    splits, split_keys = _decode_plan(B, KVH, P, bs, sm_count(q.device)) if q.dtype == torch.bfloat16 else (1, P * bs)
+    ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     out = torch.empty_like(q)
     rc = _build.lib().ds_paged_attention_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), block_tables.data_ptr(), ctx_lens.data_ptr(),
-        out.data_ptr(), B, H, KVH, D, bs, block_tables.shape[1], float(scale), _build.dtype_code(q.dtype),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(slopes), out.data_ptr(), _ptr(ws), B, H, KVH, D, bs, P, win, splits, split_keys, float(scale),
+        _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_attention_decode")
     paged_attention_decode.launches += 1
     return out
@@ -277,12 +347,12 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     pairs. Returns (B, S, H, D). Any S: the kernel tiles the queries,
     so there is no size limit and no gather fallback on the card. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
-    (float32 or bfloat16, D in {64, 128}) or raises."""
+    (float32 or bfloat16, D in {64, 128}, H / KVH <= 64, with or without
+    ALiBi and a sliding window) or raises. bf16 splits the keys of a small
+    chunk as ``_prefill_plan`` says."""
     if not q.is_cuda:
         return paged_attention_prefill_ref(q, k_pages, v_pages, block_tables, ctx_lens, q_positions, scale,
                                            alibi_slopes, window)
-    if alibi_slopes is not None or window is not None:
-        raise NotImplementedError("paged_attention_prefill: ALiBi and sliding window are not in the CUDA kernel")
     if q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"paged_attention_prefill: q must be contiguous (B, S, H, D), got {tuple(q.shape)}")
     B, S, H, D = q.shape
@@ -293,13 +363,20 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     _, bs, KVH, Dk = k.shape
     if Dk != D or H % KVH:
         raise ValueError(f"paged_attention_prefill: q {tuple(q.shape)} does not fit pools {tuple(k.shape)}")
+    if H // KVH > PREFILL_ROWS:
+        raise NotImplementedError(f"paged_attention_prefill: {H // KVH} query heads a KV head (at most "
+                                  f"{PREFILL_ROWS})")
     scale = scale if scale is not None else D**-0.5
+    slopes, win = _features("paged_attention_prefill", alibi_slopes, window, H, q.device)
+    P = block_tables.shape[1]
+    splits = _prefill_plan(B, S, H, KVH, P, bs, sm_count(q.device)) if q.dtype == torch.bfloat16 else 1
+    ws = torch.empty(B * S * H * splits * (D + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     qpos0 = q_positions[:, 0].to(torch.int32).contiguous()
     out = torch.empty_like(q)
     rc = _build.lib().ds_paged_attention_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), block_tables.data_ptr(), ctx_lens.data_ptr(),
-        qpos0.data_ptr(), out.data_ptr(), B, S, H, KVH, D, bs, block_tables.shape[1], float(scale),
-        _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
+        qpos0.data_ptr(), _ptr(slopes), out.data_ptr(), _ptr(ws), B, S, H, KVH, D, bs, P, win, splits,
+        float(scale), _build.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_attention_prefill")
     paged_attention_prefill.launches += 1
     return out

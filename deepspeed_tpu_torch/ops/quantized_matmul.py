@@ -30,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from ..device import sm_count
 from . import _build
 from ._utils import block_that_divides
 
@@ -130,7 +131,6 @@ def _qmm_plan(M: int, K: int, N: int, n_groups: int, packed: bool, sms: int) -> 
 
 
 _COUNTERS = {}  # device -> int32 zeros, one per output tile of a split launch (the kernel re-zeroes them)
-_SMS = {}  # device -> its SM count
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
@@ -169,10 +169,7 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, 
     cfg, splits, per = 0, 1, n_groups
     ws = counters = None
     if x.dtype == torch.bfloat16 and M > 0 and N > 0:
-        sms = _SMS.get(x.device)
-        if sms is None:
-            sms = _SMS[x.device] = torch.cuda.get_device_properties(x.device).multi_processor_count
-        cfg, splits, per = _qmm_plan(M, K, N, n_groups, packed, sms)
+        cfg, splits, per = _qmm_plan(M, K, N, n_groups, packed, sm_count(x.device))
         if splits > 1:
             bm, bn = QMM_TILES[cfg]
             ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)

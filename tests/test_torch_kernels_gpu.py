@@ -16,7 +16,8 @@ quantised matmul on max abs error over max(1, max |want|) (sums of thousands
 of products in another order than the plain version's). The group-wise
 quantise and dequantise kernels: bit for bit (IEEE division, one rounding);
 the LAMB direction: 1e-5 of the largest value of each tensor (nvcc contracts
-the moment updates to FMAs).
+the moment updates to FMAs). Paged attention in fp32 with ALiBi adds the
+plain version's own rounding of scores in the thousands (``_paged_tol``).
 """
 
 import pytest
@@ -294,14 +295,139 @@ def test_int8_pool_wrappers_raise_on_a_bad_pool(cuda):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     kp, vp, bt, cl, g = _paged(cuda, torch.bfloat16, [5])
     q = torch.randn((1, 32, 128), generator=g, device=cuda).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        pa.paged_attention_decode(q, kp, vp, bt, cl, window=4)
-    with pytest.raises(NotImplementedError):  # the mixed routing has no gather fallback either
-        pa.paged_attention_mixed(q, kp, vp, bt, cl, cl - 1, n_dec=1, chunk=0, alibi_slopes=[0.5] * 32)
     with pytest.raises(ValueError):
         pa.paged_attention_decode(q.float(), kp, vp, bt, cl)
     with pytest.raises(ValueError):
         pa.paged_attention_decode(q, kp, vp, bt.long(), cl)
+    with pytest.raises(ValueError):  # one slope per query head
+        pa.paged_attention_decode(q, kp, vp, bt, cl, alibi_slopes=[0.5] * 8)
+    with pytest.raises(ValueError):
+        pa.paged_attention_decode(q, kp, vp, bt, cl, window=-4)
+    with pytest.raises(NotImplementedError):  # more than 8 query heads a KV head
+        pa.paged_attention_decode(torch.randn((1, 32, 128), device=cuda).to(torch.bfloat16), kp[:, :, :2].contiguous(),
+                                  vp[:, :, :2].contiguous(), bt, cl)
+
+
+# ALiBi, the sliding window, both or neither, in every body (bf16 and fp32 q; bf16 or int8 pools). Decode
+# contexts on split and page edges (511, 512, 513: the bf16 plan cuts these rows' 64 x 128 slots into splits of
+# 256 keys), 1 and 0, a padded row on the garbage page and one long row among short ones.
+DEC_CTX = [511, 512, 513, 1, 0, 1, 6000, 37]
+FEATURES = [None, "alibi", "window", "both"]
+
+
+def _feature_args(feature, H):
+    from deepspeed_tpu_torch.models import alibi_slopes
+
+    slopes = alibi_slopes(H) if feature in ("alibi", "both") else None
+    window = 300 if feature in ("window", "both") else None
+    return slopes, window
+
+
+def _paged_tol(dtype, slopes, last_key, v_pages):
+    """TOL, and in fp32 with ALiBi the plain version's own rounding on top: a score of magnitude up to
+    S = max slope * the last key position rounds to fp32 with an error of up to 2**-24 S, which moves
+    that key's weight by as much relatively, on either side (7.6e-5 seen at S 4,243 against 1e-5)."""
+    if dtype != torch.float32 or slopes is None:
+        return TOL[dtype]
+    v = pa.dequantize_kv(v_pages) if pa.kv_pool_is_quantized(v_pages) else v_pages
+    return TOL[dtype] + 2 * 2**-24 * float(max(abs(x) for x in slopes)) * last_key * v.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,D", [(1, 64), (1, 128), (4, 64), (4, 128), (8, 64), (8, 128)])
+@pytest.mark.parametrize("feature", FEATURES)
+def test_decode_kernel_features(cuda, dtype, int8, G, D, feature):
+    KVH = 4
+    H = G * KVH
+    kp, vp, bt, cl, g = _paged(cuda, dtype, DEC_CTX, H=H, KVH=KVH, D=D, seed=G + D)
+    bt[5] = 0  # a padded row reading the garbage page
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((len(DEC_CTX), H, D), generator=g, device=cuda).to(dtype)
+    slopes, window = _feature_args(feature, H)
+    n0 = pa.paged_attention_decode.launches
+    got = pa.paged_attention_decode(q, kp, vp, bt, cl, alibi_slopes=slopes, window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == n0 + 1
+    want = pa.paged_attention_decode_ref(q, kp, vp, bt, cl, alibi_slopes=slopes, window=window)
+    assert torch.all(got[4] == 0) and torch.isfinite(got).all()  # ctx 0 writes zeros
+    err = _err(got, want)
+    assert err <= _paged_tol(dtype, slopes, max(DEC_CTX), vp), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("bs,P", [(16, 40), (32, 9), (256, 3)])
+@pytest.mark.parametrize("feature", [None, "both"])
+def test_decode_kernel_block_sizes(cuda, dtype, int8, bs, P, feature):
+    ctx = [100, 33, 0, P * bs, 257 % (P * bs)]
+    kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, H=16, KVH=4, D=128, bs=bs, P=P, seed=bs)
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((len(ctx), 16, 128), generator=g, device=cuda).to(dtype)
+    slopes, window = _feature_args(feature, 16)
+    got = pa.paged_attention_decode(q, kp, vp, bt, cl, alibi_slopes=slopes, window=window)
+    torch.cuda.synchronize()
+    err = _err(got, pa.paged_attention_decode_ref(q, kp, vp, bt, cl, alibi_slopes=slopes, window=window))
+    assert err <= _paged_tol(dtype, slopes, max(ctx), vp), err
+
+
+# Prefill rows: a chunk from position 0; one continuing a context of 1,000 (its causal end inside a tile, and
+# cut by a window of 300); one whose 20 keys lie before its queries (under the window its queries see no key
+# and write zeros).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 128), (4, 64)])
+@pytest.mark.parametrize("S", [16, 77])
+@pytest.mark.parametrize("feature", FEATURES)
+def test_prefill_kernel_features(cuda, dtype, int8, G, D, S, feature):
+    KVH = 2
+    H = G * KVH
+    q0 = torch.tensor([0, 1000, 700], dtype=torch.int32)
+    ctx = [S, 1000 + S, 20]
+    kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, H=H, KVH=KVH, D=D, seed=S + G)
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((3, S, H, D), generator=g, device=cuda).to(dtype)
+    pos = (q0[:, None] + torch.arange(S, dtype=torch.int32)[None]).to(cuda)
+    slopes, window = _feature_args(feature, H)
+    n0 = pa.paged_attention_prefill.launches
+    got = pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, alibi_slopes=slopes, window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_prefill.launches == n0 + 1
+    want = pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, alibi_slopes=slopes, window=window)
+    assert torch.isfinite(got).all()
+    if window is not None:
+        assert torch.all(got[2] == 0)
+    err = _err(got, want)
+    assert err <= _paged_tol(dtype, slopes, max(ctx), vp), err
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("feature", [None, "both"])
+def test_paged_kernels_repeat_bit_for_bit(cuda, int8, feature):
+    """Two launches of the bf16 decode (8 rows: its plan splits every row) and prefill (2 x 16, split; 2 x 300,
+    whole) give bit-equal results: the splits merge in a fixed order, without atomics."""
+    dec_ctx = [4096, 1, 127, 513, 2000, 8192, 0, 300]
+    kp, vp, bt, cl, g = _paged(cuda, torch.bfloat16, dec_ctx, seed=3)
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((8, 32, 128), generator=g, device=cuda).to(torch.bfloat16)
+    slopes, window = _feature_args(feature, 32)
+    kw = dict(alibi_slopes=slopes, window=window)
+    first = pa.paged_attention_decode(q, kp, vp, bt, cl, **kw)
+    assert torch.equal(first, pa.paged_attention_decode(q, kp, vp, bt, cl, **kw))
+    for S in (16, 300):
+        q0 = torch.tensor([0, 1000], dtype=torch.int32)
+        kp, vp, bt, cl, g = _paged(cuda, torch.bfloat16, (q0 + S).tolist(), seed=S)
+        if int8:
+            kp, vp = _int8_pools(kp, vp)
+        q = torch.randn((2, S, 32, 128), generator=g, device=cuda).to(torch.bfloat16)
+        pos = (q0[:, None] + torch.arange(S, dtype=torch.int32)[None]).to(cuda)
+        first = pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, **kw)
+        assert torch.equal(first, pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, **kw))
+        assert torch.isfinite(first).all()
 
 
 def test_engine_on_the_card_matches_the_cpu(cuda):

@@ -7,6 +7,8 @@ mode and to the gather reference at 1e-5 (same fp32 math; summation order
 differs). The CUDA kernels' own checks are in ``test_torch_kernels_gpu.py``.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,3 +241,61 @@ def test_attention_module_defaults_to_the_kernel_wrappers(decode, monkeypatch):
     got = v2_modules.attention_tpu(cfg, *_t(q, kp, vp, bt, ctx, pos), decode=decode).numpy()
     assert seen == ["decode" if decode else "prefill"]
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+# ------------------------------------------------------------------
+# the bf16 kernels' launch plans (shapes and the SM count only)
+# ------------------------------------------------------------------
+SMS = 132  # an H100 SXM
+PLAN_GEOMS = {"llama3_8b": dict(H=32, KVH=8, P=64, bs=128), "gpt2_1_3b": dict(H=32, KVH=32, P=8, bs=128)}
+# (splits, split_keys): about 32 blocks an SM, at least 256 keys a split, whole 64-key tiles
+DECODE_PLANS = {("llama3_8b", 1): (32, 256), ("llama3_8b", 8): (32, 256), ("llama3_8b", 64): (9, 960),
+                ("gpt2_1_3b", 1): (4, 256), ("gpt2_1_3b", 8): (4, 256), ("gpt2_1_3b", 64): (3, 384)}
+
+
+@pytest.mark.parametrize("model", list(PLAN_GEOMS))
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_decode_plan_covers_the_table_with_no_gap(model, B):
+    geo = PLAN_GEOMS[model]
+    L = geo["P"] * geo["bs"]
+    splits, keys = tpa._decode_plan(B, geo["KVH"], geo["P"], geo["bs"], SMS)
+    assert (splits, keys) == DECODE_PLANS[model, B]
+    assert keys % tpa.TILE_KEYS == 0 and keys >= tpa.DECODE_MIN_SPLIT_KEYS
+    ranges = [(j * keys, min((j + 1) * keys, L)) for j in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == L  # the splits cover P bs
+    assert all(lo < hi for lo, hi in ranges)  # no empty split
+    assert all(ranges[j][1] == ranges[j + 1][0] for j in range(splits - 1))  # and leave no gap
+
+
+def test_plans_take_no_context_lengths():
+    # the split counts come from host-known values alone: a launch never reads ctx_lens back from the device
+    assert list(inspect.signature(tpa._decode_plan).parameters) == ["B", "KVH", "P", "bs", "sms"]
+    assert list(inspect.signature(tpa._prefill_plan).parameters) == ["B", "S", "H", "KVH", "P", "bs", "sms"]
+
+
+# chunks of 2 x S queries: a grid of fewer blocks than SMs has its key tiles split toward one block an SM
+PREFILL_PLANS = {("llama3_8b", 16): 9, ("gpt2_1_3b", 16): 3, ("llama3_8b", 256): 1, ("gpt2_1_3b", 256): 1,
+                 ("llama3_8b", 512): 1, ("gpt2_1_3b", 512): 1}
+
+
+@pytest.mark.parametrize("model", list(PLAN_GEOMS))
+@pytest.mark.parametrize("S", [16, 256, 512])
+def test_prefill_plan_splits_only_small_grids(model, S):
+    geo = PLAN_GEOMS[model]
+    splits = tpa._prefill_plan(2, S, geo["H"], geo["KVH"], geo["P"], geo["bs"], SMS)
+    blocks = -(-S // (tpa.PREFILL_ROWS // (geo["H"] // geo["KVH"]))) * 2 * geo["KVH"]
+    assert splits == PREFILL_PLANS[model, S]
+    assert (splits > 1) == (blocks < SMS)
+    assert blocks * splits >= min(SMS, blocks * geo["P"] * geo["bs"] // tpa.TILE_KEYS)
+
+
+def test_kernel_features_are_checked_and_slopes_copied_once():
+    dev = torch.device("cpu")
+    s1, w = tpa._features("f", alibi_slopes(4), 7, 4, dev)
+    s2, _ = tpa._features("f", alibi_slopes(4).tolist(), None, 4, dev)
+    assert w == 7 and s1 is s2 and s1.dtype == torch.float32
+    assert tpa._features("f", None, None, 4, dev) == (None, 0)
+    with pytest.raises(ValueError):
+        tpa._features("f", alibi_slopes(8), None, 4, dev)
+    with pytest.raises(ValueError):
+        tpa._features("f", None, -1, 4, dev)
