@@ -2,7 +2,8 @@
 """Drive the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
-    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step and v1
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1
+                                     # and an evoformer call
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
     python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash and paged kernels beside this tree's
 
@@ -95,10 +96,11 @@ With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
 DIR and stand in for this tree's ``quantized_matmul``, flash forward, dq
 and dk/dv and paged decode and prefill while each of their cases is timed
-again (``parent_ms``; the bias cases of dq and dk/dv run the same body on
-both sides and are not timed again, and the ALiBi and window cases of the
-paged kernels are not in the parent's), and the three serving runs and the
-training run are repeated on them.
+again (``parent_ms``, the bias cases of dq and dk/dv included; the
+collapsed dq runs the same body on both sides and is not timed again, and
+the ALiBi and window cases of the paged kernels are not in the parent's),
+the three serving runs and the training run are repeated on them, and each
+``DS4Sci_EvoformerAttention`` call is timed on them too.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -995,11 +997,13 @@ def phase_evo_kernels(torch, dev, dtype, name, iters):
              2 * nq + 4 * nk + 2 * stats + nb)):
         flops = 2 * n_prod * D * pairs
         b_ms, b_by = bound(nbytes, flops, dtype)
+        # the collapsed dq is this tree's on both sides: the parent stands in for the other three
+        parent_ms = parent_time(time_ms, fn, iters) if kernel != "flash_bwd_dq_collapsed" else None
+        fwd = kernel.startswith("flash_fwd")
         rec = dict(kernel=kernel, case=name, dtype=str(dtype), shape=shape, **e, tol=tol, kernel_ms=time_ms(fn, iters),
-                   plain_ms=time_ms(ref, few), parent_ms=parent_time(time_ms, fn, iters) if kernel.startswith(
-                       "flash_fwd") else None, library_ms=lib["fwd_ms"] if kernel.startswith("flash_fwd") else
-                   lib["bwd_ms"], library=f"SDPA {'forward' if kernel.startswith('flash_fwd') else 'backward'}, "
-                   f"float attn_mask, backend {lib['backend']}, mask gradient {lib.get('mask_grad')}",
+                   plain_ms=time_ms(ref, few), parent_ms=parent_ms, library_ms=lib["fwd_ms" if fwd else "bwd_ms"],
+                   library=f"SDPA {'forward' if fwd else 'backward'}, float attn_mask, backend {lib['backend']}, "
+                   f"mask gradient {lib.get('mask_grad')}",
                    bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
         if kernel == dq_name and collapsed:
             rec["dbias_repeats_bitwise"] = repeats
@@ -1167,27 +1171,18 @@ def serving_prompts(np, vocab, longest=1500):
     return prompts[:6], prompts[6:]
 
 
-def profile_serve(torch, engine, waves, model) -> None:
-    """Device-time breakdown of the serving waves under torch.profiler: a
-    separate pass after the timed one, with the prefix cache reset first so
-    that it repeats the same admissions. Profiling slows the host, so only
-    the shares are meant to be read, not the pass's wall time."""
+def profiled(torch, fn, cats) -> dict:
+    """Run ``fn`` once under torch.profiler and return its wall time and the
+    device time of its kernels by category (``cats``: category -> substrings
+    of kernel names; the rest is "other"), with the 15 longest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.state.reset_prefix_cache()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for wave in waves:
-            engine.generate(wave, max_new_tokens=32)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # paged_decode_kernel (bf16) and decode_kernel (fp32); a combine of split partials counts as decode
-    cats = {"paged_attention_decode": ("decode_kernel", "paged_combine_kernel"),
-            "paged_attention_prefill": ("prefill_kernel",),
-            "rms_norm": ("rms_norm",), "layer_norm": ("layer_norm_vec", "layer_norm_plain"),
-            "quantized_matmul": ("qmm_",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
-            "copy": ("Memcpy", "Memset")}
     by_cat, top = {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1200,9 +1195,31 @@ def profile_serve(torch, engine, waves, model) -> None:
         top.append((ms, e.count, e.key[:100]))
     busy = sum(by_cat.values())
     top.sort(reverse=True)
-    log(dict(phase="profile", model=model, wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
-             busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
-             top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
+    return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
+                busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
+                top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]])
+
+
+MATMUL = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+
+
+def profile_serve(torch, engine, waves, model) -> None:
+    """Device-time breakdown of the serving waves under torch.profiler: a
+    separate pass after the timed one, with the prefix cache reset first so
+    that it repeats the same admissions. Profiling slows the host, so only
+    the shares are meant to be read, not the pass's wall time."""
+    engine.state.reset_prefix_cache()
+
+    def run():
+        for wave in waves:
+            engine.generate(wave, max_new_tokens=32)
+
+    # paged_decode_kernel (bf16) and decode_kernel (fp32); a combine of split partials counts as decode
+    cats = {"paged_attention_decode": ("decode_kernel", "paged_combine_kernel"),
+            "paged_attention_prefill": ("prefill_kernel",),
+            "rms_norm": ("rms_norm",), "layer_norm": ("layer_norm_vec", "layer_norm_plain"),
+            "quantized_matmul": ("qmm_",), "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
+    log(dict(phase="profile", model=model, **profiled(torch, run, cats)))
 
 
 # The serving runs: the longest prompt, max_context, the engine's quantisation fields, and the kernel
@@ -1479,34 +1496,10 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2, optimizer="Fused
 
 def profile_train(torch, engine, data, optimizer="FusedAdam") -> None:
     """Device-time breakdown of one training step under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.train_batch(data)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     cats = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_kernel", "flash_dq_bf16_kernel"),
             "flash_bwd_dkv": ("flash_dkv_kernel", "flash_dkv_bf16_kernel"), "fused_adam": ("adam_kernel",),
-            "lamb_direction": ("lamb_dir_kernel",),
-            "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"), "copy": ("Memcpy", "Memset")}
-    by_cat, top = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = (getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)) / 1e3
-        if ms <= 0:
-            continue
-        cat = next((c for c, keys in cats.items() if any(k in e.key for k in keys)), "other")
-        by_cat[cat] = by_cat.get(cat, 0.0) + ms
-        top.append((ms, e.count, e.key[:100]))
-    busy = sum(by_cat.values())
-    top.sort(reverse=True)
-    log(dict(phase="profile_train", optimizer=optimizer, wall_ms_profiled=wall_ms,
-             device_busy_ms=busy if top else "not measured",
-             busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
-             top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
+            "lamb_direction": ("lamb_dir_kernel",), "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
+    log(dict(phase="profile_train", optimizer=optimizer, **profiled(torch, lambda: engine.train_batch(data), cats)))
 
 
 # the optimizer's kernel and its launches per step: one per leaf
@@ -1582,14 +1575,44 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
 EVO_PATH_TOL = {"torch.bfloat16": ("max_rel_err", 0.08), "torch.float32": ("max_abs_err_scaled", 1e-5)}
 
 
-def phase_evoformer(torch, dev, counters):
+# an evoformer call's kernels: the flash bodies, and the rest (the bias fold's sum and cast, autograd's
+# reductions of dbias to the biases' shapes, delta)
+EVO_CATS = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_bf16_kernel", "flash_dq_kernel"),
+            "flash_bwd_dq_collapsed": ("flash_dq_collapsed_kernel", "dbias_reduce_kernel"),
+            "flash_bwd_dkv": ("flash_dkv",), "reduce (dbias sums, delta)": ("reduce_kernel",),
+            "elementwise (bias fold, casts)": ("elementwise_kernel",), "copy": ("Memcpy", "Memset", "copy")}
+
+
+def evo_rest(torch, q, do, biases, iters) -> dict:
+    """CUDA-event times of what an evoformer call does besides its flash
+    kernels: the bias fold (``fold_biases`` summing the biases, ``flat_bias``'s
+    fp32 copy), its backward (autograd's reduction of dbias to each bias's
+    shape) and delta = rowsum(o * do)."""
+    from deepspeed_tpu_torch.ops import evoformer as evo, flash_attention as fa
+
+    lead, (Sq, H, D) = q.shape[:-3], q.shape[-3:]
+    B = q.numel() // (Sq * H * D)
+    leaves = [b.detach().requires_grad_(True) for b in biases]
+    fold = lambda: fa.flat_bias(*evo.fold_biases(leaves, lead), B, H, Sq, Sq)[0]
+    folded = fold()
+    dbias = torch.ones_like(folded)
+    o, dof = q.reshape(B, Sq, H, D), do.reshape(B, Sq, H, D)  # q stands in for o: the same shape and type
+    return dict(bias_fold_ms=time_ms(fold, iters),
+                dbias_reduce_ms=time_ms(lambda: torch.autograd.grad(folded, leaves, dbias, retain_graph=True), iters),
+                delta_ms=time_ms(lambda: fa.flash_delta(o, dof), iters))
+
+
+def phase_evoformer(torch, dev, counters, profile=False):
     """``DS4Sci_EvoformerAttention(q, k, v, biases)`` forward and backward
     through autograd (gradients of q, k, v and every bias) at the AlphaFold2
     shapes, bf16 and fp32 (the fine-tuning crop bf16): the counters are zeroed
     just before each call and read just after; each route must launch the
     forward, dk/dv and the dq its layout selects. The same call with the plain
     versions bound in place gives the output and gradients to compare with;
-    ms per forward + backward and peak memory for both."""
+    ms per forward + backward and peak memory for both, and on the --parent
+    kernels; the times of the work around the kernels (``evo_rest``).
+    ``profile``: a torch.profiler breakdown of ten bf16 calls at ``msa_row``
+    and at the crop."""
     from deepspeed_tpu_torch.ops import evoformer as evo, flash_attention as fa
 
     def step(q, k, v, do, biases):
@@ -1626,6 +1649,16 @@ def phase_evoformer(torch, dev, counters):
             step(q, k, v, do, biases)
             peak = torch.cuda.max_memory_allocated() / 2**30
             kernel_ms = time_ms(lambda: step(q, k, v, do, biases), 10)
+            parent_peak = None
+            if PARENT["lib"] is not None:
+                with parent_kernels():
+                    torch.cuda.reset_peak_memory_stats()
+                    step(q, k, v, do, biases)
+                    parent_peak = torch.cuda.max_memory_allocated() / 2**30
+            parent_ms = parent_time(time_ms, lambda: step(q, k, v, do, biases), 10)
+            if profile and dtype == torch.bfloat16 and name in ("msa_row", "msa_row_finetune"):
+                log(dict(phase="profile_evoformer", case=name, calls=10,
+                         **profiled(torch, lambda: [step(q, k, v, do, biases) for _ in range(10)], EVO_CATS)))
             what, tol = EVO_PATH_TOL[str(dtype)]
             B, (Sq, H, _) = q.numel() // q.shape[-3:].numel(), q.shape[-3:]
             meta = fa.flat_bias(*evo.fold_biases(biases, q.shape[:-3]), B, H, Sq, Sq)[1]
@@ -1636,7 +1669,8 @@ def phase_evoformer(torch, dev, counters):
                        plain_launches=plain_launches, errors={lab: e[what] for lab, e in errs.items()},
                        max_abs_err={lab: e["max_abs_err"] for lab, e in errs.items()}, tol=(what, tol),
                        ms_per_fwd_bwd=kernel_ms, plain_ms_per_fwd_bwd=plain_ms, peak_memory_gb=peak,
-                       plain_peak_memory_gb=plain_peak, finite=finite)
+                       plain_peak_memory_gb=plain_peak, parent_ms_per_fwd_bwd=parent_ms,
+                       parent_peak_memory_gb=parent_peak, rest=evo_rest(torch, q, do, biases, 10), finite=finite)
             log(rec)
             for key in total:
                 total[key] += launches[key]
@@ -2184,32 +2218,14 @@ def profile_v1(torch, engine, prompts, run) -> None:
     """Device-time breakdown of one pass of the v1 generate calls under
     torch.profiler (after the timed pass; only the shares are meant to be
     read, since profiling slows the host)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def gen():
         for p in prompts:
             engine.generate(p, max_new_tokens=V1_NEW)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cats = {"dequantize_groupwise": ("dequant_kernel",), "matmul": ("gemm", "cutlass", "xmma", "nvjet", "cublas"),
-            "softmax": ("softmax",), "copy": ("Memcpy", "Memset", "copy_", "Copy")}
-    by_cat, top = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = (getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)) / 1e3
-        if ms <= 0:
-            continue
-        cat = next((c for c, keys in cats.items() if any(k in e.key for k in keys)), "other")
-        by_cat[cat] = by_cat.get(cat, 0.0) + ms
-        top.append((ms, e.count, e.key[:100]))
-    busy = sum(by_cat.values())
-    top.sort(reverse=True)
-    log(dict(phase="profile_v1", run=run, wall_ms_profiled=wall_ms, device_busy_ms=busy if top else "not measured",
-             busy_share=busy / wall_ms if top else "not measured", by_category_ms=by_cat,
-             top=[dict(ms=t, calls=c, name=n) for t, c, n in top[:15]]))
+
+    cats = {"dequantize_groupwise": ("dequant_kernel",), "matmul": MATMUL, "softmax": ("softmax",),
+            "copy": ("Memcpy", "Memset", "copy_", "Copy")}
+    log(dict(phase="profile_v1", run=run, **profiled(torch, gen, cats)))
 
 
 def phase_v1(torch, dev, counters, profile=False):
@@ -2340,13 +2356,13 @@ KERNEL_ROWS = [
      "flash_fwd.cu", "pallas/flash_attention.py:185"),
     ("flash_bwd_dq (bias)", "evoformer", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq (bias)",
                                                                           case="msa_row"),
-     "flash_attention.cu", "pallas/flash_attention.py:417"),
+     "flash_bwd.cu", "pallas/flash_attention.py:417"),
     ("flash_bwd_dq_collapsed", "evoformer", "flash_bwd_dq_collapsed", "bfloat16",
      dict(kernel="flash_bwd_dq_collapsed", case="msa_row_pair"), "flash_attention.cu",
      "pallas/flash_attention.py:456"),
     ("flash_bwd_dkv (bias)", "evoformer", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv (bias)",
                                                                             case="msa_row"),
-     "flash_attention.cu", "pallas/flash_attention.py:485"),
+     "flash_bwd.cu", "pallas/flash_attention.py:485"),
     ("sparse_fwd", "sparse", "sparse_fwd", "bfloat16", dict(kernel="sparse_fwd", case="fixed_uni_gpt2_1_3b"),
      "sparse_attention.cu", "sparse_attention/sparse_self_attention.py:193"),
     ("sparse_bwd_dq", "sparse", "sparse_bwd_dq", "bfloat16", dict(kernel="sparse_bwd_dq", case="fixed_uni_gpt2_1_3b"),
@@ -2454,7 +2470,7 @@ def main(argv) -> int:
             phase_train(torch, dev, counters + train_counters, profile)
         log(dict(phase="parent kernels", begin=False))
     evoformer = phase_evoformer(torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dq_collapsed,
-                                             fa.flash_bwd_dkv])
+                                             fa.flash_bwd_dkv], profile)
     t0 = time.perf_counter()
     sparse = phase_sparse(torch, dev, [ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv])
     log(dict(phase="sparse", seconds=time.perf_counter() - t0))

@@ -1,19 +1,18 @@
 // Flash attention for Hopper: forward, dq and dk/dv over (B, S, H, D) tensors,
 // with an optional additive bias and its gradient. The bfloat16 forward is
 // flash_fwd.cu's register-resident kernel (ds_flash_fwd routes to it), and so
-// are the bfloat16 dq and dk/dv without a bias in flash_bwd.cu
+// are the bfloat16 dq and dk/dv, with or without a bias, in flash_bwd.cu
 // (ds_flash_bwd_dq and ds_flash_bwd_dkv route to them). This file holds the
-// rest, whose design follows: the float32 forward, dq and dk/dv, and the bias
-// bodies of the backward in both dtypes (dq writing dbias per program, the
-// collapsed dq, dk/dv with a bias). The mask, the bias and masked_score live
-// in flash_common.cuh.
+// rest, whose design follows: the float32 forward, dq and dk/dv (with or
+// without a bias), and the collapsed dq in both dtypes. The mask, the bias and
+// masked_score live in flash_common.cuh.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 // _fwd_kernel (pallas_call at :185, via _flash_fwd; here in fp32, with or
-// without a bias tile), _dq_kernel (:417, via _flash_bwd; here in fp32, and
-// with a bias in both dtypes, where it writes dbias per program),
-// _dq_kernel_collapsed (:456: dq plus dbias summed over the programs that
-// share a bias slice), _dkv_kernel (:485: dk/dv with the bias tile) and
+// without a bias tile), _dq_kernel (:417, via _flash_bwd; here in fp32, where
+// with a bias it writes dbias per program), _dq_kernel_collapsed (:456: dq
+// plus dbias summed over the programs that share a bias slice, both dtypes),
+// _dkv_kernel (:485: dk/dv with the bias tile; here in fp32) and
 // _dkv_kernel_gqa (:518; here in fp32). The masked score is the reference's _scores:
 // s = (q.k) * scale + slope * key_pos + bias, masked to kNegInf outside the
 // causal (and sliding-window) band, with queries aligned to the END of the keys
@@ -64,8 +63,9 @@
 //   warp's column sum over its 16 rows. The chunks exist to fill the card
 //   (few slices give a small grid); a second kernel sums the partials in a
 //   fixed order, so dbias repeats bit for bit from run to run.
-// Not yet, for the bodies here: scores in registers, a cp.async ring and
-// compile-time mask bodies (as flash_fwd.cu and flash_bwd.cu), wgmma, TMA.
+// Not yet, for the bodies here (the fp32 ones and the collapsed dq): scores in
+// registers, a cp.async ring and compile-time mask bodies (as flash_fwd.cu and
+// flash_bwd.cu), wgmma, TMA.
 #include "flash_common.cuh"
 
 #include <mma.h>
@@ -693,18 +693,15 @@ int launch(Pass pass, const Args& a) {
                                                 static_cast<float*>(a.out_lse), a.H, a.KVH, a.mk);
     }
   } else if (pass == kDq) {
-    dim3 grid((a.Sq + G::BM - 1) / G::BM, a.H, a.B);
-    if (a.dbias != nullptr) {
-      if ((err = allow_smem(flash_dq_kernel<T, D, kDbiasRows>, G::dq)) != cudaSuccess) return static_cast<int>(err);
-      flash_dq_kernel<T, D, kDbiasRows><<<grid, G::NT, G::dq, a.stream>>>(
-          q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), a.dbias, a.H, a.KVH, a.mk);
-    } else if constexpr (sizeof(T) == 2) {  // bf16 without a bias: the register-resident body of flash_bwd.cu
-      return flash_dq_bf16(q, k, v, dout, lse, delta, sl, static_cast<T*>(a.dq), a.B, a.H, a.KVH, D, a.mk,
-                           a.stream);
+    if constexpr (sizeof(T) == 2) {  // bf16, with or without a bias: the register-resident bodies of flash_bwd.cu
+      return flash_dq_bf16(q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), a.dbias, a.B, a.H, a.KVH,
+                           D, a.mk, a.stream);
     } else {
-      if ((err = allow_smem(flash_dq_kernel<T, D, kNoDbias>, G::dq)) != cudaSuccess) return static_cast<int>(err);
-      flash_dq_kernel<T, D, kNoDbias><<<grid, G::NT, G::dq, a.stream>>>(
-          q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), nullptr, a.H, a.KVH, a.mk);
+      dim3 grid((a.Sq + G::BM - 1) / G::BM, a.H, a.B);
+      auto kernel = a.dbias != nullptr ? flash_dq_kernel<T, D, kDbiasRows> : flash_dq_kernel<T, D, kNoDbias>;
+      if ((err = allow_smem(kernel, G::dq)) != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid, G::NT, G::dq, a.stream>>>(q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), a.dbias,
+                                               a.H, a.KVH, a.mk);
     }
   } else if (pass == kDqCollapsed) {
     CollapsedPlan pl;
@@ -730,13 +727,11 @@ int launch(Pass pass, const Args& a) {
       const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
       dbias_reduce_kernel<<<blocks, 256, 0, a.stream>>>(a.parts, a.dbias, n, pl.n_parts);
     }
-  } else if (a.bias.p != nullptr) {
-    return launch_dkv<T, D, true>(a);
-  } else if constexpr (sizeof(T) == 2) {  // bf16 without a bias: the register-resident body of flash_bwd.cu
-    return flash_dkv_bf16(q, k, v, dout, lse, delta, sl, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.B, a.H,
-                          a.KVH, D, a.mk, a.stream);
+  } else if constexpr (sizeof(T) == 2) {  // bf16, with or without a bias: the register-resident body of flash_bwd.cu
+    return flash_dkv_bf16(q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.B,
+                          a.H, a.KVH, D, a.mk, a.stream);
   } else {
-    return launch_dkv<T, D, false>(a);
+    return a.bias.p != nullptr ? launch_dkv<T, D, true>(a) : launch_dkv<T, D, false>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

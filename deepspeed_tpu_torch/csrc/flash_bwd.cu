@@ -1,16 +1,18 @@
-// The bfloat16 flash attention backward for Hopper, without a bias: dq, and
-// dk/dv, from q, k, v, dout and the forward's lse with delta = rowsum(o * dout),
-// with optional ALiBi slopes, a causal mask, a sliding window and GQA.
+// The bfloat16 flash attention backward for Hopper: dq, and dk/dv, from q, k,
+// v, dout and the forward's lse with delta = rowsum(o * dout), with optional
+// ALiBi slopes, a causal mask, a sliding window, GQA and an additive fp32 bias
+// (dq then also writes dbias).
 //
-// Replaces, for bf16 without a bias, the TPU kernels of
-// deepspeed_tpu/ops/pallas/flash_attention.py: _dq_kernel (pallas_call at
-// :417, via _flash_bwd, the no-bias body) and _dkv_kernel_gqa (:518). The
-// float32 dq and dk/dv and the bias bodies (dq writing dbias, the collapsed
-// dq, dk/dv with a bias) stay in flash_attention.cu. Both kernels recompute
-// the score with masked_score's arithmetic and mask (`visible`,
-// flash_common.cuh) and p = exp(s - lse); dlogits = p (dp - delta) and
-// ds = dlogits * scale, rounded to bf16 where the plain version rounds it
-// (as the A operand of the next product), as is p in dk/dv.
+// Replaces, for bf16, the TPU kernels of deepspeed_tpu/ops/pallas/
+// flash_attention.py: _dq_kernel (pallas_call at :417, via _flash_bwd: the
+// body without a bias, and the has_bias body that writes dbias per program),
+// _dkv_kernel (:485: dk/dv with the bias tile) and _dkv_kernel_gqa (:518).
+// The float32 dq and dk/dv, the collapsed dq (:456) and the reduce of its
+// partials stay in flash_attention.cu. Both kernels recompute the score with
+// masked_score's arithmetic and mask (`visible`, flash_common.cuh) and
+// p = exp(s - lse); dlogits = p (dp - delta) and ds = dlogits * scale,
+// rounded to bf16 where the plain version rounds it (as the A operand of the
+// next product), as is p in dk/dv; dbias = dlogits in fp32.
 //
 // What bounds it: at gpt2_1_3b's training shape (B 8, S 1024, H 32, D 64,
 // causal) dq does 3 products of 17 GFLOP each (S = Q K^T, dP = dO V^T,
@@ -19,9 +21,16 @@
 // 0.070 ms at 989 TFLOP/s). So the products have to stay on the tensor
 // cores, fed from shared memory by ldmatrix, and nothing else may take their
 // time: no score, probability or accumulator goes through shared memory.
+// With an evoformer bias (D 32, S 256-384) the fp32 bias is the largest
+// tensor and about 200 flops meet each 8 bytes of bias and dbias: dq reads
+// the bias and writes dbias (268 MB each at msa_row, 1.6 ms at 3.35 TB/s for
+// the 384 x 512 crop's 2.4 GB each) and dk/dv reads the bias again, so both
+// are bound by those bytes (0.186 and 0.111 ms at msa_row). There the design
+// has to keep the bias streaming at the card's memory rate: about 25 KB in
+// flight per SM, dbias stored in whole 32-byte sectors, nothing atomic.
 //
 // The design (FlashAttention-2's backward on mma.sync, as two kernels
-// without atomics, so dq, dk and dv repeat bit for bit):
+// without atomics, so dq, dbias, dk and dv repeat bit for bit):
 // - dq: a block owns 128 query rows of one (batch, head), 8 warps of 16 rows,
 //   and walks the key tiles of the causal or window band. A warp's S and dP
 //   stripes are mma.sync m16n8k16 products (bf16 in, fp32 out) in registers:
@@ -40,23 +49,49 @@
 //   query columns come with the tile. dK and dV are fp32 register
 //   accumulators, summed over the group's heads in a fixed order.
 // - A warp takes its products over a sub-tile of KS keys (dq: 32, at D 128
-//   64) or QS queries (dk/dv: 32, at D 128 16) at a time, which keeps the S
-//   and dP fragments small beside the accumulators (at D 128, dK and dV alone
-//   hold 128 fp32 a lane). The choices are flash_bwd_probe.py's: on an H100,
-//   dk/dv with 8 warps a block spilled at D 64 within the 128 registers of
-//   two blocks an SM, and 4 warps at three blocks an SM ran as fast without
-//   spilling; dq at D 128 took 6 % less time with 64 keys a sub-tile.
+//   or with a bias 64) or QS queries (dk/dv: 32, at D 128 16) at a time,
+//   which keeps the S and dP fragments small beside the accumulators (at
+//   D 128, dK and dV alone hold 128 fp32 a lane). The choices are
+//   flash_bwd_probe.py's: on an H100, dk/dv with 8 warps a block spilled at
+//   D 64 within the 128 registers of two blocks an SM, and 4 warps at three
+//   blocks an SM ran as fast without spilling; dq at D 128 took 6 % less
+//   time with 64 keys a sub-tile. With a bias, dq at two blocks an SM
+//   spilled within 128 registers; one block of 240 registers and 64 keys a
+//   sub-tile ran 7-10 % faster at msa_row and the crop, without a spill.
 // - The streamed tiles (K and V for dq; Q, dO, lse and delta for dk/dv) come
 //   through a ring of 2 stages in shared memory, filled by cp.async (zero past
 //   the end) while the other stage multiplies, with one block barrier a tile.
+// - The bias (BIAS, a compile-time parameter: the bodies without one carry no
+//   bias code) is one more part of each stage: dq's (128 query rows x 64
+//   keys, 32 KB) and dk/dv's (64 query rows x 64 keys, 16 KB, or the one row
+//   when every query row shares it) come by 16-byte cp.async copies along the
+//   keys (4-byte ones when Sk is not a multiple of 4), so one tile's bias
+//   flies while the other multiplies: 32 KB a SM for dq at D 32 (one block)
+//   and 48 KB for dk/dv (three). dq reads its rows back as float2 in the S
+//   fragment layout (rows 72 floats apart: a half-warp's 4 rows on distinct
+//   banks), dk/dv down the query rows (68 apart: 4 rows of 8 keys on distinct
+//   banks). The alternatives lost or spilled on an H100: dq's bias read from
+//   device memory straight into the fragments before the sub-tile's
+//   products, as the forward does, was slower; in flash_bwd_probe.py a
+//   third stage (STAGES 3) gained dq at most 1.5 % and
+//   spilled at D 64, and slowed dk/dv (two blocks an SM); dk/dv with 8 warps
+//   ran 6-11 % faster but spilled in its ALiBi body.
+// - dbias is stored straight from the dS fragments as float2 with streaming
+//   stores: a quad writes a whole 32-byte sector of a row, and the 268 MB do
+//   not evict K and V from L2. A warp owns its rows' dbias: a sub-tile that
+//   no row of it sees, and the key tiles the block's walk skips, get zeros.
 // - Mask arithmetic only where a mask can act: a warp takes the masked body
 //   for a sub-tile only if it crosses Sq, Sk or the causal or window edge for
 //   its 16 rows, skips a sub-tile that no row of it sees, and otherwise runs
 //   the unmasked body; the two bodies are compile-time copies.
-// - p = 2^x by one ex2.approx. Without ALiBi, x = q.k scale log2(e) - lse
-//   log2(e) is one FFMA; with it, x = (s - lse) log2(e). A row that sees no
-//   key has lse = kNegInf, so x is huge there; it only ever meets the masked
-//   body, which selects p = 0 for a masked pair before any product.
+// - p = 2^x by one ex2.approx. Without ALiBi or a bias, x = q.k scale
+//   log2(e) - lse log2(e) is one FFMA; with either, the score is formed first
+//   as the plain version forms it (q.k scale + slope key + bias) and
+//   x = (s - lse) log2(e). An evoformer mask bias of -1e9 is a finite score:
+//   a row whose keys all carry it has lse about -1e9, and its p comes out as
+//   in the plain version. A row that sees no key has lse = kNegInf, so x is
+//   huge there; it only ever meets the masked body, which selects p = 0 for
+//   a masked pair before any product.
 // - Longest work first: dq's grid enumerates the last query tiles first,
 //   dk/dv's the first key tiles (a causal mask gives them the most queries).
 // Not yet: wgmma (a warpgroup's 64 rows with K, V or Q, dO as shared-memory
@@ -72,27 +107,33 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // dq: 8 warps of 16 query rows; key tiles of BN through the ring, taken KS keys at a time.
-template <int D>
+template <int D, bool BIAS>
 struct DqGeo {
-  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 ? 32 : 64;
-  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
-  static constexpr int LD = D + 8;  // +16 bytes: ldmatrix rows on distinct banks
+  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 && !BIAS ? 32 : 64;
+  static constexpr int STAGES = 2;  // the ring's depth: tiles in flight while one multiplies, plus one
+  static constexpr int MIN_BLOCKS = D <= 64 && !BIAS ? 2 : 1;
+  static constexpr int LD = D + 8;    // +16 bytes: ldmatrix rows on distinct banks
+  static constexpr int LDB = BN + 8;  // fp32 bias rows: a half-warp's float2 reads of 4 rows on distinct banks
   static constexpr size_t q_bytes = static_cast<size_t>(BM) * LD * 2;
   static constexpr size_t kv_bytes = static_cast<size_t>(BN) * LD * 2;
-  static constexpr size_t smem = 2 * q_bytes + 4 * kv_bytes;  // Q, dO, then K and V of 2 stages
+  static constexpr size_t b_bytes = BIAS ? static_cast<size_t>(BM) * LDB * 4 : 0;
+  static constexpr size_t smem = 2 * q_bytes + STAGES * (2 * kv_bytes + b_bytes);  // Q, dO; K, V, bias a stage
 };
 
 // dk/dv: NW warps of 16 key rows; query tiles of BN through the ring, taken QS queries at a time.
-template <int D>
+template <int D, bool BIAS>
 struct DkvGeo {
   static constexpr int NW = 4, NT = 32 * NW, BM = 16 * NW, BN = 64, QS = D <= 64 ? 32 : 16;
-  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 2;
+  static constexpr int STAGES = 2;
+  static constexpr int MIN_BLOCKS = D <= (BIAS ? 32 : 64) ? 3 : (BIAS && D > 64 ? 1 : 2);
   static constexpr int LD = D + 8;
+  static constexpr int LDB = BM + 4;  // fp32 bias rows, read down the query rows: 4 rows of 8 keys on distinct banks
   static constexpr size_t kv_bytes = static_cast<size_t>(BM) * LD * 2;
   static constexpr size_t q_bytes = static_cast<size_t>(BN) * LD * 2;
   static constexpr size_t vec_bytes = static_cast<size_t>(BN) * 4;
-  static constexpr size_t stage_bytes = 2 * q_bytes + 2 * vec_bytes;  // Q, dO, lse, delta
-  static constexpr size_t smem = 2 * kv_bytes + 2 * stage_bytes;       // K, V, then 2 stages
+  static constexpr size_t b_bytes = BIAS ? static_cast<size_t>(BN) * LDB * 4 : 0;
+  static constexpr size_t stage_bytes = 2 * q_bytes + 2 * vec_bytes + b_bytes;  // Q, dO, lse, delta, bias
+  static constexpr size_t smem = 2 * kv_bytes + STAGES * stage_bytes;             // K, V, then the stages
 };
 
 // Rows [r0, r0 + ROWS) of head h of a (B, S, NH, D) bf16 tensor into shared memory (row stride LD) by
@@ -107,21 +148,49 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ x,
   }
 }
 
+// `rows` rows from r0 and COLS keys from c0 of an fp32 (nrows, sk) bias slice into shared memory (row
+// stride LDB) by cp.async, zero-filled at or past nrows and sk: 16-byte copies when `vec` (sk a multiple
+// of 4 and the slice 16-byte aligned), else 4-byte ones; NT threads.
+template <int COLS, int LDB, int NT>
+__device__ __forceinline__ void load_bias(float* dst, const float* __restrict__ bs, int rows, int r0, int nrows,
+                                          int c0, int sk, int vec) {
+  if (vec) {
+    constexpr int VPR = COLS / 4;
+    for (int i = threadIdx.x; i < rows * VPR; i += NT) {
+      const int r = i / VPR, c = (i % VPR) * 4;
+      const bool ok = r0 + r < nrows && c0 + c < sk;
+      cp_async16(dst + r * LDB + c, ok ? bs + static_cast<size_t>(r0 + r) * sk + c0 + c : bs, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r0 + r < nrows && c0 + c < sk;
+      cp_async4(dst + r * LDB + c, ok ? bs + static_cast<size_t>(r0 + r) * sk + c0 + c : bs, ok ? 4 : 0);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- dq
-// Grid (n_qt * H, B): x = (n_qt - 1 - query tile) * H + head.
-template <int D, bool ALIBI>
-__global__ void __launch_bounds__(DqGeo<D>::NT, DqGeo<D>::MIN_BLOCKS)
+// Grid (n_qt * H, B): x = (n_qt - 1 - query tile) * H + head. BIAS: the bias slice of program (b, h) is
+// (Sq, Sk) (nothing collapses), and dbias (B*H, Sq, Sk) fp32 receives every pair's dlogits.
+template <int D, bool ALIBI, bool BIAS>
+__global__ void __launch_bounds__(DqGeo<D, BIAS>::NT, DqGeo<D, BIAS>::MIN_BLOCKS)
 flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                      const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ slopes, bf16* __restrict__ dq, int H, int KVH, Mask mk, int n_qt) {
-  using G = DqGeo<D>;
-  constexpr int LD = G::LD, BM = G::BM, BN = G::BN, KS = G::KS, NT = G::NT;
-  constexpr int KD = D / 16, NS = KS / 8, NO = D / 8;
+                     const float* __restrict__ slopes, Bias bias, bf16* __restrict__ dq, float* __restrict__ dbias,
+                     int H, int KVH, Mask mk, int n_qt, int vec) {
+  using G = DqGeo<D, BIAS>;
+  constexpr int LD = G::LD, LDB = G::LDB, BM = G::BM, BN = G::BN, KS = G::KS, NT = G::NT;
+  constexpr int KD = D / 16, NS = KS / 8, NO = D / 8, ST = G::STAGES;
+  constexpr bool FOLD = !ALIBI && !BIAS;  // x = q.k scale log2(e) - lse log2(e) as one FFMA
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sdO = reinterpret_cast<bf16*>(smem + G::q_bytes);
   auto sK = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * G::q_bytes + (2 * s) * G::kv_bytes); };
   auto sV = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * G::q_bytes + (2 * s + 1) * G::kv_bytes); };
+  auto sB = [&](int s) {
+    return reinterpret_cast<float*>(smem + 2 * G::q_bytes + 2 * ST * G::kv_bytes + s * G::b_bytes);
+  };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const int h = blockIdx.x % H, qt = n_qt - 1 - static_cast<int>(blockIdx.x) / H, b = blockIdx.y;
@@ -129,6 +198,8 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
   const int q0 = qt * BM, wr = q0 + 16 * warp;  // the block's and the warp's first rows
   const float slope = ALIBI ? slopes[h] : 0.f;
   const float scale2 = mk.scale * kLog2e;
+  const float* bs = BIAS ? bias.slice(b, h, mk.sk) : nullptr;  // this program's (Sq, Sk) bias
+  float* dbs = BIAS ? dbias + (static_cast<size_t>(b) * H + h) * mk.sq * mk.sk : nullptr;
 
   int kt_begin = 0, kt_end = (mk.sk + BN - 1) / BN;
   if (mk.causal) {
@@ -143,20 +214,35 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
   auto load_kv = [&](int s, int kt) {
     load_rows<D, LD, BN, NT>(sK(s), k, b, mk.sk, KVH, hk, kt * BN);
     load_rows<D, LD, BN, NT>(sV(s), v, b, mk.sk, KVH, hk, kt * BN);
+    if constexpr (BIAS) load_bias<BN, LDB, NT>(sB(s), bs, BM, q0, mk.sq, kt * BN, mk.sk, vec);
   };
-  if (kt_begin < kt_end) load_kv(0, kt_begin);
-  cp_async_commit();
+  for (int i = 0; i < ST - 1; ++i) {  // one group a stage, empty past the walk's end
+    if (kt_begin + i < kt_end) load_kv(i, kt_begin + i);
+    cp_async_commit();
+  }
 
-  // this lane's rows wr + g + 8 r, r in {0, 1}: lse (times log2(e) without ALiBi) and delta
+  // this lane's rows wr + g + 8 r, r in {0, 1}: lse (times log2(e) when folded) and delta
   float lse_r[2], dlt_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wr + g + 8 * r;
     const size_t at = (static_cast<size_t>(b) * H + h) * mk.sq + row;
     const float l = row < mk.sq ? lse[at] : 0.f;
-    lse_r[r] = ALIBI ? l : l * kLog2e;
+    lse_r[r] = FOLD ? l * kLog2e : l;
     dlt_r[r] = row < mk.sq ? delta[at] : 0.f;
   }
+  // dbias of this lane's row wr + g + 8 r at keys col and col + 1; nothing past Sq or Sk is stored
+  auto put_dbias = [&](int r, int col, float x0, float x1) {
+    const int row = wr + g + 8 * r;
+    if (row >= mk.sq) return;
+    float* d = dbs + static_cast<size_t>(row) * mk.sk + col;
+    if (vec) {  // col even and sk a multiple of 4: both keys or neither
+      if (col < mk.sk) __stcs(reinterpret_cast<float2*>(d), make_float2(x0, x1));
+    } else {
+      if (col < mk.sk) __stcs(d, x0);
+      if (col + 1 < mk.sk) __stcs(d + 1, x1);
+    }
+  };
   float dqacc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j)
@@ -164,10 +250,10 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
     for (int e = 0; e < 4; ++e) dqacc[j][e] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int s = (kt - kt_begin) & 1;
-    cp_async_wait<0>();
+    const int it = kt - kt_begin, s = it % ST;
+    cp_async_wait<ST - 2>();
     __syncthreads();  // tile kt (and Q, dO) landed for every thread; every warp is done with tile kt - 1
-    if (kt + 1 < kt_end) load_kv(s ^ 1, kt + 1);  // into tile kt - 1's stage, while tile kt multiplies
+    if (kt + ST - 1 < kt_end) load_kv((it + ST - 1) % ST, kt + ST - 1);  // into tile kt - 1's stage
     cp_async_commit();
     const bf16* ks = sK(s);
     const bf16* vs = sV(s);
@@ -182,7 +268,16 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
         none = none || c0 > diag_hi || (mk.window > 0 && c0 + KS - 1 <= diag_lo - mk.window);
         masked = masked || c0 + KS - 1 > diag_lo || (mk.window > 0 && c0 <= diag_hi - mk.window);
       }
-      if (none) continue;
+      if (none) {
+        if constexpr (BIAS) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            put_dbias(0, c0 + j * 8 + t2, 0.f, 0.f);
+            put_dbias(1, c0 + j * 8 + t2, 0.f, 0.f);
+          }
+        }
+        continue;
+      }
       float sacc[NS][4], pacc[NS][4];  // S = Q K^T and dP = dO V^T
 #pragma unroll
       for (int j = 0; j < NS; ++j)
@@ -205,25 +300,45 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
           mma_bf16(pacc[2 * np + 1], da, r[2], r[3]);
         }
       }
-      // dS = p (dp - delta) scale on the fragments, as dQ's A operand: 16 keys per k-step
+      // dS = p (dp - delta) scale on the fragments, as dQ's A operand: 16 keys per k-step; dbias = p (dp - delta)
       uint32_t dsa[NS / 2][4];
       auto form_ds = [&](auto masked_tag) {
         constexpr bool MASKED = decltype(masked_tag)::value;
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
-          float ds[4];
+          float bj[4];
+          if constexpr (BIAS) {  // rows g and g + 8 of the warp's stripe, keys 2t and 2t + 1 of block j
+            const float* br = sB(s) + (16 * warp + g) * LDB + sub * KS + j * 8 + t2;
+            const float2 x0 = *reinterpret_cast<const float2*>(br);
+            const float2 x1 = *reinterpret_cast<const float2*>(br + 8 * LDB);
+            bj[0] = x0.x;
+            bj[1] = x0.y;
+            bj[2] = x1.x;
+            bj[3] = x1.y;
+          }
+          float ds[4], dl[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = wr + g + (e < 2 ? 0 : 8), col = c0 + j * 8 + t2 + (e & 1);
-            // ALiBi: the score first (masked_score's arithmetic); else the raw q.k folded into one FFMA
-            const float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(col)) : sacc[j][e];
-            const float x = ALIBI ? (sv - lse_r[e >> 1]) * kLog2e : fmaf(sv, scale2, -lse_r[e >> 1]);
+            float x;
+            if constexpr (FOLD) {  // the raw q.k folded into one FFMA
+              x = fmaf(sacc[j][e], scale2, -lse_r[e >> 1]);
+            } else {  // the score first (masked_score's arithmetic), then (s - lse) log2(e)
+              float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(col)) : sacc[j][e] * mk.scale;
+              if constexpr (BIAS) sv += bj[e];
+              x = (sv - lse_r[e >> 1]) * kLog2e;
+            }
             float p = fast_exp2(x);
             if (MASKED && !visible(row, col, mk)) p = 0.f;
-            ds[e] = p * (pacc[j][e] - dlt_r[e >> 1]) * mk.scale;
+            dl[e] = p * (pacc[j][e] - dlt_r[e >> 1]);
+            ds[e] = dl[e] * mk.scale;
           }
           dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
           dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+          if constexpr (BIAS) {
+            put_dbias(0, c0 + j * 8 + t2, dl[0], dl[1]);
+            put_dbias(1, c0 + j * 8 + t2, dl[2], dl[3]);
+          }
         }
       };
       if (masked) {
@@ -245,6 +360,14 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
   }
   cp_async_wait<0>();
 
+  if constexpr (BIAS) {  // the keys outside the walk's tiles have zero dlogits
+    const int lo = min(kt_begin * BN, mk.sk), hi = min(max(kt_end * BN, lo), mk.sk);
+    const int n_out = lo + mk.sk - hi;
+    for (int i = tid; i < BM * n_out; i += NT) {
+      const int r = i / n_out, c = i % n_out;
+      if (q0 + r < mk.sq) __stcs(dbs + static_cast<size_t>(q0 + r) * mk.sk + (c < lo ? c : hi + c - lo), 0.f);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wr + g + 8 * r;
@@ -259,16 +382,18 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
 // ---------------------------------------------------------------- dk / dv
 // Grid (n_kt * KVH, B): x = key tile * KVH + KV head, so the first key tiles (a causal mask's longest) go
 // first. Block rows are keys; each block sums over the n_rep query heads of its KV head, in order, and
-// over the query tiles that see its keys.
-template <int D, bool ALIBI>
-__global__ void __launch_bounds__(DkvGeo<D>::NT, DkvGeo<D>::MIN_BLOCKS)
+// over the query tiles that see its keys. BIAS: each query head reads its own slice (bias.slice), of Sq
+// rows or of one row shared by every query row.
+template <int D, bool ALIBI, bool BIAS>
+__global__ void __launch_bounds__(DkvGeo<D, BIAS>::NT, DkvGeo<D, BIAS>::MIN_BLOCKS)
 flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                       const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                      const float* __restrict__ slopes, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KVH,
-                      Mask mk) {
-  using G = DkvGeo<D>;
-  constexpr int LD = G::LD, BM = G::BM, BN = G::BN, QS = G::QS, NT = G::NT;
-  constexpr int KD = D / 16, NQ = QS / 8, NO = D / 8;
+                      const float* __restrict__ slopes, Bias bias, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      int H, int KVH, Mask mk, int vec) {
+  using G = DkvGeo<D, BIAS>;
+  constexpr int LD = G::LD, LDB = G::LDB, BM = G::BM, BN = G::BN, QS = G::QS, NT = G::NT;
+  constexpr int KD = D / 16, NQ = QS / 8, NO = D / 8, ST = G::STAGES;
+  constexpr bool FOLD = !ALIBI && !BIAS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = reinterpret_cast<bf16*>(smem + G::kv_bytes);
@@ -277,12 +402,14 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   auto sdO = [&](int s) { return reinterpret_cast<bf16*>(stage(s) + G::q_bytes); };
   auto sL = [&](int s) { return reinterpret_cast<float*>(stage(s) + 2 * G::q_bytes); };
   auto sDl = [&](int s) { return reinterpret_cast<float*>(stage(s) + 2 * G::q_bytes + G::vec_bytes); };
+  auto sB = [&](int s) { return reinterpret_cast<float*>(stage(s) + 2 * G::q_bytes + 2 * G::vec_bytes); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const int hk = blockIdx.x % KVH, kt = static_cast<int>(blockIdx.x) / KVH, b = blockIdx.y;
   const int n_rep = H / KVH;
   const int k0 = kt * BM, kw = k0 + 16 * warp;  // the block's and the warp's first keys
   const float scale2 = mk.scale * kLog2e;
+  const int brows = BIAS && bias.Sqb == 1 ? 0 : LDB;  // bias row stride in a stage: 0 when one row serves all
 
   // query tiles whose rows can see a key of this block
   const int nq = (mk.sq + BN - 1) / BN;
@@ -311,9 +438,16 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       cp_async4(sL(s) + i, ok ? lse + base + i : lse, ok ? 4 : 0);
       cp_async4(sDl(s) + i, ok ? delta + base + i : delta, ok ? 4 : 0);
     }
+    if constexpr (BIAS) {  // query rows [q0, q0 + BN) (or the one shared row) x the block's keys
+      const bool one = bias.Sqb == 1;
+      load_bias<BM, LDB, NT>(sB(s), bias.slice(b, h, mk.sk), one ? 1 : BN, one ? 0 : q0, one ? 1 : mk.sq, k0,
+                             mk.sk, vec);
+    }
   };
-  if (n_it > 0) load_q(0, 0);
-  cp_async_commit();
+  for (int i = 0; i < ST - 1; ++i) {  // one group a stage, empty past the walk's end
+    if (i < n_it) load_q(i, i);
+    cp_async_commit();
+  }
 
   // this lane's keys: kw + g + 8 r for r in {0, 1}
   float dkacc[NO][4], dvacc[NO][4];
@@ -323,16 +457,17 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
     for (int e = 0; e < 4; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
-    const int s = it & 1, h = hk * n_rep + it / n_qt, q0 = (qt_begin + it % n_qt) * BN;
-    cp_async_wait<0>();
+    const int s = it % ST, h = hk * n_rep + it / n_qt, q0 = (qt_begin + it % n_qt) * BN;
+    cp_async_wait<ST - 2>();
     __syncthreads();  // stage it (and K, V) landed for every thread; every warp is done with stage it - 1
-    if (it + 1 < n_it) load_q(s ^ 1, it + 1);
+    if (it + ST - 1 < n_it) load_q((it + ST - 1) % ST, it + ST - 1);
     cp_async_commit();
     const float slope = ALIBI ? slopes[h] : 0.f;
     const bf16* qs = sQ(s);
     const bf16* dos = sdO(s);
     const float* ls = sL(s);
     const float* dls = sDl(s);
+    const float* bst = sB(s) + 16 * warp + g;  // BIAS: this lane's first key in the stage's bias rows
 #pragma unroll
     for (int sub = 0; sub < BN / QS; ++sub) {
       const int r0 = q0 + sub * QS;  // the sub-tile's first query row
@@ -376,14 +511,20 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
           const int c = sub * QS + j * 8 + t2;  // this lane's two query rows in the stage
           const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
           const float2 d2 = *reinterpret_cast<const float2*>(dls + c);
-          const float lq[2] = {ALIBI ? l2.x : l2.x * kLog2e, ALIBI ? l2.y : l2.y * kLog2e};
+          const float lq[2] = {FOLD ? l2.x * kLog2e : l2.x, FOLD ? l2.y * kLog2e : l2.y};
           const float dl[2] = {d2.x, d2.y};
           float p[4], ds[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = kw + g + (e < 2 ? 0 : 8), row = q0 + c + (e & 1);
-            const float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(key)) : sacc[j][e];
-            const float x = ALIBI ? (sv - lq[e & 1]) * kLog2e : fmaf(sv, scale2, -lq[e & 1]);
+            float x;
+            if constexpr (FOLD) {
+              x = fmaf(sacc[j][e], scale2, -lq[e & 1]);
+            } else {  // the score first (masked_score's arithmetic), then (s - lse) log2(e)
+              float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(key)) : sacc[j][e] * mk.scale;
+              if constexpr (BIAS) sv += bst[(c + (e & 1)) * brows + (e < 2 ? 0 : 8)];
+              x = (sv - lq[e & 1]) * kLog2e;
+            }
             p[e] = fast_exp2(x);
             if (MASKED && !visible(row, key, mk)) p[e] = 0.f;
             ds[e] = p[e] * (pacc[j][e] - dl[e & 1]) * mk.scale;
@@ -430,52 +571,74 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   }
 }
 
+// 16-byte bias copies and float2 dbias stores: Sk a multiple of 4 and every slice 16-byte aligned
+int bias_vec(const float* bias, const float* dbias, int sk) {
+  return bias != nullptr && sk % 4 == 0 && aligned16(bias) && (dbias == nullptr || aligned16(dbias));
+}
+
+// The grid and block do not depend on the bias: only the shared memory does.
 template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse, const float* delta,
-              const float* slopes, bf16* dq, int B, int H, int KVH, Mask mk, cudaStream_t stream) {
-  using G = DqGeo<D>;
+              const float* slopes, Bias bias, bf16* dq, float* dbias, int B, int H, int KVH, Mask mk,
+              cudaStream_t stream) {
+  using G = DqGeo<D, false>;
+  static_assert(DqGeo<D, true>::NT == G::NT && DqGeo<D, true>::BM == G::BM, "one grid with or without a bias");
   const int n_qt = (mk.sq + G::BM - 1) / G::BM;
   if (static_cast<long long>(n_qt) * H > 0x7fffffffLL) return kUnsupported;
-  auto kernel = slopes != nullptr ? flash_dq_bf16_kernel<D, true> : flash_dq_bf16_kernel<D, false>;
-  const cudaError_t err = allow_smem(kernel, G::smem);
+  const bool has_bias = bias.p != nullptr;
+  auto kernel = has_bias ? (slopes != nullptr ? flash_dq_bf16_kernel<D, true, true>
+                                              : flash_dq_bf16_kernel<D, false, true>)
+                         : (slopes != nullptr ? flash_dq_bf16_kernel<D, true, false>
+                                              : flash_dq_bf16_kernel<D, false, false>);
+  const size_t smem = has_bias ? DqGeo<D, true>::smem : G::smem;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(n_qt * H, B), G::NT, G::smem, stream>>>(q, k, v, dout, lse, delta, slopes, dq, H, KVH, mk, n_qt);
+  kernel<<<dim3(n_qt * H, B), G::NT, smem, stream>>>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, H, KVH, mk,
+                                                     n_qt, bias_vec(bias.p, dbias, mk.sk));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse, const float* delta,
-               const float* slopes, bf16* dk, bf16* dv, int B, int H, int KVH, Mask mk, cudaStream_t stream) {
-  using G = DkvGeo<D>;
+               const float* slopes, Bias bias, bf16* dk, bf16* dv, int B, int H, int KVH, Mask mk,
+               cudaStream_t stream) {
+  using G = DkvGeo<D, false>;
+  static_assert(DkvGeo<D, true>::NT == G::NT && DkvGeo<D, true>::BM == G::BM, "one grid with or without a bias");
   const int n_kt = (mk.sk + G::BM - 1) / G::BM;
   if (static_cast<long long>(n_kt) * KVH > 0x7fffffffLL) return kUnsupported;
-  auto kernel = slopes != nullptr ? flash_dkv_bf16_kernel<D, true> : flash_dkv_bf16_kernel<D, false>;
-  const cudaError_t err = allow_smem(kernel, G::smem);
+  const bool has_bias = bias.p != nullptr;
+  auto kernel = has_bias ? (slopes != nullptr ? flash_dkv_bf16_kernel<D, true, true>
+                                              : flash_dkv_bf16_kernel<D, false, true>)
+                         : (slopes != nullptr ? flash_dkv_bf16_kernel<D, true, false>
+                                              : flash_dkv_bf16_kernel<D, false, false>);
+  const size_t smem = has_bias ? DkvGeo<D, true>::smem : G::smem;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(n_kt * KVH, B), G::NT, G::smem, stream>>>(q, k, v, dout, lse, delta, slopes, dk, dv, H, KVH, mk);
+  kernel<<<dim3(n_kt * KVH, B), G::NT, smem, stream>>>(q, k, v, dout, lse, delta, slopes, bias, dk, dv, H, KVH, mk,
+                                                       bias_vec(bias.p, nullptr, mk.sk));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 int flash_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
-                  const float* delta, const float* slopes, bf16* dq, int B, int H, int KVH, int D, Mask mk,
-                  cudaStream_t stream) {
+                  const float* delta, const float* slopes, Bias bias, bf16* dq, float* dbias, int B, int H, int KVH,
+                  int D, Mask mk, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, slopes, dq, B, H, KVH, mk, stream);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, slopes, dq, B, H, KVH, mk, stream);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, slopes, dq, B, H, KVH, mk, stream);
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, B, H, KVH, mk, stream);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, B, H, KVH, mk, stream);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, B, H, KVH, mk, stream);
     default: return kUnsupported;
   }
 }
 
 int flash_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
-                   const float* delta, const float* slopes, bf16* dk, bf16* dv, int B, int H, int KVH, int D, Mask mk,
-                   cudaStream_t stream) {
+                   const float* delta, const float* slopes, Bias bias, bf16* dk, bf16* dv, int B, int H, int KVH,
+                   int D, Mask mk, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, slopes, dk, dv, B, H, KVH, mk, stream);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, slopes, dk, dv, B, H, KVH, mk, stream);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, slopes, dk, dv, B, H, KVH, mk, stream);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, slopes, bias, dk, dv, B, H, KVH, mk, stream);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, slopes, bias, dk, dv, B, H, KVH, mk, stream);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, slopes, bias, dk, dv, B, H, KVH, mk, stream);
     default: return kUnsupported;
   }
 }

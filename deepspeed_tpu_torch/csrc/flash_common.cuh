@@ -1,8 +1,7 @@
 // Definitions shared by the flash attention kernels (flash_attention.cu: the
-// float32 forward, dq and dk/dv, and the bias bodies of the backward;
-// flash_fwd.cu: the bfloat16 forward; flash_bwd.cu: the bfloat16 dq and dk/dv
-// without a bias): the mask, the additive bias and THE masked score every
-// kernel uses.
+// float32 forward, dq and dk/dv, and the collapsed dq; flash_fwd.cu: the
+// bfloat16 forward; flash_bwd.cu: the bfloat16 dq and dk/dv, with or without
+// a bias): the mask, the additive bias and THE masked score every kernel uses.
 #pragma once
 
 #include "common.cuh"
@@ -85,14 +84,17 @@ int flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
                    Bias bias, __nv_bfloat16* o, float* lse, int B, int H, int KVH, int D, Mask mk,
                    cudaStream_t stream);
 
-// The bfloat16 backward without a bias (flash_bwd.cu), from dout like q and
-// lse, delta (B, H, Sq) fp32: dq like q; dk, dv like k, each summed over the
-// H / KVH query heads of its KV head. Same returns.
+// The bfloat16 backward (flash_bwd.cu), from dout like q and lse, delta
+// (B, H, Sq) fp32: dq like q; dk, dv like k, each summed over the H / KVH
+// query heads of its KV head. With a bias (bias.p not null), dq's bias must be
+// one that nothing collapses (Bb*Hb == B*H, Sqb == Sq: ds_flash_bwd_dq checks)
+// and dbias (B*H, Sq, Sk) fp32 receives every program's dlogits; dk/dv take
+// any bias layout. Same returns.
 int flash_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                  const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
-                  __nv_bfloat16* dq, int B, int H, int KVH, int D, Mask mk, cudaStream_t stream);
+                  const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes, Bias bias,
+                  __nv_bfloat16* dq, float* dbias, int B, int H, int KVH, int D, Mask mk, cudaStream_t stream);
 int flash_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
+                   const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes, Bias bias,
                    __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int KVH, int D, Mask mk,
                    cudaStream_t stream);
 

@@ -5,9 +5,10 @@ replace the Pallas ``_fwd_kernel``, ``_dq_kernel``, ``_dq_kernel_collapsed``,
 ``_dkv_kernel`` and ``_dkv_kernel_gqa``. The bf16 forward is
 ``csrc/flash_fwd.cu`` (scores, probabilities and the output accumulator in
 registers on mma.sync, K/V through a cp.async ring, mask arithmetic only on
-the tiles a mask cuts, the longest causal tiles first); the fp32 forward and
-the dq and dk/dv kernels are ``csrc/flash_attention.cu``; see their source
-notes for the design.
+the tiles a mask cuts, the longest causal tiles first); the bf16 dq (writing
+dbias per program with a bias) and dk/dv, with or without a bias, are
+``csrc/flash_bwd.cu``; the fp32 kernels and the collapsed dq are
+``csrc/flash_attention.cu``; see their source notes for the design.
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward saves ``o`` and ``lse``; the backward computes
 ``delta = rowsum(o * do)`` in fp32 and launches dq and dk/dv. GQA stays

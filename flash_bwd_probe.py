@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Tile choices of the bf16 flash backward (``csrc/flash_bwd.cu``) on one NVIDIA GPU.
 
-    python3 flash_bwd_probe.py            # from the repository root, on a machine with one CUDA GPU
+    python3 flash_bwd_probe.py                      # from the repository root, on a machine with one CUDA GPU
+    python3 flash_bwd_probe.py as_is dq_bias_3st    # only the variants named
 
 Builds ``flash_bwd.cu`` as it stands and in variants whose tile constants
 (``DqGeo``, ``DkvGeo``) are substituted, each linked with this tree's
 ``flash_attention.cu`` and ``flash_fwd.cu`` into ``build/flash_bwd_probe/``,
 and prints one JSON line each:
 1. ``ptxas``: registers and spill-store bytes of every dq and dk/dv entry of
-   each variant;
+   each variant (D, ALiBi, bias);
 2. ``case``: at every ``FLASH_CASES`` case of ``chip_smoke.py`` in bf16,
    each variant's dq and dk/dv against their plain versions (the per-row
    relative error of ``chip_smoke.py``'s flash phase, held to 1e-2), whether
    a second launch gives bit-equal results, and their times from CUDA events
-   beside their bounds.
+   beside their bounds;
+3. ``bias case``: the same for the bias bodies (dq writing dbias, dk/dv with
+   a bias) at the ``EVO_SHAPES`` cases ``msa_row`` and ``msa_row_finetune``
+   (the 384 x 512 crop), with dbias held to the same tolerance, and the bytes
+   each kernel must move over its time against the card's 3.35 TB/s.
 The card's name and power limit come first.
 """
 
@@ -28,20 +33,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "deepspeed_tpu_torch", "csrc")
 OUT = os.path.join(HERE, "build", "flash_bwd_probe")
 
-DQ = ("  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 ? 32 : 64;\n"
-      "  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;\n")
-DKV = ("  static constexpr int NW = 4, NT = 32 * NW, BM = 16 * NW, BN = 64, QS = D <= 64 ? 32 : 16;\n"
-       "  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 2;\n")
+DQ = "  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 && !BIAS ? 32 : 64;\n"
+DQ_MIN = "  static constexpr int MIN_BLOCKS = D <= 64 && !BIAS ? 2 : 1;\n"
+DQ_ST = "  static constexpr int STAGES = 2;  // the ring's depth"
+DKV = "  static constexpr int NW = 4, NT = 32 * NW, BM = 16 * NW, BN = 64, QS = D <= 64 ? 32 : 16;\n"
+DKV_MIN = "  static constexpr int MIN_BLOCKS = D <= (BIAS ? 32 : 64) ? 3 : (BIAS && D > 64 ? 1 : 2);\n"
 # variant name -> (source text, replacement) pairs; each text must occur in flash_bwd.cu
 VARIANTS = {
     "as_is": [],
-    "dq_ks32": [(DQ, DQ.replace("KS = D <= 64 ? 32 : 64", "KS = 32"))],
-    "dq_ks64_1blk": [(DQ, DQ.replace("KS = D <= 64 ? 32 : 64", "KS = 64").replace("D <= 64 ? 2 : 1", "1"))],
-    "dq_nw4": [(DQ, DQ.replace("NW = 8,", "NW = 4,").replace("D <= 64 ? 2 : 1", "3"))],
-    "dkv_nw8": [(DKV, DKV.replace("NW = 4,", "NW = D <= 64 ? 8 : 4,").replace("D <= 64 ? 3 : 2", "2"))],
+    "dq_bias_3st": [(DQ_ST, DQ_ST.replace("= 2;", "= BIAS && D <= 64 ? 3 : 2;"))],
+    "dq_bias_ks32_2blk": [(DQ, DQ.replace("KS = D <= 64 && !BIAS ? 32 : 64", "KS = D <= 64 ? 32 : 64")),
+                          (DQ_MIN, DQ_MIN.replace("D <= 64 && !BIAS ? 2 : 1", "D <= (BIAS ? 32 : 64) ? 2 : 1"))],
+    "dq_ks32": [(DQ, DQ.replace("KS = D <= 64 && !BIAS ? 32 : 64", "KS = 32"))],
+    "dq_ks64_1blk": [(DQ, DQ.replace("KS = D <= 64 && !BIAS ? 32 : 64", "KS = 64")),
+                     (DQ_MIN, "  static constexpr int MIN_BLOCKS = 1;\n")],
+    "dq_nw4": [(DQ, DQ.replace("NW = 8,", "NW = 4,")), (DQ_MIN, "  static constexpr int MIN_BLOCKS = 3;\n")],
+    "dkv_nw8": [(DKV, DKV.replace("NW = 4,", "NW = D <= 64 ? 8 : 4,")),
+                (DKV_MIN, "  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;\n")],
+    "dkv_bias_3st": [("  static constexpr int STAGES = 2;\n" + DKV_MIN,
+                      "  static constexpr int STAGES = BIAS && D <= 64 ? 3 : 2;\n"
+                      + DKV_MIN.replace("? 3 :", "? (BIAS ? 2 : 3) :"))],
     "dkv_qs16": [(DKV, DKV.replace("QS = D <= 64 ? 32 : 16", "QS = 16"))],
-    "dkv_1blk": [(DKV, DKV.replace("D <= 64 ? 3 : 2", "1"))],
+    "dkv_1blk": [(DKV_MIN, "  static constexpr int MIN_BLOCKS = 1;\n")],
 }
+BIAS_CASES = ("msa_row", "msa_row_finetune")
 
 
 def log(obj) -> None:
@@ -102,9 +117,10 @@ def ptxas_entries(text):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry and ("flash_dq_bf16_kernel" in entry or "flash_dkv_bf16_kernel" in entry):
             kind = "dq" if "flash_dq" in entry else "dkv"
-            targs = re.search(r"ILi(\d+)ELb([01])E", entry)
+            targs = re.search(r"ILi(\d+)ELb([01])ELb([01])E", entry)
             out.append(dict(kernel=kind, D=int(targs.group(1)) if targs else None,
-                            alibi=targs.group(2) == "1" if targs else None, registers=int(m.group(1)),
+                            alibi=targs.group(2) == "1" if targs else None,
+                            bias=targs.group(3) == "1" if targs else None, registers=int(m.group(1)),
                             spill_store_bytes=spill))
             entry = None
     return out
@@ -176,7 +192,60 @@ def main(argv) -> int:
             log(rec)
         del q, k, v, do, o_ref, dq_ref, dk_ref, dv_ref, bwd
         torch.cuda.empty_cache()
+    for case in BIAS_CASES:
+        bias_case(torch, cs, fa, _build, handles, case)
     return 0
+
+
+def bias_case(torch, cs, fa, _build, handles, case):
+    """Each variant's dq writing dbias and dk/dv with a bias at one EVO_SHAPES case (a bias that nothing
+    collapses), against the plain versions, with the bytes each must move over its time."""
+    from deepspeed_tpu_torch.ops import evoformer as evo
+
+    dev, dtype = torch.device("cuda", 0), torch.bfloat16
+    q5, k5, v5, do5, biases = cs.evo_inputs(torch, dev, dtype, case)
+    lead, (Sq, H, D) = q5.shape[:-3], q5.shape[-3:]
+    B = q5.numel() // (Sq * H * D)
+    q, k, v, do = (t.reshape(B, Sq, H, D) for t in (q5, k5, v5, do5))
+    bias, meta = fa.flat_bias(*evo.fold_biases(biases, lead), B, H, Sq, Sq)
+    del biases, q5, k5, v5, do5
+    args = (None, D**-0.5, False, 0, bias, meta)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, do, lse_ref, fa.flash_delta(o_ref, do), *args)
+    del o_ref
+    dbias_ref = torch.empty_like(bias)
+    dq_ref = fa.flash_bwd_dq_ref(*bwd, dbias_ref)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bwd)
+    err = lambda a, b: cs.evo_err(torch, a, b)["max_rel_err"]
+    nq, nk, nb, stats = q.numel() * 2, k.numel() * 2, bias.numel() * 4, B * H * Sq * 4
+    dq_bytes, dkv_bytes = 3 * nq + 2 * nk + 2 * stats + 2 * nb, 2 * nq + 4 * nk + 2 * stats + nb
+    flops = 2 * D * B * H * Sq * Sq
+    saved = _build._lib
+    for name, handle in handles.items():
+        _build._lib = handle
+        try:
+            dbias, again = torch.empty_like(bias), torch.empty_like(bias)
+            dq = fa.flash_bwd_dq(*bwd, dbias)
+            dk, dv = fa.flash_bwd_dkv(*bwd)
+            torch.cuda.synchronize()
+            same = torch.equal(dq, fa.flash_bwd_dq(*bwd, again)) and torch.equal(dbias, again)
+            same = same and all(torch.equal(x, y) for x, y in zip((dk, dv), fa.flash_bwd_dkv(*bwd)))
+            dq_ms = cs.time_ms(lambda: fa.flash_bwd_dq(*bwd, again), 20)
+            dkv_ms = cs.time_ms(lambda: fa.flash_bwd_dkv(*bwd), 20)
+            rec = dict(phase="bias case", variant=name, case=case, dq_err=err(dq, dq_ref),
+                       dbias_err=err(dbias, dbias_ref), dkv_err=max(err(dk, dk_ref), err(dv, dv_ref)),
+                       repeats=same, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                       dq_bound_ms=cs.bound(dq_bytes, 3 * flops, dtype)[0],
+                       dkv_bound_ms=cs.bound(dkv_bytes, 4 * flops, dtype)[0],
+                       dq_gb_per_s=dq_bytes / dq_ms / 1e6, dkv_gb_per_s=dkv_bytes / dkv_ms / 1e6,
+                       hbm_gb_per_s=cs.HBM_BYTES_PER_S / 1e9)
+            del dbias, again, dq, dk, dv
+        finally:
+            _build._lib = saved
+        rec["ok"] = max(rec["dq_err"], rec["dbias_err"], rec["dkv_err"]) <= 1e-2 and rec["repeats"]
+        log(rec)
+    del q, k, v, do, bias, bwd, dq_ref, dk_ref, dv_ref, dbias_ref
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ def _rng(seed):
     return lambda *s: rng.standard_normal(s).astype(np.float32)
 
 
-# (B, Sq, Sk, H, D, 4-D bias shape, repeat, causal)
+# (B, Sq, Sk, H, D, 4-D bias shape, repeat, causal[, a query row that carries -1e9 on every key])
 KERNEL_CASES = {
     "shared_by_all": (4, 24, 24, 2, 8, (1, 1, 24, 24), 1, False),
     "shared_by_all_one_row": (4, 24, 24, 2, 8, (1, 1, 1, 24), 1, False),
@@ -50,16 +50,18 @@ KERNEL_CASES = {
     "uncollapsed": (2, 24, 24, 2, 8, (2, 2, 24, 24), 1, False),
     "uncollapsed_causal_sq_lt_sk": (2, 18, 30, 2, 8, (2, 2, 18, 30), 1, True),
     "heads_only_causal": (2, 37, 37, 2, 8, (1, 2, 37, 37), 1, True),
+    "uncollapsed_masked_row_d32": (2, 24, 24, 2, 32, (2, 2, 24, 24), 1, False, 9),
 }
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
 def test_each_plain_bias_kernel_matches_the_pallas_body(name):
-    B, Sq, Sk, H, D, shape, repeat, causal = KERNEL_CASES[name]
+    B, Sq, Sk, H, D, shape, repeat, causal, *masked_row = KERNEL_CASES[name]
     mk = _rng(sum(shape) + B)
     q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, H, D), mk(B, Sk, H, D), mk(B, Sq, H, D)
     Bb, Hb, Sqb, _ = shape
     bias = (mk(*shape) * 0.5).reshape(Bb * Hb, Sqb, Sk)
+    bias[:, masked_row, :] = -1e9  # a finite score on every key of that row: its p comes out uniform
     meta = (Bb, Hb, Sqb, repeat if Bb > 1 else 1)
     scale = D**-0.5
     # JAX: the Pallas bodies in interpret mode over (B*H, S, D)

@@ -153,13 +153,17 @@ def test_plain_attention_matches_attention_xla(kw):
                                atol=TOL)
 
 
-# (B, Sq, Sk, H, KVH, D, 4-D bias shape, bias_repeat, extra keywords)
+# (B, Sq, Sk, H, KVH, D, 4-D bias shape, bias_repeat, extra keywords); ``masked_row``: that query row
+# carries -1e9 on every key (a finite score, so its p comes out uniform, not zero)
 BIAS_CASES = {
     "gqa_bias_repeat": (4, 16, 16, 4, 2, 8, (2, 4, 16, 16), 2, dict(causal=False)),
     "gqa_collapsed_causal": (2, 16, 24, 4, 1, 8, (1, 1, 16, 24), 1, dict(causal=True)),
     "full_bias_causal": (2, 16, 16, 2, 2, 8, (2, 2, 16, 16), 1, dict(causal=True)),
     "mask_row_window": (2, 20, 20, 2, 2, 8, (2, 1, 1, 20), 1, dict(causal=True, window=6)),
     "routed_plain_with_repeat": (4, 16, 16, 2, 2, 8, (2, 1, 16, 16), 2, dict(causal=True, kv_len=12)),
+    "full_bias_alibi_window": (2, 24, 24, 2, 2, 8, (2, 2, 24, 24), 1,
+                               dict(causal=True, window=7, alibi_slopes=alibi_slopes(2))),
+    "full_bias_masked_row": (2, 16, 16, 2, 2, 8, (2, 2, 16, 16), 1, dict(causal=False, masked_row=5)),
 }
 
 
@@ -169,8 +173,12 @@ def test_flash_attention_with_a_bias_matches_jax(name):
     of q, k, v (collapsed back to the KV heads under GQA) and of the bias, in
     the bias's own shape; on CPU tensors through the kernels' plain versions."""
     B, Sq, Sk, H, KVH, D, shape, repeat, kw = BIAS_CASES[name]
+    kw = dict(kw)
+    masked_row = kw.pop("masked_row", None)
     q, k, v, do = _inputs(B, Sq, Sk, H, KVH, D, seed=len(name))
     bias = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    if masked_row is not None:
+        bias[..., masked_row, :] = -1e9
     f = lambda q, k, v, b: jax_flash(q, k, v, bias=b, bias_repeat=repeat, interpret=True, **kw)
     o, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, bias)))
     want = [np.asarray(o)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]

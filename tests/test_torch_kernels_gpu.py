@@ -642,9 +642,12 @@ def test_flash_attention_autograd_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------- flash with an additive bias (evoformer)
-# (B, Sq, Sk, H, D, 4-D bias shape, repeat, causal): the four ways programs share a
+# (B, Sq, Sk, H, D, 4-D bias shape, repeat, causal[, extras]): the four ways programs share a
 # bias slice (Bb = Hb = 1; Hb = 1; Bb = 1; neither), each with Sqb = Sq and Sqb = 1,
-# a bias that nothing collapses, odd Sq and Sk, D 32 / 64 / 128
+# a bias that nothing collapses, odd Sq and Sk, D 32 / 64 / 128. extras: ALiBi slopes and a
+# window beside the bias; a query row whose keys all carry -1e9; an evoformer bias, a
+# (B, 1, 1, Sk) mask plus an (H, Sq, Sk) pair bias; fewer KV heads (dk/dv sums a KV head's
+# query heads, each with its own bias slice)
 BIAS_CASES = [
     (4, 64, 64, 2, 32, (1, 1, 64, 64), 1, False),
     (4, 64, 64, 2, 32, (1, 1, 1, 64), 1, False),
@@ -658,30 +661,54 @@ BIAS_CASES = [
     (2, 50, 77, 2, 32, (2, 2, 50, 77), 1, True),
     (4, 64, 64, 2, 128, (1, 2, 64, 64), 1, True),
     (4, 33, 33, 2, 32, (4, 1, 1, 33), 1, True),
+    (2, 130, 130, 4, 64, (2, 4, 130, 130), 1, True, dict(alibi=True, window=40)),
+    (2, 70, 70, 2, 32, (2, 2, 70, 70), 1, False, dict(masked_row=37)),
+    (2, 61, 61, 4, 32, (2, 4, 61, 61), 1, False),
+    (16, 256, 256, 8, 32, (16, 8, 256, 256), 1, False, dict(mask_pair=True)),
+    (2, 96, 96, 4, 32, (2, 4, 96, 96), 1, False, dict(kvh=2)),
 ]
 
 
-def _bias_inputs(dev, dtype, B, Sq, Sk, H, D, shape, repeat, seed=0):
-    q, k, v, do = _flash_inputs(dev, dtype, B, Sq, Sk, H, H, D, seed)
+def _bias_id(c):
+    extras = "".join(f"-{key}" for key in (c[8] if len(c) > 8 else {}))
+    return f"{c[5]}x{c[6]}{'-causal' if c[7] else ''}-D{c[4]}{extras}"
+
+
+def _bias_inputs(dev, dtype, B, Sq, Sk, H, D, shape, repeat, seed=0, masked_row=None, mask_pair=False, kvh=None):
+    q, k, v, do = _flash_inputs(dev, dtype, B, Sq, Sk, H, kvh or H, D, seed)
     g = _gen(dev, seed + 1)
-    bias = torch.randn(shape, generator=g, device=dev) * 0.5
-    bias = bias.masked_fill(torch.rand(shape, generator=g, device=dev) < 0.15, -1e9)  # a mask bias: finite
+    if mask_pair:  # evoformer's summed bias: a mask of 0 or -1e9 per (batch, key) plus an N(0, 1) pair bias
+        mask = torch.where(torch.rand((shape[0], 1, 1, Sk), generator=g, device=dev) < 0.1, -1e9, 0.0)
+        bias = torch.randn((1, *shape[1:]), generator=g, device=dev) + mask
+    else:
+        bias = torch.randn(shape, generator=g, device=dev) * 0.5
+        bias = bias.masked_fill(torch.rand(shape, generator=g, device=dev) < 0.15, -1e9)  # a mask bias: finite
     bias[..., 0] = 0.0  # every row keeps a key
+    if masked_row is not None:
+        bias[..., masked_row, :] = -1e9  # every key of this row: a score of -1e9, not a masked pair
     Bb, Hb, Sqb, _ = shape
     return q, k, v, do, bias.reshape(Bb * Hb, Sqb, Sk).contiguous(), (Bb, Hb, Sqb, repeat if Bb > 1 else 1)
 
 
+def _bias_case(dev, dtype, case):
+    """The inputs of a BIAS_CASES case: q, k, v, do, the flat bias, its meta and the kernels' arguments."""
+    B, Sq, Sk, H, D, shape, repeat, causal, *extras = case
+    extras = dict(extras[0]) if extras else {}
+    alibi, window = extras.pop("alibi", False), extras.pop("window", 0)
+    q, k, v, do, bias, meta = _bias_inputs(dev, dtype, B, Sq, Sk, H, D, shape, repeat, **extras)
+    slopes = torch.tensor([0.5 ** (i + 1) for i in range(H)], device=dev) if alibi else None
+    return q, k, v, do, bias, meta, (slopes, D**-0.5, causal, window)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", BIAS_CASES, ids=[f"{c[5]}x{c[6]}{'-causal' if c[7] else ''}-D{c[4]}"
-                                                  for c in BIAS_CASES])
+@pytest.mark.parametrize("case", BIAS_CASES, ids=[_bias_id(c) for c in BIAS_CASES])
 def test_flash_bias_kernels(cuda, dtype, case):
     """Forward, dq (per program or collapsed, with dbias) and dk/dv with a bias
     against their plain versions; a collapsed dbias repeats bit for bit."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    B, Sq, Sk, H, D, shape, repeat, causal = case
-    q, k, v, do, bias, meta = _bias_inputs(cuda, dtype, B, Sq, Sk, H, D, shape, repeat)
-    args = (None, D**-0.5, causal, 0)
+    B, H = case[0], case[3]
+    q, k, v, do, bias, meta, args = _bias_case(cuda, dtype, case)
     o, lse = fa.flash_fwd(q, k, v, *args, bias, meta)
     o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args, bias, meta)
     bwd = (q, k, v, do, lse_ref, fa.flash_delta(o_ref, do), *args, bias, meta)
@@ -708,7 +735,66 @@ def test_flash_bias_kernels(cuda, dtype, case):
             for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref),
                                     ("dbias", dbias, dbias_ref))}
     errs["lse"] = (lse - lse_ref).abs().max().item()
-    assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv", "dbias")), errs
+    tol = {n: TOL[dtype] for n in ("o", "dq", "dk", "dv", "dbias")}
+    if dtype == torch.bfloat16 and len(case) > 8 and "masked_row" in case[8]:
+        # the row at -1e9 has p = 1 on every key (the plain version's lse), so its ds is about Sk times
+        # any other row's and sets each key's dk and its own dq: a rounding of that bf16 ds that falls
+        # the other way (its fp32 dlogits differ by the products' summation order, dbias shows how
+        # little) and the output's rounding add, two rounding steps of 2**-7 each
+        tol["dq"] = tol["dk"] = 2 * 2**-7
+    assert errs["lse"] <= 1e-4 and all(errs[n] <= tol[n] for n in tol), errs
+
+
+# every extras case, one row shared by every query row (dk/dv's one-row stage), D 128 uncollapsed
+REPEAT_CASES = [c for c in BIAS_CASES if len(c) > 8] + [BIAS_CASES[1], BIAS_CASES[8]]
+
+
+@pytest.mark.parametrize("case", REPEAT_CASES, ids=[_bias_id(c) for c in REPEAT_CASES])
+def test_flash_bias_backward_repeats_bit_for_bit(cuda, case):
+    """Two launches of the bf16 dq writing dbias (or the collapsed dq) and of dk/dv with a bias give
+    bit-equal dq, dbias, dk and dv: no atomics, a fixed order everywhere."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H = case[0], case[3]
+    q, k, v, do, bias, meta, args = _bias_case(cuda, torch.bfloat16, case)
+    o, lse = fa.flash_fwd_ref(q, k, v, *args, bias, meta)
+    bwd = (q, k, v, do, lse, fa.flash_delta(o, do), *args, bias, meta)
+
+    def once():
+        if fa.bias_is_collapsed(meta, B, H):
+            dq, dbias = fa.flash_bwd_dq_collapsed(*bwd)
+        else:
+            dbias = torch.empty_like(bias)
+            dq = fa.flash_bwd_dq(*bwd, dbias)
+        return (dq, dbias, *fa.flash_bwd_dkv(*bwd))
+
+    first, second = once(), once()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.isfinite(t).all() for t in first)
+
+
+def test_bf16_bias_that_nothing_collapses_takes_dq_and_dkv(cuda):
+    """Through the autograd function, a bf16 bias that nothing collapses launches flash_bwd_dq (writing
+    dbias) and flash_bwd_dkv, and not the collapsed dq. The output and the gradients match the same
+    function on the CPU (the plain versions) within chip_smoke.py's evoformer path tolerance (0.08 on the
+    per-row relative error: the forward's bf16 o and delta differ too)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, bias, _ = _bias_inputs(cuda, torch.bfloat16, 4, 96, 96, 4, 32, (4, 4, 96, 96), 1)
+    counters = (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dq_collapsed)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        counts = [fn.launches for fn in counters]
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v, bias.reshape(4, 4, 96, 96))]
+        out = fa.flash_attention(*leaves[:3], causal=False, bias=leaves[3])
+        out.backward(do.to(dev))
+        torch.cuda.synchronize()
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        launched = [fn.launches - n for fn, n in zip(counters, counts)]
+        assert launched == ([1, 1, 0] if dev == "cuda" else [0, 0, 0])
+    for got, want in zip(*grads):
+        assert got.shape == want.shape and _err(got, want, want.float().abs().mean().item()) <= 0.08
 
 
 def test_evoformer_on_the_card_matches_the_cpu(cuda):
