@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1
                                      # and an evoformer call
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
-    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash and paged kernels beside this tree's
+    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash, paged and sparse dk/dv kernels
+                                        # beside this tree's
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -69,8 +70,8 @@ Phases, each fatal on failure:
    bias) at AlphaFold2's widths (``EVO_SHAPES``: MSA row and column
    attention, 8 heads of 32; triangle attention, 4 heads of 32; crops of
    256 x 128 and 384 x 512) in bf16 and fp32 against their plain versions,
-   a collapsed dbias repeating bit for bit, with bounds and SDPA (float
-   ``attn_mask``) as the yardstick;
+   the collapsed dq's dq and dbias repeating bit for bit, with bounds and SDPA
+   (float ``attn_mask``) as the yardstick;
 10. evoformer: ``DS4Sci_EvoformerAttention`` forward and backward at those
    shapes, the counters zeroed before each call and read after (forward,
    dk/dv and the dq of each layout must launch), output and the gradients
@@ -84,8 +85,9 @@ Phases, each fatal on failure:
    heads and D 128; a dense layout at the flash kernels' gpt2_1_3b shape) in
    bf16 and fp32 against their plain versions (at each case's check batch),
    with bounds from the layout's active pairs and SDPA with the boolean token
-   mask as the yardstick; the dense layout is also held to, and timed
-   beside, the flash kernels;
+   mask as the yardstick, and dk/dv (over the bf16 walk's plan) repeating bit
+   for bit; the dense layout is also held to, and timed beside, the flash
+   kernels;
 12. sparse: ``SparseSelfAttention`` forward and backward at those cases in
    bf16, the counters zeroed before each call and read after (all three
    kernels must launch), output and gradients against the same call on the
@@ -95,12 +97,12 @@ Phases, each fatal on failure:
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
 DIR and stand in for this tree's ``quantized_matmul``, flash forward, dq
-and dk/dv and paged decode and prefill while each of their cases is timed
-again (``parent_ms``, the bias cases of dq and dk/dv included; the
-collapsed dq runs the same body on both sides and is not timed again, and
-the ALiBi and window cases of the paged kernels are not in the parent's),
-the three serving runs and the training run are repeated on them, and each
-``DS4Sci_EvoformerAttention`` call is timed on them too.
+(per program and collapsed) and dk/dv, paged decode and prefill and the
+sparse dk/dv while each of their cases is timed again (``parent_ms``, the
+bias cases of dq and dk/dv included; the ALiBi and window cases of the
+paged kernels are not in the parent's), the three serving runs and the
+training run are repeated on them, and each ``DS4Sci_EvoformerAttention``
+and ``SparseSelfAttention`` call is timed on them too.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -232,13 +234,30 @@ class OldPagedEntry:
         return self.fn(*head, out, *dims, *rest)
 
 
+class OldSparseEntry:
+    """A sparse dk/dv entry point whose C interface predates the plan: called with this tree's arguments,
+    it walks qidx itself (the plan, the workspace and their counts are dropped)."""
+
+    OLD_ARGS = 19
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, q, k, v, dout, lse, delta, qidx, _plan, _ws, dk, dv, B, S, H, D, blk, Aq, _n_items, _n_reduce,
+                 _n_slots, _max_entries, _rows, *rest):
+        return self.fn(q, k, v, dout, lse, delta, qidx, dk, dv, B, S, H, D, blk, Aq, *rest)
+
+
 class ParentKernels:
     """This tree's kernel library with the entry points in ``STAND_IN``
-    taken from another build (the paged ones through ``OldPagedEntry``
-    where that build has the old C interface)."""
+    taken from another build (the paged ones through ``OldPagedEntry``, the
+    sparse dk/dv through ``OldSparseEntry`` where that build has the old C
+    interface). The collapsed dq's two entry points come from one build,
+    whose plan sizes the partials."""
 
     STAND_IN = ("ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq", "ds_flash_bwd_dkv",
-                "ds_paged_attention_decode", "ds_paged_attention_prefill")
+                "ds_flash_bwd_dq_collapsed", "ds_flash_dq_collapsed_parts", "ds_paged_attention_decode",
+                "ds_paged_attention_prefill", "ds_sparse_bwd_dkv")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
@@ -249,6 +268,8 @@ class ParentKernels:
         fn = getattr(self._other, name)
         if len(fn.argtypes) == OldPagedEntry.OLD_ARGS.get(name):
             return OldPagedEntry(name, fn)
+        if name == "ds_sparse_bwd_dkv" and len(fn.argtypes) == OldSparseEntry.OLD_ARGS:
+            return OldSparseEntry(fn)
         return fn
 
 
@@ -950,10 +971,10 @@ def phase_evo_kernels(torch, dev, dtype, name, iters):
     if collapsed:
         dq_fn, dq_ref_fn = (lambda: fa.flash_bwd_dq_collapsed(*bwd)), (lambda: fa.flash_bwd_dq_collapsed_ref(*bwd))
         dq, dbias = dq_fn()
-        dbias_again = dq_fn()[1]
+        dq_again, dbias_again = dq_fn()
         torch.cuda.synchronize()
-        repeats = torch.equal(dbias, dbias_again)
-        del dbias_again
+        repeats = torch.equal(dbias, dbias_again) and torch.equal(dq, dq_again)
+        del dq_again, dbias_again
         dq_ref, dbias_ref = dq_ref_fn()
     else:
         dbias, dbias_ref = torch.empty_like(bias), torch.empty_like(bias)
@@ -997,8 +1018,7 @@ def phase_evo_kernels(torch, dev, dtype, name, iters):
              2 * nq + 4 * nk + 2 * stats + nb)):
         flops = 2 * n_prod * D * pairs
         b_ms, b_by = bound(nbytes, flops, dtype)
-        # the collapsed dq is this tree's on both sides: the parent stands in for the other three
-        parent_ms = parent_time(time_ms, fn, iters) if kernel != "flash_bwd_dq_collapsed" else None
+        parent_ms = parent_time(time_ms, fn, iters)
         fwd = kernel.startswith("flash_fwd")
         rec = dict(kernel=kernel, case=name, dtype=str(dtype), shape=shape, **e, tol=tol, kernel_ms=time_ms(fn, iters),
                    plain_ms=time_ms(ref, few), parent_ms=parent_ms, library_ms=lib["fwd_ms" if fwd else "bwd_ms"],
@@ -1006,7 +1026,7 @@ def phase_evo_kernels(torch, dev, dtype, name, iters):
                    f"mask gradient {lib.get('mask_grad')}",
                    bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
         if kernel == dq_name and collapsed:
-            rec["dbias_repeats_bitwise"] = repeats
+            rec["repeats_bitwise"] = repeats  # dq and dbias of two launches
         recs.append(rec)
         torch.cuda.empty_cache()
     return recs
@@ -1025,10 +1045,10 @@ def run_evo_kernel_phases(torch, dev, quick: bool):
                 what, tol = rec["tol"]
                 dbias_ok = "dbias_" + what not in rec or rec["dbias_" + what] <= tol
                 if not (rec[what] <= tol and dbias_ok and rec.get("lse_max_abs_err", 0.0) <= 1e-4
-                        and rec.get("dbias_repeats_bitwise", True)):
+                        and rec.get("repeats_bitwise", True)):
                     raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} "
                                          f"(dbias {rec.get('dbias_' + what)}) > {tol}, lse error "
-                                         f"{rec.get('lse_max_abs_err')} or dbias not repeatable")
+                                         f"{rec.get('lse_max_abs_err')} or dq and dbias not repeatable")
                 records.append(rec)
             torch.cuda.empty_cache()
     return records
@@ -1578,7 +1598,7 @@ EVO_PATH_TOL = {"torch.bfloat16": ("max_rel_err", 0.08), "torch.float32": ("max_
 # an evoformer call's kernels: the flash bodies, and the rest (the bias fold's sum and cast, autograd's
 # reductions of dbias to the biases' shapes, delta)
 EVO_CATS = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_bf16_kernel", "flash_dq_kernel"),
-            "flash_bwd_dq_collapsed": ("flash_dq_collapsed_kernel", "dbias_reduce_kernel"),
+            "flash_bwd_dq_collapsed": ("flash_dq_collapsed", "dbias_reduce_kernel"),
             "flash_bwd_dkv": ("flash_dkv",), "reduce (dbias sums, delta)": ("reduce_kernel",),
             "elementwise (bias fold, casts)": ("elementwise_kernel",), "copy": ("Memcpy", "Memset", "copy")}
 
@@ -1656,6 +1676,10 @@ def phase_evoformer(torch, dev, counters, profile=False):
                     step(q, k, v, do, biases)
                     parent_peak = torch.cuda.max_memory_allocated() / 2**30
             parent_ms = parent_time(time_ms, lambda: step(q, k, v, do, biases), 10)
+            if parent_ms is not None:  # this tree, parent, parent, this tree: each side its faster mean of 10,
+                # so that the host's drift over the run (small calls are host-bound) falls on both sides alike
+                parent_ms = min(parent_ms, parent_time(time_ms, lambda: step(q, k, v, do, biases), 10))
+                kernel_ms = min(kernel_ms, time_ms(lambda: step(q, k, v, do, biases), 10))
             if profile and dtype == torch.bfloat16 and name in ("msa_row", "msa_row_finetune"):
                 log(dict(phase="profile_evoformer", case=name, calls=10,
                          **profiled(torch, lambda: [step(q, k, v, do, biases) for _ in range(10)], EVO_CATS)))
@@ -1796,14 +1820,19 @@ def phase_sparse_kernels(torch, dev, dtype, name, iters):
     blk, causal = sparse_config(name).block, c["causal"]
     q, k, v, do, kidx, qidx = sparse_inputs(torch, dev, dtype, name)
     k, v = ss._expand_kv(k, H // c["kvh"]), ss._expand_kv(v, H // c["kvh"])
+    plan = ss._device_dkv_plan(sparse_config(name), S, H, causal, dev)  # the bf16 dk/dv's walk, as the path's
     scale = D**-0.5
     args = (blk, scale, causal)
     o, lse = ss.sparse_fwd(q, k, v, kidx, *args)
     delta = ss.flash_delta(o, do)
     bwd = (q, k, v, do, lse, delta)
+    dkv_fn = lambda: ss.sparse_bwd_dkv(*bwd, qidx, *args, plan=plan)
     dq = ss.sparse_bwd_dq(*bwd, kidx, *args)
-    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, *args)
+    dk, dv = dkv_fn()
+    dk_again, dv_again = dkv_fn()
     torch.cuda.synchronize()
+    repeats = torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+    del dk_again, dv_again
     o_ref, lse_ref = ss.sparse_fwd_ref(q, k, v, kidx, *args)
     dq_ref = ss.sparse_bwd_dq_ref(*bwd, kidx, *args)
     dk_ref, dv_ref = ss.sparse_bwd_dkv_ref(*bwd, qidx, *args)
@@ -1861,8 +1890,8 @@ def phase_sparse_kernels(torch, dev, dtype, name, iters):
              lambda: ss.sparse_fwd_ref(q, k, v, kidx, *args), kidx, 2, 4 * nt + stats),
             ("sparse_bwd_dq", e_dq, lambda: ss.sparse_bwd_dq(*bwd, kidx, *args),
              lambda: ss.sparse_bwd_dq_ref(*bwd, kidx, *args), kidx, 3, 5 * nt + 2 * stats),
-            ("sparse_bwd_dkv", e_dkv, lambda: ss.sparse_bwd_dkv(*bwd, qidx, *args),
-             lambda: ss.sparse_bwd_dkv_ref(*bwd, qidx, *args), qidx, 4, 6 * nt + 2 * stats)):
+            ("sparse_bwd_dkv", e_dkv, dkv_fn, lambda: ss.sparse_bwd_dkv_ref(*bwd, qidx, *args), qidx, 4,
+             6 * nt + 2 * stats)):
         nbytes += idx.numel() * 4
         flops = 2 * n_prod * D * pairs
         b_ms, b_by = bound(nbytes, flops, dtype)
@@ -1877,6 +1906,10 @@ def phase_sparse_kernels(torch, dev, dtype, name, iters):
                    active_blocks=blocks * B,
                    density=density, list_width=idx.shape[2], bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms,
                    bound_by=b_by)
+        if kernel == "sparse_bwd_dkv":  # the redesigned bf16 dk/dv: its parent's time, and two launches bit-equal
+            rec.update(parent_ms=parent_time(time_ms, fn, iters), repeats_bitwise=repeats,
+                       plan=dict(items=plan.n_items, split_groups=plan.n_reduce, pieces=plan.n_slots,
+                                 longest_walk=plan.max_entries) if dtype == torch.bfloat16 else None)
         if kernel in flash:
             fe, f_ms = flash[kernel]
             rec.update(flash_ms=f_ms, vs_flash_max_rel_err=fe["max_rel_err"],
@@ -1896,21 +1929,22 @@ def run_sparse_kernel_phases(torch, dev, quick: bool):
             for rec in phase_sparse_kernels(torch, dev, dtype, name, iters):
                 log(rec)
                 what, tol = rec["tol"]
-                ok = rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4
+                ok = rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4 and rec.get("repeats_bitwise", True)
                 if "flash_ms" in rec:  # the dense layout against the flash kernels, at the same tolerance
                     flash_what = "vs_flash_max_abs_err_scaled" if what == "max_abs_err_scaled" else "vs_flash_" + what
                     ok = ok and rec[flash_what] <= tol and rec["vs_flash_lse_max_abs_err"] <= 1e-4
                 if not ok:
                     raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > "
-                                         f"{tol}, lse error {rec.get('lse_max_abs_err')} or the flash kernels "
-                                         f"disagree: {rec}")
+                                         f"{tol}, lse error {rec.get('lse_max_abs_err')}, dk/dv not repeatable "
+                                         f"or the flash kernels disagree: {rec}")
                 records.append(rec)
             torch.cuda.empty_cache()
     return records
 
 
 class PlainSparseKernels(PlainKernels):
-    """The plain versions of the sparse kernels bound in place of their wrappers."""
+    """The plain versions of the sparse kernels bound in place of their wrappers
+    (the dk/dv's without the plan, the kernel's walk, which it does not need)."""
 
     NAMES = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
@@ -1919,6 +1953,11 @@ class PlainSparseKernels(PlainKernels):
         from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
 
         return ss
+
+    def __enter__(self):
+        super().__enter__()
+        ss = self.fa
+        ss.sparse_bwd_dkv = lambda *args, plan=None: ss.sparse_bwd_dkv_ref(*args)
 
 
 # kernel path vs plain path, forward and backward end to end. bf16: per-row relative error with each
@@ -1975,6 +2014,7 @@ def phase_sparse(torch, dev, counters):
         step(q, k, v, do)
         peak = torch.cuda.max_memory_allocated() / 2**30
         kernel_ms = time_ms(lambda: step(q, k, v, do), 5, warmup=1)
+        parent_ms = parent_time(time_ms, lambda: step(q, k, v, do), 5, warmup=1)
         # SDPA with the token mask, forward + backward through autograd, on the expanded K/V
         B, S, H, D = c["q"]
         blk = sparse_config(name).block
@@ -1996,7 +2036,8 @@ def phase_sparse(torch, dev, counters):
                    config=c["config"], block=blk, causal=c["causal"], launches=launches,
                    plain_launches=plain_launches, errors={lab: e[what] for lab, e in errs.items()},
                    max_abs_err={lab: e["max_abs_err"] for lab, e in errs.items()}, tol=(what, tol),
-                   ms_per_fwd_bwd=kernel_ms, peak_memory_gb=peak, plain_ms_per_fwd_bwd=plain_ms,
+                   ms_per_fwd_bwd=kernel_ms, parent_ms_per_fwd_bwd=parent_ms, peak_memory_gb=peak,
+                   plain_ms_per_fwd_bwd=plain_ms,
                    plain_peak_memory_gb=plain_peak, sdpa_ms_per_fwd_bwd=sdpa_ms, sdpa_peak_memory_gb=sdpa_peak,
                    sdpa_backend="default dispatch", finite=finite)
         log(rec)
@@ -2358,7 +2399,7 @@ KERNEL_ROWS = [
                                                                           case="msa_row"),
      "flash_bwd.cu", "pallas/flash_attention.py:417"),
     ("flash_bwd_dq_collapsed", "evoformer", "flash_bwd_dq_collapsed", "bfloat16",
-     dict(kernel="flash_bwd_dq_collapsed", case="msa_row_pair"), "flash_attention.cu",
+     dict(kernel="flash_bwd_dq_collapsed", case="msa_row_pair"), "flash_bwd.cu",
      "pallas/flash_attention.py:456"),
     ("flash_bwd_dkv (bias)", "evoformer", "flash_bwd_dkv", "bfloat16", dict(kernel="flash_bwd_dkv (bias)",
                                                                             case="msa_row"),
@@ -2368,7 +2409,7 @@ KERNEL_ROWS = [
     ("sparse_bwd_dq", "sparse", "sparse_bwd_dq", "bfloat16", dict(kernel="sparse_bwd_dq", case="fixed_uni_gpt2_1_3b"),
      "sparse_attention.cu", "sparse_attention/sparse_self_attention.py:222"),
     ("sparse_bwd_dkv", "sparse", "sparse_bwd_dkv", "bfloat16",
-     dict(kernel="sparse_bwd_dkv", case="fixed_uni_gpt2_1_3b"), "sparse_attention.cu",
+     dict(kernel="sparse_bwd_dkv", case="fixed_uni_gpt2_1_3b"), "sparse_dkv.cu",
      "sparse_attention/sparse_self_attention.py:239"),
     ("lamb_direction", "train_lamb", "lamb_direction", "float32", dict(kernel="lamb_direction", case="all"),
      "fused_lamb.cu", "pallas/fused_lamb.py:45"),

@@ -1,17 +1,20 @@
 // Flash attention for Hopper: forward, dq and dk/dv over (B, S, H, D) tensors,
 // with an optional additive bias and its gradient. The bfloat16 forward is
 // flash_fwd.cu's register-resident kernel (ds_flash_fwd routes to it), and so
-// are the bfloat16 dq and dk/dv, with or without a bias, in flash_bwd.cu
-// (ds_flash_bwd_dq and ds_flash_bwd_dkv route to them). This file holds the
-// rest, whose design follows: the float32 forward, dq and dk/dv (with or
-// without a bias), and the collapsed dq in both dtypes. The mask, the bias and
-// masked_score live in flash_common.cuh.
+// are the bfloat16 dq and dk/dv, with or without a bias, and the bfloat16
+// collapsed dq in flash_bwd.cu (ds_flash_bwd_dq, ds_flash_bwd_dkv and
+// ds_flash_bwd_dq_collapsed route to them). This file holds the rest, whose
+// design follows: the float32 forward, dq and dk/dv (with or without a bias)
+// and collapsed dq, the collapsed dq's plan in both dtypes and the fixed-order
+// reduce of its partials. The mask, the bias and masked_score live in
+// flash_common.cuh.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 // _fwd_kernel (pallas_call at :185, via _flash_fwd; here in fp32, with or
 // without a bias tile), _dq_kernel (:417, via _flash_bwd; here in fp32, where
 // with a bias it writes dbias per program), _dq_kernel_collapsed (:456: dq
-// plus dbias summed over the programs that share a bias slice, both dtypes),
+// plus dbias summed over the programs that share a bias slice; here in fp32,
+// and the plan and reduce of both dtypes),
 // _dkv_kernel (:485: dk/dv with the bias tile; here in fp32) and
 // _dkv_kernel_gqa (:518; here in fp32). The masked score is the reference's _scores:
 // s = (q.k) * scale + slope * key_pos + bias, masked to kNegInf outside the
@@ -21,15 +24,10 @@
 // and stays a score). masked_score (flash_common.cuh) is the one definition
 // every kernel uses.
 //
-// What bounds it: at the training shapes (S 1024, D 64, causal) the forward
-// does 2 products of S*S/2*D per head, 4*S^2/2*D flops, against reading q, k, v
-// and writing o once, so it sits near the knee of the bf16 roofline (both
-// bounds are about 0.04 ms at B 8, H 32); dq and dk/dv do 3 and 4 products.
-// With a bias at AlphaFold2's widths (D 32, S 128-512) the fp32 bias, and in
-// the backward dbias, are the largest tensors: an uncollapsed (B*H, Sq, Sk)
-// bias is 8x the bytes of q, k, v and o together at D 32, so those kernels are
-// bound by the bias's bytes. The design keeps the S x S scores out of device
-// memory, as the TPU kernel did, and puts the products on the tensor cores:
+// What bounds it: in fp32 the products, at 67 TFLOP/s without the tensor
+// cores (the forward does 4*S^2/2*D flops per causal head against reading q,
+// k, v and writing o once; dq and dk/dv do 3 and 4 products). The design
+// keeps the S x S scores out of device memory, as the TPU kernel did:
 // - The TPU grid walked key blocks in order and carried the softmax state in
 //   VMEM. Here a block owns a tile of 16*NW query rows (forward, dq) or key
 //   rows (dk/dv) and walks the other sequence in a loop inside the block.
@@ -41,11 +39,9 @@
 //   warp products serve all three kernels. It loops over the n_rep query heads
 //   of its KV head inside the block and accumulates dK/dV in fp32 in shared
 //   memory: no atomics, and the result does not depend on scheduling.
-// - bf16 products run on the tensor cores through warp-level WMMA 16x16x16
-//   tiles with fp32 accumulation; fp32 inputs take plain FMA loops (the same
-//   arithmetic in fp32 as the reference). Accumulators live in shared memory
-//   in fp32, which lets each lane rescale its rows by the online-softmax
-//   correction without knowing the fragment layout.
+// - The products are plain fp32 FMA loops (the same arithmetic as the
+//   reference). Accumulators live in shared memory, which lets each lane
+//   rescale its rows by the online-softmax correction.
 // - Any Sq and Sk: rows past the end are zero-filled in shared memory and
 //   masked, so a zero weight never meets NaN; no divisibility is required.
 // - lse and delta are (B, H, Sq) fp32, without the TPU's 128-lane padding.
@@ -63,12 +59,9 @@
 //   warp's column sum over its 16 rows. The chunks exist to fill the card
 //   (few slices give a small grid); a second kernel sums the partials in a
 //   fixed order, so dbias repeats bit for bit from run to run.
-// Not yet, for the bodies here (the fp32 ones and the collapsed dq): scores in
-// registers, a cp.async ring and compile-time mask bodies (as flash_fwd.cu and
-// flash_bwd.cu), wgmma, TMA.
+// Not yet, for the fp32 bodies here: scores in registers, a cp.async ring and
+// compile-time mask bodies (as flash_fwd.cu and flash_bwd.cu), wgmma, TMA.
 #include "flash_common.cuh"
-
-#include <mma.h>
 
 #include <algorithm>
 
@@ -77,60 +70,19 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Block tiles per element type: NW warps of 16 rows each, BN columns per inner
-// tile. fp32 tiles are smaller so that dk/dv's fp32 operands fit shared memory.
+// Block tiles per element type (the bodies here run fp32): NW warps of 16 rows
+// each, BN columns per inner tile, small enough that dk/dv's fp32 operands fit
+// shared memory.
 template <typename T>
 struct Tiles;
-template <>
-struct Tiles<bf16> {
-  static constexpr int NW = 4, BN = 64;
-};
 template <>
 struct Tiles<float> {
   static constexpr int NW = 2, BN = 32;
 };
 
 // ---------------------------------------------------------------- warp products
-// C[16 x N] = A[16 x K] . B[N x K]^T; A, B row-major in shared memory, C fp32.
-template <int N, int K>
-__device__ __forceinline__ void warp_nt(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int n = 0; n < N; n += 16) {
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::load_matrix_sync(a, A + k, lda);
-      wmma::load_matrix_sync(b, B + n * ldb + k, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + n, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// C[16 x N] += A[16 x K] . B[K x N]; A, B row-major in shared memory, C fp32.
-template <int N, int K>
-__device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int n = 0; n < N; n += 16) {
-    wmma::load_matrix_sync(c, C + n, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::load_matrix_sync(a, A + k, lda);
-      wmma::load_matrix_sync(b, B + k * ldb + n, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + n, c, ldc, wmma::mem_row_major);
-  }
-}
-
+// C[16 x N] = A[16 x K] . B[N x K]^T and C[16 x N] += A[16 x K] . B[K x N]; A, B
+// row-major in shared memory, C fp32.
 template <int N, int K>
 __device__ __forceinline__ void warp_nt(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
   const int lane = threadIdx.x & 31;
@@ -178,8 +130,8 @@ __device__ __forceinline__ void zero(T* p, int n, int nt) {
   for (int i = threadIdx.x; i < n; i += nt) p[i] = from_float<T>(0.f);
 }
 
-// Shared-memory layout sizes, each rounded up to 128 bytes so every buffer (and
-// every 16-row tile in it) keeps the 32-byte alignment WMMA needs.
+// Shared-memory layout sizes, each rounded up to 128 bytes (16-byte loads and
+// stores stay aligned).
 __host__ __device__ constexpr size_t round128(size_t b) { return (b + 127) / 128 * 128; }
 
 template <typename T, int D>
@@ -438,18 +390,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                       bias.Sqb, dq, dst, 0, true, b, h, q0, H, KVH, mk);
 }
 
-// Program (as b * H + h) of sharing index `rep` over bias slice `s`: the
-// reference's q_b (_flash_bwd, :447-454).
-__device__ __forceinline__ int sharing_program(const Bias& bias, int s, int rep, int H) {
-  if (bias.Bb == 1 && bias.Hb == 1) return rep;
-  if (bias.Hb == 1) return (s * bias.repeat + rep / H) * H + rep % H;  // batch collapsed by repeat, heads share
-  if (bias.Bb == 1) return rep * H + s;                                  // only heads distinct
-  return ((s / H) * bias.repeat + rep) * H + s % H;
-}
-
-// Collapsed dq. Grid (ceil(Sq / BM), n_bh slices, n_chunks); n_rep = B*H /
-// n_bh programs share each slice, and chunk c walks programs [c * per,
-// min(n_rep, (c + 1) * per)) of it. Its partial: MODE kDbiasRows (Sqb == Sq)
+// Collapsed dq (fp32; bf16 in flash_bwd.cu). Grid (ceil(Sq / BM), n_bh
+// slices, n_chunks); n_rep = B*H / n_bh programs share each slice, and chunk c
+// walks programs [c * per, min(n_rep, (c + 1) * per)) of it. Its partial: MODE kDbiasRows (Sqb == Sq)
 // rows [q0, q0 + BM) of part[c] (n_chunks, n_bh, Sq, Sk); MODE kDbiasCols
 // (Sqb == 1) one row per warp, part[(c * n_qt + qt) * NW + warp] of
 // (n_parts, n_bh, 1, Sk).
@@ -626,31 +569,45 @@ struct Args {
 
 enum Pass { kFwd = 0, kDq = 1, kDkv = 2, kDqCollapsed = 3 };
 
-// How the collapsed dq splits its work: n_qt query tiles x n_bh slices x
-// n_chunks chunks of `per` sharing programs; n_parts fp32 partials of dbias
-// (1: the kernel writes dbias itself).
-struct CollapsedPlan {
-  int n_qt, n_bh, n_rep, per, n_chunks, n_parts;
-};
-
 template <typename T>
 int plan_collapsed(const Args& a, CollapsedPlan* pl) {
-  constexpr int NW = Tiles<T>::NW, BM = 16 * NW;
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
                                                   cudaSuccess)
     return static_cast<int>(cudaGetLastError());
-  pl->n_qt = (a.Sq + BM - 1) / BM;
+  int rows, warps;
+  if constexpr (sizeof(T) == 2) {
+    flash_dq_collapsed_bf16_geometry(&rows, &warps);
+  } else {
+    warps = Tiles<T>::NW;
+    rows = 16 * warps;
+  }
+  pl->n_qt = (a.Sq + rows - 1) / rows;
   pl->n_bh = a.bias.Bb * a.bias.Hb;
   pl->n_rep = a.B * a.H / pl->n_bh;
-  // chunks enough for about two blocks per SM, but at most half the sharing programs: the partials
-  // (n_chunks slices of Sqb rows each) then stay below the expanded (B*H, Sq, Sk) size
+  // at most half the sharing programs a chunk: the partials (n_chunks slices of Sqb rows each) then stay
+  // below the expanded (B*H, Sq, Sk) size
   const long long base = static_cast<long long>(pl->n_qt) * pl->n_bh;
-  const long long cap = std::max(1, pl->n_rep / 2);
-  const int want = static_cast<int>(std::min(cap, std::max(1LL, (2LL * sms + base - 1) / base)));
+  const int cap = std::max(1, pl->n_rep / 2);
+  int want = 1;
+  if constexpr (sizeof(T) == 2) {
+    // flash_bwd.cu's body runs one block an SM: the chunk count whose grid finishes first, counted in waves
+    // of `per` programs each (the fewest chunks among equals, which keeps the partials few)
+    long long best = -1;
+    for (int c = 1; c <= std::min(cap, 8 * sms); ++c) {
+      const int per = (pl->n_rep + c - 1) / c, chunks = (pl->n_rep + per - 1) / per;
+      const long long cost = (base * chunks + sms - 1) / sms * per;
+      if (best < 0 || cost < best) {
+        best = cost;
+        want = c;
+      }
+    }
+  } else {  // chunks enough for about two blocks per SM
+    want = static_cast<int>(std::min<long long>(cap, std::max(1LL, (2LL * sms + base - 1) / base)));
+  }
   pl->per = (pl->n_rep + want - 1) / want;
   pl->n_chunks = (pl->n_rep + pl->per - 1) / pl->per;
-  pl->n_parts = pl->n_chunks * (a.bias.Sqb == 1 ? pl->n_qt * NW : 1);
+  pl->n_parts = pl->n_chunks * (a.bias.Sqb == 1 ? pl->n_qt * warps : 1);
   if (pl->n_bh > 65535 || pl->n_chunks > 65535) return kUnsupported;
   return 0;
 }
@@ -709,17 +666,23 @@ int launch(Pass pass, const Args& a) {
     if (rc != 0) return rc;
     if ((pl.n_parts > 1) != (a.parts != nullptr)) return kUnsupported;
     float* part = pl.n_parts > 1 ? a.parts : a.dbias;
-    dim3 grid(pl.n_qt, pl.n_bh, pl.n_chunks);
-    if (a.bias.Sqb == 1) {
-      if ((err = allow_smem(flash_dq_collapsed_kernel<T, D, kDbiasCols>, G::dq)) != cudaSuccess)
-        return static_cast<int>(err);
-      flash_dq_collapsed_kernel<T, D, kDbiasCols><<<grid, G::NT, G::dq, a.stream>>>(
-          q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), part, a.H, a.KVH, pl.n_rep, pl.per, a.mk);
+    if constexpr (sizeof(T) == 2) {  // bf16: the register-resident body of flash_bwd.cu
+      rc = flash_dq_collapsed_bf16(q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), part, a.H, a.KVH, D,
+                                   a.mk, pl, a.stream);
+      if (rc != 0) return rc;
     } else {
-      if ((err = allow_smem(flash_dq_collapsed_kernel<T, D, kDbiasRows>, G::dq)) != cudaSuccess)
-        return static_cast<int>(err);
-      flash_dq_collapsed_kernel<T, D, kDbiasRows><<<grid, G::NT, G::dq, a.stream>>>(
-          q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), part, a.H, a.KVH, pl.n_rep, pl.per, a.mk);
+      dim3 grid(pl.n_qt, pl.n_bh, pl.n_chunks);
+      if (a.bias.Sqb == 1) {
+        if ((err = allow_smem(flash_dq_collapsed_kernel<T, D, kDbiasCols>, G::dq)) != cudaSuccess)
+          return static_cast<int>(err);
+        flash_dq_collapsed_kernel<T, D, kDbiasCols><<<grid, G::NT, G::dq, a.stream>>>(
+            q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), part, a.H, a.KVH, pl.n_rep, pl.per, a.mk);
+      } else {
+        if ((err = allow_smem(flash_dq_collapsed_kernel<T, D, kDbiasRows>, G::dq)) != cudaSuccess)
+          return static_cast<int>(err);
+        flash_dq_collapsed_kernel<T, D, kDbiasRows><<<grid, G::NT, G::dq, a.stream>>>(
+            q, k, v, dout, lse, delta, sl, a.bias, static_cast<T*>(a.dq), part, a.H, a.KVH, pl.n_rep, pl.per, a.mk);
+      }
     }
     if (pl.n_parts > 1) {
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

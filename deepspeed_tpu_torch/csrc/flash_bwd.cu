@@ -1,14 +1,17 @@
 // The bfloat16 flash attention backward for Hopper: dq, and dk/dv, from q, k,
 // v, dout and the forward's lse with delta = rowsum(o * dout), with optional
 // ALiBi slopes, a causal mask, a sliding window, GQA and an additive fp32 bias
-// (dq then also writes dbias).
+// (dq then also writes dbias, per program or summed over the programs that
+// share a bias slice).
 //
 // Replaces, for bf16, the TPU kernels of deepspeed_tpu/ops/pallas/
 // flash_attention.py: _dq_kernel (pallas_call at :417, via _flash_bwd: the
 // body without a bias, and the has_bias body that writes dbias per program),
-// _dkv_kernel (:485: dk/dv with the bias tile) and _dkv_kernel_gqa (:518).
-// The float32 dq and dk/dv, the collapsed dq (:456) and the reduce of its
-// partials stay in flash_attention.cu. Both kernels recompute the score with
+// _dq_kernel_collapsed (:456: dq plus dbias summed over the programs that
+// share a bias slice), _dkv_kernel (:485: dk/dv with the bias tile) and
+// _dkv_kernel_gqa (:518). The float32 bodies, the collapsed dq's plan and
+// the fixed-order reduce of its partials stay in flash_attention.cu. Both
+// kernels recompute the score with
 // masked_score's arithmetic and mask (`visible`, flash_common.cuh) and
 // p = exp(s - lse); dlogits = p (dp - delta) and ds = dlogits * scale,
 // rounded to bf16 where the plain version rounds it (as the A operand of the
@@ -80,6 +83,23 @@
 //   stores: a quad writes a whole 32-byte sector of a row, and the 268 MB do
 //   not evict K and V from L2. A warp owns its rows' dbias: a sub-tile that
 //   no row of it sees, and the key tiles the block's walk skips, get zeros.
+// - The collapsed dq (a bias slice shared by n_rep programs: at msa_row_pair
+//   128 MSA rows share each head's (256, 256) pair bias, at msa_col 8 heads
+//   share each row's mask row). There the bias is 2 MB and stays in L2, and
+//   what bounds the TPU kernel's carried dbias block here is the sum: a block
+//   walks a chunk of the sharing programs in the reference's order (Q and dO
+//   of the next program come with its first key tile, in a second buffer
+//   where it fits, D <= 64), with this body's ring, fragments and dQ
+//   accumulator, dq written per program. Sqb == Sq: each lane adds its
+//   dlogits fragments into the block's own rows of an fp32 partial, read and
+//   written in L2 (__ldcg / __stcg; the reads issued before the sub-tile's
+//   products); the first program stores. Sqb == 1: each warp sums its 16 rows
+//   on the fragments (shuffles across the quads' rows) into Sk floats of
+//   shared memory, kept over the chunk and written once. Each partial has
+//   one owner and a fixed order, and flash_attention.cu sums the partials in
+//   a fixed order: no atomics, dq and dbias repeat bit for bit. The plan
+//   (flash_attention.cu) sizes the chunks to whole waves of one block an SM
+//   and keeps the partials below the expanded bias.
 // - Mask arithmetic only where a mask can act: a warp takes the masked body
 //   for a sub-tile only if it crosses Sq, Sk or the causal or window edge for
 //   its 16 rows, skips a sub-tile that no row of it sees, and otherwise runs
@@ -106,9 +126,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+// What dq does with its dlogits: nothing (no bias); store them per program (kPerProgram: dbias (B*H, Sq,
+// Sk)); or, the collapsed dq, sum them over the programs of the block's chunk that share a bias slice:
+// into the block's rows of an fp32 partial (kSumRows, Sqb == Sq), or each warp's column sums over its 16
+// rows into an fp32 row of its own (kSumCols, Sqb == 1).
+enum DqBias { kNoBias = 0, kPerProgram = 1, kSumRows = 2, kSumCols = 3 };
+
 // dq: 8 warps of 16 query rows; key tiles of BN through the ring, taken KS keys at a time.
-template <int D, bool BIAS>
+template <int D, int DB>
 struct DqGeo {
+  static constexpr bool BIAS = DB != kNoBias, SUM = DB >= kSumRows;
   static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 && !BIAS ? 32 : 64;
   static constexpr int STAGES = 2;  // the ring's depth: tiles in flight while one multiplies, plus one
   static constexpr int MIN_BLOCKS = D <= 64 && !BIAS ? 2 : 1;
@@ -116,8 +143,13 @@ struct DqGeo {
   static constexpr int LDB = BN + 8;  // fp32 bias rows: a half-warp's float2 reads of 4 rows on distinct banks
   static constexpr size_t q_bytes = static_cast<size_t>(BM) * LD * 2;
   static constexpr size_t kv_bytes = static_cast<size_t>(BN) * LD * 2;
-  static constexpr size_t b_bytes = BIAS ? static_cast<size_t>(BM) * LDB * 4 : 0;
-  static constexpr size_t smem = 2 * q_bytes + STAGES * (2 * kv_bytes + b_bytes);  // Q, dO; K, V, bias a stage
+  // the bias of a stage: BM rows, or the one row every query row shares (kSumCols)
+  static constexpr size_t b_bytes = !BIAS ? 0 : DB == kSumCols ? BN * 4 : static_cast<size_t>(BM) * LDB * 4;
+  static constexpr size_t ring = STAGES * (2 * kv_bytes + b_bytes);  // K, V, bias a stage
+  // the collapsed dq walks several programs: their Q and dO alternate between two buffers where both fit,
+  // so that the next program's come with its first key tile
+  static constexpr int QBUF = SUM && 4 * q_bytes + ring <= 200 * 1024 ? 2 : 1;
+  static constexpr size_t smem = 2 * QBUF * q_bytes + ring;  // Q, dO (per buffer), then the ring
 };
 
 // dk/dv: NW warps of 16 key rows; query tiles of BN through the ring, taken QS queries at a time.
@@ -171,35 +203,57 @@ __device__ __forceinline__ void load_bias(float* dst, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------- dq
-// Grid (n_qt * H, B): x = (n_qt - 1 - query tile) * H + head. BIAS: the bias slice of program (b, h) is
-// (Sq, Sk) (nothing collapses), and dbias (B*H, Sq, Sk) fp32 receives every pair's dlogits.
-template <int D, bool ALIBI, bool BIAS>
-__global__ void __launch_bounds__(DqGeo<D, BIAS>::NT, DqGeo<D, BIAS>::MIN_BLOCKS)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ slopes, Bias bias, bf16* __restrict__ dq, float* __restrict__ dbias,
-                     int H, int KVH, Mask mk, int n_qt, int vec) {
-  using G = DqGeo<D, BIAS>;
-  constexpr int LD = G::LD, LDB = G::LDB, BM = G::BM, BN = G::BN, KS = G::KS, NT = G::NT;
-  constexpr int KD = D / 16, NS = KS / 8, NO = D / 8, ST = G::STAGES;
+// Grid (n_qt * H, B): x = (n_qt - 1 - query tile) * H + head. kPerProgram: the bias slice of program (b, h)
+// is (Sq, Sk) (nothing collapses), and dbias (B*H, Sq, Sk) fp32 receives every pair's dlogits.
+// The collapsed dq (kSumRows, kSumCols): grid (n_qt * n_bh, n_chunks): x = slice * n_qt + n_qt - 1 - query
+// tile; chunk y walks programs [y * per, min(n_rep, (y + 1) * per)) of the n_rep that share the slice, in
+// the reference's order, and `dbias` holds the partials: kSumRows rows [q0, q0 + BM) of part[y] (n_chunks,
+// n_bh, Sq, Sk); kSumCols each warp's row part[(y * n_qt + query tile) * NW + warp] of (n_parts, n_bh, 1, Sk).
+template <int D, bool ALIBI, int DB>
+__device__ __forceinline__ void
+dq_bf16_body(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+             const float* __restrict__ slopes, Bias bias, bf16* __restrict__ dq, float* __restrict__ dbias,
+             int H, int KVH, Mask mk, int n_qt, int vec, int n_rep, int per) {
+  using G = DqGeo<D, DB>;
+  constexpr bool BIAS = G::BIAS, SUM = G::SUM;
+  constexpr int LD = G::LD, LDB = G::LDB, BM = G::BM, BN = G::BN, KS = G::KS, NT = G::NT, NW = G::NW;
+  constexpr int KD = D / 16, NS = KS / 8, NO = D / 8, ST = G::STAGES, QB = G::QBUF;
   constexpr bool FOLD = !ALIBI && !BIAS;  // x = q.k scale log2(e) - lse log2(e) as one FFMA
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + G::q_bytes);
-  auto sK = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * G::q_bytes + (2 * s) * G::kv_bytes); };
-  auto sV = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * G::q_bytes + (2 * s + 1) * G::kv_bytes); };
-  auto sB = [&](int s) {
-    return reinterpret_cast<float*>(smem + 2 * G::q_bytes + 2 * ST * G::kv_bytes + s * G::b_bytes);
-  };
+  auto sQ = [&](int i) { return reinterpret_cast<bf16*>(smem + 2 * i * G::q_bytes); };
+  auto sdO = [&](int i) { return reinterpret_cast<bf16*>(smem + (2 * i + 1) * G::q_bytes); };
+  unsigned char* ring = smem + 2 * QB * G::q_bytes;
+  auto sK = [&](int s) { return reinterpret_cast<bf16*>(ring + (2 * s) * G::kv_bytes); };
+  auto sV = [&](int s) { return reinterpret_cast<bf16*>(ring + (2 * s + 1) * G::kv_bytes); };
+  auto sB = [&](int s) { return reinterpret_cast<float*>(ring + 2 * ST * G::kv_bytes + s * G::b_bytes); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
-  const int h = blockIdx.x % H, qt = n_qt - 1 - static_cast<int>(blockIdx.x) / H, b = blockIdx.y;
-  const int hk = h / (H / KVH);
+  // the block's query tile and the programs it walks: one, (b0, h0), or programs r0 .. r0 + n_prog - 1 of
+  // those that share bias slice sl
+  int qt, sl = 0, r0 = 0, n_prog = 1, b0 = 0, h0 = 0;
+  if constexpr (SUM) {
+    qt = n_qt - 1 - static_cast<int>(blockIdx.x) % n_qt;
+    sl = static_cast<int>(blockIdx.x) / n_qt;
+    r0 = blockIdx.y * per;
+    n_prog = min(n_rep - r0, per);
+  } else {
+    h0 = blockIdx.x % H;
+    qt = n_qt - 1 - static_cast<int>(blockIdx.x) / H;
+    b0 = blockIdx.y;
+  }
+  auto program = [&](int pi, int& b, int& h) {
+    if constexpr (SUM) {
+      const int p = sharing_program(bias, sl, r0 + pi, H);
+      b = p / H;
+      h = p % H;
+    } else {
+      b = b0;
+      h = h0;
+    }
+  };
   const int q0 = qt * BM, wr = q0 + 16 * warp;  // the block's and the warp's first rows
-  const float slope = ALIBI ? slopes[h] : 0.f;
   const float scale2 = mk.scale * kLog2e;
-  const float* bs = BIAS ? bias.slice(b, h, mk.sk) : nullptr;  // this program's (Sq, Sk) bias
-  float* dbs = BIAS ? dbias + (static_cast<size_t>(b) * H + h) * mk.sq * mk.sk : nullptr;
 
   int kt_begin = 0, kt_end = (mk.sk + BN - 1) / BN;
   if (mk.causal) {
@@ -207,176 +261,350 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
     kt_end = min(kt_end, last < 0 ? 0 : last / BN + 1);
     if (mk.window > 0) kt_begin = max(mk.offset + q0 - mk.window + 1, 0) / BN;
   }
+  const int n_kt = max(kt_end - kt_begin, 0), n_it = n_prog * n_kt;  // iteration it: program it / n_kt
 
-  load_rows<D, LD, BM, NT>(sQ, q, b, mk.sq, H, h, q0);
-  load_rows<D, LD, BM, NT>(sdO, dout, b, mk.sq, H, h, q0);
-  cp_async_commit();
-  auto load_kv = [&](int s, int kt) {
+  // the bias every program of the block reads (SUM: the shared slice), and where its dlogits go: row 0 of a
+  // (Sq, Sk) region (kPerProgram, kSumRows), or, kSumCols, this warp's column sums (Sk floats past the
+  // ring, summed over the chunk's programs) and then its partial row
+  const float* bs = nullptr;
+  float* drows = nullptr;
+  float* scol = reinterpret_cast<float*>(smem + G::smem) + warp * ((mk.sk + 3) & ~3);
+  if constexpr (SUM) {
+    bs = bias.p + static_cast<size_t>(sl) * bias.Sqb * mk.sk;
+    const int n_bh = gridDim.x / n_qt;
+    if constexpr (DB == kSumRows) {
+      drows = dbias + (static_cast<size_t>(blockIdx.y) * n_bh + sl) * mk.sq * mk.sk;
+    } else {
+      drows = dbias + ((static_cast<size_t>(blockIdx.y) * n_qt + qt) * NW + warp) * n_bh * mk.sk +
+              static_cast<size_t>(sl) * mk.sk;
+      for (int c = lane; c < mk.sk; c += 32) scol[c] = 0.f;
+      __syncwarp();
+    }
+  } else if constexpr (BIAS) {
+    bs = bias.slice(b0, h0, mk.sk);
+    drows = dbias + (static_cast<size_t>(b0) * H + h0) * mk.sq * mk.sk;
+  }
+
+  auto load_q = [&](int buf, int pi) {
+    int b, h;
+    program(pi, b, h);
+    load_rows<D, LD, BM, NT>(sQ(buf), q, b, mk.sq, H, h, q0);
+    load_rows<D, LD, BM, NT>(sdO(buf), dout, b, mk.sq, H, h, q0);
+  };
+  // the ring runs over (program, key tile) in order; tile (pi, kt) into stage s
+  const int hk0 = h0 / (H / KVH);
+  auto load_tile = [&](int s, int pi, int kt) {
+    int b, h;
+    program(pi, b, h);
+    if constexpr (QB == 2) {
+      if (kt == kt_begin) load_q(pi & 1, pi);  // buffer pi & 1 last served program pi - 2, long done
+    }
+    const int hk = SUM ? h / (H / KVH) : hk0;
     load_rows<D, LD, BN, NT>(sK(s), k, b, mk.sk, KVH, hk, kt * BN);
     load_rows<D, LD, BN, NT>(sV(s), v, b, mk.sk, KVH, hk, kt * BN);
-    if constexpr (BIAS) load_bias<BN, LDB, NT>(sB(s), bs, BM, q0, mk.sq, kt * BN, mk.sk, vec);
+    if constexpr (DB == kSumCols) {
+      load_bias<BN, LDB, NT>(sB(s), bs, 1, 0, 1, kt * BN, mk.sk, vec);
+    } else if constexpr (BIAS) {
+      load_bias<BN, LDB, NT>(sB(s), bs, BM, q0, mk.sq, kt * BN, mk.sk, vec);
+    }
   };
+  // the tile `ahead` iterations after (pi, kt), if the walk has it
+  auto load_ahead = [&](int s, int pi, int kt, int ahead) {
+    if constexpr (SUM) {
+      for (int i = 0; i < ahead; ++i) {
+        if (++kt == kt_end) {
+          kt = kt_begin;
+          ++pi;
+        }
+      }
+      if (pi < n_prog) load_tile(s, pi, kt);
+    } else {
+      if (kt + ahead < kt_end) load_tile(s, 0, kt + ahead);
+    }
+  };
+  if constexpr (QB == 1) {
+    if (n_it > 0) load_q(0, 0);
+  }
+  cp_async_commit();
   for (int i = 0; i < ST - 1; ++i) {  // one group a stage, empty past the walk's end
-    if (kt_begin + i < kt_end) load_kv(i, kt_begin + i);
+    if (n_it > 0) load_ahead(i, 0, kt_begin, i);
     cp_async_commit();
   }
 
-  // this lane's rows wr + g + 8 r, r in {0, 1}: lse (times log2(e) when folded) and delta
-  float lse_r[2], dlt_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r;
-    const size_t at = (static_cast<size_t>(b) * H + h) * mk.sq + row;
-    const float l = row < mk.sq ? lse[at] : 0.f;
-    lse_r[r] = FOLD ? l * kLog2e : l;
-    dlt_r[r] = row < mk.sq ? delta[at] : 0.f;
-  }
-  // dbias of this lane's row wr + g + 8 r at keys col and col + 1; nothing past Sq or Sk is stored
+  // dbias of this lane's row wr + g + 8 r at keys col and col + 1; nothing past Sq or Sk is stored. The
+  // collapsed dq's partials stay in L2 for the next program's add; dbias per program streams out.
   auto put_dbias = [&](int r, int col, float x0, float x1) {
     const int row = wr + g + 8 * r;
     if (row >= mk.sq) return;
-    float* d = dbs + static_cast<size_t>(row) * mk.sk + col;
+    float* d = drows + static_cast<size_t>(row) * mk.sk + col;
     if (vec) {  // col even and sk a multiple of 4: both keys or neither
-      if (col < mk.sk) __stcs(reinterpret_cast<float2*>(d), make_float2(x0, x1));
+      if (col < mk.sk) {
+        if constexpr (SUM) {
+          __stcg(reinterpret_cast<float2*>(d), make_float2(x0, x1));
+        } else {
+          __stcs(reinterpret_cast<float2*>(d), make_float2(x0, x1));
+        }
+      }
+    } else if constexpr (SUM) {
+      if (col < mk.sk) __stcg(d, x0);
+      if (col + 1 < mk.sk) __stcg(d + 1, x1);
     } else {
       if (col < mk.sk) __stcs(d, x0);
       if (col + 1 < mk.sk) __stcs(d + 1, x1);
     }
   };
+  // kSumRows: the partial at (row wr + g + 8 r, keys col and col + 1) before this program adds to it
+  auto get_part = [&](int r, int col, float& x0, float& x1) {
+    const int row = wr + g + 8 * r;
+    x0 = x1 = 0.f;
+    if (row >= mk.sq) return;
+    const float* d = drows + static_cast<size_t>(row) * mk.sk + col;
+    if (vec) {
+      if (col < mk.sk) {
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(d));
+        x0 = x.x;
+        x1 = x.y;
+      }
+    } else {
+      if (col < mk.sk) x0 = __ldcg(d);
+      if (col + 1 < mk.sk) x1 = __ldcg(d + 1);
+    }
+  };
+  // dq of this warp's rows of program (b, h) out, and the accumulator cleared for the next program
   float dqacc[NO][4];
+  auto put_dq = [&](int b, int h) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wr + g + 8 * r;
+      if (row >= mk.sq) continue;
+      bf16* drow = dq + ((static_cast<size_t>(b) * mk.sq + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<uint32_t*>(drow + j * 8 + t2) = pack_bf16(dqacc[j][2 * r], dqacc[j][2 * r + 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqacc[j][e] = 0.f;
+  };
 #pragma unroll
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqacc[j][e] = 0.f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int it = kt - kt_begin, s = it % ST;
-    cp_async_wait<ST - 2>();
-    __syncthreads();  // tile kt (and Q, dO) landed for every thread; every warp is done with tile kt - 1
-    if (kt + ST - 1 < kt_end) load_kv((it + ST - 1) % ST, kt + ST - 1);  // into tile kt - 1's stage
-    cp_async_commit();
-    const bf16* ks = sK(s);
-    const bf16* vs = sV(s);
+  // this lane's rows wr + g + 8 r, r in {0, 1}, of program (b, h): lse (times log2(e) when folded) and delta
+  float lse_r[2], dlt_r[2];
+  auto load_stats = [&](int b, int h) {
 #pragma unroll
-    for (int sub = 0; sub < BN / KS; ++sub) {
-      const int c0 = kt * BN + sub * KS;  // the sub-tile's first key
-      // which keys of the sub-tile the warp's rows see: all, some, or none
-      bool none = wr >= mk.sq;
-      bool masked = c0 + KS > mk.sk;
-      if (mk.causal) {
-        const int diag_lo = mk.offset + wr, diag_hi = mk.offset + wr + 15;  // the first and last row's last key
-        none = none || c0 > diag_hi || (mk.window > 0 && c0 + KS - 1 <= diag_lo - mk.window);
-        masked = masked || c0 + KS - 1 > diag_lo || (mk.window > 0 && c0 <= diag_hi - mk.window);
+    for (int r = 0; r < 2; ++r) {
+      const int row = wr + g + 8 * r;
+      const size_t at = (static_cast<size_t>(b) * H + h) * mk.sq + row;
+      const float l = row < mk.sq ? lse[at] : 0.f;
+      lse_r[r] = FOLD ? l * kLog2e : l;
+      dlt_r[r] = row < mk.sq ? delta[at] : 0.f;
+    }
+  };
+  int b = b0, h = h0;
+  if constexpr (!SUM) load_stats(b, h);  // one program: its stats load while the ring's first tile lands
+  for (int pi = 0; pi < n_prog && n_kt > 0; ++pi) {
+    if constexpr (SUM) {
+      program(pi, b, h);
+      load_stats(b, h);
+    }
+    const float slope = ALIBI ? slopes[h] : 0.f;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const int it = (SUM ? pi * n_kt : 0) + kt - kt_begin, s = it % ST;
+      cp_async_wait<ST - 2>();
+      __syncthreads();  // tile it (and Q, dO) landed for every thread; every warp is done with tile it - 1
+      if constexpr (QB == 1 && SUM) {
+        if (kt == kt_begin && pi > 0) {  // the next program's Q and dO, now that every warp is done with them
+          load_q(0, pi);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+        }
       }
-      if (none) {
-        if constexpr (BIAS) {
+      load_ahead((it + ST - 1) % ST, pi, kt, ST - 1);  // into tile it - 1's stage
+      cp_async_commit();
+      const bool first = pi == 0;  // kSumRows: the chunk's first program stores its dlogits, the rest add
+      const bf16* qs = sQ(QB == 2 ? pi & 1 : 0);
+      const bf16* dos = sdO(QB == 2 ? pi & 1 : 0);
+      const bf16* ks = sK(s);
+      const bf16* vs = sV(s);
+#pragma unroll
+      for (int sub = 0; sub < BN / KS; ++sub) {
+        const int c0 = kt * BN + sub * KS;  // the sub-tile's first key
+        // which keys of the sub-tile the warp's rows see: all, some, or none (kSumCols: rows past Sq read the
+        // shared bias row, so they take the masked body, which gives them p = 0)
+        bool none = wr >= mk.sq;
+        bool masked = c0 + KS > mk.sk || (DB == kSumCols && wr + 16 > mk.sq);
+        if (mk.causal) {
+          const int diag_lo = mk.offset + wr, diag_hi = mk.offset + wr + 15;  // the first and last row's last key
+          none = none || c0 > diag_hi || (mk.window > 0 && c0 + KS - 1 <= diag_lo - mk.window);
+          masked = masked || c0 + KS - 1 > diag_lo || (mk.window > 0 && c0 <= diag_hi - mk.window);
+        }
+        if (none) {
+          if (DB == kPerProgram || (DB == kSumRows && first)) {
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+              put_dbias(0, c0 + j * 8 + t2, 0.f, 0.f);
+              put_dbias(1, c0 + j * 8 + t2, 0.f, 0.f);
+            }
+          }
+          continue;
+        }
+        float part[DB == kSumRows ? NS : 1][4];  // kSumRows: the partial before this program, fetched early
+        if constexpr (DB == kSumRows) {
 #pragma unroll
           for (int j = 0; j < NS; ++j) {
-            put_dbias(0, c0 + j * 8 + t2, 0.f, 0.f);
-            put_dbias(1, c0 + j * 8 + t2, 0.f, 0.f);
-          }
-        }
-        continue;
-      }
-      float sacc[NS][4], pacc[NS][4];  // S = Q K^T and dP = dO V^T
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[j][e] = pacc[j][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        uint32_t qa[4], da[4];
-        ldsm_x4(qa, sQ + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
-        ldsm_x4(da, sdO + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < NS / 2; ++np) {
-          const int off = (sub * KS + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kd * 16 + ((lane >> 3) & 1) * 8;
-          uint32_t r[4];
-          ldsm_x4(r, ks + off);
-          mma_bf16(sacc[2 * np], qa, r[0], r[1]);
-          mma_bf16(sacc[2 * np + 1], qa, r[2], r[3]);
-          ldsm_x4(r, vs + off);
-          mma_bf16(pacc[2 * np], da, r[0], r[1]);
-          mma_bf16(pacc[2 * np + 1], da, r[2], r[3]);
-        }
-      }
-      // dS = p (dp - delta) scale on the fragments, as dQ's A operand: 16 keys per k-step; dbias = p (dp - delta)
-      uint32_t dsa[NS / 2][4];
-      auto form_ds = [&](auto masked_tag) {
-        constexpr bool MASKED = decltype(masked_tag)::value;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          float bj[4];
-          if constexpr (BIAS) {  // rows g and g + 8 of the warp's stripe, keys 2t and 2t + 1 of block j
-            const float* br = sB(s) + (16 * warp + g) * LDB + sub * KS + j * 8 + t2;
-            const float2 x0 = *reinterpret_cast<const float2*>(br);
-            const float2 x1 = *reinterpret_cast<const float2*>(br + 8 * LDB);
-            bj[0] = x0.x;
-            bj[1] = x0.y;
-            bj[2] = x1.x;
-            bj[3] = x1.y;
-          }
-          float ds[4], dl[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = wr + g + (e < 2 ? 0 : 8), col = c0 + j * 8 + t2 + (e & 1);
-            float x;
-            if constexpr (FOLD) {  // the raw q.k folded into one FFMA
-              x = fmaf(sacc[j][e], scale2, -lse_r[e >> 1]);
-            } else {  // the score first (masked_score's arithmetic), then (s - lse) log2(e)
-              float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(col)) : sacc[j][e] * mk.scale;
-              if constexpr (BIAS) sv += bj[e];
-              x = (sv - lse_r[e >> 1]) * kLog2e;
+            if (first) {
+              part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+            } else {
+              get_part(0, c0 + j * 8 + t2, part[j][0], part[j][1]);
+              get_part(1, c0 + j * 8 + t2, part[j][2], part[j][3]);
             }
-            float p = fast_exp2(x);
-            if (MASKED && !visible(row, col, mk)) p = 0.f;
-            dl[e] = p * (pacc[j][e] - dlt_r[e >> 1]);
-            ds[e] = dl[e] * mk.scale;
-          }
-          dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
-          dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-          if constexpr (BIAS) {
-            put_dbias(0, c0 + j * 8 + t2, dl[0], dl[1]);
-            put_dbias(1, c0 + j * 8 + t2, dl[2], dl[3]);
           }
         }
-      };
-      if (masked) {
-        form_ds(std::true_type{});
-      } else {
-        form_ds(std::false_type{});
+        float sacc[NS][4], pacc[NS][4];  // S = Q K^T and dP = dO V^T
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[j][e] = pacc[j][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t qa[4], da[4];
+          ldsm_x4(qa, qs + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+          ldsm_x4(da, dos + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            const int off =
+                (sub * KS + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kd * 16 + ((lane >> 3) & 1) * 8;
+            uint32_t r[4];
+            ldsm_x4(r, ks + off);
+            mma_bf16(sacc[2 * np], qa, r[0], r[1]);
+            mma_bf16(sacc[2 * np + 1], qa, r[2], r[3]);
+            ldsm_x4(r, vs + off);
+            mma_bf16(pacc[2 * np], da, r[0], r[1]);
+            mma_bf16(pacc[2 * np + 1], da, r[2], r[3]);
+          }
+        }
+        // dS = p (dp - delta) scale on the fragments, as dQ's A operand: 16 keys per k-step; dlogits = p (dp - delta)
+        uint32_t dsa[NS / 2][4];
+        auto form_ds = [&](auto masked_tag) {
+          constexpr bool MASKED = decltype(masked_tag)::value;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            float bj[4];
+            if constexpr (BIAS) {  // rows g, g + 8 of the warp's stripe (or the shared row), keys 2t, 2t + 1 of block j
+              const float* br = sB(s) + (DB == kSumCols ? 0 : (16 * warp + g) * LDB) + sub * KS + j * 8 + t2;
+              const float2 x0 = *reinterpret_cast<const float2*>(br);
+              const float2 x1 = DB == kSumCols ? x0 : *reinterpret_cast<const float2*>(br + 8 * LDB);
+              bj[0] = x0.x;
+              bj[1] = x0.y;
+              bj[2] = x1.x;
+              bj[3] = x1.y;
+            }
+            float ds[4], dl[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = wr + g + (e < 2 ? 0 : 8), col = c0 + j * 8 + t2 + (e & 1);
+              float x;
+              if constexpr (FOLD) {  // the raw q.k folded into one FFMA
+                x = fmaf(sacc[j][e], scale2, -lse_r[e >> 1]);
+              } else {  // the score first (masked_score's arithmetic), then (s - lse) log2(e)
+                float sv = ALIBI ? fmaf(sacc[j][e], mk.scale, slope * static_cast<float>(col)) : sacc[j][e] * mk.scale;
+                if constexpr (BIAS) sv += bj[e];
+                x = (sv - lse_r[e >> 1]) * kLog2e;
+              }
+              float p = fast_exp2(x);
+              if (MASKED && !visible(row, col, mk)) p = 0.f;
+              dl[e] = p * (pacc[j][e] - dlt_r[e >> 1]);
+              ds[e] = dl[e] * mk.scale;
+            }
+            dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+            dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+            const int col = c0 + j * 8 + t2;
+            if constexpr (DB == kPerProgram) {
+              put_dbias(0, col, dl[0], dl[1]);
+              put_dbias(1, col, dl[2], dl[3]);
+            } else if constexpr (DB == kSumRows) {
+              put_dbias(0, col, part[j][0] + dl[0], part[j][1] + dl[1]);
+              put_dbias(1, col, part[j][2] + dl[2], part[j][3] + dl[3]);
+            } else if constexpr (DB == kSumCols) {  // the sum over the warp's 16 rows: rows g and g + 8, then the 8 g's
+              float x0 = dl[0] + dl[2], x1 = dl[1] + dl[3];
+#pragma unroll
+              for (int o = 4; o < 32; o <<= 1) {
+                x0 += __shfl_xor_sync(0xffffffffu, x0, o);
+                x1 += __shfl_xor_sync(0xffffffffu, x1, o);
+              }
+              if (g == 0) {
+                if (col < mk.sk) scol[col] += x0;
+                if (col + 1 < mk.sk) scol[col + 1] += x1;
+              }
+            }
+          }
+        };
+        if (masked) {
+          form_ds(std::true_type{});
+        } else {
+          form_ds(std::false_type{});
+        }
+        // dQ += dS K
+#pragma unroll
+        for (int kb = 0; kb < NS / 2; ++kb)
+#pragma unroll
+          for (int dp = 0; dp < NO / 2; ++dp) {
+            uint32_t r[4];
+            ldsm_x4_t(r, ks + (sub * KS + kb * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+            mma_bf16(dqacc[2 * dp], dsa[kb], r[0], r[1]);
+            mma_bf16(dqacc[2 * dp + 1], dsa[kb], r[2], r[3]);
+          }
       }
-      // dQ += dS K
-#pragma unroll
-      for (int kb = 0; kb < NS / 2; ++kb)
-#pragma unroll
-        for (int dp = 0; dp < NO / 2; ++dp) {
-          uint32_t r[4];
-          ldsm_x4_t(r, ks + (sub * KS + kb * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
-          mma_bf16(dqacc[2 * dp], dsa[kb], r[0], r[1]);
-          mma_bf16(dqacc[2 * dp + 1], dsa[kb], r[2], r[3]);
-        }
     }
+    put_dq(b, h);
   }
   cp_async_wait<0>();
 
-  if constexpr (BIAS) {  // the keys outside the walk's tiles have zero dlogits
+  if (n_kt == 0) {  // rows that see no key: dq = 0 for every program
+    for (int pi = 0; pi < n_prog; ++pi) {
+      program(pi, b, h);
+      put_dq(b, h);
+    }
+  }
+  if constexpr (DB == kPerProgram || DB == kSumRows) {  // the keys outside the walk's tiles have zero dlogits
     const int lo = min(kt_begin * BN, mk.sk), hi = min(max(kt_end * BN, lo), mk.sk);
     const int n_out = lo + mk.sk - hi;
     for (int i = tid; i < BM * n_out; i += NT) {
       const int r = i / n_out, c = i % n_out;
-      if (q0 + r < mk.sq) __stcs(dbs + static_cast<size_t>(q0 + r) * mk.sk + (c < lo ? c : hi + c - lo), 0.f);
+      if (q0 + r < mk.sq) __stcs(drows + static_cast<size_t>(q0 + r) * mk.sk + (c < lo ? c : hi + c - lo), 0.f);
     }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r;
-    if (row >= mk.sq) continue;
-    bf16* drow = dq + ((static_cast<size_t>(b) * mk.sq + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(drow + j * 8 + t2) = pack_bf16(dqacc[j][2 * r], dqacc[j][2 * r + 1]);
+  if constexpr (DB == kSumCols) {  // the warp's column sums over every program of the chunk
+    __syncwarp();
+    for (int c = lane; c < mk.sk; c += 32) drows[c] = scol[c];
   }
+}
+
+// One body under two names: the collapsed dq (kSumRows, kSumCols) is flash_dq_collapsed_bf16_kernel, so that
+// a profile tells it from the dq per program.
+template <int D, bool ALIBI, int DB>
+__global__ void __launch_bounds__(DqGeo<D, DB>::NT, DqGeo<D, DB>::MIN_BLOCKS)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ slopes, Bias bias, bf16* __restrict__ dq, float* __restrict__ dbias,
+                     int H, int KVH, Mask mk, int n_qt, int vec, int n_rep, int per) {
+  dq_bf16_body<D, ALIBI, DB>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, H, KVH, mk, n_qt, vec, n_rep, per);
+}
+
+template <int D, bool ALIBI, int DB>
+__global__ void __launch_bounds__(DqGeo<D, DB>::NT, DqGeo<D, DB>::MIN_BLOCKS)
+flash_dq_collapsed_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               const float* __restrict__ slopes, Bias bias, bf16* __restrict__ dq,
+                               float* __restrict__ dbias, int H, int KVH, Mask mk, int n_qt, int vec, int n_rep,
+                               int per) {
+  dq_bf16_body<D, ALIBI, DB>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, H, KVH, mk, n_qt, vec, n_rep, per);
 }
 
 // ---------------------------------------------------------------- dk / dv
@@ -581,20 +809,42 @@ template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse, const float* delta,
               const float* slopes, Bias bias, bf16* dq, float* dbias, int B, int H, int KVH, Mask mk,
               cudaStream_t stream) {
-  using G = DqGeo<D, false>;
-  static_assert(DqGeo<D, true>::NT == G::NT && DqGeo<D, true>::BM == G::BM, "one grid with or without a bias");
+  using G = DqGeo<D, kNoBias>;
+  static_assert(DqGeo<D, kPerProgram>::NT == G::NT && DqGeo<D, kPerProgram>::BM == G::BM,
+                "one grid with or without a bias");
   const int n_qt = (mk.sq + G::BM - 1) / G::BM;
   if (static_cast<long long>(n_qt) * H > 0x7fffffffLL) return kUnsupported;
   const bool has_bias = bias.p != nullptr;
-  auto kernel = has_bias ? (slopes != nullptr ? flash_dq_bf16_kernel<D, true, true>
-                                              : flash_dq_bf16_kernel<D, false, true>)
-                         : (slopes != nullptr ? flash_dq_bf16_kernel<D, true, false>
-                                              : flash_dq_bf16_kernel<D, false, false>);
-  const size_t smem = has_bias ? DqGeo<D, true>::smem : G::smem;
+  auto kernel = has_bias ? (slopes != nullptr ? flash_dq_bf16_kernel<D, true, kPerProgram>
+                                              : flash_dq_bf16_kernel<D, false, kPerProgram>)
+                         : (slopes != nullptr ? flash_dq_bf16_kernel<D, true, kNoBias>
+                                              : flash_dq_bf16_kernel<D, false, kNoBias>);
+  const size_t smem = has_bias ? DqGeo<D, kPerProgram>::smem : G::smem;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(n_qt * H, B), G::NT, smem, stream>>>(q, k, v, dout, lse, delta, slopes, bias, dq, dbias, H, KVH, mk,
-                                                     n_qt, bias_vec(bias.p, dbias, mk.sk));
+                                                     n_qt, bias_vec(bias.p, dbias, mk.sk), 1, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The collapsed dq: grid (n_qt * n_bh, n_chunks) of the plan; kSumCols adds each warp's Sk column sums to
+// the shared memory.
+template <int D, int DB>
+int launch_dq_collapsed(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                        const float* delta, const float* slopes, Bias bias, bf16* dq, float* part, int H, int KVH,
+                        Mask mk, const CollapsedPlan& pl, cudaStream_t stream) {
+  using G = DqGeo<D, DB>;
+  if (pl.n_qt * G::BM < mk.sq || static_cast<long long>(pl.n_qt) * pl.n_bh > 0x7fffffffLL || pl.n_chunks > 65535)
+    return kUnsupported;
+  auto kernel = slopes != nullptr ? flash_dq_collapsed_bf16_kernel<D, true, DB>
+                                  : flash_dq_collapsed_bf16_kernel<D, false, DB>;
+  const size_t smem = G::smem + (DB == kSumCols ? static_cast<size_t>(G::NW) * ((mk.sk + 3) & ~3) * 4 : 0);
+  if (smem > 232448) return kUnsupported;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(pl.n_qt * pl.n_bh, pl.n_chunks), G::NT, smem, stream>>>(
+      q, k, v, dout, lse, delta, slopes, bias, dq, part, H, KVH, mk, pl.n_qt, bias_vec(bias.p, part, mk.sk), pl.n_rep,
+      pl.per);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -620,6 +870,31 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, co
 }
 
 }  // namespace
+
+void flash_dq_collapsed_bf16_geometry(int* rows, int* warps) {
+  static_assert(DqGeo<32, kSumRows>::BM == DqGeo<128, kSumCols>::BM, "one plan for every head dim");
+  *rows = DqGeo<32, kSumRows>::BM;
+  *warps = DqGeo<32, kSumRows>::NW;
+}
+
+int flash_dq_collapsed_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                            const float* delta, const float* slopes, Bias bias, bf16* dq, float* part, int H, int KVH,
+                            int D, Mask mk, const CollapsedPlan& pl, cudaStream_t stream) {
+  auto run = [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    return bias.Sqb == 1
+               ? launch_dq_collapsed<DD, kSumCols>(q, k, v, dout, lse, delta, slopes, bias, dq, part, H, KVH, mk, pl,
+                                                    stream)
+               : launch_dq_collapsed<DD, kSumRows>(q, k, v, dout, lse, delta, slopes, bias, dq, part, H, KVH, mk, pl,
+                                                    stream);
+  };
+  switch (D) {
+    case 32: return run(std::integral_constant<int, 32>{});
+    case 64: return run(std::integral_constant<int, 64>{});
+    case 128: return run(std::integral_constant<int, 128>{});
+    default: return kUnsupported;
+  }
+}
 
 int flash_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
                   const float* delta, const float* slopes, Bias bias, bf16* dq, float* dbias, int B, int H, int KVH,

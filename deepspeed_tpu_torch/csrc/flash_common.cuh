@@ -1,7 +1,9 @@
 // Definitions shared by the flash attention kernels (flash_attention.cu: the
-// float32 forward, dq and dk/dv, and the collapsed dq; flash_fwd.cu: the
-// bfloat16 forward; flash_bwd.cu: the bfloat16 dq and dk/dv, with or without
-// a bias): the mask, the additive bias and THE masked score every kernel uses.
+// float32 forward, dq and dk/dv, the float32 collapsed dq and the reduce of
+// the collapsed dq's partials; flash_fwd.cu: the bfloat16 forward;
+// flash_bwd.cu: the bfloat16 dq and dk/dv, with or without a bias, and the
+// bfloat16 collapsed dq): the mask, the additive bias, the programs that share
+// a bias slice and THE masked score every kernel uses.
 #pragma once
 
 #include "common.cuh"
@@ -25,6 +27,22 @@ struct Bias {
     const int idx = (Bb == 1 ? 0 : b / repeat) * Hb + (Hb == 1 ? 0 : h);
     return p + static_cast<size_t>(idx) * Sqb * sk;
   }
+};
+
+// Program (as b * H + h) of sharing index `rep` over bias slice `s`: the
+// reference's q_b (_flash_bwd, :447-454).
+__device__ __forceinline__ int sharing_program(const Bias& bias, int s, int rep, int H) {
+  if (bias.Bb == 1 && bias.Hb == 1) return rep;
+  if (bias.Hb == 1) return (s * bias.repeat + rep / H) * H + rep % H;  // batch collapsed by repeat, heads share
+  if (bias.Bb == 1) return rep * H + s;                                  // only heads distinct
+  return ((s / H) * bias.repeat + rep) * H + s % H;
+}
+
+// How the collapsed dq splits its work: n_qt query tiles x n_bh slices x
+// n_chunks chunks of `per` sharing programs (of n_rep); n_parts fp32 partials
+// of dbias (1: the kernel writes dbias itself).
+struct CollapsedPlan {
+  int n_qt, n_bh, n_rep, per, n_chunks, n_parts;
 };
 
 // Bias of query row `row`, key `col` in slice `bs` (0 without a bias, and
@@ -97,5 +115,17 @@ int flash_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
                    const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes, Bias bias,
                    __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int KVH, int D, Mask mk,
                    cudaStream_t stream);
+
+// The bfloat16 collapsed dq (flash_bwd.cu): dq like q, and the plan's n_parts
+// fp32 partials of dbias in `part` ((n_parts, Bb*Hb, Sqb, Sk); dbias itself when
+// n_parts is 1), which flash_attention.cu sums in a fixed order. The bias is
+// collapsed (ds_flash_bwd_dq_collapsed checks); Sqb is 1 or Sq. Same returns.
+// flash_dq_collapsed_bf16_geometry gives the query rows and warps of a block,
+// which the plan needs.
+void flash_dq_collapsed_bf16_geometry(int* rows, int* warps);
+int flash_dq_collapsed_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                            const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
+                            Bias bias, __nv_bfloat16* dq, float* part, int H, int KVH, int D, Mask mk,
+                            const CollapsedPlan& pl, cudaStream_t stream);
 
 }  // namespace dstorch

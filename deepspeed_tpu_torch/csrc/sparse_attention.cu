@@ -1,9 +1,13 @@
 // Block-sparse attention for Hopper: forward, dq and dk/dv over (B, S, H, D)
-// tensors and a static block layout given as active-block lists.
+// tensors and a static block layout given as active-block lists. The bfloat16
+// dk/dv is sparse_dkv.cu's register-resident kernel over a plan of the lists
+// (ds_sparse_bwd_dkv routes to it); this file holds the forward and dq in
+// both types and the float32 dk/dv, whose design follows.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention/
 // sparse_self_attention.py: _sp_fwd_kernel (pallas_call at :193, via _sp_fwd),
-// _sp_dq_kernel (:222, via _sp_bwd) and _sp_dkv_kernel (:239). A layout of
+// _sp_dq_kernel (:222, via _sp_bwd) and _sp_dkv_kernel (:239; here in
+// float32). A layout of
 // blk x blk blocks becomes kidx (H, S/blk, A): the key blocks each query block
 // attends, ascending, -1 padded; and its transpose qidx (H, S/blk, Aq): the
 // query blocks that attend each key block. Scores are s = (q.k) * scale; on
@@ -27,12 +31,9 @@
 //   the layouts users run attend nearly the same key blocks (the local window
 //   and the global columns), so the union is about as long as one list, and
 //   four warps share each tile at block 16 instead of one.
-// - dk/dv: a CUDA block owns one key block's rows (at most 64 in bf16, 32 in
-//   fp32; a larger block is split over several CUDA blocks that walk the same
-//   list) and walks its list alone. At block 16 that is one warp per CUDA
-//   block: there the lists differ by 50-100x between neighbours (a global
-//   column's against a local one's), and small blocks let the hardware
-//   scheduler balance them.
+// - dk/dv (fp32): a CUDA block owns one key block's rows (at most 32; a
+//   larger block is split over several CUDA blocks that walk the same list)
+//   and walks its list alone.
 // - A step covers a tile of BN rows of the other sequence: the next BN / blk
 //   entries of the list, one block each, or BN rows of one larger block.
 //   Several small blocks per step amortise the softmax's row reductions, the
@@ -61,28 +62,37 @@
 //   dk/dv's dV) and ds (dq, dk) are rounded to the input type before their
 //   products, as the reference's .astype calls do.
 // - lse and delta are (B, H, S) fp32, without the TPU's 128-lane padding.
-// Not yet: wgmma, TMA, prefetching the next tile of a walk, the forward's
-// accumulator and the scores in registers, or splitting a long (global) list
+// Not yet, for the bodies here: wgmma, TMA, prefetching the next tile of a
+// walk, the forward's accumulator and the scores in registers (as
+// sparse_dkv.cu does for the bf16 dk/dv), or splitting a long (global) list
 // across blocks.
 #include "common.cuh"
 
 #include <mma.h>
 
 namespace dstorch {
+
+// The bfloat16 dk/dv (sparse_dkv.cu) over a plan of the qidx lists: `plan` (int32, on the device) holds
+// n_items records of `rows` / 16 + 4 ints, n_reduce more, then the walks; ws the fp32 partials of the
+// n_slots pieces of split walks (dk's, then dv's). Returns 0, a cudaError_t or kUnsupported.
+int sparse_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                    const __nv_bfloat16* dout, const float* lse, const float* delta, const int* plan, int n_items,
+                    int n_reduce, int n_slots, int max_entries, int rows, float* ws, __nv_bfloat16* dk,
+                    __nv_bfloat16* dv, int B, int S, int H, int D, int blk, int causal, float scale,
+                    cudaStream_t stream);
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 // Per element type: at most NW warps (16 rows each) per block; key tiles of BN
-// rows for forward and dq, query tiles of BN_DKV rows for dk/dv. fp32 tiles are
-// smaller so that dk/dv's fp32 operands fit; dk/dv's bf16 tiles are half the
-// forward's, since its one-warp blocks at block 16 are held back by the shared
-// memory each one takes.
+// rows for forward and dq, query tiles of BN_DKV rows for the fp32 dk/dv. fp32
+// tiles are smaller so that dk/dv's fp32 operands fit.
 template <typename T>
 struct SpTiles;
 template <>
 struct SpTiles<bf16> {
-  static constexpr int NW = 4, BN = 64, BN_DKV = 32;
+  static constexpr int NW = 4, BN = 64;
 };
 template <>
 struct SpTiles<float> {
@@ -599,7 +609,7 @@ sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   acc.store(dq + ((static_cast<size_t>(b) * w.S + r0 + wr) * w.H + h) * D, static_cast<size_t>(w.H) * D, sSw);
 }
 
-// ---------------------------------------------------------------- dk / dv
+// ---------------------------------------------------------------- dk / dv (fp32; bf16 in sparse_dkv.cu)
 // Grid (S / rows, H, B), rows = min(blk, 16 * NW). Block rows are keys of key block kj; the block walks
 // qidx[h, kj], the query blocks that attend it.
 template <typename T, int D>
@@ -699,6 +709,9 @@ struct Args {
   int B;
   Walk w;
   cudaStream_t stream;
+  const int* plan;  // the bf16 dk/dv's plan and workspace (sparse_dkv_bf16)
+  float* ws;
+  int n_items, n_reduce, n_slots, max_entries, rows;
 };
 
 enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -706,9 +719,7 @@ enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
 template <typename T, int D>
 int launch(Pass pass, const Args& a) {
   using G = SpGeo<T, D>;
-  using GK = SpGeo<T, D, SpTiles<T>::BN_DKV>;
   const G gf(G::fwd_rows());
-  const GK gk(GK::dkv_rows(a.w.blk));
   const size_t u_bytes = union_bytes(union_cap(a.w.blk, gf.rows, a.w.A, a.w.S));
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -716,24 +727,35 @@ int launch(Pass pass, const Args& a) {
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  const size_t smem = pass == kFwd ? gf.fwd() + u_bytes : pass == kDq ? gf.dq() + u_bytes : gk.dkv();
-  if (smem > kMaxSmem) return kUnsupported;  // a merged list too long for shared memory
-  const int rows = pass == kDkv ? gk.rows : gf.rows;
-  const dim3 grid((a.w.S + rows - 1) / rows, a.w.H, a.B);
-  const int threads = 2 * rows;  // a warp per 16 rows
   cudaError_t err;
+  if (pass == kDkv) {
+    if constexpr (sizeof(T) == 4) {  // bf16 takes sparse_dkv.cu's body (run routes it there)
+      using GK = SpGeo<T, D, SpTiles<T>::BN_DKV>;
+      const GK gk(GK::dkv_rows(a.w.blk));
+      const size_t smem = gk.dkv();
+      if (smem > kMaxSmem) return kUnsupported;
+      const dim3 grid((a.w.S + gk.rows - 1) / gk.rows, a.w.H, a.B);
+      if ((err = allow_smem(sparse_dkv_kernel<T, D>, smem)) != cudaSuccess) return static_cast<int>(err);
+      sparse_dkv_kernel<T, D><<<grid, 2 * gk.rows, smem, a.stream>>>(q, k, v, dout, lse, delta,
+                                                                     static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+                                                                     a.w);
+      return static_cast<int>(cudaGetLastError());
+    } else {
+      return kUnsupported;
+    }
+  }
+  const size_t smem = (pass == kFwd ? gf.fwd() : gf.dq()) + u_bytes;
+  if (smem > kMaxSmem) return kUnsupported;  // a merged list too long for shared memory
+  const dim3 grid((a.w.S + gf.rows - 1) / gf.rows, a.w.H, a.B);
+  const int threads = 2 * gf.rows;  // a warp per 16 rows
   if (pass == kFwd) {
     if ((err = allow_smem(sparse_fwd_kernel<T, D>, smem)) != cudaSuccess) return static_cast<int>(err);
     sparse_fwd_kernel<T, D><<<grid, threads, smem, a.stream>>>(q, k, v, static_cast<T*>(a.o),
                                                                static_cast<float*>(a.out_lse), a.w);
-  } else if (pass == kDq) {
+  } else {
     if ((err = allow_smem(sparse_dq_kernel<T, D>, smem)) != cudaSuccess) return static_cast<int>(err);
     sparse_dq_kernel<T, D><<<grid, threads, smem, a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
                                                               a.w);
-  } else {
-    if ((err = allow_smem(sparse_dkv_kernel<T, D>, smem)) != cudaSuccess) return static_cast<int>(err);
-    sparse_dkv_kernel<T, D><<<grid, threads, smem, a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
-                                                               static_cast<T*>(a.dv), a.w);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -758,6 +780,12 @@ int run(Pass pass, int D, int dtype, const Args& a) {
   const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.o, a.dq, a.dk, a.dv};
   for (const void* p : ptrs)
     if (p != nullptr && !aligned16(p)) return kUnsupported;
+  if (dtype == kBFloat16 && pass == kDkv)  // the register-resident body of sparse_dkv.cu, over the plan
+    return sparse_dkv_bf16(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+                           static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), a.plan, a.n_items,
+                           a.n_reduce, a.n_slots, a.max_entries, a.rows, a.ws, static_cast<bf16*>(a.dk),
+                           static_cast<bf16*>(a.dv), a.B, w.S, w.H, D, w.blk, w.causal, w.scale, a.stream);
   if (dtype == kBFloat16) return dispatch_d<bf16>(pass, D, a);
   if (dtype == kFloat32) return dispatch_d<float>(pass, D, a);
   return kUnsupported;
@@ -804,10 +832,15 @@ extern "C" int ds_sparse_bwd_dq(const void* q, const void* k, const void* v, con
 }
 
 // qidx (H, S / blk, Aq) int32: each row the ascending query blocks that attend
-// a key block, -1 padded. dk, dv like k.
+// a key block, -1 padded. dk, dv like k. bf16 walks `plan` instead (int32 on
+// the device: sparse_self_attention.py's DkvPlan.table, with its n_items,
+// n_reduce, n_slots and max_entries, made for blocks of `rows` key rows) and
+// needs `ws`, fp32 (2, n_slots, B, rows, D), when n_slots > 0; fp32 takes
+// neither (null, zeros).
 extern "C" int ds_sparse_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                                 const void* delta, const void* qidx, void* dk, void* dv, int B, int S, int H, int D,
-                                 int blk, int Aq, float scale, int causal, int dtype, void* stream) {
+                                 const void* delta, const void* qidx, const void* plan, void* ws, void* dk, void* dv,
+                                 int B, int S, int H, int D, int blk, int Aq, int n_items, int n_reduce, int n_slots,
+                                 int max_entries, int rows, float scale, int causal, int dtype, void* stream) {
   using namespace dstorch;
   Args a = make_args(q, k, v, qidx, B, S, H, blk, Aq, scale, causal, stream);
   a.dout = dout;
@@ -815,5 +848,12 @@ extern "C" int ds_sparse_bwd_dkv(const void* q, const void* k, const void* v, co
   a.delta = delta;
   a.dk = dk;
   a.dv = dv;
+  a.plan = static_cast<const int*>(plan);
+  a.ws = static_cast<float*>(ws);
+  a.n_items = n_items;
+  a.n_reduce = n_reduce;
+  a.n_slots = n_slots;
+  a.max_entries = max_entries;
+  a.rows = rows;
   return run(kDkv, D, dtype, a);
 }

@@ -50,7 +50,7 @@ SIGNATURES: Dict[str, List] = {
     "ds_dequantize_groupwise": [_P, _P, _P, _LL, _I, _I, _P],
     "ds_sparse_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "ds_sparse_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
-    "ds_sparse_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+    "ds_sparse_bwd_dkv": [_P] * 11 + [_I] * 11 + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

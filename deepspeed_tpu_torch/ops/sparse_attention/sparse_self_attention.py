@@ -18,13 +18,18 @@ and ``qidx`` (H, S/blk, Aq) int32, sorted, -1 padded.
 
 Each wrapper (``sparse_fwd``, ``sparse_bwd_dq``, ``sparse_bwd_dkv``) takes
 its plain version for CPU tensors, launches its kernel (or raises) for any
-other device, and counts its launches. ``_SparseAttention`` is the
+other device, and counts its launches. The bf16 dk/dv kernel walks a plan
+(``DkvPlan``, numpy on the host, built once per configuration beside the
+lists): key blocks with alike lists grouped into one CUDA block, which walks
+the union of their lists, and long walks split across blocks whose fp32
+partials are summed in a fixed order. ``_SparseAttention`` is the
 reference's ``custom_vjp``: the forward saves q, k, v, o and lse; the
 backward computes delta = rowsum(o * do) in fp32 and launches dq and dk/dv.
 There is no ``interpret`` argument: the tensors' device picks the route.
 """
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +42,11 @@ NEG_INF = -1e30  # the reference kernels' mask value
 KERNEL_BLOCKS = (16, 32, 64, 128)  # layout blocks the CUDA kernels take (the upstream Triton kernels' set)
 KERNEL_HEAD_DIMS = (32, 64, 128)
 PLAIN_CHUNK_ELEMS = 1 << 27  # the plain versions gather at most this many K (or Q) elements at a time
+# the bf16 dk/dv kernel (csrc/sparse_dkv.cu): the key rows a CUDA block owns (4 warps of 16), the query rows a
+# step of its walk stages, and the most steps one block walks (a longer walk is split across blocks)
+DKV_ROWS = 64
+DKV_TILE = 64
+DKV_SPLIT_TILES = 64
 
 
 # ----------------------------------------------------------------------
@@ -66,15 +76,168 @@ def _active_lists(layout: np.ndarray, causal: bool):
     return _sorted_active(lay), _sorted_active(np.ascontiguousarray(lay.transpose(0, 2, 1)))
 
 
+@dataclasses.dataclass
+class DkvPlan:
+    """The bf16 dk/dv kernel's work over qidx, from the lists alone (numpy).
+
+    A *member* is ``R = min(block, DKV_ROWS)`` key rows of one key block, with
+    that block's list; a *group* is up to ``DKV_ROWS // R`` members of one head
+    whose lists are alike (of one length class, and their union takes no more
+    steps than the longest of them), owned by one CUDA block: its warps share
+    each staged tile of the union of their lists (``walk``: ascending query
+    blocks, each with a bit per member that attends it). A walk of more than
+    ``DKV_SPLIT_TILES`` steps is split into pieces, each a CUDA block writing
+    fp32 partials of the group's dk and dv into its slot of a workspace; the
+    ``reduce`` rows sum a group's pieces in order.
+
+    ``items`` (n_items, 4 + DKV_ROWS // 16) int32, one CUDA block per batch row,
+    longest walk first: [head, first entry, entries, slot (-1: write dk, dv
+    directly), first key row of each member (-1: none)]; ``reduce`` (n_reduce,
+    same width): [head, first slot, pieces, 0, members]; ``entries`` int32: the
+    groups' walks one after another, query block | owner bits << 24."""
+    items: np.ndarray
+    reduce: np.ndarray
+    entries: np.ndarray
+    n_slots: int
+    max_entries: int
+    block: int  # what the plan is for: the layout block, DKV_ROWS, and qidx's heads and key blocks
+    rows: int
+    heads: int
+    n_blocks: int
+
+    @property
+    def table(self) -> np.ndarray:
+        """items, reduce and entries in one int32 array, as the kernel reads them."""
+        return np.concatenate([self.items.ravel(), self.reduce.ravel(), self.entries])
+
+
+def _walk_steps(n, block: int, tile: int):
+    """Steps (staged tiles of ``tile`` query rows) of a walk over n list entries."""
+    per = max(1, tile // block)
+    return -(-np.asarray(n) // per) * max(1, block // tile)
+
+
+def _dkv_groups(lists: np.ndarray, block: int) -> List[Tuple[List[int], np.ndarray]]:
+    """One head's groups: [(first key row of each member, walk)] for its
+    (n_blocks, Aq) qidx lists. Members in order of (length class, key block);
+    a member joins the open group when the group has room, the class is the
+    same and the union's steps stay within the longest member's."""
+    nb, rows, tile = lists.shape[0], DKV_ROWS, DKV_TILE
+    R = min(block, rows)
+    subs = block // R
+    lens = (lists >= 0).sum(1)
+    mem_block = np.repeat(np.arange(nb), subs)
+    mem_row = mem_block * block + np.tile(np.arange(subs) * R, nb)
+    steps = _walk_steps(lens[mem_block], block, tile)
+    cls = np.where(steps > 0, np.floor(np.log2(np.maximum(steps, 1))).astype(np.int64) + 1, 0)
+    out = []
+
+    def close(members, union):
+        bits = np.zeros(len(union), np.int64)
+        for i, m in enumerate(members):
+            bits[np.searchsorted(union, lists[mem_block[m], :lens[mem_block[m]]])] |= 1 << i
+        walk = (union.astype(np.int64) | bits << 24).astype(np.uint32).view(np.int32)
+        out.append(([int(mem_row[m]) for m in members], walk))
+
+    cur, union, most = [], None, 0
+    for m in np.argsort(cls, kind="stable"):
+        own = lists[mem_block[m], :lens[mem_block[m]]]
+        n_steps = int(steps[m])
+        if cur and len(cur) < rows // R and cls[m] == cls[cur[0]]:
+            joined = np.union1d(union, own)
+            if _walk_steps(len(joined), block, tile) <= max(most, n_steps):
+                cur.append(m)
+                union, most = joined, max(most, n_steps)
+                continue
+        if cur:
+            close(cur, union)
+        cur, union, most = [m], own, n_steps
+    if cur:
+        close(cur, union)
+    return out
+
+
+def dkv_plan(qidx: np.ndarray, block: int) -> DkvPlan:
+    """The bf16 dk/dv kernel's plan for qidx (H, S/block, Aq) int32 (see
+    ``DkvPlan``); heads with equal lists share one grouping."""
+    rows, tile, split_tiles = DKV_ROWS, DKV_TILE, DKV_SPLIT_TILES
+    if block % 16 or rows % min(block, rows):
+        raise NotImplementedError(f"the dk/dv kernel's plan takes layout blocks of 16 rows or a multiple, not {block}")
+    width = 4 + rows // 16
+    per_piece = max(1, split_tiles // max(1, block // tile)) * max(1, tile // block)  # entries, in whole steps
+    items, reduce, walks = [], [], []
+    seen, slot, off = {}, 0, 0
+    for h in range(qidx.shape[0]):
+        key = qidx[h].tobytes()
+        if key not in seen:
+            seen[key] = _dkv_groups(qidx[h], block)
+        for members, walk in seen[key]:
+            n = len(walk)
+            mem = members + [-1] * (width - 4 - len(members))
+            if n <= per_piece:
+                items.append([h, off, n, -1] + mem)
+            else:
+                pieces = -(-n // per_piece)
+                items += [[h, off + p * per_piece, min(per_piece, n - p * per_piece), slot + p] + mem
+                          for p in range(pieces)]
+                reduce.append([h, slot, pieces, 0] + mem)
+                slot += pieces
+            walks.append(walk)
+            off += n
+    items = np.asarray(items, np.int32).reshape(-1, width)
+    items = items[np.argsort(-_walk_steps(items[:, 2], block, tile), kind="stable")]  # longest walk first
+    entries = np.concatenate(walks).astype(np.int32) if walks else np.zeros(0, np.int32)
+    return DkvPlan(items, np.asarray(reduce, np.int32).reshape(-1, width), entries, slot,
+                   int(items[:, 2].max(initial=0)), block, rows, qidx.shape[0], qidx.shape[1])
+
+
+@dataclasses.dataclass
+class DeviceDkvPlan:
+    """A ``DkvPlan``'s table on the device, with the counts the launch needs
+    and what the plan is for (checked against the call's qidx)."""
+    table: torch.Tensor
+    n_items: int
+    n_reduce: int
+    n_slots: int
+    max_entries: int
+    block: int
+    rows: int
+    heads: int
+    n_blocks: int
+
+    @classmethod
+    def of(cls, plan: DkvPlan, device) -> "DeviceDkvPlan":
+        return cls(torch.from_numpy(plan.table).to(device), len(plan.items), len(plan.reduce), plan.n_slots,
+                   plan.max_entries, plan.block, plan.rows, plan.heads, plan.n_blocks)
+
+    def check(self, fn: str, qidx: torch.Tensor, block: int) -> None:
+        """Raise unless the plan was made for qidx's heads and key blocks at this layout block, on its device."""
+        got, want = (self.block, self.heads, self.n_blocks), (block, qidx.shape[0], qidx.shape[1])
+        if got != want:
+            raise ValueError(f"{fn}: the plan is for (block, heads, key blocks) {got}, the call's qidx {want}")
+        if self.table.device != qidx.device:
+            raise ValueError(f"{fn}: the plan must be on {qidx.device}, not {self.table.device}")
+
+
+class _Lists:
+    """kidx and qidx of one configuration on a device, and the dk/dv plan of
+    qidx, built on first use."""
+
+    def __init__(self, kidx: np.ndarray, qidx: np.ndarray, block: int, device):
+        self.kidx, self.qidx = torch.from_numpy(kidx).to(device), torch.from_numpy(qidx).to(device)
+        self._qidx, self._block, self._plan = qidx, block, None
+
+    def plan(self) -> DeviceDkvPlan:
+        if self._plan is None:
+            self._plan = DeviceDkvPlan.of(dkv_plan(self._qidx, self._block), self.kidx.device)
+        return self._plan
+
+
 _LISTS_CACHE: dict = {}
 _LISTS_CACHE_SIZE = 16
 
 
-def _device_lists(config: SparsityConfig, S: int, H: int, causal: bool, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """kidx and qidx of ``config``'s layout at length S over H heads, as int32
-    tensors on ``device``. Built once per (config's type and fields, S, H,
-    causal, device): eager PyTorch would otherwise rebuild the Python-loop
-    layout on every call (what ``jit`` did once at trace time)."""
+def _cached_lists(config: SparsityConfig, S: int, H: int, causal: bool, device) -> _Lists:
     key = (type(config), repr(config), S, H, causal, str(device))
     hit = _LISTS_CACHE.get(key)
     if hit is not None:
@@ -82,12 +245,25 @@ def _device_lists(config: SparsityConfig, S: int, H: int, causal: bool, device) 
     layout = config.make_layout(S)
     if layout.shape[0] == 1 and H > 1:
         layout = np.broadcast_to(layout, (H,) + layout.shape[1:])
-    kidx, qidx = _active_lists(layout, causal)
-    hit = (torch.from_numpy(kidx).to(device), torch.from_numpy(qidx).to(device))
+    hit = _Lists(*_active_lists(layout, causal), config.block, device)
     if len(_LISTS_CACHE) >= _LISTS_CACHE_SIZE:
         _LISTS_CACHE.pop(next(iter(_LISTS_CACHE)))
     _LISTS_CACHE[key] = hit
     return hit
+
+
+def _device_lists(config: SparsityConfig, S: int, H: int, causal: bool, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kidx and qidx of ``config``'s layout at length S over H heads, as int32
+    tensors on ``device``. Built once per (config's type and fields, S, H,
+    causal, device): eager PyTorch would otherwise rebuild the Python-loop
+    layout on every call (what ``jit`` did once at trace time)."""
+    hit = _cached_lists(config, S, H, causal, device)
+    return hit.kidx, hit.qidx
+
+
+def _device_dkv_plan(config: SparsityConfig, S: int, H: int, causal: bool, device) -> DeviceDkvPlan:
+    """The dk/dv plan of ``_device_lists``' qidx, built once beside them."""
+    return _cached_lists(config, S, H, causal, device).plan()
 
 
 # ----------------------------------------------------------------------
@@ -271,18 +447,31 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, kidx, block: int, scale: float, causa
     return dq
 
 
-def sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, block: int, scale: float,
-                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk/dv kernel: (dk, dv) like k. qidx (H, S/block, Aq) int32."""
+def sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, block: int, scale: float, causal: bool,
+                   plan: Optional[DeviceDkvPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk/dv kernel: (dk, dv) like k. qidx (H, S/block, Aq) int32. bf16 on
+    the card walks ``plan`` (qidx's ``DeviceDkvPlan``, from
+    ``_device_dkv_plan``), and raises without one; fp32 walks qidx itself."""
+    if plan is not None:
+        plan.check("sparse_bwd_dkv", qidx, block)
     if q.device.type == "cpu":
         return sparse_bwd_dkv_ref(q, k, v, do, lse, delta, qidx, block, scale, causal)
     _check("sparse_bwd_dkv", q, k, v, qidx, block, do, lse, delta)
     B, S, H, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    table, ws, counts, rows = None, None, (0, 0, 0, 0), 0
+    if q.dtype == torch.bfloat16:
+        if plan is None:
+            raise ValueError("sparse_bwd_dkv: bf16 on the card walks a plan; pass _device_dkv_plan(...)")
+        table, rows = plan.table.data_ptr(), plan.rows
+        counts = (plan.n_items, plan.n_reduce, plan.n_slots, plan.max_entries)
+        if plan.n_slots:  # fp32 partials of the split walks: dk's, then dv's
+            ws = torch.empty((2, plan.n_slots, B, rows, D), dtype=torch.float32, device=q.device)
     rc = _build.lib().ds_sparse_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                        delta.data_ptr(), qidx.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, D,
-                                        block, qidx.shape[2], float(scale), int(causal), _build.dtype_code(q.dtype),
-                                        _stream(q))
+                                        delta.data_ptr(), qidx.data_ptr(), table,
+                                        ws.data_ptr() if ws is not None else None, dk.data_ptr(), dv.data_ptr(), B, S,
+                                        H, D, block, qidx.shape[2], *counts, rows, float(scale), int(causal),
+                                        _build.dtype_code(q.dtype), _stream(q))
     _build.check(rc, "sparse_bwd_dkv")
     sparse_bwd_dkv.launches += 1
     return dk, dv
@@ -296,10 +485,10 @@ sparse_bwd_dkv.launches = 0
 class _SparseAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, kidx, qidx, block, scale, causal):
+    def forward(ctx, q, k, v, kidx, qidx, plan, block, scale, causal):
         o, lse = sparse_fwd(q, k, v, kidx, block, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse, kidx, qidx)
-        ctx.args = (block, scale, causal)
+        ctx.args, ctx.plan = (block, scale, causal), plan
         return o
 
     @staticmethod
@@ -308,8 +497,8 @@ class _SparseAttention(torch.autograd.Function):
         do = do.contiguous()
         delta = flash_delta(o, do)
         dq = sparse_bwd_dq(q, k, v, do, lse, delta, kidx, *ctx.args)
-        dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, *ctx.args, plan=ctx.plan)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 # ----------------------------------------------------------------------
@@ -363,8 +552,11 @@ def sparse_attention(q, k, v, config: SparsityConfig, *, causal: bool = True,
     if n_rep > 1:
         k, v = _expand_kv(k, n_rep), _expand_kv(v, n_rep)
     kidx, qidx = _device_lists(config, S, H, causal, q.device)
+    plan = None  # the bf16 dk/dv kernel's walk, for a configuration the kernels take (else sparse_fwd raises)
+    if q.is_cuda and q.dtype == torch.bfloat16 and config.block in KERNEL_BLOCKS:
+        plan = _device_dkv_plan(config, S, H, causal, q.device)
     scale = scale if scale is not None else 1.0 / (D**0.5)
-    return _SparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kidx, qidx, config.block,
+    return _SparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kidx, qidx, plan, config.block,
                                   float(scale), bool(causal))
 
 

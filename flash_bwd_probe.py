@@ -18,7 +18,11 @@ and prints one JSON line each:
 3. ``bias case``: the same for the bias bodies (dq writing dbias, dk/dv with
    a bias) at the ``EVO_SHAPES`` cases ``msa_row`` and ``msa_row_finetune``
    (the 384 x 512 crop), with dbias held to the same tolerance, and the bytes
-   each kernel must move over its time against the card's 3.35 TB/s.
+   each kernel must move over its time against the card's 3.35 TB/s;
+4. ``collapsed case``: the collapsed dq (dq plus dbias summed over the
+   programs that share a bias slice) at ``msa_row_pair`` (Sqb = Sq) and
+   ``msa_col`` (Sqb = 1), with its plan (chunks, partials), errors, bit-equal
+   repeats and time beside the bound and dk/dv with the same bias.
 The card's name and power limit come first.
 """
 
@@ -36,6 +40,7 @@ OUT = os.path.join(HERE, "build", "flash_bwd_probe")
 DQ = "  static constexpr int NW = 8, NT = 32 * NW, BM = 16 * NW, BN = 64, KS = D <= 64 && !BIAS ? 32 : 64;\n"
 DQ_MIN = "  static constexpr int MIN_BLOCKS = D <= 64 && !BIAS ? 2 : 1;\n"
 DQ_ST = "  static constexpr int STAGES = 2;  // the ring's depth"
+DQ_QBUF = "  static constexpr int QBUF = SUM && 4 * q_bytes + ring <= 200 * 1024 ? 2 : 1;\n"
 DKV = "  static constexpr int NW = 4, NT = 32 * NW, BM = 16 * NW, BN = 64, QS = D <= 64 ? 32 : 16;\n"
 DKV_MIN = "  static constexpr int MIN_BLOCKS = D <= (BIAS ? 32 : 64) ? 3 : (BIAS && D > 64 ? 1 : 2);\n"
 # variant name -> (source text, replacement) pairs; each text must occur in flash_bwd.cu
@@ -55,8 +60,13 @@ VARIANTS = {
                       + DKV_MIN.replace("? 3 :", "? (BIAS ? 2 : 3) :"))],
     "dkv_qs16": [(DKV, DKV.replace("QS = D <= 64 ? 32 : 16", "QS = 16"))],
     "dkv_1blk": [(DKV_MIN, "  static constexpr int MIN_BLOCKS = 1;\n")],
+    "dq_sum_ks32": [(DQ, DQ.replace("KS = D <= 64 && !BIAS ? 32 : 64", "KS = D <= 64 && (!BIAS || SUM) ? 32 : 64"))],
+    "dq_sum_1qbuf": [(DQ_QBUF, DQ_QBUF.replace("? 2 : 1", "? 1 : 1"))],
+    # a third ring stage in the collapsed dq (its next program's Q and dO need a walk of 2 key tiles or more)
+    "dq_sum_3st": [(DQ_ST, DQ_ST.replace("= 2;", "= SUM ? 3 : 2;"))],
 }
 BIAS_CASES = ("msa_row", "msa_row_finetune")
+COLLAPSED_CASES = ("msa_row_pair", "msa_col")
 
 
 def log(obj) -> None:
@@ -115,12 +125,15 @@ def ptxas_entries(text):
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry and ("flash_dq_bf16_kernel" in entry or "flash_dkv_bf16_kernel" in entry):
+        if m and entry and any(n in entry for n in ("flash_dq_bf16_kernel", "flash_dq_collapsed_bf16_kernel",
+                                                    "flash_dkv_bf16_kernel")):
             kind = "dq" if "flash_dq" in entry else "dkv"
-            targs = re.search(r"ILi(\d+)ELb([01])ELb([01])E", entry)
+            # dq: <D, ALIBI, what it does with dlogits (DqBias)>; dk/dv: <D, ALIBI, BIAS>
+            targs = re.search(r"ILi(\d+)ELb([01])EL([ib])(\d)E", entry)
+            bias = targs and (["none", "per program", "summed rows", "summed columns"][int(targs.group(4))]
+                              if targs.group(3) == "i" else targs.group(4) == "1")
             out.append(dict(kernel=kind, D=int(targs.group(1)) if targs else None,
-                            alibi=targs.group(2) == "1" if targs else None,
-                            bias=targs.group(3) == "1" if targs else None, registers=int(m.group(1)),
+                            alibi=targs.group(2) == "1" if targs else None, bias=bias, registers=int(m.group(1)),
                             spill_store_bytes=spill))
             entry = None
     return out
@@ -194,6 +207,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
     for case in BIAS_CASES:
         bias_case(torch, cs, fa, _build, handles, case)
+    for case in COLLAPSED_CASES:
+        collapsed_case(torch, cs, fa, _build, handles, case)
     return 0
 
 
@@ -245,6 +260,50 @@ def bias_case(torch, cs, fa, _build, handles, case):
         rec["ok"] = max(rec["dq_err"], rec["dbias_err"], rec["dkv_err"]) <= 1e-2 and rec["repeats"]
         log(rec)
     del q, k, v, do, bias, bwd, dq_ref, dk_ref, dv_ref, dbias_ref
+    torch.cuda.empty_cache()
+
+
+def collapsed_case(torch, cs, fa, _build, handles, case):
+    """Each variant's collapsed dq (and dk/dv with the same bias) at one EVO_SHAPES case whose bias the
+    programs share, against the plain versions, with its plan and its time beside the bound."""
+    from deepspeed_tpu_torch.ops import evoformer as evo
+
+    dev, dtype = torch.device("cuda", 0), torch.bfloat16
+    q5, k5, v5, do5, biases = cs.evo_inputs(torch, dev, dtype, case)
+    lead, (Sq, H, D) = q5.shape[:-3], q5.shape[-3:]
+    B = q5.numel() // (Sq * H * D)
+    q, k, v, do = (t.reshape(B, Sq, H, D) for t in (q5, k5, v5, do5))
+    bias, meta = fa.flat_bias(*evo.fold_biases(biases, lead), B, H, Sq, Sq)
+    del biases, q5, k5, v5, do5
+    args = (None, D**-0.5, False, 0, bias, meta)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, do, lse_ref, fa.flash_delta(o_ref, do), *args)
+    del o_ref
+    dq_ref, dbias_ref = fa.flash_bwd_dq_collapsed_ref(*bwd)
+    err = lambda a, b: cs.evo_err(torch, a, b)["max_rel_err"]
+    nq, nk, nb, stats = q.numel() * 2, k.numel() * 2, bias.numel() * 4, B * H * Sq * 4
+    dq_bytes = 3 * nq + 2 * nk + 2 * stats + 2 * nb
+    flops = 2 * D * B * H * Sq * Sq
+    saved = _build._lib
+    for name, handle in handles.items():
+        _build._lib = handle
+        try:
+            dq, dbias = fa.flash_bwd_dq_collapsed(*bwd)
+            again = fa.flash_bwd_dq_collapsed(*bwd)
+            torch.cuda.synchronize()
+            rec = dict(phase="collapsed case", variant=name, case=case, meta=meta,
+                       parts=handle.ds_flash_dq_collapsed_parts(B, Sq, H, *meta[:3], 1), dq_err=err(dq, dq_ref),
+                       dbias_err=err(dbias, dbias_ref),
+                       repeats=torch.equal(dq, again[0]) and torch.equal(dbias, again[1]),
+                       dq_ms=cs.time_ms(lambda: fa.flash_bwd_dq_collapsed(*bwd), 20),
+                       dkv_ms=cs.time_ms(lambda: fa.flash_bwd_dkv(*bwd), 20),
+                       dq_bound_ms=cs.bound(dq_bytes, 3 * flops, dtype)[0])
+            del dq, dbias, again
+        finally:
+            _build._lib = saved
+        rec["ok"] = max(rec["dq_err"], rec["dbias_err"]) <= 1e-2 and rec["repeats"]
+        log(rec)
+    del q, k, v, do, bias, bwd, dq_ref, dbias_ref
     torch.cuda.empty_cache()
 
 

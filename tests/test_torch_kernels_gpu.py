@@ -647,7 +647,9 @@ def test_flash_attention_autograd_on_the_card(cuda):
 # a bias that nothing collapses, odd Sq and Sk, D 32 / 64 / 128. extras: ALiBi slopes and a
 # window beside the bias; a query row whose keys all carry -1e9; an evoformer bias, a
 # (B, 1, 1, Sk) mask plus an (H, Sq, Sk) pair bias; fewer KV heads (dk/dv sums a KV head's
-# query heads, each with its own bias slice)
+# query heads, each with its own bias slice). The last two: MSA column attention's mask (one
+# row per batch row, shared by its heads and every query row), and 64 programs sharing each
+# of two slices, which the collapsed dq splits into chunks whose partials a reduce sums
 BIAS_CASES = [
     (4, 64, 64, 2, 32, (1, 1, 64, 64), 1, False),
     (4, 64, 64, 2, 32, (1, 1, 1, 64), 1, False),
@@ -666,6 +668,8 @@ BIAS_CASES = [
     (2, 61, 61, 4, 32, (2, 4, 61, 61), 1, False),
     (16, 256, 256, 8, 32, (16, 8, 256, 256), 1, False, dict(mask_pair=True)),
     (2, 96, 96, 4, 32, (2, 4, 96, 96), 1, False, dict(kvh=2)),
+    (32, 128, 128, 8, 32, (32, 1, 1, 128), 1, False),
+    (64, 100, 100, 2, 64, (1, 2, 100, 100), 1, False),
 ]
 
 
@@ -745,8 +749,9 @@ def test_flash_bias_kernels(cuda, dtype, case):
     assert errs["lse"] <= 1e-4 and all(errs[n] <= tol[n] for n in tol), errs
 
 
-# every extras case, one row shared by every query row (dk/dv's one-row stage), D 128 uncollapsed
-REPEAT_CASES = [c for c in BIAS_CASES if len(c) > 8] + [BIAS_CASES[1], BIAS_CASES[8]]
+# every extras case, one row shared by every query row (dk/dv's one-row stage), D 128 uncollapsed, and
+# collapsed at D 32, 64 and 128 (Sqb = Sq and Sqb = 1), the MSA column mask and the chunked one
+REPEAT_CASES = [c for c in BIAS_CASES if len(c) > 8] + [BIAS_CASES[i] for i in (1, 8, 0, 2, 3, 10, 17, 18)]
 
 
 @pytest.mark.parametrize("case", REPEAT_CASES, ids=[_bias_id(c) for c in REPEAT_CASES])
@@ -901,6 +906,8 @@ SPARSE_CASES = [
     ("longformer_uni_b32", 2, 512, 4, 128, True),
     ("variable_b128", 1, 1024, 2, 64, False),
     ("fixed_uni_b16", 1, 8192, 32, 64, True),
+    ("fixed_uni_b16", 1, 8192, 4, 64, True),
+    ("fixed_bi_heads_b16", 1, 8192, 4, 64, False),
 ]
 
 
@@ -929,7 +936,7 @@ def test_sparse_kernels(cuda, dtype, case):
     delta = ss.flash_delta(o_ref, do)
     bwd = (q, k, v, do, lse_ref, delta)
     dq = ss.sparse_bwd_dq(*bwd, kidx, *args)
-    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, *args)
+    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, *args, plan=ss._device_dkv_plan(cfg, S, H, causal, cuda))
     torch.cuda.synchronize()
     assert (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches, ss.sparse_bwd_dkv.launches) == tuple(
         c + 1 for c in counts)
@@ -940,6 +947,50 @@ def test_sparse_kernels(cuda, dtype, case):
     assert errs["lse"] <= 1e-4 and all(errs[n] <= TOL[dtype] for n in ("o", "dq", "dk", "dv")), errs
 
 
+# grouped key blocks and split walks of the bf16 dk/dv: Fixed layouts at block 16 and S 8192 (walks of
+# more than 256 entries split), and a block of 128 (half a key block a CUDA block)
+DKV_REPEAT_CASES = [c for c in SPARSE_CASES if c[2] >= 8192] + [SPARSE_CASES[6]]
+
+
+@pytest.mark.parametrize("case", DKV_REPEAT_CASES, ids=[f"{c[0]}-S{c[2]}-D{c[4]}" for c in DKV_REPEAT_CASES])
+def test_sparse_dkv_repeats_bit_for_bit(cuda, case):
+    """Two launches of the bf16 dk/dv (grouped key blocks, split walks summed in a fixed order) give
+    bit-equal dk and dv; the plan splits at least one walk at these cases."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    name, B, S, H, D, causal = case
+    cfg = _sparse_configs()[name](H)
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
+    kidx, qidx = ss._device_lists(cfg, S, H, causal, cuda)
+    plan = ss._device_dkv_plan(cfg, S, H, causal, cuda)
+    o, lse = ss.sparse_fwd_ref(q, k, v, kidx, cfg.block, D**-0.5, causal)
+    bwd = (q, k, v, do, lse, ss.flash_delta(o, do), qidx, cfg.block, D**-0.5, causal)
+    first, second = ss.sparse_bwd_dkv(*bwd, plan=plan), ss.sparse_bwd_dkv(*bwd, plan=plan)
+    torch.cuda.synchronize()
+    assert plan.n_slots > 0 or cfg.block == 128
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.isfinite(t).all() for t in first)
+
+
+def test_sparse_bf16_dkv_refuses_a_missing_or_foreign_plan(cuda):
+    """bf16 dk/dv on the card walks the configuration's plan: without one, or with another length's, it
+    raises before anything is launched."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    B, S, H, D = 1, 512, 4, 64
+    cfg = _sparse_configs()["fixed_uni_b16"](H)
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
+    kidx, qidx = ss._device_lists(cfg, S, H, True, cuda)
+    o, lse = ss.sparse_fwd_ref(q, k, v, kidx, cfg.block, D**-0.5, True)
+    bwd = (q, k, v, do, lse, ss.flash_delta(o, do), qidx, cfg.block, D**-0.5, True)
+    launches = ss.sparse_bwd_dkv.launches
+    with pytest.raises(ValueError, match="walks a plan"):
+        ss.sparse_bwd_dkv(*bwd)
+    with pytest.raises(ValueError, match="the plan is for"):
+        ss.sparse_bwd_dkv(*bwd, plan=ss._device_dkv_plan(cfg, 2 * S, H, True, cuda))
+    assert ss.sparse_bwd_dkv.launches == launches
+
+
 def test_sparse_dense_layout_matches_the_flash_kernels(cuda):
     """A dense layout (block 64) through the sparse kernels gives the flash
     kernels' o, lse, dq, dk and dv (bf16 per row within 1e-2)."""
@@ -948,12 +999,13 @@ def test_sparse_dense_layout_matches_the_flash_kernels(cuda):
 
     B, S, H, D = 2, 1024, 8, 64
     q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
-    kidx, qidx = ss._device_lists(sa.DenseSparsityConfig(num_heads=H, block=64), S, H, True, cuda)
+    dense = sa.DenseSparsityConfig(num_heads=H, block=64)
+    kidx, qidx = ss._device_lists(dense, S, H, True, cuda)
     o, lse = ss.sparse_fwd(q, k, v, kidx, 64, D**-0.5, True)
     o_f, lse_f = fa.flash_fwd(q, k, v, None, D**-0.5, True, 0)
     bwd = (q, k, v, do, lse_f, fa.flash_delta(o_f, do))
     dq = ss.sparse_bwd_dq(*bwd, kidx, 64, D**-0.5, True)
-    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, 64, D**-0.5, True)
+    dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, 64, D**-0.5, True, plan=ss._device_dkv_plan(dense, S, H, True, cuda))
     dq_f = fa.flash_bwd_dq(*bwd, None, D**-0.5, True, 0)
     dk_f, dv_f = fa.flash_bwd_dkv(*bwd, None, D**-0.5, True, 0)
     torch.cuda.synchronize()

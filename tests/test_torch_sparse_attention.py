@@ -281,3 +281,207 @@ def test_tensors_off_the_cpu_never_take_the_plain_route():
         with pytest.raises(ValueError, match="CUDA device"):
             call()
     assert launches == [fn.launches for fn in counters]
+
+
+# ---------------------------------------------------------------- the bf16 dk/dv kernel's plan (numpy, on the host)
+def _plan_groups(plan):
+    """{(head, members): [(slot, first entry, entries), ...] in slot order}: each group of the plan with its
+    pieces (one piece, slot -1, for a walk that is not split)."""
+    groups = {}
+    for h, off, n, slot, *members in plan.items.tolist():
+        groups.setdefault((h, tuple(members)), []).append((slot, off, n))
+    return {key: sorted(pieces) for key, pieces in groups.items()}
+
+
+def _check_plan(qidx, block, plan):
+    """The plan's invariants: every key block of every head owned exactly once; each group's union walk
+    covers each member's list, in ascending order, with the owner bits of exactly those entries; the split
+    ranges partition each walk, in whole steps of at most DKV_SPLIT_TILES; the reduce rows name each split
+    group's pieces; the longest walks come first; the plan names the block, rows, heads and key blocks it
+    was made for."""
+    rows, split_tiles = ss.DKV_ROWS, ss.DKV_SPLIT_TILES
+    H, nb, _ = qidx.shape
+    assert (plan.block, plan.rows, plan.heads, plan.n_blocks) == (block, rows, H, nb)
+    R = min(block, rows)
+    per_piece = max(1, split_tiles // max(1, block // ss.DKV_TILE)) * max(1, ss.DKV_TILE // block)
+    assert plan.items.shape[1] == plan.reduce.shape[1] == 4 + rows // 16
+    owners = np.zeros((H, nb * (block // R)), np.int64)
+    reduce = {(h, tuple(members)): (slot, pieces) for h, slot, pieces, _, *members in plan.reduce.tolist()}
+    slots = []
+    for (h, members), pieces in _plan_groups(plan).items():
+        live = [m for m in members if m >= 0]
+        assert 1 <= len(live) <= rows // R and list(members[:len(live)]) == live
+        assert all(m % R == 0 for m in live)
+        for m in live:
+            owners[h, m // R] += 1
+        # the pieces: one whole walk, or consecutive slots covering it in order
+        offs = [off for _, off, _ in pieces]
+        walk = np.concatenate([plan.entries[off:off + n] for _, off, n in pieces])
+        assert all(off + n == nxt for (_, off, n), nxt in zip(pieces, offs[1:] + [offs[0] + len(walk)]))
+        if len(pieces) == 1 and pieces[0][0] == -1:
+            assert (h, members) not in reduce and len(walk) <= per_piece
+        else:
+            assert all(n == per_piece for _, _, n in pieces[:-1]) and 1 <= pieces[-1][2] <= per_piece
+            slot0 = pieces[0][0]
+            assert [s for s, _, _ in pieces] == list(range(slot0, slot0 + len(pieces)))
+            assert reduce.pop((h, members)) == (slot0, len(pieces))
+            slots += [s for s, _, _ in pieces]
+        blocks = walk.view(np.uint32) & 0xFFFFFF
+        bits = walk.view(np.uint32) >> 24
+        assert np.all(np.diff(blocks.astype(np.int64)) > 0)  # ascending, no repeats
+        assert np.all(bits > 0) and np.all(bits < (1 << len(live)))  # each entry some member's, no other bits
+        for i, m in enumerate(live):
+            lst = qidx[h, m // block]
+            assert np.array_equal(blocks[(bits >> i) & 1 == 1], lst[lst >= 0])
+    assert np.all(owners == 1) and not reduce
+    assert sorted(slots) == list(range(plan.n_slots))
+    steps = ss._walk_steps(plan.items[:, 2], block, ss.DKV_TILE)
+    assert np.all(np.diff(steps) <= 0) and plan.max_entries == plan.items[:, 2].max(initial=0)
+    assert np.array_equal(plan.table, np.concatenate([plan.items.ravel(), plan.reduce.ravel(), plan.entries]))
+
+
+def _chip_smoke_shapes():
+    import chip_smoke
+
+    return chip_smoke.SPARSE_SHAPES, chip_smoke.sparse_config
+
+
+@pytest.mark.parametrize("name", ["fixed_uni_gpt2_1_3b", "fixed_bi_bert", "bigbird_base", "longformer_gqa_llama3_8b",
+                                  "dense_gpt2_1_3b"])
+def test_dkv_plan_at_every_chip_smoke_configuration(name):
+    """chip_smoke.py's SPARSE_SHAPES at full S; the Fixed layouts group their global key blocks four to a
+    CUDA block, and at S 8192 split their walks."""
+    shapes, config = _chip_smoke_shapes()
+    c = shapes[name]
+    _, S, H, _ = c["q"]
+    cfg = config(name)
+    layout = np.broadcast_to(cfg.make_layout(S), (H, S // cfg.block, S // cfg.block))
+    _, qidx = ss._active_lists(layout, c["causal"])
+    plan = ss.dkv_plan(qidx, cfg.block)
+    _check_plan(qidx, cfg.block, plan)
+    if name.startswith("fixed"):
+        assert (plan.items[:, 4:] >= 0).sum(1).max() == 4 and (plan.n_slots > 0) == (S == 8192)
+
+
+# the test configurations: this file's kernel and path configs, and the card's SPARSE_CASES layouts
+PLAN_CASES = [(kind, kw, S, causal) for kind, kw in KERNEL_CONFIGS.values() for S in (128, 256)
+              for causal in (True, False)]
+PLAN_CASES += [(kind, kw, S, causal) for kind, kw, _, S, _, _, _, causal in PATH_CASES.values()]
+PLAN_CASES += [("FixedSparsityConfig", dict(num_heads=4, block=16, attention="unidirectional"), 2048, True),
+               ("FixedSparsityConfig", dict(num_heads=4, block=16, different_layout_per_head=True,
+                                            num_different_global_patterns=4), 2048, False),
+               ("BigBirdSparsityConfig", dict(num_heads=2, block=64, num_random_blocks=3), 1024, False),
+               ("VariableSparsityConfig", dict(num_heads=2, block=128, num_random_blocks=1, local_window_blocks=[1, 2],
+                                               global_block_indices=[1]), 1024, False)]
+
+
+@pytest.mark.parametrize("split_tiles", [None, 1, 2, 8])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[f"{c[0][:-14]}-b{c[1]['block']}-S{c[2]}-{'uni' if c[3] else 'bi'}"
+                                                  for c in PLAN_CASES])
+def test_dkv_plan_invariants(case, split_tiles, monkeypatch):
+    """At the test configurations, with the kernel's split length and with walks split every one, two and
+    eight steps."""
+    if split_tiles:
+        monkeypatch.setattr(ss, "DKV_SPLIT_TILES", split_tiles)
+    kind, kw, S, causal = case
+    cfg = getattr(tsc, kind)(**kw)
+    H = kw["num_heads"]
+    layout = np.broadcast_to(cfg.make_layout(S), (H, S // cfg.block, S // cfg.block))
+    _, qidx = ss._active_lists(layout, causal)
+    _check_plan(qidx, cfg.block, ss.dkv_plan(qidx, cfg.block))
+
+
+def _dkv_by_plan(q, k, v, do, lse, delta, qidx, plan, block, scale, causal):
+    """dk and dv as the bf16 kernel computes them from the plan (in fp32): each item's members over the
+    walk entries their bits name, whole walks straight out, split ones as partials summed in slot order."""
+    B, S, H, D = q.shape
+    R = min(block, ss.DKV_ROWS)
+    dk, dv = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
+    parts = {}
+    for h, off, n, slot, *members in plan.items.tolist():
+        walk = plan.entries[off:off + n].view(np.uint32)
+        for i, m in enumerate(x for x in members if x >= 0):
+            qb = torch.from_numpy((walk[(walk >> (24 + i)) & 1 == 1] & 0xFFFFFF).astype(np.int64))
+            qrows = (qb[:, None] * block + torch.arange(block)).flatten()
+            keys = m + torch.arange(R)
+            s = torch.einsum("bqd,bkd->bkq", q[:, qrows, h], k[:, keys, h]) * scale
+            if causal:
+                s = torch.where(keys[:, None] <= qrows[None, :], s, torch.full((), ss.NEG_INF))
+            p = torch.where(s <= ss.NEG_INF, 0.0, torch.exp(s - lse[:, h, qrows][:, None, :]))
+            dp = torch.einsum("bqd,bkd->bkq", do[:, qrows, h], v[:, keys, h])
+            ds = p * (dp - delta[:, h, qrows][:, None, :]) * scale
+            got = (torch.einsum("bkq,bqd->bkd", ds, q[:, qrows, h]), torch.einsum("bkq,bqd->bkd", p, do[:, qrows, h]))
+            if slot < 0:
+                dk[:, keys, h], dv[:, keys, h] = got
+            else:
+                parts[(slot, h, m)] = got
+    for h, slot0, pieces, _, *members in plan.reduce.tolist():
+        for m in (x for x in members if x >= 0):
+            keys = m + torch.arange(R)
+            dk[:, keys, h] = sum(parts[(slot0 + p, h, m)][0] for p in range(pieces))
+            dv[:, keys, h] = sum(parts[(slot0 + p, h, m)][1] for p in range(pieces))
+    return dk, dv
+
+
+@pytest.mark.parametrize("split_tiles", [None, 1])
+@pytest.mark.parametrize("name", ["fixed", "longformer", "bigbird"])
+def test_dkv_by_the_plan_equals_the_plain_version(name, split_tiles, monkeypatch):
+    """Walking the plan (groups, owner bits, pieces and their reduce) gives the plain dk/dv kernel's dk and
+    dv: the plan loses and repeats no (query, key) block pair."""
+    if split_tiles:
+        monkeypatch.setattr(ss, "DKV_SPLIT_TILES", split_tiles)
+    kind, kw = KERNEL_CONFIGS[name]
+    B, S, H, D = 1, 256, kw["num_heads"], 16
+    cfg = getattr(tsc, kind)(**kw)
+    mk = _rng(21)
+    q, k, v, do = (torch.from_numpy(mk(B, S, H, D)) for _ in range(4))
+    for causal in (True, False):
+        layout = np.broadcast_to(cfg.make_layout(S), (H, S // cfg.block, S // cfg.block))
+        kidx, qidx = ss._active_lists(layout, causal)
+        o, lse = ss.sparse_fwd_ref(q, k, v, torch.from_numpy(kidx), cfg.block, D**-0.5, causal)
+        delta = ss.flash_delta(o, do)
+        plan = ss.dkv_plan(qidx, cfg.block)
+        want = ss.sparse_bwd_dkv_ref(q, k, v, do, lse, delta, torch.from_numpy(qidx), cfg.block, D**-0.5, causal)
+        got = _dkv_by_plan(q, k, v, do, lse, delta, qidx, plan, cfg.block, D**-0.5, causal)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w.numpy(), f"{name} causal={causal}")
+
+
+def test_the_dkv_plan_is_built_once_beside_the_lists():
+    cfg = tsc.FixedSparsityConfig(num_heads=2, block=16)
+    plan = ss._device_dkv_plan(cfg, 256, 2, True, "cpu")
+    assert ss._device_dkv_plan(tsc.FixedSparsityConfig(num_heads=2, block=16), 256, 2, True, "cpu") is plan
+    _, qidx = ss._device_lists(cfg, 256, 2, True, "cpu")
+    want = ss.dkv_plan(qidx.numpy(), 16)
+    assert plan.table.dtype == torch.int32 and np.array_equal(plan.table.numpy(), want.table)
+    assert (plan.n_items, plan.n_reduce, plan.n_slots, plan.max_entries) == (
+        len(want.items), len(want.reduce), want.n_slots, want.max_entries)
+    assert (plan.block, plan.rows, plan.heads, plan.n_blocks) == (16, ss.DKV_ROWS, 2, 16)
+
+
+# another configuration's plan: at another length, over other heads, at another layout block
+MISMATCHED_PLANS = {"S": (16, 4, 512), "heads": (16, 2, 256), "block": (32, 4, 256)}
+
+
+@pytest.mark.parametrize("what", list(MISMATCHED_PLANS))
+def test_sparse_bwd_dkv_raises_on_another_configurations_plan(what):
+    """A plan made for another length, head count or layout block than the call's qidx is refused before
+    anything runs (on the card the kernel would read and write past its tensors)."""
+    B, S, H, D = 1, 256, 4, 16
+    block, plan_H, plan_S = MISMATCHED_PLANS[what]
+    cfg = tsc.FixedSparsityConfig(num_heads=H, block=16)
+    kidx, qidx = ss._device_lists(cfg, S, H, True, "cpu")
+    plan = ss._device_dkv_plan(tsc.FixedSparsityConfig(num_heads=plan_H, block=block), plan_S, plan_H, True, "cpu")
+    mk = _rng(5)
+    q, k, v, do = (torch.from_numpy(mk(B, S, H, D)) for _ in range(4))
+    o, lse = ss.sparse_fwd_ref(q, k, v, kidx, 16, D**-0.5, True)
+    delta = ss.flash_delta(o, do)
+    launches = ss.sparse_bwd_dkv.launches
+    with pytest.raises(ValueError, match="the plan is for"):
+        ss.sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, 16, D**-0.5, True, plan=plan)
+    assert ss.sparse_bwd_dkv.launches == launches
+    # the call's own plan is taken, and the result is the plain version's
+    own = ss._device_dkv_plan(cfg, S, H, True, "cpu")
+    got = ss.sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, 16, D**-0.5, True, plan=own)
+    want = ss.sparse_bwd_dkv_ref(q, k, v, do, lse, delta, qidx, 16, D**-0.5, True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
