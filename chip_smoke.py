@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1
                                      # and an evoformer call
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
-    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash, paged and sparse dk/dv kernels
+    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash, paged and sparse kernels
                                         # beside this tree's
 
 Phases, each fatal on failure:
@@ -17,7 +17,10 @@ Phases, each fatal on failure:
    tolerance, kernel/plain/library times from CUDA events, and the bound:
    the larger of bytes over 3.35 TB/s and operations over the peak rate of
    the input type, 989 TFLOP/s bf16 / 67 TFLOP/s fp32); then the kernels of
-   quantised serving the same way: ``layer_norm`` at gpt2_1_3b's width,
+   quantised serving the same way: ``layer_norm`` at gpt2_1_3b's width
+   (``rms_norm`` at T 768 and 2048 and ``layer_norm`` at T 8, 768 and 2048
+   also cold, beside ``F.rms_norm`` and ``F.layer_norm``: device time from a
+   CUDA graph rotating over copies of x),
    ``quantized_matmul`` with int8 codes over gpt2_1_3b's three weight shapes
    and with packed int4 over llama3_8b's two MLP shapes at 8, 64, 512 and
    1024 tokens (at 8 and 64 also cold, in device time from a CUDA graph:
@@ -85,9 +88,9 @@ Phases, each fatal on failure:
    heads and D 128; a dense layout at the flash kernels' gpt2_1_3b shape) in
    bf16 and fp32 against their plain versions (at each case's check batch),
    with bounds from the layout's active pairs and SDPA with the boolean token
-   mask as the yardstick, and dk/dv (over the bf16 walk's plan) repeating bit
-   for bit; the dense layout is also held to, and timed beside, the flash
-   kernels;
+   mask as the yardstick, and each kernel (bf16: the forward and dq over the
+   query plan, dk/dv over its plan) repeating bit for bit; the dense layout is
+   also held to, and timed beside, the flash kernels;
 12. sparse: ``SparseSelfAttention`` forward and backward at those cases in
    bf16, the counters zeroed before each call and read after (all three
    kernels must launch), output and gradients against the same call on the
@@ -98,11 +101,12 @@ With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
 DIR and stand in for this tree's ``quantized_matmul``, flash forward, dq
 (per program and collapsed) and dk/dv, paged decode and prefill and the
-sparse dk/dv while each of their cases is timed again (``parent_ms``, the
-bias cases of dq and dk/dv included; the ALiBi and window cases of the
-paged kernels are not in the parent's), the three serving runs and the
-training run are repeated on them, and each ``DS4Sci_EvoformerAttention``
-and ``SparseSelfAttention`` call is timed on them too.
+sparse forward, dq and dk/dv while each of their cases is timed again
+(``parent_ms``, the bias cases of dq and dk/dv included; the ALiBi and
+window cases of the paged kernels are not in the parent's), the three
+serving runs and the training run are repeated on them, and each
+``DS4Sci_EvoformerAttention`` and ``SparseSelfAttention`` call is timed on
+them too.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -207,8 +211,8 @@ def time_ms_rotating(fn, operands, iters: int) -> float:
 
 # --parent DIR: the kernels of another checkout (e.g. ``git archive`` of the parent commit, unpacked
 # under build/), built from DIR's own sources, stand in for this tree's quantized_matmul, flash
-# forward, dq and dk/dv and paged decode and prefill while a phase times them or runs a path with them
-# ("parent" numbers, from the same run)
+# forward, dq and dk/dv, paged decode and prefill and the sparse kernels while a phase times them or runs
+# a path with them ("parent" numbers, from the same run)
 PARENT = {"lib": None}
 
 
@@ -235,29 +239,36 @@ class OldPagedEntry:
 
 
 class OldSparseEntry:
-    """A sparse dk/dv entry point whose C interface predates the plan: called with this tree's arguments,
-    it walks qidx itself (the plan, the workspace and their counts are dropped)."""
+    """A sparse entry point whose C interface predates the plans, called with this tree's arguments: it walks
+    the lists itself (the plan, the dk/dv's workspace and their counts are dropped)."""
 
-    OLD_ARGS = 19
+    OLD_ARGS = {"ds_sparse_fwd": 16, "ds_sparse_bwd_dq": 18, "ds_sparse_bwd_dkv": 19}
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, name, fn):
+        self.name, self.fn = name, fn
 
-    def __call__(self, q, k, v, dout, lse, delta, qidx, _plan, _ws, dk, dv, B, S, H, D, blk, Aq, _n_items, _n_reduce,
-                 _n_slots, _max_entries, _rows, *rest):
+    def __call__(self, *args):
+        if self.name == "ds_sparse_fwd":
+            q, k, v, kidx, _plan, o, lse, B, S, H, D, blk, A, _n_items, _max_entries, _rows, *rest = args
+            return self.fn(q, k, v, kidx, o, lse, B, S, H, D, blk, A, *rest)
+        if self.name == "ds_sparse_bwd_dq":
+            q, k, v, dout, lse, delta, kidx, _plan, dq, B, S, H, D, blk, A, _n_items, _max_entries, _rows, *rest = args
+            return self.fn(q, k, v, dout, lse, delta, kidx, dq, B, S, H, D, blk, A, *rest)
+        (q, k, v, dout, lse, delta, qidx, _plan, _ws, dk, dv, B, S, H, D, blk, Aq, _n_items, _n_reduce, _n_slots,
+         _max_entries, _rows, *rest) = args
         return self.fn(q, k, v, dout, lse, delta, qidx, dk, dv, B, S, H, D, blk, Aq, *rest)
 
 
 class ParentKernels:
     """This tree's kernel library with the entry points in ``STAND_IN``
     taken from another build (the paged ones through ``OldPagedEntry``, the
-    sparse dk/dv through ``OldSparseEntry`` where that build has the old C
+    sparse ones through ``OldSparseEntry`` where that build has the old C
     interface). The collapsed dq's two entry points come from one build,
     whose plan sizes the partials."""
 
     STAND_IN = ("ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq", "ds_flash_bwd_dkv",
                 "ds_flash_bwd_dq_collapsed", "ds_flash_dq_collapsed_parts", "ds_paged_attention_decode",
-                "ds_paged_attention_prefill", "ds_sparse_bwd_dkv")
+                "ds_paged_attention_prefill", "ds_sparse_fwd", "ds_sparse_bwd_dq", "ds_sparse_bwd_dkv")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
@@ -268,8 +279,8 @@ class ParentKernels:
         fn = getattr(self._other, name)
         if len(fn.argtypes) == OldPagedEntry.OLD_ARGS.get(name):
             return OldPagedEntry(name, fn)
-        if name == "ds_sparse_bwd_dkv" and len(fn.argtypes) == OldSparseEntry.OLD_ARGS:
-            return OldSparseEntry(fn)
+        if len(fn.argtypes) == OldSparseEntry.OLD_ARGS.get(name):
+            return OldSparseEntry(name, fn)
         return fn
 
 
@@ -552,8 +563,12 @@ def phase_rms(torch, dev, dtype, T, iters):
     p_ms = time_ms(lambda: norms.rms_norm_ref(x, w, 1e-5), iters)
     lib = getattr(torch.nn.functional, "rms_norm", None)
     l_ms = time_ms(lambda: lib(x, (d,), w, 1e-5), iters) if lib is not None else None
+    cold = {}
+    if T >= 768:  # device time without the host's launch: a CUDA graph rotating over copies of x
+        cold["kernel_cold_ms"] = cold_ms(torch, lambda xx: norms.rms_norm(xx, w, 1e-5), (x,), iters)
+        cold["library_cold_ms"] = cold_ms(torch, lambda xx: lib(xx, (d,), w, 1e-5), (x,), iters) if lib else None
     return dict(kernel="rms_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d})", **err, tol=TOL[str(dtype)],
-                kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library_bytes=nbytes, bound_bytes=nbytes,
+                kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **cold, library_bytes=nbytes, bound_bytes=nbytes,
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -574,9 +589,13 @@ def phase_layer_norm(torch, dev, dtype, T, iters):
     k_ms = time_ms(lambda: norms.layer_norm(x, w, b, 1e-5), iters)
     p_ms = time_ms(lambda: norms.layer_norm_ref(x, w, b, 1e-5), iters)
     l_ms = time_ms(lambda: torch.nn.functional.layer_norm(x, (d,), w, b, 1e-5), iters)
+    # device time without the host's launch: a CUDA graph rotating over copies of x
+    k_cold = cold_ms(torch, lambda xx: norms.layer_norm(xx, w, b, 1e-5), (x,), iters)
+    l_cold = cold_ms(torch, lambda xx: torch.nn.functional.layer_norm(xx, (d,), w, b, 1e-5), (x,), iters)
     return dict(kernel="layer_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d}) b({d})", **err,
                 tol=TOL[str(dtype)], kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library="F.layer_norm",
-                library_bytes=nbytes, bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+                kernel_cold_ms=k_cold, library_cold_ms=l_cold, library_bytes=nbytes, bound_bytes=nbytes,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 # (K, N) of the quantised projections: gpt2_1_3b's q/k/v/o, up and down (int8);
@@ -1820,19 +1839,25 @@ def phase_sparse_kernels(torch, dev, dtype, name, iters):
     blk, causal = sparse_config(name).block, c["causal"]
     q, k, v, do, kidx, qidx = sparse_inputs(torch, dev, dtype, name)
     k, v = ss._expand_kv(k, H // c["kvh"]), ss._expand_kv(v, H // c["kvh"])
-    plan = ss._device_dkv_plan(sparse_config(name), S, H, causal, dev)  # the bf16 dk/dv's walk, as the path's
+    # the bf16 kernels' walks, as the path's: the forward's and dq's over kidx, the dk/dv's over qidx
+    qplan = ss._device_query_plan(sparse_config(name), S, H, causal, dev)
+    plan = ss._device_dkv_plan(sparse_config(name), S, H, causal, dev)
     scale = D**-0.5
     args = (blk, scale, causal)
-    o, lse = ss.sparse_fwd(q, k, v, kidx, *args)
+    fwd_fn = lambda: ss.sparse_fwd(q, k, v, kidx, *args, plan=qplan)
+    o, lse = fwd_fn()
     delta = ss.flash_delta(o, do)
     bwd = (q, k, v, do, lse, delta)
+    dq_fn = lambda: ss.sparse_bwd_dq(*bwd, kidx, *args, plan=qplan)
     dkv_fn = lambda: ss.sparse_bwd_dkv(*bwd, qidx, *args, plan=plan)
-    dq = ss.sparse_bwd_dq(*bwd, kidx, *args)
+    dq = dq_fn()
     dk, dv = dkv_fn()
-    dk_again, dv_again = dkv_fn()
+    # each kernel launched twice more on the same inputs: bit-equal results (no atomics, fixed-order sums)
+    again = fwd_fn() + (dq_fn(),) + dkv_fn()
     torch.cuda.synchronize()
-    repeats = torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
-    del dk_again, dv_again
+    same = [torch.equal(a, b) for a, b in zip((o, lse, dq, dk, dv), again)]
+    repeats = {"sparse_fwd": same[0] and same[1], "sparse_bwd_dq": same[2], "sparse_bwd_dkv": same[3] and same[4]}
+    del again
     o_ref, lse_ref = ss.sparse_fwd_ref(q, k, v, kidx, *args)
     dq_ref = ss.sparse_bwd_dq_ref(*bwd, kidx, *args)
     dk_ref, dv_ref = ss.sparse_bwd_dkv_ref(*bwd, qidx, *args)
@@ -1885,12 +1910,12 @@ def phase_sparse_kernels(torch, dev, dtype, name, iters):
         torch.cuda.empty_cache()
     shape = f"q({B},{S},{H},{D}) kv heads {c['kvh']} block {blk} causal={causal}"
     recs = []
-    for kernel, e, fn, ref, idx, n_prod, nbytes in (
-            ("sparse_fwd", e_fwd, lambda: ss.sparse_fwd(q, k, v, kidx, *args),
-             lambda: ss.sparse_fwd_ref(q, k, v, kidx, *args), kidx, 2, 4 * nt + stats),
-            ("sparse_bwd_dq", e_dq, lambda: ss.sparse_bwd_dq(*bwd, kidx, *args),
-             lambda: ss.sparse_bwd_dq_ref(*bwd, kidx, *args), kidx, 3, 5 * nt + 2 * stats),
-            ("sparse_bwd_dkv", e_dkv, dkv_fn, lambda: ss.sparse_bwd_dkv_ref(*bwd, qidx, *args), qidx, 4,
+    for kernel, e, fn, ref, idx, walk, n_prod, nbytes in (
+            ("sparse_fwd", e_fwd, fwd_fn, lambda: ss.sparse_fwd_ref(q, k, v, kidx, *args), kidx, qplan, 2,
+             4 * nt + stats),
+            ("sparse_bwd_dq", e_dq, dq_fn, lambda: ss.sparse_bwd_dq_ref(*bwd, kidx, *args), kidx, qplan, 3,
+             5 * nt + 2 * stats),
+            ("sparse_bwd_dkv", e_dkv, dkv_fn, lambda: ss.sparse_bwd_dkv_ref(*bwd, qidx, *args), qidx, plan, 4,
              6 * nt + 2 * stats)):
         nbytes += idx.numel() * 4
         flops = 2 * n_prod * D * pairs
@@ -1906,10 +1931,10 @@ def phase_sparse_kernels(torch, dev, dtype, name, iters):
                    active_blocks=blocks * B,
                    density=density, list_width=idx.shape[2], bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms,
                    bound_by=b_by)
-        if kernel == "sparse_bwd_dkv":  # the redesigned bf16 dk/dv: its parent's time, and two launches bit-equal
-            rec.update(parent_ms=parent_time(time_ms, fn, iters), repeats_bitwise=repeats,
-                       plan=dict(items=plan.n_items, split_groups=plan.n_reduce, pieces=plan.n_slots,
-                                 longest_walk=plan.max_entries) if dtype == torch.bfloat16 else None)
+        # the redesigned bf16 kernels: the parent's time, two launches bit-equal, and the walk's plan
+        rec.update(parent_ms=parent_time(time_ms, fn, iters), repeats_bitwise=repeats[kernel],
+                   plan=dict(items=walk.n_items, split_groups=walk.n_reduce, pieces=walk.n_slots,
+                             longest_walk=walk.max_entries) if dtype == torch.bfloat16 else None)
         if kernel in flash:
             fe, f_ms = flash[kernel]
             rec.update(flash_ms=f_ms, vs_flash_max_rel_err=fe["max_rel_err"],
@@ -1929,13 +1954,13 @@ def run_sparse_kernel_phases(torch, dev, quick: bool):
             for rec in phase_sparse_kernels(torch, dev, dtype, name, iters):
                 log(rec)
                 what, tol = rec["tol"]
-                ok = rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4 and rec.get("repeats_bitwise", True)
+                ok = rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4 and rec["repeats_bitwise"]
                 if "flash_ms" in rec:  # the dense layout against the flash kernels, at the same tolerance
                     flash_what = "vs_flash_max_abs_err_scaled" if what == "max_abs_err_scaled" else "vs_flash_" + what
                     ok = ok and rec[flash_what] <= tol and rec["vs_flash_lse_max_abs_err"] <= 1e-4
                 if not ok:
                     raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > "
-                                         f"{tol}, lse error {rec.get('lse_max_abs_err')}, dk/dv not repeatable "
+                                         f"{tol}, lse error {rec.get('lse_max_abs_err')}, not repeatable "
                                          f"or the flash kernels disagree: {rec}")
                 records.append(rec)
             torch.cuda.empty_cache()
@@ -1944,7 +1969,7 @@ def run_sparse_kernel_phases(torch, dev, quick: bool):
 
 class PlainSparseKernels(PlainKernels):
     """The plain versions of the sparse kernels bound in place of their wrappers
-    (the dk/dv's without the plan, the kernel's walk, which it does not need)."""
+    (without the plans, the kernels' walks, which they do not need)."""
 
     NAMES = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
@@ -1957,7 +1982,8 @@ class PlainSparseKernels(PlainKernels):
     def __enter__(self):
         super().__enter__()
         ss = self.fa
-        ss.sparse_bwd_dkv = lambda *args, plan=None: ss.sparse_bwd_dkv_ref(*args)
+        for n in self.NAMES:
+            setattr(ss, n, lambda *args, plan=None, ref=getattr(ss, n + self.PLAIN): ref(*args))
 
 
 # kernel path vs plain path, forward and backward end to end. bf16: per-row relative error with each
@@ -2405,9 +2431,9 @@ KERNEL_ROWS = [
                                                                             case="msa_row"),
      "flash_bwd.cu", "pallas/flash_attention.py:485"),
     ("sparse_fwd", "sparse", "sparse_fwd", "bfloat16", dict(kernel="sparse_fwd", case="fixed_uni_gpt2_1_3b"),
-     "sparse_attention.cu", "sparse_attention/sparse_self_attention.py:193"),
+     "sparse_fwd.cu", "sparse_attention/sparse_self_attention.py:193"),
     ("sparse_bwd_dq", "sparse", "sparse_bwd_dq", "bfloat16", dict(kernel="sparse_bwd_dq", case="fixed_uni_gpt2_1_3b"),
-     "sparse_attention.cu", "sparse_attention/sparse_self_attention.py:222"),
+     "sparse_dq.cu", "sparse_attention/sparse_self_attention.py:222"),
     ("sparse_bwd_dkv", "sparse", "sparse_bwd_dkv", "bfloat16",
      dict(kernel="sparse_bwd_dkv", case="fixed_uni_gpt2_1_3b"), "sparse_dkv.cu",
      "sparse_attention/sparse_self_attention.py:239"),

@@ -178,6 +178,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float* bs = bias.slice(b, h, mk.sk);
   stage<T, D, LDT, BM, NT>(sQ, q, b, mk.sq, H, h, q0);
   zero(sO, BM * LDO, NT);
+  __syncthreads();  // a warp's rows of sO are zeroed by every warp: a tile whose rows see no key reads them at once
 
   int kt_begin = 0, kt_end = (mk.sk + BN - 1) / BN;
   if (mk.causal) {
@@ -290,6 +291,7 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const T* __restrict
   stage<T, D, LDT, BM, NT>(sQ, q, b, mk.sq, H, h, q0);
   stage<T, D, LDT, BM, NT>(sdO, dout, b, mk.sq, H, h, q0);
   zero(sdQ, BM * LDO, NT);
+  __syncthreads();  // as the forward's sO: a tile whose rows see no key reads its zeros at once
 
   int kt_begin = 0, kt_end = (mk.sk + BN - 1) / BN;
   if (mk.causal) {
@@ -481,6 +483,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   stage<T, D, LDT, BM, NT>(sV, v, b, mk.sk, KVH, hk, k0);
   zero(sdK, BM * LDO, NT);
   zero(sdV, BM * LDO, NT);
+  __syncthreads();  // as the forward's sO: keys that no query row sees read their zeros at once
 
   // query tiles whose rows can see a key of this tile
   const int nq = (mk.sq + BN - 1) / BN;

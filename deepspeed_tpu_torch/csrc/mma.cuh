@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers (PTX) for the bf16 bodies of
-// quantized_matmul.cu, flash_fwd.cu and flash_bwd.cu: warp-level mma.sync
+// quantized_matmul.cu, flash_fwd.cu, flash_bwd.cu and the sparse kernels
+// (sparse_fwd.cu, sparse_dq.cu, sparse_dkv.cu): warp-level mma.sync
 // and, for sm_90a, the warpgroup wgmma.
 //
 // - cp_async16: a 16-byte global -> shared copy that bypasses the registers;

@@ -1,80 +1,53 @@
-// Block-sparse attention for Hopper: forward, dq and dk/dv over (B, S, H, D)
-// tensors and a static block layout given as active-block lists. The bfloat16
-// dk/dv is sparse_dkv.cu's register-resident kernel over a plan of the lists
-// (ds_sparse_bwd_dkv routes to it); this file holds the forward and dq in
-// both types and the float32 dk/dv, whose design follows.
+// Block-sparse attention for Hopper: the C entry points of the forward, dq and dk/dv over (B, S, H, D)
+// tensors and a static block layout given as active-block lists, and the float32 bodies of all three.
+// The bfloat16 bodies are register-resident kernels over a host plan of the lists
+// (sparse_self_attention.py's WalkPlan), each in its own file, to which the entry points route bf16:
+// sparse_fwd.cu (the forward) and sparse_dq.cu (dq) over query_plan, sparse_dkv.cu (dk/dv) over dkv_plan.
 //
-// Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention/
-// sparse_self_attention.py: _sp_fwd_kernel (pallas_call at :193, via _sp_fwd),
-// _sp_dq_kernel (:222, via _sp_bwd) and _sp_dkv_kernel (:239; here in
-// float32). A layout of
-// blk x blk blocks becomes kidx (H, S/blk, A): the key blocks each query block
-// attends, ascending, -1 padded; and its transpose qidx (H, S/blk, Aq): the
-// query blocks that attend each key block. Scores are s = (q.k) * scale; on
-// causal runs the lists are already cut to the block-level lower triangle and
-// only the diagonal block masks elements (key > query -> kNegInf).
+// Replaces, in float32, the TPU kernels of deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:
+// _sp_fwd_kernel (pallas_call at :193, via _sp_fwd), _sp_dq_kernel (:222, via _sp_bwd) and _sp_dkv_kernel
+// (:239). A layout of blk x blk blocks becomes kidx (H, S/blk, A): the key blocks each query block
+// attends, ascending, -1 padded; and its transpose qidx (H, S/blk, Aq): the query blocks that attend each
+// key block. Scores are s = (q.k) * scale; on causal runs the lists are already cut to the block-level
+// lower triangle and only the diagonal block masks elements (key > query -> kNegInf).
 //
-// What bounds it: with P the active (query, key) pairs of the layout, the
-// forward does 4*P*D flops (two products), dq 6*P*D and dk/dv 8*P*D, against
-// reading q, k, v (do) and writing o (dq, dk, dv) once. At the densities of
-// the layouts users run (a quarter to a twentieth of S^2) and D 64-128 that is
-// 70-250 flops a byte in bf16, so the tensor cores bound them. In practice the
-// walk's steps set the time: each step stages a tile of keys (queries) from
-// scattered blocks and runs the softmax over it, and at the default block of
-// 16 a block owns only 16 query rows to share each staged tile with. The design:
-// - Forward and dq: a CUDA block owns 64 query rows (32 in fp32), 16 per warp:
-//   64 / blk query blocks, or part of one larger block. It walks the union of
-//   its query blocks' lists, merged by one thread into shared memory at the
-//   start with a bit per query block that attends each entry. Every warp
-//   shares each staged key tile, and a warp computes only the columns of its
-//   own list (and skips a tile that holds none). Neighbouring query blocks of
-//   the layouts users run attend nearly the same key blocks (the local window
-//   and the global columns), so the union is about as long as one list, and
-//   four warps share each tile at block 16 instead of one.
-// - dk/dv (fp32): a CUDA block owns one key block's rows (at most 32; a
-//   larger block is split over several CUDA blocks that walk the same list)
-//   and walks its list alone.
-// - A step covers a tile of BN rows of the other sequence: the next BN / blk
-//   entries of the list, one block each, or BN rows of one larger block.
-//   Several small blocks per step amortise the softmax's row reductions, the
-//   rescale of the fp32 accumulator and the two barriers over BN keys, as the
-//   flash kernels do, whatever the layout block. BN is 64 keys in the bf16
-//   forward and dq, 32 elsewhere: dk/dv's one-warp blocks at block 16 are
-//   held back by the shared memory each takes, and half the query tile lets
-//   more of them share an SM.
-// - The TPU program ran all A steps and masked the -1 padding; the walk here
-//   stops at the first -1 (the merged walk holds no padding), which gives the
-//   same numbers (a padded step adds p = 0 with a correction of exp(0) = 1)
-//   and skips the padding's work. Slots of a tile past the end of the list
-//   are zero-filled and masked.
-// - Only the diagonal block of a causal run masks elements: each lane knows
-//   for its columns whether they belong to it. A one-block step that lies
-//   wholly above (dk/dv: below) the diagonal is skipped.
-// - dk/dv works on the transposed problem (key rows against query columns:
-//   S^T = K Q^T, dV += P^T dO, dP^T = V dO^T, dK += dS^T Q) and walks qidx, so
-//   each block owns its dk/dv rows outright: fp32 accumulators, no atomics,
-//   and the result does not depend on scheduling.
-// - dq's and dk/dv's accumulators, which no softmax rescales, stay in WMMA
-//   fragments in registers for the whole walk (bf16): no shared memory for
-//   them, and no read-modify-write of them per step.
-// - bf16 products run on the tensor cores through warp-level WMMA 16x16x16
-//   tiles with fp32 accumulation; fp32 inputs take plain FMA loops. p (forward,
-//   dk/dv's dV) and ds (dq, dk) are rounded to the input type before their
-//   products, as the reference's .astype calls do.
+// What bounds them: with P the active (query, key) pairs of the layout, the forward does 4*P*D flops (two
+// products), dq 6*P*D and dk/dv 8*P*D, against reading q, k, v (do) and writing o (dq, dk, dv) once: in
+// float32, outside the tensor cores, the operations at every layout users run. The float32 bodies:
+// - Forward and dq: a CUDA block owns 32 query rows, 16 per warp: 32 / blk query blocks, or part of one
+//   larger block. It walks the union of their lists, merged by one thread into shared memory at the start
+//   with a bit per query block that attends each entry. Every warp shares each staged key tile, and a warp
+//   computes only the columns of its own list (and skips a tile that holds none).
+// - dk/dv: a CUDA block owns one key block's rows (at most 32; a larger block is split over several CUDA
+//   blocks that walk the same list) and walks its list alone, on the transposed problem (key rows against
+//   query columns: S^T = K Q^T, dV += P^T dO, dP^T = V dO^T, dK += dS^T Q), so each block owns its dk/dv
+//   rows outright: no atomics, and the result does not depend on scheduling.
+// - A step covers a tile of 32 rows of the other sequence: the next 32 / blk entries of the list, one block
+//   each, or 32 rows of one larger block. Several small blocks a step amortise the softmax's row
+//   reductions, the rescale of the accumulator and the two barriers, whatever the layout block.
+// - The TPU program ran all A steps and masked the -1 padding; the walk here stops at the first -1 (the
+//   merged walk holds no padding), which gives the same numbers (a padded step adds p = 0 with a correction
+//   of exp(0) = 1) and skips the padding's work. Slots of a tile past the end of the list are zero-filled
+//   and masked.
+// - Only the diagonal block of a causal run masks elements: each lane knows for its columns whether they
+//   belong to it. A one-block step that lies wholly above (dk/dv: below) the diagonal is skipped.
+// - Products are plain FMA loops over shared-memory tiles; the accumulators live in shared memory.
 // - lse and delta are (B, H, S) fp32, without the TPU's 128-lane padding.
-// Not yet, for the bodies here: wgmma, TMA, prefetching the next tile of a
-// walk, the forward's accumulator and the scores in registers (as
-// sparse_dkv.cu does for the bf16 dk/dv), or splitting a long (global) list
-// across blocks.
 #include "common.cuh"
-
-#include <mma.h>
 
 namespace dstorch {
 
-// The bfloat16 dk/dv (sparse_dkv.cu) over a plan of the qidx lists: `plan` (int32, on the device) holds
-// n_items records of `rows` / 16 + 4 ints, n_reduce more, then the walks; ws the fp32 partials of the
-// n_slots pieces of split walks (dk's, then dv's). Returns 0, a cudaError_t or kUnsupported.
+// The bfloat16 bodies over a plan of the lists: `plan` (int32, on the device) holds n_items records of
+// `rows` / 16 + 4 ints, n_reduce more, then the walks (sparse_self_attention.py's WalkPlan.table); ws the
+// fp32 partials of the n_slots pieces of split walks (dk's, then dv's). The forward and dq (sparse_fwd.cu,
+// sparse_dq.cu) walk query_plan, which splits nothing. Each returns 0, a cudaError_t or kUnsupported.
+int sparse_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const int* plan,
+                    int n_items, int max_entries, int rows, __nv_bfloat16* o, float* lse, int B, int S, int H, int D,
+                    int blk, int causal, float scale, cudaStream_t stream);
+int sparse_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   const __nv_bfloat16* dout, const float* lse, const float* delta, const int* plan, int n_items,
+                   int max_entries, int rows, __nv_bfloat16* dq, int B, int S, int H, int D, int blk, int causal,
+                   float scale, cudaStream_t stream);
 int sparse_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                     const __nv_bfloat16* dout, const float* lse, const float* delta, const int* plan, int n_items,
                     int n_reduce, int n_slots, int max_entries, int rows, float* ws, __nv_bfloat16* dk,
@@ -85,15 +58,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Per element type: at most NW warps (16 rows each) per block; key tiles of BN
-// rows for forward and dq, query tiles of BN_DKV rows for the fp32 dk/dv. fp32
-// tiles are smaller so that dk/dv's fp32 operands fit.
+// Per element type (float32 only: bf16 has its own files): at most NW warps (16 rows each) per block;
+// key tiles of BN rows for forward and dq, query tiles of BN_DKV rows for dk/dv.
 template <typename T>
 struct SpTiles;
-template <>
-struct SpTiles<bf16> {
-  static constexpr int NW = 4, BN = 64;
-};
 template <>
 struct SpTiles<float> {
   static constexpr int NW = 2, BN = 32, BN_DKV = 32;
@@ -105,7 +73,7 @@ constexpr size_t kMaxSmem = 232448;  // the dynamic shared memory a block may us
 
 // Shared-memory geometry: the block's rows, the tile strides (padded so that
 // rows do not fall on one bank), and the buffer sizes (each a multiple of 128
-// bytes, which keeps the 32-byte alignment WMMA needs for each 16-row tile).
+// bytes).
 template <typename T, int D, int BN_ = SpTiles<T>::BN>
 struct SpGeo {
   static constexpr int NW = SpTiles<T>::NW, BN = BN_, NT = 32 * NW;
@@ -127,15 +95,9 @@ struct SpGeo {
   __host__ __device__ size_t tileO() const { return round128(sizeof(float) * rows * LDO); }
   __host__ __device__ static constexpr size_t vec() { return round128(sizeof(float) * BN); }
   __host__ __device__ size_t fwd() const { return tileT(rows) + 2 * tileT(BN) + tileS() + tileP() + tileO(); }
-  // dq's and dk/dv's accumulators, which no softmax rescales, stay in WMMA
-  // registers for bf16 (WarpAcc); fp32 keeps them in shared memory
-  static constexpr bool REG_ACC = sizeof(T) == 2;
-  __host__ __device__ size_t accO() const { return REG_ACC ? 0 : tileO(); }
-  __host__ __device__ size_t dq() const {
-    return 2 * tileT(rows) + 2 * tileT(BN) + 2 * tileS() + tileP() + accO();
-  }
+  __host__ __device__ size_t dq() const { return 2 * tileT(rows) + 2 * tileT(BN) + 2 * tileS() + tileP() + tileO(); }
   __host__ __device__ size_t dkv() const {
-    return 2 * tileT(rows) + 2 * tileT(BN) + 2 * vec() + 2 * tileS() + 2 * tileP() + 2 * accO();
+    return 2 * tileT(rows) + 2 * tileT(BN) + 2 * vec() + 2 * tileS() + 2 * tileP() + 2 * tileO();
   }
 };
 
@@ -297,47 +259,6 @@ __host__ __device__ inline size_t union_bytes(int cap) { return round128(sizeof(
 // ---------------------------------------------------------------- warp products
 // C[16 x N] = A[16 x K] . B[N x K]^T; A, B row-major in shared memory, C fp32.
 template <int N, int K>
-__device__ __forceinline__ void warp_nt(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[K / 16];
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int k = 0; k < K / 16; ++k) wmma::load_matrix_sync(a[k], A + 16 * k, lda);
-#pragma unroll
-  for (int n = 0; n < N; n += 16) {
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k = 0; k < K / 16; ++k) {
-      wmma::load_matrix_sync(b, B + n * ldb + 16 * k, ldb);
-      wmma::mma_sync(c, a[k], b, c);
-    }
-    wmma::store_matrix_sync(C + n, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// C[16 x N] += A[16 x K] . B[K x N]; A, B row-major in shared memory, C fp32.
-template <int N, int K>
-__device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[K / 16];
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int k = 0; k < K / 16; ++k) wmma::load_matrix_sync(a[k], A + 16 * k, lda);
-#pragma unroll
-  for (int n = 0; n < N; n += 16) {
-    wmma::load_matrix_sync(c, C + n, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int k = 0; k < K / 16; ++k) {
-      wmma::load_matrix_sync(b, B + 16 * k * ldb + n, ldb);
-      wmma::mma_sync(c, a[k], b, c);
-    }
-    wmma::store_matrix_sync(C + n, c, ldc, wmma::mem_row_major);
-  }
-}
-
-template <int N, int K>
 __device__ __forceinline__ void warp_nt(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
   const int lane = threadIdx.x & 31;
   for (int i = lane; i < 16 * N; i += 32) {
@@ -351,6 +272,7 @@ __device__ __forceinline__ void warp_nt(float* C, int ldc, const float* A, int l
   }
 }
 
+// C[16 x N] += A[16 x K] . B[K x N]; A, B row-major in shared memory, C fp32.
 template <int N, int K>
 __device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
   const int lane = threadIdx.x & 31;
@@ -364,49 +286,9 @@ __device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const float* A, i
   }
 }
 
-// A warp's fp32 accumulator of a 16 x D tile, C += A[16 x K] . B[K x D]: WMMA
-// fragments held in registers for bf16 (the walk never touches them one by
-// one, so their layout does not matter), a tile in shared memory for fp32.
+// A warp's fp32 accumulator of a 16 x D tile in shared memory, C += A[16 x K] . B[K x D].
 template <typename T, int D>
 struct WarpAcc;
-
-template <int D>
-struct WarpAcc<bf16, D> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[D / 16];
-
-  __device__ __forceinline__ explicit WarpAcc(float*) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) nvcuda::wmma::fill_fragment(c[n], 0.f);
-  }
-  template <int K>
-  __device__ __forceinline__ void mma(const bf16* A, int lda, const bf16* B, int ldb) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[K / 16];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-#pragma unroll
-    for (int k = 0; k < K / 16; ++k) wmma::load_matrix_sync(a[k], A + 16 * k, lda);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int k = 0; k < K / 16; ++k) {
-        wmma::load_matrix_sync(b, B + 16 * k * ldb + 16 * n, ldb);
-        wmma::mma_sync(c[n], a[k], b, c[n]);
-      }
-    }
-  }
-  // row r of the tile to out + r * stride, in bf16, through `scratch` (256
-  // floats of the warp's own shared memory), one 16 x 16 fragment at a time
-  __device__ __forceinline__ void store(bf16* out, size_t stride, float* scratch) const {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      nvcuda::wmma::store_matrix_sync(scratch, c[n], 16, nvcuda::wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) out[(e / 16) * stride + 16 * n + e % 16] = __float2bfloat16(scratch[e]);
-      __syncwarp();
-    }
-  }
-};
 
 template <int D>
 struct WarpAcc<float, D> {
@@ -551,8 +433,8 @@ sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   off += g.tileS();
   T* sdS = reinterpret_cast<T*>(smem + off);
   off += g.tileP();
-  float* sdQ = reinterpret_cast<float*>(smem + off);  // fp32 only (G::REG_ACC)
-  off += g.accO();
+  float* sdQ = reinterpret_cast<float*>(smem + off);
+  off += g.tileO();
   int* u_list = reinterpret_cast<int*>(smem + off);
   unsigned char* u_owners = smem + off + round128(sizeof(int) * cap);
 
@@ -642,8 +524,8 @@ sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   off += g.tileP();
   T* sdS = reinterpret_cast<T*>(smem + off);
   off += g.tileP();
-  float* sdK = reinterpret_cast<float*>(smem + off);  // fp32 only (G::REG_ACC)
-  off += g.accO();
+  float* sdK = reinterpret_cast<float*>(smem + off);
+  off += g.tileO();
   float* sdV = reinterpret_cast<float*>(smem + off);
 
   const int h = blockIdx.y, b = blockIdx.z, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -709,7 +591,7 @@ struct Args {
   int B;
   Walk w;
   cudaStream_t stream;
-  const int* plan;  // the bf16 dk/dv's plan and workspace (sparse_dkv_bf16)
+  const int* plan;  // the bf16 bodies' plan, and the dk/dv's workspace
   float* ws;
   int n_items, n_reduce, n_slots, max_entries, rows;
 };
@@ -729,20 +611,15 @@ int launch(Pass pass, const Args& a) {
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err;
   if (pass == kDkv) {
-    if constexpr (sizeof(T) == 4) {  // bf16 takes sparse_dkv.cu's body (run routes it there)
-      using GK = SpGeo<T, D, SpTiles<T>::BN_DKV>;
-      const GK gk(GK::dkv_rows(a.w.blk));
-      const size_t smem = gk.dkv();
-      if (smem > kMaxSmem) return kUnsupported;
-      const dim3 grid((a.w.S + gk.rows - 1) / gk.rows, a.w.H, a.B);
-      if ((err = allow_smem(sparse_dkv_kernel<T, D>, smem)) != cudaSuccess) return static_cast<int>(err);
-      sparse_dkv_kernel<T, D><<<grid, 2 * gk.rows, smem, a.stream>>>(q, k, v, dout, lse, delta,
-                                                                     static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-                                                                     a.w);
-      return static_cast<int>(cudaGetLastError());
-    } else {
-      return kUnsupported;
-    }
+    using GK = SpGeo<T, D, SpTiles<T>::BN_DKV>;
+    const GK gk(GK::dkv_rows(a.w.blk));
+    const size_t smem = gk.dkv();
+    if (smem > kMaxSmem) return kUnsupported;
+    const dim3 grid((a.w.S + gk.rows - 1) / gk.rows, a.w.H, a.B);
+    if ((err = allow_smem(sparse_dkv_kernel<T, D>, smem)) != cudaSuccess) return static_cast<int>(err);
+    sparse_dkv_kernel<T, D><<<grid, 2 * gk.rows, smem, a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
+                                                                   static_cast<T*>(a.dv), a.w);
+    return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = (pass == kFwd ? gf.fwd() : gf.dq()) + u_bytes;
   if (smem > kMaxSmem) return kUnsupported;  // a merged list too long for shared memory
@@ -780,19 +657,26 @@ int run(Pass pass, int D, int dtype, const Args& a) {
   const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.o, a.dq, a.dk, a.dv};
   for (const void* p : ptrs)
     if (p != nullptr && !aligned16(p)) return kUnsupported;
-  if (dtype == kBFloat16 && pass == kDkv)  // the register-resident body of sparse_dkv.cu, over the plan
-    return sparse_dkv_bf16(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-                           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-                           static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), a.plan, a.n_items,
-                           a.n_reduce, a.n_slots, a.max_entries, a.rows, a.ws, static_cast<bf16*>(a.dk),
-                           static_cast<bf16*>(a.dv), a.B, w.S, w.H, D, w.blk, w.causal, w.scale, a.stream);
-  if (dtype == kBFloat16) return dispatch_d<bf16>(pass, D, a);
   if (dtype == kFloat32) return dispatch_d<float>(pass, D, a);
-  return kUnsupported;
+  if (dtype != kBFloat16) return kUnsupported;
+  // bf16: the register-resident bodies of sparse_fwd.cu, sparse_dq.cu and sparse_dkv.cu, over the plan
+  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k);
+  const bf16 *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
+  const float *lse = static_cast<const float*>(a.lse), *delta = static_cast<const float*>(a.delta);
+  switch (pass) {
+    case kFwd: return sparse_fwd_bf16(q, k, v, a.plan, a.n_items, a.max_entries, a.rows, static_cast<bf16*>(a.o),
+                                      static_cast<float*>(a.out_lse), a.B, w.S, w.H, D, w.blk, w.causal, w.scale,
+                                      a.stream);
+    case kDq: return sparse_dq_bf16(q, k, v, dout, lse, delta, a.plan, a.n_items, a.max_entries, a.rows,
+                                    static_cast<bf16*>(a.dq), a.B, w.S, w.H, D, w.blk, w.causal, w.scale, a.stream);
+    default: return sparse_dkv_bf16(q, k, v, dout, lse, delta, a.plan, a.n_items, a.n_reduce, a.n_slots,
+                                    a.max_entries, a.rows, a.ws, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+                                    a.B, w.S, w.H, D, w.blk, w.causal, w.scale, a.stream);
+  }
 }
 
-Args make_args(const void* q, const void* k, const void* v, const void* idx, int B, int S, int H, int blk, int A,
-               float scale, int causal, void* stream) {
+Args make_args(const void* q, const void* k, const void* v, const void* idx, const void* plan, int B, int S, int H,
+               int blk, int A, int n_items, int max_entries, int rows, float scale, int causal, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -800,6 +684,10 @@ Args make_args(const void* q, const void* k, const void* v, const void* idx, int
   a.B = B;
   a.w = Walk{static_cast<const int*>(idx), A, S, H, blk, causal, scale};
   a.stream = static_cast<cudaStream_t>(stream);
+  a.plan = static_cast<const int*>(plan);
+  a.n_items = n_items;
+  a.max_entries = max_entries;
+  a.rows = rows;
   return a;
 }
 
@@ -809,21 +697,27 @@ Args make_args(const void* q, const void* k, const void* v, const void* idx, int
 // q, k, v (B, S, H, D) of `dtype`, contiguous; kidx (H, S / blk, A) int32, each
 // row the ascending active key blocks of a query block, -1 padded (already cut
 // to the block-level lower triangle when causal). o like q; lse (B, H, S) fp32.
-extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* kidx, void* o, void* lse, int B,
-                             int S, int H, int D, int blk, int A, float scale, int causal, int dtype, void* stream) {
+// bf16 walks `plan` (int32 on the device: sparse_self_attention.py's
+// query_plan table, with its n_items and max_entries, made for blocks of
+// `rows` query rows); fp32 walks kidx and takes neither (null, zeros).
+extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* kidx, const void* plan, void* o,
+                             void* lse, int B, int S, int H, int D, int blk, int A, int n_items, int max_entries,
+                             int rows, float scale, int causal, int dtype, void* stream) {
   using namespace dstorch;
-  Args a = make_args(q, k, v, kidx, B, S, H, blk, A, scale, causal, stream);
+  Args a = make_args(q, k, v, kidx, plan, B, S, H, blk, A, n_items, max_entries, rows, scale, causal, stream);
   a.o = o;
   a.out_lse = lse;
   return run(kFwd, D, dtype, a);
 }
 
 // dout like q; lse, delta (B, H, S) fp32 (delta = rowsum(o * dout)). dq like q.
+// bf16 walks the forward's plan.
 extern "C" int ds_sparse_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                                const void* delta, const void* kidx, void* dq, int B, int S, int H, int D, int blk,
-                                int A, float scale, int causal, int dtype, void* stream) {
+                                const void* delta, const void* kidx, const void* plan, void* dq, int B, int S, int H,
+                                int D, int blk, int A, int n_items, int max_entries, int rows, float scale,
+                                int causal, int dtype, void* stream) {
   using namespace dstorch;
-  Args a = make_args(q, k, v, kidx, B, S, H, blk, A, scale, causal, stream);
+  Args a = make_args(q, k, v, kidx, plan, B, S, H, blk, A, n_items, max_entries, rows, scale, causal, stream);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;
@@ -833,7 +727,7 @@ extern "C" int ds_sparse_bwd_dq(const void* q, const void* k, const void* v, con
 
 // qidx (H, S / blk, Aq) int32: each row the ascending query blocks that attend
 // a key block, -1 padded. dk, dv like k. bf16 walks `plan` instead (int32 on
-// the device: sparse_self_attention.py's DkvPlan.table, with its n_items,
+// the device: sparse_self_attention.py's dkv_plan table, with its n_items,
 // n_reduce, n_slots and max_entries, made for blocks of `rows` key rows) and
 // needs `ws`, fp32 (2, n_slots, B, rows, D), when n_slots > 0; fp32 takes
 // neither (null, zeros).
@@ -842,18 +736,14 @@ extern "C" int ds_sparse_bwd_dkv(const void* q, const void* k, const void* v, co
                                  int B, int S, int H, int D, int blk, int Aq, int n_items, int n_reduce, int n_slots,
                                  int max_entries, int rows, float scale, int causal, int dtype, void* stream) {
   using namespace dstorch;
-  Args a = make_args(q, k, v, qidx, B, S, H, blk, Aq, scale, causal, stream);
+  Args a = make_args(q, k, v, qidx, plan, B, S, H, blk, Aq, n_items, max_entries, rows, scale, causal, stream);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;
   a.dk = dk;
   a.dv = dv;
-  a.plan = static_cast<const int*>(plan);
   a.ws = static_cast<float*>(ws);
-  a.n_items = n_items;
   a.n_reduce = n_reduce;
   a.n_slots = n_slots;
-  a.max_entries = max_entries;
-  a.rows = rows;
   return run(kDkv, D, dtype, a);
 }

@@ -6,11 +6,11 @@
 //
 // Replaces, for bf16, the TPU kernel _sp_dkv_kernel of deepspeed_tpu/ops/
 // sparse_attention/sparse_self_attention.py (pallas_call at :239, via
-// _sp_bwd). The float32 dk/dv, the forward and dq stay in
-// sparse_attention.cu, which routes the bf16 dk/dv here. The arithmetic is
-// that kernel's: s = (q.k) scale, p = exp(s - lse), masked on a causal run
-// only inside the diagonal block (a key after its query), dv = p^T dout with
-// p rounded to bf16, ds = p (dp - delta) scale rounded to bf16, dk = ds^T q.
+// _sp_bwd). The float32 dk/dv stays in sparse_attention.cu, which routes
+// the bf16 dk/dv here. The arithmetic is that kernel's: s = (q.k) scale,
+// p = exp(s - lse), masked on a causal run only inside the diagonal block (a
+// key after its query), dv = p^T dout with p rounded to bf16,
+// ds = p (dp - delta) scale rounded to bf16, dk = ds^T q.
 //
 // What bounds it: 8 P D flops (four products) for the layout's P active
 // pairs against reading q, k, v, dout once and writing dk, dv: at the layouts
@@ -50,8 +50,9 @@
 //   (compile-time copy) for a sub-tile holding an entry not its member's, the
 //   walk's end, or its own block on a causal run; else the unmasked body.
 // - p = 2^x by one ex2.approx, x = q.k scale log2(e) - lse log2(e) one FFMA.
-// Not yet: wgmma, TMA, a persistent grid; the forward and dq walk the union
-// of neighbouring query blocks' lists in sparse_attention.cu, not this plan.
+// The bf16 forward and dq (sparse_fwd.cu, sparse_dq.cu) share this design
+// on the query side, over query_plan (neighbouring query blocks grouped).
+// Not yet: wgmma, TMA, a persistent grid.
 #include "flash_common.cuh"  // kLog2e, fast_exp2
 #include "mma.cuh"
 

@@ -48,8 +48,8 @@ SIGNATURES: Dict[str, List] = {
     "ds_lamb_direction": [_P, _P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
     "ds_quantize_groupwise": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "ds_dequantize_groupwise": [_P, _P, _P, _LL, _I, _I, _P],
-    "ds_sparse_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
-    "ds_sparse_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    "ds_sparse_fwd": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
+    "ds_sparse_bwd_dq": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
     "ds_sparse_bwd_dkv": [_P] * 11 + [_I] * 11 + [_F, _I, _I, _P],
 }
 

@@ -6,8 +6,9 @@ block-sparse ``MatMul``/``Softmax`` ``SparseSelfAttention`` composes). The
 static block layout of a ``SparsityConfig`` becomes per-(head, query-block)
 lists of active key blocks (``kidx``) and their transpose (``qidx``: the
 query blocks that attend each key block); the kernels
-(``csrc/sparse_attention.cu``) run the flash online softmax over only those
-blocks, so work and traffic scale with the layout's density, not S^2. They
+(``csrc/sparse_fwd.cu``, ``sparse_dq.cu`` and ``sparse_dkv.cu`` in bf16,
+``csrc/sparse_attention.cu`` in fp32) run the flash online softmax over only
+those blocks, so work and traffic scale with the layout's density, not S^2. They
 replace the Pallas ``_sp_fwd_kernel``, ``_sp_dq_kernel`` and
 ``_sp_dkv_kernel``; see the source note for the design.
 
@@ -18,13 +19,15 @@ and ``qidx`` (H, S/blk, Aq) int32, sorted, -1 padded.
 
 Each wrapper (``sparse_fwd``, ``sparse_bwd_dq``, ``sparse_bwd_dkv``) takes
 its plain version for CPU tensors, launches its kernel (or raises) for any
-other device, and counts its launches. The bf16 dk/dv kernel walks a plan
-(``DkvPlan``, numpy on the host, built once per configuration beside the
-lists): key blocks with alike lists grouped into one CUDA block, which walks
-the union of their lists, and long walks split across blocks whose fp32
-partials are summed in a fixed order. ``_SparseAttention`` is the
-reference's ``custom_vjp``: the forward saves q, k, v, o and lse; the
-backward computes delta = rowsum(o * do) in fp32 and launches dq and dk/dv.
+other device, and counts its launches. The bf16 kernels walk a plan
+(``WalkPlan``, numpy on the host, built once per configuration beside the
+lists): blocks of one side grouped into one CUDA block, which walks the
+union of their lists. The forward and dq group neighbouring query blocks
+(``query_plan``); dk/dv groups key blocks with alike lists and splits long
+walks across blocks whose fp32 partials are summed in a fixed order
+(``dkv_plan``). ``_SparseAttention`` is the reference's ``custom_vjp``: the
+forward saves q, k, v, o and lse; the backward computes delta =
+rowsum(o * do) in fp32 and launches dq and dk/dv.
 There is no ``interpret`` argument: the tensors' device picks the route.
 """
 
@@ -47,7 +50,10 @@ PLAIN_CHUNK_ELEMS = 1 << 27  # the plain versions gather at most this many K (or
 DKV_ROWS = 64
 DKV_TILE = 64
 DKV_SPLIT_TILES = 64
-
+# the bf16 forward and dq kernels (csrc/sparse_fwd.cu, csrc/sparse_dq.cu): the query rows a CUDA block owns
+# (4 warps of 16) and the keys a step of its walk stages; their walks are not split
+QUERY_ROWS = 64
+QUERY_TILE = 64
 
 # ----------------------------------------------------------------------
 # static layout -> active block lists
@@ -77,30 +83,34 @@ def _active_lists(layout: np.ndarray, causal: bool):
 
 
 @dataclasses.dataclass
-class DkvPlan:
-    """The bf16 dk/dv kernel's work over qidx, from the lists alone (numpy).
+class WalkPlan:
+    """A bf16 kernel's work over one side's block lists, from the lists alone
+    (numpy): ``lists`` says which, "kidx" (the forward and dq, over query
+    blocks) or "qidx" (dk/dv, over key blocks).
 
-    A *member* is ``R = min(block, DKV_ROWS)`` key rows of one key block, with
-    that block's list; a *group* is up to ``DKV_ROWS // R`` members of one head
-    whose lists are alike (of one length class, and their union takes no more
-    steps than the longest of them), owned by one CUDA block: its warps share
-    each staged tile of the union of their lists (``walk``: ascending query
-    blocks, each with a bit per member that attends it). A walk of more than
-    ``DKV_SPLIT_TILES`` steps is split into pieces, each a CUDA block writing
-    fp32 partials of the group's dk and dv into its slot of a workspace; the
-    ``reduce`` rows sum a group's pieces in order.
+    A *member* is ``R = min(block, rows)`` rows of one block of the walking
+    side, with that block's list; a *group* is up to ``rows // R`` members of
+    one head, owned by one CUDA block: its warps share each staged tile of the
+    union of their lists (``walk``: ascending blocks of the other side, each
+    with a bit per member that attends it). ``query_plan`` groups neighbouring
+    query blocks; ``dkv_plan`` groups key blocks with alike lists and splits a
+    walk of more than ``DKV_SPLIT_TILES`` steps into pieces, each a CUDA block
+    writing fp32 partials of the group's dk and dv into its slot of a
+    workspace; the ``reduce`` rows sum a group's pieces in order.
 
-    ``items`` (n_items, 4 + DKV_ROWS // 16) int32, one CUDA block per batch row,
-    longest walk first: [head, first entry, entries, slot (-1: write dk, dv
-    directly), first key row of each member (-1: none)]; ``reduce`` (n_reduce,
-    same width): [head, first slot, pieces, 0, members]; ``entries`` int32: the
-    groups' walks one after another, query block | owner bits << 24."""
+    ``items`` (n_items, 4 + rows // 16) int32, one CUDA block per batch row,
+    longest walk first: [head, first entry, entries, slot (-1: write the
+    outputs directly), first row of each member (-1: none)]; ``reduce``
+    (n_reduce, same width): [head, first slot, pieces, 0, members];
+    ``entries`` int32: the groups' walks one after another, block | owner
+    bits << 24."""
     items: np.ndarray
     reduce: np.ndarray
     entries: np.ndarray
     n_slots: int
     max_entries: int
-    block: int  # what the plan is for: the layout block, DKV_ROWS, and qidx's heads and key blocks
+    lists: str  # what the plan is for: the lists it walks, the layout block, rows, and the lists' heads and blocks
+    block: int
     rows: int
     heads: int
     n_blocks: int
@@ -112,9 +122,19 @@ class DkvPlan:
 
 
 def _walk_steps(n, block: int, tile: int):
-    """Steps (staged tiles of ``tile`` query rows) of a walk over n list entries."""
+    """Steps (staged tiles of ``tile`` rows) of a walk over n list entries."""
     per = max(1, tile // block)
     return -(-np.asarray(n) // per) * max(1, block // tile)
+
+
+def _owner_walk(owns: List[np.ndarray]) -> np.ndarray:
+    """The walk of a group whose member i attends the blocks owns[i] (ascending): their union, ascending,
+    each entry block | owner bits << 24, as int32."""
+    union = np.unique(np.concatenate(owns)).astype(np.int64)
+    bits = np.zeros(len(union), np.int64)
+    for i, own in enumerate(owns):
+        bits[np.searchsorted(union, own)] |= 1 << i
+    return (union | bits << 24).astype(np.uint32).view(np.int32)
 
 
 def _dkv_groups(lists: np.ndarray, block: int) -> List[Tuple[List[int], np.ndarray]]:
@@ -130,51 +150,63 @@ def _dkv_groups(lists: np.ndarray, block: int) -> List[Tuple[List[int], np.ndarr
     mem_row = mem_block * block + np.tile(np.arange(subs) * R, nb)
     steps = _walk_steps(lens[mem_block], block, tile)
     cls = np.where(steps > 0, np.floor(np.log2(np.maximum(steps, 1))).astype(np.int64) + 1, 0)
+    own = lambda m: lists[mem_block[m], :lens[mem_block[m]]]
     out = []
-
-    def close(members, union):
-        bits = np.zeros(len(union), np.int64)
-        for i, m in enumerate(members):
-            bits[np.searchsorted(union, lists[mem_block[m], :lens[mem_block[m]]])] |= 1 << i
-        walk = (union.astype(np.int64) | bits << 24).astype(np.uint32).view(np.int32)
-        out.append(([int(mem_row[m]) for m in members], walk))
-
     cur, union, most = [], None, 0
     for m in np.argsort(cls, kind="stable"):
-        own = lists[mem_block[m], :lens[mem_block[m]]]
         n_steps = int(steps[m])
         if cur and len(cur) < rows // R and cls[m] == cls[cur[0]]:
-            joined = np.union1d(union, own)
+            joined = np.union1d(union, own(m))
             if _walk_steps(len(joined), block, tile) <= max(most, n_steps):
                 cur.append(m)
                 union, most = joined, max(most, n_steps)
                 continue
         if cur:
-            close(cur, union)
-        cur, union, most = [m], own, n_steps
+            out.append(([int(mem_row[i]) for i in cur], _owner_walk([own(i) for i in cur])))
+        cur, union, most = [m], own(m), n_steps
     if cur:
-        close(cur, union)
+        out.append(([int(mem_row[i]) for i in cur], _owner_walk([own(i) for i in cur])))
     return out
 
 
-def dkv_plan(qidx: np.ndarray, block: int) -> DkvPlan:
-    """The bf16 dk/dv kernel's plan for qidx (H, S/block, Aq) int32 (see
-    ``DkvPlan``); heads with equal lists share one grouping."""
-    rows, tile, split_tiles = DKV_ROWS, DKV_TILE, DKV_SPLIT_TILES
+def _query_groups(lists: np.ndarray, block: int) -> List[Tuple[List[int], np.ndarray]]:
+    """One head's groups: [(first query row of each member, walk)] for its
+    (n_blocks, A) kidx lists: QUERY_ROWS // R neighbouring members a group.
+    Neighbouring query blocks of the layouts users run attend nearly the same
+    key blocks (one local window, the same global columns), so the union is
+    about as long as one list."""
+    nb = lists.shape[0]
+    R = min(block, QUERY_ROWS)
+    subs, per = block // R, QUERY_ROWS // R
+    lens = (lists >= 0).sum(1)
+    out = []
+    for m0 in range(0, nb * subs, per):
+        members = range(m0, min(m0 + per, nb * subs))
+        walk = _owner_walk([lists[m // subs, :lens[m // subs]] for m in members])
+        out.append(([(m // subs) * block + (m % subs) * R for m in members], walk))
+    return out
+
+
+def _walk_plan(idx: np.ndarray, block: int, lists: str, rows: int, tile: int, groups,
+               split_tiles: Optional[int]) -> WalkPlan:
+    """The plan of ``groups`` over idx (H, S/block, A) int32 lists; heads with equal lists share one grouping.
+    A walk of more than ``split_tiles`` steps (None: never) is split into pieces of whole steps."""
     if block % 16 or rows % min(block, rows):
-        raise NotImplementedError(f"the dk/dv kernel's plan takes layout blocks of 16 rows or a multiple, not {block}")
+        raise NotImplementedError(f"the bf16 kernels' plans take layout blocks of 16 rows or a multiple, not {block}")
     width = 4 + rows // 16
-    per_piece = max(1, split_tiles // max(1, block // tile)) * max(1, tile // block)  # entries, in whole steps
+    per_piece = None
+    if split_tiles is not None:
+        per_piece = max(1, split_tiles // max(1, block // tile)) * max(1, tile // block)  # entries, in whole steps
     items, reduce, walks = [], [], []
     seen, slot, off = {}, 0, 0
-    for h in range(qidx.shape[0]):
-        key = qidx[h].tobytes()
+    for h in range(idx.shape[0]):
+        key = idx[h].tobytes()
         if key not in seen:
-            seen[key] = _dkv_groups(qidx[h], block)
+            seen[key] = groups(idx[h], block)
         for members, walk in seen[key]:
             n = len(walk)
             mem = members + [-1] * (width - 4 - len(members))
-            if n <= per_piece:
+            if per_piece is None or n <= per_piece:
                 items.append([h, off, n, -1] + mem)
             else:
                 pieces = -(-n // per_piece)
@@ -187,50 +219,69 @@ def dkv_plan(qidx: np.ndarray, block: int) -> DkvPlan:
     items = np.asarray(items, np.int32).reshape(-1, width)
     items = items[np.argsort(-_walk_steps(items[:, 2], block, tile), kind="stable")]  # longest walk first
     entries = np.concatenate(walks).astype(np.int32) if walks else np.zeros(0, np.int32)
-    return DkvPlan(items, np.asarray(reduce, np.int32).reshape(-1, width), entries, slot,
-                   int(items[:, 2].max(initial=0)), block, rows, qidx.shape[0], qidx.shape[1])
+    return WalkPlan(items, np.asarray(reduce, np.int32).reshape(-1, width), entries, slot,
+                    int(items[:, 2].max(initial=0)), lists, block, rows, idx.shape[0], idx.shape[1])
+
+
+def dkv_plan(qidx: np.ndarray, block: int) -> WalkPlan:
+    """The bf16 dk/dv kernel's plan for qidx (H, S/block, Aq) int32 (see ``WalkPlan``): alike key blocks
+    grouped, walks split every DKV_SPLIT_TILES steps."""
+    return _walk_plan(qidx, block, "qidx", DKV_ROWS, DKV_TILE, _dkv_groups, DKV_SPLIT_TILES)
+
+
+def query_plan(kidx: np.ndarray, block: int) -> WalkPlan:
+    """The bf16 forward and dq kernels' plan for kidx (H, S/block, A) int32 (see ``WalkPlan``): neighbouring
+    query blocks grouped, no walk split (no slots, no reduce rows)."""
+    return _walk_plan(kidx, block, "kidx", QUERY_ROWS, QUERY_TILE, _query_groups, None)
 
 
 @dataclasses.dataclass
-class DeviceDkvPlan:
-    """A ``DkvPlan``'s table on the device, with the counts the launch needs
-    and what the plan is for (checked against the call's qidx)."""
+class DevicePlan:
+    """A ``WalkPlan``'s table on the device, with the counts the launch needs
+    and what the plan is for (checked against the call's lists)."""
     table: torch.Tensor
     n_items: int
     n_reduce: int
     n_slots: int
     max_entries: int
+    lists: str
     block: int
     rows: int
     heads: int
     n_blocks: int
 
     @classmethod
-    def of(cls, plan: DkvPlan, device) -> "DeviceDkvPlan":
+    def of(cls, plan: WalkPlan, device) -> "DevicePlan":
         return cls(torch.from_numpy(plan.table).to(device), len(plan.items), len(plan.reduce), plan.n_slots,
-                   plan.max_entries, plan.block, plan.rows, plan.heads, plan.n_blocks)
+                   plan.max_entries, plan.lists, plan.block, plan.rows, plan.heads, plan.n_blocks)
 
-    def check(self, fn: str, qidx: torch.Tensor, block: int) -> None:
-        """Raise unless the plan was made for qidx's heads and key blocks at this layout block, on its device."""
-        got, want = (self.block, self.heads, self.n_blocks), (block, qidx.shape[0], qidx.shape[1])
+    def check(self, fn: str, lists: str, idx: torch.Tensor, block: int) -> None:
+        """Raise unless the plan walks ``lists`` and was made for idx's heads and blocks at this layout block,
+        on its device."""
+        got, want = (self.lists, self.block, self.heads, self.n_blocks), (lists, block, idx.shape[0], idx.shape[1])
         if got != want:
-            raise ValueError(f"{fn}: the plan is for (block, heads, key blocks) {got}, the call's qidx {want}")
-        if self.table.device != qidx.device:
-            raise ValueError(f"{fn}: the plan must be on {qidx.device}, not {self.table.device}")
+            raise ValueError(f"{fn}: the plan is for (lists, block, heads, blocks) {got}, the call's {want}")
+        if self.table.device != idx.device:
+            raise ValueError(f"{fn}: the plan must be on {idx.device}, not {self.table.device}")
+
+
+# the plan builder of each side's lists
+_PLANS = {"kidx": query_plan, "qidx": dkv_plan}
 
 
 class _Lists:
-    """kidx and qidx of one configuration on a device, and the dk/dv plan of
-    qidx, built on first use."""
+    """kidx and qidx of one configuration on a device, and the plan of each,
+    built on first use."""
 
     def __init__(self, kidx: np.ndarray, qidx: np.ndarray, block: int, device):
         self.kidx, self.qidx = torch.from_numpy(kidx).to(device), torch.from_numpy(qidx).to(device)
-        self._qidx, self._block, self._plan = qidx, block, None
+        self._host, self._block, self._plans = {"kidx": kidx, "qidx": qidx}, block, {}
 
-    def plan(self) -> DeviceDkvPlan:
-        if self._plan is None:
-            self._plan = DeviceDkvPlan.of(dkv_plan(self._qidx, self._block), self.kidx.device)
-        return self._plan
+    def plan(self, lists: str) -> DevicePlan:
+        if lists not in self._plans:
+            built = _PLANS[lists](self._host[lists], self._block)
+            self._plans[lists] = DevicePlan.of(built, self.kidx.device)
+        return self._plans[lists]
 
 
 _LISTS_CACHE: dict = {}
@@ -261,9 +312,14 @@ def _device_lists(config: SparsityConfig, S: int, H: int, causal: bool, device) 
     return hit.kidx, hit.qidx
 
 
-def _device_dkv_plan(config: SparsityConfig, S: int, H: int, causal: bool, device) -> DeviceDkvPlan:
+def _device_query_plan(config: SparsityConfig, S: int, H: int, causal: bool, device) -> DevicePlan:
+    """The forward's and dq's plan of ``_device_lists``' kidx, built once beside them."""
+    return _cached_lists(config, S, H, causal, device).plan("kidx")
+
+
+def _device_dkv_plan(config: SparsityConfig, S: int, H: int, causal: bool, device) -> DevicePlan:
     """The dk/dv plan of ``_device_lists``' qidx, built once beside them."""
-    return _cached_lists(config, S, H, causal, device).plan()
+    return _cached_lists(config, S, H, causal, device).plan("qidx")
 
 
 # ----------------------------------------------------------------------
@@ -413,60 +469,77 @@ def _check(what, q, k, v, idx, block, do=None, lse=None, delta=None):
                          f"{tuple(idx.shape)} {idx.dtype}")
 
 
-def sparse_fwd(q, k, v, kidx, block: int, scale: float, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def _plan_args(fn: str, q, lists: str, plan: Optional[DevicePlan]) -> tuple:
+    """The plan's table and counts as the C entry points take them: bf16 walks ``plan`` and raises without
+    one; fp32 walks the lists themselves (null and zeros)."""
+    if q.dtype != torch.bfloat16:
+        return None, 0, 0, 0, 0, 0
+    if plan is None:
+        fn_plan = "_device_query_plan" if lists == "kidx" else "_device_dkv_plan"
+        raise ValueError(f"{fn}: bf16 on the card walks a plan; pass {fn_plan}(...)")
+    return plan.table.data_ptr(), plan.n_items, plan.n_reduce, plan.n_slots, plan.max_entries, plan.rows
+
+
+def sparse_fwd(q, k, v, kidx, block: int, scale: float, causal: bool,
+               plan: Optional[DevicePlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: (o like q, lse (B, H, S) fp32). q, k, v (B, S, H, D);
     kidx (H, S/block, A) int32. CUDA: float32 or bfloat16, block in
-    KERNEL_BLOCKS, D in KERNEL_HEAD_DIMS."""
+    KERNEL_BLOCKS, D in KERNEL_HEAD_DIMS; bf16 walks ``plan`` (kidx's
+    ``DevicePlan``, from ``_device_query_plan``) and raises without one."""
+    if plan is not None:
+        plan.check("sparse_fwd", "kidx", kidx, block)
     if q.device.type == "cpu":
         return sparse_fwd_ref(q, k, v, kidx, block, scale, causal)
     _check("sparse_fwd", q, k, v, kidx, block)
+    table, n_items, _, _, max_entries, rows = _plan_args("sparse_fwd", q, "kidx", plan)
     B, S, H, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    rc = _build.lib().ds_sparse_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kidx.data_ptr(), o.data_ptr(),
-                                    lse.data_ptr(), B, S, H, D, block, kidx.shape[2], float(scale), int(causal),
-                                    _build.dtype_code(q.dtype), _stream(q))
+    rc = _build.lib().ds_sparse_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kidx.data_ptr(), table, o.data_ptr(),
+                                    lse.data_ptr(), B, S, H, D, block, kidx.shape[2], n_items, max_entries, rows,
+                                    float(scale), int(causal), _build.dtype_code(q.dtype), _stream(q))
     _build.check(rc, "sparse_fwd")
     sparse_fwd.launches += 1
     return o, lse
 
 
-def sparse_bwd_dq(q, k, v, do, lse, delta, kidx, block: int, scale: float, causal: bool) -> torch.Tensor:
-    """dq kernel: dq like q. lse, delta (B, H, S) fp32."""
+def sparse_bwd_dq(q, k, v, do, lse, delta, kidx, block: int, scale: float, causal: bool,
+                  plan: Optional[DevicePlan] = None) -> torch.Tensor:
+    """dq kernel: dq like q. lse, delta (B, H, S) fp32. bf16 on the card
+    walks ``plan``, as ``sparse_fwd`` does."""
+    if plan is not None:
+        plan.check("sparse_bwd_dq", "kidx", kidx, block)
     if q.device.type == "cpu":
         return sparse_bwd_dq_ref(q, k, v, do, lse, delta, kidx, block, scale, causal)
     _check("sparse_bwd_dq", q, k, v, kidx, block, do, lse, delta)
+    table, n_items, _, _, max_entries, rows = _plan_args("sparse_bwd_dq", q, "kidx", plan)
     B, S, H, D = q.shape
     dq = torch.empty_like(q)
     rc = _build.lib().ds_sparse_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                       delta.data_ptr(), kidx.data_ptr(), dq.data_ptr(), B, S, H, D, block,
-                                       kidx.shape[2], float(scale), int(causal), _build.dtype_code(q.dtype),
-                                       _stream(q))
+                                       delta.data_ptr(), kidx.data_ptr(), table, dq.data_ptr(), B, S, H, D, block,
+                                       kidx.shape[2], n_items, max_entries, rows, float(scale), int(causal),
+                                       _build.dtype_code(q.dtype), _stream(q))
     _build.check(rc, "sparse_bwd_dq")
     sparse_bwd_dq.launches += 1
     return dq
 
 
 def sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, block: int, scale: float, causal: bool,
-                   plan: Optional[DeviceDkvPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   plan: Optional[DevicePlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk/dv kernel: (dk, dv) like k. qidx (H, S/block, Aq) int32. bf16 on
-    the card walks ``plan`` (qidx's ``DeviceDkvPlan``, from
+    the card walks ``plan`` (qidx's ``DevicePlan``, from
     ``_device_dkv_plan``), and raises without one; fp32 walks qidx itself."""
     if plan is not None:
-        plan.check("sparse_bwd_dkv", qidx, block)
+        plan.check("sparse_bwd_dkv", "qidx", qidx, block)
     if q.device.type == "cpu":
         return sparse_bwd_dkv_ref(q, k, v, do, lse, delta, qidx, block, scale, causal)
     _check("sparse_bwd_dkv", q, k, v, qidx, block, do, lse, delta)
+    table, *counts, rows = _plan_args("sparse_bwd_dkv", q, "qidx", plan)
     B, S, H, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    table, ws, counts, rows = None, None, (0, 0, 0, 0), 0
-    if q.dtype == torch.bfloat16:
-        if plan is None:
-            raise ValueError("sparse_bwd_dkv: bf16 on the card walks a plan; pass _device_dkv_plan(...)")
-        table, rows = plan.table.data_ptr(), plan.rows
-        counts = (plan.n_items, plan.n_reduce, plan.n_slots, plan.max_entries)
-        if plan.n_slots:  # fp32 partials of the split walks: dk's, then dv's
-            ws = torch.empty((2, plan.n_slots, B, rows, D), dtype=torch.float32, device=q.device)
+    ws = None
+    if q.dtype == torch.bfloat16 and plan.n_slots:  # fp32 partials of the split walks
+        ws = torch.empty((2, plan.n_slots, B, rows, D), dtype=torch.float32, device=q.device)  # dk's, then dv's
     rc = _build.lib().ds_sparse_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                         delta.data_ptr(), qidx.data_ptr(), table,
                                         ws.data_ptr() if ws is not None else None, dk.data_ptr(), dv.data_ptr(), B, S,
@@ -485,10 +558,10 @@ sparse_bwd_dkv.launches = 0
 class _SparseAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, kidx, qidx, plan, block, scale, causal):
-        o, lse = sparse_fwd(q, k, v, kidx, block, scale, causal)
+    def forward(ctx, q, k, v, kidx, qidx, plans, block, scale, causal):
+        o, lse = sparse_fwd(q, k, v, kidx, block, scale, causal, plan=plans[0])
         ctx.save_for_backward(q, k, v, o, lse, kidx, qidx)
-        ctx.args, ctx.plan = (block, scale, causal), plan
+        ctx.args, ctx.plans = (block, scale, causal), plans
         return o
 
     @staticmethod
@@ -496,8 +569,8 @@ class _SparseAttention(torch.autograd.Function):
         q, k, v, o, lse, kidx, qidx = ctx.saved_tensors
         do = do.contiguous()
         delta = flash_delta(o, do)
-        dq = sparse_bwd_dq(q, k, v, do, lse, delta, kidx, *ctx.args)
-        dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, *ctx.args, plan=ctx.plan)
+        dq = sparse_bwd_dq(q, k, v, do, lse, delta, kidx, *ctx.args, plan=ctx.plans[0])
+        dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, *ctx.args, plan=ctx.plans[1])
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -552,11 +625,11 @@ def sparse_attention(q, k, v, config: SparsityConfig, *, causal: bool = True,
     if n_rep > 1:
         k, v = _expand_kv(k, n_rep), _expand_kv(v, n_rep)
     kidx, qidx = _device_lists(config, S, H, causal, q.device)
-    plan = None  # the bf16 dk/dv kernel's walk, for a configuration the kernels take (else sparse_fwd raises)
+    plans = (None, None)  # the bf16 kernels' walks, for a configuration the kernels take (else sparse_fwd raises)
     if q.is_cuda and q.dtype == torch.bfloat16 and config.block in KERNEL_BLOCKS:
-        plan = _device_dkv_plan(config, S, H, causal, q.device)
+        plans = (_device_query_plan(config, S, H, causal, q.device), _device_dkv_plan(config, S, H, causal, q.device))
     scale = scale if scale is not None else 1.0 / (D**0.5)
-    return _SparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kidx, qidx, plan, config.block,
+    return _SparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kidx, qidx, plans, config.block,
                                   float(scale), bool(causal))
 
 

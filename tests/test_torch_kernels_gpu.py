@@ -931,11 +931,12 @@ def test_sparse_kernels(cuda, dtype, case):
     kidx, qidx = ss._device_lists(cfg, S, H, causal, cuda)
     args = (cfg.block, D**-0.5, causal)
     counts = (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches, ss.sparse_bwd_dkv.launches)
-    o, lse = ss.sparse_fwd(q, k, v, kidx, *args)
+    qplan = ss._device_query_plan(cfg, S, H, causal, cuda)
+    o, lse = ss.sparse_fwd(q, k, v, kidx, *args, plan=qplan)
     o_ref, lse_ref = ss.sparse_fwd_ref(q, k, v, kidx, *args)
     delta = ss.flash_delta(o_ref, do)
     bwd = (q, k, v, do, lse_ref, delta)
-    dq = ss.sparse_bwd_dq(*bwd, kidx, *args)
+    dq = ss.sparse_bwd_dq(*bwd, kidx, *args, plan=qplan)
     dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, *args, plan=ss._device_dkv_plan(cfg, S, H, causal, cuda))
     torch.cuda.synchronize()
     assert (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches, ss.sparse_bwd_dkv.launches) == tuple(
@@ -972,6 +973,47 @@ def test_sparse_dkv_repeats_bit_for_bit(cuda, case):
     assert all(torch.isfinite(t).all() for t in first)
 
 
+@pytest.mark.parametrize("case", SPARSE_CASES, ids=[f"{c[0]}-S{c[2]}-D{c[4]}" for c in SPARSE_CASES])
+def test_sparse_fwd_and_dq_repeat_bit_for_bit(cuda, case):
+    """Two launches of the bf16 forward and dq (no atomics, no split walks) give bit-equal o, lse and dq."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    name, B, S, H, D, causal = case
+    cfg = _sparse_configs()[name](H)
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
+    kidx, _ = ss._device_lists(cfg, S, H, causal, cuda)
+    plan = ss._device_query_plan(cfg, S, H, causal, cuda)
+    args = (kidx, cfg.block, D**-0.5, causal)
+    first, second = ss.sparse_fwd(q, k, v, *args, plan=plan), ss.sparse_fwd(q, k, v, *args, plan=plan)
+    bwd = (q, k, v, do, first[1], ss.flash_delta(first[0], do))
+    dq, dq_again = ss.sparse_bwd_dq(*bwd, *args, plan=plan), ss.sparse_bwd_dq(*bwd, *args, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first + (dq,), second + (dq_again,)))
+    assert all(torch.isfinite(t).all() for t in (first[0], dq))
+
+
+def test_sparse_bf16_fwd_and_dq_refuse_a_missing_or_foreign_plan(cuda):
+    """bf16 forward and dq on the card walk the configuration's query plan: without one, with another
+    length's, or with the dk/dv's plan, they raise before anything is launched."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
+
+    B, S, H, D = 1, 512, 4, 64
+    cfg = _sparse_configs()["fixed_uni_b16"](H)
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
+    kidx, _ = ss._device_lists(cfg, S, H, True, cuda)
+    o, lse = ss.sparse_fwd_ref(q, k, v, kidx, cfg.block, D**-0.5, True)
+    bwd = (q, k, v, do, lse, ss.flash_delta(o, do), kidx, cfg.block, D**-0.5, True)
+    launches = (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches)
+    for call in (lambda **kw: ss.sparse_fwd(q, k, v, kidx, cfg.block, D**-0.5, True, **kw),
+                 lambda **kw: ss.sparse_bwd_dq(*bwd, **kw)):
+        with pytest.raises(ValueError, match="walks a plan"):
+            call()
+        for plan in (ss._device_query_plan(cfg, 2 * S, H, True, cuda), ss._device_dkv_plan(cfg, S, H, True, cuda)):
+            with pytest.raises(ValueError, match="the plan is for"):
+                call(plan=plan)
+    assert (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches) == launches
+
+
 def test_sparse_bf16_dkv_refuses_a_missing_or_foreign_plan(cuda):
     """bf16 dk/dv on the card walks the configuration's plan: without one, or with another length's, it
     raises before anything is launched."""
@@ -1001,10 +1043,11 @@ def test_sparse_dense_layout_matches_the_flash_kernels(cuda):
     q, k, v, do = _flash_inputs(cuda, torch.bfloat16, B, S, S, H, H, D)
     dense = sa.DenseSparsityConfig(num_heads=H, block=64)
     kidx, qidx = ss._device_lists(dense, S, H, True, cuda)
-    o, lse = ss.sparse_fwd(q, k, v, kidx, 64, D**-0.5, True)
+    qplan = ss._device_query_plan(dense, S, H, True, cuda)
+    o, lse = ss.sparse_fwd(q, k, v, kidx, 64, D**-0.5, True, plan=qplan)
     o_f, lse_f = fa.flash_fwd(q, k, v, None, D**-0.5, True, 0)
     bwd = (q, k, v, do, lse_f, fa.flash_delta(o_f, do))
-    dq = ss.sparse_bwd_dq(*bwd, kidx, 64, D**-0.5, True)
+    dq = ss.sparse_bwd_dq(*bwd, kidx, 64, D**-0.5, True, plan=qplan)
     dk, dv = ss.sparse_bwd_dkv(*bwd, qidx, 64, D**-0.5, True, plan=ss._device_dkv_plan(dense, S, H, True, cuda))
     dq_f = fa.flash_bwd_dq(*bwd, None, D**-0.5, True, 0)
     dk_f, dv_f = fa.flash_bwd_dkv(*bwd, None, D**-0.5, True, 0)

@@ -485,3 +485,204 @@ def test_sparse_bwd_dkv_raises_on_another_configurations_plan(what):
     got = ss.sparse_bwd_dkv(q, k, v, do, lse, delta, qidx, 16, D**-0.5, True, plan=own)
     want = ss.sparse_bwd_dkv_ref(q, k, v, do, lse, delta, qidx, 16, D**-0.5, True)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------- the bf16 forward's and dq's plan (numpy, on the host)
+def _check_query_plan(kidx, block, plan):
+    """The query plan's invariants: it walks kidx and names the block, rows, heads and query blocks it was
+    made for; every query block of every head owned exactly once, by groups of neighbouring members; each
+    group's union walk covers each member's list, in ascending order, with the owner bits of exactly those
+    entries; no walk is split; the longest walks come first; the table is items, then entries."""
+    rows = ss.QUERY_ROWS
+    H, nb, _ = kidx.shape
+    assert (plan.lists, plan.block, plan.rows, plan.heads, plan.n_blocks) == ("kidx", block, rows, H, nb)
+    R = min(block, rows)
+    assert plan.items.shape[1] == 4 + rows // 16 and plan.reduce.shape == (0, 4 + rows // 16) and plan.n_slots == 0
+    owners = np.zeros((H, nb * (block // R)), np.int64)
+    ends = []
+    for h, off, n, slot, *members in plan.items.tolist():
+        live = [m for m in members if m >= 0]
+        assert slot == -1 and 1 <= len(live) <= rows // R and list(members[:len(live)]) == live
+        assert live == list(range(live[0], live[0] + R * len(live), R)) and live[0] % rows == 0  # neighbours
+        for m in live:
+            owners[h, m // R] += 1
+        walk = plan.entries[off:off + n]
+        ends.append((off, off + n))
+        blocks = walk.view(np.uint32) & 0xFFFFFF
+        bits = walk.view(np.uint32) >> 24
+        assert np.all(np.diff(blocks.astype(np.int64)) > 0)  # ascending, no repeats
+        assert np.all(bits > 0) and np.all(bits < (1 << len(live)))  # each entry some member's, no other bits
+        for i, m in enumerate(live):
+            lst = kidx[h, m // block]
+            assert np.array_equal(blocks[(bits >> i) & 1 == 1], lst[lst >= 0])
+    assert np.all(owners == 1)
+    ends.sort()
+    assert all(a == b for (_, b), (a, _) in zip([(0, 0)] + ends, ends)) and ends[-1][1] == len(plan.entries)
+    steps = ss._walk_steps(plan.items[:, 2], block, ss.QUERY_TILE)
+    assert np.all(np.diff(steps) <= 0) and plan.max_entries == plan.items[:, 2].max(initial=0)
+    assert np.array_equal(plan.table, np.concatenate([plan.items.ravel(), plan.entries]))
+
+
+# (query CUDA blocks, steps over all heads, longest walk) of one batch row at chip_smoke.py's cases
+QUERY_PLAN_STATS = {"fixed_uni_gpt2_1_3b": (4096, 70656, 33), "fixed_bi_bert": (768, 13056, 17),
+                    "bigbird_base": (768, 7188, 64), "longformer_gqa_llama3_8b": (4096, 12192, 3),
+                    "dense_gpt2_1_3b": (512, 4352, 16)}
+
+
+@pytest.mark.parametrize("name", sorted(QUERY_PLAN_STATS))
+def test_query_plan_at_every_chip_smoke_configuration(name):
+    """chip_smoke.py's SPARSE_SHAPES at full S: one CUDA block of 64 query rows a group, the walks' steps and
+    the longest walk as the lists give them (neighbouring query blocks share their windows and globals)."""
+    shapes, config = _chip_smoke_shapes()
+    c = shapes[name]
+    _, S, H, _ = c["q"]
+    cfg = config(name)
+    layout = np.broadcast_to(cfg.make_layout(S), (H, S // cfg.block, S // cfg.block))
+    kidx, _ = ss._active_lists(layout, c["causal"])
+    plan = ss.query_plan(kidx, cfg.block)
+    _check_query_plan(kidx, cfg.block, plan)
+    steps = ss._walk_steps(plan.items[:, 2], cfg.block, ss.QUERY_TILE)
+    assert (len(plan.items), int(steps.sum()), int(steps.max())) == QUERY_PLAN_STATS[name]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[f"{c[0][:-14]}-b{c[1]['block']}-S{c[2]}-{'uni' if c[3] else 'bi'}"
+                                                  for c in PLAN_CASES])
+def test_query_plan_invariants(case):
+    kind, kw, S, causal = case
+    cfg = getattr(tsc, kind)(**kw)
+    H = kw["num_heads"]
+    layout = np.broadcast_to(cfg.make_layout(S), (H, S // cfg.block, S // cfg.block))
+    kidx, _ = ss._active_lists(layout, causal)
+    _check_query_plan(kidx, cfg.block, ss.query_plan(kidx, cfg.block))
+
+
+def _fwd_dq_by_plan(q, k, v, do, delta_lse, kidx, plan, block, scale, causal):
+    """o, lse and dq as the bf16 kernels compute them from the plan (in fp32): each item's members over the
+    walk entries their bits name; dq from the given (lse, delta). A member with no entry: o = 0, lse =
+    NEG_INF, dq = 0."""
+    B, S, H, D = q.shape
+    lse_in, delta = delta_lse
+    R = min(block, ss.QUERY_ROWS)
+    o, dq = torch.full_like(q, float("nan")), torch.full_like(q, float("nan"))
+    lse = torch.full((B, H, S), float("nan"))
+    for h, off, n, slot, *members in plan.items.tolist():
+        walk = plan.entries[off:off + n].view(np.uint32)
+        for i, m in enumerate(x for x in members if x >= 0):
+            kb = torch.from_numpy((walk[(walk >> (24 + i)) & 1 == 1] & 0xFFFFFF).astype(np.int64))
+            keys = (kb[:, None] * block + torch.arange(block)).flatten()
+            rows = m + torch.arange(R)
+            if len(keys) == 0:
+                o[:, rows, h], lse[:, h, rows], dq[:, rows, h] = 0.0, ss.NEG_INF, 0.0
+                continue
+            s = torch.einsum("bqd,bkd->bqk", q[:, rows, h], k[:, keys, h]) * scale
+            if causal:
+                s = torch.where(keys[None, :] <= rows[:, None], s, torch.full((), ss.NEG_INF))
+            mx = s.amax(-1, keepdim=True)
+            p = torch.where(s <= ss.NEG_INF, 0.0, torch.exp(s - mx))
+            l = p.sum(-1, keepdim=True)
+            o[:, rows, h] = torch.einsum("bqk,bkd->bqd", p, v[:, keys, h]) / l
+            lse[:, h, rows] = (mx + torch.log(l))[..., 0]
+            p = torch.where(s <= ss.NEG_INF, 0.0, torch.exp(s - lse_in[:, h, rows][..., None]))
+            dp = torch.einsum("bqd,bkd->bqk", do[:, rows, h], v[:, keys, h])
+            ds = p * (dp - delta[:, h, rows][..., None]) * scale
+            dq[:, rows, h] = torch.einsum("bqk,bkd->bqd", ds, k[:, keys, h])
+    return o, lse, dq
+
+
+QUERY_WALK_CONFIGS = dict(KERNEL_CONFIGS, block128=(
+    "VariableSparsityConfig", dict(num_heads=2, block=128, num_random_blocks=1, local_window_blocks=[1, 2],
+                                   global_block_indices=[1])))
+
+
+@pytest.mark.parametrize("name", sorted(QUERY_WALK_CONFIGS) + ["hole"])
+def test_fwd_and_dq_by_the_plan_equal_the_plain_versions(name):
+    """Walking the query plan (neighbouring query blocks, owner bits) gives the plain forward's o and lse and
+    the plain dq's dq: the plan loses and repeats no (query, key) block pair, and a query block that attends
+    nothing gets o = 0, lse = NEG_INF and dq = 0."""
+    if name == "hole":
+        cfg = _hole(tsc.SparsityConfig)
+    else:
+        kind, kw = QUERY_WALK_CONFIGS[name]
+        cfg = getattr(tsc, kind)(**kw)
+    B, S, H, D = 1, 512 if cfg.block == 128 else 256, 2, 16
+    mk = _rng(31)
+    q, k, v, do = (torch.from_numpy(mk(B, S, H, D)) for _ in range(4))
+    for causal in (True, False):
+        layout = np.broadcast_to(cfg.make_layout(S), (H, S // cfg.block, S // cfg.block))
+        kidx, _ = ss._active_lists(layout, causal)
+        tk = torch.from_numpy(kidx)
+        o, lse = ss.sparse_fwd_ref(q, k, v, tk, cfg.block, D**-0.5, causal)
+        delta = ss.flash_delta(o, do)
+        dq = ss.sparse_bwd_dq_ref(q, k, v, do, lse, delta, tk, cfg.block, D**-0.5, causal)
+        plan = ss.query_plan(kidx, cfg.block)
+        got = _fwd_dq_by_plan(q, k, v, do, (lse, delta), kidx, plan, cfg.block, D**-0.5, causal)
+        empty = lse <= ss.NEG_INF
+        assert torch.equal(got[1][empty], lse[empty]) and (name != "hole" or empty.any())
+        _close(got[1][~empty].numpy(), lse[~empty].numpy(), f"{name} lse causal={causal}")
+        for g, w, what in ((got[0], o, "o"), (got[2], dq, "dq")):
+            _close(g.numpy(), w.numpy(), f"{name} {what} causal={causal}")
+
+
+def test_the_query_plan_is_built_once_beside_the_lists():
+    cfg = tsc.FixedSparsityConfig(num_heads=2, block=16)
+    plan = ss._device_query_plan(cfg, 256, 2, True, "cpu")
+    assert ss._device_query_plan(tsc.FixedSparsityConfig(num_heads=2, block=16), 256, 2, True, "cpu") is plan
+    assert ss._device_dkv_plan(cfg, 256, 2, True, "cpu") is not plan
+    kidx, _ = ss._device_lists(cfg, 256, 2, True, "cpu")
+    want = ss.query_plan(kidx.numpy(), 16)
+    assert plan.table.dtype == torch.int32 and np.array_equal(plan.table.numpy(), want.table)
+    assert (plan.n_items, plan.n_reduce, plan.n_slots, plan.max_entries) == (len(want.items), 0, 0, want.max_entries)
+    assert (plan.lists, plan.block, plan.rows, plan.heads, plan.n_blocks) == ("kidx", 16, ss.QUERY_ROWS, 2, 16)
+
+
+@pytest.mark.parametrize("what", list(MISMATCHED_PLANS) + ["lists"])
+def test_sparse_fwd_and_dq_raise_on_another_configurations_plan(what):
+    """A plan made for another length, head count or layout block, or the dk/dv's plan of qidx, is refused
+    by the forward and dq before anything runs; the call's own plan is taken."""
+    B, S, H, D = 1, 256, 4, 16
+    cfg = tsc.FixedSparsityConfig(num_heads=H, block=16)
+    kidx, _ = ss._device_lists(cfg, S, H, True, "cpu")
+    if what == "lists":
+        plan = ss._device_dkv_plan(cfg, S, H, True, "cpu")
+    else:
+        block, plan_H, plan_S = MISMATCHED_PLANS[what]
+        plan = ss._device_query_plan(tsc.FixedSparsityConfig(num_heads=plan_H, block=block), plan_S, plan_H, True,
+                                     "cpu")
+    mk = _rng(7)
+    q, k, v, do = (torch.from_numpy(mk(B, S, H, D)) for _ in range(4))
+    o, lse = ss.sparse_fwd_ref(q, k, v, kidx, 16, D**-0.5, True)
+    delta = ss.flash_delta(o, do)
+    launches = (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches)
+    with pytest.raises(ValueError, match="the plan is for"):
+        ss.sparse_fwd(q, k, v, kidx, 16, D**-0.5, True, plan=plan)
+    with pytest.raises(ValueError, match="the plan is for"):
+        ss.sparse_bwd_dq(q, k, v, do, lse, delta, kidx, 16, D**-0.5, True, plan=plan)
+    assert (ss.sparse_fwd.launches, ss.sparse_bwd_dq.launches) == launches
+    own = ss._device_query_plan(cfg, S, H, True, "cpu")
+    got = ss.sparse_fwd(q, k, v, kidx, 16, D**-0.5, True, plan=own)
+    assert all(torch.equal(g, w) for g, w in zip(got, (o, lse)))
+    want = ss.sparse_bwd_dq_ref(q, k, v, do, lse, delta, kidx, 16, D**-0.5, True)
+    assert torch.equal(ss.sparse_bwd_dq(q, k, v, do, lse, delta, kidx, 16, D**-0.5, True, plan=own), want)
+
+
+def test_bf16_off_the_cpu_without_a_plan_raises_before_the_library(monkeypatch):
+    """bf16 tensors off the CPU walk a plan: without one, each of the three wrappers raises once the
+    tensors pass its checks, before it loads the kernel library or counts a launch."""
+    cfg = tsc.FixedSparsityConfig(num_heads=2, block=16)
+    kidx, qidx = (t.to("meta") for t in ss._device_lists(cfg, 64, 2, True, "cpu"))
+    q = torch.empty((1, 64, 2, 32), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 2, 64), device="meta")
+    monkeypatch.setattr(ss, "_check", lambda *args: None)  # the meta tensors stand in for CUDA ones
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(ss._build, "lib", no_library)
+    counters = (ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv)
+    launches = [fn.launches for fn in counters]
+    for call, helper in ((lambda: ss.sparse_fwd(q, q, q, kidx, 16, 1.0, True), "_device_query_plan"),
+                         (lambda: ss.sparse_bwd_dq(q, q, q, q, lse, lse, kidx, 16, 1.0, True), "_device_query_plan"),
+                         (lambda: ss.sparse_bwd_dkv(q, q, q, q, lse, lse, qidx, 16, 1.0, True), "_device_dkv_plan")):
+        with pytest.raises(ValueError, match=f"walks a plan; pass {helper}"):
+            call()
+    assert launches == [fn.launches for fn in counters]
