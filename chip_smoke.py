@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1
                                      # and an evoformer call
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
-    python3 chip_smoke.py --parent DIR  # plus DIR's quantized_matmul, bf16 flash, paged and sparse kernels
-                                        # beside this tree's
+    python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged and sparse
+                                        # kernels beside this tree's
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -18,9 +18,9 @@ Phases, each fatal on failure:
    the larger of bytes over 3.35 TB/s and operations over the peak rate of
    the input type, 989 TFLOP/s bf16 / 67 TFLOP/s fp32); then the kernels of
    quantised serving the same way: ``layer_norm`` at gpt2_1_3b's width
-   (``rms_norm`` at T 768 and 2048 and ``layer_norm`` at T 8, 768 and 2048
-   also cold, beside ``F.rms_norm`` and ``F.layer_norm``: device time from a
-   CUDA graph rotating over copies of x),
+   (both norms at T 8, 768 and 2048, and at T 2048 with the weight in the
+   other float type, also cold, beside ``F.rms_norm`` and ``F.layer_norm``:
+   device time from a CUDA graph rotating over copies of x),
    ``quantized_matmul`` with int8 codes over gpt2_1_3b's three weight shapes
    and with packed int4 over llama3_8b's two MLP shapes at 8, 64, 512 and
    1024 tokens (at 8 and 64 also cold, in device time from a CUDA graph:
@@ -99,7 +99,7 @@ Phases, each fatal on failure:
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
-DIR and stand in for this tree's ``quantized_matmul``, flash forward, dq
+DIR and stand in for this tree's norms, ``quantized_matmul``, flash forward, dq
 (per program and collapsed) and dk/dv, paged decode and prefill and the
 sparse forward, dq and dk/dv while each of their cases is timed again
 (``parent_ms``, the bias cases of dq and dk/dv included; the ALiBi and
@@ -266,9 +266,10 @@ class ParentKernels:
     interface). The collapsed dq's two entry points come from one build,
     whose plan sizes the partials."""
 
-    STAND_IN = ("ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq", "ds_flash_bwd_dkv",
-                "ds_flash_bwd_dq_collapsed", "ds_flash_dq_collapsed_parts", "ds_paged_attention_decode",
-                "ds_paged_attention_prefill", "ds_sparse_fwd", "ds_sparse_bwd_dq", "ds_sparse_bwd_dkv")
+    STAND_IN = ("ds_rms_norm", "ds_layer_norm", "ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq",
+                "ds_flash_bwd_dkv", "ds_flash_bwd_dq_collapsed", "ds_flash_dq_collapsed_parts",
+                "ds_paged_attention_decode", "ds_paged_attention_prefill", "ds_sparse_fwd", "ds_sparse_bwd_dq",
+                "ds_sparse_bwd_dkv")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
@@ -546,56 +547,66 @@ def phase_prefill(torch, dev, dtype, S, iters, geom=GEOM, int8=False, feature="n
                 bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_rms(torch, dev, dtype, T, iters):
+def norm_wdtype(torch, dtype, mixed):
+    """The weight's dtype of a norm case: x's, or with ``mixed`` the other one (bf16 x with fp32 w is how the
+    parameters converted from the JAX package, fp32, meet bf16 activations)."""
+    return ({torch.bfloat16: torch.float32, torch.float32: torch.bfloat16}[dtype]) if mixed else dtype
+
+
+def norm_times(torch, kernel, library, x, iters) -> dict:
+    """A norm's eager times (kernel, and the parent's with --parent; the library's where there is one) and
+    its cold device times (kernel, parent, library): a CUDA graph rotating over copies of x, without the
+    host's launch."""
+    return dict(kernel_ms=time_ms(lambda: kernel(x), iters), parent_ms=parent_time(time_ms, lambda: kernel(x), iters),
+                library_ms=library and time_ms(lambda: library(x), iters),
+                kernel_cold_ms=cold_ms(torch, kernel, (x,), iters),
+                parent_cold_ms=parent_time(cold_ms, torch, kernel, (x,), iters),
+                library_cold_ms=library and cold_ms(torch, library, (x,), iters))
+
+
+def phase_rms(torch, dev, dtype, T, iters, mixed=False):
     from deepspeed_tpu_torch.ops import norms
 
     d = GEOM["d"]
     g = torch.Generator(device=dev).manual_seed(T)
     x = torch.randn((1, T, d), generator=g, device=dev).to(dtype)
-    w = torch.randn((d,), generator=g, device=dev).to(dtype)
+    w = torch.randn((d,), generator=g, device=dev).to(norm_wdtype(torch, dtype, mixed))
     got = norms.rms_norm(x, w, 1e-5)
     torch.cuda.synchronize()
     err = errors(got, norms.rms_norm_ref(x, w, 1e-5))
     item = x.element_size()
     nbytes = 2 * T * d * item + d * w.element_size()
     b_ms, b_by = bound(nbytes, 4 * T * d, dtype)
-    k_ms = time_ms(lambda: norms.rms_norm(x, w, 1e-5), iters)
     p_ms = time_ms(lambda: norms.rms_norm_ref(x, w, 1e-5), iters)
-    lib = getattr(torch.nn.functional, "rms_norm", None)
-    l_ms = time_ms(lambda: lib(x, (d,), w, 1e-5), iters) if lib is not None else None
-    cold = {}
-    if T >= 768:  # device time without the host's launch: a CUDA graph rotating over copies of x
-        cold["kernel_cold_ms"] = cold_ms(torch, lambda xx: norms.rms_norm(xx, w, 1e-5), (x,), iters)
-        cold["library_cold_ms"] = cold_ms(torch, lambda xx: lib(xx, (d,), w, 1e-5), (x,), iters) if lib else None
-    return dict(kernel="rms_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d})", **err, tol=TOL[str(dtype)],
-                kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **cold, library_bytes=nbytes, bound_bytes=nbytes,
-                bound_ms=b_ms, bound_by=b_by)
+    times = norm_times(torch, lambda xx: norms.rms_norm(xx, w, 1e-5),
+                       lambda xx: torch.nn.functional.rms_norm(xx, (d,), w, 1e-5), x, iters)
+    return dict(kernel="rms_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d})", wdtype=str(w.dtype), **err,
+                tol=TOL[str(dtype)], plain_ms=p_ms, library="F.rms_norm", **times, library_bytes=nbytes,
+                bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_layer_norm(torch, dev, dtype, T, iters):
+def phase_layer_norm(torch, dev, dtype, T, iters, mixed=False):
     from deepspeed_tpu_torch.ops import norms
 
     d = GPT2_GEOM["d"]
     g = torch.Generator(device=dev).manual_seed(T)
+    wdtype = norm_wdtype(torch, dtype, mixed)
     x = (torch.randn((1, T, d), generator=g, device=dev) * 2.0 + 0.5).to(dtype)
-    w = torch.randn((d,), generator=g, device=dev).to(dtype)
-    b = torch.randn((d,), generator=g, device=dev).to(dtype)
+    w = torch.randn((d,), generator=g, device=dev).to(wdtype)
+    b = torch.randn((d,), generator=g, device=dev).to(wdtype)
     got = norms.layer_norm(x, w, b, 1e-5)
     torch.cuda.synchronize()
     err = errors(got, norms.layer_norm_ref(x, w, b, 1e-5))
     item = x.element_size()
     nbytes = 2 * T * d * item + 2 * d * w.element_size()
     b_ms, b_by = bound(nbytes, 8 * T * d, dtype)
-    k_ms = time_ms(lambda: norms.layer_norm(x, w, b, 1e-5), iters)
     p_ms = time_ms(lambda: norms.layer_norm_ref(x, w, b, 1e-5), iters)
-    l_ms = time_ms(lambda: torch.nn.functional.layer_norm(x, (d,), w, b, 1e-5), iters)
-    # device time without the host's launch: a CUDA graph rotating over copies of x
-    k_cold = cold_ms(torch, lambda xx: norms.layer_norm(xx, w, b, 1e-5), (x,), iters)
-    l_cold = cold_ms(torch, lambda xx: torch.nn.functional.layer_norm(xx, (d,), w, b, 1e-5), (x,), iters)
-    return dict(kernel="layer_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d}) b({d})", **err,
-                tol=TOL[str(dtype)], kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, library="F.layer_norm",
-                kernel_cold_ms=k_cold, library_cold_ms=l_cold, library_bytes=nbytes, bound_bytes=nbytes,
-                bound_ms=b_ms, bound_by=b_by)
+    # F.layer_norm refuses parameters of another type than x's: no library call computes the mixed case
+    library = None if mixed else lambda xx: torch.nn.functional.layer_norm(xx, (d,), w, b, 1e-5)
+    times = norm_times(torch, lambda xx: norms.layer_norm(xx, w, b, 1e-5), library, x, iters)
+    return dict(kernel="layer_norm", dtype=str(dtype), shape=f"x(1,{T},{d}) w({d}) b({d})", wdtype=str(wdtype),
+                **err, tol=TOL[str(dtype)], plain_ms=p_ms, library=library and "F.layer_norm", **times,
+                library_bytes=nbytes, bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
 # (K, N) of the quantised projections: gpt2_1_3b's q/k/v/o, up and down (int8);
@@ -680,6 +691,7 @@ def run_kernel_phases(torch, dev, quick: bool):
         (phase_rms, 8), (phase_rms, 768), (phase_rms, 2048)]
     cases = [lambda dt, fn=fn, n=n: fn(torch, dev, dt, n, iters) for fn, n in sizes]
     if not quick:
+        cases.append(lambda dt: phase_rms(torch, dev, dt, 2048, iters, mixed=True))
         cases += [lambda dt, fn=fn, n=n, f=f: fn(torch, dev, dt, n, iters, feature=f)
                   for f in ("alibi", "window") for fn, n in ((phase_decode, 64), (phase_prefill, 512))]
     return run_cases(torch, cases)
@@ -689,14 +701,14 @@ def run_quant_kernel_phases(torch, dev, quick: bool):
     """The kernels of quantised serving: ``layer_norm``, ``quantized_matmul`` with
     int8 and packed-int4 codes, decode and prefill on int8 pools at both models' heads."""
     iters = 5 if quick else 30
-    norm = lambda T: lambda dt: phase_layer_norm(torch, dev, dt, T, iters)
+    norm = lambda T, mixed=False: lambda dt: phase_layer_norm(torch, dev, dt, T, iters, mixed)
     qmm = lambda M, K, N, bits: lambda dt: phase_qmm(torch, dev, dt, M, K, N, bits, iters)
     decode = lambda B, geom, f="none": lambda dt: phase_decode(torch, dev, dt, B, iters, geom, int8=True, feature=f)
     prefill = lambda S, geom, f="none": lambda dt: phase_prefill(torch, dev, dt, S, iters, geom, int8=True, feature=f)
     if quick:
         return run_cases(torch, [norm(768), qmm(64, 2048, 8192, 8), qmm(64, 4096, 14336, 4), decode(64, GPT2_GEOM),
                                  prefill(512, GPT2_GEOM)])
-    cases = [norm(T) for T in (8, 768, 2048)]
+    cases = [norm(T) for T in (8, 768, 2048)] + [norm(2048, mixed=True)]
     cases += [qmm(M, K, N, bits) for bits, shapes in ((8, QMM_INT8), (4, QMM_INT4)) for K, N in shapes
               for M in (8, 64, 512, 1024)]
     for geom in (GPT2_GEOM, GEOM):
@@ -1256,7 +1268,10 @@ def profile_serve(torch, engine, waves, model) -> None:
     # paged_decode_kernel (bf16) and decode_kernel (fp32); a combine of split partials counts as decode
     cats = {"paged_attention_decode": ("decode_kernel", "paged_combine_kernel"),
             "paged_attention_prefill": ("prefill_kernel",),
-            "rms_norm": ("rms_norm",), "layer_norm": ("layer_norm_vec", "layer_norm_plain"),
+            # layer_norm by this tree's and a --parent tree's kernel names: a bare "layer_norm" also matches
+            # PyTorch's vectorized_layer_norm_kernel
+            "rms_norm": ("rms_norm",),
+            "layer_norm": ("layer_norm_rows", "layer_norm_general", "layer_norm_vec", "layer_norm_plain"),
             "quantized_matmul": ("qmm_",), "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
     log(dict(phase="profile", model=model, **profiled(torch, run, cats)))
 

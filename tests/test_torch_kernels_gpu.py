@@ -51,13 +51,33 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,wdtype", [((3, 4096), None), ((1, 7, 4096), torch.float32), ((5, 128), None),
-                                          ((2, 100), None)])
-def test_rms_norm_kernel(cuda, dtype, shape, wdtype):
-    g = _gen(cuda)
-    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    w = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype or dtype)
+# The norms' row body (csrc/norm_rows.cuh) has a bucket per power of two of 16-byte vectors a row, up to d
+# 8192: d 64 and 128 (the qk-norm's head_dim) on sub-warp teams, 768 and 2048 on a warp, 4096 and 8192 on
+# several warps. 1000 falls between buckets; 8200 is past the largest and 100 is not whole vectors in bf16
+# (both take the general kernel). Rows: one, partial blocks, a tail and more rows than a wave of teams.
+NORM_WIDTHS = [64, 128, 768, 1000, 2048, 4096, 8192, 8200, 100]
+NORM_ROWS = [1, 7, 8, 133, 2049]
+# (x, w): each alone, and the mixed pairs (bf16 x with the fp32 parameters converted from the JAX package)
+NORM_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16)]
+
+
+def _norm_inputs(dev, dtype, wdtype, rows, d, mean=0.0, offset=False):
+    """x (rows, d) (as (1, 7, d) at 7 rows, so that leading dims flatten), w, b; with ``offset`` x starts one
+    element past a 16-byte boundary, so that it must take the general kernel."""
+    g = _gen(dev, rows * 10_000 + d)
+    x = torch.randn((rows * d + offset,), generator=g, device=dev) * 2.0 + mean
+    x = x.to(dtype)[int(offset):].view((1, 7, d) if rows == 7 else (rows, d))
+    w = torch.randn(d, generator=g, device=dev).to(wdtype)
+    b = torch.randn(d, generator=g, device=dev).to(wdtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype,wdtype", NORM_DTYPES)
+@pytest.mark.parametrize("rows", NORM_ROWS)
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_rms_norm_kernel(cuda, dtype, wdtype, rows, d):
+    x, w, _ = _norm_inputs(cuda, dtype, wdtype, rows, d)
     n0 = norms.rms_norm.launches
     got = norms.rms_norm(x, w)
     torch.cuda.synchronize()
@@ -66,20 +86,55 @@ def test_rms_norm_kernel(cuda, dtype, shape, wdtype):
     assert err <= TOL[dtype], err
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,wdtype", [((3, 2048), None), ((1, 7, 2048), torch.float32), ((5, 128), None),
-                                          ((2, 100), None), ((2, 4096), torch.bfloat16)])
-def test_layer_norm_kernel(cuda, dtype, shape, wdtype):
-    g = _gen(cuda)
-    x = (torch.randn(shape, generator=g, device=cuda) * 2.0 + 3.0).to(dtype)
-    w = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype or dtype)
-    b = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype or dtype)
+@pytest.mark.parametrize("dtype,wdtype", NORM_DTYPES)
+@pytest.mark.parametrize("rows", NORM_ROWS)
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_layer_norm_kernel(cuda, dtype, wdtype, rows, d):
+    x, w, b = _norm_inputs(cuda, dtype, wdtype, rows, d, mean=3.0)
     n0 = norms.layer_norm.launches
     got = norms.layer_norm(x, w, b)
     torch.cuda.synchronize()
     assert norms.layer_norm.launches == n0 + 1
     err = _err(got, norms.layer_norm_ref(x, w, b))
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype,wdtype", NORM_DTYPES)
+@pytest.mark.parametrize("d", [128, 2048, 4096])
+def test_norm_kernels_on_unaligned_input(cuda, dtype, wdtype, d):
+    """x one element past a 16-byte boundary takes the general kernel, once, and is still right."""
+    x, w, b = _norm_inputs(cuda, dtype, wdtype, 133, d, mean=3.0, offset=True)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    for fn, ref, params in ((norms.rms_norm, norms.rms_norm_ref, (w,)),
+                            (norms.layer_norm, norms.layer_norm_ref, (w, b))):
+        n0 = fn.launches
+        got = fn(x, *params)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        err = _err(got, ref(x, *params))
+        assert err <= TOL[dtype], (fn.__name__, err)
+
+
+@pytest.mark.parametrize("dtype,wdtype", NORM_DTYPES)
+@pytest.mark.parametrize("d", [64, 2048, 4096, 100])
+def test_layer_norm_kernel_large_mean(cuda, dtype, wdtype, d):
+    """Rows of mean 50: the two-pass variance keeps the precision that E[x^2] - mean^2 would lose. Held on
+    the per-row relative error in both types: in fp32 each side's rounding of a mean of 50 (2**-24 * 50 =
+    3e-6, in another summation order on each side) moves y by up to ~1.2e-5 absolute against values of ~8."""
+    x, w, b = _norm_inputs(cuda, dtype, wdtype, 133, d, mean=50.0)
+    got, want = norms.layer_norm(x, w, b), norms.layer_norm_ref(x, w, b)
+    diff = (got.float() - want.float()).flatten(0, -2).abs().amax(-1)
+    err = (diff / want.float().flatten(0, -2).abs().amax(-1)).max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype,wdtype", NORM_DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 2048, 4096, 8192, 100])
+def test_norm_kernels_repeat_bit_for_bit(cuda, dtype, wdtype, d):
+    x, w, b = _norm_inputs(cuda, dtype, wdtype, 2049, d, mean=1.0)
+    for fn, params in ((norms.rms_norm, (w,)), (norms.layer_norm, (w, b))):
+        first, second = fn(x, *params), fn(x, *params)
+        assert torch.equal(first, second), fn.__name__
 
 
 def test_norm_gradients_on_the_card(cuda):

@@ -25,7 +25,8 @@ from deepspeed_tpu_torch.ops.norms import layer_norm, layer_norm_ref, rms_norm, 
 TOL = 1e-5
 
 
-@pytest.mark.parametrize("shape", [(8, 64), (2, 5, 128), (1, 3, 4096)])
+# (300, 4096): llama3_8b's width at a few hundred rows; (1, 12, 32, 128): the qk-norm, rows = T x H of head_dim
+@pytest.mark.parametrize("shape", [(8, 64), (2, 5, 128), (1, 3, 4096), (300, 4096), (1, 12, 32, 128)])
 @pytest.mark.parametrize("offset", [False, True])
 def test_rms_norm_matches_jax(shape, offset):
     rng = np.random.default_rng(0)
@@ -71,7 +72,7 @@ def test_rms_norm_gradients_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(8, 64), (2, 5, 128), (1, 3, 2048)])
+@pytest.mark.parametrize("shape", [(8, 64), (2, 5, 128), (1, 3, 2048), (300, 2048)])
 @pytest.mark.parametrize("mean", [0.0, 50.0])
 def test_layer_norm_matches_jax(shape, mean):
     rng = np.random.default_rng(3)
@@ -118,6 +119,27 @@ def test_layer_norm_bf16_input_and_mixed_parameter_dtype(wdtype):
     want32 = layer_norm_xla(jnp.asarray(x), jnp.asarray(w).astype(jdt), jnp.asarray(b).astype(jdt), 1e-5)
     assert got32.dtype == torch.float32
     np.testing.assert_allclose(got32.numpy(), np.asarray(want32), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_bf16_input_and_mixed_weight_dtype(wdtype):
+    """bf16 activations with the fp32 weights converted from the JAX package (and with bf16 weights), at
+    llama3_8b's width; fp32 input with a weight of either dtype keeps fp32 output."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 40, 4096)).astype(np.float32) * 2.0
+    w = rng.standard_normal(4096).astype(np.float32)
+    tw = torch.from_numpy(w).to(wdtype)
+    jw = jnp.asarray(w).astype(jnp.bfloat16 if wdtype == torch.bfloat16 else jnp.float32)
+    want = rms_norm_xla(jnp.asarray(x).astype(jnp.bfloat16), jw, 1e-5)
+    got = rms_norm(torch.from_numpy(x).to(torch.bfloat16), tw, 1e-5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=1e-2, atol=1e-2)
+    want_pallas = jax_rms_norm(jnp.asarray(x).astype(jnp.bfloat16), jw, 1e-5, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want_pallas.astype(jnp.float32)), rtol=1e-2,
+                               atol=1e-2)
+    got32 = rms_norm(torch.from_numpy(x), tw, 1e-5)
+    assert got32.dtype == torch.float32
+    np.testing.assert_allclose(got32.numpy(), np.asarray(rms_norm_xla(jnp.asarray(x), jw, 1e-5)), rtol=TOL, atol=TOL)
 
 
 def test_layer_norm_cpu_call_takes_plain_version_and_counts_no_launch():
