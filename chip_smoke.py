@@ -43,7 +43,25 @@ Phases, each fatal on failure:
    seeded prompts of 16-1500 tokens in two waves (the second wave shares a
    256-token prefix with the first, so the prefix cache is hit). The kernel
    launch counters are zeroed just before and read just after; every kernel
-   must have launched. Then the quantised main paths the same way, each
+   must have launched. Each step replays its bucket's captured CUDA graph:
+   graph replays must equal the steps and the fused quanta, and the captures,
+   their host seconds and the evictions are printed; the launch counters
+   count each replay as its capture's launches. The waves are then served in
+   turns with each step eager (the parent's dispatch) and on graphs
+   (eager, graphs, graphs, eager), every run's tokens equal to the first's;
+   again on an engine built with ``DS_TPU_PROGRAM_CACHE=16`` (the waves take
+   11 graphs; at the default 8 they are captured again and again); then
+   through the unfused loop (``fused_step=False``: a prefill step per chunk
+   bucket, a decode step, bursts), on graphs and again with eager steps,
+   whose tokens must be equal; its agreement with the fused loop's tokens is
+   printed (in bf16 the two loops' products have other row counts and round
+   otherwise; the card tests hold the two loops to the CPU in fp32); then
+   ``sla``: ``sla.run_load`` with 24 requests a row (a shared
+   256-token prefix and 16-1500 more tokens, 32 new tokens, greedy), every
+   arrival at t = 0 and then Poisson rows at 1/4, 1/2 and 3/4 of that row's
+   requests/s, each with tokens/s, TTFT and TPOT percentiles and its SLA
+   misses, and ``effective_throughput_at_sla`` at the FastGen SLA (TTFT 1 s,
+   TPOT 250 ms). Then the quantised main paths the same way, each
    with its counters zeroed before and read after: gpt2_1_3b at full width
    and depth with ``quant_bits=8`` and ``kv_quant_bits=8`` (prompts of 16-960
    tokens, max_context 1024), and llama3_8b at full width and depth with
@@ -57,7 +75,8 @@ Phases, each fatal on failure:
    fused AdamW (kernel D) over the ``wte`` leaf and over all 388 leaves of
    gpt2_1_3b, against their plain versions, each with its bound and a
    library yardstick (SDPA forward and backward; ``torch.optim.AdamW(fused=
-   True)``), timed here only;
+   True)``, Adam and the library three times each in alternating order,
+   their medians), timed here only;
 7. train parity: gpt2_1_3b at full width and 2 layers, fp32 and bf16, one
    engine step with the kernels and one with their plain versions from the
    same weights and batch: loss, per-leaf gradients, parameters after it;
@@ -844,7 +863,8 @@ def gpt2_leaf_shapes():
 def phase_adam(torch, dev, which, iters):
     """Kernel D over the wte leaf or over every gpt2_1_3b leaf (one launch per
     leaf), against its plain version; torch.optim.AdamW(fused=True) over the
-    same leaves as the yardstick."""
+    same leaves as the yardstick, the two timed three times each in
+    alternating order (``kernel_ms`` and ``library_ms`` are the medians)."""
     from deepspeed_tpu_torch.ops import fused_adam as fad
 
     shapes = gpt2_leaf_shapes()
@@ -874,21 +894,27 @@ def phase_adam(torch, dev, which, iters):
     del ref, pairs
     step = lambda: [fad.fused_adam(p, grad, m, v, scal, **hyper) for p, grad, m, v in leaves]
     plain = lambda: [fad.fused_adam_ref(p, grad, m, v, scal, **hyper) for p, grad, m, v in leaves]
-    k_ms = time_ms(step, iters)
     p_ms = time_ms(plain, max(2, iters // 5))
     params = [p for p, _, _, _ in leaves]
     for p, grad, _, _ in leaves:
         p.grad = grad
     opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
-    l_ms = time_ms(opt.step, iters)
+    # the kernel and the library three times each, in alternating order (kernel first, then library first,
+    # then kernel first): their medians and spreads
+    runs = {"kernel": [], "library": []}
+    for order in (("kernel", "library"), ("library", "kernel"), ("kernel", "library")):
+        for name in order:
+            runs[name].append(time_ms(step if name == "kernel" else opt.step, iters))
     del opt
+    k_ms, l_ms = sorted(runs["kernel"])[1], sorted(runs["library"])[1]
+    alternating = {name: dict(ms=ts, median=sorted(ts)[1], spread=max(ts) - min(ts)) for name, ts in runs.items()}
     nbytes = 28 * n
     b_ms, b_by = bound(nbytes, 15 * n, torch.float32)
     return dict(kernel="fused_adam", case=which, dtype="torch.float32", shape=f"{len(leaves)} leaves, {n} elements",
                 max_rel_err=rel, max_abs_err=abs_err, tol=("max_rel_err", 1e-6), launches_per_step=len(leaves),
                 kernel_ms=k_ms,
-                plain_ms=p_ms, library_ms=l_ms, library="torch.optim.AdamW(fused=True)", bound_bytes=nbytes,
-                bound_ms=b_ms, bound_by=b_by)
+                plain_ms=p_ms, library_ms=l_ms, library="torch.optim.AdamW(fused=True)", alternating=alternating,
+                bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
 def run_train_kernel_phases(torch, dev, quick: bool):
@@ -1254,11 +1280,12 @@ def profiled(torch, fn, cats) -> dict:
 MATMUL = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 
-def profile_serve(torch, engine, waves, model) -> None:
+def profile_serve(torch, engine, waves, model, dispatch="graphs") -> None:
     """Device-time breakdown of the serving waves under torch.profiler: a
     separate pass after the timed one, with the prefix cache reset first so
     that it repeats the same admissions. Profiling slows the host, so only
-    the shares are meant to be read, not the pass's wall time."""
+    the shares are meant to be read, not the pass's wall time. ``dispatch``
+    names the engine's step mode (``_eager_steps``) during the pass."""
     engine.state.reset_prefix_cache()
 
     def run():
@@ -1273,13 +1300,23 @@ def profile_serve(torch, engine, waves, model) -> None:
             "rms_norm": ("rms_norm",),
             "layer_norm": ("layer_norm_rows", "layer_norm_general", "layer_norm_vec", "layer_norm_plain"),
             "quantized_matmul": ("qmm_",), "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
-    log(dict(phase="profile", model=model, **profiled(torch, run, cats)))
+    log(dict(phase="profile", model=model, dispatch=dispatch, **profiled(torch, run, cats)))
 
 
 # The serving runs: the longest prompt, max_context, the engine's quantisation fields, and the kernel
 # launches per forward that the model's structure fixes
 SERVE_RUNS = {
-    "llama3_8b": dict(longest=1500, max_context=8192, quant={}, per_forward={"rms_norm": 65}),
+    # the main path; its waves are served again with each step eager (the parent's dispatch) and on graphs
+    "llama3_8b": dict(longest=1500, max_context=8192, quant={}, per_forward={"rms_norm": 65},
+                      compare_eager=(True, False, False, True)),
+    # the same with DS_TPU_PROGRAM_CACHE=16, above the 11 graphs the waves take (8, the default, re-captures):
+    # after the first run every step is a replay
+    "llama3_8b_cache16": dict(longest=1500, max_context=8192, quant={}, per_forward={"rms_norm": 65},
+                              compare_eager=(True, False, False, True), program_cache=16),
+    # the same waves through the unfused loop: a prefill step per chunk bucket, a decode step, bursts; served
+    # again with eager steps
+    "llama3_8b_unfused": dict(longest=1500, max_context=8192, quant=dict(fused_step=False),
+                              per_forward={"rms_norm": 65}, compare_eager=(True,)),
     # 24 layers x (2 norms; q, k, v, o, up, down) + the final norm; the tied head stays a dense product
     "gpt2_1_3b_w8_kv8": dict(longest=960, max_context=1024, quant=dict(quant_bits=8, kv_quant_bits=8),
                              per_forward={"layer_norm": 49, "quantized_matmul": 144}),
@@ -1298,9 +1335,57 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
+def graph_counts(engine) -> dict:
+    """The engine's step counters (``dispatches``: graph replays or eager
+    step calls; ``fused_quanta``) and its graph cache's."""
+    g = engine.graphs
+    return dict(dispatches=engine.dispatches, quanta=engine.fused_quanta, graph_replays=g.replays,
+                captures=g.captures, capture_s=g.capture_s, evictions=g.evictions)
+
+
+def counts_since(engine, before: dict) -> dict:
+    return {k: v - before[k] for k, v in graph_counts(engine).items()}
+
+
+def dispatch_ab(torch, engine, waves, want, turns) -> dict:
+    """The serving waves again, with each step replayed from its graph and with
+    each step run eagerly (``_eager_steps``: the parent's dispatch), in
+    ``turns`` (True: eager), the prefix cache reset before each: the tokens/s
+    of each and the graphs' captures; every run's tokens must equal
+    ``want``, the first run's."""
+    runs = []
+    for eager in turns:
+        engine.state.reset_prefix_cache()
+        engine._eager_steps = eager
+        before = graph_counts(engine)
+        t0 = time.perf_counter()
+        out = [t for wave in waves for t in engine.generate(wave, max_new_tokens=32)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if out != want:
+            raise AssertionError(f"serve: the {'eager' if eager else 'graph'} steps' tokens differ from the first run's")
+        runs.append(dict(dispatch="eager" if eager else "graphs", wall_s=wall,
+                         tokens_per_s=sum(len(o) for o in out) / wall, **counts_since(engine, before)))
+    engine._eager_steps = False
+    return dict(runs=runs, tokens_equal=True)
+
+
+def agreement(out, other) -> dict:
+    """How far two runs' tokens agree: equal tokens, equal requests, and each
+    request's first differing position (None where all agree)."""
+    first = [next((i for i, (a, b) in enumerate(zip(o, w)) if a != b), None) for o, w in zip(out, other)]
+    return dict(equal_tokens=sum(a == b for o, w in zip(out, other) for a, b in zip(o, w)),
+                tokens=sum(len(w) for w in other), equal_requests=first.count(None), first_difference=first)
+
+
+def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None, beside=None):
     """One serving run through ``InferenceEngineV2.generate``: the counters in
-    ``counters`` are zeroed just before the two waves and read just after."""
+    ``counters`` are zeroed just before the two waves and read just after.
+    Each step replays its bucket's CUDA graph: the graph replays must equal
+    the steps (and the fused quanta), and the captures and their seconds are
+    printed. ``want``: tokens the run must give; ``beside``: tokens it is
+    compared with and the agreement printed (the unfused loop's bf16 products
+    have other row counts than the fused loop's, so they round otherwise)."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
@@ -1315,9 +1400,18 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
     init_s = time.perf_counter() - t0
     bf16_weight_bytes = tree_bytes(params)
     t0 = time.perf_counter()
+    cache_knob = os.environ.get("DS_TPU_PROGRAM_CACHE")
+    if "program_cache" in spec:
+        os.environ["DS_TPU_PROGRAM_CACHE"] = str(spec["program_cache"])
     engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
         state_manager=RaggedBatchConfig(max_context=spec["max_context"], kv_block_size=128, memory_gb=8.0),
         dtype="bfloat16", device=str(dev), **spec["quant"]))
+    if "program_cache" in spec:  # the knob is read when the engine is built: restore it for the next phases
+        if cache_knob is None:
+            del os.environ["DS_TPU_PROGRAM_CACHE"]
+        else:
+            os.environ["DS_TPU_PROGRAM_CACHE"] = cache_knob
+    fused = engine._fused_enabled
     del params  # a quantised engine holds codes and scales only: let the bf16 kernels go
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1336,6 +1430,7 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
     torch.cuda.synchronize()
     hits.clear()
     torch.cuda.reset_peak_memory_stats()
+    before = graph_counts(engine)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1343,6 +1438,7 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    steps = counts_since(engine, before)
     n_out = sum(len(o) for o in out)
     slot_heads = 2 * cfg.n_layers * 128 * cfg.kv_heads  # K and V entries of one block, all layers
     int8_pool = kv_pool_is_quantized(engine.k_pages)
@@ -1357,8 +1453,17 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
                kv_block_bytes_bf16=slot_heads * cfg.head_dim * 2,
                prefix_hit_tokens=sum(hits), max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, forwards=launches[next(iter(spec["per_forward"]))] / next(iter(
-                   spec["per_forward"].values())))
+                   spec["per_forward"].values())), loop="fused" if fused else "unfused", **steps,
+               graphs_live=len(engine.graphs), program_cache=engine._max_program_variants)
     log(rec)
+    if steps["graph_replays"] != steps["dispatches"] or (fused and steps["quanta"] != steps["dispatches"]):
+        raise AssertionError(f"serve {run}: {steps['graph_replays']} graph replays, {steps['dispatches']} steps, "
+                             f"{steps['quanta']} fused quanta: each step must be one replay"
+                             + (" and each quantum one step" if fused else ""))
+    if want is not None and out != want:
+        raise AssertionError(f"serve {run}: tokens differ from the wanted run's: {agreement(out, want)}")
+    if beside is not None:
+        log(dict(phase="serve agreement", run=run, beside="llama3_8b (fused loop)", **agreement(out, beside)))
     if not all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o) for o in out):
         raise AssertionError(f"serve {run}: a request did not get 32 in-vocab tokens")
     if sum(hits) == 0:
@@ -1374,12 +1479,82 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False):
             or not cfg.n_layers * n_fwd <= paged <= 2 * cfg.n_layers * n_fwd):
         raise AssertionError(f"serve {run}: launches {launches} do not fit {spec['per_forward']} per forward "
                              f"and {cfg.n_layers} layers")
+    if spec.get("compare_eager"):
+        rec = dict(rec, dispatch_ab=dispatch_ab(torch, engine, (wave1, wave2), out, spec["compare_eager"]))
+        log(dict(phase="serve dispatch", run=run, **rec["dispatch_ab"]))
     if profile:
         profile_serve(torch, engine, (wave1, wave2), run)
+        if spec.get("compare_eager") and fused:
+            engine._eager_steps = True
+            profile_serve(torch, engine, (wave1, wave2), run, dispatch="eager")
     del engine
     gc.collect()  # the engine's closures form cycles: free its pools and weights before the next phase
     torch.cuda.empty_cache()
+    rec["tokens"] = out
     return rec
+
+
+# The SLA load: 24 requests a row, each a shared 256-token system prompt and a tail of 16-1,500 tokens,
+# 32 new tokens, greedy; a row with every arrival at t = 0, then Poisson rows at fractions of its requests/s
+SLA_SPEC = dict(n_requests=24, prompt_len_range=(16, 1500), max_new_tokens=32, shared_prefix_len=256, seed=0)
+SLA_FRACTIONS = (0.25, 0.5, 0.75)
+
+
+def phase_sla(torch, dev, counters):
+    """``sla.run_load`` on llama3_8b at full size (bf16, the serve run's engine
+    configuration, random weights from seed 0): the saturation row, then the
+    rows of ``SLA_FRACTIONS``, the prefix cache reset before each row; each
+    row's tokens/s, TTFT and TPOT percentiles and SLA misses, and
+    ``effective_throughput_at_sla`` at the FastGen SLA (TTFT 1 s, TPOT
+    250 ms). Every request must get its 32 in-vocab tokens and every kernel
+    in ``counters`` must launch in each row."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2 import sla
+    from deepspeed_tpu_torch.models import init_params
+
+    cfg = model_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(max_context=8192, kv_block_size=128, memory_gb=8.0), dtype="bfloat16",
+        device=str(dev)))
+    del params
+    base = sla.LoadSpec(vocab_size=cfg.vocab_size, **SLA_SPEC)
+    engine.generate([sla.load_prompts(base)[1][0][:32]], max_new_tokens=4)  # warm-up, as in serve
+    torch.cuda.synchronize()
+    rows = []
+
+    def row(rate: float) -> dict:
+        engine.state.reset_prefix_cache()
+        before = graph_counts(engine)
+        for fn in counters:
+            fn.launches = 0
+        stats = sla.run_load(engine, dataclasses.replace(base, arrival_rate=rate))
+        torch.cuda.synchronize()
+        rec = dict(phase="sla", model="llama3_8b", arrival_rate=rate, **sla.summarize(stats),
+                   launches={fn.__name__: fn.launches for fn in counters}, **counts_since(engine, before))
+        log(rec)
+        if not all(s.n_new == base.max_new_tokens and all(0 <= t < cfg.vocab_size for t in s.tokens)
+                   for s in stats):
+            raise AssertionError(f"sla at {rate} requests/s: a request did not get {base.max_new_tokens} "
+                                 "in-vocab tokens")
+        if any(n <= 0 for n in rec["launches"].values()) or rec["graph_replays"] != rec["dispatches"]:
+            raise AssertionError(f"sla at {rate} requests/s: launches {rec['launches']}, {rec['graph_replays']} "
+                                 f"replays for {rec['dispatches']} steps")
+        rows.append(rec)
+        return rec
+
+    saturated = row(float("inf"))["requests_per_sec"]
+    for frac in SLA_FRACTIONS:
+        row(frac * saturated)
+    out = dict(phase="sla", effective_throughput_at_sla=sla.effective_throughput_at_sla(rows), ttft_sla_s=1.0,
+               tpot_sla_s=0.25, max_miss=0.01, rates=[r["arrival_rate"] for r in rows])
+    log(out)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- training run
@@ -2537,6 +2712,13 @@ def main(argv) -> int:
     paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
     counters = paged + [norms.rms_norm]
     serve = phase_serve(torch, dev, counters, "llama3_8b", profile)
+    phase_serve(torch, dev, counters, "llama3_8b_cache16", profile, want=serve["tokens"])
+    t0 = time.perf_counter()
+    phase_serve(torch, dev, counters, "llama3_8b_unfused", profile, beside=serve["tokens"])
+    log(dict(phase="serve_unfused", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_sla(torch, dev, counters)
+    log(dict(phase="sla", seconds=time.perf_counter() - t0))
     serve_w8 = phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
     serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]

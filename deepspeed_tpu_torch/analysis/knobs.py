@@ -67,8 +67,8 @@ def get_bool(name: str, default: Optional[bool] = None) -> bool:
 
 # Serving engine (inference/v2/engine_v2.py)
 declare("DS_TPU_SERVE_FUSED", "1", "bool",
-        "Serve with the single-dispatch fused SplitFuse step (the unfused loop is not ported; "
-        "0 raises).",
+        "Serve with the single-dispatch fused SplitFuse step (0 serves with the unfused loop: a "
+        "prefill step per chunk bucket and a decode step).",
         "inference/v2/engine_v2.py")
 declare("DS_TPU_DECODE_BURST", "32", "int",
         "Max fused greedy-decode steps per quantum (0 disables bursting).",
@@ -85,7 +85,8 @@ declare("DS_TPU_MAX_BATCH_TOKENS", "0", "int",
         "default 768).",
         "inference/v2/engine_v2.py")
 declare("DS_TPU_PROGRAM_CACHE", "8", "int",
-        "Max live fused-step variants before LRU eviction.",
+        "Max live step variants (closures per family; captured CUDA graphs per engine) before LRU "
+        "eviction.",
         "inference/v2/engine_v2.py")
 # Paged-KV state manager (inference/v2/ragged/manager.py)
 declare("DS_TPU_PREFIX_CACHE", "1", "bool",

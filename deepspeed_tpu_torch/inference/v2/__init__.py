@@ -1,7 +1,9 @@
-"""Inference v2 — ragged continuous-batching serving (the fused SplitFuse path).
+"""Inference v2 — ragged continuous-batching serving.
 
-Port of ``deepspeed_tpu/inference/v2``: ``InferenceEngineV2`` over the
-paged-KV bookkeeping of ``ragged/`` and the ``RaggedBatchScheduler``.
+Port of ``deepspeed_tpu/inference/v2``: ``InferenceEngineV2`` (the fused
+SplitFuse loop and the unfused loop, ``put``) over the paged-KV bookkeeping
+of ``ragged/`` and the ``RaggedBatchScheduler``; one captured CUDA graph per
+step key on the card (``graphs``); the SLA load harness (``sla``).
 """
 
 from .ragged import BlockedAllocator, DSSequenceDescriptor, DSStateManager, PrefixCache, RaggedBatchConfig

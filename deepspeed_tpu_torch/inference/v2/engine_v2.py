@@ -1,8 +1,14 @@
-"""InferenceEngineV2 — continuous-batching ragged serving on the fused SplitFuse path.
+"""InferenceEngineV2 — continuous-batching ragged serving.
 
-Port of ``deepspeed_tpu/inference/v2/engine_v2.py`` (fused loop):
-``generate`` -> ``_generate_fused`` -> ``RaggedBatchScheduler.
-schedule_fused`` -> ``_run_fused`` -> the step of ``make_fused_step_fn``.
+Port of ``deepspeed_tpu/inference/v2/engine_v2.py``, both serving loops:
+- fused (the default): ``generate`` -> ``_generate_fused`` ->
+  ``RaggedBatchScheduler.schedule_fused`` -> ``_run_fused`` -> the step of
+  ``make_fused_step_fn``, one step per scheduler quantum;
+- unfused (``fused_step=False`` or ``DS_TPU_SERVE_FUSED=0``):
+  ``_generate_unfused`` -> ``schedule`` -> ``put`` (one prefill step per
+  chunk-length bucket, one decode step for the single-token rows), with
+  pure-decode stretches run as multi-step bursts (``_run_decode_burst``).
+  ``put`` is also the engine's public one-step API.
 
 - The KV cache is a stacked page pool ``(layers, blocks, block_size, KVH,
   D)`` pair on the device, updated in place (the JAX engine donates it).
@@ -19,11 +25,16 @@ schedule_fused`` -> ``_run_fused`` -> the step of ``make_fused_step_fn``.
 - With no EOS cut and no streaming callback (deferred mode) the token carry
   stays on the device between quanta, and the only host sync of a
   ``generate`` is the final fetch.
+- On a CUDA engine every step runs as the captured CUDA graph of its bucket
+  (``graphs.StepGraphs``, LRU-bounded by ``DS_TPU_PROGRAM_CACHE``), the
+  counterpart of the JAX engine's one jitted program per bucket. A CPU
+  engine runs each step eagerly; so does a CUDA engine whose private
+  ``_eager_steps`` is set, which only the card tests and ``chip_smoke.py``
+  do, to hold the graphs to the eager steps.
 
 The engine runs on ``config.device`` (default ``"cuda"``, which raises
-without a GPU). The unfused loop, ``put``, telemetry, journal, tensor
-parallelism, speculative decoding and the host spill tier come with later
-slices.
+without a GPU). Telemetry, journal, tensor parallelism, speculative
+decoding and the host spill tier come with later slices.
 """
 
 import dataclasses
@@ -37,8 +48,10 @@ from ...analysis import knobs
 from ...device import resolve_device
 from ...models.transformer import TransformerConfig
 from ...ops.paged_attention import make_kv_pool
+from ..generation import sample_logits
 from ..quantization import QuantizedParam, quantize_for_serving
-from .model_runner import make_fused_step_fn
+from .graphs import StepGraphs
+from .model_runner import make_burst_fn, make_fused_step_fn, make_step_fns
 from .modules import build_modules
 from .ragged.manager import DSStateManager, RaggedBatchConfig
 from .scheduler import FusedQuantum, RaggedBatchScheduler, RaggedRequest
@@ -58,6 +71,8 @@ class RaggedInferenceEngineConfig:
     dtype: str = "bfloat16"
     device: str = "cuda"  # "cuda" (raises without a GPU) or "cpu" (the kernels' plain versions)
     decode_burst: Optional[int] = None  # max fused decode steps per quantum; None: DS_TPU_DECODE_BURST
+    fused_step: Optional[bool] = None  # one step per scheduler quantum (SplitFuse); False: the unfused
+    # loop (a prefill step per chunk bucket and a decode step). None: on unless DS_TPU_SERVE_FUSED=0
     enable_prefix_cache: Optional[bool] = None  # None: DS_TPU_PREFIX_CACHE
     min_decode_bucket: Optional[int] = None  # padded decode batch floor; None: DS_TPU_MIN_DECODE_BUCKET
     # weight-only quantisation: matmul kernels stored as int8 codes, dequantised in the matmul kernel
@@ -93,9 +108,10 @@ class InferenceEngineV2:
             config.decode_burst = knobs.get_int("DS_TPU_DECODE_BURST")
         if config.min_decode_bucket is None:
             config.min_decode_bucket = max(1, knobs.get_int("DS_TPU_MIN_DECODE_BUCKET"))
-        if not knobs.get_bool("DS_TPU_SERVE_FUSED"):
-            raise NotImplementedError("DS_TPU_SERVE_FUSED=0 selects the unfused loop, which is not ported: "
-                                      "only the fused SplitFuse loop is")
+        fused = config.fused_step
+        if fused is None:
+            fused = knobs.get_bool("DS_TPU_SERVE_FUSED")
+        self._fused_enabled = bool(fused)
         self.model = model
         cfg: TransformerConfig = model if isinstance(model, TransformerConfig) else model.cfg
         self.cfg = cfg
@@ -162,11 +178,22 @@ class InferenceEngineV2:
             self.params = quantize_for_serving(self.params, num_bits=config.quant_bits,
                                                group_size=config.quant_group_size, min_size=config.quant_min_size)
         self._mods = build_modules()
+        self._prefill_fn, self._decode_fn = make_step_fns(run_cfg, mods=self._mods)
         self._max_program_variants = max(1, knobs.get_int("DS_TPU_PROGRAM_CACHE"))
+        self._bursts: Dict[tuple, object] = {}  # sampling signature -> burst function
         self._fused_fns: Dict[tuple, object] = {}  # (bucket shape, sampling) -> step function
         self._sampling = None  # (do_sample, temperature, top_k, top_p) during generate()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
+        # one captured graph per step key on the card; the pools and weights keep their storage for the
+        # engine's life (the graphs hold their addresses)
+        self._eager_steps = self.device.type != "cuda"
+        self.graphs = None
+        if self.device.type == "cuda":
+            self.graphs = StepGraphs(self.device, self._max_program_variants,
+                                     [f for f in self._mods if hasattr(f, "launches")])
+        self.dispatches = 0  # steps run: graph replays, or eager step calls
+        self.fused_quanta = 0
 
     # ---------------------------------------------------------- feasibility
     def query(self, uid: int, max_request_length: int) -> Tuple[int, int]:
@@ -186,6 +213,58 @@ class InferenceEngineV2:
             need = seq.blocks_needed(len(tokens))
         return self.state.can_allocate(need)
 
+    # ---------------------------------------------------------- core step
+    def put(self, batch_uids: Sequence[int], batch_tokens: Sequence[Sequence[int]], return_tokens: bool = False,
+            _defer: bool = False):
+        """Run one engine step over a ragged batch; returns next-token logits
+        (B, V) as numpy.
+
+        Sequences with several tokens run as (chunked) prefill, one step per
+        padded length bucket; known sequences with a single token join one
+        paged-decode step. ``return_tokens=True`` chooses the tokens on the
+        device (argmax, or a draw during a sampling ``generate``) and returns
+        (B,) ids. ``_defer`` (the serving loop's): the same routing, but token
+        entries may be 0-d device tensors and the return is a list of per-row
+        device tensors, with no host sync.
+        """
+        if len(batch_uids) != len(batch_tokens):
+            raise ValueError("uids and token lists must align")
+        if len(set(batch_uids)) != len(batch_uids):
+            # two chunks of one sequence in one step would read the same start position and overwrite each
+            # other's KV slots: the scheduler never emits this
+            raise ValueError("duplicate uid in one put() batch: submit a sequence's chunks in separate steps")
+        by_idx: Dict[int, object] = {}
+        decode_idx: List[int] = []
+        prefill_groups: Dict[int, List[int]] = {}  # padded length bucket -> indices
+        for i, (uid, toks) in enumerate(zip(batch_uids, batch_tokens)):
+            seq = self.state.get_sequence(uid)
+            if seq is not None and len(toks) == 1:
+                decode_idx.append(i)
+            else:
+                prefill_groups.setdefault(max(16, _next_pow2(len(toks))), []).append(i)
+
+        # prefills sharing a length bucket run as one step
+        for S, idxs in prefill_groups.items():
+            rows = self._run_prefill_batch([batch_uids[i] for i in idxs], [list(batch_tokens[i]) for i in idxs], S,
+                                           return_tokens=return_tokens, defer=_defer)
+            for j, i in enumerate(idxs):
+                by_idx[i] = rows[j]
+
+        if decode_idx:
+            uids = [batch_uids[i] for i in decode_idx]
+            carried = [batch_tokens[i][0] for i in decode_idx]
+            if _defer:
+                # device scalars stack into the input ids without a host sync
+                head = self._ids_from_carry(carried, self._decode_bucket(len(uids)))
+                out = self._run_decode(uids, [0] * len(uids), return_tokens=return_tokens, ids_dev=head, defer=True)
+            else:
+                out = self._run_decode(uids, [int(t) for t in carried], return_tokens=return_tokens)
+            for j, i in enumerate(decode_idx):
+                by_idx[i] = out[j]
+        if _defer:
+            return [by_idx[i] for i in range(len(batch_uids))]
+        return np.stack([by_idx[i] for i in range(len(batch_uids))])
+
     def flush(self, uids: Sequence[int]) -> None:
         for uid in uids:
             self.state.flush_sequence(uid)
@@ -200,8 +279,9 @@ class InferenceEngineV2:
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write page copy: duplicate block ``src`` into ``dst`` across
-        every layer's K/V pool, in place. An int8 pool copies the block's scale
-        plane with its codes, so the copy dequantises to the same values."""
+        every layer's K/V pool, in place (the pools keep their storage). An
+        int8 pool copies the block's scale plane with its codes, so the copy
+        dequantises to the same values."""
         idx = torch.tensor([dst], dtype=torch.long, device=self.device)
         for pool in (self.k_pages, self.v_pages):
             for t in (pool if isinstance(pool, tuple) else (pool,)):
@@ -223,8 +303,153 @@ class InferenceEngineV2:
             off += a.size
         return out
 
+    def _dispatch(self, key: tuple, step, arrays: Sequence[np.ndarray], sampled: bool = False,
+                  head: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run ``step(*inputs, generator)`` over the int32 host ``arrays``; the
+        first ``head.numel()`` entries of the first input come from the device
+        tensor ``head`` instead (the deferred token carry). A CUDA engine
+        replays the captured graph of ``key`` (capturing ``step`` the first
+        time); a CPU engine, or one with ``_eager_steps`` set, calls ``step``.
+        ``sampled``: the step draws from the engine's generator."""
+        self.dispatches += 1
+        if self._eager_steps:
+            inputs = self._to_device(*arrays)
+            if head is not None:
+                inputs[0].view(-1)[:head.numel()] = head
+            return step(*inputs, self._generator)
+        return self.graphs.run(key, step, arrays, self._generator if sampled else None, head)
+
+    def _sampling_key(self) -> tuple:
+        return self._sampling or (False, 1.0, 0, 1.0)
+
+    def _choose_tokens_dev(self, logits: torch.Tensor) -> torch.Tensor:
+        """Token choice on the device for (n, V) logits: argmax, or a draw from
+        the engine's generator during a sampling ``generate``. Returns (n,)
+        int32 on the device."""
+        if self._sampling is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        do, t, k, p = self._sampling
+        return sample_logits(logits, self._generator, do, t, k, p).to(torch.int32)
+
+    def _choose_tokens(self, logits: torch.Tensor) -> np.ndarray:
+        # the unfused loop's per-step fetch: n ints, not n * V logits
+        return self._choose_tokens_dev(logits).cpu().numpy()
+
+    def _run_prefill_batch(self, uids: List[int], token_lists: List[List[int]], S: int, return_tokens: bool = False,
+                           defer: bool = False):
+        """Prefill a bucket of sequence chunks (each possibly with prior
+        context) in one step; the batch pads to a power of two. Padded rows
+        write their KV to the garbage page and their outputs are dropped."""
+        n = len(uids)
+        B = _next_pow2(n)
+        bs = self.state.block_size
+        # validate the WHOLE bucket before mutating any state
+        total_need = 0
+        for uid, tokens in zip(uids, token_lists):
+            seq = self.state.get_sequence(uid)
+            seen = (seq.seen_tokens + seq.in_flight_tokens) if seq is not None else 0
+            if seen + len(tokens) > self.state.max_context:
+                raise RuntimeError(f"sequence {uid}: {seen + len(tokens)} tokens exceeds max_context "
+                                   f"{self.state.max_context}")
+            if seq is not None:
+                total_need += seq.blocks_needed(len(tokens)) + seq.cow_blocks_needed(seen)
+            else:
+                total_need += -(-len(tokens) // bs)
+        if not self.state.can_allocate(total_need):
+            raise RuntimeError(f"prefill bucket needs {total_need} KV blocks, {self.state.free_blocks} free")
+        ids = np.zeros((B, S), np.int32)
+        positions = np.zeros((B, S), np.int32)
+        slots = np.tile(self._garbage_slots(S), B).reshape(B, S)
+        ctx = np.ones((B,), np.int32)
+        bt = np.full((B, self._max_blocks_per_seq), self._garbage_block, np.int32)
+        last = np.zeros((B,), np.int32)
+        seqs = []
+        for j, (uid, tokens) in enumerate(zip(uids, token_lists)):
+            seq = self.state.get_or_create_sequence(uid)
+            self._cow_ready(seq, seq.seen_tokens)
+            self.state.allocate_for(seq, len(tokens))
+            seq.record_tokens(tokens)
+            seq.pre_forward(len(tokens))
+            start, m = seq.seen_tokens, len(tokens)
+            ids[j, :m] = tokens
+            pos = start + np.arange(m)
+            positions[j, :m] = pos
+            slots[j, :m] = np.asarray(seq.blocks, np.int32)[pos // bs] * bs + pos % bs
+            ctx[j] = start + m
+            bt[j] = self._seq_block_row(seq)
+            last[j] = m - 1
+            seqs.append(seq)
+
+        fn, params, kp, vp = self._prefill_fn, self.params, self.k_pages, self.v_pages
+
+        def step(ids, positions, bt, ctx, slots, last, generator):
+            return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
+
+        logits = self._dispatch(("prefill", B, S), step, [ids, positions, bt, ctx, slots.reshape(-1), last])
+        for seq in seqs:
+            seq.post_forward()
+        if defer:
+            return self._choose_tokens_dev(logits[:n])  # device (n,) ids, no readback
+        out = self._choose_tokens(logits[:n]) if return_tokens else logits[:n].cpu().numpy()
+        return [out[j] for j in range(n)]
+
     def _decode_bucket(self, n: int) -> int:
         return max(self._config.min_decode_bucket, _next_pow2(n))
+
+    def _assemble_decode(self, uids: List[int], tokens: List[int], steps: int):
+        """Decode-batch assembly for single steps and bursts: allocates
+        ``steps`` KV tokens per sequence and builds the padded (ids,
+        positions, ctx, block tables, (steps, B) slot table, last) arrays;
+        padded rows write every step's KV into the garbage page."""
+        n = len(uids)
+        B = self._decode_bucket(n)
+        bs = self.state.block_size
+        ids = np.zeros((B, 1), np.int32)
+        positions = np.zeros((B, 1), np.int32)
+        ctx = np.zeros((B,), np.int32)
+        bt = np.full((B, self._max_blocks_per_seq), self._garbage_block, np.int32)
+        slots = np.tile(self._garbage_slots(B)[None], (steps, 1))
+        seqs = []
+        step_idx = np.arange(steps)
+        for j, (uid, tok) in enumerate(zip(uids, tokens)):
+            seq = self.state.get_sequence(uid)
+            self._cow_ready(seq, seq.seen_tokens)
+            self.state.allocate_for(seq, steps)
+            seq.record_tokens(None)  # decode ids may be device-side: freeze the log
+            seq.pre_forward(steps)
+            pos0 = seq.seen_tokens
+            ids[j, 0] = tok
+            positions[j, 0] = pos0
+            ctx[j] = pos0 + 1
+            bt[j] = self._seq_block_row(seq)
+            p = pos0 + step_idx
+            slots[:, j] = np.asarray(seq.blocks, np.int32)[p // bs] * bs + p % bs
+            seqs.append(seq)
+        last = np.zeros((B,), np.int32)
+        return ids, positions, ctx, bt, slots, last, seqs, n
+
+    def _ids_from_carry(self, carried, B: int) -> torch.Tensor:
+        """(B,) int32 decode input ids on the device from per-sequence device
+        scalars, padded with zeros (padded rows feed the garbage page): the
+        deferred loop's stand-in for writing host ints into the ids."""
+        col = [torch.as_tensor(t, dtype=torch.int32, device=self.device).reshape(()) for t in carried]
+        col.extend([torch.zeros((), dtype=torch.int32, device=self.device)] * (B - len(carried)))
+        return torch.stack(col)
+
+    def _run_decode(self, uids: List[int], tokens: List[int], return_tokens: bool = False,
+                    ids_dev: Optional[torch.Tensor] = None, defer: bool = False):
+        ids, positions, ctx, bt, slots, last, seqs, n = self._assemble_decode(uids, tokens, steps=1)
+        fn, params, kp, vp = self._decode_fn, self.params, self.k_pages, self.v_pages
+
+        def step(ids, positions, bt, ctx, slots, last, generator):
+            return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
+
+        logits = self._dispatch(("decode", len(ctx)), step, [ids, positions, bt, ctx, slots[0], last], head=ids_dev)
+        for seq in seqs:
+            seq.post_forward()
+        if defer:
+            return self._choose_tokens_dev(logits[:n])  # device (n,) ids, no readback
+        return self._choose_tokens(logits[:n]) if return_tokens else logits[:n].cpu().numpy()
 
     def _burst_steps(self, live: Dict[int, int], remaining: int) -> int:
         """Largest power-of-two burst length every live sequence can take
@@ -243,6 +468,39 @@ class InferenceEngineV2:
                 return k
             k //= 2
         return 0
+
+    def _burst_for(self, sampling):
+        """The burst function per sampling signature (greedy = None), LRU-bounded
+        by ``DS_TPU_PROGRAM_CACHE``; None when bursting is off."""
+        if self._config.decode_burst < 2:
+            return None
+        key = sampling or (False, 1.0, 0, 1.0)
+        if key not in self._bursts:
+            if len(self._bursts) >= self._max_program_variants:
+                self._bursts.pop(next(iter(self._bursts)))
+            do, t, k, p = key
+            self._bursts[key] = make_burst_fn(self._run_cfg, do_sample=do, temperature=t, top_k=k, top_p=p,
+                                              mods=self._mods)
+        else:
+            self._bursts[key] = self._bursts.pop(key)  # LRU touch
+        return self._bursts[key]
+
+    def _run_decode_burst(self, uids: List[int], tokens: List[int], steps: int, ids_dev: Optional[torch.Tensor] = None,
+                          defer: bool = False):
+        """``steps`` decode steps in one step function; returns (len(uids),
+        steps) tokens (a device tensor when ``defer``, numpy otherwise)."""
+        ids, positions, ctx, bt, slots, last, seqs, n = self._assemble_decode(uids, tokens, steps)
+        fn, params, kp, vp = self._burst_for(self._sampling), self.params, self.k_pages, self.v_pages
+
+        def step(ids, positions, bt, ctx, slots, last, generator):
+            return fn(params, ids, positions, kp, vp, bt, ctx, slots, last, generator)[0]
+
+        toks = self._dispatch(("burst", len(ctx), steps) + self._sampling_key(), step,
+                              [ids, positions, bt, ctx, slots, last], sampled=self._sampling is not None,
+                              head=ids_dev)
+        for seq in seqs:
+            seq.post_forward()
+        return toks[:n] if defer else toks[:n].cpu().numpy()
 
     # ---------------------------------------------------------- fused quantum
     def _fused_bucket(self, n_dec: int, n_pre: int, max_chunk: int) -> Tuple[int, int, int]:
@@ -279,7 +537,9 @@ class InferenceEngineV2:
                    eos_token_id: Optional[int]) -> Dict[int, object]:
         """One step for a whole scheduler quantum: decode rows and chunked-
         prefill rows run as one flat ragged batch, then the batch advances
-        ``steps - 1`` more decode steps (pure-decode quanta only).
+        ``steps - 1`` more decode steps (pure-decode quanta only). On the card
+        the step is the captured graph of (bucket, ``steps``, EOS id,
+        sampling).
 
         Returns uid -> (steps,) token row (device tensor when ``defer``, numpy
         otherwise), or None for a mid-prompt prefill chunk.
@@ -365,20 +625,19 @@ class InferenceEngineV2:
             last[row] = base + m - 1
             seqs.append(seq)
 
-        ids_dev, pos_dev, bt_dev, ctx_dev, slots_dev, last_dev, adv_dev, gslots_dev = self._to_device(
-            ids, positions, bt, ctx, slots0, last, adv, gslots)
-        if n_dec and defer:
-            # device token scalars from the previous quantum stack into the
-            # decode segment without a host sync; padded rows feed the garbage page
-            col = [torch.as_tensor(t, dtype=torch.int32, device=self.device).reshape(()) for t in decode_carry]
-            col.extend([torch.zeros((), dtype=torch.int32, device=self.device)] * (D - n_dec))
-            ids_dev[:D] = torch.stack(col)
-
-        fn = self._fused_for(D, P, S, self._sampling)
+        # device token scalars from the previous quantum stack into the decode
+        # segment without a host sync; padded rows feed the garbage page
+        head = self._ids_from_carry(decode_carry, D) if n_dec and defer else None
+        fn, params, kp, vp = self._fused_for(D, P, S, self._sampling), self.params, self.k_pages, self.v_pages
         eos = -1 if eos_token_id is None else int(eos_token_id)
-        toks, self.k_pages, self.v_pages = fn(self.params, ids_dev, pos_dev, self.k_pages, self.v_pages, bt_dev,
-                                              ctx_dev, slots_dev, last_dev, adv_dev, gslots_dev, eos,
-                                              self._generator)
+
+        def step(ids, positions, bt, ctx, slots0, last, adv, gslots, generator):
+            return fn(params, ids, positions, kp, vp, bt, ctx, slots0, last, adv, gslots, eos, generator)[0]
+
+        toks = self._dispatch(("fused", D, P, S, steps, eos) + self._sampling_key(), step,
+                              [ids, positions, bt, ctx, slots0, last, adv, gslots],
+                              sampled=self._sampling is not None, head=head)
+        self.fused_quanta += 1
         for seq in seqs:
             seq.post_forward()
 
@@ -402,13 +661,19 @@ class InferenceEngineV2:
         default or sampled (temperature/top-k/top-p) from the engine's
         generator seeded with ``seed``. ``on_token(uid, token)`` streams
         tokens as they are committed (a K-step burst delivers its K tokens
-        when the burst completes)."""
+        when the burst completes). The fused loop serves unless the engine
+        was built with ``fused_step=False`` (or ``DS_TPU_SERVE_FUSED=0``)."""
         self._sampling = (True, float(temperature), int(top_k), float(top_p)) if do_sample else None
         self._generator.manual_seed(seed)
         try:
-            return self._generate_fused(prompts, max_new_tokens, eos_token_id, on_token)
+            return self._generate(prompts, max_new_tokens, eos_token_id, on_token)
         finally:
             self._sampling = None
+
+    def _generate(self, prompts, max_new_tokens, eos_token_id, on_token=None) -> List[List[int]]:
+        if self._fused_enabled:
+            return self._generate_fused(prompts, max_new_tokens, eos_token_id, on_token)
+        return self._generate_unfused(prompts, max_new_tokens, eos_token_id, on_token)
 
     def _commit_closures(self, reqs, results, pieces, counts, decode_ready, eos_token_id, on_token):
         """(commit, commit_dev): record committed tokens and retire/continue the request."""
@@ -496,6 +761,67 @@ class InferenceEngineV2:
                     commit_dev(uid, row)
                 else:
                     commit(uid, row.tolist())
+            pending = [r for r in pending if not r.done and r.remaining_prefill]
+
+        return self._collect_results(prompts, deferred, results, pieces)
+
+    def _generate_unfused(self, prompts, max_new_tokens, eos_token_id, on_token=None) -> List[List[int]]:
+        """The unfused loop: each scheduler step runs through ``put`` (a
+        prefill step per chunk bucket, one decode step), and once nothing is
+        left to admit and every sequence decodes, a multi-step burst runs
+        instead (tokens past an EOS are dropped at commit). Deferred mode
+        (no EOS cut, no streaming callback) keeps the token carry on the
+        device, as in the fused loop."""
+        deferred = eos_token_id is None and on_token is None
+        reqs = {i: RaggedRequest(uid=i, tokens=list(p), max_new_tokens=max_new_tokens) for i, p in enumerate(prompts)}
+        pending = list(reqs.values())
+        decode_ready: Dict[int, object] = {}  # uid -> next token to feed (int, or device scalar when deferred)
+        results: Dict[int, List[int]] = {i: [] for i in reqs}
+        pieces: Dict[int, List[object]] = {i: [] for i in reqs}  # deferred: device tensors
+        counts: Dict[int, int] = {i: 0 for i in reqs}
+        commit, commit_dev = self._commit_closures(reqs, results, pieces, counts, decode_ready, eos_token_id,
+                                                   on_token)
+
+        while pending or decode_ready:
+            if not pending and decode_ready:
+                # a burst step decodes one token per sequence, so both scheduler caps bound the batch
+                cap = min(self.scheduler.max_sequences, self.scheduler.max_batch_tokens)
+                burst_uids = list(decode_ready)[:cap]
+                done_count = counts if deferred else {u: len(results[u]) for u in burst_uids}
+                rem = min(reqs[u].max_new_tokens - done_count[u] for u in burst_uids)
+                k = self._burst_steps({u: True for u in burst_uids}, rem)
+                if k >= 2:
+                    carried = [decode_ready.pop(u) for u in burst_uids]
+                    if deferred:
+                        head = self._ids_from_carry(carried, self._decode_bucket(len(burst_uids)))
+                        out = self._run_decode_burst(burst_uids, [0] * len(burst_uids), k, ids_dev=head, defer=True)
+                        for uid, row in zip(burst_uids, out):
+                            commit_dev(uid, row)
+                    else:
+                        out = self._run_decode_burst(burst_uids, carried, k)
+                        for uid, row in zip(burst_uids, out):
+                            commit(uid, row.tolist())
+                    continue
+            step = self.scheduler.schedule([r for r in pending if r.remaining_prefill], list(decode_ready))
+            if step.empty:
+                raise RuntimeError("scheduler deadlock: no work schedulable (KV pool too small?)")
+            uids, toks = [], []
+            for uid in step.decode_uids:
+                uids.append(uid)
+                toks.append([decode_ready.pop(uid)])
+            for pf in step.prefills:
+                req = reqs[pf.uid]
+                uids.append(pf.uid)
+                toks.append(pf.tokens)
+                req.tokens = req.tokens[len(pf.tokens):]
+            nxt = self.put(uids, toks, return_tokens=True, _defer=deferred)
+            for uid, tok in zip(uids, nxt):
+                if reqs[uid].remaining_prefill:
+                    continue  # mid-prompt chunk: its logits are not a sampled token yet
+                if deferred:
+                    commit_dev(uid, tok)
+                else:
+                    commit(uid, [int(tok)])
             pending = [r for r in pending if not r.done and r.remaining_prefill]
 
         return self._collect_results(prompts, deferred, results, pieces)

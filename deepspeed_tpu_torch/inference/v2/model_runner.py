@@ -2,22 +2,25 @@
 
 Port of ``deepspeed_tpu/inference/v2/model_runner.py`` for one device:
 ``_transformer_layer``, the layer stack, ``ragged_forward`` (a (B, S) batch
-in one mode), ``fused_forward`` (the SplitFuse mixed decode + prefill pass)
-and ``make_fused_step_fn`` (one quantum: the fused pass, then ``steps - 1``
-decode steps of the burst). PyTorch runs eagerly, so ``jit`` has no
-counterpart and the reference's ``lax.scan`` over burst steps is a Python
-loop. The KV pools are updated in place where the JAX programs donate them.
+in one mode), ``fused_forward`` (the SplitFuse mixed decode + prefill pass),
+``make_step_fns`` (the unfused loop's prefill and decode steps),
+``make_burst_fn`` (``steps`` decode steps in one call) and
+``make_fused_step_fn`` (one quantum: the fused pass, then ``steps - 1``
+decode steps of the burst). The reference's ``lax.scan`` over burst steps
+is a Python loop over the slot table's leading dim; a CUDA engine captures
+each step for a bucket as one CUDA graph (``graphs.py``), which unrolls that
+loop, where the JAX engine jits one program. The KV pools are updated in
+place where the JAX programs donate them.
 
 The attention, norm and quantised-matmul kernels come from a ``V2Modules``
 bundle (``modules.build_modules``); passing ``build_modules(plain=True)``
 runs the same step on the kernels' plain PyTorch versions. The KV pools are
-plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism,
-speculative verify and the unfused step/burst programs come with later
-slices.
+plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism and
+speculative verify come with later slices.
 """
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -167,6 +170,43 @@ def fused_forward(cfg: TransformerConfig, params: Dict, input_ids: torch.Tensor,
     x_last = x[0, last_flat.long()][:, None, :]
     zeros = torch.zeros((last_flat.shape[0],), dtype=torch.int32, device=x.device)
     return mods.unembed(cfg, params, x_last, zeros), k_pages, v_pages
+
+
+def make_step_fns(cfg: TransformerConfig, mods: Optional[V2Modules] = None) -> Tuple[Callable, Callable]:
+    """(prefill_fn, decode_fn): ``ragged_forward`` in each mode, with the
+    signature ``fn(params, ids, positions, k_pages, v_pages, block_tables,
+    ctx_lens, slot_mapping, last_token_idx)``."""
+    mods = mods or build_modules()
+    return (functools.partial(ragged_forward, cfg, decode=False, mods=mods),
+            functools.partial(ragged_forward, cfg, decode=True, mods=mods))
+
+
+def make_burst_fn(cfg: TransformerConfig, *, do_sample: bool = False, temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0, mods: Optional[V2Modules] = None) -> Callable:
+    """Multi-step decode (greedy or sampled) in one call.
+
+    Runs ``steps`` paged-decode steps, ``steps`` being the leading dim of the
+    (steps, B) slot table: each step's token choice on the device (argmax,
+    or ``sample_logits`` from ``generator``) feeds the next step's input
+    ids, and positions and context lengths advance by one a step. The host
+    allocates the blocks of the whole burst up front, so the slots arrive
+    precomputed. Returns the (B, steps) int32 tokens and the pools."""
+    mods = mods or build_modules()
+
+    def burst(params, ids0, positions0, k_pages, v_pages, block_tables, ctx0, slots, last,
+              generator: Optional[torch.Generator]):
+        # ids0/positions0 (B, 1); ctx0/last (B,); slots (steps, B)
+        ids, out = ids0, []
+        for off in range(slots.shape[0]):
+            logits, k_pages, v_pages = ragged_forward(cfg, params, ids, positions0 + off, k_pages, v_pages,
+                                                      block_tables, ctx0 + off, slots[off], last, decode=True,
+                                                      mods=mods)
+            nxt = sample_logits(logits, generator, do_sample, temperature, top_k, top_p).to(torch.int32)
+            ids = nxt[:, None]
+            out.append(nxt)
+        return torch.stack(out, dim=1), k_pages, v_pages
+
+    return burst
 
 
 def make_fused_step_fn(cfg: TransformerConfig, *, n_dec: int, n_pre: int, chunk: int, do_sample: bool = False,

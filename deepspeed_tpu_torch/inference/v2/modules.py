@@ -83,7 +83,7 @@ def embedding_tpu(cfg: TransformerConfig, params: Dict[str, Any], input_ids: tor
     input_ids = input_ids.long().clamp(0, params["wte"].shape[0] - 1)
     x = params["wte"][input_ids].to(cfg.dtype)
     if cfg.embed_scale:  # gemma normalizer
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype, device=x.device)
+        x = x * torch.full((), cfg.d_model**0.5, dtype=cfg.dtype, device=x.device)  # a fill, not a host copy
     if cfg.pos_emb == "learned":
         x = x + params["wpe"][positions.long()].to(cfg.dtype)
     if cfg.embedding_norm:  # bloom

@@ -1,0 +1,244 @@
+"""Serving load generator and SLA metrics for the v2 engine.
+
+Port of ``deepspeed_tpu/inference/v2/sla.py``. The FastGen serving claim is a
+throughput-latency curve and an "effective throughput under SLA" headline,
+not one throughput point. Open-loop Poisson arrivals drive the
+continuous-batching engine the way a frontend would; each request's time to
+first token (TTFT) and mean time per output token after it (TPOT) are
+recorded at host-visible boundaries (after each step's tokens reach the
+host), and a rate sweep yields the table.
+
+- ``run_load`` drives the fused loop (one step per scheduler quantum, pure-
+  decode quanta with nothing due extended to bursts) or, on an engine built
+  with ``fused_step=False``, the unfused loop (``put``, and bursts when
+  nothing is pending or due). A request that arrives during a burst waits it
+  out; that TTFT cost is part of what the harness measures.
+- ``LoadSpec(arrival_rate=float("inf"))`` puts every arrival at t = 0
+  (saturation).
+
+The reference's telemetry (TTFT/TPOT histograms, request events, health
+detectors, journal, ops plane, tuned profile) and ``sweep``'s MFU columns are
+not ported; ``TTFT_BUCKETS`` and ``TPOT_BUCKETS`` are kept as the SLA-shaped
+bucket edges those histograms use.
+"""
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from .scheduler import RaggedRequest
+
+# SLA-shaped buckets: the FastGen streaming SLA (TTFT <= 1 s, TPOT <= 250 ms)
+# falls on bucket edges
+TTFT_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 5.0, 10.0)
+TPOT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
+
+
+@dataclasses.dataclass
+class LoadSpec:
+    """A Poisson open-loop workload."""
+    n_requests: int = 32
+    arrival_rate: float = 4.0  # requests/s (Poisson); inf: every arrival at t = 0
+    prompt_len_range: Sequence[int] = (16, 64)  # inclusive bounds
+    max_new_tokens: int = 32
+    vocab_size: int = 256
+    seed: int = 0
+    # shared-system-prompt workload: every prompt starts with the same shared_prefix_len tokens (drawn once
+    # per run) followed by a unique tail in prompt_len_range, the prefix-cache serving case
+    shared_prefix_len: int = 0
+
+
+@dataclasses.dataclass
+class RequestStat:
+    uid: int
+    prompt_len: int
+    arrival: float  # seconds since run start (scheduled)
+    admitted: Optional[float] = None
+    first_token: Optional[float] = None
+    done: Optional[float] = None
+    n_new: int = 0
+    tokens: Optional[List[int]] = None  # the generated tokens (greedy)
+
+    @property
+    def ttft(self) -> float:
+        return self.first_token - self.arrival
+
+    @property
+    def tpot(self) -> float:
+        """Mean per-output-token latency after the first token."""
+        if self.n_new <= 1:
+            return 0.0
+        return (self.done - self.first_token) / (self.n_new - 1)
+
+
+def load_prompts(spec: LoadSpec):
+    """(arrival times, prompts) of ``spec``, drawn from its seed."""
+    rng = np.random.default_rng(spec.seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / spec.arrival_rate, spec.n_requests))
+    lo, hi = spec.prompt_len_range
+    lens = rng.integers(lo, hi + 1, spec.n_requests)
+    shared = rng.integers(0, spec.vocab_size, size=spec.shared_prefix_len).tolist()
+    return arrivals, [shared + rng.integers(0, spec.vocab_size, size=int(n)).tolist() for n in lens]
+
+
+def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List[RequestStat]:
+    """Drive ``engine`` with ``spec``'s arrival process; returns per-request
+    stats. Greedy decoding (the SLA story is scheduling, not sampling)."""
+    arrivals, prompts = load_prompts(spec)
+    stats = {i: RequestStat(uid=i, prompt_len=len(prompts[i]), arrival=float(arrivals[i]))
+             for i in range(spec.n_requests)}
+    reqs: Dict[int, RaggedRequest] = {}
+    pending: List[RaggedRequest] = []
+    decode_ready: Dict[int, int] = {}
+    results: Dict[int, List[int]] = {}
+    next_idx = 0
+    engine._sampling = None
+    t0 = time.perf_counter()
+
+    def now() -> float:
+        return time.perf_counter() - t0
+
+    def admit_arrivals() -> None:
+        nonlocal next_idx
+        t = now()
+        while next_idx < spec.n_requests and arrivals[next_idx] <= t:
+            uid = next_idx
+            reqs[uid] = RaggedRequest(uid=uid, tokens=list(prompts[uid]), max_new_tokens=spec.max_new_tokens)
+            stats[uid].admitted = t
+            results[uid] = []
+            pending.append(reqs[uid])
+            next_idx += 1
+
+    def commit(uid: int, toks_out: List[int]) -> None:
+        req = reqs[uid]
+        # multi-token commits (bursts) clamp to the remaining request budget before anything is recorded
+        toks_out = list(toks_out)[:req.max_new_tokens - len(results[uid])]
+        if not toks_out:
+            return
+        if eos_token_id is not None and eos_token_id in toks_out:
+            toks_out = toks_out[:toks_out.index(eos_token_id) + 1]
+        t = now()
+        if not results[uid]:
+            stats[uid].first_token = t
+        results[uid].extend(toks_out)
+        stats[uid].n_new = len(results[uid])
+        if (len(results[uid]) >= req.max_new_tokens or
+                (eos_token_id is not None and toks_out[-1] == eos_token_id)):
+            req.done = True
+            stats[uid].done = t
+            engine.flush([uid])
+        else:
+            decode_ready[uid] = toks_out[-1]
+
+    fused = bool(getattr(engine, "_fused_enabled", False))
+
+    while next_idx < spec.n_requests or pending or decode_ready:
+        admit_arrivals()
+        if not pending and not decode_ready:
+            # idle: sleep to the next arrival (open-loop source)
+            time.sleep(max(0.0, arrivals[next_idx] - now()))
+            continue
+        arrivals_due = next_idx < spec.n_requests and arrivals[next_idx] <= now()
+        if fused:
+            # one step per scheduler quantum; a pure-decode quantum with nothing due extends to a burst
+            quantum = engine.scheduler.schedule_fused([r for r in pending if r.remaining_prefill],
+                                                      list(decode_ready))
+            if quantum.empty:
+                raise RuntimeError("scheduler deadlock: no work schedulable (KV pool too small?)")
+            for pf in quantum.prefills:
+                reqs[pf.uid].tokens = reqs[pf.uid].tokens[len(pf.tokens):]
+            steps = 1
+            if quantum.decode_uids and not quantum.prefills and not pending and not arrivals_due:
+                rem = min(reqs[u].max_new_tokens - len(results[u]) for u in quantum.decode_uids)
+                steps = max(1, engine._burst_steps({u: True for u in quantum.decode_uids}, rem))
+            carry = [decode_ready.pop(u) for u in quantum.decode_uids]
+            rows = engine._run_fused(quantum, carry, steps, False, eos_token_id)
+            for uid, row in rows.items():
+                if row is not None:
+                    commit(uid, row.tolist())
+            pending = [r for r in pending if not r.done and r.remaining_prefill]
+            continue
+        if not pending and not arrivals_due and decode_ready:
+            # everyone is decoding and nothing is due: K decode steps in one step function
+            cap = min(engine.scheduler.max_sequences, engine.scheduler.max_batch_tokens)
+            burst_uids = list(decode_ready)[:cap]
+            rem = min(reqs[u].max_new_tokens - len(results[u]) for u in burst_uids)
+            k = engine._burst_steps({u: decode_ready[u] for u in burst_uids}, rem)
+            if k >= 2:
+                toks = [decode_ready.pop(u) for u in burst_uids]
+                out = engine._run_decode_burst(burst_uids, toks, k)
+                for uid, row in zip(burst_uids, out):
+                    commit(uid, row.tolist())
+                continue
+        step = engine.scheduler.schedule([r for r in pending if r.remaining_prefill], list(decode_ready))
+        if step.empty:
+            raise RuntimeError("scheduler deadlock: no work schedulable (KV pool too small?)")
+        uids, toks = [], []
+        for uid in step.decode_uids:
+            uids.append(uid)
+            toks.append([decode_ready.pop(uid)])
+        for pf in step.prefills:
+            req = reqs[pf.uid]
+            uids.append(pf.uid)
+            toks.append(pf.tokens)
+            req.tokens = req.tokens[len(pf.tokens):]
+        nxt = engine.put(uids, toks, return_tokens=True)
+        for uid, tok in zip(uids, nxt):
+            if reqs[uid].remaining_prefill:
+                continue
+            commit(uid, [int(tok)])
+        pending = [r for r in pending if not r.done and r.remaining_prefill]
+
+    for uid, toks in results.items():
+        stats[uid].tokens = toks
+    return [stats[i] for i in range(spec.n_requests)]
+
+
+def summarize(stats: Sequence[RequestStat], ttft_sla: float = 1.0, tpot_sla: float = 0.25) -> Dict:
+    """Aggregate a run: throughput, latency percentiles, SLA misses. The
+    default SLA is the FastGen blog's streaming standard: first token within
+    1 s, then at least 4 tokens/s per request (TPOT <= 250 ms)."""
+    ttfts = np.asarray([s.ttft for s in stats])
+    tpots = np.asarray([s.tpot for s in stats if s.n_new > 1])
+    total_new = int(sum(s.n_new for s in stats))
+    span = max(s.done for s in stats) - min(s.arrival for s in stats)
+    miss = np.asarray([(s.ttft > ttft_sla) or (s.n_new > 1 and s.tpot > tpot_sla) for s in stats])
+
+    def pct(a, q):
+        return float(np.percentile(a, q)) if a.size else 0.0
+
+    return {
+        "n_requests": len(stats),
+        "tokens_per_sec": round(total_new / max(span, 1e-9), 2),
+        "requests_per_sec": round(len(stats) / max(span, 1e-9), 3),
+        "ttft_p50_s": round(pct(ttfts, 50), 4),
+        "ttft_p95_s": round(pct(ttfts, 95), 4),
+        "ttft_p99_s": round(pct(ttfts, 99), 4),
+        "tpot_p50_s": round(pct(tpots, 50), 4),
+        "tpot_p95_s": round(pct(tpots, 95), 4),
+        "sla_miss_frac": round(float(miss.mean()), 4),
+    }
+
+
+def sweep(engine, rates: Sequence[float], base: Optional[LoadSpec] = None, ttft_sla: float = 1.0,
+          tpot_sla: float = 0.25) -> List[Dict]:
+    """The throughput-latency table: one ``summarize`` row per arrival rate
+    (the FastGen blog's table shape). The engine's KV pool is reused across
+    rows; each row waits for full drain, so rows are independent."""
+    base = base or LoadSpec()
+    rows = []
+    for rate in rates:
+        spec = dataclasses.replace(base, arrival_rate=float(rate))
+        row = summarize(run_load(engine, spec), ttft_sla=ttft_sla, tpot_sla=tpot_sla)
+        row["arrival_rate"] = float(rate)
+        rows.append(row)
+    return rows
+
+
+def effective_throughput_at_sla(rows: Sequence[Dict], max_miss: float = 0.01) -> float:
+    """The headline scalar: the best tokens/s among rows meeting the SLA
+    (FastGen's "effective throughput" at <= 1 % SLA misses)."""
+    ok = [r["tokens_per_sec"] for r in rows if r["sla_miss_frac"] <= max_miss]
+    return max(ok) if ok else 0.0

@@ -9,7 +9,9 @@ wrapper runs its plain version. Held to the reference:
 - the scheduler: the same quantum compositions for one arrival trace;
 - the engine: greedy tokens equal, with the prefix cache on and off, with an
   EOS cut, with streaming, with chunked mixed quanta, and ``top_k=1``
-  sampling equal to greedy.
+  sampling equal to greedy; ``DS_TPU_SERVE_FUSED=0`` serves the same tokens
+  through the unfused loop (``tests/test_torch_serve_unfused.py`` holds that
+  loop to the JAX engine).
 """
 
 import os
@@ -199,13 +201,17 @@ def test_bucketing_matches(tiny):
 
 
 def test_default_device_raises_without_gpu(tiny, monkeypatch):
-    _, _, cfg, tparams, _ = tiny
+    _, _, cfg, tparams, engines = tiny
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         InferenceEngineV2(cfg, tparams)
-    monkeypatch.setenv("DS_TPU_SERVE_FUSED", "0")  # the unfused loop is not ported
-    with pytest.raises(NotImplementedError):
-        InferenceEngineV2(cfg, tparams, RaggedInferenceEngineConfig(device="cpu"))
+    _, fused = engines()
+    monkeypatch.setenv("DS_TPU_SERVE_FUSED", "0")  # the unfused loop serves on the CPU
+    unfused = InferenceEngineV2(cfg, tparams, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(kv_block_size=8, max_context=256, num_kv_blocks=128), dtype="float32",
+        device="cpu", decode_burst=8))
+    assert not unfused._fused_enabled and fused._fused_enabled
+    assert unfused.generate(PROMPTS, max_new_tokens=6) == fused.generate(PROMPTS, max_new_tokens=6)
 
 
 def test_package_imports_neither_jax_nor_the_reference():
@@ -223,6 +229,7 @@ def test_package_imports_neither_jax_nor_the_reference():
         sys.meta_path.insert(0, Block())
         import deepspeed_tpu_torch
         import deepspeed_tpu_torch.inference.generation, deepspeed_tpu_torch.inference.v2
+        import deepspeed_tpu_torch.inference.v2.graphs, deepspeed_tpu_torch.inference.v2.sla
         import deepspeed_tpu_torch.models, deepspeed_tpu_torch.ops.norms, deepspeed_tpu_torch.ops.paged_attention
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "deepspeed_tpu")]
         assert not bad, bad

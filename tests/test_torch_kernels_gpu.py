@@ -487,7 +487,8 @@ def test_paged_kernels_repeat_bit_for_bit(cuda, int8, feature):
 
 def test_engine_on_the_card_matches_the_cpu(cuda):
     """The fused serving path with the kernels (fp32, head dim 64) gives the
-    CPU engine's greedy tokens (plain versions), and every kernel launched."""
+    CPU engine's greedy tokens (plain versions), and every kernel launched;
+    so does the unfused loop on the card."""
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.models import TransformerConfig, init_params
 
@@ -496,16 +497,21 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     prompts = [[3, 17, 42], list(range(40)), [100, 2] * 30, [9] * 11]
 
-    def serve(device):
+    def serve(device, fused=True):
         smc = RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=64)
-        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(state_manager=smc, dtype="float32",
-                                                                           device=device, decode_burst=8))
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=smc, dtype="float32", device=device, decode_burst=8, fused_step=fused))
         engine.scheduler.prefill_chunk = 32  # mixed quanta: chunked prefill rows beside decode rows
         return engine.generate(prompts, max_new_tokens=12)
 
     counters = (norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill)
     before = [fn.launches for fn in counters]
-    assert serve("cuda") == serve("cpu")
+    cpu = serve("cpu")
+    assert serve("cuda") == cpu
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+    # the unfused loop (prefill, decode and burst steps) gives the same tokens on the card in fp32
+    before = [fn.launches for fn in counters]
+    assert serve("cuda", fused=False) == cpu
     assert all(fn.launches > n for fn, n in zip(counters, before))
 
 
@@ -534,6 +540,77 @@ def test_quantised_engine_on_the_card_matches_the_cpu(cuda, quant_bits, kv_quant
     before = [fn.launches for fn in counters]
     assert serve("cuda") == serve("cpu")
     assert all(fn.launches > n for fn, n in zip(counters, before))
+
+
+def _graph_engines(fused, **kw):
+    """Two bf16 engines on the card from one set of weights: one replays a
+    captured CUDA graph per step, the other (``_eager_steps``) runs each step
+    eagerly, as a CPU engine does."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, max_seq_len=512,
+                            norm="rmsnorm", activation="swiglu", pos_emb="rope", tie_embeddings=False)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = []
+    for eager in (False, True):
+        smc = RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=64)
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=smc, dtype="bfloat16", device="cuda", decode_burst=8, fused_step=fused, **kw))
+        engine.scheduler.prefill_chunk = 32  # mixed quanta: chunked prefill rows beside decode rows
+        engine._eager_steps = eager
+        out.append(engine)
+    return out
+
+
+GRAPH_PROMPTS = [[3, 17, 42], list(range(40)), [100, 2] * 30, [9] * 11, list(range(7, 90))]
+
+
+def _serve_both(engines, counters, **gen):
+    """The same two waves on each engine; per engine the tokens and each
+    counter's launches."""
+    runs = []
+    for engine in engines:
+        before = [fn.launches for fn in counters]
+        toks = [engine.generate(GRAPH_PROMPTS, max_new_tokens=12, **gen),
+                engine.generate([p + [5] * 9 for p in GRAPH_PROMPTS[1:4]], max_new_tokens=9, **gen)]
+        torch.cuda.synchronize()
+        runs.append((toks, [fn.launches - b for fn, b in zip(counters, before)]))
+    return runs
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("sample", [None, dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9, seed=7)])
+def test_graph_steps_equal_eager_steps(cuda, fused, sample):
+    """Each step replayed from its captured graph (the fused step; or the
+    unfused loop's prefill, decode and burst steps) gives the eager step's
+    tokens, greedy and sampled from one seed, and leaves the KV pools equal
+    bit for bit (block 0, the garbage page the warm-up writes, excluded); the
+    kernels' counters move as they do eagerly, by one graph replay a step."""
+    counters = (norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill)
+    graphs, eager = _graph_engines(fused)
+    (g_toks, g_launches), (e_toks, e_launches) = _serve_both((graphs, eager), counters, **(sample or {}))
+    assert g_toks == e_toks
+    for g, e in ((graphs.k_pages, eager.k_pages), (graphs.v_pages, eager.v_pages)):
+        assert torch.equal(g[:, 1:], e[:, 1:])
+    assert g_launches == e_launches and all(n > 0 for n in g_launches)
+    assert graphs.graphs.replays == graphs.dispatches == eager.dispatches > 0
+    assert graphs.graphs.captures > 0 and len(eager.graphs) == 0
+    if fused:
+        assert graphs.fused_quanta == graphs.dispatches
+
+
+def test_graph_cache_evicts_and_recaptures(cuda, monkeypatch):
+    """``DS_TPU_PROGRAM_CACHE`` bounds the graphs: more buckets than that
+    evict the least recently used graph and capture it again when it comes
+    back, with the same tokens and launch counts as the eager engine."""
+    monkeypatch.setenv("DS_TPU_PROGRAM_CACHE", "2")
+    counters = (norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill)
+    graphs, eager = _graph_engines(True)
+    (g_toks, g_launches), (e_toks, e_launches) = _serve_both((graphs, eager), counters)
+    assert g_toks == e_toks and g_launches == e_launches
+    assert len(graphs.graphs) == 2 and graphs.graphs.evictions == graphs.graphs.captures - 2 > 0
+    assert graphs.graphs.capture_s > 0.0
 
 
 # ---------------------------------------------------------------- training kernels (flash A/B/C, fused Adam D)
