@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1
                                      # and an evoformer call
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
-    python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged and sparse
-                                        # kernels beside this tree's
+    python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged, sparse and
+                                        # Adam kernels beside this tree's
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -73,10 +73,11 @@ Phases, each fatal on failure:
 6. training kernels: flash attention forward, dq and dk/dv (kernels A, B, C)
    at the gpt2_1_3b shape and at GQA, Sq < Sk, window and ALiBi shapes, and
    fused AdamW (kernel D) over the ``wte`` leaf and over all 388 leaves of
-   gpt2_1_3b, against their plain versions, each with its bound and a
-   library yardstick (SDPA forward and backward; ``torch.optim.AdamW(fused=
-   True)``, Adam and the library three times each in alternating order,
-   their medians), timed here only;
+   gpt2_1_3b in one ``fused_adam_multi`` call (one launch), against their
+   plain versions, each with its bound and a library yardstick (SDPA
+   forward and backward; ``torch.optim.AdamW(fused=True)``: Adam, with
+   ``--parent`` the parent's Adam, and the library three times each in
+   turns, their medians, spreads and GB/s), timed here only;
 7. train parity: gpt2_1_3b at full width and 2 layers, fp32 and bf16, one
    engine step with the kernels and one with their plain versions from the
    same weights and batch: loss, per-leaf gradients, parameters after it;
@@ -85,7 +86,8 @@ Phases, each fatal on failure:
    12 steps on one seeded batch; losses finite and falling; tokens/s, step
    time, MFU and peak memory over steps 3-12, with the launch counters
    zeroed before those steps and read after (A, B, C: 24 per step; D: one
-   per leaf). ``--profile`` adds a torch.profiler breakdown of one step.
+   for each 512 leaves, so one). ``--profile`` adds a torch.profiler
+   breakdown of one step.
 9. evoformer kernels (run after phase 6): the flash kernels' additive-bias
    bodies (forward with a bias, dq writing dbias per program, the collapsed
    dq summing dbias over the programs that share a bias slice, dk/dv with a
@@ -119,9 +121,9 @@ Phases, each fatal on failure:
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
 DIR and stand in for this tree's norms, ``quantized_matmul``, flash forward, dq
-(per program and collapsed) and dk/dv, paged decode and prefill and the
-sparse forward, dq and dk/dv while each of their cases is timed again
-(``parent_ms``, the bias cases of dq and dk/dv included; the ALiBi and
+(per program and collapsed) and dk/dv, paged decode and prefill, the
+sparse forward, dq and dk/dv and fused Adam while each of their cases is
+timed again (``parent_ms``, the bias cases of dq and dk/dv included; the ALiBi and
 window cases of the paged kernels are not in the parent's), the three
 serving runs and the training run are repeated on them, and each
 ``DS4Sci_EvoformerAttention`` and ``SparseSelfAttention`` call is timed on
@@ -278,17 +280,34 @@ class OldSparseEntry:
         return self.fn(q, k, v, dout, lse, delta, qidx, dk, dv, B, S, H, D, blk, Aq, *rest)
 
 
+class OldAdamEntry:
+    """The multi-leaf Adam entry point on a build that has only the one-leaf ``ds_fused_adam``: one launch of
+    it for each leaf of the table, as that build's ``FusedAdam`` made them (the wrapper's launch count then
+    counts calls, not launches)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, ptrs, sizes, leaves, scal, *rest):
+        for i in range(leaves):
+            rc = self.fn(*ptrs[4 * i:4 * i + 4], sizes[i], scal, *rest)
+            if rc:
+                return rc
+        return 0
+
+
 class ParentKernels:
     """This tree's kernel library with the entry points in ``STAND_IN``
     taken from another build (the paged ones through ``OldPagedEntry``, the
     sparse ones through ``OldSparseEntry`` where that build has the old C
-    interface). The collapsed dq's two entry points come from one build,
+    interface, Adam's through ``OldAdamEntry`` where it has only the one-leaf
+    entry point). The collapsed dq's two entry points come from one build,
     whose plan sizes the partials."""
 
     STAND_IN = ("ds_rms_norm", "ds_layer_norm", "ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq",
                 "ds_flash_bwd_dkv", "ds_flash_bwd_dq_collapsed", "ds_flash_dq_collapsed_parts",
                 "ds_paged_attention_decode", "ds_paged_attention_prefill", "ds_sparse_fwd", "ds_sparse_bwd_dq",
-                "ds_sparse_bwd_dkv")
+                "ds_sparse_bwd_dkv", "ds_fused_adam_multi")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
@@ -296,6 +315,8 @@ class ParentKernels:
     def __getattr__(self, name):
         if name not in self.STAND_IN:
             return getattr(self._lib, name)
+        if name == "ds_fused_adam_multi" and not hasattr(self._other, name):
+            return OldAdamEntry(self._other.ds_fused_adam)
         fn = getattr(self._other, name)
         if len(fn.argtypes) == OldPagedEntry.OLD_ARGS.get(name):
             return OldPagedEntry(name, fn)
@@ -861,10 +882,16 @@ def gpt2_leaf_shapes():
 
 
 def phase_adam(torch, dev, which, iters):
-    """Kernel D over the wte leaf or over every gpt2_1_3b leaf (one launch per
-    leaf), against its plain version; torch.optim.AdamW(fused=True) over the
-    same leaves as the yardstick, the two timed three times each in
-    alternating order (``kernel_ms`` and ``library_ms`` are the medians)."""
+    """Kernel D over the wte leaf or over every gpt2_1_3b leaf in one
+    ``fused_adam_multi`` call, as ``FusedAdam`` makes it (ceil(leaves /
+    TABLE_LEAVES) launches), against its plain version. Timed three times
+    each in turns (each first, second and last once): this tree's kernel,
+    with ``--parent`` the parent build's through the same call (a build with
+    only the one-leaf entry point launches once per leaf, ``OldAdamEntry``),
+    and ``torch.optim.AdamW(fused=True)`` over the same leaves as the
+    yardstick. ``kernel_ms``, ``parent_ms`` and ``library_ms`` are the
+    medians; ``beats`` says whether the kernel's median is below each other
+    median by more than both spreads."""
     from deepspeed_tpu_torch.ops import fused_adam as fad
 
     shapes = gpt2_leaf_shapes()
@@ -881,40 +908,50 @@ def phase_adam(torch, dev, which, iters):
     n = sum(p.numel() for p, _, _, _ in leaves)
     scal = fad.adam_scalars(1e-4, 10, 0.9, 0.999, grad_mult=0.7, device=dev)
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
-    ref = [(p.clone(), grad, m.clone(), v.clone()) for p, grad, m, v in leaves]
-    for p, grad, m, v in leaves:
-        fad.fused_adam(p, grad, m, v, scal, **hyper)
-    for p, grad, m, v in ref:
-        fad.fused_adam_ref(p, grad, m, v, scal, **hyper)
+    lists = [list(t) for t in zip(*leaves)]
+    ref = [[t.clone() for t in lists[0]], lists[1], [t.clone() for t in lists[2]], [t.clone() for t in lists[3]]]
+    launches = fad.fused_adam.launches
+    fad.fused_adam_multi(*lists, scal, **hyper)
+    launches = fad.fused_adam.launches - launches
+    fad.fused_adam_multi_ref(*ref, scal, **hyper)
     torch.cuda.synchronize()
     # relative to each updated tensor's largest value
-    pairs = [(a, b) for got, want in zip(leaves, ref) for a, b in zip(got[:1] + got[2:], want[:1] + want[2:])]
+    pairs = [(a, b) for i in (0, 2, 3) for a, b in zip(lists[i], ref[i])]
     rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
     abs_err = max((a - b).abs().max().item() for a, b in pairs)
     del ref, pairs
-    step = lambda: [fad.fused_adam(p, grad, m, v, scal, **hyper) for p, grad, m, v in leaves]
-    plain = lambda: [fad.fused_adam_ref(p, grad, m, v, scal, **hyper) for p, grad, m, v in leaves]
-    p_ms = time_ms(plain, max(2, iters // 5))
-    params = [p for p, _, _, _ in leaves]
+    step = lambda: fad.fused_adam_multi(*lists, scal, **hyper)
+    p_ms = time_ms(lambda: fad.fused_adam_multi_ref(*lists, scal, **hyper), max(2, iters // 5))
     for p, grad, _, _ in leaves:
         p.grad = grad
-    opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
-    # the kernel and the library three times each, in alternating order (kernel first, then library first,
-    # then kernel first): their medians and spreads
-    runs = {"kernel": [], "library": []}
-    for order in (("kernel", "library"), ("library", "kernel"), ("kernel", "library")):
-        for name in order:
-            runs[name].append(time_ms(step if name == "kernel" else opt.step, iters))
+    opt = torch.optim.AdamW(lists[0], lr=1e-4, weight_decay=0.01, fused=True)
+
+    def timed(name):
+        if name == "parent":
+            with parent_kernels():
+                return time_ms(step, iters)
+        return time_ms(step if name == "kernel" else opt.step, iters)
+
+    names = ["kernel", "parent", "library"] if PARENT["lib"] is not None else ["kernel", "library"]
+    runs = {name: [] for name in names}
+    for turn in range(3):
+        for name in names[turn % len(names):] + names[:turn % len(names)]:
+            runs[name].append(timed(name))
     del opt
-    k_ms, l_ms = sorted(runs["kernel"])[1], sorted(runs["library"])[1]
-    alternating = {name: dict(ms=ts, median=sorted(ts)[1], spread=max(ts) - min(ts)) for name, ts in runs.items()}
     nbytes = 28 * n
+    alternating = {name: dict(ms=ts, median=sorted(ts)[1], spread=max(ts) - min(ts),
+                              gb_per_s=nbytes / sorted(ts)[1] / 1e6) for name, ts in runs.items()}
+    k = alternating["kernel"]
+    beats = {name: r["median"] - k["median"] > max(k["spread"], r["spread"]) for name, r in alternating.items()
+             if name != "kernel"}
     b_ms, b_by = bound(nbytes, 15 * n, torch.float32)
     return dict(kernel="fused_adam", case=which, dtype="torch.float32", shape=f"{len(leaves)} leaves, {n} elements",
-                max_rel_err=rel, max_abs_err=abs_err, tol=("max_rel_err", 1e-6), launches_per_step=len(leaves),
-                kernel_ms=k_ms,
-                plain_ms=p_ms, library_ms=l_ms, library="torch.optim.AdamW(fused=True)", alternating=alternating,
-                bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+                leaves=len(leaves), max_rel_err=rel, max_abs_err=abs_err, tol=("max_rel_err", 1e-6),
+                launches_per_step=launches, kernel_ms=k["median"], gb_per_s=k["gb_per_s"],
+                share_of_hbm=k["gb_per_s"] * 1e9 / HBM_BYTES_PER_S,
+                parent_ms=alternating["parent"]["median"] if "parent" in alternating else None, plain_ms=p_ms,
+                library_ms=alternating["library"]["median"], library="torch.optim.AdamW(fused=True)",
+                alternating=alternating, beats=beats, bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
 def run_train_kernel_phases(torch, dev, quick: bool):
@@ -936,6 +973,8 @@ def run_train_kernel_phases(torch, dev, quick: bool):
         log(rec)
         if not rec["max_rel_err"] <= 1e-6:
             raise AssertionError(f"fused_adam {which}: max_rel_err {rec['max_rel_err']} > 1e-6")
+        if rec["launches_per_step"] != opt_launches("FusedAdam", rec["leaves"]):
+            raise AssertionError(f"fused_adam {which}: {rec['launches_per_step']} launches for {rec['shape']}")
         records.append(rec)
         torch.cuda.empty_cache()
     return records
@@ -1731,8 +1770,15 @@ def profile_train(torch, engine, data, optimizer="FusedAdam") -> None:
     log(dict(phase="profile_train", optimizer=optimizer, **profiled(torch, lambda: engine.train_batch(data), cats)))
 
 
-# the optimizer's kernel and its launches per step: one per leaf
+# the optimizer's kernel and its launches per step over n leaves in one group: FusedAdam one for each
+# TABLE_LEAVES leaves, the LAMB direction one per leaf
 OPT_COUNTER = {"FusedAdam": "fused_adam", "Lamb": "lamb_direction"}
+
+
+def opt_launches(optimizer: str, n: int) -> int:
+    from deepspeed_tpu_torch.ops.fused_adam import TABLE_LEAVES
+
+    return -(-n // TABLE_LEAVES) if optimizer == "FusedAdam" else n
 
 
 def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
@@ -1786,7 +1832,7 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
-            OPT_COUNTER[optimizer]: rec["leaves"]}
+            OPT_COUNTER[optimizer]: opt_launches(optimizer, rec["leaves"])}
     bad = {name: launches[name] / steps for name in want if launches[name] != want[name] * steps}
     if bad:
         raise AssertionError(f"train: launches per step {bad}, expected {want}")

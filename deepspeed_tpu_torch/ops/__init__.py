@@ -9,7 +9,8 @@
 ``quantization.dequantize_groupwise`` and
 ``sparse_attention.sparse_self_attention.sparse_fwd`` / ``sparse_bwd_dq`` /
 ``sparse_bwd_dkv`` each carry a ``launches`` counter that rises by one per
-kernel launch. ``evoformer.DS4Sci_EvoformerAttention`` is the
+kernel launch (``fused_adam.fused_adam_multi``'s launches count on
+``fused_adam.fused_adam``). ``evoformer.DS4Sci_EvoformerAttention`` is the
 DeepSpeed4Science entry point over the flash kernels' additive-bias
 variants; ``sparse_attention.SparseSelfAttention`` is DeepSpeed's
 block-sparse attention over the sparse kernels.

@@ -44,7 +44,7 @@ SIGNATURES: Dict[str, List] = {
     "ds_flash_dq_collapsed_parts": [_I] * 7,
     "ds_flash_bwd_dq_collapsed": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P, _P] + [_I] * 6 + [_F, _I, _I, _I, _P],
-    "ds_fused_adam": [_P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
+    "ds_fused_adam_multi": [_P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _P],
     "ds_lamb_direction": [_P, _P, _P, _P, _P, _LL, _P, _F, _F, _F, _F, _F, _F, _P],
     "ds_quantize_groupwise": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "ds_dequantize_groupwise": [_P, _P, _P, _LL, _I, _I, _P],

@@ -12,7 +12,8 @@ the reference's config name selects:
   ``add_decayed_weights -> scale_by_adam``).
 - ``FusedAdam``: AdamW through the hand-written kernel
   (``ops.fused_adam``, the reference's ``_pallas_fused_adamw``), one launch
-  per parameter tensor, as the reference launched one per leaf.
+  over every parameter tensor of a param group (``fused_adam_multi``; the
+  reference's per-leaf kernels run inside one compiled step).
 - ``Lamb``: ``optax.lamb``. Per leaf, the direction
   ``u = mhat / (sqrt(vhat) + eps) + wd p`` through the hand-written kernel
   (``ops.fused_lamb.lamb_direction``, one launch per leaf; its plain version
@@ -34,7 +35,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops import fused_lamb
-from ..ops.fused_adam import adam_scalars, fused_adam, fused_adam_ref
+from ..ops.fused_adam import adam_scalars, fused_adam_multi, fused_adam_ref
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -57,7 +58,8 @@ class DeviceOptimizer(torch.optim.Optimizer):
     """The step loop the port's optimizers share: a device step count that
     advances only where ``finite`` holds, the step's scalars as one device
     tensor per group (``adam_scalars``: lr, ``1 - b1^t``, ``1 - b2^t``, the
-    gradient multiplier, the finite flag), and one ``_update`` per leaf."""
+    gradient multiplier, the finite flag), and one ``_update`` per leaf
+    (``_step_group`` takes a whole group where a subclass overrides it)."""
 
     def __init__(self, params, defaults: Dict):
         super().__init__(params, defaults)
@@ -68,6 +70,23 @@ class DeviceOptimizer(torch.optim.Optimizer):
 
     def _update(self, p, g, state, scalars, group) -> None:
         raise NotImplementedError
+
+    def _leaves(self, group):
+        """(p, grad, state) of each parameter of ``group`` that has a gradient,
+        its state made on first use."""
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            if p.dtype != torch.float32 or p.grad.dtype != torch.float32:
+                raise TypeError(f"{type(self).__name__} updates fp32 parameters with fp32 gradients")
+            state = self.state[p]
+            if not state:
+                state.update(self._init_state(p))
+            yield p, p.grad, state
+
+    def _step_group(self, group, scalars) -> None:
+        for p, g, state in self._leaves(group):
+            self._update(p, g, state, scalars, group)
 
     @torch.no_grad()
     def step(self, closure=None, grad_mult: Optional[torch.Tensor] = None, finite: Optional[torch.Tensor] = None):
@@ -84,15 +103,7 @@ class DeviceOptimizer(torch.optim.Optimizer):
             b1, b2 = group.get("betas", (0.0, 0.0))
             scalars = adam_scalars(group["lr"], self._count, b1, b2, 1.0 if grad_mult is None else grad_mult, ok,
                                    device=dev)
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                if p.dtype != torch.float32 or p.grad.dtype != torch.float32:
-                    raise TypeError(f"{type(self).__name__} updates fp32 parameters with fp32 gradients")
-                state = self.state[p]
-                if not state:
-                    state.update(self._init_state(p))
-                self._update(p, p.grad, state, scalars, group)
+            self._step_group(group, scalars)
         return loss
 
 
@@ -123,15 +134,18 @@ class Adam(DeviceOptimizer):
 
 
 class FusedAdam(Adam):
-    """AdamW whose update is the hand-written kernel on CUDA parameters (the
-    plain version on CPU parameters)."""
+    """AdamW whose update is the hand-written kernel on CUDA parameters, one
+    launch for every leaf of a group (the plain version on CPU parameters)."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01):
         super().__init__(params, lr, betas, eps, weight_decay, adam_w_mode=True)
 
-    def _update(self, p, g, state, scalars, group):
+    def _step_group(self, group, scalars):
+        leaves = list(self._leaves(group))
         (b1, b2), eps, wd = group["betas"], group["eps"], group["weight_decay"]
-        fused_adam(p, g.contiguous(), state["exp_avg"], state["exp_avg_sq"], scalars, b1, b2, eps, wd)
+        fused_adam_multi([p for p, _, _ in leaves], [g.contiguous() for _, g, _ in leaves],
+                         [state["exp_avg"] for _, _, state in leaves], [state["exp_avg_sq"] for _, _, state in leaves],
+                         scalars, b1, b2, eps, wd)
 
 
 class Lamb(Adam):

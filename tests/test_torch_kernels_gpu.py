@@ -981,10 +981,121 @@ def test_fused_adam_kernel(cuda, n, finite):
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6
 
 
+# fused_adam_multi's ragged leaves: sizes 1, 3, 4 and 5 (a vector's tail alone and after a vector), 4097 and
+# 65,537 (past a tile of 4,096 elements, and many tiles), an empty leaf, and tensors that start one element into
+# their storage (not 16-byte aligned: the scalar path)
+ADAM_LEAVES = [(1, 0), (3, 0), (4, 0), (5, 0), (4097, 0), (0, 0), (65537, 0), (4097, 1), (6, 1)]
+
+
+def _adam_leaves(dev, leaves, seed=0):
+    """[p, g, m, v] per (size, offset): views ``offset`` elements into their storage, v positive."""
+    g = _gen(dev, seed)
+    out = []
+    for size, offset in leaves:
+        leaf = [torch.randn(size + offset, generator=g, device=dev)[offset:] for _ in range(4)]
+        leaf[3].abs_()
+        out.append(leaf)
+    return out
+
+
+def _adam_multi(leaves, scal, fn=None):
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    (fn or fad.fused_adam_multi)(*[[leaf[i] for leaf in leaves] for i in range(4)], scal, weight_decay=0.01)
+
+
+@pytest.mark.parametrize("finite", [True, False])
+def test_fused_adam_multi_kernel(cuda, finite):
+    """One launch over ragged, empty and unaligned leaves against the plain
+    version, within 1e-6 of each updated tensor's largest value; with the
+    finite flag at 0 every leaf stays as it was, bit for bit."""
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    leaves = _adam_leaves(cuda, ADAM_LEAVES)
+    assert leaves[-1][0].data_ptr() % 16 and leaves[-2][1].data_ptr() % 16
+    scal = fad.adam_scalars(1e-3, 3, 0.9, 0.999, grad_mult=0.5, finite=finite, device=cuda)
+    before = [[t.clone() for t in leaf] for leaf in leaves]
+    ref = [[t.clone() for t in leaf] for leaf in leaves]
+    n0 = fad.fused_adam.launches
+    _adam_multi(leaves, scal)
+    _adam_multi(ref, scal, fad.fused_adam_multi_ref)
+    torch.cuda.synchronize()
+    assert fad.fused_adam.launches == n0 + 1
+    for got, want, was in zip(leaves, ref, before):
+        for i in (0, 2, 3):  # p, m, v
+            if not finite:
+                assert torch.equal(got[i], was[i])
+            elif want[i].numel():
+                assert ((got[i] - want[i]).abs().max() / want[i].abs().max()).item() <= 1e-6
+
+
+def test_fused_adam_multi_overflows_the_table(cuda):
+    """More leaves than one launch's table takes: ceil(n / TABLE_LEAVES) launches, each leaf as the plain version."""
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    n = 2 * fad.TABLE_LEAVES + 5
+    leaves = _adam_leaves(cuda, [(1 + (7 * i) % 61 + (4096 if i % 97 == 0 else 0), int(i % 3 == 1)) for i in range(n)])
+    scal = fad.adam_scalars(1e-3, 2, 0.9, 0.999, grad_mult=0.5, device=cuda)
+    ref = [[t.clone() for t in leaf] for leaf in leaves]
+    n0 = fad.fused_adam.launches
+    _adam_multi(leaves, scal)
+    _adam_multi(ref, scal, fad.fused_adam_multi_ref)
+    torch.cuda.synchronize()
+    assert fad.fused_adam.launches == n0 + 3
+    for got, want in zip(leaves, ref):
+        for i in (0, 2, 3):
+            assert ((got[i] - want[i]).abs().max() / want[i].abs().max()).item() <= 1e-6
+
+
+def test_fused_adam_multi_repeats_bit_for_bit(cuda):
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    scal = fad.adam_scalars(1e-3, 5, 0.9, 0.999, grad_mult=0.7, device=cuda)
+    runs = []
+    for _ in range(2):
+        leaves = _adam_leaves(cuda, ADAM_LEAVES, seed=1)
+        _adam_multi(leaves, scal)
+        runs.append(leaves)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for la, lb in zip(*runs) for a, b in zip(la, lb))
+
+
+def test_fused_adam_multi_in_a_cuda_graph_equals_the_eager_call(cuda):
+    """The launch captured in a CUDA graph (its table is a kernel parameter,
+    copied at capture) and replayed equals the eager call bit for bit."""
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    scal = fad.adam_scalars(1e-3, 5, 0.9, 0.999, grad_mult=0.7, device=cuda)
+    eager = _adam_leaves(cuda, ADAM_LEAVES, seed=2)
+    replayed = _adam_leaves(cuda, ADAM_LEAVES, seed=2)
+    _adam_multi(eager, scal)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _adam_multi(replayed, scal)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for la, lb in zip(eager, replayed) for a, b in zip(la, lb))
+
+
+def test_fused_adam_multi_raises_on_what_the_kernel_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    scal = fad.adam_scalars(1e-3, 1, 0.9, 0.999, device=cuda)
+    p, g, m, v = _adam_leaves(cuda, [(64, 0)])[0]
+    bad = {"dtype": [p, g.bfloat16(), m, v], "contiguity": [p, torch.randn(8, 8, device=cuda).t(), m, v],
+           "size": [p, g[:63], m, v], "device": [p, g, m.cpu(), v]}
+    for leaf in bad.values():
+        with pytest.raises(ValueError, match="fused_adam: leaf 1"):
+            fad.fused_adam_multi([p, leaf[0]], [g, leaf[1]], [m, leaf[2]], [v, leaf[3]], scal)
+    with pytest.raises(ValueError, match="scalars"):
+        fad.fused_adam_multi([p], [g], [m], [v], scal.cpu())
+
+
 def test_training_on_the_card_matches_the_cpu(cuda):
     """Three engine steps of a small gpt2 (head dim 64) in fp32 on the card
     (flash kernels, FusedAdam) give the CPU engine's losses (plain versions),
-    and every training kernel launched."""
+    every training kernel launched, and FusedAdam once a step."""
     import itertools
 
     import numpy as np
@@ -1008,6 +1119,7 @@ def test_training_on_the_card_matches_the_cpu(cuda):
     got, want = run("cuda"), run("cpu")
     assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4, (got, want)
     assert all(fn.launches > n for fn, n in zip(counters, before))
+    assert fad.fused_adam.launches == before[3] + 3  # one launch a step over every leaf
 
 
 # ---------------------------------------------------------------- block-sparse attention (SparseSelfAttention)
