@@ -32,7 +32,10 @@ Phases, each fatal on failure:
    (4,096, 512 at gpt2_1_3b's context of 1,024; the prefill's second row
    then starts at 7,680 so that it cuts); decode at B 8 and prefill at
    2 x 16 also cold, in device time from a CUDA graph rotating over copies of
-   the pools, and of SDPA's dense K/V, of over 100 MB;
+   the pools, and of SDPA's dense K/V, of over 100 MB; and prefill at the
+   shape of a speculative verify step (``phase_verify``: 64 rows of 5 and of
+   2 queries, each window ending a context of 130-8,192 keys) on bf16 and
+   int8 pools, beside SDPA with a boolean mask;
 4. step parity: one prefill quantum and one mixed decode + prefill quantum
    of llama3_8b at full width and 4 layers, run with the kernels and with
    their plain versions; logits and KV pools (garbage block 0 excluded)
@@ -56,13 +59,30 @@ Phases, each fatal on failure:
    whose tokens must be equal; its agreement with the fused loop's tokens is
    printed (in bf16 the two loops' products have other row counts and round
    otherwise; the card tests hold the two loops to the CPU in fp32); then
-   ``sla``: ``sla.run_load`` with 24 requests a row (a shared
-   256-token prefix and 16-1500 more tokens, 32 new tokens, greedy), every
+   ``serve_spec`` (speculative decoding, on the first serve run's weights):
+   the JAX bench's workload (32 prompts, each a seeded 16-token motif
+   repeated 8 times, 128 new tokens, K 4), spec off and on with bursts off,
+   spec on with an oracle drafter (spec off's tokens, while a row still
+   agrees with them), spec off at burst 32, all at
+   ``DS_TPU_PROGRAM_CACHE=32``, then spec on at the default cache; each a
+   warm-up generate (the graphs captured; in the spec-on run the first
+   verify replays held to the eager verify step on the same inputs) and a
+   timed one with tokens/s, decode steps, proposed and accepted drafts,
+   tokens a decode step, captures and evictions, its token agreement with
+   spec off and the KV pool's free blocks before and after; then
+   ``spec_fp32``: a 2-layer llama3_8b-wide engine in fp32 whose spec-on
+   tokens (prompt lookup and the oracle) must equal spec off's in the fused
+   and the unfused loop; then ``sla``: ``sla.run_load`` with 24 requests a
+   row (a shared 256-token prefix and 16-1500 more tokens, 32 new tokens,
+   greedy), every
    arrival at t = 0 and then Poisson rows at 1/4, 1/2 and 3/4 of that row's
    requests/s, each with tokens/s, TTFT and TPOT percentiles and its SLA
    misses, and ``effective_throughput_at_sla`` at the FastGen SLA (TTFT 1 s,
-   TPOT 250 ms). Then the quantised main paths the same way, each
-   with its counters zeroed before and read after: gpt2_1_3b at full width
+   TPOT 250 ms). Then ALiBi and sliding-window serving as ``serve`` does
+   it (eager and graph tokens equal): a BLOOM-7b1-shaped config and a
+   Mistral-7B-v0.1-shaped one (window 4,096, prompts up to 6,000 tokens),
+   each at full width and 4 layers. Then the quantised main paths the same
+   way, each with its counters zeroed before and read after: gpt2_1_3b at full width
    and depth with ``quant_bits=8`` and ``kv_quant_bits=8`` (prompts of 16-960
    tokens, max_context 1024), and llama3_8b at full width and depth with
    ``quant_bits=4`` (packed int4) on a bf16 pool; the launch counts must fit
@@ -587,6 +607,55 @@ def phase_prefill(torch, dev, dtype, S, iters, geom=GEOM, int8=False, feature="n
                 bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
+# A speculative verify step's prefill: B rows of chunk = K + 1 queries (K drafts of 4, and of 1), each row's
+# window the last positions of a context spread evenly over this range
+VERIFY_CTX = (130, 8192)
+
+
+def phase_verify(torch, dev, dtype, B, chunk, iters, geom=GEOM, int8=False):
+    """Prefill at the shape of a speculative verify step: B rows x ``chunk`` queries at ``geom``'s heads,
+    row r's window ending its context (spread over VERIFY_CTX), against its plain version; kernel, plain
+    and SDPA (boolean mask) times and the bound."""
+    from deepspeed_tpu_torch.device import sm_count
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    H, KVH, D, bs, P = (geom[k] for k in ("H", "KVH", "D", "bs", "P"))
+    lo, hi = VERIFY_CTX
+    ctx = [min(P * bs, lo + (hi - lo) * r // max(1, B - 1)) for r in range(B)]
+    q0 = [c - chunk for c in ctx]
+    kd, vd, bt, cl, g = paged_case(torch, dev, dtype, ctx, H, KVH, D, bs, P, seed=16 * B + chunk)
+    kp, vp = int8_pools(kd, vd) if int8 else (kd, vd)
+    if int8:
+        kd, vd = pa.dequantize_kv(kp).to(dtype), pa.dequantize_kv(vp).to(dtype)
+    q = torch.randn((B, chunk, H, D), generator=g, device=dev).to(dtype)
+    pos = (torch.tensor(q0, dtype=torch.int32)[:, None] + torch.arange(chunk, dtype=torch.int32)[None]).to(dev)
+    scale = D**-0.5
+    got = pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale)
+    err = errors(got, want)
+    item = q.element_size()
+    visible = sum(p0 + s + 1 for p0 in q0 for s in range(chunk))
+    nbytes = kv_bytes(sum(ctx), KVH, D, item, int8) + 2 * q.numel() * item + bt.numel() * 4 + B * 4 + pos.numel() * 4
+    flops = 4 * visible * H * D
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    k_ms = time_ms(lambda: pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, scale), iters)
+    p_ms = time_ms(lambda: pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, scale), max(3, iters // 20))
+    k, v, L = dense_kv(torch, kd, vd, bt, cl)
+    mask = sdpa_mask(torch, None, 0, L, pos, cl, dtype)
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l_ms = time_ms(lambda: sdpa(qh, k, v, attn_mask=mask, scale=scale, enable_gqa=True), max(3, iters // 4))
+    l_bytes = 2 * k.numel() * item + 2 * q.numel() * item + mask.numel() * mask.element_size()
+    del k, v
+    return dict(kernel="paged_attention_prefill", pool="int8" if int8 else str(dtype), dtype=str(dtype),
+                shape=f"q({B},{chunk},{H},{D}) kv_heads={KVH} ctx={ctx[0]}..{ctx[-1]}", features="verify",
+                window=0, **err, tol=TOL[str(dtype)], kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                library_bytes=l_bytes, launches_per_verify_step="one a layer (no decode launch)",
+                plan=pa._prefill_plan(B, chunk, H, KVH, P, bs, sm_count(dev)) if dtype == torch.bfloat16 else None,
+                bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
+
+
 def norm_wdtype(torch, dtype, mixed):
     """The weight's dtype of a norm case: x's, or with ``mixed`` the other one (bf16 x with fp32 w is how the
     parameters converted from the JAX package, fp32, meet bf16 activations)."""
@@ -734,6 +803,7 @@ def run_kernel_phases(torch, dev, quick: bool):
         cases.append(lambda dt: phase_rms(torch, dev, dt, 2048, iters, mixed=True))
         cases += [lambda dt, fn=fn, n=n, f=f: fn(torch, dev, dt, n, iters, feature=f)
                   for f in ("alibi", "window") for fn, n in ((phase_decode, 64), (phase_prefill, 512))]
+        cases += [lambda dt, c=c: phase_verify(torch, dev, dt, 64, c, iters) for c in (5, 2)]
     return run_cases(torch, cases)
 
 
@@ -754,6 +824,8 @@ def run_quant_kernel_phases(torch, dev, quick: bool):
     for geom in (GPT2_GEOM, GEOM):
         cases += [decode(B, geom) for B in (8, 64)] + [prefill(S, geom) for S in (16, 256, 512)]
         cases += [case(n, geom, f) for f in ("alibi", "window") for case, n in ((decode, 64), (prefill, 512))]
+    # the verify windows of speculative decoding on int8 pools at llama3_8b's heads
+    cases += [lambda dt, c=c: phase_verify(torch, dev, dt, 64, c, iters, int8=True) for c in (5, 2)]
     # the bf16 pool at gpt2_1_3b's heads (MHA, D 64), with and without ALiBi and a window
     plain = lambda fn, n, f: lambda dt: fn(torch, dev, dt, n, iters, GPT2_GEOM, feature=f)
     cases += [plain(fn, n, f) for f in ("none", "alibi", "window") for fn, n in ((phase_decode, 64),
@@ -1362,7 +1434,36 @@ SERVE_RUNS = {
     # 32 layers x (2 norms; q, k, v, o, gate, up, down) + the final norm and the untied head
     "llama3_8b_w4": dict(longest=1500, max_context=8192, quant=dict(quant_bits=4),
                          per_forward={"rms_norm": 65, "quantized_matmul": 225}),
+    # ALiBi serving: BLOOM-7b1's widths cut to 4 layers; 4 x 2 norms + the embedding norm + the final norm;
+    # its 2,048 positions bound max_context
+    "bloom_7b1_alibi_4l": dict(cfg=lambda: bloom_cfg(n_layers=4), longest=1500, max_context=2048, quant={},
+                               per_forward={"layer_norm": 10}, compare_eager=(True, False)),
+    # sliding-window serving: Mistral-7B-v0.1's widths cut to 4 layers, window 4,096; prompts up to 6,000
+    # tokens, so that the window masks
+    "mistral_7b_swa_4l": dict(cfg=lambda: mistral_cfg(n_layers=4), longest=6000, max_context=8192, quant={},
+                              per_forward={"rms_norm": 9}, compare_eager=(True, False)),
 }
+
+
+def bloom_cfg(**kw):
+    """BLOOM-7b1 (bigscience/bloom-7b1 config.json): 30 layers, d 4096, 32 heads, vocab 250,880, ALiBi,
+    LayerNorm with an embedding norm, tanh GELU, tied embeddings, 2,048 positions; fields replaced by ``kw``."""
+    from deepspeed_tpu_torch.models import TransformerConfig
+
+    fields = dict(vocab_size=250880, n_layers=30, n_heads=32, d_model=4096, max_seq_len=2048, norm="layernorm",
+                  activation="gelu", pos_emb="alibi", embedding_norm=True, tie_embeddings=True)
+    return TransformerConfig(**{**fields, **kw})
+
+
+def mistral_cfg(**kw):
+    """Mistral-7B-v0.1 (mistralai/Mistral-7B-v0.1 config.json): 32 layers, d 4096, 32/8 heads, d_ff 14,336,
+    vocab 32,000, rope theta 1e4, sliding window 4,096, 32,768 positions; fields replaced by ``kw``."""
+    from deepspeed_tpu_torch.models import TransformerConfig
+
+    fields = dict(vocab_size=32000, n_layers=32, n_heads=32, n_kv_heads=8, d_model=4096, d_ff=14336,
+                  max_seq_len=32768, norm="rmsnorm", activation="swiglu", pos_emb="rope", rope_theta=10000.0,
+                  sliding_window=4096, tie_embeddings=False)
+    return TransformerConfig(**{**fields, **kw})
 
 
 def tree_bytes(tree) -> int:
@@ -1417,14 +1518,16 @@ def agreement(out, other) -> dict:
                 tokens=sum(len(w) for w in other), equal_requests=first.count(None), first_difference=first)
 
 
-def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None, beside=None):
+def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None, beside=None, keep_params=False):
     """One serving run through ``InferenceEngineV2.generate``: the counters in
     ``counters`` are zeroed just before the two waves and read just after.
     Each step replays its bucket's CUDA graph: the graph replays must equal
     the steps (and the fused quanta), and the captures and their seconds are
     printed. ``want``: tokens the run must give; ``beside``: tokens it is
     compared with and the agreement printed (the unfused loop's bf16 products
-    have other row counts than the fused loop's, so they round otherwise)."""
+    have other row counts than the fused loop's, so they round otherwise).
+    ``keep_params``: the record keeps the engine's weights (``params``) for
+    the next phase, which then needs no set-up of its own."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
@@ -1432,24 +1535,17 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
     from deepspeed_tpu_torch.ops.paged_attention import kv_pool_is_quantized
 
     spec = SERVE_RUNS[run]
-    cfg = gpt2_cfg() if run.startswith("gpt2") else model_cfg()
+    cfg = spec["cfg"]() if "cfg" in spec else gpt2_cfg() if run.startswith("gpt2") else model_cfg()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     bf16_weight_bytes = tree_bytes(params)
     t0 = time.perf_counter()
-    cache_knob = os.environ.get("DS_TPU_PROGRAM_CACHE")
-    if "program_cache" in spec:
-        os.environ["DS_TPU_PROGRAM_CACHE"] = str(spec["program_cache"])
-    engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
-        state_manager=RaggedBatchConfig(max_context=spec["max_context"], kv_block_size=128, memory_gb=8.0),
-        dtype="bfloat16", device=str(dev), **spec["quant"]))
-    if "program_cache" in spec:  # the knob is read when the engine is built: restore it for the next phases
-        if cache_knob is None:
-            del os.environ["DS_TPU_PROGRAM_CACHE"]
-        else:
-            os.environ["DS_TPU_PROGRAM_CACHE"] = cache_knob
+    with program_cache(spec.get("program_cache")):
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=RaggedBatchConfig(max_context=spec["max_context"], kv_block_size=128, memory_gb=8.0),
+            dtype="bfloat16", device=str(dev), **spec["quant"]))
     fused = engine._fused_enabled
     del params  # a quantised engine holds codes and scales only: let the bf16 kernels go
     torch.cuda.synchronize()
@@ -1526,6 +1622,7 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
         if spec.get("compare_eager") and fused:
             engine._eager_steps = True
             profile_serve(torch, engine, (wave1, wave2), run, dispatch="eager")
+    rec["params"] = engine.params if keep_params else None
     del engine
     gc.collect()  # the engine's closures form cycles: free its pools and weights before the next phase
     torch.cuda.empty_cache()
@@ -1592,6 +1689,234 @@ def phase_sla(torch, dev, counters):
     log(out)
     del engine
     gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- speculative decoding
+# serve_spec at the JAX bench's chip sizes (bench.py, run_serve_spec): 32 prompts, each a seeded 16-token motif
+# repeated 8 times, 128 new tokens, K = 4, bursts off; the KV pool as the bench sizes it
+SPEC_SERVE = dict(n_req=32, motif=16, reps=8, new=128, spec_k=4, kv_block=128)
+SPEC_PROGRAM_CACHE = 32  # holds every graph key of a serve_spec run (the default, 8, is run beside)
+
+
+class program_cache:
+    """``DS_TPU_PROGRAM_CACHE`` set to ``n`` (None: left as it is) while an engine is built: the engine reads
+    the knob once."""
+
+    def __init__(self, n):
+        self.n, self.old = n, os.environ.get("DS_TPU_PROGRAM_CACHE")
+
+    def __enter__(self):
+        if self.n is not None:
+            os.environ["DS_TPU_PROGRAM_CACHE"] = str(self.n)
+
+    def __exit__(self, *exc):
+        if self.n is not None:
+            if self.old is None:
+                del os.environ["DS_TPU_PROGRAM_CACHE"]
+            else:
+                os.environ["DS_TPU_PROGRAM_CACHE"] = self.old
+
+
+def spec_prompts(np, vocab, n_req, motif, reps):
+    """The bench's prompts: ``n_req`` seeded motifs of ``motif`` tokens, each repeated ``reps`` times."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(1, vocab, size=motif).tolist() * reps for _ in range(n_req)]
+
+
+class OracleDrafter:
+    """Proposes the tokens a reference run gave after the generated part of the history, so that the
+    full-accept path of the verify runs whatever the weights (a test drafter only). A row whose tokens have
+    left the reference's (bf16 rounds spec on and off otherwise) gets no proposal: plain decode."""
+
+    def __init__(self, prompts, outs):
+        self._want = {tuple(p): o for p, o in zip(prompts, outs)}
+        self._plen = len(prompts[0])
+
+    def propose(self, history, k):
+        want = self._want.get(tuple(history[:self._plen]), [])
+        done = len(history) - self._plen
+        if list(history[self._plen:]) != want[:done]:
+            return []
+        return list(want[done:done + k])
+
+
+def spec_engine(dev, cfg, params, dtype, cache, **kw):
+    """An engine at serve_spec's KV sizes: max_context = the prompt, the new tokens, K and one block; a pool
+    of one max_context a request and 8 blocks more (as the bench sizes it)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+
+    s = SPEC_SERVE
+    max_ctx = min(cfg.max_seq_len, s["motif"] * s["reps"] + s["new"] + s["spec_k"] + s["kv_block"])
+    smc = RaggedBatchConfig(max_context=max_ctx, kv_block_size=s["kv_block"],
+                            num_kv_blocks=s["n_req"] * -(-max_ctx // s["kv_block"]) + 8)
+    with program_cache(cache):
+        return InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=smc, dtype=dtype, device=str(dev), spec_k=s["spec_k"], **kw))
+
+
+def verify_graph_checks(torch, engine, limit=6):
+    """Hold the engine's verify graphs to the eager verify step: after each of the first ``limit`` greedy
+    verify replays, the same step runs eagerly on the same inputs (it writes the same KV to the same slots)
+    and its committed ids and accepted counts are compared with the replay's. Returns the list the checks
+    go into; ``del engine._dispatch`` ends them."""
+    checks = []
+    inner = engine._dispatch
+
+    def spy(key, step, arrays, sampled=False, head=None):
+        out = inner(key, step, arrays, sampled, head)
+        if key[0] == "spec" and not sampled and len(checks) < limit:
+            eager = step(*engine._to_device(*arrays), None)
+            checks.append(dict(key=list(key[:3]), committed_equal=bool(torch.equal(out[:, :-1], eager[:, :-1])),
+                               counts_equal=bool(torch.equal(out[:, -1], eager[:, -1]))))
+        return out
+
+    engine._dispatch = spy
+    return checks
+
+
+def spec_counts(engine) -> dict:
+    return dict(decode_steps=engine.decode_steps, decode_tokens=engine.decode_tokens, proposed=engine.spec_proposed,
+                accepted=engine.spec_accepted, rollback_tokens=engine.state.spec_rollback_tokens,
+                **graph_counts(engine))
+
+
+def spec_run(torch, engine, prompts, label, counters, vocab, check_graph=False) -> dict:
+    """One serve_spec run: a warm-up generate that captures every graph key the run takes (with
+    ``check_graph`` also holding the verify graphs to the eager step), then the timed generate, the prefix
+    cache reset before each; the counters zeroed just before the timed run and read just after. Gates:
+    every request gets its new tokens, in vocab; the KV pool's free blocks come back; each step is one
+    graph replay."""
+    new = SPEC_SERVE["new"]
+    engine.state.reset_prefix_cache()
+    before = spec_counts(engine)
+    checks = verify_graph_checks(torch, engine) if check_graph else None
+    engine.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    if checks is not None:
+        del engine._dispatch
+    warm = {k: v - before[k] for k, v in spec_counts(engine).items()}
+    engine.state.reset_prefix_cache()
+    free0 = engine.state.free_blocks
+    before = spec_counts(engine)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    c = {k: v - before[k] for k, v in spec_counts(engine).items()}
+    engine.state.reset_prefix_cache()
+    n_req = len(prompts)
+    rec = dict(phase="serve_spec", run=label, spec=engine._spec_enabled, burst=engine._config.decode_burst,
+               drafter=type(engine._drafter).__name__ if engine._spec_enabled else None,
+               program_cache=engine._max_program_variants, wall_s=wall, tokens_per_s=n_req * new / wall,
+               steps=c["dispatches"], decode_steps=c["decode_steps"], decode_tokens=c["decode_tokens"],
+               tokens_per_decode_step=c["decode_tokens"] / max(1, c["decode_steps"]),
+               tokens_per_decode_step_per_row=c["decode_tokens"] / max(1, c["decode_steps"]) / n_req,
+               proposed=c["proposed"], accepted=c["accepted"],
+               acceptance=c["accepted"] / c["proposed"] if c["proposed"] else None,
+               rollback_tokens=c["rollback_tokens"], captures=c["captures"], capture_s=c["capture_s"],
+               evictions=c["evictions"], graph_replays=c["graph_replays"], warmup_captures=warm["captures"],
+               warmup_capture_s=warm["capture_s"], warmup_evictions=warm["evictions"], graphs_live=len(engine.graphs),
+               launches=launches, free_blocks_before=free0, free_blocks_after=engine.state.free_blocks,
+               verify_graph_checks=checks)
+    log(rec)
+    if not all(len(o) == new and all(0 <= t < vocab for t in o) for o in out):
+        raise AssertionError(f"serve_spec {label}: a request did not get {new} in-vocab tokens")
+    if rec["free_blocks_after"] != free0:
+        raise AssertionError(f"serve_spec {label}: {free0} free KV blocks before, {rec['free_blocks_after']} after")
+    if c["graph_replays"] != c["dispatches"]:
+        raise AssertionError(f"serve_spec {label}: {c['graph_replays']} graph replays for {c['dispatches']} steps")
+    if launches["paged_attention_prefill"] <= 0 or launches["rms_norm"] <= 0:
+        raise AssertionError(f"serve_spec {label}: kernels of the path never launched: {launches}")
+    if checks is not None and not (checks and all(x["committed_equal"] and x["counts_equal"] for x in checks)):
+        raise AssertionError(f"serve_spec {label}: the verify graph's replay differs from the eager step: {checks}")
+    rec["tokens"] = out
+    return rec
+
+
+def phase_serve_spec(torch, dev, counters, params):
+    """Speculative decoding on llama3_8b at full width and depth (bf16, ``params``: the serve phase's
+    weights), the JAX bench's serve_spec workload, in turns: spec off, spec on (prompt lookup, its first
+    verify steps held to the eager step), spec on with the oracle drafter (the reference: spec off's tokens),
+    and spec off at the default burst of 32, all at DS_TPU_PROGRAM_CACHE=32; then spec on at the default
+    cache. Each run reports tokens/s, decode steps, proposed and accepted drafts, tokens a decode step,
+    captures and evictions, and its bf16 token agreement with spec off; the oracle must have accepted."""
+    import numpy as np
+
+    cfg = model_cfg()
+    s = SPEC_SERVE
+    prompts = spec_prompts(np, cfg.vocab_size, s["n_req"], s["motif"], s["reps"])
+    runs = {}
+
+    def run(label, cache=SPEC_PROGRAM_CACHE, drafter=None, check_graph=False, **kw):
+        engine = spec_engine(dev, cfg, params, "bfloat16", cache, **kw)
+        if drafter is not None:
+            engine._drafter = drafter
+        rec = spec_run(torch, engine, prompts, label, counters, cfg.vocab_size, check_graph)
+        if "off" in runs:
+            rec["agreement_with_spec_off"] = agreement(rec["tokens"], runs["off"]["tokens"])
+            log(dict(phase="serve_spec agreement", run=label, beside="off", **rec["agreement_with_spec_off"]))
+        runs[label] = rec
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run("off", spec_decode=False, decode_burst=0)
+    run("on", spec_decode=True, decode_burst=0, check_graph=True)
+    run("oracle", spec_decode=True, decode_burst=0, drafter=OracleDrafter(prompts, runs["off"]["tokens"]))
+    run("off_burst32", spec_decode=False, decode_burst=32)
+    run("on_default_cache", cache=None, spec_decode=True, decode_burst=0)
+    if runs["oracle"]["accepted"] <= 0:
+        raise AssertionError(f"serve_spec: the oracle drafter's proposals were never accepted: {runs['oracle']}")
+    summary = {label: {k: r[k] for k in ("tokens_per_s", "decode_steps", "tokens_per_decode_step", "proposed",
+                                         "accepted", "captures", "evictions", "warmup_captures", "warmup_evictions")}
+               for label, r in runs.items()}
+    log(dict(phase="serve_spec summary", model="llama3_8b", **summary))
+    return runs
+
+
+def phase_spec_fp32(torch, dev, counters, n_layers=2, n_req=8, new=32):
+    """A ``n_layers``-layer engine at llama3_8b's widths in fp32 on the card: greedy tokens with speculative
+    decoding on equal those with it off, in the fused and the unfused loop (serve_spec's prompts, cut to
+    ``n_req`` and ``new`` tokens), with prompt lookup and with the oracle drafter (spec off's tokens, so
+    that whole windows are accepted)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import init_params
+
+    cfg = model_cfg(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.float32)
+    s = SPEC_SERVE
+    prompts = spec_prompts(np, cfg.vocab_size, n_req, s["motif"], s["reps"])
+    out = []
+    for fused in (True, False):
+        toks, counts = {}, {}
+        for run in ("off", "on", "oracle"):
+            engine = spec_engine(dev, cfg, params, "float32", SPEC_PROGRAM_CACHE, spec_decode=run != "off",
+                                 fused_step=fused)
+            if run == "oracle":
+                engine._drafter = OracleDrafter(prompts, toks["off"])
+            for fn in counters:
+                fn.launches = 0
+            toks[run] = engine.generate(prompts, max_new_tokens=new)
+            torch.cuda.synchronize()
+            counts[run] = dict(proposed=engine.spec_proposed, accepted=engine.spec_accepted,
+                               decode_steps=engine.decode_steps, launches={fn.__name__: fn.launches for fn in counters})
+            del engine
+            gc.collect()
+        rec = dict(phase="spec_fp32", model="llama3_8b", layers=n_layers, loop="fused" if fused else "unfused",
+                   tokens_equal={run: toks[run] == toks["off"] for run in ("on", "oracle")}, **counts,
+                   agreement_on=agreement(toks["on"], toks["off"]))
+        log(rec)
+        if not all(rec["tokens_equal"].values()) or counts["oracle"]["accepted"] <= 0:
+            raise AssertionError(f"spec_fp32 ({rec['loop']} loop): spec-on tokens differ from spec-off, or the "
+                                 f"oracle's drafts were never accepted: {rec}")
+        out.append(rec)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -2757,7 +3082,11 @@ def main(argv) -> int:
             phase_step_parity(torch, dev, dtype, model)
     paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
     counters = paged + [norms.rms_norm]
-    serve = phase_serve(torch, dev, counters, "llama3_8b", profile)
+    serve = phase_serve(torch, dev, counters, "llama3_8b", profile, keep_params=True)
+    t0 = time.perf_counter()
+    phase_serve_spec(torch, dev, counters, serve.pop("params"))
+    phase_spec_fp32(torch, dev, counters)
+    log(dict(phase="serve_spec", seconds=time.perf_counter() - t0))
     phase_serve(torch, dev, counters, "llama3_8b_cache16", profile, want=serve["tokens"])
     t0 = time.perf_counter()
     phase_serve(torch, dev, counters, "llama3_8b_unfused", profile, beside=serve["tokens"])
@@ -2765,6 +3094,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_sla(torch, dev, counters)
     log(dict(phase="sla", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_serve(torch, dev, paged + [norms.layer_norm], "bloom_7b1_alibi_4l")
+    phase_serve(torch, dev, counters, "mistral_7b_swa_4l")
+    log(dict(phase="serve alibi and window", seconds=time.perf_counter() - t0))
     serve_w8 = phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
     serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]

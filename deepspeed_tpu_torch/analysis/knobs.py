@@ -70,6 +70,12 @@ declare("DS_TPU_SERVE_FUSED", "1", "bool",
         "Serve with the single-dispatch fused SplitFuse step (0 serves with the unfused loop: a "
         "prefill step per chunk bucket and a decode step).",
         "inference/v2/engine_v2.py")
+declare("DS_TPU_SPEC_DECODE", "0", "bool",
+        "Enable speculative decoding (draft + single-dispatch K-token verify).",
+        "inference/v2/engine_v2.py")
+declare("DS_TPU_SPEC_K", "4", "int",
+        "Speculation depth: draft tokens proposed per verify dispatch.",
+        "inference/v2/engine_v2.py")
 declare("DS_TPU_DECODE_BURST", "32", "int",
         "Max fused greedy-decode steps per quantum (0 disables bursting).",
         "inference/v2/engine_v2.py")

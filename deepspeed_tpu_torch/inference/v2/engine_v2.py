@@ -31,10 +31,22 @@ Port of ``deepspeed_tpu/inference/v2/engine_v2.py``, both serving loops:
   engine runs each step eagerly; so does a CUDA engine whose private
   ``_eager_steps`` is set, which only the card tests and ``chip_smoke.py``
   do, to hold the graphs to the eager steps.
+- Speculative decoding (``spec_decode=True`` or ``DS_TPU_SPEC_DECODE=1``):
+  once every live sequence decodes, each quantum first tries a draft ->
+  verify step (``_run_spec_step``): a drafter (``spec.py``) proposes up to
+  ``spec_k`` tokens a row on the host, one step verifies them all (a
+  ``K+1``-token chunked prefill a row, then ``select_committed`` on the
+  device; on the card the captured graph of its own key), and the rejected
+  tail is rolled back (``DSStateManager.rollback_tokens``). A row with no
+  proposal runs as plain decode. Both serving loops and ``sla.run_load``
+  take it; the drafter reads token values, so the token carry stays on the
+  host (no deferred mode). ``spec_proposed``, ``spec_accepted``,
+  ``decode_steps`` and ``decode_tokens`` count on the engine (verify steps
+  count as decode steps).
 
 The engine runs on ``config.device`` (default ``"cuda"``, which raises
-without a GPU). Telemetry, journal, tensor parallelism, speculative
-decoding and the host spill tier come with later slices.
+without a GPU). Telemetry, journal, tensor parallelism and the host spill
+tier come with later slices.
 """
 
 import dataclasses
@@ -51,10 +63,11 @@ from ...ops.paged_attention import make_kv_pool
 from ..generation import sample_logits
 from ..quantization import QuantizedParam, quantize_for_serving
 from .graphs import StepGraphs
-from .model_runner import make_burst_fn, make_fused_step_fn, make_step_fns
+from .model_runner import make_burst_fn, make_fused_step_fn, make_spec_verify_fn, make_step_fns
 from .modules import build_modules
 from .ragged.manager import DSStateManager, RaggedBatchConfig
 from .scheduler import FusedQuantum, RaggedBatchScheduler, RaggedRequest
+from .spec import make_drafter
 
 
 def _next_pow2(n: int) -> int:
@@ -74,6 +87,10 @@ class RaggedInferenceEngineConfig:
     fused_step: Optional[bool] = None  # one step per scheduler quantum (SplitFuse); False: the unfused
     # loop (a prefill step per chunk bucket and a decode step). None: on unless DS_TPU_SERVE_FUSED=0
     enable_prefix_cache: Optional[bool] = None  # None: DS_TPU_PREFIX_CACHE
+    spec_decode: Optional[bool] = None  # speculative decoding: draft K tokens a decode row, verify them in one
+    # step. None: off unless DS_TPU_SPEC_DECODE=1
+    spec_k: Optional[int] = None  # max draft tokens a row a step. None: DS_TPU_SPEC_K (default 4)
+    spec_drafter: str = "prompt_lookup"  # drafter registry name (spec.py)
     min_decode_bucket: Optional[int] = None  # padded decode batch floor; None: DS_TPU_MIN_DECODE_BUCKET
     # weight-only quantisation: matmul kernels stored as int8 codes, dequantised in the matmul kernel
     quant_bits: int = 0  # 0 = off; 8, or 4 (packed int4 storage, 2 codes per byte)
@@ -112,6 +129,15 @@ class InferenceEngineV2:
         if fused is None:
             fused = knobs.get_bool("DS_TPU_SERVE_FUSED")
         self._fused_enabled = bool(fused)
+        spec = config.spec_decode
+        if spec is None:
+            spec = knobs.get_bool("DS_TPU_SPEC_DECODE")
+        self._spec_enabled = bool(spec)
+        spec_k = config.spec_k
+        if spec_k is None:
+            spec_k = knobs.get_int("DS_TPU_SPEC_K")
+        self._spec_k = max(1, int(spec_k))
+        self._drafter = make_drafter(config.spec_drafter)
         self.model = model
         cfg: TransformerConfig = model if isinstance(model, TransformerConfig) else model.cfg
         self.cfg = cfg
@@ -182,6 +208,7 @@ class InferenceEngineV2:
         self._max_program_variants = max(1, knobs.get_int("DS_TPU_PROGRAM_CACHE"))
         self._bursts: Dict[tuple, object] = {}  # sampling signature -> burst function
         self._fused_fns: Dict[tuple, object] = {}  # (bucket shape, sampling) -> step function
+        self._spec_fns: Dict[tuple, object] = {}  # (verify window, sampling) -> verify step function
         self._sampling = None  # (do_sample, temperature, top_k, top_p) during generate()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
@@ -194,6 +221,10 @@ class InferenceEngineV2:
                                      [f for f in self._mods if hasattr(f, "launches")])
         self.dispatches = 0  # steps run: graph replays, or eager step calls
         self.fused_quanta = 0
+        self.decode_steps = 0  # decode steps run (a burst of k counts k; a verify step counts 1)
+        self.decode_tokens = 0  # tokens those steps retired
+        self.spec_proposed = 0  # draft tokens sent to verify steps
+        self.spec_accepted = 0  # of those, accepted
 
     # ---------------------------------------------------------- feasibility
     def query(self, uid: int, max_request_length: int) -> Tuple[int, int]:
@@ -445,6 +476,8 @@ class InferenceEngineV2:
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
 
         logits = self._dispatch(("decode", len(ctx)), step, [ids, positions, bt, ctx, slots[0], last], head=ids_dev)
+        self.decode_steps += 1
+        self.decode_tokens += n
         for seq in seqs:
             seq.post_forward()
         if defer:
@@ -469,21 +502,25 @@ class InferenceEngineV2:
             k //= 2
         return 0
 
+    def _step_fn(self, family: Dict[tuple, object], key: tuple, make):
+        """The step function of ``key`` in one family's cache (``make()`` builds
+        it on a miss), LRU-bounded by ``DS_TPU_PROGRAM_CACHE``."""
+        if key in family:
+            family[key] = family.pop(key)  # LRU touch
+        else:
+            if len(family) >= self._max_program_variants:
+                family.pop(next(iter(family)))
+            family[key] = make()
+        return family[key]
+
     def _burst_for(self, sampling):
-        """The burst function per sampling signature (greedy = None), LRU-bounded
-        by ``DS_TPU_PROGRAM_CACHE``; None when bursting is off."""
+        """The burst function per sampling signature (greedy = None); None when
+        bursting is off."""
         if self._config.decode_burst < 2:
             return None
-        key = sampling or (False, 1.0, 0, 1.0)
-        if key not in self._bursts:
-            if len(self._bursts) >= self._max_program_variants:
-                self._bursts.pop(next(iter(self._bursts)))
-            do, t, k, p = key
-            self._bursts[key] = make_burst_fn(self._run_cfg, do_sample=do, temperature=t, top_k=k, top_p=p,
-                                              mods=self._mods)
-        else:
-            self._bursts[key] = self._bursts.pop(key)  # LRU touch
-        return self._bursts[key]
+        do, t, k, p = key = sampling or (False, 1.0, 0, 1.0)
+        return self._step_fn(self._bursts, key, lambda: make_burst_fn(
+            self._run_cfg, do_sample=do, temperature=t, top_k=k, top_p=p, mods=self._mods))
 
     def _run_decode_burst(self, uids: List[int], tokens: List[int], steps: int, ids_dev: Optional[torch.Tensor] = None,
                           defer: bool = False):
@@ -498,6 +535,8 @@ class InferenceEngineV2:
         toks = self._dispatch(("burst", len(ctx), steps) + self._sampling_key(), step,
                               [ids, positions, bt, ctx, slots, last], sampled=self._sampling is not None,
                               head=ids_dev)
+        self.decode_steps += steps
+        self.decode_tokens += n * steps
         for seq in seqs:
             seq.post_forward()
         return toks[:n] if defer else toks[:n].cpu().numpy()
@@ -519,19 +558,11 @@ class InferenceEngineV2:
         return D, P, S
 
     def _fused_for(self, n_dec: int, n_pre: int, chunk: int, sampling):
-        """LRU-bounded cache of step functions keyed on the padded bucket
-        shape and sampling signature (``DS_TPU_PROGRAM_CACHE`` entries)."""
-        key = (n_dec, n_pre, chunk) + (sampling or (False, 1.0, 0, 1.0))
-        if key not in self._fused_fns:
-            if len(self._fused_fns) >= self._max_program_variants:
-                self._fused_fns.pop(next(iter(self._fused_fns)))
-            do, t, k, p = key[3:7]
-            self._fused_fns[key] = make_fused_step_fn(self._run_cfg, n_dec=n_dec, n_pre=n_pre, chunk=chunk,
-                                                      do_sample=do, temperature=t, top_k=k, top_p=p,
-                                                      mods=self._mods)
-        else:
-            self._fused_fns[key] = self._fused_fns.pop(key)  # LRU touch
-        return self._fused_fns[key]
+        """The step function of a padded bucket shape and sampling signature."""
+        do, t, k, p = sampling = sampling or (False, 1.0, 0, 1.0)
+        return self._step_fn(self._fused_fns, (n_dec, n_pre, chunk) + sampling, lambda: make_fused_step_fn(
+            self._run_cfg, n_dec=n_dec, n_pre=n_pre, chunk=chunk, do_sample=do, temperature=t, top_k=k, top_p=p,
+            mods=self._mods))
 
     def _run_fused(self, quantum: FusedQuantum, decode_carry: List, steps: int, defer: bool,
                    eos_token_id: Optional[int]) -> Dict[int, object]:
@@ -638,6 +669,9 @@ class InferenceEngineV2:
                               [ids, positions, bt, ctx, slots0, last, adv, gslots],
                               sampled=self._sampling is not None, head=head)
         self.fused_quanta += 1
+        if n_dec:
+            self.decode_steps += steps
+            self.decode_tokens += n_dec * steps
         for seq in seqs:
             seq.post_forward()
 
@@ -652,6 +686,120 @@ class InferenceEngineV2:
             else:
                 out[pf.uid] = None
         return out
+
+    # ---------------------------------------------------------- speculative decode
+    def _spec_for(self, chunk: int, sampling):
+        """The verify step function of a verify window and sampling signature
+        (the padded row count is part of the graph key only)."""
+        do, t, k, p = sampling = sampling or (False, 1.0, 0, 1.0)
+        return self._step_fn(self._spec_fns, (chunk,) + sampling, lambda: make_spec_verify_fn(
+            self._run_cfg, chunk=chunk, do_sample=do, temperature=t, top_k=k, top_p=p, mods=self._mods))
+
+    def _run_spec_step(self, uids: List[int], carries: List[int], histories: List[Sequence[int]],
+                       budgets: List[int]) -> Optional[Dict[int, List[int]]]:
+        """One draft -> verify quantum over pure-decode rows.
+
+        The drafter proposes up to K tokens a row from its prompt + generated
+        history (at most ``budget - 1`` and what ``max_context`` leaves); the
+        verify window is ``chunk = min(K, next_pow2(longest draft)) + 1``
+        (carry token + drafts), so short drafts take a small window. One step
+        runs every admitted row as a ``chunk``-token chunked prefill that
+        writes the window's KV, and ``select_committed`` picks each row's
+        accepted prefix and bonus token on the device; the host reads back
+        one (B, chunk + 1) int32 block. The rejected tail positions roll back
+        (``DSStateManager.rollback_tokens``).
+
+        Returns uid -> committed tokens (1..chunk each) for the rows that
+        ran, or None when no row drafted anything or none was admitted: the
+        caller then runs a plain decode step.
+        """
+        K = self._spec_k
+        drafts: List[List[int]] = []
+        for uid, hist, budget in zip(uids, histories, budgets):
+            seq = self.state.get_sequence(uid)
+            cap = min(K, budget - 1, self.state.max_context - seq.seen_tokens - 1)
+            d = self._drafter.propose(hist, cap) if cap > 0 else []
+            drafts.append([int(t) for t in d[:max(0, cap)]])
+        kmax = max((len(d) for d in drafts), default=0)
+        if kmax == 0:
+            return None  # nothing to verify: plain decode is cheaper
+        chunk = min(K, _next_pow2(kmax)) + 1
+        admitted = self.scheduler.schedule_spec(uids, chunk)
+        if not admitted:
+            return None
+        by_uid = {u: i for i, u in enumerate(uids)}
+        n = len(admitted)
+        B = self._decode_bucket(n)
+        T = B * chunk
+        bs = self.state.block_size
+
+        ids = np.zeros((T,), np.int32)
+        positions = np.tile(np.arange(chunk, dtype=np.int32), B)
+        slots = self._garbage_slots(T)
+        ctx = np.full((B,), chunk, np.int32)  # padded rows attend inside the garbage page
+        bt = np.full((B, self._max_blocks_per_seq), self._garbage_block, np.int32)
+        n_draft = np.zeros((B,), np.int32)
+        seqs = []
+        for j, uid in enumerate(admitted):
+            i = by_uid[uid]
+            seq = self.state.get_sequence(uid)
+            self._cow_ready(seq, seq.seen_tokens)
+            self.state.allocate_for(seq, chunk)
+            seq.record_tokens(None)  # the committed tokens are known only after the verify
+            seq.pre_forward(chunk)
+            pos0 = seq.seen_tokens
+            blocks = np.asarray(seq.blocks, np.int32)
+            d = drafts[i]
+            base = j * chunk
+            ids[base] = int(carries[i])
+            ids[base + 1:base + 1 + len(d)] = d
+            pos = pos0 + np.arange(chunk)
+            positions[base:base + chunk] = pos
+            slots[base:base + chunk] = blocks[pos // bs] * bs + pos % bs
+            ctx[j] = pos0 + chunk
+            bt[j] = self._seq_block_row(seq)
+            n_draft[j] = len(d)
+            seqs.append(seq)
+
+        fn, params, kp, vp = self._spec_for(chunk, self._sampling), self.params, self.k_pages, self.v_pages
+
+        def step(ids, positions, bt, ctx, slots, n_draft, generator):
+            return fn(params, ids, positions, kp, vp, bt, ctx, slots, n_draft, generator)[0]
+
+        packed = self._dispatch(("spec", B, chunk) + self._sampling_key(), step,
+                                [ids, positions, bt, ctx, slots, n_draft], sampled=self._sampling is not None)
+        packed = packed[:n].cpu().numpy()  # committed ids and the accepted count: the whole readback
+        for seq in seqs:
+            seq.post_forward()
+
+        out: Dict[int, List[int]] = {}
+        total_acc = 0
+        for j, uid in enumerate(admitted):
+            acc = int(packed[j, chunk])
+            self.state.rollback_tokens(seqs[j], chunk - acc - 1)
+            out[uid] = [int(t) for t in packed[j, :acc + 1]]
+            total_acc += acc
+        self.decode_steps += 1
+        self.decode_tokens += n + total_acc
+        self.spec_proposed += int(n_draft[:n].sum())
+        self.spec_accepted += total_acc
+        return out
+
+    def _spec_quantum(self, decode_ready: Dict[int, object], prompts, results, reqs, commit) -> bool:
+        """The serving loops' speculative hook over a pure-decode situation:
+        one draft -> verify quantum, its rows committed and taken out of
+        ``decode_ready`` (rows the drafter or the scheduler skipped stay
+        there). False when it did not run, so the caller runs a plain step."""
+        uids = list(decode_ready)
+        rows = self._run_spec_step(uids, [decode_ready[u] for u in uids],
+                                   [list(prompts[u]) + results[u] for u in uids],
+                                   [reqs[u].max_new_tokens - len(results[u]) for u in uids])
+        if rows is None:
+            return False
+        for uid, toks in rows.items():
+            decode_ready.pop(uid)
+            commit(uid, toks)
+        return True
 
     # ---------------------------------------------------------- serving loop
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
@@ -727,8 +875,10 @@ class InferenceEngineV2:
     def _generate_fused(self, prompts, max_new_tokens, eos_token_id, on_token=None) -> List[List[int]]:
         """The SplitFuse loop: the host admits, allocates blocks and commits
         streams; each scheduler quantum is one step, and pure-decode quanta
-        between admission waves extend to multi-step bursts."""
-        deferred = eos_token_id is None and on_token is None
+        between admission waves extend to multi-step bursts; with speculation
+        on, a pure-decode situation first tries a draft -> verify quantum."""
+        # speculation needs the committed token values on the host (the drafter reads the history)
+        deferred = eos_token_id is None and on_token is None and not self._spec_enabled
         reqs = {i: RaggedRequest(uid=i, tokens=list(p), max_new_tokens=max_new_tokens) for i, p in enumerate(prompts)}
         pending = list(reqs.values())
         decode_ready: Dict[int, object] = {}  # uid -> next token to feed (int, or device scalar when deferred)
@@ -739,6 +889,9 @@ class InferenceEngineV2:
                                                    on_token)
 
         while pending or decode_ready:
+            if self._spec_enabled and decode_ready and not pending:
+                if self._spec_quantum(decode_ready, prompts, results, reqs, commit):
+                    continue
             quantum = self.scheduler.schedule_fused([r for r in pending if r.remaining_prefill],
                                                     list(decode_ready))
             if quantum.empty:
@@ -770,9 +923,10 @@ class InferenceEngineV2:
         prefill step per chunk bucket, one decode step), and once nothing is
         left to admit and every sequence decodes, a multi-step burst runs
         instead (tokens past an EOS are dropped at commit). Deferred mode
-        (no EOS cut, no streaming callback) keeps the token carry on the
-        device, as in the fused loop."""
-        deferred = eos_token_id is None and on_token is None
+        (no EOS cut, no streaming callback, no speculation) keeps the token
+        carry on the device, as in the fused loop. With speculation on, a
+        pure-decode situation first tries a draft -> verify quantum."""
+        deferred = eos_token_id is None and on_token is None and not self._spec_enabled
         reqs = {i: RaggedRequest(uid=i, tokens=list(p), max_new_tokens=max_new_tokens) for i, p in enumerate(prompts)}
         pending = list(reqs.values())
         decode_ready: Dict[int, object] = {}  # uid -> next token to feed (int, or device scalar when deferred)
@@ -783,6 +937,9 @@ class InferenceEngineV2:
                                                    on_token)
 
         while pending or decode_ready:
+            if self._spec_enabled and not pending and decode_ready:
+                if self._spec_quantum(decode_ready, prompts, results, reqs, commit):
+                    continue
             if not pending and decode_ready:
                 # a burst step decodes one token per sequence, so both scheduler caps bound the batch
                 cap = min(self.scheduler.max_sequences, self.scheduler.max_batch_tokens)

@@ -4,9 +4,10 @@ Port of ``deepspeed_tpu/inference/v2/model_runner.py`` for one device:
 ``_transformer_layer``, the layer stack, ``ragged_forward`` (a (B, S) batch
 in one mode), ``fused_forward`` (the SplitFuse mixed decode + prefill pass),
 ``make_step_fns`` (the unfused loop's prefill and decode steps),
-``make_burst_fn`` (``steps`` decode steps in one call) and
+``make_burst_fn`` (``steps`` decode steps in one call),
 ``make_fused_step_fn`` (one quantum: the fused pass, then ``steps - 1``
-decode steps of the burst). The reference's ``lax.scan`` over burst steps
+decode steps of the burst), and ``spec_verify_forward`` /
+``make_spec_verify_fn`` (speculative decoding's K-token verify). The reference's ``lax.scan`` over burst steps
 is a Python loop over the slot table's leading dim; a CUDA engine captures
 each step for a bucket as one CUDA graph (``graphs.py``), which unrolls that
 loop, where the JAX engine jits one program. The KV pools are updated in
@@ -15,8 +16,8 @@ place where the JAX programs donate them.
 The attention, norm and quantised-matmul kernels come from a ``V2Modules``
 bundle (``modules.build_modules``); passing ``build_modules(plain=True)``
 runs the same step on the kernels' plain PyTorch versions. The KV pools are
-plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism and
-speculative verify come with later slices.
+plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism comes
+with a later slice.
 """
 
 import functools
@@ -28,6 +29,7 @@ from ...models.transformer import TransformerConfig, _is_moe_layer, alibi_slopes
 from ...ops.paged_attention import KVPool, kv_layer, paged_attention_mixed, update_kv_pages
 from ..generation import sample_logits
 from .modules import V2Modules, _norm_p, _proj, build_modules
+from .spec import select_committed
 
 
 def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules) -> Callable:
@@ -249,3 +251,55 @@ def make_fused_step_fn(cfg: TransformerConfig, *, n_dec: int, n_pre: int, chunk:
         return torch.stack(out, dim=1), k_pages, v_pages
 
     return fused
+
+
+def spec_verify_forward(cfg: TransformerConfig, params: Dict, input_ids: torch.Tensor, positions: torch.Tensor,
+                        k_pages: KVPool, v_pages: KVPool, block_tables: torch.Tensor, ctx_lens: torch.Tensor,
+                        slot_mapping: torch.Tensor, *, chunk: int, mods: Optional[V2Modules] = None):
+    """Speculative-decode verify pass: every row is a ``chunk = K+1``-token
+    tail (the carry token and K drafts) of a live sequence, run as a
+    chunked prefill over its context (``paged_attention_mixed`` with
+    ``n_dec=0``, so only the prefill kernel launches). Acceptance needs the
+    logits at every position, so the whole flat batch is unembedded.
+
+    input_ids/positions/slot_mapping: (T,) flat, T = B * chunk;
+    block_tables (B, P); ctx_lens (B,) counting the window. Returns ((T, V)
+    fp32 logits, k_pages, v_pages).
+    """
+    mods = mods or build_modules()
+    x = mods.embedding(cfg, params, input_ids[None], positions[None])  # (1, T, d)
+    x, k_pages, v_pages = _run_stack(cfg, params, x, k_pages, v_pages, block_tables, ctx_lens, slot_mapping,
+                                     positions[None], mods, mixed=True, n_dec=0, chunk=chunk)
+    x_all = x[0][:, None, :]  # (T, 1, d): every flat position through the unembed's (batch, seq) contract
+    zeros = torch.zeros((x_all.shape[0],), dtype=torch.int32, device=x.device)
+    return mods.unembed(cfg, params, x_all, zeros), k_pages, v_pages
+
+
+def make_spec_verify_fn(cfg: TransformerConfig, *, chunk: int, do_sample: bool = False, temperature: float = 1.0,
+                        top_k: int = 0, top_p: float = 1.0, mods: Optional[V2Modules] = None) -> Callable:
+    """The K-token verify step of speculative decoding, for one (chunk,
+    sampling) signature: the verify forward scores all ``chunk`` positions of
+    each row, then ``select_committed`` picks each row's accepted drafts and
+    its correction or bonus token in the same step. ``n_draft`` caps the
+    acceptance a row, so padded draft positions never commit; the host rolls
+    back the rejected tail positions after the step.
+
+    Returns (B, chunk + 1) int32 on the device: the committed ids (B, chunk)
+    with the accepted counts as the last column, one tensor (a captured step
+    returns one), which is all the host reads back.
+    """
+    mods = mods or build_modules()
+
+    def verify(params, ids, positions, k_pages, v_pages, block_tables, ctx, slots, n_draft,
+               generator: Optional[torch.Generator]):
+        # ids/positions/slots: (T,) flat, T = B * chunk; block_tables (B, P); ctx/n_draft (B,)
+        logits, k_pages, v_pages = spec_verify_forward(cfg, params, ids, positions, k_pages, v_pages, block_tables,
+                                                       ctx, slots, chunk=chunk, mods=mods)
+        B = ctx.shape[0]
+        drafts = ids.reshape(B, chunk)[:, 1:]
+        committed, accepted = select_committed(logits.reshape(B, chunk, -1), drafts, n_draft, generator,
+                                               do_sample=do_sample, temperature=temperature, top_k=top_k,
+                                               top_p=top_p)
+        return torch.cat([committed, accepted[:, None]], dim=1), k_pages, v_pages
+
+    return verify

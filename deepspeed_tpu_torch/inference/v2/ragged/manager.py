@@ -7,9 +7,10 @@ prefix cache on (``DS_TPU_PREFIX_CACHE``, default on) sits between the
 allocator and the scheduler: admission matches a prompt against the radix
 tree (``admit_sequence``), retiring sequences donate their block-aligned
 prefixes (``flush_sequence``), and writes into cache-shared blocks go
-through copy-on-write (``ensure_writable``). The device pools live in the
-engine. The KV sanitizer, speculative-decode rollback and the spill tick
-come with later slices.
+through copy-on-write (``ensure_writable``); speculative decoding rolls a
+sequence's rejected draft positions back (``rollback_tokens``). The device
+pools live in the engine. The KV sanitizer and the spill tick come with
+later slices.
 """
 
 from dataclasses import dataclass
@@ -49,6 +50,7 @@ class DSStateManager:
         if enable_prefix_cache:
             self._prefix_cache = PrefixCache(self._allocator, config.kv_block_size,
                                              watermark=config.prefix_cache_watermark)
+        self.spec_rollback_tokens = 0  # KV positions rolled back after speculative verifies
 
     @property
     def block_size(self) -> int:
@@ -159,6 +161,29 @@ class DSStateManager:
         if seq is not None and seq.blocks:
             row[:len(seq.blocks)] = seq.blocks
         return row
+
+    def rollback_tokens(self, seq: DSSequenceDescriptor, n_tokens: int) -> int:
+        """Speculative-decode rollback: drop the last ``n_tokens`` KV
+        positions of ``seq`` (rejected draft writes) and release the tail
+        blocks the shorter sequence no longer covers. Copy-on-write ran before
+        the verify write, so the leading ``shared_blocks`` (prefix-cache pages)
+        end at or before the rolled-back region; they are never released. The
+        abandoned slots are overwritten by the next write at those positions.
+        Returns the number of blocks released."""
+        if n_tokens <= 0:
+            return 0
+        if seq.in_flight_tokens:
+            raise RuntimeError(f"sequence {seq.uid}: rollback with {seq.in_flight_tokens} tokens in flight")
+        if n_tokens > seq.seen_tokens:
+            raise ValueError(f"sequence {seq.uid}: rollback of {n_tokens} > {seq.seen_tokens} seen")
+        seq.seen_tokens -= n_tokens
+        keep = max(-(-seq.seen_tokens // self.block_size), seq.shared_blocks)
+        released = seq.blocks[keep:]
+        if released:
+            self._allocator.release(released)
+            del seq.blocks[keep:]
+        self.spec_rollback_tokens += n_tokens
+        return len(released)
 
     def flush_sequence(self, uid: int) -> None:
         """Retire a sequence: its block-aligned known prefix is donated to the

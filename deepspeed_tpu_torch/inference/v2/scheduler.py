@@ -5,8 +5,9 @@ chunked prefill, a per-step token budget and decode-priority admission
 (decodes are one token each and keep latency low; prefills fill the rest
 of the budget), in the style of FastGen's Dynamic SplitFuse.
 ``schedule_fused`` repackages a step as the ``FusedQuantum`` descriptor
-that the single-dispatch step consumes. Events, journal and telemetry
-come with later slices; speculative ``schedule_spec`` too.
+that the single-dispatch step consumes; ``schedule_spec`` admits the rows
+of a speculative draft -> verify quantum. Events, journal and telemetry
+come with later slices.
 """
 
 from dataclasses import dataclass, field
@@ -125,6 +126,33 @@ class RaggedBatchScheduler:
             prefills.append(ScheduledPrefill(uid=req.uid, tokens=req.tokens[:take], start_pos=seq.seen_tokens,
                                              final=final))
         return ScheduledStep(prefills=prefills, decode_uids=sched_decodes)
+
+    def schedule_spec(self, decode_uids: List[int], tokens_per_row: int) -> List[int]:
+        """Admit pure-decode rows for a draft -> verify quantum: each row costs
+        ``tokens_per_row`` (the carry token and K drafts) of the token budget
+        and must fit ``blocks_needed(tokens_per_row)`` plus its copy-on-write
+        blocks in the available pool, the back-pressure of ``schedule`` with
+        the row's footprint scaled to the verify window. A row whose window
+        would pass ``max_context`` or that does not fit stays in the caller's
+        decode set for a later step. Returns the admitted uids."""
+        budget = self.max_batch_tokens
+        free = self._state.available_blocks
+        admitted: List[int] = []
+        for uid in decode_uids:
+            seq = self._state.get_sequence(uid)
+            if seq is None:
+                continue
+            if budget < tokens_per_row or len(admitted) >= self.max_sequences:
+                break
+            if seq.seen_tokens + seq.in_flight_tokens + tokens_per_row > self._state.max_context:
+                continue  # the verify window would overflow this row's context
+            need = seq.blocks_needed(tokens_per_row) + seq.cow_blocks_needed(seq.seen_tokens)
+            if need > free:
+                continue  # back-pressure: leave it for the next step
+            free -= need
+            budget -= tokens_per_row
+            admitted.append(uid)
+        return admitted
 
     def schedule_fused(self, pending_prefills: List[RaggedRequest], decode_uids: List[int]) -> FusedQuantum:
         """One fused quantum: ``schedule``'s admission policy, repackaged as

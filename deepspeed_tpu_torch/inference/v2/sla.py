@@ -13,6 +13,9 @@ host), and a rate sweep yields the table.
   with ``fused_step=False``, the unfused loop (``put``, and bursts when
   nothing is pending or due). A request that arrives during a burst waits it
   out; that TTFT cost is part of what the harness measures.
+- On an engine with speculative decoding on, a pure-decode situation with
+  nothing due first runs a draft -> verify quantum (either loop), as the
+  engine's own loops do.
 - ``LoadSpec(arrival_rate=float("inf"))`` puts every arrival at t = 0
   (saturation).
 
@@ -133,6 +136,7 @@ def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List
             decode_ready[uid] = toks_out[-1]
 
     fused = bool(getattr(engine, "_fused_enabled", False))
+    spec_on = bool(getattr(engine, "_spec_enabled", False))
 
     while next_idx < spec.n_requests or pending or decode_ready:
         admit_arrivals()
@@ -141,6 +145,10 @@ def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List
             time.sleep(max(0.0, arrivals[next_idx] - now()))
             continue
         arrivals_due = next_idx < spec.n_requests and arrivals[next_idx] <= now()
+        if spec_on and not pending and not arrivals_due and decode_ready:
+            # draft -> verify over the pure-decode batch; a dry drafter falls through to the plain paths
+            if engine._spec_quantum(decode_ready, prompts, results, reqs, commit):
+                continue
         if fused:
             # one step per scheduler quantum; a pure-decode quantum with nothing due extends to a burst
             quantum = engine.scheduler.schedule_fused([r for r in pending if r.remaining_prefill],

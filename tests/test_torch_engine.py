@@ -11,7 +11,11 @@ wrapper runs its plain version. Held to the reference:
   EOS cut, with streaming, with chunked mixed quanta, and ``top_k=1``
   sampling equal to greedy; ``DS_TPU_SERVE_FUSED=0`` serves the same tokens
   through the unfused loop (``tests/test_torch_serve_unfused.py`` holds that
-  loop to the JAX engine).
+  loop to the JAX engine);
+- ALiBi and sliding-window serving: greedy tokens of a tiny bloom-shaped
+  config (ALiBi, LayerNorm, an embedding norm) and of a tiny config with a
+  window of 4 on layer 1 equal the JAX engine's, in both loops, with
+  speculative decoding off and on.
 """
 
 import os
@@ -238,3 +242,41 @@ def test_package_imports_neither_jax_nor_the_reference():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+ALIBI = dict(vocab_size=128, n_layers=2, n_heads=4, d_model=32, max_seq_len=256, norm="layernorm", activation="gelu",
+             pos_emb="alibi", embedding_norm=True)
+WINDOW = dict(vocab_size=64, n_layers=2, n_heads=2, d_model=16, max_seq_len=64, norm="layernorm", activation="gelu",
+              pos_emb="learned", sliding_window=4, window_layers=(1,))
+# repetitive prompts, so that prompt lookup drafts; lengths past the window of 4
+FEATURE_PROMPTS = [[5, 9, 13] * 3, [7] * 6, [30, 2, 55, 44, 33, 22, 11, 1, 0, 8], [3, 17, 42, 3, 17, 42]]
+
+
+@pytest.fixture(scope="module")
+def feature_models():
+    """name -> (port cfg, port params, the JAX engine's greedy tokens) for the ALiBi and window configs."""
+    out = {}
+    for name, fields, seed in (("alibi", ALIBI, 0), ("window", WINDOW, 3)):
+        jcfg = JaxConfig(**fields)
+        model = CausalLM(jcfg)
+        params = model.init(jax.random.PRNGKey(seed), {"input_ids": np.zeros((1, 8), np.int32)})
+        smc = JaxBatchConfig(kv_block_size=8, max_context=64, num_kv_blocks=64)
+        want = JaxEngine(model, params, JaxEngineConfig(state_manager=smc, dtype="float32", fused_step=True,
+                                                        decode_burst=8)).generate(FEATURE_PROMPTS, max_new_tokens=20)
+        cfg = TransformerConfig(**fields)
+        out[name] = (cfg, params_from_numpy(jax.tree.map(np.asarray, params), "cpu", cfg=cfg), want)
+    return out
+
+
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("name", ["alibi", "window"])
+def test_alibi_and_window_serving_match(feature_models, name, fused, spec):
+    cfg, tparams, want = feature_models[name]
+    te = InferenceEngineV2(cfg, tparams, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(kv_block_size=8, max_context=64, num_kv_blocks=64), dtype="float32",
+        device="cpu", decode_burst=8, fused_step=fused, spec_decode=spec))
+    assert te._run_cfg.pos_emb == cfg.pos_emb and te._run_cfg.sliding_window == cfg.sliding_window
+    assert te.generate(FEATURE_PROMPTS, max_new_tokens=20) == want
+    if spec:
+        assert te.spec_accepted > 0

@@ -485,6 +485,31 @@ def test_paged_kernels_repeat_bit_for_bit(cuda, int8, feature):
         assert torch.isfinite(first).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,chunk", [(64, 5), (64, 2), (8, 5), (3, 3)])
+def test_prefill_kernel_at_verify_windows(cuda, dtype, int8, B, chunk):
+    """A speculative verify step's prefill: B rows of ``chunk`` queries at llama3_8b's heads, each window the
+    last positions of a context between 130 and 8,192 (at B 8 the bf16 plan splits the keys), and
+    ``paged_attention_mixed`` with no decode rows launches the prefill kernel alone."""
+    ctx = [130 + (8192 - 130) * r // max(1, B - 1) for r in range(B)]
+    kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, seed=B + chunk)
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((B, chunk, 32, 128), generator=g, device=cuda).to(dtype)
+    pos = (torch.tensor(ctx, dtype=torch.int32)[:, None] - chunk + torch.arange(chunk, dtype=torch.int32)[None])
+    pos = pos.to(cuda)
+    n_dec, n_pre = pa.paged_attention_decode.launches, pa.paged_attention_prefill.launches
+    got = pa.paged_attention_mixed(q.reshape(B * chunk, 32, 128), kp, vp, bt, cl, pos.reshape(-1), n_dec=0,
+                                   chunk=chunk).reshape(B, chunk, 32, 128)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == n_dec and pa.paged_attention_prefill.launches == n_pre + 1
+    err = _err(got, pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos))
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        assert torch.equal(got.reshape(B, chunk, 32, 128), pa.paged_attention_prefill(q, kp, vp, bt, cl, pos))
+
+
 def test_engine_on_the_card_matches_the_cpu(cuda):
     """The fused serving path with the kernels (fp32, head dim 64) gives the
     CPU engine's greedy tokens (plain versions), and every kernel launched;
@@ -611,6 +636,68 @@ def test_graph_cache_evicts_and_recaptures(cuda, monkeypatch):
     assert g_toks == e_toks and g_launches == e_launches
     assert len(graphs.graphs) == 2 and graphs.graphs.evictions == graphs.graphs.captures - 2 > 0
     assert graphs.graphs.capture_s > 0.0
+
+
+SPEC_PROMPTS = [[5, 9, 13] * 3, [7] * 6, [100, 2, 55, 44, 33, 22, 11], [3, 17, 42, 3, 17, 42], list(range(40))]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_spec_decode_on_the_card_matches_spec_off(cuda, fused):
+    """Speculative decoding on the card in fp32 (kernels, verify steps on graphs): greedy tokens equal the
+    card's with speculation off and the CPU engine's with it on, in the fused and the unfused loop; drafts
+    were proposed and accepted, and the verify steps launched the prefill kernel."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, max_seq_len=512,
+                            norm="rmsnorm", activation="swiglu", pos_emb="rope", tie_embeddings=False)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def serve(device, spec):
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=64), dtype="float32",
+            device=device, decode_burst=8, fused_step=fused, spec_decode=spec))
+        return engine.generate(SPEC_PROMPTS, max_new_tokens=32), engine
+
+    before = pa.paged_attention_prefill.launches
+    on, engine = serve("cuda", True)
+    assert pa.paged_attention_prefill.launches > before
+    assert engine.spec_proposed > 0 and engine.graphs.replays == engine.dispatches
+    assert on == serve("cuda", False)[0] == serve("cpu", True)[0]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("sample", [None, dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9, seed=7)])
+def test_verify_graphs_equal_eager_verify_steps(cuda, fused, sample):
+    """With speculation on, each verify step replayed from its graph gives the eager step's committed tokens
+    and accepted counts, greedy and sampled (the graph advances the engine's generator as the eager step
+    does), and leaves the KV pools equal bit for bit (the garbage page excluded)."""
+    counters = (norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill)
+    graphs, eager = _graph_engines(fused, spec_decode=True)
+    (g_toks, g_launches), (e_toks, e_launches) = _serve_both((graphs, eager), counters, **(sample or {}))
+    assert g_toks == e_toks
+    for g, e in ((graphs.k_pages, eager.k_pages), (graphs.v_pages, eager.v_pages)):
+        assert torch.equal(g[:, 1:], e[:, 1:])
+    assert g_launches == e_launches
+    assert (graphs.spec_proposed, graphs.spec_accepted) == (eager.spec_proposed, eager.spec_accepted)
+    assert graphs.spec_proposed > 0 and graphs.graphs.replays == graphs.dispatches == eager.dispatches
+    assert any(key[0] == "spec" for key in graphs.graphs._steps)
+
+
+def test_sampled_topk1_verify_replays_deterministically(cuda):
+    """A sampled verify at ``top_k=1`` replayed from its graphs: two runs from one seed give the same tokens,
+    and those of the same run with eager steps. (In bf16, logits tie often enough that a draw among the tied
+    tokens need not pick greedy's first one, so greedy is not the yardstick here.)"""
+    graphs, eager = _graph_engines(True, spec_decode=True)
+
+    def run(engine):  # each run from an empty prefix cache, so that each admits the prompts alike
+        engine.state.reset_prefix_cache()
+        return engine.generate(GRAPH_PROMPTS, max_new_tokens=24, do_sample=True, top_k=1, seed=5)
+
+    first = run(graphs)
+    assert graphs.spec_proposed > 0
+    assert run(graphs) == first == run(eager)
+    assert any(key[0] == "spec" and key[3] for key in graphs.graphs._steps)  # a sampled verify graph
 
 
 # ---------------------------------------------------------------- training kernels (flash A/B/C, fused Adam D)
