@@ -35,12 +35,24 @@ Phases, each fatal on failure:
    the pools, and of SDPA's dense K/V, of over 100 MB; and prefill at the
    shape of a speculative verify step (``phase_verify``: 64 rows of 5 and of
    2 queries, each window ending a context of 130-8,192 keys) on bf16 and
-   int8 pools, beside SDPA with a boolean mask;
+   int8 pools, beside SDPA with a boolean mask; and (run after the LAMB kernel) the
+   MoE grouped GEMM (``moe_grouped_gemm``, expert offsets read on the device)
+   at Mixtral-8x7B's expert shapes (wi 4096 -> 14336, wo 14336 -> 4096) for
+   the mixtral_8x7b_8l serve's own steps (a decode step at its bucket of 8:
+   16 rows; a 2,048-token prefill quantum: 4,096 rows), a 64-token decode
+   step (128 rows) and a 768-token quantum (1,536 rows) of seeded top-2
+   routings, with an empty expert and with every row on one expert, each
+   repeating bit for bit, beside ``torch._grouped_mm`` and a per-expert
+   ``torch.matmul`` loop; then each bf16 tile body (32 and 64 rows) at the
+   serve's steps of 16-4,096 rows, held to the plain version and timed in 5
+   turns;
 4. step parity: one prefill quantum and one mixed decode + prefill quantum
    of llama3_8b at full width and 4 layers, run with the kernels and with
    their plain versions; logits and KV pools (garbage block 0 excluded)
    agree; then the same two quanta of gpt2_1_3b at full width and 4 layers
-   with int8 weights and int8 KV pools (pools compared dequantised);
+   with int8 weights and int8 KV pools (pools compared dequantised), and of
+   Mixtral-8x7B at full width and 2 layers (every block MoE: the grouped
+   GEMM against its plain version);
 5. serve: InferenceEngineV2 over llama3_8b at full width and depth (random
    bf16 weights from seed 0), greedy generate of 32 tokens for a dozen
    seeded prompts of 16-1500 tokens in two waves (the second wave shares a
@@ -81,7 +93,12 @@ Phases, each fatal on failure:
    TPOT 250 ms). Then ALiBi and sliding-window serving as ``serve`` does
    it (eager and graph tokens equal): a BLOOM-7b1-shaped config and a
    Mistral-7B-v0.1-shaped one (window 4,096, prompts up to 6,000 tokens),
-   each at full width and 4 layers. Then the quantised main paths the same
+   each at full width and 4 layers. Then MoE serving: a Mixtral-8x7B-v0.1-
+   shaped config at full width and 8 layers (8 experts, top-2; 17
+   ``rms_norm`` and 24 ``moe_grouped_gemm`` launches per forward), the serve
+   run's waves on graphs and eager with equal tokens, and the rows each
+   expert takes of real tokens (the bucket's padding apart) in every layer
+   of a prefill and a decode step. Then the quantised main paths the same
    way, each with its counters zeroed before and read after: gpt2_1_3b at full width
    and depth with ``quant_bits=8`` and ``kv_quant_bits=8`` (prompts of 16-960
    tokens, max_context 1024), and llama3_8b at full width and depth with
@@ -154,6 +171,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 beside this script, it exits non-zero and prints no result.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -1222,6 +1240,152 @@ def run_evo_kernel_phases(torch, dev, quick: bool):
     return records
 
 
+# ---------------------------------------------------------------- MoE grouped GEMM
+# Mixtral-8x7B's experts (8 experts, top-2): wi (and wg) 4096 -> 14336, wo 14336 -> 4096. Rows: the
+# mixtral_8x7b_8l serve's own steps, a decode step at its bucket of 8 (16 rows) and a 2,048-token prefill
+# quantum (4,096 rows); a decode step of 64 tokens (128 rows) and a 768-token quantum (1,536 rows); all routed
+# by seeded top-2 draws; then the 64-token step with expert 3 empty, and with every row on one expert (the
+# graph warm-up's all-zero inputs)
+MOE_E, MOE_D, MOE_F = 8, 4096, 14336
+MOE_GEMM_CASES = {
+    "decode8_wi": (8, "top2", MOE_D, MOE_F), "decode8_wo": (8, "top2", MOE_F, MOE_D),
+    "prefill2048_wi": (2048, "top2", MOE_D, MOE_F), "prefill2048_wo": (2048, "top2", MOE_F, MOE_D),
+    "decode_wi": (64, "top2", MOE_D, MOE_F), "decode_wo": (64, "top2", MOE_F, MOE_D),
+    "prefill_wi": (768, "top2", MOE_D, MOE_F), "prefill_wo": (768, "top2", MOE_F, MOE_D),
+    "decode_wi_empty_expert": (64, "empty3", MOE_D, MOE_F), "decode_wo_one_expert": (64, "one", MOE_F, MOE_D),
+}
+# the tile sweep's steps (top-2): the serve's buckets of 8, 136, 520 and 2,048 tokens (16, 272, 1,040 and 4,096
+# rows; its first steps' routing record), and the 64- and 768-token cases above
+MOE_TILE_TOKENS = (8, 64, 136, 520, 768, 2048)
+
+
+def moe_routing(np, tokens, kind, seed=0):
+    """Rows an expert for ``tokens`` tokens of top-2 routing: each token's two
+    distinct experts drawn from a seeded generator ("top2"), with expert 3
+    never drawn ("empty3"), or every row on expert 5 ("one")."""
+    if kind == "one":
+        return [2 * tokens if e == 5 else 0 for e in range(MOE_E)]
+    rng = np.random.default_rng(seed + tokens)
+    pool = [e for e in range(MOE_E) if not (kind == "empty3" and e == 3)]
+    counts = [0] * MOE_E
+    for _ in range(tokens):
+        for e in rng.choice(pool, size=2, replace=False):
+            counts[int(e)] += 1
+    return counts
+
+
+def moe_gemm_operands(torch, np, dev, dtype, counts, K, N):
+    """Seeded x (R, K), w (E, K, N) and the int32 offsets of ``counts``."""
+    R = sum(counts)
+    g = torch.Generator(device=dev).manual_seed(R + K + N)
+    x = torch.randn((R, K), generator=g, device=dev).to(dtype)
+    w = (torch.randn((MOE_E, K, N), generator=g, device=dev) * K**-0.5).to(dtype)
+    bounds = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    return x, w, torch.tensor(bounds, dtype=torch.int32, device=dev), bounds
+
+
+def phase_moe_gemm(torch, dev, dtype, name, iters):
+    """``moe_grouped_gemm`` against its plain version (each expert's rows
+    times its weight in fp32, host sizes). Yardsticks, timed only: one
+    ``torch._grouped_mm`` call (bf16, where the card's torch has it: the
+    ``library_ms``) and a per-expert ``torch.matmul`` loop with host sizes.
+    The bound counts x, the routed experts' weights and the output once."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    tokens, kind, K, N = MOE_GEMM_CASES[name]
+    counts = moe_routing(np, tokens, kind)
+    R = sum(counts)
+    x, w, offsets, bounds = moe_gemm_operands(torch, np, dev, dtype, counts, K, N)
+    got = mg.moe_grouped_gemm(x, w, offsets)
+    torch.cuda.synchronize()
+    want = mg.moe_grouped_gemm_ref(x, w, offsets)
+    err = errors(got, want)
+    # fp32: sums of up to 14,336 products in another order than cuBLAS's, held on max(1, max |plain|)
+    err["max_abs_err_scaled"] = err["max_abs_err"] / max(1.0, want.float().abs().max().item())
+    tol = ("max_abs_err_scaled", 1e-5) if dtype == torch.float32 else TOL[str(dtype)]
+    repeat = all(torch.equal(mg.moe_grouped_gemm(x, w, offsets), got) for _ in range(2))
+    del want
+    item = x.element_size()
+    routed = sum(1 for c in counts if c > 0)
+    nbytes = (R * K + routed * K * N + R * N) * item
+    flops = 2 * R * K * N
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    few = max(3, iters // 5)
+    k_ms = time_ms(lambda: mg.moe_grouped_gemm(x, w, offsets), iters)
+    p_ms = time_ms(lambda: mg.moe_grouped_gemm_ref(x, w, offsets), few)
+    spans = [(e, bounds[e], bounds[e + 1]) for e in range(MOE_E) if bounds[e + 1] > bounds[e]]
+    loop_ms = time_ms(lambda: [torch.matmul(x[a:b], w[e]) for e, a, b in spans], iters)
+    l_ms = None
+    if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):  # no fp32 mode; ends of the groups as offs
+        l_ms = time_ms(lambda: torch._grouped_mm(x, w, offs=offsets[1:]), iters)
+    rec = dict(kernel="moe_grouped_gemm", case=name, dtype=str(dtype), shape=f"x({R},{K}) w({MOE_E},{K},{N})",
+               rows_per_expert=counts, tile_rows=mg.tile_rows(R, MOE_E, dtype), **err, tol=tol,
+               repeats_bit_for_bit=repeat, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               library="torch._grouped_mm (offs = group ends)" if l_ms is not None else None,
+               expert_loop_ms=loop_ms, bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
+    if not repeat:
+        raise AssertionError(f"moe_grouped_gemm {name} {dtype}: a repeat differs")
+    del x, w
+    return rec
+
+
+def phase_moe_tiles(torch, dev, rounds: int, iters: int) -> None:
+    """Each bf16 tile body of the grouped GEMM (``GEMM_TILE_ROWS``, through
+    the library's entry point with the tile rows forced) on the top-2 steps of
+    ``MOE_TILE_TOKENS`` for wi and wo, held to the plain version like the
+    wrapper's own pick, and timed in ``rounds`` turns: each body's median and
+    spread (max - min) of the turns' means, the wrapper's pick
+    (``tile_rows``) and the fastest body."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import _build, moe_grouped_gemm as mg
+
+    lib, stream = _build.lib(), torch.cuda.current_stream(dev).cuda_stream
+    what, tol = TOL["torch.bfloat16"]
+    for tokens in MOE_TILE_TOKENS:
+        counts = moe_routing(np, tokens, "top2")
+        R = sum(counts)
+        for proj, (K, N) in (("wi", (MOE_D, MOE_F)), ("wo", (MOE_F, MOE_D))):
+            x, w, offsets, _ = moe_gemm_operands(torch, np, dev, torch.bfloat16, counts, K, N)
+
+            def run(bm):
+                out = torch.empty((R, N), dtype=x.dtype, device=dev)
+                rc = lib.ds_moe_grouped_gemm(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), R, K,
+                                             N, MOE_E, bm, _build.dtype_code(x.dtype), stream)
+                _build.check(rc, f"moe_grouped_gemm (tile rows {bm})")
+                return out
+
+            want = mg.moe_grouped_gemm_ref(x, w, offsets)
+            errs = {bm: errors(run(bm), want)[what] for bm in mg.GEMM_TILE_ROWS}
+            del want
+            if not all(e <= tol for e in errs.values()):
+                raise AssertionError(f"moe_grouped_gemm tiles at R {R} {proj}: {what} {errs} > {tol}")
+            turns = {bm: [] for bm in mg.GEMM_TILE_ROWS}
+            for _ in range(rounds):
+                for bm in mg.GEMM_TILE_ROWS:
+                    turns[bm].append(time_ms(lambda: run(bm), iters))
+            ms = {bm: float(np.median(t)) for bm, t in turns.items()}
+            pick, fastest = mg.tile_rows(R, MOE_E, torch.bfloat16), min(ms, key=ms.get)
+            log(dict(phase="moe tiles", tokens=tokens, rows=R, proj=proj, rows_per_expert=counts, pick=pick,
+                     fastest=fastest, pick_over_fastest=ms[pick] / ms[fastest],
+                     median_ms={str(bm): v for bm, v in ms.items()},
+                     spread_ms={str(bm): max(t) - min(t) for bm, t in turns.items()},
+                     **{what: {str(bm): e for bm, e in errs.items()}}))
+            del x, w
+            torch.cuda.empty_cache()
+
+
+def run_moe_kernel_phases(torch, dev, quick: bool):
+    """The grouped GEMM of MoE serving at Mixtral-8x7B's expert shapes, bf16 and fp32, then its tile sweep."""
+    iters = 5 if quick else 30
+    names = ["decode8_wi"] if quick else list(MOE_GEMM_CASES)
+    records = run_cases(torch, [lambda dt, n=n: phase_moe_gemm(torch, dev, dt, n, iters) for n in names])
+    phase_moe_tiles(torch, dev, 1 if quick else 5, iters)
+    return records
+
+
 # ---------------------------------------------------------------- step parity
 def quantum_inputs(np, rows, n_dec, chunk, bs, P):
     """Flat fused-step operands for rows of (tokens, start, blocks); decode rows
@@ -1258,17 +1422,24 @@ def quantum_inputs(np, rows, n_dec, chunk, bs, P):
 # difference. Measured, fp32: logits 1.7e-3 of size ~4.4, pools 1.0007 steps,
 # 0.80 % of the codes; bf16 (one bf16 rounding step of a K/V value of size 4 is
 # 0.75 of a code step): logits 4.7e-2, pools 1.81 steps, 29.7 % of the codes.
+# mixtral_8x7b (every block MoE): a token whose two best gates nearly tie can take another expert in the
+# plain run than in the kernel run, and its later layers' K/V then differ at O(1) (measured on an H100, bf16,
+# free routing: pools 3.57 with logits 0.064). So the plain run takes the kernel run's routing, call by call,
+# and the flips its own gate would have made are printed; the tolerances are then those of the dense model.
 STEP_TOL = {
     ("llama3_8b", "torch.float32"): dict(logits=1e-4, pools=1e-4),
     ("llama3_8b", "torch.bfloat16"): dict(logits=0.125, pools=0.1),
     ("gpt2_1_3b", "torch.float32"): dict(logits=3.5e-3, pools_steps=2.0, codes=0.016),
     ("gpt2_1_3b", "torch.bfloat16"): dict(logits=0.1, pools_steps=3.6, codes=0.6),
+    ("mixtral_8x7b", "torch.float32"): dict(logits=1e-4, pools=1e-4),
+    ("mixtral_8x7b", "torch.bfloat16"): dict(logits=0.125, pools=0.1),
 }
 
 
 def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
     """The kernel bundle against ``build_modules(plain=True)`` over two quanta:
-    llama3_8b dense, or gpt2_1_3b with int8 weights and int8 KV pools."""
+    llama3_8b dense, gpt2_1_3b with int8 weights and int8 KV pools, or
+    Mixtral-8x7B (every block MoE: the grouped GEMM against its plain version)."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.quantization import quantize_for_serving
@@ -1279,7 +1450,8 @@ def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
 
     quant = model == "gpt2_1_3b"
     geom = GPT2_GEOM if quant else GEOM
-    cfg = (gpt2_cfg if quant else model_cfg)(n_layers=n_layers, dtype=dtype)
+    cfg = {"llama3_8b": model_cfg, "gpt2_1_3b": gpt2_cfg, "mixtral_8x7b": mixtral_cfg}[model](n_layers=n_layers,
+                                                                                           dtype=dtype)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=dtype)
     if quant:
         params = quantize_for_serving(params, num_bits=8)
@@ -1305,16 +1477,20 @@ def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
              for v in ("kernel", "plain")}
     mods = {"kernel": build_modules(), "plain": build_modules(plain=True)}
     tol = STEP_TOL[(model, str(dtype))]
+    moe = cfg.moe_num_experts > 0
     live = lambda pool: tuple(t[:, 1:] for t in pool) if quant else pool[:, 1:].float()  # without the garbage page
     out = []
     for n_dec, chunk, rows in quanta:
         args = [torch.from_numpy(x).to(dev) for x in quantum_inputs(np, rows, n_dec, chunk, bs, P)]
         ids, pos, bt, ctx, slots, last = args
-        logits = {}
+        logits, routes = {}, {}
         for v in ("kernel", "plain"):
             kp, vp = pools[v]
-            logits[v], _, _ = fused_forward(cfg, params, ids, pos, kp, vp, bt, ctx, slots, last, n_dec=n_dec,
-                                            chunk=chunk, mods=mods[v])
+            # MoE: the plain run takes the kernel run's routing (see STEP_TOL), and counts its own flips
+            with route_log(pin=routes["kernel"].routes if v == "plain" else None) if moe else \
+                    contextlib.nullcontext() as routes[v]:
+                logits[v], _, _ = fused_forward(cfg, params, ids, pos, kp, vp, bt, ctx, slots, last, n_dec=n_dec,
+                                                chunk=chunk, mods=mods[v])
         torch.cuda.synchronize()
         real = [r for r, (_, _, blk) in enumerate(rows) if blk]
         l_err = (logits["kernel"][real] - logits["plain"][real]).abs().max().item()
@@ -1323,6 +1499,14 @@ def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
                    kv_pool="int8" if quant else str(dtype), dtype=str(dtype), n_layers=n_layers, n_dec=n_dec,
                    chunk=chunk, rows=len(rows), logits_max_abs_err=l_err,
                    logits_max_abs=logits["plain"][real].abs().max().item(), argmax_agree=agree, tol=tol)
+        if moe:  # real tokens' routings over the MoE layers, and those the plain run's own gate would change
+            real_tok = torch.zeros(ids.shape[0], dtype=torch.bool)
+            for r, (toks, _, blk) in enumerate(rows):
+                base = r if r < n_dec else n_dec + (r - n_dec) * chunk
+                real_tok[base:base + len(toks)] = bool(blk)
+            flipped = routes["plain"].flipped
+            rec.update(routing="pinned to the kernel run's", routed_tokens=int(real_tok.sum()) * len(flipped),
+                       routing_flips=sum(int((f & real_tok).sum()) for f in flipped))
         if quant:
             got, want = ([live(pools[v][i]) for i in (0, 1)] for v in ("kernel", "plain"))
             rec["pools_max_abs_err"] = max((pa.dequantize_kv(a) - pa.dequantize_kv(b)).abs().max().item()
@@ -1442,6 +1626,10 @@ SERVE_RUNS = {
     # tokens, so that the window masks
     "mistral_7b_swa_4l": dict(cfg=lambda: mistral_cfg(n_layers=4), longest=6000, max_context=8192, quant={},
                               per_forward={"rms_norm": 9}, compare_eager=(True, False)),
+    # MoE serving: Mixtral-8x7B-v0.1's widths cut to 8 layers (the 32 hold 46.7 B parameters, 93 GB in bf16,
+    # more than one card); 8 x 2 norms + the final norm, 8 x 3 grouped products (wi, wg, wo)
+    "mixtral_8x7b_8l": dict(cfg=lambda: mixtral_cfg(n_layers=8), longest=1500, max_context=8192, quant={},
+                            per_forward={"rms_norm": 17, "moe_grouped_gemm": 24}, compare_eager=(True, False)),
 }
 
 
@@ -1464,6 +1652,68 @@ def mistral_cfg(**kw):
                   max_seq_len=32768, norm="rmsnorm", activation="swiglu", pos_emb="rope", rope_theta=10000.0,
                   sliding_window=4096, tie_embeddings=False)
     return TransformerConfig(**{**fields, **kw})
+
+
+def mixtral_cfg(**kw):
+    """Mixtral-8x7B-v0.1 (mistralai/Mixtral-8x7B-v0.1 config.json): 32 layers, d 4096, 32/8 heads, d_ff 14,336,
+    8 experts, top-2, every block MoE, vocab 32,000, RMSNorm eps 1e-5, rope theta 1e6, 32,768 positions, no
+    window, untied head, router aux loss 0.02; fields replaced by ``kw``."""
+    from deepspeed_tpu_torch.models import TransformerConfig
+
+    fields = dict(vocab_size=32000, n_layers=32, n_heads=32, n_kv_heads=8, d_model=4096, d_ff=14336,
+                  max_seq_len=32768, norm="rmsnorm", norm_eps=1e-5, activation="swiglu", pos_emb="rope",
+                  rope_theta=1e6, tie_embeddings=False, moe_num_experts=8, moe_top_k=2, moe_layer_freq=1,
+                  moe_aux_loss_coef=0.02)
+    return TransformerConfig(**{**fields, **kw})
+
+
+class route_log:
+    """Wraps ``modules.moe_route`` over the enclosed eager steps (it syncs):
+    records each MoE call's routing (weights, experts, order, offsets) in
+    ``routes``, and in ``live`` which of its tokens are real: those whose KV
+    slot lies outside the engine's garbage block 0 (``model_runner._run_stack``
+    wrapped too, for the step's slot mapping; ``block_size`` the pool's). With
+    ``pin`` (another log's routes) each call returns the pinned routing of the
+    same call instead of its own, and ``flipped`` holds per call the tokens
+    whose own top-k set differs from the pinned one."""
+
+    def __init__(self, pin=None, block_size=1):
+        from deepspeed_tpu_torch.inference.v2 import model_runner, modules
+
+        self.modules, self.runner, self.pin, self.block_size = modules, model_runner, pin, block_size
+        self.routes, self.live, self.flipped, self._live = [], [], [], None
+
+    def rows(self, live_only=True):
+        """Rows each expert took, per call: of the real tokens only, or
+        (``live_only=False``) of every token of the bucket, padding included."""
+        if not live_only:
+            return [r[3].diff().tolist() for r in self.routes]
+        return [r[1][m].reshape(-1).bincount(minlength=r[3].numel() - 1).tolist()
+                for r, m in zip(self.routes, self.live)]
+
+    def __enter__(self):
+        inner, stack = self._inner, self._stack = self.modules.moe_route, self.runner._run_stack
+
+        def stack_spy(cfg, params, x, k_pages, v_pages, block_tables, ctx_lens, slot_mapping, *a, **kw):
+            self._live = slot_mapping.reshape(-1) >= self.block_size
+            return stack(cfg, params, x, k_pages, v_pages, block_tables, ctx_lens, slot_mapping, *a, **kw)
+
+        def spy(cfg, p, tokens):
+            out = inner(cfg, p, tokens)
+            self.routes.append(tuple(t.clone() for t in out))
+            self.live.append(self._live.clone())
+            if self.pin is None:
+                return out
+            pinned = self.pin[len(self.routes) - 1]
+            self.flipped.append((out[1].sort(-1).values != pinned[1].sort(-1).values).any(-1).cpu())
+            return pinned
+
+        self.modules.moe_route, self.runner._run_stack = spy, stack_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.modules.moe_route, self.runner._run_stack = self._inner, self._stack
+        return False
 
 
 def tree_bytes(tree) -> int:
@@ -1617,6 +1867,22 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
     if spec.get("compare_eager"):
         rec = dict(rec, dispatch_ab=dispatch_ab(torch, engine, (wave1, wave2), out, spec["compare_eager"]))
         log(dict(phase="serve dispatch", run=run, **rec["dispatch_ab"]))
+    if cfg.moe_num_experts > 0:
+        # the rows each expert takes in every layer of the first step (a prefill quantum of wave 1) and of the
+        # last (a decode step), from an eager pass of wave 1 with 4 new tokens after the timed runs: of the real
+        # tokens (padding rows of the bucket apart), beside each step's rows in the bucket and of real tokens,
+        # and the tokens the pass generated
+        engine.state.reset_prefix_cache()
+        engine._eager_steps = True
+        with route_log(block_size=engine.state.block_size) as spy:
+            out4 = engine.generate(wave1, max_new_tokens=4)
+        engine._eager_steps = False
+        L, rows = cfg.n_layers, spy.rows()
+        rec["expert_rows"] = dict(first_step=rows[:L], last_step=rows[-L:],
+                                  bucket_rows=[sum(r) for r in spy.rows(live_only=False)[::L]],
+                                  live_rows=[sum(r) for r in rows[::L]],
+                                  new_tokens=out4)
+        log(dict(phase="serve routing", run=run, steps=len(rows) // L, **rec["expert_rows"]))
     if profile:
         profile_serve(torch, engine, (wave1, wave2), run)
         if spec.get("compare_eager") and fused:
@@ -3004,13 +3270,18 @@ KERNEL_ROWS = [
      dict(kernel="quantize_groupwise", case="all-int8"), "quantization.cu", "pallas/quantization.py:49"),
     ("dequantize_groupwise", "v1_w8", "dequantize_groupwise", "bfloat16",
      dict(kernel="dequantize_groupwise", case="all-int8"), "quantization.cu", "pallas/quantization.py:64"),
+    # no pallas_call: the reference's MoE serving module runs lax.ragged_dot (plain XLA) at this line
+    ("moe_grouped_gemm", "mixtral_8x7b_8l", "moe_grouped_gemm", "bfloat16",
+     dict(kernel="moe_grouped_gemm", case="decode8_wi"), "moe_grouped_gemm.cu",
+     "deepspeed_tpu/inference/v2/modules.py:195"),
 ]
 
 
 def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces) -> dict:
     r = next(x for x in records if x["dtype"] == f"torch.{dtype}"
              and all(str(x.get(k, "")).startswith(v) for k, v in want.items()))
-    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": TPU_OPS + replaces,
+    replaces = replaces if replaces.startswith("deepspeed_tpu/") else TPU_OPS + replaces
+    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
             "launches": runs[run]["launches"][counter], "max_abs_err": r["max_abs_err"],
             "max_rel_err": r["max_rel_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3038,6 +3309,7 @@ def main(argv) -> int:
         return 3
     sys.path.insert(0, HERE)
     from deepspeed_tpu_torch.ops import _build, flash_attention as fa, fused_adam as fad, fused_lamb as tfl, norms
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
     from deepspeed_tpu_torch.ops import paged_attention as pa, quantization as tq, quantized_matmul as qm
     from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ss
 
@@ -3074,12 +3346,17 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     records += run_lamb_kernel_phases(torch, dev, quick)
     log(dict(phase="lamb kernel", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    records += run_moe_kernel_phases(torch, dev, quick)
+    log(dict(phase="moe kernel", seconds=time.perf_counter() - t0))
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
     for model in ("llama3_8b", "gpt2_1_3b"):
         for dtype in (torch.float32, torch.bfloat16):
             phase_step_parity(torch, dev, dtype, model)
+    for dtype in (torch.float32, torch.bfloat16):
+        phase_step_parity(torch, dev, dtype, "mixtral_8x7b", n_layers=2)
     paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
     counters = paged + [norms.rms_norm]
     serve = phase_serve(torch, dev, counters, "llama3_8b", profile, keep_params=True)
@@ -3098,6 +3375,9 @@ def main(argv) -> int:
     phase_serve(torch, dev, paged + [norms.layer_norm], "bloom_7b1_alibi_4l")
     phase_serve(torch, dev, counters, "mistral_7b_swa_4l")
     log(dict(phase="serve alibi and window", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    serve_moe = phase_serve(torch, dev, counters + [mg.moe_grouped_gemm], "mixtral_8x7b_8l", profile)
+    log(dict(phase="serve moe", seconds=time.perf_counter() - t0))
     serve_w8 = phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
     serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
@@ -3127,7 +3407,8 @@ def main(argv) -> int:
     train_lamb = phase_train(torch, dev, lamb_counters, profile, optimizer="Lamb")
     log(dict(phase="train lamb", seconds=time.perf_counter() - t0))
 
-    runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4, "train": train,
+    runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
+            "mixtral_8x7b_8l": serve_moe, "train": train,
             "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))

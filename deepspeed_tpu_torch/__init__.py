@@ -16,7 +16,9 @@ Entry points:
   ``RaggedInferenceEngineConfig``, ``RaggedBatchConfig``;
 - ``deepspeed_tpu_torch.models``: ``TransformerConfig``, the presets
   (``llama3_8b``, ``gpt2_1_3b``, ...), ``CausalLM``, ``init_params`` and
-  ``params_from_numpy``.
+  ``params_from_numpy`` (MoE blocks through ``moe_num_experts``);
+- ``deepspeed_tpu_torch.moe``: the MoE gates and the ``MoE`` layer at one
+  device.
 
 Everything runs on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``), where each kernel wrapper takes its plain PyTorch

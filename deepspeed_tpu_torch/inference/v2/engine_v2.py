@@ -141,8 +141,6 @@ class InferenceEngineV2:
         self.model = model
         cfg: TransformerConfig = model if isinstance(model, TransformerConfig) else model.cfg
         self.cfg = cfg
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError("MoE models are served by a later port slice")
         self.dtype = torch.bfloat16 if config.dtype in ("bfloat16", "bf16") else torch.float32
 
         smc = config.state_manager

@@ -13,7 +13,7 @@ each step for a bucket as one CUDA graph (``graphs.py``), which unrolls that
 loop, where the JAX engine jits one program. The KV pools are updated in
 place where the JAX programs donate them.
 
-The attention, norm and quantised-matmul kernels come from a ``V2Modules``
+The attention, norm, quantised-matmul and grouped-GEMM kernels come from a ``V2Modules``
 bundle (``modules.build_modules``); passing ``build_modules(plain=True)``
 runs the same step on the kernels' plain PyTorch versions. The KV pools are
 plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism comes
@@ -53,10 +53,10 @@ def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules) -> Callable:
 
 def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_pages_i: KVPool,
                        v_pages_i: KVPool, slot_mapping: torch.Tensor, cos, sin, positions: torch.Tensor,
-                       attn_apply: Callable, mods: V2Modules):
+                       attn_apply: Callable, mods: V2Modules, moe: bool = False):
     """One transformer block over (B, S) tokens against this layer's page
     pool: qkv + rope + KV page write (in place) + ``attn_apply(q, kp, vp)`` +
-    FFN. Returns the block's output."""
+    FFN (the MoE module for an MoE block). Returns the block's output."""
     B, S = x.shape[:2]
     dtype = cfg.dtype
     h = mods.norm(cfg, _norm_p(cfg, lp, 0), x)
@@ -86,7 +86,7 @@ def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_page
     else:
         x = x + attn_out
         ffn_in = mods.norm(cfg, _norm_p(cfg, lp, 1), x)
-    ffn_out = mods.mlp(cfg, lp["mlp"], ffn_in)
+    ffn_out = mods.moe(cfg, lp["moe"], ffn_in) if moe else mods.mlp(cfg, lp["mlp"], ffn_in)
     if cfg.block_type in ("parallel", "parallel_shared"):
         x = x + attn_out + ffn_out
     else:
@@ -99,8 +99,6 @@ def _run_stack(cfg: TransformerConfig, params: Dict, x, k_pages, v_pages, block_
     """The per-layer stack shared by the serving forwards. ``mixed`` selects
     the fused decode + prefill attention (``paged_attention_mixed``);
     otherwise the single-mode module routing runs with the ``decode`` flag."""
-    if any(_is_moe_layer(cfg, i) for i in range(cfg.n_layers)):
-        raise NotImplementedError("MoE layers are served by a later port slice")
     cos = sin = None
     if cfg.pos_emb == "rope":
         cos, sin = device_rope_tables(cfg, x.device)
@@ -124,7 +122,7 @@ def _run_stack(cfg: TransformerConfig, params: Dict, x, k_pages, v_pages, block_
 
         # kv_layer returns views: the layer's KV writes land in the stacked pools
         x = _transformer_layer(cfg, lp, x, kv_layer(k_pages, i), kv_layer(v_pages, i), slot_mapping, cos, sin,
-                               positions, attn_apply, mods)
+                               positions, attn_apply, mods, moe=_is_moe_layer(cfg, i))
     return x, k_pages, v_pages
 
 

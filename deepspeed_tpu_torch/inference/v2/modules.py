@@ -1,19 +1,22 @@
 """Serving modules of the v2 engine, as plain functions over the parameter tree.
 
-Port of ``deepspeed_tpu/inference/v2/modules.py`` (dense families):
+Port of ``deepspeed_tpu/inference/v2/modules.py``:
 - embedding(cfg, params, input_ids, positions) -> (B, S, d)
 - norm(cfg, p, x) -> normed x (p is None iff cfg.norm == "layernorm_np")
 - attention(cfg, q, kp, vp, block_tables, ctx_lens, positions, *, decode, ...) -> (B, S, H, D)
 - mlp(cfg, p, x) -> (B, S, d)
+- moe(cfg, p, x) -> (B, S, d): no-drop top-k routing and the experts'
+  grouped products
 - unembed(cfg, params, x, last_token_idx) -> (B, V) fp32 logits
 
 ``build_modules`` resolves them into a ``V2Modules`` bundle together with
-the kernels they call (``rms_norm``, ``layer_norm``, ``quantized_matmul``
-and the two paged-attention functions); ``build_modules(plain=True)`` binds
-the kernels' plain PyTorch versions instead, which is how a caller runs the
-same step without the kernels. A projection whose ``kernel`` is a
-``QuantizedParam`` (weight-only quantised serving) goes through the fused
-dequantise-matmul. MoE comes with a later slice.
+the kernels they call (``rms_norm``, ``layer_norm``, ``quantized_matmul``,
+``moe_grouped_gemm`` and the two paged-attention functions);
+``build_modules(plain=True)`` binds the kernels' plain PyTorch versions
+instead, which is how a caller runs the same step without the kernels. A
+projection whose ``kernel`` is a ``QuantizedParam`` (weight-only quantised
+serving) goes through the fused dequantise-matmul; MoE gates and experts
+stay dense.
 """
 
 import functools
@@ -23,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ...models.transformer import TransformerConfig
+from ...moe.sharded_moe import top_k
+from ...ops.moe_grouped_gemm import moe_grouped_gemm, moe_grouped_gemm_ref
 from ...ops.norms import layer_norm, layer_norm_ref, rms_norm, rms_norm_ref
 from ...ops.paged_attention import (paged_attention_decode, paged_attention_decode_ref, paged_attention_prefill,
                                     paged_attention_prefill_ref)
@@ -148,6 +153,63 @@ def mlp_tpu(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor,
     return _proj(h, p["down_proj"], "bsf,fd->bsd", dtype, qmm)
 
 
+def moe_route(cfg: TransformerConfig, p: Dict[str, Any], tokens: torch.Tensor):
+    """The fp32 gate's top-k routing of (N, d) tokens, without a host sync:
+    ``(weights (N, k) fp32, experts (N, k), order (N k,), offsets (E + 1,)
+    int32)``. ``order`` sorts the flat (token, choice) pairs by expert,
+    stably (tokens keep their order within an expert); ``offsets`` bounds
+    each expert's rows in that order. The weights are renormalised only when
+    k > 1, as the reference (top-1 gating does not renormalise)."""
+    k, E = cfg.moe_top_k, cfg.moe_num_experts
+    gates = torch.softmax(tokens.float() @ p["gate"]["kernel"].float(), dim=-1)
+    weights, experts = top_k(gates, k)  # lax.top_k's order: ties go to the lower expert
+    if k > 1:
+        weights = weights / torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-9)
+    flat_e = experts.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    # bincount would read the count's length back (a sync): count by scatter_add_ instead
+    counts = torch.zeros((E,), dtype=torch.int32, device=tokens.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    offsets = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, dim=0, dtype=torch.int32)])
+    return weights, experts, order, offsets
+
+
+def moe_tpu(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor,
+            gemm: Callable = moe_grouped_gemm) -> torch.Tensor:
+    """ref ``implementations/moe/cutlass_multi_gemm.py``: no-drop top-k
+    dispatch through three grouped products (``gemm``: the kernel, or its
+    plain version) over the expert-sorted rows, then the weighted combine.
+    Each token sums its k contributions in ascending expert order, the order
+    of the reference's scatter-add over the sorted rows, in the serving
+    dtype; no atomics, so a step repeats bit for bit."""
+    dtype = cfg.dtype
+    B, S, d = x.shape
+    k = cfg.moe_top_k
+    tokens = x.reshape(-1, d)
+    N = tokens.shape[0]
+    weights, _, order, offsets = moe_route(cfg, p, tokens)
+    xs = tokens[order // k].to(dtype)  # (N k, d) sorted by expert
+
+    ep = p["experts"]
+    h = gemm(xs, ep["wi"].to(dtype), offsets)
+    if cfg.activation == "swiglu":
+        h = F.silu(gemm(xs, ep["wg"].to(dtype), offsets)) * h
+    elif cfg.activation == "relu":
+        h = F.relu(h)
+    else:
+        h = F.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
+    out_s = gemm(h, ep["wo"].to(dtype), offsets)  # (N k, d)
+    contrib = out_s * weights.reshape(-1)[order].to(dtype)[:, None]
+
+    # sorted position of each (token, choice); a token's positions rise with its experts
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(order.shape[0], device=x.device))
+    pos = torch.sort(pos.view(N, k), dim=1).values
+    out = contrib[pos[:, 0]]
+    for j in range(1, k):
+        out = out + contrib[pos[:, j]]
+    return out.reshape(B, S, d)
+
+
 def unembed_tpu(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor, last_token_idx: torch.Tensor,
                 norm: Optional[Callable] = None, qmm: Callable = quantized_matmul) -> torch.Tensor:
     """ref ``implementations/unembed/ragged_unembed.py``: final norm +
@@ -164,15 +226,19 @@ def unembed_tpu(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor,
 
 class V2Modules(NamedTuple):
     """Resolved module bundle (ref ``modules/heuristics.py`` result) plus the
-    kernels the modules and the runner call."""
+    kernels the modules and the runner call. The engine hands the kernel
+    fields that carry a ``launches`` counter to its CUDA graphs, which keep
+    those counts true across warm-ups, captures and replays."""
     embedding: Callable
     norm: Callable
     attention: Callable
     mlp: Callable
+    moe: Callable
     unembed: Callable
     rms_norm: Callable
     layer_norm: Callable
     quantized_matmul: Callable
+    grouped_gemm: Callable
     decode_attn: Callable
     prefill_attn: Callable
 
@@ -183,10 +249,11 @@ def build_modules(plain: bool = False) -> V2Modules:
     rms = rms_norm_ref if plain else rms_norm
     ln = layer_norm_ref if plain else layer_norm
     qmm = quantized_matmul_ref if plain else quantized_matmul
+    gemm = moe_grouped_gemm_ref if plain else moe_grouped_gemm
     norm = functools.partial(norm_tpu, rms=rms, ln=ln)
     return V2Modules(embedding=functools.partial(embedding_tpu, norm=norm), norm=norm, attention=attention_tpu,
-                     mlp=functools.partial(mlp_tpu, qmm=qmm),
+                     mlp=functools.partial(mlp_tpu, qmm=qmm), moe=functools.partial(moe_tpu, gemm=gemm),
                      unembed=functools.partial(unembed_tpu, norm=norm, qmm=qmm),
-                     rms_norm=rms, layer_norm=ln, quantized_matmul=qmm,
+                     rms_norm=rms, layer_norm=ln, quantized_matmul=qmm, grouped_gemm=gemm,
                      decode_attn=paged_attention_decode_ref if plain else paged_attention_decode,
                      prefill_attn=paged_attention_prefill_ref if plain else paged_attention_prefill)

@@ -9,7 +9,9 @@ contracts them with the same einsum specs, and the training forward
 (``transformer_forward``, ``CausalLM.apply``/``loss_fn``: the reference's
 flax ``Attention``/``MLP``/``Block``/``Transformer``) runs as plain
 functions over the same dict, with the reference's dense KV caches for the
-v1 engine (``CausalLM.init_kv_caches``, ``kv_caches=``). MoE blocks,
+v1 engine (``CausalLM.init_kv_caches``, ``kv_caches=``). MoE blocks (every
+``moe_layer_freq``-th block, ``moe.MoE`` in the MLP's slot under ``moe``)
+return their load-balancing losses to ``CausalLM.loss_fn``.
 ``scan_layers``, progressive layer drop and the BERT heads are not ported
 (they raise).
 """
@@ -21,6 +23,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..moe.layer import MoE
 
 # a layer's dense KV cache: k and v (B, max_len, KVH, Dh) and the filled length (a host int)
 KVCache = Tuple[torch.Tensor, torch.Tensor, int]
@@ -76,7 +80,7 @@ class TransformerConfig:
     dropout: float = 0.0
     remat: bool = False
     scan_layers: bool = False
-    # MoE: >0 experts turns MLP slots into MoE layers (served by a later slice)
+    # MoE: >0 experts turns MLP slots into MoE layers
     moe_num_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -265,13 +269,20 @@ def _is_moe_layer(cfg: TransformerConfig, i: int) -> bool:
     return cfg.moe_num_experts > 0 and (i % freq == freq - 1)
 
 
+def moe_block(cfg: TransformerConfig) -> MoE:
+    """The MoE layer of an MoE block, with the fields the reference ``Block``
+    passes (no gate noise; eval capacity at its default)."""
+    return MoE(hidden_size=cfg.d_model, num_experts=cfg.moe_num_experts, k=cfg.moe_top_k,
+               capacity_factor=cfg.moe_capacity_factor, min_capacity=cfg.moe_min_capacity, d_ff=cfg.ffn_dim,
+               activation=cfg.activation, dtype=cfg.dtype)
+
+
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     """Nested dict of parameter shapes under the flax keys of the reference
-    ``CausalLM`` (decoders and post-LN blocks, without MoE).
-    Leaves are ``(shape, init)`` with init "kernel" (lecun-normal, fan-in
-    over the contracted dims), "embed" (normal 0.02), "ones" or "zeros"."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet")
+    ``CausalLM`` (decoders and post-LN blocks; an MoE block holds ``moe``
+    in place of ``mlp``). Leaves are ``(shape, init)`` with init "kernel"
+    (lecun-normal, fan-in over the contracted dims), "embed" or "normal"
+    (normal 0.02), "ones" or "zeros"."""
     if cfg.scan_layers:
         raise NotImplementedError("scan_layers (a stacked 'layers' tree) is not ported; use scan_layers=False")
     if cfg.mlm_head or cfg.type_vocab_size > 0:
@@ -311,12 +322,16 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
         if cfg.qk_norm:
             attn["q_norm"] = {"scale": ((Dh,), "ones")}
             attn["k_norm"] = {"scale": ((Dh,), "ones")}
-        b = (f,) if cfg.use_dense_bias else None
-        mlp = {"up_proj": dense((d, f), d, b),
-               "down_proj": dense((f, d), f, (d,) if cfg.use_dense_bias else None)}
-        if cfg.activation in ("swiglu", "geglu"):
-            mlp["gate_proj"] = dense((d, f), d, b)
-        layer: Dict[str, Any] = {"attn": attn, "mlp": mlp}
+        layer: Dict[str, Any] = {"attn": attn}
+        if _is_moe_layer(cfg, i):
+            layer["moe"] = moe_block(cfg).param_shapes()
+        else:
+            b = (f,) if cfg.use_dense_bias else None
+            mlp = {"up_proj": dense((d, f), d, b),
+                   "down_proj": dense((f, d), f, (d,) if cfg.use_dense_bias else None)}
+            if cfg.activation in ("swiglu", "geglu"):
+                mlp["gate_proj"] = dense((d, f), d, b)
+            layer["mlp"] = mlp
         n_block_norms = 1 if cfg.block_type == "parallel_shared" else 2
         if norm() is not None:
             for j in range(n_block_norms):
@@ -336,7 +351,7 @@ def _init_leaf(spec, generator: torch.Generator, device: torch.device, dtype: to
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    if init == "embed":
+    if init in ("embed", "normal"):
         t.normal_(0.0, 0.02, generator=generator)
     else:
         # flax lecun_normal: truncated normal on [-2, 2] sigma, std corrected
@@ -469,13 +484,23 @@ def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch
 
 
 def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-              layer_idx: int, kv_cache: Optional[KVCache] = None):
+              layer_idx: int, kv_cache: Optional[KVCache] = None, train: bool = True,
+              moe_aux: Optional[List] = None):
     """The reference ``Block``: sequential pre-norm, ``parallel`` (gpt-neox),
     ``parallel_shared`` (one norm feeds both branches) or post-LN. With a
-    ``kv_cache``, returns ``(x, new_cache)``."""
+    ``kv_cache``, returns ``(x, new_cache)``. An MoE block drops tokens by
+    capacity only when ``train``, and appends ``(l_aux, exp_counts)`` to
+    ``moe_aux`` when one is given."""
     norm = lambda h, j: _norm(cfg, h, _norm_params(cfg, p, j))
-    mlp = lambda h: mlp_fwd(cfg, p["mlp"], h)
     new_cache = None
+
+    def mlp(h):
+        if "moe" not in p:
+            return mlp_fwd(cfg, p["mlp"], h)
+        out, l_aux, exp_counts = moe_block(cfg)(p["moe"], h, train=train)
+        if moe_aux is not None:
+            moe_aux.append((l_aux, exp_counts))
+        return out
 
     def attn(h):
         nonlocal new_cache
@@ -500,17 +525,20 @@ def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positi
 
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
                         positions: Optional[torch.Tensor] = None, return_hidden: bool = False,
-                        kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None):
+                        kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None,
+                        moe_aux: Optional[List] = None):
     """The reference ``Transformer.__call__``: embeddings (learned, rope,
     ALiBi or no positions; ``embed_scale``, ``embedding_norm``), the blocks
     (``torch.utils.checkpoint`` per block when ``cfg.remat`` and there are no
     caches), the final norm, then fp32 logits through the tied or untied
     head, or the hidden states with ``return_hidden``. With ``kv_caches``
     (``CausalLM.init_kv_caches``), returns ``(logits or hidden, new_caches)``.
-    ``train`` is accepted for the reference's signature (it only gates MoE
-    capacity drops, and MoE is not ported)."""
-    if cfg.moe_num_experts > 0 or cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
-        raise NotImplementedError("MoE, scan_layers and the BERT heads are not ported yet")
+    ``train`` gates MoE capacity drops only; by default a forward without
+    caches drops and one with caches never does, as in the reference. Each
+    MoE block appends its ``(l_aux, exp_counts)`` to ``moe_aux`` when given."""
+    if cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
+        raise NotImplementedError("scan_layers and the BERT heads are not ported yet")
+    train = (kv_caches is None) if train is None else bool(train)
     dt = cfg.dtype
     B, S = input_ids.shape
     ids = input_ids.long()
@@ -529,14 +557,18 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
         x = _norm(cfg, x, None)
     new_caches = [] if kv_caches is not None else None
     for i in range(cfg.n_layers):
-        fn = functools.partial(block_fwd, cfg, params[f"layer_{i}"], layer_idx=i)
+        fn = functools.partial(block_fwd, cfg, params[f"layer_{i}"], layer_idx=i, train=train)
         if kv_caches is not None:
-            x, c = fn(x, positions, kv_cache=kv_caches[i])
+            x, c = fn(x, positions, kv_cache=kv_caches[i], moe_aux=moe_aux)
             new_caches.append(c)
         elif cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(fn, x, positions, use_reentrant=False)
+            # the backward's recompute appends to this block's own list, which nobody reads by then
+            sink: List = []
+            x = torch.utils.checkpoint.checkpoint(fn, x, positions, moe_aux=sink, use_reentrant=False)
+            if moe_aux is not None:
+                moe_aux.extend(sink)
         else:
-            x = fn(x, positions)
+            x = fn(x, positions, moe_aux=moe_aux)
     if cfg.norm_scheme != "post":
         x = _norm(cfg, x, _norm_params(cfg, params, n_norm))
     if return_hidden:
@@ -588,7 +620,8 @@ class CausalLM:
 
         cfg = self.cfg
         input_ids = batch["input_ids"]
-        hidden = self.apply(params, input_ids, return_hidden=True)
+        moe_aux: List = []
+        hidden = self.apply(params, input_ids, return_hidden=True, moe_aux=moe_aux)
         if cfg.tie_embeddings:
             w, vd, head_b = params["wte"].to(cfg.dtype), True, None
         else:
@@ -600,7 +633,10 @@ class CausalLM:
             # shift left; keep S intact (last position ignored) so the
             # sequence chunking of the fused CE stays aligned
             labels = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], -100)], dim=1)
-        return fused_cross_entropy(hidden, w, labels, vd_layout=vd, bias=head_b)
+        ce = fused_cross_entropy(hidden, w, labels, vd_layout=vd, bias=head_b)
+        if cfg.moe_num_experts == 0:
+            return ce
+        return ce + cfg.moe_aux_loss_coef * sum(l_aux for l_aux, _ in moe_aux)
 
 
 # -------------------- presets --------------------

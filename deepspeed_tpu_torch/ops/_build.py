@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, List] = {
     "ds_sparse_fwd": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
     "ds_sparse_bwd_dq": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
     "ds_sparse_bwd_dkv": [_P] * 11 + [_I] * 11 + [_F, _I, _I, _P],
+    "ds_moe_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

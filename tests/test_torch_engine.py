@@ -15,7 +15,12 @@ wrapper runs its plain version. Held to the reference:
 - ALiBi and sliding-window serving: greedy tokens of a tiny bloom-shaped
   config (ALiBi, LayerNorm, an embedding norm) and of a tiny config with a
   window of 4 on layer 1 equal the JAX engine's, in both loops, with
-  speculative decoding off and on.
+  speculative decoding off and on;
+- MoE serving: a tiny Mixtral-shaped config (4 experts, top-2, every block
+  or every second block MoE): ``fused_forward`` logits and pools at 1e-4,
+  a fused step's tokens (``make_fused_step_fn``) equal and its pools at
+  1e-4, and greedy tokens equal the JAX engine's in both loops, with
+  speculative decoding off and on, and with int8 weights.
 """
 
 import os
@@ -280,3 +285,115 @@ def test_alibi_and_window_serving_match(feature_models, name, fused, spec):
     assert te.generate(FEATURE_PROMPTS, max_new_tokens=20) == want
     if spec:
         assert te.spec_accepted > 0
+
+
+# A tiny Mixtral-shaped MoE config (the JAX package's ``_moe_model`` in tests/unit/test_inference_v2.py):
+# 4 experts, top-2, every second block MoE (freq 2) or every block (freq 1)
+MOE = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=32, max_seq_len=128, norm="rmsnorm",
+           activation="swiglu", pos_emb="rope", tie_embeddings=False, moe_num_experts=4, moe_top_k=2)
+MOE_QUANT = dict(quant_bits=8, quant_min_size=256)
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """freq -> (JAX config, JAX params, port cfg, port params, {quant: the JAX engine's greedy tokens})."""
+    out = {}
+    for freq in (2, 1):
+        fields = dict(MOE, moe_layer_freq=freq)
+        jcfg = JaxConfig(**fields)
+        model = CausalLM(jcfg)
+        params = model.init(jax.random.PRNGKey(3), {"input_ids": np.zeros((1, 8), np.int32)})
+        want = {}
+        for quant in (False, True):
+            smc = JaxBatchConfig(kv_block_size=8, max_context=64, num_kv_blocks=64)
+            je = JaxEngine(model, params, JaxEngineConfig(state_manager=smc, dtype="float32", fused_step=True,
+                                                          decode_burst=8, **(MOE_QUANT if quant else {})))
+            want[quant] = je.generate(FEATURE_PROMPTS, max_new_tokens=20)
+        cfg = TransformerConfig(**fields)
+        out[freq] = (jcfg, params, cfg, params_from_numpy(jax.tree.map(np.asarray, params), "cpu", cfg=cfg), want)
+    return out
+
+
+@pytest.mark.parametrize("freq", [2, 1])
+def test_moe_fused_forward_logits_and_pools_match(moe_models, freq):
+    """The fused step's forward on an MoE config: per-row logits and the KV
+    pools against JAX ``fused_forward`` over a prefill quantum and a mixed
+    one (1e-4, as the dense config)."""
+    jcfg, params, cfg, tparams, _ = moe_models[freq]
+    rng = np.random.default_rng(freq)
+    L, n_blocks, bs, KVH, D = cfg.n_layers, 16, 8, cfg.kv_heads, cfg.head_dim
+    a, b, c = (rng.integers(0, 128, n).tolist() for n in (5, 7, 12))
+    blocks = {"a": [1, 2], "b": [3, 4], "c": [5, 6]}
+    quanta = [(0, 8, [(a, 0, blocks["a"]), (b, 0, blocks["b"]), (c[:8], 0, blocks["c"])]),
+              (2, 4, [([11], 5, blocks["a"]), ([12], 7, blocks["b"]), (c[8:], 8, blocks["c"])])]
+    jk = jv = jnp.zeros((L, n_blocks, bs, KVH, D), jnp.float32)
+    tk, tv = torch.zeros((L, n_blocks, bs, KVH, D)), torch.zeros((L, n_blocks, bs, KVH, D))
+    for n_dec, chunk, rows in quanta:
+        ids, pos, bt, ctx, slots, last = _quantum_inputs(rows, n_dec, chunk)
+        jl, jk, jv = jax_fused_forward(jcfg, params, *(jnp.asarray(x) for x in (ids, pos)), jk, jv,
+                                       *(jnp.asarray(x) for x in (bt, ctx, slots, last)), n_dec=n_dec, chunk=chunk,
+                                       interpret=True)
+        tl, tk, tv = fused_forward(cfg, tparams, *(torch.from_numpy(x) for x in (ids, pos)), tk, tv,
+                                   *(torch.from_numpy(x) for x in (bt, ctx, slots, last)), n_dec=n_dec, chunk=chunk)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        np.testing.assert_allclose(tk[:, 1:].numpy(), np.asarray(jk)[:, 1:], rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        np.testing.assert_allclose(tv[:, 1:].numpy(), np.asarray(jv)[:, 1:], rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("freq", [2, 1])
+def test_moe_fused_step_matches(moe_models, freq):
+    """One fused step on an MoE config (``make_fused_step_fn``: the mixed
+    quantum, greedy tokens on the device, then 3 follow-on decode steps of
+    the burst) after a prefill quantum: tokens equal the JAX step's, pools
+    within 1e-4."""
+    from deepspeed_tpu.inference.v2.model_runner import make_fused_step_fn as jax_make_fused_step_fn
+    from deepspeed_tpu_torch.inference.v2.model_runner import make_fused_step_fn
+
+    jcfg, params, cfg, tparams, _ = moe_models[freq]
+    rng = np.random.default_rng(10 + freq)
+    L, n_blocks, bs, KVH, D = cfg.n_layers, 16, 8, cfg.kv_heads, cfg.head_dim
+    a, b, c = (rng.integers(0, 128, n).tolist() for n in (5, 7, 12))
+    blocks = {"a": [1, 2], "b": [3, 4], "c": [5, 6]}
+    ids, pos, bt, ctx, slots, last = _quantum_inputs(
+        [(a, 0, blocks["a"]), (b, 0, blocks["b"]), (c[:8], 0, blocks["c"])], 0, 8)
+    jl, jk, jv = jax_fused_forward(jcfg, params, *(jnp.asarray(x) for x in (ids, pos)),
+                                   jnp.zeros((L, n_blocks, bs, KVH, D), jnp.float32),
+                                   jnp.zeros((L, n_blocks, bs, KVH, D), jnp.float32),
+                                   *(jnp.asarray(x) for x in (bt, ctx, slots, last)), n_dec=0, chunk=8, interpret=True)
+    tk, tv = torch.from_numpy(np.array(jk)), torch.from_numpy(np.array(jv))  # the same pools on both sides
+    rows = [([11], 5, blocks["a"]), ([12], 7, blocks["b"]), (c[8:], 8, blocks["c"])]
+    ids, pos, bt, ctx, slots, last = _quantum_inputs(rows, 2, 4)
+    # the burst's follow-on slots: each row's next 3 positions (ctx + off) in its own blocks
+    adv = np.array([[blk[(p + off) // bs] * bs + (p + off) % bs for (_, _, blk), p in zip(rows, ctx)]
+                    for off in range(3)], np.int32)
+    garbage = np.zeros(3, np.int32)
+    jfn = jax_make_fused_step_fn(jcfg, True, n_dec=2, n_pre=1, chunk=4)
+    jt, jk, jv = jfn(params, *(jnp.asarray(x) for x in (ids, pos)), jk, jv,
+                     *(jnp.asarray(x) for x in (bt, ctx, slots, last, adv, garbage)), -1, jax.random.PRNGKey(0))
+    tfn = make_fused_step_fn(cfg, n_dec=2, n_pre=1, chunk=4)
+    tt, tk, tv = tfn(tparams, *(torch.from_numpy(x) for x in (ids, pos)), tk, tv,
+                     *(torch.from_numpy(x) for x in (bt, ctx, slots, last, adv, garbage)), -1, None)
+    assert tt.shape == (3, 4)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_allclose(tk[:, 1:].numpy(), np.asarray(jk)[:, 1:], rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    np.testing.assert_allclose(tv[:, 1:].numpy(), np.asarray(jv)[:, 1:], rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("fused,spec,quant", [(True, False, False), (True, True, False), (False, False, False),
+                                               (False, True, False), (True, False, True), (False, False, True)])
+@pytest.mark.parametrize("freq", [2, 1])
+def test_moe_serving_matches(moe_models, freq, fused, spec, quant):
+    """Greedy tokens of the MoE config equal the JAX engine's (fused loop, spec
+    off) in both loops, with speculative decoding off and on, and with int8
+    weights (the JAX engine quantised alike; gates and experts stay dense in
+    both)."""
+    *_, cfg, tparams, want = moe_models[freq]
+    te = InferenceEngineV2(cfg, tparams, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(kv_block_size=8, max_context=64, num_kv_blocks=64), dtype="float32",
+        device="cpu", decode_burst=8, fused_step=fused, spec_decode=spec, **(MOE_QUANT if quant else {})))
+    moe_layer = te.params[f"layer_{cfg.n_layers - 1}"]["moe"]
+    assert all(isinstance(t, torch.Tensor) for t in (moe_layer["gate"]["kernel"], *moe_layer["experts"].values()))
+    assert isinstance(te.params["layer_0"]["attn"]["q_proj"]["kernel"], torch.Tensor) != quant
+    assert te.generate(FEATURE_PROMPTS, max_new_tokens=20) == want[quant]
+    if spec:
+        assert te.spec_proposed > 0

@@ -1573,3 +1573,211 @@ def test_lamb_training_on_the_card_matches_the_cpu(cuda):
     got, want = run("cuda"), run("cpu")
     assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4, (got, want)
     assert tfl.lamb_direction.launches > n0
+
+
+# ---------------------------------------------------------------- MoE: the grouped GEMM and MoE serving
+# (name -> rows a group, K, N): R not a multiple of any tile, empty experts, every row on one expert, the
+# mixtral_8x7b_8l serve's decode step at its bucket of 8 (16 rows) and its 2,048-token quantum (4,096 rows), a
+# decode step's routing at Mixtral's widths (64 tokens x top-2 over 8 experts) for wi and wo, a prefill
+# quantum's (768 tokens x top-2), K past the ring's depth, and shapes the bf16 body does not take (fp32 only)
+GEMM_CASES = {
+    "ragged": ([3, 0, 21, 5], 64, 96),
+    "one_expert": ([0, 0, 77, 0], 128, 256),
+    "last_expert": ([0, 0, 0, 40], 40, 24),
+    "mixtral_serve_decode_wi": ([2, 3, 1, 2, 0, 4, 2, 2], 4096, 14336),
+    "mixtral_serve_decode_wo": ([2, 3, 1, 2, 0, 4, 2, 2], 14336, 4096),
+    "mixtral_serve_prefill_wo": ([520, 480, 505, 530, 498, 512, 540, 511], 14336, 4096),
+    "mixtral_decode_wi": ([14, 19, 15, 17, 16, 13, 18, 16], 4096, 14336),
+    "mixtral_decode_wo": ([14, 19, 15, 17, 16, 13, 18, 16], 14336, 4096),
+    "mixtral_prefill_wi": ([201, 176, 188, 215, 190, 170, 205, 191], 4096, 14336),
+    "mixtral_skewed_wo": ([0, 1, 120, 2, 0, 5, 0, 0], 14336, 4096),
+}
+GEMM_ODD = {"odd_k_n": ([7, 0, 30], 37, 53), "tiny": ([1], 8, 8)}
+
+
+def _gemm_case(dev, dtype, sizes, K, N, seed=0):
+    g = _gen(dev, seed + K + N)
+    R, E = sum(sizes), len(sizes)
+    x = torch.randn((R, K), generator=g, device=dev).to(dtype)
+    w = (torch.randn((E, K, N), generator=g, device=dev) * K**-0.5).to(dtype)
+    offsets = torch.tensor([0] + sizes, dtype=torch.int64).cumsum(0).to(torch.int32).to(dev)
+    return x, w, offsets
+
+
+def _gemm_err(got, want):
+    """bf16: the per-row relative error; fp32: the max abs error over max(1, max |want|) (sums of up to
+    14,336 products in another order than cuBLAS's)."""
+    err = _err(got, want)
+    return err / max(1.0, want.abs().max().item()) if got.dtype == torch.float32 else err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GEMM_CASES) + list(GEMM_ODD))
+def test_moe_grouped_gemm_kernel(cuda, dtype, case):
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    sizes, K, N = {**GEMM_CASES, **GEMM_ODD}[case]
+    x, w, offsets = _gemm_case(cuda, dtype, sizes, K, N)
+    if dtype == torch.bfloat16 and case in GEMM_ODD and (K % 8 or N % 8):
+        with pytest.raises(NotImplementedError):
+            mg.moe_grouped_gemm(x, w, offsets)
+        return
+    n0 = mg.moe_grouped_gemm.launches
+    got = mg.moe_grouped_gemm(x, w, offsets)
+    torch.cuda.synchronize()
+    assert mg.moe_grouped_gemm.launches == n0 + 1 and got.dtype == dtype and got.shape == (sum(sizes), N)
+    err = _gemm_err(got, mg.moe_grouped_gemm_ref(x, w, offsets))
+    assert err <= TOL[dtype], err
+    for _ in range(2):  # no atomics: a repeat is bit for bit
+        assert torch.equal(mg.moe_grouped_gemm(x, w, offsets), got)
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_expert", "mixtral_serve_decode_wi", "mixtral_prefill_wi"])
+def test_moe_grouped_gemm_every_tile_body(cuda, case):
+    """Each bf16 tile body, forced through the entry point whatever ``tile_rows``
+    picks, equals the plain version."""
+    from deepspeed_tpu_torch.ops import _build, moe_grouped_gemm as mg
+
+    sizes, K, N = GEMM_CASES[case]
+    x, w, offsets = _gemm_case(cuda, torch.bfloat16, sizes, K, N)
+    want = mg.moe_grouped_gemm_ref(x, w, offsets)
+    for bm in mg.GEMM_TILE_ROWS:
+        out = torch.empty_like(want)
+        rc = _build.lib().ds_moe_grouped_gemm(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                                              x.shape[0], K, N, len(sizes), bm, _build.dtype_code(x.dtype),
+                                              torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "moe_grouped_gemm")
+        torch.cuda.synchronize()
+        assert _gemm_err(out, want) <= TOL[torch.bfloat16], bm
+
+
+def test_moe_grouped_gemm_tiles_from_host_shapes_only(cuda):
+    """Every routing of the same R, K, N, E runs the same launch: the offsets
+    change on the device between calls inside one CUDA graph, and each replay
+    equals the plain version on that routing."""
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    x, w, offsets = _gemm_case(cuda, torch.bfloat16, [16] * 8, 512, 256)
+    routings = [[16] * 8, [128, 0, 0, 0, 0, 0, 0, 0], [0] * 7 + [128], [1, 2, 3, 4, 5, 6, 7, 100], [0, 64, 0, 64] * 2]
+    static = offsets.clone()
+    mg.moe_grouped_gemm(x, w, static)  # warm-up: the build, the shared-memory attribute
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mg.moe_grouped_gemm(x, w, static)
+    for sizes in routings:
+        static.copy_(torch.tensor([0] + sizes).cumsum(0).to(torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _err(out, mg.moe_grouped_gemm_ref(x, w, static)) <= TOL[torch.bfloat16], sizes
+
+
+def test_moe_grouped_gemm_raises_on_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    x, w, offsets = _gemm_case(cuda, torch.bfloat16, [4, 4], 64, 64)
+    with pytest.raises(ValueError):
+        mg.moe_grouped_gemm(x, w.float(), offsets)
+    with pytest.raises(ValueError):
+        mg.moe_grouped_gemm(x, w, offsets.long())
+    with pytest.raises(ValueError):
+        mg.moe_grouped_gemm(x, w, offsets[:-1])
+    with pytest.raises(ValueError):
+        mg.moe_grouped_gemm(x, w.cpu(), offsets)
+    with pytest.raises(ValueError):
+        mg.moe_grouped_gemm(x[:, ::2], w[:, ::2], offsets)
+    with pytest.raises(NotImplementedError):
+        mg.moe_grouped_gemm(x.half(), w.half(), offsets)
+
+
+def _moe_cfg(**kw):
+    from deepspeed_tpu_torch.models import TransformerConfig
+
+    fields = dict(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, d_ff=384, max_seq_len=512,
+                  norm="rmsnorm", activation="swiglu", pos_emb="rope", tie_embeddings=False, moe_num_experts=8,
+                  moe_top_k=2, moe_layer_freq=1)
+    return TransformerConfig(**{**fields, **kw})
+
+
+def test_moe_serving_module_never_syncs(cuda):
+    """The MoE serving module on CUDA tensors makes no host sync (the sync
+    debug mode raises on one): routing, offsets, the three grouped products
+    and the combine all stay on the device, in bf16 and fp32; the result
+    equals the plain bundle's within the kernels' tolerance."""
+    from deepspeed_tpu_torch.inference.v2.modules import moe_tpu
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = _moe_cfg(dtype=dtype)
+        p = init_params(cfg, _gen(cuda), device=cuda, dtype=dtype)["layer_0"]["moe"]
+        x = torch.randn((4, 37, 256), generator=_gen(cuda), device=cuda).to(dtype)
+        moe_tpu(cfg, p, x)  # the build and the kernels' attributes, before the check
+        torch.cuda.synchronize()
+        n0 = mg.moe_grouped_gemm.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = moe_tpu(cfg, p, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert mg.moe_grouped_gemm.launches == n0 + 3
+        want = moe_tpu(cfg, p, x, gemm=mg.moe_grouped_gemm_ref)
+        err = _gemm_err(got.reshape(-1, 256), want.reshape(-1, 256))
+        assert err <= (1e-5 if dtype == torch.float32 else 2e-2), err
+
+
+def test_moe_engine_on_the_card_matches_the_cpu(cuda):
+    """An MoE model served on the card in fp32 (the grouped GEMM, paged and
+    norm kernels, each step a graph replay) gives the CPU engine's greedy
+    tokens, in the fused and the unfused loop, and the grouped GEMM launched."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    cfg = _moe_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[3, 17, 42], list(range(40)), [100, 2] * 30, [9] * 11]
+
+    def serve(device, fused=True):
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=64), dtype="float32",
+            device=device, decode_burst=8, fused_step=fused))
+        engine.scheduler.prefill_chunk = 32
+        return engine.generate(prompts, max_new_tokens=12), engine
+
+    cpu = serve("cpu")[0]
+    for fused in (True, False):
+        n0 = mg.moe_grouped_gemm.launches
+        got, engine = serve("cuda", fused)
+        assert got == cpu
+        assert mg.moe_grouped_gemm.launches > n0 and engine.graphs.replays == engine.dispatches > 0
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_moe_graph_steps_equal_eager_steps(cuda, fused):
+    """bf16 MoE serving with each step replayed from its captured graph gives
+    the eager steps' tokens and KV pools bit for bit (the garbage page
+    excluded), and the kernels' counters move alike; the capture needs no
+    sync, so no step runs eagerly on the graph engine."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
+
+    cfg = _moe_cfg(moe_layer_freq=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    engines = []
+    for eager in (False, True):
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=64), dtype="bfloat16",
+            device="cuda", decode_burst=8, fused_step=fused))
+        engine.scheduler.prefill_chunk = 32
+        engine._eager_steps = eager
+        engines.append(engine)
+    counters = (norms.rms_norm, mg.moe_grouped_gemm, pa.paged_attention_decode, pa.paged_attention_prefill)
+    (g_toks, g_launches), (e_toks, e_launches) = _serve_both(engines, counters)
+    graphs, eager = engines
+    assert g_toks == e_toks
+    for g, e in ((graphs.k_pages, eager.k_pages), (graphs.v_pages, eager.v_pages)):
+        assert torch.equal(g[:, 1:], e[:, 1:])
+    assert g_launches == e_launches and all(n > 0 for n in g_launches)
+    assert graphs.graphs.replays == graphs.dispatches == eager.dispatches > 0 and graphs.graphs.captures > 0
