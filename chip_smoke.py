@@ -334,18 +334,34 @@ class OldAdamEntry:
         return 0
 
 
+class OldGemmEntry:
+    """A grouped-GEMM entry point whose C interface predates the launch plan (tile rows chosen by the caller,
+    no split of K, no workspace), called with this tree's arguments: the plan is dropped and the tile rows are
+    those that build's wrapper chose (32 while an expert averages at most 16 rows, else 64; fp32 64)."""
+
+    OLD_ARGS = 11
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, x, w, offsets, out, _ws, _counters, R, K, N, E, _rows, _split, _steps, _below, dtype, stream):
+        bm = 64 if dtype == 0 or R > 16 * E else 32
+        return self.fn(x, w, offsets, out, R, K, N, E, bm, dtype, stream)
+
+
 class ParentKernels:
     """This tree's kernel library with the entry points in ``STAND_IN``
     taken from another build (the paged ones through ``OldPagedEntry``, the
     sparse ones through ``OldSparseEntry`` where that build has the old C
     interface, Adam's through ``OldAdamEntry`` where it has only the one-leaf
-    entry point). The collapsed dq's two entry points come from one build,
+    entry point, the grouped GEMM's through ``OldGemmEntry`` where it has no
+    launch plan). The collapsed dq's two entry points come from one build,
     whose plan sizes the partials."""
 
     STAND_IN = ("ds_rms_norm", "ds_layer_norm", "ds_quantized_matmul", "ds_flash_fwd", "ds_flash_bwd_dq",
                 "ds_flash_bwd_dkv", "ds_flash_bwd_dq_collapsed", "ds_flash_dq_collapsed_parts",
                 "ds_paged_attention_decode", "ds_paged_attention_prefill", "ds_sparse_fwd", "ds_sparse_bwd_dq",
-                "ds_sparse_bwd_dkv", "ds_fused_adam_multi")
+                "ds_sparse_bwd_dkv", "ds_fused_adam_multi", "ds_moe_grouped_gemm")
 
     def __init__(self, lib, other):
         self._lib, self._other = lib, other
@@ -360,6 +376,8 @@ class ParentKernels:
             return OldPagedEntry(name, fn)
         if len(fn.argtypes) == OldSparseEntry.OLD_ARGS.get(name):
             return OldSparseEntry(name, fn)
+        if name == "ds_moe_grouped_gemm" and len(fn.argtypes) == OldGemmEntry.OLD_ARGS:
+            return OldGemmEntry(fn)
         return fn
 
 
@@ -1288,10 +1306,12 @@ def phase_moe_gemm(torch, dev, dtype, name, iters):
     """``moe_grouped_gemm`` against its plain version (each expert's rows
     times its weight in fp32, host sizes). Yardsticks, timed only: one
     ``torch._grouped_mm`` call (bf16, where the card's torch has it: the
-    ``library_ms``) and a per-expert ``torch.matmul`` loop with host sizes.
-    The bound counts x, the routed experts' weights and the output once."""
+    ``library_ms``) and a per-expert ``torch.matmul`` loop with host sizes;
+    with --parent the parent's kernel (``parent_ms``). The bound counts x,
+    the routed experts' weights and the output once."""
     import numpy as np
 
+    from deepspeed_tpu_torch.device import sm_count
     from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
 
     tokens, kind, K, N = MOE_GEMM_CASES[name]
@@ -1314,6 +1334,7 @@ def phase_moe_gemm(torch, dev, dtype, name, iters):
     b_ms, b_by = bound(nbytes, flops, dtype)
     few = max(3, iters // 5)
     k_ms = time_ms(lambda: mg.moe_grouped_gemm(x, w, offsets), iters)
+    parent_ms = parent_time(time_ms, lambda: mg.moe_grouped_gemm(x, w, offsets), iters)
     p_ms = time_ms(lambda: mg.moe_grouped_gemm_ref(x, w, offsets), few)
     spans = [(e, bounds[e], bounds[e + 1]) for e in range(MOE_E) if bounds[e + 1] > bounds[e]]
     loop_ms = time_ms(lambda: [torch.matmul(x[a:b], w[e]) for e, a, b in spans], iters)
@@ -1321,8 +1342,8 @@ def phase_moe_gemm(torch, dev, dtype, name, iters):
     if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):  # no fp32 mode; ends of the groups as offs
         l_ms = time_ms(lambda: torch._grouped_mm(x, w, offs=offsets[1:]), iters)
     rec = dict(kernel="moe_grouped_gemm", case=name, dtype=str(dtype), shape=f"x({R},{K}) w({MOE_E},{K},{N})",
-               rows_per_expert=counts, tile_rows=mg.tile_rows(R, MOE_E, dtype), **err, tol=tol,
-               repeats_bit_for_bit=repeat, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               rows_per_expert=counts, plan=mg.gemm_plan(R, K, N, MOE_E, dtype, sm_count(dev))._asdict(), **err,
+               tol=tol, repeats_bit_for_bit=repeat, kernel_ms=k_ms, parent_ms=parent_ms, plain_ms=p_ms, library_ms=l_ms,
                library="torch._grouped_mm (offs = group ends)" if l_ms is not None else None,
                expert_loop_ms=loop_ms, bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
     if not repeat:
@@ -1331,58 +1352,57 @@ def phase_moe_gemm(torch, dev, dtype, name, iters):
     return rec
 
 
-def phase_moe_tiles(torch, dev, rounds: int, iters: int) -> None:
-    """Each bf16 tile body of the grouped GEMM (``GEMM_TILE_ROWS``, through
-    the library's entry point with the tile rows forced) on the top-2 steps of
-    ``MOE_TILE_TOKENS`` for wi and wo, held to the plain version like the
-    wrapper's own pick, and timed in ``rounds`` turns: each body's median and
-    spread (max - min) of the turns' means, the wrapper's pick
-    (``tile_rows``) and the fastest body."""
+def phase_moe_plans(torch, dev, rounds: int, iters: int) -> None:
+    """The plan's choices on the top-2 steps of ``MOE_TILE_TOKENS`` for wi
+    and wo: each bf16 tile body (``GEMM_TILE_ROWS``) as ``gemm_plan`` would
+    launch it (key "rows": its split taken only when the routing gives fewer
+    tiles than SMs) and, where that plan has a split, with the split forced
+    (key "rows x split"), through the wrapper, held to the plain version and
+    timed in ``rounds`` turns: each choice's median and spread (max - min)
+    of the turns' means, the plan's pick and the fastest."""
     import numpy as np
 
-    from deepspeed_tpu_torch.ops import _build, moe_grouped_gemm as mg
+    from deepspeed_tpu_torch.device import sm_count
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
 
-    lib, stream = _build.lib(), torch.cuda.current_stream(dev).cuda_stream
     what, tol = TOL["torch.bfloat16"]
+    sms = sm_count(dev)
     for tokens in MOE_TILE_TOKENS:
         counts = moe_routing(np, tokens, "top2")
         R = sum(counts)
         for proj, (K, N) in (("wi", (MOE_D, MOE_F)), ("wo", (MOE_F, MOE_D))):
             x, w, offsets, _ = moe_gemm_operands(torch, np, dev, torch.bfloat16, counts, K, N)
-
-            def run(bm):
-                out = torch.empty((R, N), dtype=x.dtype, device=dev)
-                rc = lib.ds_moe_grouped_gemm(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), R, K,
-                                             N, MOE_E, bm, _build.dtype_code(x.dtype), stream)
-                _build.check(rc, f"moe_grouped_gemm (tile rows {bm})")
-                return out
-
+            pick = mg.gemm_plan(R, K, N, MOE_E, torch.bfloat16, sms)
+            plans = {}
+            for rows in mg.GEMM_TILE_ROWS:
+                own = plans[str(rows)] = mg.gemm_plan(R, K, N, MOE_E, torch.bfloat16, sms, rows=rows)
+                if own.split > 1:
+                    plans[f"{rows}x{own.split}"] = mg.gemm_plan(R, K, N, MOE_E, torch.bfloat16, sms, rows=rows,
+                                                                split=own.split)
             want = mg.moe_grouped_gemm_ref(x, w, offsets)
-            errs = {bm: errors(run(bm), want)[what] for bm in mg.GEMM_TILE_ROWS}
+            errs = {k: errors(mg.moe_grouped_gemm(x, w, offsets, plan=p), want)[what] for k, p in plans.items()}
             del want
             if not all(e <= tol for e in errs.values()):
-                raise AssertionError(f"moe_grouped_gemm tiles at R {R} {proj}: {what} {errs} > {tol}")
-            turns = {bm: [] for bm in mg.GEMM_TILE_ROWS}
+                raise AssertionError(f"moe_grouped_gemm plans at R {R} {proj}: {what} {errs} > {tol}")
+            turns = {k: [] for k in plans}
             for _ in range(rounds):
-                for bm in mg.GEMM_TILE_ROWS:
-                    turns[bm].append(time_ms(lambda: run(bm), iters))
-            ms = {bm: float(np.median(t)) for bm, t in turns.items()}
-            pick, fastest = mg.tile_rows(R, MOE_E, torch.bfloat16), min(ms, key=ms.get)
-            log(dict(phase="moe tiles", tokens=tokens, rows=R, proj=proj, rows_per_expert=counts, pick=pick,
-                     fastest=fastest, pick_over_fastest=ms[pick] / ms[fastest],
-                     median_ms={str(bm): v for bm, v in ms.items()},
-                     spread_ms={str(bm): max(t) - min(t) for bm, t in turns.items()},
-                     **{what: {str(bm): e for bm, e in errs.items()}}))
+                for k, p in plans.items():
+                    turns[k].append(time_ms(lambda: mg.moe_grouped_gemm(x, w, offsets, plan=p), iters))
+            ms = {k: float(np.median(t)) for k, t in turns.items()}
+            picked, fastest = str(pick.rows), min(ms, key=ms.get)
+            log(dict(phase="moe plans", tokens=tokens, rows=R, proj=proj, rows_per_expert=counts, pick=picked,
+                     fastest=fastest, pick_over_fastest=ms[picked] / ms[fastest], median_ms=ms,
+                     spread_ms={k: max(t) - min(t) for k, t in turns.items()}, **{what: errs}))
             del x, w
             torch.cuda.empty_cache()
 
 
 def run_moe_kernel_phases(torch, dev, quick: bool):
-    """The grouped GEMM of MoE serving at Mixtral-8x7B's expert shapes, bf16 and fp32, then its tile sweep."""
+    """The grouped GEMM of MoE serving at Mixtral-8x7B's expert shapes, bf16 and fp32, then its plan sweep."""
     iters = 5 if quick else 30
     names = ["decode8_wi"] if quick else list(MOE_GEMM_CASES)
     records = run_cases(torch, [lambda dt, n=n: phase_moe_gemm(torch, dev, dt, n, iters) for n in names])
-    phase_moe_tiles(torch, dev, 1 if quick else 5, iters)
+    phase_moe_plans(torch, dev, 1 if quick else 5, 5 if quick else 10)
     return records
 
 
@@ -1594,7 +1614,8 @@ def profile_serve(torch, engine, waves, model, dispatch="graphs") -> None:
             # PyTorch's vectorized_layer_norm_kernel
             "rms_norm": ("rms_norm",),
             "layer_norm": ("layer_norm_rows", "layer_norm_general", "layer_norm_vec", "layer_norm_plain"),
-            "quantized_matmul": ("qmm_",), "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
+            "quantized_matmul": ("qmm_",), "moe_grouped_gemm": ("gg_wgmma_kernel", "gg_bf16_kernel", "gg_fp32_kernel"),
+            "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
     log(dict(phase="profile", model=model, dispatch=dispatch, **profiled(torch, run, cats)))
 
 
@@ -3390,6 +3411,7 @@ def main(argv) -> int:
             phase_serve(torch, dev, counters, "llama3_8b", profile)
             phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
             phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
+            phase_serve(torch, dev, counters + [mg.moe_grouped_gemm], "mixtral_8x7b_8l", profile)
             phase_train(torch, dev, counters + train_counters, profile)
         log(dict(phase="parent kernels", begin=False))
     evoformer = phase_evoformer(torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dq_collapsed,

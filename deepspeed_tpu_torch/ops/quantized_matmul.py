@@ -20,10 +20,11 @@ matmul form ``(K, N)``, codes are int8 ``(K, N)`` (or packed int4
   slices of whole groups split K, so that a decode step's few output tiles
   still cover every SM. A split launch sums its fp32 partials (a workspace
   from ``torch.empty``) in slice order inside the same launch, using one
-  counter per output tile (a zeroed int32 buffer kept per device, which the
-  kernel leaves zeroed), so results repeat bit for bit. The launches of a
-  device share that buffer, so they must not run concurrently on several
-  streams.
+  counter per output tile (``_utils.tile_counters``: a zeroed int32 buffer
+  kept per device, which the kernel leaves zeroed), so results repeat bit
+  for bit. The split launches of a device (this kernel's and
+  ``moe_grouped_gemm``'s) share that buffer, so they must not run
+  concurrently on several streams.
 """
 
 from typing import Tuple
@@ -32,7 +33,7 @@ import torch
 
 from ..device import sm_count
 from . import _build
-from ._utils import block_that_divides
+from ._utils import block_that_divides, tile_counters
 
 
 def quantize_weight_kgroups(w: torch.Tensor, group_size: int = 128, bits: int = 8,
@@ -130,17 +131,6 @@ def _qmm_plan(M: int, K: int, N: int, n_groups: int, packed: bool, sms: int) -> 
     return cfg, -(-n_groups // per), per
 
 
-_COUNTERS = {}  # device -> int32 zeros, one per output tile of a split launch (the kernel re-zeroes them)
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
-
-
 def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, packed: bool = False) -> torch.Tensor:
     """x (M, K) float32 or bfloat16; q int8 (K, N), or (K/2, N) when
     ``packed``; scales fp32 (K/g, N). Returns (M, N) in x's dtype. A CPU
@@ -173,7 +163,7 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, 
         if splits > 1:
             bm, bn = QMM_TILES[cfg]
             ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            counters = _counters(x.device, -(-M // bm) * -(-N // bn))
+            counters = tile_counters(x.device, -(-M // bm) * -(-N // bn))
     rc = _build.lib().ds_quantized_matmul(x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, K, N,
                                           n_groups, int(packed), code, cfg, splits, per,
                                           None if ws is None else ws.data_ptr(),

@@ -1579,8 +1579,12 @@ def test_lamb_training_on_the_card_matches_the_cpu(cuda):
 # (name -> rows a group, K, N): R not a multiple of any tile, empty experts, every row on one expert, the
 # mixtral_8x7b_8l serve's decode step at its bucket of 8 (16 rows) and its 2,048-token quantum (4,096 rows), a
 # decode step's routing at Mixtral's widths (64 tokens x top-2 over 8 experts) for wi and wo, a prefill
-# quantum's (768 tokens x top-2), K past the ring's depth, and shapes the bf16 body does not take (fp32 only)
+# quantum's (768 tokens x top-2), K past the ring's depth, K not a multiple of the TMA box's 64 and N not of the
+# 128-column tile (its last tile's second 64-column box wholly outside w), every row of a decode step on one
+# expert for wo (the plan splits K), and shapes the bf16 body does not take (fp32 only)
 GEMM_CASES = {
+    "k_and_n_tails": ([5, 12, 0, 40], 200, 136),
+    "mixtral_one_expert_wo": ([0, 0, 0, 0, 0, 128, 0, 0], 14336, 4096),
     "ragged": ([3, 0, 21, 5], 64, 96),
     "one_expert": ([0, 0, 77, 0], 128, 256),
     "last_expert": ([0, 0, 0, 40], 40, 24),
@@ -1632,32 +1636,43 @@ def test_moe_grouped_gemm_kernel(cuda, dtype, case):
         assert torch.equal(mg.moe_grouped_gemm(x, w, offsets), got)
 
 
-@pytest.mark.parametrize("case", ["ragged", "one_expert", "mixtral_serve_decode_wi", "mixtral_prefill_wi"])
-def test_moe_grouped_gemm_every_tile_body(cuda, case):
-    """Each bf16 tile body, forced through the entry point whatever ``tile_rows``
-    picks, equals the plain version."""
-    from deepspeed_tpu_torch.ops import _build, moe_grouped_gemm as mg
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_moe_grouped_gemm_every_plan(cuda, case):
+    """Each bf16 tile body as the plan launches it (its split taken when the
+    routing gives few tiles), and unsplit and with K cut into 2 and 3 slices
+    and the plan's own split forced, through the entry point whatever
+    ``gemm_plan`` picks, equals the plain version; a split repeats bit for
+    bit and leaves the tile counters zero."""
+    from deepspeed_tpu_torch.device import sm_count
+    from deepspeed_tpu_torch.ops import _utils, moe_grouped_gemm as mg
 
     sizes, K, N = GEMM_CASES[case]
     x, w, offsets = _gemm_case(cuda, torch.bfloat16, sizes, K, N)
+    R, E = x.shape[0], len(sizes)
     want = mg.moe_grouped_gemm_ref(x, w, offsets)
-    for bm in mg.GEMM_TILE_ROWS:
-        out = torch.empty_like(want)
-        rc = _build.lib().ds_moe_grouped_gemm(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                                              x.shape[0], K, N, len(sizes), bm, _build.dtype_code(x.dtype),
-                                              torch.cuda.current_stream().cuda_stream)
-        _build.check(rc, "moe_grouped_gemm")
-        torch.cuda.synchronize()
-        assert _gemm_err(out, want) <= TOL[torch.bfloat16], bm
+    for rows in mg.GEMM_TILE_ROWS:
+        own = mg.gemm_plan(R, K, N, E, torch.bfloat16, sm_count(x.device), rows=rows)
+        forced = [mg.gemm_plan(R, K, N, E, torch.bfloat16, sm_count(x.device), rows=rows, split=split)
+                  for split in sorted({1, 2, 3, own.split})]
+        for plan in [own] + forced:
+            out = mg.moe_grouped_gemm(x, w, offsets, plan=plan)
+            torch.cuda.synchronize()
+            assert _gemm_err(out, want) <= TOL[torch.bfloat16], (rows, plan.split)
+            if plan.split > 1:
+                assert torch.equal(mg.moe_grouped_gemm(x, w, offsets, plan=plan), out), (rows, plan.split)
+                assert not _utils.tile_counters(x.device, 1).any(), (rows, plan.split)
 
 
 def test_moe_grouped_gemm_tiles_from_host_shapes_only(cuda):
     """Every routing of the same R, K, N, E runs the same launch: the offsets
     change on the device between calls inside one CUDA graph, and each replay
-    equals the plain version on that routing."""
+    equals the plain version on that routing. At N 4,096 the launch carries
+    a split of K (every row on one expert gives 4 x 32 tiles), which the
+    kernel takes for the two one-expert routings only (the others give 256
+    tiles or more)."""
     from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
 
-    x, w, offsets = _gemm_case(cuda, torch.bfloat16, [16] * 8, 512, 256)
+    x, w, offsets = _gemm_case(cuda, torch.bfloat16, [16] * 8, 512, 4096)
     routings = [[16] * 8, [128, 0, 0, 0, 0, 0, 0, 0], [0] * 7 + [128], [1, 2, 3, 4, 5, 6, 7, 100], [0, 64, 0, 64] * 2]
     static = offsets.clone()
     mg.moe_grouped_gemm(x, w, static)  # warm-up: the build, the shared-memory attribute

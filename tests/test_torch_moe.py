@@ -33,7 +33,8 @@ from deepspeed_tpu.moe import sharded_moe as js
 from deepspeed_tpu_torch.inference.v2.modules import build_modules, moe_route, moe_tpu
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, init_params, param_shapes, params_from_numpy
 from deepspeed_tpu_torch.moe import MoE, sharded_moe as ts
-from deepspeed_tpu_torch.ops.moe_grouped_gemm import GEMM_TILE_ROWS, moe_grouped_gemm, moe_grouped_gemm_ref, tile_rows
+from deepspeed_tpu_torch.ops.moe_grouped_gemm import (GEMM_BOX_K, GEMM_MAX_SPLITS, GEMM_TILE_COLS, GEMM_TILE_ROWS,
+                                                      gemm_plan, moe_grouped_gemm, moe_grouped_gemm_ref)
 
 GATE_TOL = 1e-6
 LAYER_TOL = 1e-6
@@ -222,18 +223,59 @@ def test_grouped_gemm_matches_ragged_dot(name):
     assert moe_grouped_gemm.launches == 0
 
 
-# (R, E, dtype) -> the kernel's tile rows: bf16 takes 32 while the mean rows an expert are at most 16 (a decode
-# step), else 64; fp32 always 64
-TILE_CASES = [(16, 8, torch.bfloat16, 32), (128, 8, torch.bfloat16, 32), (129, 8, torch.bfloat16, 64),
-              (4096, 8, torch.bfloat16, 64), (1, 1, torch.bfloat16, 32), (16, 8, torch.float32, 64)]
+# (R, K, N, E, dtype) -> the plan's (tile rows, split) on a 132-SM card: the mixtral_8x7b_8l serve's decode step
+# at its bucket of 8 (16 rows) and a 64-token decode step (128 rows), for wi (4096 -> 14336) and wo (14336 ->
+# 4096), the serve's 272- and 1,040-row steps, a 768-token quantum (1,536 rows), its 2,048-token quantum (4,096
+# rows), one row of one expert, and fp32. The split follows the fewest tiles any routing gives (every row on one
+# expert): 1 x 112 tiles for wi at 16 rows (split 2), 1 x 32 for wo (split 5), 4 x 32 for wo at 128 rows (split
+# 2); the kernel takes it when the routing's own tiles are fewer than the SMs.
+PLAN_CASES = [(16, 4096, 14336, 8, torch.bfloat16, 16, 2), (16, 14336, 4096, 8, torch.bfloat16, 16, 5),
+              (128, 4096, 14336, 8, torch.bfloat16, 32, 1), (128, 14336, 4096, 8, torch.bfloat16, 32, 2),
+              (272, 4096, 14336, 8, torch.bfloat16, 128, 1), (1040, 14336, 4096, 8, torch.bfloat16, 256, 1),
+              (1536, 4096, 14336, 8, torch.bfloat16, 256, 1), (4096, 14336, 4096, 8, torch.bfloat16, 256, 1),
+              (1, 8, 8, 1, torch.bfloat16, 16, 1), (16, 4096, 14336, 8, torch.float32, 64, 1)]
 
 
-@pytest.mark.parametrize("R,E,dtype,want", TILE_CASES)
-def test_grouped_gemm_tile_rows_follow_host_shapes(R, E, dtype, want):
-    """The launch's tile rows depend on R and E only (never on the routing),
-    and are one of the kernel's bodies."""
-    assert tile_rows(R, E, dtype) == want
-    assert want in (GEMM_TILE_ROWS if dtype == torch.bfloat16 else (64,))
+def _plan_invariants(plan, R, K, N, E, dtype):
+    """The grid covers every routing of R rows over E experts; the split cuts K into whole boxes, none empty, and
+    is taken below the SMs' count of tiles; the workspace holds every slice's (R, N) partial."""
+    rng = np.random.default_rng(R + K + N + E)
+    routings = [[R] + [0] * (E - 1), [0] * (E - 1) + [R], list(np.bincount(rng.integers(0, E, R), minlength=E))]
+    if R >= E:
+        routings.append([1] * (E - 1) + [R - E + 1])  # E - 1 one-row groups: the most tiles
+    for sizes in routings:
+        assert sum(-(-s // plan.rows) for s in sizes) <= plan.grid[0], sizes
+    assert plan.grid[1] * plan.cols >= N > (plan.grid[1] - 1) * plan.cols
+    assert plan.grid[2] == plan.split >= 1
+    if dtype == torch.bfloat16:
+        assert plan.rows in GEMM_TILE_ROWS and plan.cols == GEMM_TILE_COLS and plan.split <= GEMM_MAX_SPLITS
+        assert plan.steps * GEMM_BOX_K * plan.split >= K > (plan.split - 1) * plan.steps * GEMM_BOX_K
+    assert plan.ws_bytes == (4 * plan.split * R * N if plan.split > 1 else 0)
+    assert (plan.split_below > 0) == (plan.split > 1)
+
+
+@pytest.mark.parametrize("R,K,N,E,dtype,rows,split", PLAN_CASES)
+def test_grouped_gemm_plan_follows_host_shapes(R, K, N, E, dtype, rows, split):
+    """The launch plan depends on R, K, N, E (and the SM count) only, never
+    on the routing, and keeps its invariants."""
+    plan = gemm_plan(R, K, N, E, dtype, sms=132)
+    assert (plan.rows, plan.split) == (rows, split)
+    assert plan.split_below in ((132,) if split > 1 else (0,))
+    assert gemm_plan(R, K, N, E, dtype, sms=132) == plan
+    _plan_invariants(plan, R, K, N, E, dtype)
+
+
+@pytest.mark.parametrize("rows", GEMM_TILE_ROWS)
+def test_grouped_gemm_forced_plans_keep_invariants(rows):
+    """Every tile body and split forced into the plan (as the card tests and
+    the sweep force them) keeps the invariants; a split past K's boxes
+    shrinks to one slice a box."""
+    for R, K, N, E in ((29, 64, 96, 4), (77, 128, 256, 4), (16, 14336, 4096, 8), (4096, 4096, 14336, 8)):
+        for split in (1, 2, 3, GEMM_MAX_SPLITS):
+            plan = gemm_plan(R, K, N, E, torch.bfloat16, sms=132, rows=rows, split=split)
+            assert plan.rows == rows and plan.split == min(split, -(-K // GEMM_BOX_K))
+            assert plan.split == 1 or plan.split_below == 2**31 - 1  # a forced split is always taken
+            _plan_invariants(plan, R, K, N, E, torch.bfloat16)
 
 
 # ---------------------------------------------------------------- serving module
