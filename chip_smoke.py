@@ -90,7 +90,26 @@ Phases, each fatal on failure:
    arrival at t = 0 and then Poisson rows at 1/4, 1/2 and 3/4 of that row's
    requests/s, each with tokens/s, TTFT and TPOT percentiles and its SLA
    misses, and ``effective_throughput_at_sla`` at the FastGen SLA (TTFT 1 s,
-   TPOT 250 ms). Then ALiBi and sliding-window serving as ``serve`` does
+   TPOT 250 ms). Then ``serve_spill``: the host spill tier on llama3_8b at full width and depth (bf16,
+   random weights from seed 0): wave A (16 requests on 4 shared 1,024-token prefixes, each with a 64-token
+   suffix of its own), wave B (16 unrelated 1,024-token prompts that need the pool), wave A again, 32 new
+   tokens each, on an engine whose pool wave B fills (140 blocks, ``kv_spill`` on: A's cached prefixes
+   spill to pinned host slabs and the third pass re-admits them), on the same pool with the tier off (the
+   third pass prefills them again) and on a pool that keeps them (400 blocks); every re-admitted block's
+   pages must equal, byte for byte, its pages before the spill; the third pass must prefill only the
+   suffixes, re-admit every block of the four chains and give the big pool's tokens; a forced evict and a
+   fourth pass must take no new graph capture; printed: blocks and bytes spilled and re-admitted, the
+   spill path's d2h and the re-admissions' h2d GB/s beside a plain pinned ``copy_`` of the same bytes, each
+   pass's wall time and tokens/s (the warm fourth pass with the chains re-admitted, prefilled again and in
+   HBM), and the warm wave A with telemetry on and off in turns. Then
+   ``journal``: the third pass of the spill engine was recorded with ``DS_TPU_JOURNAL=1`` into a
+   temporary directory; ``read_journal`` reads it back and ``replay_oracle`` replays it on a fresh engine
+   rebuilt from the journal over the same weights (after serving the same first two waves unrecorded):
+   it must be ok with every request's digest equal; one ``sla.run_load`` row (8 requests, every arrival
+   at t = 0) recorded on a fresh engine replays ok on another; ``determinism_audit`` of wave A on two
+   fresh engines must be clean. Then ``serve_spill_kv8``: the same spill traffic on gpt2_1_3b at full
+   size with int8 weights and int8 KV pages (768-token prefixes; 104 and 320 blocks), the spilled blocks
+   kept quantised (four pool leaves). Then ALiBi and sliding-window serving as ``serve`` does
    it (eager and graph tokens equal): a BLOOM-7b1-shaped config and a
    Mistral-7B-v0.1-shaped one (window 4,096, prompts up to 6,000 tokens),
    each at full width and 4 layers. Then MoE serving: a Mixtral-8x7B-v0.1-
@@ -179,6 +198,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1980,6 +2000,386 @@ def phase_sla(torch, dev, counters):
     return out
 
 
+# ---------------------------------------------------------------- the host spill tier and the journal
+# The spill traffic at full width: wave A is 16 requests on 4 shared prefixes (each with a 64-token suffix of its
+# own), wave B 16 unrelated prompts of the prefix's length that need the pool, then wave A again; 32 new tokens a
+# request. Per model: ``prefix`` (its longest prompts: llama3_8b 1,024 tokens, gpt2_1_3b 768 of its 1,024
+# context), ``blocks`` (a pool that wave B fills past A's cached prefixes, so that they spill: llama3_8b's wave B
+# holds up to 16 x 9 blocks beside A's 32), ``big`` (a pool that keeps them in HBM) and ``host_blocks`` (the host
+# pool, sized to hold A's prefixes and what wave A's third pass spills of B's)
+SPILL_RUNS = {
+    "llama3_8b": dict(prefix=1024, blocks=140, big=400, host_blocks=160, max_context=8192, quant={}),
+    "gpt2_1_3b_w8_kv8": dict(prefix=768, blocks=104, big=320, host_blocks=160, max_context=1024,
+                             quant=dict(quant_bits=8, kv_quant_bits=8)),
+}
+SPILL_SUFFIX, SPILL_NEW, SPILL_PROGRAM_CACHE = 64, 32, 32
+SPILL_COUNTERS = ("kv_spill_blocks_total", "kv_readmit_total", "kv_prefix_hit_tokens_total",
+                  "infer_prefill_tokens_total")
+# the recorded SLA row of the journal phase: every arrival at t = 0 (the logical clock then replays it exactly)
+JOURNAL_SLA = dict(n_requests=8, arrival_rate=float("inf"), prompt_len_range=(16, 512), max_new_tokens=16,
+                   shared_prefix_len=256, seed=0)
+
+
+@contextlib.contextmanager
+def env_set(values):
+    """Environment knobs set while the enclosed code runs (an engine reads its knobs when it is built)."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def spill_waves(np, vocab, prefix):
+    """Wave A (16 prompts: 4 shared prefixes of ``prefix`` tokens, each with its own 64-token suffix) and
+    wave B (16 unrelated prompts of ``prefix`` tokens), seeded."""
+    rng = np.random.default_rng(1)
+    shared = [rng.integers(0, vocab, prefix).tolist() for _ in range(4)]
+    wave_a = [shared[i % 4] + rng.integers(0, vocab, SPILL_SUFFIX).tolist() for i in range(16)]
+    wave_b = [rng.integers(0, vocab, prefix).tolist() for _ in range(16)]
+    return wave_a, wave_b
+
+
+def spill_block_bytes(cfg, int8: bool) -> int:
+    """K and V bytes of one 128-token block over every layer (int8: codes and fp32 scales)."""
+    return 2 * cfg.n_layers * 128 * cfg.kv_heads * ((cfg.head_dim + 4) if int8 else cfg.head_dim * 2)
+
+
+def spill_engine(dev, cfg, params, run, blocks, spill):
+    """An engine of the spill phase: ``blocks`` KV blocks of 128 tokens, the host tier on or off (its pool
+    holding ``host_blocks``), graphs for every key of the phase (``SPILL_PROGRAM_CACHE``)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+
+    spec = SPILL_RUNS[run]
+    host_mb = -(-spec["host_blocks"] * spill_block_bytes(cfg, bool(spec["quant"])) // 2**20)
+    with env_set({"DS_TPU_KV_HOST_POOL_MB": host_mb, "DS_TPU_PROGRAM_CACHE": SPILL_PROGRAM_CACHE}):
+        return InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=RaggedBatchConfig(max_context=spec["max_context"], kv_block_size=128, num_kv_blocks=blocks),
+            dtype="bfloat16", device=str(dev), kv_spill=spill, **spec["quant"]))
+
+
+def free_engine(torch) -> None:
+    """Free a dropped engine's pools before the next engine is built."""
+    gc.collect()  # the engine's closures form cycles
+    torch.cuda.empty_cache()
+
+
+def pinned_copy_gbps(torch, dev, nbytes: int, n: int) -> dict:
+    """A plain pinned ``copy_`` of ``n`` blocks of ``nbytes``: d2h and h2d GB/s (CUDA events, warm)."""
+    host = torch.empty(n, nbytes, dtype=torch.uint8, pin_memory=True)
+    src = torch.empty(n, nbytes, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, copy in (("d2h", lambda i: host[i].copy_(src[i], non_blocking=True)),
+                       ("h2d", lambda i: src[i].copy_(host[i], non_blocking=True))):
+        copy(0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            copy(i)
+        end.record()
+        end.synchronize()
+        out[f"plain_{name}_gb_per_s"] = n * nbytes / (start.elapsed_time(end) * 1e-3) / 1e9
+    return out
+
+
+def record_journal(directory):
+    """A journal as ``DS_TPU_JOURNAL=1`` with ``DS_TPU_JOURNAL_DIR=directory`` makes it (the process's
+    journal is resolved again from the knobs)."""
+    from deepspeed_tpu_torch.telemetry import journal as jmod
+
+    with env_set({"DS_TPU_JOURNAL": 1, "DS_TPU_JOURNAL_DIR": directory}):
+        jmod._JOURNAL, jmod._RESOLVED = None, False
+        return jmod.get_journal()
+
+
+def timed_pass(torch, engine, wave, reg, evict=False) -> dict:
+    """One pass of ``wave`` (``evict``: every cached block evicted first, untimed): wall time, tokens/s, the
+    deltas of ``SPILL_COUNTERS`` and of the engine's step and graph counters, the cache's state after, and
+    the tokens."""
+    pc = engine.state.prefix_cache
+    if evict:
+        pc.evict(engine.state.total_blocks)
+        torch.cuda.synchronize()
+    before = [reg.peek(n) or 0.0 for n in SPILL_COUNTERS]
+    g0 = graph_counts(engine)
+    t0 = time.perf_counter()
+    got = engine.generate(wave, max_new_tokens=SPILL_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = dict(zip(SPILL_COUNTERS, ((reg.peek(n) or 0.0) - b for n, b in zip(SPILL_COUNTERS, before))))
+    return dict(wall_s=wall, tokens_per_s=len(got) * SPILL_NEW / wall, **delta, **counts_since(engine, g0),
+                spilled_blocks=pc.spilled_blocks, cached_blocks=pc.cached_blocks,
+                free_blocks=engine.state.free_blocks, tokens=got)
+
+
+def timed_evict(torch, engine, block_bytes) -> dict:
+    """A forced evict of every cached block on a spill engine: the blocks spilled, the seconds to issue their
+    snapshots and copies and to wait for the landings (``SpillManager.wait_all``), and the spill path's d2h
+    GB/s over the whole evict."""
+    mgr = engine._spill_mgr
+    inner, waits = mgr.wait_all, []
+
+    def timed_wait(timeout=60.0):
+        t = time.perf_counter()
+        inner(timeout)
+        waits.append(time.perf_counter() - t)
+
+    mgr.wait_all = timed_wait
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = engine.state.prefix_cache.evict(engine.state.total_blocks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del mgr.wait_all
+    return dict(blocks=n, seconds=seconds, wait_seconds=sum(waits), issue_seconds=seconds - sum(waits),
+                d2h_gb_per_s=n * block_bytes / seconds / 1e9)
+
+
+def phase_serve_spill(torch, dev, counters, run, params=None, journal_dir=None):
+    """The host spill tier at full width (``SPILL_RUNS[run]``, bf16, random weights from seed 0, or
+    ``params``): wave A, wave B, wave A again on three engines built in turn: ``spill`` (a pool that wave B
+    fills, the host tier on: A's cached prefixes spill through the allocator's eviction hook and the watermark,
+    and the third pass re-admits them), ``no_spill`` (the same pool, the tier off: the third pass prefills them
+    again) and ``big_pool`` (A's prefixes stay in HBM). On each the counters are zeroed before the first pass
+    and read after the third, and a fourth pass of wave A runs warm (its graphs captured by the third): after a
+    forced evict on ``spill`` (the chains re-admitted) and ``no_spill`` (prefilled again), straight on
+    ``big_pool`` (in HBM). On ``spill`` every block the third pass re-admits is held to its pages before wave B
+    (``torch.equal``, every pool leaf); the third and fourth passes must prefill only the suffixes and re-admit
+    every block of the four chains; the third pass's tokens must equal ``big_pool``'s; the fourth pass must take
+    no new graph capture and give the third's tokens. The forced evict is timed (d2h GB/s of the spill path,
+    issue and wait apart), again after the fourth pass, then a fifth pass times each re-admission's h2d,
+    beside a plain pinned ``copy_`` of the same bytes. With ``journal_dir`` the third pass of ``spill`` is
+    recorded there. On ``big_pool`` the warm wave A is served in turns with telemetry on and off (on, off,
+    off, on)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.models import init_params
+
+    spec = SPILL_RUNS[run]
+    cfg = gpt2_cfg() if run.startswith("gpt2") else model_cfg()
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    wave_a, wave_b = spill_waves(np, cfg.vocab_size, spec["prefix"])
+    reg = telemetry.get_registry()
+    chain_blocks = 4 * spec["prefix"] // 128
+    block_bytes = spill_block_bytes(cfg, bool(spec["quant"]))
+    out = dict(phase="serve_spill", run=run, layers=cfg.n_layers, d_model=cfg.d_model, block_bytes=block_bytes,
+               chain_blocks=chain_blocks, prefix=spec["prefix"], suffix=SPILL_SUFFIX, new_tokens=SPILL_NEW)
+    tokens = {}
+    for label, blocks, spill in (("spill", spec["blocks"], True), ("no_spill", spec["blocks"], False),
+                                 ("big_pool", spec["big"], False)):
+        engine = spill_engine(dev, cfg, params, run, blocks, spill)
+        pc = engine.state.prefix_cache
+        engine.generate([wave_a[0][:32]], max_new_tokens=4)  # warm-up: cuBLAS handles, allocator (not counted)
+        engine.state.reset_prefix_cache()
+        torch.cuda.synchronize()
+        snapshots, readmitted = {}, []
+        if spill:
+            inner = pc._readmit
+
+            def readmit_spy(node):  # keep a copy of each re-admitted block's pages (compared after the pass)
+                ok = inner(node)
+                if ok:
+                    readmitted.append((node, [t.clone() for t in engine._gather_block(node.block)]))
+                return ok
+
+            pc._readmit = readmit_spy
+        for fn in counters:
+            fn.launches = 0
+        passes = {}
+        for name, wave in (("a1", wave_a), ("b", wave_b), ("a3", wave_a)):
+            if name == "b" and spill:
+                snapshots = {n: [t.clone() for t in engine._gather_block(n.block)] for n in pc._iter_nodes()
+                             if n.block >= 0}
+            journal = record_journal(journal_dir) if name == "a3" and spill and journal_dir else None
+            passes[name] = timed_pass(torch, engine, wave, reg)
+            if journal is not None:
+                journal.close()
+                telemetry.set_journal(None)
+                out["journal_path"] = journal.path
+            tokens[(label, name)] = got = passes[name].pop("tokens")
+            if not all(len(o) == SPILL_NEW and all(0 <= t < cfg.vocab_size for t in o) for o in got):
+                raise AssertionError(f"serve_spill {run} {label} {name}: a request did not get {SPILL_NEW} "
+                                     "in-vocab tokens")
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rec = dict(phase="serve_spill", run=run, engine=label, kv_blocks=blocks, kv_spill=spill, passes=passes,
+                   launches=launches,
+                   tokens_per_s=3 * 16 * SPILL_NEW / sum(p["wall_s"] for p in passes.values()))
+        if any(n <= 0 for n in launches.values()):
+            raise AssertionError(f"serve_spill {run} {label}: kernels never launched: {launches}")
+        if spill:
+            pc._readmit = inner
+            a3 = passes["a3"]
+            pages_equal = [all(torch.equal(g, w) for g, w in zip(got, snapshots[node])) for node, got in readmitted]
+            rec.update(readmitted_checked=len(pages_equal), readmitted_pages_equal=all(pages_equal),
+                       spilled_during_b=passes["b"]["kv_spill_blocks_total"],
+                       spilled_bytes=int(sum(p["kv_spill_blocks_total"] for p in passes.values()) * block_bytes),
+                       readmitted_bytes=int(a3["kv_readmit_total"] * block_bytes))
+            if a3["infer_prefill_tokens_total"] != 16 * SPILL_SUFFIX or a3["kv_readmit_total"] < chain_blocks:
+                raise AssertionError(f"serve_spill {run}: the third pass prefilled {a3['infer_prefill_tokens_total']} "
+                                     f"tokens (want the {16 * SPILL_SUFFIX} of the suffixes) and re-admitted "
+                                     f"{a3['kv_readmit_total']} blocks (want >= {chain_blocks})")
+            if len(pages_equal) < chain_blocks or not all(pages_equal) or any(n not in snapshots
+                                                                                  for n, _ in readmitted):
+                raise AssertionError(f"serve_spill {run}: {len(pages_equal)} re-admitted blocks checked, "
+                                     f"{pages_equal.count(False)} differ from their pages before the spill")
+            readmitted.clear()
+            snapshots.clear()
+            # a forced evict (every cached block spills), timed twice: right after the third pass, and again
+            # after the fourth pass re-admitted the chains (the caching allocator then holds the snapshots'
+            # memory); then a fifth pass whose re-admissions are timed one by one (h2d), each between syncs
+            rec["evict_cold"] = timed_evict(torch, engine, block_bytes)
+        # the warm fourth pass: the chains re-admitted (spill), prefilled again (no_spill) or in HBM (big_pool)
+        passes["a4"] = timed_pass(torch, engine, wave_a, reg, evict=label == "no_spill")
+        tokens[(label, "a4")] = passes["a4"].pop("tokens")
+        if spill:
+            a4 = passes["a4"]
+            if a4["captures"] != 0 or tokens[(label, "a4")] != tokens[(label, "a3")] or a4["kv_readmit_total"] < \
+                    chain_blocks or a4["infer_prefill_tokens_total"] != 16 * SPILL_SUFFIX:
+                raise AssertionError(f"serve_spill {run}: the fourth pass took {a4['captures']} new captures, "
+                                     f"re-admitted {a4['kv_readmit_total']} blocks, prefilled "
+                                     f"{a4['infer_prefill_tokens_total']} tokens, tokens equal to the third "
+                                     f"pass's: {tokens[(label, 'a4')] == tokens[(label, 'a3')]}")
+            rec["evict_warm"] = timed_evict(torch, engine, block_bytes)
+            scatter, h2d = pc._scatter, []
+
+            def timed_scatter(block, leaves):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                scatter(block, leaves)
+                torch.cuda.synchronize()
+                h2d.append(time.perf_counter() - t)
+
+            pc._scatter = timed_scatter
+            a5 = engine.generate(wave_a, max_new_tokens=SPILL_NEW)
+            pc._scatter = scatter
+            rec.update(readmits_timed=len(h2d), readmit_h2d_gb_per_s=len(h2d) * block_bytes / sum(h2d) / 1e9,
+                       **pinned_copy_gbps(torch, dev, block_bytes, rec["evict_cold"]["blocks"]))
+            if a5 != tokens[(label, "a3")] or not h2d:
+                raise AssertionError(f"serve_spill {run}: the fifth pass re-admitted {len(h2d)} blocks, tokens "
+                                     f"equal to the third pass's: {a5 == tokens[(label, 'a3')]}")
+        if label == "big_pool":
+            turns = []
+            for on in (True, False, False, True):  # telemetry on and off, in turns, on the warm engine
+                engine.state.reset_prefix_cache()
+                telemetry.set_enabled(on)
+                t0 = time.perf_counter()
+                engine.generate(wave_a, max_new_tokens=SPILL_NEW)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                turns.append(dict(telemetry=on, wall_s=wall, tokens_per_s=16 * SPILL_NEW / wall))
+            telemetry.set_enabled(True)
+            rec["telemetry_turns"] = turns
+        log(rec)
+        out[label] = {k: v for k, v in rec.items() if k not in ("phase", "run", "engine")}
+        del engine
+        free_engine(torch)
+    out["third_pass_equal_big_pool"] = tokens[("spill", "a3")] == tokens[("big_pool", "a3")]
+    out["third_pass_wall_s"] = {k: out[k]["passes"]["a3"]["wall_s"] for k in ("spill", "no_spill", "big_pool")}
+    # the warm fourth pass (every graph captured): the chains re-admitted, re-prefilled, or in HBM
+    out["fourth_pass_wall_s"] = {k: out[k]["passes"]["a4"]["wall_s"] for k in ("spill", "no_spill", "big_pool")}
+    out["no_spill_agreement"] = agreement(tokens[("no_spill", "a3")], tokens[("big_pool", "a3")])
+    log(dict(phase="serve_spill summary", run=run, **{k: out[k] for k in (
+        "third_pass_equal_big_pool", "third_pass_wall_s", "fourth_pass_wall_s", "no_spill_agreement")}))
+    if not out["third_pass_equal_big_pool"]:
+        raise AssertionError(f"serve_spill {run}: the third pass's tokens with spill differ from the big pool's: "
+                             f"{agreement(tokens[('spill', 'a3')], tokens[('big_pool', 'a3')])}")
+    out["params"], out["cfg"], out["waves"] = params, cfg, (wave_a, wave_b)
+    return out
+
+
+def phase_journal(torch, dev, counters, serve):
+    """The serving journal on llama3_8b (``serve``: the serve_spill record, its weights and waves): the journal
+    its spill engine's third pass recorded (``DS_TPU_JOURNAL``), read back with ``read_journal``, replayed by
+    ``replay_oracle`` on a fresh engine rebuilt from the journal over the same weights, after it served the
+    same first two waves unrecorded; one ``sla.run_load`` row (``JOURNAL_SLA``, every arrival at t = 0)
+    recorded on a fresh engine and replayed on another; both must give ``ok`` and every request's digest;
+    then ``determinism_audit`` of the serve (wave A on two fresh engines) must be clean. The counters are
+    zeroed before the replays and read after."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2 import sla
+    from deepspeed_tpu_torch.inference.v2.replay import build_engine_from_session, determinism_audit, replay_oracle
+
+    cfg, params, (wave_a, wave_b) = serve["cfg"], serve["params"], serve["waves"]
+    run = serve["run"]
+    directory = os.path.dirname(serve["journal_path"])
+    sessions = telemetry.read_journal(serve["journal_path"])
+    session = sessions[-1]
+    if session.kind != "generate" or len(session.requests) != len(wave_a):
+        raise AssertionError(f"journal: read {len(sessions)} sessions, the last of kind {session.kind} with "
+                             f"{len(session.requests)} requests")
+
+    def fresh(sess):
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = SPILL_RUNS[run]
+        host_mb = -(-spec["host_blocks"] * spill_block_bytes(cfg, bool(spec["quant"])) // 2**20)
+        with env_set({"DS_TPU_KV_HOST_POOL_MB": host_mb, "DS_TPU_PROGRAM_CACHE": SPILL_PROGRAM_CACHE}):
+            return build_engine_from_session(sess, model=cfg, params=params, device=dev)
+
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine = fresh(session)
+    engine.generate(wave_a, max_new_tokens=SPILL_NEW)  # the recorded pass's starting state, unrecorded
+    engine.generate(wave_b, max_new_tokens=SPILL_NEW)
+    generate, replayed = engine.generate, []
+    engine.generate = lambda *a, **k: replayed.append(generate(*a, **k)) or replayed[-1]
+    report = replay_oracle(session, engine=engine)
+    # the recorded pass ran deferred (no EOS, no streaming): each request's digest folds its whole stream once
+    digests = {u: telemetry.roll_digest("", toks) for u, toks in zip(sorted(session.requests), replayed[0])}
+    del engine.generate
+    del engine
+    free_engine(torch)
+    serve_rec = dict(kind="generate", ok=report.ok, requests=report.n_requests, tokens=report.n_tokens,
+                     digests_equal=digests == session.digests(), seconds=time.perf_counter() - t0,
+                     divergences=[dataclasses.asdict(d) for d in report.divergences[:3]],
+                     programs_recorded=len(session.header.get("programs", [])))
+
+    t0 = time.perf_counter()
+    path = os.path.join(directory, "sla.jsonl")
+    journal = telemetry.Journal(path)
+    load = sla.LoadSpec(vocab_size=cfg.vocab_size, **JOURNAL_SLA)
+    engine = fresh(session)
+    with telemetry.journal_override(journal):
+        stats = sla.run_load(engine, load)
+    journal.close()
+    del engine
+    free_engine(torch)
+    sla_session = telemetry.read_journal(path)[-1]
+    engine = fresh(sla_session)
+    sla_report = replay_oracle(sla_session, engine=engine)
+    del engine
+    free_engine(torch)
+    sla_rec = dict(kind="sla", ok=sla_report.ok, requests=sla_report.n_requests, tokens=sla_report.n_tokens,
+                   digests=len(sla_session.digests()), summary=sla.summarize(stats), seconds=time.perf_counter() - t0,
+                   divergences=[dataclasses.asdict(d) for d in sla_report.divergences[:3]])
+    launches = {fn.__name__: fn.launches for fn in counters}
+
+    t0 = time.perf_counter()
+    audit = determinism_audit(lambda: fresh(session), drive=lambda e: e.generate(wave_a, max_new_tokens=SPILL_NEW))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(phase="journal", run=run, journal=serve["journal_path"], sessions=len(sessions), serve=serve_rec,
+               sla=sla_rec, launches=launches, audit=dict(audit, seconds=time.perf_counter() - t0))
+    log(rec)
+    if not (serve_rec["ok"] and serve_rec["digests_equal"] and sla_rec["ok"] and audit["deterministic"]):
+        raise AssertionError(f"journal: replay ok {serve_rec['ok']} (digests {serve_rec['digests_equal']}), sla "
+                             f"replay ok {sla_rec['ok']}, determinism audit {audit}")
+    if any(n <= 0 for n in launches.values()) or sla_rec["tokens"] != JOURNAL_SLA["n_requests"] * JOURNAL_SLA[
+            "max_new_tokens"]:
+        raise AssertionError(f"journal: launches {launches}, {sla_rec['tokens']} SLA tokens replayed")
+    return rec
+
+
 # ---------------------------------------------------------------- speculative decoding
 # serve_spec at the JAX bench's chip sizes (bench.py, run_serve_spec): 32 prompts, each a seeded 16-token motif
 # repeated 8 times, 128 new tokens, K = 4, bursts off; the KV pool as the bench sizes it
@@ -3310,6 +3710,26 @@ def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces)
             **({"parent_ms": r["parent_ms"]} if r.get("parent_ms") is not None else {})}
 
 
+def run_spill_phases(torch, dev, counters, quant_counters) -> None:
+    """serve_spill (llama3_8b, its third pass journaled into a temporary directory), journal, and
+    serve_spill_kv8 (gpt2_1_3b W8 + KV8), each with its seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as journal_dir:
+        spill = phase_serve_spill(torch, dev, counters, "llama3_8b", journal_dir=journal_dir)
+        log(dict(phase="serve_spill", seconds=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        phase_journal(torch, dev, counters, spill)
+        log(dict(phase="journal", seconds=time.perf_counter() - t0))
+    del spill  # its weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_serve_spill(torch, dev, quant_counters, "gpt2_1_3b_w8_kv8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(dict(phase="serve_spill_kv8", seconds=time.perf_counter() - t0))
+
+
 def main(argv) -> int:
     quick = "--quick" in argv  # build + one case per kernel, then stop
     profile = "--profile" in argv  # add torch.profiler passes over the serving waves and a training step
@@ -3354,6 +3774,8 @@ def main(argv) -> int:
         PARENT["lib"] = load_parent(os.path.abspath(parent_dir))
         log(dict(phase="parent build", dir=parent_dir, seconds=time.perf_counter() - t0))
 
+    paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
+    counters = paged + [norms.rms_norm]
     records = run_kernel_phases(torch, dev, quick)
     quant_records = run_quant_kernel_phases(torch, dev, quick)
     records += run_train_kernel_phases(torch, dev, quick)
@@ -3378,8 +3800,6 @@ def main(argv) -> int:
             phase_step_parity(torch, dev, dtype, model)
     for dtype in (torch.float32, torch.bfloat16):
         phase_step_parity(torch, dev, dtype, "mixtral_8x7b", n_layers=2)
-    paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
-    counters = paged + [norms.rms_norm]
     serve = phase_serve(torch, dev, counters, "llama3_8b", profile, keep_params=True)
     t0 = time.perf_counter()
     phase_serve_spec(torch, dev, counters, serve.pop("params"))
@@ -3392,6 +3812,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_sla(torch, dev, counters)
     log(dict(phase="sla", seconds=time.perf_counter() - t0))
+    run_spill_phases(torch, dev, counters, paged + [norms.layer_norm, qm.quantized_matmul])
     t0 = time.perf_counter()
     phase_serve(torch, dev, paged + [norms.layer_norm], "bloom_7b1_alibi_4l")
     phase_serve(torch, dev, counters, "mistral_7b_swa_4l")

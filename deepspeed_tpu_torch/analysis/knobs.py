@@ -42,6 +42,14 @@ def _lookup(name: str) -> Knob:
                        "deepspeed_tpu_torch.analysis.knobs") from None
 
 
+def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    knob = _lookup(name)
+    raw = os.environ.get(name)
+    if raw is not None:
+        return raw
+    return default if default is not None else knob.default
+
+
 def get_int(name: str, default: Optional[int] = None) -> int:
     knob = _lookup(name)
     raw = os.environ.get(name)
@@ -50,6 +58,16 @@ def get_int(name: str, default: Optional[int] = None) -> int:
             return default
         return int(knob.default or 0)
     return int(raw)
+
+
+def get_float(name: str, default: Optional[float] = None) -> float:
+    knob = _lookup(name)
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        if default is not None:
+            return default
+        return float(knob.default or 0.0)
+    return float(raw)
 
 
 _TRUTHY = ("1", "true", "yes", "on")
@@ -63,6 +81,12 @@ def get_bool(name: str, default: Optional[bool] = None) -> bool:
             return default
         raw = knob.default or "0"
     return raw.strip().lower() in _TRUTHY
+
+
+def is_set(name: str) -> bool:
+    """True when the knob is set in the environment."""
+    _lookup(name)
+    return name in os.environ
 
 
 # Serving engine (inference/v2/engine_v2.py)
@@ -104,6 +128,42 @@ declare("DS_TPU_KV_QUANT", "0", "int",
         "per-head scales (fused dequant in the paged-attention kernels); 0 keeps "
         "the engine dtype.",
         "inference/v2/engine_v2.py")
+declare("DS_TPU_KV_SPILL", "0", "bool",
+        "Spill prefix-cache evictions to a host-RAM pool (async d2h) and re-admit "
+        "matched prefixes via h2d DMA instead of re-prefilling.",
+        "inference/v2/engine_v2.py")
+declare("DS_TPU_KV_HOST_POOL_MB", "256", "int",
+        "Capacity of the host-RAM KV spill pool in MiB (block count derives from "
+        "the per-block byte size of the device pools).",
+        "inference/v2/ragged/host_tier.py")
+declare("DS_TPU_KV_SPILL_WATERMARK", "0.1", "float",
+        "Free-block fraction below which the serving loop pre-spills LRU cached "
+        "blocks to the host tier between dispatches.",
+        "inference/v2/ragged/prefix_cache.py")
+# Runtime sanitizers (analysis/)
+declare("DS_TPU_KV_SANITIZE", "0", "bool",
+        "Shadow-refcount sanitizer for paged KV blocks: traps double-free, "
+        "leak-at-flush, and writes to shared blocks that skipped COW.",
+        "analysis/kv_sanitizer.py")
+# Telemetry (telemetry/)
+declare("DS_TPU_TELEMETRY", "1", "bool",
+        "Master switch for the telemetry subsystem (metrics, traces, events).",
+        "telemetry/registry.py")
+declare("DS_TPU_EVENT_RING", "65536", "int",
+        "Capacity of the request-lifecycle event ring buffer.",
+        "telemetry/events.py")
+declare("DS_TPU_EVENT_LOG", None, "str",
+        "If set, append request-lifecycle events as JSONL to this path.",
+        "telemetry/events.py")
+declare("DS_TPU_JOURNAL", "0", "bool",
+        "Record serving sessions to a black-box journal (engine "
+        "fingerprint, arrivals, quantum composition, committed-token "
+        "digests) for deterministic replay via inference/v2/replay.py.",
+        "telemetry/journal.py")
+declare("DS_TPU_JOURNAL_DIR", "journals", "str",
+        "Directory for journal JSONL files (one per process) when "
+        "DS_TPU_JOURNAL is on.",
+        "telemetry/journal.py")
 # Fused cross-entropy (ops/fused_ce.py)
 declare("DS_TPU_CE_CHUNK", "0", "int",
         "Fused cross-entropy vocab-chunk size (0 = derive from budget).",

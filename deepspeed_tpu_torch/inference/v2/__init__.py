@@ -4,7 +4,9 @@ Port of ``deepspeed_tpu/inference/v2``: ``InferenceEngineV2`` (the fused
 SplitFuse loop and the unfused loop, ``put``) over the paged-KV bookkeeping
 of ``ragged/`` and the ``RaggedBatchScheduler``; speculative decoding's
 drafters and on-device acceptance (``spec``); one captured CUDA graph per
-step key on the card (``graphs``); the SLA load harness (``sla``).
+step key on the card (``graphs``); the SLA load harness (``sla``); the host
+spill tier behind the prefix cache (``ragged/host_tier``); the replay harness
+for recorded serving journals (``replay``).
 """
 
 from .ragged import BlockedAllocator, DSSequenceDescriptor, DSStateManager, PrefixCache, RaggedBatchConfig

@@ -43,10 +43,25 @@ Port of ``deepspeed_tpu/inference/v2/engine_v2.py``, both serving loops:
   host (no deferred mode). ``spec_proposed``, ``spec_accepted``,
   ``decode_steps`` and ``decode_tokens`` count on the engine (verify steps
   count as decode steps).
+- The host spill tier (``kv_spill=True`` or ``DS_TPU_KV_SPILL=1``, with the
+  prefix cache on): the prefix cache demotes LRU evictions to a host pool of
+  ``DS_TPU_KV_HOST_POOL_MB`` (``ragged/host_tier.py``; page-locked on the
+  card, d2h on a stream of its own) and re-admits radix matches with an h2d
+  copy instead of a prefill. The block snapshot (``_gather_block``) and the
+  re-admission (``_readmit_block``) are plain copies on the stream the steps
+  run on, between steps, as the reference does them in XLA; the serving loops
+  pre-spill between steps (``DSStateManager.spill_tick``).
+- Telemetry: the ``infer_*``, ``kv_*``, ``spec_*`` and ``sched_*`` metrics
+  and the request-lifecycle events of the reference, under its names, from
+  host numbers the loop already has (nothing reads the device for them).
+  ``DS_TPU_KV_SANITIZE=1`` checks every step's block table and writes
+  (``DSStateManager.sanitize_write``). With a journal installed
+  (``DS_TPU_JOURNAL=1`` or ``telemetry.set_journal``) ``generate`` records
+  its session (``_journal_fingerprint``, requests, quanta, commits,
+  ``_journal_run_summary``) for ``replay.py``.
 
 The engine runs on ``config.device`` (default ``"cuda"``, which raises
-without a GPU). Telemetry, journal, tensor parallelism and the host spill
-tier come with later slices.
+without a GPU). Tensor parallelism comes with a later slice.
 """
 
 import dataclasses
@@ -60,6 +75,8 @@ from ...analysis import knobs
 from ...device import resolve_device
 from ...models.transformer import TransformerConfig
 from ...ops.paged_attention import make_kv_pool
+from ...telemetry import get_event_log, get_journal, get_registry as get_telemetry_registry
+from ...telemetry.journal import resolved_knobs
 from ..generation import sample_logits
 from ..quantization import QuantizedParam, quantize_for_serving
 from .graphs import StepGraphs
@@ -97,6 +114,8 @@ class RaggedInferenceEngineConfig:
     quant_group_size: int = 128
     quant_min_size: int = 4096  # leave smaller weights dense
     kv_quant_bits: Optional[int] = None  # 8 = int8 K/V pages + per-slot-per-head scales; None: DS_TPU_KV_QUANT
+    kv_spill: Optional[bool] = None  # spill prefix-cache evictions to host RAM and re-admit matches with an h2d
+    # copy. None: off unless DS_TPU_KV_SPILL=1
 
     @classmethod
     def from_dict(cls, d: Dict) -> "RaggedInferenceEngineConfig":
@@ -164,6 +183,10 @@ class InferenceEngineV2:
         if kvq not in (0, 8):
             raise ValueError(f"kv_quant_bits must be 0 or 8, got {kvq}")
         self._kv_quant_bits = int(kvq)
+        kv_spill = config.kv_spill
+        if kv_spill is None:
+            kv_spill = knobs.get_bool("DS_TPU_KV_SPILL")
+        self._kv_spill = bool(kv_spill)
         n_blocks = smc.num_kv_blocks
         if n_blocks is None:
             # int8 pages: one byte per element plus a 4-byte fp32 scale per
@@ -179,15 +202,51 @@ class InferenceEngineV2:
                                               max_sequences=smc.max_ragged_sequence_count,
                                               prefill_chunk=knobs.get_int("DS_TPU_PREFILL_CHUNK"))
 
+        tele = get_telemetry_registry()
+        self._m_requests = tele.counter("infer_requests_total")
+        self._m_prefill_tokens = tele.counter("infer_prefill_tokens_total")
+        self._m_decode_tokens = tele.counter("infer_decode_tokens_total")
+        self._m_decode_steps = tele.counter("infer_decode_steps_total")
+        self._m_bursts = tele.counter("infer_decode_bursts_total")
+        self._m_decode_fill = tele.gauge("infer_decode_batch_fill")
+        self._m_prefill_fill = tele.gauge("infer_prefill_batch_fill")
+        self._m_dispatches = tele.counter("infer_dispatches_total")
+        self._m_fused_quanta = tele.counter("infer_fused_quanta_total")
+        self._m_fused_fill = tele.gauge("infer_fused_batch_fill")
+        self._m_spec_proposed = tele.counter("spec_tokens_proposed_total")
+        self._m_spec_accepted = tele.counter("spec_tokens_accepted_total")
+        self._m_spec_rate = tele.gauge("spec_acceptance_rate")
+        self._m_cow_bytes = tele.counter("kv_cow_bytes_total")
+        self._events = get_event_log()
+
         # garbage page for padded-token KV writes (allocator's first pop is 0)
         self._garbage_block = self.state._allocator.allocate(1)[0]
         assert self._garbage_block == 0
+        self.state.register_sanitizer_root(self._garbage_block)
 
         L, bs = cfg.n_layers, smc.kv_block_size
         pool_shape = (L, n_blocks, bs, cfg.kv_heads, cfg.head_dim)
         self.k_pages = make_kv_pool(pool_shape, self.dtype, self.device, self._kv_quant_bits)
         self.v_pages = make_kv_pool(pool_shape, self.dtype, self.device, self._kv_quant_bits)
         self._max_blocks_per_seq = -(-smc.max_context // bs)
+        # K+V bytes one block holds across every layer (codes + scales for an int8 pool): the unit of COW
+        # copy traffic and of host-tier slot sizing
+        self._block_bytes = sum(t.numel() * t.element_size() for t in self._pool_leaves()) // n_blocks
+        # host spill tier: the prefix cache demotes LRU evictions to a host pool with a d2h copy and
+        # re-admits radix matches with an h2d copy
+        self._spill_mgr = None
+        if self._kv_spill and self.state.prefix_cache is not None:
+            from .ragged.host_tier import HostKVPool, SpillManager
+
+            leaves = self._pool_leaves()
+            host_pool = HostKVPool(
+                max(1, (knobs.get_int("DS_TPU_KV_HOST_POOL_MB") << 20) // max(1, self._block_bytes)),
+                [t.shape[:1] + t.shape[2:] for t in leaves],  # drop the block axis
+                [t.dtype for t in leaves], pin=self.device.type == "cuda")
+            self._spill_mgr = SpillManager(host_pool, self._gather_block, self.device)
+            self.state.prefix_cache.attach_spill_tier(
+                self._spill_mgr, self._readmit_block,
+                watermark_blocks=int(knobs.get_float("DS_TPU_KV_SPILL_WATERMARK") * n_blocks))
 
         def place(tree):
             if isinstance(tree, dict):
@@ -312,12 +371,35 @@ class InferenceEngineV2:
         int8 pool copies the block's scale plane with its codes, so the copy
         dequantises to the same values."""
         idx = torch.tensor([dst], dtype=torch.long, device=self.device)
-        for pool in (self.k_pages, self.v_pages):
-            for t in (pool if isinstance(pool, tuple) else (pool,)):
-                t.index_copy_(1, idx, t[:, src:src + 1].clone())
+        for t in self._pool_leaves():
+            t.index_copy_(1, idx, t[:, src:src + 1].clone())
+        self._m_cow_bytes.inc(self._block_bytes)
 
     def _cow_ready(self, seq, start_pos: int) -> None:
         self.state.ensure_writable(seq, start_pos, self._copy_block)
+
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        """The K/V pool tensors in the reference's leaf order: K then V, each
+        one plain tensor or int8 codes then fp32 scales."""
+        return [t for pool in (self.k_pages, self.v_pages) for t in (pool if isinstance(pool, tuple) else (pool,))]
+
+    # ----------------------------------------------------- host spill tier
+    def _gather_block(self, block: int) -> List[torch.Tensor]:
+        """Snapshot of one block's pages across every pool leaf: one
+        contiguous ``(L, 1, ...)`` copy a leaf, on the stream the steps run
+        on, so a later step's in-place write to the pools cannot race the
+        d2h that reads it (the reference's gather, ``engine_v2.py:582``)."""
+        return [t[:, block:block + 1].clone() for t in self._pool_leaves()]
+
+    def _readmit_block(self, block: int, host_leaves: Sequence[torch.Tensor]) -> None:
+        """Re-admission h2d: copy one host-tier block's leaves back into the
+        device pools at ``block`` (the reference's scatter,
+        ``engine_v2.py:597``), on the stream the steps run on. The prefix
+        cache frees the host slot right after; the slot's next write is
+        ordered after this copy (``HostKVPool.free_slot``)."""
+        cuda = self.device.type == "cuda"
+        for t, h in zip(self._pool_leaves(), host_leaves):
+            t[:, block].copy_(h.to(self.device, non_blocking=cuda))
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """int32 host arrays -> device tensors of the same shapes, in one copy."""
@@ -341,6 +423,7 @@ class InferenceEngineV2:
         time); a CPU engine, or one with ``_eager_steps`` set, calls ``step``.
         ``sampled``: the step draws from the engine's generator."""
         self.dispatches += 1
+        self._m_dispatches.inc()
         if self._eager_steps:
             inputs = self._to_device(*arrays)
             if head is not None:
@@ -397,6 +480,7 @@ class InferenceEngineV2:
             seq = self.state.get_or_create_sequence(uid)
             self._cow_ready(seq, seq.seen_tokens)
             self.state.allocate_for(seq, len(tokens))
+            self.state.sanitize_write(seq, seq.seen_tokens, len(tokens))
             seq.record_tokens(tokens)
             seq.pre_forward(len(tokens))
             start, m = seq.seen_tokens, len(tokens)
@@ -415,6 +499,8 @@ class InferenceEngineV2:
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
 
         logits = self._dispatch(("prefill", B, S), step, [ids, positions, bt, ctx, slots.reshape(-1), last])
+        self._m_prefill_tokens.inc(sum(len(t) for t in token_lists))
+        self._m_prefill_fill.set(n / B)
         for seq in seqs:
             seq.post_forward()
         if defer:
@@ -444,6 +530,7 @@ class InferenceEngineV2:
             seq = self.state.get_sequence(uid)
             self._cow_ready(seq, seq.seen_tokens)
             self.state.allocate_for(seq, steps)
+            self.state.sanitize_write(seq, seq.seen_tokens, steps)
             seq.record_tokens(None)  # decode ids may be device-side: freeze the log
             seq.pre_forward(steps)
             pos0 = seq.seen_tokens
@@ -476,6 +563,13 @@ class InferenceEngineV2:
         logits = self._dispatch(("decode", len(ctx)), step, [ids, positions, bt, ctx, slots[0], last], head=ids_dev)
         self.decode_steps += 1
         self.decode_tokens += n
+        self._m_decode_steps.inc()
+        self._m_decode_tokens.inc(n)
+        self._m_decode_fill.set(n / len(ctx))
+        if self._events.enabled:
+            q = self.scheduler.last_quantum_id
+            for uid in uids:
+                self._events.emit("decode", uid, q=q, k=1)
         for seq in seqs:
             seq.post_forward()
         if defer:
@@ -535,6 +629,18 @@ class InferenceEngineV2:
                               head=ids_dev)
         self.decode_steps += steps
         self.decode_tokens += n * steps
+        self._m_bursts.inc()
+        self._m_decode_steps.inc(steps)
+        self._m_decode_tokens.inc(n * steps)
+        self._m_decode_fill.set(n / len(ctx))
+        # out-of-band burst: claims its own quantum id (no schedule call)
+        q = self.scheduler.next_quantum()
+        if self._events.enabled:
+            for uid in uids:
+                self._events.emit("decode", uid, q=q, k=steps)
+        journal = get_journal()
+        if journal is not None and journal.active:
+            journal.record_quantum(q, uids, [], steps=steps)
         for seq in seqs:
             seq.post_forward()
         return toks[:n] if defer else toks[:n].cpu().numpy()
@@ -619,6 +725,7 @@ class InferenceEngineV2:
             seq = self.state.get_sequence(uid)
             self._cow_ready(seq, seq.seen_tokens)
             self.state.allocate_for(seq, steps)
+            self.state.sanitize_write(seq, seq.seen_tokens, steps)
             seq.record_tokens(None)  # decode ids may be device-side: freeze the log
             seq.pre_forward(steps)
             pos0 = seq.seen_tokens
@@ -640,6 +747,7 @@ class InferenceEngineV2:
             m = len(pf.tokens)
             self._cow_ready(seq, seq.seen_tokens)
             self.state.allocate_for(seq, m)
+            self.state.sanitize_write(seq, seq.seen_tokens, m)
             seq.record_tokens(pf.tokens)
             seq.pre_forward(m)
             start = seq.seen_tokens
@@ -667,9 +775,20 @@ class InferenceEngineV2:
                               [ids, positions, bt, ctx, slots0, last, adv, gslots],
                               sampled=self._sampling is not None, head=head)
         self.fused_quanta += 1
+        self._m_fused_quanta.inc()
+        real = n_dec * steps + sum(len(p.tokens) for p in prefills)
+        self._m_fused_fill.set(real / max(1, D * steps + P * S))
+        if self._events.enabled and dec_uids:
+            q = self.scheduler.last_quantum_id
+            for uid in dec_uids:
+                self._events.emit("decode", uid, q=q, k=steps)
         if n_dec:
             self.decode_steps += steps
             self.decode_tokens += n_dec * steps
+            self._m_decode_steps.inc(steps)
+            self._m_decode_tokens.inc(n_dec * steps)
+        if prefills:
+            self._m_prefill_tokens.inc(sum(len(p.tokens) for p in prefills))
         for seq in seqs:
             seq.post_forward()
 
@@ -722,7 +841,7 @@ class InferenceEngineV2:
         if kmax == 0:
             return None  # nothing to verify: plain decode is cheaper
         chunk = min(K, _next_pow2(kmax)) + 1
-        admitted = self.scheduler.schedule_spec(uids, chunk)
+        admitted, q = self.scheduler.schedule_spec(uids, chunk)
         if not admitted:
             return None
         by_uid = {u: i for i, u in enumerate(uids)}
@@ -743,6 +862,7 @@ class InferenceEngineV2:
             seq = self.state.get_sequence(uid)
             self._cow_ready(seq, seq.seen_tokens)
             self.state.allocate_for(seq, chunk)
+            self.state.sanitize_write(seq, seq.seen_tokens, chunk)
             seq.record_tokens(None)  # the committed tokens are known only after the verify
             seq.pre_forward(chunk)
             pos0 = seq.seen_tokens
@@ -766,6 +886,8 @@ class InferenceEngineV2:
 
         packed = self._dispatch(("spec", B, chunk) + self._sampling_key(), step,
                                 [ids, positions, bt, ctx, slots, n_draft], sampled=self._sampling is not None)
+        self._m_decode_steps.inc()
+        self._m_decode_fill.set(n / B)
         packed = packed[:n].cpu().numpy()  # committed ids and the accepted count: the whole readback
         for seq in seqs:
             seq.post_forward()
@@ -777,10 +899,17 @@ class InferenceEngineV2:
             self.state.rollback_tokens(seqs[j], chunk - acc - 1)
             out[uid] = [int(t) for t in packed[j, :acc + 1]]
             total_acc += acc
+            self._events.emit("decode", uid, q=q, k=acc + 1, accepted=acc, proposed=int(n_draft[j]))
+        total_prop = int(n_draft[:n].sum())
         self.decode_steps += 1
         self.decode_tokens += n + total_acc
-        self.spec_proposed += int(n_draft[:n].sum())
+        self.spec_proposed += total_prop
         self.spec_accepted += total_acc
+        self._m_decode_tokens.inc(n + total_acc)
+        self._m_spec_proposed.inc(total_prop)
+        self._m_spec_accepted.inc(total_acc)
+        if self.spec_proposed:
+            self._m_spec_rate.set(self.spec_accepted / self.spec_proposed)
         return out
 
     def _spec_quantum(self, decode_ready: Dict[int, object], prompts, results, reqs, commit) -> bool:
@@ -811,10 +940,86 @@ class InferenceEngineV2:
         was built with ``fused_step=False`` (or ``DS_TPU_SERVE_FUSED=0``)."""
         self._sampling = (True, float(temperature), int(top_k), float(top_p)) if do_sample else None
         self._generator.manual_seed(seed)
+        self._m_requests.inc(len(prompts))
+        if self._events.enabled:
+            for i, p in enumerate(prompts):
+                self._events.emit("enqueue", i, prompt=len(p))
+        journal = get_journal()
+        if journal is not None:
+            journal.begin_session(
+                self._journal_fingerprint(), kind="generate",
+                run={"max_new_tokens": int(max_new_tokens), "eos_token_id": eos_token_id,
+                     "do_sample": bool(do_sample), "temperature": float(temperature),
+                     "top_k": int(top_k), "top_p": float(top_p), "seed": int(seed)})
+            for i, p in enumerate(prompts):
+                journal.record_request(i, list(p), arrival_s=0.0, arrival_q=self.scheduler.last_quantum_id,
+                                       max_new_tokens=int(max_new_tokens))
         try:
-            return self._generate(prompts, max_new_tokens, eos_token_id, on_token)
+            out = self._generate(prompts, max_new_tokens, eos_token_id, on_token)
+            if journal is not None:
+                # deferred mode keeps tokens on the device until the final fetch, so those requests have no
+                # per-commit records: journal each one's full stream now (quantum unknown: -1)
+                for i, toks in enumerate(out):
+                    if not journal.has_commits(i):
+                        journal.record_commit(i, -1, toks)
+            return out
         finally:
+            if journal is not None:
+                journal.end_session(self._journal_run_summary())
             self._sampling = None
+
+    # ---------------------------------------------------------- journal
+    def _program_signatures(self) -> List[str]:
+        """The step-function cache keys at this instant: part of the journal
+        fingerprint (a replay that builds a different step set is suspect
+        before a single token diverges). The port's own keys: the JAX
+        engine's carry its sharding signature, which the port has not."""
+        sigs = ["prefill:tp1", "decode:tp1"]
+        sigs += [f"burst{k}" for k in self._bursts]
+        sigs += [f"fused{k}" for k in self._fused_fns]
+        sigs += [f"spec{k}" for k in self._spec_fns]
+        return sorted(str(s) for s in sigs)
+
+    def _journal_fingerprint(self) -> Dict:
+        """Everything the replay harness needs to rebuild this engine: model
+        config, resolved engine geometry and loop flags, the knob registry as
+        resolved, and the step-function signatures. ``tensor_parallel`` is 1,
+        ``shard_sig`` "tp1" and ``mesh`` "mesh[none]", as the reference
+        writes them for one device."""
+        smc = self._config.state_manager
+        return {
+            "model_cfg": dataclasses.asdict(self.cfg),
+            "engine": {
+                "dtype": self._config.dtype,
+                "fused_step": self._fused_enabled,
+                "spec_decode": self._spec_enabled,
+                "spec_k": self._spec_k,
+                "spec_drafter": self._config.spec_drafter,
+                "decode_burst": self._config.decode_burst,
+                "min_decode_bucket": self._config.min_decode_bucket,
+                "quant_bits": self._config.quant_bits,
+                "kv_quant_bits": self._kv_quant_bits,
+                "kv_spill": self._kv_spill,
+                "enable_prefix_cache": self.state.prefix_cache is not None,
+                "tensor_parallel": 1,
+                "tp_allreduce_bits": 0,
+                "shard_sig": "tp1",
+                "mesh": "mesh[none]",
+                "num_kv_blocks": self._n_kv_blocks,
+                "kv_block_size": smc.kv_block_size,
+                "max_context": smc.max_context,
+                "max_ragged_batch_size": smc.max_ragged_batch_size,
+                "max_ragged_sequence_count": smc.max_ragged_sequence_count,
+            },
+            "knobs": resolved_knobs(),
+            "programs": self._program_signatures(),
+        }
+
+    def _journal_run_summary(self) -> Dict:
+        """Run-level accounting folded into the journal's end record: the
+        baseline side of a what-if comparison."""
+        return {"dispatches": get_telemetry_registry().peek("infer_dispatches_total") or 0.0,
+                "programs": self._program_signatures()}
 
     def _generate(self, prompts, max_new_tokens, eos_token_id, on_token=None) -> List[List[int]]:
         if self._fused_enabled:
@@ -823,6 +1028,10 @@ class InferenceEngineV2:
 
     def _commit_closures(self, reqs, results, pieces, counts, decode_ready, eos_token_id, on_token):
         """(commit, commit_dev): record committed tokens and retire/continue the request."""
+        events = self._events
+        journal = get_journal()
+        if journal is not None and not journal.active:
+            journal = None
 
         def commit(uid: int, toks_out: List[int]) -> None:
             req = reqs[uid]
@@ -832,14 +1041,20 @@ class InferenceEngineV2:
                 return
             if eos_token_id is not None and eos_token_id in toks_out:
                 toks_out = toks_out[:toks_out.index(eos_token_id) + 1]
+            if journal is not None:
+                journal.record_commit(uid, self.scheduler.last_quantum_id, toks_out)
             if on_token is not None:
                 for tok in toks_out:
                     on_token(uid, tok)
+            first = not results[uid]
             results[uid].extend(toks_out)
+            if first:
+                events.emit("first_token", uid)
             done = (len(results[uid]) >= req.max_new_tokens or
                     (eos_token_id is not None and toks_out[-1] == eos_token_id))
             if done:
                 req.done = True
+                events.emit("finish", uid, n_new=len(results[uid]))
                 self.flush([uid])
             else:
                 decode_ready[uid] = toks_out[-1]
@@ -849,9 +1064,13 @@ class InferenceEngineV2:
             req = reqs[uid]
             row = torch.atleast_1d(row)
             pieces[uid].append(row)
+            first = counts[uid] == 0
             counts[uid] += int(row.shape[0])
+            if first:
+                events.emit("first_token", uid)
             if counts[uid] >= req.max_new_tokens:
                 req.done = True
+                events.emit("finish", uid, n_new=counts[uid])
                 self.flush([uid])
             else:
                 decode_ready[uid] = row[-1]
@@ -887,6 +1106,9 @@ class InferenceEngineV2:
                                                    on_token)
 
         while pending or decode_ready:
+            # host-tier pre-spill: start d2h demotions while the pool is under the spill watermark, so they
+            # overlap the next step (this also precedes a speculative quantum)
+            self.state.spill_tick()
             if self._spec_enabled and decode_ready and not pending:
                 if self._spec_quantum(decode_ready, prompts, results, reqs, commit):
                     continue
@@ -935,6 +1157,7 @@ class InferenceEngineV2:
                                                    on_token)
 
         while pending or decode_ready:
+            self.state.spill_tick()  # host-tier pre-spill (see _generate_fused)
             if self._spec_enabled and not pending and decode_ready:
                 if self._spec_quantum(decode_ready, prompts, results, reqs, commit):
                     continue

@@ -6,13 +6,17 @@ chunked prefill, a per-step token budget and decode-priority admission
 of the budget), in the style of FastGen's Dynamic SplitFuse.
 ``schedule_fused`` repackages a step as the ``FusedQuantum`` descriptor
 that the single-dispatch step consumes; ``schedule_spec`` admits the rows
-of a speculative draft -> verify quantum. Events, journal and telemetry
-come with later slices.
+of a speculative draft -> verify quantum. Every quantum takes the next id
+of one monotone clock (``last_quantum_id``; the engine's out-of-band bursts
+claim theirs with ``next_quantum``), emits the ``prefill_chunk`` and
+``quantum`` events, records its composition in an active journal, and moves
+the ``sched_*`` counters and gauges, under the reference's names.
 """
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Tuple
 
+from ...telemetry import get_event_log, get_journal, get_registry as get_telemetry_registry
 from .ragged.manager import DSStateManager
 
 
@@ -75,6 +79,27 @@ class RaggedBatchScheduler:
         self.max_batch_tokens = max_batch_tokens
         self.max_sequences = max_sequences
         self.prefill_chunk = prefill_chunk
+        tele = get_telemetry_registry()
+        self._m_queue_depth = tele.gauge("sched_queue_depth")
+        self._m_step_tokens = tele.gauge("sched_step_tokens")
+        self._m_decodes = tele.counter("sched_decodes_total")
+        self._m_prefill_chunks = tele.counter("sched_prefill_chunks_total")
+        self._m_quantum_rows = tele.gauge("sched_quantum_rows")
+        # real (unpadded) tokens scheduled across all quanta (the steps' buckets add padding on top)
+        self._m_useful = tele.counter("sched_useful_tokens_total")
+        self._events = get_event_log()
+        self._quantum_seq = 0  # monotone id shared by the fused and unfused paths
+
+    @property
+    def last_quantum_id(self) -> int:
+        """Id of the most recently assembled quantum."""
+        return self._quantum_seq
+
+    def next_quantum(self) -> int:
+        """Claim a fresh quantum id (the engine's out-of-band decode bursts
+        bypass ``schedule`` and still need distinct ids)."""
+        self._quantum_seq += 1
+        return self._quantum_seq
 
     def schedule(self, pending_prefills: List[RaggedRequest], decode_uids: List[int]) -> ScheduledStep:
         """Pick the work for one engine step: decodes first (1 token each),
@@ -83,6 +108,7 @@ class RaggedBatchScheduler:
         bs = self._state.block_size
         budget = self.max_batch_tokens
         seqs = 0
+        q = self.next_quantum()
         sched_decodes: List[int] = []
         # plan against free + cache-reclaimable blocks: the allocator's
         # eviction hook reclaims on demand, so cached prefixes never
@@ -125,16 +151,31 @@ class RaggedBatchScheduler:
             final = take == req.remaining_prefill
             prefills.append(ScheduledPrefill(uid=req.uid, tokens=req.tokens[:take], start_pos=seq.seen_tokens,
                                              final=final))
+            self._events.emit("prefill_chunk", req.uid, q=q, tokens=take, start=seq.seen_tokens, final=final)
+
+        self._m_queue_depth.set(len(pending_prefills))
+        self._m_step_tokens.set(self.max_batch_tokens - budget)
+        self._m_decodes.inc(len(sched_decodes))
+        self._m_prefill_chunks.inc(len(prefills))
+        self._m_useful.inc(self.max_batch_tokens - budget)
+        if prefills or sched_decodes:
+            self._events.emit("quantum", q=q, prefills=len(prefills), decodes=len(sched_decodes),
+                              tokens=self.max_batch_tokens - budget)
+            journal = get_journal()
+            if journal is not None and journal.active:
+                journal.record_quantum(q, sched_decodes, [(p.uid, p.start_pos, len(p.tokens), p.final)
+                                                          for p in prefills])
         return ScheduledStep(prefills=prefills, decode_uids=sched_decodes)
 
-    def schedule_spec(self, decode_uids: List[int], tokens_per_row: int) -> List[int]:
+    def schedule_spec(self, decode_uids: List[int], tokens_per_row: int) -> Tuple[List[int], int]:
         """Admit pure-decode rows for a draft -> verify quantum: each row costs
         ``tokens_per_row`` (the carry token and K drafts) of the token budget
         and must fit ``blocks_needed(tokens_per_row)`` plus its copy-on-write
         blocks in the available pool, the back-pressure of ``schedule`` with
         the row's footprint scaled to the verify window. A row whose window
         would pass ``max_context`` or that does not fit stays in the caller's
-        decode set for a later step. Returns the admitted uids."""
+        decode set for a later step. Returns the admitted uids and the
+        claimed quantum id."""
         budget = self.max_batch_tokens
         free = self._state.available_blocks
         admitted: List[int] = []
@@ -152,10 +193,23 @@ class RaggedBatchScheduler:
             free -= need
             budget -= tokens_per_row
             admitted.append(uid)
-        return admitted
+        q = self.next_quantum()
+        self._m_decodes.inc(len(admitted))
+        self._m_step_tokens.set(len(admitted) * tokens_per_row)
+        self._m_quantum_rows.set(len(admitted))
+        self._m_useful.inc(len(admitted) * tokens_per_row)
+        if admitted:
+            self._events.emit("quantum", q=q, prefills=0, decodes=len(admitted),
+                              tokens=len(admitted) * tokens_per_row, spec_k=tokens_per_row - 1)
+            journal = get_journal()
+            if journal is not None and journal.active:
+                journal.record_quantum(q, admitted, [], spec_chunk=tokens_per_row)
+        return admitted, q
 
     def schedule_fused(self, pending_prefills: List[RaggedRequest], decode_uids: List[int]) -> FusedQuantum:
         """One fused quantum: ``schedule``'s admission policy, repackaged as
         the ragged-batch descriptor the single-dispatch step consumes."""
         step = self.schedule(pending_prefills, decode_uids)
-        return FusedQuantum(prefills=step.prefills, decode_uids=step.decode_uids)
+        q = FusedQuantum(prefills=step.prefills, decode_uids=step.decode_uids)
+        self._m_quantum_rows.set(q.n_rows)
+        return q

@@ -8,7 +8,8 @@ first token (TTFT) and mean time per output token after it (TPOT) are
 recorded at host-visible boundaries (after each step's tokens reach the
 host), and a rate sweep yields the table.
 
-- ``run_load`` drives the fused loop (one step per scheduler quantum, pure-
+- ``run_load`` (through ``serve_trace``, the loop the replay harness
+  shares) drives the fused loop (one step per scheduler quantum, pure-
   decode quanta with nothing due extended to bursts) or, on an engine built
   with ``fused_step=False``, the unfused loop (``put``, and bursts when
   nothing is pending or due). A request that arrives during a burst waits it
@@ -19,18 +20,24 @@ host), and a rate sweep yields the table.
 - ``LoadSpec(arrival_rate=float("inf"))`` puts every arrival at t = 0
   (saturation).
 
-The reference's telemetry (TTFT/TPOT histograms, request events, health
-detectors, journal, ops plane, tuned profile) and ``sweep``'s MFU columns are
-not ported; ``TTFT_BUCKETS`` and ``TPOT_BUCKETS`` are kept as the SLA-shaped
-bucket edges those histograms use.
+- Telemetry as in the reference: every arrival emits ``enqueue`` stamped
+  with its scheduled arrival, commits emit ``first_token`` and ``finish``,
+  and TTFT and TPOT go into the ``infer_ttft_seconds`` and
+  ``infer_tpot_seconds`` histograms (SLA-shaped buckets). With a journal
+  installed the run is recorded as a ``sla`` session (the engine's
+  fingerprint, the ``LoadSpec``, each request with its scheduled arrival and
+  the quantum current at admission, each commit, and the summary), which
+  ``replay.py`` re-drives. The reference's health detectors, ops plane,
+  tuned profile and ``sweep``'s MFU columns are not ported.
 """
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...telemetry import get_event_log, get_journal, get_registry as get_telemetry_registry
 from .scheduler import RaggedRequest
 
 # SLA-shaped buckets: the FastGen streaming SLA (TTFT <= 1 s, TPOT <= 250 ms)
@@ -86,33 +93,79 @@ def load_prompts(spec: LoadSpec):
     return arrivals, [shared + rng.integers(0, spec.vocab_size, size=int(n)).tolist() for n in lens]
 
 
-def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List[RequestStat]:
-    """Drive ``engine`` with ``spec``'s arrival process; returns per-request
-    stats. Greedy decoding (the SLA story is scheduling, not sampling)."""
-    arrivals, prompts = load_prompts(spec)
-    stats = {i: RequestStat(uid=i, prompt_len=len(prompts[i]), arrival=float(arrivals[i]))
-             for i in range(spec.n_requests)}
+@dataclasses.dataclass
+class Arrival:
+    """One request of a trace: its prompt and token budget, and when it is
+    due: ``arrival_s`` seconds after the run starts (wall clock), or once
+    the scheduler's quantum clock has reached ``arrival_q`` (logical clock)."""
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int
+    arrival_s: float
+    arrival_q: int = 0
+
+
+def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token_id: Optional[int] = None,
+                record: bool = False) -> Tuple[Dict[int, List[int]], List[RequestStat]]:
+    """Drive ``engine`` through ``trace`` (in admission order) with the
+    serving loop ``run_load`` and the replay harness share: per quantum, a
+    speculative draft -> verify when nothing is pending or due, else one
+    fused step (a burst when only decodes are left and nothing is due), else
+    a decode burst or an unfused ``put``. Greedy decoding.
+
+    ``clock="wall"`` admits a request once its ``arrival_s`` has passed and
+    sleeps to the next one when idle; ``clock="logical"`` admits it once the
+    scheduler's quantum clock passes its ``arrival_q`` and, when idle, admits
+    the next one at once (the clock cannot advance while idle).
+    ``record``: emit the lifecycle events, observe the TTFT / TPOT histograms
+    and write requests and commits to the installed journal.
+
+    Returns (uid -> committed tokens, the requests' stats in trace order)."""
+    if clock not in ("wall", "logical"):
+        raise ValueError(f"clock must be 'wall' or 'logical', got {clock!r}")
+    stats = {a.uid: RequestStat(uid=a.uid, prompt_len=len(a.prompt), arrival=a.arrival_s) for a in trace}
+    prompts = {a.uid: list(a.prompt) for a in trace}
     reqs: Dict[int, RaggedRequest] = {}
     pending: List[RaggedRequest] = []
     decode_ready: Dict[int, int] = {}
     results: Dict[int, List[int]] = {}
-    next_idx = 0
+    next_i = 0
     engine._sampling = None
+    tele = get_telemetry_registry()
+    h_ttft = tele.histogram("infer_ttft_seconds", buckets=TTFT_BUCKETS)
+    h_tpot = tele.histogram("infer_tpot_seconds", buckets=TPOT_BUCKETS)
+    events = get_event_log()
+    journal = get_journal() if record else None
     t0 = time.perf_counter()
 
     def now() -> float:
         return time.perf_counter() - t0
 
-    def admit_arrivals() -> None:
-        nonlocal next_idx
+    def due(i: int) -> bool:
+        if i >= len(trace):
+            return False
+        if clock == "logical":
+            return trace[i].arrival_q <= engine.scheduler.last_quantum_id
+        return trace[i].arrival_s <= now()
+
+    def admit(force: bool = False) -> None:
+        nonlocal next_i
         t = now()
-        while next_idx < spec.n_requests and arrivals[next_idx] <= t:
-            uid = next_idx
-            reqs[uid] = RaggedRequest(uid=uid, tokens=list(prompts[uid]), max_new_tokens=spec.max_new_tokens)
-            stats[uid].admitted = t
-            results[uid] = []
-            pending.append(reqs[uid])
-            next_idx += 1
+        while next_i < len(trace) and (force or due(next_i)):
+            a = trace[next_i]
+            reqs[a.uid] = RaggedRequest(uid=a.uid, tokens=list(a.prompt), max_new_tokens=a.max_new_tokens)
+            stats[a.uid].admitted = t
+            results[a.uid] = []
+            pending.append(reqs[a.uid])
+            if record:
+                # stamped with the SCHEDULED arrival: event-derived TTFT then equals (first_token - arrival)
+                events.emit("enqueue", a.uid, ts=t0 + a.arrival_s, prompt=len(a.prompt))
+            if journal is not None:
+                # the scheduled arrival AND the scheduler's logical clock: replay re-admits by either
+                journal.record_request(a.uid, a.prompt, arrival_s=a.arrival_s,
+                                       arrival_q=engine.scheduler.last_quantum_id, max_new_tokens=a.max_new_tokens)
+            next_i += 1
+            force = False  # force admits exactly one
 
     def commit(uid: int, toks_out: List[int]) -> None:
         req = reqs[uid]
@@ -122,15 +175,24 @@ def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List
             return
         if eos_token_id is not None and eos_token_id in toks_out:
             toks_out = toks_out[:toks_out.index(eos_token_id) + 1]
+        if journal is not None:
+            journal.record_commit(uid, engine.scheduler.last_quantum_id, toks_out)
         t = now()
         if not results[uid]:
             stats[uid].first_token = t
+            if record:
+                h_ttft.observe(t - stats[uid].arrival)
+                events.emit("first_token", uid, ts=t0 + t)
         results[uid].extend(toks_out)
         stats[uid].n_new = len(results[uid])
         if (len(results[uid]) >= req.max_new_tokens or
                 (eos_token_id is not None and toks_out[-1] == eos_token_id)):
             req.done = True
             stats[uid].done = t
+            if record:
+                if stats[uid].n_new > 1:
+                    h_tpot.observe(stats[uid].tpot)
+                events.emit("finish", uid, ts=t0 + t, n_new=stats[uid].n_new)
             engine.flush([uid])
         else:
             decode_ready[uid] = toks_out[-1]
@@ -138,13 +200,15 @@ def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List
     fused = bool(getattr(engine, "_fused_enabled", False))
     spec_on = bool(getattr(engine, "_spec_enabled", False))
 
-    while next_idx < spec.n_requests or pending or decode_ready:
-        admit_arrivals()
+    while next_i < len(trace) or pending or decode_ready:
+        admit()
         if not pending and not decode_ready:
-            # idle: sleep to the next arrival (open-loop source)
-            time.sleep(max(0.0, arrivals[next_idx] - now()))
+            if clock == "logical":
+                admit(force=True)
+            else:  # idle: sleep to the next arrival (open-loop source)
+                time.sleep(max(0.0, trace[next_i].arrival_s - now()))
             continue
-        arrivals_due = next_idx < spec.n_requests and arrivals[next_idx] <= now()
+        arrivals_due = due(next_i)
         if spec_on and not pending and not arrivals_due and decode_ready:
             # draft -> verify over the pure-decode batch; a dry drafter falls through to the plain paths
             if engine._spec_quantum(decode_ready, prompts, results, reqs, commit):
@@ -201,7 +265,26 @@ def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List
 
     for uid, toks in results.items():
         stats[uid].tokens = toks
-    return [stats[i] for i in range(spec.n_requests)]
+    return results, [stats[a.uid] for a in trace]
+
+
+def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List[RequestStat]:
+    """Drive ``engine`` with ``spec``'s arrival process (``serve_trace`` on
+    the wall clock, recorded); returns per-request stats in uid order.
+    Greedy decoding (the SLA story is scheduling, not sampling)."""
+    arrivals, prompts = load_prompts(spec)
+    trace = [Arrival(uid=i, prompt=prompts[i], max_new_tokens=spec.max_new_tokens, arrival_s=float(arrivals[i]))
+             for i in range(spec.n_requests)]
+    journal = get_journal()
+    if journal is not None:
+        journal.begin_session(getattr(engine, "_journal_fingerprint", lambda: {})(), kind="sla",
+                              run={"eos_token_id": eos_token_id}, load=dataclasses.asdict(spec))
+    _, out = serve_trace(engine, trace, eos_token_id=eos_token_id, record=True)
+    if journal is not None:
+        summary = getattr(engine, "_journal_run_summary", lambda: {})()
+        summary["sla"] = summarize(out)
+        journal.end_session(summary)
+    return out
 
 
 def summarize(stats: Sequence[RequestStat], ttft_sla: float = 1.0, tpot_sla: float = 0.25) -> Dict:

@@ -240,6 +240,8 @@ def test_package_imports_neither_jax_nor_the_reference():
         import deepspeed_tpu_torch.inference.generation, deepspeed_tpu_torch.inference.v2
         import deepspeed_tpu_torch.inference.v2.graphs, deepspeed_tpu_torch.inference.v2.sla
         import deepspeed_tpu_torch.models, deepspeed_tpu_torch.ops.norms, deepspeed_tpu_torch.ops.paged_attention
+        import deepspeed_tpu_torch.telemetry, deepspeed_tpu_torch.analysis.kv_sanitizer
+        import deepspeed_tpu_torch.inference.v2.ragged.host_tier, deepspeed_tpu_torch.inference.v2.replay
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "deepspeed_tpu")]
         assert not bad, bad
         print("clean")

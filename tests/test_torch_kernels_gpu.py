@@ -1796,3 +1796,132 @@ def test_moe_graph_steps_equal_eager_steps(cuda, fused):
         assert torch.equal(g[:, 1:], e[:, 1:])
     assert g_launches == e_launches and all(n > 0 for n in g_launches)
     assert graphs.graphs.replays == graphs.dispatches == eager.dispatches > 0 and graphs.graphs.captures > 0
+
+
+# ---------------------------------------------------------------- the host spill tier (KV blocks in pinned RAM)
+def _spill_engine(kv_quant_bits=0, eager=False, blocks=64):
+    """A bf16 engine on the card with the host spill tier (pinned slabs, the d2h stream)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, max_seq_len=512,
+                            norm="rmsnorm", activation="swiglu", pos_emb="rope", tie_embeddings=False)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(kv_block_size=16, max_context=512, num_kv_blocks=blocks), dtype="bfloat16",
+        device="cuda", decode_burst=8, kv_quant_bits=kv_quant_bits, kv_spill=True))
+    engine._eager_steps = eager
+    return engine
+
+
+SPILL_PREFIX = list(range(100, 164))  # four 16-token blocks
+SPILL_PROMPTS = [SPILL_PREFIX + [i] * 5 for i in range(4)]
+
+
+def _cached_pages(engine):
+    """node -> a clone of its block's pages (every pool leaf) for each cached node."""
+    return {n: [t.clone() for t in engine._gather_block(n.block)] for n in engine.state.prefix_cache._iter_nodes()
+            if n.block >= 0}
+
+
+@pytest.mark.parametrize("kv_quant_bits", [0, 8])
+def test_spilled_blocks_round_trip_byte_exact(cuda, kv_quant_bits):
+    """Blocks spilled to the pinned slabs hold their device pages byte for byte (bf16 pools: two leaves; int8:
+    codes and scales of K and V, still quantised), come back byte for byte when a match re-admits them, and
+    the re-admitted run gives the first run's tokens without prefilling the prefix again."""
+    engine = _spill_engine(kv_quant_bits)
+    assert engine._spill_mgr.pool.pinned and len(engine._spill_mgr.pool._slabs) == (4 if kv_quant_bits else 2)
+    first = engine.generate(SPILL_PROMPTS, max_new_tokens=8)
+    pages = _cached_pages(engine)
+    assert len(pages) == 4
+    engine.state.prefix_cache.evict(engine.state.total_blocks)
+    pool = engine._spill_mgr.pool
+    for node, want in pages.items():
+        assert node.block < 0 and node.host_slot >= 0
+        for got, w in zip(pool.read(node.host_slot), want):
+            assert torch.equal(got, w.squeeze(1).cpu())
+    assert engine.generate(SPILL_PROMPTS, max_new_tokens=8) == first
+    for node, want in pages.items():
+        assert node.block >= 0
+        for got, w in zip(engine._gather_block(node.block), want):
+            assert torch.equal(got, w)
+
+
+def test_pinned_slot_not_reused_before_its_h2d_lands(cuda):
+    """A re-admission's h2d from a pinned slot is queued behind a long kernel; the slot is freed and a spill of
+    other pages goes into the same slot at once. The re-admitted device pages are the slot's old contents,
+    and the slot then holds the new ones."""
+    from deepspeed_tpu_torch.inference.v2.ragged.host_tier import HostKVPool, SpillManager
+
+    dev_pool = torch.randn(2, 4, 16, 2, 64, device="cuda").to(torch.bfloat16)
+    pool = HostKVPool(1, [(2, 16, 2, 64)], [torch.bfloat16], pin=True)
+    mgr = SpillManager(pool, lambda b: [dev_pool[:, b:b + 1].clone()], torch.device("cuda"))
+    old = dev_pool[:, 1].clone()
+    slot = pool.try_alloc_slot()
+    mgr.spill_async(1, slot)
+    mgr.wait_all(30.0)
+    assert mgr.drain() == [(1, slot)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead of the h2d
+    dev_pool[:, 3].copy_(pool.read(slot)[0].to("cuda", non_blocking=True))
+    pool.free_slot(slot)
+    assert pool.try_alloc_slot() == slot
+    mgr.spill_async(2, slot)
+    mgr.wait_all(30.0)
+    torch.cuda.synchronize()
+    assert torch.equal(dev_pool[:, 3], old)
+    assert torch.equal(pool.read(slot)[0], dev_pool[:, 2].cpu())
+
+
+def test_spill_wait_all_raises_while_a_copy_is_held_back(cuda):
+    """A d2h queued behind about a second of device time has not landed after 10 ms: ``wait_all`` raises
+    with the count in flight, ``drain`` hands nothing back, and a later ``wait_all`` sees the copy land."""
+    from deepspeed_tpu_torch.inference.v2.ragged.host_tier import HostKVPool, SpillManager
+
+    dev_pool = torch.randn(2, 2, 16, 2, 64, device="cuda").to(torch.bfloat16)
+    pool = HostKVPool(1, [(2, 16, 2, 64)], [torch.bfloat16], pin=True)
+    mgr = SpillManager(pool, lambda b: [dev_pool[:, b:b + 1].clone()], torch.device("cuda"))
+    torch.cuda._sleep(2_000_000_000)
+    mgr.spill_async(1, pool.try_alloc_slot())
+    with pytest.raises(TimeoutError, match="1 KV spill copies still in flight"):
+        mgr.wait_all(0.01)
+    assert mgr.drain() == [] and mgr.inflight == 1
+    mgr.wait_all(30.0)
+    assert mgr.drain() == [(1, 0)] and torch.equal(pool.read(0)[0], dev_pool[:, 1].cpu())
+
+
+def test_new_graph_captured_while_a_spill_is_in_flight(cuda):
+    """Spills are started behind a long kernel (so their copies are still in flight on the spill stream) just
+    before a wave whose buckets have no graph yet: the graphs are captured while the copies are pending, and
+    the graph engine's tokens (the spilled prefix re-admitted in a later wave) equal the eager engine's, with
+    every spill landed and re-admitted."""
+    runs = []
+    for eager in (False, True):
+        engine = _spill_engine(eager=eager)
+        out = [engine.generate(SPILL_PROMPTS[:2], max_new_tokens=8)]
+        pc = engine.state.prefix_cache
+        pc._spill_watermark_blocks = engine.state.total_blocks  # pre-spill every cached block
+        torch.cuda._sleep(200_000_000)
+        assert pc.spill_tick() == 4
+        pc._spill_watermark_blocks = 0
+        inflight = engine._spill_mgr.inflight
+        captures = 0 if eager else engine.graphs.captures
+        out.append(engine.generate([list(range(300, 340 + 7 * i)) for i in range(3)], max_new_tokens=6))
+        if not eager:
+            assert inflight > 0 and engine.graphs.captures > captures
+        out.append(engine.generate(SPILL_PROMPTS[2:], max_new_tokens=8))
+        assert engine._spill_mgr.inflight == 0 and pc.spilled_blocks == 0
+        runs.append(out)
+    assert runs[0] == runs[1]
+
+
+def test_spill_tier_steady_state_takes_no_new_capture(cuda):
+    """After one spill-and-readmit cycle has captured every bucket, another forced evict and pass captures no
+    new graph (the gather and the re-admission run between replays, never in a graph)."""
+    engine = _spill_engine(8)
+    first = engine.generate(SPILL_PROMPTS, max_new_tokens=8)
+    engine.state.prefix_cache.evict(engine.state.total_blocks)
+    assert engine.generate(SPILL_PROMPTS, max_new_tokens=8) == first
+    captures = engine.graphs.captures
+    engine.state.prefix_cache.evict(engine.state.total_blocks)
+    assert engine.generate(SPILL_PROMPTS, max_new_tokens=8) == first
+    assert engine.graphs.captures == captures
