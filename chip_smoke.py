@@ -84,7 +84,19 @@ Phases, each fatal on failure:
    spec off and the KV pool's free blocks before and after; then
    ``spec_fp32``: a 2-layer llama3_8b-wide engine in fp32 whose spec-on
    tokens (prompt lookup and the oracle) must equal spec off's in the fused
-   and the unfused loop; then ``sla``: ``sla.run_load`` with 24 requests a
+   and the unfused loop; then ``telemetry`` (on the first serve run's
+   weights, warm graphs at ``DS_TPU_PROGRAM_CACHE=16``, the counters zeroed
+   before its accounted pass and read after): the perf accountant's useful
+   tokens must equal the decode steps' tokens plus the prefill tokens
+   scheduled, with one cost card a graph key and every step attributed
+   (``infer_mfu``, the pass's MFU and the ledger printed); the device
+   profiler's ``profile_device_busy_fraction`` over one pass (a
+   ``torch.profiler`` capture cut by its in-trace quantum markers) must lie
+   within 3 points of ``profiled()``'s busy share of the same session; the
+   ops plane on 127.0.0.1 must answer ``/metrics``, ``/healthz``, ``/perf``
+   and ``/profile`` with the reference's keys; a manual flight capture must
+   write the reference's manifest sections; then tokens/s with telemetry and
+   accounting on and off in turns (on, off, off, on); then ``sla``: ``sla.run_load`` with 24 requests a
    row (a shared 256-token prefix and 16-1500 more tokens, 32 new tokens,
    greedy), every
    arrival at t = 0 and then Poisson rows at 1/4, 1/2 and 3/4 of that row's
@@ -140,7 +152,8 @@ Phases, each fatal on failure:
 8. train: ``initialize`` + ``train_batch`` on gpt2_1_3b at full width and
    depth in bf16 (micro-batch 8 x 1024, FusedAdam, WarmupLR, clip 1.0) for
    12 steps on one seeded batch; losses finite and falling; tokens/s, step
-   time, MFU and peak memory over steps 3-12, with the launch counters
+   time, MFU and peak memory over steps 3-12 (the engine's ``train_mfu``
+   gauge must lie within 2 % of that MFU), with the launch counters
    zeroed before those steps and read after (A, B, C: 24 per step; D: one
    for each 512 leaves, so one). ``--profile`` adds a torch.profiler
    breakdown of one step.
@@ -1587,7 +1600,6 @@ def profiled(torch, fn, cats) -> dict:
     """Run ``fn`` once under torch.profiler and return its wall time and the
     device time of its kernels by category (``cats``: category -> substrings
     of kernel names; the rest is "other"), with the 15 longest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1595,9 +1607,18 @@ def profiled(torch, fn, cats) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return session_device_time(prof, cats, wall_ms)
+
+
+def session_device_time(prof, cats, wall_ms) -> dict:
+    """``profiled()``'s account of a finished torch.profiler session: the summed device time of its kernels
+    (``key_averages``) by category, over ``wall_ms``. ``record_function`` ranges (spans mirrored into the
+    trace, the device profiler's markers) also carry the device time of the kernels under them: not counted."""
+    from torch.autograd import DeviceType
+
     by_cat, top = {}, []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) or SPAN_NAME.match(e.key):
             continue
         ms = (getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)) / 1e3
         if ms <= 0:
@@ -1613,6 +1634,7 @@ def profiled(torch, fn, cats) -> dict:
 
 
 MATMUL = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+SPAN_NAME = re.compile(r"^(ds_tpu_|[a-z0-9_]+/[a-z0-9_/]+$)")  # telemetry spans and profiler markers
 
 
 def profile_serve(torch, engine, waves, model, dispatch="graphs") -> None:
@@ -2451,8 +2473,8 @@ def verify_graph_checks(torch, engine, limit=6):
     checks = []
     inner = engine._dispatch
 
-    def spy(key, step, arrays, sampled=False, head=None):
-        out = inner(key, step, arrays, sampled, head)
+    def spy(key, step, arrays, rows, sampled=False, head=None):
+        out = inner(key, step, arrays, rows, sampled, head)
         if key[0] == "spec" and not sampled and len(checks) < limit:
             eager = step(*engine._to_device(*arrays), None)
             checks.append(dict(key=list(key[:3]), committed_equal=bool(torch.equal(out[:, :-1], eager[:, :-1])),
@@ -2612,6 +2634,205 @@ def phase_spec_fp32(torch, dev, counters, n_layers=2, n_req=8, new=32):
 MICRO, SEQ, TRAIN_STEPS, TIMED_FROM = 8, 1024, 12, 2  # steps 3-12 are timed
 # LAMB scales each leaf's step by ||p|| / ||u||, so its elements move by about lr * rms(p), not lr: it
 # takes a larger lr (BERT's LAMB runs used 1e-3 to 1e-2)
+# The telemetry phase's program cache: above the 11 graph keys of the serve waves, so every pass after the first
+# replays warm graphs (as llama3_8b_cache16)
+TELEMETRY_PROGRAM_CACHE = 16
+# the perf accountant's snapshot keys, the reference's (GET /perf adds "rank")
+PERF_KEYS = {"mode", "peaks", "totals", "mfu", "cards", "ledger", "hbm"}
+# sections every flight manifest carries, the reference's
+FLIGHT_SECTIONS = {"schema", "reason", "ts_unix", "rank", "alert", "alerts_recent", "events_tail", "spans_tail",
+                   "metrics", "perf", "knobs", "knob_provenance", "tuned_profile", "journal"}
+
+
+def telemetry_pass(torch, engine, waves) -> tuple:
+    """The serve waves once, the prefix cache reset first (the same admissions every pass): tokens, wall s."""
+    engine.state.reset_prefix_cache()
+    t0 = time.perf_counter()
+    out = [t for wave in waves for t in engine.generate(wave, max_new_tokens=32)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def get_json(opener, url) -> tuple:
+    """(status, parsed body) of a GET on the loopback ops plane; an error status is a result, not a raise."""
+    import urllib.error
+
+    try:
+        with opener.open(url, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_telemetry(torch, dev, counters, params):
+    """Telemetry on the main serving path: llama3_8b at full width and depth (bf16, ``params``: the serve
+    phase's weights), the serve waves on warm graphs (``DS_TPU_PROGRAM_CACHE=16``), with the kernel counters
+    zeroed before the accounting pass and read after. Checks, each fatal: (1) the perf accountant's useful
+    tokens equal the tokens the decode steps generated plus the prefill tokens scheduled, its slot tokens
+    the buckets' rows, one cost card per graph key; ``infer_mfu``, the pass's MFU and ``ledger()`` printed;
+    (2) the device profiler (a ``torch.profiler`` session over the quanta of one pass, cut by its in-trace
+    markers) gives a device-busy share within 3 points of ``profiled()``'s account of the same session
+    (its kernels' summed device time over the pass's wall time); (3) the
+    ops plane on 127.0.0.1 answers ``/metrics``, ``/healthz``, ``/perf`` and ``/profile`` with the
+    reference's keys; (4) a manual flight capture writes a manifest with the reference's sections. Then
+    tokens/s with telemetry and accounting on and off in turns (on, off, off, on), printed, not gated."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.telemetry import profiler as device_profiler
+
+    cfg = model_cfg()
+    acct = telemetry.get_perf_accountant()
+    reg = telemetry.get_registry()
+    if not acct.enabled:
+        raise AssertionError("telemetry: the perf accountant is off (DS_TPU_PERF_ACCOUNT=0 in the environment?)")
+    t_start = time.perf_counter()
+    with program_cache(TELEMETRY_PROGRAM_CACHE):
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            state_manager=RaggedBatchConfig(max_context=8192, kv_block_size=128, memory_gb=8.0),
+            dtype="bfloat16", device=str(dev)))
+    waves = serving_prompts(np, cfg.vocab_size)
+    acct.reset()  # this engine's cards only
+    telemetry_pass(torch, engine, waves)  # warm-up: captures every graph key of the waves
+    captures = engine.graphs.captures
+
+    # (1) accounting over one warm pass
+    acct.reset_counts()
+    names = ("infer_prefill_tokens_total", "infer_decode_tokens_total", "infer_model_flops_total")
+    before = {n: reg.peek(n) or 0.0 for n in names}
+    d0 = engine.dispatches
+    for fn in counters:
+        fn.launches = 0
+    out, wall = telemetry_pass(torch, engine, waves)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    delta = {n: (reg.peek(n) or 0.0) - before[n] for n in names}
+    totals, ledger = acct.totals(), acct.ledger()
+    cards = [c for c in acct.cards().values() if c.program in ("prefill", "decode", "burst", "fused", "spec")]
+    steps = engine.dispatches - d0
+    generated = sum(len(o) for o in out)
+    rec = dict(phase="telemetry", model="llama3_8b", layers=cfg.n_layers, program_cache=TELEMETRY_PROGRAM_CACHE,
+               prompts=len(out), new_tokens=generated, wall_s=wall, tokens_per_s=generated / wall, steps=steps,
+               captures_after_warmup=engine.graphs.captures - captures, launches=launches,
+               useful_tokens=totals["useful_tokens"], slot_tokens=totals["slot_tokens"],
+               prefill_tokens=delta["infer_prefill_tokens_total"], decode_tokens=delta["infer_decode_tokens_total"],
+               cards=len(cards), graphs_live=len(engine.graphs), timed_calls=sum(c.timed_calls for c in cards),
+               model_flops=delta["infer_model_flops_total"], infer_mfu=reg.peek("infer_mfu"),
+               mfu_of_the_pass=acct.mfu(flops=totals["flops"], time_s=wall), peaks=acct.peaks(), ledger=ledger,
+               hbm=acct.hbm(), card_rows=[c.as_dict(*acct.peaks()) for c in sorted(cards, key=lambda c: -c.time_s)])
+    log(rec)
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"telemetry: kernels never launched on the main path: {launches}")
+    if engine.graphs.captures != captures or steps <= 0:
+        raise AssertionError(f"telemetry: the accounted pass captured again or ran no step: {rec}")
+    if generated != 32 * len(out) or rec["decode_tokens"] != generated - len(out):
+        raise AssertionError(f"telemetry: {generated} tokens generated, {rec['decode_tokens']} by decode steps")
+    if totals["useful_tokens"] != rec["decode_tokens"] + rec["prefill_tokens"]:
+        raise AssertionError(f"telemetry: useful tokens {totals['useful_tokens']} != decode tokens "
+                             f"{rec['decode_tokens']} + prefill tokens {rec['prefill_tokens']}")
+    if not (rec["timed_calls"] == steps and len(cards) == len(engine.graphs) and totals["slot_tokens"] >=
+            totals["useful_tokens"] > 0):
+        raise AssertionError(f"telemetry: {len(cards)} cards, {len(engine.graphs)} graphs, "
+                             f"{rec['timed_calls']} timed calls, {steps} steps: one card a graph key, each step "
+                             "attributed")
+    if not (isinstance(rec["infer_mfu"], float) and rec["infer_mfu"] > 0 and 0 < rec["mfu_of_the_pass"] < 1):
+        raise AssertionError(f"telemetry: infer_mfu {rec['infer_mfu']}, the pass's MFU {rec['mfu_of_the_pass']}")
+
+    # (2) the device profiler's waterfall against profiled()'s account of the same session: one pass traced
+    # from its start (a quantum boundary noted by the caller) to finish() after its sync
+    cats = {"paged_attention_decode": ("decode_kernel", "paged_combine_kernel"),
+            "paged_attention_prefill": ("prefill_kernel",), "rms_norm": ("rms_norm",), "matmul": MATMUL,
+            "copy": ("Memcpy", "Memset")}
+    with tempfile.TemporaryDirectory() as cap_dir:
+        prof, armed = device_profiler.request_capture(quanta=1 << 20)
+        prof.out_dir = cap_dir
+        if not armed:
+            raise AssertionError(f"telemetry: the device profiler could not be armed: {prof.status()}")
+        sessions, stop = [], prof._stop_trace
+
+        def keep_session():  # the session, for key_averages() after it stops
+            sessions.append(prof._handle)
+            stop()
+
+        prof._stop_trace = keep_session
+        engine.state.reset_prefix_cache()
+        device_profiler.note_quantum("pass")  # the trace starts here, before the pass's first step
+        t0 = time.perf_counter()
+        for wave in waves:
+            engine.generate(wave, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        summary = prof.finish()
+        plain = session_device_time(sessions[0], cats, wall_ms)
+        ops = telemetry.OpsServer(port=0, host="127.0.0.1").start()
+        try:
+            import urllib.request
+
+            opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # loopback: never a proxy
+            base = f"http://127.0.0.1:{ops.port}"
+            answers = {path: get_json(opener, base + path) for path in ("/metrics", "/healthz", "/perf", "/profile")}
+        finally:
+            ops.stop()
+        with tempfile.TemporaryDirectory() as flight_dir:
+            rec_flight = telemetry.FlightRecorder(flight_dir, max_captures=2, profile_s=0.0)
+            rec_flight.register_provider("residency", engine._residency_summary)
+            manifest = rec_flight.read_manifest(os.path.basename(rec_flight.capture("chip_smoke")))
+    busy = summary["fractions"]["device_busy"]
+    rec = dict(phase="telemetry profiler", trace=summary["trace"], marker_clock=summary["marker_clock"],
+               quanta=summary["n_quanta"], window_s=summary["window_s"], device_busy_fraction=busy,
+               profiled_busy_share=plain["busy_share"], profiled_wall_ms=plain["wall_ms_profiled"],
+               profiled_device_busy_ms=plain["device_busy_ms"], totals=summary["totals"],
+               host_gap_fraction=summary["fractions"]["host_gap"], top_device_programs=summary["programs"],
+               host_spans=summary["host_spans"][:8],
+               widest_host_gaps=sorted(({"index": q["index"], "program": q["program"], "host_gap_s": q["host_gap_s"],
+                                         "dur_s": q["dur_s"]} for q in summary["quanta"]),
+                                       key=lambda q: -q["host_gap_s"])[:5])
+    log(rec)
+    if summary["trace"] != "ok" or summary["marker_clock"] != "trace" or summary["n_quanta"] != steps:
+        raise AssertionError(f"telemetry: the capture did not trace the pass: {rec}")
+    if not isinstance(plain["busy_share"], float) or abs(busy - plain["busy_share"]) > 0.03:
+        raise AssertionError(f"telemetry: profile_device_busy_fraction {busy} against profiled()'s busy share "
+                             f"{plain['busy_share']}: more than 3 points apart")
+    if reg.peek("profile_device_busy_fraction") != busy:
+        raise AssertionError("telemetry: the capture's gauges did not land in the registry")
+
+    # (3) the ops plane, (4) the flight recorder
+    status = {path: code for path, (code, _) in answers.items()}
+    perf = json.loads(answers["/perf"][1])
+    health = json.loads(answers["/healthz"][1])
+    profile_doc = json.loads(answers["/profile"][1])
+    metrics_text = answers["/metrics"][1].decode()
+    log(dict(phase="telemetry ops", status=status, perf_keys=sorted(perf), healthz=health["status"],
+             profile_keys=sorted(profile_doc), flight_sections=sorted(manifest)))
+    # /healthz answers 503 while a detector fires: an answer all the same
+    if any(code != 200 for path, code in status.items() if path != "/healthz") or status["/healthz"] not in (
+            200, 503) or not PERF_KEYS | {"rank"} <= set(perf):
+        raise AssertionError(f"telemetry: ops plane answers {status}, /perf keys {sorted(perf)}")
+    if not ({"status", "healthy", "rank", "detectors", "alerts"} <= set(health)
+            and {"configured", "rank", "state", "captures", "summary"} <= set(profile_doc)
+            and "infer_useful_tokens_total" in metrics_text and "infer_mfu" in metrics_text):
+        raise AssertionError(f"telemetry: ops plane bodies lack the reference's keys: {sorted(health)}, "
+                             f"{sorted(profile_doc)}")
+    if manifest is None or not FLIGHT_SECTIONS | {"residency"} <= set(manifest):
+        raise AssertionError(f"telemetry: flight manifest sections {None if manifest is None else sorted(manifest)}")
+
+    # telemetry's cost: on, off, off, on
+    turns = []
+    for on in (True, False, False, True):
+        telemetry.set_enabled(on)
+        acct.enabled = on
+        got, wall = telemetry_pass(torch, engine, waves)
+        if got != out:
+            raise AssertionError("telemetry: tokens changed with telemetry switched")
+        turns.append(dict(telemetry=on, wall_s=wall, tokens_per_s=generated / wall))
+    telemetry.set_enabled(True)
+    acct.enabled = True
+    log(dict(phase="telemetry cost", turns=turns, seconds=time.perf_counter() - t_start))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 TRAIN_LR = {"Lamb": 2e-3}
 
 
@@ -2801,6 +3022,7 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     import numpy as np
 
     import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import telemetry
     from deepspeed_tpu_torch.models import CausalLM, init_params
 
     cfg = gpt2_cfg(dtype=torch.bfloat16)
@@ -2832,8 +3054,10 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     # plus attention's two products, forward and backward (3x), over the causal pairs
     flops = 6 * n_params * tokens + 12 * cfg.n_layers * MICRO * cfg.n_heads * cfg.head_dim * pairs
     step_s = wall / steps
+    # the engine's own gauge: FLOPs from shapes over the last step's host interval, against resolve_peaks
+    train_mfu = telemetry.get_registry().peek("train_mfu")
     rec = dict(phase="train", model="gpt2_1_3b", optimizer=optimizer, layers=cfg.n_layers, d_model=cfg.d_model,
-               params=n_params,
+               params=n_params, train_mfu=train_mfu, engine_step_flops=engine._step_flops,
                leaves=len(engine.parameters()), dtype="bfloat16", micro_batch=MICRO, seq=SEQ, steps=TRAIN_STEPS,
                timed_steps=f"{TIMED_FROM + 1}-{TRAIN_STEPS}", losses=losses, step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s, model_flops_per_step=flops, mfu=flops / step_s / PEAK_FLOPS[
@@ -2843,6 +3067,9 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     log(rec)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
+    if not (train_mfu and abs(train_mfu / rec["mfu"] - 1) <= 0.02):
+        raise AssertionError(f"train: the engine's train_mfu {train_mfu} is not within 2 % of the phase's MFU "
+                             f"{rec['mfu']}")
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
             OPT_COUNTER[optimizer]: opt_launches(optimizer, rec["leaves"])}
     bad = {name: launches[name] / steps for name in want if launches[name] != want[name] * steps}
@@ -3801,10 +4028,15 @@ def main(argv) -> int:
     for dtype in (torch.float32, torch.bfloat16):
         phase_step_parity(torch, dev, dtype, "mixtral_8x7b", n_layers=2)
     serve = phase_serve(torch, dev, counters, "llama3_8b", profile, keep_params=True)
+    params = serve.pop("params")
     t0 = time.perf_counter()
-    phase_serve_spec(torch, dev, counters, serve.pop("params"))
+    phase_serve_spec(torch, dev, counters, params)
     phase_spec_fp32(torch, dev, counters)
     log(dict(phase="serve_spec", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_telemetry(torch, dev, counters, params)
+    del params
+    log(dict(phase="telemetry", seconds=time.perf_counter() - t0))
     phase_serve(torch, dev, counters, "llama3_8b_cache16", profile, want=serve["tokens"])
     t0 = time.perf_counter()
     phase_serve(torch, dev, counters, "llama3_8b_unfused", profile, beside=serve["tokens"])

@@ -89,6 +89,12 @@ def is_set(name: str) -> bool:
     return name in os.environ
 
 
+def provenance(name: str) -> str:
+    """Where the current value of ``name`` comes from: 'env' or 'default'
+    (the port has no tuned-profile overlay, the reference's third source)."""
+    return "env" if is_set(name) else "default"
+
+
 # Serving engine (inference/v2/engine_v2.py)
 declare("DS_TPU_SERVE_FUSED", "1", "bool",
         "Serve with the single-dispatch fused SplitFuse step (0 serves with the unfused loop: a "
@@ -149,12 +155,87 @@ declare("DS_TPU_KV_SANITIZE", "0", "bool",
 declare("DS_TPU_TELEMETRY", "1", "bool",
         "Master switch for the telemetry subsystem (metrics, traces, events).",
         "telemetry/registry.py")
+declare("DS_TPU_TELEMETRY_FLUSH_STEPS", "1", "int",
+        "The training engine's monitor bridge flushes telemetry every N steps.",
+        "runtime/engine.py")
+declare("DS_TPU_TRACE_RING", "4096", "int",
+        "Capacity of the span tracer's ring buffer.",
+        "telemetry/tracing.py")
+declare("DS_TPU_TRACE_XLA", "0", "bool",
+        "Mirror spans into device profiles (the reference's XLA trace annotations; on the port NVTX "
+        "ranges on a CUDA device, torch.profiler record_function ranges otherwise).",
+        "telemetry/tracing.py")
 declare("DS_TPU_EVENT_RING", "65536", "int",
         "Capacity of the request-lifecycle event ring buffer.",
         "telemetry/events.py")
 declare("DS_TPU_EVENT_LOG", None, "str",
         "If set, append request-lifecycle events as JSONL to this path.",
         "telemetry/events.py")
+declare("DS_TPU_HEALTH_LOG", None, "str",
+        "If set, append health alerts as JSONL to this path.",
+        "telemetry/health.py")
+declare("DS_TPU_STALL_S", "30", "float",
+        "Queue-stall detector threshold: alert when the oldest queued request "
+        "waits longer than this many seconds.",
+        "telemetry/health.py")
+declare("DS_TPU_STRAGGLER_X", "4", "float",
+        "Straggler detector threshold: flag a rank whose pooled "
+        "collective-wait p50 exceeds this multiple of the cross-rank "
+        "median p50.",
+        "telemetry/health.py")
+declare("DS_TPU_PERF_ACCOUNT", "1", "int",
+        "Serving performance accounting: 0 off, 1 analytic cost cards (on the port FLOPs and bytes "
+        "from the model config and the step's bucket; no extra work on the device). The reference's "
+        "2 (XLA cost and memory analysis) has no counterpart and reads as 1.",
+        "telemetry/costs.py")
+declare("DS_TPU_PEAK_TFLOPS", "0", "float",
+        "Declared peak dense TFLOP/s per chip for MFU and roofline "
+        "readouts (0 = auto-detect from the device kind; unknown kinds "
+        "report no MFU).",
+        "telemetry/costs.py")
+declare("DS_TPU_PEAK_GBPS", "0", "float",
+        "Declared peak HBM GB/s per chip for roofline classification "
+        "(0 = auto-detect from the device kind).",
+        "telemetry/costs.py")
+declare("DS_TPU_OPS_PORT", "0", "int",
+        "Introspection server port (/metrics, /healthz, /requests, /perf, "
+        "/flight, /varz). 0 (the default) starts nothing: zero threads, "
+        "zero sockets.",
+        "telemetry/ops_plane.py")
+declare("DS_TPU_FLIGHT_DIR", None, "str",
+        "If set, attach the flight recorder: every health alert snapshots "
+        "the black box (events, spans, metrics, perf, residency, knobs) "
+        "into a bounded capture ring under this directory.",
+        "telemetry/flight.py")
+declare("DS_TPU_FLIGHT_MAX", "8", "int",
+        "Flight-recorder ring size: oldest on-disk captures are evicted "
+        "beyond this many.",
+        "telemetry/flight.py")
+declare("DS_TPU_FLIGHT_PROFILE_S", "0", "float",
+        "If >0, each flight capture also records a torch.profiler trace of "
+        "this many seconds following the anomaly (opt-in: tracing is not "
+        "free).",
+        "telemetry/flight.py")
+declare("DS_TPU_FLIGHT_PROFILE_MAX_MB", "64", "float",
+        "Size bound on a flight capture's post-anomaly profile directory: "
+        "over this many MB the raw trace is dropped (drop-and-count in "
+        "the manifest) and only the parsed waterfall summary survives.",
+        "telemetry/flight.py")
+declare("DS_TPU_PROFILE", "0", "bool",
+        "Arm a one-shot device-timeline capture at engine construction: "
+        "the next DS_TPU_PROFILE_QUANTA serving quanta are wrapped in a "
+        "torch.profiler trace and parsed into a per-quantum waterfall "
+        "(compute / exposed-vs-overlapped collective / transfer / host "
+        "gap).",
+        "telemetry/profiler.py")
+declare("DS_TPU_PROFILE_DIR", "profile_captures", "str",
+        "Directory for device-timeline capture output (raw trace plus "
+        "the parsed summary.json per capture).",
+        "telemetry/profiler.py")
+declare("DS_TPU_PROFILE_QUANTA", "32", "int",
+        "Quanta per device-timeline capture window: the trace stops and "
+        "parses after this many dispatch readback boundaries.",
+        "telemetry/profiler.py")
 declare("DS_TPU_JOURNAL", "0", "bool",
         "Record serving sessions to a black-box journal (engine "
         "fingerprint, arrivals, quantum composition, committed-token "

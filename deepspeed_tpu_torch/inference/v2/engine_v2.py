@@ -53,8 +53,23 @@ Port of ``deepspeed_tpu/inference/v2/engine_v2.py``, both serving loops:
   pre-spill between steps (``DSStateManager.spill_tick``).
 - Telemetry: the ``infer_*``, ``kv_*``, ``spec_*`` and ``sched_*`` metrics
   and the request-lifecycle events of the reference, under its names, from
-  host numbers the loop already has (nothing reads the device for them).
-  ``DS_TPU_KV_SANITIZE=1`` checks every step's block table and writes
+  host numbers the loop already has (nothing reads the device for them);
+  the spans ``infer/prefill``, ``infer/decode``, ``infer/decode_burst``,
+  ``infer/fused_step`` and ``infer/spec_verify`` around each step's
+  dispatch. The perf accountant (``telemetry/costs.py``) wraps the step
+  dispatch (``_dispatch``): one cost card per graph key, FLOPs and bytes
+  from the model config and the bucket (``_step_cost``), each step's wall
+  window attributed after its readback, the COW copy, the spill gather and
+  the re-admission wrapped untimed. The device profiler marks each step's
+  readback boundary (``note_quantum``). The health monitor runs the
+  queue-stall, SLO-burn and HBM-pressure detectors (polled each loop turn);
+  the HBM gauges (``_update_hbm_gauges``) come from known sizes and the
+  caching allocator's statistics, at construction and after each
+  ``generate``, with one scalar readback there on an int8 pool
+  (``kv_quant_dequant_error``). ``DS_TPU_OPS_PORT`` starts the ops plane
+  and ``DS_TPU_FLIGHT_DIR`` attaches the flight recorder (with this
+  engine's residency as a manifest section). ``DS_TPU_KV_SANITIZE=1``
+  checks every step's block table and writes
   (``DSStateManager.sanitize_write``). With a journal installed
   (``DS_TPU_JOURNAL=1`` or ``telemetry.set_journal``) ``generate`` records
   its session (``_journal_fingerprint``, requests, quanta, commits,
@@ -76,7 +91,13 @@ from ...device import resolve_device
 from ...models.transformer import TransformerConfig
 from ...ops.paged_attention import make_kv_pool
 from ...telemetry import get_event_log, get_journal, get_registry as get_telemetry_registry
+from ...telemetry import profiler as device_profiler
+from ...telemetry import span as telemetry_span
+from ...telemetry.costs import attention_macs, forward_macs, get_perf_accountant
+from ...telemetry.flight import maybe_attach_flight_recorder
+from ...telemetry.health import HBMPressureDetector, QueueStallDetector, SLOBurnRateDetector, get_health_monitor
 from ...telemetry.journal import resolved_knobs
+from ...telemetry.ops_plane import maybe_start_ops_server
 from ..generation import sample_logits
 from ..quantization import QuantizedParam, quantize_for_serving
 from .graphs import StepGraphs
@@ -92,6 +113,16 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _tree_bytes(tree) -> int:
+    """Device bytes of a parameter tree (a quantised leaf: codes and scales),
+    from shape metadata."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, QuantizedParam):
+        return _tree_bytes(tree.q) + _tree_bytes(tree.scales)
+    return tree.numel() * tree.element_size()
 
 
 @dataclass
@@ -217,7 +248,25 @@ class InferenceEngineV2:
         self._m_spec_accepted = tele.counter("spec_tokens_accepted_total")
         self._m_spec_rate = tele.gauge("spec_acceptance_rate")
         self._m_cow_bytes = tele.counter("kv_cow_bytes_total")
+        self._m_quant_err = tele.gauge("kv_quant_dequant_error")  # expected RMS dequant error of an int8 pool
         self._events = get_event_log()
+        # serving health detectors; the perf accountant (cost cards per graph key, the goodput ledger, the HBM
+        # pool gauges feeding the pressure detector)
+        self._health = get_health_monitor()
+        self._health.ensure_detector(QueueStallDetector())
+        self._health.ensure_detector(SLOBurnRateDetector())
+        self._health.ensure_detector(HBMPressureDetector())
+        self._acct = get_perf_accountant()
+        self._runners: Dict[str, object] = {}  # step family -> accounted dispatch
+        self._static_costs: Dict[tuple, Dict[str, int]] = {}  # graph key -> shape part of its cost
+        # the ops plane (DS_TPU_OPS_PORT) and the flight recorder (DS_TPU_FLIGHT_DIR): both off by default
+        maybe_start_ops_server()
+        rec = maybe_attach_flight_recorder(self._health)
+        if rec is not None:
+            rec.register_provider("residency", self._residency_summary)
+            rec.register_provider("jit_cache", lambda: {"enabled": False})  # no JIT on the port: no auditor
+        # the device-timeline profiler: DS_TPU_PROFILE=1 arms a one-shot capture
+        device_profiler.maybe_arm_profiler()
 
         # garbage page for padded-token KV writes (allocator's first pop is 0)
         self._garbage_block = self.state._allocator.allocate(1)[0]
@@ -232,6 +281,17 @@ class InferenceEngineV2:
         # K+V bytes one block holds across every layer (codes + scales for an int8 pool): the unit of COW
         # copy traffic and of host-tier slot sizing
         self._block_bytes = sum(t.numel() * t.element_size() for t in self._pool_leaves()) // n_blocks
+        # what a cost card's signature adds to a graph key: engines of other models share the process's accountant
+        self._cost_sig = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.ffn_dim, cfg.vocab_size,
+                          cfg.moe_num_experts, str(self.dtype), config.quant_bits, self._kv_quant_bits)
+        # copies between steps, accounted in bytes: untimed, as they run inside another step's window
+        block_cost = {"arg_bytes": self._block_bytes, "out_bytes": self._block_bytes}
+        self._copy_block = self._acct.wrap("cow_copy", self._copy_block, timed=False,
+                                           signature=lambda *a: self._cost_sig, cost=lambda *a: block_cost)
+        self._gather_block = self._acct.wrap("kv_spill_gather", self._gather_block, timed=False,
+                                             signature=lambda *a: self._cost_sig, cost=lambda *a: block_cost)
+        self._readmit_block = self._acct.wrap("kv_readmit", self._readmit_block, timed=False,
+                                              signature=lambda *a: self._cost_sig, cost=lambda *a: block_cost)
         # host spill tier: the prefix cache demotes LRU evictions to a host pool with a d2h copy and
         # re-admits radix matches with an h2d copy
         self._spill_mgr = None
@@ -260,6 +320,7 @@ class InferenceEngineV2:
         if config.quant_bits:
             self.params = quantize_for_serving(self.params, num_bits=config.quant_bits,
                                                group_size=config.quant_group_size, min_size=config.quant_min_size)
+        self._weight_bytes = _tree_bytes(self.params)
         self._mods = build_modules()
         self._prefill_fn, self._decode_fn = make_step_fns(run_cfg, mods=self._mods)
         self._max_program_variants = max(1, knobs.get_int("DS_TPU_PROGRAM_CACHE"))
@@ -282,6 +343,7 @@ class InferenceEngineV2:
         self.decode_tokens = 0  # tokens those steps retired
         self.spec_proposed = 0  # draft tokens sent to verify steps
         self.spec_accepted = 0  # of those, accepted
+        self._update_hbm_gauges()
 
     # ---------------------------------------------------------- feasibility
     def query(self, uid: int, max_request_length: int) -> Tuple[int, int]:
@@ -374,6 +436,7 @@ class InferenceEngineV2:
         for t in self._pool_leaves():
             t.index_copy_(1, idx, t[:, src:src + 1].clone())
         self._m_cow_bytes.inc(self._block_bytes)
+        self._acct.note_cow(self._block_bytes)
 
     def _cow_ready(self, seq, start_pos: int) -> None:
         self.state.ensure_writable(seq, start_pos, self._copy_block)
@@ -414,22 +477,114 @@ class InferenceEngineV2:
             off += a.size
         return out
 
-    def _dispatch(self, key: tuple, step, arrays: Sequence[np.ndarray], sampled: bool = False,
-                  head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _dispatch(self, key: tuple, step, arrays: Sequence[np.ndarray], rows: Tuple[np.ndarray, np.ndarray],
+                  sampled: bool = False, head: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run ``step(*inputs, generator)`` over the int32 host ``arrays``; the
         first ``head.numel()`` entries of the first input come from the device
         tensor ``head`` instead (the deferred token carry). A CUDA engine
         replays the captured graph of ``key`` (capturing ``step`` the first
         time); a CPU engine, or one with ``_eager_steps`` set, calls ``step``.
-        ``sampled``: the step draws from the engine's generator."""
+        ``sampled``: the step draws from the engine's generator. ``rows``
+        (query counts, context ends) of the real rows price the step's
+        attention (``_step_cost``). The perf accountant's card of the step
+        is the graph key's; its wall window opens here and closes at the
+        caller's ``attribute``."""
         self.dispatches += 1
         self._m_dispatches.inc()
+        run = self._runners.get(key[0])
+        if run is None:
+            run = self._runners[key[0]] = self._acct.wrap(
+                key[0], self._run_step, signature=lambda key, *a: key + self._cost_sig,
+                cost=lambda key, step, arrays, rows, *a: self._step_cost(key, arrays, rows))
+        return run(key, step, arrays, rows, sampled, head)
+
+    def _run_step(self, key: tuple, step, arrays: Sequence[np.ndarray], rows, sampled: bool,
+                  head: Optional[torch.Tensor]) -> torch.Tensor:
         if self._eager_steps:
             inputs = self._to_device(*arrays)
             if head is not None:
                 inputs[0].view(-1)[:head.numel()] = head
             return step(*inputs, self._generator)
         return self.graphs.run(key, step, arrays, self._generator if sampled else None, head)
+
+    def _step_cost(self, key: tuple, arrays: Sequence[np.ndarray], rows: Tuple[np.ndarray, np.ndarray]) -> Dict:
+        """A step's cost from shapes: the forward passes its graph key implies
+        (token rows through the layers, rows through the LM head;
+        ``forward_macs``), attention over the real rows' visible pairs
+        (``attention_macs``: ``rows`` holds each row's query count and context
+        end), the bytes of the weights and inputs read and of the output
+        and new KV written. No device value is read."""
+        cfg = self.cfg
+        static = self._static_costs.get(key)
+        if static is None:
+            kind = key[0]
+            vocab_out = cfg.vocab_size * 4  # fp32 logits a row
+            if kind == "prefill":
+                B, S = key[1], key[2]
+                passes, out = [(B * S, B)], B * vocab_out
+            elif kind == "decode":
+                B = key[1]
+                passes, out = [(B, B)], B * vocab_out
+            elif kind == "burst":
+                B, steps = key[1], key[2]
+                passes, out = [(B, B)] * steps, B * steps * 4
+            elif kind == "fused":
+                D, P, S, steps = key[1:5]
+                N = D + P
+                passes, out = [(D + P * S, N)] + [(N, N)] * (steps - 1), N * steps * 4
+            else:  # spec: every position of the verify window reaches the head
+                B, chunk = key[1], key[2]
+                passes, out = [(B * chunk, B * chunk)], B * (chunk + 1) * 4
+            macs = sum(forward_macs(cfg, t, h) for t, h in passes)
+            kv_token_bytes = self._block_bytes // self.state.block_size
+            static = self._static_costs[key] = {
+                "flops": 2 * macs, "macs": macs,
+                "arg_bytes": self._weight_bytes + sum(int(np.asarray(a).nbytes) for a in arrays),
+                "out_bytes": out + kv_token_bytes * sum(t for t, _ in passes)}
+        return dict(static, attn_flops=2 * attention_macs(cfg, *rows))
+
+    def _residency_summary(self) -> Dict:
+        """Allocator / prefix-cache / host-tier residency: the flight
+        recorder's view of where every KV block lives at capture time (one
+        device: no tensor-parallel shards)."""
+        pc = self.state.prefix_cache
+        return {"kv_blocks_total": self._n_kv_blocks, "kv_blocks_free": int(self.state.free_blocks),
+                "block_bytes": int(self._block_bytes), "tp_degree": 1,
+                "block_bytes_per_shard": int(self._block_bytes), "kv_quant_bits": int(self._kv_quant_bits),
+                "prefix_cached_blocks": int(pc.cached_blocks) if pc is not None else 0,
+                "host_tier_bytes": int(pc.host_tier_bytes) if pc is not None else 0}
+
+    def _update_hbm_gauges(self) -> None:
+        """Refresh the per-pool HBM gauges (weights, paged KV, prefix-held
+        blocks, host-tier bytes) and feed the pressure detector: host
+        arithmetic over known sizes; on the card the limit is the card's
+        memory and the caching allocator's statistics ride along. No device
+        sync, except the one-scalar ``kv_quant_dequant_error`` readback on an
+        int8 pool (at construction and once per ``generate``)."""
+        if not self._acct.enabled:
+            return
+        weights = self._weight_bytes
+        pages = sum(t.numel() * t.element_size() for t in self._pool_leaves())
+        pc = self.state.prefix_cache
+        prefix = pc.cached_blocks * self._block_bytes if pc is not None else 0
+        host_spill = pc.host_tier_bytes if pc is not None else 0
+        limit, alloc = 0, {}
+        if self.device.type == "cuda":
+            limit = torch.cuda.get_device_properties(self.device).total_memory
+            stats = torch.cuda.memory_stats(self.device)
+            alloc = {"allocator_allocated": stats.get("allocated_bytes.all.current", 0),
+                     "allocator_reserved": stats.get("reserved_bytes.all.current", 0),
+                     "allocator_peak": stats.get("allocated_bytes.all.peak", 0)}
+        pressure = self._acct.set_hbm(limit=limit, weights=weights, kv_pages=pages, prefix=prefix,
+                                      host_spill=host_spill, **alloc)
+        self._health.observe_hbm(pressure, weights_bytes=weights, kv_pages_bytes=pages)
+        if self._kv_quant_bits == 8:
+            # expected RMS dequant error of live pages: a uniform quantiser with step = scale has RMS error
+            # scale / sqrt(12); averaged over written (scale > 0; scales are never negative) slot-heads of both pools
+            sk, sv = self.k_pages[1], self.v_pages[1]
+            live = torch.count_nonzero(sk) + torch.count_nonzero(sv)
+            err = (sk.sum() + sv.sum()) / torch.clamp_min(live, 1) / (12.0 ** 0.5)
+            self._m_quant_err.set(float(err))  # one scalar, once per generate
 
     def _sampling_key(self) -> tuple:
         return self._sampling or (False, 1.0, 0, 1.0)
@@ -498,14 +653,23 @@ class InferenceEngineV2:
         def step(ids, positions, bt, ctx, slots, last, generator):
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
 
-        logits = self._dispatch(("prefill", B, S), step, [ids, positions, bt, ctx, slots.reshape(-1), last])
-        self._m_prefill_tokens.inc(sum(len(t) for t in token_lists))
+        useful = sum(len(t) for t in token_lists)
+        with telemetry_span("infer/prefill", bucket=S, rows=n):
+            logits = self._dispatch(("prefill", B, S), step, [ids, positions, bt, ctx, slots.reshape(-1), last],
+                                    rows=(last[:n] + 1, ctx[:n]))
+        self._m_prefill_tokens.inc(useful)
         self._m_prefill_fill.set(n / B)
         for seq in seqs:
             seq.post_forward()
         if defer:
-            return self._choose_tokens_dev(logits[:n])  # device (n,) ids, no readback
+            out_dev = self._choose_tokens_dev(logits[:n])  # device (n,) ids, no readback
+            self._acct.attribute(useful, B * S)
+            device_profiler.note_quantum("prefill", rows=n, bucket=S, tokens=useful)
+            return out_dev
         out = self._choose_tokens(logits[:n]) if return_tokens else logits[:n].cpu().numpy()
+        # the attribution window closes after the readback: the wall time covers the device's work
+        self._acct.attribute(useful, B * S)
+        device_profiler.note_quantum("prefill", rows=n, bucket=S, tokens=useful)
         return [out[j] for j in range(n)]
 
     def _decode_bucket(self, n: int) -> int:
@@ -560,7 +724,9 @@ class InferenceEngineV2:
         def step(ids, positions, bt, ctx, slots, last, generator):
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
 
-        logits = self._dispatch(("decode", len(ctx)), step, [ids, positions, bt, ctx, slots[0], last], head=ids_dev)
+        with telemetry_span("infer/decode", rows=n):
+            logits = self._dispatch(("decode", len(ctx)), step, [ids, positions, bt, ctx, slots[0], last],
+                                    rows=(np.ones(n, np.int64), ctx[:n]), head=ids_dev)
         self.decode_steps += 1
         self.decode_tokens += n
         self._m_decode_steps.inc()
@@ -573,8 +739,14 @@ class InferenceEngineV2:
         for seq in seqs:
             seq.post_forward()
         if defer:
-            return self._choose_tokens_dev(logits[:n])  # device (n,) ids, no readback
-        return self._choose_tokens(logits[:n]) if return_tokens else logits[:n].cpu().numpy()
+            out_dev = self._choose_tokens_dev(logits[:n])  # device (n,) ids, no readback
+            self._acct.attribute(n, len(ctx))
+            device_profiler.note_quantum("decode", rows=n)
+            return out_dev
+        out = self._choose_tokens(logits[:n]) if return_tokens else logits[:n].cpu().numpy()
+        self._acct.attribute(n, len(ctx))
+        device_profiler.note_quantum("decode", rows=n)
+        return out
 
     def _burst_steps(self, live: Dict[int, int], remaining: int) -> int:
         """Largest power-of-two burst length every live sequence can take
@@ -624,9 +796,10 @@ class InferenceEngineV2:
         def step(ids, positions, bt, ctx, slots, last, generator):
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last, generator)[0]
 
-        toks = self._dispatch(("burst", len(ctx), steps) + self._sampling_key(), step,
-                              [ids, positions, bt, ctx, slots, last], sampled=self._sampling is not None,
-                              head=ids_dev)
+        with telemetry_span("infer/decode_burst", rows=n, steps=steps):
+            toks = self._dispatch(("burst", len(ctx), steps) + self._sampling_key(), step,
+                                  [ids, positions, bt, ctx, slots, last], rows=(np.full(n, steps), ctx[:n] + steps - 1),
+                                  sampled=self._sampling is not None, head=ids_dev)
         self.decode_steps += steps
         self.decode_tokens += n * steps
         self._m_bursts.inc()
@@ -643,7 +816,10 @@ class InferenceEngineV2:
             journal.record_quantum(q, uids, [], steps=steps)
         for seq in seqs:
             seq.post_forward()
-        return toks[:n] if defer else toks[:n].cpu().numpy()
+        out = toks[:n] if defer else toks[:n].cpu().numpy()  # deferred: device (n, steps), no readback
+        self._acct.attribute(n * steps, len(ctx) * steps)
+        device_profiler.note_quantum("decode_burst", rows=n, steps=steps)
+        return out
 
     # ---------------------------------------------------------- fused quantum
     def _fused_bucket(self, n_dec: int, n_pre: int, max_chunk: int) -> Tuple[int, int, int]:
@@ -771,9 +947,12 @@ class InferenceEngineV2:
         def step(ids, positions, bt, ctx, slots0, last, adv, gslots, generator):
             return fn(params, ids, positions, kp, vp, bt, ctx, slots0, last, adv, gslots, eos, generator)[0]
 
-        toks = self._dispatch(("fused", D, P, S, steps, eos) + self._sampling_key(), step,
-                              [ids, positions, bt, ctx, slots0, last, adv, gslots],
-                              sampled=self._sampling is not None, head=head)
+        q_lens = np.concatenate([np.full(n_dec, steps), [len(p.tokens) for p in prefills]]).astype(np.int64)
+        ctx_end = np.concatenate([ctx[:n_dec] + steps - 1, ctx[D:D + n_pre]])
+        with telemetry_span("infer/fused_step", rows=N, tokens=T, steps=steps):
+            toks = self._dispatch(("fused", D, P, S, steps, eos) + self._sampling_key(), step,
+                                  [ids, positions, bt, ctx, slots0, last, adv, gslots], rows=(q_lens, ctx_end),
+                                  sampled=self._sampling is not None, head=head)
         self.fused_quanta += 1
         self._m_fused_quanta.inc()
         real = n_dec * steps + sum(len(p.tokens) for p in prefills)
@@ -794,6 +973,8 @@ class InferenceEngineV2:
 
         # non-deferred mode fetches the quantum's tokens in ONE readback
         toks_host = None if defer else toks.cpu().numpy()
+        self._acct.attribute(real, D * steps + P * S)
+        device_profiler.note_quantum("fused_step", rows=N, tokens=real, steps=steps)
         out: Dict[int, object] = {}
         for j, uid in enumerate(dec_uids):
             out[uid] = toks[j] if defer else toks_host[j]
@@ -884,8 +1065,10 @@ class InferenceEngineV2:
         def step(ids, positions, bt, ctx, slots, n_draft, generator):
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, n_draft, generator)[0]
 
-        packed = self._dispatch(("spec", B, chunk) + self._sampling_key(), step,
-                                [ids, positions, bt, ctx, slots, n_draft], sampled=self._sampling is not None)
+        with telemetry_span("infer/spec_verify", rows=n, k=chunk - 1):
+            packed = self._dispatch(("spec", B, chunk) + self._sampling_key(), step,
+                                    [ids, positions, bt, ctx, slots, n_draft], rows=(np.full(n, chunk), ctx[:n]),
+                                    sampled=self._sampling is not None)
         self._m_decode_steps.inc()
         self._m_decode_fill.set(n / B)
         packed = packed[:n].cpu().numpy()  # committed ids and the accepted count: the whole readback
@@ -901,6 +1084,10 @@ class InferenceEngineV2:
             total_acc += acc
             self._events.emit("decode", uid, q=q, k=acc + 1, accepted=acc, proposed=int(n_draft[j]))
         total_prop = int(n_draft[:n].sum())
+        # useful = committed tokens (carry + accepted drafts); slots = the whole padded verify window the step ran
+        self._acct.attribute(n + total_acc, B * chunk)
+        self._acct.note_spec(total_prop, total_acc)
+        device_profiler.note_quantum("spec_verify", rows=n, accepted=total_acc)
         self.decode_steps += 1
         self.decode_tokens += n + total_acc
         self.spec_proposed += total_prop
@@ -967,6 +1154,7 @@ class InferenceEngineV2:
             if journal is not None:
                 journal.end_session(self._journal_run_summary())
             self._sampling = None
+            self._update_hbm_gauges()
 
     # ---------------------------------------------------------- journal
     def _program_signatures(self) -> List[str]:
@@ -1018,8 +1206,11 @@ class InferenceEngineV2:
     def _journal_run_summary(self) -> Dict:
         """Run-level accounting folded into the journal's end record: the
         baseline side of a what-if comparison."""
-        return {"dispatches": get_telemetry_registry().peek("infer_dispatches_total") or 0.0,
-                "programs": self._program_signatures()}
+        out: Dict = {"dispatches": get_telemetry_registry().peek("infer_dispatches_total") or 0.0,
+                     "programs": self._program_signatures()}
+        if self._acct.enabled:
+            out["acct_totals"] = dict(self._acct.totals())
+        return out
 
     def _generate(self, prompts, max_new_tokens, eos_token_id, on_token=None) -> List[List[int]]:
         if self._fused_enabled:
@@ -1106,6 +1297,7 @@ class InferenceEngineV2:
                                                    on_token)
 
         while pending or decode_ready:
+            self._health.poll()
             # host-tier pre-spill: start d2h demotions while the pool is under the spill watermark, so they
             # overlap the next step (this also precedes a speculative quantum)
             self.state.spill_tick()
@@ -1157,6 +1349,7 @@ class InferenceEngineV2:
                                                    on_token)
 
         while pending or decode_ready:
+            self._health.poll()
             self.state.spill_tick()  # host-tier pre-spill (see _generate_fused)
             if self._spec_enabled and not pending and decode_ready:
                 if self._spec_quantum(decode_ready, prompts, results, reqs, commit):

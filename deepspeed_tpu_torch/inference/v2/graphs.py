@@ -29,6 +29,11 @@ the host launches one graph instead of every kernel of every layer.
   before the next replay, so no graph reads what another wrote there.
 - The cache holds at most ``capacity`` graphs and evicts the least recently
   used; eviction frees the graph.
+- A capture is the port's counterpart of the reference's compile. It runs
+  under the span ``infer/graph_capture`` (the graph key), whose two timed
+  parts are the spans ``infer/graph_capture/warmup`` (the zero-input run)
+  and ``infer/graph_capture/record`` (the capture itself), so a profile or
+  a span dump names that host time.
 
 There is no eager fallback: a capture or replay that fails raises.
 """
@@ -39,6 +44,8 @@ from typing import Callable, Hashable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ...telemetry import span as telemetry_span
 
 
 class CapturedStep:
@@ -62,14 +69,16 @@ class CapturedStep:
         main = torch.cuda.current_stream(dev)
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
-            fn(*self.inputs, torch.Generator(device=dev))  # warm-up on zero inputs: not counted, not kept
+            with telemetry_span("infer/graph_capture/warmup"):
+                fn(*self.inputs, torch.Generator(device=dev))  # warm-up on zero inputs: not counted, not kept
             warm = [c.launches for c in self._counters]
-            self.graph = torch.cuda.CUDAGraph()
-            if generator is not None:
-                self.graph.register_generator_state(generator)
-            self.graph.capture_begin(pool=pool)
-            self.out = fn(*self.inputs, generator)
-            self.graph.capture_end()
+            with telemetry_span("infer/graph_capture/record"):
+                self.graph = torch.cuda.CUDAGraph()
+                if generator is not None:
+                    self.graph.register_generator_state(generator)
+                self.graph.capture_begin(pool=pool)
+                self.out = fn(*self.inputs, generator)
+                self.graph.capture_end()
         main.wait_stream(stream)
         self._deltas = [c.launches - w for c, w in zip(self._counters, warm)]
         for c, b in zip(self._counters, before):
@@ -123,7 +132,8 @@ class StepGraphs:
                 old.graph.reset()
                 self.evictions += 1
             t0 = time.perf_counter()
-            step = CapturedStep(fn, arrays, generator, self._pool, self._stream, self._counters)
+            with telemetry_span("infer/graph_capture", key=repr(key)):
+                step = CapturedStep(fn, arrays, generator, self._pool, self._stream, self._counters)
             self.capture_s += time.perf_counter() - t0
             self.captures += 1
             self._steps[key] = step

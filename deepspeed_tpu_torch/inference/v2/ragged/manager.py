@@ -21,7 +21,9 @@ pools live in the engine.
   ``flush_all`` ends with ``sanitize_verify`` (refcount drift and leaks,
   with the engine's garbage page registered as a root).
 - The ``kv_*`` gauges and counters and the ``admit`` / ``cow`` events go to
-  the telemetry registry and event log under the reference's names.
+  the telemetry registry and event log under the reference's names; a
+  prefix match runs under the ``infer/prefix_match`` span, and its hit
+  tokens go to the perf accountant's goodput ledger (``note_prefix_hit``).
 """
 
 from dataclasses import dataclass
@@ -31,6 +33,8 @@ import numpy as np
 
 from ....analysis import knobs
 from ....telemetry import get_event_log, get_registry as get_telemetry_registry
+from ....telemetry import span as telemetry_span
+from ....telemetry.costs import get_perf_accountant
 from .blocked_allocator import BlockedAllocator
 from .prefix_cache import PrefixCache
 from .sequence_descriptor import DSSequenceDescriptor
@@ -161,7 +165,8 @@ class DSStateManager:
         if self._prefix_cache is None or seq.seen_tokens or seq.blocks or len(tokens) <= 1:
             self._events.emit("admit", uid, hit=seq.seen_tokens, prompt=len(tokens))
             return seq
-        blocks, matched = self._prefix_cache.match(tokens)
+        with telemetry_span("infer/prefix_match", uid=uid, prompt=len(tokens)):
+            blocks, matched = self._prefix_cache.match(tokens)
         if blocks:
             if matched >= len(tokens):
                 matched = len(tokens) - 1
@@ -169,6 +174,9 @@ class DSStateManager:
             seq.shared_blocks = len(blocks)
             seq.seen_tokens = matched
             seq.token_log = [int(t) for t in tokens[:matched]]
+            # goodput ledger: these tokens never re-run prefill; the accountant prices the saved FLOPs at the
+            # prefill cards' rate
+            get_perf_accountant().note_prefix_hit(matched)
             self._sync_gauges()
         self._events.emit("admit", uid, hit=seq.seen_tokens, prompt=len(tokens))
         return seq

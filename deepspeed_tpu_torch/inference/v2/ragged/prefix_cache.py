@@ -29,14 +29,14 @@ can drop it and hand its slot to that spill).
 Counters (``kv_prefix_*``, ``kv_spill_blocks_total``, ``kv_readmit_*``) and
 gauges (``kv_cached_blocks``, ``kv_spilled_blocks``) go to the telemetry
 registry, and ``spill`` / ``readmit`` / ``evict`` records to the event log,
-under the reference's names. The reference also prices each re-admission in
-its perf accountant (``telemetry/costs.py``), which the port does not have
-yet.
+under the reference's names, and each re-admission's tokens go to the perf
+accountant's goodput ledger (``note_readmit``), priced as saved prefill.
 """
 
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from ....telemetry import get_event_log, get_registry as get_telemetry_registry
+from ....telemetry.costs import get_perf_accountant
 from .blocked_allocator import RES_HOST, RES_INFLIGHT, BlockedAllocator
 
 
@@ -198,6 +198,8 @@ class PrefixCache:
         self._m_readmit_tokens.inc(self._bs)
         self._m_cached.set(self._nodes)
         self._m_spilled.set(self._spilled)
+        # goodput ledger: these tokens came back over an h2d copy instead of re-running prefill
+        get_perf_accountant().note_readmit(self._bs)
         self._events.emit("readmit", blocks=1, tokens=self._bs)
         return True
 

@@ -27,8 +27,12 @@ host), and a rate sweep yields the table.
   installed the run is recorded as a ``sla`` session (the engine's
   fingerprint, the ``LoadSpec``, each request with its scheduled arrival and
   the quantum current at admission, each commit, and the summary), which
-  ``replay.py`` re-drives. The reference's health detectors, ops plane,
-  tuned profile and ``sweep``'s MFU columns are not ported.
+  ``replay.py`` re-drives. A recorded run feeds the health monitor (the
+  queue-stall and SLO-burn detectors: each finished request's TTFT and
+  TPOT, a poll each loop turn), ``run_load`` starts the ops plane when
+  ``DS_TPU_OPS_PORT`` is set, and ``sweep`` adds the perf accountant's
+  columns to each row (``model_flops``, ``mfu`` over the row's wall window,
+  ``goodput_fraction``). The reference's tuned profile is not ported.
 """
 
 import dataclasses
@@ -38,6 +42,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ...telemetry import get_event_log, get_journal, get_registry as get_telemetry_registry
+from ...telemetry.costs import get_perf_accountant
+from ...telemetry.health import QueueStallDetector, SLOBurnRateDetector, get_health_monitor
+from ...telemetry.ops_plane import maybe_start_ops_server
 from .scheduler import RaggedRequest
 
 # SLA-shaped buckets: the FastGen streaming SLA (TTFT <= 1 s, TPOT <= 250 ms)
@@ -117,8 +124,9 @@ def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token
     sleeps to the next one when idle; ``clock="logical"`` admits it once the
     scheduler's quantum clock passes its ``arrival_q`` and, when idle, admits
     the next one at once (the clock cannot advance while idle).
-    ``record``: emit the lifecycle events, observe the TTFT / TPOT histograms
-    and write requests and commits to the installed journal.
+    ``record``: emit the lifecycle events, observe the TTFT / TPOT histograms,
+    feed the health monitor and write requests and commits to the installed
+    journal.
 
     Returns (uid -> committed tokens, the requests' stats in trace order)."""
     if clock not in ("wall", "logical"):
@@ -136,6 +144,11 @@ def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token
     h_tpot = tele.histogram("infer_tpot_seconds", buckets=TPOT_BUCKETS)
     events = get_event_log()
     journal = get_journal() if record else None
+    health = None
+    if record:
+        health = get_health_monitor()
+        health.ensure_detector(QueueStallDetector())
+        health.ensure_detector(SLOBurnRateDetector())
     t0 = time.perf_counter()
 
     def now() -> float:
@@ -193,6 +206,7 @@ def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token
                 if stats[uid].n_new > 1:
                     h_tpot.observe(stats[uid].tpot)
                 events.emit("finish", uid, ts=t0 + t, n_new=stats[uid].n_new)
+                health.observe_request(ttft_s=stats[uid].ttft, tpot_s=stats[uid].tpot)
             engine.flush([uid])
         else:
             decode_ready[uid] = toks_out[-1]
@@ -202,6 +216,8 @@ def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token
 
     while next_i < len(trace) or pending or decode_ready:
         admit()
+        if health is not None:
+            health.poll()
         if not pending and not decode_ready:
             if clock == "logical":
                 admit(force=True)
@@ -271,7 +287,10 @@ def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token
 def run_load(engine, spec: LoadSpec, eos_token_id: Optional[int] = None) -> List[RequestStat]:
     """Drive ``engine`` with ``spec``'s arrival process (``serve_trace`` on
     the wall clock, recorded); returns per-request stats in uid order.
-    Greedy decoding (the SLA story is scheduling, not sampling)."""
+    Greedy decoding (the SLA story is scheduling, not sampling). Starts the
+    ops plane for the run when ``DS_TPU_OPS_PORT`` is set (a live SLA run is
+    what an operator wants to scrape)."""
+    maybe_start_ops_server()
     arrivals, prompts = load_prompts(spec)
     trace = [Arrival(uid=i, prompt=prompts[i], max_new_tokens=spec.max_new_tokens, arrival_s=float(arrivals[i]))
              for i in range(spec.n_requests)]
@@ -317,12 +336,27 @@ def sweep(engine, rates: Sequence[float], base: Optional[LoadSpec] = None, ttft_
           tpot_sla: float = 0.25) -> List[Dict]:
     """The throughput-latency table: one ``summarize`` row per arrival rate
     (the FastGen blog's table shape). The engine's KV pool is reused across
-    rows; each row waits for full drain, so rows are independent."""
+    rows; each row waits for full drain, so rows are independent. With
+    accounting on, each row also carries the model FLOPs attributed in its
+    wall window, the MFU they make over it (None without a known peak) and
+    the goodput fraction."""
     base = base or LoadSpec()
+    acct = get_perf_accountant()
     rows = []
     for rate in rates:
         spec = dataclasses.replace(base, arrival_rate=float(rate))
+        before = acct.totals() if acct.enabled else None
+        t0 = time.perf_counter()
         row = summarize(run_load(engine, spec), ttft_sla=ttft_sla, tpot_sla=tpot_sla)
+        if before is not None:
+            dt = time.perf_counter() - t0
+            after = acct.totals()
+            flops = after["flops"] - before["flops"]
+            slot = after["slot_tokens"] - before["slot_tokens"]
+            mfu = acct.mfu(flops=flops, time_s=dt)
+            row["model_flops"] = int(flops)
+            row["mfu"] = round(mfu, 4) if mfu is not None else None
+            row["goodput_fraction"] = round((after["useful_tokens"] - before["useful_tokens"]) / slot, 4) if slot else 0.0
         row["arrival_rate"] = float(rate)
         rows.append(row)
     return rows

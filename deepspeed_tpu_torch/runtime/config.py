@@ -4,7 +4,8 @@ Port of ``deepspeed_tpu/runtime/config.py`` and the keys of
 ``runtime/constants.py`` that the engine reads: the three batch sizes and
 their triangulation (data-parallel size 1), ``optimizer``, ``scheduler``,
 ``fp16``, ``bf16``, ``zero_optimization.stage``, ``gradient_clipping``,
-``fused_step``, ``steps_per_print`` and ``data_types.grad_accum_dtype``.
+``fused_step``, ``steps_per_print``, ``data_types.grad_accum_dtype`` and
+the monitor sections (``tensorboard``, ``wandb``, ``csv_monitor``).
 A section the port does not implement raises ``NotImplementedError`` when
 the config enables it: it is never silently ignored.
 """
@@ -22,8 +23,7 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 
 # sections whose "enabled": true this slice cannot honour
 _UNPORTED_ENABLED = ("hybrid_engine", "progressive_layer_drop", "curriculum_learning", "random_ltd", "eigenvalue",
-                     "flops_profiler", "tensorboard", "wandb", "csv_monitor", "comms_logger", "autotuning",
-                     "elasticity")
+                     "flops_profiler", "comms_logger", "autotuning", "elasticity")
 # sections that are on whenever they are present and not empty
 _UNPORTED_PRESENT = ("compression_training", "data_efficiency", "pipeline")
 
@@ -51,6 +51,28 @@ class FP16Config:
 @dataclass
 class BF16Config:
     enabled: bool = False
+
+
+@dataclass
+class TensorBoardConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclass
+class WandbConfig:
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+@dataclass
+class CSVConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
 
 
 @dataclass
@@ -123,6 +145,9 @@ class DeepSpeedConfig:
         # run the same way whatever its value
         self.fused_step = fused
         self.steps_per_print = int(d.get("steps_per_print", 10))
+        self.tensorboard = _from_dict(TensorBoardConfig, d.get("tensorboard"))
+        self.wandb = _from_dict(WandbConfig, d.get("wandb"))
+        self.csv_monitor = _from_dict(CSVConfig, d.get("csv_monitor"))
         self.gradient_accumulation_dtype = (d.get("data_types") or {}).get("grad_accum_dtype")
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")

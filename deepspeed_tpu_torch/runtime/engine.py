@@ -20,15 +20,35 @@ as in the reference.
 PyTorch runs eagerly, so the reference's ``fused_step`` (one XLA program for
 forward, backward and update) has nothing to fuse: the key is accepted and
 the step runs the same way with it on or off.
+
+Telemetry is the reference's: the ``train_*`` counters and gauges, the
+spans ``train/forward``, ``train/backward`` and ``train/step``, the
+``train_mfu`` gauge (a model config's FLOPs from shapes, ``telemetry/
+costs.py``, over the host's step-to-step wall time against
+``resolve_peaks``), the non-finite-loss and grad-norm-spike detectors fed
+only where a host sync already happens (the periodic report and the
+monitor flush), the registry flushed into the ``tensorboard`` / ``wandb`` /
+``csv_monitor`` writers through the ``MonitorBridge``, and the ops plane and
+flight recorder when their knobs are set. Each optimizer step is a quantum
+boundary for the device profiler (``train_step``).
 """
 
 import logging
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..analysis import knobs
 from ..device import resolve_device
+from ..telemetry import MonitorBridge, get_registry as get_telemetry_registry
+from ..telemetry import profiler as device_profiler
+from ..telemetry import span as telemetry_span
+from ..telemetry.costs import attention_macs, forward_macs, resolve_peaks
+from ..telemetry.flight import maybe_attach_flight_recorder
+from ..telemetry.health import GradNormSpikeDetector, NonFiniteLossDetector, get_health_monitor
+from ..telemetry.ops_plane import maybe_start_ops_server
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader
 from .fp16.loss_scaler import create_loss_scaler
@@ -39,6 +59,25 @@ logger = logging.getLogger(__name__)
 
 _ACC_DTYPES = {None: torch.float32, "fp32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
                "bfloat16": torch.bfloat16, "fp16": torch.float16, "float16": torch.float16, "half": torch.float16}
+
+
+def _batch_tokens(batch) -> int:
+    """Token count of a micro-batch from shape metadata only (never reads
+    device data)."""
+    ids = batch.get("input_ids") if isinstance(batch, dict) else None
+    shape = getattr(ids, "shape", None)
+    if shape is not None and len(shape) >= 2:
+        return int(shape[0]) * int(shape[1])
+    return 0
+
+
+def train_flops(cfg, batch: int, seq: int) -> int:
+    """Model FLOPs of one training micro-batch of ``batch`` x ``seq`` tokens
+    of a ``TransformerConfig``: the forward's products (every position
+    reaches the LM head) and causal attention over the visible pairs, times
+    three for forward and backward."""
+    macs = forward_macs(cfg, batch * seq, batch * seq) + attention_macs(cfg, [seq] * batch, [seq] * batch)
+    return 3 * 2 * macs
 
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -70,6 +109,7 @@ class DeepSpeedEngine:
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         self.config.resolve_batch_sizes(1)
         self.device = resolve_device(device)
+        self._model_cfg = getattr(model, "cfg", None)  # a TransformerConfig prices the MFU gauge
         if callable(getattr(model, "loss_fn", None)):
             self._loss_fn = model.loss_fn
         elif callable(model):
@@ -119,6 +159,60 @@ class DeepSpeedEngine:
         self.train_micro_batch_size_per_gpu = self.config.train_micro_batch_size_per_gpu
         self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn) \
             if training_data is not None else None
+        self._last_loss = None
+        self._configure_telemetry()
+
+    # ------------------------------------------------------------------ telemetry
+    def _configure_telemetry(self) -> None:
+        """Handles resolved once; per-step cost is attribute checks and float
+        adds. Gauges that need a device-to-host sync (loss, grad norm) are
+        set only where a sync already happens (``_report``, monitor flush)."""
+        tele = get_telemetry_registry()
+        self.telemetry = tele
+        self._m_steps = tele.counter("train_steps_total")
+        self._m_micro = tele.counter("train_microbatches_total")
+        self._m_samples = tele.counter("train_samples_total")
+        self._m_tokens = tele.counter("train_tokens_total")
+        self._m_overflow = tele.counter("train_overflow_steps_total")
+        self._m_loss_scale = tele.gauge("train_loss_scale")
+        self._m_lr = tele.gauge("train_lr")
+        self._m_loss = tele.gauge("train_loss")
+        self._m_gnorm = tele.gauge("train_grad_norm")
+        self._m_tps = tele.gauge("train_tokens_per_sec")
+        self._m_mfu = tele.gauge("train_mfu")
+        self._m_heartbeat = tele.gauge("last_step_completed_unix")
+        # one device: no gradient sync, so the counter stays 0 (the reference's name, for the same dashboards)
+        self._m_grad_sync_bytes = tele.counter("comm_bytes_total", op="grad_sync_estimated")
+        self._last_microbatch_tokens = 0
+        self._last_step_pc = None
+        self._step_flops = 0  # model FLOPs of one micro-batch, from shapes; 0: unknown and the MFU gauge stays 0
+        self._step_flops_shape = None
+        self._peak_flops: Optional[float] = None
+        self.global_samples = 0
+        self.monitor = self._configure_monitor()
+        self._monitor_bridge = MonitorBridge(tele, self.monitor,
+                                             every_n_steps=knobs.get_int("DS_TPU_TELEMETRY_FLUSH_STEPS"))
+        self.health = get_health_monitor()
+        self.health.ensure_detector(NonFiniteLossDetector())
+        self.health.ensure_detector(GradNormSpikeDetector())
+        maybe_start_ops_server()
+        maybe_attach_flight_recorder(self.health)
+
+    def _configure_monitor(self):
+        from ..monitor.monitor import MonitorMaster
+
+        m = MonitorMaster(self.config)
+        return m if m.enabled else None
+
+    def _note_step_flops(self, batch) -> None:
+        """Price a micro-batch when its (batch, seq) shape changes (shapes only)."""
+        ids = batch.get("input_ids") if isinstance(batch, dict) else None
+        shape = tuple(getattr(ids, "shape", ()))
+        if shape == self._step_flops_shape or len(shape) < 2 or not knobs.get_int("DS_TPU_PERF_ACCOUNT"):
+            return
+        self._step_flops_shape = shape
+        cfg = self._model_cfg
+        self._step_flops = train_flops(cfg, shape[0], shape[1]) if hasattr(cfg, "n_layers") else 0
 
     # ------------------------------------------------------------------ data
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None) -> DeepSpeedDataLoader:
@@ -145,26 +239,37 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ train loop
     def forward(self, batch):
         """The loss of one micro-batch, with the graph kept for ``backward``."""
-        return self._loss_fn(self._compute_params(), self._put_batch(batch), None)
+        with telemetry_span("train/forward"):
+            self._last_microbatch_tokens = _batch_tokens(batch)
+            self._note_step_flops(batch)
+            loss = self._loss_fn(self._compute_params(), self._put_batch(batch), None)
+        self._last_loss = loss.detach()  # read back only where a sync already happens
+        return loss
 
     __call__ = forward
 
     def backward(self, loss, retain_graph: bool = False):
         """Back-propagate ``loss * loss_scale / gas`` and accumulate the fp32
         master gradients (in ``grad_accum_dtype``)."""
-        scale = self.loss_scaler.loss_scale / self.gradient_accumulation_steps
-        (loss.float() * scale).backward(retain_graph=retain_graph)
-        grads = []
-        for p in self._leaves:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            p.grad = None
-            grads.append(g)
-        if self._grad_acc is None:
-            self._grad_acc = [g.to(self._grad_acc_dtype) for g in grads]
-        else:
-            for a, g in zip(self._grad_acc, grads):
-                a.add_(g.to(a.dtype))
-        self.micro_steps += 1
+        with telemetry_span("train/backward"):
+            scale = self.loss_scaler.loss_scale / self.gradient_accumulation_steps
+            (loss.float() * scale).backward(retain_graph=retain_graph)
+            grads = []
+            for p in self._leaves:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.grad = None
+                grads.append(g)
+            if self._grad_acc is None:
+                self._grad_acc = [g.to(self._grad_acc_dtype) for g in grads]
+            else:
+                for a, g in zip(self._grad_acc, grads):
+                    a.add_(g.to(a.dtype))
+            self.micro_steps += 1
+            self.global_samples += self.train_micro_batch_size_per_gpu
+            self._m_micro.inc()
+            self._m_samples.inc(self.train_micro_batch_size_per_gpu)
+            if self._last_microbatch_tokens:
+                self._m_tokens.inc(self._last_microbatch_tokens)
         return loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -195,26 +300,79 @@ class DeepSpeedEngine:
         if not self.is_gradient_accumulation_boundary():
             self._last_overflow = None  # no-op step (reference was_step_applied contract)
             return
-        lr = self._next_lr()
-        # grads were pre-scaled by loss_scale / gas; undo loss_scale here (the
-        # 1 / gas factor stays: the summed micro-gradients become the mean)
-        gnorm, overflow = self._apply_updates(self._grad_acc, 1.0 / self.loss_scaler.loss_scale, lr)
-        self._grad_acc = None
-        self._global_grad_norm = gnorm
-        self._last_overflow = overflow
-        if self.loss_scaler.dynamic:
-            # dynamic fp16 scaling needs the flag on the host now: the scale
-            # feeds the next step (the reference pays the same sync)
-            overflow_host = bool(overflow)
-            self.loss_scaler.update_scale(overflow_host)
-            if overflow_host:
-                self._skipped_host += 1
-                logger.info(f"step {self.global_steps}: grad overflow — step skipped, "
-                            f"loss scale -> {self.loss_scaler.loss_scale}")
-        else:
-            self._skipped_dev = overflow.to(torch.int32) if self._skipped_dev is None \
-                else self._skipped_dev + overflow.to(torch.int32)
-        self.global_steps += 1
+        with telemetry_span("train/step"):
+            lr = self._next_lr()
+            # grads were pre-scaled by loss_scale / gas; undo loss_scale here (the
+            # 1 / gas factor stays: the summed micro-gradients become the mean)
+            gnorm, overflow = self._apply_updates(self._grad_acc, 1.0 / self.loss_scaler.loss_scale, lr)
+            self._grad_acc = None
+            self._global_grad_norm = gnorm
+            self._last_overflow = overflow
+            if self.loss_scaler.dynamic:
+                # dynamic fp16 scaling needs the flag on the host now: the scale
+                # feeds the next step (the reference pays the same sync)
+                overflow_host = bool(overflow)
+                self.loss_scaler.update_scale(overflow_host)
+                if overflow_host:
+                    self._skipped_host += 1
+                    self._m_overflow.inc()
+                    logger.info(f"step {self.global_steps}: grad overflow — step skipped, "
+                                f"loss scale -> {self.loss_scaler.loss_scale}")
+            else:
+                self._skipped_dev = overflow.to(torch.int32) if self._skipped_dev is None \
+                    else self._skipped_dev + overflow.to(torch.int32)
+            self.global_steps += 1
+        self._step_telemetry(lr)
+
+    def _step_telemetry(self, lr: float) -> None:
+        """Dispatch-boundary telemetry: counters, gauges, heartbeat, no device
+        read; the loss and grad-norm gauges and detectors update where a sync
+        already happens (``_report``, the monitor flush)."""
+        self._m_steps.inc()
+        self._m_loss_scale.set(self.loss_scaler.loss_scale)
+        self._m_lr.set(lr)
+        self._m_heartbeat.set(time.time())
+        now_pc = time.perf_counter()
+        if self._last_step_pc is not None and now_pc > self._last_step_pc and self._last_microbatch_tokens:
+            # dispatch rate, not device rate: honest once the host runs no further ahead of the device than its
+            # queue allows
+            dt = now_pc - self._last_step_pc
+            self._m_tps.set(self._last_microbatch_tokens * self.gradient_accumulation_steps / dt)
+            if self._step_flops:
+                if self._peak_flops is None:
+                    self._peak_flops = resolve_peaks()[0]
+                if self._peak_flops > 0:
+                    self._m_mfu.set(self._step_flops * self.gradient_accumulation_steps / dt / self._peak_flops)
+        self._last_step_pc = now_pc
+        if self.global_steps % self.config.steps_per_print == 0:
+            self._report(lr)
+        if self.monitor is not None:
+            # registry -> monitor bridge; the legacy Train/Samples/* series ride along verbatim
+            extra = [("Train/Samples/lr", lr, self.global_samples)]
+            if self._last_loss is not None:
+                loss_host = float(self._last_loss)
+                self._m_loss.set(loss_host)
+                self.health.observe_loss(loss_host)
+                extra.append(("Train/Samples/train_loss", loss_host, self.global_samples))
+            self._monitor_bridge.maybe_flush(self.global_steps, extra_events=extra)
+        device_profiler.note_quantum("train_step", step=self.global_steps)
+
+    def _report(self, lr: float) -> None:
+        """The periodic log line (every ``steps_per_print`` steps): the one
+        place besides the monitor flush that reads the loss and the grad
+        norm back, and so where their gauges and detectors update."""
+        loss = float(self._last_loss) if self._last_loss is not None else float("nan")
+        skipped = self.skipped_steps
+        self._m_loss.set(loss)
+        if self._last_loss is not None:
+            self.health.observe_loss(loss)
+        gnorm = float(self._global_grad_norm) if self._global_grad_norm is not None else float("nan")
+        if self._global_grad_norm is not None:
+            self._m_gnorm.set(gnorm)
+            self.health.observe_grad_norm(gnorm)
+        skip_note = f" skipped={skipped}" if skipped else ""
+        logger.info(f"step={self.global_steps} loss={loss:.4f} lr={lr:.3e} "
+                    f"loss_scale={self.loss_scaler.loss_scale:.0f} gnorm={gnorm:.3f}{skip_note}")
 
     def _next_lr(self) -> float:
         lr = float(self._base_lr)

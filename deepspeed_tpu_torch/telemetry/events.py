@@ -9,9 +9,10 @@ serving request leaves an append-only timeline
             -> decode(q, k)* -> finish(n_new)
 
 plus out-of-band ``quantum`` / ``cow`` / ``evict`` / ``spill`` /
-``readmit`` records, emitted from the scheduler, the engine's dispatch and
-commit sites, the ragged state manager, the prefix cache and the SLA
-harness. Design constraints mirror the registry:
+``readmit`` / ``alert`` records, emitted from the scheduler, the engine's
+dispatch and commit sites, the ragged state manager, the prefix cache, the
+SLA harness and the health monitor. Listeners (``add_listener``: the
+health monitor) see every emit. Design constraints mirror the registry:
 
 - **hot-path cheap**: an enabled ``emit`` is one attribute check, one
   dict build, and one bounded ``deque.append``; no event reads a device
@@ -37,7 +38,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..analysis import knobs
 from .registry import get_registry
@@ -72,6 +73,7 @@ class EventLog:
         self._sink_path: Optional[str] = None
         self._sink_queue = int(sink_queue)
         self._atexit_registered = False
+        self._listeners: List[Callable] = []
         if sink_path:
             self.open_sink(sink_path)
 
@@ -99,6 +101,22 @@ class EventLog:
                 q.put_nowait(ev)
             except queue.Full:
                 self._m_dropped.inc()
+        for fn in self._listeners:
+            try:
+                fn(ts, kind, uid, attrs)
+            except Exception:
+                pass  # telemetry must never take down the serving loop
+
+    # --------------------------------------------------------- listeners
+    def add_listener(self, fn: Callable) -> None:
+        """Register ``fn(ts, kind, uid, attrs)``, called on every emit
+        (synchronously: keep it cheap; the HealthMonitor uses this)."""
+        if fn not in self._listeners:
+            self._listeners.append(fn)
+
+    def remove_listener(self, fn: Callable) -> None:
+        if fn in self._listeners:
+            self._listeners.remove(fn)
 
     # -------------------------------------------------------- JSONL sink
     def open_sink(self, path: str) -> None:

@@ -43,12 +43,14 @@ import json
 import os
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional
 
 from ..analysis import knobs
 from .registry import get_registry
 
 JOURNAL_SCHEMA = 1
+DEFAULT_TAIL = 256  # records kept in memory for flight captures and GET /journal
 
 
 def resolved_knobs() -> Dict:
@@ -86,11 +88,12 @@ class Journal:
     when recording is attached but idle.
     """
 
-    def __init__(self, path: Optional[str] = None, registry=None):
+    def __init__(self, path: Optional[str] = None, tail: int = DEFAULT_TAIL, registry=None):
         self.path = str(path) if path else None
         self.meta: Dict = {}  # caller metadata merged into the next session record
         self.active = False
         self.records: List[Dict] = []  # memory mode only (path=None)
+        self._tail = deque(maxlen=max(1, int(tail)))
         self._file = None
         self._lock = threading.Lock()
         self._session_seq = 0
@@ -108,6 +111,7 @@ class Journal:
     def _write(self, rec: Dict) -> None:
         line = json.dumps(rec, sort_keys=True, default=str)
         with self._lock:
+            self._tail.append(rec)
             if self._file is not None:
                 self._file.write(line + "\n")
             else:
@@ -202,6 +206,18 @@ class Journal:
 
     def digest(self, uid: int) -> Optional[str]:
         return self._digests.get(int(uid))
+
+    def tail(self, n: int = 64) -> List[Dict]:
+        with self._lock:
+            return list(self._tail)[-max(0, int(n)):]
+
+    def manifest_section(self, tail: int = 64) -> Dict:
+        """Bounded summary for flight manifests and ``GET /journal``."""
+        return {"enabled": True, "path": self.path, "active": self.active,
+                "sessions_total": self._session_seq,
+                "records_total": get_registry().peek("journal_records_total") or 0.0,
+                "bytes_total": get_registry().peek("journal_bytes_total") or 0.0,
+                "tail": self.tail(tail)}
 
 
 # ------------------------------------------------------------- singleton

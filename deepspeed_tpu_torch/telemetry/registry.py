@@ -16,15 +16,16 @@ it. Design constraints, in order:
   float adds on per-metric slots.
 
 Exports ``render_prometheus()`` (text exposition, stable series names
-matching ``[a-z_][a-z0-9_]*``). The reference's ``series()`` and
-``snapshot()`` feed its monitor bridge, aggregation and flight recorder,
-which the port does not have yet.
+matching ``[a-z_][a-z0-9_]*``), ``series()`` (the flat pairs the monitor
+bridge writes) and ``snapshot()`` (a JSON-able, rank-stamped dump for the
+ops plane, the flight recorder and the rank merge).
 """
 
 import bisect
 import re
 import threading
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, Iterator, Optional, Tuple
 
 from ..analysis import knobs
 
@@ -232,6 +233,39 @@ class MetricsRegistry:
                 else:
                     lines.append(f"{name}{_fmt_labels(labels)} {_fmt_value(m.value)}")
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def series(self) -> Iterator[Tuple[str, float]]:
+        """Flat (dotted_name, value) pairs for every series: the shape the
+        MonitorBridge feeds to event writers (dots, not braces, so CSV
+        filenames stay readable). Histograms flatten to _count/_sum."""
+        for (name, labels), m in sorted(self._metrics.items()):
+            suffix = "".join(f".{k}.{v}" for k, v in labels)
+            if m.kind == "histogram":
+                yield f"{name}_count{suffix}", float(m.count)
+                yield f"{name}_sum{suffix}", float(m.sum)
+            else:
+                yield f"{name}{suffix}", float(m.value)
+
+    def snapshot(self) -> Dict:
+        """JSON-able dump of every series, stamped with this process's rank."""
+        counters: Dict[str, float] = {}
+        gauges: Dict[str, float] = {}
+        histograms: Dict[str, Dict] = {}
+        for (name, labels), m in sorted(self._metrics.items()):
+            series = name + _fmt_labels(labels)
+            if m.kind == "counter":
+                counters[series] = m.value
+            elif m.kind == "gauge":
+                gauges[series] = m.value
+            else:
+                histograms[series] = {
+                    "sum": m.sum, "count": m.count,
+                    "buckets": {("+Inf" if le == float("inf") else format(le, "g")): c
+                                for le, c in m.cumulative()},
+                }
+        from .agg import rank_stamp
+        return {"ts_unix": time.time(), "enabled": self.enabled, "rank": rank_stamp(),
+                "counters": counters, "gauges": gauges, "histograms": histograms}
 
     def reset(self) -> None:
         """Zero every series IN PLACE. Handles cached by long-lived objects

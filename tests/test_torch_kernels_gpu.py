@@ -1925,3 +1925,123 @@ def test_spill_tier_steady_state_takes_no_new_capture(cuda):
     engine.state.prefix_cache.evict(engine.state.total_blocks)
     assert engine.generate(SPILL_PROMPTS, max_new_tokens=8) == first
     assert engine.graphs.captures == captures
+
+
+# ---------------------------------------------------------------- telemetry on the card
+def test_profiler_counts_the_kernels_of_a_replayed_graph(cuda, tmp_path):
+    """A captured CUDA graph replays as one launch on the host; the device
+    profiler's capture still counts its kernels as device time, quantum by
+    quantum (cut by the in-trace markers)."""
+    from deepspeed_tpu_torch.telemetry import profiler
+
+    a = torch.randn(2048, 2048, device=cuda)
+    out = torch.empty_like(a)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(torch.relu(a @ a))  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(torch.relu(a @ a))
+    torch.cuda.synchronize()
+    prof = profiler.DeviceProfiler(out_dir=str(tmp_path), quanta=4)
+    prof.arm()
+    prof.note_quantum("fused_step")  # starts the trace
+    for _ in range(4):
+        for _ in range(5):
+            graph.replay()
+        torch.cuda.synchronize()
+        prof.note_quantum("fused_step")
+    s = prof.summary()
+    assert (s["trace"], s["marker_clock"], s["n_quanta"]) == ("ok", "trace", 4)
+    assert s["totals"]["compute_s"] > 0 and all(q["compute_s"] > 0 for q in s["quanta"])
+    doc = profiler.load_trace(profiler.find_trace_files(s["trace_dir"])[-1])
+    kernels = [e for e in doc["traceEvents"] if e.get("cat") == "kernel"]
+    assert len(kernels) >= 4 * 5 * 2  # at least a matmul and a relu a replay
+    assert 0.0 < s["fractions"]["device_busy"] <= 1.0
+
+
+def test_second_profiler_arm_degrades_to_a_span_only_summary(cuda, tmp_path):
+    """While a torch.profiler session runs (a caller's), a device-profiler
+    capture cannot start a second one: it degrades to a marker-only summary
+    and the running session keeps recording the card's kernels."""
+    from deepspeed_tpu_torch.telemetry import profiler
+
+    a = torch.randn(1024, 1024, device=cuda)
+    handle = profiler.start_trace(str(tmp_path))
+    try:
+        prof = profiler.DeviceProfiler(out_dir=str(tmp_path / "second"), quanta=2)
+        prof.arm()
+        for _ in range(3):
+            (a @ a).sum()
+            torch.cuda.synchronize()
+            prof.note_quantum("decode")
+        s = prof.summary()
+        assert (s["trace"], s["marker_clock"], s["n_quanta"]) == ("unavailable", "host", 2)
+        assert s["totals"]["device_busy_s"] == 0.0
+    finally:
+        path = profiler.stop_trace(handle, str(tmp_path))
+    kernels = [e for e in profiler.load_trace(path)["traceEvents"] if e.get("cat") == "kernel"]
+    assert len(kernels) >= 3
+
+
+def test_blocking_span_leaves_the_spill_streams_copies_running(cuda):
+    """A blocking span waits for the current stream only: a spill d2h queued
+    behind about a second of device time on the spill stream is still in
+    flight after the span, and lands afterwards."""
+    from deepspeed_tpu_torch.inference.v2.ragged.host_tier import HostKVPool, SpillManager
+    from deepspeed_tpu_torch.telemetry import tracing
+
+    dev_pool = torch.randn(2, 2, 16, 2, 64, device=cuda).to(torch.bfloat16)
+    pool = HostKVPool(1, [(2, 16, 2, 64)], [torch.bfloat16], pin=True)
+    mgr = SpillManager(pool, lambda b: [dev_pool[:, b:b + 1].clone()], cuda)
+    tr = tracing.SpanTracer()
+    x = torch.randn(256, 256, device=cuda)
+    y = torch.mm(x, x)
+    # one spill and one product first, so that nothing below allocates: a cudaMalloc would wait for the whole card
+    slot = pool.try_alloc_slot()
+    mgr.spill_async(0, slot)
+    mgr.wait_all(30.0)
+    assert mgr.drain() == [(0, slot)]
+    pool.free_slot(slot)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(mgr._stream):
+        torch.cuda._sleep(2_000_000_000)
+    mgr.spill_async(1, pool.try_alloc_slot())
+    with tr.span("infer/decode", blocking=True):
+        torch.mm(x, x, out=y)
+    assert torch.cuda.current_stream().query()  # the span's own stream was waited for
+    assert mgr.inflight == 1 and mgr.drain() == []  # the spill stream's copy was not
+    mgr.wait_all(30.0)
+    assert mgr.drain() == [(1, 0)] and torch.equal(pool.read(0)[0], dev_pool[:, 1].cpu())
+
+
+def test_accounted_deferred_step_makes_no_host_sync(cuda):
+    """With the perf accountant on (the default), spans and events on, a
+    deferred decode step replayed from its graph makes no host sync (the
+    sync debug mode raises on one), and is attributed to its card."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, max_seq_len=512,
+                            norm="rmsnorm", activation="swiglu", pos_emb="rope", tie_embeddings=False)
+    engine = InferenceEngineV2(cfg, init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+                               RaggedInferenceEngineConfig(state_manager=RaggedBatchConfig(
+                                   kv_block_size=16, max_context=512, num_kv_blocks=64), dtype="bfloat16",
+                                   device="cuda"))
+    acct = telemetry.get_perf_accountant()
+    assert acct.enabled
+    first = engine.put([0, 1], [list(range(5, 40)), list(range(7, 20))], return_tokens=True, _defer=True)
+    carry = engine.put([0, 1], [[first[0]], [first[1]]], return_tokens=True, _defer=True)  # captures decode
+    torch.cuda.synchronize()
+    timed = sum(c.timed_calls for c in acct.cards().values())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = engine.put([0, 1], [[carry[0]], [carry[1]]], return_tokens=True, _defer=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sum(c.timed_calls for c in acct.cards().values()) == timed + 1
+    assert telemetry.get_tracer().spans()[-1]["name"] == "infer/decode"
+    assert all(0 <= int(t) < cfg.vocab_size for t in carry)

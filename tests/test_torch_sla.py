@@ -147,6 +147,10 @@ def test_sweep_shape(tiny):
     rows = sla.sweep(engine(), rates=[50.0, 200.0], base=base)
     assert [r["arrival_rate"] for r in rows] == [50.0, 200.0]
     for r in rows:
+        # the reference's columns, with the perf accountant's (DS_TPU_PERF_ACCOUNT defaults to 1): model FLOPs
+        # attributed in the row's window, MFU over it (None without a known peak, as on the CPU), goodput
         assert set(r) == {"n_requests", "tokens_per_sec", "requests_per_sec", "ttft_p50_s", "ttft_p95_s",
-                          "ttft_p99_s", "tpot_p50_s", "tpot_p95_s", "sla_miss_frac", "arrival_rate"}
+                          "ttft_p99_s", "tpot_p50_s", "tpot_p95_s", "sla_miss_frac", "arrival_rate",
+                          "model_flops", "mfu", "goodput_fraction"}
         assert r["n_requests"] == 3
+        assert r["model_flops"] > 0 and r["mfu"] is None and 0.0 < r["goodput_fraction"] <= 1.0
