@@ -153,7 +153,8 @@ Phases, each fatal on failure:
    depth in bf16 (micro-batch 8 x 1024, FusedAdam, WarmupLR, clip 1.0) for
    12 steps on one seeded batch; losses finite and falling; tokens/s, step
    time, MFU and peak memory over steps 3-12 (the engine's ``train_mfu``
-   gauge must lie within 2 % of that MFU), with the launch counters
+   gauge must lie within 2 % of the MFU of the last step's host interval,
+   the one the gauge reads), with the launch counters
    zeroed before those steps and read after (A, B, C: 24 per step; D: one
    for each 512 leaves, so one). ``--profile`` adds a torch.profiler
    breakdown of one step.
@@ -186,6 +187,19 @@ Phases, each fatal on failure:
    kernels must launch), output and gradients against the same call on the
    plain versions, ms per forward + backward and peak memory beside the
    plain path and SDPA with the token mask.
+13. train_zero (last, after the LAMB training run): the ``train`` run at
+   ZeRO stages 0, 1, 2 and 3 with FusedAdam and at stage 2 with LAMB, through
+   ``comm.init_distributed`` (NCCL, world 1): step ms, tokens/s, peak
+   memory, the engine's collectives a step (calls and bytes) and stage 3's
+   gathered peak; every run's losses equal the ``train`` (or ``train
+   lamb``) run's bit for bit, and the flash kernels and ``fused_adam`` (or
+   ``lamb_direction``) launch as often as there;
+14. ckpt: gpt2_1_3b widths at 2 layers, stage 2: 12 straight steps; 6 steps,
+   a native checkpoint saved synchronously and on the background thread
+   and a universal one (bytes, seconds); fresh engines resume the native
+   one at stage 2 and the universal one at stage 3 and train 6 more steps,
+   equal to the straight run's last 6 bit for bit; ``zero_to_fp32`` equals
+   the saved masters.
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -3041,10 +3055,12 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
-    t0 = time.perf_counter()
-    losses += [engine.train_batch(data) for _ in range(TRAIN_STEPS - TIMED_FROM)]
+    stamps = [time.perf_counter()]
+    for _ in range(TRAIN_STEPS - TIMED_FROM):
+        losses.append(engine.train_batch(data))
+        stamps.append(time.perf_counter())  # host, as the engine stamps its step interval
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - stamps[0]
     launches = {fn.__name__: fn.launches for fn in counters}
     losses = [float(x) for x in losses]
     steps = TRAIN_STEPS - TIMED_FROM
@@ -3054,10 +3070,15 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     # plus attention's two products, forward and backward (3x), over the causal pairs
     flops = 6 * n_params * tokens + 12 * cfg.n_layers * MICRO * cfg.n_heads * cfg.head_dim * pairs
     step_s = wall / steps
-    # the engine's own gauge: FLOPs from shapes over the last step's host interval, against resolve_peaks
+    # the engine's own gauge: FLOPs from shapes over the last step's host interval, against resolve_peaks;
+    # it is held to this phase's FLOPs over the same interval (LAMB's steps spread by tens of ms, so one
+    # step's rate is not the mean's)
     train_mfu = telemetry.get_registry().peek("train_mfu")
+    last_step_s = stamps[-1] - stamps[-2]
+    last_step_mfu = flops / last_step_s / PEAK_FLOPS["torch.bfloat16"]
     rec = dict(phase="train", model="gpt2_1_3b", optimizer=optimizer, layers=cfg.n_layers, d_model=cfg.d_model,
-               params=n_params, train_mfu=train_mfu, engine_step_flops=engine._step_flops,
+               params=n_params, train_mfu=train_mfu, last_step_ms=last_step_s * 1e3, last_step_mfu=last_step_mfu,
+               engine_step_flops=engine._step_flops,
                leaves=len(engine.parameters()), dtype="bfloat16", micro_batch=MICRO, seq=SEQ, steps=TRAIN_STEPS,
                timed_steps=f"{TIMED_FROM + 1}-{TRAIN_STEPS}", losses=losses, step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s, model_flops_per_step=flops, mfu=flops / step_s / PEAK_FLOPS[
@@ -3067,9 +3088,9 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
     log(rec)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
-    if not (train_mfu and abs(train_mfu / rec["mfu"] - 1) <= 0.02):
+    if not (train_mfu and abs(train_mfu / last_step_mfu - 1) <= 0.02):
         raise AssertionError(f"train: the engine's train_mfu {train_mfu} is not within 2 % of the phase's MFU "
-                             f"{rec['mfu']}")
+                             f"over the last step, {last_step_mfu}")
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
             OPT_COUNTER[optimizer]: opt_launches(optimizer, rec["leaves"])}
     bad = {name: launches[name] / steps for name in want if launches[name] != want[name] * steps}
@@ -3077,6 +3098,170 @@ def phase_train(torch, dev, counters, profile=False, optimizer="FusedAdam"):
         raise AssertionError(f"train: launches per step {bad}, expected {want}")
     if profile:
         profile_train(torch, engine, data, optimizer)
+    return rec
+
+
+# ZeRO stages on the card at world 1 (one process over NCCL): the same gpt2_1_3b run as ``train`` at each stage,
+# and LAMB at stage 2. The planner shards nothing at world 1 (as the JAX planner, a ZeRO axis of size 1), so the
+# stages differ by their machinery: stage 0 and 1 all-reduce the gradients at the step, stage 2 after every
+# backward, stage 3 after every block's backward, gathering each block in bf16 before it runs and again for its
+# backward. The losses must equal stage 0's bit for bit.
+ZERO_RUNS = [(0, "FusedAdam"), (1, "FusedAdam"), (2, "FusedAdam"), (3, "FusedAdam"), (2, "Lamb")]
+
+
+def comm_per_step(before: dict, after: dict, steps: int) -> dict:
+    return {op: {"calls": (c - before.get(op, [0, 0])[0]) / steps, "bytes": (b - before.get(op, [0, 0])[1]) / steps}
+            for op, (c, b) in after.items()}
+
+
+def zero_run(torch, dev, counters, stage: int, optimizer: str, n_layers=None, steps=TRAIN_STEPS) -> dict:
+    """``steps`` steps of gpt2_1_3b (``n_layers`` of them) at ``stage`` on phase_train's seeded batch; steps
+    TIMED_FROM+1.. timed, with the engine's collectives a step."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    cfg = gpt2_cfg(dtype=torch.bfloat16, **({"n_layers": n_layers} if n_layers else {}))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    config = dict(train_config(torch, optimizer, torch.bfloat16), zero_optimization={"stage": stage})
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+    del params
+    torch.cuda.empty_cache()
+    data = itertools.repeat(train_batch_data(np, cfg.vocab_size))
+    losses = [engine.train_batch(data) for _ in range(TIMED_FROM)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    comm0 = {op: list(v) for op, v in engine.comm_stats.items()}
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(data) for _ in range(steps - TIMED_FROM)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = steps - TIMED_FROM
+    return dict(engine=engine, losses=[float(x) for x in losses], step_ms=wall / timed * 1e3,
+                tokens_per_s=MICRO * SEQ * timed / wall, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+                comm_per_step=comm_per_step(comm0, engine.comm_stats, timed),
+                launches={fn.__name__: fn.launches for fn in counters}, timed=timed, layers=cfg.n_layers,
+                gathered_peak_gb=engine.zero_gathered_bytes[1] / 2**30)
+
+
+def phase_train_zero(torch, dev, counters, want=None) -> dict:
+    """gpt2_1_3b at full size at ZeRO stages 0-3 with FusedAdam and at stage 2 with LAMB, 12 steps each, through
+    the port's ``init_distributed`` (NCCL, world 1). ``want``: optimizer -> the losses of the ``train`` phase
+    with that optimizer (stage 0 without the section), which every run must equal."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import comm as dist
+
+    dist.init_distributed(device=dev, verbose=False)
+    runs = {}
+    for stage, optimizer in ZERO_RUNS:
+        r = zero_run(torch, dev, counters, stage, optimizer)
+        engine = r.pop("engine")
+        base = (want or {}).get(optimizer) or runs.get((0, optimizer), {}).get("losses") or r["losses"]
+        rec = dict(phase="train_zero", model="gpt2_1_3b", stage=stage, optimizer=optimizer,
+                   backend=dist.backend_for(dev), world_size=dist.get_world_size(), micro_batch=MICRO, seq=SEQ,
+                   steps=TRAIN_STEPS, timed_steps=f"{TIMED_FROM + 1}-{TRAIN_STEPS}", **r,
+                   losses_equal_stage0=r["losses"] == base,
+                   loss_max_abs_diff=max(abs(a - b) for a, b in zip(r["losses"], base)))
+        log(rec)
+        want_launches = {"flash_fwd": r["layers"], "flash_bwd_dq": r["layers"], "flash_bwd_dkv": r["layers"],
+                         OPT_COUNTER[optimizer]: opt_launches(optimizer, len(engine.parameters()))}
+        bad = {k: r["launches"].get(k) for k, v in want_launches.items() if r["launches"].get(k) != v * r["timed"]}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bad or not rec["losses_equal_stage0"] or not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"train_zero stage {stage} {optimizer}: launches {bad} (want per step "
+                                 f"{want_launches}), losses {r['losses']} against {base}")
+        runs[(stage, optimizer)] = rec
+    return runs
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def phase_ckpt(torch, dev, counters) -> dict:
+    """gpt2_1_3b widths at 2 layers, bf16, FusedAdam: 12 straight steps at stage 2; 6 steps, a native checkpoint
+    (sync, then async) and a universal one; a fresh stage-2 engine resumes the native one and a fresh stage-3
+    engine the universal one, each for 6 steps, which must equal the straight run's last 6 bit for bit;
+    zero_to_fp32 must equal the saved masters."""
+    import itertools
+    import shutil
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.zero_to_fp32 import get_fp32_flat_state_dict_from_zero_checkpoint
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import AsyncCheckpointEngine
+
+    root = os.path.join(HERE, "build", "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    layers, half = 2, TRAIN_STEPS // 2
+    straight = zero_run(torch, dev, counters, 2, "FusedAdam", n_layers=layers)
+    del straight["engine"]
+    want = straight["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = zero_run(torch, dev, counters, 2, "FusedAdam", n_layers=layers, steps=half)
+    engine = first.pop("engine")
+    rec = dict(phase="ckpt", model="gpt2_1_3b", layers=layers, params=sum(p.numel() for p in engine.parameters()),
+               steps=f"{half} + {half}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(os.path.join(root, "native"), tag="half")
+    rec["save_s"] = time.perf_counter() - t0
+    rec["save_bytes"] = dir_bytes(os.path.join(root, "native", "half"))
+    saved = {p: t.detach().cpu() for p, t in zip(engine._paths, engine.full_masters())}
+    engine.checkpoint_engine = AsyncCheckpointEngine()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(os.path.join(root, "async"), tag="half")
+    rec["async_save_return_s"] = time.perf_counter() - t0
+    engine.checkpoint_engine.wait()
+    rec["async_save_durable_s"] = time.perf_counter() - t0
+    rec["async_bytes"] = dir_bytes(os.path.join(root, "async", "half"))
+    shutil.rmtree(os.path.join(root, "async"))
+    t0 = time.perf_counter()
+    engine.save_universal_checkpoint(os.path.join(root, "universal"), tag="half")
+    rec["universal_save_s"] = time.perf_counter() - t0
+    rec["universal_bytes"] = dir_bytes(os.path.join(root, "universal", "half"))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    merged = get_fp32_flat_state_dict_from_zero_checkpoint(os.path.join(root, "native"))
+    rec["zero_to_fp32_s"] = time.perf_counter() - t0
+    rec["zero_to_fp32_equal"] = set(merged) == set(saved) and all(torch.equal(merged[p], saved[p]) for p in saved)
+    del merged, saved
+    for label, stage, load in (("native", 2, "load_checkpoint"), ("universal", 3, "load_universal_checkpoint")):
+        cfg = gpt2_cfg(dtype=torch.bfloat16, n_layers=layers)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)  # overwritten by the load
+        config = dict(train_config(torch, "FusedAdam", torch.bfloat16), zero_optimization={"stage": stage})
+        fresh, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+        del params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(fresh, load)(os.path.join(root, label))
+        torch.cuda.synchronize()
+        rec[f"{label}_load_s"] = time.perf_counter() - t0
+        data = itertools.repeat(train_batch_data(np, cfg.vocab_size))
+        got = [float(fresh.train_batch(data)) for _ in range(half)]
+        rec[f"{label}_losses"] = got
+        rec[f"{label}_equal"] = got == want[half:]
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["straight_losses"] = want
+    shutil.rmtree(root, ignore_errors=True)
+    log(rec)
+    if not (rec["native_equal"] and rec["universal_equal"] and rec["zero_to_fp32_equal"]):
+        raise AssertionError(f"ckpt: a resumed run or zero_to_fp32 differs: {rec}")
     return rec
 
 
@@ -4081,6 +4266,13 @@ def main(argv) -> int:
         phase_train_parity(torch, dev, dtype, lamb_counters, optimizer="Lamb")
     train_lamb = phase_train(torch, dev, lamb_counters, profile, optimizer="Lamb")
     log(dict(phase="train lamb", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_train_zero(torch, dev, lamb_counters + [fad.fused_adam],
+                     want={"FusedAdam": train["losses"], "Lamb": train_lamb["losses"]})
+    log(dict(phase="train_zero", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_ckpt(torch, dev, train_counters)
+    log(dict(phase="ckpt", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
             "mixtral_8x7b_8l": serve_moe, "train": train,

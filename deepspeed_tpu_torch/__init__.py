@@ -8,7 +8,10 @@ Hopper (``csrc/``). It imports ``torch`` and numpy only.
 
 Entry points:
 - ``deepspeed_tpu_torch.initialize``: the training engine
-  (``runtime/engine.py``), returning (engine, optimizer, loader, scheduler);
+  (``runtime/engine.py``), returning (engine, optimizer, loader, scheduler):
+  data parallelism and ZeRO stages 0-3 over ``torch.distributed``
+  (``comm``, ``parallel``, ``runtime/zero``, the top-level ``zero``), with
+  native and universal checkpoints and ``zero_to_fp32`` (``checkpoint``);
 - ``deepspeed_tpu_torch.init_inference``: the v1 ``InferenceEngine``
   (``inference/engine.py``: ``generate`` over a dense KV cache, ``forward``),
   with optional flat weight-only quantisation;

@@ -1,0 +1,168 @@
+"""The communication facade on ``torch.distributed``.
+
+Port of the part of ``deepspeed_tpu/comm/comm.py`` (reference
+``deepspeed/comm/comm.py``) that the training engine and the checkpoints
+call. One process drives one device; a rank's collectives run on its
+device's tensors over explicit process groups (``group=None`` is the
+world):
+
+- ``init_distributed``: explicit ``rank`` / ``world_size`` /
+  ``init_method``, then the ``MASTER_ADDR`` / ``RANK`` / ``WORLD_SIZE``
+  environment (``init_method="env://"``), then a single process on an
+  in-memory store. The backend follows the device: ``"nccl"`` for CUDA,
+  ``"gloo"`` for ``device="cpu"``. A single process on a machine with CUDA
+  gets both (``"cpu:gloo,cuda:nccl"``), so engines on either device share
+  its world of one. A collective on a tensor whose device the group does
+  not serve with that backend (a CUDA tensor on gloo, a CPU tensor on NCCL)
+  raises instead of falling back.
+- ``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``broadcast``, ``all_gather_object``, ``broadcast_object_list``,
+  ``barrier``: ``torch.distributed``'s own, with that check.
+"""
+
+import logging
+import os
+from datetime import timedelta
+from typing import Any, List, Optional, Union
+
+import torch
+import torch.distributed as tdist
+
+from .reduce_op import ReduceOp
+
+logger = logging.getLogger(__name__)
+
+_OPS = {ReduceOp.SUM: tdist.ReduceOp.SUM, ReduceOp.PRODUCT: tdist.ReduceOp.PRODUCT, ReduceOp.MIN: tdist.ReduceOp.MIN,
+        ReduceOp.MAX: tdist.ReduceOp.MAX, ReduceOp.BAND: tdist.ReduceOp.BAND, ReduceOp.BOR: tdist.ReduceOp.BOR,
+        ReduceOp.BXOR: tdist.ReduceOp.BXOR, ReduceOp.AVG: tdist.ReduceOp.AVG}
+
+
+def backend_for(device: Union[str, torch.device]) -> str:
+    """The process-group backend of a device: NCCL for CUDA, gloo for the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def is_initialized() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def init_distributed(dist_backend: Optional[str] = None, verbose: bool = True, timeout: Optional[timedelta] = None,
+                     init_method: Optional[str] = None, dist_init_required: Optional[bool] = None, config=None,
+                     rank: int = -1, world_size: int = -1, device: Union[str, torch.device] = "cuda") -> None:
+    """Bring up the default process group (reference ``comm.py:604``). A
+    group that is already up is kept, and must have the device's backend."""
+    backend = dist_backend or backend_for(device)
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"dist_backend must be 'nccl' (CUDA) or 'gloo' (CPU), got {backend!r}")
+    if backend != backend_for(device):
+        raise ValueError(f"backend {backend!r} does not drive device {device}: use {backend_for(device)!r}")
+    if is_initialized():
+        have = _backends().get(torch.device(device).type)
+        if have != backend:
+            raise RuntimeError(f"torch.distributed is initialized with {tdist.get_backend_config()!r}, which does "
+                               f"not run {backend!r} for device {device}")
+        return
+    if backend == "nccl":
+        dev = torch.device(device)
+        torch.cuda.set_device(dev.index if dev.index is not None else get_local_rank())
+    kw = {"timeout": timeout} if timeout is not None else {}
+    if init_method is not None or world_size > 0:
+        if world_size < 1 or rank < 0:
+            raise ValueError("init_distributed: an explicit rendezvous needs rank >= 0 and world_size >= 1")
+        if init_method is None:
+            if world_size != 1:
+                raise ValueError("init_distributed: world_size > 1 needs an init_method (e.g. tcp://host:port)")
+            tdist.init_process_group(backend, store=tdist.HashStore(), rank=0, world_size=1, **kw)
+        else:
+            tdist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size, **kw)
+    elif os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE"):
+        tdist.init_process_group(backend, init_method="env://", rank=int(os.environ.get("RANK", "0")),
+                                 world_size=int(os.environ["WORLD_SIZE"]), **kw)
+    else:
+        # one process: an in-memory store, so the collectives run (over a world of one) with no rendezvous
+        both = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else backend
+        tdist.init_process_group(both, store=tdist.HashStore(), rank=0, world_size=1, **kw)
+    if verbose and get_rank() == 0:
+        logger.info(f"init_distributed: backend={backend} world_size={get_world_size()}")
+
+
+def get_rank(group=None) -> int:
+    return tdist.get_rank(group) if is_initialized() else 0
+
+
+def get_world_size(group=None) -> int:
+    return tdist.get_world_size(group) if is_initialized() else 1
+
+
+def get_local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def new_group(ranks: List[int], backend: Optional[str] = None):
+    """A process group over ``ranks``: every rank of the world must call it, in the same order."""
+    return tdist.new_group(ranks, backend=backend)
+
+
+def _backends(group=None) -> dict:
+    """{device type: backend} of a group, from its backend config
+    (``"cpu:gloo,cuda:gloo"`` for a gloo group, ``"cuda:nccl"`` for NCCL)."""
+    cfg = tdist.get_backend_config(group)
+    if ":" not in cfg:
+        return {"cuda": cfg} if cfg == "nccl" else {"cpu": cfg, "cuda": cfg}
+    return dict(part.split(":") for part in cfg.split(","))
+
+
+def _check(tensor: torch.Tensor, group) -> None:
+    have = _backends(group).get(tensor.device.type)
+    if have != backend_for(tensor.device):
+        raise RuntimeError(f"a {have} collective on a {tensor.device} tensor: the port runs NCCL on CUDA tensors "
+                           "and gloo on CPU tensors, and never falls back from one to the other")
+
+
+def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM, group=None, async_op: bool = False):
+    _check(tensor, group)
+    return tdist.all_reduce(tensor, op=_OPS[op], group=group, async_op=async_op)
+
+
+def all_gather_into_tensor(output: torch.Tensor, tensor: torch.Tensor, group=None, async_op: bool = False):
+    """``output`` holds the group's ``tensor``s in rank order."""
+    _check(tensor, group)
+    return tdist.all_gather_into_tensor(output, tensor, group=group, async_op=async_op)
+
+
+def reduce_scatter_tensor(output: torch.Tensor, tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM, group=None,
+                          async_op: bool = False):
+    """Rank r's ``output`` is the reduction of chunk r of every rank's ``tensor``."""
+    _check(tensor, group)
+    return tdist.reduce_scatter_tensor(output, tensor, op=_OPS[op], group=group, async_op=async_op)
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0, group=None, async_op: bool = False):
+    _check(tensor, group)
+    return tdist.broadcast(tensor, src=src, group=group, async_op=async_op)
+
+
+def all_gather_object(obj: Any, group=None) -> List[Any]:
+    out = [None] * get_world_size(group)
+    tdist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def broadcast_object_list(object_list: List[Any], src: int = 0, group=None, device=None) -> List[Any]:
+    tdist.broadcast_object_list(object_list, src=src, group=group, device=device)
+    return object_list
+
+
+def barrier(group=None, device: Optional[Union[str, torch.device]] = None) -> None:
+    """Wait for every rank of ``group``: an all-reduce of one element on
+    ``device`` (so it runs on that device's backend), or
+    ``torch.distributed.barrier`` without one."""
+    if device is None:
+        tdist.barrier(group=group)
+        return
+    all_reduce(torch.zeros(1, device=device), group=group)
+
+
+def destroy_process_group(group=None) -> None:
+    if is_initialized():
+        tdist.destroy_process_group(group)

@@ -17,7 +17,7 @@ reference, which returns new buffers, m, v and p are updated in place.
 kernel (or raises) for a CUDA tensor, and counts its launches.
 """
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -73,13 +73,19 @@ lamb_direction.launches = 0  # kernel launches since the last reset (CPU calls d
 
 
 def lamb_apply(p: torch.Tensor, u: torch.Tensor, scalars: torch.Tensor, min_trust: Optional[float] = None,
-               max_trust: Optional[float] = None) -> None:
+               max_trust: Optional[float] = None, norm_reduce: Optional[Callable] = None) -> None:
     """Phases two and three, in place: ``p -= lr * trust * u`` where the flag is
     set, with ``trust = ||p|| / ||u||`` (clipped to [min_trust, max_trust]
-    when given) and 1 where either norm is 0."""
+    when given) and 1 where either norm is 0. Where ``p`` and ``u`` are one
+    rank's chunks of a leaf, ``norm_reduce`` sums the stacked squared norms
+    in place over the ranks holding the other chunks."""
     lr, finite = scalars[0], scalars[4]
-    w_norm = torch.linalg.vector_norm(p.float())
-    u_norm = torch.linalg.vector_norm(u)
+    if norm_reduce is None:
+        w_norm = torch.linalg.vector_norm(p.float())
+        u_norm = torch.linalg.vector_norm(u)
+    else:
+        sq = torch.stack([torch.linalg.vector_norm(p.float()), torch.linalg.vector_norm(u)]).square()
+        w_norm, u_norm = norm_reduce(sq).sqrt().unbind()
     ratio = w_norm / u_norm
     if min_trust is not None:
         ratio = torch.clamp(ratio, min_trust, max_trust)

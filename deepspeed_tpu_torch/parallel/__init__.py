@@ -1,0 +1,6 @@
+"""The mesh of the process world (``mesh.py``) and its coordinate maths (``topology.py``)."""
+
+from .mesh import MeshTopology, get_mesh_topology, initialize_mesh, reset_mesh
+from .topology import ProcessTopology
+
+__all__ = ["MeshTopology", "ProcessTopology", "initialize_mesh", "get_mesh_topology", "reset_mesh"]

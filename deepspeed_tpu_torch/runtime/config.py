@@ -1,19 +1,22 @@
-"""The training config: the part of ``DeepSpeedConfig`` this slice runs.
+"""The training config: the part of ``DeepSpeedConfig`` the port runs.
 
 Port of ``deepspeed_tpu/runtime/config.py`` and the keys of
 ``runtime/constants.py`` that the engine reads: the three batch sizes and
-their triangulation (data-parallel size 1), ``optimizer``, ``scheduler``,
-``fp16``, ``bf16``, ``zero_optimization.stage``, ``gradient_clipping``,
-``fused_step``, ``steps_per_print``, ``data_types.grad_accum_dtype`` and
-the monitor sections (``tensorboard``, ``wandb``, ``csv_monitor``).
-A section the port does not implement raises ``NotImplementedError`` when
-the config enables it: it is never silently ignored.
+their triangulation against the data-parallel size (``data`` x ``fsdp``),
+``optimizer``, ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization``
+(stages 0-3 and the reference's keys), ``mesh`` (``data`` and ``fsdp``),
+``checkpoint``, ``gradient_clipping``, ``fused_step``, ``steps_per_print``,
+``data_types.grad_accum_dtype`` and the monitor sections (``tensorboard``,
+``wandb``, ``csv_monitor``). A section or key the port does not implement
+raises ``NotImplementedError`` when the config enables it (ZeRO-Offload,
+ZeRO++, MiCS's shard size, the mesh axes other than ``data`` and
+``fsdp``, the pipeline, ...): it is never silently ignored.
 """
 
 import json
 import os
 from dataclasses import dataclass, field, fields
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -87,6 +90,74 @@ class SchedulerConfig:
     params: Dict[str, Any] = field(default_factory=dict)
 
 
+@dataclass
+class ZeroConfig:
+    """Reference ``runtime/zero/config.py:82`` (the JAX ``ZeroConfig``). Every
+    key of the reference is accepted; these act: ``stage``,
+    ``reduce_bucket_size`` (elements a flat gradient bucket),
+    ``stage3_param_persistence_threshold`` (leaves with fewer elements stay
+    whole at stage 3) and ``stage3_gather_16bit_weights_on_model_save``.
+    ``contiguous_gradients`` and ``overlap_comm`` name the reference's hook
+    machinery and change nothing here (the buckets are always contiguous;
+    the collectives run in the order the backward frees the gradients);
+    the other keys are read and ignored, except offload, ZeRO++ and
+    ``mics_shard_size``, which raise in ``_check_ported``."""
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_bucket_size: int = 500_000_000
+    overlap_comm: Optional[bool] = None
+    stage3_param_persistence_threshold: int = 100_000
+    stage3_gather_16bit_weights_on_model_save: bool = False
+    mics_shard_size: int = -1
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ZeroConfig":
+        cfg = _from_dict(cls, d)
+        if not 0 <= int(cfg.stage) <= 3:
+            raise ValueError(f"zero_optimization.stage must be 0, 1, 2 or 3, got {cfg.stage}")
+        cfg.stage = int(cfg.stage)
+        if cfg.reduce_bucket_size < 1:
+            raise ValueError(f"zero_optimization.reduce_bucket_size must be positive, got {cfg.reduce_bucket_size}")
+        if cfg.overlap_comm is None:
+            cfg.overlap_comm = cfg.stage == 3
+        return cfg
+
+
+MESH_AXES = ("pipe", "data", "fsdp", "expert", "seq", "context", "tensor")
+
+
+@dataclass
+class MeshConfig:
+    """Named axis sizes over the process world (the JAX ``MeshConfig``): -1 on
+    one axis takes what the others leave. The port runs ``data`` and
+    ``fsdp`` (ZeRO's shards live on ``fsdp`` when it exceeds 1, else on
+    ``data``); the other axes above 1 raise ``NotImplementedError``."""
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    pipe: int = 1
+    expert: int = 1
+    seq: int = 1
+    context: int = 1
+    axis_order: List[str] = field(default_factory=lambda: list(MESH_AXES))
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "MeshConfig":
+        return _from_dict(cls, d)
+
+
+@dataclass
+class CheckpointConfig:
+    """``checkpoint``: ``load_universal`` routes ``load_checkpoint`` through the
+    universal layout; ``async_save`` writes on a background thread; ``engine``
+    is ``"torch"`` (or ``"auto"``, the same: the JAX package's msgpack and
+    orbax engines have no counterpart here). The reference's other keys are
+    read and ignored."""
+    load_universal: bool = False
+    async_save: bool = False
+    engine: str = "auto"
+
+
 def _load_config_dict(config: Union[str, Dict, None]) -> Dict:
     if config is None:
         return {}
@@ -101,19 +172,28 @@ def _load_config_dict(config: Union[str, Dict, None]) -> Dict:
 
 
 def _check_ported(d: Dict) -> None:
-    """Raise for every enabled section the port has no code for."""
+    """Raise for every enabled section or key the port has no code for."""
     zero = d.get("zero_optimization", {}) or {}
-    if int(zero.get("stage", 0)) > 0:
-        raise NotImplementedError("zero_optimization.stage > 0 is not ported yet (stage 0 only)")
     for key in ("offload_optimizer", "offload_param"):
         if (zero.get(key) or {}).get("device", "none") not in ("none", None):
-            raise NotImplementedError(f"zero_optimization.{key} is not ported yet")
+            raise NotImplementedError(f"zero_optimization.{key} (ZeRO-Offload) is not ported yet: ZeRO stages "
+                                      "0-3 run with every state on the device")
     if zero.get("cpu_offload") or zero.get("cpu_offload_params"):
-        raise NotImplementedError("ZeRO offload is not ported yet")
+        raise NotImplementedError("zero_optimization.cpu_offload / cpu_offload_params (ZeRO-Offload) are not "
+                                  "ported yet")
+    for key in ("zero_quantized_weights", "zero_quantized_gradients"):
+        if zero.get(key):
+            raise NotImplementedError(f"zero_optimization.{key} (ZeRO++) is not ported yet")
+    if int(zero.get("zero_hpz_partition_size", 1)) > 1:
+        raise NotImplementedError("zero_optimization.zero_hpz_partition_size > 1 (ZeRO++ hpZ) is not ported yet")
+    if int(zero.get("mics_shard_size", -1)) > 0:
+        raise NotImplementedError("zero_optimization.mics_shard_size > 0 (MiCS's hierarchical groups) is not "
+                                  "ported yet: set mesh.fsdp for the same sharding")
     mesh = d.get("mesh", {}) or {}
-    big = {axis: n for axis, n in mesh.items() if axis != "axis_order" and n not in (-1, 0, 1)}
+    big = {axis: n for axis, n in mesh.items() if axis not in ("axis_order", "data", "fsdp") and n not in (-1, 0, 1)}
     if big:
-        raise NotImplementedError(f"mesh axes {big}: the port trains on one device (data-parallel size 1)")
+        raise NotImplementedError(f"mesh axes {big}: the port runs the data and fsdp axes only (tensor, pipe, "
+                                  "expert, seq and context parallelism are not ported yet)")
     for key in _UNPORTED_ENABLED:
         section = d.get(key) or {}
         if isinstance(section, dict) and section.get("enabled", False):
@@ -136,7 +216,9 @@ class DeepSpeedConfig:
         self.scheduler = _from_dict(SchedulerConfig, d.get("scheduler"))
         self.fp16 = _from_dict(FP16Config, d.get("fp16"))
         self.bf16 = _from_dict(BF16Config, d.get("bf16", d.get("bfloat16")))
-        self.zero_stage = int((d.get("zero_optimization") or {}).get("stage", 0))
+        self.zero_config = ZeroConfig.from_dict(d.get("zero_optimization"))
+        self.mesh = MeshConfig.from_dict(d.get("mesh"))
+        self.checkpoint_config = _from_dict(CheckpointConfig, d.get("checkpoint"))
         self.gradient_clipping = float(d.get("gradient_clipping", 0.0))
         fused = d.get("fused_step", True)
         if not isinstance(fused, bool):
@@ -152,8 +234,17 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
 
+    @property
+    def zero_stage(self) -> int:
+        return self.zero_config.stage
+
+    @property
+    def zero_enabled(self) -> bool:
+        return self.zero_config.stage > 0
+
     def resolve_batch_sizes(self, dp_world_size: int = 1):
-        """micro x gas x dp == global (reference ``runtime/config.py:765``)."""
+        """micro x gas x dp == global, dp = data x fsdp (reference
+        ``runtime/config.py:765``)."""
         train = self.train_batch_size
         micro = self.train_micro_batch_size_per_gpu
         gas = self.gradient_accumulation_steps

@@ -1,25 +1,54 @@
-"""The training engine on one device.
+"""The training engine: data parallelism and ZeRO stages 0-3 over
+``torch.distributed``.
 
 Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``,
-``initialize``) for data-parallel size 1 and ZeRO stage 0. The contract is
-the reference's:
+``initialize``, the checkpoints). The contract is the reference's:
 
     engine, optimizer, loader, scheduler = initialize(model=..., model_parameters=..., config=...)
     loss = engine(batch); engine.backward(loss); engine.step()     # or engine.train_batch(data_iter)
 
-Mixed precision follows it too: fp32 master parameters on the device, the
-forward casts them to the compute dtype inside autograd (so gradients land
-in fp32 on the masters), gradients are accumulated over
-``gradient_accumulation_steps`` micro-batches in ``grad_accum_dtype`` with
-the loss scaled by ``loss_scale / gas``, and the step unscales, checks
-for overflow, takes the global norm, clips and runs the optimizer. Under a
-static loss scale (bf16, fp32) an overflowed step is skipped on the device
-without a host sync; dynamic fp16 scaling reads the flag back once per step,
-as in the reference.
+Each rank is one process on one device (NCCL on CUDA, gloo on the CPU;
+``comm.init_distributed`` brings the world up, a single process included);
+the ``mesh`` section (or ``mesh=``) lays ``data`` x ``fsdp`` over the world,
+and every rank takes its own rows of each global micro-batch. The model's
+loss is a rank's mean over its valid tokens; the engine weighs it by the
+rank's share of the global batch's valid tokens (rows for a model that is
+not a ``CausalLM``), so the summed gradients and the reported loss are
+those of the mean over the global batch, as in the JAX engine.
 
-PyTorch runs eagerly, so the reference's ``fused_step`` (one XLA program for
-forward, backward and update) has nothing to fuse: the key is accepted and
-the step runs the same way with it on or off.
+The ZeRO stages follow the planner (``runtime/zero/partition.py``): the
+optimizer state (stage 1), the gradient buffer (2) and the fp32 masters (3)
+hold this rank's chunk of each sharded leaf. Stage 0 all-reduces the
+accumulated gradients once a step, in flat buckets of ``reduce_bucket_size``
+elements; stage 1 reduce-scatters them into the chunks the optimizer owns;
+stage 2 reduce-scatters each micro-batch's gradients into the chunk-sized
+buffer; stage 3 gathers each block's leaves in the compute dtype when the
+model reads them and reduce-scatters their gradients in the backward
+(``runtime/zero/sharded.py``). The optimizer updates chunks (one
+``fused_adam_multi`` launch over them; LAMB's trust ratio from whole-leaf
+norms), and stages 1 and 2 all-gather the updated chunks into the full
+masters. The global gradient norm is the square root of the all-reduced
+squared partial sums; overflow and clipping follow from it, on the device.
+The engine counts its collectives (``comm_stats``: calls and bytes by op).
+
+Mixed precision is the reference's: fp32 masters, the forward casts them to
+the compute dtype inside autograd, gradients accumulate over
+``gradient_accumulation_steps`` micro-batches in ``grad_accum_dtype`` with
+the loss scaled by ``loss_scale / gas``, and the step unscales, checks for
+overflow, clips and updates. Under a static loss scale (bf16, fp32) an
+overflowed step is skipped on the device without a host sync; dynamic fp16
+scaling reads the flag back once per step, as in the reference. PyTorch
+runs eagerly, so the reference's ``fused_step`` has nothing to fuse: the
+key is accepted and changes nothing.
+
+Checkpoints use the upstream DeepSpeed layout: ``<dir>/<tag>/
+mp_rank_00_model_states.pt`` (rank 0: the module's fp32 masters, counters,
+loss scaler, lr scheduler, client state), one ``zero_pp_rank_<r>_mp_rank_00_
+optim_states.pt`` a rank (its chunks of the masters, its moments, the
+optimizer's scalars) and ``latest``. They resume at the same world size and
+stage only; ``checkpoint/universal.py`` moves between sizes and stages, and
+between this package and the JAX one, and ``checkpoint/zero_to_fp32.py``
+merges the rank files into one fp32 state dict.
 
 Telemetry is the reference's: the ``train_*`` counters and gauges, the
 spans ``train/forward``, ``train/backward`` and ``train/step``, the
@@ -34,14 +63,17 @@ boundary for the device profiler (``train_step``).
 """
 
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import comm as dist
 from ..analysis import knobs
 from ..device import resolve_device
+from ..parallel.mesh import MeshTopology, initialize_mesh
 from ..telemetry import MonitorBridge, get_registry as get_telemetry_registry
 from ..telemetry import profiler as device_profiler
 from ..telemetry import span as telemetry_span
@@ -49,16 +81,29 @@ from ..telemetry.costs import attention_macs, forward_macs, resolve_peaks
 from ..telemetry.flight import maybe_attach_flight_recorder
 from ..telemetry.health import GradNormSpikeDetector, NonFiniteLossDetector, get_health_monitor
 from ..telemetry.ops_plane import maybe_start_ops_server
+from .checkpoint_engine import AsyncCheckpointEngine, create_checkpoint_engine
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import create_lr_scheduler
 from .optimizers import DeviceOptimizer, create_optimizer
+from .zero.init import ShardedParams
+from ..checkpoint.utils import flatten_tree, unflatten_tree
+from .zero.partition import plan_zero
+from .zero.sharded import Collectives, Stage3Params
 
 logger = logging.getLogger(__name__)
 
 _ACC_DTYPES = {None: torch.float32, "fp32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
                "bfloat16": torch.bfloat16, "fp16": torch.float16, "float16": torch.float16, "half": torch.float16}
+IGNORE_INDEX = -100  # the label CausalLM's loss ignores
+
+LATEST_FILENAME = "latest"
+MODEL_STATES_FILENAME = "mp_rank_00_model_states.pt"
+
+
+def optim_states_filename(rank: int) -> str:
+    return f"zero_pp_rank_{rank}_mp_rank_00_optim_states.pt"
 
 
 def _batch_tokens(batch) -> int:
@@ -71,6 +116,15 @@ def _batch_tokens(batch) -> int:
     return 0
 
 
+def _batch_rows(batch) -> int:
+    """The rows of a micro-batch: the first dimension of its first array."""
+    if isinstance(batch, dict):
+        return _batch_rows(next(iter(batch.values())))
+    if isinstance(batch, (tuple, list)):
+        return _batch_rows(batch[0])
+    return int(batch.shape[0]) if getattr(batch, "ndim", 0) else 1
+
+
 def train_flops(cfg, batch: int, seq: int) -> int:
     """Model FLOPs of one training micro-batch of ``batch`` x ``seq`` tokens
     of a ``TransformerConfig``: the forward's products (every position
@@ -80,35 +134,29 @@ def train_flops(cfg, batch: int, seq: int) -> int:
     return 3 * 2 * macs
 
 
-def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs in sorted-key order (the order of a flattened pytree)."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten(tree[k], f"{prefix}/{k}" if prefix else str(k))
-        return out
-    return [(prefix, tree)]
-
-
-def _unflatten(pairs) -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
-    for path, leaf in pairs:
-        node = out
-        *parents, name = path.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[name] = leaf
-    return out
-
-
 class DeepSpeedEngine:
-    """Wraps a model (a loss function over a parameter dict) with its training state."""
+    """Wraps a model (a loss function over a parameter dict) with its training
+    state on this rank."""
 
     def __init__(self, model=None, optimizer=None, model_parameters=None, training_data=None, lr_scheduler=None,
-                 collate_fn=None, config=None, device="cuda"):
+                 collate_fn=None, config=None, device="cuda", mesh=None, dist_init_required=None):
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-        self.config.resolve_batch_sizes(1)
         self.device = resolve_device(device)
+        if dist_init_required is False and not dist.is_initialized():
+            raise RuntimeError("dist_init_required=False, but torch.distributed is not initialized: call "
+                               "deepspeed_tpu_torch.comm.init_distributed first")
+        dist.init_distributed(device=self.device, verbose=False)
+        if mesh is not None:
+            if not isinstance(mesh, MeshTopology):
+                raise TypeError("mesh must be a deepspeed_tpu_torch.parallel.MeshTopology")
+            if mesh.n_devices != dist.get_world_size():
+                raise ValueError(f"the mesh covers {mesh.n_devices} ranks, the world has {dist.get_world_size()}")
+            self.topology = mesh
+        else:
+            self.topology = initialize_mesh(self.config.mesh)
+        self.dp_world_size = self.topology.data_parallel_size
+        self.dp_rank = dist.get_rank()
+        self.config.resolve_batch_sizes(self.dp_world_size)
         self._model_cfg = getattr(model, "cfg", None)  # a TransformerConfig prices the MFU gauge
         if callable(getattr(model, "loss_fn", None)):
             self._loss_fn = model.loss_fn
@@ -116,20 +164,31 @@ class DeepSpeedEngine:
             self._loss_fn = model
         else:
             raise TypeError("model must be callable (params, batch, rng) -> loss, or expose .loss_fn")
+        # a CausalLM's loss is a mean over valid tokens: weigh ranks by tokens, other losses by rows
+        self._token_weighted = self._model_cfg is not None and callable(getattr(model, "loss_fn", None))
         if model_parameters is None:
             raise ValueError("model_parameters (the parameter dict) is required")
 
-        # fp32 master parameters on the device, in flattened-tree order
-        pairs = _flatten(model_parameters)
-        self._paths = [path for path, _ in pairs]
-        self._leaves = [torch.as_tensor(leaf).detach().to(self.device, torch.float32, copy=True).requires_grad_(True)
-                        for _, leaf in pairs]
+        self.compute_dtype = self.config.precision_dtype
+        acc_name = self.config.gradient_accumulation_dtype
+        if acc_name not in _ACC_DTYPES:
+            raise ValueError(f"data_types.grad_accum_dtype must be one of "
+                             f"{sorted(k for k in _ACC_DTYPES if k)}, got {acc_name!r}")
+        self._grad_acc_dtype = _ACC_DTYPES[acc_name]
+        self._init_zero(model_parameters)
 
-        if optimizer is not None and not isinstance(optimizer, DeviceOptimizer):
-            raise TypeError("a client optimizer must be a deepspeed_tpu_torch optimizer (runtime/optimizers.py) "
-                            "built over engine.parameters()")
+        if optimizer is not None:
+            if not isinstance(optimizer, DeviceOptimizer):
+                raise TypeError("a client optimizer must be a deepspeed_tpu_torch optimizer (runtime/optimizers.py) "
+                                "built over engine.parameters()")
+            if self.plan.stage > 0:
+                raise NotImplementedError("a client optimizer runs at ZeRO stage 0 only: give the optimizer in the "
+                                          "config's optimizer section")
         self.optimizer = optimizer if optimizer is not None else create_optimizer(
-            self.config.optimizer.type, self.config.optimizer.params, self._leaves)
+            self.config.optimizer.type, self.config.optimizer.params, self._opt_params)
+        sharded = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.opt_dim is not None]
+        if sharded:
+            self.optimizer.set_sharded(sharded, self.coll.all_reduce)
 
         self.lr_scheduler = lr_scheduler
         if self.lr_scheduler is None and self.config.scheduler.type:
@@ -138,14 +197,7 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None and hasattr(self.lr_scheduler, "set_base_lr"):
             self.lr_scheduler.set_base_lr(self._base_lr)
 
-        self.compute_dtype = self.config.precision_dtype
         self.loss_scaler = create_loss_scaler(self.config.fp16, self.compute_dtype)
-        acc_name = self.config.gradient_accumulation_dtype
-        if acc_name not in _ACC_DTYPES:
-            raise ValueError(f"data_types.grad_accum_dtype must be one of "
-                             f"{sorted(k for k in _ACC_DTYPES if k)}, got {acc_name!r}")
-        self._grad_acc_dtype = _ACC_DTYPES[acc_name]
-
         self.micro_steps = 0
         self.global_steps = 0
         self._skipped_host = 0
@@ -153,14 +205,80 @@ class DeepSpeedEngine:
         self._last_overflow = None
         self._lr_override = None
         self._accum_base = 0
-        self._grad_acc: Optional[List[torch.Tensor]] = None
+        self._grad_acc: Optional[List[Optional[torch.Tensor]]] = None
+        self._pending: Optional[torch.Tensor] = None  # the weighted loss of the forward that backward() takes
         self._global_grad_norm = None
         self.gradient_accumulation_steps = self.config.gradient_accumulation_steps
+        self.train_batch_size = self.config.train_batch_size
         self.train_micro_batch_size_per_gpu = self.config.train_micro_batch_size_per_gpu
-        self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn) \
-            if training_data is not None else None
+        self.collate_fn = collate_fn
+        self.checkpoint_engine = create_checkpoint_engine(self.config)
+        self.training_dataloader = self.deepspeed_io(training_data) if training_data is not None else None
         self._last_loss = None
         self._configure_telemetry()
+
+    # ------------------------------------------------------------------ ZeRO state
+    def _init_zero(self, model_parameters) -> None:
+        """The plan, this rank's fp32 masters (chunks where stage 3 shards
+        them), the tensors the optimizer updates and the collectives."""
+        given = model_parameters.tree if isinstance(model_parameters, ShardedParams) else model_parameters
+        shapes = model_parameters.shapes if isinstance(model_parameters, ShardedParams) else given
+        self.plan = plan = plan_zero(shapes, self.config, self.topology)
+        if plan.stage == 3 and getattr(self._model_cfg, "remat", False):
+            raise NotImplementedError("ZeRO stage 3 with the model's remat (activation checkpointing) is not "
+                                      "ported yet")
+        self._paths = [lf.path for lf in plan.leaves]
+        self._masters: List[torch.Tensor] = []
+        for lf, (path, leaf) in zip(plan.leaves, flatten_tree(given)):
+            t = torch.as_tensor(leaf).detach()
+            if isinstance(model_parameters, ShardedParams):
+                if tuple(t.shape) != plan.shard_shape(lf, lf.param_dim):
+                    raise ValueError(f"{path}: zero.Init made a chunk of shape {tuple(t.shape)}, this engine's plan "
+                                     f"wants {plan.shard_shape(lf, lf.param_dim)}: build both from one config")
+            else:
+                t = plan.shard(t, lf.param_dim)
+            self._masters.append(t.to(self.device, torch.float32, copy=True).requires_grad_(True))
+        topo = self.topology
+        replica = plan.axis == "fsdp" and topo.axis_size("data") > 1
+        self.coll = Collectives(plan, topo.process_group(plan.axis), topo.process_group("data") if replica else None,
+                                topo.axis_size("data") if replica else 1, self.config.zero_config.reduce_bucket_size)
+        # the optimizer's tensor of each leaf: the master where its chunk is the master's, else a chunk-shaped
+        # tensor whose storage exists only inside step() (filled from the master, gathered back after)
+        self._opt_params: List[torch.Tensor] = []
+        self._staged: List[int] = []
+        for i, (lf, m) in enumerate(zip(plan.leaves, self._masters)):
+            if lf.opt_dim is None or lf.param_dim == lf.opt_dim:
+                self._opt_params.append(m)
+            else:
+                t = torch.empty(plan.shard_shape(lf, lf.opt_dim), dtype=torch.float32, device=self.device)
+                t.untyped_storage().resize_(0)
+                self._opt_params.append(t)
+                self._staged.append(i)
+        self._stage3 = None
+        if plan.stage == 3:
+            self._stage3 = Stage3Params(plan, self._masters, self.coll, self.compute_dtype, self._grad_acc_dtype,
+                                        self._accumulate)
+
+    @property
+    def comm_stats(self) -> Dict[str, List[int]]:
+        """The engine's collectives so far: ``{op: [calls, bytes]}``."""
+        return self.coll.stats
+
+    @property
+    def zero_gathered_bytes(self) -> Tuple[int, int]:
+        """Stage 3's gathered copies: (bytes now, peak bytes); (0, 0) below stage 3."""
+        s = self._stage3
+        return (0, 0) if s is None else (s.gathered_bytes, s.peak_gathered_bytes)
+
+    def _accumulate(self, idx, tensors) -> None:
+        if self._grad_acc is None:
+            self._grad_acc = [None] * len(self._masters)
+        for i, t in zip(idx, tensors):
+            a = self._grad_acc[i]
+            if a is None:
+                self._grad_acc[i] = t.to(self._grad_acc_dtype)
+            else:
+                a.add_(t.to(a.dtype))
 
     # ------------------------------------------------------------------ telemetry
     def _configure_telemetry(self) -> None:
@@ -181,7 +299,7 @@ class DeepSpeedEngine:
         self._m_tps = tele.gauge("train_tokens_per_sec")
         self._m_mfu = tele.gauge("train_mfu")
         self._m_heartbeat = tele.gauge("last_step_completed_unix")
-        # one device: no gradient sync, so the counter stays 0 (the reference's name, for the same dashboards)
+        # the reference's estimate: the gradient tree in the accumulation dtype a step when dp > 1
         self._m_grad_sync_bytes = tele.counter("comm_bytes_total", op="grad_sync_estimated")
         self._last_microbatch_tokens = 0
         self._last_step_pc = None
@@ -198,12 +316,6 @@ class DeepSpeedEngine:
         maybe_start_ops_server()
         maybe_attach_flight_recorder(self.health)
 
-    def _configure_monitor(self):
-        from ..monitor.monitor import MonitorMaster
-
-        m = MonitorMaster(self.config)
-        return m if m.enabled else None
-
     def _note_step_flops(self, batch) -> None:
         """Price a micro-batch when its (batch, seq) shape changes (shapes only)."""
         ids = batch.get("input_ids") if isinstance(batch, dict) else None
@@ -216,9 +328,10 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ data
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None) -> DeepSpeedDataLoader:
-        """A loader of micro-batches over ``dataset`` (data-parallel size 1)."""
+        """A loader of this rank's rows of each global micro-batch over ``dataset``."""
         return DeepSpeedDataLoader(dataset, batch_size=batch_size or self.train_micro_batch_size_per_gpu,
-                                   collate_fn=collate_fn)
+                                   collate_fn=collate_fn or self.collate_fn, rank=self.dp_rank,
+                                   num_replicas=self.dp_world_size)
 
     def _put_batch(self, batch):
         if isinstance(batch, dict):
@@ -230,44 +343,76 @@ class DeepSpeedEngine:
         return batch
 
     def parameters(self) -> List[torch.Tensor]:
-        """The fp32 master parameters, in the order the optimizer holds them."""
-        return list(self._leaves)
+        """This rank's fp32 masters (chunks where stage 3 shards them), in plan order."""
+        return list(self._masters)
 
     def _compute_params(self):
-        return _unflatten((path, leaf.to(self.compute_dtype)) for path, leaf in zip(self._paths, self._leaves))
+        return unflatten_tree((path, leaf.to(self.compute_dtype)) for path, leaf in zip(self._paths, self._masters))
+
+    def _local_loss(self, batch) -> torch.Tensor:
+        if self._stage3 is None:
+            return self._loss_fn(self._compute_params(), batch, None)
+        params = self._stage3
+        try:
+            with params.saved_tensors_hooks():
+                return self._loss_fn(params, batch, None)
+        finally:
+            params.end_forward(torch.is_grad_enabled())
+
+    def _weigh(self, loss: torch.Tensor, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(this rank's weight, the global loss): the weight is the rank's share
+        of the global batch's valid tokens (rows for a loss that is not a
+        CausalLM's), from one all-reduce of (count, count x loss)."""
+        if self._token_weighted and isinstance(batch, dict) and "labels" in batch:
+            n = (batch["labels"] != IGNORE_INDEX).sum().to(torch.float32)
+        else:
+            n = torch.full((), float(_batch_rows(batch)), dtype=torch.float32, device=self.device)
+        both = torch.stack([n, loss.detach().float() * n])
+        self.coll.all_reduce(both, None)
+        total = torch.clamp(both[0], min=1.0)
+        return n / total, both[1] / total
 
     # ------------------------------------------------------------------ train loop
     def forward(self, batch):
-        """The loss of one micro-batch, with the graph kept for ``backward``."""
+        """The global loss of one micro-batch (this rank's rows in ``batch``);
+        the rank's weighted loss is kept for ``backward``."""
         with telemetry_span("train/forward"):
-            self._last_microbatch_tokens = _batch_tokens(batch)
+            self._last_microbatch_tokens = _batch_tokens(batch) * self.dp_world_size
             self._note_step_flops(batch)
-            loss = self._loss_fn(self._compute_params(), self._put_batch(batch), None)
-        self._last_loss = loss.detach()  # read back only where a sync already happens
-        return loss
+            batch = self._put_batch(batch)
+            loss = self._local_loss(batch)
+            weight, global_loss = self._weigh(loss, batch)
+            self._pending = loss * weight
+        self._last_loss = global_loss  # read back only where a sync already happens
+        return global_loss
 
     __call__ = forward
 
-    def backward(self, loss, retain_graph: bool = False):
-        """Back-propagate ``loss * loss_scale / gas`` and accumulate the fp32
-        master gradients (in ``grad_accum_dtype``)."""
+    def backward(self, loss=None, retain_graph: bool = False):
+        """Back-propagate the paired forward's weighted loss times
+        ``loss_scale / gas`` and accumulate the gradients (in
+        ``grad_accum_dtype``; from stage 2 up each micro-batch's gradients are
+        reduce-scattered into this rank's chunks)."""
+        if self._pending is None:
+            raise RuntimeError("backward() needs a preceding forward() (it back-propagates that forward's loss)")
         with telemetry_span("train/backward"):
             scale = self.loss_scaler.loss_scale / self.gradient_accumulation_steps
-            (loss.float() * scale).backward(retain_graph=retain_graph)
-            grads = []
-            for p in self._leaves:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                p.grad = None
-                grads.append(g)
-            if self._grad_acc is None:
-                self._grad_acc = [g.to(self._grad_acc_dtype) for g in grads]
-            else:
-                for a, g in zip(self._grad_acc, grads):
-                    a.add_(g.to(a.dtype))
+            (self._pending.float() * scale).backward(retain_graph=retain_graph)
+            if not retain_graph:
+                self._pending = None
+            if self._stage3 is None:
+                grads = []
+                for p in self._masters:
+                    grads.append(p.grad if p.grad is not None else torch.zeros_like(p))
+                    p.grad = None
+                if self.plan.stage == 2:
+                    grads = self.coll.reduce([(g, lf.grad_dim) for lf, g in zip(self.plan.leaves, grads)])
+                self._accumulate(range(len(grads)), grads)
             self.micro_steps += 1
-            self.global_samples += self.train_micro_batch_size_per_gpu
+            samples = self.train_micro_batch_size_per_gpu * self.dp_world_size
+            self.global_samples += samples
             self._m_micro.inc()
-            self._m_samples.inc(self.train_micro_batch_size_per_gpu)
+            self._m_samples.inc(samples)
             if self._last_microbatch_tokens:
                 self._m_tokens.inc(self._last_microbatch_tokens)
         return loss
@@ -276,24 +421,56 @@ class DeepSpeedEngine:
         done = self.micro_steps - self._accum_base
         return done % self.gradient_accumulation_steps == 0 and done > 0
 
+    def _reduced_grads(self) -> List[torch.Tensor]:
+        """The step's gradients summed over the data-parallel world, each as
+        the optimizer holds its leaf (this rank's chunk, or whole)."""
+        acc = self._grad_acc or [None] * len(self._masters)
+        grad_dims = [lf.grad_dim for lf in self.plan.leaves]
+        acc = [a if a is not None else torch.zeros(self.plan.shard_shape(lf, d), dtype=self._grad_acc_dtype,
+                                                   device=self.device)
+               for a, lf, d in zip(acc, self.plan.leaves, grad_dims)]
+        if self.plan.stage <= 1:  # stage 2 and 3 reduced each micro-batch over the ZeRO group
+            dims = [lf.opt_dim if self.plan.stage == 1 else None for lf in self.plan.leaves]
+            acc = self.coll.reduce(list(zip(acc, dims)))
+        self.coll.reduce_replicas(acc)
+        return acc
+
+    @torch.no_grad()
     def _apply_updates(self, grads: List[torch.Tensor], inv_scale: float, lr: float):
         """Unscale, overflow check, global norm, clip and update; returns the
         (device) global norm and overflow flag. A gradient whose squared norm
-        overflows fp32 counts as overflow too."""
-        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
-        gnorm = torch.linalg.vector_norm(norms) * inv_scale
+        overflows fp32 counts as overflow too. The norm sums each rank's
+        squared chunk norms (whole leaves once, on ZeRO rank 0) over the ZeRO
+        group."""
+        owned = [g for lf, g in zip(self.plan.leaves, grads) if lf.opt_dim is not None or self.plan.rank == 0]
+        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in owned]) if owned \
+            else torch.zeros(1, dtype=torch.float32, device=self.device)
+        sq = (norms * norms).sum().reshape(1)
+        self.coll.all_reduce(sq)
+        gnorm = sq[0].sqrt() * inv_scale
         finite = torch.isfinite(gnorm)
         mult = torch.full((), inv_scale, dtype=torch.float32, device=self.device)
         clip = self.config.gradient_clipping
         if clip > 0:
             mult = mult * torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-        for p, g in zip(self._leaves, grads):
+        for i in self._staged:
+            p, lf = self._opt_params[i], self.plan.leaves[i]
+            p.untyped_storage().resize_(p.numel() * p.element_size())
+            m = self._masters[i].detach()
+            n = lf.shape[lf.opt_dim] // self.plan.size
+            p.copy_(m.narrow(lf.opt_dim, self.plan.rank * n, n))
+        for p, g in zip(self._opt_params, grads):
             p.grad = g.float()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step(grad_mult=mult, finite=finite)
-        for p in self._leaves:
+        for p in self._opt_params:
             p.grad = None
+        if self._staged:
+            self.coll.gather([(self._opt_params[i], self.plan.leaves[i].opt_dim, self._masters[i].detach())
+                              for i in self._staged])
+            for i in self._staged:
+                self._opt_params[i].untyped_storage().resize_(0)
         return gnorm, ~finite
 
     def step(self):
@@ -304,7 +481,7 @@ class DeepSpeedEngine:
             lr = self._next_lr()
             # grads were pre-scaled by loss_scale / gas; undo loss_scale here (the
             # 1 / gas factor stays: the summed micro-gradients become the mean)
-            gnorm, overflow = self._apply_updates(self._grad_acc, 1.0 / self.loss_scaler.loss_scale, lr)
+            gnorm, overflow = self._apply_updates(self._reduced_grads(), 1.0 / self.loss_scaler.loss_scale, lr)
             self._grad_acc = None
             self._global_grad_norm = gnorm
             self._last_overflow = overflow
@@ -322,6 +499,9 @@ class DeepSpeedEngine:
                 self._skipped_dev = overflow.to(torch.int32) if self._skipped_dev is None \
                     else self._skipped_dev + overflow.to(torch.int32)
             self.global_steps += 1
+            if self.dp_world_size > 1:
+                self._m_grad_sync_bytes.inc(sum(lf.numel for lf in self.plan.leaves)
+                                            * torch.empty((), dtype=self._grad_acc_dtype).element_size())
         self._step_telemetry(lr)
 
     def _step_telemetry(self, lr: float) -> None:
@@ -408,12 +588,15 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        return self._loss_fn(self._compute_params(), self._put_batch(batch), None)
+        """The global loss of ``batch`` (this rank's rows), without gradients."""
+        batch = self._put_batch(batch)
+        return self._weigh(self._local_loss(batch), batch)[1]
 
     def zero_grad(self):
         """Drop a partial accumulation window; the next step applies exactly gas fresh micro-batches."""
         self._grad_acc = None
-        for p in self._leaves:
+        self._pending = None
+        for p in self._masters:
             p.grad = None
         self._accum_base = self.micro_steps
 
@@ -423,6 +606,26 @@ class DeepSpeedEngine:
         """Overflow-skipped steps. Reading it syncs the device counter once."""
         dev = 0 if self._skipped_dev is None else int(self._skipped_dev)
         return self._skipped_host + dev
+
+    @skipped_steps.setter
+    def skipped_steps(self, value: int):
+        self._skipped_host = int(value)
+        self._skipped_dev = None
+
+    def zero_optimization_stage(self) -> int:
+        return self.plan.stage
+
+    def zero_optimization(self) -> bool:
+        return self.plan.stage > 0
+
+    def zero_gather_16bit_weights_on_model_save(self) -> bool:
+        return bool(self.config.zero_config.stage3_gather_16bit_weights_on_model_save)
+
+    def gradient_clipping(self) -> float:
+        return self.config.gradient_clipping
+
+    def get_world_size(self) -> int:
+        return dist.get_world_size()
 
     def get_lr(self):
         if self._lr_override is not None:
@@ -446,22 +649,264 @@ class DeepSpeedEngine:
             return False
         return not bool(self._last_overflow)
 
+    @torch.no_grad()
+    def full_masters(self) -> List[torch.Tensor]:
+        """Every fp32 master whole, in plan order (stage 3 all-gathers its
+        chunks: every rank must call it)."""
+        out = [m.detach() for m in self._masters]
+        items = []
+        for i, lf in enumerate(self.plan.leaves):
+            if lf.param_dim is not None:
+                full = torch.empty(lf.shape, dtype=torch.float32, device=self.device)
+                items.append((out[i], lf.param_dim, full))
+                out[i] = full
+        if items:
+            self.coll.gather(items)
+        return out
+
     def module_state_dict(self) -> Dict[str, Any]:
-        """The fp32 master parameters as a nested dict of detached tensors."""
-        return _unflatten((path, leaf.detach()) for path, leaf in zip(self._paths, self._leaves))
+        """The fp32 masters, whole, as a nested dict of detached tensors (a
+        collective at stage 3)."""
+        return unflatten_tree(zip(self._paths, self.full_masters()))
+
+    @torch.no_grad()
+    def full_optimizer_state(self) -> List[Dict[str, torch.Tensor]]:
+        """Each leaf's optimizer state tensors, whole (all-gathered over the
+        ZeRO group where stage >= 1 shards them: every rank must call it)."""
+        out, items = [], []
+        for lf, p in zip(self.plan.leaves, self._opt_params):
+            st = {}
+            for k, v in self.optimizer.state.get(p, {}).items():
+                if lf.opt_dim is None or not torch.is_tensor(v) or v.shape != p.shape:
+                    st[k] = v
+                else:
+                    st[k] = torch.empty(lf.shape, dtype=v.dtype, device=v.device)
+                    items.append((v, lf.opt_dim, st[k]))
+            out.append(st)
+        if items:
+            self.coll.gather(items)
+        return out
+
+    @property
+    def optimizer_step_count(self) -> int:
+        """The optimizer's applied steps (overflow-skipped ones do not count)."""
+        c = self.optimizer._count
+        return 0 if c is None else int(c)
+
+    def set_optimizer_step_count(self, n: int) -> None:
+        self.optimizer._count = torch.tensor(int(n), dtype=torch.int32, device=self.device)
+
+    def _configure_monitor(self):
+        from ..monitor.monitor import MonitorMaster
+
+        m = MonitorMaster(self.config)
+        return m if m.enabled else None
+
+    # ------------------------------------------------------------------ checkpoints
+    def _layout(self) -> Dict[str, Any]:
+        """What a rank file must match to resume at this world size and stage."""
+        return {"zero_stage": self.plan.stage, "dp_world_size": self.dp_world_size,
+                "mesh": {a: self.topology.axis_size(a) for a in ("data", "fsdp")}}
+
+    def _check_layout(self, saved: Dict[str, Any], where: str) -> None:
+        want = self._layout()
+        got = {k: saved.get(k) for k in want}
+        if got != want:
+            raise ValueError(f"{where} was saved at {got}, this engine runs {want}: a checkpoint resumes only at "
+                             "its own world size, mesh and ZeRO stage. Save a universal checkpoint "
+                             "(engine.save_universal_checkpoint) and load it with load_universal_checkpoint, or "
+                             "set checkpoint.load_universal")
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", copy=True)
+
+    def save_checkpoint(self, save_dir: str, tag=None, client_state: Optional[Dict] = None, save_latest: bool = True,
+                        exclude_frozen_parameters: bool = False) -> bool:
+        """Write ``<save_dir>/<tag>/``: the model states on rank 0 and one
+        optim-states file a rank (every rank must call it), then ``latest``
+        after a barrier. With ``checkpoint.async_save`` the files are written
+        on a background thread (``checkpoint_engine.wait()`` makes them
+        durable; ``latest`` follows rank 0's files)."""
+        tag = str(tag) if tag is not None else f"global_step{self.global_steps}"
+        d = os.path.join(save_dir, tag)
+        eng = self.checkpoint_engine
+        eng.makedirs(d)
+        eng.create(tag)
+        module = {path: self._host(t) for path, t in zip(self._paths, self.full_masters())}
+        if self.dp_rank == 0:
+            eng.save({"module": module, "global_steps": self.global_steps, "micro_steps": self.micro_steps,
+                      "global_samples": self.global_samples, "skipped_steps": self.skipped_steps,
+                      "accum_base": self._accum_base, "base_lr": self._base_lr,
+                      "loss_scaler": self.loss_scaler.state_dict(),
+                      "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None,
+                      "client_state": client_state or {}, **self._layout()},
+                     os.path.join(d, MODEL_STATES_FILENAME))
+        del module
+        eng.save(self._optim_states(), os.path.join(d, optim_states_filename(self.dp_rank)))
+        if save_latest:
+            if not isinstance(eng, AsyncCheckpointEngine):  # written now: every rank's files are down
+                dist.barrier(device=self.device)
+            if self.dp_rank == 0:
+                eng.save_text(tag, os.path.join(save_dir, LATEST_FILENAME))
+        eng.commit(tag)
+        return True
+
+    def _optim_states(self) -> Dict[str, Any]:
+        """This rank's file: its chunk of each master and of each optimizer
+        state tensor (whole where the leaf is not sharded), and the
+        optimizer's scalars."""
+        plan, fp32, state = self.plan, {}, {}
+        for lf, p, m in zip(plan.leaves, self._opt_params, self._masters):
+            if lf.opt_dim is None or lf.param_dim == lf.opt_dim:
+                chunk = m
+            else:
+                n = lf.shape[lf.opt_dim] // plan.size
+                chunk = m.narrow(lf.opt_dim, plan.rank * n, n)
+            fp32[lf.path] = self._host(chunk)
+            state[lf.path] = {k: self._host(v) if torch.is_tensor(v) else v
+                              for k, v in self.optimizer.state.get(p, {}).items()}
+        replica_rank = self.topology.axis_rank("data") if plan.axis == "fsdp" else 0
+        return {**self._layout(), "zero_axis": plan.axis, "zero_size": plan.size, "zero_rank": plan.rank,
+                "replica_rank": replica_rank,
+                "leaves": [(lf.path, lf.shape, lf.opt_dim) for lf in plan.leaves], "fp32": fp32, "state": state,
+                "optimizer": {"count": self.optimizer_step_count, "state_names": self.optimizer.state_names(),
+                              "param_groups": [{k: v for k, v in g.items() if k != "params"}
+                                               for g in self.optimizer.param_groups]}}
+
+    @torch.no_grad()
+    def load_full_masters(self, full: Dict[str, Any], strict: bool = True) -> None:
+        """Set the masters from whole fp32 leaves (a dict path -> tensor or
+        array): each rank keeps its chunk."""
+        missing = [p for p in self._paths if p not in full]
+        extra = [p for p in full if p not in set(self._paths)]
+        if missing or (strict and extra):
+            raise KeyError(f"checkpoint module does not match the model: missing {missing[:5]}, unexpected "
+                           f"{extra[:5]}")
+        for lf, m in zip(self.plan.leaves, self._masters):
+            t = torch.as_tensor(full[lf.path])
+            if tuple(t.shape) != lf.shape:
+                raise ValueError(f"{lf.path}: checkpoint shape {tuple(t.shape)}, model {lf.shape}")
+            m.copy_(self.plan.shard(t, lf.param_dim))
+
+    @torch.no_grad()
+    def load_optimizer_state(self, per_leaf: List[Dict[str, Any]], step_count: int,
+                             whole: bool = False) -> None:
+        """Install each leaf's optimizer state tensors (this rank's chunks, or
+        whole tensors it takes its chunk of when ``whole``) and the step count."""
+        for lf, p, st in zip(self.plan.leaves, self._opt_params, per_leaf):
+            new = {}
+            for k, v in st.items():
+                if torch.is_tensor(v) or isinstance(v, np.ndarray):
+                    v = torch.as_tensor(v)
+                    if whole:
+                        v = self.plan.shard(v, lf.opt_dim)
+                    v = v.to(self.device, copy=True)
+                new[k] = v
+            if new:
+                self.optimizer.state[p] = new
+            else:
+                self.optimizer.state.pop(p, None)
+        self.set_optimizer_step_count(step_count)
+
+    def load_checkpoint(self, load_dir: str, tag=None, load_module_strict: bool = True,
+                        load_optimizer_states: bool = True, load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False):
+        """Resume from ``save_checkpoint``'s files at the same world size,
+        mesh and stage (a universal checkpoint with ``checkpoint.load_universal``).
+        Returns (path, client_state), or (None, {}) without a ``latest``."""
+        if self.config.checkpoint_config.load_universal:
+            from ..checkpoint.universal import load_universal_checkpoint
+
+            if load_module_only:
+                load_optimizer_states = load_lr_scheduler_states = False
+            if tag is None and not os.path.exists(os.path.join(load_dir, LATEST_FILENAME)):
+                logger.warning(f"no 'latest' file at {load_dir}; nothing loaded")
+                return None, {}
+            return load_universal_checkpoint(self, load_dir, tag, load_optimizer_states=load_optimizer_states,
+                                             load_lr_scheduler_states=load_lr_scheduler_states), {}
+        eng = self.checkpoint_engine
+        eng.wait()
+        if tag is None:
+            latest = os.path.join(load_dir, LATEST_FILENAME)
+            if not os.path.exists(latest):
+                logger.warning(f"no 'latest' file at {load_dir}; nothing loaded")
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        d = os.path.join(load_dir, str(tag))
+        model = eng.load(os.path.join(d, MODEL_STATES_FILENAME))
+        self._check_layout(model, d)
+        self.load_full_masters(model["module"], strict=load_module_strict)
+        client_state = {}
+        if not load_module_only:
+            if load_optimizer_states:
+                opt = eng.load(os.path.join(d, optim_states_filename(self.dp_rank)))
+                self._check_layout(opt, d)
+                if [tuple(x[:2]) for x in opt["leaves"]] != [(lf.path, lf.shape) for lf in self.plan.leaves]:
+                    raise ValueError(f"{d}: the optimizer states' leaves do not match the model")
+                self.load_optimizer_state([opt["state"][lf.path] for lf in self.plan.leaves],
+                                          opt["optimizer"]["count"])
+                for g, saved in zip(self.optimizer.param_groups, opt["optimizer"]["param_groups"]):
+                    g.update(saved)
+                self.loss_scaler.load_state_dict(model["loss_scaler"])
+                if load_lr_scheduler_states and self.lr_scheduler is not None and model["lr_scheduler"] is not None:
+                    self.lr_scheduler.load_state_dict(model["lr_scheduler"])
+                self.global_steps = int(model["global_steps"])
+                self.micro_steps = int(model["micro_steps"])
+                self.global_samples = int(model["global_samples"])
+                self.skipped_steps = int(model["skipped_steps"])
+                self._accum_base = min(int(model.get("accum_base", 0)), self.micro_steps)
+                self._base_lr = float(model.get("base_lr", self._base_lr))
+            client_state = model.get("client_state", {})
+        self._grad_acc = None
+        self._pending = None
+        return d, client_state
+
+    def save_16bit_model(self, save_dir: str, save_filename: str = "pytorch_model.bin"):
+        """The whole model in bf16 as one ``torch.save`` file of ``/``-joined
+        parameter paths, written by rank 0 (reference ``engine.py:3547``; the
+        JAX package writes safetensors, which the card's machine lacks). At
+        stage 3 only with ``stage3_gather_16bit_weights_on_model_save``."""
+        from .checkpoint_engine import TorchCheckpointEngine
+
+        if self.plan.stage == 3 and not self.zero_gather_16bit_weights_on_model_save():
+            logger.info(f"Did not save the model {os.path.join(save_dir, save_filename)} because "
+                        "`stage3_gather_16bit_weights_on_model_save` is False")
+            return False
+        out = os.path.join(save_dir, save_filename)
+        weights = {path: self._host(t.to(torch.bfloat16)) for path, t in zip(self._paths, self.full_masters())}
+        if self.dp_rank == 0:
+            TorchCheckpointEngine().save(weights, out)
+        dist.barrier(device=self.device)
+        return out
+
+    def save_universal_checkpoint(self, save_dir: str, tag=None) -> str:
+        """The degree-independent layout, written directly (the JAX package's
+        layout: either package resumes it at any world size and stage)."""
+        from ..checkpoint.universal import save_universal_checkpoint
+
+        return save_universal_checkpoint(self, save_dir, tag)
+
+    def load_universal_checkpoint(self, load_dir: str, tag=None, load_optimizer_states: bool = True,
+                                  load_lr_scheduler_states: bool = True) -> str:
+        from ..checkpoint.universal import load_universal_checkpoint
+
+        return load_universal_checkpoint(self, load_dir, tag, load_optimizer_states=load_optimizer_states,
+                                         load_lr_scheduler_states=load_lr_scheduler_states)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None, lr_scheduler=None,
                mesh=None, mpu=None, dist_init_required=None, collate_fn=None, config=None, device="cuda"):
     """Reference ``deepspeed/__init__.py:70``: returns (engine, optimizer,
     dataloader, lr_scheduler). ``device`` is "cuda" unless the caller asks
-    for "cpu". A mesh or mpu, and the config's pipeline and hybrid-engine
-    sections, raise: the port trains on one device with this engine."""
+    for "cpu"; ``mesh`` a ``parallel.MeshTopology`` over the process world
+    (default: the config's ``mesh`` section). An mpu, and the config's
+    pipeline and hybrid-engine sections, raise."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    if mesh is not None or mpu is not None:
-        raise NotImplementedError("mesh/mpu: the port trains on one device (data-parallel size 1)")
+    if mpu is not None:
+        raise NotImplementedError("mpu: tensor and pipeline parallelism are not ported yet")
     engine = DeepSpeedEngine(model=model, optimizer=optimizer, model_parameters=model_parameters,
                              training_data=training_data, lr_scheduler=lr_scheduler, collate_fn=collate_fn,
-                             config=config, device=device)
+                             config=config, device=device, mesh=mesh, dist_init_required=dist_init_required)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

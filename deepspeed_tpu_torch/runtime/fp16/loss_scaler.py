@@ -8,6 +8,7 @@ the host.
 """
 
 import logging
+from typing import Dict
 
 import torch
 
@@ -25,6 +26,12 @@ class LossScalerBase:
 
     def update_scale(self, overflow: bool):
         pass
+
+    def state_dict(self) -> Dict:
+        return {"cur_scale": self.cur_scale}
+
+    def load_state_dict(self, sd: Dict):
+        self.cur_scale = sd["cur_scale"]
 
 
 class LossScaler(LossScalerBase):
@@ -56,6 +63,16 @@ class DynamicLossScaler(LossScalerBase):
         self.raise_error_at_min_scale = raise_error_at_min_scale
         self.last_overflow_iter = -1
         self.cur_iter = 0
+
+    def state_dict(self) -> Dict:
+        return {"cur_scale": self.cur_scale, "cur_iter": self.cur_iter, "last_overflow_iter": self.last_overflow_iter,
+                "cur_hysteresis": self.cur_hysteresis}
+
+    def load_state_dict(self, sd: Dict):
+        self.cur_scale = sd["cur_scale"]
+        self.cur_iter = sd.get("cur_iter", 0)
+        self.last_overflow_iter = sd.get("last_overflow_iter", -1)
+        self.cur_hysteresis = sd.get("cur_hysteresis", self.delayed_shift)
 
     def update_scale(self, overflow: bool):
         if overflow:

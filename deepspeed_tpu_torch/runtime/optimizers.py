@@ -30,7 +30,7 @@ tensors: the step count and the update advance only where ``finite`` holds,
 and nothing is read back to the host.
 """
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -64,6 +64,21 @@ class DeviceOptimizer(torch.optim.Optimizer):
     def __init__(self, params, defaults: Dict):
         super().__init__(params, defaults)
         self._count = None  # applied steps, a device int32 scalar (skipped steps do not count)
+        self._sharded: set = set()  # ids of parameters that are one rank's chunk of a leaf
+        self._norm_reduce: Optional[Callable] = None
+
+    def set_sharded(self, params, norm_reduce: Callable) -> None:
+        """Mark ``params`` as chunks of leaves split over ranks: ``norm_reduce(t)``
+        sums ``t`` in place over the ranks holding the other chunks (LAMB's
+        trust ratio needs whole-leaf norms; the elementwise optimizers ignore
+        it)."""
+        self._sharded = {id(p) for p in params}
+        self._norm_reduce = norm_reduce
+
+    def state_names(self):
+        """The names of a parameter's state tensors, in the order a universal
+        checkpoint numbers them (``exp_avg``, ``exp_avg_sq``, ...)."""
+        return tuple(self._init_state(torch.empty(0)).keys())
 
     def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
@@ -153,7 +168,9 @@ class Lamb(Adam):
     hand-written kernel on CUDA parameters (its plain version on CPU
     parameters), then the unclipped trust-ratio apply in PyTorch. The
     direction of every leaf goes through one scratch buffer of the largest
-    leaf's size."""
+    leaf's size. A leaf split over ranks (``set_sharded``, ZeRO stage >= 1)
+    takes its trust ratio from whole-leaf norms: its chunk's squared norms
+    are summed over the ranks before the apply."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01):
         super().__init__(params, lr, betas, eps, weight_decay, adam_w_mode=True)
@@ -166,7 +183,7 @@ class Lamb(Adam):
             self._u = torch.empty(n, dtype=torch.float32, device=p.device)
         u = fused_lamb.lamb_direction(p, g.contiguous(), state["exp_avg"], state["exp_avg_sq"], scalars, b1, b2, eps,
                                       wd, u_out=self._u[:p.numel()].view_as(p))
-        fused_lamb.lamb_apply(p, u, scalars)
+        fused_lamb.lamb_apply(p, u, scalars, norm_reduce=self._norm_reduce if id(p) in self._sharded else None)
 
 
 class Lion(DeviceOptimizer):

@@ -1,0 +1,24 @@
+"""MiCS: ZeRO-3 sharded within groups of ranks and replicated across them.
+
+Port of ``deepspeed_tpu/runtime/zero/mics.py`` (reference ``mics.py``):
+MiCS's layout is the mesh ``{data: replica groups, fsdp: shard group size}``
+with stage 3, which the engine runs (the ``data`` groups all-reduce the
+chunks' gradients). The ``mics_shard_size`` key that sizes that mesh, and
+the hierarchical gather, are not ported yet and raise in the config;
+``MiCS_Init`` is ``zero.Init`` under such a mesh.
+"""
+
+from .init import Init
+
+
+class MiCS_Init(Init):
+    """Sharded construction under a MiCS mesh (reference ``mics.py:64``)."""
+
+
+def validate_mics_mesh(config, topo) -> None:
+    k = config.zero_config.mics_shard_size
+    if k and k > 0:
+        fsdp = topo.axis_size("fsdp")
+        if fsdp != k:
+            raise ValueError(f"mics_shard_size={k} but the mesh fsdp axis is {fsdp}; either drop the explicit mesh "
+                             "fsdp setting (MiCS will size it) or make them equal")

@@ -2045,3 +2045,78 @@ def test_accounted_deferred_step_makes_no_host_sync(cuda):
     assert sum(c.timed_calls for c in acct.cards().values()) == timed + 1
     assert telemetry.get_tracer().spans()[-1]["name"] == "infer/decode"
     assert all(0 <= int(t) < cfg.vocab_size for t in carry)
+
+
+# ---------------------------------------------------------------- ZeRO and checkpoints over NCCL (world 1)
+def _zero_engine(dev, stage, optimizer="FusedAdam"):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=256, max_seq_len=128,
+                            dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0, "bf16": {"enabled": True},
+              "optimizer": {"type": optimizer, "params": {"lr": 1e-3}}, "zero_optimization": {"stage": stage}}
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+    return engine
+
+
+def _zero_batches(n):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [{"input_ids": rng.integers(0, 512, (2, 128)).astype(np.int32)} for _ in range(n)]
+
+
+def test_zero_stage3_equals_stage0_over_nccl(cuda):
+    """At world 1 the planner shards nothing, so stage 3's gathers, per-block
+    reduces and bucketed all-reduces must leave the losses and masters of
+    stage 0 unchanged, bit for bit; the engine's collectives ran on NCCL."""
+    from deepspeed_tpu_torch import comm as dist
+
+    runs = {}
+    for stage in (0, 3):
+        engine = _zero_engine(cuda, stage)
+        it = iter(_zero_batches(4))
+        losses = [float(engine.train_batch(it)) for _ in range(4)]
+        runs[stage] = (losses, engine.full_masters(), dict(engine.comm_stats), engine.zero_gathered_bytes)
+    assert dist.get_world_size() == 1 and dist.comm._backends()["cuda"] == "nccl"
+    assert runs[3][0] == runs[0][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[3][1], runs[0][1]))
+    assert runs[0][2]["all_reduce"][0] > 0 and runs[3][2]["all_reduce"][0] > runs[0][2]["all_reduce"][0]
+    assert runs[3][3][0] == 0 and runs[3][3][1] > 0  # stage 3 gathered blocks and released them all
+
+
+def test_zero_checkpoint_round_trip_is_exact(cuda, tmp_path):
+    """Stage 2: 2 steps, a checkpoint, a fresh engine resumes it for 2 more:
+    the same losses and masters as 4 straight steps, bit for bit."""
+    straight = _zero_engine(cuda, 2)
+    it = iter(_zero_batches(4))
+    want = [float(straight.train_batch(it)) for _ in range(4)]
+    first = _zero_engine(cuda, 2)
+    it = iter(_zero_batches(4))
+    got = [float(first.train_batch(it)) for _ in range(2)]
+    first.save_checkpoint(str(tmp_path), tag="two")
+    resumed = _zero_engine(cuda, 2)
+    resumed.load_checkpoint(str(tmp_path))
+    got += [float(resumed.train_batch(it)) for _ in range(2)]
+    assert got == want
+    assert all(torch.equal(a, b) for a, b in zip(resumed.full_masters(), straight.full_masters()))
+
+
+def test_collectives_run_on_nccl_and_refuse_cpu_tensors_there(cuda):
+    from deepspeed_tpu_torch import comm as dist
+
+    dist.init_distributed(device=cuda, verbose=False)
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    out = torch.empty(8, device=cuda)
+    dist.all_gather_into_tensor(out, x)
+    assert torch.equal(out, x)
+    dist.reduce_scatter_tensor(out, x)
+    assert torch.equal(out, x)
+    y = x.clone()
+    dist.all_reduce(y)
+    assert torch.equal(y, x)
+    cuda_on_gloo = dist.new_group([0], backend="gloo")
+    with pytest.raises(RuntimeError, match="never falls back"):
+        dist.all_reduce(x, group=cuda_on_gloo)

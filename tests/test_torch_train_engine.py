@@ -11,7 +11,7 @@ the losses (2e-5 abs), the LR sequence (exact), the global grad norm (1e-5
 relative) and every parameter after the last step (2 % of the Adam travel,
 the sum of the lr over the steps; measured at most 0.6 %). A non-finite
 gradient skips the step in both engines; a config section the port does
-not implement raises.
+not implement raises, and so does a mesh larger than the process world.
 """
 
 import dataclasses
@@ -170,7 +170,7 @@ def test_a_non_finite_gradient_skips_the_step_in_both_engines():
 
 
 @pytest.mark.parametrize("section", [
-    {"zero_optimization": {"stage": 1}},
+    {"zero_optimization": {"offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
     {"pipeline": {"stages": 2}},
     {"hybrid_engine": {"enabled": True}},
@@ -179,13 +179,20 @@ def test_a_non_finite_gradient_skips_the_step_in_both_engines():
     {"curriculum_learning": {"enabled": True}},
     {"random_ltd": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"mesh": {"data": 2}},
+    {"mesh": {"tensor": 2}},
     {"optimizer": {"type": "OneBitLamb"}},
 ])
 def test_unported_config_sections_raise(section):
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.initialize(model=_linear_loss_torch, model_parameters={"w": np.zeros((4, 3), np.float32)},
                                        config={"train_micro_batch_size_per_gpu": 1, **section}, device="cpu")
+
+
+def test_a_mesh_larger_than_the_world_raises():
+    with pytest.raises(ValueError, match="Mesh axes product 2 != world size 1"):
+        deepspeed_tpu_torch.initialize(model=_linear_loss_torch, model_parameters={"w": np.zeros((4, 3), np.float32)},
+                                       config={"train_micro_batch_size_per_gpu": 1, "mesh": {"data": 2}},
+                                       device="cpu")
 
 
 def test_the_default_device_is_cuda():
