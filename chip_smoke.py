@@ -200,6 +200,26 @@ Phases, each fatal on failure:
    one at stage 2 and the universal one at stage 3 and train 6 more steps,
    equal to the straight run's last 6 bit for bit; ``zero_to_fp32`` equals
    the saved masters.
+15. host_optim: ZeRO-Offload's host C++ on the card machine's CPU: the C++
+   Adam (``csrc/host/cpu_adam.cpp``) against its plain PyTorch version at
+   ``wte`` and over gpt2_1_3b's 388 leaves one by one (ms, GB/s, threads),
+   and the AIO pool (``csrc/host/aio.cpp``) writing and reading 1 GiB under
+   ``build/``;
+16. train_offload: gpt2_1_3b at full width (and depth, unless the host's
+   ``MemAvailable`` cannot hold its host state: the cut is printed) for 6
+   steps each at stage 2 with ``offload_optimizer: cpu``, at stage 3 with
+   ``offload_param`` and ``offload_optimizer`` on the cpu, and at stage 3
+   with the model's remat: step ms split into the device's share and the
+   offload's d2h, host step and h2d, bytes moved, device peak (below
+   train_zero's at the same stage), host RSS; offload losses within
+   ``OFFLOAD_LOSS_TOL`` of train_zero's, remat's equal to stage 3's bit for
+   bit; the flash kernels launch as in train_zero (the remat forward
+   twice), ``fused_adam`` never under optimizer offload;
+17. offload_nvme: gpt2_1_3b widths at 2 layers, stage 3, both offloads on
+   NVMe under ``build/`` (moments in swap files, masters in mapped files):
+   losses equal the cpu offload run's bit for bit, and a native checkpoint
+   resumes bit for bit. The host code's rows are printed as
+   ``{"host_code": [...]}`` on a line of their own before the kernels line.
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -3114,9 +3134,12 @@ def comm_per_step(before: dict, after: dict, steps: int) -> dict:
             for op, (c, b) in after.items()}
 
 
-def zero_run(torch, dev, counters, stage: int, optimizer: str, n_layers=None, steps=TRAIN_STEPS) -> dict:
+def zero_run(torch, dev, counters, stage: int, optimizer: str, n_layers=None, steps=TRAIN_STEPS, zero=None,
+             remat=False) -> dict:
     """``steps`` steps of gpt2_1_3b (``n_layers`` of them) at ``stage`` on phase_train's seeded batch; steps
-    TIMED_FROM+1.. timed, with the engine's collectives a step."""
+    TIMED_FROM+1.. timed, with the engine's collectives a step. ``zero``: more keys of the zero_optimization
+    section (ZeRO-Offload's); ``remat``: the model checkpoints every block. Under offload, the host's share
+    of a timed step (ZeRO-Offload's ``offload_stats`` over the timed steps, a step's mean)."""
     import itertools
 
     import numpy as np
@@ -3124,9 +3147,9 @@ def zero_run(torch, dev, counters, stage: int, optimizer: str, n_layers=None, st
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import CausalLM, init_params
 
-    cfg = gpt2_cfg(dtype=torch.bfloat16, **({"n_layers": n_layers} if n_layers else {}))
+    cfg = gpt2_cfg(dtype=torch.bfloat16, remat=remat, **({"n_layers": n_layers} if n_layers else {}))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    config = dict(train_config(torch, optimizer, torch.bfloat16), zero_optimization={"stage": stage})
+    config = dict(train_config(torch, optimizer, torch.bfloat16), zero_optimization={"stage": stage, **(zero or {})})
     engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
     del params
     torch.cuda.empty_cache()
@@ -3137,16 +3160,20 @@ def zero_run(torch, dev, counters, stage: int, optimizer: str, n_layers=None, st
     for fn in counters:
         fn.launches = 0
     comm0 = {op: list(v) for op, v in engine.comm_stats.items()}
+    off0 = dict(engine.offload_stats)
     t0 = time.perf_counter()
     losses += [engine.train_batch(data) for _ in range(steps - TIMED_FROM)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     timed = steps - TIMED_FROM
+    off1 = engine.offload_stats
+    offload = {k: (v - off0[k]) / timed for k, v in off1.items() if isinstance(v, (int, float)) and k in off0
+               and k not in ("offloaded_leaves", "offloaded_param_bytes")}
     return dict(engine=engine, losses=[float(x) for x in losses], step_ms=wall / timed * 1e3,
                 tokens_per_s=MICRO * SEQ * timed / wall, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
                 comm_per_step=comm_per_step(comm0, engine.comm_stats, timed),
                 launches={fn.__name__: fn.launches for fn in counters}, timed=timed, layers=cfg.n_layers,
-                gathered_peak_gb=engine.zero_gathered_bytes[1] / 2**30)
+                gathered_peak_gb=engine.zero_gathered_bytes[1] / 2**30, offload_per_step=offload)
 
 
 def phase_train_zero(torch, dev, counters, want=None) -> dict:
@@ -3263,6 +3290,304 @@ def phase_ckpt(torch, dev, counters) -> dict:
     if not (rec["native_equal"] and rec["universal_equal"] and rec["zero_to_fp32_equal"]):
         raise AssertionError(f"ckpt: a resumed run or zero_to_fp32 differs: {rec}")
     return rec
+
+
+# ZeRO-Offload and activation checkpointing on the card. The host C++ of the offload path (``csrc/host/``) is
+# host code: its rows stand on a line of their own (``host_code``), not in the kernels line.
+HOST_AIO_BYTES = 1 << 30
+# The host Adam and fused_adam round differently (fused_adam folds the gradient multiplier and the bias
+# corrections into one kernel, the host step scales the gradient first, as the JAX offload optimizer does), so
+# masters part by an fp32 rounding after the first step, and the bf16 forward turns that into loss differences
+# of ~1e-3 over a few warm-up steps; the limit is 20x above that guess.
+OFFLOAD_LOSS_TOL = 2e-2
+OFFLOAD_STEPS = 6  # steps TIMED_FROM+1.. are timed; the host step makes each one take seconds
+OFFLOAD_HOST_BYTES_PER_PARAM = 16  # fp32 master, two moments and the pinned gradient buffer
+
+
+def host_rss_gb() -> dict:
+    """This process's resident host memory (``/proc/self/status``) and its peak (``getrusage``)."""
+    import resource
+
+    rss = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) / 2**20
+    return {"rss_gb": rss, "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+
+
+def mem_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def phase_host_optim(torch) -> dict:
+    """The host C++ of ZeRO-Offload on the card machine's CPU: ``cpu_adam_step`` against its plain version at
+    ``wte`` (50,257 x 2,048) and over gpt2_1_3b's 388 leaves one by one (one host step), with ms, GB/s (7 fp32
+    streams an element: p, g, m, v read, p, m, v written) and the thread count; then the AIO pool writing
+    and reading 1 GiB under ``build/``."""
+    import shutil
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.adam import cpu_adam as ca
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+
+    threads = torch.get_num_threads()
+    leaves = gpt2_leaf_shapes()
+    gen = torch.Generator().manual_seed(0)
+    # one seeded pool a state, as large as the largest leaf; each leaf steps copies of its first elements
+    wte = (50257, 2048)
+    most = max([math.prod(wte)] + [int(math.prod(s)) for _, s in leaves])
+    pool_p, pool_g = torch.randn(most, generator=gen), torch.randn(most, generator=gen)
+    pool_m, pool_v = torch.randn(most, generator=gen) * 0.01, torch.rand(most, generator=gen) * 1e-4
+
+    def one(shape, step=2):
+        n = int(math.prod(shape))
+        g = pool_g[:n].view(shape)
+        p, m, v = (x[:n].view(shape).clone() for x in (pool_p, pool_m, pool_v))
+        rp, rm, rv = p.clone(), m.clone(), v.clone()
+        t0 = time.perf_counter()
+        ca.cpu_adam_step(p, g, m, v, 1e-4, 0.9, 0.999, 1e-8, 0.01, step)
+        c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ca.cpu_adam_ref(rp, g, rm, rv, 1e-4, 0.9, 0.999, 1e-8, 0.01, step)
+        plain_s = time.perf_counter() - t0
+        err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) for a, b in ((p, rp), (m, rm), (v, rv)))
+        return c_s, plain_s, err, p.numel()
+
+    t0 = time.perf_counter()
+    ca._lib()  # the first use builds the host library: not part of a step's time
+    rec = dict(phase="host_optim", threads=threads, cpu_count=os.cpu_count(), build_s=time.perf_counter() - t0)
+    ca.cpu_adam_step.launches = 0
+    c_s, plain_s, err, n = one(wte)
+    rec["wte"] = dict(shape=list(wte), ms=c_s * 1e3, plain_ms=plain_s * 1e3, gbps=28 * n / c_s / 1e9,
+                      max_rel_err=err)
+    total_c = total_plain = 0.0
+    worst = 0.0
+    elems = 0
+    for _, shape in leaves:
+        c_s, plain_s, err, n = one(shape)
+        total_c += c_s
+        total_plain += plain_s
+        worst = max(worst, err)
+        elems += n
+    rec["all"] = dict(leaves=len(leaves), elements=elems, ms=total_c * 1e3, plain_ms=total_plain * 1e3,
+                      gbps=28 * elems / total_c / 1e9, max_rel_err=worst, calls=ca.cpu_adam_step.launches)
+    folder = os.path.join(HERE, "build", "aio_smoke")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    chunks = 16
+    bufs = [torch.from_numpy(np.random.default_rng(i).integers(0, 255, HOST_AIO_BYTES // chunks, dtype=np.uint8))
+            for i in range(chunks)]
+    h = AsyncIOHandle(num_threads=8)
+    t0 = time.perf_counter()
+    for i, b in enumerate(bufs):
+        h.async_pwrite(b, os.path.join(folder, f"chunk{i}.bin"))
+    errors = h.wait()
+    write_s = time.perf_counter() - t0
+    back = [torch.empty_like(b) for b in bufs]
+    t0 = time.perf_counter()
+    for i, b in enumerate(back):
+        h.async_pread(b, os.path.join(folder, f"chunk{i}.bin"))
+    errors += h.wait()
+    read_s = time.perf_counter() - t0
+    h.close()
+    equal = all(torch.equal(a, b) for a, b in zip(bufs, back))
+    shutil.rmtree(folder, ignore_errors=True)
+    rec["aio"] = dict(bytes=HOST_AIO_BYTES, files=chunks, threads=8, write_s=write_s, read_s=read_s,
+                      write_gbps=HOST_AIO_BYTES / write_s / 1e9, read_gbps=HOST_AIO_BYTES / read_s / 1e9,
+                      errors=errors, equal=equal, note="warm page cache: the reads may not reach the disk")
+    log(rec)
+    if rec["wte"]["max_rel_err"] > 1e-6 or rec["all"]["max_rel_err"] > 1e-6 or errors or not equal:
+        raise AssertionError(f"host_optim: the host Adam differs from its plain version or the AIO failed: {rec}")
+    if rec["all"]["calls"] != len(leaves) + 1:
+        raise AssertionError(f"host_optim: {rec['all']['calls']} cpu_adam_step calls, expected {len(leaves) + 1}")
+    return rec
+
+
+# the train_offload runs: (name, stage, zero_optimization keys, remat, the train_zero stage its losses are held to)
+OFFLOAD_RUNS = [
+    ("stage2_offload_optimizer_cpu", 2, {"offload_optimizer": {"device": "cpu"}}, False),
+    ("stage3_offload_param_cpu_optimizer_cpu", 3, {"offload_param": {"device": "cpu"},
+                                                    "offload_optimizer": {"device": "cpu"}}, False),
+    ("stage3_remat", 3, {}, True),
+]
+
+
+def offload_layers(torch, n_layers: int) -> tuple:
+    """The depth whose host state fits in ``MemAvailable`` (masters, moments, pinned gradient buffers, with a
+    quarter to spare), and the bytes it wants."""
+    cfg = gpt2_cfg(dtype=torch.bfloat16)
+    per_layer = sum(int(math.prod(s)) for k, s in gpt2_leaf_shapes() if k.startswith("layer_0/"))
+    rest = sum(int(math.prod(s)) for k, s in gpt2_leaf_shapes() if not k.startswith("layer_"))
+    avail = mem_available_gb() * 2**30
+    need = lambda n: (rest + n * per_layer) * OFFLOAD_HOST_BYTES_PER_PARAM * 1.25
+    layers = n_layers
+    while layers > 1 and need(layers) > avail:
+        layers -= 1
+    return layers, need(cfg.n_layers) / 2**30, avail / 2**30
+
+
+def phase_train_offload(torch, dev, counters, zero_runs) -> dict:
+    """gpt2_1_3b at full width (depth as the host's memory allows, printed) through ``initialize`` and
+    ``train_batch``, world 1 over NCCL: stage 2 with ``offload_optimizer: cpu``, stage 3 with ``offload_param``
+    and ``offload_optimizer`` on the cpu, and stage 3 with the model's remat. Each run: step ms split into the
+    device's share and ZeRO-Offload's d2h, host step and h2d, the bytes moved, device peak, host RSS; losses
+    against train_zero's at the same stage (``zero_runs``), within OFFLOAD_LOSS_TOL under offload and bit for
+    bit with remat, whose peak must be lower; the flash kernels launch as in train_zero (the remat forward
+    twice), ``fused_adam`` never under optimizer offload, where the host Adam steps every leaf once a step."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.adam import cpu_adam as ca
+
+    full = gpt2_cfg(dtype=torch.bfloat16).n_layers
+    layers, need_gb, avail_gb = offload_layers(torch, full)
+    log(dict(phase="train_offload", mem_available_gb=avail_gb, host_state_wanted_gb=need_gb, layers=layers,
+             depth_cut=layers < full))
+    runs = {}
+    for name, stage, zero, remat in OFFLOAD_RUNS:
+        ca.cpu_adam_step.launches = 0
+        rss0 = host_rss_gb()
+        r = zero_run(torch, dev, counters, stage, "FusedAdam", n_layers=layers if layers < full else None,
+                     steps=OFFLOAD_STEPS, zero=zero, remat=remat)
+        engine = r.pop("engine")
+        host_calls = ca.cpu_adam_step.launches
+        leaves = len(engine.parameters())
+        base = zero_runs[(stage, "FusedAdam")]
+        want = base["losses"][:OFFLOAD_STEPS]
+        diff = max(abs(a - b) for a, b in zip(r["losses"], want))
+        off = r["offload_per_step"]
+        split = {k: off.get(k, 0.0) * 1e3 for k in ("d2h_s", "host_s", "h2d_s")}
+        rec = dict(phase="train_offload", run=name, model="gpt2_1_3b", stage=stage, remat=remat, layers=r["layers"],
+                   micro_batch=MICRO, seq=SEQ, steps=OFFLOAD_STEPS, timed_steps=f"{TIMED_FROM + 1}-{OFFLOAD_STEPS}",
+                   losses=r["losses"], train_zero_losses=want, loss_max_abs_diff=diff,
+                   losses_equal_train_zero=r["losses"] == want, step_ms=r["step_ms"], tokens_per_s=r["tokens_per_s"],
+                   step_split_ms=dict(device_and_rest=r["step_ms"] - sum(split.values()),
+                                      d2h=split["d2h_s"], host_step=split["host_s"], h2d=split["h2d_s"]),
+                   bytes_per_step={k: off.get(k, 0) for k in ("d2h_bytes", "h2d_bytes", "param_h2d_bytes")},
+                   param_copies_per_step=off.get("param_copies", 0), offload=engine.offload_stats,
+                   max_memory_allocated_gb=r["max_memory_allocated_gb"],
+                   train_zero_max_memory_allocated_gb=base["max_memory_allocated_gb"],
+                   gathered_peak_gb=r["gathered_peak_gb"], host_before=rss0, host_after=host_rss_gb(),
+                   launches=r["launches"], host_adam_calls=host_calls, leaves=leaves,
+                   train_zero_step_ms=base["step_ms"])
+        log(rec)
+        n = r["layers"]
+        want_launches = {"flash_fwd": 2 * n if remat else n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                         "fused_adam": 0 if zero else 1}
+        bad = {k: r["launches"].get(k) for k, v in want_launches.items() if r["launches"].get(k) != v * r["timed"]}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        problems = []
+        if bad:
+            problems.append(f"launches {bad}, want per step {want_launches}")
+        if zero and host_calls != leaves * OFFLOAD_STEPS:
+            problems.append(f"{host_calls} host Adam calls, want {leaves} a step")
+        if not np.isfinite(r["losses"]).all():
+            problems.append("losses not finite")
+        if layers == full:  # the losses and peaks of train_zero's runs are at full depth
+            if remat and not rec["losses_equal_train_zero"]:
+                problems.append("remat's losses differ from stage 3's")
+            if not remat and diff > OFFLOAD_LOSS_TOL:
+                problems.append(f"losses {diff} from train_zero's, limit {OFFLOAD_LOSS_TOL}")
+            if not r["max_memory_allocated_gb"] < base["max_memory_allocated_gb"]:
+                problems.append("device peak not below train_zero's at the same stage")
+        if problems:
+            raise AssertionError(f"train_offload {name}: " + "; ".join(problems))
+        runs[name] = rec
+    return runs
+
+
+def phase_offload_nvme(torch, dev, counters) -> dict:
+    """gpt2_1_3b widths at 2 layers, bf16, stage 3: ``offload_param`` and ``offload_optimizer`` on the cpu
+    (the reference), then both on NVMe under ``build/`` (moments in swap files, masters in mapped files):
+    losses equal the cpu run's bit for bit; then an NVMe run of 3 steps saves a native checkpoint and a fresh
+    NVMe engine resumes it for 3 more, equal to the reference's last 3 bit for bit."""
+    import itertools
+    import shutil
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    root = os.path.join(HERE, "build", "offload_nvme")
+    shutil.rmtree(root, ignore_errors=True)
+    layers, steps, half = 2, OFFLOAD_STEPS, OFFLOAD_STEPS // 2
+
+    def nvme(sub):
+        path = os.path.join(root, sub)
+        return {"offload_param": {"device": "nvme", "nvme_path": path},
+                "offload_optimizer": {"device": "nvme", "nvme_path": path, "pipeline_read": True}}
+
+    cpu = {"offload_param": {"device": "cpu"}, "offload_optimizer": {"device": "cpu"}}
+    ref = zero_run(torch, dev, counters, 3, "FusedAdam", n_layers=layers, steps=steps, zero=cpu)
+    del ref["engine"]
+    gc.collect()
+    run = zero_run(torch, dev, counters, 3, "FusedAdam", n_layers=layers, steps=steps, zero=nvme("straight"))
+    engine = run.pop("engine")
+    rec = dict(phase="offload_nvme", model="gpt2_1_3b", layers=layers, stage=3, steps=steps,
+               cpu_losses=ref["losses"], nvme_losses=run["losses"], nvme_equal_cpu=run["losses"] == ref["losses"],
+               cpu_step_ms=ref["step_ms"], nvme_step_ms=run["step_ms"], cpu_offload_per_step=ref["offload_per_step"],
+               nvme_offload_per_step=run["offload_per_step"], swap_files=sum(
+                   f.endswith(".swp") for _, _, fs in os.walk(root) for f in fs),
+               master_files=sum(f.startswith("master_") for _, _, fs in os.walk(root) for f in fs),
+               nvme_bytes=dir_bytes(root))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(root, "straight"), ignore_errors=True)
+    first = zero_run(torch, dev, counters, 3, "FusedAdam", n_layers=layers, steps=half, zero=nvme("first"))
+    engine = first.pop("engine")
+    t0 = time.perf_counter()
+    engine.save_checkpoint(os.path.join(root, "ckpt"), tag="half")
+    rec["save_s"] = time.perf_counter() - t0
+    rec["save_bytes"] = dir_bytes(os.path.join(root, "ckpt"))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt2_cfg(dtype=torch.bfloat16, n_layers=layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)  # overwritten by the load
+    config = dict(train_config(torch, "FusedAdam", torch.bfloat16), zero_optimization={"stage": 3, **nvme("resumed")})
+    fresh, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+    del params
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(os.path.join(root, "ckpt"))
+    rec["load_s"] = time.perf_counter() - t0
+    data = itertools.repeat(train_batch_data(np, cfg.vocab_size))
+    got = first["losses"] + [float(fresh.train_batch(data)) for _ in range(steps - half)]
+    rec["resumed_losses"] = got
+    rec["resumed_equal"] = got == ref["losses"]
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    log(rec)
+    if not (rec["nvme_equal_cpu"] and rec["resumed_equal"] and rec["swap_files"] and rec["master_files"]):
+        raise AssertionError(f"offload_nvme: NVMe differs from cpu offload or the resume is not exact: {rec}")
+    return rec
+
+
+def host_code_rows(host, offload) -> list:
+    """The host C++ of the offload path, each with what bounds it and its times here."""
+    run = offload["stage2_offload_optimizer_cpu"]
+    return [
+        {"name": "cpu_adam_step", "route": "host C++ (g++ -O3 -march=native -fopenmp)",
+         "source": "deepspeed_tpu_torch/csrc/host/cpu_adam.cpp", "replaces": "csrc/cpu_adam.cpp",
+         "bound_by": "host memory bandwidth", "threads": host["threads"], "wte_ms": host["wte"]["ms"],
+         "wte_gbps": host["wte"]["gbps"], "all_leaves_ms": host["all"]["ms"], "all_leaves_gbps": host["all"]["gbps"],
+         "plain_ms": host["all"]["plain_ms"], "max_rel_err": host["all"]["max_rel_err"],
+         "host_step_ms_in_train_offload": run["step_split_ms"]["host_step"], "calls": run["host_adam_calls"]},
+        {"name": "aio", "route": "host C++ (std::thread pool, pread / pwrite)",
+         "source": "deepspeed_tpu_torch/csrc/host/aio.cpp", "replaces": "csrc/aio.cpp", "bound_by": "disk",
+         "bytes": host["aio"]["bytes"], "write_gbps": host["aio"]["write_gbps"],
+         "read_gbps": host["aio"]["read_gbps"]},
+    ]
 
 
 # kernel path vs plain path, forward and backward end to end. bf16: per-row relative error with each
@@ -4267,18 +4592,28 @@ def main(argv) -> int:
     train_lamb = phase_train(torch, dev, lamb_counters, profile, optimizer="Lamb")
     log(dict(phase="train lamb", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    phase_train_zero(torch, dev, lamb_counters + [fad.fused_adam],
-                     want={"FusedAdam": train["losses"], "Lamb": train_lamb["losses"]})
+    zero_runs = phase_train_zero(torch, dev, lamb_counters + [fad.fused_adam],
+                                 want={"FusedAdam": train["losses"], "Lamb": train_lamb["losses"]})
     log(dict(phase="train_zero", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     phase_ckpt(torch, dev, train_counters)
     log(dict(phase="ckpt", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    host = phase_host_optim(torch)
+    log(dict(phase="host_optim", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    offload = phase_train_offload(torch, dev, train_counters, zero_runs)
+    log(dict(phase="train_offload", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_offload_nvme(torch, dev, train_counters)
+    log(dict(phase="offload_nvme", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
             "mixtral_8x7b_8l": serve_moe, "train": train,
             "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
+    log({"host_code": host_code_rows(host, offload)})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

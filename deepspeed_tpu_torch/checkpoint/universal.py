@@ -16,7 +16,13 @@ the JAX package's layout exactly:
 Every value is a numpy array, a JSON number or a pickle of plain Python
 numbers and numpy scalars, so either package reads what the other wrote
 without importing it. The optimizer's step count travels as the counter
-``optim_step`` (the JAX package restores every optax ``count`` from it).
+``optim_step`` (the JAX package restores every optax ``count`` from it);
+an engine under ZeRO-Offload also writes it as the scalar
+``__offload_step__``, as the JAX package's offload engine does, and a load
+falls back on that scalar where a checkpoint lacks the counter. The
+moments of a host optimizer are saved and loaded like the device
+optimizer's (``engine.full_optimizer_state`` reads them from host RAM or
+from the swap files).
 Saving all-gathers the chunks (every rank must call it; rank 0 writes);
 loading reads whole leaves and keeps each rank's chunk, so the target may
 run any world size, mesh and stage.
@@ -89,13 +95,15 @@ def save_universal_checkpoint(engine, save_dir: str, tag: Optional[str] = None) 
     tag = str(tag) if tag is not None else f"global_step{engine.global_steps}"
     masters = engine.full_masters()
     states = engine.full_optimizer_state()
-    names = engine.optimizer.state_names()
+    names = engine.state_names()
     root = os.path.join(save_dir, tag)
     if dist.get_rank() == 0:
         params = {p: t.cpu().numpy() for p, t in zip(engine._paths, masters)}
         moments = [{p: (st[n].cpu().numpy() if n in st else np.zeros(params[p].shape, np.float32))
                     for p, st in zip(engine._paths, states)} for n in names]
         scalar_state = {"__loss_scaler__": engine.loss_scaler.state_dict()}
+        if engine._host_opt is not None:
+            scalar_state["__offload_step__"] = np.asarray(engine.optimizer_step_count)
         if engine.lr_scheduler is not None:
             scalar_state["__lr_scheduler__"] = engine.lr_scheduler.state_dict()
         counters = {"global_steps": engine.global_steps, "micro_steps": engine.micro_steps,
@@ -130,13 +138,14 @@ def load_universal_checkpoint(engine, load_dir: str, tag: Optional[str] = None, 
         with open(os.path.join(root, SCALAR_STATE), "rb") as f:
             scalar_state = pickle.load(f)  # plain numbers and numpy scalars, written by one of the two packages
     if load_optimizer_states:
-        names = engine.optimizer.state_names()
+        names = engine.state_names()
         if meta.get("n_moment_trees", 0) != len(names):
             raise ValueError(f"universal checkpoint at {root} holds {meta.get('n_moment_trees', 0)} optimizer state "
                              f"trees, this engine's {type(engine.optimizer).__name__} keeps {len(names)} ({names})")
         per_leaf = [{name: np.load(os.path.join(zdir, p, _moment_file(i))) for i, name in enumerate(names)}
                     for p in engine._paths]
-        engine.load_optimizer_state(per_leaf, int(counters.get("optim_step", 0)), whole=True)
+        step = counters["optim_step"] if "optim_step" in counters else scalar_state.get("__offload_step__", 0)
+        engine.load_optimizer_state(per_leaf, int(step), whole=True)
         if "__loss_scaler__" in scalar_state:
             engine.loss_scaler.load_state_dict(scalar_state["__loss_scaler__"])
         engine.global_steps = int(counters.get("global_steps", engine.global_steps))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..moe.layer import MoE
+from ..runtime.activation_checkpointing import checkpointing
 
 # a layer's dense KV cache: k and v (B, max_len, KVH, Dh) and the filled length (a host int)
 KVCache = Tuple[torch.Tensor, torch.Tensor, int]
@@ -523,14 +524,21 @@ def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positi
     return (x, new_cache) if kv_cache is not None else x
 
 
+def _read_block_fwd(cfg, params, i: int, train: bool, x, positions, moe_aux=None):
+    """Block i, its parameters read from ``params`` on every call (a checkpoint's recompute reads them again)."""
+    return block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train, moe_aux=moe_aux)
+
+
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
                         positions: Optional[torch.Tensor] = None, return_hidden: bool = False,
                         kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None,
                         moe_aux: Optional[List] = None):
     """The reference ``Transformer.__call__``: embeddings (learned, rope,
     ALiBi or no positions; ``embed_scale``, ``embedding_norm``), the blocks
-    (``torch.utils.checkpoint`` per block when ``cfg.remat`` and there are no
-    caches), the final norm, then fp32 logits through the tied or untied
+    (checkpointed one by one through ``runtime.activation_checkpointing`` when
+    ``cfg.remat`` and there are no caches; the block reads its parameters
+    inside the checkpointed function, so ZeRO stage 3 gathers them again for
+    the recompute), the final norm, then fp32 logits through the tied or untied
     head, or the hidden states with ``return_hidden``. With ``kv_caches``
     (``CausalLM.init_kv_caches``), returns ``(logits or hidden, new_caches)``.
     ``train`` gates MoE capacity drops only; by default a forward without
@@ -557,18 +565,19 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
         x = _norm(cfg, x, None)
     new_caches = [] if kv_caches is not None else None
     for i in range(cfg.n_layers):
-        fn = functools.partial(block_fwd, cfg, params[f"layer_{i}"], layer_idx=i, train=train)
         if kv_caches is not None:
-            x, c = fn(x, positions, kv_cache=kv_caches[i], moe_aux=moe_aux)
+            x, c = block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train,
+                             kv_cache=kv_caches[i], moe_aux=moe_aux)
             new_caches.append(c)
         elif cfg.remat:
             # the backward's recompute appends to this block's own list, which nobody reads by then
             sink: List = []
-            x = torch.utils.checkpoint.checkpoint(fn, x, positions, moe_aux=sink, use_reentrant=False)
+            x = checkpointing.checkpoint(functools.partial(_read_block_fwd, cfg, params, i, train), x, positions,
+                                         moe_aux=sink)
             if moe_aux is not None:
                 moe_aux.extend(sink)
         else:
-            x = fn(x, positions, moe_aux=moe_aux)
+            x = _read_block_fwd(cfg, params, i, train, x, positions, moe_aux=moe_aux)
     if cfg.norm_scheme != "post":
         x = _norm(cfg, x, _norm_params(cfg, params, n_norm))
     if return_hidden:

@@ -75,6 +75,8 @@ def _sources() -> List[str]:
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
+        if not os.path.isfile(path):  # csrc/host/ holds the host C++ (ops/native/builder.py)
+            continue
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

@@ -6,11 +6,14 @@ their triangulation against the data-parallel size (``data`` x ``fsdp``),
 ``optimizer``, ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization``
 (stages 0-3 and the reference's keys), ``mesh`` (``data`` and ``fsdp``),
 ``checkpoint``, ``gradient_clipping``, ``fused_step``, ``steps_per_print``,
-``data_types.grad_accum_dtype`` and the monitor sections (``tensorboard``,
-``wandb``, ``csv_monitor``). A section or key the port does not implement
-raises ``NotImplementedError`` when the config enables it (ZeRO-Offload,
-ZeRO++, MiCS's shard size, the mesh axes other than ``data`` and
-``fsdp``, the pipeline, ...): it is never silently ignored.
+``data_types.grad_accum_dtype``, the monitor sections (``tensorboard``,
+``wandb``, ``csv_monitor``), ZeRO-Offload (``zero_optimization.offload_optimizer``
+and ``offload_param``, with the reference's ``cpu_offload`` /
+``cpu_offload_params`` aliases), ``aio`` and ``activation_checkpointing``.
+A section or key the port does not implement raises
+``NotImplementedError`` when the config enables it (ZeRO++, MiCS's shard
+size, the mesh axes other than ``data`` and ``fsdp``, the pipeline, ...):
+it is never silently ignored.
 """
 
 import json
@@ -90,6 +93,47 @@ class SchedulerConfig:
     params: Dict[str, Any] = field(default_factory=dict)
 
 
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+@dataclass
+class ZeroOffloadParamConfig:
+    """Reference ``runtime/zero/offload_config.py`` (the JAX
+    ``ZeroOffloadParamConfig``): ``device`` and ``nvme_path`` act, at stage 3;
+    the buffer keys are read and ignored (the port streams each block)."""
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+
+@dataclass
+class ZeroOffloadOptimizerConfig:
+    """The JAX ``ZeroOffloadOptimizerConfig``: ``device``, ``nvme_path`` and
+    ``pipeline_read`` / ``pipeline_write`` (either pipelines the NVMe swapper)
+    act; the rest are read and ignored. The host buffers are pinned whenever
+    the engine runs on a card, whatever ``pin_memory`` says."""
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+
+
+def _offload_section(cls, d, key: str):
+    cfg = _from_dict(cls, d)
+    if cfg.device is None:
+        cfg.device = "none"
+    if cfg.device not in OFFLOAD_DEVICES:
+        raise ValueError(f"zero_optimization.{key}.device must be one of {OFFLOAD_DEVICES}, got {cfg.device!r}")
+    return cfg
+
+
 @dataclass
 class ZeroConfig:
     """Reference ``runtime/zero/config.py:82`` (the JAX ``ZeroConfig``). Every
@@ -100,7 +144,9 @@ class ZeroConfig:
     ``contiguous_gradients`` and ``overlap_comm`` name the reference's hook
     machinery and change nothing here (the buckets are always contiguous;
     the collectives run in the order the backward frees the gradients);
-    the other keys are read and ignored, except offload, ZeRO++ and
+    ``offload_optimizer`` and ``offload_param`` are ZeRO-Offload's sections
+    (``cpu_offload`` / ``cpu_offload_params`` map onto their devices as in
+    the JAX config); the other keys are read and ignored, except ZeRO++ and
     ``mics_shard_size``, which raise in ``_check_ported``."""
     stage: int = 0
     contiguous_gradients: bool = True
@@ -109,10 +155,23 @@ class ZeroConfig:
     stage3_param_persistence_threshold: int = 100_000
     stage3_gather_16bit_weights_on_model_save: bool = False
     mics_shard_size: int = -1
+    offload_param: ZeroOffloadParamConfig = field(default_factory=ZeroOffloadParamConfig)
+    offload_optimizer: ZeroOffloadOptimizerConfig = field(default_factory=ZeroOffloadOptimizerConfig)
+    cpu_offload: Optional[bool] = None
+    cpu_offload_params: Optional[bool] = None
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ZeroConfig":
+        d = dict(d or {})
+        param = _offload_section(ZeroOffloadParamConfig, d.pop("offload_param", None), "offload_param")
+        optim = _offload_section(ZeroOffloadOptimizerConfig, d.pop("offload_optimizer", None), "offload_optimizer")
         cfg = _from_dict(cls, d)
+        cfg.offload_param, cfg.offload_optimizer = param, optim
+        # the reference's deprecated aliases (the JAX ZeroConfig.validate)
+        if cfg.cpu_offload is not None and optim.device == "none":
+            optim.device = "cpu" if cfg.cpu_offload else "none"
+        if cfg.cpu_offload_params is not None and param.device == "none":
+            param.device = "cpu" if cfg.cpu_offload_params else "none"
         if not 0 <= int(cfg.stage) <= 3:
             raise ValueError(f"zero_optimization.stage must be 0, 1, 2 or 3, got {cfg.stage}")
         cfg.stage = int(cfg.stage)
@@ -158,6 +217,32 @@ class CheckpointConfig:
     engine: str = "auto"
 
 
+@dataclass
+class AIOConfig:
+    """Reference ``runtime/swap_tensor/aio_config.py`` (the JAX ``AIOConfig``):
+    ``thread_count`` sizes the host I/O pool of NVMe offload; the rest are
+    read and ignored (the pool issues whole-buffer pread / pwrite)."""
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+    use_gds: bool = False
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """Reference ``runtime/activation_checkpointing/checkpointing.py``'s block
+    (the JAX ``ActivationCheckpointingConfig``), applied by
+    ``activation_checkpointing.configure`` when an engine is built."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
 def _load_config_dict(config: Union[str, Dict, None]) -> Dict:
     if config is None:
         return {}
@@ -174,13 +259,6 @@ def _load_config_dict(config: Union[str, Dict, None]) -> Dict:
 def _check_ported(d: Dict) -> None:
     """Raise for every enabled section or key the port has no code for."""
     zero = d.get("zero_optimization", {}) or {}
-    for key in ("offload_optimizer", "offload_param"):
-        if (zero.get(key) or {}).get("device", "none") not in ("none", None):
-            raise NotImplementedError(f"zero_optimization.{key} (ZeRO-Offload) is not ported yet: ZeRO stages "
-                                      "0-3 run with every state on the device")
-    if zero.get("cpu_offload") or zero.get("cpu_offload_params"):
-        raise NotImplementedError("zero_optimization.cpu_offload / cpu_offload_params (ZeRO-Offload) are not "
-                                  "ported yet")
     for key in ("zero_quantized_weights", "zero_quantized_gradients"):
         if zero.get(key):
             raise NotImplementedError(f"zero_optimization.{key} (ZeRO++) is not ported yet")
@@ -219,6 +297,8 @@ class DeepSpeedConfig:
         self.zero_config = ZeroConfig.from_dict(d.get("zero_optimization"))
         self.mesh = MeshConfig.from_dict(d.get("mesh"))
         self.checkpoint_config = _from_dict(CheckpointConfig, d.get("checkpoint"))
+        self.aio = _from_dict(AIOConfig, d.get("aio"))
+        self.activation_checkpointing = _from_dict(ActivationCheckpointingConfig, d.get("activation_checkpointing"))
         self.gradient_clipping = float(d.get("gradient_clipping", 0.0))
         fused = d.get("fused_step", True)
         if not isinstance(fused, bool):

@@ -31,6 +31,21 @@ masters. The global gradient norm is the square root of the all-reduced
 squared partial sums; overflow and clipping follow from it, on the device.
 The engine counts its collectives (``comm_stats``: calls and bytes by op).
 
+ZeRO-Offload follows the JAX engine (``engine.py:147-205``, ``:700-730``):
+with ``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme``, a
+ZeRO stage above 0, a config-defined Adam-family optimizer and no client
+optimizer, the optimizer state leaves the device (``zero/offload.py``: the
+host C++ Adam over this rank's chunks, the overflow read on the host every
+step); otherwise the engine warns and keeps the state on the device. With
+``offload_param`` at stage 3 the masters of leaves of at least
+``stage3_param_persistence_threshold`` elements live on the host and reach
+the device block by block (``zero/param_offload.py``); below stage 3 it
+warns and keeps them on the device. ``offload_stats`` counts the bytes and
+seconds that crossed. Activation checkpointing is configured from the
+config's ``activation_checkpointing`` section on every engine (the model's
+``remat`` checkpoints each block through ``activation_checkpointing``),
+stage 3 included.
+
 Mixed precision is the reference's: fp32 masters, the forward casts them to
 the compute dtype inside autograd, gradients accumulate over
 ``gradient_accumulation_steps`` micro-batches in ``grad_accum_dtype`` with
@@ -89,6 +104,8 @@ from .lr_schedules import create_lr_scheduler
 from .optimizers import DeviceOptimizer, create_optimizer
 from .zero.init import ShardedParams
 from ..checkpoint.utils import flatten_tree, unflatten_tree
+from .zero.offload import HostOffloadOptimizer, host_empty
+from .zero.param_offload import ParamStream, plan_param_offload
 from .zero.partition import plan_zero
 from .zero.sharded import Collectives, Stage3Params
 
@@ -175,7 +192,7 @@ class DeepSpeedEngine:
             raise ValueError(f"data_types.grad_accum_dtype must be one of "
                              f"{sorted(k for k in _ACC_DTYPES if k)}, got {acc_name!r}")
         self._grad_acc_dtype = _ACC_DTYPES[acc_name]
-        self._init_zero(model_parameters)
+        self._init_zero(model_parameters, self._host_offload_wanted(optimizer))
 
         if optimizer is not None:
             if not isinstance(optimizer, DeviceOptimizer):
@@ -189,6 +206,12 @@ class DeepSpeedEngine:
         sharded = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.opt_dim is not None]
         if sharded:
             self.optimizer.set_sharded(sharded, self.coll.all_reduce)
+
+        # reference engine wires checkpointing.configure too; unconditional, so a previous engine's flags never
+        # leak into this one through the module's state
+        from .activation_checkpointing import configure as configure_checkpointing
+
+        configure_checkpointing(deepspeed_config=self.config)
 
         self.lr_scheduler = lr_scheduler
         if self.lr_scheduler is None and self.config.scheduler.type:
@@ -218,18 +241,41 @@ class DeepSpeedEngine:
         self._configure_telemetry()
 
     # ------------------------------------------------------------------ ZeRO state
-    def _init_zero(self, model_parameters) -> None:
-        """The plan, this rank's fp32 masters (chunks where stage 3 shards
-        them), the tensors the optimizer updates and the collectives."""
+    def _host_offload_wanted(self, optimizer) -> bool:
+        """The JAX engine's decision (``engine.py:176-188``): the optimizer state
+        goes to the host only under ZeRO, for a config-defined Adam-family
+        optimizer; otherwise warn and keep it on the device."""
+        off = self.config.zero_config.offload_optimizer
+        if off.device not in ("cpu", "nvme"):
+            return False
+        name = (self.config.optimizer.type or "adamw").lower()
+        if optimizer is not None:
+            logger.warning("offload_optimizer requires a config-defined adam-family optimizer; a client optimizer "
+                           "object was passed: keeping optimizer states on device")
+        elif self.config.zero_config.stage == 0:
+            logger.warning("offload_optimizer requires ZeRO (zero_optimization.stage >= 1): keeping optimizer "
+                           "states on device")
+        elif "adam" not in name:
+            logger.warning(f"offload_optimizer supports adam-family optimizers; got {name}: keeping optimizer "
+                           "states on device")
+        else:
+            return True
+        return False
+
+    def _init_zero(self, model_parameters, host_offload: bool) -> None:
+        """The plan, this rank's fp32 masters (chunks where stage 3 shards them;
+        on the host where ZeRO-3 parameter offload keeps them), the host
+        optimizer under ZeRO-Offload, the tensors the device optimizer
+        updates and the collectives."""
         given = model_parameters.tree if isinstance(model_parameters, ShardedParams) else model_parameters
         shapes = model_parameters.shapes if isinstance(model_parameters, ShardedParams) else given
         self.plan = plan = plan_zero(shapes, self.config, self.topology)
-        if plan.stage == 3 and getattr(self._model_cfg, "remat", False):
-            raise NotImplementedError("ZeRO stage 3 with the model's remat (activation checkpointing) is not "
-                                      "ported yet")
         self._paths = [lf.path for lf in plan.leaves]
+        mask = plan_param_offload(self.config, plan)
+        self._param_offloaded: List[bool] = mask or [False] * len(plan.leaves)
+        pin = self.device.type == "cuda"
         self._masters: List[torch.Tensor] = []
-        for lf, (path, leaf) in zip(plan.leaves, flatten_tree(given)):
+        for lf, off, (path, leaf) in zip(plan.leaves, self._param_offloaded, flatten_tree(given)):
             t = torch.as_tensor(leaf).detach()
             if isinstance(model_parameters, ShardedParams):
                 if tuple(t.shape) != plan.shard_shape(lf, lf.param_dim):
@@ -237,27 +283,73 @@ class DeepSpeedEngine:
                                      f"wants {plan.shard_shape(lf, lf.param_dim)}: build both from one config")
             else:
                 t = plan.shard(t, lf.param_dim)
-            self._masters.append(t.to(self.device, torch.float32, copy=True).requires_grad_(True))
+            if off:  # ZeRO-3 parameter offload: the master stays on the host
+                host = host_empty(tuple(t.shape), pin)
+                host.copy_(t)
+                self._masters.append(host)
+            else:
+                self._masters.append(t.to(self.device, torch.float32, copy=True).requires_grad_(True))
         topo = self.topology
         replica = plan.axis == "fsdp" and topo.axis_size("data") > 1
         self.coll = Collectives(plan, topo.process_group(plan.axis), topo.process_group("data") if replica else None,
                                 topo.axis_size("data") if replica else 1, self.config.zero_config.reduce_bucket_size)
-        # the optimizer's tensor of each leaf: the master where its chunk is the master's, else a chunk-shaped
-        # tensor whose storage exists only inside step() (filled from the master, gathered back after)
+        # the device optimizer's tensor of each leaf: the master where its chunk is the master's, else a
+        # chunk-shaped device tensor whose storage exists only inside step(), filled from the master and written
+        # back after (``_staged``: gathered into a device master; ``_staged_host``: copied to a host master)
         self._opt_params: List[torch.Tensor] = []
         self._staged: List[int] = []
+        self._staged_host: List[int] = []
         for i, (lf, m) in enumerate(zip(plan.leaves, self._masters)):
-            if lf.opt_dim is None or lf.param_dim == lf.opt_dim:
-                self._opt_params.append(m)
-            else:
+            if self._param_offloaded[i] or not (lf.opt_dim is None or lf.param_dim == lf.opt_dim):
                 t = torch.empty(plan.shard_shape(lf, lf.opt_dim), dtype=torch.float32, device=self.device)
                 t.untyped_storage().resize_(0)
                 self._opt_params.append(t)
-                self._staged.append(i)
+                (self._staged_host if self._param_offloaded[i] else self._staged).append(i)
+            else:
+                self._opt_params.append(m)
+        self._host_opt: Optional[HostOffloadOptimizer] = None
+        if host_offload:
+            zc = self.config.zero_config
+            off, off_p = zc.offload_optimizer, zc.offload_param
+            self._host_opt = HostOffloadOptimizer(
+                [self._opt_view(i) for i in range(len(plan.leaves))], self.config.optimizer.params, self.device,
+                offload_device=off.device, nvme_path=off.nvme_path, aio_threads=self.config.aio.thread_count,
+                pipeline=off.pipeline_read or off.pipeline_write,
+                params_on_nvme=off_p.device == "nvme" and mask is not None, params_nvme_path=off_p.nvme_path,
+                shared=self._param_offloaded, rank=dist.get_rank())
+            for i, off_i in enumerate(self._param_offloaded):
+                if off_i:  # the host optimizer's master is the store (a file under offload_param nvme)
+                    self._masters[i] = self._host_opt.master[i]
         self._stage3 = None
         if plan.stage == 3:
+            stream = ParamStream(self._masters, self._param_offloaded, self.device) if mask else None
             self._stage3 = Stage3Params(plan, self._masters, self.coll, self.compute_dtype, self._grad_acc_dtype,
-                                        self._accumulate)
+                                        self._accumulate, self.device, stream)
+
+    def _opt_view(self, i: int) -> torch.Tensor:
+        """Leaf i's optimizer chunk of its master (a view; the master itself where they coincide)."""
+        lf, m = self.plan.leaves[i], self._masters[i].detach()
+        if lf.opt_dim is None or lf.param_dim == lf.opt_dim:
+            return m
+        n = lf.shape[lf.opt_dim] // self.plan.size
+        return m.narrow(lf.opt_dim, self.plan.rank * n, n)
+
+    @property
+    def offload_stats(self) -> Dict[str, Any]:
+        """What ZeRO-Offload moved so far: the host optimizer's bytes and seconds
+        (device->host gradients, the host step, host->device masters) and the
+        parameter stream's copies and bytes."""
+        out: Dict[str, Any] = {}
+        if self._host_opt is not None:
+            out.update(self._host_opt.stats, host_bytes=self._host_opt.host_bytes(),
+                       offload_device=self._host_opt.offload_device)
+        s = self._stage3
+        if s is not None and s.stream is not None:
+            out.update(param_copies=s.stream.copies, param_h2d_bytes=s.stream.bytes,
+                       offloaded_leaves=sum(self._param_offloaded),
+                       offloaded_param_bytes=sum(m.numel() * 4 for m, o in zip(self._masters, self._param_offloaded)
+                                                 if o))
+        return out
 
     @property
     def comm_stats(self) -> Dict[str, List[int]]:
@@ -397,7 +489,13 @@ class DeepSpeedEngine:
             raise RuntimeError("backward() needs a preceding forward() (it back-propagates that forward's loss)")
         with telemetry_span("train/backward"):
             scale = self.loss_scaler.loss_scale / self.gradient_accumulation_steps
-            (self._pending.float() * scale).backward(retain_graph=retain_graph)
+            if self._stage3 is not None:
+                self._stage3.in_backward = True
+            try:
+                (self._pending.float() * scale).backward(retain_graph=retain_graph)
+            finally:
+                if self._stage3 is not None:
+                    self._stage3.in_backward = False
             if not retain_graph:
                 self._pending = None
             if self._stage3 is None:
@@ -453,12 +551,10 @@ class DeepSpeedEngine:
         clip = self.config.gradient_clipping
         if clip > 0:
             mult = mult * torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-        for i in self._staged:
-            p, lf = self._opt_params[i], self.plan.leaves[i]
+        for i in self._staged + self._staged_host:
+            p = self._opt_params[i]
             p.untyped_storage().resize_(p.numel() * p.element_size())
-            m = self._masters[i].detach()
-            n = lf.shape[lf.opt_dim] // self.plan.size
-            p.copy_(m.narrow(lf.opt_dim, self.plan.rank * n, n))
+            p.copy_(self._opt_view(i))
         for p, g in zip(self._opt_params, grads):
             p.grad = g.float()
         for group in self.optimizer.param_groups:
@@ -466,12 +562,43 @@ class DeepSpeedEngine:
         self.optimizer.step(grad_mult=mult, finite=finite)
         for p in self._opt_params:
             p.grad = None
+        for i in self._staged_host:
+            self._masters[i].copy_(self._opt_params[i])
         if self._staged:
             self.coll.gather([(self._opt_params[i], self.plan.leaves[i].opt_dim, self._masters[i].detach())
                               for i in self._staged])
-            for i in self._staged:
-                self._opt_params[i].untyped_storage().resize_(0)
+        for i in self._staged + self._staged_host:
+            self._opt_params[i].untyped_storage().resize_(0)
         return gnorm, ~finite
+
+    @torch.no_grad()
+    def _host_updates(self, grads: List[torch.Tensor], inv_scale: float, lr: float):
+        """The ZeRO-Offload step (JAX ``engine.py:707-713``): the host optimizer
+        takes the reduced gradients and returns the updated masters to the
+        device tensors that hold them; returns the (host) global norm and
+        overflow flag."""
+        plan = self.plan
+        staged = set(self._staged)
+        out = []
+        for i, lf in enumerate(plan.leaves):
+            if self._param_offloaded[i]:
+                out.append(None)  # the host master is the store stage 3 gathers from
+            elif i in staged:
+                out.append(torch.empty(plan.shard_shape(lf, lf.opt_dim), dtype=torch.float32, device=self.device))
+            else:
+                out.append(self._masters[i].detach())
+        reduce = None
+        if plan.size > 1:
+            def reduce(x: float) -> float:
+                t = torch.tensor([x], dtype=torch.float64, device=self.device)
+                self.coll.all_reduce(t)
+                return float(t[0])
+        owned = [lf.opt_dim is not None or plan.rank == 0 for lf in plan.leaves]
+        gnorm, overflow = self._host_opt.step(grads, lr, inv_scale, self.config.gradient_clipping, out=out,
+                                              owned=owned, norm_reduce=reduce)
+        if not overflow and self._staged:
+            self.coll.gather([(out[i], plan.leaves[i].opt_dim, self._masters[i].detach()) for i in self._staged])
+        return gnorm, overflow
 
     def step(self):
         if not self.is_gradient_accumulation_boundary():
@@ -479,15 +606,19 @@ class DeepSpeedEngine:
             return
         with telemetry_span("train/step"):
             lr = self._next_lr()
+            if self._stage3 is not None and self._stage3.stream is not None:
+                self._stage3.stream.clear()  # no copy issued ahead may outlive the masters it read
             # grads were pre-scaled by loss_scale / gas; undo loss_scale here (the
             # 1 / gas factor stays: the summed micro-gradients become the mean)
-            gnorm, overflow = self._apply_updates(self._reduced_grads(), 1.0 / self.loss_scaler.loss_scale, lr)
+            update = self._apply_updates if self._host_opt is None else self._host_updates
+            gnorm, overflow = update(self._reduced_grads(), 1.0 / self.loss_scaler.loss_scale, lr)
             self._grad_acc = None
             self._global_grad_norm = gnorm
             self._last_overflow = overflow
-            if self.loss_scaler.dynamic:
+            if self.loss_scaler.dynamic or self._host_opt is not None:
                 # dynamic fp16 scaling needs the flag on the host now: the scale
-                # feeds the next step (the reference pays the same sync)
+                # feeds the next step (the reference pays the same sync); the
+                # host optimizer has it there already
                 overflow_host = bool(overflow)
                 self.loss_scaler.update_scale(overflow_host)
                 if overflow_host:
@@ -658,7 +789,7 @@ class DeepSpeedEngine:
         for i, lf in enumerate(self.plan.leaves):
             if lf.param_dim is not None:
                 full = torch.empty(lf.shape, dtype=torch.float32, device=self.device)
-                items.append((out[i], lf.param_dim, full))
+                items.append((out[i].to(self.device), lf.param_dim, full))
                 out[i] = full
         if items:
             self.coll.gather(items)
@@ -674,27 +805,42 @@ class DeepSpeedEngine:
         """Each leaf's optimizer state tensors, whole (all-gathered over the
         ZeRO group where stage >= 1 shards them: every rank must call it)."""
         out, items = [], []
-        for lf, p in zip(self.plan.leaves, self._opt_params):
+        for i, (lf, p) in enumerate(zip(self.plan.leaves, self._opt_params)):
             st = {}
-            for k, v in self.optimizer.state.get(p, {}).items():
+            for k, v in self._leaf_state(i).items():
                 if lf.opt_dim is None or not torch.is_tensor(v) or v.shape != p.shape:
                     st[k] = v
                 else:
-                    st[k] = torch.empty(lf.shape, dtype=v.dtype, device=v.device)
-                    items.append((v, lf.opt_dim, st[k]))
+                    st[k] = torch.empty(lf.shape, dtype=v.dtype, device=self.device)
+                    items.append((v.to(self.device), lf.opt_dim, st[k]))
             out.append(st)
         if items:
             self.coll.gather(items)
         return out
 
+    def _leaf_state(self, i: int) -> Dict[str, Any]:
+        """Leaf i's optimizer state tensors as the optimizer holds them (host ones under ZeRO-Offload)."""
+        if self._host_opt is not None:
+            return self._host_opt.leaf_state(i)
+        return self.optimizer.state.get(self._opt_params[i], {})
+
+    def state_names(self) -> Tuple[str, ...]:
+        """The names of a leaf's optimizer state tensors, in the order a universal checkpoint numbers them."""
+        return self._host_opt.state_names() if self._host_opt is not None else self.optimizer.state_names()
+
     @property
     def optimizer_step_count(self) -> int:
         """The optimizer's applied steps (overflow-skipped ones do not count)."""
+        if self._host_opt is not None:
+            return self._host_opt.step_count
         c = self.optimizer._count
         return 0 if c is None else int(c)
 
     def set_optimizer_step_count(self, n: int) -> None:
-        self.optimizer._count = torch.tensor(int(n), dtype=torch.int32, device=self.device)
+        if self._host_opt is not None:
+            self._host_opt.step_count = int(n)
+        else:
+            self.optimizer._count = torch.tensor(int(n), dtype=torch.int32, device=self.device)
 
     def _configure_monitor(self):
         from ..monitor.monitor import MonitorMaster
@@ -756,20 +902,14 @@ class DeepSpeedEngine:
         state tensor (whole where the leaf is not sharded), and the
         optimizer's scalars."""
         plan, fp32, state = self.plan, {}, {}
-        for lf, p, m in zip(plan.leaves, self._opt_params, self._masters):
-            if lf.opt_dim is None or lf.param_dim == lf.opt_dim:
-                chunk = m
-            else:
-                n = lf.shape[lf.opt_dim] // plan.size
-                chunk = m.narrow(lf.opt_dim, plan.rank * n, n)
-            fp32[lf.path] = self._host(chunk)
-            state[lf.path] = {k: self._host(v) if torch.is_tensor(v) else v
-                              for k, v in self.optimizer.state.get(p, {}).items()}
+        for i, lf in enumerate(plan.leaves):
+            fp32[lf.path] = self._host(self._opt_view(i))
+            state[lf.path] = {k: self._host(v) if torch.is_tensor(v) else v for k, v in self._leaf_state(i).items()}
         replica_rank = self.topology.axis_rank("data") if plan.axis == "fsdp" else 0
         return {**self._layout(), "zero_axis": plan.axis, "zero_size": plan.size, "zero_rank": plan.rank,
                 "replica_rank": replica_rank,
                 "leaves": [(lf.path, lf.shape, lf.opt_dim) for lf in plan.leaves], "fp32": fp32, "state": state,
-                "optimizer": {"count": self.optimizer_step_count, "state_names": self.optimizer.state_names(),
+                "optimizer": {"count": self.optimizer_step_count, "state_names": self.state_names(),
                               "param_groups": [{k: v for k, v in g.items() if k != "params"}
                                                for g in self.optimizer.param_groups]}}
 
@@ -787,22 +927,27 @@ class DeepSpeedEngine:
             if tuple(t.shape) != lf.shape:
                 raise ValueError(f"{lf.path}: checkpoint shape {tuple(t.shape)}, model {lf.shape}")
             m.copy_(self.plan.shard(t, lf.param_dim))
+        if self._host_opt is not None:
+            # keep the host masters in step even when no optimizer state is loaded (JAX engine.py:1158-1161)
+            self._host_opt.set_master([self._opt_view(i) for i in range(len(self._masters))])
 
     @torch.no_grad()
     def load_optimizer_state(self, per_leaf: List[Dict[str, Any]], step_count: int,
                              whole: bool = False) -> None:
         """Install each leaf's optimizer state tensors (this rank's chunks, or
         whole tensors it takes its chunk of when ``whole``) and the step count."""
-        for lf, p, st in zip(self.plan.leaves, self._opt_params, per_leaf):
+        for i, (lf, p, st) in enumerate(zip(self.plan.leaves, self._opt_params, per_leaf)):
             new = {}
             for k, v in st.items():
                 if torch.is_tensor(v) or isinstance(v, np.ndarray):
                     v = torch.as_tensor(v)
                     if whole:
                         v = self.plan.shard(v, lf.opt_dim)
-                    v = v.to(self.device, copy=True)
+                    v = v.to("cpu" if self._host_opt is not None else self.device, copy=True)
                 new[k] = v
-            if new:
+            if self._host_opt is not None:
+                self._host_opt.set_leaf_state(i, new)
+            elif new:
                 self.optimizer.state[p] = new
             else:
                 self.optimizer.state.pop(p, None)

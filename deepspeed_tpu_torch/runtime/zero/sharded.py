@@ -23,6 +23,22 @@ embedding, read by the embedding and by the tied head, the final norm, an
 untied head) is gathered once per forward and held until its gradient is
 reduced. ``gathered_bytes`` / ``peak_gathered_bytes`` account for the
 gathered copies.
+
+With ZeRO-3 parameter offload (``param_offload.py``) a group's host
+masters reach the device through a ``ParamStream`` first: reading
+``layer_<i>`` issues ``layer_<i+1>``'s copies ahead, and gathering a block
+again in the backward issues ``layer_<i-1>``'s.
+
+A checkpointed block (the model's ``remat``, through
+``activation_checkpointing``) reads ``params["layer_<i>"]`` inside the
+checkpointed function, so non-reentrant checkpoint's recompute reads it
+again during the backward (``in_backward`` set by the engine). That read
+gathers the block once more, through a gather node whose backward does
+nothing: the recompute's graph only refills the saved tensors of the
+original one, whose gather node reduces the block's gradient once and then
+frees the recompute's buffer. Inside the checkpointed function the
+checkpoint's own saved-tensor hooks are the innermost, so ``pack`` never
+sees a block's tensors there.
 """
 
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -31,6 +47,7 @@ import torch
 
 from ... import comm as dist
 from ...checkpoint.utils import unflatten_tree
+from .param_offload import ParamStream
 from .partition import BLOCK_KEY, ZeroPlan
 
 
@@ -149,17 +166,19 @@ class _Saved:
 class _GatherGroup(torch.autograd.Function):
     """Forward: a group's leaves gathered whole in the compute dtype. Backward:
     their gradients reduced into the engine's shard buffers (nothing flows to
-    the masters through autograd)."""
+    the masters through autograd; ``anchor`` only makes the outputs need
+    gradients). A recompute's gather (``recompute``) reduces nothing."""
 
     @staticmethod
-    def forward(ctx, params, key, *masters):
-        ctx.params, ctx.key = params, key
-        return tuple(params.gather(key))
+    def forward(ctx, params, key, recompute, anchor):
+        ctx.params, ctx.key, ctx.recompute = params, key, recompute
+        return tuple(params.gather(key, recompute))
 
     @staticmethod
     def backward(ctx, *grads):
-        ctx.params.reduce_grads(ctx.key, grads)
-        return (None, None) + (None,) * len(grads)
+        if not ctx.recompute:
+            ctx.params.reduce_grads(ctx.key, grads)
+        return None, None, None, None
 
 
 class Stage3Params:
@@ -170,9 +189,13 @@ class Stage3Params:
     gradients (the engine adds them into its accumulation buffers)."""
 
     def __init__(self, plan: ZeroPlan, masters: List[torch.Tensor], coll: Collectives, dtype: torch.dtype,
-                 acc_dtype: torch.dtype, on_grads):
+                 acc_dtype: torch.dtype, on_grads, device: torch.device, stream: Optional[ParamStream] = None):
         self.plan, self.masters, self.coll, self.dtype, self.acc_dtype = plan, masters, coll, dtype, acc_dtype
         self.on_grads = on_grads
+        self.device = device
+        self.stream = stream  # host masters' copies to the device (ZeRO-3 parameter offload), or None
+        self._anchor = torch.zeros((), device=device, requires_grad=True)
+        self.in_backward = False  # set by the engine around loss.backward(): a read is a checkpoint's recompute
         self.itemsize = torch.empty((), dtype=dtype).element_size()
         self.groups: Dict[str, List[int]] = {}
         for i, leaf in enumerate(plan.leaves):
@@ -182,6 +205,7 @@ class Stage3Params:
         self._live: Optional[Tuple[str, torch.Tensor, Dict]] = None  # (block key, its buffer, its tree)
         self._held: Dict[str, Dict] = {}  # the other keys, gathered once per forward
         self._bwd: Dict[str, torch.Tensor] = {}  # blocks gathered again for the backward
+        self._bwd_trees: Dict[str, Dict] = {}  # the trees of blocks a recompute gathered
 
     # ---------------------------------------------------------------- gather and release
     def group_bytes(self, key: str) -> int:
@@ -195,17 +219,17 @@ class Stage3Params:
         """Gather a group into one flat buffer: its leaves as views, in plan order."""
         idx = self.groups[key]
         leaves = [self.plan.leaves[i] for i in idx]
-        dev = self.masters[idx[0]].device
-        buf = torch.empty(sum(lf.numel for lf in leaves), dtype=self.dtype, device=dev)
+        buf = torch.empty(sum(lf.numel for lf in leaves), dtype=self.dtype, device=self.device)
         views, off, items = [], 0, []
         for i, lf in zip(idx, leaves):
             v = buf[off:off + lf.numel].view(lf.shape)
             off += lf.numel
             views.append(v)
+            src = self.stream.take(i) if self.stream is not None and self.stream.offloaded[i] else self.masters[i]
             if lf.param_dim is None:
-                v.copy_(self.masters[i])
+                v.copy_(src)
             else:
-                items.append((self.masters[i], lf.param_dim, v))
+                items.append((src, lf.param_dim, v))
         if items:
             self.coll.gather(items)
         self._note(self.group_bytes(key))
@@ -215,10 +239,22 @@ class Stage3Params:
         buf.untyped_storage().resize_(0)
         self.gathered_bytes -= self.group_bytes(key)
 
-    def gather(self, key: str) -> List[torch.Tensor]:
+    def _prefetch(self, key: str, step: int) -> None:
+        """Issue the host copies of the block ``step`` after ``key`` (offload only)."""
+        if self.stream is None or not BLOCK_KEY.match(key):
+            return
+        nxt = f"layer_{int(key.rsplit('_', 1)[1]) + step}"
+        if nxt in self.groups:
+            self.stream.prefetch(self.groups[nxt])
+
+    def gather(self, key: str, recompute: bool = False) -> List[torch.Tensor]:
         buf, views = self._buffer(key)
-        if BLOCK_KEY.match(key):
+        if recompute:
+            self._bwd[key] = buf
+            self._prefetch(key, -1)
+        elif BLOCK_KEY.match(key):
             self._live = (key, buf, None)
+            self._prefetch(key, +1)
         return views
 
     def release_block(self) -> None:
@@ -234,22 +270,36 @@ class Stage3Params:
             return self._held[key]
         if key not in self.groups:
             raise KeyError(key)
+        if self.in_backward:
+            return self._recompute_read(key)
         self.release_block()
         idx = self.groups[key]
-        masters = [self.masters[i] for i in idx]
         if torch.is_grad_enabled():
-            views = _GatherGroup.apply(self, key, *masters)
+            views = _GatherGroup.apply(self, key, False, self._anchor)
         else:
             views = self.gather(key)
-        rel = [(self.plan.leaves[i].path.split("/", 1)[1] if "/" in self.plan.leaves[i].path else "", v)
-               for i, v in zip(idx, views)]
-        tree = rel[0][1] if rel[0][0] == "" else unflatten_tree(rel)
+        tree = self._tree(key, views)
         if BLOCK_KEY.match(key):
             k, buf, _ = self._live
             self._live = (k, buf, tree)
         else:
             self._held[key] = tree
         return tree
+
+    def _tree(self, key: str, views) -> Dict:
+        idx = self.groups[key]
+        rel = [(self.plan.leaves[i].path.split("/", 1)[1] if "/" in self.plan.leaves[i].path else "", v)
+               for i, v in zip(idx, views)]
+        return rel[0][1] if rel[0][0] == "" else unflatten_tree(rel)
+
+    def _recompute_read(self, key: str):
+        """A checkpointed block read again by its recompute in the backward:
+        gathered once more and held until the original gather node reduces
+        its gradient."""
+        if key not in self._bwd_trees:
+            views = _GatherGroup.apply(self, key, True, self._anchor)
+            self._bwd_trees[key] = self._tree(key, views)
+        return self._bwd_trees[key]
 
     def __contains__(self, key) -> bool:
         return key in self.groups
@@ -280,6 +330,7 @@ class Stage3Params:
             with torch.no_grad():
                 buf, _ = self._buffer(s.key)
             self._bwd[s.key] = buf
+            self._prefetch(s.key, -1)
         return torch.as_strided(buf, s.size, s.stride, s.offset)
 
     def saved_tensors_hooks(self):
@@ -296,6 +347,7 @@ class Stage3Params:
             items.append((g, lf.grad_dim))
         self.on_grads(idx, self.coll.reduce(items))
         buf = self._bwd.pop(key, None)
+        self._bwd_trees.pop(key, None)
         if buf is not None:
             self._free(key, buf)
         elif not BLOCK_KEY.match(key):

@@ -2048,15 +2048,16 @@ def test_accounted_deferred_step_makes_no_host_sync(cuda):
 
 
 # ---------------------------------------------------------------- ZeRO and checkpoints over NCCL (world 1)
-def _zero_engine(dev, stage, optimizer="FusedAdam"):
+def _zero_engine(dev, stage, optimizer="FusedAdam", zero=None, remat=False):
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, init_params
 
     cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=256, max_seq_len=128,
-                            dtype=torch.bfloat16)
+                            dtype=torch.bfloat16, remat=remat)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0, "bf16": {"enabled": True},
-              "optimizer": {"type": optimizer, "params": {"lr": 1e-3}}, "zero_optimization": {"stage": stage}}
+              "optimizer": {"type": optimizer, "params": {"lr": 1e-3}},
+              "zero_optimization": {"stage": stage, **(zero or {})}}
     engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
     return engine
 
@@ -2120,3 +2121,64 @@ def test_collectives_run_on_nccl_and_refuse_cpu_tensors_there(cuda):
     cuda_on_gloo = dist.new_group([0], backend="gloo")
     with pytest.raises(RuntimeError, match="never falls back"):
         dist.all_reduce(x, group=cuda_on_gloo)
+
+
+# ---------------------------------------------------------------- ZeRO-Offload and remat on the card (world 1)
+# the host Adam scales the gradient before its step, fused_adam folds the scale into its own: an fp32 rounding
+# apart after the first step, which the bf16 forward turns into loss differences of ~1e-3 (as chip_smoke.py's
+# OFFLOAD_LOSS_TOL explains)
+OFFLOAD_LOSS_TOL = 2e-2
+
+
+def test_offload_on_the_card(cuda, tmp_path):
+    """Stage 3 with both offloads on the cpu: the large masters and the host
+    step's gradient buffers are pinned host memory, the device holds no
+    optimizer state, the host Adam steps every leaf once a step and
+    ``fused_adam`` never launches; both offloads on NVMe give the same
+    losses and masters bit for bit; stage 3 on the device stays within
+    OFFLOAD_LOSS_TOL."""
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops.adam import cpu_adam as ca
+
+    nvme = {"device": "nvme", "nvme_path": str(tmp_path)}
+    cases = {"cpu": {"offload_param": {"device": "cpu"}, "offload_optimizer": {"device": "cpu"}},
+             "nvme": {"offload_param": nvme, "offload_optimizer": nvme}, "device": {}}
+    runs = {}
+    for name, zero in cases.items():
+        engine = _zero_engine(cuda, 3, zero={"stage3_param_persistence_threshold": 10000, **zero})
+        fad.fused_adam.launches, ca.cpu_adam_step.launches = 0, 0
+        it = iter(_zero_batches(4))
+        losses = [float(engine.train_batch(it)) for _ in range(4)]
+        runs[name] = (losses, [t.cpu() for t in engine.full_masters()], fad.fused_adam.launches,
+                      ca.cpu_adam_step.launches)
+        if name == "cpu":
+            host = engine._host_opt
+            off = engine._param_offloaded
+            assert 0 < sum(off) < len(off) and not engine.optimizer.state
+            assert all(m.is_pinned() and m is host.master[i] for i, m in enumerate(engine._masters) if off[i])
+            assert all(m.is_cuda for i, m in enumerate(engine._masters) if not off[i])
+            assert all(g.is_pinned() for g in host._grads) and engine.offload_stats["param_h2d_bytes"] > 0
+    leaves = len(runs["cpu"][1])
+    assert runs["cpu"][2] == runs["nvme"][2] == 0 and runs["device"][2] == 4
+    assert runs["cpu"][3] == runs["nvme"][3] == 4 * leaves
+    assert runs["nvme"][0] == runs["cpu"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["nvme"][1], runs["cpu"][1]))
+    assert max(abs(a - b) for a, b in zip(runs["cpu"][0], runs["device"][0])) <= OFFLOAD_LOSS_TOL
+
+
+def test_stage3_with_remat_on_the_card_equals_stage3(cuda):
+    """The recompute gathers each block again and runs the flash forward again;
+    losses and masters equal stage 3 without remat bit for bit."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    runs = {}
+    for remat in (False, True):
+        engine = _zero_engine(cuda, 3, remat=remat)
+        fa.flash_fwd.launches = 0
+        it = iter(_zero_batches(4))
+        losses = [float(engine.train_batch(it)) for _ in range(4)]
+        runs[remat] = (losses, engine.full_masters(), fa.flash_fwd.launches, engine.zero_gathered_bytes)
+    assert runs[True][0] == runs[False][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+    assert runs[True][2] == 2 * runs[False][2] > 0
+    assert runs[True][3][0] == 0 and runs[True][3][1] > 0

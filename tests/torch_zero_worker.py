@@ -10,7 +10,8 @@ package, so the children start quickly.
 ``train_cases`` is one such ``fn``: every case in one spawn, each a fresh
 engine trained on this rank's rows of the same global batches, writing what
 the tests compare (losses, grad norms, the whole masters; per rank the
-bytes held and stage 3's gathered-byte accounting) to ``out_dir``.
+bytes held, stage 3's gathered-byte accounting and ZeRO-Offload's
+``offload_stats``) to ``out_dir``.
 """
 
 import dataclasses
@@ -122,7 +123,8 @@ def train_cases(rank, world, cases, params_npz, batch_files, vocab, steps, out_d
             norms.append(engine.get_global_grad_norm())
         full = {p: t.numpy() for p, t in zip(engine._paths, engine.full_masters())}
         torch.save(dict(losses=losses, norms=norms, masters=full if rank == 0 else None, held=held_bytes(engine),
-                        gather=gather_limits(engine), comm=engine.comm_stats, steps=engine.global_steps),
+                        gather=gather_limits(engine), comm=engine.comm_stats, steps=engine.global_steps,
+                        offload=engine.offload_stats),
                    os.path.join(out_dir, f"case{i}_rank{rank}.pt"))
 
 
