@@ -7,6 +7,7 @@
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
     python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged, sparse and
                                         # Adam kernels beside this tree's
+    python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named training phases alone
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -220,6 +221,20 @@ Phases, each fatal on failure:
    losses equal the cpu offload run's bit for bit, and a native checkpoint
    resumes bit for bit. The host code's rows are printed as
    ``{"host_code": [...]}`` on a line of their own before the kernels line.
+18. train_zeropp: gpt2_1_3b widths at 2 layers at stage 3, then with ZeRO++'s
+   qwZ, qgZ and hpZ 2 (world 1 over NCCL): the engine logs the JAX
+   package's fallback reason (an fsdp axis of 1), runs none of ZeRO++'s
+   collectives and trains plain stage 3's losses bit for bit;
+19. train_moe: Mixtral-8x7B's widths (``mixtral_cfg``) at 2 layers, every
+   block MoE (capacity factor 1.25, tokens dropped), bf16, FusedAdam, one
+   2,048-token sequence, ``mesh: {expert: 1}`` over NCCL: the first step's
+   loss and attention gradients with the flash kernels and with their plain
+   versions (on the kernel run's routing); 6 steps at stage 0 with the
+   counters zeroed before and read after (flash forward, dq, dk/dv once a
+   layer a step, ``fused_adam`` once a step), step ms, tokens/s, device
+   peak, the last step's tokens an expert, dropped share and aux loss; the
+   6 steps again at stage 3, equal bit for bit. The kernels line gives the
+   flash and Adam rows their launches there (``train_moe_launches``).
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -240,6 +255,7 @@ beside this script, it exits non-zero and prints no result.
 import contextlib
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -3573,6 +3589,231 @@ def phase_offload_nvme(torch, dev, counters) -> dict:
     return rec
 
 
+# ZeRO++ on the card at world 1: a ZeRO++ config (qwZ + qgZ + hpZ 2 at stage 3) falls back to plain stage 3 with
+# the JAX package's reason (its wire formats need an fsdp axis above 1; the card machine's one GPU gives a world of
+# one, and NCCL takes one rank a GPU), and trains stage 3's losses bit for bit; gpt2_1_3b at 2 layers keeps it short
+ZEROPP = {"zero_quantized_weights": True, "zero_quantized_gradients": True, "zero_hpz_partition_size": 2}
+ZEROPP_REASON = "ZeRO++ needs an fsdp axis > 1"  # deepspeed_tpu/runtime/zero/zeropp.py zeropp_applicable's words
+
+
+class log_lines(logging.Handler):
+    """Keeps the messages of a logger over the enclosed code."""
+
+    def __init__(self, name):
+        super().__init__(logging.INFO)
+        self.logger, self.lines = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        self.level0 = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level0)
+
+
+def phase_train_zeropp(torch, dev, counters) -> dict:
+    """Stage 3 at 2 layers, then the same with ZeRO++'s keys: the fallback is logged with JAX's reason, the
+    engine runs no ZeRO++ wire format, and the losses equal plain stage 3's bit for bit."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import comm as dist
+
+    dist.init_distributed(device=dev, verbose=False)
+    layers = 2
+    base = zero_run(torch, dev, counters, 3, "FusedAdam", n_layers=layers)
+    del base["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with log_lines("deepspeed_tpu_torch.runtime.engine") as lines:
+        r = zero_run(torch, dev, counters, 3, "FusedAdam", n_layers=layers, zero=ZEROPP)
+    engine = r.pop("engine")
+    want_launches = {"flash_fwd": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                     "fused_adam": opt_launches("FusedAdam", len(engine.parameters()))}
+    rec = dict(phase="train_zeropp", model="gpt2_1_3b", layers=layers, zero_optimization=ZEROPP,
+               world_size=dist.get_world_size(), backend=dist.backend_for(dev), zeropp_active=engine.zeropp_active,
+               zeropp_reason=engine.zeropp_reason,
+               logged=[line for line in lines.lines if line.startswith("ZeRO++")], losses=r["losses"],
+               stage3_losses=base["losses"], losses_equal_stage3=r["losses"] == base["losses"],
+               step_ms=r["step_ms"], stage3_step_ms=base["step_ms"], comm_per_step=r["comm_per_step"],
+               launches=r["launches"], timed=r["timed"])
+    log(rec)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = {k: r["launches"].get(k) for k, v in want_launches.items() if r["launches"].get(k) != v * r["timed"]}
+    if (rec["zeropp_active"] or rec["zeropp_reason"] != ZEROPP_REASON or not rec["logged"]
+            or ZEROPP_REASON not in rec["logged"][0] or not rec["losses_equal_stage3"] or bad
+            or not np.isfinite(r["losses"]).all() or any(op.startswith(("quant", "hpz")) for op in r["comm_per_step"])):
+        raise AssertionError(f"train_zeropp: {rec}, launches off: {bad}")
+    return rec
+
+
+# MoE training on the card: Mixtral-8x7B-v0.1's widths (``mixtral_cfg``) at 2 of its 32 layers (about 3.17 B
+# parameters: fp32 masters, fp32 gradients, Adam's two moments and the bf16 copy take about 18 bytes a parameter,
+# 57 GB), every block MoE with GShard's capacity einsums (capacity factor 1.25, tokens dropped), bf16, FusedAdam,
+# micro-batch 1 x 2,048 seeded tokens, 6 steps through ``initialize`` at world 1 over NCCL with ``mesh: {expert:
+# 1}``, at stage 0 and again at stage 3
+MOE_TRAIN = dict(layers=2, tokens=2048, steps=6, capacity_factor=1.25)
+
+
+class moe_gate_log:
+    """Wraps the training gate's ``top_k`` (``moe/sharded_moe.py``) and ``MoE.__call__`` over the enclosed code:
+    ``choices`` holds each gate call's experts and ``aux`` each layer's ``(l_aux, exp_counts)``. With ``pin``
+    (another log's choices) each gate call takes the pinned experts of the same call instead of its own, and
+    ``flips`` counts the tokens whose own choice differs (a bf16 difference upstream can reorder near-equal gate
+    values, and a token on another expert is another function, not a rounding)."""
+
+    def __init__(self, pin=None):
+        self.pin, self.choices, self.aux, self.flips = pin, [], [], 0
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import layer, sharded_moe
+
+        self.sm, self.layer = sharded_moe, layer
+        inner, call = self._top_k, self._call = sharded_moe.top_k, layer.MoE.__call__
+
+        def top_k(x, k):
+            vals, idx = inner(x, k)
+            self.choices.append(idx.detach().clone())
+            if self.pin is None:
+                return vals, idx
+            pinned = self.pin[len(self.choices) - 1]
+            self.flips += int((idx.sort(-1).values != pinned.sort(-1).values).any(-1).sum())
+            return x.gather(-1, pinned), pinned
+
+        def moe_call(moe, *args, **kw):
+            out = call(moe, *args, **kw)
+            self.aux.append((out[1].detach().float(), out[2].detach()))
+            return out
+
+        sharded_moe.top_k, layer.MoE.__call__ = top_k, moe_call
+        return self
+
+    def __exit__(self, *exc):
+        self.sm.top_k, self.layer.MoE.__call__ = self._top_k, self._call
+
+
+def moe_engine(torch, dev, cfg, stage: int):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    config = dict(train_config(torch, "FusedAdam", torch.bfloat16), train_micro_batch_size_per_gpu=1,
+                  mesh={"expert": 1}, zero_optimization={"stage": stage})
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return engine
+
+
+def phase_train_moe(torch, dev, counters) -> dict:
+    """Mixtral-width MoE training (``MOE_TRAIN``): the first step's loss and attention gradients with the flash
+    kernels and with their plain versions (the plain run on the kernel run's routing), then 6 steps at stage 0
+    with the counters zeroed before and read after (flash forward, dq and dk/dv once a layer a step, fused_adam
+    once a param group a step), step ms, tokens/s, the device peak, the last step's expert counts, dropped share
+    and aux losses; then the same 6 steps at stage 3, whose losses must equal stage 0's bit for bit."""
+    import contextlib
+    import itertools
+
+    import numpy as np
+
+    from deepspeed_tpu_torch import comm as dist
+
+    dist.init_distributed(device=dev, verbose=False)
+    L, T, steps = MOE_TRAIN["layers"], MOE_TRAIN["tokens"], MOE_TRAIN["steps"]
+    cfg = mixtral_cfg(n_layers=L, dtype=torch.bfloat16, moe_capacity_factor=MOE_TRAIN["capacity_factor"])
+    batch = {"input_ids": np.random.default_rng(0).integers(0, cfg.vocab_size, (1, T)).astype(np.int32)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = moe_engine(torch, dev, cfg, 0)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.parameters())
+    attn = [i for i, p in enumerate(engine._paths) if "/attn/" in p]
+    check, logs = {}, {}
+    for variant in ("kernel", "plain"):
+        for fn in counters:
+            fn.launches = 0
+        with contextlib.ExitStack() as stack:
+            if variant == "plain":
+                stack.enter_context(PlainKernels())
+            logs[variant] = stack.enter_context(moe_gate_log(pin=logs["kernel"].choices if variant == "plain"
+                                                             else None))
+            loss = engine.forward(batch)
+            engine.backward(loss)
+        torch.cuda.synchronize()
+        check[variant] = dict(loss=float(loss), grads=[engine._grad_acc[i].clone() for i in attn],
+                              launches={fn.__name__: fn.launches for fn in counters})
+        engine.zero_grad()
+    k, p = check["kernel"], check["plain"]
+    tol = {"loss_abs_err": 5e-5, "grad_max_rel_err": 0.035}  # phase_train_parity's bf16 limits
+    rec = dict(phase="train_moe", model="mixtral_8x7b", layers=L, d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.kv_heads, d_ff=cfg.ffn_dim, experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+               capacity_factor=cfg.moe_capacity_factor, vocab=cfg.vocab_size, params=n_params,
+               leaves=len(engine.parameters()), dtype="bfloat16", micro_batch=1, seq=T, steps=steps,
+               backend=dist.backend_for(dev), world_size=dist.get_world_size(),
+               mesh={a: engine.topology.axis_size(a) for a in ("data", "fsdp", "expert")}, setup_s=setup_s,
+               first_loss=k["loss"], loss_abs_err=abs(k["loss"] - p["loss"]),
+               grad_max_rel_err=max(((a - b).abs().max() / b.abs().max()).item()
+                                    for a, b in zip(k["grads"], p["grads"])),
+               routing="plain pinned to the kernel run's", routing_flips=logs["plain"].flips,
+               routed_tokens=T * L, check_launches=k["launches"], plain_launches=p["launches"], tol=tol)
+    del check
+    data = itertools.repeat(batch)
+    runs = {}
+    for stage in (0, 3):
+        if stage == 3:
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = moe_engine(torch, dev, cfg, 3)
+        for fn in counters:
+            fn.launches = 0
+        losses = [engine.train_batch(data) for _ in range(TIMED_FROM)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [engine.train_batch(data) for _ in range(steps - TIMED_FROM - 1)]
+        with moe_gate_log() as last:
+            losses.append(engine.train_batch(data))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed = steps - TIMED_FROM
+        launches = {fn.__name__: fn.launches for fn in counters}
+        counts = [c.tolist() for _, c in last.aux]
+        runs[stage] = dict(losses=[float(x) for x in losses], step_ms=wall / timed * 1e3,
+                           tokens_per_s=T * timed / wall, launches=launches,
+                           launches_per_step={n: v / steps for n, v in launches.items()},
+                           exp_counts=counts, aux_loss=[float(a) for a, _ in last.aux],
+                           dropped_share=[1 - sum(c) / (cfg.moe_top_k * T) for c in counts],
+                           grad_norm=engine.get_global_grad_norm(),
+                           max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(stage0=runs[0], stage3=runs[3], losses_equal_stage0=runs[3]["losses"] == runs[0]["losses"],
+               timed_steps=f"{TIMED_FROM + 1}-{steps}")
+    log(rec)
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "fused_adam": opt_launches("FusedAdam", rec["leaves"])}
+    bad = {(stage, n): r["launches"].get(n) for stage, r in runs.items() for n, v in want.items()
+           if r["launches"].get(n) != v * steps}
+    bad.update({("check", n): rec["check_launches"].get(n) for n in want if n != "fused_adam"
+                and rec["check_launches"].get(n) != L})
+    if (bad or any(rec["plain_launches"].values()) or not rec["losses_equal_stage0"]
+            or not all(np.isfinite(r["losses"]).all() for r in runs.values())
+            or not all(rec[key] <= t for key, t in tol.items())):
+        raise AssertionError(f"train_moe failed: launches off {bad}; {rec}")
+    return rec
+
+
 def host_code_rows(host, offload) -> list:
     """The host C++ of the offload path, each with what bounds it and its times here."""
     run = offload["stage2_offload_optimizer_cpu"]
@@ -4511,6 +4752,14 @@ def main(argv) -> int:
         PARENT["lib"] = load_parent(os.path.abspath(parent_dir))
         log(dict(phase="parent build", dir=parent_dir, seconds=time.perf_counter() - t0))
 
+    if "--only" in argv:  # a development run: the build, then the named training phases alone
+        only = argv[argv.index("--only") + 1].split(",")
+        phases = {"train_zeropp": phase_train_zeropp, "train_moe": phase_train_moe}
+        for name in only:
+            t0 = time.perf_counter()
+            phases[name](torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam])
+            log(dict(phase=name, seconds=time.perf_counter() - t0))
+        return 0
     paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
     counters = paged + [norms.rms_norm]
     records = run_kernel_phases(torch, dev, quick)
@@ -4607,11 +4856,20 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_offload_nvme(torch, dev, train_counters)
     log(dict(phase="offload_nvme", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_train_zeropp(torch, dev, train_counters)
+    log(dict(phase="train_zeropp", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    train_moe = phase_train_moe(torch, dev, train_counters)
+    log(dict(phase="train_moe", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
             "mixtral_8x7b_8l": serve_moe, "train": train,
             "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
+    for row in kernels:  # the kernels MoE training runs: their launches over its 6 steps at stage 0
+        if row["name"] in train_moe["stage0"]["launches"]:
+            row["train_moe_launches"] = train_moe["stage0"]["launches"][row["name"]]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"host_code": host_code_rows(host, offload)})
     log({"kernels": kernels})

@@ -4,7 +4,9 @@ Port of ``deepspeed_tpu/checkpoint/zero_to_fp32.py`` (reference
 ``utils/zero_to_fp32.py``): each ``zero_pp_rank_<r>_mp_rank_00_optim_states.pt``
 holds that rank's chunk of every master (whole where the plan does not
 shard the leaf); the chunks of one replica's ZeRO group, in ZeRO-rank
-order, concatenate along the leaf's sharded dimension.
+order, concatenate along the leaf's sharded dimension. Under expert
+parallelism each expert rank's group holds its E / ep experts of an expert
+leaf, and those join along the leaf's expert dimension.
 
 CLI:  python -m deepspeed_tpu_torch.checkpoint.zero_to_fp32 <ckpt_dir> <out_file> [-t TAG]
 
@@ -32,13 +34,22 @@ def get_fp32_flat_state_dict_from_zero_checkpoint(checkpoint_dir: str, tag: Opti
     if not files:
         raise FileNotFoundError(f"no zero_pp_rank_*_mp_rank_00_optim_states.pt files in {d}")
     ranks = [torch.load(f, map_location="cpu", weights_only=False) for f in files]
-    group = sorted((s for s in ranks if s["replica_rank"] == 0), key=lambda s: s["zero_rank"])
-    size = group[0]["zero_size"]
-    if [s["zero_rank"] for s in group] != list(range(size)):
-        raise ValueError(f"{d}: the rank files hold ZeRO ranks {[s['zero_rank'] for s in group]}, expected 0..{size - 1}")
+    ep = ranks[0].get("ep_size", 1)
+    groups = []
+    for e in range(ep):
+        group = sorted((s for s in ranks if s["replica_rank"] == 0 and s.get("ep_rank", 0) == e),
+                       key=lambda s: s["zero_rank"])
+        size = ranks[0]["zero_size"]
+        if [s["zero_rank"] for s in group] != list(range(size)):
+            raise ValueError(f"{d}: the rank files of expert rank {e} hold ZeRO ranks "
+                             f"{[s['zero_rank'] for s in group]}, expected 0..{size - 1}")
+        groups.append(group)
+    expert_dims = ranks[0].get("expert_dims") or [None] * len(ranks[0]["leaves"])
     out = {}
-    for path, shape, dim in group[0]["leaves"]:
-        t = group[0]["fp32"][path] if dim is None else torch.cat([s["fp32"][path] for s in group], dim=dim)
+    for (path, shape, dim), edim in zip(groups[0][0]["leaves"], expert_dims):
+        local = [g[0]["fp32"][path] if dim is None else torch.cat([s["fp32"][path] for s in g], dim=dim)
+                 for g in groups]
+        t = local[0] if edim is None else torch.cat(local, dim=edim)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{path}: merged shape {tuple(t.shape)}, expected {tuple(shape)}")
         out[path] = t.float()

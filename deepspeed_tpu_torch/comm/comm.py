@@ -16,7 +16,7 @@ world):
   not serve with that backend (a CUDA tensor on gloo, a CPU tensor on NCCL)
   raises instead of falling back.
 - ``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
-  ``broadcast``, ``all_gather_object``, ``broadcast_object_list``,
+  ``all_to_all_single``, ``broadcast``, ``all_gather_object``, ``broadcast_object_list``,
   ``barrier``: ``torch.distributed``'s own, with that check.
 """
 
@@ -135,6 +135,13 @@ def reduce_scatter_tensor(output: torch.Tensor, tensor: torch.Tensor, op: Reduce
     """Rank r's ``output`` is the reduction of chunk r of every rank's ``tensor``."""
     _check(tensor, group)
     return tdist.reduce_scatter_tensor(output, tensor, op=_OPS[op], group=group, async_op=async_op)
+
+
+def all_to_all_single(output: torch.Tensor, tensor: torch.Tensor, group=None, async_op: bool = False):
+    """Equal splits along dimension 0: chunk j of ``tensor`` goes to rank j,
+    and chunk i of ``output`` comes from rank i."""
+    _check(tensor, group)
+    return tdist.all_to_all_single(output, tensor, group=group, async_op=async_op)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None, async_op: bool = False):

@@ -154,17 +154,18 @@ def serve_trace(engine, trace: Sequence[Arrival], clock: str = "wall", eos_token
     def now() -> float:
         return time.perf_counter() - t0
 
-    def due(i: int) -> bool:
+    def due(i: int, t: Optional[float] = None) -> bool:
+        """Whether arrival i is due at ``t`` (default: now)."""
         if i >= len(trace):
             return False
         if clock == "logical":
             return trace[i].arrival_q <= engine.scheduler.last_quantum_id
-        return trace[i].arrival_s <= now()
+        return trace[i].arrival_s <= (now() if t is None else t)
 
     def admit(force: bool = False) -> None:
         nonlocal next_i
-        t = now()
-        while next_i < len(trace) and (force or due(next_i)):
+        t = now()  # one admission time: a request that falls due while the loop runs waits for the next call
+        while next_i < len(trace) and (force or due(next_i, t)):
             a = trace[next_i]
             reqs[a.uid] = RaggedRequest(uid=a.uid, tokens=list(a.prompt), max_new_tokens=a.max_new_tokens)
             stats[a.uid].admitted = t

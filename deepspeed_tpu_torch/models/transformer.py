@@ -624,6 +624,26 @@ class CausalLM:
         zeros = lambda: torch.zeros(shape, dtype=dtype or cfg.dtype, device=dev)
         return [(zeros(), zeros(), 0) for _ in range(cfg.n_layers)]
 
+    def partition_rules(self):
+        """(path names, spec) pairs, a spec one mesh axis (or ``None``) per
+        dimension: the JAX ``CausalLM.partition_rules`` (``transformer.py:751``),
+        the MoE rules first. The training planner prunes the axes of size 1, so
+        at ``tensor`` 1 only the experts' ``expert`` dimension acts."""
+        from ..moe.layer import MOE_PARTITION_RULES
+
+        return list(MOE_PARTITION_RULES) + [
+            (("wte",), ("tensor", None)),
+            (("wpe",), (None, None)),
+            (("q_proj", "kernel"), (None, "tensor", None)),
+            (("k_proj", "kernel"), (None, "tensor", None)),
+            (("v_proj", "kernel"), (None, "tensor", None)),
+            (("o_proj", "kernel"), ("tensor", None, None)),
+            (("gate_proj", "kernel"), (None, "tensor")),
+            (("up_proj", "kernel"), (None, "tensor")),
+            (("down_proj", "kernel"), ("tensor", None)),
+            (("lm_head", "kernel"), (None, "tensor")),
+        ]
+
     def loss_fn(self, params, batch, rng=None) -> torch.Tensor:
         from ..ops.fused_ce import fused_cross_entropy
 

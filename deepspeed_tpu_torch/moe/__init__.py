@@ -1,8 +1,9 @@
-"""Mixture of Experts at one device: port of ``deepspeed_tpu/moe`` (without
-expert parallelism and the expert-TP token mappings)."""
+"""Mixture of Experts: port of ``deepspeed_tpu/moe``, with expert parallelism
+over the mesh's ``expert`` axis inside the training engine (without the
+expert-TP token mappings)."""
 
-from .layer import Experts, MoE
+from .layer import MOE_PARTITION_RULES, ExpertParallel, Experts, MoE, expert_parallel
 from .sharded_moe import combine_output, gate_and_dispatch, multiplicative_jitter, top1gating, top_k, topkgating
 
 __all__ = ["MoE", "Experts", "top1gating", "topkgating", "gate_and_dispatch", "combine_output",
-           "multiplicative_jitter", "top_k"]
+           "multiplicative_jitter", "top_k", "MOE_PARTITION_RULES", "ExpertParallel", "expert_parallel"]

@@ -2,7 +2,10 @@
 
 Port of ``deepspeed_tpu/moe/sharded_moe.py``: the GShard formulation, in
 which one-hot dispatch and combine tensors (N, E, C) are contracted with the
-token batch. Expert parallelism (the dispatch's all-to-alls) is not ported.
+token batch. Expert parallelism lives in the layer (``layer.py``): it
+slices the experts out of the dispatch tensor and all-gathers their
+outputs, since every rank of an expert group holds the same tokens (no
+all-to-all exchanges tokens that differ across ranks).
 
 Random draws take an explicit ``torch.Generator``: the RSample gate noise of
 ``top1gating`` and ``multiplicative_jitter``. They give other numbers than

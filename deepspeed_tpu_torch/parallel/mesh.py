@@ -8,8 +8,14 @@ process group, and an axis's "group" is a ``torch.distributed`` process
 group of the ranks that differ only along it (the reference's
 ``utils/groups.py``). The axes and their order are the JAX package's:
 ``pipe, data, fsdp, expert, seq, context, tensor``, first slowest, so the
-fsdp groups are runs of neighbouring ranks. ``data`` and ``fsdp`` may exceed
-1; the other axes above 1 raise ``NotImplementedError``.
+fsdp groups are runs of neighbouring ranks. ``data``, ``fsdp`` and
+``expert`` may exceed 1; the other axes above 1 raise
+``NotImplementedError``. The batch is split over ``data`` x ``fsdp`` only
+(JAX ``MeshTopology.batch_axes``): the ranks of an expert group see the
+same rows. Besides the axis groups there is the ``expert_data`` group, the
+ranks that share this rank's expert coordinate (data x fsdp), over which
+expert leaves reduce their gradients and MoE layers gate their tokens, and
+ZeRO++'s hpZ groups (``hpz_group``), runs of k neighbouring fsdp ranks.
 """
 
 from typing import Dict, Optional
@@ -19,7 +25,8 @@ from ..runtime.config import MESH_AXES, MeshConfig
 from .topology import ProcessTopology
 
 ALL_AXES = MESH_AXES
-PORTED_AXES = ("data", "fsdp")
+PORTED_AXES = ("data", "fsdp", "expert")
+BATCH_AXES = ("data", "fsdp")
 
 
 def _resolve_axis_sizes(cfg: MeshConfig, world_size: int) -> Dict[str, int]:
@@ -42,7 +49,7 @@ def _resolve_axis_sizes(cfg: MeshConfig, world_size: int) -> Dict[str, int]:
                          "device, so the mesh must cover exactly the process world")
     big = {a: s for a, s in sizes.items() if a not in PORTED_AXES and s > 1}
     if big:
-        raise NotImplementedError(f"mesh axes {big}: the port runs the data and fsdp axes only")
+        raise NotImplementedError(f"mesh axes {big}: the port runs the data, fsdp and expert axes only")
     return sizes
 
 
@@ -65,6 +72,7 @@ class MeshTopology:
         self.topology = ProcessTopology(order, [self.axis_sizes[a] for a in order])
         self.coord = self.topology.get_coord(self.rank)
         self._groups: Optional[Dict[str, object]] = None
+        self._hpz: Dict[int, object] = {}
 
     def axis_size(self, axis: str) -> int:
         return self.axis_sizes.get(axis, 1)
@@ -78,21 +86,56 @@ class MeshTopology:
         return self.axis_size("data") * self.axis_size("fsdp")
 
     @property
+    def data_parallel_rank(self) -> int:
+        """This rank's place among the ranks that split the batch (data x fsdp)."""
+        return self.axis_rank("data") * self.axis_size("fsdp") + self.axis_rank("fsdp")
+
+    @property
     def sharding_size(self) -> int:
         return self.axis_size("fsdp")
 
+    @property
+    def expert_parallel_size(self) -> int:
+        return self.axis_size("expert")
+
+    def _comm_lists(self, name: str):
+        if name == "expert_data":
+            return self.topology.get_axes_comm_lists(BATCH_AXES)
+        return self.topology.get_axis_comm_lists(name)
+
     def process_group(self, axis: str):
-        """The process group of this rank's ranks along ``axis`` (``None``, the
-        default group, when that is the whole world)."""
+        """The process group of this rank's ranks along ``axis`` (``data``,
+        ``fsdp``, ``expert``, or ``expert_data``: data x fsdp at this rank's
+        expert coordinate); ``None``, the default group, when that is the
+        whole world."""
         if self._groups is None:
             groups = {}
-            for a in PORTED_AXES:  # every rank creates every group, in this order
-                for ranks in self.topology.get_axis_comm_lists(a):
+            for a in PORTED_AXES + ("expert_data",):  # every rank creates every group, in this order
+                for ranks in self._comm_lists(a):
                     g = None if len(ranks) == self.n_devices else dist.new_group(ranks)
                     if self.rank in ranks:
                         groups[a] = g
             self._groups = groups
         return self._groups[axis]
+
+    def hpz_group(self, k: int):
+        """ZeRO++ hpZ's secondary group: the ``k`` neighbouring fsdp ranks
+        that hold this rank (JAX ``zeropp._hpz_groups``); the fsdp group when
+        ``k`` is the fsdp size. Every rank must call it, with the same ``k``."""
+        fsdp = self.axis_size("fsdp")
+        if k < 1 or fsdp % k:
+            raise ValueError(f"zero_hpz_partition_size {k} must divide the fsdp axis size {fsdp}")
+        if k == fsdp:
+            return self.process_group("fsdp")
+        if k not in self._hpz:
+            mine = None
+            for ranks in self.topology.get_axis_comm_lists("fsdp"):
+                for i in range(0, fsdp, k):
+                    g = dist.new_group(ranks[i:i + k])
+                    if self.rank in ranks[i:i + k]:
+                        mine = g
+            self._hpz[k] = mine
+        return self._hpz[k]
 
     def __repr__(self):
         return f"MeshTopology({self.axis_sizes}, rank={self.rank})"

@@ -56,6 +56,15 @@ class ProcessTopology:
         return [[self.get_rank(**{axis: i, **dict(zip(others, combo))}) for i in range(self.get_dim(axis))]
                 for combo in product(*[range(self.get_dim(a)) for a in others])]
 
+    def get_axes_comm_lists(self, axes: Sequence[str]) -> List[List[int]]:
+        """Every rank group that varies only along ``axes`` (together), one per
+        combination of the other axes, ranks ascending."""
+        axes = [a for a in axes if a in self.axes]
+        others = [a for a in self.axes if a not in axes]
+        return [sorted(r for r in range(self.world_size())
+                       if all(getattr(self.get_coord(r), a) == v for a, v in zip(others, combo)))
+                for combo in product(*[range(self.get_dim(a)) for a in others])]
+
     def filter_match(self, **filter_kwargs) -> List[int]:
         """Ranks whose coordinates match every given axis=value."""
         return [r for r in range(self.world_size())

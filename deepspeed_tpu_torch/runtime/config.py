@@ -4,16 +4,17 @@ Port of ``deepspeed_tpu/runtime/config.py`` and the keys of
 ``runtime/constants.py`` that the engine reads: the three batch sizes and
 their triangulation against the data-parallel size (``data`` x ``fsdp``),
 ``optimizer``, ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization``
-(stages 0-3 and the reference's keys), ``mesh`` (``data`` and ``fsdp``),
+(stages 0-3 and the reference's keys, ZeRO++ and MiCS's shard size),
+``mesh`` (``data``, ``fsdp`` and ``expert``),
 ``checkpoint``, ``gradient_clipping``, ``fused_step``, ``steps_per_print``,
 ``data_types.grad_accum_dtype``, the monitor sections (``tensorboard``,
 ``wandb``, ``csv_monitor``), ZeRO-Offload (``zero_optimization.offload_optimizer``
 and ``offload_param``, with the reference's ``cpu_offload`` /
 ``cpu_offload_params`` aliases), ``aio`` and ``activation_checkpointing``.
 A section or key the port does not implement raises
-``NotImplementedError`` when the config enables it (ZeRO++, MiCS's shard
-size, the mesh axes other than ``data`` and ``fsdp``, the pipeline, ...):
-it is never silently ignored.
+``NotImplementedError`` when the config enables it (the ``tensor``,
+``pipe``, ``seq`` and ``context`` mesh axes, the pipeline, ...): it is
+never silently ignored.
 """
 
 import json
@@ -146,15 +147,25 @@ class ZeroConfig:
     the collectives run in the order the backward frees the gradients);
     ``offload_optimizer`` and ``offload_param`` are ZeRO-Offload's sections
     (``cpu_offload`` / ``cpu_offload_params`` map onto their devices as in
-    the JAX config); the other keys are read and ignored, except ZeRO++ and
-    ``mics_shard_size``, which raise in ``_check_ported``."""
+    the JAX config); ZeRO++'s ``zero_quantized_weights`` (qwZ),
+    ``zero_quantized_gradients`` (qgZ) and ``zero_hpz_partition_size`` (hpZ)
+    act at stage 3 over an fsdp axis (``zero/zeropp.py``);
+    ``mics_shard_size`` sizes the mesh's fsdp axis (``DeepSpeedConfig``);
+    the other keys are read and ignored (``mics_hierarchical_params_gather``
+    and ``zero_quantized_nontrainable_weights`` too, as in the JAX
+    package)."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_bucket_size: int = 500_000_000
     overlap_comm: Optional[bool] = None
     stage3_param_persistence_threshold: int = 100_000
     stage3_gather_16bit_weights_on_model_save: bool = False
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
+    zero_quantized_nontrainable_weights: bool = False
+    zero_quantized_gradients: bool = False
     mics_shard_size: int = -1
+    mics_hierarchical_params_gather: bool = False
     offload_param: ZeroOffloadParamConfig = field(default_factory=ZeroOffloadParamConfig)
     offload_optimizer: ZeroOffloadOptimizerConfig = field(default_factory=ZeroOffloadOptimizerConfig)
     cpu_offload: Optional[bool] = None
@@ -177,6 +188,11 @@ class ZeroConfig:
         cfg.stage = int(cfg.stage)
         if cfg.reduce_bucket_size < 1:
             raise ValueError(f"zero_optimization.reduce_bucket_size must be positive, got {cfg.reduce_bucket_size}")
+        if int(cfg.zero_hpz_partition_size) < 1:
+            raise ValueError(f"zero_optimization.zero_hpz_partition_size must be >= 1, got "
+                             f"{cfg.zero_hpz_partition_size}")
+        cfg.zero_hpz_partition_size = int(cfg.zero_hpz_partition_size)
+        cfg.mics_shard_size = int(cfg.mics_shard_size)
         if cfg.overlap_comm is None:
             cfg.overlap_comm = cfg.stage == 3
         return cfg
@@ -188,9 +204,11 @@ MESH_AXES = ("pipe", "data", "fsdp", "expert", "seq", "context", "tensor")
 @dataclass
 class MeshConfig:
     """Named axis sizes over the process world (the JAX ``MeshConfig``): -1 on
-    one axis takes what the others leave. The port runs ``data`` and
-    ``fsdp`` (ZeRO's shards live on ``fsdp`` when it exceeds 1, else on
-    ``data``); the other axes above 1 raise ``NotImplementedError``."""
+    one axis takes what the others leave. The port runs ``data``, ``fsdp``
+    (ZeRO's shards live on ``fsdp`` when it exceeds 1, else on ``data``)
+    and ``expert`` (each rank holds E / expert of an MoE layer's experts);
+    ``tensor``, ``pipe``, ``seq`` and ``context`` above 1 raise
+    ``NotImplementedError``."""
     data: int = -1
     fsdp: int = 1
     tensor: int = 1
@@ -258,20 +276,12 @@ def _load_config_dict(config: Union[str, Dict, None]) -> Dict:
 
 def _check_ported(d: Dict) -> None:
     """Raise for every enabled section or key the port has no code for."""
-    zero = d.get("zero_optimization", {}) or {}
-    for key in ("zero_quantized_weights", "zero_quantized_gradients"):
-        if zero.get(key):
-            raise NotImplementedError(f"zero_optimization.{key} (ZeRO++) is not ported yet")
-    if int(zero.get("zero_hpz_partition_size", 1)) > 1:
-        raise NotImplementedError("zero_optimization.zero_hpz_partition_size > 1 (ZeRO++ hpZ) is not ported yet")
-    if int(zero.get("mics_shard_size", -1)) > 0:
-        raise NotImplementedError("zero_optimization.mics_shard_size > 0 (MiCS's hierarchical groups) is not "
-                                  "ported yet: set mesh.fsdp for the same sharding")
     mesh = d.get("mesh", {}) or {}
-    big = {axis: n for axis, n in mesh.items() if axis not in ("axis_order", "data", "fsdp") and n not in (-1, 0, 1)}
+    big = {axis: n for axis, n in mesh.items() if axis not in ("axis_order", "data", "fsdp", "expert")
+           and n not in (-1, 0, 1)}
     if big:
-        raise NotImplementedError(f"mesh axes {big}: the port runs the data and fsdp axes only (tensor, pipe, "
-                                  "expert, seq and context parallelism are not ported yet)")
+        raise NotImplementedError(f"mesh axes {big}: the port runs the data, fsdp and expert axes only (tensor, "
+                                  "pipe, seq and context parallelism are not ported yet)")
     for key in _UNPORTED_ENABLED:
         section = d.get(key) or {}
         if isinstance(section, dict) and section.get("enabled", False):
@@ -296,6 +306,10 @@ class DeepSpeedConfig:
         self.bf16 = _from_dict(BF16Config, d.get("bf16", d.get("bfloat16")))
         self.zero_config = ZeroConfig.from_dict(d.get("zero_optimization"))
         self.mesh = MeshConfig.from_dict(d.get("mesh"))
+        # MiCS (reference runtime/zero/mics.py, JAX config.py:364-369): mics_shard_size=k is the mesh
+        # {fsdp: k, data: replica groups}; it sizes fsdp unless the mesh names it
+        if self.zero_config.mics_shard_size > 0 and "fsdp" not in (d.get("mesh") or {}):
+            self.mesh.fsdp = self.zero_config.mics_shard_size
         self.checkpoint_config = _from_dict(CheckpointConfig, d.get("checkpoint"))
         self.aio = _from_dict(AIOConfig, d.get("aio"))
         self.activation_checkpointing = _from_dict(ActivationCheckpointingConfig, d.get("activation_checkpointing"))

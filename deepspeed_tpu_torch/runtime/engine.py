@@ -9,8 +9,9 @@ Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``,
 
 Each rank is one process on one device (NCCL on CUDA, gloo on the CPU;
 ``comm.init_distributed`` brings the world up, a single process included);
-the ``mesh`` section (or ``mesh=``) lays ``data`` x ``fsdp`` over the world,
-and every rank takes its own rows of each global micro-batch. The model's
+the ``mesh`` section (or ``mesh=``) lays ``data`` x ``fsdp`` x ``expert``
+over the world, and every rank takes its data-parallel rank's rows of each
+global micro-batch (the ranks of an expert group the same rows). The model's
 loss is a rank's mean over its valid tokens; the engine weighs it by the
 rank's share of the global batch's valid tokens (rows for a model that is
 not a ``CausalLM``), so the summed gradients and the reported loss are
@@ -30,6 +31,18 @@ norms), and stages 1 and 2 all-gather the updated chunks into the full
 masters. The global gradient norm is the square root of the all-reduced
 squared partial sums; overflow and clipping follow from it, on the device.
 The engine counts its collectives (``comm_stats``: calls and bytes by op).
+
+Expert parallelism follows the model's partition rules
+(``partition_rules()``): an expert leaf holds this rank's E / ep experts,
+and its ZeRO chunking, gradient reduction (over the data x fsdp ranks at
+this expert coordinate, like every leaf) and optimizer state are those of
+that local leaf; the engine enters ``moe.expert_parallel`` around the
+forward and backward so MoE layers run over the expert and data-parallel
+groups (``moe/layer.py``). The global norm counts an expert leaf's squares
+on every expert rank and a shared leaf's on expert rank 0, summed over the
+expert group. ZeRO++ (``zero/zeropp.py``) switches stage 3's collectives to
+its wire formats where ``zeropp_applicable`` allows, and MiCS's
+``mics_shard_size`` is checked against the mesh (``zero/mics.py``).
 
 ZeRO-Offload follows the JAX engine (``engine.py:147-205``, ``:700-730``):
 with ``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme``, a
@@ -106,8 +119,11 @@ from .zero.init import ShardedParams
 from ..checkpoint.utils import flatten_tree, unflatten_tree
 from .zero.offload import HostOffloadOptimizer, host_empty
 from .zero.param_offload import ParamStream, plan_param_offload
+from .zero.mics import validate_mics_mesh
 from .zero.partition import plan_zero
 from .zero.sharded import Collectives, Stage3Params
+from .zero.zeropp import check_hpz, zeropp_applicable, zeropp_requested
+from ..moe.layer import ExpertParallel, expert_parallel
 
 logger = logging.getLogger(__name__)
 
@@ -171,8 +187,10 @@ class DeepSpeedEngine:
             self.topology = mesh
         else:
             self.topology = initialize_mesh(self.config.mesh)
+        validate_mics_mesh(self.config, self.topology)
         self.dp_world_size = self.topology.data_parallel_size
-        self.dp_rank = dist.get_rank()
+        self.dp_rank = self.topology.data_parallel_rank  # this rank's rows of each global micro-batch
+        self.global_rank = dist.get_rank()  # names its checkpoint file
         self.config.resolve_batch_sizes(self.dp_world_size)
         self._model_cfg = getattr(model, "cfg", None)  # a TransformerConfig prices the MFU gauge
         if callable(getattr(model, "loss_fn", None)):
@@ -185,6 +203,8 @@ class DeepSpeedEngine:
         self._token_weighted = self._model_cfg is not None and callable(getattr(model, "loss_fn", None))
         if model_parameters is None:
             raise ValueError("model_parameters (the parameter dict) is required")
+        # the model's (path, spec) rules: the planner keeps the expert dimension of an MoE layer's experts
+        self._partition_rules = model.partition_rules() if callable(getattr(model, "partition_rules", None)) else []
 
         self.compute_dtype = self.config.precision_dtype
         acc_name = self.config.gradient_accumulation_dtype
@@ -192,6 +212,7 @@ class DeepSpeedEngine:
             raise ValueError(f"data_types.grad_accum_dtype must be one of "
                              f"{sorted(k for k in _ACC_DTYPES if k)}, got {acc_name!r}")
         self._grad_acc_dtype = _ACC_DTYPES[acc_name]
+        self._init_zeropp()
         self._init_zero(model_parameters, self._host_offload_wanted(optimizer))
 
         if optimizer is not None:
@@ -203,9 +224,12 @@ class DeepSpeedEngine:
                                           "config's optimizer section")
         self.optimizer = optimizer if optimizer is not None else create_optimizer(
             self.config.optimizer.type, self.config.optimizer.params, self._opt_params)
-        sharded = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.opt_dim is not None]
+        sharded = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.opt_dim is not None and lf.ep == 1]
         if sharded:
             self.optimizer.set_sharded(sharded, self.coll.all_reduce)
+        experts = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.ep > 1]
+        if experts:  # an expert leaf's norm: its chunks over the ZeRO group (a no-op when whole), then its experts
+            self.optimizer.set_sharded(experts, lambda t: self.coll.all_reduce(self.coll.all_reduce(t), "expert"))
 
         # reference engine wires checkpointing.configure too; unconditional, so a previous engine's flags never
         # leak into this one through the module's state
@@ -262,6 +286,27 @@ class DeepSpeedEngine:
             return True
         return False
 
+    def _init_zeropp(self) -> None:
+        """ZeRO++ where it applies (JAX ``engine.py:151-160``, ``:411-418``):
+        otherwise the fallback is logged with the JAX package's reason and
+        the engine trains plain ZeRO; a parameter offload under ZeRO++ is
+        refused with a warning."""
+        use, reason = zeropp_applicable(self.config, self.topology)
+        self.zeropp_active, self.zeropp_reason = use, reason
+        zc = self.config.zero_config
+        self._hpz = 1
+        if zeropp_requested(self.config) and not use:
+            logger.warning(f"ZeRO++ requested but falling back to plain ZeRO: {reason}")
+        if not use:
+            return
+        self._hpz = check_hpz(self.config, self.topology)
+        if zc.offload_param.device in ("cpu", "nvme"):
+            logger.warning("offload_param is incompatible with ZeRO++'s wire formats: parameters stay in device "
+                           "memory")
+            zc.offload_param.device = "none"
+        logger.info(f"ZeRO++: qwZ={zc.zero_quantized_weights} qgZ={zc.zero_quantized_gradients} hpZ={self._hpz} "
+                    f"over fsdp={self.topology.axis_size('fsdp')} data={self.topology.axis_size('data')}")
+
     def _init_zero(self, model_parameters, host_offload: bool) -> None:
         """The plan, this rank's fp32 masters (chunks where stage 3 shards them;
         on the host where ZeRO-3 parameter offload keeps them), the host
@@ -269,7 +314,7 @@ class DeepSpeedEngine:
         updates and the collectives."""
         given = model_parameters.tree if isinstance(model_parameters, ShardedParams) else model_parameters
         shapes = model_parameters.shapes if isinstance(model_parameters, ShardedParams) else given
-        self.plan = plan = plan_zero(shapes, self.config, self.topology)
+        self.plan = plan = plan_zero(shapes, self.config, self.topology, self._partition_rules)
         self._paths = [lf.path for lf in plan.leaves]
         mask = plan_param_offload(self.config, plan)
         self._param_offloaded: List[bool] = mask or [False] * len(plan.leaves)
@@ -282,7 +327,7 @@ class DeepSpeedEngine:
                     raise ValueError(f"{path}: zero.Init made a chunk of shape {tuple(t.shape)}, this engine's plan "
                                      f"wants {plan.shard_shape(lf, lf.param_dim)}: build both from one config")
             else:
-                t = plan.shard(t, lf.param_dim)
+                t = plan.chunk(t, lf, lf.param_dim)
             if off:  # ZeRO-3 parameter offload: the master stays on the host
                 host = host_empty(tuple(t.shape), pin)
                 host.copy_(t)
@@ -292,7 +337,13 @@ class DeepSpeedEngine:
         topo = self.topology
         replica = plan.axis == "fsdp" and topo.axis_size("data") > 1
         self.coll = Collectives(plan, topo.process_group(plan.axis), topo.process_group("data") if replica else None,
-                                topo.axis_size("data") if replica else 1, self.config.zero_config.reduce_bucket_size)
+                                topo.axis_size("data") if replica else 1, self.config.zero_config.reduce_bucket_size,
+                                dp_group=topo.process_group("expert_data"), expert_group=topo.process_group("expert"),
+                                hpz_group=topo.hpz_group(self._hpz) if self._hpz > 1 else None, hpz_size=self._hpz)
+        ep, dp = topo.axis_size("expert"), self.dp_world_size
+        self._moe_groups = None if ep == 1 and dp == 1 else ExpertParallel(
+            ep, topo.axis_rank("expert"), topo.process_group("expert"), dp, self.dp_rank,
+            topo.process_group("expert_data"))
         # the device optimizer's tensor of each leaf: the master where its chunk is the master's, else a
         # chunk-shaped device tensor whose storage exists only inside step(), filled from the master and written
         # back after (``_staged``: gathered into a device master; ``_staged_host``: copied to a host master)
@@ -323,15 +374,19 @@ class DeepSpeedEngine:
         self._stage3 = None
         if plan.stage == 3:
             stream = ParamStream(self._masters, self._param_offloaded, self.device) if mask else None
+            zc = self.config.zero_config
+            zpp = self.zeropp_active
             self._stage3 = Stage3Params(plan, self._masters, self.coll, self.compute_dtype, self._grad_acc_dtype,
-                                        self._accumulate, self.device, stream)
+                                        self._accumulate, self.device, stream,
+                                        qwz=zpp and zc.zero_quantized_weights,
+                                        qgz=zpp and zc.zero_quantized_gradients, hpz=self._hpz)
 
     def _opt_view(self, i: int) -> torch.Tensor:
         """Leaf i's optimizer chunk of its master (a view; the master itself where they coincide)."""
         lf, m = self.plan.leaves[i], self._masters[i].detach()
         if lf.opt_dim is None or lf.param_dim == lf.opt_dim:
             return m
-        n = lf.shape[lf.opt_dim] // self.plan.size
+        n = lf.local_shape[lf.opt_dim] // self.plan.size
         return m.narrow(lf.opt_dim, self.plan.rank * n, n)
 
     @property
@@ -442,14 +497,15 @@ class DeepSpeedEngine:
         return unflatten_tree((path, leaf.to(self.compute_dtype)) for path, leaf in zip(self._paths, self._masters))
 
     def _local_loss(self, batch) -> torch.Tensor:
-        if self._stage3 is None:
-            return self._loss_fn(self._compute_params(), batch, None)
-        params = self._stage3
-        try:
-            with params.saved_tensors_hooks():
-                return self._loss_fn(params, batch, None)
-        finally:
-            params.end_forward(torch.is_grad_enabled())
+        with expert_parallel(self._moe_groups):  # MoE layers route the data-parallel batch over the expert group
+            if self._stage3 is None:
+                return self._loss_fn(self._compute_params(), batch, None)
+            params = self._stage3
+            try:
+                with params.saved_tensors_hooks():
+                    return self._loss_fn(params, batch, None)
+            finally:
+                params.end_forward(torch.is_grad_enabled())
 
     def _weigh(self, loss: torch.Tensor, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(this rank's weight, the global loss): the weight is the rank's share
@@ -460,7 +516,7 @@ class DeepSpeedEngine:
         else:
             n = torch.full((), float(_batch_rows(batch)), dtype=torch.float32, device=self.device)
         both = torch.stack([n, loss.detach().float() * n])
-        self.coll.all_reduce(both, None)
+        self.coll.all_reduce(both, "dp")  # the ranks of an expert group hold the same rows: count them once
         total = torch.clamp(both[0], min=1.0)
         return n / total, both[1] / total
 
@@ -492,7 +548,8 @@ class DeepSpeedEngine:
             if self._stage3 is not None:
                 self._stage3.in_backward = True
             try:
-                (self._pending.float() * scale).backward(retain_graph=retain_graph)
+                with expert_parallel(self._moe_groups):  # a checkpointed MoE block's recompute runs in here
+                    (self._pending.float() * scale).backward(retain_graph=retain_graph)
             finally:
                 if self._stage3 is not None:
                     self._stage3.in_backward = False
@@ -530,8 +587,26 @@ class DeepSpeedEngine:
         if self.plan.stage <= 1:  # stage 2 and 3 reduced each micro-batch over the ZeRO group
             dims = [lf.opt_dim if self.plan.stage == 1 else None for lf in self.plan.leaves]
             acc = self.coll.reduce(list(zip(acc, dims)))
-        self.coll.reduce_replicas(acc)
+        s3 = self._stage3
+        # under ZeRO++ qgZ the sharded leaves were reduced over data too, each micro-batch
+        self.coll.reduce_replicas([a for a, lf in zip(acc, self.plan.leaves)
+                                   if not (s3 is not None and s3.qgz and lf.param_dim is not None)])
         return acc
+
+    def _norm_owned(self) -> List[bool]:
+        """Whether leaf i's squares count in this rank's share of the global
+        norm: a chunk, or a whole leaf on ZeRO rank 0; a leaf every expert
+        rank holds alike only on expert rank 0."""
+        p = self.plan
+        return [(lf.opt_dim is not None or p.rank == 0) and (lf.expert_dim is not None or p.ep_rank == 0)
+                for lf in p.leaves]
+
+    def _norm_sum(self, sq: torch.Tensor) -> torch.Tensor:
+        """The ranks' shares of the squared norm summed: over the ZeRO group, then over the expert group."""
+        self.coll.all_reduce(sq)
+        if self.plan.ep_size > 1:
+            self.coll.all_reduce(sq, "expert")
+        return sq
 
     @torch.no_grad()
     def _apply_updates(self, grads: List[torch.Tensor], inv_scale: float, lr: float):
@@ -540,11 +615,10 @@ class DeepSpeedEngine:
         overflows fp32 counts as overflow too. The norm sums each rank's
         squared chunk norms (whole leaves once, on ZeRO rank 0) over the ZeRO
         group."""
-        owned = [g for lf, g in zip(self.plan.leaves, grads) if lf.opt_dim is not None or self.plan.rank == 0]
+        owned = [g for own, g in zip(self._norm_owned(), grads) if own]
         norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in owned]) if owned \
             else torch.zeros(1, dtype=torch.float32, device=self.device)
-        sq = (norms * norms).sum().reshape(1)
-        self.coll.all_reduce(sq)
+        sq = self._norm_sum((norms * norms).sum().reshape(1))
         gnorm = sq[0].sqrt() * inv_scale
         finite = torch.isfinite(gnorm)
         mult = torch.full((), inv_scale, dtype=torch.float32, device=self.device)
@@ -588,12 +662,10 @@ class DeepSpeedEngine:
             else:
                 out.append(self._masters[i].detach())
         reduce = None
-        if plan.size > 1:
+        if plan.size > 1 or plan.ep_size > 1:
             def reduce(x: float) -> float:
-                t = torch.tensor([x], dtype=torch.float64, device=self.device)
-                self.coll.all_reduce(t)
-                return float(t[0])
-        owned = [lf.opt_dim is not None or plan.rank == 0 for lf in plan.leaves]
+                return float(self._norm_sum(torch.tensor([x], dtype=torch.float64, device=self.device))[0])
+        owned = self._norm_owned()
         gnorm, overflow = self._host_opt.step(grads, lr, inv_scale, self.config.gradient_clipping, out=out,
                                               owned=owned, norm_reduce=reduce)
         if not overflow and self._staged:
@@ -780,20 +852,32 @@ class DeepSpeedEngine:
             return False
         return not bool(self._last_overflow)
 
+    def _whole_experts(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf i's tensor of this rank's experts all-gathered over the expert
+        group into the whole leaf (``t`` itself for a leaf without experts)."""
+        lf = self.plan.leaves[i]
+        if lf.expert_dim is None or lf.ep == 1 or not torch.is_tensor(t) or tuple(t.shape) != lf.local_shape:
+            return t
+        recv = torch.empty((lf.ep,) + tuple(t.shape), dtype=t.dtype, device=self.device)
+        self.coll._count("all_gather", recv)
+        dist.all_gather_into_tensor(recv.view(-1), t.to(self.device).contiguous().view(-1),
+                                    group=self.coll.groups["expert"])
+        return torch.cat(list(recv.unbind(0)), dim=lf.expert_dim)
+
     @torch.no_grad()
     def full_masters(self) -> List[torch.Tensor]:
         """Every fp32 master whole, in plan order (stage 3 all-gathers its
-        chunks: every rank must call it)."""
+        chunks, expert parallelism its experts: every rank must call it)."""
         out = [m.detach() for m in self._masters]
         items = []
         for i, lf in enumerate(self.plan.leaves):
             if lf.param_dim is not None:
-                full = torch.empty(lf.shape, dtype=torch.float32, device=self.device)
+                full = torch.empty(lf.local_shape, dtype=torch.float32, device=self.device)
                 items.append((out[i].to(self.device), lf.param_dim, full))
                 out[i] = full
         if items:
             self.coll.gather(items)
-        return out
+        return [self._whole_experts(i, t) for i, t in enumerate(out)]
 
     def module_state_dict(self) -> Dict[str, Any]:
         """The fp32 masters, whole, as a nested dict of detached tensors (a
@@ -811,12 +895,12 @@ class DeepSpeedEngine:
                 if lf.opt_dim is None or not torch.is_tensor(v) or v.shape != p.shape:
                     st[k] = v
                 else:
-                    st[k] = torch.empty(lf.shape, dtype=v.dtype, device=self.device)
+                    st[k] = torch.empty(lf.local_shape, dtype=v.dtype, device=self.device)
                     items.append((v.to(self.device), lf.opt_dim, st[k]))
             out.append(st)
         if items:
             self.coll.gather(items)
-        return out
+        return [{k: self._whole_experts(i, v) for k, v in st.items()} for i, st in enumerate(out)]
 
     def _leaf_state(self, i: int) -> Dict[str, Any]:
         """Leaf i's optimizer state tensors as the optimizer holds them (host ones under ZeRO-Offload)."""
@@ -852,7 +936,7 @@ class DeepSpeedEngine:
     def _layout(self) -> Dict[str, Any]:
         """What a rank file must match to resume at this world size and stage."""
         return {"zero_stage": self.plan.stage, "dp_world_size": self.dp_world_size,
-                "mesh": {a: self.topology.axis_size(a) for a in ("data", "fsdp")}}
+                "mesh": {a: self.topology.axis_size(a) for a in ("data", "fsdp", "expert")}}
 
     def _check_layout(self, saved: Dict[str, Any], where: str) -> None:
         want = self._layout()
@@ -879,7 +963,7 @@ class DeepSpeedEngine:
         eng.makedirs(d)
         eng.create(tag)
         module = {path: self._host(t) for path, t in zip(self._paths, self.full_masters())}
-        if self.dp_rank == 0:
+        if self.global_rank == 0:
             eng.save({"module": module, "global_steps": self.global_steps, "micro_steps": self.micro_steps,
                       "global_samples": self.global_samples, "skipped_steps": self.skipped_steps,
                       "accum_base": self._accum_base, "base_lr": self._base_lr,
@@ -888,11 +972,11 @@ class DeepSpeedEngine:
                       "client_state": client_state or {}, **self._layout()},
                      os.path.join(d, MODEL_STATES_FILENAME))
         del module
-        eng.save(self._optim_states(), os.path.join(d, optim_states_filename(self.dp_rank)))
+        eng.save(self._optim_states(), os.path.join(d, optim_states_filename(self.global_rank)))
         if save_latest:
             if not isinstance(eng, AsyncCheckpointEngine):  # written now: every rank's files are down
                 dist.barrier(device=self.device)
-            if self.dp_rank == 0:
+            if self.global_rank == 0:
                 eng.save_text(tag, os.path.join(save_dir, LATEST_FILENAME))
         eng.commit(tag)
         return True
@@ -907,7 +991,8 @@ class DeepSpeedEngine:
             state[lf.path] = {k: self._host(v) if torch.is_tensor(v) else v for k, v in self._leaf_state(i).items()}
         replica_rank = self.topology.axis_rank("data") if plan.axis == "fsdp" else 0
         return {**self._layout(), "zero_axis": plan.axis, "zero_size": plan.size, "zero_rank": plan.rank,
-                "replica_rank": replica_rank,
+                "replica_rank": replica_rank, "ep_size": plan.ep_size, "ep_rank": plan.ep_rank,
+                "expert_dims": [lf.expert_dim for lf in plan.leaves],
                 "leaves": [(lf.path, lf.shape, lf.opt_dim) for lf in plan.leaves], "fp32": fp32, "state": state,
                 "optimizer": {"count": self.optimizer_step_count, "state_names": self.state_names(),
                               "param_groups": [{k: v for k, v in g.items() if k != "params"}
@@ -926,7 +1011,7 @@ class DeepSpeedEngine:
             t = torch.as_tensor(full[lf.path])
             if tuple(t.shape) != lf.shape:
                 raise ValueError(f"{lf.path}: checkpoint shape {tuple(t.shape)}, model {lf.shape}")
-            m.copy_(self.plan.shard(t, lf.param_dim))
+            m.copy_(self.plan.chunk(t, lf, lf.param_dim))
         if self._host_opt is not None:
             # keep the host masters in step even when no optimizer state is loaded (JAX engine.py:1158-1161)
             self._host_opt.set_master([self._opt_view(i) for i in range(len(self._masters))])
@@ -942,7 +1027,7 @@ class DeepSpeedEngine:
                 if torch.is_tensor(v) or isinstance(v, np.ndarray):
                     v = torch.as_tensor(v)
                     if whole:
-                        v = self.plan.shard(v, lf.opt_dim)
+                        v = self.plan.chunk(v, lf, lf.opt_dim)
                     v = v.to("cpu" if self._host_opt is not None else self.device, copy=True)
                 new[k] = v
             if self._host_opt is not None:
@@ -985,7 +1070,7 @@ class DeepSpeedEngine:
         client_state = {}
         if not load_module_only:
             if load_optimizer_states:
-                opt = eng.load(os.path.join(d, optim_states_filename(self.dp_rank)))
+                opt = eng.load(os.path.join(d, optim_states_filename(self.global_rank)))
                 self._check_layout(opt, d)
                 if [tuple(x[:2]) for x in opt["leaves"]] != [(lf.path, lf.shape) for lf in self.plan.leaves]:
                     raise ValueError(f"{d}: the optimizer states' leaves do not match the model")
@@ -1020,7 +1105,7 @@ class DeepSpeedEngine:
             return False
         out = os.path.join(save_dir, save_filename)
         weights = {path: self._host(t.to(torch.bfloat16)) for path, t in zip(self._paths, self.full_masters())}
-        if self.dp_rank == 0:
+        if self.global_rank == 0:
             TorchCheckpointEngine().save(weights, out)
         dist.barrier(device=self.device)
         return out

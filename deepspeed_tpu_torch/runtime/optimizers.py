@@ -64,16 +64,14 @@ class DeviceOptimizer(torch.optim.Optimizer):
     def __init__(self, params, defaults: Dict):
         super().__init__(params, defaults)
         self._count = None  # applied steps, a device int32 scalar (skipped steps do not count)
-        self._sharded: set = set()  # ids of parameters that are one rank's chunk of a leaf
-        self._norm_reduce: Optional[Callable] = None
+        self._sharded: Dict[int, Callable] = {}  # id of a parameter that is one rank's part of a leaf -> its reduce
 
     def set_sharded(self, params, norm_reduce: Callable) -> None:
-        """Mark ``params`` as chunks of leaves split over ranks: ``norm_reduce(t)``
-        sums ``t`` in place over the ranks holding the other chunks (LAMB's
-        trust ratio needs whole-leaf norms; the elementwise optimizers ignore
-        it)."""
-        self._sharded = {id(p) for p in params}
-        self._norm_reduce = norm_reduce
+        """Mark ``params`` as parts of leaves split over ranks (ZeRO chunks,
+        an expert rank's experts): ``norm_reduce(t)`` sums ``t`` in place
+        over the ranks holding the other parts (LAMB's trust ratio needs
+        whole-leaf norms; the elementwise optimizers ignore it)."""
+        self._sharded.update({id(p): norm_reduce for p in params})
 
     def state_names(self):
         """The names of a parameter's state tensors, in the order a universal
@@ -183,7 +181,7 @@ class Lamb(Adam):
             self._u = torch.empty(n, dtype=torch.float32, device=p.device)
         u = fused_lamb.lamb_direction(p, g.contiguous(), state["exp_avg"], state["exp_avg_sq"], scalars, b1, b2, eps,
                                       wd, u_out=self._u[:p.numel()].view_as(p))
-        fused_lamb.lamb_apply(p, u, scalars, norm_reduce=self._norm_reduce if id(p) in self._sharded else None)
+        fused_lamb.lamb_apply(p, u, scalars, norm_reduce=self._sharded.get(id(p)))
 
 
 class Lion(DeviceOptimizer):

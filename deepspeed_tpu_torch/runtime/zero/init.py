@@ -28,7 +28,7 @@ class ShardedParams:
 
 class Init:
 
-    def __init__(self, config=None, topology=None, device="cuda", **unused_reference_kwargs):
+    def __init__(self, config=None, topology=None, device="cuda", partition_rules=None, **unused_reference_kwargs):
         from ...device import resolve_device
         from ...parallel.mesh import initialize_mesh
         from ..config import DeepSpeedConfig
@@ -39,6 +39,7 @@ class Init:
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         self.topology = topology or initialize_mesh(self.config.mesh)
         self.device = resolve_device(device)
+        self.partition_rules = partition_rules  # the model's (CausalLM.partition_rules()): an MoE's expert leaves
 
     def __enter__(self):
         return self
@@ -51,9 +52,9 @@ class Init:
         ``models.init_params(cfg, generator)``) and keep this rank's planned
         chunk of each leaf on the device."""
         host = init_fn(*args, device="cpu", **kwargs)
-        plan = plan_zero(host, self.config, self.topology)
+        plan = plan_zero(host, self.config, self.topology, self.partition_rules)
         chunks = []
         for lf, (path, leaf) in zip(plan.leaves, flatten_tree(host)):
-            chunks.append((path, plan.shard(torch.as_tensor(leaf), lf.param_dim).to(self.device)))
+            chunks.append((path, plan.chunk(torch.as_tensor(leaf), lf, lf.param_dim).clone().to(self.device)))
         shapes = unflatten_tree((lf.path, lf.shape) for lf in plan.leaves)
         return ShardedParams(unflatten_tree(chunks), shapes)

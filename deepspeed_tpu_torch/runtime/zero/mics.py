@@ -2,10 +2,14 @@
 
 Port of ``deepspeed_tpu/runtime/zero/mics.py`` (reference ``mics.py``):
 MiCS's layout is the mesh ``{data: replica groups, fsdp: shard group size}``
-with stage 3, which the engine runs (the ``data`` groups all-reduce the
-chunks' gradients). The ``mics_shard_size`` key that sizes that mesh, and
-the hierarchical gather, are not ported yet and raise in the config;
-``MiCS_Init`` is ``zero.Init`` under such a mesh.
+with stage 3, which the engine runs: each block is gathered over its fsdp
+group only, and the ``data`` groups all-reduce the chunks' gradients.
+``zero_optimization.mics_shard_size = k`` sizes that mesh (``DeepSpeedConfig``
+sets ``mesh.fsdp = k`` unless the mesh names ``fsdp``), and the engine
+checks the mesh against it (``validate_mics_mesh``, as the JAX engine at
+``engine.py:111-113``). ``mics_hierarchical_params_gather`` is read and
+ignored, as in the JAX package. ``MiCS_Init`` is ``zero.Init`` under such a
+mesh.
 """
 
 from .init import Init

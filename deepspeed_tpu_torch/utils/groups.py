@@ -3,10 +3,13 @@
 Port of ``deepspeed_tpu/utils/groups.py`` (reference ``utils/groups.py``
 getters at ``:397-515``) for the axes the port runs: each getter asks the
 current mesh (``parallel/mesh.py``) for the world size, the rank or the
-process group along a parallel dimension. The data-parallel group is the
-whole world (``data`` x ``fsdp``); the ZeRO shards live on ``fsdp`` when it
-exceeds 1, else on ``data``. Tensor, pipe, expert, sequence and context
-parallelism are 1 here.
+process group along a parallel dimension. The data-parallel ranks are
+``data`` x ``fsdp``; the ZeRO shards live on ``fsdp`` when it exceeds 1,
+else on ``data``. The expert groups are the ranks along the mesh's
+``expert`` axis (they see the same rows and hold different experts); the
+expert-data group of a rank is the ranks that share its expert coordinate
+(data x fsdp), over which its experts' gradients reduce. Tensor, pipe,
+sequence and context parallelism are 1 here.
 """
 
 from ..parallel.mesh import get_mesh_topology, initialize_mesh, reset_mesh  # noqa: F401 (re-export)
@@ -17,10 +20,16 @@ def _topo():
 
 
 def initialize(ep_size: int = 1, mpu=None):
-    """Reference-compat entry (``groups.py:52``): validates rather than builds."""
-    if ep_size != 1 or mpu is not None:
-        raise NotImplementedError("expert parallelism and an mpu are not ported yet")
-    return get_mesh_topology(required=False)
+    """Reference-compat entry (``groups.py:52``): the expert-parallel size is
+    the mesh's ``expert`` axis, so this validates rather than builds (JAX
+    ``utils/groups.py:20-25``)."""
+    if mpu is not None:
+        raise NotImplementedError("an mpu (tensor and pipeline parallelism) is not ported yet")
+    topo = get_mesh_topology(required=False)
+    if topo is not None and ep_size not in (1, topo.expert_parallel_size):
+        raise ValueError(f"ep_size {ep_size} conflicts with mesh expert axis {topo.expert_parallel_size}; set "
+                         "mesh.expert in config")
+    return topo
 
 
 def get_data_parallel_world_size() -> int:
@@ -28,13 +37,40 @@ def get_data_parallel_world_size() -> int:
 
 
 def get_data_parallel_rank() -> int:
-    topo = _topo()
-    return topo.axis_rank("data") * topo.axis_size("fsdp") + topo.axis_rank("fsdp")
+    return _topo().data_parallel_rank
 
 
 def get_data_parallel_group():
-    """The whole world (``None``, the default group): data x fsdp is every rank."""
-    return None
+    """The data x fsdp ranks at this rank's expert coordinate (``None``, the
+    default group, without expert parallelism)."""
+    return _topo().process_group("expert_data")
+
+
+def get_expert_parallel_world_size(group_name: str = "") -> int:
+    return _topo().expert_parallel_size
+
+
+def get_expert_parallel_rank(group_name: str = "") -> int:
+    return _topo().axis_rank("expert")
+
+
+def get_expert_parallel_group(group_name: str = ""):
+    """The ranks along the ``expert`` axis that hold this rank (``get_axis_comm_lists("expert")``)."""
+    return _topo().process_group("expert")
+
+
+def get_expert_data_parallel_world_size(group_name: str = "") -> int:
+    """The ranks that share this rank's experts: the world over the expert
+    axis, data x fsdp (the reference's world // ep)."""
+    return _topo().data_parallel_size
+
+
+def get_expert_data_parallel_rank(group_name: str = "") -> int:
+    return _topo().data_parallel_rank
+
+
+def get_expert_data_parallel_group(group_name: str = ""):
+    return _topo().process_group("expert_data")
 
 
 def get_fsdp_world_size() -> int:
@@ -65,10 +101,6 @@ def get_model_parallel_rank() -> int:
 
 
 get_tensor_model_parallel_rank = get_model_parallel_rank
-
-
-def get_expert_parallel_world_size(group_name: str = "") -> int:
-    return 1
 
 
 def get_sequence_parallel_world_size() -> int:

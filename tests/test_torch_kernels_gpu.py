@@ -20,6 +20,8 @@ the moment updates to FMAs). Paged attention in fp32 with ALiBi adds the
 plain version's own rounding of scores in the thousands (``_paged_tol``).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -2182,3 +2184,100 @@ def test_stage3_with_remat_on_the_card_equals_stage3(cuda):
     assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
     assert runs[True][2] == 2 * runs[False][2] > 0
     assert runs[True][3][0] == 0 and runs[True][3][1] > 0
+
+
+# ---------------------------------------------------------------- MoE training and ZeRO++ on the card (world 1)
+def _moe_engine(dev, stage, zero=None):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, d_ff=512,
+                            max_seq_len=128, norm="rmsnorm", activation="swiglu", pos_emb="rope",
+                            tie_embeddings=False, moe_num_experts=4, moe_top_k=2, moe_layer_freq=1,
+                            dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0, "bf16": {"enabled": True},
+              "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-3}}, "mesh": {"expert": 1},
+              "zero_optimization": {"stage": stage, **(zero or {})}}
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+    return engine
+
+
+def test_moe_engine_kernels_match_plain_versions_over_nccl(cuda):
+    """A tiny Mixtral-shaped MoE (GQA 4/2 heads of 64, 4 experts, top-2, every
+    block MoE) through the engine in bf16: the first step's loss and attention
+    gradients with the flash kernels and with their plain versions (the plain
+    run on the kernel run's routing: a token on another expert is another
+    function): the loss within 1e-3 (256 tokens of a 256-wide model in bf16,
+    where one rounding step of the loss is 2.6e-2; an H100 80GB HBM3 measured
+    2.3e-4) and the gradients within ``phase_train_parity``'s bf16 limit of
+    0.035 of each leaf's largest; then 3 steps launch
+    the flash kernels once a layer a step and ``fused_adam`` once a step, and
+    stage 3 trains stage 0's losses bit for bit."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    batches = _zero_batches(3)
+    engine = _moe_engine(cuda, 0)
+    attn = [i for i, p in enumerate(engine._paths) if "/attn/" in p]
+    top_k, routes, got = sharded_moe.top_k, [], {}
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for variant in ("kernel", "plain"):
+        saved = {n: getattr(fa, n) for n in names}
+        calls = iter(range(10**6))
+
+        def pinned(x, k):
+            vals, idx = top_k(x, k)
+            if variant == "kernel":
+                routes.append(idx)
+                return vals, idx
+            idx = routes[next(calls)]
+            return x.gather(-1, idx), idx
+
+        for n in names:
+            getattr(fa, n).launches = 0
+            if variant == "plain":
+                setattr(fa, n, getattr(fa, n + "_ref"))
+        sharded_moe.top_k = pinned
+        try:
+            loss = engine.forward(batches[0])
+            engine.backward(loss)
+        finally:
+            sharded_moe.top_k = top_k
+            for n, fn in saved.items():
+                setattr(fa, n, fn)
+        got[variant] = (float(loss), [engine._grad_acc[i].clone() for i in attn],
+                        {n: getattr(fa, n).launches for n in names})
+        engine.zero_grad()
+    (lk, gk, nk), (lp, gp, np_) = got["kernel"], got["plain"]
+    assert nk == {n: 2 for n in names} and not any(np_.values())
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gk, gp))
+    assert abs(lk - lp) <= 1e-3 and grad_err <= 0.035, (lk, lp, grad_err)
+    runs = {}
+    for stage in (0, 3):
+        engine = _moe_engine(cuda, stage)
+        for n in names:
+            getattr(fa, n).launches = 0
+        fad.fused_adam.launches = 0
+        it = iter(batches)
+        runs[stage] = [float(engine.train_batch(it)) for _ in range(3)]
+        assert {n: getattr(fa, n).launches for n in names} == {n: 6 for n in names}
+        assert fad.fused_adam.launches == 3
+    assert runs[3] == runs[0] and all(map(math.isfinite, runs[0]))
+
+
+def test_zeropp_falls_back_at_world_one_on_the_card(cuda):
+    """ZeRO++'s keys at world 1 over NCCL: the JAX package's reason is kept,
+    no quantised or hpZ collective runs, and the losses are plain stage 3's
+    bit for bit."""
+    zpp = {"zero_quantized_weights": True, "zero_quantized_gradients": True, "zero_hpz_partition_size": 2}
+    runs = {}
+    for name, zero in (("plain", None), ("zeropp", zpp)):
+        engine = _zero_engine(cuda, 3, zero=zero)
+        it = iter(_zero_batches(3))
+        runs[name] = [float(engine.train_batch(it)) for _ in range(3)]
+        if zero:
+            assert (engine.zeropp_active, engine.zeropp_reason) == (False, "ZeRO++ needs an fsdp axis > 1")
+            assert not any(op.startswith(("quant", "hpz")) for op in engine.comm_stats)
+    assert runs["zeropp"] == runs["plain"]

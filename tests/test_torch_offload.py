@@ -265,9 +265,11 @@ def test_the_config_reads_the_offload_sections():
     assert DeepSpeedConfig({}).aio.thread_count == 1
     with pytest.raises(ValueError, match="offload_param.device"):
         DeepSpeedConfig({"zero_optimization": {"offload_param": {"device": "disk"}}})
-    for key in ({"zero_quantized_gradients": True}, {"zero_hpz_partition_size": 2}, {"mics_shard_size": 4}):
-        with pytest.raises(NotImplementedError):
-            DeepSpeedConfig({"zero_optimization": {"stage": 3, **key}})
+    # ZeRO++ and MiCS's shard size sit beside the offload sections and are read, not refused
+    zpp = DeepSpeedConfig({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True,
+                                                 "zero_hpz_partition_size": 2, "mics_shard_size": 4}})
+    assert zpp.zero_config.zero_quantized_gradients and zpp.zero_config.zero_hpz_partition_size == 2
+    assert zpp.mesh.fsdp == 4 and zpp.zero_config.offload_param.device == "none"
 
 
 def test_two_gloo_ranks_hold_half_the_moments_each(jax_params, tmp_path):

@@ -170,8 +170,8 @@ def test_a_non_finite_gradient_skips_the_step_in_both_engines():
 
 
 @pytest.mark.parametrize("section", [
-    {"zero_optimization": {"zero_quantized_weights": True}},
-    {"zero_optimization": {"mics_shard_size": 2}},
+    {"mesh": {"pipe": 2}},
+    {"mesh": {"seq": 2}},
     {"pipeline": {"stages": 2}},
     {"hybrid_engine": {"enabled": True}},
     {"compression_training": {"weight_quantization": {}}},
