@@ -7,7 +7,7 @@
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
     python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged, sparse and
                                         # Adam kernels beside this tree's
-    python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named training phases alone
+    python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named phases alone (also serve_tp)
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -235,6 +235,30 @@ Phases, each fatal on failure:
    peak, the last step's tokens an expert, dropped share and aux loss; the
    6 steps again at stage 3, equal bit for bit. The kernels line gives the
    flash and Adam rows their launches there (``train_moe_launches``).
+20. serve_tp: tensor-parallel serving at tp = 2 as two processes on the one
+   card, each ``comm.init_distributed(device="cuda", backend="gloo")`` with
+   mesh ``{tensor: 2}`` (NCCL takes one GPU a rank; gloo stages each
+   collective through the host, so nothing here measures NVLink, and the
+   engines take eager steps: gloo cannot be captured in a CUDA graph).
+   First, in this process, the serving kernels at a rank's shapes against
+   their plain versions (``tp_kernel_records``: paged decode and prefill
+   over 16 query and 4 KV heads, ``quantized_matmul`` over llama3_8b's five
+   shard shapes, the grouped GEMM at Mixtral's halved expert hidden dim).
+   Then each rank runs (e) ``tp_all_reduce`` on CUDA tensors, exact,
+   interleaved and 8-bit (bit-equal across ranks, the interleaved equal to
+   the exact, the 8-bit within the EQuARX bound); (b) llama3_8b at full
+   width and 2 layers in fp32, the step parity's two quanta with the
+   kernels and their plain versions on each rank's shard, and against tp =
+   1 on the kernels (logits and each rank's heads of the pools,
+   ``TP_PARITY``); (c) gpt2_1_3b W8 (quantised after sharding, bf16 KV) and
+   (d) Mixtral-8x7B (the plain run pinned to the kernel run's routing) the
+   same way at 2 layers; (a) llama3_8b at full width and depth, bf16: each
+   rank draws the serve phase's seed-0 tree leaf by leaf and keeps its
+   slice, then serves the serve phase's two waves: tokens/s, steps, the
+   kernels' launches, each rank's peak memory, and the agreement of its
+   tokens with the serve phase's tp = 1 tokens. Every failure of a rank is
+   fatal. The kernels line gives the rows of the kernels on this path their
+   launches there (``serve_tp_launches``).
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -1355,6 +1379,11 @@ MOE_GEMM_CASES = {
     "prefill_wi": (768, "top2", MOE_D, MOE_F), "prefill_wo": (768, "top2", MOE_F, MOE_D),
     "decode_wi_empty_expert": (64, "empty3", MOE_D, MOE_F), "decode_wo_one_expert": (64, "one", MOE_F, MOE_D),
 }
+# tensor parallelism at tp = 2 (serve_tp): each expert's hidden dim halves, wi 4096 -> 7168, wo 7168 -> 4096
+MOE_TP_CASES = {
+    "tp2_decode8_wi": (8, "top2", MOE_D, MOE_F // 2), "tp2_decode8_wo": (8, "top2", MOE_F // 2, MOE_D),
+    "tp2_prefill2048_wi": (2048, "top2", MOE_D, MOE_F // 2), "tp2_prefill2048_wo": (2048, "top2", MOE_F // 2, MOE_D),
+}
 # the tile sweep's steps (top-2): the serve's buckets of 8, 136, 520 and 2,048 tokens (16, 272, 1,040 and 4,096
 # rows; its first steps' routing record), and the 64- and 768-token cases above
 MOE_TILE_TOKENS = (8, 64, 136, 520, 768, 2048)
@@ -1397,7 +1426,7 @@ def phase_moe_gemm(torch, dev, dtype, name, iters):
     from deepspeed_tpu_torch.device import sm_count
     from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg
 
-    tokens, kind, K, N = MOE_GEMM_CASES[name]
+    tokens, kind, K, N = {**MOE_GEMM_CASES, **MOE_TP_CASES}[name]
     counts = moe_routing(np, tokens, kind)
     R = sum(counts)
     x, w, offsets, bounds = moe_gemm_operands(torch, np, dev, dtype, counts, K, N)
@@ -1539,6 +1568,28 @@ STEP_TOL = {
 }
 
 
+def parity_quanta(np, vocab, bs):
+    """The two quanta of the step parity (a prefill quantum of three rows, then a mixed one: two decode rows
+    padded to the bucket of 8, a fresh chunk and a continued one) over seeded tokens, and the pool's block
+    count (block 0 is the garbage page)."""
+    rng = np.random.default_rng(0)
+    tok = lambda n: rng.integers(0, vocab, n).tolist()  # noqa: E731
+    a, b, c, d = tok(512), tok(300), tok(200), tok(500)
+    blocks, n_blocks = {}, 1
+    for name, n in (("a", 513), ("b", 301), ("c", 200), ("d", 500)):  # final KV lengths
+        blocks[name] = list(range(n_blocks, n_blocks + -(-n // bs)))
+        n_blocks += len(blocks[name])
+    pad = ([0], 0, [])
+    quanta = [
+        (0, 512, [(a, 0, blocks["a"]), (b, 0, blocks["b"]), (d[:400], 0, blocks["d"])]),
+        # mixed: 2 decode rows padded to the bucket of 8, a fresh chunk, and d's
+        # second chunk continuing its context at position 400
+        (8, 256, [([a[0]], 512, blocks["a"]), ([b[0]], 300, blocks["b"])] + [pad] * 6
+         + [(c, 0, blocks["c"]), (d[400:], 400, blocks["d"])]),
+    ]
+    return quanta, n_blocks
+
+
 def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
     """The kernel bundle against ``build_modules(plain=True)`` over two quanta:
     llama3_8b dense, gpt2_1_3b with int8 weights and int8 KV pools, or
@@ -1559,21 +1610,7 @@ def phase_step_parity(torch, dev, dtype, model="llama3_8b", n_layers=4):
     if quant:
         params = quantize_for_serving(params, num_bits=8)
     bs, P = geom["bs"], geom["P"]
-    rng = np.random.default_rng(0)
-    tok = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()
-    a, b, c, d = tok(512), tok(300), tok(200), tok(500)
-    blocks, n_blocks = {}, 1  # block 0 is the garbage page
-    for name, n in (("a", 513), ("b", 301), ("c", 200), ("d", 500)):  # final KV lengths
-        blocks[name] = list(range(n_blocks, n_blocks + -(-n // bs)))
-        n_blocks += len(blocks[name])
-    pad = ([0], 0, [])
-    quanta = [
-        (0, 512, [(a, 0, blocks["a"]), (b, 0, blocks["b"]), (d[:400], 0, blocks["d"])]),
-        # mixed: 2 decode rows padded to the bucket of 8, a fresh chunk, and d's
-        # second chunk continuing its context at position 400
-        (8, 256, [([a[0]], 512, blocks["a"]), ([b[0]], 300, blocks["b"])] + [pad] * 6
-         + [(c, 0, blocks["c"]), (d[400:], 400, blocks["d"])]),
-    ]
+    quanta, n_blocks = parity_quanta(np, cfg.vocab_size, bs)
     shape = (cfg.n_layers, n_blocks, bs, cfg.kv_heads, cfg.head_dim)
     kvq = 8 if quant else 0
     pools = {v: (pa.make_kv_pool(shape, dtype, dev, kvq), pa.make_kv_pool(shape, dtype, dev, kvq))
@@ -4676,6 +4713,337 @@ KERNEL_ROWS = [
 ]
 
 
+# ---------------------------------------------------------------- tensor-parallel serving (two ranks, one card)
+TP = 2
+# the heads a rank holds at llama3_8b tp = 2: 16 query and 4 KV heads of 128
+TP_GEOM = dict(GEOM, H=GEOM["H"] // TP, KVH=GEOM["KVH"] // TP)
+# llama3_8b's quantized_matmul shapes on a rank at tp = 2, K -> N: q, k and v, o, gate and up, down
+TP_QMM_SHAPES = [(4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096)]
+# step parity at tp = 2, (dtype, logits, pools): kernels against their plain versions on each rank's shard,
+# and (llama3_8b) tp = 2 against tp = 1 on the kernels; the two partial sums of a layer add in another order
+# than one device's sums, so tp = 2 and tp = 1 differ in the last bits. fp32 at the step parity's fp32
+# tolerance; gpt2_1_3b W8 (bf16 KV) at the llama3_8b bf16 step parity's
+TP_PARITY = {"llama3_8b": ("float32", 1e-4, 1e-4), "gpt2_1_3b_w8": ("bfloat16", 0.125, 0.1),
+             "mixtral_8x7b": ("float32", 1e-4, 1e-4)}
+TP_TIMEOUT_S = 900
+
+
+def tp_params(torch, cfg, dev, dtype, rank, seed=0):
+    """``init_params``' seed-``seed`` tree drawn leaf by leaf on ``dev`` (the same draws, in the same order),
+    each leaf cut at once to rank ``rank``'s slice at tp = 2 under the serving engine's rules (the
+    column-parallel biases too); and the tree of specs."""
+    from deepspeed_tpu_torch.models.transformer import _init_leaf, param_shapes
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import (SERVING_BIAS_RULES, get_tp_rules, leaf_spec,
+                                                                   shard_leaf)
+
+    rules = get_tp_rules(cfg) + SERVING_BIAS_RULES
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def build(tree, keys):
+        if isinstance(tree, dict):
+            pairs = {k: build(v, keys + (k,)) for k, v in tree.items()}
+            return {k: p[0] for k, p in pairs.items()}, {k: p[1] for k, p in pairs.items()}
+        spec = leaf_spec(keys, tree[0], rules, TP)
+        return shard_leaf(_init_leaf(tree, gen, dev, dtype), spec, TP, rank), spec
+
+    return build(param_shapes(cfg), ())
+
+
+def tp_context(rank: int):
+    from deepspeed_tpu_torch.inference.v2.model_runner import TPContext
+    from deepspeed_tpu_torch.parallel.mesh import mesh_signature, serving_mesh
+
+    topo = serving_mesh(TP)
+    return TPContext(tp=TP, rank=rank, group=topo.process_group("tensor"), interleave=TP, mesh=mesh_signature(topo))
+
+
+def tp_reduce_case(torch, dev, rank: int) -> dict:
+    """(e) ``tp_all_reduce`` on this rank's row of a seeded (2, 64, 4096) fp32 input: exact, interleaved (2
+    chunks) and 8-bit; and the host time of one exact and one 8-bit reduce of a decode step's (8 rows) and a
+    768-token quantum's activations in bf16 (gloo stages them through the host)."""
+    from deepspeed_tpu_torch.comm.collectives import tp_all_reduce
+
+    xs = torch.randn((TP, 64, 4096), generator=torch.Generator().manual_seed(7))
+    x = xs[rank].to(dev)
+    out = {"exact": tp_all_reduce(x).cpu(), "interleaved": tp_all_reduce(x, interleave=TP).cpu(),
+           "bits8": tp_all_reduce(x, bits=8).cpu(), "want": xs.sum(0), "amax": xs.abs().amax(dim=(0, -1))}
+    times = {}
+    for rows in (8, 768):
+        t = torch.randn((rows, 4096), generator=torch.Generator().manual_seed(rows)).to(dev, torch.bfloat16)
+        for bits in (0, 8):
+            for _ in range(3):
+                tp_all_reduce(t, bits=bits, interleave=TP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                tp_all_reduce(t, bits=bits, interleave=TP)
+            torch.cuda.synchronize()
+            times[f"rows{rows}_bits{bits}_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    out["host_ms"] = times
+    return out
+
+
+def tp_parity_case(torch, dev, rank: int, model: str) -> dict:
+    """(b)-(d): the two step-parity quanta at 2 layers and full width on this rank's shard, with the kernels
+    and with their plain versions (each rank's own pools); llama3_8b also at tp = 1 on the kernels, on rank 0
+    (the whole tree); gpt2_1_3b with int8 weights quantised after sharding (bf16 KV); Mixtral-8x7B with the
+    plain run pinned to the kernel run's routing. Returns the real rows' logits, live pools (garbage block 0
+    apart) and the kernels' launches of the kernel run."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.quantization import quantize_for_serving
+    from deepspeed_tpu_torch.inference.v2.model_runner import fused_forward
+    from deepspeed_tpu_torch.inference.v2.modules import build_modules
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops import moe_grouped_gemm as mg, norms, paged_attention as pa
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    dtype = getattr(torch, TP_PARITY[model][0])
+    cfg = {"llama3_8b": model_cfg, "gpt2_1_3b_w8": gpt2_cfg, "mixtral_8x7b": mixtral_cfg}[model](n_layers=2,
+                                                                                              dtype=dtype)
+    bs = 128
+    quanta, n_blocks = parity_quanta(np, cfg.vocab_size, bs)
+    shape = (cfg.n_layers, n_blocks, bs, cfg.kv_heads, cfg.head_dim)
+    P = GPT2_GEOM["P"] if model.startswith("gpt2") else GEOM["P"]
+    args = [[torch.from_numpy(a).to(dev) for a in quantum_inputs(np, rows, n_dec, chunk, bs, P)]
+            for n_dec, chunk, rows in quanta]
+    real = [[r for r, (_, _, blk) in enumerate(rows) if blk] for _, _, rows in quanta]  # padded rows apart
+    out = {"model": model, "dtype": str(dtype), "logits": {}, "pools": {}}
+    if model == "llama3_8b" and rank == 0:  # tp = 1 on the kernels, the whole tree
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=dtype)
+        kp, vp = pa.make_kv_pool(shape, dtype, dev), pa.make_kv_pool(shape, dtype, dev)
+        for q, ((n_dec, chunk, _), (ids, pos, bt, cx, slots, last)) in enumerate(zip(quanta, args)):
+            out["logits"][("tp1", q)] = fused_forward(cfg, full, ids, pos, kp, vp, bt, cx, slots, last, n_dec=n_dec,
+                                                      chunk=chunk, mods=build_modules())[0][real[q]].cpu()
+        out["pools"]["tp1"] = (kp[:, 1:].cpu(), vp[:, 1:].cpu())
+        del full, kp, vp
+        torch.cuda.empty_cache()
+    params, specs = tp_params(torch, cfg, dev, dtype, rank)
+    if model == "gpt2_1_3b_w8":
+        params = quantize_for_serving(params, num_bits=8, specs=specs, tp=TP)
+    ctx = tp_context(rank)
+    local = pa.kv_pool_shard_shape(shape, TP)
+    counters = [norms.rms_norm, norms.layer_norm, qm.quantized_matmul, mg.moe_grouped_gemm,
+                pa.paged_attention_decode, pa.paged_attention_prefill]
+    routes = None
+    for v, plain in (("kernel", False), ("plain", True)):
+        kp, vp = pa.make_kv_pool(local, dtype, dev), pa.make_kv_pool(local, dtype, dev)
+        mods = build_modules(plain=plain, tp=ctx)
+        for fn in counters:
+            fn.launches = 0
+        for q, ((n_dec, chunk, _), (ids, pos, bt, cx, slots, last)) in enumerate(zip(quanta, args)):
+            pin = routes[q].routes if plain and routes is not None else None
+            with route_log(pin=pin) if cfg.moe_num_experts else contextlib.nullcontext() as log_q:
+                out["logits"][(v, q)] = fused_forward(cfg, params, ids, pos, kp, vp, bt, cx, slots, last,
+                                                      n_dec=n_dec, chunk=chunk, mods=mods)[0][real[q]].cpu()
+            if cfg.moe_num_experts and not plain:
+                routes = (routes or []) + [log_q]
+        torch.cuda.synchronize()
+        if not plain:
+            out["launches"] = {fn.__name__: fn.launches for fn in counters if fn.launches}
+        out["pools"][v] = (kp[:, 1:].cpu(), vp[:, 1:].cpu())
+    out["local_heads"] = (params["layer_0"]["attn"]["q_proj"]["kernel"].shape[1], local[3])  # query, KV
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_case(torch, dev, rank: int) -> dict:
+    """(a) llama3_8b at full width and depth, bf16, tp = 2: the serve phase's seed-0 tree built leaf by leaf,
+    each rank keeping its slice, then the serve phase's two waves, 32 new tokens each (eager steps: gloo)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.ops import norms, paged_attention as pa
+
+    cfg = model_cfg()
+    t0 = time.perf_counter()
+    params, _ = tp_params(torch, cfg, dev, torch.bfloat16, rank)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(max_context=8192, kv_block_size=128, memory_gb=8.0), dtype="bfloat16",
+        device=str(dev), tensor_parallel=TP))
+    del params
+    wave1, wave2 = serving_prompts(np, cfg.vocab_size)
+    engine.generate([wave1[0][:32]], max_new_tokens=4)  # warm-up (not counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = [norms.rms_norm, pa.paged_attention_decode, pa.paged_attention_prefill]
+    for fn in counters:
+        fn.launches = 0
+    d0, q0, b0 = engine.dispatches, engine.fused_quanta, engine._m_tp_bytes.value
+    t0 = time.perf_counter()
+    out = engine.generate(wave1, max_new_tokens=32) + engine.generate(wave2, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=out, wall_s=wall, tokens_per_s=sum(len(o) for o in out) / wall, weights_init_s=init_s,
+                launches={fn.__name__: fn.launches for fn in counters}, steps=engine.dispatches - d0,
+                quanta=engine.fused_quanta - q0, manifest=engine.tp_manifest(), kv_blocks=engine._n_kv_blocks,
+                weight_bytes=tree_bytes(engine.params), pool_shape=tuple(engine.k_pages.shape),
+                tp_allreduce_bytes=engine._m_tp_bytes.value - b0,
+                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def tp_rank(rank: int, store: str, out_dir: str, cases) -> None:
+    """A rank of serve_tp: gloo named for CUDA tensors over a file store, then each case, its results saved."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from deepspeed_tpu_torch import comm as dist
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_distributed(device=dev, backend="gloo", init_method=f"file://{store}", rank=rank, world_size=TP,
+                          verbose=False)
+    try:
+        for name in cases:
+            t0 = time.perf_counter()
+            if name == "reduce":
+                res = tp_reduce_case(torch, dev, rank)
+            elif name == "serve":
+                res = tp_serve_case(torch, dev, rank)
+            else:
+                res = tp_parity_case(torch, dev, rank, name)
+            res["seconds"] = time.perf_counter() - t0
+            torch.save(res, os.path.join(out_dir, f"{name}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_kernel_records(torch, dev, iters=20) -> list:
+    """The serving kernels at a rank's shapes at llama3_8b tp = 2, bf16, against their plain versions (run
+    in this process before the ranks start): paged decode (B 8 and 64) and prefill (2 x 512) over 16 query
+    and 4 KV heads, ``quantized_matmul`` (int8) over the five shard shapes at 8 and 512 tokens, and the
+    grouped GEMM at Mixtral's experts' halved hidden dim."""
+    dt = torch.bfloat16
+    cases = [lambda: phase_decode(torch, dev, dt, 8, iters, geom=TP_GEOM),
+             lambda: phase_decode(torch, dev, dt, 64, iters, geom=TP_GEOM),
+             lambda: phase_prefill(torch, dev, dt, 512, iters, geom=TP_GEOM)]
+    cases += [lambda M=M, K=K, N=N: phase_qmm(torch, dev, dt, M, K, N, 8, iters)
+              for K, N in TP_QMM_SHAPES for M in (8, 512)]
+    cases += [lambda n=n: phase_moe_gemm(torch, dev, dt, n, iters) for n in MOE_TP_CASES]
+    records = []
+    for case in cases:
+        rec = dict(case(), phase="serve_tp kernel", tp=TP)
+        log(rec)
+        what, tol = rec["tol"]
+        if not rec[what] <= tol:
+            raise AssertionError(f"serve_tp {rec['kernel']} {rec['shape']}: {what} {rec[what]} > {tol}")
+        records.append(rec)
+        torch.cuda.empty_cache()
+    return records
+
+
+def tp_check_parity(torch, model, ranks) -> dict:
+    """Each rank's kernels against its plain versions (logits and pools), the ranks' logits the same bits,
+    and llama3_8b's tp = 2 against tp = 1 (each rank's pools against its heads of tp = 1's)."""
+    _, l_tol, p_tol = TP_PARITY[model]
+    rec = dict(phase="serve_tp parity", model=model, dtype=ranks[0]["dtype"], layers=2, tp=TP,
+               local_heads=ranks[0]["local_heads"], tol=dict(logits=l_tol, pools=p_tol),
+               launches=ranks[0]["launches"], seconds=max(r["seconds"] for r in ranks))
+    err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
+    n_q = sum(1 for k in ranks[0]["logits"] if k[0] == "kernel")
+    rec["kernel_vs_plain_logits"] = max(err(r["logits"][("kernel", q)], r["logits"][("plain", q)])
+                                        for r in ranks for q in range(n_q))
+    rec["kernel_vs_plain_pools"] = max(err(a, b) for r in ranks for a, b in zip(r["pools"]["kernel"],
+                                                                                r["pools"]["plain"]))
+    rec["ranks_same_logits"] = all(torch.equal(ranks[0]["logits"][k], ranks[1]["logits"][k])
+                                   for k in ranks[0]["logits"] if k[0] != "tp1")
+    ok = rec["kernel_vs_plain_logits"] <= l_tol and rec["kernel_vs_plain_pools"] <= p_tol and rec["ranks_same_logits"]
+    if model == "llama3_8b":
+        tp1 = ranks[0]["pools"]["tp1"]
+        h = tp1[0].shape[3] // TP
+        rec["tp2_vs_tp1_logits"] = max(err(ranks[0]["logits"][("kernel", q)], ranks[0]["logits"][("tp1", q)])
+                                       for q in range(n_q))
+        rec["tp2_vs_tp1_pools"] = max(err(a, b[:, :, :, r * h:(r + 1) * h]) for r, rk in enumerate(ranks)
+                                      for a, b in zip(rk["pools"]["kernel"], tp1))
+        rec["logits_max_abs"] = max(ranks[0]["logits"][("tp1", q)].abs().max().item() for q in range(n_q))
+        ok = ok and rec["tp2_vs_tp1_logits"] <= l_tol and rec["tp2_vs_tp1_pools"] <= p_tol
+    log(rec)
+    if not ok or not all(torch.isfinite(r["logits"][("kernel", q)]).all() for r in ranks for q in range(n_q)):
+        raise AssertionError(f"serve_tp parity {model} failed: {rec}")
+    return rec
+
+
+def phase_serve_tp(torch, dev, serve_tokens=None) -> dict:
+    """Tensor-parallel serving at tp = 2 as two processes on the one card, over gloo (NCCL takes one GPU a
+    rank): the kernels at a rank's shapes here first (``tp_kernel_records``), then two ranks (``tp_rank``),
+    each ``comm.init_distributed(device="cuda", backend="gloo")``, running (e) the reduce, (b) llama3_8b,
+    (c) gpt2_1_3b W8 and (d) Mixtral-8x7B step parity at 2 layers, and (a) llama3_8b served at full size;
+    every failure of a rank is fatal. The gloo reduce is staged through the host: nothing here measures
+    NVLink. Returns the serve's launches per kernel and the records."""
+    import multiprocessing as mp
+
+    from deepspeed_tpu_torch.ops import _build
+
+    _build.lib()  # built before the ranks start, so that they only load it
+    records = tp_kernel_records(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = ["reduce", "llama3_8b", "gpt2_1_3b_w8", "mixtral_8x7b", "serve"]
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=tp_rank, args=(r, os.path.join(d, "store"), d, cases)) for r in range(TP)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.time() + TP_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.time() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break  # a rank failed: the other would wait on it
+            time.sleep(1)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"serve_tp: ranks exited with {codes} after {time.perf_counter() - t0:.0f} s")
+        res = {name: [torch.load(os.path.join(d, f"{name}_rank{r}.pt"), weights_only=False) for r in range(TP)]
+               for name in cases}
+    red = res["reduce"]
+    want, amax = red[0]["want"], red[0]["amax"]
+    bound8 = TP * (amax[:, None] / 127) / 2 + 1e-6
+    rec = dict(phase="serve_tp reduce", tp=TP, backend="gloo (host-staged)", shape=list(want.shape),
+               exact_max_rel_err=(red[0]["exact"] - want).abs().max().item() / want.abs().max().item(),
+               interleaved_equal=torch.equal(red[0]["interleaved"], red[0]["exact"]),
+               bits8_max_err_over_bound=((red[0]["bits8"] - want).abs() / bound8).max().item(),
+               ranks_bit_identical=all(torch.equal(red[0][k], red[1][k]) for k in ("exact", "interleaved", "bits8")),
+               host_ms=red[0]["host_ms"], seconds=red[0]["seconds"])
+    log(rec)
+    if not (rec["exact_max_rel_err"] <= 1e-6 and rec["interleaved_equal"] and rec["bits8_max_err_over_bound"] <= 1
+            and rec["ranks_bit_identical"]):
+        raise AssertionError(f"serve_tp reduce failed: {rec}")
+    parity = {m: tp_check_parity(torch, m, res[m]) for m in ("llama3_8b", "gpt2_1_3b_w8", "mixtral_8x7b")}
+    serve = res["serve"]
+    out = serve[0]["tokens"]
+    launches = serve[0]["launches"]
+    rec = dict(phase="serve_tp", run="llama3_8b", tp=TP, layers=32, dtype="bfloat16", backend="gloo (host-staged)",
+               steps_mode=serve[0]["manifest"]["steps"], prompts=len(out), new_tokens=sum(len(o) for o in out),
+               wall_s=max(s["wall_s"] for s in serve), tokens_per_s=min(s["tokens_per_s"] for s in serve),
+               steps=serve[0]["steps"], quanta=serve[0]["quanta"], launches=launches, kv_blocks=serve[0]["kv_blocks"],
+               tp_allreduce_bytes_per_rank=serve[0]["tp_allreduce_bytes"],
+               pool_shape_per_rank=serve[0]["pool_shape"], weight_bytes_per_rank=[s["weight_bytes"] for s in serve],
+               peak_memory_gb_per_rank=[s["peak_memory_gb"] for s in serve],
+               weights_init_s=[s["weights_init_s"] for s in serve], ranks_same_tokens=serve[1]["tokens"] == out,
+               seconds=max(s["seconds"] for s in serve))
+    if serve_tokens is not None:
+        rec["agreement_with_serve_tp1"] = agreement(out, serve_tokens)
+    log(rec)
+    if not rec["ranks_same_tokens"]:
+        raise AssertionError("serve_tp: the ranks' tokens differ")
+    if not all(len(o) == 32 and all(0 <= t < 128256 for t in o) for o in out):
+        raise AssertionError("serve_tp: a request did not get 32 in-vocab tokens")
+    if any(n <= 0 for n in launches.values()) or launches["rms_norm"] % 65:
+        raise AssertionError(f"serve_tp: launches {launches} (each kernel must launch; 65 rms_norm a forward)")
+    return dict(launches={**parity["gpt2_1_3b_w8"]["launches"], **parity["mixtral_8x7b"]["launches"], **launches},
+                records=records, parity=parity, serve=rec)
+
+
 def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces) -> dict:
     r = next(x for x in records if x["dtype"] == f"torch.{dtype}"
              and all(str(x.get(k, "")).startswith(v) for k, v in want.items()))
@@ -4752,12 +5120,14 @@ def main(argv) -> int:
         PARENT["lib"] = load_parent(os.path.abspath(parent_dir))
         log(dict(phase="parent build", dir=parent_dir, seconds=time.perf_counter() - t0))
 
-    if "--only" in argv:  # a development run: the build, then the named training phases alone
+    if "--only" in argv:  # a development run: the build, then the named phases alone
         only = argv[argv.index("--only") + 1].split(",")
-        phases = {"train_zeropp": phase_train_zeropp, "train_moe": phase_train_moe}
+        tc = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
+        phases = {"train_zeropp": lambda: phase_train_zeropp(torch, dev, tc),
+                  "train_moe": lambda: phase_train_moe(torch, dev, tc), "serve_tp": lambda: phase_serve_tp(torch, dev)}
         for name in only:
             t0 = time.perf_counter()
-            phases[name](torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam])
+            phases[name]()
             log(dict(phase=name, seconds=time.perf_counter() - t0))
         return 0
     paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
@@ -4862,6 +5232,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     train_moe = phase_train_moe(torch, dev, train_counters)
     log(dict(phase="train_moe", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    serve_tp = phase_serve_tp(torch, dev, serve["tokens"])
+    log(dict(phase="serve_tp", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
             "mixtral_8x7b_8l": serve_moe, "train": train,
@@ -4870,6 +5243,9 @@ def main(argv) -> int:
     for row in kernels:  # the kernels MoE training runs: their launches over its 6 steps at stage 0
         if row["name"] in train_moe["stage0"]["launches"]:
             row["train_moe_launches"] = train_moe["stage0"]["launches"][row["name"]]
+    for row, spec in zip(kernels, KERNEL_ROWS):  # tensor-parallel serving's launches (bf16 pools, int8 codes)
+        if spec[2] in serve_tp["launches"] and "int8 pool" not in row["name"] and "int4" not in row["name"]:
+            row["serve_tp_launches"] = serve_tp["launches"][spec[2]]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"host_code": host_code_rows(host, offload)})
     log({"kernels": kernels})

@@ -14,14 +14,17 @@ Entry points:
   native and universal checkpoints and ``zero_to_fp32`` (``checkpoint``);
 - ``deepspeed_tpu_torch.init_inference``: the v1 ``InferenceEngine``
   (``inference/engine.py``: ``generate`` over a dense KV cache, ``forward``),
-  with optional flat weight-only quantisation;
+  with optional flat weight-only quantisation, at ``tp_size`` > 1 over as
+  many ranks;
 - ``deepspeed_tpu_torch.inference.v2``: ``InferenceEngineV2``,
-  ``RaggedInferenceEngineConfig``, ``RaggedBatchConfig``;
+  ``RaggedInferenceEngineConfig``, ``RaggedBatchConfig``; tensor-parallel
+  serving (``tensor_parallel``) one process a rank over the mesh's
+  ``tensor`` axis (``module_inject`` shards the tree);
 - ``deepspeed_tpu_torch.models``: ``TransformerConfig``, the presets
   (``llama3_8b``, ``gpt2_1_3b``, ...), ``CausalLM``, ``init_params`` and
   ``params_from_numpy`` (MoE blocks through ``moe_num_experts``);
-- ``deepspeed_tpu_torch.moe``: the MoE gates and the ``MoE`` layer at one
-  device.
+- ``deepspeed_tpu_torch.moe``: the MoE gates, the ``MoE`` layer (expert
+  parallelism in the training engine) and the expert-TP token mappings.
 
 Everything runs on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``), where each kernel wrapper takes its plain PyTorch

@@ -124,6 +124,17 @@ declare("DS_TPU_PROGRAM_CACHE", "8", "int",
         "Max live step variants (closures per family; captured CUDA graphs per engine) before LRU "
         "eviction.",
         "inference/v2/engine_v2.py")
+# Tensor-parallel serving (inference/v2/engine_v2.py, comm/collectives.py)
+declare("DS_TPU_TP", "0", "int",
+        "Tensor-parallel degree for serving: shard attention heads, MLP "
+        "hidden dims and the paged KV pool over a 'tensor' mesh axis of "
+        "this many local devices (0/1 = off; explicit engine config wins).",
+        "inference/v2/engine_v2.py")
+declare("DS_TPU_TP_ALLREDUCE_BITS", "0", "int",
+        "Quantized TP activation allreduce: 8 or 4 runs the two per-layer "
+        "row-parallel reduces as an EQuARX-style shared-scale integer-code "
+        "psum at that width (0 = exact full-precision reduce).",
+        "comm/collectives.py")
 # Paged-KV state manager (inference/v2/ragged/manager.py)
 declare("DS_TPU_PREFIX_CACHE", "1", "bool",
         "Enable the radix prefix cache: retiring prompts donate KV blocks for reuse.",

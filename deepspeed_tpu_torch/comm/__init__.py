@@ -1,12 +1,14 @@
 """``deepspeed_tpu_torch.comm as dist``: the communication facade on
-``torch.distributed`` (``comm.py``). The tensor-parallel collectives of the
-JAX package's ``comm/collectives.py`` are not ported."""
+``torch.distributed`` (``comm.py``), and ``collectives.tp_all_reduce``, the
+tensor-parallel serving reduce of the JAX package's ``comm/collectives.py``."""
 
 from .comm import (all_gather_into_tensor, all_to_all_single, all_gather_object, all_reduce, backend_for, barrier, broadcast,
                    broadcast_object_list, destroy_process_group, get_local_rank, get_rank, get_world_size,
-                   init_distributed, is_initialized, new_group, reduce_scatter_tensor)
+                   inference_all_reduce, init_distributed, is_initialized, named_backend, new_group,
+                   reduce_scatter_tensor)
 from .reduce_op import ReduceOp
 
 __all__ = ["init_distributed", "is_initialized", "get_rank", "get_world_size", "get_local_rank", "barrier",
            "all_reduce", "all_gather_into_tensor", "all_to_all_single", "reduce_scatter_tensor", "broadcast", "all_gather_object",
-           "broadcast_object_list", "destroy_process_group", "new_group", "backend_for", "ReduceOp"]
+           "broadcast_object_list", "destroy_process_group", "new_group", "backend_for", "ReduceOp",
+           "inference_all_reduce", "named_backend"]

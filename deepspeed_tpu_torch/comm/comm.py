@@ -14,10 +14,15 @@ world):
   gets both (``"cpu:gloo,cuda:nccl"``), so engines on either device share
   its world of one. A collective on a tensor whose device the group does
   not serve with that backend (a CUDA tensor on gloo, a CPU tensor on NCCL)
-  raises instead of falling back.
+  raises instead of falling back. One exception, which the caller names:
+  ``init_distributed(device="cuda", backend="gloo")`` runs CUDA tensors on
+  gloo (gloo stages them through the host), so that several ranks can
+  share one GPU, which NCCL refuses; ``named_backend()`` reports it.
 - ``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
   ``all_to_all_single``, ``broadcast``, ``all_gather_object``, ``broadcast_object_list``,
-  ``barrier``: ``torch.distributed``'s own, with that check.
+  ``barrier``: ``torch.distributed``'s own, with that check;
+  ``inference_all_reduce``: the tensor-parallel serving reduce (reference
+  ``comm.py:500``), over the ``tensor`` group by default.
 """
 
 import logging
@@ -46,16 +51,47 @@ def is_initialized() -> bool:
     return tdist.is_available() and tdist.is_initialized()
 
 
+_NAMED_BACKEND: Optional[str] = None  # a backend the caller named against the device's own (CUDA on gloo)
+
+
+def named_backend() -> Optional[str]:
+    """``"gloo"`` when ``init_distributed`` was asked to run CUDA tensors on
+    gloo, else None (each device on its own backend)."""
+    return _NAMED_BACKEND
+
+
 def init_distributed(dist_backend: Optional[str] = None, verbose: bool = True, timeout: Optional[timedelta] = None,
                      init_method: Optional[str] = None, dist_init_required: Optional[bool] = None, config=None,
-                     rank: int = -1, world_size: int = -1, device: Union[str, torch.device] = "cuda") -> None:
+                     rank: int = -1, world_size: int = -1, device: Union[str, torch.device] = "cuda",
+                     backend: Optional[str] = None) -> None:
     """Bring up the default process group (reference ``comm.py:604``). A
-    group that is already up is kept, and must have the device's backend."""
-    backend = dist_backend or backend_for(device)
+    group that is already up is kept, and must have the device's backend.
+    ``backend`` (or ``dist_backend``) names the backend; ``"gloo"`` with a
+    CUDA ``device`` makes gloo serve CUDA tensors, only then."""
+    global _NAMED_BACKEND
+    backend = backend or dist_backend or backend_for(device)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"dist_backend must be 'nccl' (CUDA) or 'gloo' (CPU), got {backend!r}")
-    if backend != backend_for(device):
+    cuda_on_gloo = backend == "gloo" and torch.device(device).type == "cuda"
+    if backend != backend_for(device) and not cuda_on_gloo:
         raise ValueError(f"backend {backend!r} does not drive device {device}: use {backend_for(device)!r}")
+    if cuda_on_gloo:
+        dev = torch.device(device)
+        if dev.index is not None:
+            torch.cuda.set_device(dev)
+        if not is_initialized():
+            kw = {"timeout": timeout} if timeout is not None else {}
+            if init_method is None and world_size < 1:
+                raise ValueError("init_distributed(backend='gloo') on CUDA needs rank, world_size and init_method")
+            tdist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world_size, **kw)
+        elif _backends().get("cuda") != "gloo":
+            raise RuntimeError(f"torch.distributed is initialized with {tdist.get_backend_config()!r}, which does "
+                               "not run gloo for CUDA tensors")
+        _NAMED_BACKEND = "gloo"
+        if verbose:
+            logger.info("init_distributed: rank %d of %d runs CUDA tensors on gloo (named by the caller; host-staged)",
+                        get_rank(), get_world_size())
+        return
     if is_initialized():
         have = _backends().get(torch.device(device).type)
         if have != backend:
@@ -114,6 +150,8 @@ def _backends(group=None) -> dict:
 
 def _check(tensor: torch.Tensor, group) -> None:
     have = _backends(group).get(tensor.device.type)
+    if tensor.device.type == "cuda" and have == "gloo" and _NAMED_BACKEND == "gloo":
+        return  # the caller named gloo for CUDA tensors (init_distributed(device="cuda", backend="gloo"))
     if have != backend_for(tensor.device):
         raise RuntimeError(f"a {have} collective on a {tensor.device} tensor: the port runs NCCL on CUDA tensors "
                            "and gloo on CPU tensors, and never falls back from one to the other")
@@ -122,6 +160,12 @@ def _check(tensor: torch.Tensor, group) -> None:
 def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM, group=None, async_op: bool = False):
     _check(tensor, group)
     return tdist.all_reduce(tensor, op=_OPS[op], group=group, async_op=async_op)
+
+
+def inference_all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM, group=None, async_op: bool = False):
+    """The tensor-parallel serving reduce (reference ``comm.py:500``), in place;
+    ``group`` is the ``tensor`` axis's group (None: the world)."""
+    return all_reduce(tensor, op=op, group=group, async_op=async_op)
 
 
 def all_gather_into_tensor(output: torch.Tensor, tensor: torch.Tensor, group=None, async_op: bool = False):
@@ -171,5 +215,8 @@ def barrier(group=None, device: Optional[Union[str, torch.device]] = None) -> No
 
 
 def destroy_process_group(group=None) -> None:
+    global _NAMED_BACKEND
     if is_initialized():
         tdist.destroy_process_group(group)
+    if group is None:
+        _NAMED_BACKEND = None

@@ -1,10 +1,10 @@
 """The v1 inference engine.
 
 Port of ``deepspeed_tpu/inference/engine.py`` (``InferenceEngine``,
-``_DequantizingModule``, ``init_inference``) at tensor-parallel size 1:
-``generate`` is a prefill and a per-token decode step over a preallocated
-dense KV cache (``inference/generation.py``), and ``forward`` returns the
-logits of a whole sequence.
+``_DequantizingModule``, ``init_inference``): ``generate`` is a prefill and
+a per-token decode step over a preallocated dense KV cache
+(``inference/generation.py``), and ``forward`` returns the logits of a
+whole sequence.
 
 With ``quant.enabled`` every >= 2-D weight is quantised after the cast to
 the config dtype, in the flat group-wise layout (``quantize_model_params``,
@@ -16,9 +16,22 @@ and scales at rest, and the dense weights only for the length of one
 forward. The reference's XLA fuses the dequantisation into each consumer
 instead; the port materialises the dense tree.
 
+Tensor parallelism (``tensor_parallel.tp_size`` above 1; JAX
+``engine.py:47-68``): one process a rank over the ``tensor`` axis of the
+port's mesh (``parallel.mesh.serving_mesh``, so a world of tp ranks), each
+holding its shard of the tree (``module_inject.shard_params``, the
+column-parallel biases too) and running the model forward on it
+(``_TPModule``: the row-parallel reduces, the vocab-parallel embedding and
+head, caches of KVH / tp heads). Every rank computes the same full logits,
+so greedy tokens agree across ranks. With ``quant.enabled`` every rank
+quantises the whole tree in the flat layout, whose groups run along the
+flattened weight and so do not depend on the sharding: the codes are one
+device's, as ``test_v1_weight_only_quant_tp2`` asks. Each forward then
+dequantises them and keeps this rank's slice of the dense weights, so a
+rank holds the whole codes (not a shard) at rest.
+
 A model given as a checkpoint path or a Hugging Face module
-(``module_inject``) and a tensor-parallel size above 1 raise
-``NotImplementedError``.
+(``module_inject``'s loaders) raises ``NotImplementedError``.
 """
 
 import logging
@@ -28,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..module_inject.load_checkpoint import SERVING_BIAS_RULES, get_tp_rules, shard_params
 from .config import DeepSpeedInferenceConfig
 from .generation import build_step_fns, generate_tokens
 from .quantization import dequantize_tree, quantize_model_params
@@ -50,6 +64,35 @@ class _DequantizingModule:
         return self._module.apply(dequantize_tree(params), *args, **kwargs)
 
 
+class _TPModule:
+    """Proxy whose ``apply`` runs the model forward on a tensor-parallel
+    rank's shard (``transformer_forward(..., tp=ctx)``) and whose
+    ``init_kv_caches`` makes this rank's KVH / tp heads. With ``shard_on_apply``
+    (the quantised engine: the dequantised tree is whole) each call first
+    keeps this rank's slice."""
+
+    def __init__(self, module, ctx, rules=None):
+        self._module = module
+        self._ctx = ctx
+        self._rules = rules
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def apply(self, params, *args, **kwargs):
+        from ..models.transformer import transformer_forward
+
+        if self._rules is not None:
+            params = shard_params(params, tp_size=self._ctx.tp, rank=self._ctx.rank, rules=self._rules)
+        return transformer_forward(self._module.cfg, params, *args, tp=self._ctx, **kwargs)
+
+    def init_kv_caches(self, batch_size: int, max_len: int, dtype=None, device="cuda"):
+        cfg = self._module.cfg
+        shape = (batch_size, max_len, cfg.kv_heads // self._ctx.tp, cfg.head_dim)
+        zeros = lambda: torch.zeros(shape, dtype=dtype or cfg.dtype, device=resolve_device(device))  # noqa: E731
+        return [(zeros(), zeros(), 0) for _ in range(cfg.n_layers)]
+
+
 def _is_hf(model) -> bool:
     return isinstance(model, str) or (hasattr(model, "state_dict")
                                       and hasattr(getattr(model, "config", None), "to_dict"))
@@ -68,10 +111,21 @@ class InferenceEngine:
             raise NotImplementedError("a checkpoint path or a Hugging Face model needs module_inject, which is not "
                                       "ported: pass a CausalLM and params=")
         tp = self._config.tensor_parallel.tp_size
-        if tp > 1 or mesh is not None:
-            raise NotImplementedError(f"tensor parallelism (tp_size={tp}, mesh) is not ported: the v1 engine runs "
-                                      "on one device")
+        if mesh is not None:
+            raise NotImplementedError("a mesh argument is not ported: the v1 engine builds its serving mesh from "
+                                      "tensor_parallel.tp_size over the process world")
         self.device = resolve_device(self._config.device)
+        self._tp_ctx = None
+        if tp > 1:
+            from ..parallel.mesh import mesh_signature, serving_mesh
+            from .v2.model_runner import TPContext
+
+            topo = serving_mesh(tp)  # a world that tp does not divide raises here
+            cfg = model.cfg
+            if cfg.kv_heads % tp or cfg.n_heads % tp:
+                raise ValueError(f"n_heads {cfg.n_heads} and kv_heads {cfg.kv_heads} must be divisible by tp={tp}")
+            self._tp_ctx = TPContext(tp=tp, rank=topo.axis_rank("tensor"), group=topo.process_group("tensor"),
+                                     mesh=mesh_signature(topo))
         self.module = model
         self.dtype = self._config.torch_dtype()
         if params is None:
@@ -88,6 +142,11 @@ class InferenceEngine:
             return {k: walk(v) for k, v in node.items()} if isinstance(node, dict) else place(node)
 
         self.params = walk(params)
+        rules = get_tp_rules(model) + SERVING_BIAS_RULES if tp > 1 else None
+        if tp > 1 and not self._config.quant.enabled:
+            self.params = shard_params(self.params, tp_size=tp, rank=self._tp_ctx.rank, rules=rules)
+        if tp > 1:  # the quantised tree stays whole (its flat codes are one device's): slice after each dequantise
+            self.module = _TPModule(self.module, self._tp_ctx, rules if self._config.quant.enabled else None)
         self.quant_stats: Optional[Dict[str, int]] = None
         if self._config.quant.enabled:
             qc = self._config.quant

@@ -13,7 +13,10 @@ int4 codes plus group scales live in the parameter tree as
 - "kgroups" / "kgroups_p4": the matmul-native layout of
   ``quantize_for_serving``, which the fused dequantise-matmul kernel
   (``ops/quantized_matmul.py``) of the v2 engine consumes without ever
-  materialising the dense weight.
+  materialising the dense weight. Under tensor-parallel serving each rank
+  quantises its own shard (the reference's order: quantise after sharding),
+  with K-groups aligned to the shard edge, and marks the layout ``+gspmd``
+  (the JAX package's name for a sharded leaf's layout).
 
 Config groups (``weight_quantization.post_init_quant``) are keyed by
 substrings of the "/"-joined leaf path, as in the reference.
@@ -26,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ...ops import quantization as groupwise
+from ...ops._utils import block_that_divides
 from ...ops.quantized_matmul import _dequantize_kgroups, quantize_weight_kgroups
 
 logger = logging.getLogger(__name__)
@@ -94,35 +98,61 @@ def _matmul_2d_form(path_key: str, shape: Tuple[int, ...]) -> Optional[Tuple[int
     return None
 
 
+def _shard_info(path_key: str, spec: tuple, ndim: int, tp: int) -> Tuple[int, bool]:
+    """(K-shard count, leaf-is-sharded) of a leaf from its TP spec (JAX
+    ``_shard_info``, which reads the committed sharding): the shards along
+    the contraction dims of the 2D matmul form (o_proj contracts its
+    leading two dims, every other kernel its first)."""
+    spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    kdims = (0, 1) if (ndim == 3 and path_key == "o_proj") else (0,)
+    kshards = tp ** sum(spec[d] == "tensor" for d in kdims)
+    return kshards, any(a == "tensor" for a in spec)
+
+
 def quantize_for_serving(params: Dict[str, Any], num_bits: int = 8, group_size: int = 128,
-                         min_size: int = 4096) -> Dict[str, Any]:
+                         min_size: int = 4096, specs: Optional[Dict[str, Any]] = None,
+                         tp: int = 1) -> Dict[str, Any]:
     """Quantise matmul ``kernel`` weights into the kgroups layout for the v2
     serving engine: attention projections, MLP linears and the untied
     lm_head. Embeddings (gather consumers, the tied head among them), norms,
     biases and MoE expert stacks stay dense. Returns a new tree; the codes
-    and scales are made on each weight's own device."""
+    and scales are made on each weight's own device.
+
+    ``specs`` (``module_inject.tp_shardings``) and ``tp``: ``params`` is a
+    rank's shard of a tensor-parallel tree, quantised after sharding. A
+    K-sharded kernel takes the group size ``block_that_divides(K_local,
+    group_size)``, so that its groups, scales and int4 nibble pairs are the
+    JAX shard's, and every sharded kernel's layout is marked ``+gspmd``.
+    ``min_size`` counts the whole kernel's elements, as the JAX package
+    (which quantises the global array) does."""
     n_q = 0
 
-    def walk(node, keys):
+    def walk(node, keys, spec_node=None):
         nonlocal n_q
         if isinstance(node, dict):
-            return {k: walk(v, keys + (str(k),)) for k, v in node.items()}
+            return {k: walk(v, keys + (str(k),), None if spec_node is None else spec_node[k])
+                    for k, v in node.items()}
         if len(keys) < 2 or keys[-1] != "kernel" or "moe" in keys or "experts" in keys:
             return node
-        if not isinstance(node, torch.Tensor) or node.numel() < min_size:
+        if not isinstance(node, torch.Tensor):
+            return node
+        kshards, sharded = _shard_info(keys[-2], spec_node or (), node.dim(), tp)
+        whole = node.numel() * (tp if sharded else 1)
+        if whole < min_size:
             return node
         form = _matmul_2d_form(keys[-2], tuple(node.shape))
         if form is None:
             return node
         K, N = form
-        q, scales = quantize_weight_kgroups(node.reshape(K, N), group_size=group_size, bits=num_bits,
-                                            pack=num_bits == 4)
+        gs = group_size if kshards == 1 else block_that_divides(K, group_size)
+        q, scales = quantize_weight_kgroups(node.reshape(K, N), group_size=gs, bits=num_bits, pack=num_bits == 4)
         pack = q.shape[0] != K  # the quantiser degrades to unpacked when the group size is odd
         n_q += 1
+        layout = ("kgroups_p4" if pack else "kgroups") + ("+gspmd" if sharded else "")
         return QuantizedParam(q=q, scales=scales, shape=tuple(node.shape), dtype=node.dtype, num_bits=num_bits,
-                              layout="kgroups_p4" if pack else "kgroups")
+                              layout=layout)
 
-    out = walk(params, ())
+    out = walk(params, (), specs)
     logger.info("quantize_for_serving: %d matmul weights -> int%d (kgroups, group_size=%d)", n_q, num_bits,
                 group_size)
     return out

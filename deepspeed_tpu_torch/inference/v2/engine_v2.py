@@ -75,8 +75,30 @@ Port of ``deepspeed_tpu/inference/v2/engine_v2.py``, both serving loops:
   its session (``_journal_fingerprint``, requests, quanta, commits,
   ``_journal_run_summary``) for ``replay.py``.
 
+- Tensor parallelism (``tensor_parallel = tp`` or ``DS_TPU_TP`` where the
+  config leaves it at 1; JAX ``engine_v2.py:130-151``, ``:293-324``): one
+  process a rank, the ranks over the ``tensor`` axis of the port's mesh
+  (``parallel.mesh.serving_mesh``, so a world of tp ranks). Every rank runs
+  this same host loop over the same global block ids and the same inputs,
+  and holds 1/tp of the heads, of the MLP or expert hidden dim and of the
+  pool's KV heads (``module_inject.shard_params``; a leaf given already at
+  its shard's shape is kept, so a caller can build the tree leaf by leaf
+  and keep its slice). Each layer's two row-parallel partials go through
+  ``tp_all_reduce`` (``DS_TPU_TP_ALLREDUCE_BITS`` 0, 8 or 4); the embedding
+  and head are vocab-parallel, so every rank ends each step with the same
+  full logits and chooses the same token (a draw: from generators seeded
+  alike). Weights quantise after sharding. ``kv_quant_bits`` and
+  ``kv_spill`` refuse TP, as in the JAX package. The shard signature
+  (``TPContext.signature()``, ``"tp1"`` at tp 1) ends every step key, and
+  the journal fingerprint carries the topology. On CUDA under a gloo group
+  (``comm.init_distributed(device="cuda", backend="gloo")``: several ranks
+  on one GPU) the steps run eagerly, because a gloo collective cannot be
+  captured in a CUDA graph; the flight manifest's ``tensor_parallel``
+  section (``tp_manifest``) says so. Under NCCL the steps keep their
+  graphs. At tp 1 the engine takes no process group.
+
 The engine runs on ``config.device`` (default ``"cuda"``, which raises
-without a GPU). Tensor parallelism comes with a later slice.
+without a GPU).
 """
 
 import dataclasses
@@ -87,9 +109,10 @@ import numpy as np
 import torch
 
 from ...analysis import knobs
+from ...comm import named_backend
 from ...device import resolve_device
 from ...models.transformer import TransformerConfig
-from ...ops.paged_attention import make_kv_pool
+from ...ops.paged_attention import kv_pool_shard_shape, make_kv_pool
 from ...telemetry import get_event_log, get_journal, get_registry as get_telemetry_registry
 from ...telemetry import profiler as device_profiler
 from ...telemetry import span as telemetry_span
@@ -101,7 +124,7 @@ from ...telemetry.ops_plane import maybe_start_ops_server
 from ..generation import sample_logits
 from ..quantization import QuantizedParam, quantize_for_serving
 from .graphs import StepGraphs
-from .model_runner import make_burst_fn, make_fused_step_fn, make_spec_verify_fn, make_step_fns
+from .model_runner import TPContext, make_burst_fn, make_fused_step_fn, make_spec_verify_fn, make_step_fns
 from .modules import build_modules
 from .ragged.manager import DSStateManager, RaggedBatchConfig
 from .scheduler import FusedQuantum, RaggedBatchScheduler, RaggedRequest
@@ -147,6 +170,7 @@ class RaggedInferenceEngineConfig:
     kv_quant_bits: Optional[int] = None  # 8 = int8 K/V pages + per-slot-per-head scales; None: DS_TPU_KV_QUANT
     kv_spill: Optional[bool] = None  # spill prefix-cache evictions to host RAM and re-admit matches with an h2d
     # copy. None: off unless DS_TPU_KV_SPILL=1
+    tensor_parallel: int = 1  # ranks over the mesh's tensor axis; 1 (the default) defers to DS_TPU_TP
 
     @classmethod
     def from_dict(cls, d: Dict) -> "RaggedInferenceEngineConfig":
@@ -193,6 +217,28 @@ class InferenceEngineV2:
         self.cfg = cfg
         self.dtype = torch.bfloat16 if config.dtype in ("bfloat16", "bf16") else torch.float32
 
+        self._tp = int(config.tensor_parallel)
+        if self._tp <= 1:
+            # DS_TPU_TP applies only when the config left TP at the default: an explicit config (replay
+            # rebuilding a recorded engine, a test pinning a degree) wins over the environment
+            self._tp = max(1, knobs.get_int("DS_TPU_TP") or 1)
+            config.tensor_parallel = self._tp
+        tp_bits = knobs.get_int("DS_TPU_TP_ALLREDUCE_BITS")
+        if tp_bits not in (0, 4, 8):
+            raise ValueError(f"DS_TPU_TP_ALLREDUCE_BITS must be 0, 4 or 8, got {tp_bits}")
+        self._tp_bits = int(tp_bits)
+        self._mesh_topo = None
+        if self._tp > 1:
+            from ...parallel.mesh import serving_mesh
+
+            self._mesh_topo = serving_mesh(self._tp)
+            if self._mesh_topo.model_parallel_size != self._tp:
+                raise ValueError(f"mesh tensor axis {self._mesh_topo.model_parallel_size} != tensor_parallel "
+                                 f"{self._tp}")
+            if cfg.kv_heads % self._tp or cfg.n_heads % self._tp:
+                raise ValueError(f"n_heads {cfg.n_heads} and kv_heads {cfg.kv_heads} must be divisible by "
+                                 f"tp={self._tp}")
+
         smc = config.state_manager
         if smc.max_context > cfg.max_seq_len:
             # positions past max_seq_len would index past the rope table: cap
@@ -218,6 +264,10 @@ class InferenceEngineV2:
         if kv_spill is None:
             kv_spill = knobs.get_bool("DS_TPU_KV_SPILL")
         self._kv_spill = bool(kv_spill)
+        if self._tp > 1 and (self._kv_quant_bits or self._kv_spill):
+            # the int8 pool is a (codes, scales) pair and the spill tier's slabs assume whole pools: both would
+            # need per-shard layouts (the JAX package refuses the same combination)
+            raise ValueError(f"kv_quant_bits / kv_spill do not compose with tensor_parallel={self._tp} yet")
         n_blocks = smc.num_kv_blocks
         if n_blocks is None:
             # int8 pages: one byte per element plus a 4-byte fp32 scale per
@@ -231,7 +281,8 @@ class InferenceEngineV2:
         quantum_tokens = knobs.get_int("DS_TPU_MAX_BATCH_TOKENS") or smc.max_ragged_batch_size
         self.scheduler = RaggedBatchScheduler(self.state, max_batch_tokens=int(quantum_tokens),
                                               max_sequences=smc.max_ragged_sequence_count,
-                                              prefill_chunk=knobs.get_int("DS_TPU_PREFILL_CHUNK"))
+                                              prefill_chunk=knobs.get_int("DS_TPU_PREFILL_CHUNK"),
+                                              shard_degree=self._tp)
 
         tele = get_telemetry_registry()
         self._m_requests = tele.counter("infer_requests_total")
@@ -249,6 +300,10 @@ class InferenceEngineV2:
         self._m_spec_rate = tele.gauge("spec_acceptance_rate")
         self._m_cow_bytes = tele.counter("kv_cow_bytes_total")
         self._m_quant_err = tele.gauge("kv_quant_dequant_error")  # expected RMS dequant error of an int8 pool
+        # tensor-parallel serving: the degree, and the bytes its row-parallel reduces move (host arithmetic)
+        self._m_tp_degree = tele.gauge("tp_degree")
+        self._m_tp_degree.set(float(self._tp))
+        self._m_tp_bytes = tele.counter("infer_tp_allreduce_bytes_total")
         self._events = get_event_log()
         # serving health detectors; the perf accountant (cost cards per graph key, the goodput ledger, the HBM
         # pool gauges feeding the pressure detector)
@@ -264,6 +319,7 @@ class InferenceEngineV2:
         rec = maybe_attach_flight_recorder(self._health)
         if rec is not None:
             rec.register_provider("residency", self._residency_summary)
+            rec.register_provider("tensor_parallel", self.tp_manifest)
             rec.register_provider("jit_cache", lambda: {"enabled": False})  # no JIT on the port: no auditor
         # the device-timeline profiler: DS_TPU_PROFILE=1 arms a one-shot capture
         device_profiler.maybe_arm_profiler()
@@ -275,12 +331,14 @@ class InferenceEngineV2:
 
         L, bs = cfg.n_layers, smc.kv_block_size
         pool_shape = (L, n_blocks, bs, cfg.kv_heads, cfg.head_dim)
+        if self._tp > 1:  # this rank's KV heads of every global block (JAX shard_kv_pool)
+            pool_shape = kv_pool_shard_shape(pool_shape, self._tp)
         self.k_pages = make_kv_pool(pool_shape, self.dtype, self.device, self._kv_quant_bits)
         self.v_pages = make_kv_pool(pool_shape, self.dtype, self.device, self._kv_quant_bits)
         self._max_blocks_per_seq = -(-smc.max_context // bs)
-        # K+V bytes one block holds across every layer (codes + scales for an int8 pool): the unit of COW
-        # copy traffic and of host-tier slot sizing
-        self._block_bytes = sum(t.numel() * t.element_size() for t in self._pool_leaves()) // n_blocks
+        # K+V bytes one block holds across every layer and every rank (codes + scales for an int8 pool): the
+        # unit of COW copy traffic and of host-tier slot sizing; a rank holds 1/tp of it
+        self._block_bytes = sum(t.numel() * t.element_size() for t in self._pool_leaves()) * self._tp // n_blocks
         # what a cost card's signature adds to a graph key: engines of other models share the process's accountant
         self._cost_sig = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.ffn_dim, cfg.vocab_size,
                           cfg.moe_num_experts, str(self.dtype), config.quant_bits, self._kv_quant_bits)
@@ -316,12 +374,26 @@ class InferenceEngineV2:
             t = torch.as_tensor(tree)
             return t.to(self.device, self.dtype) if t.is_floating_point() else t.to(self.device)
 
+        self._tp_ctx = None
+        specs = None
+        if self._tp > 1:
+            from ...parallel.mesh import mesh_signature
+
+            params, specs = self._tp_shard(params)
+            topo = self._mesh_topo
+            self._tp_ctx = TPContext(tp=self._tp, rank=topo.axis_rank("tensor"), group=topo.process_group("tensor"),
+                                     bits=self._tp_bits, interleave=self._tp, mesh=mesh_signature(topo))
+        # the sharding signature ends every step key and sits in the journal fingerprint: toggling TP (or the
+        # reduce's mode) never reaches a step built for another layout, nor replays across topologies
+        self._shard_sig = self._tp_ctx.signature() if self._tp_ctx is not None else "tp1"
         self.params = place(params)
         if config.quant_bits:
+            # quantise AFTER sharding (the reference's order): K-groups align to the shard edge
             self.params = quantize_for_serving(self.params, num_bits=config.quant_bits,
-                                               group_size=config.quant_group_size, min_size=config.quant_min_size)
+                                               group_size=config.quant_group_size, min_size=config.quant_min_size,
+                                               specs=specs, tp=self._tp)
         self._weight_bytes = _tree_bytes(self.params)
-        self._mods = build_modules()
+        self._mods = build_modules(tp=self._tp_ctx)
         self._prefill_fn, self._decode_fn = make_step_fns(run_cfg, mods=self._mods)
         self._max_program_variants = max(1, knobs.get_int("DS_TPU_PROGRAM_CACHE"))
         self._bursts: Dict[tuple, object] = {}  # sampling signature -> burst function
@@ -331,8 +403,12 @@ class InferenceEngineV2:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
         # one captured graph per step key on the card; the pools and weights keep their storage for the
-        # engine's life (the graphs hold their addresses)
-        self._eager_steps = self.device.type != "cuda"
+        # engine's life (the graphs hold their addresses). A gloo collective cannot be captured: under a gloo
+        # group on CUDA the steps run eagerly
+        self._tp_backend = None
+        if self._tp > 1:
+            self._tp_backend = "gloo" if named_backend() == "gloo" else "nccl" if self.device.type == "cuda" else "gloo"
+        self._eager_steps = self.device.type != "cuda" or (self._tp > 1 and self._tp_backend == "gloo")
         self.graphs = None
         if self.device.type == "cuda":
             self.graphs = StepGraphs(self.device, self._max_program_variants,
@@ -344,6 +420,39 @@ class InferenceEngineV2:
         self.spec_proposed = 0  # draft tokens sent to verify steps
         self.spec_accepted = 0  # of those, accepted
         self._update_hbm_gauges()
+
+    def _tp_shard(self, params) -> Tuple[Dict, Dict]:
+        """This rank's slice of every leaf (``module_inject.shard_params``, with
+        the column-parallel biases split too: ``SERVING_BIAS_RULES``) and the
+        specs of the tree. A leaf that is already at its shard's shape is
+        kept; any other shape than the whole or the shard's raises."""
+        from ...models.transformer import param_shapes
+        from ...module_inject.load_checkpoint import SERVING_BIAS_RULES, get_tp_rules, leaf_spec, shard_leaf
+
+        rules = get_tp_rules(self.model) + SERVING_BIAS_RULES
+        tp, rank = self._tp, self._mesh_topo.axis_rank("tensor")
+        shapes = param_shapes(self.cfg)
+
+        def walk(node, ref, keys):
+            if isinstance(node, dict):
+                out = {k: walk(v, ref.get(k) if isinstance(ref, dict) else None, keys + (str(k),))
+                       for k, v in node.items()}
+                return {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
+            if isinstance(node, QuantizedParam):
+                raise NotImplementedError(f"{'/'.join(keys)}: a quantised tree does not shard; give the engine "
+                                          "dense weights and quant_bits (it quantises after sharding)")
+            t = torch.as_tensor(node)
+            full = tuple(ref[0]) if isinstance(ref, tuple) else tuple(t.shape)
+            spec = leaf_spec(keys, full, rules, tp)
+            local = tuple(n // tp if i < len(spec) and spec[i] == "tensor" else n for i, n in enumerate(full))
+            if tuple(t.shape) == full:
+                return shard_leaf(t, spec, tp, rank), spec
+            if tuple(t.shape) == local:
+                return t, spec
+            raise ValueError(f"{'/'.join(keys)}: shape {tuple(t.shape)} is neither the whole {full} nor rank "
+                             f"{rank}'s shard {local} at tensor_parallel={tp}")
+
+        return walk(params, shapes, ())
 
     # ---------------------------------------------------------- feasibility
     def query(self, uid: int, max_request_length: int) -> Tuple[int, int]:
@@ -543,14 +652,37 @@ class InferenceEngineV2:
                 "out_bytes": out + kv_token_bytes * sum(t for t, _ in passes)}
         return dict(static, attn_flops=2 * attention_macs(cfg, *rows))
 
+    def _account_tp_allreduce(self, tokens: int) -> None:
+        """The bytes of one step's row-parallel reduces (JAX
+        ``_account_tp_allreduce``): every padded token crosses the two reduces
+        of each layer, d_model elements each, at the quantised width when
+        ``DS_TPU_TP_ALLREDUCE_BITS`` is set, else at the activation dtype's.
+        Host arithmetic; nothing at tp 1."""
+        if self._tp <= 1 or tokens <= 0:
+            return
+        nbits = self._tp_bits or torch.empty((), dtype=self.dtype).element_size() * 8
+        self._m_tp_bytes.inc(tokens * self.cfg.d_model * 2 * self.cfg.n_layers * nbits // 8)
+
+    def tp_manifest(self) -> Dict:
+        """The tensor-parallel section of the flight manifest: the degree, this
+        rank, the backend the reduces run on (named gloo on CUDA: host-staged),
+        and whether the steps replay CUDA graphs or run eagerly (always eagerly
+        under gloo, which a graph cannot capture)."""
+        return {"tensor_parallel": self._tp, "rank": self._tp_ctx.rank if self._tp_ctx is not None else 0,
+                "backend": self._tp_backend, "allreduce_bits": self._tp_bits, "shard_sig": self._shard_sig,
+                "steps": "eager" if self._eager_steps else "graphs"}
+
     def _residency_summary(self) -> Dict:
         """Allocator / prefix-cache / host-tier residency: the flight
-        recorder's view of where every KV block lives at capture time (one
-        device: no tensor-parallel shards)."""
+        recorder's view of where every KV block lives at capture time. Under
+        tensor parallelism a rank holds 1/tp of each block's bytes (block
+        tables are the same on every rank)."""
         pc = self.state.prefix_cache
         return {"kv_blocks_total": self._n_kv_blocks, "kv_blocks_free": int(self.state.free_blocks),
-                "block_bytes": int(self._block_bytes), "tp_degree": 1,
-                "block_bytes_per_shard": int(self._block_bytes), "kv_quant_bits": int(self._kv_quant_bits),
+                "block_bytes": int(self._block_bytes), "tp_degree": int(self._tp),
+                "block_bytes_per_shard": int(self.state.shard_geometry(self._block_bytes,
+                                                                         self._tp)["block_bytes_per_shard"]),
+                "kv_quant_bits": int(self._kv_quant_bits),
                 "prefix_cached_blocks": int(pc.cached_blocks) if pc is not None else 0,
                 "host_tier_bytes": int(pc.host_tier_bytes) if pc is not None else 0}
 
@@ -655,10 +787,11 @@ class InferenceEngineV2:
 
         useful = sum(len(t) for t in token_lists)
         with telemetry_span("infer/prefill", bucket=S, rows=n):
-            logits = self._dispatch(("prefill", B, S), step, [ids, positions, bt, ctx, slots.reshape(-1), last],
+            logits = self._dispatch(("prefill", B, S, self._shard_sig), step, [ids, positions, bt, ctx, slots.reshape(-1), last],
                                     rows=(last[:n] + 1, ctx[:n]))
         self._m_prefill_tokens.inc(useful)
         self._m_prefill_fill.set(n / B)
+        self._account_tp_allreduce(B * S)
         for seq in seqs:
             seq.post_forward()
         if defer:
@@ -725,10 +858,11 @@ class InferenceEngineV2:
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last)[0]
 
         with telemetry_span("infer/decode", rows=n):
-            logits = self._dispatch(("decode", len(ctx)), step, [ids, positions, bt, ctx, slots[0], last],
+            logits = self._dispatch(("decode", len(ctx), self._shard_sig), step, [ids, positions, bt, ctx, slots[0], last],
                                     rows=(np.ones(n, np.int64), ctx[:n]), head=ids_dev)
         self.decode_steps += 1
         self.decode_tokens += n
+        self._account_tp_allreduce(len(ctx))
         self._m_decode_steps.inc()
         self._m_decode_tokens.inc(n)
         self._m_decode_fill.set(n / len(ctx))
@@ -782,8 +916,8 @@ class InferenceEngineV2:
         bursting is off."""
         if self._config.decode_burst < 2:
             return None
-        do, t, k, p = key = sampling or (False, 1.0, 0, 1.0)
-        return self._step_fn(self._bursts, key, lambda: make_burst_fn(
+        do, t, k, p = sampling = sampling or (False, 1.0, 0, 1.0)
+        return self._step_fn(self._bursts, sampling + (self._shard_sig,), lambda: make_burst_fn(
             self._run_cfg, do_sample=do, temperature=t, top_k=k, top_p=p, mods=self._mods))
 
     def _run_decode_burst(self, uids: List[int], tokens: List[int], steps: int, ids_dev: Optional[torch.Tensor] = None,
@@ -797,11 +931,12 @@ class InferenceEngineV2:
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, last, generator)[0]
 
         with telemetry_span("infer/decode_burst", rows=n, steps=steps):
-            toks = self._dispatch(("burst", len(ctx), steps) + self._sampling_key(), step,
+            toks = self._dispatch(("burst", len(ctx), steps) + self._sampling_key() + (self._shard_sig,), step,
                                   [ids, positions, bt, ctx, slots, last], rows=(np.full(n, steps), ctx[:n] + steps - 1),
                                   sampled=self._sampling is not None, head=ids_dev)
         self.decode_steps += steps
         self.decode_tokens += n * steps
+        self._account_tp_allreduce(len(ctx) * steps)
         self._m_bursts.inc()
         self._m_decode_steps.inc(steps)
         self._m_decode_tokens.inc(n * steps)
@@ -840,7 +975,7 @@ class InferenceEngineV2:
     def _fused_for(self, n_dec: int, n_pre: int, chunk: int, sampling):
         """The step function of a padded bucket shape and sampling signature."""
         do, t, k, p = sampling = sampling or (False, 1.0, 0, 1.0)
-        return self._step_fn(self._fused_fns, (n_dec, n_pre, chunk) + sampling, lambda: make_fused_step_fn(
+        return self._step_fn(self._fused_fns, (n_dec, n_pre, chunk) + sampling + (self._shard_sig,), lambda: make_fused_step_fn(
             self._run_cfg, n_dec=n_dec, n_pre=n_pre, chunk=chunk, do_sample=do, temperature=t, top_k=k, top_p=p,
             mods=self._mods))
 
@@ -950,11 +1085,12 @@ class InferenceEngineV2:
         q_lens = np.concatenate([np.full(n_dec, steps), [len(p.tokens) for p in prefills]]).astype(np.int64)
         ctx_end = np.concatenate([ctx[:n_dec] + steps - 1, ctx[D:D + n_pre]])
         with telemetry_span("infer/fused_step", rows=N, tokens=T, steps=steps):
-            toks = self._dispatch(("fused", D, P, S, steps, eos) + self._sampling_key(), step,
+            toks = self._dispatch(("fused", D, P, S, steps, eos) + self._sampling_key() + (self._shard_sig,), step,
                                   [ids, positions, bt, ctx, slots0, last, adv, gslots], rows=(q_lens, ctx_end),
                                   sampled=self._sampling is not None, head=head)
         self.fused_quanta += 1
         self._m_fused_quanta.inc()
+        self._account_tp_allreduce(D * steps + P * S)
         real = n_dec * steps + sum(len(p.tokens) for p in prefills)
         self._m_fused_fill.set(real / max(1, D * steps + P * S))
         if self._events.enabled and dec_uids:
@@ -990,7 +1126,7 @@ class InferenceEngineV2:
         """The verify step function of a verify window and sampling signature
         (the padded row count is part of the graph key only)."""
         do, t, k, p = sampling = sampling or (False, 1.0, 0, 1.0)
-        return self._step_fn(self._spec_fns, (chunk,) + sampling, lambda: make_spec_verify_fn(
+        return self._step_fn(self._spec_fns, (chunk,) + sampling + (self._shard_sig,), lambda: make_spec_verify_fn(
             self._run_cfg, chunk=chunk, do_sample=do, temperature=t, top_k=k, top_p=p, mods=self._mods))
 
     def _run_spec_step(self, uids: List[int], carries: List[int], histories: List[Sequence[int]],
@@ -1066,11 +1202,12 @@ class InferenceEngineV2:
             return fn(params, ids, positions, kp, vp, bt, ctx, slots, n_draft, generator)[0]
 
         with telemetry_span("infer/spec_verify", rows=n, k=chunk - 1):
-            packed = self._dispatch(("spec", B, chunk) + self._sampling_key(), step,
+            packed = self._dispatch(("spec", B, chunk) + self._sampling_key() + (self._shard_sig,), step,
                                     [ids, positions, bt, ctx, slots, n_draft], rows=(np.full(n, chunk), ctx[:n]),
                                     sampled=self._sampling is not None)
         self._m_decode_steps.inc()
         self._m_decode_fill.set(n / B)
+        self._account_tp_allreduce(B * chunk)
         packed = packed[:n].cpu().numpy()  # committed ids and the accepted count: the whole readback
         for seq in seqs:
             seq.post_forward()
@@ -1160,9 +1297,9 @@ class InferenceEngineV2:
     def _program_signatures(self) -> List[str]:
         """The step-function cache keys at this instant: part of the journal
         fingerprint (a replay that builds a different step set is suspect
-        before a single token diverges). The port's own keys: the JAX
-        engine's carry its sharding signature, which the port has not."""
-        sigs = ["prefill:tp1", "decode:tp1"]
+        before a single token diverges). Every key ends in the sharding
+        signature, as the JAX engine's do."""
+        sigs = [f"prefill:{self._shard_sig}", f"decode:{self._shard_sig}"]
         sigs += [f"burst{k}" for k in self._bursts]
         sigs += [f"fused{k}" for k in self._fused_fns]
         sigs += [f"spec{k}" for k in self._spec_fns]
@@ -1171,9 +1308,11 @@ class InferenceEngineV2:
     def _journal_fingerprint(self) -> Dict:
         """Everything the replay harness needs to rebuild this engine: model
         config, resolved engine geometry and loop flags, the knob registry as
-        resolved, and the step-function signatures. ``tensor_parallel`` is 1,
-        ``shard_sig`` "tp1" and ``mesh`` "mesh[none]", as the reference
-        writes them for one device."""
+        resolved, and the step-function signatures, with the topology:
+        ``tensor_parallel``, ``tp_allreduce_bits``, ``shard_sig`` and
+        ``mesh`` ("mesh[none]" at tp 1, as the reference writes it)."""
+        from ...parallel.mesh import mesh_signature
+
         smc = self._config.state_manager
         return {
             "model_cfg": dataclasses.asdict(self.cfg),
@@ -1189,10 +1328,10 @@ class InferenceEngineV2:
                 "kv_quant_bits": self._kv_quant_bits,
                 "kv_spill": self._kv_spill,
                 "enable_prefix_cache": self.state.prefix_cache is not None,
-                "tensor_parallel": 1,
-                "tp_allreduce_bits": 0,
-                "shard_sig": "tp1",
-                "mesh": "mesh[none]",
+                "tensor_parallel": self._tp,
+                "tp_allreduce_bits": self._tp_bits,
+                "shard_sig": self._shard_sig,
+                "mesh": mesh_signature(self._mesh_topo) if self._mesh_topo is not None else "mesh[none]",
                 "num_kv_blocks": self._n_kv_blocks,
                 "kv_block_size": smc.kv_block_size,
                 "max_context": smc.max_context,

@@ -1,6 +1,6 @@
 """Ragged forward passes over the parameter tree, on the paged KV pool.
 
-Port of ``deepspeed_tpu/inference/v2/model_runner.py`` for one device:
+Port of ``deepspeed_tpu/inference/v2/model_runner.py``:
 ``_transformer_layer``, the layer stack, ``ragged_forward`` (a (B, S) batch
 in one mode), ``fused_forward`` (the SplitFuse mixed decode + prefill pass),
 ``make_step_fns`` (the unfused loop's prefill and decode steps),
@@ -16,15 +16,27 @@ place where the JAX programs donate them.
 The attention, norm, quantised-matmul and grouped-GEMM kernels come from a ``V2Modules``
 bundle (``modules.build_modules``); passing ``build_modules(plain=True)``
 runs the same step on the kernels' plain PyTorch versions. The KV pools are
-plain tensors or int8 ``(codes, scales)`` pairs. Tensor parallelism comes
-with a later slice.
+plain tensors or int8 ``(codes, scales)`` pairs.
+
+Tensor parallelism (JAX ``model_runner.py:59-83``, ``:142-233``): with
+``mods.tp`` a ``TPContext``, each rank runs the same stack on its shard of
+the heads, of the MLP or expert hidden dim and of the pool's KV heads (the
+geometry is read off the local arrays), with ALiBi slopes sliced to its
+heads, and the two row-parallel partial sums of each layer (after
+``o_proj`` and after the MLP or MoE output) go through ``tp_all_reduce``
+over the ``tensor`` group; the biases of those two projections add after
+the reduce, once. The JAX package runs the stack as one ``shard_map``
+region; here each rank is a process that runs the region's body.
 """
 
+import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ...comm import ReduceOp, all_reduce
+from ...comm.collectives import tp_all_reduce
 from ...models.transformer import TransformerConfig, _is_moe_layer, alibi_slopes, apply_rope, device_rope_tables
 from ...ops.paged_attention import KVPool, kv_layer, paged_attention_mixed, update_kv_pages
 from ..generation import sample_logits
@@ -32,12 +44,75 @@ from .modules import V2Modules, _norm_p, _proj, build_modules
 from .spec import select_committed
 
 
-def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules) -> Callable:
+@dataclasses.dataclass(frozen=True)
+class TPContext:
+    """Explicit-collective tensor-parallel execution context (JAX
+    ``TPContext``): this rank's place on the ``tensor`` axis, the process
+    group of that axis (None: the whole world), and the reduce's mode:
+    ``bits`` (``DS_TPU_TP_ALLREDUCE_BITS``, 0 = exact) and ``interleave``
+    (chunks a reduce, the T3 seam). ``mesh`` is the mesh's signature
+    (``parallel.mesh.mesh_signature``)."""
+
+    tp: int
+    rank: int = 0
+    group: Any = None
+    axis: str = "tensor"
+    bits: int = 0
+    interleave: int = 1
+    mesh: str = "mesh[none]"
+
+    def signature(self) -> str:
+        """Step-key and fingerprint identity of this sharded step class."""
+        return f"tp{self.tp}:{self.axis}:b{self.bits}:il{self.interleave}:{self.mesh}"
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The row-parallel seam: ``tp_all_reduce`` in this context's mode."""
+        return tp_all_reduce(x, self.group, bits=self.bits, interleave=self.interleave)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """An exact sum over the group (the vocab-parallel embedding and head)."""
+        out = x.contiguous().clone()
+        all_reduce(out, ReduceOp.SUM, group=self.group)
+        return out
+
+    def embed(self, wte: torch.Tensor, ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
+        """Embedding rows of ``ids`` from a vocab-sharded ``wte``: ids clamp to
+        the whole vocabulary (one device's gather), this rank looks up the rows
+        it holds (zeros elsewhere) and the group sums them, exactly (one term
+        is non-zero). A ``wte`` kept whole (a vocabulary the degree does not
+        divide) is a plain lookup."""
+        ids = ids.long().clamp(0, vocab_size - 1)
+        n = wte.shape[0]
+        if n == vocab_size:
+            return wte[ids]
+        local = ids - self.rank * n
+        mine = ((local >= 0) & (local < n))[..., None]
+        return self.sum(torch.where(mine, wte[local.clamp(0, n - 1)], torch.zeros((), dtype=wte.dtype,
+                                                                                 device=wte.device)))
+
+    def vocab_logits(self, logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+        """The whole rows from this rank's vocab columns: summed over the group
+        into a zeroed row (an exact gather that gloo also runs on CUDA
+        tensors); whole columns pass as they are."""
+        n = logits.shape[-1]
+        if n == vocab_size:
+            return logits
+        full = logits.new_zeros(logits.shape[:-1] + (vocab_size,))
+        full[..., self.rank * n:(self.rank + 1) * n] = logits
+        return self.sum(full)
+
+    def local_slopes(self, n_heads: int):
+        """This rank's heads' ALiBi slopes."""
+        hs = n_heads // self.tp
+        return alibi_slopes(n_heads)[self.rank * hs:(self.rank + 1) * hs]
+
+
+def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules, slopes=None) -> Callable:
     """window -> (decode_attn, prefill_attn): one bound pair per
     distinct per-layer window value, shared by the ragged and fused
     forwards. Unlike the reference's interpret mode, prefill always gets its
-    kernel: there is no gather fallback on the card."""
-    slopes = alibi_slopes(cfg.n_heads) if cfg.pos_emb == "alibi" else None
+    kernel: there is no gather fallback on the card. ``slopes``: the ALiBi
+    slopes of the heads this rank holds."""
     fns: Dict[Optional[int], tuple] = {}
 
     def attn_fns(window):
@@ -51,12 +126,25 @@ def _attn_fn_builder(cfg: TransformerConfig, mods: V2Modules) -> Callable:
     return attn_fns
 
 
+def _without_bias(p: Dict, key: str) -> Tuple[Dict, Optional[torch.Tensor]]:
+    """``p`` with ``p[key]``'s bias taken out, and that bias (None without one)."""
+    if "bias" not in p[key]:
+        return p, None
+    return {**p, key: {k: v for k, v in p[key].items() if k != "bias"}}, p[key]["bias"]
+
+
 def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_pages_i: KVPool,
                        v_pages_i: KVPool, slot_mapping: torch.Tensor, cos, sin, positions: torch.Tensor,
-                       attn_apply: Callable, mods: V2Modules, moe: bool = False):
+                       attn_apply: Callable, mods: V2Modules, moe: bool = False,
+                       tp_reduce: Optional[Callable] = None):
     """One transformer block over (B, S) tokens against this layer's page
     pool: qkv + rope + KV page write (in place) + ``attn_apply(q, kp, vp)`` +
-    FFN (the MoE module for an MoE block). Returns the block's output."""
+    FFN (the MoE module for an MoE block). Returns the block's output.
+    ``tp_reduce`` (tensor parallelism) sums the two row-parallel partials,
+    the attention output after ``o_proj`` and the FFN or MoE output, over
+    the ``tensor`` group; their biases add after it. Head and hidden
+    geometry come off the arrays, so the same code runs whole or
+    shard-local."""
     B, S = x.shape[:2]
     dtype = cfg.dtype
     h = mods.norm(cfg, _norm_p(cfg, lp, 0), x)
@@ -77,7 +165,13 @@ def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_page
     update_kv_pages(k_pages_i, v_pages_i, k.reshape(B * S, KVH, D), v.reshape(B * S, KVH, D), slot_mapping)
 
     attn = attn_apply(q.contiguous(), k_pages_i, v_pages_i)
-    attn_out = _proj(attn, lp["attn"]["o_proj"], "bshk,hkd->bsd", dtype, qmm)
+    if tp_reduce is None:
+        attn_out = _proj(attn, lp["attn"]["o_proj"], "bshk,hkd->bsd", dtype, qmm)
+    else:
+        o_p, o_bias = _without_bias(lp["attn"], "o_proj")
+        attn_out = tp_reduce(_proj(attn, o_p["o_proj"], "bshk,hkd->bsd", dtype, qmm))
+        if o_bias is not None:
+            attn_out = attn_out + o_bias.to(dtype)
 
     if cfg.block_type == "parallel_shared":  # falcon-7b / phi / gpt-j
         ffn_in = h
@@ -86,7 +180,15 @@ def _transformer_layer(cfg: TransformerConfig, lp: Dict, x: torch.Tensor, k_page
     else:
         x = x + attn_out
         ffn_in = mods.norm(cfg, _norm_p(cfg, lp, 1), x)
-    ffn_out = mods.moe(cfg, lp["moe"], ffn_in) if moe else mods.mlp(cfg, lp["mlp"], ffn_in)
+    if tp_reduce is None:
+        ffn_out = mods.moe(cfg, lp["moe"], ffn_in) if moe else mods.mlp(cfg, lp["mlp"], ffn_in)
+    elif moe:
+        ffn_out = tp_reduce(mods.moe(cfg, lp["moe"], ffn_in))
+    else:
+        mlp_p, down_bias = _without_bias(lp["mlp"], "down_proj")
+        ffn_out = tp_reduce(mods.mlp(cfg, mlp_p, ffn_in))
+        if down_bias is not None:
+            ffn_out = ffn_out + down_bias.to(dtype)
     if cfg.block_type in ("parallel", "parallel_shared"):
         x = x + attn_out + ffn_out
     else:
@@ -98,12 +200,18 @@ def _run_stack(cfg: TransformerConfig, params: Dict, x, k_pages, v_pages, block_
                positions, mods: V2Modules, *, mixed: bool, decode: bool = False, n_dec: int = 0, chunk: int = 0):
     """The per-layer stack shared by the serving forwards. ``mixed`` selects
     the fused decode + prefill attention (``paged_attention_mixed``);
-    otherwise the single-mode module routing runs with the ``decode`` flag."""
+    otherwise the single-mode module routing runs with the ``decode`` flag.
+    With ``mods.tp`` the stack is shard-local: this rank's heads' ALiBi
+    slopes and the row-parallel reduces."""
     cos = sin = None
     if cfg.pos_emb == "rope":
         cos, sin = device_rope_tables(cfg, x.device)
-    slopes = alibi_slopes(cfg.n_heads) if cfg.pos_emb == "alibi" else None
-    attn_fns = _attn_fn_builder(cfg, mods)
+    tp = mods.tp if mods.tp is not None and mods.tp.tp > 1 else None
+    slopes = None
+    if cfg.pos_emb == "alibi":
+        slopes = tp.local_slopes(cfg.n_heads) if tp is not None else alibi_slopes(cfg.n_heads)
+    tp_reduce = tp.reduce if tp is not None else None
+    attn_fns = _attn_fn_builder(cfg, mods, slopes)
     flat_pos = positions[0] if mixed else None
 
     for i in range(cfg.n_layers):
@@ -122,7 +230,7 @@ def _run_stack(cfg: TransformerConfig, params: Dict, x, k_pages, v_pages, block_
 
         # kv_layer returns views: the layer's KV writes land in the stacked pools
         x = _transformer_layer(cfg, lp, x, kv_layer(k_pages, i), kv_layer(v_pages, i), slot_mapping, cos, sin,
-                               positions, attn_apply, mods, moe=_is_moe_layer(cfg, i))
+                               positions, attn_apply, mods, moe=_is_moe_layer(cfg, i), tp_reduce=tp_reduce)
     return x, k_pages, v_pages
 
 

@@ -15,8 +15,20 @@ the kernels they call (``rms_norm``, ``layer_norm``, ``quantized_matmul``,
 ``build_modules(plain=True)`` binds the kernels' plain PyTorch versions
 instead, which is how a caller runs the same step without the kernels. A
 projection whose ``kernel`` is a ``QuantizedParam`` (weight-only quantised
-serving) goes through the fused dequantise-matmul; MoE gates and experts
-stay dense.
+serving) goes through the fused dequantise-matmul (``+gspmd`` codes, a
+tensor-parallel rank's shard, through ``quantized_matmul_sharded``); MoE
+gates and experts stay dense.
+
+Tensor parallelism (``build_modules(tp=TPContext)``): ``wte`` and
+``lm_head`` are vocab-sharded. The embedding looks up the ids this rank's
+rows hold (the others read zeros) and sums over the ``tensor`` group, so
+every rank gets the whole embedding, bits equal to one device's (one term
+is non-zero). The head computes this rank's vocab columns and sums them
+into a zeroed (rows, V) buffer over the group (a gather that gloo runs on
+CUDA tensors too), so every rank ends the step with the same full logits
+and so chooses the same token. A vocabulary that the degree does not divide
+stays whole on every rank (``module_inject.load_checkpoint``) and takes
+neither collective.
 """
 
 import functools
@@ -31,7 +43,7 @@ from ...ops.moe_grouped_gemm import moe_grouped_gemm, moe_grouped_gemm_ref
 from ...ops.norms import layer_norm, layer_norm_ref, rms_norm, rms_norm_ref
 from ...ops.paged_attention import (paged_attention_decode, paged_attention_decode_ref, paged_attention_prefill,
                                     paged_attention_prefill_ref)
-from ...ops.quantized_matmul import quantized_matmul, quantized_matmul_ref
+from ...ops.quantized_matmul import quantized_matmul, quantized_matmul_ref, quantized_matmul_sharded
 from ..quantization import QuantizedParam
 
 
@@ -62,6 +74,8 @@ def _qproj(x: torch.Tensor, qp: QuantizedParam, dtype: torch.dtype, qmm: Callabl
     while t < K:
         t *= qp.shape[j]
         j += 1
+    if qp.layout.endswith("+gspmd"):  # a tensor-parallel rank's codes: its columns, or its K rows' partial
+        qmm = functools.partial(quantized_matmul_sharded, qmm=qmm)
     out2 = qmm(x.reshape(-1, K).to(dtype).contiguous(), qp.q, qp.scales, packed=packed)
     return out2.reshape(tuple(x.shape[:i]) + tuple(qp.shape[j:])).to(dtype)
 
@@ -81,12 +95,16 @@ def _proj(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype,
 
 
 def embedding_tpu(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor, positions: torch.Tensor,
-                  norm: Optional[Callable] = None) -> torch.Tensor:
-    """ref ``implementations/embedding/ragged_embedding.py``."""
-    # explicit clamp: out-of-vocab ids read the last row, the reference's
-    # single-device gather semantics
-    input_ids = input_ids.long().clamp(0, params["wte"].shape[0] - 1)
-    x = params["wte"][input_ids].to(cfg.dtype)
+                  norm: Optional[Callable] = None, tp=None) -> torch.Tensor:
+    """ref ``implementations/embedding/ragged_embedding.py``. With a
+    vocab-sharded ``wte`` (``tp``), a masked lookup of this rank's rows and
+    a sum over the group (``TPContext.embed``)."""
+    wte = params["wte"]
+    if tp is not None:
+        x = tp.embed(wte, input_ids, cfg.vocab_size).to(cfg.dtype)
+    else:
+        # explicit clamp: out-of-vocab ids read the last row, the reference's single-device gather semantics
+        x = wte[input_ids.long().clamp(0, wte.shape[0] - 1)].to(cfg.dtype)
     if cfg.embed_scale:  # gemma normalizer
         x = x * torch.full((), cfg.d_model**0.5, dtype=cfg.dtype, device=x.device)  # a fill, not a host copy
     if cfg.pos_emb == "learned":
@@ -181,7 +199,12 @@ def moe_tpu(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor,
     plain version) over the expert-sorted rows, then the weighted combine.
     Each token sums its k contributions in ascending expert order, the order
     of the reference's scatter-add over the sorted rows, in the serving
-    dtype; no atomics, so a step repeats bit for bit."""
+    dtype; no atomics, so a step repeats bit for bit. Under tensor
+    parallelism each expert's ``wi`` / ``wg`` / ``wo`` hold this rank's I / tp
+    hidden columns (JAX ``MOE_PARTITION_RULES``' ``tensor`` entries): the
+    routing is the same on every rank (the gate and the tokens are whole),
+    the grouped products run at I / tp, and the output is this rank's
+    partial, which the layer's row-parallel reduce sums."""
     dtype = cfg.dtype
     B, S, d = x.shape
     k = cfg.moe_top_k
@@ -211,9 +234,11 @@ def moe_tpu(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor,
 
 
 def unembed_tpu(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor, last_token_idx: torch.Tensor,
-                norm: Optional[Callable] = None, qmm: Callable = quantized_matmul) -> torch.Tensor:
+                norm: Optional[Callable] = None, qmm: Callable = quantized_matmul, tp=None) -> torch.Tensor:
     """ref ``implementations/unembed/ragged_unembed.py``: final norm +
-    last-real-token gather + head projection, fp32 logits."""
+    last-real-token gather + head projection, fp32 logits. With a
+    vocab-sharded head (``tp``), this rank's columns summed into the whole
+    row over the group (``TPContext.vocab_logits``)."""
     top = 1 if cfg.embedding_norm else 0
     x = (norm or norm_tpu)(cfg, _norm_p(cfg, params, top), x)
     last = x[torch.arange(x.shape[0], device=x.device), last_token_idx.long(), :]
@@ -221,7 +246,8 @@ def unembed_tpu(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor,
         logits = torch.einsum("bd,vd->bv", last, params["wte"].to(cfg.dtype))
     else:
         logits = _proj(last, params["lm_head"], "bd,dv->bv", cfg.dtype, qmm)
-    return logits.float()
+    logits = logits.float()
+    return tp.vocab_logits(logits, cfg.vocab_size) if tp is not None else logits
 
 
 class V2Modules(NamedTuple):
@@ -241,19 +267,22 @@ class V2Modules(NamedTuple):
     grouped_gemm: Callable
     decode_attn: Callable
     prefill_attn: Callable
+    tp: Any = None  # the runner's TPContext under tensor parallelism, else None
 
 
-def build_modules(plain: bool = False) -> V2Modules:
+def build_modules(plain: bool = False, tp=None) -> V2Modules:
     """The serving modules bound to the kernels, or with ``plain=True`` to the
-    kernels' plain PyTorch versions."""
+    kernels' plain PyTorch versions; ``tp`` (a ``model_runner.TPContext``)
+    makes the embedding and the head vocab-parallel and the runner reduce
+    each layer's row-parallel partials over its group."""
     rms = rms_norm_ref if plain else rms_norm
     ln = layer_norm_ref if plain else layer_norm
     qmm = quantized_matmul_ref if plain else quantized_matmul
     gemm = moe_grouped_gemm_ref if plain else moe_grouped_gemm
     norm = functools.partial(norm_tpu, rms=rms, ln=ln)
-    return V2Modules(embedding=functools.partial(embedding_tpu, norm=norm), norm=norm, attention=attention_tpu,
+    return V2Modules(embedding=functools.partial(embedding_tpu, norm=norm, tp=tp), norm=norm, attention=attention_tpu,
                      mlp=functools.partial(mlp_tpu, qmm=qmm), moe=functools.partial(moe_tpu, gemm=gemm),
-                     unembed=functools.partial(unembed_tpu, norm=norm, qmm=qmm),
+                     unembed=functools.partial(unembed_tpu, norm=norm, qmm=qmm, tp=tp),
                      rms_norm=rms, layer_norm=ln, quantized_matmul=qmm, grouped_gemm=gemm,
                      decode_attn=paged_attention_decode_ref if plain else paged_attention_decode,
-                     prefill_attn=paged_attention_prefill_ref if plain else paged_attention_prefill)
+                     prefill_attn=paged_attention_prefill_ref if plain else paged_attention_prefill, tp=tp)

@@ -25,6 +25,10 @@ The allocator only *records* residency (``mark_residency``/``residency``);
 the prefix cache drives the transitions and the KV sanitizer
 (``analysis/kv_sanitizer.py``, installed with ``set_sanitizer``) traps steps
 that would read a block that is not in the device pool.
+
+``shard_pool_geometry`` is the per-shard arithmetic of a head-sharded pool
+under tensor-parallel serving: block ids stay global, only the bytes behind
+each id split over the ranks.
 """
 
 from typing import Callable, Iterable, List, Optional, Union
@@ -33,6 +37,28 @@ from typing import Callable, Iterable, List, Optional, Union
 RES_HBM = "hbm"
 RES_INFLIGHT = "inflight"
 RES_HOST = "host"
+
+
+def shard_pool_geometry(num_blocks: int, block_bytes: int, shard_degree: int = 1) -> dict:
+    """Per-shard view of a head-sharded paged pool (JAX
+    ``blocked_allocator.shard_pool_geometry``). One host allocator serves
+    every rank and the block table is the same on each, so allocation is
+    untouched by TP; each rank holds ``block_bytes / shard_degree`` of every
+    block. Bytes that do not divide raise: every pool byte scales with the
+    KV heads, which the engine checks divide by the degree."""
+    if shard_degree < 1:
+        raise ValueError(f"shard_degree must be >= 1, got {shard_degree}")
+    if block_bytes % shard_degree:
+        raise ValueError(f"block_bytes {block_bytes} not divisible by shard_degree {shard_degree}")
+    per_shard = block_bytes // shard_degree
+    return {
+        "num_blocks": int(num_blocks),
+        "shard_degree": int(shard_degree),
+        "block_bytes_global": int(block_bytes),
+        "block_bytes_per_shard": int(per_shard),
+        "pool_bytes_global": int(num_blocks) * int(block_bytes),
+        "pool_bytes_per_shard": int(num_blocks) * int(per_shard),
+    }
 
 
 class BlockedAllocator:

@@ -133,6 +133,14 @@ class DSStateManager:
     def total_blocks(self) -> int:
         return self._allocator.total_blocks
 
+    def shard_geometry(self, block_bytes: int, shard_degree: int = 1) -> Dict:
+        """Global and per-shard pool geometry under tensor-parallel serving
+        (``blocked_allocator.shard_pool_geometry`` over this pool's block
+        count). The manager is shard-agnostic: block ids and every admission
+        decision are global, so this is reporting only."""
+        from .blocked_allocator import shard_pool_geometry
+        return shard_pool_geometry(self.total_blocks, block_bytes, shard_degree)
+
     @property
     def n_tracked_sequences(self) -> int:
         return len(self._seqs)

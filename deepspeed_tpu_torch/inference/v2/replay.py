@@ -27,9 +27,13 @@ engine is rebuilt from the recorded fingerprint, with the parameters
   ``meta.param_seed``: a journal the port recorded replays on its own (the
   JAX package's ``model.init`` draws other numbers from the same seed).
 
-The port serves on one device: a journal recorded at ``tensor_parallel`` > 1,
-or with a sharding signature other than ``"tp1"``, raises. The recorded
-``mesh`` and ``programs`` are not compared (each package writes its own).
+The topology gate (JAX ``replay.py:188-210``): a journal recorded at
+``tensor_parallel`` > 1 replays only in a process world whose size is a
+multiple of that degree (each rank builds its engine and replays), and the
+rebuilt engine's sharding signature must equal the recorded one, unless the
+caller overrode the topology (``tensor_parallel``, ``DS_TPU_TP``,
+``DS_TPU_TP_ALLREDUCE_BITS``); a mismatch raises ``RuntimeError``. The
+recorded ``programs`` are not compared (each package writes its own).
 """
 
 import contextlib
@@ -41,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ... import comm as dist
 from ...telemetry import get_event_log, get_registry as get_telemetry_registry
 from ...telemetry.journal import Journal, Session, journal_override, sessions_from_records
 from .sla import Arrival, run_load, serve_trace, summarize
@@ -151,10 +156,14 @@ def build_engine_from_session(session: Session, overrides: Optional[Dict] = None
     for name in _BOOL_FIELDS:
         if eng.get(name) is not None:
             eng[name] = bool(eng[name])
+    # topology gate: a journal recorded under TP must replay on a topology that realises the same sharding; a
+    # silently different mesh would diverge token streams with no fingerprint to blame
     tp = int(eng.get("tensor_parallel", 1) or 1)
-    if tp > 1 or eng.get("shard_sig", "tp1") != "tp1":
-        raise NotImplementedError(f"journal recorded tensor_parallel={tp} (shard_sig {eng.get('shard_sig')!r}); "
-                                  "the port serves on one device and replays tp1 journals only")
+    world = dist.get_world_size()
+    if tp > 1 and (world < tp or world % tp):
+        raise RuntimeError(f"journal recorded tensor_parallel={tp} (mesh {eng.get('mesh', '?')}) but the process "
+                           f"world has {world} rank(s): refusing to replay on a mismatched topology (start a "
+                           f"multiple of {tp} ranks with comm.init_distributed and replay on each)")
 
     if model is None:
         mc = dict(header.get("model_cfg", {}))
@@ -189,9 +198,16 @@ def build_engine_from_session(session: Session, overrides: Optional[Dict] = None
         quant_bits=int(eng.get("quant_bits", 0)),
         kv_quant_bits=eng.get("kv_quant_bits"),
         kv_spill=eng.get("kv_spill"),
-        enable_prefix_cache=eng.get("enable_prefix_cache"))
+        enable_prefix_cache=eng.get("enable_prefix_cache"),
+        tensor_parallel=tp)
     with _env_overrides(env):
-        return InferenceEngineV2(cfg, params, config)
+        engine = InferenceEngineV2(cfg, params, config)
+    want_sig = eng.get("shard_sig")
+    overridden = "tensor_parallel" in overrides or "DS_TPU_TP" in env or "DS_TPU_TP_ALLREDUCE_BITS" in env
+    if want_sig and not overridden and engine._shard_sig != want_sig:
+        raise RuntimeError(f"rebuilt engine sharding {engine._shard_sig!r} != recorded {want_sig!r}: the replay "
+                           "topology does not reproduce the recorded mesh and allreduce layout")
+    return engine
 
 
 def _session_trace(session: Session) -> List[Arrival]:

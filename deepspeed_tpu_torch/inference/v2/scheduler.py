@@ -74,11 +74,14 @@ class FusedQuantum:
 class RaggedBatchScheduler:
 
     def __init__(self, state: DSStateManager, max_batch_tokens: int = 768, max_sequences: int = 512,
-                 prefill_chunk: int = 512):
+                 prefill_chunk: int = 512, shard_degree: int = 1):
         self._state = state
         self.max_batch_tokens = max_batch_tokens
         self.max_sequences = max_sequences
         self.prefill_chunk = prefill_chunk
+        # tensor-parallel serving runs this same scheduler on every rank over the same global block ids, so
+        # budgets and block accounting stay in global units: the degree is recorded, nothing divides by it
+        self.shard_degree = max(1, int(shard_degree))
         tele = get_telemetry_registry()
         self._m_queue_depth = tele.gauge("sched_queue_depth")
         self._m_step_tokens = tele.gauge("sched_step_tokens")

@@ -389,6 +389,16 @@ def _dense(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype) ->
     return y + p["bias"].to(dtype) if "bias" in p else y
 
 
+def _row_dense(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """A row-parallel projection (``o_proj``, ``down_proj``): under tensor
+    parallelism (``tp``, the v1 engine's ``TPContext``) this rank's partial,
+    summed over the group by ``tp.reduce``, then the bias, once."""
+    if tp is None:
+        return _dense(x, p, spec, dtype)
+    y = tp.reduce(torch.einsum(spec, x.to(dtype), p["kernel"].to(dtype)))
+    return y + p["bias"].to(dtype) if "bias" in p else y
+
+
 def rms_norm_fwd(x: torch.Tensor, p: Dict[str, Any], eps: float, dtype: torch.dtype,
                  offset: bool = False) -> torch.Tensor:
     """The reference ``RMSNorm``: fp32 statistics, ``(1 + w)`` when ``offset``."""
@@ -425,14 +435,16 @@ def _norm_params(cfg: TransformerConfig, tree: Dict[str, Any], j: int):
 
 
 def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-                  layer_idx: int, kv_cache: Optional[KVCache] = None):
+                  layer_idx: int, kv_cache: Optional[KVCache] = None, tp=None):
     """The reference ``Attention``: projections, clip, qk-norm, rope, then
     ``ops.attention`` (the flash kernels on CUDA). With a ``kv_cache``
     ``(ck, cv, cache_len)`` (the v1 engine's dense cache), k and v are written
     into the cache at ``[cache_len, cache_len + S)`` in place, attention runs
     over the cache with ``kv_len = cache_len + S`` (``attention_xla``, on CUDA
     too, as in the reference), and ``(out, (ck, cv, cache_len + S))`` is
-    returned."""
+    returned. With ``tp`` the projections hold this rank's heads (read off
+    the arrays), ALiBi takes their slopes, and ``o_proj`` reduces over the
+    group."""
     from ..ops.attention import attention
 
     dt = cfg.dtype
@@ -459,15 +471,19 @@ def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, po
         k, v = ck, cv
         kv_len = cache_len + S
         new_cache = (ck, cv, kv_len)
-    slopes = alibi_slopes(cfg.n_heads) if cfg.pos_emb == "alibi" else None
+    slopes = None
+    if cfg.pos_emb == "alibi":
+        slopes = tp.local_slopes(cfg.n_heads) if tp is not None else alibi_slopes(cfg.n_heads)
     out = attention(q, k, v, causal=cfg.causal, kv_len=kv_len, alibi_slopes=slopes,
                     window=cfg.window_for(layer_idx), scale=cfg.attn_scale)
-    out = _dense(out, p["o_proj"], "bshk,hkd->bsd", dt)
+    out = _row_dense(out, p["o_proj"], "bshk,hkd->bsd", dt, tp)
     return (out, new_cache) if kv_cache is not None else out
 
 
-def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """The reference ``MLP``: gated (swiglu, geglu) or not (gelu tanh, exact gelu, relu)."""
+def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The reference ``MLP``: gated (swiglu, geglu) or not (gelu tanh, exact
+    gelu, relu). With ``tp``: this rank's hidden columns, ``down_proj``
+    reduced over the group."""
     dt = cfg.dtype
     if cfg.activation in ("swiglu", "geglu"):
         gate = _dense(x, p["gate_proj"], "bsd,df->bsf", dt)
@@ -481,33 +497,35 @@ def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor) -> torch
             h = torch.relu(h)
         else:
             h = torch.nn.functional.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
-    return _dense(h, p["down_proj"], "bsf,fd->bsd", dt)
+    return _row_dense(h, p["down_proj"], "bsf,fd->bsd", dt, tp)
 
 
 def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
               layer_idx: int, kv_cache: Optional[KVCache] = None, train: bool = True,
-              moe_aux: Optional[List] = None):
+              moe_aux: Optional[List] = None, tp=None):
     """The reference ``Block``: sequential pre-norm, ``parallel`` (gpt-neox),
     ``parallel_shared`` (one norm feeds both branches) or post-LN. With a
     ``kv_cache``, returns ``(x, new_cache)``. An MoE block drops tokens by
     capacity only when ``train``, and appends ``(l_aux, exp_counts)`` to
-    ``moe_aux`` when one is given."""
+    ``moe_aux`` when one is given. ``tp``: the v1 engine's tensor-parallel
+    context (this rank's heads and hidden columns; an MoE block's experts
+    hold I / tp hidden columns, and their output reduces over the group)."""
     norm = lambda h, j: _norm(cfg, h, _norm_params(cfg, p, j))
     new_cache = None
 
     def mlp(h):
         if "moe" not in p:
-            return mlp_fwd(cfg, p["mlp"], h)
+            return mlp_fwd(cfg, p["mlp"], h, tp)
         out, l_aux, exp_counts = moe_block(cfg)(p["moe"], h, train=train)
         if moe_aux is not None:
             moe_aux.append((l_aux, exp_counts))
-        return out
+        return out if tp is None else tp.reduce(out)
 
     def attn(h):
         nonlocal new_cache
         if kv_cache is None:
-            return attention_fwd(cfg, p["attn"], h, positions, layer_idx)
-        out, new_cache = attention_fwd(cfg, p["attn"], h, positions, layer_idx, kv_cache)
+            return attention_fwd(cfg, p["attn"], h, positions, layer_idx, tp=tp)
+        out, new_cache = attention_fwd(cfg, p["attn"], h, positions, layer_idx, kv_cache, tp=tp)
         return out
 
     if cfg.block_type == "parallel_shared":
@@ -532,7 +550,7 @@ def _read_block_fwd(cfg, params, i: int, train: bool, x, positions, moe_aux=None
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
                         positions: Optional[torch.Tensor] = None, return_hidden: bool = False,
                         kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None,
-                        moe_aux: Optional[List] = None):
+                        moe_aux: Optional[List] = None, tp=None):
     """The reference ``Transformer.__call__``: embeddings (learned, rope,
     ALiBi or no positions; ``embed_scale``, ``embedding_norm``), the blocks
     (checkpointed one by one through ``runtime.activation_checkpointing`` when
@@ -543,7 +561,11 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     (``CausalLM.init_kv_caches``), returns ``(logits or hidden, new_caches)``.
     ``train`` gates MoE capacity drops only; by default a forward without
     caches drops and one with caches never does, as in the reference. Each
-    MoE block appends its ``(l_aux, exp_counts)`` to ``moe_aux`` when given."""
+    MoE block appends its ``(l_aux, exp_counts)`` to ``moe_aux`` when given.
+    ``tp`` (the v1 engine's tensor parallelism; no checkpointing): the
+    blocks run on this rank's shard, and a vocab-sharded ``wte`` / head
+    looks up this rank's rows and sums over the group, and computes its
+    vocab columns and gathers them, so every rank gets the whole logits."""
     if cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
         raise NotImplementedError("scan_layers and the BERT heads are not ported yet")
     train = (kv_caches is None) if train is None else bool(train)
@@ -552,7 +574,10 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     ids = input_ids.long()
     if positions is None:
         positions = torch.arange(S, device=ids.device).expand(B, S)
-    x = torch.nn.functional.embedding(ids, params["wte"]).to(dt)
+    if tp is not None:
+        x = tp.embed(params["wte"], ids, cfg.vocab_size).to(dt)
+    else:
+        x = torch.nn.functional.embedding(ids, params["wte"]).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dt)
     if cfg.pos_emb == "learned":
@@ -567,8 +592,10 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     for i in range(cfg.n_layers):
         if kv_caches is not None:
             x, c = block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train,
-                             kv_cache=kv_caches[i], moe_aux=moe_aux)
+                             kv_cache=kv_caches[i], moe_aux=moe_aux, tp=tp)
             new_caches.append(c)
+        elif tp is not None:
+            x = block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train, moe_aux=moe_aux, tp=tp)
         elif cfg.remat:
             # the backward's recompute appends to this block's own list, which nobody reads by then
             sink: List = []
@@ -587,6 +614,8 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     else:
         logits = _dense(x, params["lm_head"], "bsd,dv->bsv", dt)
     logits = logits.float()
+    if tp is not None:
+        logits = tp.vocab_logits(logits, cfg.vocab_size)
     return (logits, new_caches) if kv_caches is not None else logits
 
 

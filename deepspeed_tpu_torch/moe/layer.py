@@ -30,8 +30,8 @@ combine, which then contracts over every expert on every rank as the one
 device does. Each rank keeps its own rows of the combine. Every rank of an
 expert group sees the same rows, so the gate's noise (RSample) must come
 from generators seeded alike on those ranks. The expert-TP token mappings
-(``moe/mappings.py``) and the reference's informational ``ep_size`` field
-are not ported.
+are in ``moe/mappings.py``; the reference's informational ``ep_size`` field
+is not ported.
 """
 
 import contextlib

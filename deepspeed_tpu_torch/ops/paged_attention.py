@@ -30,7 +30,9 @@ representation; the CUDA kernels multiply by the scales next to their
 products.
 
 The pools are updated in place (``update_kv_pages``) where the JAX code
-donates them. The TP sharding helpers come with a later slice.
+donates them. Under tensor-parallel serving a rank's pool holds KVH / tp of
+the KV heads of every global block (``shard_kv_pool``): the kernels read
+KVH off the arrays and need no TP awareness.
 """
 
 import functools
@@ -71,6 +73,26 @@ def make_kv_pool(shape: Sequence[int], dtype: torch.dtype, device, kv_quant_bits
     if kv_quant_bits:
         raise ValueError(f"kv_quant_bits must be 0 or 8, got {kv_quant_bits}")
     return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def kv_pool_shard_shape(shape: Sequence[int], tp: int) -> Tuple[int, ...]:
+    """A rank's pool shape under tensor-parallel serving: KVH / tp heads of
+    every block (JAX ``kv_pool_shard_spec``: the KVH axis on ``tensor``)."""
+    shape = tuple(shape)
+    if shape[-2] % tp:
+        raise ValueError(f"{shape[-2]} KV heads do not split over tensor_parallel={tp}")
+    return shape[:-2] + (shape[-2] // tp, shape[-1])
+
+
+def shard_kv_pool(pool: KVPool, tp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of a whole pool: KVH / tp heads of every global
+    block (JAX ``shard_kv_pool``; the engine allocates its slice directly,
+    ``kv_pool_shard_shape``). An int8 ``(codes, scales)`` pool raises, as in
+    the JAX package."""
+    if isinstance(pool, tuple):
+        raise NotImplementedError("int8 KV pools do not shard over the tensor axis yet")
+    kvh = kv_pool_shard_shape(pool.shape, tp)[-2]
+    return pool.narrow(-2, rank * kvh, kvh).contiguous()
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,6 @@
 """Fused dequantize-matmul for weight-only-quantised serving.
 
-Port of ``deepspeed_tpu/ops/pallas/quantized_matmul.py`` (without the
-TP-sharded wrapper). The layout is matmul-native: for a weight in its 2D
+Port of ``deepspeed_tpu/ops/pallas/quantized_matmul.py``. The layout is matmul-native: for a weight in its 2D
 matmul form ``(K, N)``, codes are int8 ``(K, N)`` (or packed int4
 ``(K/2, N)``) and scales are fp32 ``(K/g, N)``: symmetric absmax scaling per
 (K-group, output column).
@@ -25,6 +24,10 @@ matmul form ``(K, N)``, codes are int8 ``(K, N)`` (or packed int4
   for bit. The split launches of a device (this kernel's and
   ``moe_grouped_gemm``'s) share that buffer, so they must not run
   concurrently on several streams.
+- ``quantized_matmul_sharded``: the same kernel on a tensor-parallel rank's
+  codes (quantised after sharding, so groups never cross the shard edge):
+  N-sharded codes give this rank's output columns, K-sharded codes its
+  partial product, which the layer's row-parallel reduce sums once.
 """
 
 from typing import Tuple
@@ -175,3 +178,16 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, 
 
 
 quantized_matmul.launches = 0  # kernel launches since the last reset (CPU calls do not count)
+
+
+def quantized_matmul_sharded(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, packed: bool = False,
+                             qmm=quantized_matmul) -> torch.Tensor:
+    """``quantized_matmul`` on one rank's TP-sharded codes (JAX
+    ``quantized_matmul_sharded``, ``quantized_matmul.py:195``). The JAX
+    wrapper teaches GSPMD the matmul's algebra and, for K-sharded codes,
+    sums the partials over the K axis inside the wrapper; here each rank is
+    a process holding its shard, so this is ``qmm`` (the kernel, or its plain
+    version) on the rank's columns or K rows. The K partials are not reduced
+    here: the row-parallel projections (``o_proj``, ``down_proj``) feed the
+    layer's ``tp_all_reduce`` seam, which sums them once."""
+    return qmm(x, q, scales, packed=packed)

@@ -8,14 +8,17 @@ process group, and an axis's "group" is a ``torch.distributed`` process
 group of the ranks that differ only along it (the reference's
 ``utils/groups.py``). The axes and their order are the JAX package's:
 ``pipe, data, fsdp, expert, seq, context, tensor``, first slowest, so the
-fsdp groups are runs of neighbouring ranks. ``data``, ``fsdp`` and
-``expert`` may exceed 1; the other axes above 1 raise
-``NotImplementedError``. The batch is split over ``data`` x ``fsdp`` only
+fsdp groups are runs of neighbouring ranks. ``data``, ``fsdp``,
+``expert`` and ``tensor`` may exceed 1; the other axes above 1 raise
+``NotImplementedError``. ``tensor`` is the serving axis of tensor
+parallelism (``serving_mesh``): the training config still refuses it. The batch is split over ``data`` x ``fsdp`` only
 (JAX ``MeshTopology.batch_axes``): the ranks of an expert group see the
 same rows. Besides the axis groups there is the ``expert_data`` group, the
 ranks that share this rank's expert coordinate (data x fsdp), over which
 expert leaves reduce their gradients and MoE layers gate their tokens, and
 ZeRO++'s hpZ groups (``hpz_group``), runs of k neighbouring fsdp ranks.
+``mesh_signature`` names a mesh in step keys and journal fingerprints as the
+JAX package does.
 """
 
 from typing import Dict, Optional
@@ -25,7 +28,7 @@ from ..runtime.config import MESH_AXES, MeshConfig
 from .topology import ProcessTopology
 
 ALL_AXES = MESH_AXES
-PORTED_AXES = ("data", "fsdp", "expert")
+PORTED_AXES = ("data", "fsdp", "expert", "tensor")
 BATCH_AXES = ("data", "fsdp")
 
 
@@ -49,7 +52,7 @@ def _resolve_axis_sizes(cfg: MeshConfig, world_size: int) -> Dict[str, int]:
                          "device, so the mesh must cover exactly the process world")
     big = {a: s for a, s in sizes.items() if a not in PORTED_AXES and s > 1}
     if big:
-        raise NotImplementedError(f"mesh axes {big}: the port runs the data, fsdp and expert axes only")
+        raise NotImplementedError(f"mesh axes {big}: the port runs the data, fsdp, expert and tensor axes only")
     return sizes
 
 
@@ -98,6 +101,11 @@ class MeshTopology:
     def expert_parallel_size(self) -> int:
         return self.axis_size("expert")
 
+    @property
+    def model_parallel_size(self) -> int:
+        """The ``tensor`` axis: the tensor-parallel degree of serving."""
+        return self.axis_size("tensor")
+
     def _comm_lists(self, name: str):
         if name == "expert_data":
             return self.topology.get_axes_comm_lists(BATCH_AXES)
@@ -105,17 +113,21 @@ class MeshTopology:
 
     def process_group(self, axis: str):
         """The process group of this rank's ranks along ``axis`` (``data``,
-        ``fsdp``, ``expert``, or ``expert_data``: data x fsdp at this rank's
-        expert coordinate); ``None``, the default group, when that is the
-        whole world."""
+        ``fsdp``, ``expert``, ``tensor``, or ``expert_data``: data x fsdp at
+        this rank's expert coordinate); ``None``, the default group, when
+        that is the whole world. The ``tensor`` groups exist only when the
+        axis exceeds 1 (every rank knows the sizes, so all agree)."""
         if self._groups is None:
             groups = {}
-            for a in PORTED_AXES + ("expert_data",):  # every rank creates every group, in this order
+            axes = [a for a in PORTED_AXES if a != "tensor" or self.axis_size("tensor") > 1]
+            for a in axes + ["expert_data"]:  # every rank creates every group, in this order
                 for ranks in self._comm_lists(a):
                     g = None if len(ranks) == self.n_devices else dist.new_group(ranks)
                     if self.rank in ranks:
                         groups[a] = g
             self._groups = groups
+        if axis not in self._groups:  # the tensor axis at size 1: this rank alone
+            raise ValueError(f"no {axis!r} group: the axis has size {self.axis_size(axis)}")
         return self._groups[axis]
 
     def hpz_group(self, k: int):
@@ -153,6 +165,25 @@ def initialize_mesh(config: Optional[MeshConfig] = None, force: bool = False) ->
     if _TOPOLOGY is None or force:
         _TOPOLOGY = MeshTopology(config)
     return _TOPOLOGY
+
+
+def serving_mesh(tp: int = 1) -> MeshTopology:
+    """The serving mesh (JAX ``parallel/mesh.py:169``): ``tensor=tp`` with every
+    other rank of the world on ``data``. Each rank is one process: a tp = 2
+    engine runs in a world of (a multiple of) 2 ranks."""
+    return initialize_mesh(MeshConfig.from_dict({"data": -1, "tensor": int(tp)}))
+
+
+def mesh_signature(topo: Optional[MeshTopology] = None) -> str:
+    """Compact topology identity for step keys and journal fingerprints (JAX
+    ``parallel/mesh.py:179``): the axes above 1 in mesh order
+    (``mesh[tensor2]``), ``mesh[1]`` for a trivial mesh, ``mesh[none]`` with
+    no mesh."""
+    topo = topo if topo is not None else _TOPOLOGY
+    if topo is None:
+        return "mesh[none]"
+    axes = ",".join(f"{a}{topo.axis_sizes[a]}" for a in topo.axis_order if topo.axis_sizes[a] > 1)
+    return f"mesh[{axes or '1'}]"
 
 
 def get_mesh_topology(required: bool = True) -> Optional[MeshTopology]:

@@ -207,8 +207,8 @@ class MeshConfig:
     one axis takes what the others leave. The port runs ``data``, ``fsdp``
     (ZeRO's shards live on ``fsdp`` when it exceeds 1, else on ``data``)
     and ``expert`` (each rank holds E / expert of an MoE layer's experts);
-    ``tensor``, ``pipe``, ``seq`` and ``context`` above 1 raise
-    ``NotImplementedError``."""
+    ``tensor`` serves (``parallel.mesh.serving_mesh``) but does not train;
+    ``pipe``, ``seq`` and ``context`` above 1 raise ``NotImplementedError``."""
     data: int = -1
     fsdp: int = 1
     tensor: int = 1
@@ -280,8 +280,9 @@ def _check_ported(d: Dict) -> None:
     big = {axis: n for axis, n in mesh.items() if axis not in ("axis_order", "data", "fsdp", "expert")
            and n not in (-1, 0, 1)}
     if big:
-        raise NotImplementedError(f"mesh axes {big}: the port runs the data, fsdp and expert axes only (tensor, "
-                                  "pipe, seq and context parallelism are not ported yet)")
+        raise NotImplementedError(f"mesh axes {big}: the port trains over the data, fsdp and expert axes only "
+                                  "(tensor parallelism serves through InferenceEngineV2 and init_inference but does "
+                                  "not train; pipe, seq and context parallelism are not ported yet)")
     for key in _UNPORTED_ENABLED:
         section = d.get(key) or {}
         if isinstance(section, dict) and section.get("enabled", False):

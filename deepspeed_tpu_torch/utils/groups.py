@@ -8,8 +8,9 @@ process group along a parallel dimension. The data-parallel ranks are
 else on ``data``. The expert groups are the ranks along the mesh's
 ``expert`` axis (they see the same rows and hold different experts); the
 expert-data group of a rank is the ranks that share its expert coordinate
-(data x fsdp), over which its experts' gradients reduce. Tensor, pipe,
-sequence and context parallelism are 1 here.
+(data x fsdp), over which its experts' gradients reduce. The tensor
+(model-parallel) getters read the ``tensor`` axis, which tensor-parallel
+serving runs over. Pipe, sequence and context parallelism are 1 here.
 """
 
 from ..parallel.mesh import get_mesh_topology, initialize_mesh, reset_mesh  # noqa: F401 (re-export)
@@ -89,18 +90,25 @@ def get_zero_param_shard_size() -> int:
     return _topo().sharding_size
 
 
-def get_model_parallel_world_size() -> int:
-    return 1
+def get_tensor_model_parallel_world_size() -> int:
+    """The ``tensor`` axis's size (1 without a mesh)."""
+    topo = get_mesh_topology(required=False)
+    return topo.model_parallel_size if topo is not None else 1
 
 
-get_tensor_model_parallel_world_size = get_model_parallel_world_size
+def get_tensor_model_parallel_rank() -> int:
+    topo = get_mesh_topology(required=False)
+    return topo.axis_rank("tensor") if topo is not None else 0
 
 
-def get_model_parallel_rank() -> int:
-    return 0
+def get_tensor_model_parallel_group():
+    """The ranks along the ``tensor`` axis that hold this rank (the axis must exceed 1)."""
+    return _topo().process_group("tensor")
 
 
-get_tensor_model_parallel_rank = get_model_parallel_rank
+get_model_parallel_world_size = get_tensor_model_parallel_world_size
+get_model_parallel_rank = get_tensor_model_parallel_rank
+get_model_parallel_group = get_tensor_model_parallel_group
 
 
 def get_sequence_parallel_world_size() -> int:

@@ -2281,3 +2281,36 @@ def test_zeropp_falls_back_at_world_one_on_the_card(cuda):
             assert (engine.zeropp_active, engine.zeropp_reason) == (False, "ZeRO++ needs an fsdp axis > 1")
             assert not any(op.startswith(("quant", "hpz")) for op in engine.comm_stats)
     assert runs["zeropp"] == runs["plain"]
+
+
+# ---------------------------------------------------------------- tensor-parallel serving's reduce (two ranks)
+def test_tp_all_reduce_and_k_sharded_qmm_over_named_gloo(cuda, tmp_path):
+    """Two ranks on the one card over gloo named for CUDA tensors: the exact
+    reduce within 1e-6 of the sum (relative), the interleaved one bit-equal
+    to it, the 8-bit one within the EQuARX bound, each rank the same bits;
+    and ``quantized_matmul`` on each rank's K rows of int8 codes, its partial
+    reduced, within the fp32 quantised-matmul tolerance of the unsharded
+    product (the plain version over the same codes)."""
+    import torch_tp_worker as tw
+
+    tw.spawn_cuda(2, tw.cuda_reduce_cases, str(tmp_path))
+    r0, r1 = (torch.load(tmp_path / f"cuda_rank{r}.pt", weights_only=False) for r in (0, 1))
+    want = r0["want"]
+    assert (r0["exact"] - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert torch.equal(r0["il"], r0["exact"])
+    bound = 2 * (r0["amax"][:, None] / 127) / 2 + 1e-6
+    assert bool(((r0["b8"] - want).abs() <= bound).all())
+    for key in ("exact", "il", "b8", "qmm"):
+        assert torch.equal(r0[key], r1[key]), key
+    err = (r0["qmm"] - r0["qmm_want"]).abs().max().item() / max(1.0, r0["qmm_want"].abs().max().item())
+    assert err <= TOL[torch.float32], err
+    assert r0["launches"] == 1 and r1["launches"] == 1
+
+
+def test_cuda_tensor_on_unnamed_gloo_raises(cuda, tmp_path):
+    import torch_tp_worker as tw
+    import torch_zero_worker as zw
+
+    zw.spawn(1, tw.cuda_on_unnamed_gloo, str(tmp_path))
+    got = torch.load(tmp_path / "unnamed_rank0.pt", weights_only=False)
+    assert got["named"] is None and "never falls back" in got["msg"]

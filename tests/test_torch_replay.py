@@ -252,5 +252,5 @@ def test_determinism_audit_and_whatif(tiny):
         r["metric"] for r in report["rows"]}
     assert report["candidate"]["tokens_per_sec"] > 0 and report["baseline"]["tokens_per_sec"] > 0
     assert report["candidate"]["dispatches"] > 0
-    with pytest.raises(NotImplementedError, match="tensor_parallel=2"):
+    with pytest.raises(RuntimeError, match="tensor_parallel=2"):
         build_engine_from_session(session, overrides={"DS_TPU_TP": 2}, model=cfg, params=tparams, device="cpu")

@@ -60,10 +60,10 @@ TINY = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=32, max
             activation="swiglu", pos_emb="rope", tie_embeddings=False)
 LOAD = dict(n_requests=6, arrival_rate=float("inf"), prompt_len_range=(4, 20), max_new_tokens=12, vocab_size=128,
             seed=0, shared_prefix_len=24)
-# metric families only the reference registers, by design: its comm facade's counters (the port has no comm/ yet)
-# and tensor-parallel serving's degree and allreduce traffic (one device); health_alerts_total depends on wall
-# time (the SLO-burn detector reads each request's TTFT against 1 s), so neither side's is compared
-REFERENCE_ONLY = ("comm_bytes_total", "comm_ops_total", "tp_degree", "infer_tp_allreduce_bytes_total")
+# metric families only the reference registers, by design: its comm facade's counters (the port's comm facade
+# counts nothing); health_alerts_total depends on wall time (the SLO-burn detector reads each request's TTFT
+# against 1 s), so neither side's is compared
+REFERENCE_ONLY = ("comm_bytes_total", "comm_ops_total")
 TIMED = ("health_alerts_total",)
 LEDGER_COUNTS = ("useful_tokens", "slot_tokens", "goodput_fraction", "spec_proposed_tokens", "spec_accepted_tokens",
                  "spec_rejected_tokens", "prefix_hit_tokens", "readmit_tokens", "cow_copy_bytes")

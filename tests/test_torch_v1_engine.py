@@ -13,8 +13,10 @@ reference, with the scenarios of ``tests/unit/test_inference.py``:
   ``fused=False`` stops once every row is done, as the reference's loop;
 - seeded sampling repeats itself; top-p keeps the smallest prefix reaching
   p; top-p 0 is greedy; the sliding window masks as a banded softmax;
-- ``init_kv_caches`` has the reference's shapes; tp_size 2, a checkpoint
-  path, a Hugging Face model and a prompt past ``max_out_tokens`` raise.
+- ``init_kv_caches`` has the reference's shapes; tp_size 2 in a world of one
+  process, a checkpoint path, a Hugging Face model and a prompt past
+  ``max_out_tokens`` raise (``tests/test_torch_serve_tp.py`` serves tp_size 2
+  over two ranks).
 """
 
 import jax
@@ -174,8 +176,8 @@ class _HFLike:
 
 
 @pytest.mark.parametrize("model,config,error", [
-    ("llama", {"tensor_parallel": {"tp_size": 2}}, NotImplementedError),
-    ("llama", {"tp": {"tp_size": 2}}, NotImplementedError),
+    ("llama", {"tensor_parallel": {"tp_size": 2}}, ValueError),  # a world of one process cannot hold tp 2
+    ("llama", {"tp": {"tp_size": 2}}, ValueError),
     ("/no/such/checkpoint", {}, NotImplementedError),
     (_HFLike(), {}, NotImplementedError),
 ])
