@@ -984,6 +984,9 @@ FLASH_CASES = {
     "sq_lt_sk": dict(B=4, Sq=512, Sk=1024, H=32, KVH=32, D=64, causal=True),
     "window": dict(B=4, Sq=1024, Sk=1024, H=32, KVH=32, D=64, causal=True, window=256),
     "alibi": dict(B=4, Sq=1024, Sk=1024, H=32, KVH=32, D=64, causal=True, alibi=True),
+    # a rank's attention under Ulysses at llama3_8b, seq 2: the whole 8,192-token row over 16 of 32 query heads and
+    # 4 of 8 KV heads (train_seq's shape, which trains in bf16: the fp32 bodies there take ~10 s a run)
+    "ulysses_llama3_8b": dict(B=1, Sq=8192, Sk=8192, H=16, KVH=4, D=128, causal=True, bf16_only=True),
 }
 
 
@@ -1174,7 +1177,7 @@ def run_train_kernel_phases(torch, dev, quick: bool):
     iters = 5 if quick else 20
     names = ["gpt2_1_3b"] if quick else list(FLASH_CASES)
     for dtype in (torch.bfloat16, torch.float32):
-        for name in names:
+        for name in (n for n in names if dtype == torch.bfloat16 or not FLASH_CASES[n].get("bf16_only")):
             for rec in phase_flash(torch, dev, dtype, name, iters):
                 log(rec)
                 what, tol = rec["tol"]
@@ -4682,6 +4685,12 @@ KERNEL_ROWS = [
      "flash_bwd.cu", "pallas/flash_attention.py:518"),
     ("fused_adam", "train", "fused_adam", "float32", dict(kernel="fused_adam", case="all"), "fused_adam.cu",
      "pallas/fused_adam.py:51"),
+    ("flash_fwd (ulysses)", "train_seq", "flash_fwd", "bfloat16", dict(kernel="flash_fwd", case="ulysses_llama3_8b"),
+     "flash_fwd.cu", "pallas/flash_attention.py:185"),
+    ("flash_bwd_dq (ulysses)", "train_seq", "flash_bwd_dq", "bfloat16",
+     dict(kernel="flash_bwd_dq", case="ulysses_llama3_8b"), "flash_bwd.cu", "pallas/flash_attention.py:417"),
+    ("flash_bwd_dkv (ulysses)", "train_seq", "flash_bwd_dkv", "bfloat16",
+     dict(kernel="flash_bwd_dkv", case="ulysses_llama3_8b"), "flash_bwd.cu", "pallas/flash_attention.py:518"),
     ("flash_fwd (bias)", "evoformer", "flash_fwd", "bfloat16", dict(kernel="flash_fwd (bias)", case="msa_row"),
      "flash_fwd.cu", "pallas/flash_attention.py:185"),
     ("flash_bwd_dq (bias)", "evoformer", "flash_bwd_dq", "bfloat16", dict(kernel="flash_bwd_dq (bias)",
@@ -5044,6 +5053,409 @@ def phase_serve_tp(torch, dev, serve_tokens=None) -> dict:
                 records=records, parity=parity, serve=rec)
 
 
+# ---------------------------------------------------------------- pipeline and sequence parallelism (two ranks, one card)
+PAR = 2  # ranks: two processes on the one card over gloo (NCCL takes one GPU a rank)
+PAR_TIMEOUT_S = 600
+PIPE_FP32 = dict(layers=4, steps=3)  # (a) fp32 parity at gpt2_1_3b's widths
+PIPE_STEPS = 6  # (b), (c): gpt2_1_3b at full depth, steps TIMED_FROM+1.. timed
+PIPE_MICRO = 2  # the train phase's 8-row batch as M = 4 micro-batches of 2 rows
+SEQ_FP32 = dict(layers=1, tokens=2048, steps=2)  # (a) fp32 parity at llama3_8b's widths
+SEQ_BF16 = dict(layers=2, tokens=8192, steps=4)  # (b) one row of 8,192 tokens; two full-depth replicas do not fit
+SKETCH_K = 4
+# fp32: losses, the grad norm and the whole tree of masters within 1e-5 relative, each leaf within 2 % of its
+# travel (as the CPU parity tests hold ZeRO); bf16: each step's loss within 1 % of one process's
+PAR_TOL = dict(fp32_rel=1e-5, leaf_travel=0.02, bf16_loss_rel=0.01)
+
+
+def sketch(torch, t, seed: int, k: int = SKETCH_K) -> list:
+    """k seeded random +-1 projections of ``t``, summed in fp64: ||sketch(a) - sketch(b)|| / ||sketch(b)||
+    estimates ||a - b|| / ||b|| without moving the tensors between processes."""
+    flat = t.detach().reshape(-1)
+    out = []
+    for j in range(k):
+        g = torch.Generator(device=flat.device).manual_seed(seed * k + j)
+        acc = torch.zeros((), dtype=torch.float64, device=flat.device)
+        for c in flat.split(1 << 25):
+            r = torch.randint(0, 2, c.shape, generator=g, device=c.device, dtype=torch.int8).double() * 2 - 1
+            acc += (c.double() * r).sum()
+        out.append(acc.item())
+    return out
+
+
+def sketches(torch, named) -> dict:
+    """{full-model path: sketch} over (path, tensor) pairs, each seeded by its path."""
+    import zlib
+
+    return {path: sketch(torch, t, zlib.crc32(path.encode()) & 0x7FFFFFF) for path, t in named}
+
+
+def sketch_rel(a: list, b: list) -> float:
+    return math.sqrt(sum((x - y)**2 for x, y in zip(a, b))) / max(math.sqrt(sum(y * y for y in b)), 1e-30)
+
+
+def stage_to_full(path: str, stage: int, lps: int):
+    """A stage tree's path as the whole model's (None for the last stage's tied copy of ``wte``)."""
+    group, rest = path.split("/", 1)
+    if group == "stages":
+        sub, leaf = rest.split("/", 1)
+        return f"layer_{stage * lps + int(sub.split('_')[1])}/{leaf}"
+    return None if (group == "embed" and stage > 0) else rest
+
+
+def pipe_config(torch, dtype, schedule: str) -> dict:
+    cfg = train_config(torch, "FusedAdam", dtype)
+    cfg.update(train_micro_batch_size_per_gpu=PIPE_MICRO, gradient_accumulation_steps=MICRO // PIPE_MICRO,
+               mesh={"pipe": PAR, "data": 1}, pipeline={"schedule": schedule})
+    return cfg
+
+
+def seq_config(torch, dtype, mesh) -> dict:
+    cfg = train_config(torch, "FusedAdam", dtype)
+    cfg.update(train_micro_batch_size_per_gpu=1, mesh=mesh)
+    return cfg
+
+
+def seq_batch(np, vocab: int, tokens: int) -> dict:
+    return {"input_ids": np.random.default_rng(1).integers(0, vocab, (1, tokens)).astype(np.int32)}
+
+
+def train_steps(torch, engine, data, steps: int, timed_from: int, counters, on_timed=None) -> dict:
+    """``steps`` train_batch calls; the counters (and ``on_timed``) reset before step ``timed_from`` + 1, the
+    steps after it timed on the host around a device sync."""
+    losses, t0 = [], None
+    for i in range(steps):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            for fn in counters:
+                fn.launches = 0
+            if on_timed is not None:
+                on_timed()
+            t0 = time.perf_counter()
+        losses.append(engine.train_batch(data))
+    torch.cuda.synchronize()
+    n = steps - timed_from
+    return dict(losses=[float(x) for x in losses], step_ms=(time.perf_counter() - t0) / n * 1e3, timed_steps=n,
+                launches={fn.__name__: fn.launches for fn in counters}, grad_norm=engine.get_global_grad_norm())
+
+
+def par_counters():
+    from deepspeed_tpu_torch.ops import flash_attention as fa, fused_adam as fad
+
+    return [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
+
+
+def pipe_case(torch, dev, rank: int, dtype_name: str, schedule: str) -> dict:
+    """A stage of gpt2_1_3b (fp32 at PIPE_FP32's depth, or bf16 at full depth) under ``schedule``: the train
+    phase's seed-0 weights and 8-row batch as 4 micro-batches of 2 rows."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    fp32 = dtype_name == "fp32"
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    cfg = gpt2_cfg(n_layers=PIPE_FP32["layers"], dtype=dtype) if fp32 else gpt2_cfg(dtype=dtype)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params,
+                                     config=pipe_config(torch, dtype, schedule), device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = train_batch_data(np, cfg.vocab_size)["input_ids"]
+    data = itertools.cycle([{"input_ids": ids[j:j + PIPE_MICRO]} for j in range(0, MICRO, PIPE_MICRO)])
+    at0 = {}
+    steps = PIPE_FP32["steps"] if fp32 else PIPE_STEPS
+    res = train_steps(torch, engine, data, steps, 1 if fp32 else TIMED_FROM, par_counters(),
+                      lambda: at0.update(recv=engine.recv_seconds, tied=engine.tied_reduce_seconds))
+    res.update(stage=engine.stage_id, peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+               recv_ms_per_step=(engine.recv_seconds - at0["recv"]) / res["timed_steps"] * 1e3,
+               tied_reduce_ms_per_step=(engine.tied_reduce_seconds - at0["tied"]) / res["timed_steps"] * 1e3,
+               sent_bytes=engine.p2p.sent_bytes, peak_stash=engine.peak_stash,
+               leaves=len(engine.parameters()))
+    lps = cfg.n_layers // PAR
+    if fp32:
+        res["sketch"] = sketches(torch, [(stage_to_full(p, engine.stage_id, lps), t) for p, t in
+                                         zip(engine._paths, engine.parameters())
+                                         if stage_to_full(p, engine.stage_id, lps) is not None])
+    wte = engine.parameters()[engine._paths.index("embed/wte")].detach()
+    if rank == PAR - 1:  # the tied copy goes to the first stage, which compares it bit for bit
+        dist.send(wte.contiguous(), 0)
+    else:
+        other = torch.empty_like(wte)
+        dist.recv(other, PAR - 1)
+        res["wte_bit_equal"] = torch.equal(other, wte)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def seq_case(torch, dev, rank: int, dtype_name: str, axis: str) -> dict:
+    """llama3_8b widths at SEQ_FP32's or SEQ_BF16's depth and tokens, one row, over ``axis`` 2."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    fp32 = dtype_name == "fp32"
+    dims = SEQ_FP32 if fp32 else SEQ_BF16
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    cfg = model_cfg(n_layers=dims["layers"], dtype=dtype)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params,
+                                     config=seq_config(torch, dtype, {axis: PAR}), device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = itertools.repeat(seq_batch(np, cfg.vocab_size, dims["tokens"]))
+
+    def zero_comm():
+        for v in engine._sp.stats.values():
+            v[:] = [0, 0, 0.0]
+
+    res = train_steps(torch, engine, data, dims["steps"], 1, par_counters(), zero_comm)
+    res.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30, sp=(engine._sp.kind, engine._sp.rank),
+               comm={k: dict(calls=v[0] / res["timed_steps"], mb=v[1] / res["timed_steps"] / 2**20,
+                             ms=v[2] / res["timed_steps"] * 1e3) for k, v in engine._sp.stats.items()})
+    if fp32:
+        res["sketch"] = sketches(torch, zip(engine._paths, engine.parameters()))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def par_rank(rank: int, store: str, out_dir: str, cases) -> None:
+    """A rank of train_pipe / train_seq: gloo named for CUDA tensors over a file store, then each case."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.parallel.mesh import reset_mesh
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_distributed(device=dev, backend="gloo", init_method=f"file://{store}", rank=rank, world_size=PAR,
+                          verbose=False)
+    try:
+        for phase, dtype_name, variant in cases:
+            t0 = time.perf_counter()
+            reset_mesh()
+            fn = pipe_case if phase == "pipe" else seq_case
+            res = fn(torch, dev, rank, dtype_name, variant)
+            res["seconds"] = time.perf_counter() - t0
+            torch.save(res, os.path.join(out_dir, f"{phase}_{dtype_name}_{variant}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(torch, cases) -> dict:
+    """Two ranks on the one card, each running every case; every failure of a rank is fatal."""
+    import multiprocessing as mp
+
+    from deepspeed_tpu_torch.ops import _build
+
+    _build.lib()  # built before the ranks start, so that they only load it
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=par_rank, args=(r, os.path.join(d, "store"), d, cases)) for r in range(PAR)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.time() + PAR_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.time() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break  # a rank failed: the other would wait on it
+            time.sleep(1)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"ranks exited with {codes} after {time.perf_counter() - t0:.0f} s (cases {cases})")
+        return {c: [torch.load(os.path.join(d, f"{c[0]}_{c[1]}_{c[2]}_rank{r}.pt"), weights_only=False)
+                    for r in range(PAR)] for c in cases}
+
+
+def one_process(torch, dev, model, config, data, steps: int, timed_from: int, want_sketch: bool) -> dict:
+    """The one-process engine on the same weights and batches, for the ranks to be held to."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine, _, _, _ = dst.initialize(model=CausalLM(model), model_parameters=params, config=config, device=dev)
+    del params
+    if want_sketch:
+        init = sketches(torch, zip(engine._paths, engine.parameters()))
+    res = train_steps(torch, engine, data, steps, timed_from, par_counters())
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if want_sketch:
+        res.update(sketch=sketches(torch, zip(engine._paths, engine.parameters())), init_sketch=init)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sketch_errors(ref: dict, init: dict, got: dict) -> dict:
+    """The masters against the reference's, from the sketches: the whole tree's relative distance, and each
+    leaf's distance over how far the reference moved it (its travel; the sketches are linear, so the travel's
+    sketch is the difference of two). k_proj's bias, whose true gradient is zero (Adam moves it by each
+    engine's own fp32 noise), is left out of the per-leaf share and reported apart."""
+    dist2 = lambda a, b: sum((x - y)**2 for x, y in zip(a, b))  # noqa: E731
+    whole = math.sqrt(sum(dist2(got[p], ref[p]) for p in ref) / sum(sum(y * y for y in ref[p]) for p in ref))
+    share = {p: math.sqrt(dist2(got[p], ref[p]) / max(dist2(ref[p], init[p]), 1e-300)) for p in ref
+             if not p.endswith("k_proj/bias")}
+    worst = max(share, key=share.get)
+    return dict(tree_rel=whole, max_leaf_over_travel=share[worst], worst_leaf=worst, leaves=len(ref),
+                k_bias_over_travel=max([math.sqrt(dist2(got[p], ref[p]) / max(dist2(ref[p], init[p]), 1e-300))
+                                        for p in ref if p.endswith("k_proj/bias")] or [0.0]))
+
+
+def masters_ok(m: dict) -> bool:
+    return m["tree_rel"] <= PAR_TOL["fp32_rel"] and m["max_leaf_over_travel"] <= PAR_TOL["leaf_travel"]
+
+
+def phase_train_pipe(torch, dev, card: str, want=None) -> dict:
+    """Pipeline parallelism at pipe 2 as two processes on the one card (``run_ranks``): (a) gpt2_1_3b widths at
+    4 layers in fp32, 1F1B and GPipe, against the one-process engine on the same weights and batches; (b)
+    gpt2_1_3b at full depth (12 layers a stage) in bf16 with FusedAdam, 1F1B, against the train phase's first
+    six losses (``want``; else a one-process run here); (c) GPipe at the same size. Returns each kernel's
+    launches per step in (b) (rank 0's and rank 1's summed) and the records."""
+    import itertools
+
+    import numpy as np
+
+    batch = train_batch_data(np, 50257)
+    ref32 = one_process(torch, dev, gpt2_cfg(n_layers=PIPE_FP32["layers"], dtype=torch.float32),
+                        train_config(torch, "FusedAdam", torch.float32), itertools.repeat(batch), PIPE_FP32["steps"],
+                        1, True)
+    if want is None:
+        want = one_process(torch, dev, gpt2_cfg(dtype=torch.bfloat16), train_config(torch, "FusedAdam",
+                                                                                     torch.bfloat16),
+                           itertools.repeat(batch), PIPE_STEPS, TIMED_FROM, False)["losses"]
+    cases = [("pipe", "fp32", "1f1b"), ("pipe", "fp32", "gpipe"), ("pipe", "bf16", "1f1b"), ("pipe", "bf16", "gpipe")]
+    res = run_ranks(torch, cases)
+    records, ok = [], True
+    for schedule in ("1f1b", "gpipe"):
+        ranks = res[("pipe", "fp32", schedule)]
+        got = {**ranks[0]["sketch"], **ranks[1]["sketch"]}
+        rec = dict(phase="train_pipe", case="a", model="gpt2_1_3b", layers=PIPE_FP32["layers"], dtype="float32",
+                   schedule=schedule, pipe=PAR, micro_batches=MICRO // PIPE_MICRO, rows=PIPE_MICRO, seq=SEQ,
+                   losses=ranks[0]["losses"], one_process_losses=ref32["losses"],
+                   loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref32["losses"])),
+                   grad_norm_rel_err=abs(ranks[0]["grad_norm"] - ref32["grad_norm"]) / ref32["grad_norm"],
+                   masters=sketch_errors(ref32["sketch"], ref32["init_sketch"], got),
+                   same_loss_on_stages=ranks[0]["losses"] == ranks[1]["losses"],
+                   wte_bit_equal=ranks[0]["wte_bit_equal"], tol=PAR_TOL["fp32_rel"], card=card)
+        log(rec)
+        records.append(rec)
+        ok = ok and rec["loss_max_rel_err"] <= PAR_TOL["fp32_rel"] and rec["grad_norm_rel_err"] <= PAR_TOL["fp32_rel"] \
+            and masters_ok(rec["masters"]) and rec["same_loss_on_stages"] and rec["wte_bit_equal"]
+    launches = {}
+    for schedule, case in (("1f1b", "b"), ("gpipe", "c")):
+        ranks = res[("pipe", "bf16", schedule)]
+        losses = ranks[0]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want[:PIPE_STEPS])]
+        rec = dict(phase="train_pipe", case=case, model="gpt2_1_3b", layers=24, layers_per_stage=12, dtype="bfloat16",
+                   schedule=schedule, pipe=PAR, backend="gloo (host-staged)", micro_batches=MICRO // PIPE_MICRO,
+                   rows=PIPE_MICRO, seq=SEQ, steps=PIPE_STEPS, timed_steps=f"{TIMED_FROM + 1}-{PIPE_STEPS}",
+                   step_ms=max(r["step_ms"] for r in ranks), step_ms_per_rank=[r["step_ms"] for r in ranks],
+                   peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+                   recv_blocked_ms_per_step=[r["recv_ms_per_step"] for r in ranks],
+                   tied_wte_reduce_ms_per_step=[r["tied_reduce_ms_per_step"] for r in ranks],
+                   peak_stash=[r["peak_stash"] for r in ranks], losses=losses, one_process_losses=want[:PIPE_STEPS],
+                   loss_rel_err=rel, wte_bit_equal=ranks[0]["wte_bit_equal"],
+                   same_loss_on_stages=losses == ranks[1]["losses"],
+                   launches_per_step=[{k: v / r["timed_steps"] for k, v in r["launches"].items()} for r in ranks],
+                   tokens_per_s=MICRO * SEQ / (max(r["step_ms"] for r in ranks) / 1e3),
+                   seconds=max(r["seconds"] for r in ranks), card=card)
+        log(rec)
+        records.append(rec)
+        ok = ok and max(rel) <= PAR_TOL["bf16_loss_rel"] and rec["wte_bit_equal"] and rec["same_loss_on_stages"] \
+            and all(np.isfinite(losses))
+        if schedule == "1f1b":
+            launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+            per_step = {k: v / ranks[0]["timed_steps"] for k, v in launches.items()}
+            # each stage: 12 blocks x 4 micro-batches a step through each flash kernel, one FusedAdam launch
+            want_l = {"flash_fwd": 96, "flash_bwd_dq": 96, "flash_bwd_dkv": 96, "fused_adam": 2}
+            if per_step != want_l:
+                raise AssertionError(f"train_pipe: launches per step {per_step}, expected {want_l}")
+    if not ok:
+        raise AssertionError(f"train_pipe failed: {records}")
+    return dict(launches=launches, records=records)
+
+
+def phase_train_seq(torch, dev, card: str) -> dict:
+    """Sequence parallelism at seq 2 (Ulysses) and context 2 (ring) as two processes on the one card: (a)
+    llama3_8b widths at 1 layer and 2,048 tokens in fp32 against the one-process engine; (b) at 2 layers, one
+    row of 8,192 tokens in bf16 with FusedAdam, 4 steps each, against the one-process engine at the same
+    tokens. Returns the Ulysses run's launches (rank 0's) and the records."""
+    import itertools
+
+    import numpy as np
+
+    refs = {}
+    for name, dims, dtype in (("fp32", SEQ_FP32, torch.float32), ("bf16", SEQ_BF16, torch.bfloat16)):
+        cfg = model_cfg(n_layers=dims["layers"], dtype=dtype)
+        refs[name] = one_process(torch, dev, cfg, seq_config(torch, dtype, {"data": 1}),
+                                 itertools.repeat(seq_batch(np, cfg.vocab_size, dims["tokens"])), dims["steps"], 1,
+                                 name == "fp32")
+    cases = [("seq", d, a) for d in ("fp32", "bf16") for a in ("seq", "context")]
+    res = run_ranks(torch, cases)
+    records, ok, launches = [], True, {}
+    for (_, dtype_name, axis), ranks in res.items():
+        ref = refs[dtype_name]
+        dims = SEQ_FP32 if dtype_name == "fp32" else SEQ_BF16
+        losses = ranks[0]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        rec = dict(phase="train_seq", case="a" if dtype_name == "fp32" else "b", model="llama3_8b",
+                   layers=dims["layers"], dtype="float32" if dtype_name == "fp32" else "bfloat16", axis=axis, size=PAR,
+                   attention="ulysses (flash kernels)" if axis == "seq" else "ring (plain matmul blocks)",
+                   backend="gloo (host-staged)", tokens=dims["tokens"], steps=dims["steps"], losses=losses,
+                   one_process_losses=ref["losses"], loss_rel_err=rel,
+                   grad_norm_rel_err=abs(ranks[0]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                   step_ms=max(r["step_ms"] for r in ranks), one_process_step_ms=ref["step_ms"],
+                   peak_gb_per_rank=[r["peak_gb"] for r in ranks], one_process_peak_gb=ref["peak_gb"],
+                   comm_per_step=ranks[0]["comm"], same_loss_on_ranks=losses == ranks[1]["losses"],
+                   launches_per_step={k: v / ranks[0]["timed_steps"] for k, v in ranks[0]["launches"].items()},
+                   seconds=max(r["seconds"] for r in ranks), card=card,
+                   depth_note="depth cut: two full-depth replicas do not fit in 80 GB")
+        if dtype_name == "fp32":
+            rec["masters"] = sketch_errors(ref["sketch"], ref["init_sketch"], ranks[0]["sketch"])
+            good = max(rel) <= PAR_TOL["fp32_rel"] and rec["grad_norm_rel_err"] <= PAR_TOL["fp32_rel"] \
+                and masters_ok(rec["masters"])
+        else:
+            good = max(rel) <= PAR_TOL["bf16_loss_rel"]
+            if axis == "seq":
+                launches = dict(ranks[0]["launches"])
+        log(rec)
+        records.append(rec)
+        ok = ok and good and rec["same_loss_on_ranks"] and all(np.isfinite(losses))
+    per_step = {k: v / (SEQ_BF16["steps"] - 1) for k, v in launches.items()}
+    want_l = {"flash_fwd": SEQ_BF16["layers"], "flash_bwd_dq": SEQ_BF16["layers"],
+              "flash_bwd_dkv": SEQ_BF16["layers"], "fused_adam": 1}
+    if per_step != want_l:
+        raise AssertionError(f"train_seq: Ulysses launches per step {per_step}, expected {want_l}")
+    if not ok:
+        raise AssertionError(f"train_seq failed: {records}")
+    return dict(launches=launches, records=records)
+
+
 def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces) -> dict:
     r = next(x for x in records if x["dtype"] == f"torch.{dtype}"
              and all(str(x.get(k, "")).startswith(v) for k, v in want.items()))
@@ -5124,7 +5536,9 @@ def main(argv) -> int:
         only = argv[argv.index("--only") + 1].split(",")
         tc = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
         phases = {"train_zeropp": lambda: phase_train_zeropp(torch, dev, tc),
-                  "train_moe": lambda: phase_train_moe(torch, dev, tc), "serve_tp": lambda: phase_serve_tp(torch, dev)}
+                  "train_moe": lambda: phase_train_moe(torch, dev, tc), "serve_tp": lambda: phase_serve_tp(torch, dev),
+                  "train_pipe": lambda: phase_train_pipe(torch, dev, card),
+                  "train_seq": lambda: phase_train_seq(torch, dev, card)}
         for name in only:
             t0 = time.perf_counter()
             phases[name]()
@@ -5235,9 +5649,15 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     serve_tp = phase_serve_tp(torch, dev, serve["tokens"])
     log(dict(phase="serve_tp", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    train_pipe = phase_train_pipe(torch, dev, card, want=train["losses"])
+    log(dict(phase="train_pipe", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    train_seq = phase_train_seq(torch, dev, card)
+    log(dict(phase="train_seq", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
-            "mixtral_8x7b_8l": serve_moe, "train": train,
+            "mixtral_8x7b_8l": serve_moe, "train": train, "train_seq": train_seq,
             "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     for row in kernels:  # the kernels MoE training runs: their launches over its 6 steps at stage 0
@@ -5246,6 +5666,11 @@ def main(argv) -> int:
     for row, spec in zip(kernels, KERNEL_ROWS):  # tensor-parallel serving's launches (bf16 pools, int8 codes)
         if spec[2] in serve_tp["launches"] and "int8 pool" not in row["name"] and "int4" not in row["name"]:
             row["serve_tp_launches"] = serve_tp["launches"][spec[2]]
+    for row, spec in zip(kernels, KERNEL_ROWS):  # the pipeline's (both stages) and Ulysses' (a rank) launches
+        if spec[1] == "train" and spec[2] in train_pipe["launches"]:
+            row["train_pipe_launches"] = train_pipe["launches"][spec[2]]
+        if spec[1] in ("train", "train_seq") and spec[2] in train_seq["launches"]:
+            row["train_seq_launches"] = train_seq["launches"][spec[2]]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"host_code": host_code_rows(host, offload)})
     log({"kernels": kernels})

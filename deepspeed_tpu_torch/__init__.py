@@ -12,6 +12,9 @@ Entry points:
   data parallelism and ZeRO stages 0-3 over ``torch.distributed``
   (``comm``, ``parallel``, ``runtime/zero``, the top-level ``zero``), with
   native and universal checkpoints and ``zero_to_fp32`` (``checkpoint``);
+  the pipeline engine for a ``pipe.PipelineModule`` or ``mesh.pipe`` > 1
+  (``runtime/pipe``: 1F1B and GPipe), and sequence parallelism over
+  ``mesh.seq`` (Ulysses) or ``mesh.context`` (ring attention, ``sequence``);
 - ``deepspeed_tpu_torch.init_inference``: the v1 ``InferenceEngine``
   (``inference/engine.py``: ``generate`` over a dense KV cache, ``forward``),
   with optional flat weight-only quantisation, at ``tp_size`` > 1 over as

@@ -23,6 +23,18 @@ world):
   ``barrier``: ``torch.distributed``'s own, with that check;
   ``inference_all_reduce``: the tensor-parallel serving reduce (reference
   ``comm.py:500``), over the ``tensor`` group by default.
+- ``send``, ``recv``, ``isend``, ``irecv``, ``P2POp`` and
+  ``batch_isend_irecv``: point-to-point transfers between two ranks
+  (reference ``comm.py``), which the pipeline's stages and the ring of
+  context parallelism use where the JAX package rolls a buffer along a mesh
+  axis. ``dst`` / ``src`` are ranks of the world, as in ``torch.distributed``.
+
+gloo's point-to-point transfers and its all-to-all read and write the
+tensor's memory from the host, so on CUDA tensors under
+``init_distributed(device="cuda", backend="gloo")`` these functions stage
+them through pinned host buffers: a send copies the tensor to the host
+first, a receive lands on the host and ``wait()`` copies it to the tensor.
+That is the transport the caller named, not a fallback.
 """
 
 import logging
@@ -65,11 +77,14 @@ def init_distributed(dist_backend: Optional[str] = None, verbose: bool = True, t
                      rank: int = -1, world_size: int = -1, device: Union[str, torch.device] = "cuda",
                      backend: Optional[str] = None) -> None:
     """Bring up the default process group (reference ``comm.py:604``). A
-    group that is already up is kept, and must have the device's backend.
+    group that is already up is kept, and must have the device's backend
+    (or, for a CUDA device with no backend named, gloo named for CUDA by an
+    earlier call).
     ``backend`` (or ``dist_backend``) names the backend; ``"gloo"`` with a
     CUDA ``device`` makes gloo serve CUDA tensors, only then."""
     global _NAMED_BACKEND
-    backend = backend or dist_backend or backend_for(device)
+    named = backend or dist_backend
+    backend = named or backend_for(device)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"dist_backend must be 'nccl' (CUDA) or 'gloo' (CPU), got {backend!r}")
     cuda_on_gloo = backend == "gloo" and torch.device(device).type == "cuda"
@@ -93,6 +108,8 @@ def init_distributed(dist_backend: Optional[str] = None, verbose: bool = True, t
                         get_rank(), get_world_size())
         return
     if is_initialized():
+        if named is None and torch.device(device).type == "cuda" and _NAMED_BACKEND == "gloo":
+            return  # this process named gloo for its CUDA tensors: an engine that names nothing keeps it
         have = _backends().get(torch.device(device).type)
         if have != backend:
             raise RuntimeError(f"torch.distributed is initialized with {tdist.get_backend_config()!r}, which does "
@@ -181,11 +198,96 @@ def reduce_scatter_tensor(output: torch.Tensor, tensor: torch.Tensor, op: Reduce
     return tdist.reduce_scatter_tensor(output, tensor, op=_OPS[op], group=group, async_op=async_op)
 
 
+def _staged(tensor: torch.Tensor) -> bool:
+    """A CUDA tensor on gloo named by the caller: staged through the host."""
+    return tensor.device.type == "cuda" and _NAMED_BACKEND == "gloo"
+
+
+def _pinned(like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+
+def _to_host(tensor: torch.Tensor) -> torch.Tensor:
+    host = _pinned(tensor)
+    host.copy_(tensor)
+    return host
+
+
+class Work:
+    """A pending transfer: ``wait()`` completes it, and for a staged receive
+    copies the host buffer into the device tensor. Keeps the host buffers alive."""
+
+    def __init__(self, work, host: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None):
+        self._work, self._host, self._out = work, host, out
+
+    def wait(self) -> bool:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._out is not None:
+            self._out.copy_(self._host)
+            self._out = None
+        self._host = None
+        return True
+
+    def is_completed(self) -> bool:
+        return self._work is None or self._work.is_completed()
+
+
 def all_to_all_single(output: torch.Tensor, tensor: torch.Tensor, group=None, async_op: bool = False):
     """Equal splits along dimension 0: chunk j of ``tensor`` goes to rank j,
     and chunk i of ``output`` comes from rank i."""
     _check(tensor, group)
+    if _staged(tensor):
+        host_out = _pinned(output)
+        work = tdist.all_to_all_single(host_out, _to_host(tensor.contiguous()), group=group, async_op=True)
+        done = Work(work, host_out, output)
+        if async_op:
+            return done
+        done.wait()
+        return None
     return tdist.all_to_all_single(output, tensor, group=group, async_op=async_op)
+
+
+def isend(tensor: torch.Tensor, dst: int, group=None, tag: int = 0) -> Work:
+    """Start sending ``tensor`` to world rank ``dst``; it must not change until ``wait()``."""
+    _check(tensor, group)
+    src = _to_host(tensor) if _staged(tensor) else tensor.contiguous()
+    return Work(tdist.isend(src, dst, group=group, tag=tag), host=src)
+
+
+def irecv(tensor: torch.Tensor, src: int, group=None, tag: int = 0) -> Work:
+    """Start receiving into ``tensor`` from world rank ``src``; it holds the data after ``wait()``."""
+    _check(tensor, group)
+    if _staged(tensor):
+        host = _pinned(tensor)
+        return Work(tdist.irecv(host, src, group=group, tag=tag), host, tensor)
+    if not tensor.is_contiguous():
+        raise ValueError("irecv needs a contiguous tensor")
+    return Work(tdist.irecv(tensor, src, group=group, tag=tag))
+
+
+def send(tensor: torch.Tensor, dst: int, group=None, tag: int = 0) -> None:
+    isend(tensor, dst, group, tag).wait()
+
+
+def recv(tensor: torch.Tensor, src: int, group=None, tag: int = 0) -> None:
+    irecv(tensor, src, group, tag).wait()
+
+
+class P2POp:
+    """One transfer of ``batch_isend_irecv`` (reference ``comm.py`` ``P2POp``):
+    ``op`` is ``isend`` or ``irecv`` of this module, ``peer`` a world rank."""
+
+    def __init__(self, op, tensor: torch.Tensor, peer: int, group=None, tag: int = 0):
+        if op not in (isend, irecv):
+            raise ValueError("P2POp's op must be comm.isend or comm.irecv")
+        self.op, self.tensor, self.peer, self.group, self.tag = op, tensor, peer, group, tag
+
+
+def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[Work]:
+    """Start every transfer of the list; returns their ``Work`` in order."""
+    return [p.op(p.tensor, p.peer, p.group, p.tag) for p in p2p_op_list]
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None, async_op: bool = False):

@@ -5,6 +5,12 @@ keys and the same layouts (``q_proj/kernel`` stays (d, H, Dh) and is
 contracted as ``bsd,dhk->bshk``), so conversion is a copy. A caller
 produces the numpy tree from JAX with ``jax.tree.map(np.asarray, params)``;
 this module never imports JAX.
+
+``pipe_params_to_stage`` carries the JAX pipeline engine's stage-stacked
+tree (``{"embed", "stages": {"sub_<j>": (S, ...)}, "head"}``, JAX
+``CausalLM.to_pipeline``) into one stage's tree of the port's
+(``CausalLM.to_pipeline``), and ``stage_params_to_pipe`` stacks the stages'
+trees back, so the two engines' parameters compare leaf for leaf.
 """
 
 from typing import Any, Dict, List, Mapping, Optional
@@ -75,3 +81,32 @@ def quantized_from_numpy(q, scales, shape, dtype: torch.dtype, num_bits: int, la
     return QuantizedParam(q=torch.from_numpy(np.array(q, dtype=np.int8, copy=True)).to(device),
                           scales=torch.from_numpy(np.array(scales, dtype=np.float32, copy=True)).to(device),
                           shape=tuple(int(n) for n in shape), dtype=dtype, num_bits=int(num_bits), layout=layout)
+
+
+def pipe_params_to_stage(pipe_params: Mapping, stage_id: int, num_stages: int, tie_embeddings: bool) -> Dict[str, Any]:
+    """Stage ``stage_id``'s tree from a stage-stacked one (numpy or tensor
+    leaves, no copies): the first stage holds ``embed``, the last ``head``
+    and, under ``tie_embeddings``, the tied copy ``embed/wte``; every stage
+    its slice of each ``stages/sub_<j>`` leaf."""
+    first, last = stage_id == 0, stage_id == num_stages - 1
+    out: Dict[str, Any] = {}
+    if first:
+        out["embed"] = dict(pipe_params["embed"])
+    elif last and tie_embeddings:
+        out["embed"] = {"wte": pipe_params["embed"]["wte"]}
+    out["stages"] = _unflatten({p: v[stage_id] for p, v in _flatten(pipe_params["stages"]).items()})
+    if last:
+        out["head"] = dict(pipe_params["head"])
+    return out
+
+
+def stage_params_to_pipe(stages: List[Mapping]) -> Dict[str, Any]:
+    """The stage-stacked tree of every stage's tree (stage order), numpy:
+    ``embed`` from the first stage, ``head`` from the last."""
+    def host(v):
+        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    subs = [_flatten(s["stages"]) for s in stages]
+    return {"embed": _unflatten({k: host(v) for k, v in _flatten(stages[0].get("embed", {})).items()}),
+            "stages": _unflatten({p: np.stack([host(s[p]) for s in subs]) for p in subs[0]}),
+            "head": _unflatten({k: host(v) for k, v in _flatten(stages[-1].get("head", {})).items()})}

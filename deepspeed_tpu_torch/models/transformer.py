@@ -12,6 +12,11 @@ functions over the same dict, with the reference's dense KV caches for the
 v1 engine (``CausalLM.init_kv_caches``, ``kv_caches=``). MoE blocks (every
 ``moe_layer_freq``-th block, ``moe.MoE`` in the MLP's slot under ``moe``)
 return their load-balancing losses to ``CausalLM.loss_fn``.
+``CausalLM.to_pipeline`` cuts the model into a rank's pipeline stage. Under
+sequence parallelism (``sequence.sequence_parallel``, entered by the
+training engine) a rank holds a contiguous slice of each row: the forward
+gives its tokens their global positions, and attention runs through
+Ulysses (``seq``) or the ring (``context``).
 ``scan_layers``, progressive layer drop and the BERT heads are not ported
 (they raise).
 """
@@ -26,6 +31,8 @@ import torch
 
 from ..moe.layer import MoE
 from ..runtime.activation_checkpointing import checkpointing
+from ..runtime.pipe.module import PipelineStage
+from ..sequence.layer import current_sequence_parallel
 
 # a layer's dense KV cache: k and v (B, max_len, KVH, Dh) and the filled length (a host int)
 KVCache = Tuple[torch.Tensor, torch.Tensor, int]
@@ -437,7 +444,9 @@ def _norm_params(cfg: TransformerConfig, tree: Dict[str, Any], j: int):
 def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
                   layer_idx: int, kv_cache: Optional[KVCache] = None, tp=None):
     """The reference ``Attention``: projections, clip, qk-norm, rope, then
-    ``ops.attention`` (the flash kernels on CUDA). With a ``kv_cache``
+    ``ops.attention`` (the flash kernels on CUDA), or, under sequence
+    parallelism, Ulysses' ``DistributedAttention`` around it (``seq``) or
+    ``ring_attention`` (``context``). With a ``kv_cache``
     ``(ck, cv, cache_len)`` (the v1 engine's dense cache), k and v are written
     into the cache at ``[cache_len, cache_len + S)`` in place, attention runs
     over the cache with ``kv_len = cache_len + S`` (``attention_xla``, on CUDA
@@ -474,8 +483,13 @@ def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, po
     slopes = None
     if cfg.pos_emb == "alibi":
         slopes = tp.local_slopes(cfg.n_heads) if tp is not None else alibi_slopes(cfg.n_heads)
-    out = attention(q, k, v, causal=cfg.causal, kv_len=kv_len, alibi_slopes=slopes,
-                    window=cfg.window_for(layer_idx), scale=cfg.attn_scale)
+    sp = current_sequence_parallel() if kv_cache is None and tp is None else None
+    if sp is not None:  # this rank holds a slice of the sequence: the exchange runs around the attention
+        out = sp.attention(q, k, v, causal=cfg.causal, alibi_slopes=slopes, window=cfg.window_for(layer_idx),
+                           scale=cfg.attn_scale)
+    else:
+        out = attention(q, k, v, causal=cfg.causal, kv_len=kv_len, alibi_slopes=slopes,
+                        window=cfg.window_for(layer_idx), scale=cfg.attn_scale)
     out = _row_dense(out, p["o_proj"], "bshk,hkd->bsd", dt, tp)
     return (out, new_cache) if kv_cache is not None else out
 
@@ -573,7 +587,9 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     B, S = input_ids.shape
     ids = input_ids.long()
     if positions is None:
-        positions = torch.arange(S, device=ids.device).expand(B, S)
+        sp = current_sequence_parallel() if kv_caches is None and tp is None else None
+        start = sp.rank * S if sp is not None else 0  # a sequence slice's tokens sit at their global positions
+        positions = torch.arange(start, start + S, device=ids.device).expand(B, S)
     if tp is not None:
         x = tp.embed(params["wte"], ids, cfg.vocab_size).to(dt)
     else:
@@ -673,6 +689,99 @@ class CausalLM:
             (("lm_head", "kernel"), (None, "tensor")),
         ]
 
+    def pipeline_checks(self, num_stages: int) -> int:
+        """The JAX ``to_pipeline``'s refusals (``transformer.py:593-665``);
+        returns the layers a stage holds."""
+        cfg = self.cfg
+        if cfg.n_layers % num_stages != 0:
+            raise ValueError(f"n_layers={cfg.n_layers} must divide evenly into {num_stages} pipeline stages")
+        if cfg.scan_layers:
+            raise ValueError("disable scan_layers for pipeline (stages are stacked instead)")
+        if cfg.mlm_head or cfg.type_vocab_size > 0:
+            raise NotImplementedError("BERT-style models (mlm_head / token-type embeddings) are not "
+                                      "pipeline-partitionable (the MLM head and segment embeddings are "
+                                      "not part of the pipelined embed/loss functions)")
+        lps = cfg.n_layers // num_stages
+        if cfg.moe_num_experts > 0:
+            freq = max(1, cfg.moe_layer_freq)
+            if lps % freq != 0:
+                raise ValueError(
+                    f"MoE x pipeline needs a stage-uniform expert pattern: layers_per_stage="
+                    f"{lps} must be a multiple of moe_layer_freq={freq} "
+                    f"(pick num_stages so each stage holds whole MoE periods)")
+        for j in range(lps):
+            ws = {cfg.window_for(s * lps + j) for s in range(num_stages)}
+            if len(ws) > 1:
+                raise NotImplementedError(
+                    f"per-layer window pattern is not stage-uniform (sub-layer {j} sees windows {ws} "
+                    f"across stages); choose num_stages so the window pattern repeats per stage")
+        return lps
+
+    def to_pipeline(self, num_stages: int, params=None, stage_id: int = 0,
+                    generator: Optional[torch.Generator] = None) -> PipelineStage:
+        """Stage ``stage_id`` of ``num_stages`` (JAX ``to_pipeline``,
+        ``transformer.py:593``, cut to one rank): its parameter tree and its
+        embed, stage and head functions. ``params`` is the whole model's tree
+        (each rank keeps its stage's leaves) or already a stage tree (the
+        converter's ``pipe_params_to_stage``); without it the model is drawn
+        from ``generator`` on the CPU.
+
+        The stage tree is ``{"embed": ..., "stages": {"sub_<j>": layer
+        s * L + j}, "head": ...}`` (L layers a stage): ``embed`` holds ``wte``,
+        ``wpe`` and the embedding norm on the first stage; ``head`` the final
+        norm and an untied ``lm_head`` on the last. A tied head reads
+        ``embed/wte``, which the last stage then holds too: its two copies are
+        the tied pair the engine's ``ReduceTiedGrads`` keeps equal."""
+        cfg = self.cfg
+        lps = self.pipeline_checks(num_stages)
+        first, last = stage_id == 0, stage_id == num_stages - 1
+        if params is None:
+            params = init_params(cfg, generator or torch.Generator().manual_seed(0), device="cpu")
+        tree = params if "stages" in params else full_to_stage_params(cfg, params, num_stages, stage_id)
+        has_moe = cfg.moe_num_experts > 0
+        n_norm = 1 if cfg.embedding_norm and cfg.norm != "layernorm_np" else 0
+
+        def embed_fn(ps, input_ids):
+            ep = ps["embed"]
+            ids = input_ids.long()
+            B, S = ids.shape
+            x = torch.nn.functional.embedding(ids, ep["wte"]).to(cfg.dtype)
+            if cfg.embed_scale:
+                x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
+            if cfg.pos_emb == "learned":
+                x = x + ep["wpe"][torch.arange(S, device=ids.device)].to(cfg.dtype)
+            if cfg.embedding_norm:
+                x = _norm(cfg, x, ep[_norm_key(cfg, 0)] if n_norm else None)
+            return x
+
+        def stage_fn(ps, x):
+            B, S = x.shape[0], x.shape[1]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            aux: List = []
+            for j in range(lps):
+                i = stage_id * lps + j  # the global index: its window and its MoE slot
+                x = block_fwd(cfg, ps["stages"][f"sub_{j}"], x, positions, layer_idx=i, train=True, moe_aux=aux)
+            if has_moe:  # pre-scaled: the engine adds it to the loss and seeds its gradient
+                return x, cfg.moe_aux_loss_coef * sum(l_aux.float() for l_aux, _ in aux)
+            return x, None
+
+        def head_loss_fn(ps, x, labels):
+            from ..ops.fused_ce import fused_cross_entropy
+
+            hp = ps["head"]
+            if cfg.norm_scheme != "post":
+                x = _norm(cfg, x, None if cfg.norm == "layernorm_np" else hp[_norm_key(cfg, n_norm)])
+            if cfg.tie_embeddings:
+                return fused_cross_entropy(x, ps["embed"]["wte"].to(cfg.dtype), labels, vd_layout=True)
+            head_b = hp["lm_head"]["bias"] if cfg.lm_head_bias else None
+            return fused_cross_entropy(x, hp["lm_head"]["kernel"].to(cfg.dtype), labels, vd_layout=False,
+                                       bias=head_b)
+
+        tied = {"wte": ((0, num_stages - 1), "embed/wte")} if cfg.tie_embeddings and num_stages > 1 else {}
+        return PipelineStage(stage_id=stage_id, num_stages=num_stages, params=tree, stage_fn=stage_fn,
+                             embed_fn=embed_fn if first else None, head_loss_fn=head_loss_fn if last else None,
+                             rules=self.partition_rules(), tied=tied, token_weighted=True)
+
     def loss_fn(self, params, batch, rng=None) -> torch.Tensor:
         from ..ops.fused_ce import fused_cross_entropy
 
@@ -695,6 +804,34 @@ class CausalLM:
         if cfg.moe_num_experts == 0:
             return ce
         return ce + cfg.moe_aux_loss_coef * sum(l_aux for l_aux, _ in moe_aux)
+
+
+# -------------------- pipeline stages --------------------
+def _split_top(cfg: TransformerConfig, params: Dict[str, Any]):
+    """(embed keys, head keys) of a whole tree's top level: the JAX
+    ``to_pipeline``'s split (``transformer.py:668-690``)."""
+    n_norm = 1 if cfg.embedding_norm and cfg.norm != "layernorm_np" else 0
+    embed = ["wte"] + (["wpe"] if cfg.pos_emb == "learned" else []) + ([_norm_key(cfg, 0)] if n_norm else [])
+    head = [k for k in params if not (k.startswith("layer_") or k in embed)]
+    return embed, head
+
+
+def full_to_stage_params(cfg: TransformerConfig, params: Dict[str, Any], num_stages: int,
+                         stage_id: int) -> Dict[str, Any]:
+    """Stage ``stage_id``'s tree (``CausalLM.to_pipeline``) from the whole
+    model's: the same leaves (no copies)."""
+    lps = cfg.n_layers // num_stages
+    embed_keys, head_keys = _split_top(cfg, params)
+    first, last = stage_id == 0, stage_id == num_stages - 1
+    tree: Dict[str, Any] = {}
+    if first:
+        tree["embed"] = {k: params[k] for k in embed_keys}
+    elif last and cfg.tie_embeddings:
+        tree["embed"] = {"wte": params["wte"]}  # the tied head's copy
+    tree["stages"] = {f"sub_{j}": params[f"layer_{stage_id * lps + j}"] for j in range(lps)}
+    if last:
+        tree["head"] = {k: params[k] for k in head_keys}
+    return tree
 
 
 # -------------------- presets --------------------

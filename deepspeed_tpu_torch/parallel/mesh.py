@@ -8,15 +8,19 @@ process group, and an axis's "group" is a ``torch.distributed`` process
 group of the ranks that differ only along it (the reference's
 ``utils/groups.py``). The axes and their order are the JAX package's:
 ``pipe, data, fsdp, expert, seq, context, tensor``, first slowest, so the
-fsdp groups are runs of neighbouring ranks. ``data``, ``fsdp``,
-``expert`` and ``tensor`` may exceed 1; the other axes above 1 raise
-``NotImplementedError``. ``tensor`` is the serving axis of tensor
-parallelism (``serving_mesh``): the training config still refuses it. The batch is split over ``data`` x ``fsdp`` only
-(JAX ``MeshTopology.batch_axes``): the ranks of an expert group see the
-same rows. Besides the axis groups there is the ``expert_data`` group, the
-ranks that share this rank's expert coordinate (data x fsdp), over which
-expert leaves reduce their gradients and MoE layers gate their tokens, and
-ZeRO++'s hpZ groups (``hpz_group``), runs of k neighbouring fsdp ranks.
+fsdp groups are runs of neighbouring ranks. Every axis may exceed 1.
+``tensor`` is the serving axis of tensor parallelism (``serving_mesh``):
+the training config still refuses it. ``pipe`` carries the pipeline's
+stages, ``seq`` Ulysses' and ``context`` the ring's sequence slices. The
+batch is split over ``data`` x ``fsdp`` only (JAX
+``MeshTopology.batch_axes``): the ranks of an expert group, of a sequence
+group and of a pipeline line see the same rows. Besides the axis groups
+there is the ``expert_data`` group, the ranks that share this rank's expert
+coordinate (data x fsdp), over which expert leaves reduce their gradients
+and MoE layers gate their tokens; the ``dp_seq`` group (data x fsdp x seq x
+context, when a sequence axis exceeds 1), the ranks that hold different
+tokens of a step, over which the loss counts its tokens; and ZeRO++'s hpZ
+groups (``hpz_group``), runs of k neighbouring fsdp ranks.
 ``mesh_signature`` names a mesh in step keys and journal fingerprints as the
 JAX package does.
 """
@@ -28,8 +32,10 @@ from ..runtime.config import MESH_AXES, MeshConfig
 from .topology import ProcessTopology
 
 ALL_AXES = MESH_AXES
-PORTED_AXES = ("data", "fsdp", "expert", "tensor")
+PORTED_AXES = ("pipe", "data", "fsdp", "expert", "seq", "context", "tensor")
 BATCH_AXES = ("data", "fsdp")
+SEQ_AXES = ("seq", "context")
+ALWAYS_GROUPED = ("data", "fsdp", "expert")  # the other axes have groups only above size 1
 
 
 def _resolve_axis_sizes(cfg: MeshConfig, world_size: int) -> Dict[str, int]:
@@ -50,9 +56,6 @@ def _resolve_axis_sizes(cfg: MeshConfig, world_size: int) -> Dict[str, int]:
     elif fixed != world_size:
         raise ValueError(f"Mesh axes product {fixed} != world size {world_size}: each rank is one process on one "
                          "device, so the mesh must cover exactly the process world")
-    big = {a: s for a, s in sizes.items() if a not in PORTED_AXES and s > 1}
-    if big:
-        raise NotImplementedError(f"mesh axes {big}: the port runs the data, fsdp, expert and tensor axes only")
     return sizes
 
 
@@ -106,27 +109,47 @@ class MeshTopology:
         """The ``tensor`` axis: the tensor-parallel degree of serving."""
         return self.axis_size("tensor")
 
+    @property
+    def pipe_parallel_size(self) -> int:
+        return self.axis_size("pipe")
+
+    @property
+    def sequence_parallel_size(self) -> int:
+        """Ulysses' degree: the ``seq`` axis."""
+        return self.axis_size("seq")
+
+    @property
+    def context_parallel_size(self) -> int:
+        """The ring's degree: the ``context`` axis."""
+        return self.axis_size("context")
+
     def _comm_lists(self, name: str):
         if name == "expert_data":
             return self.topology.get_axes_comm_lists(BATCH_AXES)
+        if name == "dp_seq":
+            return self.topology.get_axes_comm_lists(BATCH_AXES + SEQ_AXES)
         return self.topology.get_axis_comm_lists(name)
 
     def process_group(self, axis: str):
-        """The process group of this rank's ranks along ``axis`` (``data``,
-        ``fsdp``, ``expert``, ``tensor``, or ``expert_data``: data x fsdp at
-        this rank's expert coordinate); ``None``, the default group, when
-        that is the whole world. The ``tensor`` groups exist only when the
-        axis exceeds 1 (every rank knows the sizes, so all agree)."""
+        """The process group of this rank's ranks along ``axis`` (a mesh axis;
+        ``expert_data``: data x fsdp at this rank's expert coordinate;
+        ``dp_seq``: data x fsdp x seq x context); ``None``, the default group,
+        when that is the whole world. ``data``, ``fsdp``, ``expert`` and
+        ``expert_data`` always have groups; ``pipe``, ``seq``, ``context`` and
+        ``tensor`` only when the axis exceeds 1, ``dp_seq`` only when ``seq``
+        or ``context`` does (every rank knows the sizes, so all agree)."""
         if self._groups is None:
             groups = {}
-            axes = [a for a in PORTED_AXES if a != "tensor" or self.axis_size("tensor") > 1]
-            for a in axes + ["expert_data"]:  # every rank creates every group, in this order
+            names = [a for a in PORTED_AXES if a in ALWAYS_GROUPED or self.axis_size(a) > 1] + ["expert_data"]
+            if any(self.axis_size(a) > 1 for a in SEQ_AXES):
+                names.append("dp_seq")
+            for a in names:  # every rank creates every group, in this order
                 for ranks in self._comm_lists(a):
                     g = None if len(ranks) == self.n_devices else dist.new_group(ranks)
                     if self.rank in ranks:
                         groups[a] = g
             self._groups = groups
-        if axis not in self._groups:  # the tensor axis at size 1: this rank alone
+        if axis not in self._groups:  # an axis of size 1 without a group: this rank alone
             raise ValueError(f"no {axis!r} group: the axis has size {self.axis_size(axis)}")
         return self._groups[axis]
 

@@ -5,16 +5,17 @@ Port of ``deepspeed_tpu/runtime/config.py`` and the keys of
 their triangulation against the data-parallel size (``data`` x ``fsdp``),
 ``optimizer``, ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization``
 (stages 0-3 and the reference's keys, ZeRO++ and MiCS's shard size),
-``mesh`` (``data``, ``fsdp`` and ``expert``),
+``mesh`` (``pipe``, ``data``, ``fsdp``, ``expert``, ``seq`` and
+``context``), ``pipeline`` (the pipeline engine's knobs),
 ``checkpoint``, ``gradient_clipping``, ``fused_step``, ``steps_per_print``,
 ``data_types.grad_accum_dtype``, the monitor sections (``tensorboard``,
 ``wandb``, ``csv_monitor``), ZeRO-Offload (``zero_optimization.offload_optimizer``
 and ``offload_param``, with the reference's ``cpu_offload`` /
 ``cpu_offload_params`` aliases), ``aio`` and ``activation_checkpointing``.
 A section or key the port does not implement raises
-``NotImplementedError`` when the config enables it (the ``tensor``,
-``pipe``, ``seq`` and ``context`` mesh axes, the pipeline, ...): it is
-never silently ignored.
+``NotImplementedError`` when the config enables it (the ``tensor`` mesh
+axis under training, ``pipe`` with ``seq`` or ``context``, ``seq`` with
+``context``, ...): it is never silently ignored.
 """
 
 import json
@@ -32,7 +33,8 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 _UNPORTED_ENABLED = ("hybrid_engine", "progressive_layer_drop", "curriculum_learning", "random_ltd", "eigenvalue",
                      "flops_profiler", "comms_logger", "autotuning", "elasticity")
 # sections that are on whenever they are present and not empty
-_UNPORTED_PRESENT = ("compression_training", "data_efficiency", "pipeline")
+_UNPORTED_PRESENT = ("compression_training", "data_efficiency")
+PIPE_SCHEDULES = ("1f1b", "gpipe")
 
 
 def _from_dict(cls, data: Optional[Dict[str, Any]]):
@@ -202,13 +204,47 @@ MESH_AXES = ("pipe", "data", "fsdp", "expert", "seq", "context", "tensor")
 
 
 @dataclass
+class PipelineConfig:
+    """The pipeline engine's knobs (JAX ``runtime/config.py:192``):
+    ``schedule`` is ``"1f1b"`` (the stash holds at most the schedule's
+    ``num_pipe_buffers()`` micro-batches) or ``"gpipe"`` (every forward,
+    then every backward); ``activation_checkpoint_interval`` > 0 makes each
+    stage keep only its input and recompute its forward in the backward.
+    ``stages``, ``partition``, ``seed_layers``, ``pipe_partitioned``,
+    ``grad_partitioned`` and ``use_reentrant`` are read and ignored, as in
+    the JAX package (the stages are the mesh's ``pipe`` axis; a
+    ``PipelineModule`` carries its own partition method)."""
+    stages: Any = "auto"
+    partition: str = "best"
+    seed_layers: bool = False
+    activation_checkpoint_interval: int = 0
+    pipe_partitioned: bool = True
+    grad_partitioned: bool = True
+    use_reentrant: bool = True
+    schedule: str = "1f1b"
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "PipelineConfig":
+        cfg = _from_dict(cls, d)
+        if int(cfg.activation_checkpoint_interval) < 0:
+            raise ValueError(f"pipeline.activation_checkpoint_interval must be >= 0, got "
+                             f"{cfg.activation_checkpoint_interval}")
+        cfg.activation_checkpoint_interval = int(cfg.activation_checkpoint_interval)
+        if str(cfg.schedule).lower() not in PIPE_SCHEDULES:
+            raise ValueError(f"pipeline.schedule must be '1f1b' or 'gpipe', got {cfg.schedule!r}")
+        cfg.schedule = str(cfg.schedule).lower()
+        return cfg
+
+
+@dataclass
 class MeshConfig:
     """Named axis sizes over the process world (the JAX ``MeshConfig``): -1 on
-    one axis takes what the others leave. The port runs ``data``, ``fsdp``
-    (ZeRO's shards live on ``fsdp`` when it exceeds 1, else on ``data``)
-    and ``expert`` (each rank holds E / expert of an MoE layer's experts);
-    ``tensor`` serves (``parallel.mesh.serving_mesh``) but does not train;
-    ``pipe``, ``seq`` and ``context`` above 1 raise ``NotImplementedError``."""
+    one axis takes what the others leave. The port trains over ``pipe``
+    (the pipeline engine's stages), ``data``, ``fsdp`` (ZeRO's shards live on
+    ``fsdp`` when it exceeds 1, else on ``data``), ``expert`` (each rank
+    holds E / expert of an MoE layer's experts), ``seq`` (Ulysses) and
+    ``context`` (ring attention); ``tensor`` serves
+    (``parallel.mesh.serving_mesh``) but does not train."""
     data: int = -1
     fsdp: int = 1
     tensor: int = 1
@@ -277,12 +313,21 @@ def _load_config_dict(config: Union[str, Dict, None]) -> Dict:
 def _check_ported(d: Dict) -> None:
     """Raise for every enabled section or key the port has no code for."""
     mesh = d.get("mesh", {}) or {}
-    big = {axis: n for axis, n in mesh.items() if axis not in ("axis_order", "data", "fsdp", "expert")
-           and n not in (-1, 0, 1)}
-    if big:
-        raise NotImplementedError(f"mesh axes {big}: the port trains over the data, fsdp and expert axes only "
-                                  "(tensor parallelism serves through InferenceEngineV2 and init_inference but does "
-                                  "not train; pipe, seq and context parallelism are not ported yet)")
+    big = {axis for axis, n in mesh.items() if axis != "axis_order" and n not in (0, 1)}
+    if "tensor" in big:
+        raise NotImplementedError(f"mesh axis tensor={mesh['tensor']}: tensor-parallel training is not ported yet "
+                                  "(tensor parallelism serves through InferenceEngineV2 and init_inference)")
+    if {"seq", "context"} <= big:
+        raise NotImplementedError("mesh axes seq and context both above 1: Ulysses inside a ring (2D sequence "
+                                  "parallelism) is not ported yet; use one of them")
+    if "pipe" in big and big & {"seq", "context"}:
+        raise NotImplementedError(f"mesh axes pipe with {sorted(big & {'seq', 'context'})}: sequence parallelism "
+                                  "inside pipeline stages is not ported yet")
+    pld = d.get("progressive_layer_drop") or {}
+    if "pipe" in big and isinstance(pld, dict) and pld.get("enabled", False):
+        # the JAX PipelineEngine's refusal (runtime/pipe/engine.py:93-95), ahead of PLD's own
+        raise ValueError("progressive_layer_drop is not supported under the pipeline engine (stage functions run "
+                         "fixed layer stacks); disable PLD or the pipe mesh")
     for key in _UNPORTED_ENABLED:
         section = d.get(key) or {}
         if isinstance(section, dict) and section.get("enabled", False):
@@ -314,6 +359,7 @@ class DeepSpeedConfig:
         self.checkpoint_config = _from_dict(CheckpointConfig, d.get("checkpoint"))
         self.aio = _from_dict(AIOConfig, d.get("aio"))
         self.activation_checkpointing = _from_dict(ActivationCheckpointingConfig, d.get("activation_checkpointing"))
+        self.pipeline = PipelineConfig.from_dict(d.get("pipeline"))
         self.gradient_clipping = float(d.get("gradient_clipping", 0.0))
         fused = d.get("fused_step", True)
         if not isinstance(fused, bool):

@@ -32,6 +32,24 @@ masters. The global gradient norm is the square root of the all-reduced
 squared partial sums; overflow and clipping follow from it, on the device.
 The engine counts its collectives (``comm_stats``: calls and bytes by op).
 
+Sequence parallelism (``mesh.seq`` for Ulysses, ``mesh.context`` for ring
+attention, JAX ``_put_batch`` ``engine.py:575-581``): the ranks of a
+sequence group read the same rows, and each keeps its contiguous slice
+``[r S / P, (r + 1) S / P)`` of the sequence dimension, the labels shifted
+on the whole row first. The model runs under ``sequence.sequence_parallel``
+(global positions, the exchange around its attention); the loss is the
+whole batch's token mean (the ranks' weights count their valid tokens over
+data x fsdp x seq x context); the sequence ranks hold replicas of the
+parameters, so their partial gradients are summed over the group after the
+data-parallel reduction and before the norm, whatever the ZeRO stage (the
+plan shards over data x fsdp, and the sequence group shares each shard).
+``seq`` and ``context`` together, MoE under either, and ALiBi or a sliding
+window under ``context`` raise ``NotImplementedError``.
+
+``initialize`` returns the pipeline engine (``runtime/pipe/engine.py``) for
+a ``PipelineModule``, or for ``mesh.pipe`` > 1 with a model that has
+``to_pipeline`` (JAX ``engine.py:1253-1259``).
+
 Expert parallelism follows the model's partition rules
 (``partition_rules()``): an expert leaf holds this rank's E / ep experts,
 and its ZeRO chunking, gradient reduction (over the data x fsdp ranks at
@@ -124,6 +142,7 @@ from .zero.partition import plan_zero
 from .zero.sharded import Collectives, Stage3Params
 from .zero.zeropp import check_hpz, zeropp_applicable, zeropp_requested
 from ..moe.layer import ExpertParallel, expert_parallel
+from ..sequence.layer import SequenceParallel, sequence_parallel
 
 logger = logging.getLogger(__name__)
 
@@ -203,6 +222,10 @@ class DeepSpeedEngine:
         self._token_weighted = self._model_cfg is not None and callable(getattr(model, "loss_fn", None))
         if model_parameters is None:
             raise ValueError("model_parameters (the parameter dict) is required")
+        if self.topology.axis_size("pipe") > 1 and type(self) is DeepSpeedEngine:
+            raise NotImplementedError("mesh.pipe > 1 pipelines a PipelineModule or a model with to_pipeline "
+                                      "(models.CausalLM); this model has neither")
+        self._sp = self._sequence_parallel(model)
         # the model's (path, spec) rules: the planner keeps the expert dimension of an MoE layer's experts
         self._partition_rules = model.partition_rules() if callable(getattr(model, "partition_rules", None)) else []
 
@@ -265,6 +288,23 @@ class DeepSpeedEngine:
         self._configure_telemetry()
 
     # ------------------------------------------------------------------ ZeRO state
+    def _sequence_parallel(self, model) -> Optional[SequenceParallel]:
+        """This rank's sequence group at ``seq`` or ``context`` > 1 (None below),
+        with the refusals of what the port cannot split."""
+        topo = self.topology
+        axis = next((a for a in ("seq", "context") if topo.axis_size(a) > 1), None)
+        if axis is None:
+            return None
+        cfg = self._model_cfg
+        if cfg is None or not hasattr(cfg, "n_heads"):
+            raise NotImplementedError(f"mesh.{axis} > 1 splits a CausalLM's sequences: this model is not one")
+        if cfg.moe_num_experts > 0:
+            raise NotImplementedError(f"MoE under sequence parallelism (mesh.{axis} > 1) is not ported yet")
+        if axis == "context" and (cfg.pos_emb == "alibi" or cfg.sliding_window is not None):
+            raise NotImplementedError("ALiBi and sliding windows under context parallelism (ring attention) are "
+                                      "not ported yet")
+        return SequenceParallel(axis, topo.process_group(axis), topo.axis_size(axis), topo.axis_rank(axis))
+
     def _host_offload_wanted(self, optimizer) -> bool:
         """The JAX engine's decision (``engine.py:176-188``): the optimizer state
         goes to the host only under ZeRO, for a config-defined Adam-family
@@ -340,6 +380,9 @@ class DeepSpeedEngine:
                                 topo.axis_size("data") if replica else 1, self.config.zero_config.reduce_bucket_size,
                                 dp_group=topo.process_group("expert_data"), expert_group=topo.process_group("expert"),
                                 hpz_group=topo.hpz_group(self._hpz) if self._hpz > 1 else None, hpz_size=self._hpz)
+        if self._sp is not None:  # the tokens of a step lie over data x fsdp x the sequence axis
+            self.coll.groups["seq"] = self._sp.group
+            self.coll.groups["dp_seq"] = topo.process_group("dp_seq")
         ep, dp = topo.axis_size("expert"), self.dp_world_size
         self._moe_groups = None if ep == 1 and dp == 1 else ExpertParallel(
             ep, topo.axis_rank("expert"), topo.process_group("expert"), dp, self.dp_rank,
@@ -480,14 +523,31 @@ class DeepSpeedEngine:
                                    collate_fn=collate_fn or self.collate_fn, rank=self.dp_rank,
                                    num_replicas=self.dp_world_size)
 
-    def _put_batch(self, batch):
+    def _to_device(self, batch):
         if isinstance(batch, dict):
-            return {k: self._put_batch(v) for k, v in batch.items()}
+            return {k: self._to_device(v) for k, v in batch.items()}
         if isinstance(batch, (tuple, list)):
-            return type(batch)(self._put_batch(v) for v in batch)
+            return type(batch)(self._to_device(v) for v in batch)
         if isinstance(batch, (np.ndarray, torch.Tensor)):
             return torch.as_tensor(batch).to(self.device, non_blocking=True)
         return batch
+
+    def _put_batch(self, batch):
+        batch = self._to_device(batch)
+        return self._sequence_slice(batch) if self._sp is not None else batch
+
+    def _sequence_slice(self, batch):
+        """This rank's slice of every (rows, S) array of the batch, the labels
+        shifted on the whole row first (JAX ``_put_batch``)."""
+        ids = batch["input_ids"]
+        S, P, r = ids.shape[1], self._sp.size, self._sp.rank
+        if S % P:
+            raise ValueError(f"sequence length {S} does not split over mesh.{self._sp.kind}={P} ranks")
+        if "labels" not in batch:
+            batch = dict(batch, labels=torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], IGNORE_INDEX)], dim=1))
+        n = S // P
+        return {k: v[:, r * n:(r + 1) * n] if torch.is_tensor(v) and v.dim() >= 2 and v.shape[1] == S else v
+                for k, v in batch.items()}
 
     def parameters(self) -> List[torch.Tensor]:
         """This rank's fp32 masters (chunks where stage 3 shards them), in plan order."""
@@ -497,7 +557,8 @@ class DeepSpeedEngine:
         return unflatten_tree((path, leaf.to(self.compute_dtype)) for path, leaf in zip(self._paths, self._masters))
 
     def _local_loss(self, batch) -> torch.Tensor:
-        with expert_parallel(self._moe_groups):  # MoE layers route the data-parallel batch over the expert group
+        # MoE layers route the data-parallel batch over the expert group; a sequence slice attends over its group
+        with expert_parallel(self._moe_groups), sequence_parallel(self._sp):
             if self._stage3 is None:
                 return self._loss_fn(self._compute_params(), batch, None)
             params = self._stage3
@@ -516,7 +577,9 @@ class DeepSpeedEngine:
         else:
             n = torch.full((), float(_batch_rows(batch)), dtype=torch.float32, device=self.device)
         both = torch.stack([n, loss.detach().float() * n])
-        self.coll.all_reduce(both, "dp")  # the ranks of an expert group hold the same rows: count them once
+        # the ranks of an expert group hold the same rows: count them once; a sequence group's ranks hold
+        # different tokens of them
+        self.coll.all_reduce(both, "dp" if self._sp is None else "dp_seq")
         total = torch.clamp(both[0], min=1.0)
         return n / total, both[1] / total
 
@@ -548,7 +611,8 @@ class DeepSpeedEngine:
             if self._stage3 is not None:
                 self._stage3.in_backward = True
             try:
-                with expert_parallel(self._moe_groups):  # a checkpointed MoE block's recompute runs in here
+                # a checkpointed block's recompute runs in here
+                with expert_parallel(self._moe_groups), sequence_parallel(self._sp):
                     (self._pending.float() * scale).backward(retain_graph=retain_graph)
             finally:
                 if self._stage3 is not None:
@@ -591,6 +655,8 @@ class DeepSpeedEngine:
         # under ZeRO++ qgZ the sharded leaves were reduced over data too, each micro-batch
         self.coll.reduce_replicas([a for a, lf in zip(acc, self.plan.leaves)
                                    if not (s3 is not None and s3.qgz and lf.param_dim is not None)])
+        if self._sp is not None:  # the sequence ranks' partial gradients of their replicas
+            self.coll.sum_in_place(acc, "seq")
         return acc
 
     def _norm_owned(self) -> List[bool]:
@@ -935,8 +1001,9 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ checkpoints
     def _layout(self) -> Dict[str, Any]:
         """What a rank file must match to resume at this world size and stage."""
+        axes = ("data", "fsdp", "expert") + tuple(a for a in ("seq", "context") if self.topology.axis_size(a) > 1)
         return {"zero_stage": self.plan.stage, "dp_world_size": self.dp_world_size,
-                "mesh": {a: self.topology.axis_size(a) for a in ("data", "fsdp", "expert")}}
+                "mesh": {a: self.topology.axis_size(a) for a in axes}}
 
     def _check_layout(self, saved: Dict[str, Any], where: str) -> None:
         want = self._layout()
@@ -1130,13 +1197,23 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     """Reference ``deepspeed/__init__.py:70``: returns (engine, optimizer,
     dataloader, lr_scheduler). ``device`` is "cuda" unless the caller asks
     for "cpu"; ``mesh`` a ``parallel.MeshTopology`` over the process world
-    (default: the config's ``mesh`` section). An mpu, and the config's
-    pipeline and hybrid-engine sections, raise."""
+    (default: the config's ``mesh`` section). A ``PipelineModule``, or
+    ``mesh.pipe`` > 1 with a model that has ``to_pipeline``, gets the
+    pipeline engine (JAX ``engine.py:1253-1259``). An mpu and the
+    hybrid-engine section raise."""
+    from .pipe.module import PipelineModule
+
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     if mpu is not None:
-        raise NotImplementedError("mpu: tensor and pipeline parallelism are not ported yet")
-    engine = DeepSpeedEngine(model=model, optimizer=optimizer, model_parameters=model_parameters,
-                             training_data=training_data, lr_scheduler=lr_scheduler, collate_fn=collate_fn,
-                             config=config, device=device, mesh=mesh, dist_init_required=dist_init_required)
+        raise NotImplementedError("mpu: a model-parallel unit (tensor parallelism) is not ported yet; lay pipe, seq "
+                                  "and context out in the config's mesh section")
+    cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    pipe = mesh.axis_size("pipe") if isinstance(mesh, MeshTopology) else cfg.mesh.pipe
+    cls = DeepSpeedEngine
+    if isinstance(model, PipelineModule) or (pipe not in (0, 1) and hasattr(model, "to_pipeline")):
+        from .pipe.engine import PipelineEngine as cls
+    engine = cls(model=model, optimizer=optimizer, model_parameters=model_parameters, training_data=training_data,
+                 lr_scheduler=lr_scheduler, collate_fn=collate_fn, config=cfg, device=device, mesh=mesh,
+                 dist_init_required=dist_init_required)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

@@ -148,11 +148,14 @@ class Collectives:
 
     def reduce_replicas(self, tensors: Sequence[torch.Tensor]) -> None:
         """Sum in place over the replica group (no-op without one)."""
-        if self.replica_size == 1:
-            return
+        if self.replica_size > 1:
+            self.sum_in_place(tensors, "replica")
+
+    def sum_in_place(self, tensors: Sequence[torch.Tensor], group: str) -> None:
+        """Sum each tensor in place over a named group, in flat buckets."""
         for bucket in self._buckets(list(tensors), lambda t: t.numel()):
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            self.all_reduce(flat, "replica")
+            self.all_reduce(flat, group)
             off = 0
             for t in bucket:
                 t.copy_(flat[off:off + t.numel()].view(t.shape))

@@ -10,7 +10,10 @@ else on ``data``. The expert groups are the ranks along the mesh's
 expert-data group of a rank is the ranks that share its expert coordinate
 (data x fsdp), over which its experts' gradients reduce. The tensor
 (model-parallel) getters read the ``tensor`` axis, which tensor-parallel
-serving runs over. Pipe, sequence and context parallelism are 1 here.
+serving runs over. The pipe getters read the ``pipe`` axis (a rank's stage),
+the sequence getters the ``seq`` axis (Ulysses) and the context getters the
+``context`` axis (the ring); without a mesh each is 1 (rank 0). The
+``*_axis`` getters name the mesh axis, as the JAX package's do.
 """
 
 from ..parallel.mesh import get_mesh_topology, initialize_mesh, reset_mesh  # noqa: F401 (re-export)
@@ -25,7 +28,8 @@ def initialize(ep_size: int = 1, mpu=None):
     the mesh's ``expert`` axis, so this validates rather than builds (JAX
     ``utils/groups.py:20-25``)."""
     if mpu is not None:
-        raise NotImplementedError("an mpu (tensor and pipeline parallelism) is not ported yet")
+        raise NotImplementedError("an mpu (a model-parallel unit of tensor parallelism) is not ported yet: lay "
+                                  "pipe, seq and context out in the config's mesh section")
     topo = get_mesh_topology(required=False)
     if topo is not None and ep_size not in (1, topo.expert_parallel_size):
         raise ValueError(f"ep_size {ep_size} conflicts with mesh expert axis {topo.expert_parallel_size}; set "
@@ -111,9 +115,77 @@ get_model_parallel_rank = get_tensor_model_parallel_rank
 get_model_parallel_group = get_tensor_model_parallel_group
 
 
+def _axis_size(axis: str) -> int:
+    topo = get_mesh_topology(required=False)
+    return topo.axis_size(axis) if topo is not None else 1
+
+
+def _axis_rank(axis: str) -> int:
+    topo = get_mesh_topology(required=False)
+    return topo.axis_rank(axis) if topo is not None else 0
+
+
 def get_sequence_parallel_world_size() -> int:
-    return 1
+    """The ``seq`` axis's size (1 without a mesh)."""
+    return _axis_size("seq")
+
+
+def get_sequence_parallel_rank() -> int:
+    """This rank's place along ``seq``: it holds tokens [r S / P, (r + 1) S / P) of each row."""
+    return _axis_rank("seq")
+
+
+def get_sequence_parallel_group():
+    """The ranks along the ``seq`` axis that hold this rank (the axis must exceed 1)."""
+    return _topo().process_group("seq")
+
+
+def get_sequence_parallel_axis() -> str:
+    return "seq"
+
+
+def get_context_parallel_world_size() -> int:
+    return _axis_size("context")
+
+
+def get_context_parallel_rank() -> int:
+    return _axis_rank("context")
+
+
+def get_context_parallel_group():
+    return _topo().process_group("context")
+
+
+def get_context_parallel_axis() -> str:
+    return "context"
 
 
 def get_pipe_parallel_world_size() -> int:
-    return 1
+    """The ``pipe`` axis's size: the number of stages (1 without a mesh)."""
+    return _axis_size("pipe")
+
+
+def get_pipe_parallel_rank() -> int:
+    """This rank's stage."""
+    return _axis_rank("pipe")
+
+
+def get_pipe_parallel_group():
+    """The ranks along the ``pipe`` axis that hold this rank: its pipeline's stages (the axis must exceed 1)."""
+    return _topo().process_group("pipe")
+
+
+def get_data_parallel_axis():
+    return ("data", "fsdp")
+
+
+def get_model_parallel_axis() -> str:
+    return "tensor"
+
+
+def get_expert_parallel_axis() -> str:
+    return "expert"
+
+
+def get_fsdp_axis() -> str:
+    return "fsdp"

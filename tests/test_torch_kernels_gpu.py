@@ -2314,3 +2314,36 @@ def test_cuda_tensor_on_unnamed_gloo_raises(cuda, tmp_path):
     zw.spawn(1, tw.cuda_on_unnamed_gloo, str(tmp_path))
     got = torch.load(tmp_path / "unnamed_rank0.pt", weights_only=False)
     assert got["named"] is None and "never falls back" in got["msg"]
+
+
+# ---------------------------------------------------------------- pipeline and sequence parallelism over named gloo
+def test_p2p_and_all_to_all_on_cuda_tensors_over_named_gloo(cuda, tmp_path):
+    """gloo reads a point-to-point buffer from the host: on CUDA tensors the
+    port's send / recv / batch_isend_irecv and all_to_all_single stage them
+    through pinned host buffers. Each arrives bit for bit, on the card."""
+    import torch_pipe_worker as pw
+    import torch_tp_worker as tw
+
+    tw.spawn_cuda(2, pw.p2p_cases, str(tmp_path))
+    for r in range(2):
+        got = torch.load(tmp_path / f"p2p_rank{r}.pt", weights_only=False)
+        assert got["named"] == "gloo" and got["device"].startswith("cuda")
+        assert got["ok"] and all(got["ok"].values()), got["ok"]
+
+
+def test_pipe_and_sequence_engines_on_cuda_over_named_gloo_match_the_cpu(cuda, tmp_path):
+    """Two ranks on the one card: the pipeline engine (pipe 2, 1F1B) and the
+    engine at seq 2 (Ulysses: the flash kernels over the whole sequence) and
+    context 2 (ring) train a tiny model in fp32 with the losses of the same
+    ranks on the CPU (plain attention, gloo) within 1e-5."""
+    import torch_pipe_worker as pw
+    import torch_tp_worker as tw
+    import torch_zero_worker as zw
+
+    tw.spawn_cuda(2, pw.small_engine_cases, str(tmp_path))
+    zw.spawn(2, pw.small_engine_cases, str(tmp_path))
+    for r in range(2):
+        on_card = torch.load(tmp_path / f"engines_cuda_rank{r}.pt", weights_only=False)["losses"]
+        on_cpu = torch.load(tmp_path / f"engines_cpu_rank{r}.pt", weights_only=False)["losses"]
+        for name in ("pipe", "seq", "context"):
+            assert max(abs(a - b) for a, b in zip(on_card[name], on_cpu[name])) <= 1e-5, (name, on_card, on_cpu)

@@ -170,9 +170,9 @@ def test_a_non_finite_gradient_skips_the_step_in_both_engines():
 
 
 @pytest.mark.parametrize("section", [
-    {"mesh": {"pipe": 2}},
-    {"mesh": {"seq": 2}},
-    {"pipeline": {"stages": 2}},
+    {"mesh": {"pipe": 2, "seq": 2}},
+    {"mesh": {"seq": 2, "context": 2}},
+    {"mesh": {"pipe": 2, "context": 2}},
     {"hybrid_engine": {"enabled": True}},
     {"compression_training": {"weight_quantization": {}}},
     {"progressive_layer_drop": {"enabled": True}},
