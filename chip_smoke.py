@@ -7,7 +7,8 @@
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
     python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged, sparse and
                                         # Adam kernels beside this tree's
-    python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named phases alone (also serve_tp)
+    python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named phases alone (also serve_tp,
+                                                         # train_pipe, train_seq, train_tp)
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -203,7 +204,8 @@ Phases, each fatal on failure:
    the saved masters.
 15. host_optim: ZeRO-Offload's host C++ on the card machine's CPU: the C++
    Adam (``csrc/host/cpu_adam.cpp``) against its plain PyTorch version at
-   ``wte`` and over gpt2_1_3b's 388 leaves one by one (ms, GB/s, threads),
+   ``wte`` and over gpt2_1_3b's leaves of 6 of its 24 layers
+   (``HOST_OPTIM_LAYERS``) one by one (ms, GB/s, threads),
    and the AIO pool (``csrc/host/aio.cpp``) writing and reading 1 GiB under
    ``build/``;
 16. train_offload: gpt2_1_3b at full width (and depth, unless the host's
@@ -252,13 +254,36 @@ Phases, each fatal on failure:
    1 on the kernels (logits and each rank's heads of the pools,
    ``TP_PARITY``); (c) gpt2_1_3b W8 (quantised after sharding, bf16 KV) and
    (d) Mixtral-8x7B (the plain run pinned to the kernel run's routing) the
-   same way at 2 layers; (a) llama3_8b at full width and depth, bf16: each
-   rank draws the serve phase's seed-0 tree leaf by leaf and keeps its
-   slice, then serves the serve phase's two waves: tokens/s, steps, the
-   kernels' launches, each rank's peak memory, and the agreement of its
-   tokens with the serve phase's tp = 1 tokens. Every failure of a rank is
-   fatal. The kernels line gives the rows of the kernels on this path their
+   same way at 2 layers; (a) llama3_8b at full width and 8 of its 32 layers
+   (``TP_SERVE_LAYERS``), bf16: each rank draws the
+   seed-0 tree leaf by leaf and keeps its slice, then serves the serve
+   phase's two waves: tokens/s, steps, the kernels' launches, each rank's
+   peak memory. Every failure of a rank is fatal. The kernels line gives the rows of the kernels on this path their
    launches there (``serve_tp_launches``).
+21. train_pipe and train_seq: pipeline (pipe 2) and sequence (seq or context 2)
+   parallelism as two processes on the one card (``phase_train_pipe``,
+   ``phase_train_seq``; ``train_pipe_launches``, ``train_seq_launches``).
+22. train_tp: tensor-parallel training, mesh ``{tensor: 2}``, two processes on
+   the one card over gloo named for CUDA (four for (c)). (k) In this process
+   the flash forward, dq and dk/dv at a rank's shapes (gpt2_1_3b's B 8, S
+   1,024, 16 heads of 64; llama3_8b's 16 / 4 heads of 128 at S 2,048) in
+   bf16 and fp32, and ``fused_adam_multi`` over tensor rank 0's gpt2_1_3b
+   leaves, against their plain versions. (a) gpt2_1_3b widths (tied head,
+   ``wte`` whole: 50,257 is odd) and llama3_8b widths (untied vocab-parallel
+   head and cross-entropy) at 2 layers in fp32, 2 steps with FusedAdam and
+   with LAMB, against the one-process engine on the same weights and rows:
+   losses and grad norm within 1e-5, the masters by 4 seeded +-1
+   projections a leaf (``PAR_TOL``), every leaf both ranks hold whole
+   bit-equal. (b) gpt2_1_3b at full width and depth in bf16 with FusedAdam
+   on train's micro-batch of 8 x 1,024 on both ranks: step ms,
+   tokens/s, each rank's peak, the TP collectives' calls, MB and host ms a
+   step, the kernels' launches (24 a rank a step each flash kernel, one
+   Adam), losses within 1 % of ``train``'s (4 steps, ``TP_STEPS``: the
+   whole script's time limit). (c) pipe 2 x tensor 2 as four
+   processes, gpt2_1_3b widths at 4 layers in fp32, 2 steps of 1F1B,
+   against one process. The kernels line gives the flash and Adam rows
+   rank 0's launches over (b)'s timed steps and the LAMB row its launches
+   in (a)'s llama3_8b LAMB run (``train_tp_launches``).
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -990,6 +1015,14 @@ FLASH_CASES = {
 }
 
 
+# a rank's attention at tensor 2 (train_tp): gpt2_1_3b's 16 of 32 heads, and llama3_8b's 16 of 32 query and 4 of 8
+# KV heads at S 2,048
+TP_FLASH_CASES = {
+    "tp2_gpt2_1_3b": dict(B=8, Sq=1024, Sk=1024, H=16, KVH=16, D=64, causal=True),
+    "tp2_llama3_8b": dict(B=1, Sq=2048, Sk=2048, H=16, KVH=4, D=128, causal=True),
+}
+
+
 def visible_pairs(Sq, Sk, causal, window) -> int:
     """(query, key) pairs the mask lets through, per batch row and head."""
     if not causal:
@@ -1004,7 +1037,7 @@ def phase_flash(torch, dev, dtype, name, iters):
     from deepspeed_tpu_torch.models import alibi_slopes
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    c = FLASH_CASES[name]
+    c = {**FLASH_CASES, **TP_FLASH_CASES}[name]
     B, Sq, Sk, H, KVH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KVH", "D"))
     causal, window = c["causal"], c.get("window", 0)
     g = torch.Generator(device=dev).manual_seed(Sq + H)
@@ -1099,8 +1132,23 @@ def gpt2_leaf_shapes():
     return [(path, spec[0]) for path, spec in flatten(param_shapes(gpt2_1_3b()))]
 
 
+def tp_leaf_shapes(tp: int = 2):
+    """gpt2_1_3b's leaves as tensor rank 0 of ``tp`` holds them, in the engine's order (``wte`` whole: the
+    vocabulary of 50,257 is odd)."""
+    from deepspeed_tpu_torch.models import CausalLM, gpt2_1_3b
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import leaf_spec
+
+    rules = CausalLM(gpt2_1_3b()).partition_rules()
+    out = []
+    for path, shape in gpt2_leaf_shapes():
+        spec = leaf_spec(tuple(path.split("/")), shape, rules, tp)
+        out.append((path, tuple(n // tp if d < len(spec) and spec[d] == "tensor" else n for d, n in enumerate(shape))))
+    return out
+
+
 def phase_adam(torch, dev, which, iters):
-    """Kernel D over the wte leaf or over every gpt2_1_3b leaf in one
+    """Kernel D over the wte leaf, over every gpt2_1_3b leaf or over tensor
+    rank 0's leaves at tp 2 (``which``: "wte", "all", "tp2") in one
     ``fused_adam_multi`` call, as ``FusedAdam`` makes it (ceil(leaves /
     TABLE_LEAVES) launches), against its plain version. Timed three times
     each in turns (each first, second and last once): this tree's kernel,
@@ -1112,7 +1160,7 @@ def phase_adam(torch, dev, which, iters):
     median by more than both spreads."""
     from deepspeed_tpu_torch.ops import fused_adam as fad
 
-    shapes = gpt2_leaf_shapes()
+    shapes = tp_leaf_shapes() if which == "tp2" else gpt2_leaf_shapes()
     if which == "wte":
         shapes = [(p, s) for p, s in shapes if p == "wte"]
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1172,6 +1220,20 @@ def phase_adam(torch, dev, which, iters):
                 alternating=alternating, beats=beats, bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
+def check_flash(rec) -> None:
+    what, tol = rec["tol"]
+    if not (rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4):
+        raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > {tol}"
+                             f" or lse error {rec.get('lse_max_abs_err')} > 1e-4")
+
+
+def check_adam(rec) -> None:
+    if not rec["max_rel_err"] <= 1e-6:
+        raise AssertionError(f"fused_adam {rec['case']}: max_rel_err {rec['max_rel_err']} > 1e-6")
+    if rec["launches_per_step"] != opt_launches("FusedAdam", rec["leaves"]):
+        raise AssertionError(f"fused_adam {rec['case']}: {rec['launches_per_step']} launches for {rec['shape']}")
+
+
 def run_train_kernel_phases(torch, dev, quick: bool):
     records = []
     iters = 5 if quick else 20
@@ -1180,19 +1242,13 @@ def run_train_kernel_phases(torch, dev, quick: bool):
         for name in (n for n in names if dtype == torch.bfloat16 or not FLASH_CASES[n].get("bf16_only")):
             for rec in phase_flash(torch, dev, dtype, name, iters):
                 log(rec)
-                what, tol = rec["tol"]
-                if not (rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4):
-                    raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > {tol}"
-                                         f" or lse error {rec.get('lse_max_abs_err')} > 1e-4")
+                check_flash(rec)
                 records.append(rec)
             torch.cuda.empty_cache()
     for which in (["wte"] if quick else ["wte", "all"]):
         rec = phase_adam(torch, dev, which, iters)
         log(rec)
-        if not rec["max_rel_err"] <= 1e-6:
-            raise AssertionError(f"fused_adam {which}: max_rel_err {rec['max_rel_err']} > 1e-6")
-        if rec["launches_per_step"] != opt_launches("FusedAdam", rec["leaves"]):
-            raise AssertionError(f"fused_adam {which}: {rec['launches_per_step']} launches for {rec['shape']}")
+        check_adam(rec)
         records.append(rec)
         torch.cuda.empty_cache()
     return records
@@ -3380,9 +3436,15 @@ def mem_available_gb() -> float:
     return float("nan")
 
 
+# host_optim's leaves: gpt2_1_3b's embeddings, final norm and its first 6 of 24 layers, a depth cut for the whole
+# script's time limit (the plain version over all 388 leaves, 1.3e9 elements, takes 20-38 s)
+HOST_OPTIM_LAYERS = 6
+
+
 def phase_host_optim(torch) -> dict:
     """The host C++ of ZeRO-Offload on the card machine's CPU: ``cpu_adam_step`` against its plain version at
-    ``wte`` (50,257 x 2,048) and over gpt2_1_3b's 388 leaves one by one (one host step), with ms, GB/s (7 fp32
+    ``wte`` (50,257 x 2,048) and over gpt2_1_3b's leaves of HOST_OPTIM_LAYERS layers (with the embeddings and the
+    final norm) one by one (one host step), with ms, GB/s (7 fp32
     streams an element: p, g, m, v read, p, m, v written) and the thread count; then the AIO pool writing
     and reading 1 GiB under ``build/``."""
     import shutil
@@ -3393,7 +3455,8 @@ def phase_host_optim(torch) -> dict:
     from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
 
     threads = torch.get_num_threads()
-    leaves = gpt2_leaf_shapes()
+    leaves = [(p, s) for p, s in gpt2_leaf_shapes()
+              if not p.startswith("layer_") or int(p.split("/")[0].split("_")[1]) < HOST_OPTIM_LAYERS]
     gen = torch.Generator().manual_seed(0)
     # one seeded pool a state, as large as the largest leaf; each leaf steps copies of its first elements
     wte = (50257, 2048)
@@ -3862,7 +3925,8 @@ def host_code_rows(host, offload) -> list:
          "source": "deepspeed_tpu_torch/csrc/host/cpu_adam.cpp", "replaces": "csrc/cpu_adam.cpp",
          "bound_by": "host memory bandwidth", "threads": host["threads"], "wte_ms": host["wte"]["ms"],
          "wte_gbps": host["wte"]["gbps"], "all_leaves_ms": host["all"]["ms"], "all_leaves_gbps": host["all"]["gbps"],
-         "plain_ms": host["all"]["plain_ms"], "max_rel_err": host["all"]["max_rel_err"],
+         "all_leaves": host["all"]["leaves"], "plain_ms": host["all"]["plain_ms"],
+         "max_rel_err": host["all"]["max_rel_err"],
          "host_step_ms_in_train_offload": run["step_split_ms"]["host_step"], "calls": run["host_adam_calls"]},
         {"name": "aio", "route": "host C++ (std::thread pool, pread / pwrite)",
          "source": "deepspeed_tpu_torch/csrc/host/aio.cpp", "replaces": "csrc/aio.cpp", "bound_by": "disk",
@@ -4542,8 +4606,9 @@ class PlainQuantKernels(PlainKernels):
         return tq
 
 
-# v1 serving: a batch of 4 seeded prompts at each length, greedy, V1_NEW new tokens
-V1_PROMPT_LENS, V1_BATCH, V1_NEW, V1_MAX_OUT = (16, 512), 4, 32, 1024
+# v1 serving: a batch of 4 seeded prompts at each length, greedy, V1_NEW new tokens (16: the whole script's time
+# limit)
+V1_PROMPT_LENS, V1_BATCH, V1_NEW, V1_MAX_OUT = (16, 512), 4, 16, 1024
 V1_RUNS = {"v1": 0, "v1_w8": 8, "v1_w4": 4}  # run -> quant bits (0: off)
 
 
@@ -4735,6 +4800,9 @@ TP_QMM_SHAPES = [(4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4
 TP_PARITY = {"llama3_8b": ("float32", 1e-4, 1e-4), "gpt2_1_3b_w8": ("bfloat16", 0.125, 0.1),
              "mixtral_8x7b": ("float32", 1e-4, 1e-4)}
 TP_TIMEOUT_S = 900
+# (a)'s depth: 8 of llama3_8b's 32 layers (at 32 its gloo reduces, two a layer a step, make it the script's longest
+# phase: the depth is cut for the whole script's time limit)
+TP_SERVE_LAYERS = 8
 
 
 def tp_params(torch, cfg, dev, dtype, rank, seed=0):
@@ -4858,14 +4926,14 @@ def tp_parity_case(torch, dev, rank: int, model: str) -> dict:
 
 
 def tp_serve_case(torch, dev, rank: int) -> dict:
-    """(a) llama3_8b at full width and depth, bf16, tp = 2: the serve phase's seed-0 tree built leaf by leaf,
+    """(a) llama3_8b at full width and TP_SERVE_LAYERS layers, bf16, tp = 2: the seed-0 tree built leaf by leaf,
     each rank keeping its slice, then the serve phase's two waves, 32 new tokens each (eager steps: gloo)."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.ops import norms, paged_attention as pa
 
-    cfg = model_cfg()
+    cfg = model_cfg(n_layers=TP_SERVE_LAYERS)
     t0 = time.perf_counter()
     params, _ = tp_params(torch, cfg, dev, torch.bfloat16, rank)
     torch.cuda.synchronize()
@@ -4978,11 +5046,12 @@ def tp_check_parity(torch, model, ranks) -> dict:
     return rec
 
 
-def phase_serve_tp(torch, dev, serve_tokens=None) -> dict:
+def phase_serve_tp(torch, dev) -> dict:
     """Tensor-parallel serving at tp = 2 as two processes on the one card, over gloo (NCCL takes one GPU a
     rank): the kernels at a rank's shapes here first (``tp_kernel_records``), then two ranks (``tp_rank``),
     each ``comm.init_distributed(device="cuda", backend="gloo")``, running (e) the reduce, (b) llama3_8b,
-    (c) gpt2_1_3b W8 and (d) Mixtral-8x7B step parity at 2 layers, and (a) llama3_8b served at full size;
+    (c) gpt2_1_3b W8 and (d) Mixtral-8x7B step parity at 2 layers, and (a) llama3_8b served at full width
+    and TP_SERVE_LAYERS layers;
     every failure of a rank is fatal. The gloo reduce is staged through the host: nothing here measures
     NVLink. Returns the serve's launches per kernel and the records."""
     import multiprocessing as mp
@@ -5031,7 +5100,8 @@ def phase_serve_tp(torch, dev, serve_tokens=None) -> dict:
     serve = res["serve"]
     out = serve[0]["tokens"]
     launches = serve[0]["launches"]
-    rec = dict(phase="serve_tp", run="llama3_8b", tp=TP, layers=32, dtype="bfloat16", backend="gloo (host-staged)",
+    rec = dict(phase="serve_tp", run="llama3_8b", tp=TP, layers=TP_SERVE_LAYERS, dtype="bfloat16",
+               backend="gloo (host-staged)",
                steps_mode=serve[0]["manifest"]["steps"], prompts=len(out), new_tokens=sum(len(o) for o in out),
                wall_s=max(s["wall_s"] for s in serve), tokens_per_s=min(s["tokens_per_s"] for s in serve),
                steps=serve[0]["steps"], quanta=serve[0]["quanta"], launches=launches, kv_blocks=serve[0]["kv_blocks"],
@@ -5040,15 +5110,15 @@ def phase_serve_tp(torch, dev, serve_tokens=None) -> dict:
                peak_memory_gb_per_rank=[s["peak_memory_gb"] for s in serve],
                weights_init_s=[s["weights_init_s"] for s in serve], ranks_same_tokens=serve[1]["tokens"] == out,
                seconds=max(s["seconds"] for s in serve))
-    if serve_tokens is not None:
-        rec["agreement_with_serve_tp1"] = agreement(out, serve_tokens)
     log(rec)
     if not rec["ranks_same_tokens"]:
         raise AssertionError("serve_tp: the ranks' tokens differ")
     if not all(len(o) == 32 and all(0 <= t < 128256 for t in o) for o in out):
         raise AssertionError("serve_tp: a request did not get 32 in-vocab tokens")
-    if any(n <= 0 for n in launches.values()) or launches["rms_norm"] % 65:
-        raise AssertionError(f"serve_tp: launches {launches} (each kernel must launch; 65 rms_norm a forward)")
+    norms_a_forward = 2 * TP_SERVE_LAYERS + 1
+    if any(n <= 0 for n in launches.values()) or launches["rms_norm"] % norms_a_forward:
+        raise AssertionError(f"serve_tp: launches {launches} (each kernel must launch; {norms_a_forward} rms_norm a "
+                             "forward)")
     return dict(launches={**parity["gpt2_1_3b_w8"]["launches"], **parity["mixtral_8x7b"]["launches"], **launches},
                 records=records, parity=parity, serve=rec)
 
@@ -5056,11 +5126,13 @@ def phase_serve_tp(torch, dev, serve_tokens=None) -> dict:
 # ---------------------------------------------------------------- pipeline and sequence parallelism (two ranks, one card)
 PAR = 2  # ranks: two processes on the one card over gloo (NCCL takes one GPU a rank)
 PAR_TIMEOUT_S = 600
-PIPE_FP32 = dict(layers=4, steps=3)  # (a) fp32 parity at gpt2_1_3b's widths
-PIPE_STEPS = 6  # (b), (c): gpt2_1_3b at full depth, steps TIMED_FROM+1.. timed
+# the steps of (a) and of (b) / (c) are cut for the whole script's time limit
+PIPE_FP32 = dict(layers=4, steps=2)  # (a) fp32 parity at gpt2_1_3b's widths
+PIPE_STEPS = 4  # (b), (c): gpt2_1_3b at full depth, steps TIMED_FROM+1.. timed
 PIPE_MICRO = 2  # the train phase's 8-row batch as M = 4 micro-batches of 2 rows
 SEQ_FP32 = dict(layers=1, tokens=2048, steps=2)  # (a) fp32 parity at llama3_8b's widths
-SEQ_BF16 = dict(layers=2, tokens=8192, steps=4)  # (b) one row of 8,192 tokens; two full-depth replicas do not fit
+# (b) one row of 8,192 tokens; two full-depth replicas do not fit; 2 steps (the whole script's time limit)
+SEQ_BF16 = dict(layers=2, tokens=8192, steps=2)
 SKETCH_K = 4
 # fp32: losses, the grad norm and the whole tree of masters within 1e-5 relative, each leaf within 2 % of its
 # travel (as the CPU parity tests hold ZeRO); bf16: each step's loss within 1 % of one process's
@@ -5079,6 +5151,47 @@ def sketch(torch, t, seed: int, k: int = SKETCH_K) -> list:
             r = torch.randint(0, 2, c.shape, generator=g, device=c.device, dtype=torch.int8).double() * 2 - 1
             acc += (c.double() * r).sum()
         out.append(acc.item())
+    return out
+
+
+def slice_sketch(torch, t, seed: int, shape, dim: int, rank: int, k: int = SKETCH_K) -> list:
+    """``sketch`` of the whole leaf of ``shape`` restricted to ``t``, tensor rank ``rank``'s slice of it along
+    ``dim``: the same +-1 draws (drawn whole, in ``sketch``'s chunks), each dotted with this rank's part only, so
+    the ranks' results add up to ``sketch`` of the whole leaf without moving it."""
+    numel, n = math.prod(shape), t.shape[dim]
+    out = []
+    for j in range(k):
+        g = torch.Generator(device=t.device).manual_seed(seed * k + j)
+        r = torch.cat([torch.randint(0, 2, (min(1 << 25, numel - o),), generator=g, device=t.device, dtype=torch.int8)
+                       for o in range(0, numel, 1 << 25)])
+        r = r.view(shape).narrow(dim, rank * n, n)
+        out.append((t.detach().double() * (r.double() * 2 - 1)).sum().item())
+    return out
+
+
+def tp_sketches(torch, engine, name=lambda path: path) -> dict:
+    """{name(path): sketch} of each whole master of a tensor-parallel engine (stage 0 or 1: each rank holds its
+    slices whole along the other dimensions), from this rank's slices: a split leaf's parts summed over the tensor
+    group in one all-reduce; a leaf ``name`` maps to None is left out. Every rank of the group must call it."""
+    import zlib
+
+    from deepspeed_tpu_torch import comm as dist
+
+    out, split, parts = {}, [], []
+    for lf, m in zip(engine.plan.leaves, engine.parameters()):
+        key = name(lf.path)
+        if key is None:
+            continue
+        seed = zlib.crc32(key.encode()) & 0x7FFFFFF
+        if lf.tensor_dim is None:
+            out[key] = sketch(torch, m, seed)
+        else:
+            split.append(key)
+            parts.append(slice_sketch(torch, m, seed, lf.shape, lf.tensor_dim, engine._tp.rank))
+    if split:
+        sums = torch.tensor(parts, dtype=torch.float64, device=engine.device)
+        dist.all_reduce(sums, group=engine._tp.group)
+        out.update(zip(split, sums.tolist()))
     return out
 
 
@@ -5232,8 +5345,9 @@ def seq_case(torch, dev, rank: int, dtype_name: str, axis: str) -> dict:
     return res
 
 
-def par_rank(rank: int, store: str, out_dir: str, cases) -> None:
-    """A rank of train_pipe / train_seq: gloo named for CUDA tensors over a file store, then each case."""
+def par_rank(rank: int, store: str, out_dir: str, cases, world: int = PAR) -> None:
+    """A rank of train_pipe / train_seq / train_tp: gloo named for CUDA tensors over a file store, then each
+    case."""
     sys.path.insert(0, HERE)
     import torch
 
@@ -5245,13 +5359,13 @@ def par_rank(rank: int, store: str, out_dir: str, cases) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    dist.init_distributed(device=dev, backend="gloo", init_method=f"file://{store}", rank=rank, world_size=PAR,
+    dist.init_distributed(device=dev, backend="gloo", init_method=f"file://{store}", rank=rank, world_size=world,
                           verbose=False)
     try:
         for phase, dtype_name, variant in cases:
             t0 = time.perf_counter()
             reset_mesh()
-            fn = pipe_case if phase == "pipe" else seq_case
+            fn = {"pipe": pipe_case, "seq": seq_case, "tp": tp_case, "pipetp": pipe_tp_case}[phase]
             res = fn(torch, dev, rank, dtype_name, variant)
             res["seconds"] = time.perf_counter() - t0
             torch.save(res, os.path.join(out_dir, f"{phase}_{dtype_name}_{variant}_rank{rank}.pt"))
@@ -5259,8 +5373,9 @@ def par_rank(rank: int, store: str, out_dir: str, cases) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(torch, cases) -> dict:
-    """Two ranks on the one card, each running every case; every failure of a rank is fatal."""
+def run_ranks(torch, cases, world: int = PAR) -> dict:
+    """``world`` ranks (two by default) on the one card, each running every case; every failure of a rank is
+    fatal."""
     import multiprocessing as mp
 
     from deepspeed_tpu_torch.ops import _build
@@ -5270,7 +5385,8 @@ def run_ranks(torch, cases) -> dict:
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as d:
-        procs = [ctx.Process(target=par_rank, args=(r, os.path.join(d, "store"), d, cases)) for r in range(PAR)]
+        procs = [ctx.Process(target=par_rank, args=(r, os.path.join(d, "store"), d, cases, world))
+                 for r in range(world)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
@@ -5287,7 +5403,7 @@ def run_ranks(torch, cases) -> dict:
         if any(c != 0 for c in codes):
             raise AssertionError(f"ranks exited with {codes} after {time.perf_counter() - t0:.0f} s (cases {cases})")
         return {c: [torch.load(os.path.join(d, f"{c[0]}_{c[1]}_{c[2]}_rank{r}.pt"), weights_only=False)
-                    for r in range(PAR)] for c in cases}
+                    for r in range(world)] for c in cases}
 
 
 def one_process(torch, dev, model, config, data, steps: int, timed_from: int, want_sketch: bool) -> dict:
@@ -5334,7 +5450,7 @@ def phase_train_pipe(torch, dev, card: str, want=None) -> dict:
     """Pipeline parallelism at pipe 2 as two processes on the one card (``run_ranks``): (a) gpt2_1_3b widths at
     4 layers in fp32, 1F1B and GPipe, against the one-process engine on the same weights and batches; (b)
     gpt2_1_3b at full depth (12 layers a stage) in bf16 with FusedAdam, 1F1B, against the train phase's first
-    six losses (``want``; else a one-process run here); (c) GPipe at the same size. Returns each kernel's
+    PIPE_STEPS losses (``want``; else a one-process run here); (c) GPipe at the same size. Returns each kernel's
     launches per step in (b) (rank 0's and rank 1's summed) and the records."""
     import itertools
 
@@ -5403,7 +5519,7 @@ def phase_train_pipe(torch, dev, card: str, want=None) -> dict:
 def phase_train_seq(torch, dev, card: str) -> dict:
     """Sequence parallelism at seq 2 (Ulysses) and context 2 (ring) as two processes on the one card: (a)
     llama3_8b widths at 1 layer and 2,048 tokens in fp32 against the one-process engine; (b) at 2 layers, one
-    row of 8,192 tokens in bf16 with FusedAdam, 4 steps each, against the one-process engine at the same
+    row of 8,192 tokens in bf16 with FusedAdam, 2 steps each, against the one-process engine at the same
     tokens. Returns the Ulysses run's launches (rank 0's) and the records."""
     import itertools
 
@@ -5454,6 +5570,253 @@ def phase_train_seq(torch, dev, card: str) -> dict:
     if not ok:
         raise AssertionError(f"train_seq failed: {records}")
     return dict(launches=launches, records=records)
+
+
+# ---------------------------------------------------------------- tensor-parallel training (two or four ranks)
+TP_FP32 = dict(layers=2, steps=2, gpt2_rows=2, llama_tokens=2048)  # (a) fp32 parity at tensor 2
+# (b) gpt2_1_3b at full depth in bf16, train's micro-batch on both ranks; steps TIMED_FROM+1.. timed (4, not 6:
+# the whole script's time limit)
+TP_STEPS = 4
+TP_PIPE = dict(layers=4, steps=2)  # (c) pipe 2 x tensor 2, four processes, fp32
+TP_MODELS = ("gpt2_1_3b", "llama3_8b")
+TP_OPTIMIZERS = ("FusedAdam", "Lamb")
+
+
+def tp_model(torch, name: str, dtype, layers=None):
+    """gpt2_1_3b or llama3_8b at ``layers`` (default: the preset's depth) in ``dtype``."""
+    kw = dict(dtype=dtype, **({"n_layers": layers} if layers else {}))
+    return gpt2_cfg(**kw) if name == "gpt2_1_3b" else model_cfg(**kw)
+
+
+def tp_batch(np, name: str, vocab: int, fp32: bool) -> dict:
+    """(a): 2 of train's rows for gpt2_1_3b, one row of 2,048 tokens for llama3_8b; (b): train's 8 x 1,024."""
+    if name == "llama3_8b":
+        return seq_batch(np, vocab, TP_FP32["llama_tokens"])
+    ids = train_batch_data(np, vocab)["input_ids"]
+    return {"input_ids": ids[:TP_FP32["gpt2_rows"]] if fp32 else ids}
+
+
+def tp_train_config(torch, optimizer: str, dtype, mesh: dict, rows: int) -> dict:
+    cfg = train_config(torch, optimizer, dtype)
+    cfg.update(train_micro_batch_size_per_gpu=rows, mesh=mesh)
+    return cfg
+
+
+def tp_counters(optimizer: str):
+    from deepspeed_tpu_torch.ops import fused_lamb as tfl
+
+    return par_counters() + ([tfl.lamb_direction] if optimizer == "Lamb" else [])
+
+
+def tp_case(torch, dev, rank: int, dtype_name: str, variant: str) -> dict:
+    """A tensor rank of ``variant`` ("<model>-<optimizer>"): (a) fp32 at TP_FP32's depth, or (b) gpt2_1_3b at full
+    depth in bf16, on the whole seeded model (each rank keeps its slices) and the same rows on both ranks."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    name, optimizer = variant.split("-")
+    fp32 = dtype_name == "fp32"
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    cfg = tp_model(torch, name, dtype, TP_FP32["layers"] if fp32 else None)
+    batch = tp_batch(np, name, cfg.vocab_size, fp32)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, device=dev,
+                                     config=tp_train_config(torch, optimizer, dtype, {"tensor": TP},
+                                                            len(batch["input_ids"])))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def zero_comm():
+        for v in engine._tp.stats.values():
+            v[:] = [0, 0, 0.0]
+
+    res = train_steps(torch, engine, itertools.repeat(batch), TP_FP32["steps"] if fp32 else TP_STEPS,
+                      1 if fp32 else TIMED_FROM, tp_counters(optimizer), zero_comm)
+    n = res["timed_steps"]
+    res.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30, tp_rank=engine._tp.rank,
+               comm={k: dict(calls=v[0] / n, mb=v[1] / n / 2**20, ms=v[2] / n * 1e3) for k, v in
+                     engine._tp.stats.items()}, leaves=len(engine.parameters()),
+               rank_params=sum(p.numel() for p in engine.parameters()), step_flops=engine._step_flops)
+    if fp32:
+        t0 = time.perf_counter()
+        res["sketch"] = tp_sketches(torch, engine)
+        # the leaves every tensor rank holds whole, whose projections must be equal across the ranks
+        res["replicated"] = [lf.path for lf in engine.plan.leaves if lf.tensor_dim is None]
+        res["sketch_s"] = time.perf_counter() - t0
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipe_tp_case(torch, dev, rank: int, dtype_name: str, schedule: str) -> dict:
+    """A rank of pipe 2 x tensor 2: gpt2_1_3b widths at TP_PIPE's depth in fp32, train's batch as 4 micro-batches
+    of 2 rows; the whole stage leaves' sketches from tensor rank 0."""
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM, init_params
+
+    cfg = gpt2_cfg(n_layers=TP_PIPE["layers"], dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    config = pipe_config(torch, torch.float32, schedule)
+    config["mesh"] = {"pipe": PAR, "tensor": TP}
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params, config=config, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = train_batch_data(np, cfg.vocab_size)["input_ids"]
+    data = itertools.cycle([{"input_ids": ids[j:j + PIPE_MICRO]} for j in range(0, MICRO, PIPE_MICRO)])
+    res = train_steps(torch, engine, data, TP_PIPE["steps"], 1, par_counters())
+    lps = cfg.n_layers // PAR
+    res.update(stage=engine.stage_id, tp_rank=engine._tp.rank,
+               sketch=tp_sketches(torch, engine, lambda p: stage_to_full(p, engine.stage_id, lps)))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_kernel_checks(torch, dev, card: str, iters=10) -> list:
+    """(k): the flash forward, dq and dk/dv at a tensor rank's shapes (TP_FLASH_CASES) in bf16 and fp32, and
+    ``fused_adam_multi`` over tensor rank 0's gpt2_1_3b leaves, each against its plain version in this
+    process."""
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in TP_FLASH_CASES:
+            for rec in phase_flash(torch, dev, dtype, name, iters):
+                rec.update(phase="train_tp", part="k", card=card)
+                log(rec)
+                check_flash(rec)
+                records.append(rec)
+            torch.cuda.empty_cache()
+    rec = phase_adam(torch, dev, "tp2", iters)
+    rec.update(phase="train_tp", part="k", card=card)
+    log(rec)
+    check_adam(rec)
+    records.append(rec)
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_train_tp(torch, dev, card: str, want=None) -> dict:
+    """Tensor-parallel training at tensor 2 as two processes on the one card (``run_ranks``), and pipe 2 x tensor
+    2 as four: (k) the kernels at a rank's shapes against their plain versions; (a) gpt2_1_3b (tied head, ``wte``
+    whole) and llama3_8b widths (untied vocab-parallel head and CE, 16 / 4 heads a rank) at 2 layers in fp32,
+    2 steps with FusedAdam and with LAMB, against the one-process engine on the same weights and batches; (b)
+    gpt2_1_3b at full depth in bf16 with FusedAdam on train's micro-batch, against ``train``'s first TP_STEPS
+    losses (``want``; else a one-process run here); (c) pipe 2 x tensor 2, gpt2_1_3b widths at 4 layers in
+    fp32, 1F1B, against one process. Returns rank 0's launches over (b)'s timed steps, the LAMB direction's
+    over (a)'s llama3_8b LAMB run, and the records."""
+    import itertools
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    records = tp_kernel_checks(torch, dev, card)
+    parts = dict(k=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    refs = {}
+    for name in TP_MODELS:
+        cfg = tp_model(torch, name, torch.float32, TP_FP32["layers"])
+        batch = tp_batch(np, name, cfg.vocab_size, True)
+        for optimizer in TP_OPTIMIZERS:
+            refs[(name, optimizer)] = one_process(
+                torch, dev, cfg, tp_train_config(torch, optimizer, torch.float32, {"data": 1}, len(batch["input_ids"])),
+                itertools.repeat(batch), TP_FP32["steps"], 1, True)
+    if want is None:
+        want = one_process(torch, dev, gpt2_cfg(dtype=torch.bfloat16), train_config(torch, "FusedAdam",
+                                                                                     torch.bfloat16),
+                           itertools.repeat(train_batch_data(np, 50257)), TP_STEPS, TIMED_FROM, False)["losses"]
+    pipe_ref = one_process(torch, dev, gpt2_cfg(n_layers=TP_PIPE["layers"], dtype=torch.float32),
+                           train_config(torch, "FusedAdam", torch.float32),
+                           itertools.repeat(train_batch_data(np, 50257)), TP_PIPE["steps"], 1, True)
+    cases = [("tp", "fp32", f"{m}-{o}") for m in TP_MODELS for o in TP_OPTIMIZERS] + [("tp", "bf16",
+                                                                                        "gpt2_1_3b-FusedAdam")]
+    parts["one_process"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = run_ranks(torch, cases)
+    parts["two_ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res.update(run_ranks(torch, [("pipetp", "fp32", "1f1b")], world=PAR * TP))
+    parts["four_ranks"] = time.perf_counter() - t0
+    log(dict(phase="train_tp parts", seconds=parts, card=card))
+    ok, lamb_launches = True, {}
+    for name in TP_MODELS:
+        for optimizer in TP_OPTIMIZERS:
+            ranks, ref = res[("tp", "fp32", f"{name}-{optimizer}")], refs[(name, optimizer)]
+            rec = dict(phase="train_tp", case="a", model=name, layers=TP_FP32["layers"], dtype="float32",
+                       optimizer=optimizer, tensor=TP, backend="gloo (host-staged)",
+                       tokens=int(np.prod(tp_batch(np, name, 8, True)["input_ids"].shape)),
+                       losses=ranks[0]["losses"], one_process_losses=ref["losses"],
+                       loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref["losses"])),
+                       grad_norm_rel_err=abs(ranks[0]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                       masters=sketch_errors(ref["sketch"], ref["init_sketch"], ranks[0]["sketch"]),
+                       same_loss_on_ranks=ranks[0]["losses"] == ranks[1]["losses"],
+                       replicas_equal=all(ranks[0]["sketch"][p] == ranks[1]["sketch"][p] for p in ranks[0]["replicated"]),
+                       replicated_leaves=len(ranks[0]["replicated"]), leaves_per_rank=ranks[0]["leaves"],
+                       params_per_rank=ranks[0]["rank_params"], comm_per_step=ranks[0]["comm"],
+                       launches_per_step={k: v / ranks[0]["timed_steps"] for k, v in ranks[0]["launches"].items()},
+                       seconds=max(r["seconds"] for r in ranks), sketch_s=max(r["sketch_s"] for r in ranks),
+                       tol=PAR_TOL["fp32_rel"], card=card)
+            log(rec)
+            records.append(rec)
+            ok = ok and rec["loss_max_rel_err"] <= PAR_TOL["fp32_rel"] and \
+                rec["grad_norm_rel_err"] <= PAR_TOL["fp32_rel"] and masters_ok(rec["masters"]) and \
+                rec["same_loss_on_ranks"] and rec["replicas_equal"]
+            if name == "llama3_8b" and optimizer == "Lamb":
+                lamb_launches = {"lamb_direction": ranks[0]["launches"]["lamb_direction"]}
+    ranks = res[("tp", "bf16", "gpt2_1_3b-FusedAdam")]
+    losses = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want[:TP_STEPS])]
+    step_ms = max(r["step_ms"] for r in ranks)
+    rec = dict(phase="train_tp", case="b", model="gpt2_1_3b", layers=24, dtype="bfloat16", optimizer="FusedAdam",
+               tensor=TP, heads_per_rank=16, wte="whole on both ranks (50,257 is odd)", backend="gloo (host-staged)",
+               rows=MICRO, seq=SEQ, steps=TP_STEPS, timed_steps=f"{TIMED_FROM + 1}-{TP_STEPS}", step_ms=step_ms,
+               step_ms_per_rank=[r["step_ms"] for r in ranks], tokens_per_s=MICRO * SEQ / (step_ms / 1e3),
+               peak_gb_per_rank=[r["peak_gb"] for r in ranks], params_per_rank=[r["rank_params"] for r in ranks],
+               tp_comm_per_step=[r["comm"] for r in ranks], losses=losses, train_losses=want[:TP_STEPS],
+               loss_rel_err=rel, same_loss_on_ranks=losses == ranks[1]["losses"],
+               launches_per_step=[{k: v / r["timed_steps"] for k, v in r["launches"].items()} for r in ranks],
+               engine_step_flops=ranks[0]["step_flops"], seconds=max(r["seconds"] for r in ranks), card=card)
+    log(rec)
+    records.append(rec)
+    ok = ok and max(rel) <= PAR_TOL["bf16_loss_rel"] and rec["same_loss_on_ranks"] and all(np.isfinite(losses))
+    launches = dict(ranks[0]["launches"])
+    per_step = {k: v / ranks[0]["timed_steps"] for k, v in launches.items()}
+    want_l = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24, "fused_adam": 1}  # a rank's, each block
+    if per_step != want_l:
+        raise AssertionError(f"train_tp: launches per step {per_step}, expected {want_l}")
+    ranks = res[("pipetp", "fp32", "1f1b")]
+    got = {}
+    for r in ranks:
+        if r["tp_rank"] == 0:
+            got.update(r["sketch"])
+    rec = dict(phase="train_tp", case="c", model="gpt2_1_3b", layers=TP_PIPE["layers"], dtype="float32",
+               schedule="1f1b", pipe=PAR, tensor=TP, processes=PAR * TP, backend="gloo (host-staged)",
+               micro_batches=MICRO // PIPE_MICRO, rows=PIPE_MICRO, seq=SEQ, losses=ranks[0]["losses"],
+               one_process_losses=pipe_ref["losses"],
+               loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], pipe_ref["losses"])),
+               grad_norm_rel_err=abs(ranks[0]["grad_norm"] - pipe_ref["grad_norm"]) / pipe_ref["grad_norm"],
+               masters=sketch_errors(pipe_ref["sketch"], pipe_ref["init_sketch"], got),
+               same_loss_on_ranks=all(r["losses"] == ranks[0]["losses"] for r in ranks),
+               step_ms=max(r["step_ms"] for r in ranks), seconds=max(r["seconds"] for r in ranks),
+               tol=PAR_TOL["fp32_rel"], card=card)
+    log(rec)
+    records.append(rec)
+    ok = ok and rec["loss_max_rel_err"] <= PAR_TOL["fp32_rel"] and rec["grad_norm_rel_err"] <= PAR_TOL["fp32_rel"] \
+        and masters_ok(rec["masters"]) and rec["same_loss_on_ranks"] and len(got) == len(pipe_ref["sketch"])
+    if not ok:
+        raise AssertionError(f"train_tp failed: {records}")
+    return dict(launches=launches, lamb_launches=lamb_launches, records=records)
 
 
 def kernel_row(records, runs, name, run, counter, dtype, want, source, replaces) -> dict:
@@ -5538,7 +5901,8 @@ def main(argv) -> int:
         phases = {"train_zeropp": lambda: phase_train_zeropp(torch, dev, tc),
                   "train_moe": lambda: phase_train_moe(torch, dev, tc), "serve_tp": lambda: phase_serve_tp(torch, dev),
                   "train_pipe": lambda: phase_train_pipe(torch, dev, card),
-                  "train_seq": lambda: phase_train_seq(torch, dev, card)}
+                  "train_seq": lambda: phase_train_seq(torch, dev, card),
+                  "train_tp": lambda: phase_train_tp(torch, dev, card)}
         for name in only:
             t0 = time.perf_counter()
             phases[name]()
@@ -5647,7 +6011,7 @@ def main(argv) -> int:
     train_moe = phase_train_moe(torch, dev, train_counters)
     log(dict(phase="train_moe", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    serve_tp = phase_serve_tp(torch, dev, serve["tokens"])
+    serve_tp = phase_serve_tp(torch, dev)
     log(dict(phase="serve_tp", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     train_pipe = phase_train_pipe(torch, dev, card, want=train["losses"])
@@ -5655,6 +6019,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     train_seq = phase_train_seq(torch, dev, card)
     log(dict(phase="train_seq", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    train_tp = phase_train_tp(torch, dev, card, want=train["losses"])
+    log(dict(phase="train_tp", seconds=time.perf_counter() - t0))
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
             "mixtral_8x7b_8l": serve_moe, "train": train, "train_seq": train_seq,
@@ -5671,6 +6038,11 @@ def main(argv) -> int:
             row["train_pipe_launches"] = train_pipe["launches"][spec[2]]
         if spec[1] in ("train", "train_seq") and spec[2] in train_seq["launches"]:
             row["train_seq_launches"] = train_seq["launches"][spec[2]]
+    for row, spec in zip(kernels, KERNEL_ROWS):  # tensor parallelism's (rank 0's): (b), and LAMB's from (a)
+        if spec[1] == "train" and spec[2] in train_tp["launches"]:
+            row["train_tp_launches"] = train_tp["launches"][spec[2]]
+        if spec[1] == "train_lamb" and spec[2] in train_tp["lamb_launches"]:
+            row["train_tp_launches"] = train_tp["lamb_launches"][spec[2]]
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"host_code": host_code_rows(host, offload)})
     log({"kernels": kernels})

@@ -23,9 +23,10 @@ falls back on that scalar where a checkpoint lacks the counter. The
 moments of a host optimizer are saved and loaded like the device
 optimizer's (``engine.full_optimizer_state`` reads them from host RAM or
 from the swap files).
-Saving all-gathers the chunks (every rank must call it; rank 0 writes);
-loading reads whole leaves and keeps each rank's chunk, so the target may
-run any world size, mesh and stage.
+Saving all-gathers the chunks and the expert and tensor slices (every
+rank must call it; rank 0 writes); loading reads whole leaves and keeps
+each rank's slice and chunk, so the target may run any world size, mesh
+(tensor degree included) and stage.
 """
 
 import json

@@ -69,6 +69,11 @@ class TPContext:
         """The row-parallel seam: ``tp_all_reduce`` in this context's mode."""
         return tp_all_reduce(x, self.group, bits=self.bits, interleave=self.interleave)
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """The column-parallel seam: the identity (serving takes no gradient;
+        training's ``parallel.tensor.TensorParallel.copy`` sums it)."""
+        return x
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """An exact sum over the group (the vocab-parallel embedding and head)."""
         out = x.contiguous().clone()

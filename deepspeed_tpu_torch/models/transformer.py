@@ -16,7 +16,14 @@ return their load-balancing losses to ``CausalLM.loss_fn``.
 sequence parallelism (``sequence.sequence_parallel``, entered by the
 training engine) a rank holds a contiguous slice of each row: the forward
 gives its tokens their global positions, and attention runs through
-Ulysses (``seq``) or the ring (``context``).
+Ulysses (``seq``) or the ring (``context``). Under tensor parallelism
+(``parallel.tensor.tensor_parallel``, entered by the training engine; or
+serving's ``TPContext`` passed as ``tp``) a rank holds its slice of the
+heads, of the MLP's hidden columns and of a vocab-split ``wte`` or head:
+the column-parallel projections take their input through ``tp.copy``, the
+row-parallel ones sum over the group (``tp.reduce``) before their bias, and
+the loss is the vocab-parallel fused cross-entropy
+(``ops.fused_ce.vocab_parallel_cross_entropy``).
 ``scan_layers``, progressive layer drop and the BERT heads are not ported
 (they raise).
 """
@@ -31,6 +38,7 @@ import torch
 
 from ..moe.layer import MoE
 from ..runtime.activation_checkpointing import checkpointing
+from ..parallel.tensor import current_tensor_parallel
 from ..runtime.pipe.module import PipelineStage
 from ..sequence.layer import current_sequence_parallel
 
@@ -396,10 +404,28 @@ def _dense(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype) ->
     return y + p["bias"].to(dtype) if "bias" in p else y
 
 
+def _local_rows(b: torch.Tensor, n: int, rank: int) -> torch.Tensor:
+    """Rows ``[rank n, (rank + 1) n)`` of ``b``, or ``b`` when it holds ``n`` rows already."""
+    return b if b.shape[0] == n else b.narrow(0, rank * n, n)
+
+
+def _col_dense(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """A column-parallel projection (q/k/v, gate/up, a vocab-split head):
+    under tensor parallelism the kernel holds this rank's heads or columns
+    (its dimension 1), and a bias kept whole, as the training engine keeps
+    it (JAX's rules split only the kernels), is cut to them; serving splits
+    the bias with the kernel."""
+    if tp is None:
+        return _dense(x, p, spec, dtype)
+    y = torch.einsum(spec, x.to(dtype), p["kernel"].to(dtype))
+    return y + _local_rows(p["bias"], p["kernel"].shape[1], tp.rank).to(dtype) if "bias" in p else y
+
+
 def _row_dense(x: torch.Tensor, p: Dict[str, Any], spec: str, dtype: torch.dtype, tp=None) -> torch.Tensor:
     """A row-parallel projection (``o_proj``, ``down_proj``): under tensor
-    parallelism (``tp``, the v1 engine's ``TPContext``) this rank's partial,
-    summed over the group by ``tp.reduce``, then the bias, once."""
+    parallelism (``tp``: serving's ``TPContext`` or training's
+    ``TensorParallel``) this rank's partial, summed over the group by
+    ``tp.reduce``, then the bias, once."""
     if tp is None:
         return _dense(x, p, spec, dtype)
     y = tp.reduce(torch.einsum(spec, x.to(dtype), p["kernel"].to(dtype)))
@@ -452,14 +478,16 @@ def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, po
     over the cache with ``kv_len = cache_len + S`` (``attention_xla``, on CUDA
     too, as in the reference), and ``(out, (ck, cv, cache_len + S))`` is
     returned. With ``tp`` the projections hold this rank's heads (read off
-    the arrays), ALiBi takes their slopes, and ``o_proj`` reduces over the
-    group."""
+    the arrays), their input passes ``tp.copy``, ALiBi takes their slopes,
+    and ``o_proj`` reduces over the group."""
     from ..ops.attention import attention
 
     dt = cfg.dtype
-    q = _dense(x, p["q_proj"], "bsd,dhk->bshk", dt)
-    k = _dense(x, p["k_proj"], "bsd,dhk->bshk", dt)
-    v = _dense(x, p["v_proj"], "bsd,dhk->bshk", dt)
+    if tp is not None:
+        x = tp.copy(x)
+    q = _col_dense(x, p["q_proj"], "bsd,dhk->bshk", dt, tp)
+    k = _col_dense(x, p["k_proj"], "bsd,dhk->bshk", dt, tp)
+    v = _col_dense(x, p["v_proj"], "bsd,dhk->bshk", dt, tp)
     if cfg.clip_qkv is not None:
         c = cfg.clip_qkv
         q, k, v = (torch.clamp(t, -c, c) for t in (q, k, v))
@@ -496,17 +524,19 @@ def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, po
 
 def mlp_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, tp=None) -> torch.Tensor:
     """The reference ``MLP``: gated (swiglu, geglu) or not (gelu tanh, exact
-    gelu, relu). With ``tp``: this rank's hidden columns, ``down_proj``
-    reduced over the group."""
+    gelu, relu). With ``tp``: this rank's hidden columns (the input through
+    ``tp.copy``), ``down_proj`` reduced over the group."""
     dt = cfg.dtype
+    if tp is not None:
+        x = tp.copy(x)
     if cfg.activation in ("swiglu", "geglu"):
-        gate = _dense(x, p["gate_proj"], "bsd,df->bsf", dt)
-        up = _dense(x, p["up_proj"], "bsd,df->bsf", dt)
+        gate = _col_dense(x, p["gate_proj"], "bsd,df->bsf", dt, tp)
+        up = _col_dense(x, p["up_proj"], "bsd,df->bsf", dt, tp)
         act = torch.nn.functional.gelu(gate, approximate="tanh") if cfg.activation == "geglu" \
             else torch.nn.functional.silu(gate)
         h = act * up
     else:
-        h = _dense(x, p["up_proj"], "bsd,df->bsf", dt)
+        h = _col_dense(x, p["up_proj"], "bsd,df->bsf", dt, tp)
         if cfg.activation == "relu":
             h = torch.relu(h)
         else:
@@ -522,8 +552,9 @@ def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positi
     ``kv_cache``, returns ``(x, new_cache)``. An MoE block drops tokens by
     capacity only when ``train``, and appends ``(l_aux, exp_counts)`` to
     ``moe_aux`` when one is given. ``tp``: the v1 engine's tensor-parallel
-    context (this rank's heads and hidden columns; an MoE block's experts
-    hold I / tp hidden columns, and their output reduces over the group)."""
+    context or training's ``TensorParallel`` (this rank's heads and hidden
+    columns; in serving an MoE block's experts hold I / tp hidden columns,
+    and their output reduces over the group)."""
     norm = lambda h, j: _norm(cfg, h, _norm_params(cfg, p, j))
     new_cache = None
 
@@ -556,9 +587,31 @@ def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positi
     return (x, new_cache) if kv_cache is not None else x
 
 
-def _read_block_fwd(cfg, params, i: int, train: bool, x, positions, moe_aux=None):
+def _read_block_fwd(cfg, params, i: int, train: bool, x, positions, moe_aux=None, tp=None):
     """Block i, its parameters read from ``params`` on every call (a checkpoint's recompute reads them again)."""
-    return block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train, moe_aux=moe_aux)
+    return block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train, moe_aux=moe_aux, tp=tp)
+
+
+def _head_split(cfg: TransformerConfig, w: torch.Tensor, vd_layout: bool, tp) -> bool:
+    """Whether the head's weight holds only this rank's vocabulary columns."""
+    return tp is not None and (w.shape[0] if vd_layout else w.shape[1]) != cfg.vocab_size
+
+
+def head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden: torch.Tensor, labels: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """The mean token CE of the tied or untied head over the final hidden
+    states: the fused cross-entropy, or its vocab-parallel form where the
+    head's weight holds this rank's vocabulary columns."""
+    from ..ops.fused_ce import fused_cross_entropy, vocab_parallel_cross_entropy
+
+    if cfg.tie_embeddings:
+        w, vd, head_b = params["wte"].to(cfg.dtype), True, None
+    else:
+        w, vd = params["lm_head"]["kernel"].to(cfg.dtype), False
+        head_b = params["lm_head"]["bias"] if cfg.lm_head_bias else None
+    if _head_split(cfg, w, vd, tp):
+        return vocab_parallel_cross_entropy(hidden, w, labels, tp, cfg.vocab_size, vd_layout=vd, bias=head_b)
+    return fused_cross_entropy(hidden, w, labels, vd_layout=vd, bias=head_b)
 
 
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
@@ -576,13 +629,16 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     ``train`` gates MoE capacity drops only; by default a forward without
     caches drops and one with caches never does, as in the reference. Each
     MoE block appends its ``(l_aux, exp_counts)`` to ``moe_aux`` when given.
-    ``tp`` (the v1 engine's tensor parallelism; no checkpointing): the
-    blocks run on this rank's shard, and a vocab-sharded ``wte`` / head
-    looks up this rank's rows and sums over the group, and computes its
+    ``tp`` (serving's ``TPContext``; without caches the training engine's
+    current ``TensorParallel`` when none is given): the blocks run on this
+    rank's shard, checkpointed as without it, and a vocab-sharded ``wte`` /
+    head looks up this rank's rows and sums over the group, and computes its
     vocab columns and gathers them, so every rank gets the whole logits."""
     if cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
         raise NotImplementedError("scan_layers and the BERT heads are not ported yet")
     train = (kv_caches is None) if train is None else bool(train)
+    if tp is None and kv_caches is None:
+        tp = current_tensor_parallel()
     dt = cfg.dtype
     B, S = input_ids.shape
     ids = input_ids.long()
@@ -610,25 +666,27 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
             x, c = block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train,
                              kv_cache=kv_caches[i], moe_aux=moe_aux, tp=tp)
             new_caches.append(c)
-        elif tp is not None:
-            x = block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train, moe_aux=moe_aux, tp=tp)
         elif cfg.remat:
             # the backward's recompute appends to this block's own list, which nobody reads by then
             sink: List = []
-            x = checkpointing.checkpoint(functools.partial(_read_block_fwd, cfg, params, i, train), x, positions,
-                                         moe_aux=sink)
+            x = checkpointing.checkpoint(functools.partial(_read_block_fwd, cfg, params, i, train, tp=tp), x,
+                                         positions, moe_aux=sink)
             if moe_aux is not None:
                 moe_aux.extend(sink)
         else:
-            x = _read_block_fwd(cfg, params, i, train, x, positions, moe_aux=moe_aux)
+            x = _read_block_fwd(cfg, params, i, train, x, positions, moe_aux=moe_aux, tp=tp)
     if cfg.norm_scheme != "post":
         x = _norm(cfg, x, _norm_params(cfg, params, n_norm))
     if return_hidden:
         return (x, new_caches) if kv_caches is not None else x
+    w = params["wte"] if cfg.tie_embeddings else params["lm_head"]["kernel"]
+    split = _head_split(cfg, w, cfg.tie_embeddings, tp)
+    if split:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(dt))
     else:
-        logits = _dense(x, params["lm_head"], "bsd,dv->bsv", dt)
+        logits = _col_dense(x, params["lm_head"], "bsd,dv->bsv", dt, tp if split else None)
     logits = logits.float()
     if tp is not None:
         logits = tp.vocab_logits(logits, cfg.vocab_size)
@@ -672,8 +730,8 @@ class CausalLM:
     def partition_rules(self):
         """(path names, spec) pairs, a spec one mesh axis (or ``None``) per
         dimension: the JAX ``CausalLM.partition_rules`` (``transformer.py:751``),
-        the MoE rules first. The training planner prunes the axes of size 1, so
-        at ``tensor`` 1 only the experts' ``expert`` dimension acts."""
+        the MoE rules first. The training planner prunes the axes of size 1:
+        at ``tensor`` > 1 the kernels split over it, the biases stay whole."""
         from ..moe.layer import MOE_PARTITION_RULES
 
         return list(MOE_PARTITION_RULES) + [
@@ -745,7 +803,9 @@ class CausalLM:
             ep = ps["embed"]
             ids = input_ids.long()
             B, S = ids.shape
-            x = torch.nn.functional.embedding(ids, ep["wte"]).to(cfg.dtype)
+            tp = current_tensor_parallel()
+            x = (tp.embed(ep["wte"], ids, cfg.vocab_size) if tp is not None
+                 else torch.nn.functional.embedding(ids, ep["wte"])).to(cfg.dtype)
             if cfg.embed_scale:
                 x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
             if cfg.pos_emb == "learned":
@@ -758,24 +818,21 @@ class CausalLM:
             B, S = x.shape[0], x.shape[1]
             positions = torch.arange(S, device=x.device).expand(B, S)
             aux: List = []
+            tp = current_tensor_parallel()
             for j in range(lps):
                 i = stage_id * lps + j  # the global index: its window and its MoE slot
-                x = block_fwd(cfg, ps["stages"][f"sub_{j}"], x, positions, layer_idx=i, train=True, moe_aux=aux)
+                x = block_fwd(cfg, ps["stages"][f"sub_{j}"], x, positions, layer_idx=i, train=True, moe_aux=aux,
+                              tp=tp)
             if has_moe:  # pre-scaled: the engine adds it to the loss and seeds its gradient
                 return x, cfg.moe_aux_loss_coef * sum(l_aux.float() for l_aux, _ in aux)
             return x, None
 
         def head_loss_fn(ps, x, labels):
-            from ..ops.fused_ce import fused_cross_entropy
-
             hp = ps["head"]
             if cfg.norm_scheme != "post":
                 x = _norm(cfg, x, None if cfg.norm == "layernorm_np" else hp[_norm_key(cfg, n_norm)])
-            if cfg.tie_embeddings:
-                return fused_cross_entropy(x, ps["embed"]["wte"].to(cfg.dtype), labels, vd_layout=True)
-            head_b = hp["lm_head"]["bias"] if cfg.lm_head_bias else None
-            return fused_cross_entropy(x, hp["lm_head"]["kernel"].to(cfg.dtype), labels, vd_layout=False,
-                                       bias=head_b)
+            tree = {"wte": ps["embed"]["wte"]} if cfg.tie_embeddings else hp
+            return head_loss(cfg, tree, x, labels, current_tensor_parallel())
 
         tied = {"wte": ((0, num_stages - 1), "embed/wte")} if cfg.tie_embeddings and num_stages > 1 else {}
         return PipelineStage(stage_id=stage_id, num_stages=num_stages, params=tree, stage_fn=stage_fn,
@@ -783,24 +840,17 @@ class CausalLM:
                              rules=self.partition_rules(), tied=tied, token_weighted=True)
 
     def loss_fn(self, params, batch, rng=None) -> torch.Tensor:
-        from ..ops.fused_ce import fused_cross_entropy
-
         cfg = self.cfg
         input_ids = batch["input_ids"]
         moe_aux: List = []
         hidden = self.apply(params, input_ids, return_hidden=True, moe_aux=moe_aux)
-        if cfg.tie_embeddings:
-            w, vd, head_b = params["wte"].to(cfg.dtype), True, None
-        else:
-            w, vd = params["lm_head"]["kernel"].to(cfg.dtype), False
-            head_b = params["lm_head"]["bias"] if cfg.lm_head_bias else None
         if "labels" in batch:
             labels = batch["labels"]
         else:
             # shift left; keep S intact (last position ignored) so the
             # sequence chunking of the fused CE stays aligned
             labels = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], -100)], dim=1)
-        ce = fused_cross_entropy(hidden, w, labels, vd_layout=vd, bias=head_b)
+        ce = head_loss(cfg, params, hidden, labels, current_tensor_parallel())
         if cfg.moe_num_experts == 0:
             return ce
         return ce + cfg.moe_aux_loss_coef * sum(l_aux for l_aux, _ in moe_aux)

@@ -8,6 +8,16 @@ each chunk's logits (the reference's ``_ce_vjp_bwd``), so the extra memory
 is one ``(B, C, V)`` block. The weight gradient is accumulated in fp32
 across chunks and cast to ``w``'s dtype once.
 
+``vocab_parallel_cross_entropy`` is the same loss over a head split by
+vocabulary columns over a tensor group (``parallel.tensor.TensorParallel``;
+the Megatron vocab-parallel cross-entropy, which the JAX engine gets from
+GSPMD over the ``tensor`` axis): each chunk's row max and sum of
+exponentials are reduced over the group, the label's logit comes from the
+rank that holds its column, the backward writes only this rank's columns
+of the weight and bias gradients, and the input's gradient is this rank's
+part, summed over the group by the ``tp.copy`` the input passes through.
+The sequence chunking is the same.
+
 The head product runs in the input dtype. The reference asks XLA for fp32
 logits from bf16 operands (``preferred_element_type``); PyTorch's matmul
 returns the input dtype, so in bf16 the logits are rounded to bf16 before
@@ -135,4 +145,87 @@ def fused_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, 
     has_bias = bias is not None
     b = bias.float() if has_bias else torch.zeros((), dtype=torch.float32, device=x.device)
     total = _FusedCE.apply(x, w, b, safe_labels, valid, bool(vd_layout), int(chunk), has_bias)
+    return total / torch.clamp(valid.sum(), min=1)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels, valid, vd_layout: bool, chunk: int, has_bias: bool, tp):
+        from ..comm import ReduceOp
+
+        S = x.shape[1]
+        n = w.shape[0] if vd_layout else w.shape[1]
+        local = labels - tp.rank * n
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        lses = []
+        for c0 in range(0, S, chunk):
+            logits = _project(x[:, c0:c0 + chunk], w, vd_layout)
+            if has_bias:
+                logits = logits + b
+            m = tp.all_reduce(logits.amax(dim=-1), ReduceOp.MAX)
+            sum_exp = torch.exp(logits - m[..., None]).sum(dim=-1)
+            gold = torch.where(mine[:, c0:c0 + chunk], logits.gather(-1, local[:, c0:c0 + chunk, None])[..., 0], 0.0)
+            sum_exp, gold = tp.all_reduce(torch.stack([sum_exp, gold])).unbind(0)
+            lse = m + torch.log(sum_exp)
+            total = total + torch.where(valid[:, c0:c0 + chunk], lse - gold, 0.0).sum()
+            lses.append(lse)
+        ctx.save_for_backward(x, w, b, local, mine, valid, torch.cat(lses, dim=1))
+        ctx.args = (vd_layout, chunk, has_bias)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, local, mine, valid, lse = ctx.saved_tensors
+        vd_layout, chunk, has_bias = ctx.args
+        S = x.shape[1]
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        db = torch.zeros(b.shape, dtype=torch.float32, device=b.device) if has_bias else None
+        dxs = []
+        for c0 in range(0, S, chunk):
+            xc = x[:, c0:c0 + chunk]
+            logits = _project(xc, w, vd_layout)
+            if has_bias:
+                logits = logits + b
+            # this rank's columns of softmax minus the one-hot of the label, times the valid-masked cotangent
+            dlogits = logits.sub_(lse[:, c0:c0 + chunk, None]).exp_()
+            dlogits.scatter_add_(-1, local[:, c0:c0 + chunk, None],
+                                 torch.where(mine[:, c0:c0 + chunk], -1.0, 0.0)[..., None])
+            dlogits.mul_(torch.where(valid[:, c0:c0 + chunk], g, 0.0)[..., None])
+            dl = dlogits.to(xc.dtype)
+            if vd_layout:
+                dxs.append(dl @ w)
+                dw += torch.einsum("bcv,bcd->vd", dl, xc).float()
+            else:
+                dxs.append(dl @ w.t())
+                dw += torch.einsum("bcd,bcv->dv", xc, dl).float()
+            if has_bias:
+                db += dlogits.sum(dim=(0, 1))
+        dx = torch.cat(dxs, dim=1).to(x.dtype)
+        return dx, dw.to(w.dtype), db.to(b.dtype) if has_bias else None, None, None, None, None, None, None
+
+
+def vocab_parallel_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, tp, vocab_size: int,
+                                 ignore_index: int = -100, vd_layout: bool = False, chunk: Optional[int] = None,
+                                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fused_cross_entropy`` over this rank's vocabulary columns of the
+    head (``w`` (D, V / tp), or (V / tp, D) with ``vd_layout``; rank r holds
+    columns ``[r V / tp, (r + 1) V / tp)``) in the tensor group ``tp``:
+    every rank returns the whole mean CE. ``x`` is the replicated hidden
+    state (it passes ``tp.copy`` here); ``bias`` the whole (V,) head bias,
+    of which this rank adds its columns."""
+    B, S, _ = x.shape
+    n = w.shape[0] if vd_layout else w.shape[1]
+    if n * tp.size != vocab_size:
+        raise ValueError(f"a head of {n} columns a rank over {tp.size} ranks does not cover the vocabulary of "
+                         f"{vocab_size}")
+    chunk = chunk or _pick_chunk(S, B=B, V=n)
+    valid = labels != ignore_index
+    safe_labels = torch.where(valid, labels, 0).long()
+    has_bias = bias is not None
+    b = bias.float().narrow(0, tp.rank * n, n) if has_bias else torch.zeros((), dtype=torch.float32,
+                                                                            device=x.device)
+    total = _VocabParallelCE.apply(tp.copy(x), w, b, safe_labels, valid, bool(vd_layout), int(chunk), has_bias, tp)
     return total / torch.clamp(valid.sum(), min=1)

@@ -9,8 +9,9 @@ group of the ranks that differ only along it (the reference's
 ``utils/groups.py``). The axes and their order are the JAX package's:
 ``pipe, data, fsdp, expert, seq, context, tensor``, first slowest, so the
 fsdp groups are runs of neighbouring ranks. Every axis may exceed 1.
-``tensor`` is the serving axis of tensor parallelism (``serving_mesh``):
-the training config still refuses it. ``pipe`` carries the pipeline's
+``tensor`` is the axis of tensor parallelism, in serving (``serving_mesh``)
+and in training (``parallel/tensor.py``); its ranks see the same rows, and
+the data rank and size count ``data`` x ``fsdp`` only. ``pipe`` carries the pipeline's
 stages, ``seq`` Ulysses' and ``context`` the ring's sequence slices. The
 batch is split over ``data`` x ``fsdp`` only (JAX
 ``MeshTopology.batch_axes``): the ranks of an expert group, of a sequence
@@ -106,7 +107,7 @@ class MeshTopology:
 
     @property
     def model_parallel_size(self) -> int:
-        """The ``tensor`` axis: the tensor-parallel degree of serving."""
+        """The ``tensor`` axis: the tensor-parallel degree."""
         return self.axis_size("tensor")
 
     @property

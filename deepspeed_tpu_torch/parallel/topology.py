@@ -107,13 +107,14 @@ class PipelineParallelGrid:
         self.global_rank = global_rank
         self.data_parallel_size = max(1, topology.get_dim("data"))
         self.pipe_parallel_size = max(1, topology.get_dim("pipe"))
-        self.model_parallel_size = max(1, topology.get_dim("model"))
+        # the model axis: ``model`` in the reference's topologies, ``tensor`` in the mesh's
+        self.model_parallel_size = max(1, topology.get_dim("model") or topology.get_dim("tensor") or 1)
         self.world_size = topology.world_size()
         coord = topology.get_coord(global_rank)
         self._coord = coord._asdict()
         self.stage_id = getattr(coord, "pipe", 0)
         self.data_parallel_id = getattr(coord, "data", 0)
-        self.model_parallel_id = getattr(coord, "model", 0)
+        self.model_parallel_id = getattr(coord, "model", getattr(coord, "tensor", 0))
         self._pair_groups: Dict[int, object] = {}
         self._tied_groups: Dict[tuple, object] = {}
 

@@ -14,10 +14,13 @@ model-parallel RNG tracker :123).
 - ``cpu_checkpointing`` keeps the saved residuals in host memory instead of
   recomputing them (``torch.autograd.graph.save_on_cpu``, pinned when the
   arguments are on a card): no recompute, no device memory for them.
-- ``partition_activations`` shards saved activations over the tensor axis;
-  the port runs no tensor parallelism (its config refuses a tensor axis
-  above 1), so, as in the JAX package with a tensor axis of 1, it changes
-  nothing.
+- ``partition_activations`` shards the checkpoint's saved inputs over the
+  tensor axis (reference :374, JAX :116-132): under the training engine's
+  tensor parallelism (``parallel.tensor``, ``tensor`` > 1) each
+  floating-point input keeps this rank's 1 / tp along the sequence
+  dimension (else the first dimension the degree divides), and the
+  checkpointed function all-gathers it back, in the forward and again at
+  the recompute. Over a tensor axis of 1 it changes nothing.
 - The model-parallel RNG tracker is a logged no-op: the port's model takes
   explicit ``torch.Generator`` arguments, and non-reentrant checkpoint
   restores the global RNG state for the recompute.
@@ -33,6 +36,8 @@ from typing import Optional
 
 import torch
 import torch.utils.checkpoint
+
+from ...parallel.tensor import current_tensor_parallel
 
 logger = logging.getLogger(__name__)
 
@@ -90,21 +95,55 @@ def _on_card(args) -> bool:
 def checkpoint(function, *args, **kwargs):
     """Reference ``checkpoint(function, *args)`` (:990): ``function(*args,
     **kwargs)`` with its activations recomputed in the backward (or, under
-    ``cpu_checkpointing``, kept in host memory)."""
+    ``cpu_checkpointing``, kept in host memory); under
+    ``partition_activations`` and tensor parallelism with its inputs kept as
+    this rank's slices."""
     if _CONFIG["cpu_checkpointing"]:
         with torch.autograd.graph.save_on_cpu(pin_memory=_on_card(args)):
             return function(*args, **kwargs)
+    if _CONFIG["partition_activations"]:
+        return _partitioned(function, args, kwargs, seq_dim=1)
     return torch.utils.checkpoint.checkpoint(function, *args, use_reentrant=False, **kwargs)
+
+
+def _partition_dim(x, size: int, seq_dim: int):
+    """The dimension a saved input splits along over ``size`` ranks (JAX
+    ``_partition_arg``): ``seq_dim`` where the size divides it, else the
+    first that it divides; None for what is not a floating-point tensor or
+    does not split."""
+    if not (torch.is_tensor(x) and x.is_floating_point() and x.dim() > 0):
+        return None
+    for d in [seq_dim] + [d for d in range(x.dim()) if d != seq_dim]:
+        if d < x.dim() and x.shape[d] % size == 0:
+            return d
+    return None
+
+
+def _partitioned(function, args, kwargs, seq_dim: int):
+    """``function`` checkpointed with each splittable input held as this
+    tensor rank's slice (``tp.split``: its gradient all-gathers) and
+    all-gathered inside the checkpointed function (``tp.gather``), so the
+    checkpoint keeps 1 / tp of it and the recompute gathers it again."""
+    tp = current_tensor_parallel()
+    if tp is None or tp.size == 1:
+        return torch.utils.checkpoint.checkpoint(function, *args, use_reentrant=False, **kwargs)
+    dims = [_partition_dim(a, tp.size, seq_dim) for a in args]
+    parts = [a if d is None else tp.split(a, d) for a, d in zip(args, dims)]
+
+    def whole(*held, **kw):
+        return function(*(a if d is None else tp.gather(a, d) for a, d in zip(held, dims)), **kw)
+
+    return torch.utils.checkpoint.checkpoint(whole, *parts, use_reentrant=False, **kwargs)
 
 
 def partitioned_checkpoint(function, axis: str = "tensor", seq_dim: int = 1):
     """Decorator form (reference :374 / :265): ``function`` checkpointed with
-    its saved inputs sharded over ``axis``; over a tensor axis of 1, the
-    port's only one, that is ``checkpoint``."""
+    its saved inputs sharded over the current tensor group (``axis`` names
+    it, as in the JAX package; ``seq_dim`` is the dimension tried first)."""
 
     @functools.wraps(function)
     def wrapped(*args, **kwargs):
-        return checkpoint(function, *args, **kwargs)
+        return _partitioned(function, args, kwargs, seq_dim)
 
     return wrapped
 
@@ -121,7 +160,8 @@ class CheckpointFunction:
 
 def model_parallel_cuda_manual_seed(seed: int):
     """Reference :200: seeds one device RNG stream per tensor rank. The port's
-    model takes explicit generators and runs no tensor parallelism, so there
-    is nothing to seed; seed the generator you pass the model instead."""
+    model takes explicit generators (its training forward draws no random
+    numbers under tensor parallelism), so there is nothing to seed; seed the
+    generator you pass the model instead."""
     logger.info("model_parallel_cuda_manual_seed: a no-op (the port's model takes explicit generators)")
     return None

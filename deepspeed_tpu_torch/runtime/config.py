@@ -5,17 +5,18 @@ Port of ``deepspeed_tpu/runtime/config.py`` and the keys of
 their triangulation against the data-parallel size (``data`` x ``fsdp``),
 ``optimizer``, ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization``
 (stages 0-3 and the reference's keys, ZeRO++ and MiCS's shard size),
-``mesh`` (``pipe``, ``data``, ``fsdp``, ``expert``, ``seq`` and
-``context``), ``pipeline`` (the pipeline engine's knobs),
+``mesh`` (``pipe``, ``data``, ``fsdp``, ``expert``, ``seq``, ``context`` and
+``tensor``), ``pipeline`` (the pipeline engine's knobs),
 ``checkpoint``, ``gradient_clipping``, ``fused_step``, ``steps_per_print``,
 ``data_types.grad_accum_dtype``, the monitor sections (``tensorboard``,
 ``wandb``, ``csv_monitor``), ZeRO-Offload (``zero_optimization.offload_optimizer``
 and ``offload_param``, with the reference's ``cpu_offload`` /
 ``cpu_offload_params`` aliases), ``aio`` and ``activation_checkpointing``.
 A section or key the port does not implement raises
-``NotImplementedError`` when the config enables it (the ``tensor`` mesh
-axis under training, ``pipe`` with ``seq`` or ``context``, ``seq`` with
-``context``, ...): it is never silently ignored.
+``NotImplementedError`` when the config enables it (``pipe`` with ``seq``
+or ``context``, ``seq`` with ``context``, ``tensor`` with ``seq``,
+``context``, ``expert``, an MoE model or ZeRO-Offload: ``check_tensor``,
+...): it is never silently ignored.
 """
 
 import json
@@ -314,9 +315,6 @@ def _check_ported(d: Dict) -> None:
     """Raise for every enabled section or key the port has no code for."""
     mesh = d.get("mesh", {}) or {}
     big = {axis for axis, n in mesh.items() if axis != "axis_order" and n not in (0, 1)}
-    if "tensor" in big:
-        raise NotImplementedError(f"mesh axis tensor={mesh['tensor']}: tensor-parallel training is not ported yet "
-                                  "(tensor parallelism serves through InferenceEngineV2 and init_inference)")
     if {"seq", "context"} <= big:
         raise NotImplementedError("mesh axes seq and context both above 1: Ulysses inside a ring (2D sequence "
                                   "parallelism) is not ported yet; use one of them")
@@ -335,6 +333,30 @@ def _check_ported(d: Dict) -> None:
     for key in _UNPORTED_PRESENT:
         if d.get(key):
             raise NotImplementedError(f"config section {key!r} is not ported yet")
+
+
+def check_tensor(axis_sizes: Dict[str, int], zero_config: "ZeroConfig", moe: bool = False) -> None:
+    """Refuse what tensor-parallel training (``tensor`` > 1) does not run in
+    the port yet: sequence parallelism beside it, the expert axis or an MoE
+    model (the JAX rules split each expert's hidden dim over ``tensor``),
+    and ZeRO-Offload. ``axis_sizes``: the mesh's (a -1 wildcard counts as
+    above 1); ``moe``: the model has MoE layers."""
+    big = lambda a: axis_sizes.get(a, 1) not in (0, 1)  # noqa: E731
+    if not big("tensor"):
+        return
+    seq = [a for a in ("seq", "context") if big(a)]
+    if seq:
+        raise NotImplementedError(f"mesh axes tensor with {seq}: sequence parallelism beside tensor parallelism is "
+                                  "not ported yet")
+    if big("expert"):
+        raise NotImplementedError("mesh axes tensor and expert both above 1: expert parallelism beside tensor "
+                                  "parallelism is not ported yet")
+    if moe:
+        raise NotImplementedError("an MoE model under tensor parallelism (mesh.tensor > 1) is not ported yet (the "
+                                  "JAX rules split each expert's hidden dim over tensor)")
+    if {zero_config.offload_optimizer.device, zero_config.offload_param.device} & {"cpu", "nvme"}:
+        raise NotImplementedError("ZeRO-Offload (offload_optimizer / offload_param) under tensor parallelism "
+                                  "(mesh.tensor > 1) is not ported yet")
 
 
 class DeepSpeedConfig:
@@ -356,6 +378,7 @@ class DeepSpeedConfig:
         # {fsdp: k, data: replica groups}; it sizes fsdp unless the mesh names it
         if self.zero_config.mics_shard_size > 0 and "fsdp" not in (d.get("mesh") or {}):
             self.mesh.fsdp = self.zero_config.mics_shard_size
+        check_tensor({a: int(getattr(self.mesh, a)) for a in MESH_AXES}, self.zero_config)
         self.checkpoint_config = _from_dict(CheckpointConfig, d.get("checkpoint"))
         self.aio = _from_dict(AIOConfig, d.get("aio"))
         self.activation_checkpointing = _from_dict(ActivationCheckpointingConfig, d.get("activation_checkpointing"))

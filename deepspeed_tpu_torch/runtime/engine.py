@@ -46,6 +46,23 @@ plan shards over data x fsdp, and the sequence group shares each shard).
 ``seq`` and ``context`` together, MoE under either, and ALiBi or a sliding
 window under ``context`` raise ``NotImplementedError``.
 
+Tensor parallelism (``mesh.tensor``, JAX's GSPMD over
+``CausalLM.partition_rules()``): each rank holds its tensor slice of the
+split leaves (the engine cuts the whole initial tree; the planner puts
+ZeRO's chunk on top of that slice, ``LeafPlan.tensor_dim``), and the model
+runs under ``parallel.tensor.tensor_parallel`` (Megatron's explicit
+collectives, the vocab-parallel embedding and cross-entropy). The ranks of
+a tensor group read the same rows; tokens are weighed over data x fsdp
+only. A whole leaf that each tensor rank reads a slice of (a
+column-parallel bias) has its gradient summed over ``tensor`` after the
+data-parallel reduction; the global norm counts a split leaf's squares on
+every tensor rank and a whole one's on tensor rank 0, summed over the
+group, and LAMB's trust ratio takes a split leaf's norms over the group.
+The checkpoints gather the tensor slices into whole leaves, so the
+universal layout crosses tensor degrees. Sequence parallelism, the expert
+axis, MoE models and ZeRO-Offload beside ``tensor`` raise
+``NotImplementedError`` (``config.check_tensor``).
+
 ``initialize`` returns the pipeline engine (``runtime/pipe/engine.py``) for
 a ``PipelineModule``, or for ``mesh.pipe`` > 1 with a model that has
 ``to_pipeline`` (JAX ``engine.py:1253-1259``).
@@ -128,7 +145,7 @@ from ..telemetry.flight import maybe_attach_flight_recorder
 from ..telemetry.health import GradNormSpikeDetector, NonFiniteLossDetector, get_health_monitor
 from ..telemetry.ops_plane import maybe_start_ops_server
 from .checkpoint_engine import AsyncCheckpointEngine, create_checkpoint_engine
-from .config import DeepSpeedConfig
+from .config import DeepSpeedConfig, check_tensor
 from .dataloader import DeepSpeedDataLoader
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import create_lr_scheduler
@@ -142,6 +159,7 @@ from .zero.partition import plan_zero
 from .zero.sharded import Collectives, Stage3Params
 from .zero.zeropp import check_hpz, zeropp_applicable, zeropp_requested
 from ..moe.layer import ExpertParallel, expert_parallel
+from ..parallel.tensor import TensorParallel, tensor_parallel
 from ..sequence.layer import SequenceParallel, sequence_parallel
 
 logger = logging.getLogger(__name__)
@@ -177,13 +195,14 @@ def _batch_rows(batch) -> int:
     return int(batch.shape[0]) if getattr(batch, "ndim", 0) else 1
 
 
-def train_flops(cfg, batch: int, seq: int) -> int:
+def train_flops(cfg, batch: int, seq: int, tp: int = 1) -> int:
     """Model FLOPs of one training micro-batch of ``batch`` x ``seq`` tokens
     of a ``TransformerConfig``: the forward's products (every position
     reaches the LM head) and causal attention over the visible pairs, times
-    three for forward and backward."""
+    three for forward and backward; under tensor parallelism over ``tp``
+    ranks a rank's share, 1 / tp of them."""
     macs = forward_macs(cfg, batch * seq, batch * seq) + attention_macs(cfg, [seq] * batch, [seq] * batch)
-    return 3 * 2 * macs
+    return 3 * 2 * macs // tp
 
 
 class DeepSpeedEngine:
@@ -226,6 +245,7 @@ class DeepSpeedEngine:
             raise NotImplementedError("mesh.pipe > 1 pipelines a PipelineModule or a model with to_pipeline "
                                       "(models.CausalLM); this model has neither")
         self._sp = self._sequence_parallel(model)
+        self._tp = self._tensor_parallel()
         # the model's (path, spec) rules: the planner keeps the expert dimension of an MoE layer's experts
         self._partition_rules = model.partition_rules() if callable(getattr(model, "partition_rules", None)) else []
 
@@ -247,9 +267,16 @@ class DeepSpeedEngine:
                                           "config's optimizer section")
         self.optimizer = optimizer if optimizer is not None else create_optimizer(
             self.config.optimizer.type, self.config.optimizer.params, self._opt_params)
-        sharded = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.opt_dim is not None and lf.ep == 1]
+        sharded = [p for lf, p in zip(self.plan.leaves, self._opt_params)
+                   if lf.opt_dim is not None and lf.ep == 1 and lf.tp == 1]
         if sharded:
             self.optimizer.set_sharded(sharded, self.coll.all_reduce)
+        for chunked in (False, True):  # a tensor slice's norm: its chunks over the ZeRO group, then over tensor
+            split = [p for lf, p in zip(self.plan.leaves, self._opt_params)
+                     if lf.tp > 1 and (lf.opt_dim is not None) == chunked]
+            if split:
+                self.optimizer.set_sharded(split, lambda t, c=chunked: self.coll.all_reduce(
+                    self.coll.all_reduce(t) if c else t, "tensor"))
         experts = [p for lf, p in zip(self.plan.leaves, self._opt_params) if lf.ep > 1]
         if experts:  # an expert leaf's norm: its chunks over the ZeRO group (a no-op when whole), then its experts
             self.optimizer.set_sharded(experts, lambda t: self.coll.all_reduce(self.coll.all_reduce(t), "expert"))
@@ -304,6 +331,15 @@ class DeepSpeedEngine:
             raise NotImplementedError("ALiBi and sliding windows under context parallelism (ring attention) are "
                                       "not ported yet")
         return SequenceParallel(axis, topo.process_group(axis), topo.axis_size(axis), topo.axis_rank(axis))
+
+    def _tensor_parallel(self) -> Optional[TensorParallel]:
+        """This rank's tensor group at ``tensor`` > 1 (None below), after the
+        refusals of what the port does not run beside it."""
+        topo, cfg = self.topology, self._model_cfg
+        check_tensor(topo.axis_sizes, self.config.zero_config, moe=getattr(cfg, "moe_num_experts", 0) > 0)
+        if topo.axis_size("tensor") == 1:
+            return None
+        return TensorParallel(topo.axis_size("tensor"), topo.axis_rank("tensor"), topo.process_group("tensor"))
 
     def _host_offload_wanted(self, optimizer) -> bool:
         """The JAX engine's decision (``engine.py:176-188``): the optimizer state
@@ -373,7 +409,7 @@ class DeepSpeedEngine:
                 host.copy_(t)
                 self._masters.append(host)
             else:
-                self._masters.append(t.to(self.device, torch.float32, copy=True).requires_grad_(True))
+                self._masters.append(t.to(self.device, torch.float32, copy=True).contiguous().requires_grad_(True))
         topo = self.topology
         replica = plan.axis == "fsdp" and topo.axis_size("data") > 1
         self.coll = Collectives(plan, topo.process_group(plan.axis), topo.process_group("data") if replica else None,
@@ -383,6 +419,8 @@ class DeepSpeedEngine:
         if self._sp is not None:  # the tokens of a step lie over data x fsdp x the sequence axis
             self.coll.groups["seq"] = self._sp.group
             self.coll.groups["dp_seq"] = topo.process_group("dp_seq")
+        if self._tp is not None:
+            self.coll.groups["tensor"] = self._tp.group
         ep, dp = topo.axis_size("expert"), self.dp_world_size
         self._moe_groups = None if ep == 1 and dp == 1 else ExpertParallel(
             ep, topo.axis_rank("expert"), topo.process_group("expert"), dp, self.dp_rank,
@@ -451,8 +489,11 @@ class DeepSpeedEngine:
 
     @property
     def comm_stats(self) -> Dict[str, List[int]]:
-        """The engine's collectives so far: ``{op: [calls, bytes]}``."""
-        return self.coll.stats
+        """The engine's collectives so far: ``{op: [calls, bytes]}``; under
+        tensor parallelism the model's own (``tp_all_reduce``,
+        ``tp_all_gather``; their host seconds in ``engine._tp.stats``)."""
+        tp = {} if self._tp is None else {op: v[:2] for op, v in self._tp.stats.items() if v[0]}
+        return {**self.coll.stats, **tp}
 
     @property
     def zero_gathered_bytes(self) -> Tuple[int, int]:
@@ -514,7 +555,8 @@ class DeepSpeedEngine:
             return
         self._step_flops_shape = shape
         cfg = self._model_cfg
-        self._step_flops = train_flops(cfg, shape[0], shape[1]) if hasattr(cfg, "n_layers") else 0
+        tp = 1 if self._tp is None else self._tp.size
+        self._step_flops = train_flops(cfg, shape[0], shape[1], tp) if hasattr(cfg, "n_layers") else 0
 
     # ------------------------------------------------------------------ data
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None) -> DeepSpeedDataLoader:
@@ -557,8 +599,9 @@ class DeepSpeedEngine:
         return unflatten_tree((path, leaf.to(self.compute_dtype)) for path, leaf in zip(self._paths, self._masters))
 
     def _local_loss(self, batch) -> torch.Tensor:
-        # MoE layers route the data-parallel batch over the expert group; a sequence slice attends over its group
-        with expert_parallel(self._moe_groups), sequence_parallel(self._sp):
+        # MoE layers route the data-parallel batch over the expert group; a sequence slice attends over its group;
+        # a tensor rank runs its heads and columns
+        with expert_parallel(self._moe_groups), sequence_parallel(self._sp), tensor_parallel(self._tp):
             if self._stage3 is None:
                 return self._loss_fn(self._compute_params(), batch, None)
             params = self._stage3
@@ -612,7 +655,7 @@ class DeepSpeedEngine:
                 self._stage3.in_backward = True
             try:
                 # a checkpointed block's recompute runs in here
-                with expert_parallel(self._moe_groups), sequence_parallel(self._sp):
+                with expert_parallel(self._moe_groups), sequence_parallel(self._sp), tensor_parallel(self._tp):
                     (self._pending.float() * scale).backward(retain_graph=retain_graph)
             finally:
                 if self._stage3 is not None:
@@ -657,21 +700,28 @@ class DeepSpeedEngine:
                                    if not (s3 is not None and s3.qgz and lf.param_dim is not None)])
         if self._sp is not None:  # the sequence ranks' partial gradients of their replicas
             self.coll.sum_in_place(acc, "seq")
+        partial = [a for a, lf in zip(acc, self.plan.leaves) if lf.tp_partial]
+        if partial:  # each tensor rank's part of a whole leaf it reads a slice of
+            self.coll.sum_in_place(partial, "tensor")
         return acc
 
     def _norm_owned(self) -> List[bool]:
         """Whether leaf i's squares count in this rank's share of the global
         norm: a chunk, or a whole leaf on ZeRO rank 0; a leaf every expert
-        rank holds alike only on expert rank 0."""
+        rank holds alike only on expert rank 0, and one every tensor rank
+        holds alike only on tensor rank 0."""
         p = self.plan
         return [(lf.opt_dim is not None or p.rank == 0) and (lf.expert_dim is not None or p.ep_rank == 0)
-                for lf in p.leaves]
+                and (lf.tensor_dim is not None or p.tp_rank == 0) for lf in p.leaves]
 
     def _norm_sum(self, sq: torch.Tensor) -> torch.Tensor:
-        """The ranks' shares of the squared norm summed: over the ZeRO group, then over the expert group."""
+        """The ranks' shares of the squared norm summed: over the ZeRO group,
+        then over the expert group and the tensor group."""
         self.coll.all_reduce(sq)
         if self.plan.ep_size > 1:
             self.coll.all_reduce(sq, "expert")
+        if self.plan.tp_size > 1:
+            self.coll.all_reduce(sq, "tensor")
         return sq
 
     @torch.no_grad()
@@ -918,22 +968,31 @@ class DeepSpeedEngine:
             return False
         return not bool(self._last_overflow)
 
-    def _whole_experts(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        """Leaf i's tensor of this rank's experts all-gathered over the expert
-        group into the whole leaf (``t`` itself for a leaf without experts)."""
-        lf = self.plan.leaves[i]
-        if lf.expert_dim is None or lf.ep == 1 or not torch.is_tensor(t) or tuple(t.shape) != lf.local_shape:
-            return t
-        recv = torch.empty((lf.ep,) + tuple(t.shape), dtype=t.dtype, device=self.device)
+    def _gather_dim(self, t: torch.Tensor, dim: int, n: int, group: str) -> torch.Tensor:
+        recv = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=self.device)
         self.coll._count("all_gather", recv)
         dist.all_gather_into_tensor(recv.view(-1), t.to(self.device).contiguous().view(-1),
-                                    group=self.coll.groups["expert"])
-        return torch.cat(list(recv.unbind(0)), dim=lf.expert_dim)
+                                    group=self.coll.groups[group])
+        return torch.cat(list(recv.unbind(0)), dim=dim)
+
+    def _whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf i's tensor of this rank's experts and tensor slice all-gathered
+        over the expert and tensor groups into the whole leaf (``t`` itself
+        for a leaf split over neither)."""
+        lf = self.plan.leaves[i]
+        if not torch.is_tensor(t) or tuple(t.shape) != lf.local_shape:
+            return t
+        if lf.expert_dim is not None and lf.ep > 1:
+            t = self._gather_dim(t, lf.expert_dim, lf.ep, "expert")
+        if lf.tensor_dim is not None and lf.tp > 1:
+            t = self._gather_dim(t, lf.tensor_dim, lf.tp, "tensor")
+        return t
 
     @torch.no_grad()
     def full_masters(self) -> List[torch.Tensor]:
         """Every fp32 master whole, in plan order (stage 3 all-gathers its
-        chunks, expert parallelism its experts: every rank must call it)."""
+        chunks, expert and tensor parallelism their slices: every rank must
+        call it)."""
         out = [m.detach() for m in self._masters]
         items = []
         for i, lf in enumerate(self.plan.leaves):
@@ -943,7 +1002,7 @@ class DeepSpeedEngine:
                 out[i] = full
         if items:
             self.coll.gather(items)
-        return [self._whole_experts(i, t) for i, t in enumerate(out)]
+        return [self._whole(i, t) for i, t in enumerate(out)]
 
     def module_state_dict(self) -> Dict[str, Any]:
         """The fp32 masters, whole, as a nested dict of detached tensors (a
@@ -966,7 +1025,7 @@ class DeepSpeedEngine:
             out.append(st)
         if items:
             self.coll.gather(items)
-        return [{k: self._whole_experts(i, v) for k, v in st.items()} for i, st in enumerate(out)]
+        return [{k: self._whole(i, v) for k, v in st.items()} for i, st in enumerate(out)]
 
     def _leaf_state(self, i: int) -> Dict[str, Any]:
         """Leaf i's optimizer state tensors as the optimizer holds them (host ones under ZeRO-Offload)."""
@@ -1001,7 +1060,8 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ checkpoints
     def _layout(self) -> Dict[str, Any]:
         """What a rank file must match to resume at this world size and stage."""
-        axes = ("data", "fsdp", "expert") + tuple(a for a in ("seq", "context") if self.topology.axis_size(a) > 1)
+        axes = ("data", "fsdp", "expert") + tuple(a for a in ("seq", "context", "tensor")
+                                                  if self.topology.axis_size(a) > 1)
         return {"zero_stage": self.plan.stage, "dp_world_size": self.dp_world_size,
                 "mesh": {a: self.topology.axis_size(a) for a in axes}}
 
@@ -1059,7 +1119,8 @@ class DeepSpeedEngine:
         replica_rank = self.topology.axis_rank("data") if plan.axis == "fsdp" else 0
         return {**self._layout(), "zero_axis": plan.axis, "zero_size": plan.size, "zero_rank": plan.rank,
                 "replica_rank": replica_rank, "ep_size": plan.ep_size, "ep_rank": plan.ep_rank,
-                "expert_dims": [lf.expert_dim for lf in plan.leaves],
+                "expert_dims": [lf.expert_dim for lf in plan.leaves], "tp_size": plan.tp_size,
+                "tp_rank": plan.tp_rank, "tensor_dims": [lf.tensor_dim for lf in plan.leaves],
                 "leaves": [(lf.path, lf.shape, lf.opt_dim) for lf in plan.leaves], "fp32": fp32, "state": state,
                 "optimizer": {"count": self.optimizer_step_count, "state_names": self.state_names(),
                               "param_groups": [{k: v for k, v in g.items() if k != "params"}
@@ -1199,15 +1260,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     for "cpu"; ``mesh`` a ``parallel.MeshTopology`` over the process world
     (default: the config's ``mesh`` section). A ``PipelineModule``, or
     ``mesh.pipe`` > 1 with a model that has ``to_pipeline``, gets the
-    pipeline engine (JAX ``engine.py:1253-1259``). An mpu and the
-    hybrid-engine section raise."""
+    pipeline engine (JAX ``engine.py:1253-1259``). An ``mpu`` is accepted
+    and unused, as in the JAX package (``engine.py:101``): the mesh section
+    lays out the tensor (model-parallel) axis. The hybrid-engine section
+    raises."""
     from .pipe.module import PipelineModule
 
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    if mpu is not None:
-        raise NotImplementedError("mpu: a model-parallel unit (tensor parallelism) is not ported yet; lay pipe, seq "
-                                  "and context out in the config's mesh section")
     cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     pipe = mesh.axis_size("pipe") if isinstance(mesh, MeshTopology) else cfg.mesh.pipe
     cls = DeepSpeedEngine

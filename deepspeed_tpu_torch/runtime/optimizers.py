@@ -68,7 +68,7 @@ class DeviceOptimizer(torch.optim.Optimizer):
 
     def set_sharded(self, params, norm_reduce: Callable) -> None:
         """Mark ``params`` as parts of leaves split over ranks (ZeRO chunks,
-        an expert rank's experts): ``norm_reduce(t)`` sums ``t`` in place
+        an expert rank's experts, a tensor rank's slice): ``norm_reduce(t)`` sums ``t`` in place
         over the ranks holding the other parts (LAMB's trust ratio needs
         whole-leaf norms; the elementwise optimizers ignore it)."""
         self._sharded.update({id(p): norm_reduce for p in params})
@@ -166,9 +166,10 @@ class Lamb(Adam):
     hand-written kernel on CUDA parameters (its plain version on CPU
     parameters), then the unclipped trust-ratio apply in PyTorch. The
     direction of every leaf goes through one scratch buffer of the largest
-    leaf's size. A leaf split over ranks (``set_sharded``, ZeRO stage >= 1)
-    takes its trust ratio from whole-leaf norms: its chunk's squared norms
-    are summed over the ranks before the apply."""
+    leaf's size. A leaf split over ranks (``set_sharded``: ZeRO stage >= 1,
+    an expert rank's experts, a tensor rank's slice) takes its trust ratio
+    from whole-leaf norms: its part's squared norms are summed over the
+    ranks before the apply."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01):
         super().__init__(params, lr, betas, eps, weight_decay, adam_w_mode=True)

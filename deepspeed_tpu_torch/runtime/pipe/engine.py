@@ -35,6 +35,12 @@ What it computes is the JAX engine's (``runtime/pipe/engine.py:81-465``):
 - the global gradient norm (clipping, the overflow flag,
   ``get_global_grad_norm``) sums every stage's squares over the pipe group,
   a tied leaf counted once, on the first stage that holds it;
+- under ``tensor`` > 1 (pipe x tensor, JAX ``test_pipe.py:521``) each stage
+  runs on its tensor group over the mesh's ``PipeModelDataParallelTopology``
+  layout: the stage functions read the engine's ``TensorParallel``
+  (``parallel.tensor``), the activations and gradients travel between the
+  ranks of one tensor coordinate, and the tied groups are formed per tensor
+  coordinate (every line of the pipe axis has its own);
 - ZeRO above stage 1 raises ``ValueError`` (reference ``engine.py:1481``),
   as progressive layer drop does (the config refuses it); ZeRO-Offload, the
   ``expert`` axis and checkpoints are not ported under the pipeline and
@@ -56,7 +62,8 @@ from ...device import resolve_device
 from ...moe.layer import expert_parallel
 from ...parallel.mesh import MeshTopology, initialize_mesh
 from ...parallel.topology import PipelineParallelGrid
-from ..config import DeepSpeedConfig
+from ...parallel.tensor import tensor_parallel
+from ..config import DeepSpeedConfig, check_tensor
 from ..engine import IGNORE_INDEX, DeepSpeedEngine
 from . import schedule as sched
 from .p2p import StageExchange
@@ -105,6 +112,7 @@ class PipelineEngine(DeepSpeedEngine):
         if topo.axis_size("expert") > 1:
             raise NotImplementedError("expert parallelism inside pipeline stages is not ported yet (mesh.expert "
                                       "with mesh.pipe)")
+        check_tensor(topo.axis_sizes, zc, moe=getattr(getattr(model, "cfg", None), "moe_num_experts", 0) > 0)
         cfg.resolve_batch_sizes(topo.data_parallel_size)
         self.num_stages = topo.pipe_parallel_size
         self.stage_id = topo.axis_rank("pipe")
@@ -184,7 +192,7 @@ class PipelineEngine(DeepSpeedEngine):
         self._nbuf = schedule.num_pipe_buffers()
         with torch.set_grad_enabled(train):
             self._params = self._compute_params()
-        with expert_parallel(self._moe_groups):
+        with expert_parallel(self._moe_groups), tensor_parallel(self._tp):
             for step in schedule:
                 for cmd in step:
                     self._INSTRUCTION_MAP[type(cmd)](self, cmd)

@@ -10,7 +10,7 @@ else on ``data``. The expert groups are the ranks along the mesh's
 expert-data group of a rank is the ranks that share its expert coordinate
 (data x fsdp), over which its experts' gradients reduce. The tensor
 (model-parallel) getters read the ``tensor`` axis, which tensor-parallel
-serving runs over. The pipe getters read the ``pipe`` axis (a rank's stage),
+serving and training run over. The pipe getters read the ``pipe`` axis (a rank's stage),
 the sequence getters the ``seq`` axis (Ulysses) and the context getters the
 ``context`` axis (the ring); without a mesh each is 1 (rank 0). The
 ``*_axis`` getters name the mesh axis, as the JAX package's do.
@@ -26,10 +26,8 @@ def _topo():
 def initialize(ep_size: int = 1, mpu=None):
     """Reference-compat entry (``groups.py:52``): the expert-parallel size is
     the mesh's ``expert`` axis, so this validates rather than builds (JAX
-    ``utils/groups.py:20-25``)."""
-    if mpu is not None:
-        raise NotImplementedError("an mpu (a model-parallel unit of tensor parallelism) is not ported yet: lay "
-                                  "pipe, seq and context out in the config's mesh section")
+    ``utils/groups.py:20-25``). An ``mpu`` is accepted and unused, as in the
+    JAX package: the mesh's ``tensor`` axis is the model-parallel group."""
     topo = get_mesh_topology(required=False)
     if topo is not None and ep_size not in (1, topo.expert_parallel_size):
         raise ValueError(f"ep_size {ep_size} conflicts with mesh expert axis {topo.expert_parallel_size}; set "

@@ -260,8 +260,8 @@ def test_expert_config_no_longer_raises():
 
     cfg = DeepSpeedConfig({"train_micro_batch_size_per_gpu": 1, "mesh": {"expert": 2}})
     assert cfg.mesh.expert == 2
-    with pytest.raises(NotImplementedError):
-        DeepSpeedConfig({"train_micro_batch_size_per_gpu": 1, "mesh": {"tensor": 2}})
+    with pytest.raises(NotImplementedError, match="expert parallelism beside tensor parallelism"):
+        DeepSpeedConfig({"train_micro_batch_size_per_gpu": 1, "mesh": {"tensor": 2, "expert": 2}})
 
 
 @pytest.mark.parametrize("mesh", [{"expert": 2}, {"data": 2, "expert": 2}, {"fsdp": 2, "expert": 2}])

@@ -233,6 +233,9 @@ def test_config_refusals(mesh, msg):
 
 
 def test_an_mpu_raises():
-    with pytest.raises(NotImplementedError, match="model-parallel unit"):
-        deepspeed_tpu_torch.initialize(model=lambda p, b, r: p["w"].sum(), model_parameters={"w": np.zeros(2)},
-                                       mpu=object(), config={"train_micro_batch_size_per_gpu": 1}, device="cpu")
+    """An mpu no longer raises: as in the JAX package (``engine.py:101``) it is accepted and unused, the mesh
+    section laying out the tensor axis."""
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=lambda p, b, r: p["w"].sum(),
+                                                     model_parameters={"w": np.zeros(2, np.float32)}, mpu=object(),
+                                                     config={"train_micro_batch_size_per_gpu": 1}, device="cpu")
+    assert engine.topology.model_parallel_size == 1

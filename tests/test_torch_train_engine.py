@@ -179,7 +179,7 @@ def test_a_non_finite_gradient_skips_the_step_in_both_engines():
     {"curriculum_learning": {"enabled": True}},
     {"random_ltd": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"mesh": {"tensor": 2}},
+    {"mesh": {"tensor": 2, "seq": 2}},
     {"optimizer": {"type": "OneBitLamb"}},
 ])
 def test_unported_config_sections_raise(section):
