@@ -8,7 +8,7 @@
     python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged, sparse and
                                         # Adam kernels beside this tree's
     python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named phases alone (also serve_tp,
-                                                         # train_pipe, train_seq, train_tp)
+                                                         # train_pipe, train_seq, train_tp, hf_kernels, serve_hf)
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -141,7 +141,8 @@ Phases, each fatal on failure:
    225 ``quantized_matmul``), and the weights' and one KV block's bytes are
    printed beside their bf16 sizes.
 6. training kernels: flash attention forward, dq and dk/dv (kernels A, B, C)
-   at the gpt2_1_3b shape and at GQA, Sq < Sk, window and ALiBi shapes, and
+   at the gpt2_1_3b shape and at GQA, Sq < Sk, window and ALiBi shapes and
+   bert-base's encoder (8 x 128, 12 heads of 64, no mask), and
    fused AdamW (kernel D) over the ``wte`` leaf and over all 388 leaves of
    gpt2_1_3b in one ``fused_adam_multi`` call (one launch), against their
    plain versions, each with its bound and a library yardstick (SDPA
@@ -278,12 +279,37 @@ Phases, each fatal on failure:
    on train's micro-batch of 8 x 1,024 on both ranks: step ms,
    tokens/s, each rank's peak, the TP collectives' calls, MB and host ms a
    step, the kernels' launches (24 a rank a step each flash kernel, one
-   Adam), losses within 1 % of ``train``'s (4 steps, ``TP_STEPS``: the
+   Adam), losses within 1 % of ``train``'s (3 steps, ``TP_STEPS``: the
    whole script's time limit). (c) pipe 2 x tensor 2 as four
    processes, gpt2_1_3b widths at 4 layers in fp32, 2 steps of 1F1B,
    against one process. The kernels line gives the flash and Adam rows
    rank 0's launches over (b)'s timed steps and the LAMB row its launches
    in (a)'s llama3_8b LAMB run (``train_tp_launches``).
+23. hf kernels (run after the llama3_8b kernel phases): paged decode (B 64,
+   cold at B 8) and prefill (2 x 512, cold at 2 x 16) on bf16 and int8 pools,
+   with ALiBi and a window at B 64 / 2 x 512, at the heads of phi-2 (32 / 32 of
+   80), phi-3-mini (32 / 32 of 96), Gemma-2B (8 / 1 of 256), Gemma-7B (16 / 16
+   of 256) and falcon-7b (71 / 1 of 64) (``HF_GEOMS``), bf16 q, against their
+   plain versions; then ``layer_norm`` at phi-2's d 2,560 and falcon-7b's
+   4,544 and ``rms_norm`` at gemma-2b's 2,048 with its (1 + w) weight in fp32
+   (``HF_NORMS``), 8 and 768 rows, bf16 and fp32; the ``hf_kernel_shapes``
+   line before the kernels line lists them.
+24. serve_hf (after the quantised serves): Hugging Face directories written
+   under ``build/hf_checkpoints/`` with the published config.json of
+   microsoft/phi-2, google/gemma-2b, tiiuae/falcon-7b (at 4 of its 32 layers)
+   and bert-base-uncased, random bf16 weights from a seed, each deleted after
+   its run. phi_2 and gemma_2b (full depth) and falcon_7b_4l load through
+   ``load_hf_checkpoint`` (read, to the device and convert seconds) and serve
+   the serve phase's two waves on graphs (then eager and graphs again: phi_2
+   and gemma_2b, at a program cache of 16) with the paged kernels and the
+   norm counted; phi_2 also through ``init_inference(<directory>)`` (the v1
+   engine). Each at 2 layers in fp32 (``HF_PARITY_LAYERS``): the card's v2
+   engine against the CPU route on the same directory, a prefill and a decode
+   step within 1e-4 relative, and bf16 greedy tokens beside the fp32 CPU
+   route's. bert_base through ``init_inference(<directory>)``: a bf16 forward
+   of 8 x 128 tokens (12 flash launches), then 2 layers in fp32 against the
+   CPU route, token types included. The kernels line gives the paged, norm
+   and flash rows their launches there (``serve_hf_launches``).
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -715,7 +741,8 @@ def phase_decode(torch, dev, dtype, B, iters, geom=GEOM, int8=False, feature="no
                 f"{KVH},{D}) bt({B},{P})", features=feature, window=window, ctx=sorted(set(ctx)), **err,
                 tol=paged_tol(torch, dtype, slopes, max(ctx), vp), kernel_ms=k_ms, parent_ms=None if feature != "none" else parent_time(
                     time_ms, run, iters), plain_ms=p_ms, library_ms=l_ms, library_bytes=l_bytes, **cold,
-                plan=pa._decode_plan(B, KVH, P, bs, sm_count(dev)) if dtype == torch.bfloat16 else None,
+                plan=pa._decode_plan(B, KVH * -(-(H // KVH) // pa.DECODE_HEADS), P, bs, sm_count(dev))
+                if dtype == torch.bfloat16 else None,
                 bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -841,13 +868,18 @@ def norm_times(torch, kernel, library, x, iters) -> dict:
                 library_cold_ms=library and cold_ms(torch, library, (x,), iters))
 
 
-def phase_rms(torch, dev, dtype, T, iters, mixed=False):
+def phase_rms(torch, dev, dtype, T, iters, mixed=False, d=None, offset=False):
+    """``rms_norm`` of (1, T, d) (d llama3_8b's by default); ``offset``: gemma's weight as its serving passes
+    it, ``1 + w`` in fp32 for w ~ N(0, 0.02)."""
     from deepspeed_tpu_torch.ops import norms
 
-    d = GEOM["d"]
+    d = d or GEOM["d"]
     g = torch.Generator(device=dev).manual_seed(T)
     x = torch.randn((1, T, d), generator=g, device=dev).to(dtype)
-    w = torch.randn((d,), generator=g, device=dev).to(norm_wdtype(torch, dtype, mixed))
+    if offset:
+        w = 1.0 + 0.02 * torch.randn((d,), generator=g, device=dev)
+    else:
+        w = torch.randn((d,), generator=g, device=dev).to(norm_wdtype(torch, dtype, mixed))
     got = norms.rms_norm(x, w, 1e-5)
     torch.cuda.synchronize()
     err = errors(got, norms.rms_norm_ref(x, w, 1e-5))
@@ -862,10 +894,11 @@ def phase_rms(torch, dev, dtype, T, iters, mixed=False):
                 bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_layer_norm(torch, dev, dtype, T, iters, mixed=False):
+def phase_layer_norm(torch, dev, dtype, T, iters, mixed=False, d=None):
+    """``layer_norm`` of (1, T, d) (d gpt2_1_3b's by default)."""
     from deepspeed_tpu_torch.ops import norms
 
-    d = GPT2_GEOM["d"]
+    d = d or GPT2_GEOM["d"]
     g = torch.Generator(device=dev).manual_seed(T)
     wdtype = norm_wdtype(torch, dtype, mixed)
     x = (torch.randn((1, T, d), generator=g, device=dev) * 2.0 + 0.5).to(dtype)
@@ -943,11 +976,11 @@ def phase_qmm(torch, dev, dtype, M, K, N, bits, iters):
                 dequant_matmul_ms=dq_ms, bound_bytes=nbytes, bound_flops=flops, bound_ms=b_ms, bound_by=b_by)
 
 
-def run_cases(torch, cases):
-    """Each case (a function of the dtype) in bf16 and fp32, held to its own
-    tolerance; returns the per-case records."""
+def run_cases(torch, cases, dtypes=None):
+    """Each case (a function of the dtype) in bf16 and fp32 (or ``dtypes``),
+    held to its own tolerance; returns the per-case records."""
     records = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         for case in cases:
             rec = case(dtype)
             log(rec)
@@ -962,7 +995,7 @@ def run_cases(torch, cases):
 def run_kernel_phases(torch, dev, quick: bool):
     """The three kernels of unquantised serving at llama3_8b's shapes; decode (B 64) and prefill (2 x 512)
     also with ALiBi and with a window."""
-    iters = 5 if quick else 50
+    iters = 5 if quick else 20  # 50 until PR 27 (the whole script's time limit)
     sizes = [(phase_decode, 64), (phase_prefill, 512), (phase_rms, 768)] if quick else [
         (phase_decode, 8), (phase_decode, 64), (phase_prefill, 16), (phase_prefill, 256), (phase_prefill, 512),
         (phase_rms, 8), (phase_rms, 768), (phase_rms, 2048)]
@@ -1012,6 +1045,9 @@ FLASH_CASES = {
     # a rank's attention under Ulysses at llama3_8b, seq 2: the whole 8,192-token row over 16 of 32 query heads and
     # 4 of 8 KV heads (train_seq's shape, which trains in bf16: the fp32 bodies there take ~10 s a run)
     "ulysses_llama3_8b": dict(B=1, Sq=8192, Sk=8192, H=16, KVH=4, D=128, causal=True, bf16_only=True),
+    # bert-base-uncased's encoder as serve_hf runs it through the v1 engine: 8 x 128 tokens, 12 heads of 64,
+    # no mask
+    "bert_base": dict(B=8, Sq=128, Sk=128, H=12, KVH=12, D=64, causal=False),
 }
 
 
@@ -1839,6 +1875,14 @@ SERVE_RUNS = {
     # more than one card); 8 x 2 norms + the final norm, 8 x 3 grouped products (wi, wg, wo)
     "mixtral_8x7b_8l": dict(cfg=lambda: mixtral_cfg(n_layers=8), longest=1500, max_context=8192, quant={},
                             per_forward={"rms_norm": 17, "moe_grouped_gemm": 24}, compare_eager=(True, False)),
+    # Hugging Face checkpoints (serve_hf; the model comes from the directory): phi-2, one layernorm a block
+    # (parallel_shared) and the final one, paged attention at D 80; gemma-2b, 18 x 2 RMSNorms + the final one,
+    # D 256 on one KV head (G 8); falcon-7b's widths at 4 layers, 71 query heads on one KV head
+    "phi_2": dict(hf=True, longest=1500, max_context=2048, quant={}, per_forward={"layer_norm": 33},
+                  compare_eager=(True, False), program_cache=16),
+    "gemma_2b": dict(hf=True, longest=1500, max_context=8192, quant={}, per_forward={"rms_norm": 37},
+                     compare_eager=(True, False), program_cache=16),
+    "falcon_7b_4l": dict(hf=True, longest=1500, max_context=2048, quant={}, per_forward={"layer_norm": 5}),
 }
 
 
@@ -1977,7 +2021,8 @@ def agreement(out, other) -> dict:
                 tokens=sum(len(w) for w in other), equal_requests=first.count(None), first_difference=first)
 
 
-def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None, beside=None, keep_params=False):
+def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None, beside=None, keep_params=False,
+                hf_dir=None):
     """One serving run through ``InferenceEngineV2.generate``: the counters in
     ``counters`` are zeroed just before the two waves and read just after.
     Each step replays its bucket's CUDA graph: the graph replays must equal
@@ -1986,7 +2031,9 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
     compared with and the agreement printed (the unfused loop's bf16 products
     have other row counts than the fused loop's, so they round otherwise).
     ``keep_params``: the record keeps the engine's weights (``params``) for
-    the next phase, which then needs no set-up of its own."""
+    the next phase, which then needs no set-up of its own. ``hf_dir``: a
+    Hugging Face directory whose model and weights ``load_hf_checkpoint``
+    loads in bf16 (the record holds its load seconds by step)."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
@@ -1994,11 +2041,16 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
     from deepspeed_tpu_torch.ops.paged_attention import kv_pool_is_quantized
 
     spec = SERVE_RUNS[run]
-    cfg = spec["cfg"]() if "cfg" in spec else gpt2_cfg() if run.startswith("gpt2") else model_cfg()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    load = {}
+    if hf_dir is not None:
+        model, params, load = hf_load(torch, hf_dir, torch.bfloat16, dev)
+        cfg, init_s = model.cfg, load["load_s"]
+    else:
+        cfg = spec["cfg"]() if "cfg" in spec else gpt2_cfg() if run.startswith("gpt2") else model_cfg()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     bf16_weight_bytes = tree_bytes(params)
     t0 = time.perf_counter()
     with program_cache(spec.get("program_cache")):
@@ -2048,7 +2100,9 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
                prefix_hit_tokens=sum(hits), max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, forwards=launches[next(iter(spec["per_forward"]))] / next(iter(
                    spec["per_forward"].values())), loop="fused" if fused else "unfused", **steps,
-               graphs_live=len(engine.graphs), program_cache=engine._max_program_variants)
+               graphs_live=len(engine.graphs), program_cache=engine._max_program_variants,
+               **({"source": HF_CONFIGS[run][0], "heads": [cfg.n_heads, cfg.kv_heads, cfg.head_dim], "load": load}
+                  if hf_dir is not None else {}))
     log(rec)
     if steps["graph_replays"] != steps["dispatches"] or (fused and steps["quanta"] != steps["dispatches"]):
         raise AssertionError(f"serve {run}: {steps['graph_replays']} graph replays, {steps['dispatches']} steps, "
@@ -2107,6 +2161,7 @@ def phase_serve(torch, dev, counters, run="llama3_8b", profile=False, want=None,
 
 # The SLA load: 24 requests a row, each a shared 256-token system prompt and a tail of 16-1,500 tokens,
 # 32 new tokens, greedy; a row with every arrival at t = 0, then Poisson rows at fractions of its requests/s
+# (fewer requests save no time: the Poisson rows' rates fall with the first row's, so their arrivals span as long)
 SLA_SPEC = dict(n_requests=24, prompt_len_range=(16, 1500), max_new_tokens=32, shared_prefix_len=256, seed=0)
 SLA_FRACTIONS = (0.25, 0.5, 0.75)
 
@@ -4606,9 +4661,9 @@ class PlainQuantKernels(PlainKernels):
         return tq
 
 
-# v1 serving: a batch of 4 seeded prompts at each length, greedy, V1_NEW new tokens (16: the whole script's time
-# limit)
-V1_PROMPT_LENS, V1_BATCH, V1_NEW, V1_MAX_OUT = (16, 512), 4, 16, 1024
+# v1 serving: a batch of 4 seeded prompts at each length, greedy, V1_NEW new tokens (8: the whole script's time
+# limit; 16 until the Hugging Face phases came, 32 before that)
+V1_PROMPT_LENS, V1_BATCH, V1_NEW, V1_MAX_OUT = (16, 512), 4, 8, 1024
 V1_RUNS = {"v1": 0, "v1_w8": 8, "v1_w4": 4}  # run -> quant bits (0: off)
 
 
@@ -4716,6 +4771,370 @@ def phase_v1(torch, dev, counters, profile=False):
     return runs
 
 
+# ---------------------------------------------------------------- Hugging Face checkpoints (serve_hf)
+# The published config.json values of each run's source (the checkpoints' own fields; the weights are random
+# from a seed). falcon_7b_4l cuts tiiuae/falcon-7b's 32 layers to 4: its widths (71 query heads on one KV
+# head of 64) are what it tests.
+HF_CONFIGS = {
+    "phi_2": ("microsoft/phi-2", {
+        "architectures": ["PhiForCausalLM"], "model_type": "phi", "vocab_size": 51200, "hidden_size": 2560,
+        "intermediate_size": 10240, "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+        "partial_rotary_factor": 0.4, "hidden_act": "gelu_new", "layer_norm_eps": 1e-05,
+        "max_position_embeddings": 2048, "rope_theta": 10000.0, "rope_scaling": None, "qk_layernorm": False,
+        "tie_word_embeddings": False, "bos_token_id": 50256, "eos_token_id": 50256, "torch_dtype": "float16"}),
+    "gemma_2b": ("google/gemma-2b", {
+        "architectures": ["GemmaForCausalLM"], "model_type": "gemma", "vocab_size": 256000, "hidden_size": 2048,
+        "intermediate_size": 16384, "num_hidden_layers": 18, "num_attention_heads": 8, "num_key_value_heads": 1,
+        "head_dim": 256, "hidden_act": "gelu", "rms_norm_eps": 1e-06, "max_position_embeddings": 8192,
+        "rope_theta": 10000.0, "rope_scaling": None, "attention_bias": False, "pad_token_id": 0,
+        "bos_token_id": 2, "eos_token_id": 1, "torch_dtype": "bfloat16"}),
+    "falcon_7b_4l": ("tiiuae/falcon-7b, num_hidden_layers 32 -> 4", {
+        "architectures": ["FalconForCausalLM"], "model_type": "falcon", "vocab_size": 65024, "hidden_size": 4544,
+        "num_hidden_layers": 4, "num_attention_heads": 71, "multi_query": True, "parallel_attn": True,
+        "new_decoder_architecture": False, "alibi": False, "bias": False, "layer_norm_epsilon": 1e-05,
+        "apply_residual_connection_post_layernorm": False, "bos_token_id": 11, "eos_token_id": 11,
+        "torch_dtype": "bfloat16"}),
+    "bert_base": ("bert-base-uncased", {
+        "architectures": ["BertForMaskedLM"], "model_type": "bert", "vocab_size": 30522, "hidden_size": 768,
+        "intermediate_size": 3072, "num_hidden_layers": 12, "num_attention_heads": 12, "hidden_act": "gelu",
+        "layer_norm_eps": 1e-12, "max_position_embeddings": 512, "type_vocab_size": 2, "pad_token_id": 0,
+        "position_embedding_type": "absolute"}),
+}
+HF_DIR = os.path.join(HERE, "build", "hf_checkpoints")
+HF_PARITY_LAYERS = 2
+HF_PARITY_TOL = 1e-4  # fp32 logits of the card's kernels against the port's CPU route, relative to max |logit|
+HF_BERT_BATCH = (8, 128)  # the encoder forward's rows and tokens
+
+
+def hf_tensor_specs(hf: dict) -> list:
+    """(name, shape, kind) of every tensor a Hugging Face checkpoint of ``hf`` holds, in the family's own names
+    and torch layouts (Linear (out, in)); kind "w" a weight, "b" a bias, "ln" a LayerNorm scale, "rms0" a
+    zero-centred RMSNorm scale (gemma)."""
+    t, V, d, L = hf["model_type"], hf["vocab_size"], hf["hidden_size"], hf["num_hidden_layers"]
+    H = hf["num_attention_heads"]
+    out = []
+    if t == "phi":
+        f, D = hf["intermediate_size"], d // H
+        out.append(("model.embed_tokens.weight", (V, d), "w"))
+        for i in range(L):
+            p = f"model.layers.{i}."
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                out += [(p + f"self_attn.{proj}.weight", (H * D, d), "w"),
+                        (p + f"self_attn.{proj}.bias", (H * D,), "b")]
+            out += [(p + "self_attn.dense.weight", (d, H * D), "w"), (p + "self_attn.dense.bias", (d,), "b"),
+                    (p + "mlp.fc1.weight", (f, d), "w"), (p + "mlp.fc1.bias", (f,), "b"),
+                    (p + "mlp.fc2.weight", (d, f), "w"), (p + "mlp.fc2.bias", (d,), "b"),
+                    (p + "input_layernorm.weight", (d,), "ln"), (p + "input_layernorm.bias", (d,), "b")]
+        out += [("model.final_layernorm.weight", (d,), "ln"), ("model.final_layernorm.bias", (d,), "b"),
+                ("lm_head.weight", (V, d), "w"), ("lm_head.bias", (V,), "b")]
+    elif t == "gemma":
+        f, D, KVH = hf["intermediate_size"], hf["head_dim"], hf["num_key_value_heads"]
+        out.append(("model.embed_tokens.weight", (V, d), "w"))
+        for i in range(L):
+            p = f"model.layers.{i}."
+            out += [(p + "self_attn.q_proj.weight", (H * D, d), "w"),
+                    (p + "self_attn.k_proj.weight", (KVH * D, d), "w"),
+                    (p + "self_attn.v_proj.weight", (KVH * D, d), "w"),
+                    (p + "self_attn.o_proj.weight", (d, H * D), "w"),
+                    (p + "mlp.gate_proj.weight", (f, d), "w"), (p + "mlp.up_proj.weight", (f, d), "w"),
+                    (p + "mlp.down_proj.weight", (d, f), "w"), (p + "input_layernorm.weight", (d,), "rms0"),
+                    (p + "post_attention_layernorm.weight", (d,), "rms0")]
+        out.append(("model.norm.weight", (d,), "rms0"))
+    elif t == "falcon":  # the 7b layout: fused rows [q (H D), k (D), v (D)], one input layernorm, tied head
+        D = d // H
+        out.append(("transformer.word_embeddings.weight", (V, d), "w"))
+        for i in range(L):
+            p = f"transformer.h.{i}."
+            out += [(p + "input_layernorm.weight", (d,), "ln"), (p + "input_layernorm.bias", (d,), "b"),
+                    (p + "self_attention.query_key_value.weight", ((H + 2) * D, d), "w"),
+                    (p + "self_attention.dense.weight", (d, d), "w"),
+                    (p + "mlp.dense_h_to_4h.weight", (4 * d, d), "w"),
+                    (p + "mlp.dense_4h_to_h.weight", (d, 4 * d), "w")]
+        out += [("transformer.ln_f.weight", (d,), "ln"), ("transformer.ln_f.bias", (d,), "b")]
+    elif t == "bert":
+        f, P, T = hf["intermediate_size"], hf["max_position_embeddings"], hf["type_vocab_size"]
+        e = "bert.embeddings."
+        out += [(e + "word_embeddings.weight", (V, d), "w"), (e + "position_embeddings.weight", (P, d), "w"),
+                (e + "token_type_embeddings.weight", (T, d), "w"), (e + "LayerNorm.weight", (d,), "ln"),
+                (e + "LayerNorm.bias", (d,), "b")]
+        for i in range(L):
+            p = f"bert.encoder.layer.{i}."
+            for n in ("attention.self.query", "attention.self.key", "attention.self.value", "attention.output.dense"):
+                out += [(p + n + ".weight", (d, d), "w"), (p + n + ".bias", (d,), "b")]
+            out += [(p + "attention.output.LayerNorm.weight", (d,), "ln"),
+                    (p + "attention.output.LayerNorm.bias", (d,), "b"),
+                    (p + "intermediate.dense.weight", (f, d), "w"), (p + "intermediate.dense.bias", (f,), "b"),
+                    (p + "output.dense.weight", (d, f), "w"), (p + "output.dense.bias", (d,), "b"),
+                    (p + "output.LayerNorm.weight", (d,), "ln"), (p + "output.LayerNorm.bias", (d,), "b")]
+        c = "cls.predictions."
+        out += [(c + "transform.dense.weight", (d, d), "w"), (c + "transform.dense.bias", (d,), "b"),
+                (c + "transform.LayerNorm.weight", (d,), "ln"), (c + "transform.LayerNorm.bias", (d,), "b"),
+                (c + "bias", (V,), "b")]
+    else:
+        raise ValueError(f"no tensor list for model_type {t!r}")
+    return out
+
+
+def write_safetensors(torch, path: str, specs: list, make) -> int:
+    """A ``.safetensors`` file of ``specs`` (name, shape, kind) in bf16: the 8-byte little-endian header length,
+    the JSON header (padded with spaces to 8 bytes), then each tensor's bytes in order, ``make(shape, kind)``
+    drawing each on the device; returns the bytes written."""
+    import struct
+
+    header, offset = {}, 0
+    for name, shape, _ in specs:
+        n = 2 * int(math.prod(shape))
+        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for _, shape, kind in specs:
+            f.write(make(shape, kind).to(torch.bfloat16).cpu().contiguous().view(torch.uint8).numpy())
+    return 8 + len(raw) + offset
+
+
+def write_hf_checkpoint(torch, dev, run: str, seed: int = 0) -> dict:
+    """``build/hf_checkpoints/<run>/``: the published ``config.json`` and a ``model.safetensors`` of random bf16
+    weights from ``seed`` (weights and biases N(0, 0.02), LayerNorm scales 1 + N(0, 0.02), gemma's zero-centred
+    RMSNorm scales N(0, 0.02))."""
+    source, hf = HF_CONFIGS[run]
+    d = os.path.join(HF_DIR, run)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(shape, kind):
+        x = torch.randn(shape, generator=g, device=dev) * 0.02
+        return x + 1.0 if kind == "ln" else x
+
+    t0 = time.perf_counter()
+    nbytes = write_safetensors(torch, os.path.join(d, "model.safetensors"), hf_tensor_specs(hf), make)
+    return dict(dir=d, source=source, bytes=nbytes, write_s=time.perf_counter() - t0)
+
+
+def hf_load(torch, d: str, dtype, device, **overrides) -> tuple:
+    """``load_hf_checkpoint`` of ``d``, with its seconds (read, to the device, convert) and the weight bytes."""
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+
+    t0 = time.perf_counter()
+    model, params = lc.load_hf_checkpoint(d, dtype=dtype, device=device, **overrides)
+    wall = time.perf_counter() - t0
+    return model, params, dict(load_s=wall, **lc.last_load, weight_bytes=tree_bytes(params))
+
+
+def hf_engine(torch, model, params, device: str, dtype: str, max_context: int):
+    """The parity runs' v2 engine: KV blocks of 128 in a 2 GB pool."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedBatchConfig, RaggedInferenceEngineConfig
+
+    return InferenceEngineV2(model, params, RaggedInferenceEngineConfig(
+        state_manager=RaggedBatchConfig(max_context=max_context, kv_block_size=128, memory_gb=2.0),
+        dtype=dtype, device=device))
+
+
+def rel_err(torch, got, want) -> float:
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def hf_parity(torch, dev, run: str, d: str) -> dict:
+    """The run at ``HF_PARITY_LAYERS`` layers in fp32 (``num_hidden_layers`` overridden at load): a prefill of
+    two prompts and a decode step through the v2 engine with the card's kernels against the port's CPU route
+    (the plain versions) on the same directory, within ``HF_PARITY_TOL`` relative; then greedy tokens of four
+    prompts, 16 new each, in bf16 on the card beside fp32 on the CPU (how many agree)."""
+    import numpy as np
+
+    model, params, _ = hf_load(torch, d, torch.float32, "cpu", n_layers=HF_PARITY_LAYERS)
+    cfg = model.cfg
+    wave1, _ = serving_prompts(np, cfg.vocab_size, 1500)
+    prompts = [wave1[0][:16], wave1[2][:300], wave1[3][:64], wave1[4][:40]]
+    engines = {"cpu": hf_engine(torch, model, params, "cpu", "float32", 1024),
+               "card": hf_engine(torch, model, params, str(dev), "float32", 1024)}
+    got = {}
+    for name, eng in engines.items():
+        pre = np.asarray(eng.put([0, 1], prompts[:2]))
+        nxt = [[int(t)] for t in pre.argmax(-1)]
+        got[name] = (pre, np.asarray(eng.put([0, 1], nxt)))
+        eng.flush([0, 1])
+    errs = dict(prefill=rel_err(torch, got["card"][0], got["cpu"][0]),
+                decode=rel_err(torch, got["card"][1], got["cpu"][1]))
+    fp32_cpu = engines["cpu"].generate(prompts, max_new_tokens=16)
+    fp32_card = engines["card"].generate(prompts, max_new_tokens=16)
+    del engines
+    gc.collect()
+    bf16 = hf_engine(torch, model, params, str(dev), "bfloat16", 1024).generate(prompts, max_new_tokens=16)
+    rec = dict(phase="serve_hf parity", run=run, layers=HF_PARITY_LAYERS, dtype="float32", tol=HF_PARITY_TOL,
+               max_rel_err=errs, fp32_card_tokens_agree=agreement(fp32_card, fp32_cpu),
+               bf16_card_tokens_agree=agreement(bf16, fp32_cpu))
+    log(rec)
+    if not max(errs.values()) <= HF_PARITY_TOL:
+        raise AssertionError(f"serve_hf {run}: fp32 logits on the card differ from the CPU route: {errs}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hf_bert(torch, dev, counters, d: str) -> dict:
+    """bert_base through ``init_inference(<directory>)`` (the v1 engine; the encoder forward, the flash
+    forward non-causal at D 64): a bf16 forward of ``HF_BERT_BATCH`` tokens with the counters zeroed just before
+    and read after (12 layers: 12 flash launches), logits finite and of (B, S, vocab); then the 2-layer fp32
+    forward on the card against the CPU route on the same directory, and token types that change the output."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+
+    B, S = HF_BERT_BATCH
+    V = HF_CONFIGS["bert_base"][1]["vocab_size"]
+    ids = np.random.default_rng(1).integers(0, V, (B, S))
+    t0 = time.perf_counter()
+    engine = dst.init_inference(d, {"dtype": "bf16", "device": str(dev)})
+    load_s = time.perf_counter() - t0
+    engine.forward(ids[:, :16])  # warm-up
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits = engine.forward(ids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rec = dict(phase="serve_hf", run="bert_base", source=HF_CONFIGS["bert_base"][0], layers=12,
+               tokens=B * S, forward_s=wall, tokens_per_s=B * S / wall, load_s=load_s, **lc.last_load,
+               weight_bytes=tree_bytes(engine.params), launches=launches, shape=list(logits.shape),
+               finite=bool(torch.isfinite(logits).all()))
+    del engine, logits
+    gc.collect()
+    model, params = lc.load_hf_checkpoint(d, device="cpu", n_layers=HF_PARITY_LAYERS)
+    cpu = dst.init_inference(model, {"dtype": "fp32", "device": "cpu"}, params=params)
+    model, params = lc.load_hf_checkpoint(d, device=str(dev), n_layers=HF_PARITY_LAYERS)
+    card = dst.init_inference(model, {"dtype": "fp32", "device": str(dev)}, params=params)
+    tti = np.zeros_like(ids[:2, :64])
+    tti[:, 32:] = 1
+    want = cpu.forward(ids[:2, :64], token_type_ids=tti)
+    got = card.forward(ids[:2, :64], token_type_ids=tti)
+    rec["parity"] = dict(layers=HF_PARITY_LAYERS, dtype="float32", tol=HF_PARITY_TOL,
+                         max_rel_err=rel_err(torch, got, want),
+                         token_types_change_output=rel_err(torch, card.forward(ids[:2, :64]), got) > 1e-3)
+    log(rec)
+    if not (rec["finite"] and rec["shape"] == [B, S, V] and launches.get("flash_fwd") == 12
+            and rec["parity"]["max_rel_err"] <= HF_PARITY_TOL and rec["parity"]["token_types_change_output"]):
+        raise AssertionError(f"serve_hf bert_base: {rec}")
+    del cpu, card, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hf_v1(torch, dev, d: str, prompt: list) -> dict:
+    """``init_inference(<directory>)`` (the v1 engine, bf16) and a greedy ``generate`` of ``prompt``, 8 new
+    tokens, which must be in the vocabulary."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+
+    t0 = time.perf_counter()
+    engine = dst.init_inference(d, {"dtype": "bf16", "device": str(dev), "max_out_tokens": 128})
+    load_s = time.perf_counter() - t0
+    ids = np.asarray([prompt])
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=8)[0, ids.shape[1]:].tolist()
+    torch.cuda.synchronize()
+    rec = dict(load_s=load_s, generate_s=time.perf_counter() - t0, tokens=out)
+    vocab = engine.module.cfg.vocab_size
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(out) != 8 or not all(0 <= t < vocab for t in out):
+        raise AssertionError(f"serve_hf v1: {out} are not 8 in-vocab tokens")
+    return rec
+
+
+def hf_counters(pa, norms) -> dict:
+    """The kernels each decoder run of serve_hf must launch: the paged pair and its norm."""
+    paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
+    return {"phi_2": paged + [norms.layer_norm], "gemma_2b": paged + [norms.rms_norm],
+            "falcon_7b_4l": paged + [norms.layer_norm]}
+
+
+def phase_serve_hf(torch, dev, counters: dict, flash_fwd) -> dict:
+    """serve_hf: Hugging Face directories written here (the published config.json, random bf16 weights from a
+    seed), loaded through ``load_hf_checkpoint`` + ``InferenceEngineV2`` and served as the serve phase serves
+    llama3_8b (phi_2 and gemma_2b at full width and depth, falcon_7b_4l at 4 of 32 layers; their runs in
+    ``SERVE_RUNS``: the launch counts, graphs against eager steps); phi_2 also through ``init_inference(<path>)``;
+    each decoder at 2 layers in fp32 against the CPU route (``hf_parity``); bert_base through the v1 engine
+    (``hf_bert``). Each directory is deleted after its run."""
+    import shutil
+
+    import numpy as np
+
+    out = {}
+    for run in ("phi_2", "gemma_2b", "falcon_7b_4l"):
+        t0 = time.perf_counter()
+        ck = write_hf_checkpoint(torch, dev, run)
+        log(dict(phase="serve_hf write", run=run, **ck))
+        rec = phase_serve(torch, dev, counters[run], run, hf_dir=ck["dir"])
+        if run == "phi_2":
+            wave1, _ = serving_prompts(np, HF_CONFIGS[run][1]["vocab_size"], 1500)
+            v1 = hf_v1(torch, dev, ck["dir"], wave1[1][:64])
+            log(dict(phase="serve_hf v1", run=run, **v1))
+        rec["parity"] = hf_parity(torch, dev, run, ck["dir"])
+        shutil.rmtree(ck["dir"], ignore_errors=True)
+        rec["seconds"] = time.perf_counter() - t0
+        log(dict(phase="serve_hf run", run=run, seconds=rec["seconds"]))
+        out[run] = rec
+    t0 = time.perf_counter()
+    ck = write_hf_checkpoint(torch, dev, "bert_base")
+    out["bert_base"] = hf_bert(torch, dev, [flash_fwd], ck["dir"])
+    shutil.rmtree(ck["dir"], ignore_errors=True)
+    log(dict(phase="serve_hf run", run="bert_base", seconds=time.perf_counter() - t0))
+    return out
+
+
+# The paged kernels at the Hugging Face families' heads: (H, KVH, D) and the block table of the model's context
+HF_GEOMS = {
+    "phi_2": dict(H=32, KVH=32, D=80, bs=128, P=16),          # microsoft/phi-2, 2,048 positions
+    "phi_3_mini": dict(H=32, KVH=32, D=96, bs=128, P=32),     # microsoft/Phi-3-mini-4k-instruct, 4,096
+    "gemma_2b": dict(H=8, KVH=1, D=256, bs=128, P=64),        # google/gemma-2b, 8,192
+    "gemma_7b": dict(H=16, KVH=16, D=256, bs=128, P=64),      # google/gemma-7b, 8,192
+    "falcon_7b": dict(H=71, KVH=1, D=64, bs=128, P=16),       # tiiuae/falcon-7b, 2,048
+}
+# The norms at serve_hf's widths: phi-2's and falcon-7b's LayerNorm (weights in x's type, as loaded), gemma-2b's
+# RMSNorm with its (1 + w) weight in fp32
+HF_NORMS = {
+    "phi_2": (phase_layer_norm, dict(d=2560)),
+    "falcon_7b": (phase_layer_norm, dict(d=4544)),
+    "gemma_2b": (phase_rms, dict(d=2048, offset=True)),
+}
+
+
+def run_hf_kernel_phases(torch, dev, quick: bool) -> list:
+    """Paged decode (B 64, and cold at B 8) and prefill (2 x 512, and cold at 2 x 16) at each ``HF_GEOMS``
+    shape on bf16 and int8 pools, with ALiBi and with a window at B 64 and 2 x 512, as the llama3_8b phases;
+    bf16 q (the serving path; the fp32 bodies are held by ``hf_parity``). Then the norms at the families'
+    widths (``HF_NORMS``), 8 and 768 rows, bf16 and fp32."""
+    iters = 5 if quick else 20
+    norm_cases = [lambda dt, fn=fn, T=T, kw=kw, m=m: dict(fn(torch, dev, dt, T, iters, **kw), hf_shape=m)
+                  for m, (fn, kw) in HF_NORMS.items() for T in ((768,) if quick else (8, 768))]
+    cases = []
+    for name, geom in HF_GEOMS.items():
+        for int8 in (False, True):
+            sizes = [(phase_decode, 64, "none"), (phase_prefill, 512, "none")] if quick else [
+                (phase_decode, 8, "none"), (phase_decode, 64, "none"), (phase_prefill, 16, "none"),
+                (phase_prefill, 512, "none")] + [(fn, n, f) for f in ("alibi", "window")
+                                                 for fn, n in ((phase_decode, 64), (phase_prefill, 512))]
+            cases += [lambda dt, fn=fn, n=n, f=f, g=geom, q8=int8, m=name: dict(
+                fn(torch, dev, dt, n, iters, g, int8=q8, feature=f), hf_shape=m) for fn, n, f in sizes]
+            if quick:
+                break
+    return run_cases(torch, cases, dtypes=(torch.bfloat16,)) + run_cases(torch, norm_cases)
+
+
 CSRC, TPU_OPS = "deepspeed_tpu_torch/csrc/", "deepspeed_tpu/ops/"
 # The kernels line: name, the run whose launches are read, the wrapper counted, the dtype and the
 # fields (matched by their start) of the record that represents the kernel, its source, the TPU kernel.
@@ -4810,10 +5229,10 @@ def tp_params(torch, cfg, dev, dtype, rank, seed=0):
     each leaf cut at once to rank ``rank``'s slice at tp = 2 under the serving engine's rules (the
     column-parallel biases too); and the tree of specs."""
     from deepspeed_tpu_torch.models.transformer import _init_leaf, param_shapes
-    from deepspeed_tpu_torch.module_inject.load_checkpoint import (SERVING_BIAS_RULES, get_tp_rules, leaf_spec,
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import (SERVING_BIAS_RULES, leaf_spec, model_tp_rules,
                                                                    shard_leaf)
 
-    rules = get_tp_rules(cfg) + SERVING_BIAS_RULES
+    rules = model_tp_rules(cfg) + SERVING_BIAS_RULES
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def build(tree, keys):
@@ -5128,11 +5547,12 @@ PAR = 2  # ranks: two processes on the one card over gloo (NCCL takes one GPU a 
 PAR_TIMEOUT_S = 600
 # the steps of (a) and of (b) / (c) are cut for the whole script's time limit
 PIPE_FP32 = dict(layers=4, steps=2)  # (a) fp32 parity at gpt2_1_3b's widths
-PIPE_STEPS = 4  # (b), (c): gpt2_1_3b at full depth, steps TIMED_FROM+1.. timed
+PIPE_STEPS = 3  # (b), (c): gpt2_1_3b at full depth, steps TIMED_FROM+1.. timed (4 in PR 26, 6 before)
 PIPE_MICRO = 2  # the train phase's 8-row batch as M = 4 micro-batches of 2 rows
 SEQ_FP32 = dict(layers=1, tokens=2048, steps=2)  # (a) fp32 parity at llama3_8b's widths
-# (b) one row of 8,192 tokens; two full-depth replicas do not fit; 2 steps (the whole script's time limit)
-SEQ_BF16 = dict(layers=2, tokens=8192, steps=2)
+# (b) one row of 8,192 tokens; two full-depth replicas do not fit; 2 steps and 1 layer (the whole script's time
+# limit; 2 layers until the Hugging Face phases came)
+SEQ_BF16 = dict(layers=1, tokens=8192, steps=2)
 SKETCH_K = 4
 # fp32: losses, the grad norm and the whole tree of masters within 1e-5 relative, each leaf within 2 % of its
 # travel (as the CPU parity tests hold ZeRO); bf16: each step's loss within 1 % of one process's
@@ -5518,9 +5938,9 @@ def phase_train_pipe(torch, dev, card: str, want=None) -> dict:
 
 def phase_train_seq(torch, dev, card: str) -> dict:
     """Sequence parallelism at seq 2 (Ulysses) and context 2 (ring) as two processes on the one card: (a)
-    llama3_8b widths at 1 layer and 2,048 tokens in fp32 against the one-process engine; (b) at 2 layers, one
-    row of 8,192 tokens in bf16 with FusedAdam, 2 steps each, against the one-process engine at the same
-    tokens. Returns the Ulysses run's launches (rank 0's) and the records."""
+    llama3_8b widths at 1 layer and 2,048 tokens in fp32 against the one-process engine; (b) at 1 layer
+    (``SEQ_BF16``), one row of 8,192 tokens in bf16 with FusedAdam, 2 steps each, against the one-process engine
+    at the same tokens. Returns the Ulysses run's launches (rank 0's) and the records."""
     import itertools
 
     import numpy as np
@@ -5574,9 +5994,9 @@ def phase_train_seq(torch, dev, card: str) -> dict:
 
 # ---------------------------------------------------------------- tensor-parallel training (two or four ranks)
 TP_FP32 = dict(layers=2, steps=2, gpt2_rows=2, llama_tokens=2048)  # (a) fp32 parity at tensor 2
-# (b) gpt2_1_3b at full depth in bf16, train's micro-batch on both ranks; steps TIMED_FROM+1.. timed (4, not 6:
-# the whole script's time limit)
-TP_STEPS = 4
+# (b) gpt2_1_3b at full depth in bf16, train's micro-batch on both ranks; steps TIMED_FROM+1.. timed (3: the whole
+# script's time limit; 6 before PR 26, 4 in it)
+TP_STEPS = 3
 TP_PIPE = dict(layers=4, steps=2)  # (c) pipe 2 x tensor 2, four processes, fp32
 TP_MODELS = ("gpt2_1_3b", "llama3_8b")
 TP_OPTIMIZERS = ("FusedAdam", "Lamb")
@@ -5902,7 +6322,12 @@ def main(argv) -> int:
                   "train_moe": lambda: phase_train_moe(torch, dev, tc), "serve_tp": lambda: phase_serve_tp(torch, dev),
                   "train_pipe": lambda: phase_train_pipe(torch, dev, card),
                   "train_seq": lambda: phase_train_seq(torch, dev, card),
-                  "train_tp": lambda: phase_train_tp(torch, dev, card)}
+                  "train_tp": lambda: phase_train_tp(torch, dev, card),
+                  "serve_hf": lambda: phase_serve_hf(torch, dev, hf_counters(pa, norms), fa.flash_fwd),
+                  "hf_kernels": lambda: run_hf_kernel_phases(torch, dev, False),
+                  "train_kernels": lambda: run_train_kernel_phases(torch, dev, False),
+                  "sla": lambda: phase_sla(torch, dev, [pa.paged_attention_decode, pa.paged_attention_prefill,
+                                                        norms.rms_norm])}
         for name in only:
             t0 = time.perf_counter()
             phases[name]()
@@ -5910,10 +6335,21 @@ def main(argv) -> int:
         return 0
     paged = [pa.paged_attention_decode, pa.paged_attention_prefill]
     counters = paged + [norms.rms_norm]
+    t0 = time.perf_counter()
     records = run_kernel_phases(torch, dev, quick)
+    log(dict(phase="kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    records += run_hf_kernel_phases(torch, dev, quick)
+    log(dict(phase="hf kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     quant_records = run_quant_kernel_phases(torch, dev, quick)
+    log(dict(phase="quantised serving kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     records += run_train_kernel_phases(torch, dev, quick)
+    log(dict(phase="train kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     records += run_evo_kernel_phases(torch, dev, quick)
+    log(dict(phase="evo kernels", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     records += run_sparse_kernel_phases(torch, dev, quick)
     log(dict(phase="sparse kernels", seconds=time.perf_counter() - t0))
@@ -5929,12 +6365,16 @@ def main(argv) -> int:
     if quick:
         log(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return 0
+    t0 = time.perf_counter()
     for model in ("llama3_8b", "gpt2_1_3b"):
         for dtype in (torch.float32, torch.bfloat16):
             phase_step_parity(torch, dev, dtype, model)
     for dtype in (torch.float32, torch.bfloat16):
         phase_step_parity(torch, dev, dtype, "mixtral_8x7b", n_layers=2)
+    log(dict(phase="step_parity", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     serve = phase_serve(torch, dev, counters, "llama3_8b", profile, keep_params=True)
+    log(dict(phase="serve", seconds=time.perf_counter() - t0))
     params = serve.pop("params")
     t0 = time.perf_counter()
     phase_serve_spec(torch, dev, counters, params)
@@ -5944,7 +6384,9 @@ def main(argv) -> int:
     phase_telemetry(torch, dev, counters, params)
     del params
     log(dict(phase="telemetry", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     phase_serve(torch, dev, counters, "llama3_8b_cache16", profile, want=serve["tokens"])
+    log(dict(phase="serve_cache16", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     phase_serve(torch, dev, counters, "llama3_8b_unfused", profile, beside=serve["tokens"])
     log(dict(phase="serve_unfused", seconds=time.perf_counter() - t0))
@@ -5959,12 +6401,19 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     serve_moe = phase_serve(torch, dev, counters + [mg.moe_grouped_gemm], "mixtral_8x7b_8l", profile)
     log(dict(phase="serve moe", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     serve_w8 = phase_serve(torch, dev, paged + [norms.layer_norm, qm.quantized_matmul], "gpt2_1_3b_w8_kv8", profile)
     serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
+    log(dict(phase="serve quantised", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    serve_hf = phase_serve_hf(torch, dev, hf_counters(pa, norms), fa.flash_fwd)
+    log(dict(phase="serve_hf", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_parity(torch, dev, dtype, train_counters)
     train = phase_train(torch, dev, counters + train_counters, profile)
+    log(dict(phase="train", seconds=time.perf_counter() - t0))
     if PARENT["lib"] is not None:  # the same paths on the parent's kernels, for comparison only
         log(dict(phase="parent kernels", begin=True))
         with parent_kernels():
@@ -5974,8 +6423,10 @@ def main(argv) -> int:
             phase_serve(torch, dev, counters + [mg.moe_grouped_gemm], "mixtral_8x7b_8l", profile)
             phase_train(torch, dev, counters + train_counters, profile)
         log(dict(phase="parent kernels", begin=False))
+    t0 = time.perf_counter()
     evoformer = phase_evoformer(torch, dev, [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dq_collapsed,
                                              fa.flash_bwd_dkv], profile)
+    log(dict(phase="evoformer", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     sparse = phase_sparse(torch, dev, [ss.sparse_fwd, ss.sparse_bwd_dq, ss.sparse_bwd_dkv])
     log(dict(phase="sparse", seconds=time.perf_counter() - t0))
@@ -6043,6 +6494,14 @@ def main(argv) -> int:
             row["train_tp_launches"] = train_tp["launches"][spec[2]]
         if spec[1] == "train_lamb" and spec[2] in train_tp["lamb_launches"]:
             row["train_tp_launches"] = train_tp["lamb_launches"][spec[2]]
+    for row, spec in zip(kernels, KERNEL_ROWS):  # the Hugging Face checkpoints' launches, run by run
+        hf = {run: rec["launches"][spec[2]] for run, rec in serve_hf.items() if spec[2] in rec["launches"]}
+        if hf and "int8 pool" not in row["name"]:
+            row["serve_hf_launches"] = hf
+    log({"hf_kernel_shapes": [{k: r.get(k) for k in ("kernel", "hf_shape", "dtype", "pool", "shape", "features",
+                                                    "kernel_ms", "kernel_cold_ms", "bound_ms", "bound_by", "library_ms",
+                                                    "library_cold_ms", "plain_ms", "max_rel_err")}
+                              for r in records if r.get("hf_shape")]})
     log(dict(phase="done", seconds=time.perf_counter() - t_start, card=card))
     log({"host_code": host_code_rows(host, offload)})
     log({"kernels": kernels})

@@ -1,6 +1,8 @@
 // Definitions shared by the paged attention kernels: paged_attention.cu (the C
-// entry points and the float32 bodies), paged_decode.cu (the bfloat16 decode
-// and the fixed-order combine of split partials) and paged_prefill.cu (the
+// entry points and the float32 bodies of paged_fp32.cuh; paged_attention_wide.cu
+// the latter at D 80, 96, 256), paged_decode.cu (the bfloat16 decode of
+// paged_decode.cuh and the fixed-order combine of split partials;
+// paged_decode_wide.cu the decode at D 80, 96, 256) and paged_prefill.cu (the
 // bfloat16 chunked prefill).
 //
 // The pool layout is the reference's: k/v pages (N, bs, KVH, D) of q's type,
@@ -48,5 +50,10 @@ int paged_decode_bf16(const PagedArgs& a, cudaStream_t stream);
 int paged_prefill_bf16(const PagedArgs& a, cudaStream_t stream);
 // Merge the split partials of `rows` output rows, in split order, into a.out (bf16).
 int paged_combine_bf16(const PagedArgs& a, int rows, cudaStream_t stream);
+// The bodies at D 80, 96 and 256, each in a translation unit of its own (paged_decode_wide.cu,
+// paged_attention_wide.cu); kUnsupported for another D.
+int paged_decode_bf16_wide(const PagedArgs& a, cudaStream_t stream);
+int paged_decode_fp32_wide(const PagedArgs& a, cudaStream_t stream);
+int paged_prefill_fp32_wide(const PagedArgs& a, cudaStream_t stream);
 
 }  // namespace dstorch

@@ -14,9 +14,12 @@
 // fp32 FMA loops through shared memory (55x the bound).
 //
 // The design (flash_fwd.cu's, on mma.sync, over pages):
-// - Rows. A block owns 64 score rows of one KV head, 4 warps of 16, packed
-//   as row r = query position s0 + r / G and head h G + r % G, so each K/V
-//   tile feeds all G heads of its KV head. S = Q K^T and O += P V are mma.sync
+// - Rows. A block owns 64 score rows of one KV head, 4 warps of 16. The
+//   chunk's S G score rows of KV head h are packed as flat row f = s G + g
+//   (query position s, head h G + g), and row tile t holds f in
+//   [64 t, 64 t + 64): each K/V tile feeds every head of its rows. A group
+//   larger than 64 (falcon-7b's 71 heads on one KV head) spans two tiles a
+//   query, and a group that does not divide 64 packs without holes. S = Q K^T and O += P V are mma.sync
 //   m16n8k16 products (bf16 in, fp32 accumulate) through ldmatrix; S, P and O
 //   stay in registers, and P goes from the S accumulator to the A operand as
 //   bf16 pairs.
@@ -50,6 +53,10 @@
 //   block's key tiles round-robin to `splits` blocks, which write fp32
 //   partials (m, l, acc) that paged_combine_kernel (paged_decode.cu) merges
 //   in split order.
+// - Head dims: D in {64, 80, 96, 128, 256}: D / 16 k-steps of Q K^T (5 and 6
+//   at D 80 and 96) and D / 8 n-blocks of O. At D 256 the tiles take 169 KB of
+//   shared memory (Q, two stages of K and V) and O 128 fp32 registers a lane:
+//   one block an SM.
 // Not yet: wgmma, TMA, a persistent grid.
 #include "mma.cuh"
 #include "paged.cuh"
@@ -87,13 +94,15 @@ __device__ __forceinline__ void codes_to_bf16(uint32_t w, uint32_t& lo, uint32_t
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
 }
 
-// Block x = (((n_qt - 1 - query tile) B + b) KVH + h) splits + split: the last query tiles first.
+// Block x = (((n_rt - 1 - row tile) B + b) KVH + h) splits + split: the last row tiles first.
 template <typename KT, int D, bool ALIBI, bool WINDOW>
-__global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a, int n_qt) {
+__global__ void __launch_bounds__(kNT, D > 128 ? 1 : 2) paged_prefill_kernel(const PagedArgs a, int n_rt) {
   using Geo = PrefillGeo<D>;
   constexpr bool Q8 = sizeof(KT) == 1;
   constexpr int LD = Geo::LD, KD = D / 16, NS = kBN / 8, NO = D / 8, VPR = D / 8;
-  constexpr int C8 = kBN * (D / 16) / kNT;  // 16-code chunks a thread moves per tile and tensor (int8 pools)
+  static_assert(D % 16 == 0 && NO % 2 == 0, "whole k-steps of 16 and pairs of n8 blocks");
+  constexpr int NCH = kBN * (D / 16);       // 16-code chunks of a tile and tensor (int8 pools)
+  constexpr int C8 = (NCH + kNT - 1) / kNT;  // of them a thread moves
   constexpr bool FOLD = !ALIBI;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -109,17 +118,16 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
   const int h = x % a.KVH;
   x /= a.KVH;
   const int b = x % a.B;
-  const int qt = n_qt - 1 - x / a.B;
+  const int rt = n_rt - 1 - x / a.B;
   const int G = a.H / a.KVH;
-  const int QT = kBM / G;                   // query positions a block
-  const int s0 = qt * QT;                   // the block's first query of the chunk
-  const int nq = min(QT, a.S - s0);
-  const int rows_valid = nq * G;            // score rows that are real (row r: query s0 + r / G, head h G + r % G)
+  const int r0 = rt * kBM;                  // the first flat row: row r is query (r0 + r) / G, head (r0 + r) % G
+  const int rows_valid = min(kBM, a.S * G - r0);  // score rows that are real
   const int ctx = min(max(a.ctx[b], 0), a.P * a.bs);
-  const int q0 = a.qpos0[b] + s0;           // absolute position of the block's first query
+  const int qb = a.qpos0[b];                // absolute position of the chunk's query 0
+  const int q0 = qb + r0 / G;               // of the block's first query
   const int wr = 16 * warp;                 // the warp's first row
   const bool warp_live = wr < rows_valid;
-  const int qp_lo = q0 + wr / G, qp_hi = q0 + min(wr + 15, rows_valid - 1) / G;
+  const int qp_lo = qb + (r0 + wr) / G, qp_hi = qb + (r0 + min(wr + 15, rows_valid - 1)) / G;
   const float scale = a.scale, scale2 = a.scale * kLog2e;
   const int window = WINDOW ? a.window : 0;
 
@@ -128,13 +136,13 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
   float sl[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = wr + g8 + 8 * i;
-    qp[i] = q0 + r / G;
-    if constexpr (ALIBI) sl[i] = a.slopes[h * G + r % G];
+    const int f = r0 + wr + g8 + 8 * i;
+    qp[i] = qb + f / G;
+    if constexpr (ALIBI) sl[i] = a.slopes[h * G + f % G];
   }
 
   // the key tiles any row of the block sees, and this split's share: kt_begin + js, + splits, ...
-  const int last = min(ctx, q0 + nq) - 1;
+  const int last = min(ctx, qb + (r0 + rows_valid - 1) / G + 1) - 1;
   const int kt_end = last < 0 ? 0 : last / kBN + 1;
   const int kt_begin = WINDOW ? max(q0 - window + 1, 0) / kBN : 0;
   const int span = kt_end - kt_begin - js;
@@ -147,7 +155,8 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
   for (int i = tid; i < kBM * VPR; i += kNT) {
     const int r = i / VPR, c = (i % VPR) * 8;
     const bool ok = r < rows_valid;
-    const size_t src = ((static_cast<size_t>(b) * a.S + s0 + r / G) * a.H + h * G + r % G) * D + c;
+    const int f = r0 + r;
+    const size_t src = ((static_cast<size_t>(b) * a.S + f / G) * a.H + h * G + f % G) * D + c;
     cp_async16(sQ + r * LD + c, ok ? q + src : q, ok ? 16 : 0);
   }
   cp_async_commit();
@@ -177,7 +186,7 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
     for (int i = 0; i < C8; ++i) {
       const int idx = tid + i * kNT, r = idx / (D / 16), c = (idx % (D / 16)) * 16;
       ck[i] = cv[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < ctx) {
+      if (idx < NCH && k0 + r < ctx) {
         const size_t off = slot_of(k0 + r) * D + c;
         ck[i] = __ldg(reinterpret_cast<const uint4*>(reinterpret_cast<const int8_t*>(kp) + off));
         cv[i] = __ldg(reinterpret_cast<const uint4*>(reinterpret_cast<const int8_t*>(vp) + off));
@@ -194,6 +203,7 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
 #pragma unroll
     for (int i = 0; i < C8; ++i) {
       const int idx = tid + i * kNT, r = idx / (D / 16), c = (idx % (D / 16)) * 16;
+      if (idx >= NCH) break;
       const uint32_t kw[4] = {ck[i].x, ck[i].y, ck[i].z, ck[i].w}, vw[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
       uint32_t ko[8], vo[8];
 #pragma unroll
@@ -366,7 +376,8 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
     const int row = wr + g8 + 8 * r;
     const float l = quad_sum(l_r[r]);
     if (row >= rows_valid) continue;
-    const size_t orow = (static_cast<size_t>(b) * a.S + s0 + row / G) * a.H + h * G + row % G;
+    const int f = r0 + row;
+    const size_t orow = (static_cast<size_t>(b) * a.S + f / G) * a.H + h * G + f % G;
     if (a.splits == 1) {
       const float inv = 1.f / (l == 0.f ? 1.f : l);  // a row that sees no key writes zeros
       bf16* o = out + orow * D;
@@ -391,38 +402,47 @@ __global__ void __launch_bounds__(kNT, 2) paged_prefill_kernel(const PagedArgs a
 }
 
 template <typename KT, int D, bool ALIBI, bool WINDOW>
-int launch_prefill(const PagedArgs& a, int n_qt, cudaStream_t stream) {
+int launch_prefill(const PagedArgs& a, int n_rt, cudaStream_t stream) {
   auto kernel = paged_prefill_kernel<KT, D, ALIBI, WINDOW>;
   const cudaError_t attr = allow_smem(kernel, PrefillGeo<D>::smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long blocks = static_cast<long long>(n_qt) * a.B * a.KVH * a.splits;
+  const long long blocks = static_cast<long long>(n_rt) * a.B * a.KVH * a.splits;
   if (blocks > 0x7fffffffLL) return kUnsupported;
-  kernel<<<static_cast<unsigned>(blocks), kNT, PrefillGeo<D>::smem, stream>>>(a, n_qt);
+  kernel<<<static_cast<unsigned>(blocks), kNT, PrefillGeo<D>::smem, stream>>>(a, n_rt);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   return paged_combine_bf16(a, a.B * a.S * a.H, stream);
 }
 
 template <typename KT, int D>
-int prefill_by_features(const PagedArgs& a, int n_qt, cudaStream_t s) {
+int prefill_by_features(const PagedArgs& a, int n_rt, cudaStream_t s) {
   const bool alibi = a.slopes != nullptr, window = a.window > 0;
-  if (alibi && window) return launch_prefill<KT, D, true, true>(a, n_qt, s);
-  if (alibi) return launch_prefill<KT, D, true, false>(a, n_qt, s);
-  if (window) return launch_prefill<KT, D, false, true>(a, n_qt, s);
-  return launch_prefill<KT, D, false, false>(a, n_qt, s);
+  if (alibi && window) return launch_prefill<KT, D, true, true>(a, n_rt, s);
+  if (alibi) return launch_prefill<KT, D, true, false>(a, n_rt, s);
+  if (window) return launch_prefill<KT, D, false, true>(a, n_rt, s);
+  return launch_prefill<KT, D, false, false>(a, n_rt, s);
+}
+
+template <int D>
+int prefill_by_pool(const PagedArgs& a, int n_rt, cudaStream_t s) {
+  return a.kscale != nullptr ? prefill_by_features<int8_t, D>(a, n_rt, s) : prefill_by_features<bf16, D>(a, n_rt, s);
 }
 
 }  // namespace
 
 int paged_prefill_bf16(const PagedArgs& a, cudaStream_t s) {
-  const int G = a.H / a.KVH;
-  if (G > kBM || a.splits < 1 || (a.splits > 1 && a.ws == nullptr) || !aligned16(a.q)) return kUnsupported;
-  const int QT = kBM / G;
-  const int n_qt = (a.S + QT - 1) / QT;
-  const bool q8 = a.kscale != nullptr;
-  if (a.D == 128) return q8 ? prefill_by_features<int8_t, 128>(a, n_qt, s) : prefill_by_features<bf16, 128>(a, n_qt, s);
-  if (a.D == 64) return q8 ? prefill_by_features<int8_t, 64>(a, n_qt, s) : prefill_by_features<bf16, 64>(a, n_qt, s);
-  return kUnsupported;
+  const long long rows = static_cast<long long>(a.S) * (a.H / a.KVH);  // score rows a (row, KV head)
+  if (rows > 0x7fffffffLL || a.splits < 1 || (a.splits > 1 && a.ws == nullptr) || !aligned16(a.q))
+    return kUnsupported;
+  const int n_rt = static_cast<int>((rows + kBM - 1) / kBM);
+  switch (a.D) {
+    case 64: return prefill_by_pool<64>(a, n_rt, s);
+    case 80: return prefill_by_pool<80>(a, n_rt, s);
+    case 96: return prefill_by_pool<96>(a, n_rt, s);
+    case 128: return prefill_by_pool<128>(a, n_rt, s);
+    case 256: return prefill_by_pool<256>(a, n_rt, s);
+    default: return kUnsupported;
+  }
 }
 
 }  // namespace dstorch

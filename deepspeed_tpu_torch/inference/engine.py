@@ -30,8 +30,14 @@ device's, as ``test_v1_weight_only_quant_tp2`` asks. Each forward then
 dequantises them and keeps this rank's slice of the dense weights, so a
 rank holds the whole codes (not a shard) at rest.
 
-A model given as a checkpoint path or a Hugging Face module
-(``module_inject``'s loaders) raises ``NotImplementedError``.
+``init_inference`` also takes a Hugging Face checkpoint directory or a
+live Hugging Face torch model (JAX ``engine.py:127-152``): the config's
+dtype string (``bf16`` by default; ``fp16``, or anything else for fp32, as
+JAX maps them) is the loaded tree's, read by ``module_inject``'s
+``load_hf_checkpoint`` / ``load_hf_model`` onto the config's device. At
+``tp_size`` above 1 each rank loads the whole checkpoint and keeps its
+slice of each leaf (the whole tree when ``quant.enabled``, whose flat
+codes are one device's). fp16 loads, and then raises at the kernels.
 """
 
 import logging
@@ -41,7 +47,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..module_inject.load_checkpoint import SERVING_BIAS_RULES, get_tp_rules, shard_params
+from ..module_inject.load_checkpoint import SERVING_BIAS_RULES, model_tp_rules, shard_params, shard_to_rank
 from .config import DeepSpeedInferenceConfig
 from .generation import build_step_fns, generate_tokens
 from .quantization import dequantize_tree, quantize_model_params
@@ -102,14 +108,13 @@ class InferenceEngine:
 
     def __init__(self, model, config: Optional[DeepSpeedInferenceConfig] = None, params=None, mesh=None, **kwargs):
         """``model`` is a ``CausalLM``; ``params`` its nested parameter dict
-        (tensors or numpy arrays). Floating parameters are cast to the config
-        dtype and placed on the config device, then quantised there when
-        ``quant.enabled``."""
+        (tensors or numpy arrays; at ``tp_size`` > 1 each leaf whole or
+        already this rank's slice). Floating parameters are cast to the
+        config dtype and placed on the config device, then quantised there
+        when ``quant.enabled``. ``init_inference`` turns a checkpoint path or
+        a Hugging Face model into the two."""
         self._config = config if isinstance(config, DeepSpeedInferenceConfig) else \
             DeepSpeedInferenceConfig.from_dict(config or {})
-        if _is_hf(model):
-            raise NotImplementedError("a checkpoint path or a Hugging Face model needs module_inject, which is not "
-                                      "ported: pass a CausalLM and params=")
         tp = self._config.tensor_parallel.tp_size
         if mesh is not None:
             raise NotImplementedError("a mesh argument is not ported: the v1 engine builds its serving mesh from "
@@ -142,9 +147,9 @@ class InferenceEngine:
             return {k: walk(v) for k, v in node.items()} if isinstance(node, dict) else place(node)
 
         self.params = walk(params)
-        rules = get_tp_rules(model) + SERVING_BIAS_RULES if tp > 1 else None
+        rules = model_tp_rules(model) + SERVING_BIAS_RULES if tp > 1 else None
         if tp > 1 and not self._config.quant.enabled:
-            self.params = shard_params(self.params, tp_size=tp, rank=self._tp_ctx.rank, rules=rules)
+            self.params = shard_to_rank(self.params, model.cfg, rules, tp, self._tp_ctx.rank)[0]
         if tp > 1:  # the quantised tree stays whole (its flat codes are one device's): slice after each dequantise
             self.module = _TPModule(self.module, self._tp_ctx, rules if self._config.quant.enabled else None)
         self.quant_stats: Optional[Dict[str, int]] = None
@@ -178,10 +183,12 @@ class InferenceEngine:
                                eos_token_id=eos_token_id, seed=seed, fused=fused, device=self.device)
 
     @torch.no_grad()
-    def forward(self, input_ids, **kwargs) -> torch.Tensor:
-        """fp32 logits (B, S, V) of a whole sequence (no cache)."""
+    def forward(self, input_ids, token_type_ids=None, **kwargs) -> torch.Tensor:
+        """fp32 logits (B, S, V) of a whole sequence (no cache); an encoder
+        takes its ``token_type_ids`` (zeros by default)."""
         ids = torch.as_tensor(input_ids).to(self.device, torch.int64)
-        return self.module.apply(self.params, ids, train=False)
+        extra = {} if token_type_ids is None else {"token_type_ids": torch.as_tensor(token_type_ids).to(self.device)}
+        return self.module.apply(self.params, ids, train=False, **extra)
 
     __call__ = forward
 
@@ -196,12 +203,38 @@ class InferenceEngine:
         return self
 
 
+_HF_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "torch.bfloat16": torch.bfloat16,
+              "fp16": torch.float16, "half": torch.float16, "float16": torch.float16}
+
+
 def init_inference(model=None, config=None, **kwargs) -> InferenceEngine:
     """The reference's ``deepspeed.init_inference``: ``config`` is a dict or a
     ``DeepSpeedInferenceConfig`` (without one, the keyword arguments are the
-    config). A checkpoint path or a Hugging Face model raises
-    ``NotImplementedError`` (``module_inject`` is not ported)."""
+    config). ``model`` is a ``CausalLM`` with ``params=``, a Hugging Face
+    checkpoint directory or a live Hugging Face torch model; the last two
+    load through ``module_inject`` in the config's dtype (``bf16`` unless
+    given; ``fp16``; anything else fp32) on the config's device."""
     if config is None:
         config = kwargs
         kwargs = {}
+    if _is_hf(model):
+        from ..module_inject.load_checkpoint import load_hf_checkpoint, load_hf_model
+
+        cfg = config if isinstance(config, DeepSpeedInferenceConfig) else \
+            DeepSpeedInferenceConfig.from_dict(config or {})
+        dtype_str = (config.get("dtype") if isinstance(config, dict) else getattr(config, "dtype", None)) or "bf16"
+        dtype = _HF_DTYPES.get(str(dtype_str), torch.float32)
+        tp = cfg.tensor_parallel.tp_size
+        loader = load_hf_checkpoint if isinstance(model, str) else load_hf_model
+        model, params = loader(model, dtype=dtype, device=cfg.device, tp_size=1 if cfg.quant.enabled else tp,
+                               rank=_tp_rank(tp) if tp > 1 else 0)
+        kwargs.setdefault("params", params)
+        config = cfg
     return InferenceEngine(model, config=config, **kwargs)
+
+
+def _tp_rank(tp: int) -> int:
+    """This process's rank on the ``tensor`` axis of a serving mesh of ``tp``."""
+    from ..parallel.mesh import serving_mesh
+
+    return serving_mesh(tp).axis_rank("tensor")

@@ -426,33 +426,10 @@ class InferenceEngineV2:
         the column-parallel biases split too: ``SERVING_BIAS_RULES``) and the
         specs of the tree. A leaf that is already at its shard's shape is
         kept; any other shape than the whole or the shard's raises."""
-        from ...models.transformer import param_shapes
-        from ...module_inject.load_checkpoint import SERVING_BIAS_RULES, get_tp_rules, leaf_spec, shard_leaf
+        from ...module_inject.load_checkpoint import SERVING_BIAS_RULES, model_tp_rules, shard_to_rank
 
-        rules = get_tp_rules(self.model) + SERVING_BIAS_RULES
-        tp, rank = self._tp, self._mesh_topo.axis_rank("tensor")
-        shapes = param_shapes(self.cfg)
-
-        def walk(node, ref, keys):
-            if isinstance(node, dict):
-                out = {k: walk(v, ref.get(k) if isinstance(ref, dict) else None, keys + (str(k),))
-                       for k, v in node.items()}
-                return {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
-            if isinstance(node, QuantizedParam):
-                raise NotImplementedError(f"{'/'.join(keys)}: a quantised tree does not shard; give the engine "
-                                          "dense weights and quant_bits (it quantises after sharding)")
-            t = torch.as_tensor(node)
-            full = tuple(ref[0]) if isinstance(ref, tuple) else tuple(t.shape)
-            spec = leaf_spec(keys, full, rules, tp)
-            local = tuple(n // tp if i < len(spec) and spec[i] == "tensor" else n for i, n in enumerate(full))
-            if tuple(t.shape) == full:
-                return shard_leaf(t, spec, tp, rank), spec
-            if tuple(t.shape) == local:
-                return t, spec
-            raise ValueError(f"{'/'.join(keys)}: shape {tuple(t.shape)} is neither the whole {full} nor rank "
-                             f"{rank}'s shard {local} at tensor_parallel={tp}")
-
-        return walk(params, shapes, ())
+        rules = model_tp_rules(self.model) + SERVING_BIAS_RULES
+        return shard_to_rank(params, self.cfg, rules, self._tp, self._mesh_topo.axis_rank("tensor"))
 
     # ---------------------------------------------------------- feasibility
     def query(self, uid: int, max_request_length: int) -> Tuple[int, int]:

@@ -24,7 +24,12 @@ the column-parallel projections take their input through ``tp.copy``, the
 row-parallel ones sum over the group (``tp.reduce``) before their bias, and
 the loss is the vocab-parallel fused cross-entropy
 (``ops.fused_ce.vocab_parallel_cross_entropy``).
-``scan_layers``, progressive layer drop and the BERT heads are not ported
+The encoder family (BERT, DistilBERT; JAX ``Transformer.__call__``
+``:450-503``): token-type embeddings (``type_vocab_size``; ``type_emb``),
+post-LN blocks (``norm_scheme="post"``: no final norm), bidirectional
+attention (``causal=False``) and the MLM head (``mlm_head``: ``mlm_dense``,
+the activation and a norm before the tied decoder, which adds
+``mlm_bias``). ``scan_layers`` and progressive layer drop are not ported
 (they raise).
 """
 
@@ -301,8 +306,6 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     (normal 0.02), "ones" or "zeros"."""
     if cfg.scan_layers:
         raise NotImplementedError("scan_layers (a stacked 'layers' tree) is not ported; use scan_layers=False")
-    if cfg.mlm_head or cfg.type_vocab_size > 0:
-        raise NotImplementedError("the BERT heads (mlm_head, type embeddings) are not ported yet")
     d, H, KVH, Dh, f = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.ffn_dim
 
     def norm():
@@ -324,6 +327,8 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     out: Dict[str, Any] = {"wte": ((cfg.vocab_size, d), "embed")}
     if cfg.pos_emb == "learned":
         out["wpe"] = ((cfg.max_seq_len, d), "embed")
+    if cfg.type_vocab_size > 0:
+        out["type_emb"] = ((cfg.type_vocab_size, d), "embed")
     n_norm = 0
     if cfg.embedding_norm and norm() is not None:
         out[f"{norm_key}_0"] = norm()
@@ -355,6 +360,12 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
         out[f"layer_{i}"] = layer
     if norm() is not None and cfg.norm_scheme != "post":  # post-LN blocks end normalized
         out[f"{norm_key}_{n_norm}"] = norm()
+        n_norm += 1
+    if cfg.mlm_head:  # BERT's cls.predictions transform and the tied decoder's bias
+        out["mlm_dense"] = dense((d, d), d, (d,))
+        if norm() is not None:
+            out[f"{norm_key}_{n_norm}"] = norm()
+        out["mlm_bias"] = ((cfg.vocab_size,), "zeros")
     if not cfg.tie_embeddings:
         out["lm_head"] = dense((d, cfg.vocab_size), d, (cfg.vocab_size,) if cfg.lm_head_bias else None)
     return out
@@ -465,6 +476,24 @@ def _norm_key(cfg: TransformerConfig, j: int) -> str:
 
 def _norm_params(cfg: TransformerConfig, tree: Dict[str, Any], j: int):
     return None if cfg.norm == "layernorm_np" else tree[_norm_key(cfg, j)]
+
+
+def _top_norms(cfg: TransformerConfig) -> Tuple[int, int]:
+    """The indices of the final norm and of the MLM head's norm among the
+    top-level norms (the embedding norm, if any, is 0)."""
+    final = 1 if cfg.embedding_norm and cfg.norm != "layernorm_np" else 0
+    return final, final + (0 if cfg.norm_scheme == "post" or cfg.norm == "layernorm_np" else 1)
+
+
+def mlm_transform(cfg: TransformerConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """BERT's ``cls.predictions.transform`` (JAX ``:486-492``): dense, the
+    activation (relu, or gelu: exact for ``gelu_exact``, else tanh), norm."""
+    x = _dense(x, params["mlm_dense"], "bsd,de->bse", cfg.dtype)
+    if cfg.activation == "relu":
+        x = torch.relu(x)
+    else:
+        x = torch.nn.functional.gelu(x, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
+    return _norm(cfg, x, _norm_params(cfg, params, _top_norms(cfg)[1]))
 
 
 def attention_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
@@ -605,7 +634,7 @@ def head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden: torch.Tens
     from ..ops.fused_ce import fused_cross_entropy, vocab_parallel_cross_entropy
 
     if cfg.tie_embeddings:
-        w, vd, head_b = params["wte"].to(cfg.dtype), True, None
+        w, vd, head_b = params["wte"].to(cfg.dtype), True, params["mlm_bias"] if cfg.mlm_head else None
     else:
         w, vd = params["lm_head"]["kernel"].to(cfg.dtype), False
         head_b = params["lm_head"]["bias"] if cfg.lm_head_bias else None
@@ -617,14 +646,16 @@ def head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden: torch.Tens
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
                         positions: Optional[torch.Tensor] = None, return_hidden: bool = False,
                         kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None,
-                        moe_aux: Optional[List] = None, tp=None):
+                        moe_aux: Optional[List] = None, tp=None, token_type_ids: Optional[torch.Tensor] = None):
     """The reference ``Transformer.__call__``: embeddings (learned, rope,
-    ALiBi or no positions; ``embed_scale``, ``embedding_norm``), the blocks
+    ALiBi or no positions; ``embed_scale``, token types (``token_type_ids``,
+    zeros by default), ``embedding_norm``), the blocks
     (checkpointed one by one through ``runtime.activation_checkpointing`` when
     ``cfg.remat`` and there are no caches; the block reads its parameters
     inside the checkpointed function, so ZeRO stage 3 gathers them again for
-    the recompute), the final norm, then fp32 logits through the tied or untied
-    head, or the hidden states with ``return_hidden``. With ``kv_caches``
+    the recompute), the final norm (none after post-LN blocks), the MLM
+    transform, then fp32 logits through the tied or untied head (plus
+    ``mlm_bias``), or the hidden states with ``return_hidden``. With ``kv_caches``
     (``CausalLM.init_kv_caches``), returns ``(logits or hidden, new_caches)``.
     ``train`` gates MoE capacity drops only; by default a forward without
     caches drops and one with caches never does, as in the reference. Each
@@ -634,8 +665,8 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     rank's shard, checkpointed as without it, and a vocab-sharded ``wte`` /
     head looks up this rank's rows and sums over the group, and computes its
     vocab columns and gathers them, so every rank gets the whole logits."""
-    if cfg.scan_layers or cfg.mlm_head or cfg.type_vocab_size > 0:
-        raise NotImplementedError("scan_layers and the BERT heads are not ported yet")
+    if cfg.scan_layers:
+        raise NotImplementedError("scan_layers is not ported")
     train = (kv_caches is None) if train is None else bool(train)
     if tp is None and kv_caches is None:
         tp = current_tensor_parallel()
@@ -654,12 +685,12 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dt)
     if cfg.pos_emb == "learned":
         x = x + params["wpe"][positions.long()].to(dt)
-    n_norm = 0
-    if cfg.embedding_norm and cfg.norm != "layernorm_np":
-        x = _norm(cfg, x, params[_norm_key(cfg, 0)])
-        n_norm = 1
-    elif cfg.embedding_norm:
-        x = _norm(cfg, x, None)
+    if cfg.type_vocab_size > 0:  # BERT's segment embeddings
+        tti = torch.zeros_like(ids) if token_type_ids is None else torch.as_tensor(token_type_ids).to(ids.device)
+        x = x + params["type_emb"][tti.long()].to(dt)
+    n_norm = _top_norms(cfg)[0]
+    if cfg.embedding_norm:
+        x = _norm(cfg, x, _norm_params(cfg, params, 0))
     new_caches = [] if kv_caches is not None else None
     for i in range(cfg.n_layers):
         if kv_caches is not None:
@@ -677,6 +708,8 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
             x = _read_block_fwd(cfg, params, i, train, x, positions, moe_aux=moe_aux, tp=tp)
     if cfg.norm_scheme != "post":
         x = _norm(cfg, x, _norm_params(cfg, params, n_norm))
+    if cfg.mlm_head:
+        x = mlm_transform(cfg, params, x)
     if return_hidden:
         return (x, new_caches) if kv_caches is not None else x
     w = params["wte"] if cfg.tie_embeddings else params["lm_head"]["kernel"]
@@ -685,6 +718,9 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
         x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(dt))
+        if cfg.mlm_head:  # BERT's cls.predictions.bias, this rank's columns of it under a split head
+            logits = logits + (_local_rows(params["mlm_bias"], w.shape[0], tp.rank) if split
+                               else params["mlm_bias"]).to(dt)
     else:
         logits = _col_dense(x, params["lm_head"], "bsd,dv->bsv", dt, tp if split else None)
     logits = logits.float()
@@ -843,7 +879,9 @@ class CausalLM:
         cfg = self.cfg
         input_ids = batch["input_ids"]
         moe_aux: List = []
-        hidden = self.apply(params, input_ids, return_hidden=True, moe_aux=moe_aux)
+        extra = {"token_type_ids": batch["token_type_ids"]} if cfg.type_vocab_size > 0 and "token_type_ids" in batch \
+            else {}
+        hidden = self.apply(params, input_ids, return_hidden=True, moe_aux=moe_aux, **extra)
         if "labels" in batch:
             labels = batch["labels"]
         else:

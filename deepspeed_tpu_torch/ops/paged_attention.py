@@ -17,6 +17,11 @@ slot mapping (token -> block * block_size + offset) for writes.
 - ``_decode_plan`` and ``_prefill_plan`` give the bf16 launches their split
   counts from shapes and the SM count alone, never from ``ctx_lens``: the
   launches need no device-to-host sync.
+- The kernels take D in ``KERNEL_HEAD_DIMS`` (64, 80, 96, 128, 256: phi-2,
+  phi-3-mini and gpt-neox-20b, gemma and gpt-j beside the llama family)
+  and any group of query heads a KV head (decode: chunks of 8 heads a
+  block; prefill: the group's rows packed 64 to a block); another D raises
+  on the card. The plain versions take any D and group.
 - ``paged_attention_ref`` is the gather-based reference, and
   ``paged_attention_mixed`` routes a fused quantum's decode and prefill
   rows exactly as the reference does.
@@ -249,6 +254,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 # The bf16 launch plans (csrc/paged_decode.cu, csrc/paged_prefill.cu).
 # The constants are paged_probe.py's best on an H100 SXM (PERF.md).
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)  # the head dims the CUDA bodies are built for
+DECODE_HEADS = 8               # query heads a decode block holds; a larger group takes ceil(G / 8) blocks
 TILE_KEYS = 64                 # keys of a prefill tile; decode splits are whole multiples of it
 DECODE_BLOCKS_PER_SM = 32      # decode's grid aims at this many blocks an SM; splits past ctx exit at once
 DECODE_MIN_SPLIT_KEYS = 256    # a decode split walks at least this many keys
@@ -262,7 +269,9 @@ def _decode_plan(B: int, KVH: int, P: int, bs: int, sms: int) -> Tuple[int, int]
     the splits cover them with no gap and no empty tail. From host-known
     values only: the grid (splits, KVH, B) aims at ``DECODE_BLOCKS_PER_SM``
     blocks an SM (the longest context is unknown, and a split past a row's
-    ctx exits at once), with at least ``DECODE_MIN_SPLIT_KEYS`` keys a split."""
+    ctx exits at once), with at least ``DECODE_MIN_SPLIT_KEYS`` keys a split.
+    ``KVH`` counts the grid's (KV head, chunk of ``DECODE_HEADS`` heads)
+    pairs when a group is larger than 8."""
     L = P * bs
     want = -(-DECODE_BLOCKS_PER_SM * sms // max(1, B * KVH))
     splits = max(1, min(want, -(-L // DECODE_MIN_SPLIT_KEYS)))
@@ -276,7 +285,7 @@ def _prefill_plan(B: int, S: int, H: int, KVH: int, P: int, bs: int, sms: int) -
     score rows of one KV head each) are fewer than the SMs; then each
     block's key tiles are dealt round-robin to splits, toward
     ``PREFILL_BLOCKS_PER_SM`` blocks an SM, never more splits than tiles."""
-    blocks = -(-S // (PREFILL_ROWS // (H // KVH))) * B * KVH
+    blocks = -(-S * (H // KVH) // PREFILL_ROWS) * B * KVH
     if blocks >= sms:
         return 1
     return max(1, min(-(-PREFILL_BLOCKS_PER_SM * sms // blocks), -(-P * bs // TILE_KEYS)))
@@ -314,9 +323,9 @@ def paged_attention_decode(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     int32; ctx_lens (B,) int32. Returns (B, H, D).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (float32 or bfloat16, D in {64, 128}, H / KVH <= 8, with or without
-    ALiBi ``alibi_slopes`` (H,) and a sliding ``window``) or raises. bf16
-    splits each row's context as ``_decode_plan`` says."""
+    (float32 or bfloat16, D in ``KERNEL_HEAD_DIMS``, any H / KVH, with or
+    without ALiBi ``alibi_slopes`` (H,) and a sliding ``window``) or raises.
+    bf16 splits each row's context as ``_decode_plan`` says."""
     if not q.is_cuda:
         return paged_attention_decode_ref(q, k_pages, v_pages, block_tables, ctx_lens, scale, alibi_slopes, window)
     if q.dim() != 3 or not q.is_contiguous():
@@ -326,10 +335,15 @@ def paged_attention_decode(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     _, bs, KVH, Dk = k.shape
     if Dk != D or H % KVH:
         raise ValueError(f"paged_attention_decode: q {tuple(q.shape)} does not fit pools {tuple(k.shape)}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"paged_attention_decode: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, "
+                                  f"not {D}")
     scale = scale if scale is not None else D**-0.5
     slopes, win = _features("paged_attention_decode", alibi_slopes, window, H, q.device)
     P = block_tables.shape[1]
-    splits, split_keys = _decode_plan(B, KVH, P, bs, sm_count(q.device)) if q.dtype == torch.bfloat16 else (1, P * bs)
+    chunks = KVH * -(-(H // KVH) // DECODE_HEADS)  # the grid's (KV head, chunk of heads) pairs
+    splits, split_keys = _decode_plan(B, chunks, P, bs, sm_count(q.device)) if q.dtype == torch.bfloat16 \
+        else (1, P * bs)
     ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     out = torch.empty_like(q)
     rc = _build.lib().ds_paged_attention_decode(
@@ -369,8 +383,8 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     pairs. Returns (B, S, H, D). Any S: the kernel tiles the queries,
     so there is no size limit and no gather fallback on the card. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
-    (float32 or bfloat16, D in {64, 128}, H / KVH <= 64, with or without
-    ALiBi and a sliding window) or raises. bf16 splits the keys of a small
+    (float32 or bfloat16, D in ``KERNEL_HEAD_DIMS``, any H / KVH, with or
+    without ALiBi and a sliding window) or raises. bf16 splits the keys of a small
     chunk as ``_prefill_plan`` says."""
     if not q.is_cuda:
         return paged_attention_prefill_ref(q, k_pages, v_pages, block_tables, ctx_lens, q_positions, scale,
@@ -385,9 +399,9 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: KVPool, v_pages: KVPool,
     _, bs, KVH, Dk = k.shape
     if Dk != D or H % KVH:
         raise ValueError(f"paged_attention_prefill: q {tuple(q.shape)} does not fit pools {tuple(k.shape)}")
-    if H // KVH > PREFILL_ROWS:
-        raise NotImplementedError(f"paged_attention_prefill: {H // KVH} query heads a KV head (at most "
-                                  f"{PREFILL_ROWS})")
+    if D not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"paged_attention_prefill: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, "
+                                  f"not {D}")
     scale = scale if scale is not None else D**-0.5
     slopes, win = _features("paged_attention_prefill", alibi_slopes, window, H, q.device)
     P = block_tables.shape[1]

@@ -360,9 +360,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         pa.paged_attention_decode(q, kp, vp, bt, cl, alibi_slopes=[0.5] * 8)
     with pytest.raises(ValueError):
         pa.paged_attention_decode(q, kp, vp, bt, cl, window=-4)
-    with pytest.raises(NotImplementedError):  # more than 8 query heads a KV head
-        pa.paged_attention_decode(torch.randn((1, 32, 128), device=cuda).to(torch.bfloat16), kp[:, :, :2].contiguous(),
-                                  vp[:, :, :2].contiguous(), bt, cl)
+    with pytest.raises(NotImplementedError):  # a head dim the kernels are not built for (KERNEL_HEAD_DIMS)
+        pa.paged_attention_decode(q[..., :32].contiguous(), kp[..., :32].contiguous(), vp[..., :32].contiguous(), bt,
+                                  cl)
+    with pytest.raises(NotImplementedError):
+        pos = torch.arange(5, dtype=torch.int32, device=cuda)[None]
+        pa.paged_attention_prefill(torch.randn((1, 5, 32, 112), device=cuda).to(torch.bfloat16),
+                                   kp[..., :112].contiguous(), vp[..., :112].contiguous(), bt, cl, pos)
 
 
 # ALiBi, the sliding window, both or neither, in every body (bf16 and fp32 q; bf16 or int8 pools). Decode
@@ -444,6 +448,59 @@ def test_prefill_kernel_features(cuda, dtype, int8, G, D, S, feature):
     q0 = torch.tensor([0, 1000, 700], dtype=torch.int32)
     ctx = [S, 1000 + S, 20]
     kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, H=H, KVH=KVH, D=D, seed=S + G)
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((3, S, H, D), generator=g, device=cuda).to(dtype)
+    pos = (q0[:, None] + torch.arange(S, dtype=torch.int32)[None]).to(cuda)
+    slopes, window = _feature_args(feature, H)
+    n0 = pa.paged_attention_prefill.launches
+    got = pa.paged_attention_prefill(q, kp, vp, bt, cl, pos, alibi_slopes=slopes, window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_prefill.launches == n0 + 1
+    want = pa.paged_attention_prefill_ref(q, kp, vp, bt, cl, pos, alibi_slopes=slopes, window=window)
+    assert torch.isfinite(got).all()
+    if window is not None:
+        assert torch.all(got[2] == 0)
+    err = _err(got, want)
+    assert err <= _paged_tol(dtype, slopes, max(ctx), vp), err
+
+
+# The head dims and groups of the Hugging Face families (phi-2 D 80; phi-3-mini D 96; gemma D 256 at G 8 and
+# 1; falcon-7b G 71 on one KV head; starcoder G 48; a group of 12 that no power of two divides), with
+# decode contexts across split edges and prefill chunks of 1, 16 and 77 queries.
+HF_SHAPES = [(2, 2, 80), (2, 2, 96), (8, 1, 256), (2, 2, 256), (71, 1, 64), (48, 1, 128), (12, 2, 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H,KVH,D", HF_SHAPES)
+@pytest.mark.parametrize("feature", [None, "both"])
+def test_decode_kernel_head_dims_and_groups(cuda, dtype, int8, H, KVH, D, feature):
+    kp, vp, bt, cl, g = _paged(cuda, dtype, DEC_CTX, H=H, KVH=KVH, D=D, seed=H + D)
+    bt[5] = 0
+    if int8:
+        kp, vp = _int8_pools(kp, vp)
+    q = torch.randn((len(DEC_CTX), H, D), generator=g, device=cuda).to(dtype)
+    slopes, window = _feature_args(feature, H)
+    n0 = pa.paged_attention_decode.launches
+    got = pa.paged_attention_decode(q, kp, vp, bt, cl, alibi_slopes=slopes, window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == n0 + 1
+    want = pa.paged_attention_decode_ref(q, kp, vp, bt, cl, alibi_slopes=slopes, window=window)
+    assert torch.all(got[4] == 0) and torch.isfinite(got).all()
+    err = _err(got, want)
+    assert err <= _paged_tol(dtype, slopes, max(DEC_CTX), vp), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H,KVH,D", HF_SHAPES)
+@pytest.mark.parametrize("S", [1, 16, 77])
+@pytest.mark.parametrize("feature", [None, "both"])
+def test_prefill_kernel_head_dims_and_groups(cuda, dtype, int8, H, KVH, D, S, feature):
+    q0 = torch.tensor([0, 1000, 700], dtype=torch.int32)
+    ctx = [S, 1000 + S, 20]
+    kp, vp, bt, cl, g = _paged(cuda, dtype, ctx, H=H, KVH=KVH, D=D, seed=S + H)
     if int8:
         kp, vp = _int8_pools(kp, vp)
     q = torch.randn((3, S, H, D), generator=g, device=cuda).to(dtype)

@@ -178,8 +178,9 @@ class _HFLike:
 @pytest.mark.parametrize("model,config,error", [
     ("llama", {"tensor_parallel": {"tp_size": 2}}, ValueError),  # a world of one process cannot hold tp 2
     ("llama", {"tp": {"tp_size": 2}}, ValueError),
-    ("/no/such/checkpoint", {}, NotImplementedError),
-    (_HFLike(), {}, NotImplementedError),
+    # a checkpoint path or a Hugging Face model now loads through module_inject, and fails as the JAX loader does:
+    ("/no/such/checkpoint", {}, FileNotFoundError),  # no config.json
+    (_HFLike(), {}, KeyError),  # a config without vocab_size
 ])
 def test_unported_options_raise(model, config, error):
     _, _, tmodel, params = _models("llama_tiny")
