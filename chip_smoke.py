@@ -2,13 +2,14 @@
 """Drive the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py            # from the repository root, on a machine with one CUDA GPU
-    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1
-                                     # and an evoformer call
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of the serving runs, a training step, v1,
+                                     # an evoformer call and a train_hf step of each model
     python3 chip_smoke.py --quick    # the build and one case of each kernel phase
     python3 chip_smoke.py --parent DIR  # plus DIR's norm, quantized_matmul, bf16 flash, paged, sparse and
                                         # Adam kernels beside this tree's
     python3 chip_smoke.py --only train_moe,train_zeropp  # the build and the named phases alone (also serve_tp,
-                                                         # train_pipe, train_seq, train_tp, hf_kernels, serve_hf)
+                                                         # train_pipe, train_seq, train_tp, hf_kernels, serve_hf,
+                                                         # train_kernels, sla, flash_wide, train_hf)
 
 Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power-limit line;
@@ -309,7 +310,24 @@ Phases, each fatal on failure:
    route's. bert_base through ``init_inference(<directory>)``: a bf16 forward
    of 8 x 128 tokens (12 flash launches), then 2 layers in fp32 against the
    CPU route, token types included. The kernels line gives the paged, norm
-   and flash rows their launches there (``serve_hf_launches``).
+   and flash rows their launches there (``serve_hf_launches``). phi_2's and
+   gemma_2b's directories are kept for train_hf.
+25. flash_wide (after the training kernels): the flash forward, dq and dk/dv
+   at the Hugging Face families' head dims (``WIDE_FLASH_CASES``: phi-2
+   32/32 x 80, phi-3-mini 32/32 x 96, Gemma-2B 8/1 x 256, gpt-j 16/16 x 256
+   at B 4 x S 2,048, causal; phi-2 with a window of 512, phi-3-mini with
+   ALiBi) in bf16 and fp32 against their plain versions, with bounds and
+   SDPA's forward and backward beside them.
+26. train_hf (after serve_hf): phi_2 and gemma_2b fine-tuned at full width
+   and depth from serve_hf's directories through ``load_hf_checkpoint`` and
+   ``initialize`` (bf16, fp32 masters, FusedAdam, 2 x 2,048 tokens, remat;
+   ``HF_TRAIN``): step ms, tokens/s, MFU, peak memory, losses finite and
+   falling, the flash kernels at D 80 and D 256 and Adam launching as the
+   model's structure says; each at 2 layers in fp32, one step on the card
+   against the CPU route (loss, every leaf's gradient, the grad norm, the
+   masters; ``HF_TRAIN_PARITY``); then a ``scan_layers`` step (phi-2's
+   widths at 2 layers, the stacked tree against the unrolled one). The
+   kernels line gives the wide flash rows their launches there.
 
 With ``--parent DIR`` (another checkout's sources, e.g. ``git archive`` of
 the parent commit unpacked under ``build/``), DIR's kernels are built from
@@ -334,6 +352,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1059,6 +1078,18 @@ TP_FLASH_CASES = {
 }
 
 
+# the flash kernels at the Hugging Face families' heads (flash_wide; csrc/*_wide.cu): each model's attention at a
+# fine-tuning micro-batch of 4 x 2,048 (B 4 here: train_hf trains 2 x 2,048); one window and one ALiBi case
+WIDE_FLASH_CASES = {
+    "phi_2": dict(B=4, Sq=2048, Sk=2048, H=32, KVH=32, D=80, causal=True),           # microsoft/phi-2
+    "phi_3_mini": dict(B=4, Sq=2048, Sk=2048, H=32, KVH=32, D=96, causal=True),      # Phi-3-mini-4k
+    "gemma_2b": dict(B=4, Sq=2048, Sk=2048, H=8, KVH=1, D=256, causal=True),         # google/gemma-2b
+    "gpt_j": dict(B=4, Sq=2048, Sk=2048, H=16, KVH=16, D=256, causal=True),          # EleutherAI/gpt-j-6b
+    "phi_2_window": dict(B=4, Sq=2048, Sk=2048, H=32, KVH=32, D=80, causal=True, window=512),
+    "phi_3_mini_alibi": dict(B=4, Sq=2048, Sk=2048, H=32, KVH=32, D=96, causal=True, alibi=True),
+}
+
+
 def visible_pairs(Sq, Sk, causal, window) -> int:
     """(query, key) pairs the mask lets through, per batch row and head."""
     if not causal:
@@ -1067,13 +1098,48 @@ def visible_pairs(Sq, Sk, causal, window) -> int:
     return sum(max(0, min(r, Sk - 1) - (max(r - window + 1, 0) if window else 0) + 1) for r in rows)
 
 
+def flash_f64(torch, q, k, v, do, lse, delta, slopes, scale, causal, window) -> dict:
+    """The flash function in float64 on the card, one batch row at a time, by the plain version's formulas
+    (q.k * scale + slope * key_pos, the causal band and window aligned to the end of the keys): o and lse from q,
+    k, v; dq, dk, dv (summed over each KV head's query heads) from q, k, v, do and the given lse and delta, as the
+    backward kernels take them. Values are (B, ...) float64 tensors."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    cols = torch.arange(Sk, device=q.device, dtype=torch.float64)
+    rows = torch.arange(Sq, device=q.device, dtype=torch.float64)[:, None] + (Sk - Sq)
+    allowed = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        allowed = (cols <= rows) & ((cols > rows - window) if window else allowed)
+    out = {n: [] for n in ("o", "lse", "dq", "dk", "dv")}
+    for b in range(B):
+        qb, dob = q[b].double(), do[b].double()
+        kb, vb = (t[b].double().repeat_interleave(H // KVH, dim=1) for t in (k, v))
+        s = torch.einsum("qhd,khd->hqk", qb, kb) * scale
+        if slopes is not None:
+            s = s + slopes.double()[:, None, None] * cols
+        s = s.masked_fill(~allowed, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        out["o"].append(torch.einsum("hqk,khd->qhd", p / l, vb))
+        out["lse"].append((m + torch.log(l))[..., 0])
+        p = torch.exp(s - lse[b].double()[..., None])
+        ds = p * (torch.einsum("qhd,khd->hqk", dob, vb) - delta[b].double()[..., None])
+        out["dq"].append(torch.einsum("hqk,khd->qhd", ds, kb) * scale)
+        fold = lambda x: x.reshape(Sk, KVH, H // KVH, D).sum(2)  # noqa: E731
+        out["dk"].append(fold(torch.einsum("hqk,qhd->khd", ds, qb) * scale))
+        out["dv"].append(fold(torch.einsum("hqk,qhd->khd", p, dob)))
+        del s, p, ds
+    return {n: torch.stack(ts) for n, ts in out.items()}
+
+
 def phase_flash(torch, dev, dtype, name, iters):
     """Kernels A, B, C at one shape against their plain versions; SDPA forward
     and backward through autograd as the library yardsticks."""
     from deepspeed_tpu_torch.models import alibi_slopes
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    c = {**FLASH_CASES, **TP_FLASH_CASES}[name]
+    c = {**FLASH_CASES, **TP_FLASH_CASES, **WIDE_FLASH_CASES}[name]
     B, Sq, Sk, H, KVH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KVH", "D"))
     causal, window = c["causal"], c.get("window", 0)
     g = torch.Generator(device=dev).manual_seed(Sq + H)
@@ -1109,6 +1175,27 @@ def phase_flash(torch, dev, dtype, name, iters):
     e_dk, e_dv = err(dk, dk_ref), err(dv, dv_ref)
     e_dkv = {key: max(e_dk[key], e_dv[key]) for key in e_dk}
     tol = ("max_abs_err_scaled", 1e-5) if dtype == torch.float32 else TOL[str(dtype)]
+    if slopes is not None and name in WIDE_FLASH_CASES:
+        # ALiBi at S 2,048: a score reaches max slope x last key (about 1,720), where one fp32 step is 1.2e-4, so
+        # neither the kernel nor its plain version comes within 1e-5 of the true value (nor within 1e-4 in lse),
+        # and the two round differently. Both are measured against the function in float64 on the same inputs;
+        # the kernel may be no further from it than its plain version is, plus FLASH_CASES' bound (fp32 outputs
+        # 1e-5 scaled, lse 1e-4; bf16 outputs stay held to their plain version)
+        exact = flash_f64(torch, q, k, v, do, lse_ref, delta, *args)
+        dist = lambda a, want: (a.double() - want).abs().max().item() / max(1.0, want.abs().max().item())
+        e_fwd["lse_f64_err"] = (lse.double() - exact["lse"]).abs().max().item()
+        e_fwd["plain_lse_f64_err"] = (lse_ref.double() - exact["lse"]).abs().max().item()
+        e_fwd["lse_f64_excess"] = e_fwd["lse_f64_err"] - e_fwd["plain_lse_f64_err"]
+        e_fwd["lse_tol"] = ("lse_f64_excess", 1e-4)
+        if dtype == torch.float32:
+            got = dict(o=o, dq=dq, dk=dk, dv=dv)
+            plain = dict(o=o_ref, dq=dq_ref, dk=dk_ref, dv=dv_ref)
+            for e, outs in ((e_fwd, ("o",)), (e_dq, ("dq",)), (e_dkv, ("dk", "dv"))):
+                e["f64_err_scaled"] = max(dist(got[n], exact[n]) for n in outs)
+                e["plain_f64_err_scaled"] = max(dist(plain[n], exact[n]) for n in outs)
+                e["f64_excess_scaled"] = max(dist(got[n], exact[n]) - dist(plain[n], exact[n]) for n in outs)
+            tol = ("f64_excess_scaled", 1e-5)
+        del exact
     del o_ref, dq_ref, dk_ref, dv_ref
     item = q.element_size()
     pairs = visible_pairs(Sq, Sk, causal, window) * B * H
@@ -1258,9 +1345,10 @@ def phase_adam(torch, dev, which, iters):
 
 def check_flash(rec) -> None:
     what, tol = rec["tol"]
-    if not (rec[what] <= tol and rec.get("lse_max_abs_err", 0.0) <= 1e-4):
+    lse_what, lse_tol = rec.get("lse_tol", ("lse_max_abs_err", 1e-4))
+    if not (rec[what] <= tol and rec.get(lse_what, 0.0) <= lse_tol):
         raise AssertionError(f"{rec['kernel']} {rec['dtype']} {rec['case']}: {what} {rec[what]} > {tol}"
-                             f" or lse error {rec.get('lse_max_abs_err')} > 1e-4")
+                             f" or {lse_what} {rec.get(lse_what)} > {lse_tol}")
 
 
 def check_adam(rec) -> None:
@@ -1270,17 +1358,23 @@ def check_adam(rec) -> None:
         raise AssertionError(f"fused_adam {rec['case']}: {rec['launches_per_step']} launches for {rec['shape']}")
 
 
-def run_train_kernel_phases(torch, dev, quick: bool):
+def run_flash_cases(torch, dev, cases: dict, names, iters: int) -> list:
+    """The flash forward, dq and dk/dv at ``names`` of ``cases`` in bf16 and fp32 (a ``bf16_only`` case in bf16
+    alone), each held to its plain version (``check_flash``), with bounds and SDPA's forward and backward."""
     records = []
-    iters = 5 if quick else 20
-    names = ["gpt2_1_3b"] if quick else list(FLASH_CASES)
     for dtype in (torch.bfloat16, torch.float32):
-        for name in (n for n in names if dtype == torch.bfloat16 or not FLASH_CASES[n].get("bf16_only")):
+        for name in (n for n in names if dtype == torch.bfloat16 or not cases[n].get("bf16_only")):
             for rec in phase_flash(torch, dev, dtype, name, iters):
                 log(rec)
                 check_flash(rec)
                 records.append(rec)
             torch.cuda.empty_cache()
+    return records
+
+
+def run_train_kernel_phases(torch, dev, quick: bool):
+    iters = 5 if quick else 20
+    records = run_flash_cases(torch, dev, FLASH_CASES, ["gpt2_1_3b"] if quick else list(FLASH_CASES), iters)
     for which in (["wte"] if quick else ["wte", "all"]):
         rec = phase_adam(torch, dev, which, iters)
         log(rec)
@@ -1288,6 +1382,13 @@ def run_train_kernel_phases(torch, dev, quick: bool):
         records.append(rec)
         torch.cuda.empty_cache()
     return records
+
+
+def run_wide_flash_phases(torch, dev, quick: bool) -> list:
+    """flash_wide: ``run_flash_cases`` over ``WIDE_FLASH_CASES`` (D 80, 96, 256; bf16 within 1e-2 per row, fp32
+    1e-5 scaled, as ``FLASH_CASES``; the ALiBi case against float64, ``phase_flash``)."""
+    names = ["phi_2", "gemma_2b"] if quick else list(WIDE_FLASH_CASES)
+    return run_flash_cases(torch, dev, WIDE_FLASH_CASES, names, 5 if quick else 20)
 
 
 # ---------------------------------------------------------------- evoformer (DS4Sci_EvoformerAttention)
@@ -3196,12 +3297,13 @@ def phase_train_parity(torch, dev, dtype, counters, n_layers=2, optimizer="Fused
     return rec
 
 
-def profile_train(torch, engine, data, optimizer="FusedAdam") -> None:
+def profile_train(torch, engine, data, optimizer="FusedAdam", **labels) -> None:
     """Device-time breakdown of one training step under torch.profiler."""
     cats = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_dq_kernel", "flash_dq_bf16_kernel"),
             "flash_bwd_dkv": ("flash_dkv_kernel", "flash_dkv_bf16_kernel"), "fused_adam": ("adam_kernel",),
             "lamb_direction": ("lamb_dir_kernel",), "matmul": MATMUL, "copy": ("Memcpy", "Memset")}
-    log(dict(phase="profile_train", optimizer=optimizer, **profiled(torch, lambda: engine.train_batch(data), cats)))
+    log(dict(phase="profile_train", optimizer=optimizer, **labels,
+             **profiled(torch, lambda: engine.train_batch(data), cats)))
 
 
 # the optimizer's kernel and its launches per step over n leaves in one group: FusedAdam one for each
@@ -5062,13 +5164,14 @@ def hf_counters(pa, norms) -> dict:
             "falcon_7b_4l": paged + [norms.layer_norm]}
 
 
-def phase_serve_hf(torch, dev, counters: dict, flash_fwd) -> dict:
+def phase_serve_hf(torch, dev, counters: dict, flash_fwd, keep=()) -> dict:
     """serve_hf: Hugging Face directories written here (the published config.json, random bf16 weights from a
     seed), loaded through ``load_hf_checkpoint`` + ``InferenceEngineV2`` and served as the serve phase serves
     llama3_8b (phi_2 and gemma_2b at full width and depth, falcon_7b_4l at 4 of 32 layers; their runs in
     ``SERVE_RUNS``: the launch counts, graphs against eager steps); phi_2 also through ``init_inference(<path>)``;
     each decoder at 2 layers in fp32 against the CPU route (``hf_parity``); bert_base through the v1 engine
-    (``hf_bert``). Each directory is deleted after its run."""
+    (``hf_bert``). Each directory is deleted after its run, but those of the runs in ``keep``: their records hold
+    ``dir``, for train_hf to fine-tune (the caller deletes them)."""
     import shutil
 
     import numpy as np
@@ -5084,7 +5187,10 @@ def phase_serve_hf(torch, dev, counters: dict, flash_fwd) -> dict:
             v1 = hf_v1(torch, dev, ck["dir"], wave1[1][:64])
             log(dict(phase="serve_hf v1", run=run, **v1))
         rec["parity"] = hf_parity(torch, dev, run, ck["dir"])
-        shutil.rmtree(ck["dir"], ignore_errors=True)
+        if run in keep:
+            rec["dir"] = ck["dir"]
+        else:
+            shutil.rmtree(ck["dir"], ignore_errors=True)
         rec["seconds"] = time.perf_counter() - t0
         log(dict(phase="serve_hf run", run=run, seconds=rec["seconds"]))
         out[run] = rec
@@ -5094,6 +5200,263 @@ def phase_serve_hf(torch, dev, counters: dict, flash_fwd) -> dict:
     shutil.rmtree(ck["dir"], ignore_errors=True)
     log(dict(phase="serve_hf run", run="bert_base", seconds=time.perf_counter() - t0))
     return out
+
+
+# ---------------------------------------------------------------- fine-tuning the Hugging Face checkpoints (train_hf)
+HF_TRAIN_RUNS = ("phi_2", "gemma_2b")
+# bf16 with fp32 masters, FusedAdam at a constant lr, 2 x 2,048 tokens a micro-batch, one seeded batch repeated;
+# steps TIMED_FROM+1.. timed. remat: without it the activations of phi-2's 32 layers (about 0.7 GB a layer) on top
+# of its 44.5 GB of masters, gradients and moments come near the card's 80 GB
+HF_TRAIN = dict(micro=2, seq=2048, steps=6, timed_from=2, lr=1e-4, remat=True)
+# the fp32 step on the card against the CPU route: 2 layers at full width, one row of 128 tokens (the CPU's
+# seconds: 12 s and 23 s at 256); the loss and the global gradient norm within 1e-4 relative (fp32 in another summation order), the
+# masters after the step as the tensor-parallel phases hold them (PAR_TOL)
+HF_TRAIN_PARITY = dict(layers=2, rows=1, seq=128, tol=1e-4)
+
+
+def hf_train_config(torch, dtype, micro: int) -> dict:
+    return {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": 1, "steps_per_print": 1000,
+            "optimizer": {"type": "FusedAdam", "params": {"lr": HF_TRAIN["lr"], "weight_decay": 0.0}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": dtype == torch.bfloat16}}
+
+
+def hf_matmul_params(cfg, n_params: int) -> int:
+    """The parameters that multiply: all but an untied input embedding (a lookup); a tied one is the head."""
+    return n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+
+
+def hf_train_run(torch, dev, run: str, d: str, counters, profile=False) -> dict:
+    """Fine-tune ``d`` at full width and depth: ``load_hf_checkpoint`` (fp32 masters on the card) into
+    ``CausalLM(config with dtype bf16)`` through ``deepspeed_tpu_torch.initialize``, ``HF_TRAIN``'s steps on one
+    seeded batch; step ms, tokens/s, MFU, peak memory, the kernels' launches over the timed steps; with
+    ``profile`` one more step under torch.profiler (``profile_train``)."""
+    import dataclasses
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params, load = hf_load(torch, d, torch.float32, str(dev))
+    cfg = dataclasses.replace(model.cfg, dtype=torch.bfloat16, remat=HF_TRAIN["remat"])
+    micro, seq, steps, timed_from = (HF_TRAIN[k] for k in ("micro", "seq", "steps", "timed_from"))
+    t0 = time.perf_counter()
+    engine, _, _, _ = dst.initialize(model=CausalLM(cfg), model_parameters=params,
+                                     config=hf_train_config(torch, torch.bfloat16, micro), device=dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.parameters())
+    data = itertools.repeat({"input_ids": np.random.default_rng(HF_TRAIN_RUNS.index(run)).integers(
+        0, cfg.vocab_size, (micro, seq)).astype(np.int32)})
+    losses = [engine.train_batch(data) for _ in range(timed_from)]
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps - timed_from):
+        losses.append(engine.train_batch(data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = [float(x) for x in losses]
+    timed = steps - timed_from
+    tokens = micro * seq
+    # model FLOPs a step: 6 N T over the parameters that multiply, plus attention's two products, forward and
+    # backward (3x), over the causal pairs of the query heads; remat's recompute is not counted
+    flops = 6 * hf_matmul_params(cfg, n_params) * tokens + \
+        12 * cfg.n_layers * micro * cfg.n_heads * cfg.head_dim * visible_pairs(seq, seq, True, 0)
+    step_s = wall / timed
+    rec = dict(phase="train_hf", run=run, source=HF_CONFIGS[run][0], layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}/{cfg.kv_heads} x {cfg.head_dim}", params=n_params, dtype="bfloat16",
+               masters="float32", remat=cfg.remat, micro_batch=micro, seq=seq, steps=steps,
+               timed_steps=f"{timed_from + 1}-{steps}", losses=losses, step_ms=step_s * 1e3,
+               tokens_per_s=tokens / step_s, model_flops_per_step=flops,
+               mfu=flops / step_s / PEAK_FLOPS["torch.bfloat16"],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30, load=load, engine_init_s=init_s,
+               leaves=len(engine.parameters()), grad_norm=engine.get_global_grad_norm(),
+               skipped_steps=engine.skipped_steps, launches=launches,
+               launches_per_step={k: v / timed for k, v in launches.items()})
+    log(rec)
+    if profile:
+        profile_train(torch, engine, data, run=run)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_hf {run}: losses not finite or not falling: {losses}")
+    # remat runs each block's forward again in the backward: two forward launches a layer a step
+    want = {"flash_fwd": (2 if cfg.remat else 1) * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "fused_adam": opt_launches("FusedAdam", rec["leaves"])}
+    bad = {k: launches[k] / timed for k in want if launches[k] != want[k] * timed}
+    if bad:
+        raise AssertionError(f"train_hf {run}: launches per step {bad}, expected {want}")
+    return rec
+
+
+def hf_train_parity(torch, dev, run: str, d: str, counters) -> dict:
+    """One fp32 engine step at ``HF_TRAIN_PARITY``'s 2 layers, on the card (the fp32 flash bodies at the run's
+    head dim, counted) and on the CPU route (the plain versions), from the same directory and batch
+    (``forward``, ``backward``, ``step``): the loss, every leaf's gradient (over its largest; ``k_proj``'s
+    bias, whose true gradient is zero, over the largest of the model) and the global gradient norm within
+    ``tol``, and the masters after the step (the CPU's copied to the card) within ``PAR_TOL`` of each other,
+    their distance over each leaf's travel."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+
+    p = HF_TRAIN_PARITY
+    batch = {"input_ids": np.random.default_rng(7).integers(0, HF_CONFIGS[run][1]["vocab_size"],
+                                                             (p["rows"], p["seq"])).astype(np.int32)}
+    out, masters, grads, init = {}, {}, {}, {}
+    for label, where in (("cpu", "cpu"), ("card", str(dev))):
+        model, params = lc.load_hf_checkpoint(d, dtype=torch.float32, device=where, n_layers=p["layers"])
+        engine, _, _, _ = dst.initialize(model=CausalLM(model.cfg), model_parameters=params,
+                                         config=hf_train_config(torch, torch.float32, p["rows"]), device=where)
+        if label == "card":
+            init = {path: t.detach().clone() for path, t in zip(engine._paths, engine.parameters())}
+            for fn in counters:
+                fn.launches = 0
+        t0 = time.perf_counter()
+        loss = engine.forward(batch)
+        engine.backward(loss)
+        grads[label] = {path: g.detach().clone() for path, g in zip(engine._paths, engine._grad_acc)}
+        engine.step()
+        out[label] = dict(loss=float(loss), grad_norm=float(engine.get_global_grad_norm()),
+                          step_s=time.perf_counter() - t0)
+        masters[label] = dict(zip(engine._paths, engine.parameters()))
+        del engine, model, params
+    launches = {fn.__name__: fn.launches for fn in counters}
+    dist2, ref2, share, k_bias = 0.0, 0.0, {}, 0.0
+    for path, got in masters["card"].items():
+        ref = masters["cpu"][path].to(dev)
+        diff = (got.double() - ref.double()).norm().item()
+        travel = (ref.double() - init[path].double()).norm().item()
+        dist2 += diff**2
+        ref2 += ref.double().norm().item()**2
+        if path.endswith("k_proj/bias"):  # a zero true gradient: each side's fp32 noise (sketch_errors' note)
+            k_bias = max(k_bias, diff / max(travel, 1e-300))
+        else:
+            share[path] = diff / max(travel, 1e-300)
+    worst = max(share, key=share.get)
+    m = dict(tree_rel=math.sqrt(dist2 / ref2), max_leaf_over_travel=share[worst], worst_leaf=worst,
+             k_bias_over_travel=k_bias, leaves=len(share))
+    top = max(g.abs().max().item() for g in grads["cpu"].values())
+    g_err = {}
+    for path, want in grads["cpu"].items():
+        got = grads["card"][path].cpu()
+        scale = top if path.endswith("k_proj/bias") else max(want.abs().max().item(), 1e-30)
+        g_err[path] = dict(rel=(got - want).abs().max().item() / scale, norm_card=got.double().norm().item(),
+                           norm_cpu=want.double().norm().item())
+    worst_g = sorted(g_err, key=lambda k: -g_err[k]["rel"])[:4]
+    rel = lambda k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])  # noqa: E731
+    rec = dict(phase="train_hf parity", run=run, layers=p["layers"], dtype="float32", tokens=p["rows"] * p["seq"],
+               tol=p["tol"], card=out["card"], cpu=out["cpu"], loss_rel_err=rel("loss"),
+               grad_norm_rel_err=rel("grad_norm"), grad_max_rel_err=g_err[worst_g[0]]["rel"],
+               worst_grads={k: g_err[k] for k in worst_g}, masters=m, launches=launches)
+    log(rec)
+    del masters, init, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (rec["loss_rel_err"] <= p["tol"] and rec["grad_max_rel_err"] <= p["tol"]
+            and rec["grad_norm_rel_err"] <= p["tol"] and masters_ok(m)):
+        raise AssertionError(f"train_hf {run}: the fp32 step on the card differs from the CPU route: {rec}")
+    if not all(launches[fn.__name__] == p["layers"] for fn in counters):
+        raise AssertionError(f"train_hf {run}: fp32 launches {launches}, expected {p['layers']} each")
+    return rec
+
+
+def stacked_layers(torch, cfg, params) -> dict:
+    """The ``scan_layers`` tree of an unrolled one: the blocks' leaves stacked under ``layers/block`` (copies)."""
+    def stack(ts):
+        return {k: stack([t[k] for t in ts]) for k in ts[0]} if isinstance(ts[0], dict) else torch.stack(ts)
+
+    out = {k: v for k, v in params.items() if not k.startswith("layer_")}
+    out["layers"] = {"block": stack([params[f"layer_{i}"] for i in range(cfg.n_layers)])}
+    return out
+
+
+def hf_scan_step(torch, dev, d: str) -> dict:
+    """``scan_layers`` on the card: phi-2's widths at 2 layers in bf16, the loaded tree stacked, against the
+    unrolled tree: 3 engine steps on one batch of 2 x 2,048 tokens each, every loss equal bit for bit (block i
+    reads slice i: the same operations, and FusedAdam's update is elementwise). Without gradient clipping: the
+    global norm sums a stacked leaf's squares in another grouping, so a clip's multiplier may differ by a
+    rounding step (with clipping the third loss moved by 1.6e-5 relative on the card)."""
+    import dataclasses
+    import itertools
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+
+    model, params = lc.load_hf_checkpoint(d, dtype=torch.float32, device=str(dev), n_layers=2)
+    cfg = dataclasses.replace(model.cfg, dtype=torch.bfloat16)
+    trees = {True: stacked_layers(torch, cfg, params), False: params}
+    data = {"input_ids": np.random.default_rng(9).integers(0, cfg.vocab_size, (HF_TRAIN["micro"], HF_TRAIN[
+        "seq"])).astype(np.int32)}
+    losses, ms = {}, {}
+    config = dict(hf_train_config(torch, torch.bfloat16, HF_TRAIN["micro"]), gradient_clipping=0.0)
+    for scan in (False, True):
+        engine, _, _, _ = dst.initialize(model=CausalLM(dataclasses.replace(cfg, scan_layers=scan)),
+                                         model_parameters=trees[scan], config=config, device=dev)
+        it = itertools.repeat(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[scan] = [float(engine.train_batch(it)) for _ in range(3)]
+        torch.cuda.synchronize()
+        ms[scan] = (time.perf_counter() - t0) / 3 * 1e3
+        del engine
+    rec = dict(phase="train_hf scan_layers", run="phi_2", layers=2, dtype="bfloat16", losses_scan=losses[True],
+               losses_unrolled=losses[False], step_ms_scan=ms[True], step_ms_unrolled=ms[False],
+               all_equal=losses[True] == losses[False])
+    log(rec)
+    del trees, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rec["all_equal"]:
+        raise AssertionError(f"train_hf scan_layers: {rec}")
+    return rec
+
+
+def phase_train_hf(torch, dev, counters, dirs: dict, profile=False) -> dict:
+    """train_hf: fine-tune phi_2 and gemma_2b (``HF_TRAIN_RUNS``) from ``dirs`` (the serve_hf directories);
+    each also in fp32 at 2 layers against the CPU route; then the ``scan_layers`` step on phi_2's widths.
+    Returns, per run, the bf16 run's record (``launches`` over its timed steps) and the fp32 parity's under
+    ``fp32``."""
+    out = {}
+    for run in HF_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        rec = hf_train_run(torch, dev, run, dirs[run], counters, profile)
+        rec["fp32"] = hf_train_parity(torch, dev, run, dirs[run], counters[:3])
+        out[run] = rec
+        log(dict(phase="train_hf run", run=run, seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    out["scan_layers"] = hf_scan_step(torch, dev, dirs["phi_2"])
+    log(dict(phase="train_hf scan_layers", seconds=time.perf_counter() - t0))
+    return out
+
+
+def phase_train_hf_alone(torch, dev, counters, profile=False) -> dict:
+    """train_hf for ``--only``: the directories written here, as serve_hf writes them, and deleted after."""
+    import shutil
+
+    dirs = {}
+    try:
+        for run in HF_TRAIN_RUNS:
+            ck = write_hf_checkpoint(torch, dev, run)
+            log(dict(phase="train_hf write", run=run, **ck))
+            dirs[run] = ck["dir"]
+        return phase_train_hf(torch, dev, counters, dirs, profile)
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
 
 
 # The paged kernels at the Hugging Face families' heads: (H, KVH, D) and the block table of the model's context
@@ -5199,6 +5562,14 @@ KERNEL_ROWS = [
      dict(kernel="quantize_groupwise", case="all-int8"), "quantization.cu", "pallas/quantization.py:49"),
     ("dequantize_groupwise", "v1_w8", "dequantize_groupwise", "bfloat16",
      dict(kernel="dequantize_groupwise", case="all-int8"), "quantization.cu", "pallas/quantization.py:64"),
+    # the flash kernels at the Hugging Face families' head dims (*_wide.cu): launches over train_hf's timed bf16
+    # steps of phi_2 (D 80) and gemma_2b (D 256), and in each one's fp32 step at 2 layers
+    *[(f"{kernel} ({kind}D {D}, {model})", f"train_hf_{'fp32_' if kind else ''}{run}", kernel,
+       "float32" if kind else "bfloat16", dict(kernel=kernel, case=run),
+       "flash_fp32_wide.cu" if kind else src, "pallas/flash_attention.py:" + line)
+      for kind in ("", "fp32, ") for run, model, D in (("phi_2", "phi-2", 80), ("gemma_2b", "gemma-2b", 256))
+      for kernel, src, line in (("flash_fwd", "flash_fwd_wide.cu", "185"), ("flash_bwd_dq", "flash_dq_wide.cu", "417"),
+                                ("flash_bwd_dkv", "flash_dkv_wide.cu", "518"))],
     # no pallas_call: the reference's MoE serving module runs lax.ragged_dot (plain XLA) at this line
     ("moe_grouped_gemm", "mixtral_8x7b_8l", "moe_grouped_gemm", "bfloat16",
      dict(kernel="moe_grouped_gemm", case="decode8_wi"), "moe_grouped_gemm.cu",
@@ -6326,6 +6697,8 @@ def main(argv) -> int:
                   "serve_hf": lambda: phase_serve_hf(torch, dev, hf_counters(pa, norms), fa.flash_fwd),
                   "hf_kernels": lambda: run_hf_kernel_phases(torch, dev, False),
                   "train_kernels": lambda: run_train_kernel_phases(torch, dev, False),
+                  "flash_wide": lambda: run_wide_flash_phases(torch, dev, False),
+                  "train_hf": lambda: phase_train_hf_alone(torch, dev, tc, profile),
                   "sla": lambda: phase_sla(torch, dev, [pa.paged_attention_decode, pa.paged_attention_prefill,
                                                         norms.rms_norm])}
         for name in only:
@@ -6347,6 +6720,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     records += run_train_kernel_phases(torch, dev, quick)
     log(dict(phase="train kernels", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    records += run_wide_flash_phases(torch, dev, quick)
+    log(dict(phase="flash_wide", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     records += run_evo_kernel_phases(torch, dev, quick)
     log(dict(phase="evo kernels", seconds=time.perf_counter() - t0))
@@ -6406,10 +6782,18 @@ def main(argv) -> int:
     serve_w4 = phase_serve(torch, dev, paged + [norms.rms_norm, qm.quantized_matmul], "llama3_8b_w4", profile)
     log(dict(phase="serve quantised", seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    serve_hf = phase_serve_hf(torch, dev, hf_counters(pa, norms), fa.flash_fwd)
+    serve_hf = phase_serve_hf(torch, dev, hf_counters(pa, norms), fa.flash_fwd, keep=HF_TRAIN_RUNS)
     log(dict(phase="serve_hf", seconds=time.perf_counter() - t0))
-    t0 = time.perf_counter()
     train_counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fad.fused_adam]
+    t0 = time.perf_counter()
+    hf_dirs = {run: serve_hf[run].pop("dir") for run in HF_TRAIN_RUNS}
+    try:
+        train_hf = phase_train_hf(torch, dev, train_counters, hf_dirs, profile)
+    finally:
+        for d in hf_dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    log(dict(phase="train_hf", seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_parity(torch, dev, dtype, train_counters)
     train = phase_train(torch, dev, counters + train_counters, profile)
@@ -6476,7 +6860,9 @@ def main(argv) -> int:
 
     runs = {"llama3_8b": serve, "gpt2_1_3b_w8_kv8": serve_w8, "llama3_8b_w4": serve_w4,
             "mixtral_8x7b_8l": serve_moe, "train": train, "train_seq": train_seq,
-            "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1}
+            "evoformer": evoformer, "sparse": sparse, "train_lamb": train_lamb, **v1,
+            **{f"train_hf_{run}": train_hf[run] for run in HF_TRAIN_RUNS},
+            **{f"train_hf_fp32_{run}": train_hf[run]["fp32"] for run in HF_TRAIN_RUNS}}
     kernels = [kernel_row(records + quant_records, runs, *row) for row in KERNEL_ROWS]
     for row in kernels:  # the kernels MoE training runs: their launches over its 6 steps at stage 0
         if row["name"] in train_moe["stage0"]["launches"]:

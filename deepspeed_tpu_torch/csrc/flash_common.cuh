@@ -1,8 +1,9 @@
-// Definitions shared by the flash attention kernels (flash_attention.cu: the
-// float32 forward, dq and dk/dv, the float32 collapsed dq and the reduce of
-// the collapsed dq's partials; flash_fwd.cu: the bfloat16 forward;
-// flash_bwd.cu: the bfloat16 dq and dk/dv, with or without a bias, and the
-// bfloat16 collapsed dq): the mask, the additive bias, the programs that share
+// Definitions shared by the flash attention kernels (flash_attention.cu and
+// flash_fp32.cuh: the float32 forward, dq and dk/dv, the float32 collapsed dq
+// and the reduce of the collapsed dq's partials; flash_fwd.cuh: the bfloat16
+// forward; flash_bwd.cuh: the bfloat16 dq and dk/dv, with or without a bias,
+// and the bfloat16 collapsed dq; the *_wide.cu sources build them at D 80, 96
+// and 256): the mask, the additive bias, the programs that share
 // a bias slice and THE masked score every kernel uses.
 #pragma once
 
@@ -96,8 +97,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // The bfloat16 forward (flash_fwd.cu): o (B, Sq, H, D) bf16 and lse (B, H, Sq)
-// fp32 from q (B, Sq, H, D), k, v (B, Sk, KVH, D); D in {32, 64, 128}. Returns
-// 0, a cudaError_t, or kUnsupported.
+// fp32 from q (B, Sq, H, D), k, v (B, Sk, KVH, D); D in {32, 64, 128} (with or
+// without a bias) or {80, 96, 256} (without one: flash_fwd_wide.cu). Returns 0,
+// a cudaError_t, or kUnsupported.
 int flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const float* slopes,
                    Bias bias, __nv_bfloat16* o, float* lse, int B, int H, int KVH, int D, Mask mk,
                    cudaStream_t stream);
@@ -115,6 +117,29 @@ int flash_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
                    const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes, Bias bias,
                    __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int KVH, int D, Mask mk,
                    cudaStream_t stream);
+
+// The same three at D 80, 96 and 256, the Hugging Face families' heads, without a bias (a bias returns
+// kUnsupported): bf16 in flash_fwd_wide.cu, flash_dq_wide.cu and flash_dkv_wide.cu (flash_fwd_bf16,
+// flash_dq_bf16 and flash_dkv_bf16 route there), fp32 in flash_fp32_wide.cu.
+int flash_fwd_bf16_wide(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const float* slopes,
+                        Bias bias, __nv_bfloat16* o, float* lse, int B, int H, int KVH, int D, Mask mk,
+                        cudaStream_t stream);
+int flash_dq_bf16_wide(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                       const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
+                       Bias bias, __nv_bfloat16* dq, float* dbias, int B, int H, int KVH, int D, Mask mk,
+                       cudaStream_t stream);
+int flash_dkv_bf16_wide(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                        const __nv_bfloat16* dout, const float* lse, const float* delta, const float* slopes,
+                        Bias bias, __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int KVH, int D, Mask mk,
+                        cudaStream_t stream);
+int flash_fwd_f32_wide(const float* q, const float* k, const float* v, const float* slopes, float* o, float* lse,
+                       int B, int H, int KVH, int D, Mask mk, cudaStream_t stream);
+int flash_dq_f32_wide(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                      const float* delta, const float* slopes, float* dq, int B, int H, int KVH, int D, Mask mk,
+                      cudaStream_t stream);
+int flash_dkv_f32_wide(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                       const float* delta, const float* slopes, float* dk, float* dv, int B, int H, int KVH, int D,
+                       Mask mk, cudaStream_t stream);
 
 // The bfloat16 collapsed dq (flash_bwd.cu): dq like q, and the plan's n_parts
 // fp32 partials of dbias in `part` ((n_parts, Bb*Hb, Sqb, Sk); dbias itself when

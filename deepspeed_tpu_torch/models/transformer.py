@@ -29,8 +29,13 @@ The encoder family (BERT, DistilBERT; JAX ``Transformer.__call__``
 post-LN blocks (``norm_scheme="post"``: no final norm), bidirectional
 attention (``causal=False``) and the MLM head (``mlm_head``: ``mlm_dense``,
 the activation and a norm before the tied decoder, which adds
-``mlm_bias``). ``scan_layers`` and progressive layer drop are not ported
-(they raise).
+``mlm_bias``). ``scan_layers`` (JAX ``_scan_blocks``): the blocks' trees
+stacked under ``layers/block`` (each leaf (L, ...), the flax scan's layout,
+so a JAX tree converts by copy); the forward runs block i on slice i, with
+remat a block, and every block is JAX's scanned ``Block`` (``layer_idx`` 0:
+its MoE slot and window). The refusals stay JAX's: per-layer
+``window_layers``, progressive layer drop and the pipeline. Progressive
+layer drop itself is not ported (it raises).
 """
 
 import functools
@@ -303,9 +308,10 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     ``CausalLM`` (decoders and post-LN blocks; an MoE block holds ``moe``
     in place of ``mlp``). Leaves are ``(shape, init)`` with init "kernel"
     (lecun-normal, fan-in over the contracted dims), "embed" or "normal"
-    (normal 0.02), "ones" or "zeros"."""
-    if cfg.scan_layers:
-        raise NotImplementedError("scan_layers (a stacked 'layers' tree) is not ported; use scan_layers=False")
+    (normal 0.02), "ones" or "zeros". With ``scan_layers`` the blocks are
+    one tree under ``layers/block`` whose leaves carry a leading
+    (n_layers,) axis (the fan-in stays a block's)."""
+    check_scan(cfg)
     d, H, KVH, Dh, f = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.ffn_dim
 
     def norm():
@@ -333,7 +339,7 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     if cfg.embedding_norm and norm() is not None:
         out[f"{norm_key}_0"] = norm()
         n_norm = 1
-    for i in range(cfg.n_layers):
+    def block(i):
         attn = {
             "q_proj": dense((d, H, Dh), d, (H, Dh) if qkvb else None),
             "k_proj": dense((d, KVH, Dh), d, (KVH, Dh) if qkvb else None),
@@ -357,7 +363,14 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
         if norm() is not None:
             for j in range(n_block_norms):
                 layer[f"{norm_key}_{j}"] = norm()
-        out[f"layer_{i}"] = layer
+        return layer
+
+    if cfg.scan_layers:  # the scanned Block is JAX's layer_idx 0 for every layer
+        stack = lambda t: {k: stack(v) for k, v in t.items()} if isinstance(t, dict) else ((cfg.n_layers, *t[0]), t[1])
+        out["layers"] = {"block": stack(block(0))}
+    else:
+        for i in range(cfg.n_layers):
+            out[f"layer_{i}"] = block(i)
     if norm() is not None and cfg.norm_scheme != "post":  # post-LN blocks end normalized
         out[f"{norm_key}_{n_norm}"] = norm()
         n_norm += 1
@@ -616,9 +629,25 @@ def block_fwd(cfg: TransformerConfig, p: Dict[str, Any], x: torch.Tensor, positi
     return (x, new_cache) if kv_cache is not None else x
 
 
+def check_scan(cfg: TransformerConfig) -> None:
+    """JAX ``Transformer.__call__``'s refusal: scanned blocks are one block's code."""
+    if cfg.scan_layers and not cfg.uniform_window:
+        raise ValueError("per-layer window_layers needs heterogeneous blocks: set scan_layers=False")
+
+
+def layer_params(cfg: TransformerConfig, params: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Block i's tree: ``layer_{i}``, or slice i of the stacked ``layers/block`` tree (``scan_layers``)."""
+    if not cfg.scan_layers:
+        return params[f"layer_{i}"]
+    take = lambda t: {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
+    return take(params["layers"]["block"])
+
+
 def _read_block_fwd(cfg, params, i: int, train: bool, x, positions, moe_aux=None, tp=None):
-    """Block i, its parameters read from ``params`` on every call (a checkpoint's recompute reads them again)."""
-    return block_fwd(cfg, params[f"layer_{i}"], x, positions, layer_idx=i, train=train, moe_aux=moe_aux, tp=tp)
+    """Block i, its parameters read from ``params`` on every call (a checkpoint's recompute reads them again).
+    A scanned block is JAX's ``Block`` at ``layer_idx`` 0."""
+    return block_fwd(cfg, layer_params(cfg, params, i), x, positions, layer_idx=0 if cfg.scan_layers else i,
+                     train=train, moe_aux=moe_aux, tp=tp)
 
 
 def _head_split(cfg: TransformerConfig, w: torch.Tensor, vd_layout: bool, tp) -> bool:
@@ -646,7 +675,8 @@ def head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden: torch.Tens
 def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_ids: torch.Tensor,
                         positions: Optional[torch.Tensor] = None, return_hidden: bool = False,
                         kv_caches: Optional[List[KVCache]] = None, train: Optional[bool] = None,
-                        moe_aux: Optional[List] = None, tp=None, token_type_ids: Optional[torch.Tensor] = None):
+                        moe_aux: Optional[List] = None, tp=None, token_type_ids: Optional[torch.Tensor] = None,
+                        pld_theta=None):
     """The reference ``Transformer.__call__``: embeddings (learned, rope,
     ALiBi or no positions; ``embed_scale``, token types (``token_type_ids``,
     zeros by default), ``embedding_norm``), the blocks
@@ -664,9 +694,15 @@ def transformer_forward(cfg: TransformerConfig, params: Dict[str, Any], input_id
     current ``TensorParallel`` when none is given): the blocks run on this
     rank's shard, checkpointed as without it, and a vocab-sharded ``wte`` /
     head looks up this rank's rows and sums over the group, and computes its
-    vocab columns and gathers them, so every rank gets the whole logits."""
-    if cfg.scan_layers:
-        raise NotImplementedError("scan_layers is not ported")
+    vocab columns and gathers them, so every rank gets the whole logits.
+    ``scan_layers`` (without caches): block i reads slice i of the stacked
+    tree (``layer_params``). ``pld_theta`` (progressive layer drop) raises:
+    JAX's ``ValueError`` with ``scan_layers``, else ``NotImplementedError``."""
+    if pld_theta is not None and cfg.scan_layers:
+        raise ValueError("progressive layer drop needs the unrolled layer loop: set scan_layers=False")
+    if pld_theta is not None:
+        raise NotImplementedError("progressive layer drop is not ported")
+    check_scan(cfg)
     train = (kv_caches is None) if train is None else bool(train)
     if tp is None and kv_caches is None:
         tp = current_tensor_parallel()
@@ -881,6 +917,8 @@ class CausalLM:
         moe_aux: List = []
         extra = {"token_type_ids": batch["token_type_ids"]} if cfg.type_vocab_size > 0 and "token_type_ids" in batch \
             else {}
+        if batch.get("pld_theta") is not None:
+            extra["pld_theta"] = batch["pld_theta"]
         hidden = self.apply(params, input_ids, return_hidden=True, moe_aux=moe_aux, **extra)
         if "labels" in batch:
             labels = batch["labels"]

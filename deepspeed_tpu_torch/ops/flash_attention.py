@@ -8,7 +8,13 @@ registers on mma.sync, K/V through a cp.async ring, mask arithmetic only on
 the tiles a mask cuts, the longest causal tiles first); the bf16 dq (writing
 dbias per program with a bias) and dk/dv, with or without a bias, are
 ``csrc/flash_bwd.cu``; the fp32 kernels and the collapsed dq are
-``csrc/flash_attention.cu``; see their source notes for the design.
+``csrc/flash_attention.cu``; see their source notes for the design. The
+kernels take the head dims in ``KERNEL_HEAD_DIMS``: 32, 64 and 128, and the
+Hugging Face families' 80 (phi-2), 96 (phi-3-mini, gpt-neox-20b) and 256
+(gemma, gpt-j), built from sources of their own (``csrc/flash_fwd_wide.cu``,
+``flash_dq_wide.cu``, ``flash_dkv_wide.cu``, ``flash_fp32_wide.cu``). The
+bodies with an additive bias (and the collapsed dq) are built at
+``BIAS_HEAD_DIMS`` only (evoformer runs at D 32); elsewhere a bias raises.
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward saves ``o`` and ``lse``; the backward computes
 ``delta = rowsum(o * do)`` in fp32 and launches dq and dk/dv. GQA stays
@@ -36,6 +42,8 @@ from . import _build
 from .attention import _repeat_kv, attention_xla
 
 NEG_INF = -1e30  # the reference kernels' mask value
+KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)  # the head dims the CUDA bodies are built for
+BIAS_HEAD_DIMS = (32, 64, 128)  # the head dims of the bodies with a bias and of the collapsed dq
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -168,7 +176,13 @@ def _check(what, q, k, v, slopes, do=None, lse=None, delta=None, bias=None, bias
         raise ValueError(f"{what}: every tensor must be contiguous on {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype or (do is not None and (do.dtype, do.shape) != (q.dtype, q.shape)):
         raise ValueError(f"{what}: k, v (and do) must have q's dtype {q.dtype} (and do q's shape)")
-    B, Sq, H, _ = q.shape
+    B, Sq, H, D = q.shape
+    if D not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"{what}: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if bias is not None and D not in BIAS_HEAD_DIMS:
+        raise NotImplementedError(f"{what}: the bodies with an additive bias (the reference's has_bias _fwd_kernel "
+                                  f"and _dq_kernel, _dkv_kernel, _dq_kernel_collapsed) take head dims "
+                                  f"{BIAS_HEAD_DIMS}, not {D}")
     for t in (lse, delta):
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (B, H, Sq)):
             raise ValueError(f"{what}: lse and delta must be ({B}, {H}, {Sq}) float32")
@@ -199,7 +213,9 @@ def flash_fwd(q, k, v, slopes, scale: float, causal: bool, window: int, bias=Non
               bias_meta=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: (o, lse). q (B, Sq, H, D); k, v (B, Sk, KVH, D); slopes
     (H,) fp32 or None; window 0 = none (only with causal); bias the flat fp32
-    (Bb*Hb, Sqb, Sk) or None. CUDA: float32 or bfloat16, D in {32, 64, 128}."""
+    (Bb*Hb, Sqb, Sk) or None. CUDA: float32 or bfloat16, D in
+    ``KERNEL_HEAD_DIMS`` (32, 64, 80, 96, 128, 256; with a bias
+    ``BIAS_HEAD_DIMS``, 32, 64, 128); anything else raises."""
     if not q.is_cuda:
         return flash_fwd_ref(q, k, v, slopes, scale, causal, window, bias, bias_meta)
     _check("flash_fwd", q, k, v, slopes, bias=bias, bias_meta=bias_meta)

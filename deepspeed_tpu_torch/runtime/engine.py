@@ -168,6 +168,16 @@ _ACC_DTYPES = {None: torch.float32, "fp32": torch.float32, "float32": torch.floa
                "bfloat16": torch.bfloat16, "fp16": torch.float16, "float16": torch.float16, "half": torch.float16}
 IGNORE_INDEX = -100  # the label CausalLM's loss ignores
 
+
+def _squared_norm(g: torch.Tensor) -> torch.Tensor:
+    """A gradient's squared L2 norm in fp32: ``vector_norm``'s tree reduction on the card; on the CPU the sum of
+    squares, whose cascade summation keeps a large leaf to fp32 precision (``vector_norm`` there accumulates
+    in order: 1.3 % low over 131 M elements, phi-2's ``wte``)."""
+    if g.is_cuda:
+        return torch.linalg.vector_norm(g, dtype=torch.float32).square()
+    g = g.float()
+    return (g * g).sum()
+
 LATEST_FILENAME = "latest"
 MODEL_STATES_FILENAME = "mp_rank_00_model_states.pt"
 
@@ -732,9 +742,9 @@ class DeepSpeedEngine:
         squared chunk norms (whole leaves once, on ZeRO rank 0) over the ZeRO
         group."""
         owned = [g for own, g in zip(self._norm_owned(), grads) if own]
-        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in owned]) if owned \
+        squares = torch.stack([_squared_norm(g) for g in owned]) if owned \
             else torch.zeros(1, dtype=torch.float32, device=self.device)
-        sq = self._norm_sum((norms * norms).sum().reshape(1))
+        sq = self._norm_sum(squares.sum().reshape(1))
         gnorm = sq[0].sqrt() * inv_scale
         finite = torch.isfinite(gnorm)
         mult = torch.full((), inv_scale, dtype=torch.float32, device=self.device)

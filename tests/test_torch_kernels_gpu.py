@@ -789,6 +789,17 @@ def _flash_inputs(dev, dtype, B, Sq, Sk, H, KVH, D, seed=0):
     dict(B=1, Sq=300, Sk=200, H=8, KVH=1, D=128, causal=True, window=70),   # Sq > Sk with a window
     dict(B=1, Sq=257, Sk=257, H=4, KVH=4, D=128, causal=True, alibi=True),
     dict(B=2, Sq=129, Sk=255, H=8, KVH=8, D=32, causal=True, window=33, alibi=True),
+    # the Hugging Face families' head dims (csrc/*_wide.cu): phi-2's 80, phi-3-mini's 96, gemma's and gpt-j's 256;
+    # at D 256 dq takes key tiles of 32 and dk/dv two halves of its grid (dK, dV): GQA / MQA (gemma-2b's 8 / 1),
+    # Sq < Sk and Sq > Sk, windows and ALiBi across those edges
+    dict(B=1, Sq=200, Sk=200, H=4, KVH=4, D=80, causal=True),
+    dict(B=1, Sq=129, Sk=257, H=4, KVH=2, D=96, causal=True),
+    dict(B=1, Sq=300, Sk=300, H=8, KVH=1, D=256, causal=True),
+    dict(B=2, Sq=96, Sk=97, H=4, KVH=4, D=256, causal=False),
+    dict(B=1, Sq=256, Sk=256, H=4, KVH=4, D=80, causal=True, window=70),
+    dict(B=1, Sq=160, Sk=160, H=4, KVH=4, D=96, causal=True, alibi=True),
+    dict(B=1, Sq=150, Sk=100, H=4, KVH=2, D=256, causal=True, window=33, alibi=True),
+    dict(B=1, Sq=65, Sk=65, H=8, KVH=1, D=80, causal=True),
 ])
 def test_flash_kernels(cuda, dtype, case):
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -822,6 +833,8 @@ def test_flash_kernels(cuda, dtype, case):
     dict(B=2, Sq=1024, Sk=1024, H=8, KVH=8, D=64, causal=True),
     dict(B=1, Sq=515, Sk=515, H=8, KVH=2, D=128, causal=True, window=200, alibi=True),
     dict(B=1, Sq=300, Sk=200, H=8, KVH=1, D=32, causal=False),
+    dict(B=1, Sq=300, Sk=300, H=8, KVH=1, D=80, causal=True),
+    dict(B=1, Sq=300, Sk=300, H=8, KVH=1, D=256, causal=True),  # dk/dv: each half of the grid sums its heads in order
 ])
 def test_flash_backward_repeats_bit_for_bit(cuda, case):
     """Two launches of the bf16 dq and dk/dv give bit-equal results: no atomics, a fixed order over the group."""
@@ -839,6 +852,19 @@ def test_flash_backward_repeats_bit_for_bit(cuda, case):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert all(torch.isfinite(t).all() for t in first)
+
+
+def test_flash_head_dims_refuse_a_bias_at_80_and_other_dims(cuda):
+    """The bias bodies are built at D 32, 64 and 128 only: a bias at D 80 raises naming them; D 48 is no body."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 2, 80)
+    bias, meta = fa.flat_bias(torch.zeros((1, 2, 64, 64), device=cuda), 1, 1, 2, 64, 64)
+    with pytest.raises(NotImplementedError, match="additive bias"):
+        fa.flash_fwd(q, k, v, None, 80 ** -0.5, True, 0, bias, meta)
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 2, 48)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        fa.flash_fwd(q, k, v, None, 48 ** -0.5, True, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2404,3 +2430,41 @@ def test_pipe_and_sequence_engines_on_cuda_over_named_gloo_match_the_cpu(cuda, t
         on_cpu = torch.load(tmp_path / f"engines_cpu_rank{r}.pt", weights_only=False)["losses"]
         for name in ("pipe", "seq", "context"):
             assert max(abs(a - b) for a, b in zip(on_card[name], on_cpu[name])) <= 1e-5, (name, on_card, on_cpu)
+
+
+def test_transformer_layer_defaults_to_the_card_and_matches_the_cpu(cuda):
+    """``DeepSpeedTransformerLayer`` built with no device lands on the card (flash without a mask, the norm
+    kernels), and its fp32 output and gradients equal the CPU route's within 1e-5 of each tensor's largest
+    value (the kernels sum in another order than the plain versions); with remat and dropout from one CUDA
+    generator, two layers leave it where the stack without remat does."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import transformer as T
+
+    cfg = T.DeepSpeedTransformerConfig(hidden_size=256, intermediate_size=1024, heads=4)
+    card = T.DeepSpeedTransformerLayer(cfg, generator=torch.Generator(device=cuda).manual_seed(0))
+    assert all(p.device.type == "cuda" for p in card.parameters())
+    host = T.DeepSpeedTransformerLayer.from_flax(cfg, card.flax_params(), device="cpu")
+    x = torch.randn((2, 128, 256), generator=torch.Generator().manual_seed(1))
+    outs, grads = [], []
+    for layer, dev in ((card, cuda), (host, torch.device("cpu"))):
+        xt = x.to(dev).requires_grad_(True)
+        launches = fa.flash_fwd.launches
+        o = layer(xt)
+        (o ** 2).sum().backward()
+        assert (fa.flash_fwd.launches - launches) == (1 if dev.type == "cuda" else 0)
+        outs.append(o.detach().cpu())
+        grads.append([xt.grad.cpu()] + [p.grad.cpu() for p in layer.parameters()])
+    scale = lambda t: max(1.0, t.abs().max().item())  # noqa: E731
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-5 * scale(outs[1])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-5 * scale(b)
+    kw = dict(hidden_size=256, intermediate_size=1024, heads=4, attn_dropout_ratio=0.1, hidden_dropout_ratio=0.1)
+    states = {}
+    for remat in (False, True):
+        layers = [T.DeepSpeedTransformerLayer.from_flax(T.DeepSpeedTransformerConfig(remat=remat, **kw),
+                                                        card.flax_params()) for _ in range(2)]
+        g = torch.Generator(device=cuda).manual_seed(2)
+        o = layers[1](layers[0](x.to(cuda), deterministic=False, generator=g), deterministic=False, generator=g)
+        o.sum().backward()
+        states[remat] = g.get_state()
+    assert torch.equal(states[True], states[False])
